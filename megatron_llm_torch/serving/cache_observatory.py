@@ -1,0 +1,723 @@
+"""KV prefix-cache observatory: heat attribution, eviction forensics,
+and ghost-cache capacity simulation.
+
+The ROADMAP's host-RAM cache tier is justified by an assumption the
+four lifetime counters in ``kv_blocks.py`` cannot test: that the HBM
+LRU is evicting *hot shared prefixes* a larger tier would retain.  This
+module turns the BlockManager's existing digest machinery into the
+measurement:
+
+* **Per-prefix heat table** — a bounded top-K map from *salted* prefix
+  digest to hit count, hit tokens, last access, refcount-weighted
+  residency, eviction count, and regret.  Keys are one-way: each entry
+  is ``blake2b(chain_digest, key=salt)`` where the salt is random per
+  process (or ``MEGATRON_CACHE_SALT`` for a fleet-stable keyspace so
+  the router can merge heat tables across replicas).  Token ids are
+  never logged, and without the salt a known prompt cannot even be
+  *confirmed* against an exported table.
+* **Eviction forensics** — every LRU eviction is classified
+  ``capacity`` (live refcounted blocks dominate the pool: the pool is
+  genuinely too small) vs ``churn`` (parked reusable pages dominate:
+  one-shot prefixes are cycling the LRU).  A bounded ledger of evicted
+  digests turns a later miss on one of them into the
+  ``miss_evicted`` / evicted-then-wanted-again **regret** counter —
+  the direct evidence line for a second cache tier.
+* **Ghost tiers** — digest-only shadow replicas of the BlockManager's
+  cache discipline at capacity multiples (default 2x/4x/10x).  A ghost
+  stores no pages: per entry it keeps one dict slot and an LRU link,
+  and it replays exactly the block economy of a real manager with N
+  times the usable blocks — same match cap, same adoption refcounts,
+  same commit/duplicate rules, same copy-on-write barrier, same
+  free-time LRU ordering, same evict-on-take.  ``ghost x2 hits`` is
+  therefore not an estimate of a 2x-capacity cache: it *is* the hit
+  count a 2x pool would have produced on this trace (the oracle test
+  in ``tests/test_cache_observatory.py`` replays a recorded admission
+  trace against a real double-size BlockManager and asserts exact
+  equality).
+
+Everything here is plain-dict host bookkeeping driven synchronously
+from the BlockManager's locked sections — no jax, no device traffic,
+so the zero-steady-state-recompile invariant is untouched.  Like the
+LoopProfiler, the observatory is engine-lifetime (restarts
+swap BlockManager instances, not the accounting), owns its own lock,
+and emits periodic ``cache_stats`` JSONL records (telemetry schema
+11) on a dispatch-or-interval cadence.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import threading
+import time
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from megatron_llm_torch import telemetry
+
+DEFAULT_GHOST_MULTIPLES = (2, 4, 10)
+
+#: eviction reasons (forensics taxonomy; classified in record_evict)
+EVICT_CAPACITY = "capacity"
+EVICT_CHURN = "churn"
+
+
+class _GhostTier:
+    """Digest-only simulation of the BlockManager's prefix-cache block
+    economy at ``mult`` times the usable pool.  Per live "block" the
+    tier stores either a registered digest (one canonical entry per
+    digest, like ``_cache``/``_block_hash``) or an anonymous private
+    block (a free-budget debit).  The update rules are a line-for-line
+    shadow of ``kv_blocks.BlockManager``; divergence from a real
+    ``mult``-times manager on the same operation trace is a bug, and
+    the oracle test pins it to zero."""
+
+    __slots__ = ("mult", "capacity", "free", "table", "lru", "slots",
+                 "hits", "misses", "hit_tokens", "evictions", "overflows")
+
+    def __init__(self, mult: int, usable_blocks: int):
+        self.mult = int(mult)
+        self.capacity = int(mult) * int(usable_blocks)
+        self.free = self.capacity
+        # digest -> refcount (number of owning ghost slots; 0 => parked
+        # in the LRU, still holding its block — mirrors _cache + _lru)
+        self.table: Dict[bytes, int] = {}
+        self.lru: "OrderedDict[bytes, None]" = OrderedDict()
+        # slot -> per-block items: a digest for a registered reference
+        # (adopted or canonical), None for a private unregistered block
+        self.slots: Dict[int, List[Optional[bytes]]] = {}
+        self.hits = 0
+        self.misses = 0
+        self.hit_tokens = 0
+        self.evictions = 0
+        self.overflows = 0      # budget exhausted (never with mult >= 1)
+
+    # -- the BlockManager economy, digest-only --------------------------
+
+    def lookup_locked(self, digests: Sequence[bytes]) -> List[bytes]:
+        """_match_prefix_locked: longest run of registered digests.
+        Counts hits/misses exactly where the real manager does — at
+        match time, before any capacity check."""
+        matched: List[bytes] = []
+        for d in digests:
+            if d not in self.table:
+                break
+            matched.append(d)
+        self.hits += len(matched)
+        self.misses += len(digests) - len(matched)
+        return matched
+
+    def _take_block_locked(self) -> None:
+        """_take_block_locked: free budget first, else evict LRU head."""
+        if self.free > 0:
+            self.free -= 1
+            return
+        if self.lru:
+            d, _ = self.lru.popitem(last=False)
+            del self.table[d]
+            self.evictions += 1
+            return
+        self.overflows += 1     # real manager would raise NoCapacity
+
+    def admit_locked(self, slot: int, matched: List[bytes], n_blocks: int,
+              block_size: int) -> None:
+        """alloc() success path: adopt matched digests by reference
+        (refcount++, leaving the reusable list), take the remainder as
+        fresh private blocks."""
+        stale = self.slots.pop(slot, None)
+        if stale is not None:       # defensive: slot id reuse w/o free
+            self._release_items_locked(stale)
+        items: List[Optional[bytes]] = []
+        for d in matched:
+            rc = self.table.get(d)
+            if rc is None:          # diverged entry (defensive only)
+                items.append(None)
+                self._take_block_locked()
+                continue
+            if rc == 0:
+                self.lru.pop(d, None)
+            self.table[d] = rc + 1
+            items.append(d)
+        for _ in range(n_blocks - len(items)):
+            self._take_block_locked()
+            items.append(None)
+        self.slots[slot] = items
+        self.hit_tokens += len(matched) * block_size
+
+    def commit_locked(self, slot: int, digests: Sequence[bytes]) -> List[str]:
+        """_commit_locked: register fully written private blocks; an
+        already-registered digest keeps its canonical entry (this
+        slot's copy stays an anonymous duplicate).  Returns the
+        per-digest action taken — ``reg`` (registered fresh),
+        ``live`` (entry exists with owners, or this slot's own block
+        is already registered), ``parked`` (entry exists but sits
+        refcount-zero in the LRU: the skip leaves its recency STALE,
+        the event that breaks strict cross-capacity inclusion) — so
+        the observatory can count inclusion-breaking divergences."""
+        items = self.slots.get(slot)
+        if items is None:
+            return []
+        actions: List[str] = []
+        for i in range(min(len(digests), len(items))):
+            d = digests[i]
+            if items[i] is not None:
+                actions.append("live")
+                continue
+            rc = self.table.get(d)
+            if rc is not None:
+                actions.append("parked" if rc == 0 else "live")
+                continue
+            self.table[d] = 1
+            items[i] = d
+            actions.append("reg")
+        return actions
+
+    def cow_locked(self, slot: int, block_idx: int) -> Optional[bytes]:
+        """ensure_writable: sole-owner registered pages unregister;
+        shared pages cost a fresh private block (which may evict).
+        Returns the digest this tier UNREGISTERED, if any — a page
+        that is a sole-owner canonical here can be a private duplicate
+        at a smaller capacity (whose canonical survives elsewhere), so
+        a COW unregister is the second way strict cross-capacity
+        inclusion legitimately breaks (see record_cow)."""
+        items = self.slots.get(slot)
+        if items is None or block_idx >= len(items):
+            return None
+        d = items[block_idx]
+        if d is None:
+            return None
+        rc = self.table.get(d, 1)
+        if rc <= 1:
+            self.table.pop(d, None)
+            self.lru.pop(d, None)
+            items[block_idx] = None
+            return d
+        self.table[d] = rc - 1
+        items[block_idx] = None
+        self._take_block_locked()
+        return None
+
+    def _release_items_locked(self, items: List[Optional[bytes]]) -> None:
+        for d in items:
+            if d is None:
+                self.free += 1
+                continue
+            rc = self.table.get(d, 1) - 1
+            if rc > 0:
+                self.table[d] = rc
+                continue
+            self.table[d] = 0
+            self.lru[d] = None
+            self.lru.move_to_end(d)
+
+    def release_locked(self, slot: int) -> None:
+        """free(): refcount-zero registered digests park in the LRU (in
+        slot-block order, matching the real free loop); private blocks
+        return to the budget.  Free-time registration runs through
+        commit() first, exactly like the real manager."""
+        items = self.slots.pop(slot, None)
+        if items is not None:
+            self._release_items_locked(items)
+
+    def reset_pool_locked(self) -> None:
+        """Engine restart: the real pool is rebuilt empty, so every
+        ghost slot releases.  Registered digests stay resident — the
+        ghost keeps simulating a tier that survives the restart."""
+        for slot in list(self.slots):
+            self.release_locked(slot)
+
+    def stats(self) -> Dict[str, Any]:
+        probes = self.hits + self.misses
+        return {
+            "capacity_blocks": self.capacity,
+            "hits": self.hits,
+            "misses": self.misses,
+            "hit_tokens": self.hit_tokens,
+            "evictions": self.evictions,
+            "entries": len(self.table),
+            "hit_rate": round(self.hits / probes, 4) if probes else None,
+        }
+
+
+class _MatchToken:
+    """Opaque result of record_match(), handed back to record_admit()
+    on alloc success so the pair needs no hidden shared state."""
+
+    __slots__ = ("digests", "real_matched", "host_matched", "ghost_matched",
+                 "miss_cold", "miss_evicted")
+
+    def __init__(self, digests, real_matched, host_matched, ghost_matched,
+                 miss_cold, miss_evicted):
+        self.digests = digests
+        self.real_matched = real_matched
+        self.host_matched = host_matched
+        self.ghost_matched = ghost_matched
+        self.miss_cold = miss_cold
+        self.miss_evicted = miss_evicted
+
+
+class CacheObservatory:
+    """Heat, forensics, and ghost tiers for one engine's prefix cache.
+
+    Driven synchronously from BlockManager's locked sections; owns its
+    own lock because it outlives BlockManager instances (engine
+    restarts swap the pool, not the accounting) and is read by HTTP
+    handler threads via stats().  Lock order is strictly
+    BlockManager._lock -> CacheObservatory._lock; the observatory
+    never calls back into the manager."""
+
+    # lint-enforced (graft-race TH001): mutated from the engine loop
+    # and HTTP admission threads (via BlockManager hooks), read by
+    # /metrics handler threads — every access goes through _lock.
+    _lock_protected_ = {
+        "match_calls": "_lock",
+        "probes": "_lock",
+        "hits": "_lock",
+        "misses": "_lock",
+        "hit_tokens": "_lock",
+        "miss_cold": "_lock",
+        "miss_evicted": "_lock",
+        "evictions_capacity": "_lock",
+        "evictions_churn": "_lock",
+        "pool_resets": "_lock",
+        "inclusion_divergences": "_lock",
+        "host_hits": "_lock",
+        "host_hit_tokens": "_lock",
+        "swap_in_blocks": "_lock",
+        "_host": "_lock",
+        "_heat": "_lock",
+        "_heat_evicted": "_lock",
+        "_evicted": "_lock",
+        "_seen": "_lock",
+        "_tiers": "_lock",
+        "_emitted_at_matches": "_lock",
+        "_emitted_at_time": "_lock",
+    }
+
+    def __init__(self, usable_blocks: int, block_size: int,
+                 ghost_multiples: Sequence[int] = DEFAULT_GHOST_MULTIPLES,
+                 heat_cap: int = 256, heat_report_k: int = 16,
+                 evicted_horizon: int = 4096, seen_horizon: int = 65536,
+                 emit_every_matches: int = 256,
+                 emit_interval_secs: float = 15.0,
+                 salt: Optional[bytes] = None,
+                 clock=time.perf_counter):
+        self.usable_blocks = int(usable_blocks)
+        self.block_size = int(block_size)
+        self.heat_cap = max(int(heat_cap), 1)
+        self.heat_report_k = max(int(heat_report_k), 1)
+        self.evicted_horizon = max(int(evicted_horizon), 1)
+        self.seen_horizon = max(int(seen_horizon), 1)
+        self.emit_every_matches = int(emit_every_matches)
+        self.emit_interval_secs = float(emit_interval_secs)
+        self._clock = clock
+        if salt is None:
+            env = os.environ.get("MEGATRON_CACHE_SALT", "")
+            salt = env.encode("utf-8") if env else os.urandom(16)
+        self._salt = salt[:32]      # blake2b key cap
+        self._lock = threading.Lock()
+        mults = sorted({int(m) for m in ghost_multiples if int(m) >= 1})
+        self._tiers: List[_GhostTier] = [
+            _GhostTier(m, self.usable_blocks) for m in mults]
+        # salted-key heat table (bounded top-K; values are plain dicts
+        # so stats() can ship them verbatim)
+        self._heat: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
+        self._heat_evicted = 0      # heat entries dropped at heat_cap
+        # raw-digest bounded ledgers: recently evicted (regret lookups)
+        # and ever-registered (salted; feeds the heat ⊆ seen invariant)
+        self._evicted: "OrderedDict[bytes, None]" = OrderedDict()
+        self._seen: "OrderedDict[str, None]" = OrderedDict()
+        self.match_calls = 0
+        self.probes = 0
+        self.hits = 0               # shadow of the real manager's counter
+        self.misses = 0
+        self.hit_tokens = 0
+        self.miss_cold = 0          # digest never seen in the ledger
+        self.miss_evicted = 0       # the evicted-then-wanted regret counter
+        self.evictions_capacity = 0
+        self.evictions_churn = 0
+        self.pool_resets = 0
+        self.inclusion_divergences = 0    # see record_commit / record_cow
+        # host spill tier (serving/host_cache.py), attached by the
+        # engine when --serve_host_cache_bytes > 0.  ``hits`` above is
+        # the TWO-TIER rate (HBM + host) — directly comparable to the
+        # ghost tiers' counterfactuals; host_hits attributes the subset
+        # the spill tier rescued.
+        self._host = None
+        self.host_hits = 0
+        self.host_hit_tokens = 0
+        self.swap_in_blocks = 0
+        self._emitted_at_matches = 0
+        self._emitted_at_time = self._clock()
+
+    def attach_host(self, host) -> None:
+        """Wire the host spill tier's stats into the ``cache`` block
+        (the tier is engine-lifetime, like this object)."""
+        with self._lock:
+            self._host = host
+
+    # -- keys -----------------------------------------------------------
+
+    def salted_key(self, digest: bytes) -> str:
+        """One-way per-process (or fleet, via MEGATRON_CACHE_SALT) key
+        for a chain digest.  Heat tables and JSONL records only ever
+        carry this — never token ids, never the raw digest."""
+        return hashlib.blake2b(digest, key=self._salt,
+                               digest_size=8).hexdigest()
+
+    # -- heat table -----------------------------------------------------
+
+    def _heat_touch_locked(self, digest: bytes) -> Dict[str, Any]:
+        key = self.salted_key(digest)
+        e = self._heat.get(key)
+        if e is None:
+            if len(self._heat) >= self.heat_cap:
+                coldest = min(self._heat,
+                              key=lambda k: (self._heat[k]["hits"],
+                                             self._heat[k]["last_seq"]))
+                del self._heat[coldest]
+                self._heat_evicted += 1
+            e = {"prefix": key, "hits": 0, "hit_tokens": 0,
+                 "last_seq": 0, "residency": 0, "peak_refcount": 0,
+                 "evictions": 0, "regret": 0}
+            self._heat[key] = e
+        e["last_seq"] = self.match_calls
+        return e
+
+    # -- BlockManager hooks (called with the manager lock held) ---------
+
+    def record_match(self, digests: Sequence[bytes], matched: int,
+                     host_matched: int = 0) -> _MatchToken:
+        """One _match_prefix_locked call: ``matched`` of ``digests``
+        hit the real (HBM) cache and the next ``host_matched`` hit the
+        host spill tier.  ``hits`` counts both — the two-tier rate —
+        with host_hits attributing the spill tier's share.  Updates
+        heat for the hits (tier-agnostic: a rescued prefix is just as
+        hot), classifies the misses (regret vs cold), and runs every
+        ghost tier's lookup.  The returned token goes to
+        record_admit() if the alloc succeeds — a NoCapacity alloc
+        counted its probes, like the real counters do."""
+        with self._lock:
+            self.match_calls += 1
+            self.probes += len(digests)
+            self.hits += matched + host_matched
+            self.host_hits += host_matched
+            self.misses += len(digests) - matched - host_matched
+            for d in digests[:matched + host_matched]:
+                e = self._heat_touch_locked(d)
+                e["hits"] += 1
+                e["hit_tokens"] += self.block_size
+            miss_cold = miss_evicted = 0
+            for d in digests[matched + host_matched:]:
+                if d in self._evicted:
+                    miss_evicted += 1
+                    key = self.salted_key(d)
+                    e = self._heat.get(key)
+                    if e is not None:
+                        e["regret"] += 1
+                else:
+                    miss_cold += 1
+            self.miss_cold += miss_cold
+            self.miss_evicted += miss_evicted
+            ghost = {t.mult: t.lookup_locked(digests) for t in self._tiers}
+        return _MatchToken(list(digests), matched, host_matched, ghost,
+                           miss_cold, miss_evicted)
+
+    def record_admit(self, slot: int, token: Optional[_MatchToken],
+                     n_blocks: int,
+                     refcounts: Sequence[int] = ()) -> None:
+        """alloc() succeeded: ghost tiers admit the slot; adopted real
+        digests accrue refcount-weighted residency."""
+        with self._lock:
+            if token is not None:
+                self.hit_tokens += (token.real_matched
+                                    + token.host_matched) * self.block_size
+                self.host_hit_tokens += token.host_matched * self.block_size
+                for d, rc in zip(token.digests, refcounts):
+                    e = self._heat.get(self.salted_key(d))
+                    if e is not None:
+                        e["residency"] += int(rc)
+                        e["peak_refcount"] = max(e["peak_refcount"],
+                                                 int(rc))
+            for t in self._tiers:
+                matched = token.ghost_matched.get(t.mult, []) \
+                    if token is not None else []
+                t.admit_locked(slot, matched, n_blocks, self.block_size)
+
+    def record_commit(self, slot: int, digests: Sequence[bytes],
+                      real_actions: Sequence[str] = ()) -> None:
+        """_commit_locked ran over ``digests`` full blocks.
+        ``real_actions`` is the real manager's per-digest outcome in
+        the same reg/live/parked taxonomy as _GhostTier.commit.
+
+        The prefix cache is *almost* a stack algorithm (LRU inclusion
+        across capacities), but not exactly: when a smaller level
+        re-registers a digest fresh while a larger level still holds
+        it parked, the skip leaves the larger level's entry at stale
+        recency, and the larger level can later evict a digest the
+        smaller one retains.  Those events are counted here as
+        ``inclusion_divergences``; check_invariants() asserts strict
+        superset ordering whenever none have occurred."""
+        with self._lock:
+            for d in digests:
+                key = self.salted_key(d)
+                if key not in self._seen:
+                    self._seen[key] = None
+                    if len(self._seen) > self.seen_horizon:
+                        self._seen.popitem(last=False)
+            per_level = [list(real_actions)]
+            for t in self._tiers:
+                per_level.append(t.commit_locked(slot, digests))
+            for i in range(len(digests)):
+                smaller_fresh = False
+                for actions in per_level:
+                    a = actions[i] if i < len(actions) else None
+                    if a == "parked" and smaller_fresh:
+                        self.inclusion_divergences += 1
+                        break
+                    if a in ("reg", "live"):
+                        smaller_fresh = True
+
+    def record_cow(self, slot: int, block_idx: int) -> List[bytes]:
+        """ensure_writable ran.  Each tier applies its own barrier; a
+        tier that unregisters a digest a SMALLER tier still holds has
+        broken strict inclusion (sole-owner canonical here, surviving
+        duplicate+canonical there) — counted like the commit-skip
+        divergences.  Returns the digests any tier unregistered so the
+        BlockManager can count the real-cache-vs-smallest-tier case."""
+        with self._lock:
+            dropped: List[bytes] = []
+            for i, t in enumerate(self._tiers):
+                d = t.cow_locked(slot, block_idx)
+                if d is None:
+                    continue
+                dropped.append(d)
+                if any(d in smaller.table for smaller in self._tiers[:i]):
+                    self.inclusion_divergences += 1
+            return dropped
+
+    def note_inclusion_divergence(self, n: int = 1) -> None:
+        """The real manager retains a digest a ghost tier just dropped
+        (COW unregister at larger capacity) — strict inclusion no
+        longer holds; stop asserting it."""
+        with self._lock:
+            self.inclusion_divergences += int(n)
+
+    def record_swap_in(self, registered: Sequence[bytes],
+                       n_blocks: int) -> None:
+        """complete_swap_ins registered ``registered`` digests back
+        into the HBM cache after scattering ``n_blocks`` host pages to
+        device.  A swapped-in digest the smallest ghost tier does not
+        hold breaks the real⊆ghost stack property (the two-tier real
+        cache resurrects digests a single-tier counterfactual lost) —
+        counted like the other inclusion divergences so
+        check_invariants() stops asserting strict inclusion, which is
+        genuinely no longer the cache's discipline."""
+        with self._lock:
+            self.swap_in_blocks += int(n_blocks)
+            if self._tiers:
+                t0 = self._tiers[0]
+                self.inclusion_divergences += sum(
+                    1 for d in registered if d not in t0.table)
+
+    def record_free(self, slot: int) -> None:
+        with self._lock:
+            for t in self._tiers:
+                t.release_locked(slot)
+
+    def record_evict(self, digest: bytes, blocks_in_use: int,
+                     lru_len: int) -> None:
+        """A real LRU eviction.  ``capacity``: live refcounted blocks
+        outnumber parked reusable ones — the pool is too small for the
+        working set and a bigger tier would have kept this page.
+        ``churn``: the pool is dominated by parked one-shot pages
+        cycling through the LRU."""
+        with self._lock:
+            if blocks_in_use > lru_len:
+                self.evictions_capacity += 1
+                reason = EVICT_CAPACITY
+            else:
+                self.evictions_churn += 1
+                reason = EVICT_CHURN
+            self._evicted[digest] = None
+            self._evicted.move_to_end(digest)
+            if len(self._evicted) > self.evicted_horizon:
+                self._evicted.popitem(last=False)
+            e = self._heat.get(self.salted_key(digest))
+            if e is not None:
+                e["evictions"] += 1
+                e["last_evict_reason"] = reason
+
+    def on_pool_reset(self) -> None:
+        """Engine restart rebuilt the BlockManager: ghost slots release
+        (their blocks are gone) but digests stay resident — the ghost
+        keeps modelling a tier that would survive the restart."""
+        with self._lock:
+            self.pool_resets += 1
+            for t in self._tiers:
+                t.reset_pool_locked()
+
+    # -- surfaces -------------------------------------------------------
+
+    def heat_top(self, k: Optional[int] = None) -> List[Dict[str, Any]]:
+        with self._lock:
+            return self._heat_top_locked(k)
+
+    def _heat_top_locked(self, k: Optional[int] = None
+                         ) -> List[Dict[str, Any]]:
+        k = self.heat_report_k if k is None else int(k)
+        entries = sorted(self._heat.values(),
+                         key=lambda e: (-e["hits"], -e["last_seq"]))[:k]
+        out = []
+        for e in entries:
+            d = dict(e)
+            d["last_access_age"] = self.match_calls - d.pop("last_seq")
+            out.append(d)
+        return out
+
+    def stats(self) -> Dict[str, Any]:
+        """The ``cache`` block of engine stats()/metrics.  Scalar
+        leaves are fleet-summable (the router's _sum_numeric adds them
+        across replicas); ``heat_top`` merges top-K by salted prefix
+        in the router instead."""
+        with self._lock:
+            probes = self.probes
+            return {
+                "match_calls": self.match_calls,
+                "probes": probes,
+                "hits": self.hits,
+                "misses": self.misses,
+                "hit_tokens": self.hit_tokens,
+                "hit_rate": (round(self.hits / probes, 4)
+                             if probes else None),
+                "host_hits": self.host_hits,
+                "host_hit_tokens": self.host_hit_tokens,
+                "swap_in_blocks": self.swap_in_blocks,
+                "miss_cold": self.miss_cold,
+                "miss_evicted": self.miss_evicted,
+                "evictions_capacity": self.evictions_capacity,
+                "evictions_churn": self.evictions_churn,
+                "pool_resets": self.pool_resets,
+                "inclusion_divergences": self.inclusion_divergences,
+                "heat_entries": len(self._heat),
+                "heat_evicted": self._heat_evicted,
+                "heat_top": self._heat_top_locked(),
+                "ghost": {f"x{t.mult}": t.stats() for t in self._tiers},
+                "host": (self._host.stats() if self._host is not None
+                         else {"enabled": 0}),
+            }
+
+    def cache_stats_record(self) -> Dict[str, Any]:
+        """The periodic ``cache_stats`` JSONL record (schema 11): the
+        stats() block under the serve-event envelope."""
+        return {"kind": "serve", "event": "cache_stats", **self.stats()}
+
+    def maybe_emit(self, now: Optional[float] = None,
+                   force: bool = False) -> bool:
+        """Emit ``cache_stats`` when due (every emit_every_matches
+        match calls, or emit_interval_secs with at least one new
+        match), or unconditionally with ``force``."""
+        stream = telemetry.get_stream()
+        if stream is None:
+            return False
+        if now is None:
+            now = self._clock()
+        with self._lock:
+            fresh = self.match_calls - self._emitted_at_matches
+            due = force or fresh >= self.emit_every_matches or (
+                fresh > 0
+                and now - self._emitted_at_time >= self.emit_interval_secs)
+            if not due:
+                return False
+            self._emitted_at_matches = self.match_calls
+            self._emitted_at_time = now
+        try:
+            stream.emit(self.cache_stats_record())
+        except Exception:       # noqa: BLE001 - engine loop must survive
+            return False
+        return True
+
+    # -- invariants (test/debug; called by BlockManager) ----------------
+
+    def check_invariants(self,
+                         real_cache: Optional[Dict[bytes, int]] = None,
+                         real_hits: Optional[int] = None,
+                         real_misses: Optional[int] = None,
+                         real_host_hits: Optional[int] = None) -> None:
+        with self._lock:
+            assert self.hits + self.misses == self.probes
+            assert self.miss_cold + self.miss_evicted == self.misses
+            assert self.host_hits <= self.hits, \
+                "host-tier hits exceed two-tier total"
+            # heat keys only ever come from digests the cache touched;
+            # every hit digest was registered, so (within the bounded
+            # seen-ledger horizon) heat ⊆ seen
+            if len(self._seen) < self.seen_horizon:
+                for key, e in self._heat.items():
+                    assert e["hits"] == 0 or key in self._seen, \
+                        f"heat entry {key} hit but never registered"
+            for t in self._tiers:
+                assert t.hits + t.misses == self.probes, \
+                    f"ghost x{t.mult} probed a different stream"
+                assert t.overflows == 0, \
+                    f"ghost x{t.mult} budget overflow"
+                used_private = sum(1 for items in t.slots.values()
+                                   for d in items if d is None)
+                assert t.free + used_private + len(t.table) \
+                    == t.capacity, f"ghost x{t.mult} block leak"
+                assert set(t.lru) <= set(t.table)
+                for d in t.lru:
+                    assert t.table[d] == 0
+            if self.pool_resets == 0 and self.inclusion_divergences == 0:
+                # LRU stack property: bigger tiers strictly contain
+                # smaller ones (and the real cache) on the same trace.
+                # Strict inclusion holds until a stale-recency commit
+                # skip or a larger-capacity COW unregister
+                # (inclusion_divergences; record_commit / record_cow) —
+                # after that only the ghost-internal audits above apply.
+                for small, big in zip(self._tiers, self._tiers[1:]):
+                    assert set(small.table) <= set(big.table), \
+                        (f"ghost x{small.mult} not a subset of "
+                         f"x{big.mult}")
+                    assert small.hits <= big.hits
+                if real_cache is not None and self._tiers:
+                    t0 = self._tiers[0]
+                    assert set(real_cache) <= set(t0.table), \
+                        "real cache holds digests ghost tier lost"
+            # the shadow counters track the real ones unconditionally —
+            # they are fed the real match results, not a simulation
+            if real_hits is not None:
+                assert self.hits == real_hits
+            if real_misses is not None:
+                assert self.misses == real_misses
+            if real_host_hits is not None:
+                assert self.host_hits == real_host_hits
+
+
+def merge_heat_tops(tables: Sequence[Sequence[Dict[str, Any]]],
+                    k: int = 16) -> List[Dict[str, Any]]:
+    """Fleet merge for heat tables: entries with the same salted prefix
+    (same MEGATRON_CACHE_SALT across replicas) sum their counters;
+    distinct keyspaces just compete for the top-K.  Used by the
+    router's aggregated /metrics."""
+    merged: Dict[str, Dict[str, Any]] = {}
+    for table in tables:
+        if not isinstance(table, (list, tuple)):
+            continue
+        for e in table:
+            if not isinstance(e, dict) or "prefix" not in e:
+                continue
+            cur = merged.get(e["prefix"])
+            if cur is None:
+                merged[e["prefix"]] = dict(e)
+                continue
+            for f in ("hits", "hit_tokens", "residency", "evictions",
+                      "regret"):
+                cur[f] = cur.get(f, 0) + e.get(f, 0)
+            cur["peak_refcount"] = max(cur.get("peak_refcount", 0),
+                                       e.get("peak_refcount", 0))
+            cur["last_access_age"] = min(
+                cur.get("last_access_age", 0) or 0,
+                e.get("last_access_age", 0) or 0)
+    return sorted(merged.values(),
+                  key=lambda e: -e.get("hits", 0))[:k]

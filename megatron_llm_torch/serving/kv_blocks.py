@@ -1,0 +1,669 @@
+"""Slot-based block manager for the paged serving KV cache.
+
+The engine owns ONE fixed-shape pool of KV pages per layer
+(``[num_blocks, block_size, groups, head_dim]``, allocated by
+``text_generation.generation.init_paged_kv_caches``).  This module is the
+host-side bookkeeping over that pool: which *slot* (batch row of the
+jitted decode step) is live, which pool blocks each slot owns, and the
+``[num_slots, max_blocks_per_slot]`` block-table array the paged
+attention branch (models/transformer.py) consumes.
+
+Design points (Ragged Paged Attention, arXiv:2604.15464; vLLM's block
+manager):
+
+* **Block 0 is reserved as the garbage block.**  Padded prefill tokens
+  and inactive decode rows scatter their K/V there; table entries beyond
+  a slot's allocation also point at it.  Nothing ever reads it unmasked.
+* **Admission reserves a request's worst case** (prompt + max_new
+  tokens) up front.  No lazy growth means no mid-decode OOM and no
+  preemption machinery; the pool still beats a dense
+  ``[slots, max_len]`` cache because short requests hold few blocks and
+  the rest stay free for admission.
+* Everything here is plain numpy/ints — no jax, no device traffic.  The
+  engine uploads ``tables`` (whole array, a few KB) whenever an
+  allocation changes it; shapes never change, so the jitted step never
+  recompiles.
+
+Prefix caching (``prefix_cache=True``):
+
+* Every **full block of prompt tokens** is keyed by a rolling
+  blake2b digest chained over all preceding blocks, so a block's key
+  commits to the entire prefix up to and including it.  Identical
+  prefixes across requests map to identical digests and **share the same
+  physical pages** — admission bumps a per-block refcount instead of
+  re-running prefill.
+* A request never adopts its *entire* prompt from cache: the match is
+  capped at ``len(prompt) - 1`` tokens so at least one prompt token runs
+  prefill and produces the first-token logits.
+* Sharing is full-block granular, so shared pages are read-only in the
+  steady state; ``ensure_writable`` is the copy-on-write barrier the
+  engine calls before any page write — if the target page is shared it
+  is swapped for a private copy (the engine mirrors the page content on
+  device), and a registered sole-owner page is unregistered before being
+  overwritten.
+* Releasing a request decrements refcounts; refcount-zero pages that are
+  registered in the cache park in an **LRU reusable list** instead of
+  the free list.  Allocation prefers the free list and falls back to
+  evicting the least-recently-used reusable page (``prefix_cache_evictions``).
+  Reserved-but-unwritten pages of a slot released mid-prefill go back to
+  the free list immediately — they hold no reusable KV.
+
+Hierarchical tier (``host_cache``, serving/host_cache.py): with a host
+spill tier attached, registrations and parkings additionally enqueue an
+asynchronous device→host page copy, and the admission match extends its
+digest walk into the host tier — host-resident digests are pinned,
+fresh device blocks are reserved for them, and the engine consumes the
+slot's ``pending swap-ins`` (one fixed-shape host→device scatter per
+block) before prefilling the uncached tail, after which
+``complete_swap_ins`` registers the pages back into the HBM cache.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from megatron_llm_torch.serving.cache_observatory import CacheObservatory
+
+GARBAGE_BLOCK = 0
+
+
+class NoCapacity(Exception):
+    """Not enough free blocks / slots for the requested admission."""
+
+
+def digest_link(prev: bytes, payload: bytes) -> bytes:
+    """One link of the rolling 128-bit blake2b chain: the new digest
+    commits to everything ``prev`` committed to plus ``payload``.
+
+    This is the ONE hash construction shared by the prefix cache (over
+    token-id blocks, below) and the router tier's prompt-affinity digest
+    (over character blocks — ``serving/router.py`` carries a stdlib-only
+    structural twin of this function so it can stay numpy-free; a test
+    pins the two byte-identical)."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(prev)
+    h.update(payload)
+    return h.digest()
+
+
+def chain_block_digests(token_ids: Sequence[int], block_size: int,
+                        n_blocks: int) -> List[bytes]:
+    """Rolling 128-bit digests for the first ``n_blocks`` full blocks of
+    ``token_ids``: digest i commits to every token in blocks 0..i, so a
+    cache hit on digest i implies the whole prefix matches."""
+    out: List[bytes] = []
+    prev = b""
+    for i in range(n_blocks):
+        chunk = token_ids[i * block_size:(i + 1) * block_size]
+        prev = digest_link(
+            prev, np.asarray(list(chunk), np.int64).tobytes())
+        out.append(prev)
+    return out
+
+
+AFFINITY_CHAR_BLOCK = 64
+
+
+def prompt_affinity_digest(prompt: str, max_chars: int = 256,
+                           char_block: int = AFFINITY_CHAR_BLOCK) -> str:
+    """Chained digest of a prompt's leading characters, for router-tier
+    session affinity.
+
+    The chain walks ``char_block``-sized chunks of ``prompt[:max_chars]``
+    with the same :func:`digest_link` construction the prefix cache uses
+    over token blocks, so two prompts share an affinity digest exactly
+    when they share the hashed prefix — keeping router stickiness and
+    replica prefix-cache locality aligned by construction.  Returns the
+    final digest as hex (stable across processes and hosts)."""
+    prefix = prompt[:max_chars]
+    prev = b""
+    for i in range(0, max(len(prefix), 1), char_block):
+        prev = digest_link(prev, prefix[i:i + char_block].encode("utf-8"))
+    return prev.hex()
+
+
+class BlockManager:
+    """Allocates slots and pool blocks; owns the block-table array and
+    (optionally) the refcounted prefix cache over the pool."""
+
+    # lint-enforced (graft-lint locks/LD002): the engine thread and the
+    # HTTP front-end both allocate/free; all pool state mutates under
+    # self._lock (``*_locked`` helpers run with the caller's lock held)
+    _lock_protected_ = (
+        "_free_blocks", "_free_slots", "_slot_blocks", "tables",
+        "_refcounts", "_cache", "_block_hash", "_lru", "_slot_cached",
+        "_slot_miss_causes", "_slot_swap_ins", "_slot_host_hits",
+        "_block_epoch", "host_cache",
+        "prefix_cache_hits", "prefix_cache_misses",
+        "prefix_cache_evictions", "prefix_cache_hit_tokens",
+        "prefix_cache_host_hits", "cow_copies",
+    )
+
+    def __init__(self, num_blocks: int, block_size: int, num_slots: int,
+                 max_blocks_per_slot: int, prefix_cache: bool = False,
+                 observatory: Optional[CacheObservatory] = None,
+                 host_cache=None):
+        assert num_blocks >= 2, "need at least one block beyond the garbage"
+        assert block_size >= 1 and num_slots >= 1
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        self.num_slots = int(num_slots)
+        self.max_blocks_per_slot = int(max_blocks_per_slot)
+        self.prefix_cache_enabled = bool(prefix_cache)
+        # LIFO free lists: hot blocks get reused while still in cache
+        self._free_blocks: List[int] = list(range(num_blocks - 1, 0, -1))
+        self._free_slots: List[int] = list(range(num_slots - 1, -1, -1))
+        self._slot_blocks: Dict[int, List[int]] = {}
+        self.tables = np.full((num_slots, max_blocks_per_slot),
+                              GARBAGE_BLOCK, np.int32)
+        self._lock = threading.Lock()
+        # prefix cache state: refcounts for owned blocks, digest <-> block
+        # registry, and the LRU of refcount-zero registered blocks
+        self._refcounts: Dict[int, int] = {}
+        self._cache: Dict[bytes, int] = {}          # digest -> block
+        self._block_hash: Dict[int, bytes] = {}     # block -> digest
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self._slot_cached: Dict[int, int] = {}      # slot -> cached tokens
+        # slot -> (cold, evicted) missed prefix blocks from its alloc
+        # match (the request_done miss-cause fields read these)
+        self._slot_miss_causes: Dict[int, Tuple[int, int]] = {}
+        # host spill tier (serving/host_cache.py): slot -> pending
+        # swap-ins [(block_idx, block, digest), ...] the engine must
+        # replay host→device before the slot's uncached-tail prefill;
+        # slot -> host-tier hit blocks from its admission match
+        self._slot_swap_ins: Dict[int, List[Tuple[int, int, bytes]]] = {}
+        self._slot_host_hits: Dict[int, int] = {}
+        # per-block allocation epoch: bumped every time a physical
+        # block is handed to a new owner, so the spill thread's
+        # lock-free device read can detect digest→block ABA re-mapping
+        # (host_cache._process_spill validates (block, epoch) before
+        # and after the fetch via host_spill_check)
+        self._block_epoch: Dict[int, int] = {}
+        self.host_cache = host_cache
+        # cache observatory (serving/cache_observatory.py): heat table,
+        # eviction forensics, ghost capacity tiers.  Hook calls happen
+        # inside this class's locked sections; the observatory has its
+        # own lock (order: self._lock -> observatory._lock) because the
+        # engine shares one across restarts' BlockManager instances.
+        self.observatory = observatory if observatory is not None else \
+            CacheObservatory(int(num_blocks) - 1, int(block_size))
+        self.prefix_cache_hits = 0                  # block-granular,
+        # two-tier: HBM adoptions + host-tier rescues both count
+        self.prefix_cache_misses = 0
+        self.prefix_cache_evictions = 0
+        self.prefix_cache_hit_tokens = 0
+        self.prefix_cache_host_hits = 0             # host-tier subset
+        self.cow_copies = 0
+
+    def attach_host_cache(self, host_cache) -> None:
+        """Wire the host spill tier after construction (the engine
+        builds the tier once it knows the per-block byte size, which
+        needs the first state's pages)."""
+        with self._lock:
+            self.host_cache = host_cache
+
+    # -- capacity -------------------------------------------------------
+
+    def blocks_needed(self, total_tokens: int) -> int:
+        return -(-max(int(total_tokens), 1) // self.block_size)
+
+    def can_admit(self, total_tokens: int) -> bool:
+        n = self.blocks_needed(total_tokens)
+        with self._lock:
+            avail = len(self._free_blocks) + len(self._lru)
+            return (bool(self._free_slots) and n <= avail
+                    and n <= self.max_blocks_per_slot)
+
+    # -- alloc / free ---------------------------------------------------
+
+    def _bump_epoch_locked(self, b: int) -> int:
+        """The physical block is being handed to a new owner: any
+        in-flight spill that captured the previous (block, epoch) pair
+        must fail its re-validation."""
+        e = self._block_epoch.get(b, 0) + 1
+        self._block_epoch[b] = e
+        return e
+
+    def _take_block_locked(self) -> int:
+        """One fresh private block: free list first, else evict the
+        least-recently-used refcount-zero cached block."""
+        if self._free_blocks:
+            b = self._free_blocks.pop()
+            self._bump_epoch_locked(b)
+            return b
+        if self._lru:
+            # forensics classifies this eviction from the pool balance
+            # at the moment of eviction (free list is empty here, so
+            # everything not parked in the LRU is live and refcounted)
+            lru_len = len(self._lru)
+            in_use = self.num_blocks - 1 - lru_len
+            b, _ = self._lru.popitem(last=False)
+            digest = self._block_hash.pop(b)
+            del self._cache[digest]
+            self.prefix_cache_evictions += 1
+            self._bump_epoch_locked(b)
+            self.observatory.record_evict(digest, in_use, lru_len)
+            return b
+        raise NoCapacity("pool exhausted (no free or evictable blocks)")
+
+    def host_spill_check(self, digest: bytes) -> Optional[Tuple[int, int]]:
+        """Spill-thread validation hook: the ``(block, epoch)`` the
+        digest currently maps to, or None when it is no longer
+        registered.  Called with no other locks held (lock order:
+        manager -> host; the spill thread holds neither here)."""
+        with self._lock:
+            b = self._cache.get(digest)
+            if b is None:
+                return None
+            return b, self._block_epoch.get(b, 0)
+
+    def _match_prefix_locked(self, prompt_tokens: Sequence[int]):
+        """Longest run of cached blocks covering the prompt, capped so at
+        least one prompt token stays uncached (the engine needs a real
+        prefill step to produce the first-token logits).
+
+        With a host spill tier attached the digest walk continues past
+        the HBM match into the tier: host-resident digests are pinned
+        (the host LRU cannot drop them mid-admission) and returned for
+        alloc() to reserve fresh device blocks against — the engine
+        swaps them in before prefilling the remaining tail.  Returns
+        ``(matched_blocks, host_digests, token)`` where token is the
+        observatory's match record (heat + miss causes + ghost-tier
+        lookups over the same digests)."""
+        cap = (len(prompt_tokens) - 1) // self.block_size
+        if cap <= 0:
+            return [], [], None
+        digests = chain_block_digests(prompt_tokens, self.block_size, cap)
+        matched: List[int] = []
+        for d in digests:
+            b = self._cache.get(d)
+            if b is None:
+                break
+            matched.append(b)
+        host_digests: List[bytes] = []
+        if self.host_cache is not None and len(matched) < len(digests):
+            host_digests = self.host_cache.match_and_pin(
+                digests[len(matched):])
+        self.prefix_cache_hits += len(matched) + len(host_digests)
+        self.prefix_cache_host_hits += len(host_digests)
+        self.prefix_cache_misses += (len(digests) - len(matched)
+                                     - len(host_digests))
+        token = self.observatory.record_match(
+            digests, len(matched), len(host_digests))
+        return matched, host_digests, token
+
+    def alloc(self, total_tokens: int,
+              prompt_tokens: Optional[Sequence[int]] = None) -> int:
+        """Reserve a slot plus blocks covering ``total_tokens``; returns
+        the slot id.  Raises ``NoCapacity`` when slots or blocks run
+        out (the scheduler leaves the request queued and retries).
+
+        With ``prompt_tokens`` and prefix caching enabled, the longest
+        cached prefix is adopted by reference (refcount++) and only the
+        remainder is allocated fresh; ``slot_cached_tokens(slot)``
+        reports how many prompt tokens the slot got for free."""
+        n = self.blocks_needed(total_tokens)
+        if n > self.max_blocks_per_slot:
+            raise ValueError(
+                f"request needs {n} blocks "
+                f"({total_tokens} tokens / block_size {self.block_size}) "
+                f"> max_blocks_per_slot {self.max_blocks_per_slot}")
+        with self._lock:
+            matched: List[int] = []
+            host_digests: List[bytes] = []
+            mtoken = None
+            if self.prefix_cache_enabled and prompt_tokens is not None:
+                matched, host_digests, mtoken = \
+                    self._match_prefix_locked(prompt_tokens)
+            n_fresh = n - len(matched)
+            # matched blocks parked in the LRU are consumed by the match
+            # itself — they are NOT available to _take_block_locked, so
+            # the capacity check must exclude them (raising NoCapacity
+            # after bumping matched refcounts would leak those blocks)
+            avail = (len(self._free_blocks) + len(self._lru)
+                     - sum(1 for b in matched if b in self._lru))
+            if not self._free_slots or n_fresh > avail:
+                if host_digests:
+                    # the pinned host entries will not be consumed —
+                    # release them before the retry path gives up
+                    self.host_cache.unpin(host_digests)
+                raise NoCapacity(
+                    f"no capacity: {len(self._free_slots)} free slots, "
+                    f"{avail} free/evictable blocks, need {n_fresh}")
+            slot = self._free_slots.pop()
+            adopted_rcs: List[int] = []
+            for b in matched:
+                rc = self._refcounts.get(b, 0)
+                if rc == 0:
+                    self._lru.pop(b, None)      # leave the reusable list
+                self._refcounts[b] = rc + 1
+                adopted_rcs.append(rc + 1)
+            blocks = matched + [self._take_block_locked()
+                                for _ in range(n_fresh)]
+            for b in blocks[len(matched):]:
+                self._refcounts[b] = 1
+            self._slot_blocks[slot] = blocks
+            # host-tier hits ride the fresh allocation: the first
+            # len(host_digests) fresh blocks become swap-in targets the
+            # engine fills from host RAM instead of recomputing, so the
+            # slot's cached-token count covers both tiers
+            m, h = len(matched), len(host_digests)
+            if h:
+                self._slot_swap_ins[slot] = [
+                    (m + i, blocks[m + i], host_digests[i])
+                    for i in range(h)]
+            self._slot_host_hits[slot] = h
+            self._slot_cached[slot] = (m + h) * self.block_size
+            self._slot_miss_causes[slot] = (
+                (mtoken.miss_cold, mtoken.miss_evicted)
+                if mtoken is not None else (0, 0))
+            if self.prefix_cache_enabled:
+                self.observatory.record_admit(slot, mtoken, n, adopted_rcs)
+            self.prefix_cache_hit_tokens += (m + h) * self.block_size
+            self.tables[slot, :] = GARBAGE_BLOCK
+            self.tables[slot, :n] = blocks
+            return slot
+
+    def slot_cached_tokens(self, slot: int) -> int:
+        with self._lock:
+            return self._slot_cached.get(slot, 0)
+
+    def slot_host_hits(self, slot: int) -> int:
+        """Host-tier hit blocks from this slot's admission match (the
+        request_done ``host_hit_blocks`` field reads this)."""
+        with self._lock:
+            return self._slot_host_hits.get(slot, 0)
+
+    def take_pending_swap_ins(self, slot: int
+                              ) -> List[Tuple[int, int, bytes]]:
+        """Pop the slot's pending host→device swap-ins
+        ``[(block_idx, block, digest), ...]``.  The engine consumes
+        these exactly once, right before the slot's first prefill
+        chunk; each digest is pinned in the host tier until
+        ``take_for_swap_in`` (or ``free`` of an aborted slot) releases
+        it."""
+        with self._lock:
+            return self._slot_swap_ins.pop(slot, [])
+
+    def complete_swap_ins(self, slot: int,
+                          loaded: List[Tuple[int, bytes]]) -> None:
+        """The engine scattered ``loaded`` ``(block, digest)`` host
+        pages into the device pool: register them back into the HBM
+        cache so subsequent admissions share them by reference.  A
+        digest that was re-registered concurrently (another request
+        prefilled it between this slot's alloc and now) keeps its
+        canonical entry — this slot's copy stays private, exactly like
+        a duplicate commit."""
+        if not loaded:
+            return
+        with self._lock:
+            blocks = self._slot_blocks.get(slot)
+            owned = set(blocks) if blocks is not None else set()
+            registered: List[bytes] = []
+            for b, d in loaded:
+                if b not in owned or d in self._cache \
+                        or b in self._block_hash:
+                    continue
+                self._cache[d] = b
+                self._block_hash[b] = d
+                registered.append(d)
+            self.observatory.record_swap_in(registered, len(loaded))
+
+    def slot_miss_causes(self, slot: int) -> Tuple[int, int]:
+        """(cold, evicted) missed prefix blocks from this slot's
+        admission match — ``evicted`` counts digests the cache held and
+        threw away (the per-request regret the request_done record
+        surfaces as miss_evicted_blocks)."""
+        with self._lock:
+            return self._slot_miss_causes.get(slot, (0, 0))
+
+    def slot_releasable_blocks(self, slot: int) -> int:
+        """How many blocks ``free(slot)`` would actually return to the
+        allocatable set (free list or LRU): blocks this slot owns solely.
+        Shared-prefix pages (refcount > 1) stay pinned by their other
+        owners, so they don't count — the preemption victim picker uses
+        this to avoid evicting a request whose pages are mostly shared
+        and would free nothing."""
+        with self._lock:
+            blocks = self._slot_blocks.get(slot)
+            if blocks is None:
+                return 0
+            return sum(1 for b in blocks if self._refcounts.get(b, 1) <= 1)
+
+    def _commit_locked(self, slot: int, blocks: List[int],
+                       token_ids: Sequence[int], n_written: int) -> None:
+        """Register every fully written, not-yet-registered block under
+        its chain digest so later admissions can share it.  A digest that
+        already maps to another block keeps its canonical entry (the
+        duplicate stays private)."""
+        full = min(max(int(n_written), 0) // self.block_size, len(blocks))
+        if full <= 0:
+            return
+        digests = chain_block_digests(token_ids, self.block_size, full)
+        actions: List[str] = []     # reg/live/parked, per digest (the
+        # observatory's cross-capacity inclusion audit reads these)
+        for i in range(full):
+            b = blocks[i]
+            d = digests[i]
+            if b in self._block_hash:
+                actions.append("live")
+                continue
+            if d in self._cache:
+                actions.append("parked" if self._cache[d] in self._lru
+                               else "live")
+                continue
+            self._cache[d] = b
+            self._block_hash[b] = d
+            actions.append("reg")
+            if self.host_cache is not None:
+                # freshly registered content is frozen from here on —
+                # widest possible copy window for the spill thread
+                self.host_cache.enqueue_spill(
+                    self, d, b, self._block_epoch.get(b, 0))
+        self.observatory.record_commit(slot, digests, actions)
+
+    def commit_prefix(self, slot: int, token_ids: Sequence[int],
+                      n_written: int) -> None:
+        """Called by the engine after prefill progress: blocks whose
+        tokens are fully written become shareable."""
+        if not self.prefix_cache_enabled:
+            return
+        with self._lock:
+            blocks = self._slot_blocks.get(slot)
+            if blocks is not None:
+                self._commit_locked(slot, blocks, token_ids, n_written)
+
+    def ensure_writable(self, slot: int, block_idx: int
+                        ) -> Optional[Tuple[int, Optional[int]]]:
+        """Copy-on-write barrier: call before writing KV into logical
+        block ``block_idx`` of ``slot``.
+
+        Returns ``None`` when the page is already privately writable
+        (the common case — full-block sharing means writes land past any
+        shared prefix).  If the page is registered but solely owned it is
+        unregistered (its cached content is about to be overwritten) and
+        ``None`` is returned.  If the page is *shared*, a private block
+        is allocated, the slot's table is repointed, and ``(new, old)``
+        is returned — the caller must mirror the page copy on device."""
+        if not self.prefix_cache_enabled:
+            return None
+        with self._lock:
+            blocks = self._slot_blocks.get(slot)
+            if blocks is None or block_idx >= len(blocks):
+                return None
+            ghost_dropped = self.observatory.record_cow(slot, block_idx)
+            b = blocks[block_idx]
+            if self._refcounts.get(b, 1) <= 1:
+                d = self._block_hash.pop(b, None)
+                if d is not None:
+                    del self._cache[d]
+                self._note_cow_divergences(ghost_dropped)
+                return None
+            nb = self._take_block_locked()
+            self._refcounts[b] -= 1
+            self._refcounts[nb] = 1
+            blocks[block_idx] = nb
+            self.tables[slot, block_idx] = nb
+            self.cow_copies += 1
+            self._note_cow_divergences(ghost_dropped)
+            return nb, b
+
+    def _note_cow_divergences(self, ghost_dropped: Sequence[bytes]) -> None:
+        """A ghost tier COW-unregistered a digest this pool still caches
+        (sole-owner canonical at the larger capacity vs. a surviving
+        private duplicate + canonical here): strict cross-capacity
+        inclusion is broken from now on, the same way a commit of an
+        already-registered digest breaks it.  Caller holds self._lock."""
+        n = sum(1 for d in ghost_dropped if d in self._cache)
+        if n:
+            self.observatory.note_inclusion_divergence(n)
+
+    def free(self, slot: int, token_ids: Optional[Sequence[int]] = None,
+             n_written: int = 0) -> None:
+        """Release a slot.  With prefix caching, blocks covered by
+        ``n_written`` tokens of ``token_ids`` are registered first (so a
+        finished request's prompt *and* generated history become
+        shareable — multi-turn chat hits on its own past turns); then
+        refcounts drop.  Refcount-zero registered blocks park in the LRU
+        reusable list; everything else — including reserved-but-unwritten
+        pages of a slot released mid-prefill — returns to the free list
+        immediately."""
+        with self._lock:
+            blocks = self._slot_blocks.pop(slot, None)
+            if blocks is None:
+                return
+            if (self.prefix_cache_enabled and token_ids is not None
+                    and n_written > 0):
+                self._commit_locked(slot, blocks, token_ids, n_written)
+            for b in blocks:
+                rc = self._refcounts.get(b, 1) - 1
+                if rc > 0:
+                    self._refcounts[b] = rc
+                    continue
+                self._refcounts.pop(b, None)
+                if b in self._block_hash:
+                    self._lru[b] = None
+                    self._lru.move_to_end(b)
+                    if self.host_cache is not None:
+                        # parked refcount-zero pages are next in line
+                        # for eviction: last chance to spill them
+                        self.host_cache.enqueue_spill(
+                            self, self._block_hash[b], b,
+                            self._block_epoch.get(b, 0))
+                else:
+                    self._free_blocks.append(b)
+            if self.prefix_cache_enabled:
+                self.observatory.record_free(slot)
+            self._free_slots.append(slot)
+            self._slot_cached.pop(slot, None)
+            self._slot_miss_causes.pop(slot, None)
+            pending = self._slot_swap_ins.pop(slot, None)
+            if pending and self.host_cache is not None:
+                # aborted before the engine consumed its swap-ins:
+                # release the admission-time pins
+                self.host_cache.unpin([d for _, _, d in pending])
+            self._slot_host_hits.pop(slot, None)
+            self.tables[slot, :] = GARBAGE_BLOCK
+
+    # -- observability --------------------------------------------------
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            used = (self.num_blocks - 1 - len(self._free_blocks)
+                    - len(self._lru))
+            return {
+                "blocks_total": self.num_blocks - 1,   # garbage excluded
+                "blocks_in_use": used,
+                "blocks_free": len(self._free_blocks),
+                "blocks_cached_reusable": len(self._lru),
+                "slots_total": self.num_slots,
+                "slots_in_use": self.num_slots - len(self._free_slots),
+                "prefix_cache_enabled": int(self.prefix_cache_enabled),
+                "prefix_cache_blocks": len(self._cache),
+                "prefix_cache_hits": self.prefix_cache_hits,
+                "prefix_cache_misses": self.prefix_cache_misses,
+                "prefix_cache_evictions": self.prefix_cache_evictions,
+                "prefix_cache_hit_tokens": self.prefix_cache_hit_tokens,
+                "prefix_cache_host_hits": self.prefix_cache_host_hits,
+                "cow_copies": self.cow_copies,
+            }
+
+    def cache_stats(self) -> Dict[str, object]:
+        """The observatory's ``cache`` block (heat top-K, miss causes,
+        eviction forensics, ghost-tier projections) — nested under
+        ``cache`` in engine stats()/metrics; scalar leaves flatten into
+        the Prometheus exposition and fleet-sum across replicas."""
+        return self.observatory.stats()
+
+    def check_invariants(self) -> None:
+        """Debug/test hook: every usable block is in exactly one of
+        {free list, LRU reusable, owned-by-some-slot}; refcounts equal
+        the number of owning slots; the digest registry is bijective and
+        only covers live (owned or reusable) blocks."""
+        with self._lock:
+            free = set(self._free_blocks)
+            lru = set(self._lru)
+            owned: Dict[int, int] = {}
+            for blocks in self._slot_blocks.values():
+                for b in blocks:
+                    owned[b] = owned.get(b, 0) + 1
+            assert not free & lru, "block both free and reusable"
+            assert not free & set(owned), "block both free and owned"
+            assert not lru & set(owned), "block both reusable and owned"
+            universe = free | lru | set(owned)
+            assert universe == set(range(1, self.num_blocks)), \
+                f"leaked/duplicated blocks: {universe ^ set(range(1, self.num_blocks))}"
+            for b, rc in self._refcounts.items():
+                assert rc == owned.get(b, 0), \
+                    f"block {b}: refcount {rc} != owners {owned.get(b, 0)}"
+            assert set(self._refcounts) == set(owned)
+            assert len(self._cache) == len(self._block_hash)
+            for d, b in self._cache.items():
+                assert self._block_hash.get(b) == d
+                assert b in owned or b in lru, \
+                    f"registered block {b} neither owned nor reusable"
+            for slot, blocks in self._slot_blocks.items():
+                n = len(blocks)
+                assert list(self.tables[slot, :n]) == blocks
+                assert (self.tables[slot, n:] == GARBAGE_BLOCK).all()
+            for slot, pending in self._slot_swap_ins.items():
+                blocks = self._slot_blocks.get(slot)
+                assert blocks is not None, \
+                    f"pending swap-ins for dead slot {slot}"
+                for idx, b, _ in pending:
+                    assert idx < len(blocks) and blocks[idx] == b, \
+                        f"swap-in target {b} not at slot {slot}[{idx}]"
+            assert set(self._slot_host_hits) <= \
+                set(self._slot_blocks) | set(self._slot_swap_ins)
+            assert (self.prefix_cache_host_hits
+                    <= self.prefix_cache_hits), "host hits exceed total"
+            real_cache = dict(self._cache)
+            hits, misses = self.prefix_cache_hits, self.prefix_cache_misses
+            host_hits = self.prefix_cache_host_hits
+        # observatory + host-tier audits outside the pool lock (lock
+        # order is pool -> observatory and pool -> host; the checks
+        # only read a repeatable snapshot because check_invariants
+        # callers are quiescent)
+        self.observatory.check_invariants(
+            real_cache=real_cache if self.prefix_cache_enabled else None,
+            real_hits=hits, real_misses=misses, real_host_hits=host_hits)
+        if self.host_cache is not None:
+            self.host_cache.check_invariants()
+
+
+def derive_num_blocks(num_slots: int, block_size: int,
+                      max_model_len: int,
+                      requested: Optional[int] = None) -> int:
+    """Pool size: the explicit ``requested`` count when given (allows
+    deliberate oversubscription — admission then backs off on blocks,
+    not slots), else enough for every slot at full length, plus the
+    garbage block."""
+    per_slot = -(-int(max_model_len) // int(block_size))
+    if requested:
+        return max(int(requested), 2)
+    return num_slots * per_slot + 1

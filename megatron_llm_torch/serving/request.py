@@ -1,0 +1,308 @@
+"""Serving request objects: sampling params, lifecycle, futures/streaming,
+and the bounded admission queue.
+
+The engine works purely in token ids — tokenization/detokenization stays
+in the HTTP front-end (text_generation_server.py), so the engine has no
+tokenizer dependency and a ``Request`` is testable with bare ints.
+
+A ``Request`` is its own future: the submitting thread blocks on
+``result()`` (or iterates ``events()`` for streaming) while the engine
+thread appends tokens and finally ``_finish()``-es it.
+"""
+
+from __future__ import annotations
+
+import itertools
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+_REQ_IDS = itertools.count()
+
+# terminal finish reasons
+FINISH_LENGTH = "length"        # produced max_new_tokens
+FINISH_STOP = "stop"            # eod / extra stop id / stop bigram
+FINISH_DEADLINE = "deadline"    # per-request deadline exceeded
+FINISH_ERROR = "error"
+FINISH_ABORTED = "aborted"      # engine shutdown / client gone
+FINISH_NONFINITE = "nonfinite"  # slot evicted by the non-finite sentinel
+
+
+class QueueFull(Exception):
+    """Admission control rejected the request (HTTP maps this to 429)."""
+
+    def __init__(self, msg: str, retry_after_secs: float = 1.0):
+        super().__init__(msg)
+        self.retry_after_secs = retry_after_secs
+
+
+class EngineError(Exception):
+    """The request terminated with an engine-side error."""
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    """Per-request decode knobs.  All of these ride the jitted decode
+    step as per-slot *arrays* (text_generation/sampling.py
+    ``sample_batched``), so two requests with different settings co-batch
+    without recompiling."""
+
+    max_new_tokens: int = 64
+    temperature: float = 1.0    # 0 = greedy (argmax), like sampling.sample
+    top_k: int = 0              # 0 = off; 1 = greedy
+    top_p: float = 0.0          # 0 = off
+    top_p_decay: float = 0.0    # per-generated-token decay, floor at bound
+    top_p_bound: float = 0.0
+    seed: int = 0
+    eod_id: Optional[int] = None
+    stop_token_ids: Tuple[int, ...] = ()
+    stop_pairs: Tuple[Tuple[int, int], ...] = ()   # (prev, cur) bigrams
+    ban_pair: Optional[Tuple[int, int]] = None     # ban b right after a
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature == 0.0 or self.top_k == 1
+
+    def top_p_at(self, n_generated: int) -> float:
+        """Host-side per-step top_p (the reference's top_p_decay/bound):
+        recomputed each decode step so it can ride the traced per-slot
+        top_p array."""
+        if self.top_p_decay > 0.0 and self.top_p > 0.0:
+            return max(self.top_p * self.top_p_decay ** n_generated,
+                       self.top_p_bound)
+        return self.top_p
+
+
+@dataclass
+class RequestState:
+    QUEUED = "queued"
+    PREFILL = "prefill"
+    DECODE = "decode"
+    DONE = "done"
+
+
+class Request:
+    """One generation request moving through the engine."""
+
+    def __init__(self, prompt_tokens: Sequence[int],
+                 sampling: SamplingParams,
+                 stream: bool = False,
+                 deadline_secs: Optional[float] = None,
+                 trace_id: Optional[str] = None):
+        if not prompt_tokens:
+            raise ValueError("empty prompt (tokenized to zero ids)")
+        self.id = next(_REQ_IDS)
+        # router-minted X-Request-Trace id (or server-minted for direct
+        # traffic) — threads through spans + the request_done JSONL so
+        # one request is followable across processes
+        self.trace_id = trace_id
+        self.prompt_tokens: List[int] = [int(t) for t in prompt_tokens]
+        self.sampling = sampling
+        self.out_tokens: List[int] = []
+        self.state = RequestState.QUEUED
+        self.finish_reason: Optional[str] = None
+        self.error: Optional[str] = None
+        self.slot: Optional[int] = None
+        self.prefill_pos = 0            # prompt tokens already in cache
+        self.cached_prompt_tokens = 0   # adopted from the prefix cache
+        # miss-cause attribution for the prefix blocks this request's
+        # admission probed and did NOT find: never-seen digests vs
+        # digests the LRU evicted (the per-request regret signal the
+        # cache observatory aggregates)
+        self.miss_cold_blocks = 0
+        self.miss_evicted_blocks = 0
+        # hierarchical KV cache (serving/host_cache.py): prefix blocks
+        # rescued from the host spill tier, and the host→device
+        # swap-in time this request paid for them
+        self.host_hit_blocks = 0
+        self.swap_in_secs = 0.0
+        self.t_submit = time.monotonic()
+        self.deadline = (self.t_submit + deadline_secs
+                         if deadline_secs else None)
+        self.t_first_token: Optional[float] = None
+        self.t_done: Optional[float] = None
+        # phase attribution (engine-side perf_counter clock; queue wait
+        # and admission are measured by the engine, the rest accumulate
+        # as the request rides prefill chunks / decode steps)
+        self._pc_submit = time.perf_counter()
+        self._pc_admit: Optional[float] = None
+        self.queue_wait_secs: Optional[float] = None
+        self.admission_secs = 0.0
+        self.prefill_compute_secs = 0.0
+        self.decode_amortized_secs = 0.0    # share of batched decode steps
+        self.stream_write_secs = 0.0
+        self.decode_tokens = 0
+        # speculative-decoding attribution (engine verify steps):
+        # drafted = prompt-lookup proposals this request rode into verify
+        # steps; accepted = the subset verification committed.  Greedy
+        # requests with zero proposals and sampled requests both stay 0/0.
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.preempt_count = 0          # pool-pressure preemptions survived
+        self._done = threading.Event()
+        self._events: Optional[queue.Queue] = queue.Queue() if stream \
+            else None
+
+    # -- engine side ----------------------------------------------------
+
+    def _emit_token(self, token: int) -> None:
+        if self.t_first_token is None:
+            self.t_first_token = time.monotonic()
+        self.out_tokens.append(int(token))
+        if self._events is not None:
+            t0 = time.perf_counter()
+            self._events.put(("token", int(token)))
+            self.stream_write_secs += time.perf_counter() - t0
+
+    def _finish(self, reason: str, error: Optional[str] = None) -> None:
+        if self.state == RequestState.DONE:
+            return
+        self.state = RequestState.DONE
+        self.finish_reason = reason
+        self.error = error
+        self.t_done = time.monotonic()
+        if self._events is not None:
+            self._events.put(("done", reason))
+        self._done.set()
+
+    def past_deadline(self, now: Optional[float] = None) -> bool:
+        return (self.deadline is not None
+                and (now if now is not None else time.monotonic())
+                > self.deadline)
+
+    def context_tokens(self) -> List[int]:
+        """Prompt plus everything generated so far — what a re-admission
+        after preemption must prefill over so the generation continues
+        exactly where it stopped (already-emitted tokens are never
+        re-emitted; greedy continuations are token-identical)."""
+        return self.prompt_tokens + self.out_tokens
+
+    def reset_for_requeue(self) -> None:
+        """Return a running request to the QUEUED state after a
+        preemption or engine restart.  Generated tokens are kept (they
+        were already streamed / will be part of the final result); the
+        slot binding and prefill progress are dropped so re-admission
+        prefills over ``context_tokens()`` from scratch (hitting its own
+        just-registered prefix pages when the cache is on)."""
+        self.state = RequestState.QUEUED
+        self.slot = None
+        self.prefill_pos = 0
+        self.preempt_count += 1
+
+    # -- client side ----------------------------------------------------
+
+    @property
+    def tokens(self) -> List[int]:
+        """Prompt + generated ids — same row layout the batch ``generate``
+        path returns (stop token included when one fired)."""
+        return self.prompt_tokens + self.out_tokens
+
+    def ttft_secs(self) -> Optional[float]:
+        if self.t_first_token is None:
+            return None
+        return self.t_first_token - self.t_submit
+
+    def latency_secs(self) -> Optional[float]:
+        if self.t_done is None:
+            return None
+        return self.t_done - self.t_submit
+
+    def tpot_secs(self) -> Optional[float]:
+        """True time-per-output-token: this request's amortized share of
+        the batched decode steps it rode, per generated token.  None
+        until a decode step has completed."""
+        if self.decode_tokens <= 0:
+            return None
+        return self.decode_amortized_secs / self.decode_tokens
+
+    def accept_rate(self) -> Optional[float]:
+        """Fraction of this request's drafted tokens that verification
+        accepted.  None when the request never drafted (speculative off,
+        sampled temperature, or no n-gram ever matched)."""
+        if self.spec_drafted <= 0:
+            return None
+        return self.spec_accepted / self.spec_drafted
+
+    def phases(self) -> dict:
+        """Wall-clock attribution for the request_done record: where this
+        request's latency went.  Queue wait is submit→admit; admission is
+        its share of slot setup; prefill/decode are its share of the
+        jitted dispatches; stream_write is SSE back-pressure."""
+        return {
+            "queue_secs": (round(self.queue_wait_secs, 6)
+                           if self.queue_wait_secs is not None else None),
+            "admission_secs": round(self.admission_secs, 6),
+            "prefill_secs": round(self.prefill_compute_secs, 6),
+            "decode_secs": round(self.decode_amortized_secs, 6),
+            "stream_write_secs": round(self.stream_write_secs, 6),
+        }
+
+    def result(self, timeout: Optional[float] = None) -> "Request":
+        """Block until the engine finishes this request."""
+        if not self._done.wait(timeout):
+            raise TimeoutError(f"request {self.id} still running")
+        if self.finish_reason == FINISH_ERROR:
+            raise EngineError(self.error or "engine error")
+        return self
+
+    def events(self, timeout: Optional[float] = None
+               ) -> Iterator[Tuple[str, object]]:
+        """Streaming iterator: ('token', id)... ('done', reason).  Only
+        valid when the request was submitted with ``stream=True``."""
+        assert self._events is not None, "request not submitted as stream"
+        while True:
+            kind, payload = self._events.get(timeout=timeout)
+            yield kind, payload
+            if kind == "done":
+                return
+
+
+class RequestQueue:
+    """Bounded FIFO with atomic multi-request admission.
+
+    ``put_many`` is all-or-nothing: a multi-prompt HTTP request either
+    admits every sub-request or raises ``QueueFull`` without enqueueing
+    any — no half-admitted batches to unwind."""
+
+    def __init__(self, max_depth: int = 64):
+        self.max_depth = max(int(max_depth), 1)
+        self._items: List[Request] = []
+        self._lock = threading.Lock()
+
+    def put_many(self, requests: Sequence[Request]) -> None:
+        with self._lock:
+            if len(self._items) + len(requests) > self.max_depth:
+                raise QueueFull(
+                    f"queue full ({len(self._items)}/{self.max_depth} "
+                    f"deep, +{len(requests)} requested)")
+            self._items.extend(requests)
+
+    def put(self, request: Request) -> None:
+        self.put_many([request])
+
+    def pop(self) -> Optional[Request]:
+        with self._lock:
+            return self._items.pop(0) if self._items else None
+
+    def put_front(self, request: Request) -> None:
+        """Requeue at the head, jumping the FIFO — preemption victims and
+        restart-interrupted requests go back first so they are not
+        starved by traffic that arrived after them.  Deliberately exempt
+        from the depth bound: the request was already admitted once."""
+        with self._lock:
+            self._items.insert(0, request)
+
+    def peek(self) -> Optional[Request]:
+        with self._lock:
+            return self._items[0] if self._items else None
+
+    def depth(self) -> int:
+        with self._lock:
+            return len(self._items)
+
+    def drain(self) -> List[Request]:
+        with self._lock:
+            items, self._items = self._items, []
+            return items

@@ -1,0 +1,272 @@
+"""Continuous-batching scheduler.
+
+Owns the waiting queue, the :class:`~megatron_llm_torch.serving.kv_blocks.
+BlockManager`, and the set of live slots, and decides what the engine
+thread runs next:
+
+* ``("prefill", request)`` — one chunk of one request's prompt.  Chunked
+  prefill bounds how long a long prompt can stall decode for everyone
+  else: after each chunk the scheduler re-offers a decode step to the
+  already-running slots (strict alternation when both kinds of work are
+  pending), so time-to-next-token for running requests stays bounded by
+  one chunk's latency.
+* ``("decode", slots)`` — one batched decode step for every slot whose
+  prefill has finished.
+* ``("idle", None)`` — nothing to do.
+
+Admission is capacity-reserving: a request only leaves the queue when a
+slot AND its worst-case block count (prompt + max_new_tokens) are both
+free (kv_blocks.py), so an admitted request can normally run to
+completion.  When the pool is deliberately oversubscribed
+(``--serve_num_blocks`` below full backing) the head of the queue can
+still starve behind a long-running reservation; ``select_victim`` /
+``preempt`` give the engine a pool-pressure escape hatch: the victim's
+pages go back to the :class:`BlockManager` (registered in the prefix
+cache so re-admission re-adopts them) and the victim requeues at the
+queue head with its generated tokens intact — re-admission prefills
+over ``Request.context_tokens()`` and the generation continues exactly
+where it stopped.  The victim rule is anti-livelock by construction: a
+victim's worst-case block need must be *strictly greater* than the
+head's, so a requeued victim can never immediately preempt the request
+admitted in its place.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple
+
+from megatron_llm_torch.serving.kv_blocks import BlockManager, NoCapacity
+from megatron_llm_torch.serving.request import (
+    FINISH_DEADLINE,
+    Request,
+    RequestQueue,
+    RequestState,
+)
+
+
+class Scheduler:
+    def __init__(self, queue: RequestQueue, blocks: BlockManager,
+                 max_model_len: int, draft_k: int = 0):
+        self.queue = queue
+        self.blocks = blocks
+        self.max_model_len = int(max_model_len)
+        # speculative decoding (engine verify step): a drafting slot's
+        # verify step scatters KV for up to draft_k proposals BEYOND the
+        # committed context before the host accept logic rolls the cursor
+        # back, so the worst-case reservation must cover those writes too
+        self.draft_k = int(draft_k)
+        self.active: Dict[int, Request] = {}     # slot -> request
+        self._last_was_prefill = False
+        # counters surfaced through engine stats / ServerMetrics
+        self.admitted = 0
+        self.rejected_len = 0
+        self.deadline_evictions = 0
+        self.preemptions = 0
+        # host-tier reservation accounting: blocks reserved at admission
+        # for in-flight swap-ins (the engine fills them from host RAM
+        # before the slot's first prefill chunk, so between admission
+        # and that chunk they hold a reservation, not KV)
+        self.swap_in_blocks_reserved = 0
+
+    # -- admission ------------------------------------------------------
+
+    def total_tokens(self, req: Request) -> int:
+        """Worst-case token positions this request may write KV for —
+        what admission must reserve blocks against.  A drafting (greedy,
+        speculative-on) slot's verify step scatters up to ``draft_k``
+        proposals past the committed context before rejection rolls the
+        cursor back, so its reservation grows by K; without this a
+        near-full pool admits a request whose first verify step writes
+        into blocks it never reserved.  Capped at ``max_model_len``: the
+        engine's draft budget clamp keeps every write position below it,
+        and the cap keeps boundary-sized requests (prompt + max_new ==
+        max_model_len) admittable."""
+        base = len(req.prompt_tokens) + req.sampling.max_new_tokens
+        if self.draft_k > 0 and req.sampling.greedy:
+            return min(base + self.draft_k, self.max_model_len)
+        return base
+
+    def validate(self, req: Request) -> None:
+        """Raises ValueError for requests that could never run (too long
+        for the model/pool) — callers map this to HTTP 400, not 429.
+        Checked against the base need, NOT the +K draft reservation:
+        drafting never extends the *committed* sequence past the budget,
+        so a boundary-sized request stays valid with speculation on."""
+        total = len(req.prompt_tokens) + req.sampling.max_new_tokens
+        if total > self.max_model_len:
+            self.rejected_len += 1
+            raise ValueError(
+                f"prompt ({len(req.prompt_tokens)}) + max_new_tokens "
+                f"({req.sampling.max_new_tokens}) = {total} exceeds "
+                f"max_model_len {self.max_model_len}")
+        if self.blocks.blocks_needed(total) > self.blocks.max_blocks_per_slot:
+            self.rejected_len += 1
+            raise ValueError(
+                f"request needs more KV blocks than a slot can hold "
+                f"({total} tokens, block_size {self.blocks.block_size})")
+
+    def admit(self) -> List[Request]:
+        """Move queued requests into free slots (FIFO, head-of-line: we
+        stop at the first request that doesn't fit so arrival order is
+        preserved).  Returns the newly admitted requests."""
+        admitted: List[Request] = []
+        while True:
+            head = self.queue.peek()
+            if head is None:
+                break
+            if head.past_deadline():
+                self.queue.pop()
+                self.deadline_evictions += 1
+                head._finish(FINISH_DEADLINE)
+                continue
+            try:
+                # prefix-match over the full context (prompt + anything
+                # generated before a preemption) so a requeued victim
+                # re-adopts its own just-registered pages
+                slot = self.blocks.alloc(self.total_tokens(head),
+                                         prompt_tokens=head.context_tokens())
+            except (NoCapacity, ValueError):
+                break
+            self.queue.pop()
+            head.slot = slot
+            head.state = RequestState.PREFILL
+            # prefix-cache hit: skip prefill over the cached prompt blocks
+            cached = self.blocks.slot_cached_tokens(slot)
+            head.prefill_pos = cached
+            head.cached_prompt_tokens = cached
+            # miss-cause attribution from the same admission match (the
+            # request_done record carries these; cache_observatory.py)
+            head.miss_cold_blocks, head.miss_evicted_blocks = \
+                self.blocks.slot_miss_causes(slot)
+            # host-tier hits ride the slot's fresh-block reservation;
+            # the engine's swap-in step fills them from host RAM (and
+            # overwrites host_hit_blocks with the count it actually
+            # loaded, normally the same number)
+            head.host_hit_blocks = self.blocks.slot_host_hits(slot)
+            self.swap_in_blocks_reserved += head.host_hit_blocks
+            self.active[slot] = head
+            self.admitted += 1
+            admitted.append(head)
+        return admitted
+
+    # -- pool-pressure preemption ---------------------------------------
+
+    def select_victim(self, head: Request) -> Optional[Request]:
+        """The running request to evict so ``head`` can be admitted, or
+        None when preemption cannot help.
+
+        Eligibility: the victim's worst-case block need must be strictly
+        greater than the head's (anti-livelock — the need of the request
+        occupying the freed capacity strictly decreases, so a requeued
+        victim can never turn around and preempt its replacement), and
+        releasing it must actually make the head allocatable (shared
+        prefix pages stay pinned by their other owners and free
+        nothing).  Among eligible victims: fewest generated tokens
+        (least work thrown away), tie broken youngest."""
+        stats = self.blocks.stats()
+        avail = stats["blocks_free"] + stats["blocks_cached_reusable"]
+        need_head = self.blocks.blocks_needed(self.total_tokens(head))
+        best: Optional[Request] = None
+        for r in self.active.values():
+            if r.state not in (RequestState.PREFILL, RequestState.DECODE):
+                continue
+            if (self.blocks.blocks_needed(self.total_tokens(r))
+                    <= need_head):
+                continue
+            if r.slot is None or (
+                    avail + self.blocks.slot_releasable_blocks(r.slot)
+                    < need_head):
+                continue
+            if best is None or (
+                    (len(r.out_tokens), -r.t_submit)
+                    < (len(best.out_tokens), -best.t_submit)):
+                best = r
+        return best
+
+    def preempt(self, req: Request, token_ids=None,
+                n_written: int = 0) -> None:
+        """Bookkeeping half of a preemption (the engine clears the
+        per-slot device rows first): release the victim's slot and
+        pages — registering the written history so re-admission hits the
+        prefix cache — and requeue it at the queue head, generated
+        tokens intact."""
+        self.evict(req, token_ids=token_ids, n_written=n_written)
+        req.reset_for_requeue()
+        self.queue.put_front(req)
+        self.preemptions += 1
+
+    # -- step selection -------------------------------------------------
+
+    def decode_slots(self) -> List[int]:
+        return [s for s, r in self.active.items()
+                if r.state == RequestState.DECODE]
+
+    def prefill_pending(self) -> Optional[Request]:
+        """Oldest admitted request with prompt tokens left to prefill."""
+        best = None
+        for r in self.active.values():
+            if r.state == RequestState.PREFILL and (
+                    best is None or r.t_submit < best.t_submit):
+                best = r
+        return best
+
+    def next_action(self) -> Tuple[str, object]:
+        pre = self.prefill_pending()
+        dec = self.decode_slots()
+        if pre is not None and dec:
+            # strict alternation: never run two prefill chunks back to
+            # back while decodable slots wait
+            if self._last_was_prefill:
+                self._last_was_prefill = False
+                return "decode", dec
+            self._last_was_prefill = True
+            return "prefill", pre
+        if pre is not None:
+            self._last_was_prefill = True
+            return "prefill", pre
+        if dec:
+            self._last_was_prefill = False
+            return "decode", dec
+        return "idle", None
+
+    # -- lifecycle ------------------------------------------------------
+
+    def evict(self, req: Request, token_ids=None, n_written: int = 0
+              ) -> None:
+        """Release a finished request's slot and blocks (the caller has
+        already ``_finish``-ed it).  ``token_ids``/``n_written`` let the
+        block manager register the written history for prefix reuse and
+        return unwritten reserved pages straight to the free list."""
+        if req.slot is not None:
+            self.active.pop(req.slot, None)
+            self.blocks.free(req.slot, token_ids=token_ids,
+                             n_written=n_written)
+            req.slot = None
+
+    def sweep_deadlines(self, now: Optional[float] = None) -> List[Request]:
+        """Running requests past their deadline.  The engine finishes and
+        retires them (it owns the per-slot device-state rows that must be
+        cleared alongside the eviction); queued expiries are handled in
+        ``admit``."""
+        now = time.monotonic() if now is None else now
+        out = [r for r in self.active.values() if r.past_deadline(now)]
+        self.deadline_evictions += len(out)
+        return out
+
+    def has_work(self) -> bool:
+        return bool(self.active) or self.queue.depth() > 0
+
+    def stats(self) -> Dict[str, float]:
+        s = dict(self.blocks.stats())
+        s.update({
+            "queue_depth": self.queue.depth(),
+            "active_requests": len(self.active),
+            "decoding_requests": len(self.decode_slots()),
+            "admitted_total": self.admitted,
+            "rejected_len_total": self.rejected_len,
+            "deadline_evictions_total": self.deadline_evictions,
+            "preemptions": self.preemptions,
+            "swap_in_blocks_reserved": self.swap_in_blocks_reserved,
+        })
+        return s
