@@ -1,23 +1,46 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch port starts and serves on one GPU.
+"""Quickest proof that the PyTorch port starts, serves and trains on one
+GPU.
 
     python3 chip_smoke.py
 
 Phase 0 prints the card and builds the port's CUDA kernels from
 ``megatron_llm_torch/csrc``.  Phase 1 holds each kernel against its plain
-PyTorch version on the card, in bf16 and fp32, at the serving path's
+PyTorch version on the card, in bf16 and fp32: the serving kernels (A,
+ragged paged attention; B, the RMSNorm forward) at the serving path's
 Llama-2-7B shapes and at edge cases (GQA, sliding windows, empty
-context, chunks across page boundaries), and times the kernel, the plain
-version and one PyTorch library call.  Phase 2 starts the port's HTTP
-server through ``build_server`` with Llama-2-7B at full width (random
-bf16 weights from a seed), answers ``PUT /api`` requests, and checks
-that every request finished, that a repeated request gives the same
-tokens, that both kernels ran exactly as often as the engine's dispatch
-counts say, that each repeated prefix hit the prefix cache for exactly
-its full cached pages, and that an independent no-cache forward
-(neither kernel: plain norm and ``core_attention``) agrees with the
-served tokens.  Then, on the stopped engine, it forces the
-copy-on-write of a page two requests share and checks the copy.
+context, chunks across page boundaries), and the training kernels (C,
+the RMSNorm backward; F, the flash-attention forward; G and H, its fused
+and two-pass backward) at the training path's shapes (4096 tokens of
+32 heads of 128; B at the training path's 4096 and 1000 rows too) and
+at GQA, MQA, window 4096 and 100, a 1000-token sequence that takes H
+with a ragged last tile, and q/k/v that are strided views of one fused
+QKV tensor, as the model passes them.  It times each kernel, its plain
+version and one PyTorch library call.
+
+Phase 2 starts the port's HTTP server through ``build_server`` with
+Llama-2-7B at full width (random bf16 weights from a seed), answers
+``PUT /api`` requests, and checks that every request finished, that a
+repeated request gives the same tokens, that both serving kernels ran
+exactly as often as the engine's dispatch counts say, that each
+repeated prefix hit the prefix cache for exactly its full cached pages,
+and that an independent no-cache forward (no kernel: plain norm and
+``core_attention``) agrees with the served tokens.  Then, on the stopped
+engine, it forces the copy-on-write of a page two requests share and
+checks the copy.
+
+Phase 3 trains Llama-2-7B at full width, cut to 8 of its 32 layers
+(bf16 params, fp32 masters and Adam moments, clip 1.0, sequence 4096,
+two micro-batches of 1), through ``megatron_llm_torch.finetune.main`` on
+synthetic data for 4 iterations, printing its log lines: finite losses
+and grad norms, a first loss near ln 32000, and per step exactly 16
+launches of F and of G, 34 of B and of C, none of H.  Then 5 steps of
+``build_train_step`` on one repeated batch must lower the loss at every
+step (timed as forward+backward and optimizer by CUDA events, with
+tokens/s, TFLOP/s, MFU and peak memory); one step at sequence 1000 must
+take H and not G; and, in fp32 at 2 layers and sequences 1024 (G) and
+1000 (H), the kernel path's loss and every param grad must agree with
+the plain path's (``core_attention`` and the plain norm's autograd).
 
 It prints, before its last line, the card's name and power limit, one
 JSON line with every kernel's numbers (``{"kernels": [...]}``), and as
@@ -28,9 +51,11 @@ outside a checkout of the repo.  Long logs go to ``chiprun_out/``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -65,6 +90,20 @@ FP32_FLOPS = 67e12
 FP32_LOGIT_TOL = 1e-2
 MARGIN_BOUND = 0.5
 MIN_CHECKED_FRACTION = 0.1
+
+# Gradients (kernels C, G, H against their plain versions): max-abs error
+# over the gradient's max-abs.  The sums run in another order than the
+# plain version's (G adds dq with atomics, in an order that changes from
+# run to run), and in bf16 the kernels round P and dS to bf16 before
+# their products where the plain backward keeps fp32.
+GRAD_TOL = {"bf16": 2e-2, "fp32": 1e-4}
+# The training slice's independent check, fp32: kernel path against the
+# plain path (core_attention, the plain norm's autograd), same params and
+# tokens.  The loss to 1e-5 relative; every param grad leaf to 1e-4 of
+# the leaf's max-abs (only summation order differs; a wrong kernel is off
+# by the gradient's own size).
+FP32_LOSS_TOL = 1e-5
+FP32_GRAD_TOL = 1e-4
 
 
 class CheckFailed(RuntimeError):
@@ -161,9 +200,12 @@ def phase1(gen, results):
     dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
     # -- kernel B: RMSNorm ------------------------------------------------
+    # serving's decode and prefill rows, odd shapes, and the training
+    # path's mb * seq rows at sequences 4096 and 1000
     err = {"bf16": 0.0, "fp32": 0.0}
     for tag, dt in dts.items():
-        for n, h in ((8, 4096), (64, 4096), (3, 128), (17, 11008 // 2)):
+        for n, h in ((8, 4096), (64, 4096), (3, 128), (17, 11008 // 2),
+                     (4096, 4096), (1000, 4096)):
             x = (torch.randn(n, h, device="cuda", generator=gen) * 3).to(dt)
             s = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(dt)
             y, r = rn.rms_norm_fwd_kernel(x, s, 1e-5)
@@ -369,8 +411,9 @@ def _paged_logits(model, params, tokens, chunk=64):
                                                device="cuda"))
                   for p in pages]
         pos = start + torch.arange(chunk, device="cuda")[None]
-        logits, _ = language_model_forward(params, toks, pos, None, cfg,
-                                           kv_caches=caches)
+        with torch.no_grad():
+            logits, _ = language_model_forward(params, toks, pos, None, cfg,
+                                               kv_caches=caches)
         out.append(logits[0, :len(part)].float())
     return torch.cat(out)
 
@@ -383,9 +426,12 @@ def _no_cache_logits(model, params, tokens, cfg=None):
     from megatron_llm_torch.models.language_model import (
         language_model_forward)
 
-    cfg = (cfg or model.cfg).replace(use_fused_rmsnorm=False)
+    cfg = (cfg or model.cfg).replace(use_fused_rmsnorm=False,
+                                     use_flash_attn=False)
     inp = torch.tensor([tokens], device="cuda")
-    return language_model_forward(params, inp, None, None, cfg)[0].float()
+    with torch.no_grad():
+        return language_model_forward(params, inp, None, None,
+                                      cfg)[0].float()
 
 
 def _token_check(model, params, tokens, n_prompt):
@@ -463,7 +509,7 @@ def _fp32_path_check(model, params, tokens):
     variants) and the no-cache path, with fp32 params and compute."""
     import torch
 
-    from megatron_llm_torch.models.transformer import tree_map
+    from megatron_llm_torch.tree import tree_map
 
     cfg32 = model.cfg.replace(params_dtype="fp32", compute_dtype="fp32")
     p32 = tree_map(lambda t: t.float(), params)
@@ -635,6 +681,560 @@ def phase2(results, kernels):
 
 
 # ---------------------------------------------------------------------------
+# phase 1, training kernels: C, F, G and H against their plain versions
+# ---------------------------------------------------------------------------
+
+def _attn_pairs(b, nh, sq, sk, window):
+    """Visible query-key pairs of causal(+window) attention, over heads
+    and batch: the work this input needs."""
+    pairs = 0
+    for q in range(sq):
+        hi = min(q, sk - 1)
+        lo = 0 if window is None else max(0, q - window + 1)
+        pairs += max(0, hi - lo + 1)
+    return b * nh * pairs
+
+
+def _attn_bound(b, s, nh, ng, d, window, backward):
+    """(bound_ms, bound_by) of flash attention in bf16: the forward's 2
+    block products (QK^T, PV), the backward's 5 (S recomputed, dP, dV,
+    dK, dQ), over the visible pairs; bytes: each input read once and
+    each output written once (forward q, k, v -> o, lse; backward q, k,
+    v, o, do, lse -> dq, dk, dv)."""
+    pairs = _attn_pairs(b, nh, s, s, window)
+    qb = b * s * nh * d * 2
+    kvb = 2 * b * s * ng * d * 2
+    lse = b * nh * s * 4
+    if backward:
+        return bound(4 * qb + 2 * kvb + lse, 5 * 2 * pairs * d, BF16_FLOPS)
+    return bound(2 * qb + kvb + lse, 2 * 2 * pairs * d, BF16_FLOPS)
+
+
+def _grad_errors(got, want):
+    """(max-abs error, max of error over the leaf's max-abs) over
+    (dq, dk, dv)."""
+    e_abs = e_rel = 0.0
+    for g, r in zip(got, want):
+        e = (g.float() - r.float()).abs().max().item()
+        e_abs = max(e_abs, e)
+        e_rel = max(e_rel, e / max(r.float().abs().max().item(), 1e-6))
+    return e_abs, e_rel
+
+
+def phase1_training(gen, results):
+    import torch
+    import torch.nn.functional as F
+
+    from megatron_llm_torch.ops.kernels import flash_attention as fa
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
+
+    dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+    # -- kernel C: RMSNorm backward ---------------------------------------
+    err = {"bf16": 0.0, "fp32": 0.0}
+    for tag, dt in dts.items():
+        for n, h in ((4096, 4096), (300, 4096), (3, 128), (17, 11008 // 2)):
+            x = (torch.randn(n, h, device="cuda", generator=gen) * 3).to(dt)
+            sc = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(dt)
+            g = torch.randn(n, h, device="cuda", generator=gen).to(dt)
+            _, rstd = rn.rms_norm_fwd_plain(x, sc, 1e-5)
+            dx, ds = rn.rms_norm_bwd_kernel(x, sc, g, rstd)
+            dx0, ds0 = rn.rms_norm_bwd_plain(x, sc, g, rstd)
+            torch.cuda.synchronize()
+            e_dx = (dx.float() - dx0.float()).abs().max().item()
+            e_ds = ((ds - ds0).abs().max()
+                    / ds0.abs().max().clamp(min=1.0)).item()
+            log(f"  rmsnorm backward {tag} n={n} h={h}: dx max_abs_err "
+                f"{e_dx:.3g}, dscale error / max|dscale| {e_ds:.3g}")
+            check(e_dx <= TOL[tag] and e_ds <= GRAD_TOL[tag],
+                  f"rmsnorm backward {tag} n={n} h={h}: dx {e_dx}, "
+                  f"dscale {e_ds}")
+            err[tag] = max(err[tag], e_dx)
+    # timing at the training path's shape: 4096 rows of 4096, bf16
+    n = h = 4096
+    x = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
+    sc = torch.ones(h, device="cuda", dtype=torch.bfloat16)
+    g = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
+    _, rstd = rn.rms_norm_fwd_kernel(x, sc, 1e-5)
+    ms = time_ms(lambda: rn.rms_norm_bwd_kernel(x, sc, g, rstd), iters=50)
+    plain_ms = time_ms(lambda: rn.rms_norm_bwd_plain(x, sc, g, rstd),
+                       iters=20)
+    xl = x.clone().requires_grad_(True)
+    sl = sc.clone().requires_grad_(True)
+    yl = F.rms_norm(xl, (h,), weight=sl, eps=1e-5)
+    lib_ms = time_ms(lambda: torch.autograd.grad(yl, (xl, sl), g,
+                                                 retain_graph=True),
+                     iters=50)
+    b_ms, b_by = bound(3 * n * h * 2 + n * 4 + h * 2 + h * 4, 8 * n * h,
+                       FP32_FLOPS)
+    results["rmsnorm_bwd"] = dict(
+        name="rmsnorm_bwd", route="cuda",
+        source="megatron_llm_torch/csrc/rmsnorm.cu",
+        replaces="megatron_llm_tpu/ops/pallas/rmsnorm.py:64",
+        max_abs_err=err["bf16"], max_abs_err_fp32=err["fp32"],
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, shape=f"x, g [{n}, {h}] bf16")
+    log(f"  rmsnorm backward [4096, 4096] bf16: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, F.rms_norm backward {lib_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by})")
+
+    # -- kernels F, G, H: flash attention ---------------------------------
+    # (label, b, s, nh, ng, d, window, views); s a multiple of 64 takes G,
+    # else H.  With ``views`` q, k and v are the views of one fused
+    # [b, s, ng, qpg + 2, d] QKV tensor that the training path passes (q
+    # a view only when qpg = 1), read through their strides.
+    cases = [
+        ("7B s4096", 1, 4096, 32, 32, 128, None, False),
+        ("7B s4096 window 4096", 1, 4096, 32, 32, 128, 4096, False),
+        ("GQA g8 s1024 window 100", 1, 1024, 32, 8, 128, 100, False),
+        ("MQA g1 s1024", 1, 1024, 32, 1, 128, None, False),
+        ("s1000, ragged last tile", 1, 1000, 32, 32, 128, None, False),
+        ("GQA g8 b2 s1000 window 100", 2, 1000, 32, 8, 128, 100, False),
+        ("fused-QKV views s1000", 1, 1000, 32, 32, 128, None, True),
+        ("fused-QKV views GQA g8 s1000 window 100", 1, 1000, 32, 8, 128,
+         100, True),
+        ("fused-QKV views s1024", 1, 1024, 32, 32, 128, None, True),
+    ]
+    f_err = {"bf16": 0.0, "fp32": 0.0}
+    b_err = {k: {"bf16": [0.0, 0.0], "fp32": [0.0, 0.0]} for k in "GH"}
+    for label, b, s, nh, ng, d, w, views in cases:
+        for tag, dt in dts.items():
+            if views:
+                qpg = nh // ng
+                mixed = torch.randn(b, s, ng, qpg + 2, d, device="cuda",
+                                    generator=gen).to(dt)
+                q = mixed[:, :, :, :qpg].reshape(b, s, nh, d)
+                k, v = mixed[:, :, :, qpg], mixed[:, :, :, qpg + 1]
+                check(not k.is_contiguous() and not v.is_contiguous()
+                      and (qpg > 1 or not q.is_contiguous()),
+                      f"{label}: the views are contiguous")
+            else:
+                q = torch.randn(b, s, nh, d, device="cuda",
+                                generator=gen).to(dt)
+                k = torch.randn(b, s, ng, d, device="cuda",
+                                generator=gen).to(dt)
+                v = torch.randn(b, s, ng, d, device="cuda",
+                                generator=gen).to(dt)
+            do = torch.randn(b, s, nh, d, device="cuda",
+                             generator=gen).to(dt)
+            scale = 1.0 / math.sqrt(d)
+            o, lse = fa.flash_attention_fwd_kernel(q, k, v, True, w, scale)
+            o0, lse0 = fa._reference_attention(q, k, v, True, w, scale)
+            torch.cuda.synchronize()
+            e_f = max((o.float() - o0.float()).abs().max().item(),
+                      (lse - lse0).abs().max().item())
+            kind = "G" if fa.uses_fused_backward(s, s) else "H"
+            before = (fa.bwd_fused_launches, fa.bwd_launches)
+            grads = fa.flash_attention_bwd_kernel(q, k, v, o0, lse0, do,
+                                                  True, w, scale)
+            after = (fa.bwd_fused_launches, fa.bwd_launches)
+            ref = fa._reference_attention_bwd(q, k, v, o0, lse0, do, True,
+                                              w, scale)
+            torch.cuda.synchronize()
+            e_abs, e_rel = _grad_errors(grads, ref)
+            log(f"  flash attention {label} {tag}: forward max_abs_err "
+                f"{e_f:.3g}; backward {kind}: max_abs_err {e_abs:.3g}, "
+                f"error / max|grad| {e_rel:.3g}")
+            check(math.isfinite(e_f) and e_f <= TOL[tag],
+                  f"flash forward {label} {tag}: {e_f} > {TOL[tag]}")
+            check(math.isfinite(e_rel) and e_rel <= GRAD_TOL[tag],
+                  f"flash backward {label} {tag}: {e_rel} > "
+                  f"{GRAD_TOL[tag]}")
+            want = (before[0] + 1, before[1]) if kind == "G" else (
+                before[0], before[1] + 1)
+            check(after == want, f"flash backward {label}: dispatch "
+                                 f"{before} -> {after}, expected {kind}")
+            f_err[tag] = max(f_err[tag], e_f)
+            b_err[kind][tag] = [max(b_err[kind][tag][0], e_abs),
+                                max(b_err[kind][tag][1], e_rel)]
+            del q, k, v, do, o, lse, o0, lse0, grads, ref
+            torch.cuda.empty_cache()
+
+    # timing, bf16: F and G at the training path's shape, H at the shape
+    # of the H step (sequence 1000)
+    for kind, s in (("G", 4096), ("H", 1000)):
+        b, nh, d = 1, 32, 128
+        q, k, v, do = (torch.randn(b, s, nh, d, device="cuda",
+                                   generator=gen).to(torch.bfloat16)
+                       for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        if kind == "G":
+            ms = time_ms(lambda: fa.flash_attention_fwd_kernel(
+                q, k, v, True, None, scale), iters=10)
+            plain_ms = time_ms(lambda: fa._reference_attention(
+                q, k, v, True, None, scale), iters=3, warmup=1)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), iters=10)
+            b_ms, b_by = _attn_bound(b, s, nh, nh, d, None, False)
+            results["flash_fwd"] = dict(
+                name="flash_attention_fwd", route="cuda",
+                source="megatron_llm_torch/csrc/flash_attention.cu",
+                replaces="megatron_llm_tpu/ops/pallas/flash_attention.py:93",
+                max_abs_err=f_err["bf16"], max_abs_err_fp32=f_err["fp32"],
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms,
+                shape=f"b={b} s={s} nh=g={nh} d={d} causal bf16")
+            log(f"  flash forward (F) {results['flash_fwd']['shape']}: "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        o, lse = fa.flash_attention_fwd_kernel(q, k, v, True, None, scale)
+        ms = time_ms(lambda: fa.flash_attention_bwd_kernel(
+            q, k, v, o, lse, do, True, None, scale), iters=5)
+        plain_ms = time_ms(lambda: fa._reference_attention_bwd(
+            q, k, v, o, lse, do, True, None, scale), iters=2, warmup=1)
+        qr, kr, vr = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            out, (qr, kr, vr), dot, retain_graph=True), iters=5)
+        b_ms, b_by = _attn_bound(b, s, nh, nh, d, None, True)
+        key = "flash_bwd_fused" if kind == "G" else "flash_bwd"
+        results[key] = dict(
+            name=("flash_attention_bwd_fused" if kind == "G"
+                  else "flash_attention_bwd_two_pass"),
+            route="cuda", source="megatron_llm_torch/csrc/flash_attention.cu",
+            replaces=("megatron_llm_tpu/ops/pallas/flash_attention.py:345"
+                      if kind == "G" else
+                      "megatron_llm_tpu/ops/pallas/flash_attention.py:213"),
+            max_abs_err=b_err[kind]["bf16"][0],
+            max_rel_err=b_err[kind]["bf16"][1],
+            max_abs_err_fp32=b_err[kind]["fp32"][0],
+            max_rel_err_fp32=b_err[kind]["fp32"][1],
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms,
+            shape=f"b={b} s={s} nh=g={nh} d={d} causal bf16")
+        log(f"  flash backward ({kind}) {results[key]['shape']}: kernel "
+            f"{ms:.4f} ms (delta, the dq buffer and its cast included), "
+            f"plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by})")
+        del q, k, v, do, qt, kt, vt, dot, o, lse, qr, kr, vr, out
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the training slice at Llama-2-7B width, 8 layers
+# ---------------------------------------------------------------------------
+
+def _zero_counts():
+    from megatron_llm_torch.ops.kernels import flash_attention as fa
+    from megatron_llm_torch.ops.kernels import paged_attention as pa
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
+
+    fa.fwd_launches = fa.bwd_fused_launches = fa.bwd_launches = 0
+    rn.launches = rn.bwd_launches = 0
+    pa.decode_launches = pa.prefill_launches = 0
+
+
+def _counts():
+    from megatron_llm_torch.ops.kernels import flash_attention as fa
+    from megatron_llm_torch.ops.kernels import paged_attention as pa
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
+
+    return {"F": fa.fwd_launches, "G": fa.bwd_fused_launches,
+            "H": fa.bwd_launches, "B": rn.launches, "C": rn.bwd_launches,
+            "A": pa.decode_launches + pa.prefill_launches}
+
+
+def _log_field(line, name):
+    m = re.search(rf"{re.escape(name)}: ([-+0-9.eEna]+)", line)
+    return float(m.group(1)) if m else None
+
+
+def _synthetic_batch(rng, micro, seq, vocab=32000):
+    import torch
+
+    toks = torch.from_numpy(rng.randint(0, vocab, (micro, 1, seq))).cuda()
+    return {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1),
+            "loss_mask": torch.ones(toks.shape, device="cuda")}
+
+
+# kernel-name substrings of each row of the step's device-time breakdown
+_KERNEL_GROUPS = (
+    ("F flash forward", ("flash_fwd_kernel",)),
+    ("G/H flash backward", ("flash_bwd_kv_kernel", "flash_bwd_dq_kernel")),
+    ("B rmsnorm forward", ("rmsnorm_fwd_kernel",)),
+    ("C rmsnorm backward", ("rmsnorm_bwd_kernel", "column_sum_kernel")),
+    ("matmuls (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
+)
+
+
+def _profile_step(run):
+    """Device time by kernel group over one call of ``run`` (which ends
+    in a synchronize), from torch.profiler; returns (ms by group, device
+    ms in all, wall ms).  The full table goes to chiprun_out/."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {name: 0.0 for name, _ in _KERNEL_GROUPS}
+    groups["other kernels"] = 0.0
+    events = prof.key_averages()
+    for evt in events:
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        ms = evt.self_device_time_total / 1e3
+        name = next((g for g, keys in _KERNEL_GROUPS
+                     if any(k in evt.key for k in keys)), "other kernels")
+        groups[name] += ms
+    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total",
+                             row_limit=60))
+    return groups, sum(groups.values()), wall_ms
+
+
+def _fp32_grad_check(L=2, seq=1024):
+    """Kernel path (F, G/H, B, C) against the plain path (core_attention
+    and the autograd of the plain norm), fp32, same params and tokens.
+    Returns (relative loss difference, worst leaf name, its error over
+    its max-abs, launches of the kernel path)."""
+    import numpy as np
+    import torch
+
+    from megatron_llm_torch.models.llama import LlamaModel, llama_config
+    from megatron_llm_torch.tree import tree_leaves_with_path
+
+    cfg = llama_config("7B", num_layers=L, seq_length=seq,
+                       max_position_embeddings=seq)
+    params = LlamaModel(cfg).init(99)
+    named = tree_leaves_with_path(params)
+    leaves = [p.requires_grad_(True) for _, p in named]
+    rng = np.random.RandomState(5)
+    toks = torch.from_numpy(rng.randint(0, 32000, (1, seq))).cuda()
+    labels = torch.roll(toks, -1, dims=-1)
+
+    def run(c):
+        loss = LlamaModel(c)(params, toks, labels=labels, train=True).mean()
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.item(), grads
+
+    _zero_counts()
+    loss_k, g_k = run(cfg)
+    counts = _counts()
+    loss_p, g_p = run(cfg.replace(use_flash_attn=False,
+                                  use_fused_rmsnorm=False))
+    check(_counts() == counts, f"the plain path launched kernels: "
+                               f"{counts} -> {_counts()}")
+    worst, worst_name = 0.0, ""
+    for (path, _), a, b in zip(named, g_k, g_p):
+        e = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+        if e > worst:
+            worst, worst_name = e, "/".join(path)
+    del params, leaves, g_k, g_p
+    torch.cuda.empty_cache()
+    return abs(loss_k - loss_p) / abs(loss_p), worst_name, worst, counts, \
+        (loss_k, loss_p)
+
+
+def phase3(results, kernels, card):
+    import contextlib
+    import gc
+    import io
+
+    import numpy as np
+    import torch
+
+    from megatron_llm_torch import finetune
+    from megatron_llm_torch.config import ParallelConfig, TrainConfig
+    from megatron_llm_torch.models.llama import LlamaModel, llama_config
+    from megatron_llm_torch.optimizer import MegatronOptimizer
+    from megatron_llm_torch.telemetry import ThroughputCalculator
+    from megatron_llm_torch.training import build_train_step
+
+    L, micro, iters, seq = 8, 2, 4, 4096
+    # (1) the entry point: Llama-2-7B width cut to 8 of its 32 layers
+    argv = ["--model_name", "llama2", "--num_layers", str(L),
+            "--hidden_size", "4096", "--num_attention_heads", "32",
+            "--ffn_hidden_size", "11008", "--seq_length", str(seq),
+            "--max_position_embeddings", str(seq), "--vocab_size", "32000",
+            "--bf16", "--micro_batch_size", "1", "--global_batch_size",
+            str(micro), "--train_iters", str(iters), "--lr", "1e-4",
+            "--clip_grad", "1.0", "--log_interval", "1", "--seed", "1234"]
+    log(f"  finetune.main({' '.join(argv)})")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            done = finetune.main(argv)
+    finally:
+        for line in out.getvalue().splitlines():
+            log(f"  | {line}")
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak_main = torch.cuda.max_memory_allocated()
+    lines = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith(" iteration")]
+    check(done == iters and len(lines) == iters,
+          f"{done} iterations, {len(lines)} log lines")
+    losses = [_log_field(ln, "lm loss") for ln in lines]
+    norms = [_log_field(ln, "grad norm") for ln in lines]
+    check(all(x is not None and math.isfinite(x) for x in losses + norms),
+          f"non-finite loss or grad norm: {losses} {norms}")
+    check(math.log(32000) <= losses[0] <= math.log(32000) + 1.5,
+          f"first loss {losses[0]} outside [ln 32000, ln 32000 + 1.5]")
+    per_step = {k: v / iters for k, v in counts.items()}
+    want = {"F": L * micro, "G": L * micro, "H": 0,
+            "B": (2 * L + 1) * micro, "C": (2 * L + 1) * micro, "A": 0}
+    log(f"  launches per step {per_step} (expected {want}); peak memory "
+        f"{peak_main / 2**30:.2f} GiB; {wall:.1f} s for {iters} iterations")
+    check(per_step == want, f"launches per step {per_step} != {want}")
+    step_ms = [_log_field(ln, "elapsed time per iteration (ms)")
+               for ln in lines]
+    results["entry_point"] = dict(
+        losses=losses, grad_norms=norms, step_ms=step_ms,
+        tokens_per_sec=[_log_field(ln, "tokens per second")
+                        for ln in lines],
+        mfu_pct=[_log_field(ln, "MFU") for ln in lines],
+        launches=counts, peak_memory_gib=peak_main / 2**30, wall_secs=wall)
+    kernels["flash_fwd"]["launches"] = counts["F"]
+    kernels["flash_bwd_fused"]["launches"] = counts["G"]
+    kernels["rmsnorm_bwd"]["launches"] = counts["C"]
+    kernels["rmsnorm"]["launches_training"] = counts["B"]
+    kernels["rmsnorm"]["launches"] += counts["B"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) a fixed batch, 5 steps of build_train_step: the loss falls at
+    # every step; forward+backward and optimizer timed by CUDA events
+    cfg = llama_config("7B", num_layers=L, params_dtype="bf16",
+                       compute_dtype="bf16")
+    model = LlamaModel(cfg)
+    params = model.init(1234)
+    tc = TrainConfig(micro_batch_size=1, global_batch_size=micro, lr=3e-4,
+                     bf16=True, clip_grad=1.0)
+    opt_events = []
+
+    class TimedOptimizer(MegatronOptimizer):
+        def step(self, *a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res = super().step(*a, **kw)
+            e1.record()
+            opt_events.append((e0, e1))
+            return res
+
+    opt = TimedOptimizer(tc, params_dtype=torch.bfloat16)
+    state = opt.init(params)
+    step = build_train_step(model, opt, ParallelConfig(), micro)
+    rng = np.random.RandomState(7)
+    batch = _synthetic_batch(rng, micro, seq)
+    torch.cuda.reset_peak_memory_stats()
+    fixed, totals, opts = [], [], []
+    for i in range(5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        params, state, m = step(params, state, batch, None, 3e-4, 0.01)
+        e1.record()
+        torch.cuda.synchronize()
+        fixed.append(float(m["lm loss"]))
+        totals.append(e0.elapsed_time(e1))
+        opts.append(opt_events[-1][0].elapsed_time(opt_events[-1][1]))
+        log(f"  fixed batch step {i + 1}: lm loss {fixed[-1]:.6f}, grad "
+            f"norm {float(m['grad_norm']):.4f}, step {totals[-1]:.1f} ms "
+            f"(forward+backward {totals[-1] - opts[-1]:.1f} ms, optimizer "
+            f"{opts[-1]:.1f} ms)")
+    peak_fixed = torch.cuda.max_memory_allocated()
+    check(all(b < a for a, b in zip(fixed, fixed[1:])),
+          f"the fixed-batch loss did not fall at every step: {fixed}")
+
+    # steady steps (the first allocates the accumulators and warms up)
+    total_ms = sorted(totals[1:])[len(totals[1:]) // 2]
+    opt_ms = sorted(opts[1:])[len(opts[1:]) // 2]
+    tp = ThroughputCalculator.from_model(model).compute(
+        micro * seq, total_ms / 1e3)
+
+    # where a steady step's device time goes: one more step under
+    # torch.profiler (its wall time carries the profiler's own host
+    # overhead, so the idle share is taken against the unprofiled step)
+    def one_step():
+        nonlocal params, state
+        params, state, _ = step(params, state, batch, None, 3e-4, 0.01)
+        torch.cuda.synchronize()
+
+    groups, busy_ms, prof_wall_ms = _profile_step(one_step)
+    idle = 1 - busy_ms / total_ms if busy_ms > 0 else None
+    if busy_ms > 0:
+        log(f"  one step under torch.profiler ({card}): device busy "
+            f"{busy_ms:.1f} ms against an unprofiled step of "
+            f"{total_ms:.1f} ms (idle share {idle:.3f}); device ms by "
+            f"kernel: " + ", ".join(f"{k} {v:.1f}"
+                                    for k, v in groups.items()))
+    else:
+        log("  one step under torch.profiler: no device time recorded "
+            "(device breakdown not measured)")
+    results["profiled_step"] = dict(
+        profiled_wall_ms=prof_wall_ms, device_ms=busy_ms, idle_share=idle,
+        device_ms_by_kernel=groups)
+
+    results["fixed_batch"] = dict(
+        losses=fixed, step_ms=totals, optimizer_ms=opts,
+        median_step_ms=total_ms, median_optimizer_ms=opt_ms,
+        median_fwd_bwd_ms=total_ms - opt_ms, peak_memory_gib=peak_fixed
+        / 2**30, params=model.num_params(params),
+        flops_per_token=model.flops_per_token(), **tp)
+    mfu = ("n/a (no peak for this card)" if tp["mfu"] is None
+           else f"{100 * tp['mfu']:.2f}%")
+    log(f"  training throughput ({card}): {tp['tokens_per_sec']:.0f} "
+        f"tokens/s, {tp['tflops_per_device']:.1f} TFLOP/s, MFU {mfu}; "
+        f"step {total_ms:.1f} ms = forward+backward {total_ms - opt_ms:.1f}"
+        f" ms + optimizer {opt_ms:.1f} ms; peak memory "
+        f"{peak_fixed / 2**30:.2f} GiB; {model.num_params(params) / 1e9:.3f}"
+        f" B params")
+
+    # (3) one step at sequence 1000, which takes the two-pass backward
+    batch = _synthetic_batch(rng, micro, 1000)
+    _zero_counts()
+    params, state, m = step(params, state, batch, None, 3e-4, 0.01)
+    torch.cuda.synchronize()
+    counts_h = _counts()
+    log(f"  step at sequence 1000: lm loss {float(m['lm loss']):.6f}, "
+        f"launches {counts_h}")
+    check(math.isfinite(float(m["lm loss"])), "H step: non-finite loss")
+    check(counts_h["H"] == L * micro and counts_h["G"] == 0
+          and counts_h["F"] == L * micro,
+          f"H step launches {counts_h}")
+    kernels["flash_bwd"]["launches"] = counts_h["H"]
+    results["h_step"] = dict(loss=float(m["lm loss"]), launches=counts_h)
+    del params, state, m, step, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) the independent check in fp32: kernels against the plain path,
+    # at sequence 1024 (backward G) and at 1000 (backward H, on the
+    # strided views of the fused QKV output)
+    for seq32, bwd, other in ((1024, "G", "H"), (1000, "H", "G")):
+        rel_loss, worst_name, worst, counts32, pair = _fp32_grad_check(
+            seq=seq32)
+        log(f"  fp32 check, 2 layers at sequence {seq32}: loss kernel path "
+            f"{pair[0]:.7f}, plain path {pair[1]:.7f} (relative difference "
+            f"{rel_loss:.3g}, tolerance {FP32_LOSS_TOL}); worst grad leaf "
+            f"{worst_name}: error / max-abs {worst:.3g} (tolerance "
+            f"{FP32_GRAD_TOL}); kernel-path launches {counts32}")
+        check(rel_loss <= FP32_LOSS_TOL,
+              f"fp32 loss at sequence {seq32} differs by {rel_loss}")
+        check(worst <= FP32_GRAD_TOL,
+              f"fp32 grad of {worst_name} at sequence {seq32} differs by "
+              f"{worst} of its max-abs")
+        check(all(counts32[k] > 0 for k in "FBC" + bwd)
+              and counts32[other] == 0,
+              f"the fp32 kernel path at sequence {seq32} launched "
+              f"{counts32}")
+        key = "fp32_check" if seq32 == 1024 else f"fp32_check_s{seq32}"
+        results[key] = dict(rel_loss_diff=rel_loss, loss_kernel=pair[0],
+                            loss_plain=pair[1], worst_leaf=worst_name,
+                            worst_rel_err=worst, launches=counts32)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -678,22 +1278,37 @@ def main() -> int:
     kernels, results = {}, {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    log("phase 1: kernels vs plain versions")
+    log("phase 1: serving kernels vs plain versions")
     phase1(gen, kernels)
+    log("phase 1: training kernels vs plain versions")
+    phase1_training(gen, kernels)
     log(f"phase 1 passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     log("phase 2: Llama-2-7B through the port's HTTP server")
     phase2(results, kernels)
+    kernels["rmsnorm"]["launches_serving"] = kernels["rmsnorm"]["launches"]
     log(f"phase 2 passed in {time.perf_counter() - t0:.1f} s")
     log(f"serving ({card}): " + json.dumps(results))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("phase 3: training Llama-2-7B width, 8 layers, through "
+        "megatron_llm_torch.finetune")
+    training = {}
+    phase3(training, kernels, card)
+    log(f"phase 3 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"training ({card}): " + json.dumps(training))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    line = {"kernels": [{k: kernels[n][k] for k in keys}
-                        for n in ("paged_decode", "paged_prefill",
-                                  "rmsnorm")]}
+    names = ("paged_decode", "paged_prefill", "rmsnorm", "rmsnorm_bwd",
+             "flash_fwd", "flash_bwd_fused", "flash_bwd")
+    for n in names:
+        check(kernels[n]["launches"] > 0,
+              f"{n} was not launched on its path")
+    line = {"kernels": [{k: kernels[n][k] for k in keys} for n in names]}
     with open(os.path.join(OUT_DIR, "chip_smoke_result.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, "serving": results},
-                  f, indent=1)
+        json.dump({"card": card, "kernels": kernels, "serving": results,
+                   "training": training}, f, indent=1)
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,4 +31,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// butterfly max: every lane of the warp ends with the maximum
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 }  // namespace mlt

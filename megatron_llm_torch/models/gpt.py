@@ -10,10 +10,12 @@ import torch
 
 from megatron_llm_torch.config import TransformerConfig
 from megatron_llm_torch.models.language_model import (
+    flops_per_token,
     init_language_model_params,
     language_model_forward,
     unsupported_features,
 )
+from megatron_llm_torch.ops.cross_entropy import vocab_parallel_cross_entropy
 
 
 class GPTModel:
@@ -47,14 +49,29 @@ class GPTModel:
                 total += node.numel()
         return total
 
+    def flops_per_token(self, seq_len=None) -> float:
+        return flops_per_token(self.cfg, seq_len)
+
     def __call__(self, params, tokens: torch.Tensor,
                  position_ids: Optional[torch.Tensor] = None,
                  attention_mask: Optional[torch.Tensor] = None,
-                 labels: Optional[torch.Tensor] = None, *, kv_caches=None):
-        """Logits [b, s, V] (and the new caches with ``kv_caches``)."""
-        if labels is not None:
+                 labels: Optional[torch.Tensor] = None, *,
+                 train: bool = False, kv_caches=None):
+        """Per-token loss [b, s] fp32 when ``labels`` are given, else
+        logits [b, s, V] (each with the new caches under ``kv_caches``).
+        Training with dropout raises, so no generator is taken (the JAX
+        package's ``rng_key``)."""
+        if labels is not None and self.cfg.fused_lm_cross_entropy:
             raise NotImplementedError(
-                "the training loss is part of the training slice")
-        return language_model_forward(params, tokens, position_ids,
-                                      attention_mask, self.cfg,
-                                      kv_caches=kv_caches)
+                "fused_lm_cross_entropy (the chunked LM head + cross "
+                "entropy) is not ported yet")
+        out = language_model_forward(params, tokens, position_ids,
+                                     attention_mask, self.cfg, train=train,
+                                     kv_caches=kv_caches)
+        if labels is None:
+            return out
+        logits, new_caches = out if kv_caches is not None else (out, None)
+        loss = vocab_parallel_cross_entropy(logits.float(), labels)
+        if kv_caches is not None:
+            return loss, new_caches
+        return loss

@@ -1,5 +1,6 @@
 """Embedding + transformer + LM head (the counterpart of
-``megatron_llm_tpu/models/language_model.py``, with its param tree)."""
+``megatron_llm_tpu/models/language_model.py``, with its param tree), and
+the model's FLOP count per token for MFU accounting."""
 
 from __future__ import annotations
 
@@ -65,22 +66,23 @@ def lm_head_weight(params) -> torch.Tensor:
     return params["embedding"]["word"]["embedding"]
 
 
-@torch.no_grad()
 def language_model_forward(params, tokens: torch.Tensor,
                            position_ids: Optional[torch.Tensor],
                            attention_mask: Optional[torch.Tensor],
-                           cfg: TransformerConfig, *,
+                           cfg: TransformerConfig, *, train: bool = False,
                            compute_logits: bool = True, kv_caches=None,
                            freqs=None):
     """Full LM forward -> logits [b, s, V] (or the final hidden states
     when ``compute_logits=False``); with ``kv_caches`` returns
-    ``(out, new_caches)``."""
+    ``(out, new_caches)``.  Differentiable; inference callers run it
+    under ``torch.no_grad()``."""
     h = embedding_forward(tokens, position_ids, params["embedding"], cfg)
     if freqs is None:
         freqs = rotary_freqs(cfg, device=h.device)
     out = transformer_stack(h, params["transformer"], cfg, freqs=freqs,
                             attention_mask=attention_mask,
-                            position_ids=position_ids, kv_caches=kv_caches)
+                            position_ids=position_ids, kv_caches=kv_caches,
+                            train=train and kv_caches is None)
     h, new_caches = out if kv_caches is not None else (out, None)
     if compute_logits:
         h = parallel_lm_logits(h, lm_head_weight(params),
@@ -88,6 +90,28 @@ def language_model_forward(params, tokens: torch.Tensor,
     if kv_caches is not None:
         return h, new_caches
     return h
+
+
+def flops_per_token(cfg: TransformerConfig,
+                    seq_len: Optional[int] = None) -> float:
+    """Per-token forward+backward FLOPs for MFU accounting: the 6ND
+    approximation plus the attention term (the JAX package's estimate)."""
+    s = seq_len or cfg.seq_length
+    h = cfg.hidden_size
+    L = cfg.num_layers
+    ffn = cfg.ffn_hidden_size
+    ng = cfg.num_query_groups
+    nh = cfg.num_attention_heads
+    d = cfg.head_dim
+    mult = 2 if cfg.glu_activation else 1
+    qkv = h * (nh + 2 * ng) * d
+    proj = nh * d * h
+    mlp_p = h * ffn * mult + ffn * h      # dense MLP (MoE is not ported)
+    dense = L * (qkv + proj + mlp_p)
+    emb = cfg.padded_vocab_size * h
+    # fwd = 2 flops/param/token, bwd = 4, attention = 2*2*s*nh*d per layer
+    attn = L * 2 * 2 * s * nh * d
+    return 6.0 * (dense + emb) + 3.0 * attn
 
 
 def unsupported_features(cfg: TransformerConfig) -> list:

@@ -60,6 +60,8 @@ def llama_config(size: str = "7B", **overrides) -> TransformerConfig:
         layernorm_epsilon=1e-5,
         seq_length=4096,
         max_position_embeddings=4096,
+        hidden_dropout=0.0,
+        attention_dropout=0.0,
     )
     base.update(shapes[size])
     base.update(overrides)

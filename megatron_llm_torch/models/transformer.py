@@ -1,11 +1,16 @@
-"""Transformer core for inference: attention (with the paged KV branch of
-the serving engine), MLP, pre-LN layer and the layer stack.
+"""Transformer core: attention (flash attention for the no-cache
+forward, the paged KV branch of the serving engine), MLP, pre-LN layer
+and the layer stack, for inference and single-device training.
 
-The inference subset of ``megatron_llm_tpu/models/transformer.py``, with
-its layouts: activations ``[b, s, ...]``, the packed grouped QKV
-projection ``[ng, q_per_group + 2, d]``, per-layer params stacked on a
-leading ``[num_layers]`` axis, and page pools ``[P, bs, g, d]``.  The
-stack is a Python loop over the layers (the JAX package scans it).
+The counterpart of ``megatron_llm_tpu/models/transformer.py``, with its
+layouts: activations ``[b, s, ...]``, the packed grouped QKV projection
+``[ng, q_per_group + 2, d]``, per-layer params stacked on a leading
+``[num_layers]`` axis, and page pools ``[P, bs, g, d]``.  The stack is a
+Python loop over the layers (the JAX package scans it); each forward
+unbinds the stacked params once, so the backward stacks each leaf's
+layer grads once.  Dropout in training, recompute and the chunked
+attention of long unfused sequences are later slices and raise
+``NotImplementedError``.
 
 The JAX package's paged branch is functional: it returns fresh pools.
 Here the scatter writes into the pools in place, which saves copying a
@@ -23,6 +28,7 @@ import torch
 
 from megatron_llm_torch.config import PositionEmbeddingType, TransformerConfig
 from megatron_llm_torch.ops.activations import apply_mlp_activation
+from megatron_llm_torch.ops.kernels.flash_attention import flash_attention
 from megatron_llm_torch.ops.kernels.paged_attention import (
     paged_attention_decode,
     paged_attention_prefill,
@@ -41,14 +47,11 @@ from megatron_llm_torch.parallel.layers import (
     row_parallel_linear,
     scaled_init_method_normal,
 )
+from megatron_llm_torch.tree import tree_map
 
-
-def tree_map(fn, *trees):
-    """Map ``fn`` over the leaves of nested dicts of tensors."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
-    return fn(*trees)
+# the JAX package routes a flash-eligible unfused attention at least this
+# long to its q-chunked XLA path (ops/chunked_attention.py), not ported
+CHUNKED_ATTENTION_MIN_SEQ = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -195,7 +198,7 @@ def _paged_scatter(kv_cache: dict, k: torch.Tensor, v: torch.Tensor,
 def attention(x: torch.Tensor, params, cfg: TransformerConfig, *,
               freqs: Optional[tuple], attention_mask: Optional[torch.Tensor],
               position_ids: Optional[torch.Tensor],
-              kv_cache: Optional[dict] = None):
+              kv_cache: Optional[dict] = None, train: bool = False):
     """QKV projection, RoPE, attention, output projection.  With a paged
     ``kv_cache`` (pools plus block_tables / context_lens / valid_lens)
     returns ``(out, new_cache)``."""
@@ -252,9 +255,24 @@ def attention(x: torch.Tensor, params, cfg: TransformerConfig, *,
                           "context_lens": ctx_lens + vlen,
                           "valid_lens": vlen})
     if ctx is None:
-        # the no-cache forward; the flash kernel of the JAX package is
-        # not ported yet
-        ctx = core_attention(q, k, v, cfg, attention_mask)
+        # the no-cache forward, dispatched as in the JAX package: flash
+        # attention (kernels F and G/H on the card, their plain versions
+        # on the CPU) when the causal(+window) mask is the whole mask and
+        # no attention dropout runs, else core_attention
+        flash_eligible = (attention_mask is None
+                          and not (train and cfg.attention_dropout > 0.0))
+        if cfg.use_flash_attn and flash_eligible:
+            ctx = flash_attention(q, k, v, causal=True,
+                                  sliding_window=cfg.sliding_window_size,
+                                  softmax_scale=1.0 / math.sqrt(
+                                      cfg.head_dim))
+        elif flash_eligible and q.shape[1] >= CHUNKED_ATTENTION_MIN_SEQ:
+            raise NotImplementedError(
+                f"unfused attention at {q.shape[1]} tokens takes the JAX "
+                f"package's chunked_causal_attention, which is not ported; "
+                f"use flash attention")
+        else:
+            ctx = core_attention(q, k, v, cfg, attention_mask)
 
     b, s = ctx.shape[:2]
     ctx = ctx.reshape(b, s, cfg.num_attention_heads * cfg.head_dim)
@@ -281,9 +299,14 @@ def _norm_uses_kernel(cfg: TransformerConfig) -> bool:
 
 def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
                       freqs=None, attention_mask=None, position_ids=None,
-                      kv_cache=None):
+                      kv_cache=None, train: bool = False):
     """One pre-LN decoder layer (sequential attention then MLP).  Returns
     ``(out, new_cache)``; ``new_cache`` is None without a cache."""
+    if train and (cfg.hidden_dropout > 0.0 or cfg.attention_dropout > 0.0):
+        raise NotImplementedError(
+            "dropout in training is not ported yet (it comes with "
+            "random.py); set hidden_dropout and attention_dropout to 0")
+
     def norm(h, p):
         return apply_norm(h, p, cfg.normalization,
                           eps=cfg.layernorm_epsilon,
@@ -292,7 +315,7 @@ def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
 
     ln_out = norm(x, params["input_norm"])
     attn_kw = dict(freqs=freqs, attention_mask=attention_mask,
-                   position_ids=position_ids, kv_cache=kv_cache)
+                   position_ids=position_ids, kv_cache=kv_cache, train=train)
     if kv_cache is not None:
         attn_out, new_cache = attention(ln_out, params["attention"], cfg,
                                         **attn_kw)
@@ -306,22 +329,29 @@ def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
 
 def transformer_stack(x: torch.Tensor, stack_params, cfg: TransformerConfig,
                       *, freqs=None, attention_mask=None, position_ids=None,
-                      kv_caches=None):
+                      kv_caches=None, train: bool = False):
     """Run the layers in turn, then the final norm.  Returns
     ``(h, new_caches)`` with ``kv_caches``, else ``h``.
 
     The final norm goes through the RMSNorm kernel like the layers' norms
-    (under ``use_fused_rmsnorm``), where the JAX package's inference loop
-    takes its plain norm: this way no plain norm runs on the card."""
-    layers = stack_params["layers"]
+    (under ``use_fused_rmsnorm``), where the JAX package takes its plain
+    norm: this way no plain norm runs on the card."""
+    if train and cfg.recompute_granularity is not None:
+        raise NotImplementedError(
+            f"recompute_granularity={cfg.recompute_granularity!r} is not "
+            f"ported yet (torch.utils.checkpoint is a later slice)")
+    # one unbind per leaf and forward: indexing p[i] per layer would give
+    # each layer's backward a whole [L, ...] zero tensor to scatter into
+    unbound = tree_map(lambda p: p.unbind(0), stack_params["layers"])
     new_caches = [] if kv_caches is not None else None
     h = x
     for i in range(cfg.num_layers):
-        layer_p = tree_map(lambda p: p[i], layers)
+        layer_p = tree_map(lambda p: p[i], unbound)
         h, c = transformer_layer(
             h, layer_p, cfg, freqs=freqs, attention_mask=attention_mask,
             position_ids=position_ids,
-            kv_cache=kv_caches[i] if kv_caches is not None else None)
+            kv_cache=kv_caches[i] if kv_caches is not None else None,
+            train=train)
         if new_caches is not None:
             new_caches.append(c)
     h = apply_norm(h, stack_params["final_norm"], cfg.normalization,

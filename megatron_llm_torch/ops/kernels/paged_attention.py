@@ -86,6 +86,9 @@ def _ragged_call(q, k_pages, v_pages, block_tables, context_lens, *,
         build.require_cuda(t, name)
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (the kernel reads "
+                             f"dense rows), got strides {t.stride()}")
     S, C, nh, d = q.shape
     P, bs, g, dk = k_pages.shape
     if v_pages.shape != k_pages.shape or dk != d or nh % g:
@@ -124,6 +127,15 @@ def _check_unported(k_scales, v_scales) -> None:
             "the ragged kernel is a later slice)")
 
 
+def _check_inference_only(*tensors) -> None:
+    """The paged reads have no backward: an input that requires grad
+    would silently cut the graph, so it is refused."""
+    if any(t.requires_grad for t in tensors):
+        raise ValueError("paged attention is inference-only: its inputs "
+                         "must not require grad (run it under "
+                         "torch.no_grad())")
+
+
 def paged_attention_decode(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -140,6 +152,7 @@ def paged_attention_decode(
     -> [S, nh, d] in q's dtype."""
     global decode_launches
     _check_unported(k_scales, v_scales)
+    _check_inference_only(q, k_pages, v_pages)
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError(f"q [S, nh, d] and pools [P, bs, g, d], got "
                          f"{tuple(q.shape)} / {tuple(k_pages.shape)}")
@@ -175,6 +188,7 @@ def paged_attention_prefill(
     valid row)."""
     global prefill_launches
     _check_unported(k_scales, v_scales)
+    _check_inference_only(q, k_pages, v_pages)
     if q.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"q [S, C, nh, d] and pools [P, bs, g, d], got "
                          f"{tuple(q.shape)} / {tuple(k_pages.shape)}")

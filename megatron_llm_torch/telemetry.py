@@ -1,13 +1,16 @@
-"""Serving telemetry: the JSONL record stream, its flight recorder, and the
+"""Telemetry: the trainer's throughput and MFU accounting, and for
+serving the JSONL record stream, its flight recorder and the
 fixed-bucket latency histograms behind ``/metrics``.
 
-The subset of ``megatron_llm_tpu/telemetry.py`` that the serving engine
-and its host-side modules (``serving/loop_profiler.py``,
-``serving/cache_observatory.py``) call.  Record shapes, bucket bounds and
-the schema version are the same, so the stdlib report tools
-(``tools/serve_report.py``, ``tools/telemetry_report.py``) read a port
-replica's stream unchanged.  The trainer's MFU accounting, status server
-and profiler session belong to the training slice.
+The subset of ``megatron_llm_tpu/telemetry.py`` that the port's trainer
+(``training.py``), the serving engine and its host-side modules
+(``serving/loop_profiler.py``, ``serving/cache_observatory.py``) call.
+Record shapes, bucket bounds and the schema version are the same, so the
+stdlib report tools (``tools/serve_report.py``,
+``tools/telemetry_report.py``) read a port replica's stream unchanged.
+The peak table is the H100's; it has no TPU entry, and a CPU has no peak,
+so no MFU is ever made up for one.  The trainer's JSONL stream, status
+server and profiler session are later slices.
 """
 
 from __future__ import annotations
@@ -20,7 +23,92 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+import torch
+
 TELEMETRY_SCHEMA_VERSION = 13
+
+# ---------------------------------------------------------------------------
+# Peak FLOPs / MFU
+# ---------------------------------------------------------------------------
+
+# dense bf16 tensor-core peak per card, keyed by substrings of
+# torch.cuda.get_device_name() (NVIDIA's H100 data sheet: SXM 989
+# TFLOP/s, PCIe 756 TFLOP/s; the SXM part names itself "H100 80GB HBM3")
+PEAK_FLOPS = {
+    "H100 80GB HBM3": 989e12,
+    "H100 SXM": 989e12,
+    "H100 PCIe": 756e12,
+}
+
+# MFU above this is physically impossible: the timing failed to wait for
+# the device.  The throughput record then reports null.
+MFU_SANITY_LIMIT = 0.95
+
+
+def peak_flops_for_kind(device_kind: str) -> Optional[float]:
+    """Peak bf16 FLOP/s for a device name, or None when the table has no
+    entry for it (a CPU, an unknown card): a null peak means the MFU is
+    never fabricated."""
+    for k, v in PEAK_FLOPS.items():
+        if k in device_kind:
+            return v
+    return None
+
+
+def peak_flops_for_device(device) -> Optional[float]:
+    """Peak FLOP/s of ``device`` (None for the CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return peak_flops_for_kind(torch.cuda.get_device_name(device))
+
+
+class ThroughputCalculator:
+    """Tokens/sec(/device), achieved TFLOPs/device and MFU from wall time.
+
+    ``flops_per_token`` is the model-level fwd+bwd estimate
+    (``model.flops_per_token()``, models/language_model.py); ``peak_flops``
+    the per-card bf16 peak (None => MFU is always null)."""
+
+    def __init__(self, flops_per_token: Optional[float] = None,
+                 device_count: int = 1,
+                 peak_flops: Optional[float] = None):
+        self.flops_per_token = flops_per_token
+        self.device_count = device_count
+        self.peak_flops = peak_flops
+
+    @classmethod
+    def from_model(cls, model, device_count: int = 1,
+                   peak_flops: Optional[float] = "auto"):
+        """Build from a model exposing ``flops_per_token()`` and
+        ``device`` (the port trains on one device)."""
+        fn = getattr(model, "flops_per_token", None)
+        fpt = float(fn()) if callable(fn) else None
+        if peak_flops == "auto":
+            peak_flops = peak_flops_for_device(model.device)
+        return cls(flops_per_token=fpt, device_count=device_count,
+                   peak_flops=peak_flops)
+
+    def compute(self, tokens: float, elapsed_secs: float) -> Dict[str, Any]:
+        """One log boundary's throughput record.  ``tokens`` is the token
+        count per iteration, ``elapsed_secs`` the per-iteration wall time.
+        MFU is null when the peak is unknown (CPU) or the number trips the
+        fabrication guard."""
+        n = max(self.device_count, 1)
+        tps = tokens / max(elapsed_secs, 1e-9)
+        out: Dict[str, Any] = {
+            "tokens_per_sec": tps,
+            "tokens_per_sec_per_device": tps / n,
+            "tflops_per_device": None,
+            "mfu": None,
+        }
+        if self.flops_per_token:
+            achieved = tps * self.flops_per_token / n
+            out["tflops_per_device"] = achieved / 1e12
+            if self.peak_flops:
+                mfu = achieved / self.peak_flops
+                out["mfu"] = mfu if mfu <= MFU_SANITY_LIMIT else None
+        return out
 STREAM_FILENAME = "telemetry.jsonl"
 
 

@@ -1,4 +1,4 @@
-"""Carry the JAX package's params into the port.
+"""Carry params between the JAX package and the port.
 
 Both packages use one param tree: ``embedding.word.embedding`` [V, H],
 ``transformer.layers`` with a leading ``[num_layers]`` axis on every leaf
@@ -7,7 +7,8 @@ Both packages use one param tree: ``embedding.word.embedding`` [V, H],
 ``transformer.final_norm`` and ``lm_head.weight``; linear kernels are
 ``[in, out]``.  So the conversion is a leaf-wise copy of numpy arrays
 (``jax.device_get`` of the JAX tree gives them) into tensors, with the
-tree's shape checked against the config.
+tree's shape checked against the config.  ``params_to_numpy`` is the
+inverse, for comparing the two packages' params after training steps.
 """
 
 from __future__ import annotations
@@ -64,3 +65,17 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
     if not cfg.tie_embed_logits and "lm_head" not in tree:
         raise KeyError("untied config but the tree has no lm_head")
     return _convert(tree, dtype, device)
+
+
+def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's param tree (or any tree of tensors, such as optimizer
+    moments) -> numpy leaves on the host.  bf16 leaves widen to float32
+    exactly (numpy has no bf16); other dtypes are kept."""
+    def conv(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    return {k: params_to_numpy(v) if isinstance(v, dict) else conv(v)
+            for k, v in tree.items()}

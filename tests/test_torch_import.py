@@ -12,8 +12,12 @@ import sys
 import pytest
 import torch
 
+from megatron_llm_torch import finetune
+from megatron_llm_torch.arguments import build_parser as build_train_parser
+from megatron_llm_torch.config import TrainConfig
 from megatron_llm_torch.models.llama import LlamaModel, llama_config
-from megatron_llm_torch.models.transformer import tree_map
+from megatron_llm_torch.tree import tree_map
+from megatron_llm_torch.optimizer import MegatronOptimizer
 from megatron_llm_torch.run_text_generation_server import build_parser
 from megatron_llm_torch.text_generation.generation import init_paged_kv_caches
 from megatron_llm_torch.weights import params_from_jax
@@ -70,9 +74,21 @@ def test_entry_points_default_to_the_gpu():
     assert model.device.type == "cuda"
     args = build_parser().parse_args(["--model_name", "llama2"])
     assert args.device == "cuda"
-    for fn in (init_paged_kv_caches, params_from_jax):
+    for fn in (init_paged_kv_caches, params_from_jax,
+               finetune.build_data_iterator):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert build_train_parser().parse_args([]).device == "cuda"
+    # the train step and the optimizer allocate where the params live
+    # (a default model's: the card)
+    cpu_params = LlamaModel(llama_config("tiny"), device="cpu").init(0)
+    state = MegatronOptimizer(TrainConfig()).init(cpu_params)
+    assert state.exp_avg["lm_head"]["weight"].device.type == "cpu"
     if not torch.cuda.is_available():
+        tiny = ["--model_name=llama2", "--num_layers=1", "--hidden_size=64",
+                "--num_attention_heads=4", "--seq_length=8",
+                "--vocab_size=128", "--train_iters=1"]
+        with pytest.raises((AssertionError, RuntimeError)):
+            finetune.main(tiny)
         # with no card, the defaults reach for one and fail loudly
         cfg = llama_config("tiny")
         with pytest.raises((AssertionError, RuntimeError)):
