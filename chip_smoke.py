@@ -5,42 +5,56 @@ GPU.
     python3 chip_smoke.py
 
 Phase 0 prints the card and builds the port's CUDA kernels from
-``megatron_llm_torch/csrc``.  Phase 1 holds each kernel against its plain
-PyTorch version on the card, in bf16 and fp32: the serving kernels (A,
-ragged paged attention; B, the RMSNorm forward) at the serving path's
-Llama-2-7B shapes and at edge cases (GQA, sliding windows, empty
-context, chunks across page boundaries), and the training kernels (C,
-the RMSNorm backward; F, the flash-attention forward; G and H, its fused
-and two-pass backward) at the training path's shapes (4096 tokens of
-32 heads of 128; B at the training path's 4096 and 1000 rows too) and
-at GQA, MQA, window 4096 and 100, a 1000-token sequence that takes H
-with a ragged last tile, and q/k/v that are strided views of one fused
-QKV tensor, as the model passes them.  It times each kernel, its plain
-version and one PyTorch library call.
+``megatron_llm_torch/csrc``.  Phase 1 holds each of the nine kernels
+against its plain PyTorch version on the card, in bf16 and fp32, times
+it, its plain version and one PyTorch library call, and computes its
+bound:
+
+* A, ragged paged attention, and A', the same over int8 pools with
+  per-position scales: at Llama-2-7B's serving shapes and Falcon-7B's (71
+  query heads on one KV head of 64), and at edge cases (GQA, sliding
+  windows, empty context, chunks across page boundaries, a page that
+  straddles the context end);
+* B and C, the RMSNorm forward and backward, and D and E, the LayerNorm
+  forward and backward: at decode, prefill and training rows of 4096 and
+  4544 columns and at odd shapes;
+* F, the flash-attention forward, and G and H, its fused and two-pass
+  backward: at both models' training shapes (32 heads of 128 at 4096
+  tokens; 71 heads on one KV head of 64 at 2048), GQA, MQA, windows, a
+  1000-token sequence that takes H with a ragged last tile, and q/k/v that
+  are strided views of one fused QKV tensor, as the model passes them.
 
 Phase 2 starts the port's HTTP server through ``build_server`` with
 Llama-2-7B at full width (random bf16 weights from a seed), answers
 ``PUT /api`` requests, and checks that every request finished, that a
-repeated request gives the same tokens, that both serving kernels ran
-exactly as often as the engine's dispatch counts say, that each
-repeated prefix hit the prefix cache for exactly its full cached pages,
-and that an independent no-cache forward (no kernel: plain norm and
-``core_attention``) agrees with the served tokens.  Then, on the stopped
-engine, it forces the copy-on-write of a page two requests share and
-checks the copy.
+repeated request gives the same tokens, that the serving kernels ran
+exactly as often as the engine's dispatch counts say (and the other
+family's not at all), that each repeated prefix hit the prefix cache for
+exactly its full cached pages, and that an independent no-cache forward
+(no kernel: plain norm and ``core_attention``) agrees with the served
+tokens.  Then, on the stopped engine, it forces the copy-on-write of a
+page two requests share and checks the copy, and profiles decode steps of
+the full 8-slot batch (device-busy time against the step's).  Phase 4 does the same with
+Falcon-7B at full width over an int8 KV pool (``--int8_kv_cache``): D and
+A' run, A and B do not, the copy covers the scales, and in fp32 the paged
+path agrees with the no-cache path exactly over plain pools and within a
+stated quantisation bound over int8 pools.
 
 Phase 3 trains Llama-2-7B at full width, cut to 8 of its 32 layers
 (bf16 params, fp32 masters and Adam moments, clip 1.0, sequence 4096,
 two micro-batches of 1), through ``megatron_llm_torch.finetune.main`` on
 synthetic data for 4 iterations, printing its log lines: finite losses
 and grad norms, a first loss near ln 32000, and per step exactly 16
-launches of F and of G, 34 of B and of C, none of H.  Then 5 steps of
-``build_train_step`` on one repeated batch must lower the loss at every
+launches of F and of G, 34 of B and of C, none of H, D or E.  Then 5 steps
+of ``build_train_step`` on one repeated batch must lower the loss at every
 step (timed as forward+backward and optimizer by CUDA events, with
 tokens/s, TFLOP/s, MFU and peak memory); one step at sequence 1000 must
 take H and not G; and, in fp32 at 2 layers and sequences 1024 (G) and
 1000 (H), the kernel path's loss and every param grad must agree with
 the plain path's (``core_attention`` and the plain norm's autograd).
+Phase 5 does the same with Falcon-7B's width at sequence 2048, 8 of 32
+layers: per step 16 launches of F and of G and 18 of D and of E, none of
+B or C.
 
 It prints, before its last line, the card's name and power limit, one
 JSON line with every kernel's numbers (``{"kernels": [...]}``), and as
@@ -91,7 +105,25 @@ FP32_LOGIT_TOL = 1e-2
 MARGIN_BOUND = 0.5
 MIN_CHECKED_FRACTION = 0.1
 
-# Gradients (kernels C, G, H against their plain versions): max-abs error
+# The int8 KV pool is not exact: every K and V value is rounded to one of
+# 255 levels of its (position, group) absmax, a relative step of 1/254,
+# at every layer, so the fp32 logits of the int8 paged path differ from
+# the no-cache path by far more than the summation order that separates
+# the plain pools from it.  The bound is on max |logit diff| over the
+# logits' std, as the drift bound of the kernel's own test is (0.2 of the
+# output's std for one attention call).  Over fp32 plain pools the same
+# model is held exactly (FP32_PLAIN_POOL_TOL), so that the LayerNorm
+# kernel and the parallel block are.
+INT8_LOGIT_DRIFT_BOUND = 0.2
+FP32_PLAIN_POOL_TOL = 2e-4
+# Served int8 tokens against the bf16 no-cache argmax: held at the same
+# margin bound as the plain pools (Falcon's bf16 logits of the two paths,
+# quantisation included, differ by less than Llama's: 0.125 at most, so
+# a flip needs a margin under 0.25), but random weights over 65024 ids
+# leave few positions above it, so fewer must clear it.
+INT8_MIN_CHECKED_FRACTION = 0.03
+
+# Gradients (kernels C, E, G, H against their plain versions): max-abs error
 # over the gradient's max-abs.  The sums run in another order than the
 # plain version's (G adds dq with atomics, in an order that changes from
 # run to run), and in bf16 the kernels round P and dS to bf16 before
@@ -172,9 +204,11 @@ def _paged_case(gen, S, C, nh, g, d, bs, M, ctx, dtype):
     return q, kp, vp, bt, cl
 
 
-def _paged_bytes_flops(S, C, nh, g, d, bs, ctx, window, itemsize):
+def _paged_bytes_flops(S, C, nh, g, d, bs, ctx, window, itemsize,
+                       quantized=False):
     """Bytes the function must move (q in, out, and each slot's live K/V
-    pages of every group, read once) and its matmul operations."""
+    pages of every group, read once: int8 pages with their fp32 scales
+    when quantized) and its matmul operations."""
     pages = 0
     flops = 0
     for s in range(S):
@@ -185,17 +219,110 @@ def _paged_bytes_flops(S, C, nh, g, d, bs, ctx, window, itemsize):
             pos = ctx[s] + j
             keys = pos + 1 if window is None else min(pos + 1, window)
             flops += 2 * 2 * keys * nh * d
-    kv = pages * bs * g * d * 2 * itemsize
+    per_key = 2 * (d + 4) if quantized else 2 * d * itemsize
+    kv = pages * bs * g * per_key
     qo = 2 * S * C * nh * d * itemsize
     return kv + qo + S * 4 * 2, flops
+
+
+def _run_paged(pa, q, kp, vp, bt, cl, scales, window, block_q=None):
+    """(kernel output, plain output) of one paged-attention case; decode
+    when the chunk is one token."""
+    ks, vs = scales
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.shape[1] == 1:
+        out = pa.paged_attention_decode(
+            q[:, 0].contiguous(), kp, vp, bt, cl, k_scales=ks, v_scales=vs,
+            sliding_window=window)
+        ref = pa._reference_paged_attention(q[:, 0], kp, vp, bt, cl, ks, vs,
+                                            scale, window)
+    else:
+        out = pa.paged_attention_prefill(
+            q, kp, vp, bt, cl, k_scales=ks, v_scales=vs,
+            sliding_window=window, block_q=block_q)
+        ref = pa._reference_paged_prefill(q, kp, vp, bt, cl, ks, vs, scale,
+                                          window)
+    return out, ref
+
+
+def _time_paged(gen, pa, S, C, ctx, nh, g, d, quantized, sweep=False):
+    """Times of one paged-attention shape in bf16: the kernel, its plain
+    version, SDPA over a pre-gathered (pre-dequantised, heads expanded)
+    dense K/V, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from megatron_llm_torch.quantization import absmax_quantize_int8
+
+    bs, M = 16, 128
+    q, kp, vp, bt, cl = _paged_case(gen, S, C, nh, g, d, bs, M, ctx,
+                                    torch.bfloat16)
+    ks = vs = None
+    dense_k, dense_v = kp, vp
+    if quantized:
+        kp, ks = absmax_quantize_int8(kp, axis=-1)
+        vp, vs = absmax_quantize_int8(vp, axis=-1)
+        dense_k = (kp.float() * ks[..., None]).to(torch.bfloat16)
+        dense_v = (vp.float() * vs[..., None]).to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(d)
+    if C == 1:
+        q1 = q[:, 0].contiguous()
+        run = lambda: pa.paged_attention_decode(q1, kp, vp, bt, cl,
+                                                k_scales=ks, v_scales=vs)
+        plain = lambda: pa._reference_paged_attention(q1, kp, vp, bt, cl, ks,
+                                                      vs, scale, None)
+    else:
+        run = lambda: pa.paged_attention_prefill(q, kp, vp, bt, cl,
+                                                 k_scales=ks, v_scales=vs)
+        plain = lambda: pa._reference_paged_prefill(q, kp, vp, bt, cl, ks,
+                                                    vs, scale, None)
+    out = dict(ms=time_ms(run, iters=50), plain_ms=time_ms(plain, iters=10))
+    if sweep:
+        # query rows per q-block (block_q, as qpg = 1 here): the sweep
+        # behind the wrapper's default, _KERNEL_ROWS_PER_BLOCK (the kernel
+        # cuts a larger q-block into blocks of 4 rows, so 8 equals 4)
+        out["rows_per_block_ms"] = {
+            bq: time_ms(lambda bq=bq: pa.paged_attention_prefill(
+                q, kp, vp, bt, cl, block_q=bq), iters=50)
+            for bq in (1, 2, 4, 8)}
+    # library yardstick: SDPA over a dense [S, nh, T, d] view of each
+    # slot's live keys, gathered, dequantised and expanded to the query
+    # heads beforehand (none of that is timed)
+    T = ctx[0] + C
+    qpg = nh // g
+    kd = dense_k[bt.long()].reshape(S, M * bs, g, d)[:, :T].transpose(1, 2)
+    vd = dense_v[bt.long()].reshape(S, M * bs, g, d)[:, :T].transpose(1, 2)
+    kd = kd.repeat_interleave(qpg, dim=1).contiguous()
+    vd = vd.repeat_interleave(qpg, dim=1).contiguous()
+    qd = q.transpose(1, 2).contiguous()                 # [S, nh, C, d]
+    kpos = torch.arange(T, device="cuda")
+    qpos = ctx[0] + torch.arange(C, device="cuda")
+    mask = (kpos[None, :] <= qpos[:, None])[None, None]
+    out["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask), iters=50)
+    nbytes, flops = _paged_bytes_flops(S, C, nh, g, d, bs, ctx, None, 2,
+                                       quantized)
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+    pools = "int8 pools" if quantized else "bf16 pools"
+    out["shape"] = (f"S={S} C={C} nh={nh} g={g} d={d} bs={bs} ctx={ctx[0]} "
+                    f"bf16, {pools}")
+    return out
+
+
+def _log_times(label, t, library):
+    log(f"  {label} {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, {library} {t['library_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
 
 
 def phase1(gen, results):
     import torch
     import torch.nn.functional as F
 
+    from megatron_llm_torch.ops.kernels import layernorm as ln
     from megatron_llm_torch.ops.kernels import paged_attention as pa
     from megatron_llm_torch.ops.kernels import rmsnorm as rn
+    from megatron_llm_torch.quantization import absmax_quantize_int8
 
     dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -237,13 +364,77 @@ def phase1(gen, results):
         f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound "
         f"{b_ms:.5f} ms ({b_by})")
 
-    # -- kernel A: ragged paged attention --------------------------------
-    # (S, C, nh, g, d, bs, M, ctx, window, block_q)
+    # -- kernel D: LayerNorm forward ---------------------------------------
+    # Falcon-7B's decode, prefill and training rows (4544 columns: 568
+    # vectors of 8 bf16, no multiple of the block's 256 threads), GPT-2's
+    # 768, odd shapes, and rows with a large mean in fp32
+    err = {"bf16": 0.0, "fp32": 0.0}
+    for tag, dt in dts.items():
+        for n, h, mean in ((8, 4544, 0.0), (64, 4544, 0.0), (2048, 4544, 0.0),
+                           (1000, 768, 0.0), (3, 128, 0.0), (17, 1600, 0.0),
+                           (64, 4544, 30.0)):
+            # outputs below 4: above it a bf16 step is 0.03, more than
+            # the tolerance, and a last-bit fp32 difference can flip one
+            x = (torch.randn(n, h, device="cuda", generator=gen) * 3
+                 + mean).to(dt)
+            s = (torch.rand(h, device="cuda", generator=gen) * 0.4
+                 + 0.4).to(dt)
+            b = (torch.randn(h, device="cuda", generator=gen) * 0.1).to(dt)
+            y, mu, r = ln.layer_norm_fwd_kernel(x, s, b, 1e-5)
+            y0, mu0, r0 = ln.layer_norm_fwd_plain(x, s, b, 1e-5)
+            torch.cuda.synchronize()
+            e = max((y.float() - y0.float()).abs().max().item(),
+                    (mu - mu0).abs().max().item(),
+                    (r - r0).abs().max().item())
+            # fp32 at the tolerance of the CPU tests, 1e-5
+            tol = TOL[tag] if tag == "bf16" else 1e-5
+            log(f"  layernorm {tag} n={n} h={h} mean={mean:g}: max_abs_err "
+                f"{e:.3g}")
+            check(e <= tol, f"layernorm {tag} n={n} h={h}: {e} > {tol}")
+            err[tag] = max(err[tag], e)
+    times = {}
+    for n in (2048, 8):
+        h = 4544
+        x = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
+        s = torch.ones(h, device="cuda", dtype=torch.bfloat16)
+        b = torch.zeros(h, device="cuda", dtype=torch.bfloat16)
+        b_ms, b_by = bound(2 * n * h * 2 + 2 * h * 2 + 2 * n * 4, 8 * n * h,
+                           FP32_FLOPS)
+        times[n] = dict(
+            ms=time_ms(lambda: ln.layer_norm_fwd_kernel(x, s, b, 1e-5),
+                       iters=200),
+            plain_ms=time_ms(lambda: ln.layer_norm_fwd_plain(x, s, b, 1e-5),
+                             iters=50),
+            library_ms=time_ms(lambda: F.layer_norm(x, (h,), s, b, 1e-5),
+                               iters=200),
+            bound_ms=b_ms, bound_by=b_by, shape=f"x [{n}, {h}] bf16")
+        _log_times("layernorm (D)", times[n], "F.layer_norm")
+    results["layernorm"] = dict(
+        name="layernorm_fwd", route="cuda",
+        source="megatron_llm_torch/csrc/layernorm.cu",
+        replaces="megatron_llm_tpu/ops/pallas/layernorm.py:50",
+        max_abs_err=err["bf16"], max_abs_err_fp32=err["fp32"],
+        decode_rows=times[8], **times[2048])
+
+    # -- kernels A and A': ragged paged attention ---------------------------
+    # (label, S, C, nh, g, d, bs, M, ctx, window, block_q); every case runs
+    # over plain pools (A) and over int8 pools (A')
     cases = [
-        ("7B decode", 8, 1, 32, 32, 128, 16, 128,
+        ("Llama-2-7B decode", 8, 1, 32, 32, 128, 16, 128,
          [0, 37, 100, 513, 1000, 1200, 1500, 2000], None, None),
-        ("7B prefill", 1, 64, 32, 32, 128, 16, 128, [1000], None, None),
-        ("7B prefill ctx 0", 1, 64, 32, 32, 128, 16, 128, [0], None, None),
+        ("Llama-2-7B prefill", 1, 64, 32, 32, 128, 16, 128, [1000], None,
+         None),
+        ("Llama-2-7B prefill ctx 0", 1, 64, 32, 32, 128, 16, 128, [0], None,
+         None),
+        ("Falcon-7B decode", 8, 1, 71, 1, 64, 16, 128,
+         [0, 37, 100, 513, 1000, 1200, 1500, 2000], None, None),
+        ("Falcon-7B prefill", 1, 64, 71, 1, 64, 16, 128, [1000], None, None),
+        ("Falcon-7B prefill ctx 0", 1, 64, 71, 1, 64, 16, 128, [0], None,
+         None),
+        ("Falcon-7B prefill, a page straddling the context end", 2, 64, 71,
+         1, 64, 16, 128, [9, 1003], None, None),
+        ("Falcon-7B decode window 100", 4, 1, 71, 1, 64, 16, 128,
+         [0, 99, 100, 1500], 100, None),
         ("GQA g8 decode", 8, 1, 32, 8, 128, 16, 128,
          [0, 5, 16, 17, 300, 700, 1100, 2000], None, None),
         ("GQA g8 prefill", 2, 64, 32, 8, 128, 16, 128, [7, 250], None, 16),
@@ -252,91 +443,66 @@ def phase1(gen, results):
         ("window 5 prefill", 3, 64, 32, 8, 128, 16, 16, [0, 3, 40], 5, 8),
         ("window 12 decode, bs 8", 4, 1, 8, 2, 64, 8, 16,
          [0, 7, 30, 100], 12, None),
+        ("d 32 window 12 prefill, bs 8", 2, 16, 8, 2, 32, 8, 16, [3, 50], 12,
+         None),
         ("page-crossing chunk, ctx % bs != 0", 2, 64, 32, 32, 128, 16, 8,
          [9, 55], None, None),
     ]
-    err = {"decode": {"bf16": 0.0, "fp32": 0.0},
-           "prefill": {"bf16": 0.0, "fp32": 0.0}}
+    err = {q_: {"decode": {"bf16": 0.0, "fp32": 0.0},
+                "prefill": {"bf16": 0.0, "fp32": 0.0}} for q_ in (False, True)}
     for (label, S, C, nh, g, d, bs, M, ctx, window, bq) in cases:
         for tag, dt in dts.items():
             q, kp, vp, bt, cl = _paged_case(gen, S, C, nh, g, d, bs, M, ctx,
                                             dt)
-            scale = 1.0 / math.sqrt(d)
-            if C == 1:
-                kind = "decode"
-                out = pa.paged_attention_decode(q[:, 0].contiguous(), kp, vp,
-                                                bt, cl, sliding_window=window)
-                ref = pa._reference_paged_attention(q[:, 0], kp, vp, bt, cl,
-                                                    scale, window)
-            else:
-                kind = "prefill"
-                out = pa.paged_attention_prefill(q, kp, vp, bt, cl,
-                                                 sliding_window=window,
-                                                 block_q=bq)
-                ref = pa._reference_paged_prefill(q, kp, vp, bt, cl, scale,
-                                                  window)
-            torch.cuda.synchronize()
-            e = (out.float() - ref.float()).abs().max().item()
-            log(f"  paged attention {label} {tag}: max_abs_err {e:.3g}")
-            check(math.isfinite(e) and e <= TOL[tag],
-                  f"paged attention {label} {tag}: {e} > {TOL[tag]}")
-            err[kind][tag] = max(err[kind][tag], e)
+            kq, ks = absmax_quantize_int8(kp, axis=-1)
+            vq, vs = absmax_quantize_int8(vp, axis=-1)
+            kind = "decode" if C == 1 else "prefill"
+            for quantized, pools in ((False, (kp, vp, (None, None))),
+                                     (True, (kq, vq, (ks, vs)))):
+                out, ref = _run_paged(pa, q, pools[0], pools[1], bt, cl,
+                                      pools[2], window, bq)
+                torch.cuda.synchronize()
+                e = (out.float() - ref.float()).abs().max().item()
+                name = "int8 paged attention" if quantized \
+                    else "paged attention"
+                log(f"  {name} {label} {tag}: max_abs_err {e:.3g}")
+                check(math.isfinite(e) and e <= TOL[tag],
+                      f"{name} {label} {tag}: {e} > {TOL[tag]}")
+                err[quantized][kind][tag] = max(err[quantized][kind][tag], e)
 
-    # timing at the serving path's shapes, bf16
+    # timing, bf16: A at Llama-2-7B's serving shapes (its path), A' at
+    # Falcon-7B's (its path) and at Llama-2-7B's, to be read beside A
+    llama = dict(nh=32, g=32, d=128)
+    falcon = dict(nh=71, g=1, d=64)
+    lib = "SDPA over a pre-gathered dense K/V (gather not timed)"
     for kind, (S, C, ctx) in (("decode", (8, 1, [1000] * 8)),
                               ("prefill", (1, 64, [1000]))):
-        nh = g = 32
-        d, bs, M = 128, 16, 128
-        q, kp, vp, bt, cl = _paged_case(gen, S, C, nh, g, d, bs, M, ctx,
-                                        torch.bfloat16)
-        scale = 1.0 / math.sqrt(d)
-        if kind == "decode":
-            q1 = q[:, 0].contiguous()
-            run = lambda: pa.paged_attention_decode(q1, kp, vp, bt, cl)
-            plain = lambda: pa._reference_paged_attention(q1, kp, vp, bt, cl,
-                                                          scale, None)
-        else:
-            run = lambda: pa.paged_attention_prefill(q, kp, vp, bt, cl)
-            plain = lambda: pa._reference_paged_prefill(q, kp, vp, bt, cl,
-                                                        scale, None)
-        ms = time_ms(run, iters=50)
-        plain_ms = time_ms(plain, iters=10)
-        sweep = None
-        if kind == "prefill":
-            # query rows per block (block_q, as qpg = 1 here): the sweep
-            # behind the wrapper's default, _KERNEL_ROWS_PER_BLOCK
-            sweep = {bq: time_ms(lambda bq=bq: pa.paged_attention_prefill(
-                q, kp, vp, bt, cl, block_q=bq), iters=50)
-                for bq in (1, 2, 4, 8, 16, 32, 64)}
+        t = _time_paged(gen, pa, S, C, ctx, quantized=False,
+                        sweep=kind == "prefill", **llama)
+        if "rows_per_block_ms" in t:
             log("  paged attention prefill, ms by query rows per block: "
-                + ", ".join(f"{bq}: {t:.4f}" for bq, t in sweep.items()))
-        # library yardstick: SDPA over a pre-gathered dense [S, nh, T, d]
-        # view of each slot's live keys (the gather is not timed)
-        T = ctx[0] + C
-        kd = kp[bt.long()].reshape(S, M * bs, g, d)[:, :T].transpose(1, 2)
-        vd = vp[bt.long()].reshape(S, M * bs, g, d)[:, :T].transpose(1, 2)
-        kd, vd = kd.contiguous(), vd.contiguous()
-        qd = q.transpose(1, 2).contiguous()                 # [S, nh, C, d]
-        kpos = torch.arange(T, device="cuda")
-        qpos = ctx[0] + torch.arange(C, device="cuda")
-        mask = (kpos[None, :] <= qpos[:, None])[None, None]
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask), iters=50)
-        nbytes, flops = _paged_bytes_flops(S, C, nh, g, d, bs, ctx, None, 2)
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+                + ", ".join(f"{bq}: {v:.4f}"
+                            for bq, v in t["rows_per_block_ms"].items()))
         results[f"paged_{kind}"] = dict(
             name=f"paged_attention_{kind}", route="cuda",
             source="megatron_llm_torch/csrc/paged_attention.cu",
             replaces="megatron_llm_tpu/ops/pallas/paged_attention.py:133",
-            max_abs_err=err[kind]["bf16"],
-            max_abs_err_fp32=err[kind]["fp32"],
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, rows_per_block_ms=sweep,
-            shape=f"S={S} C={C} nh=g=32 d=128 bs=16 ctx={ctx[0]} bf16")
-        log(f"  paged attention {kind} {results[f'paged_{kind}']['shape']}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA over a "
-            f"pre-gathered dense K/V (gather not timed) {lib_ms:.4f} ms, "
-            f"bound {b_ms:.5f} ms ({b_by})")
+            max_abs_err=err[False][kind]["bf16"],
+            max_abs_err_fp32=err[False][kind]["fp32"], **t)
+        _log_times(f"paged attention {kind} (A)", t, lib)
+        tq = _time_paged(gen, pa, S, C, ctx, quantized=True, **falcon)
+        tq_llama = _time_paged(gen, pa, S, C, ctx, quantized=True, **llama)
+        results[f"paged_{kind}_int8"] = dict(
+            name=f"paged_attention_{kind}_int8", route="cuda",
+            source="megatron_llm_torch/csrc/paged_attention.cu",
+            replaces="megatron_llm_tpu/ops/pallas/paged_attention.py:217",
+            max_abs_err=err[True][kind]["bf16"],
+            max_abs_err_fp32=err[True][kind]["fp32"],
+            llama_shape=tq_llama, **tq)
+        lib8 = ("SDPA over a pre-gathered, pre-dequantised bf16 K/V "
+                "(neither timed)")
+        _log_times(f"int8 paged attention {kind} (A')", tq, lib8)
+        _log_times(f"int8 paged attention {kind} (A')", tq_llama, lib8)
 
 
 # ---------------------------------------------------------------------------
@@ -383,9 +549,10 @@ def _serve_wave(port, prompts, new_tokens):
     return [body["tokens"][0] for _, body in out]
 
 
-def _paged_logits(model, params, tokens, chunk=64):
+def _paged_logits(model, params, tokens, chunk=64, quantized=False):
     """Teacher-forced logits of ``tokens`` through the paged path with
-    both kernels: chunked prefill into a fresh one-slot pool."""
+    its kernels: chunked prefill into a fresh one-slot pool (int8 when
+    ``quantized``)."""
     import torch
 
     from megatron_llm_torch.models.language_model import (
@@ -396,7 +563,8 @@ def _paged_logits(model, params, tokens, chunk=64):
     cfg = model.cfg
     bs = 16
     M = -(-len(tokens) // bs) + chunk // bs
-    pages = init_paged_kv_caches(cfg, 1 + M, bs, device="cuda")
+    pages = init_paged_kv_caches(cfg, 1 + M, bs, device="cuda",
+                                 quantized=quantized)
     bt = torch.arange(1, M + 1, dtype=torch.int32, device="cuda")[None]
     out = []
     for start in range(0, len(tokens), chunk):
@@ -418,30 +586,36 @@ def _paged_logits(model, params, tokens, chunk=64):
     return torch.cat(out)
 
 
+def _plain_path(cfg):
+    """The config of the path that launches no kernel: plain norms and
+    core_attention."""
+    return cfg.replace(use_fused_rmsnorm=False, use_fused_layernorm=False,
+                       use_flash_attn=False)
+
+
 def _no_cache_logits(model, params, tokens, cfg=None):
     """Teacher-forced logits [T, V] of ``tokens`` through the no-cache
-    forward with plain norms and core_attention (neither kernel)."""
+    forward with plain norms and core_attention (no kernel)."""
     import torch
 
     from megatron_llm_torch.models.language_model import (
         language_model_forward)
 
-    cfg = (cfg or model.cfg).replace(use_fused_rmsnorm=False,
-                                     use_flash_attn=False)
     inp = torch.tensor([tokens], device="cuda")
     with torch.no_grad():
         return language_model_forward(params, inp, None, None,
-                                      cfg)[0].float()
+                                      _plain_path(cfg or model.cfg)
+                                      )[0].float()
 
 
-def _token_check(model, params, tokens, n_prompt):
+def _token_check(model, params, tokens, n_prompt, quantized, margin_bound):
     """Served tokens vs the bf16 no-cache argmax.  Returns (positions
     above the margin bound, agreements among them, positions, and the
     spread of the bf16 teacher-forced logits of the two paths)."""
     import torch
 
     logits = _no_cache_logits(model, params, tokens[:-1])
-    paged = _paged_logits(model, params, tokens[:-1])
+    paged = _paged_logits(model, params, tokens[:-1], quantized=quantized)
     diff = (paged - logits).abs().flatten()
     k999 = max(1, math.ceil(0.999 * diff.numel()))
     spread = dict(mean_abs_diff=diff.mean().item(),
@@ -451,7 +625,7 @@ def _token_check(model, params, tokens, n_prompt):
     gen = logits[n_prompt - 1:]                 # predicts tokens[n_prompt:]
     want = torch.tensor(tokens[n_prompt:], device="cuda")
     top2 = torch.topk(gen, 2, dim=-1).values
-    sure = (top2[:, 0] - top2[:, 1]) > MARGIN_BOUND
+    sure = (top2[:, 0] - top2[:, 1]) > margin_bound
     agree = gen.argmax(dim=-1) == want
     return (int(sure.sum()), int((agree & sure).sum()), int(want.numel()),
             spread)
@@ -465,8 +639,9 @@ def _cow_check(engine, prompts, served, n_new=4):
     this drives it directly, as tests/test_torch_engine.py does on the
     CPU: two requests adopt the same cached pages, the write barrier is
     forced on the first one's page 0, and the copy must equal its source
-    bit for bit while both requests still give their served tokens.
-    Runs on the stopped engine, single-stepped."""
+    bit for bit in every pool array of every layer (the int8 pages and
+    their scales, where the pool is int8) while both requests still give
+    their served tokens.  Runs on the stopped engine, single-stepped."""
     import torch
 
     from megatron_llm_torch.serving import SamplingParams
@@ -501,12 +676,60 @@ def _cow_check(engine, prompts, served, n_new=4):
     for r, p, s in zip(reqs, prompts, served):
         check(r.tokens == s[:len(p) + n_new],
               "COW check: a request's tokens changed after the copy")
-    return a.cached_prompt_tokens, b.cached_prompt_tokens
+    return a.cached_prompt_tokens, b.cached_prompt_tokens, sorted(st.pages[0])
 
 
-def _fp32_path_check(model, params, tokens):
-    """Max |logit diff| between the paged path (both kernels, fp32
-    variants) and the no-cache path, with fp32 params and compute."""
+def _decode_profile(engine, prefix, vocab, tag, n_steps=8):
+    """Where a decode step of the full 8-slot batch goes, on the stopped
+    engine, single-stepped: 8 requests that share the cached ``prefix``
+    (so each prefills one chunk) reach decode, then ``n_steps`` decode
+    steps are timed on the host's clock and ``n_steps`` more run under
+    torch.profiler.  Returns (unprofiled ms a step, device-busy ms a step,
+    ms a step by kernel group): a device that is busy for a small share of
+    the step waits for the host's eager launches."""
+    import numpy as np
+    import torch
+
+    from megatron_llm_torch.serving import SamplingParams
+    from megatron_llm_torch.serving.request import RequestState
+
+    rng = np.random.RandomState(4321)
+    reqs = [engine.submit(prefix + rng.randint(0, vocab, size=8).tolist(),
+                          SamplingParams(max_new_tokens=8 * n_steps,
+                                         temperature=0.0))
+            for _ in range(8)]
+
+    def decoding():
+        return all(r.state == RequestState.DECODE for r in reqs)
+
+    for _ in range(100):
+        if decoding():
+            break
+        engine.step()
+    check(decoding(), "decode profile: the 8 requests did not reach decode")
+
+    def steps():
+        for _ in range(n_steps):
+            engine.step()
+        torch.cuda.synchronize()
+
+    steps()
+    t0 = time.perf_counter()
+    steps()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    groups, device_ms, _ = _profile_step(steps, tag)
+    check(decoding(),
+          "decode profile: a request finished inside the timed steps")
+    engine.stop()                       # aborts the 8 requests
+    return (wall_ms, device_ms / n_steps,
+            {k: v / n_steps for k, v in groups.items()})
+
+
+def _fp32_path_check(model, params, tokens, quantized):
+    """Max |logit diff| between the paged path (its kernels, fp32
+    variants) and the no-cache path, with fp32 params and compute, over
+    plain pools and, when ``quantized``, over int8 pools too.  Returns
+    (plain-pool diff, int8-pool diff or None, max |logit|, logit std)."""
     import torch
 
     from megatron_llm_torch.tree import tree_map
@@ -515,38 +738,84 @@ def _fp32_path_check(model, params, tokens):
     p32 = tree_map(lambda t: t.float(), params)
     model32 = type(model)(cfg32, device=model.device)
     ref = _no_cache_logits(model32, p32, tokens, cfg32)
-    paged = _paged_logits(model32, p32, tokens)
-    diff = (paged - ref).abs().max().item()
-    scale = ref.abs().max().item()
+    diff = (_paged_logits(model32, p32, tokens) - ref).abs().max().item()
+    diff8 = None
+    if quantized:
+        diff8 = (_paged_logits(model32, p32, tokens, quantized=True)
+                 - ref).abs().max().item()
+    scale, std = ref.abs().max().item(), ref.std().item()
     del p32
     torch.cuda.empty_cache()
-    return diff, scale
+    return diff, diff8, scale, std
 
 
-def phase2(results, kernels):
+def _serving_counts():
+    """Launches of the serving kernels since they were last zeroed."""
+    from megatron_llm_torch.ops.kernels import layernorm as ln
+    from megatron_llm_torch.ops.kernels import paged_attention as pa
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
+
+    return {"B": rn.launches, "D": ln.launches,
+            "A decode": pa.decode_launches,
+            "A prefill": pa.prefill_launches,
+            "A' decode": pa.quant_decode_launches,
+            "A' prefill": pa.quant_prefill_launches}
+
+
+# the two serving workloads: the same traffic through two model families
+SERVING = {
+    "llama": dict(
+        label="Llama-2-7B", model_name="llama2", vocab=32000, quantized=False,
+        # max_model_len cut from 4096 to 2048 to halve the KV pool
+        # (8 slots x 2048 tokens), default serve flags
+        flags=["--serve_max_model_len", "2048"],
+        # kernel row -> (count key, launches per layer and dispatch kind)
+        norm=("rmsnorm", "B", lambda L: 2 * L + 1),
+        decode=("paged_decode", "A decode"),
+        prefill=("paged_prefill", "A prefill"),
+        margin_bound=MARGIN_BOUND, min_checked=MIN_CHECKED_FRACTION),
+    "falcon": dict(
+        label="Falcon-7B", model_name="falcon", vocab=65024, quantized=True,
+        # max_model_len 2048 is the model's own
+        flags=["--int8_kv_cache", "--serve_max_model_len", "2048"],
+        # the parallel block has one norm a layer
+        norm=("layernorm", "D", lambda L: L + 1),
+        decode=("paged_decode_int8", "A' decode"),
+        prefill=("paged_prefill_int8", "A' prefill"),
+        margin_bound=MARGIN_BOUND, min_checked=INT8_MIN_CHECKED_FRACTION),
+}
+
+
+def _add_launches(kernels, row, phase, n):
+    """Add a path's launch count to a kernel's row of the last line."""
+    k = kernels[row]
+    k["launches"] = k.get("launches", 0) + n
+    k.setdefault("launches_by_phase", {})[phase] = n
+
+
+def serve_phase(results, kernels, spec):
     import numpy as np
     import torch
 
-    from megatron_llm_torch.ops.kernels import paged_attention as pa
-    from megatron_llm_torch.ops.kernels import rmsnorm as rn
     from megatron_llm_torch.run_text_generation_server import (
         build_parser, build_server)
     from megatron_llm_torch.tokenizer import NullTokenizer
 
     new_tokens = 64
-    # Llama-2-7B at full width; max_model_len cut from 4096 to 2048 to
-    # halve the KV pool (8 slots x 2048 tokens), default serve flags
-    argv = ["--model_name", "llama2", "--bf16", "--seed", "1234",
-            "--serve_max_model_len", "2048", "--host", "127.0.0.1",
-            "--port", "0"]
+    vocab = spec["vocab"]
+    argv = ["--model_name", spec["model_name"], "--bf16", "--seed", "1234",
+            "--host", "127.0.0.1", "--port", "0"] + spec["flags"]
     args = build_parser().parse_args(argv)
     t0 = time.perf_counter()
-    server = build_server(args, NullTokenizer(32000))
+    server = build_server(args, NullTokenizer(vocab))
     engine = server.engine
     log(f"  model + engine + warmup: {time.perf_counter() - t0:.1f} s; "
         f"{engine.model.num_params(engine.params) / 1e9:.2f} B params; "
         f"paged_kernel={engine.paged_kernel} "
-        f"prefill_kernel={engine.prefill_kernel}")
+        f"prefill_kernel={engine.prefill_kernel}; pool arrays "
+        f"{sorted(engine._st.pages[0])}")
+    check(("k_pages_q" in engine._st.pages[0]) == spec["quantized"],
+          f"pool arrays {sorted(engine._st.pages[0])}")
     httpd = server.make_httpd("127.0.0.1", 0)
     port = httpd.server_address[1]
     srv = threading.Thread(target=server.run, daemon=True)
@@ -563,18 +832,16 @@ def phase2(results, kernels):
         check(_get(port, "/health")[1].get("status") == "ok", "/health")
         rng = np.random.RandomState(1234)
         lens = [100, 250, 400, 600, 800, 1000, 1200, 1500]
-        prompts = [rng.randint(0, 32000, size=n).tolist() for n in lens]
+        prompts = [rng.randint(0, vocab, size=n).tolist() for n in lens]
         # wave 2: a prompt sharing the first 992 tokens (62 full pages)
         # of prompt 5, whose pages are cached by then, and an exact
         # repeat of prompt 2 (400 tokens: its first 24 pages, 384 tokens,
         # are cached; the page holding the last prompt token never is)
-        shared = prompts[5][:992] + rng.randint(0, 32000, 158).tolist()
+        shared = prompts[5][:992] + rng.randint(0, vocab, 158).tolist()
         # cached tokens of each request, by prompt length, in order
         want_hits = {len(shared): [992], len(prompts[2]): [0, 384]}
         s0 = engine.stats()
-        rn.launches = 0
-        pa.decode_launches = 0
-        pa.prefill_launches = 0
+        _zero_counts()
         t_wave = time.perf_counter()
         outs = _serve_wave(port, prompts, new_tokens)
         outs2 = _serve_wave(port, [shared, prompts[2]], new_tokens)
@@ -584,8 +851,8 @@ def phase2(results, kernels):
         while len(records) < 10 and time.monotonic() < deadline:
             time.sleep(0.01)
         check(len(records) == 10, f"{len(records)} request_done records")
-        launches = {"rmsnorm": rn.launches, "decode": pa.decode_launches,
-                    "prefill": pa.prefill_launches}
+        launches = _serving_counts()
+        training = {k: v for k, v in _counts().items() if k in "CEFGH"}
         s1 = engine.stats()
         for p, o in zip(prompts + [shared], outs + outs2[:1]):
             check(o[:len(p)] == p and len(o) == len(p) + new_tokens,
@@ -613,38 +880,55 @@ def phase2(results, kernels):
         log(f"  dispatches: {dec} decode steps, {pre} prefill chunks; "
             f"launches {launches}; prefix-cache hit tokens {hit}; "
             f"COW copies {s1['cow_copies'] - s0['cow_copies']}")
-        check(launches["decode"] == L * dec,
-              f"paged decode launches {launches['decode']} != {L} x {dec}")
-        check(launches["prefill"] == L * pre,
-              f"paged prefill launches {launches['prefill']} != {L} x {pre}")
-        check(launches["rmsnorm"] == (2 * L + 1) * (dec + pre),
-              f"rmsnorm launches {launches['rmsnorm']} != (2 x {L} + 1) x "
-              f"{dec + pre}")
-        kernels["rmsnorm"]["launches"] = launches["rmsnorm"]
-        kernels["paged_decode"]["launches"] = launches["decode"]
-        kernels["paged_prefill"]["launches"] = launches["prefill"]
+        norm_row, norm_key, per_dispatch = spec["norm"]
+        want = {k: 0 for k in launches}
+        want[norm_key] = per_dispatch(L) * (dec + pre)
+        want[spec["decode"][1]] = L * dec
+        want[spec["prefill"][1]] = L * pre
+        check(launches == want,
+              f"serving launches {launches}, expected {want} ({L} layers, "
+              f"{dec} decode steps, {pre} prefill chunks)")
+        check(not any(training.values()),
+              f"serving launched training kernels: {training}")
+        phase = f"serving {spec['label']}"
+        _add_launches(kernels, norm_row, phase, launches[norm_key])
+        for row, key in (spec["decode"], spec["prefill"]):
+            _add_launches(kernels, row, phase, launches[key])
 
-        # independent check: no-cache forward through neither kernel
-        diff, scale = _fp32_path_check(engine.model, engine.params,
-                                       outs[5][:-1])
-        log(f"  fp32 teacher-forced logits, paged (both kernels) vs "
-            f"no-cache (neither), {len(outs[5]) - 1} tokens: max |diff| "
-            f"{diff:.3g} (max |logit| {scale:.3g}, tolerance "
-            f"{FP32_LOGIT_TOL})")
-        check(diff <= FP32_LOGIT_TOL,
-              f"fp32 paged vs no-cache logits differ by {diff}")
+        # independent check: no-cache forward through no kernel
+        diff, diff8, scale, std = _fp32_path_check(
+            engine.model, engine.params, outs[5][:-1], spec["quantized"])
+        tol = FP32_PLAIN_POOL_TOL if spec["quantized"] else FP32_LOGIT_TOL
+        log(f"  fp32 teacher-forced logits, paged over plain pools (its "
+            f"kernels) vs no-cache (none), {len(outs[5]) - 1} tokens: max "
+            f"|diff| {diff:.3g} (max |logit| {scale:.3g}, tolerance {tol})")
+        check(diff <= tol, f"fp32 paged vs no-cache logits differ by {diff}")
         results["fp32_paged_vs_no_cache_max_abs"] = diff
+        if diff8 is not None:
+            log(f"  fp32 teacher-forced logits, paged over int8 pools vs "
+                f"no-cache: max |diff| {diff8:.3g}, {diff8 / std:.3g} of "
+                f"the logits' std {std:.3g} (bound "
+                f"{INT8_LOGIT_DRIFT_BOUND}: quantisation, not summation "
+                f"order)")
+            check(diff8 <= INT8_LOGIT_DRIFT_BOUND * std,
+                  f"fp32 int8 paged vs no-cache logits differ by {diff8}, "
+                  f"{diff8 / std} of their std")
+            check(diff8 > diff, "the int8 pools are as exact as the plain "
+                                "ones: they were not quantised")
+            results["fp32_int8_paged_vs_no_cache_max_abs"] = diff8
+            results["fp32_logit_std"] = std
         for i in (2, 5):
             n_sure, n_agree, n, spread = _token_check(
-                engine.model, engine.params, outs[i], len(prompts[i]))
+                engine.model, engine.params, outs[i], len(prompts[i]),
+                spec["quantized"], spec["margin_bound"])
             log(f"  bf16 no-cache check, prompt {len(prompts[i])}: "
                 f"{n_agree}/{n_sure} served tokens agree where the top-2 "
-                f"margin > {MARGIN_BOUND} ({n} positions); bf16 "
+                f"margin > {spec['margin_bound']} ({n} positions); bf16 "
                 f"teacher-forced logits, paged vs no-cache: "
                 + ", ".join(f"{k} {v:.4g}" for k, v in spread.items()))
             results[f"bf16_paged_vs_no_cache_prompt{len(prompts[i])}"] = \
                 dict(spread, checked=n_sure, agreed=n_agree, positions=n)
-            check(n_sure >= MIN_CHECKED_FRACTION * n,
+            check(n_sure >= spec["min_checked"] * n,
                   f"only {n_sure}/{n} positions above the margin bound")
             check(n_agree == n_sure,
                   f"no-cache forward disagrees at {n_sure - n_agree} "
@@ -675,9 +959,25 @@ def phase2(results, kernels):
     cow = engine.stats()["cow_copies"] - cow0
     log(f"  copy-on-write on the card: {cow} page copy of page 0, shared "
         f"by two requests with {hits[0]} and {hits[1]} cached tokens; the "
-        f"copy equals its source and both requests kept their served "
-        f"tokens")
+        f"copy equals its source in {hits[2]} of every layer and both "
+        f"requests kept their served tokens")
     results["cow_copies_forced"] = cow
+    wall_ms, device_ms, groups = _decode_profile(
+        engine, prompts[5][:992], vocab, "decode_" + spec["label"].lower())
+    idle = 1 - device_ms / wall_ms if device_ms > 0 else None
+    if device_ms > 0:
+        log(f"  decode step of 8 slots at context ~1000 under "
+            f"torch.profiler: device busy {device_ms:.1f} ms of an "
+            f"unprofiled step of {wall_ms:.1f} ms (idle share {idle:.3f}); "
+            f"device ms by kernel: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in groups.items() if v))
+    else:
+        log(f"  decode step of 8 slots at context ~1000: {wall_ms:.1f} ms; "
+            f"torch.profiler recorded no device time (idle share not "
+            f"measured)")
+    results["decode_profile"] = dict(
+        step_ms=wall_ms, device_ms=device_ms, idle_share=idle,
+        device_ms_by_kernel=groups)
 
 
 # ---------------------------------------------------------------------------
@@ -726,6 +1026,7 @@ def phase1_training(gen, results):
     import torch.nn.functional as F
 
     from megatron_llm_torch.ops.kernels import flash_attention as fa
+    from megatron_llm_torch.ops.kernels import layernorm as ln
     from megatron_llm_torch.ops.kernels import rmsnorm as rn
 
     dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -778,6 +1079,63 @@ def phase1_training(gen, results):
         f"{plain_ms:.4f} ms, F.rms_norm backward {lib_ms:.4f} ms, bound "
         f"{b_ms:.5f} ms ({b_by})")
 
+    # -- kernel E: LayerNorm backward --------------------------------------
+    err = {"bf16": 0.0, "fp32": 0.0}
+    for tag, dt in dts.items():
+        for n, h in ((8, 4544), (64, 4544), (2048, 4544), (1000, 768),
+                     (3, 128), (300, 1600)):
+            x = (torch.randn(n, h, device="cuda", generator=gen) * 3
+                 + 1).to(dt)
+            sc = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(dt)
+            b = torch.zeros(h, device="cuda", dtype=dt)
+            g = torch.randn(n, h, device="cuda", generator=gen).to(dt)
+            _, mu, rstd = ln.layer_norm_fwd_plain(x, sc, b, 1e-5)
+            dx, dg, db = ln.layer_norm_bwd_kernel(x, sc, g, mu, rstd)
+            dx0, dg0, db0 = ln.layer_norm_bwd_plain(x, sc, g, mu, rstd)
+            again = ln.layer_norm_bwd_kernel(x, sc, g, mu, rstd)
+            torch.cuda.synchronize()
+            e_dx = (dx.float() - dx0.float()).abs().max().item()
+            e_dg = ((dg - dg0).abs().max()
+                    / dg0.abs().max().clamp(min=1.0)).item()
+            e_db = ((db - db0).abs().max()
+                    / db0.abs().max().clamp(min=1.0)).item()
+            log(f"  layernorm backward {tag} n={n} h={h}: dx max_abs_err "
+                f"{e_dx:.3g}, dgamma error / max|dgamma| {e_dg:.3g}, dbeta "
+                f"error / max|dbeta| {e_db:.3g}")
+            check(e_dx <= TOL[tag] and max(e_dg, e_db) <= GRAD_TOL[tag],
+                  f"layernorm backward {tag} n={n} h={h}: dx {e_dx}, "
+                  f"dgamma {e_dg}, dbeta {e_db}")
+            check(torch.equal(again[1], dg) and torch.equal(again[2], db),
+                  f"layernorm backward {tag} n={n} h={h}: the column sums "
+                  f"changed between two runs")
+            err[tag] = max(err[tag], e_dx)
+    # timing at the training path's shape: 2048 rows of 4544, bf16
+    n, h = 2048, 4544
+    x = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
+    sc = torch.ones(h, device="cuda", dtype=torch.bfloat16)
+    b = torch.zeros(h, device="cuda", dtype=torch.bfloat16)
+    g = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
+    _, mu, rstd = ln.layer_norm_fwd_kernel(x, sc, b, 1e-5)
+    xl, sl, bl = (t.clone().requires_grad_(True) for t in (x, sc, b))
+    yl = F.layer_norm(xl, (h,), sl, bl, 1e-5)
+    b_ms, b_by = bound(3 * n * h * 2 + 2 * n * 4 + h * 2 + 2 * h * 4,
+                       12 * n * h, FP32_FLOPS)
+    t = dict(
+        ms=time_ms(lambda: ln.layer_norm_bwd_kernel(x, sc, g, mu, rstd),
+                   iters=50),
+        plain_ms=time_ms(lambda: ln.layer_norm_bwd_plain(x, sc, g, mu, rstd),
+                         iters=20),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            yl, (xl, sl, bl), g, retain_graph=True), iters=50),
+        bound_ms=b_ms, bound_by=b_by, shape=f"x, g [{n}, {h}] bf16")
+    results["layernorm_bwd"] = dict(
+        name="layernorm_bwd", route="cuda",
+        source="megatron_llm_torch/csrc/layernorm.cu",
+        replaces="megatron_llm_tpu/ops/pallas/layernorm.py:62",
+        max_abs_err=err["bf16"], max_abs_err_fp32=err["fp32"], **t)
+    _log_times("layernorm backward (E)", t, "F.layer_norm backward")
+    del x, g, xl, yl
+
     # -- kernels F, G, H: flash attention ---------------------------------
     # (label, b, s, nh, ng, d, window, views); s a multiple of 64 takes G,
     # else H.  With ``views`` q, k and v are the views of one fused
@@ -794,6 +1152,12 @@ def phase1_training(gen, results):
         ("fused-QKV views GQA g8 s1000 window 100", 1, 1000, 32, 8, 128,
          100, True),
         ("fused-QKV views s1024", 1, 1024, 32, 32, 128, None, True),
+        # Falcon-7B: 71 query heads on one KV head of 64, as the model
+        # passes them (views of its fused [b, s, 1, 73, 64] QKV output)
+        ("Falcon-7B MQA nh71 d64 s2048", 1, 2048, 71, 1, 64, None, False),
+        ("Falcon-7B fused-QKV views s2048", 1, 2048, 71, 1, 64, None, True),
+        ("Falcon-7B MQA nh71 d64 s1000", 1, 1000, 71, 1, 64, None, False),
+        ("Falcon-7B fused-QKV views s1000", 1, 1000, 71, 1, 64, None, True),
     ]
     f_err = {"bf16": 0.0, "fp32": 0.0}
     b_err = {k: {"bf16": [0.0, 0.0], "fp32": [0.0, 0.0]} for k in "GH"}
@@ -850,8 +1214,48 @@ def phase1_training(gen, results):
             del q, k, v, do, o, lse, o0, lse0, grads, ref
             torch.cuda.empty_cache()
 
-    # timing, bf16: F and G at the training path's shape, H at the shape
-    # of the H step (sequence 1000)
+    # timing, bf16: F and G at the Llama training path's shape, H at the
+    # shape of its H step (sequence 1000); then F and G at the Falcon
+    # training path's shape (71 heads on one KV head of 64, 2048 tokens;
+    # SDPA gets K/V expanded to the 71 heads beforehand)
+    b, s, nh, ng, d = 1, 2048, 71, 1, 64
+    q, do = (torch.randn(b, s, nh, d, device="cuda",
+                         generator=gen).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, s, ng, d, device="cuda",
+                        generator=gen).to(torch.bfloat16) for _ in range(2))
+    scale = 1.0 / math.sqrt(d)
+    qt, kt, vt = (t_.transpose(1, 2).expand(b, nh, s, d).contiguous()
+                  for t_ in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    o, lse = fa.flash_attention_fwd_kernel(q, k, v, True, None, scale)
+    qr, kr, vr = (t_.detach().requires_grad_(True) for t_ in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    shape = f"b={b} s={s} nh={nh} g={ng} d={d} causal bf16"
+    falcon = {}
+    for key, backward, run, plain, lib in (
+            ("F", False,
+             lambda: fa.flash_attention_fwd_kernel(q, k, v, True, None,
+                                                   scale),
+             lambda: fa._reference_attention(q, k, v, True, None, scale),
+             lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                    is_causal=True)),
+            ("G", True,
+             lambda: fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, True,
+                                                   None, scale),
+             lambda: fa._reference_attention_bwd(q, k, v, o, lse, do, True,
+                                                 None, scale),
+             lambda: torch.autograd.grad(out, (qr, kr, vr), dot,
+                                         retain_graph=True))):
+        b_ms, b_by = _attn_bound(b, s, nh, ng, d, None, backward)
+        falcon[key] = dict(ms=time_ms(run, iters=5),
+                           plain_ms=time_ms(plain, iters=2, warmup=1),
+                           library_ms=time_ms(lib, iters=5), bound_ms=b_ms,
+                           bound_by=b_by, shape=shape)
+        _log_times(f"flash attention ({key}), Falcon-7B's shape",
+                   falcon[key], "SDPA on K/V expanded to 71 heads")
+    del q, k, v, do, qt, kt, vt, dot, o, lse, qr, kr, vr, out
+    torch.cuda.empty_cache()
+
     for kind, s in (("G", 4096), ("H", 1000)):
         b, nh, d = 1, 32, 128
         q, k, v, do = (torch.randn(b, s, nh, d, device="cuda",
@@ -874,7 +1278,7 @@ def phase1_training(gen, results):
                 replaces="megatron_llm_tpu/ops/pallas/flash_attention.py:93",
                 max_abs_err=f_err["bf16"], max_abs_err_fp32=f_err["fp32"],
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms,
+                library_ms=lib_ms, falcon_shape=falcon["F"],
                 shape=f"b={b} s={s} nh=g={nh} d={d} causal bf16")
             log(f"  flash forward (F) {results['flash_fwd']['shape']}: "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
@@ -904,6 +1308,8 @@ def phase1_training(gen, results):
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms,
             shape=f"b={b} s={s} nh=g={nh} d={d} causal bf16")
+        if kind == "G":
+            results[key]["falcon_shape"] = falcon["G"]
         log(f"  flash backward ({kind}) {results[key]['shape']}: kernel "
             f"{ms:.4f} ms (delta, the dq buffer and its cast included), "
             f"plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, "
@@ -913,27 +1319,34 @@ def phase1_training(gen, results):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the training slice at Llama-2-7B width, 8 layers
+# phases 3 and 5: the training slice at 7B width, 8 layers
 # ---------------------------------------------------------------------------
 
 def _zero_counts():
+    """Set every kernel's launch count to 0."""
     from megatron_llm_torch.ops.kernels import flash_attention as fa
+    from megatron_llm_torch.ops.kernels import layernorm as ln
     from megatron_llm_torch.ops.kernels import paged_attention as pa
     from megatron_llm_torch.ops.kernels import rmsnorm as rn
 
     fa.fwd_launches = fa.bwd_fused_launches = fa.bwd_launches = 0
     rn.launches = rn.bwd_launches = 0
+    ln.launches = ln.bwd_launches = 0
     pa.decode_launches = pa.prefill_launches = 0
+    pa.quant_decode_launches = pa.quant_prefill_launches = 0
 
 
 def _counts():
     from megatron_llm_torch.ops.kernels import flash_attention as fa
+    from megatron_llm_torch.ops.kernels import layernorm as ln
     from megatron_llm_torch.ops.kernels import paged_attention as pa
     from megatron_llm_torch.ops.kernels import rmsnorm as rn
 
     return {"F": fa.fwd_launches, "G": fa.bwd_fused_launches,
             "H": fa.bwd_launches, "B": rn.launches, "C": rn.bwd_launches,
-            "A": pa.decode_launches + pa.prefill_launches}
+            "D": ln.launches, "E": ln.bwd_launches,
+            "A": pa.decode_launches + pa.prefill_launches,
+            "A'": pa.quant_decode_launches + pa.quant_prefill_launches}
 
 
 def _log_field(line, name):
@@ -941,7 +1354,7 @@ def _log_field(line, name):
     return float(m.group(1)) if m else None
 
 
-def _synthetic_batch(rng, micro, seq, vocab=32000):
+def _synthetic_batch(rng, micro, seq, vocab):
     import torch
 
     toks = torch.from_numpy(rng.randint(0, vocab, (micro, 1, seq))).cuda()
@@ -951,15 +1364,17 @@ def _synthetic_batch(rng, micro, seq, vocab=32000):
 
 # kernel-name substrings of each row of the step's device-time breakdown
 _KERNEL_GROUPS = (
+    ("A/A' paged attention", ("ragged_paged_attention_kernel",)),
     ("F flash forward", ("flash_fwd_kernel",)),
     ("G/H flash backward", ("flash_bwd_kv_kernel", "flash_bwd_dq_kernel")),
-    ("B rmsnorm forward", ("rmsnorm_fwd_kernel",)),
-    ("C rmsnorm backward", ("rmsnorm_bwd_kernel", "column_sum_kernel")),
+    ("B/D norm forward", ("rmsnorm_fwd_kernel", "layernorm_fwd_kernel")),
+    ("C/E norm backward", ("rmsnorm_bwd_kernel", "layernorm_bwd_kernel",
+                           "column_sum_kernel")),
     ("matmuls (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
 )
 
 
-def _profile_step(run):
+def _profile_step(run, tag):
     """Device time by kernel group over one call of ``run`` (which ends
     in a synchronize), from torch.profiler; returns (ms by group, device
     ms in all, wall ms).  The full table goes to chiprun_out/."""
@@ -981,42 +1396,44 @@ def _profile_step(run):
         name = next((g for g, keys in _KERNEL_GROUPS
                      if any(k in evt.key for k in keys)), "other kernels")
         groups[name] += ms
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"chip_smoke_profile_{tag}.txt"),
+              "w") as f:
         f.write(events.table(sort_by="self_device_time_total",
                              row_limit=60))
     return groups, sum(groups.values()), wall_ms
 
 
-def _fp32_grad_check(L=2, seq=1024):
-    """Kernel path (F, G/H, B, C) against the plain path (core_attention
-    and the autograd of the plain norm), fp32, same params and tokens.
-    Returns (relative loss difference, worst leaf name, its error over
-    its max-abs, launches of the kernel path)."""
+def _fp32_grad_check(spec, seq, L=2):
+    """Kernel path (F, G/H and the family's norm kernels) against the
+    plain path (core_attention and the autograd of the plain norm), fp32,
+    same params and tokens.  Returns (relative loss difference, worst leaf
+    name, its error over its max-abs, launches of the kernel path, the two
+    losses)."""
     import numpy as np
     import torch
 
-    from megatron_llm_torch.models.llama import LlamaModel, llama_config
+    from megatron_llm_torch import models
     from megatron_llm_torch.tree import tree_leaves_with_path
 
-    cfg = llama_config("7B", num_layers=L, seq_length=seq,
-                       max_position_embeddings=seq)
-    params = LlamaModel(cfg).init(99)
+    model_cls, config_fn = (getattr(models, n) for n in spec["model"])
+    cfg = config_fn("7B", num_layers=L, seq_length=seq,
+                    max_position_embeddings=seq)
+    params = model_cls(cfg).init(99)
     named = tree_leaves_with_path(params)
     leaves = [p.requires_grad_(True) for _, p in named]
     rng = np.random.RandomState(5)
-    toks = torch.from_numpy(rng.randint(0, 32000, (1, seq))).cuda()
+    toks = torch.from_numpy(rng.randint(0, spec["vocab"], (1, seq))).cuda()
     labels = torch.roll(toks, -1, dims=-1)
 
     def run(c):
-        loss = LlamaModel(c)(params, toks, labels=labels, train=True).mean()
+        loss = model_cls(c)(params, toks, labels=labels, train=True).mean()
         grads = torch.autograd.grad(loss, leaves)
         return loss.item(), grads
 
     _zero_counts()
     loss_k, g_k = run(cfg)
     counts = _counts()
-    loss_p, g_p = run(cfg.replace(use_flash_attn=False,
-                                  use_fused_rmsnorm=False))
+    loss_p, g_p = run(_plain_path(cfg))
     check(_counts() == counts, f"the plain path launched kernels: "
                                f"{counts} -> {_counts()}")
     worst, worst_name = 0.0, ""
@@ -1030,7 +1447,38 @@ def _fp32_grad_check(L=2, seq=1024):
         (loss_k, loss_p)
 
 
-def phase3(results, kernels, card):
+# the two training workloads: 8 of 32 layers at the model's full width and
+# its own sequence length, bf16 with fp32 masters, two micro-batches of 1
+TRAINING = {
+    "llama": dict(
+        label="Llama-2-7B", model=("LlamaModel", "llama_config"),
+        vocab=32000, seq=4096, lr=3e-4,
+        flags=["--model_name", "llama2", "--hidden_size", "4096",
+               "--num_attention_heads", "32", "--ffn_hidden_size", "11008"],
+        # launches per step: attention once a layer and micro-batch, two
+        # norms a layer plus the final one
+        per_step=lambda L, micro: {
+            "F": L * micro, "G": L * micro, "H": 0,
+            "B": (2 * L + 1) * micro, "C": (2 * L + 1) * micro,
+            "D": 0, "E": 0, "A": 0, "A'": 0},
+        norm_rows={"B": "rmsnorm", "C": "rmsnorm_bwd"}),
+    "falcon": dict(
+        # at 1e-4 and 3e-4 the fixed-batch loss of this model rises and
+        # falls in turn (its grad norm swings between ~3 and ~28)
+        label="Falcon-7B", model=("FalconModel", "falcon_config"),
+        vocab=65024, seq=2048, lr=2e-5,
+        flags=["--model_name", "falcon", "--hidden_size", "4544",
+               "--num_attention_heads", "71", "--num_attention_heads_kv",
+               "1", "--ffn_hidden_size", "18176", "--gelu_variant", "exact"],
+        # the parallel block has one norm a layer
+        per_step=lambda L, micro: {
+            "F": L * micro, "G": L * micro, "H": 0, "B": 0, "C": 0,
+            "D": (L + 1) * micro, "E": (L + 1) * micro, "A": 0, "A'": 0},
+        norm_rows={"D": "layernorm", "E": "layernorm_bwd"}),
+}
+
+
+def train_phase(results, kernels, card, spec):
     import contextlib
     import gc
     import io
@@ -1038,22 +1486,22 @@ def phase3(results, kernels, card):
     import numpy as np
     import torch
 
-    from megatron_llm_torch import finetune
+    from megatron_llm_torch import finetune, models
     from megatron_llm_torch.config import ParallelConfig, TrainConfig
-    from megatron_llm_torch.models.llama import LlamaModel, llama_config
     from megatron_llm_torch.optimizer import MegatronOptimizer
     from megatron_llm_torch.telemetry import ThroughputCalculator
     from megatron_llm_torch.training import build_train_step
 
-    L, micro, iters, seq = 8, 2, 4, 4096
-    # (1) the entry point: Llama-2-7B width cut to 8 of its 32 layers
-    argv = ["--model_name", "llama2", "--num_layers", str(L),
-            "--hidden_size", "4096", "--num_attention_heads", "32",
-            "--ffn_hidden_size", "11008", "--seq_length", str(seq),
-            "--max_position_embeddings", str(seq), "--vocab_size", "32000",
-            "--bf16", "--micro_batch_size", "1", "--global_batch_size",
-            str(micro), "--train_iters", str(iters), "--lr", "1e-4",
-            "--clip_grad", "1.0", "--log_interval", "1", "--seed", "1234"]
+    L, micro, iters = 8, 2, 4
+    seq, vocab = spec["seq"], spec["vocab"]
+    phase = f"training {spec['label']}"
+    # (1) the entry point: the model's width cut to 8 of its 32 layers
+    argv = spec["flags"] + [
+        "--num_layers", str(L), "--seq_length", str(seq),
+        "--max_position_embeddings", str(seq), "--vocab_size", str(vocab),
+        "--bf16", "--micro_batch_size", "1", "--global_batch_size",
+        str(micro), "--train_iters", str(iters), "--lr", "1e-4",
+        "--clip_grad", "1.0", "--log_interval", "1", "--seed", "1234"]
     log(f"  finetune.main({' '.join(argv)})")
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
@@ -1076,11 +1524,10 @@ def phase3(results, kernels, card):
     norms = [_log_field(ln, "grad norm") for ln in lines]
     check(all(x is not None and math.isfinite(x) for x in losses + norms),
           f"non-finite loss or grad norm: {losses} {norms}")
-    check(math.log(32000) <= losses[0] <= math.log(32000) + 1.5,
-          f"first loss {losses[0]} outside [ln 32000, ln 32000 + 1.5]")
+    check(math.log(vocab) <= losses[0] <= math.log(vocab) + 1.5,
+          f"first loss {losses[0]} outside [ln {vocab}, ln {vocab} + 1.5]")
     per_step = {k: v / iters for k, v in counts.items()}
-    want = {"F": L * micro, "G": L * micro, "H": 0,
-            "B": (2 * L + 1) * micro, "C": (2 * L + 1) * micro, "A": 0}
+    want = spec["per_step"](L, micro)
     log(f"  launches per step {per_step} (expected {want}); peak memory "
         f"{peak_main / 2**30:.2f} GiB; {wall:.1f} s for {iters} iterations")
     check(per_step == want, f"launches per step {per_step} != {want}")
@@ -1092,21 +1539,23 @@ def phase3(results, kernels, card):
                         for ln in lines],
         mfu_pct=[_log_field(ln, "MFU") for ln in lines],
         launches=counts, peak_memory_gib=peak_main / 2**30, wall_secs=wall)
-    kernels["flash_fwd"]["launches"] = counts["F"]
-    kernels["flash_bwd_fused"]["launches"] = counts["G"]
-    kernels["rmsnorm_bwd"]["launches"] = counts["C"]
-    kernels["rmsnorm"]["launches_training"] = counts["B"]
-    kernels["rmsnorm"]["launches"] += counts["B"]
+    _add_launches(kernels, "flash_fwd", phase, counts["F"])
+    _add_launches(kernels, "flash_bwd_fused", phase, counts["G"])
+    for key, row in spec["norm_rows"].items():
+        _add_launches(kernels, row, phase, counts[key])
     gc.collect()
     torch.cuda.empty_cache()
 
     # (2) a fixed batch, 5 steps of build_train_step: the loss falls at
     # every step; forward+backward and optimizer timed by CUDA events
-    cfg = llama_config("7B", num_layers=L, params_dtype="bf16",
-                       compute_dtype="bf16")
-    model = LlamaModel(cfg)
+    model_cls, config_fn = (getattr(models, n) for n in spec["model"])
+    cfg = config_fn("7B", num_layers=L, seq_length=seq,
+                    max_position_embeddings=seq, params_dtype="bf16",
+                    compute_dtype="bf16")
+    model = model_cls(cfg)
     params = model.init(1234)
-    tc = TrainConfig(micro_batch_size=1, global_batch_size=micro, lr=3e-4,
+    lr = spec["lr"]
+    tc = TrainConfig(micro_batch_size=1, global_batch_size=micro, lr=lr,
                      bf16=True, clip_grad=1.0)
     opt_events = []
 
@@ -1124,7 +1573,7 @@ def phase3(results, kernels, card):
     state = opt.init(params)
     step = build_train_step(model, opt, ParallelConfig(), micro)
     rng = np.random.RandomState(7)
-    batch = _synthetic_batch(rng, micro, seq)
+    batch = _synthetic_batch(rng, micro, seq, vocab)
     torch.cuda.reset_peak_memory_stats()
     fixed, totals, opts = [], [], []
     for i in range(5):
@@ -1132,7 +1581,7 @@ def phase3(results, kernels, card):
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         e0.record()
-        params, state, m = step(params, state, batch, None, 3e-4, 0.01)
+        params, state, m = step(params, state, batch, None, lr, 0.01)
         e1.record()
         torch.cuda.synchronize()
         fixed.append(float(m["lm loss"]))
@@ -1157,10 +1606,11 @@ def phase3(results, kernels, card):
     # overhead, so the idle share is taken against the unprofiled step)
     def one_step():
         nonlocal params, state
-        params, state, _ = step(params, state, batch, None, 3e-4, 0.01)
+        params, state, _ = step(params, state, batch, None, lr, 0.01)
         torch.cuda.synchronize()
 
-    groups, busy_ms, prof_wall_ms = _profile_step(one_step)
+    groups, busy_ms, prof_wall_ms = _profile_step(one_step,
+                                                  spec["label"].lower())
     idle = 1 - busy_ms / total_ms if busy_ms > 0 else None
     if busy_ms > 0:
         log(f"  one step under torch.profiler ({card}): device busy "
@@ -1191,9 +1641,9 @@ def phase3(results, kernels, card):
         f" B params")
 
     # (3) one step at sequence 1000, which takes the two-pass backward
-    batch = _synthetic_batch(rng, micro, 1000)
+    batch = _synthetic_batch(rng, micro, 1000, vocab)
     _zero_counts()
-    params, state, m = step(params, state, batch, None, 3e-4, 0.01)
+    params, state, m = step(params, state, batch, None, lr, 0.01)
     torch.cuda.synchronize()
     counts_h = _counts()
     log(f"  step at sequence 1000: lm loss {float(m['lm loss']):.6f}, "
@@ -1202,7 +1652,7 @@ def phase3(results, kernels, card):
     check(counts_h["H"] == L * micro and counts_h["G"] == 0
           and counts_h["F"] == L * micro,
           f"H step launches {counts_h}")
-    kernels["flash_bwd"]["launches"] = counts_h["H"]
+    _add_launches(kernels, "flash_bwd", phase, counts_h["H"])
     results["h_step"] = dict(loss=float(m["lm loss"]), launches=counts_h)
     del params, state, m, step, opt, batch
     gc.collect()
@@ -1211,9 +1661,10 @@ def phase3(results, kernels, card):
     # (4) the independent check in fp32: kernels against the plain path,
     # at sequence 1024 (backward G) and at 1000 (backward H, on the
     # strided views of the fused QKV output)
+    fwd_norm, bwd_norm = spec["norm_rows"]
     for seq32, bwd, other in ((1024, "G", "H"), (1000, "H", "G")):
         rel_loss, worst_name, worst, counts32, pair = _fp32_grad_check(
-            seq=seq32)
+            spec, seq32)
         log(f"  fp32 check, 2 layers at sequence {seq32}: loss kernel path "
             f"{pair[0]:.7f}, plain path {pair[1]:.7f} (relative difference "
             f"{rel_loss:.3g}, tolerance {FP32_LOSS_TOL}); worst grad leaf "
@@ -1224,8 +1675,8 @@ def phase3(results, kernels, card):
         check(worst <= FP32_GRAD_TOL,
               f"fp32 grad of {worst_name} at sequence {seq32} differs by "
               f"{worst} of its max-abs")
-        check(all(counts32[k] > 0 for k in "FBC" + bwd)
-              and counts32[other] == 0,
+        ran = {k for k, v in counts32.items() if v > 0}
+        check(ran == {"F", bwd, fwd_norm, bwd_norm},
               f"the fp32 kernel path at sequence {seq32} launched "
               f"{counts32}")
         key = "fp32_check" if seq32 == 1024 else f"fp32_check_s{seq32}"
@@ -1271,11 +1722,12 @@ def main() -> int:
     lib_path = build.build()
     build.load_library()
     log(f"phase 0: kernels built from megatron_llm_torch/csrc in "
-        f"{time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib_path, REPO)}")
+        f"{time.perf_counter() - t0:.1f} s -> "
+        f"{os.path.relpath(lib_path, REPO)}")
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         f.write(build.build_log)
 
-    kernels, results = {}, {}
+    kernels = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     log("phase 1: serving kernels vs plain versions")
@@ -1283,31 +1735,41 @@ def main() -> int:
     log("phase 1: training kernels vs plain versions")
     phase1_training(gen, kernels)
     log(f"phase 1 passed in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    log("phase 2: Llama-2-7B through the port's HTTP server")
-    phase2(results, kernels)
-    kernels["rmsnorm"]["launches_serving"] = kernels["rmsnorm"]["launches"]
-    log(f"phase 2 passed in {time.perf_counter() - t0:.1f} s")
-    log(f"serving ({card}): " + json.dumps(results))
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    log("phase 3: training Llama-2-7B width, 8 layers, through "
-        "megatron_llm_torch.finetune")
-    training = {}
-    phase3(training, kernels, card)
-    log(f"phase 3 passed in {time.perf_counter() - t0:.1f} s")
-    log(f"training ({card}): " + json.dumps(training))
+    serving, training = {}, {}
+    for number, kind, family in ((2, "serving", "llama"),
+                                 (3, "training", "llama"),
+                                 (4, "serving", "falcon"),
+                                 (5, "training", "falcon")):
+        t0 = time.perf_counter()
+        out = (serving if kind == "serving" else training).setdefault(
+            family, {})
+        if kind == "serving":
+            spec = SERVING[family]
+            log(f"phase {number}: {spec['label']} through the port's HTTP "
+                f"server" + (" over int8 KV pools" if spec["quantized"]
+                             else ""))
+            serve_phase(out, kernels, spec)
+        else:
+            spec = TRAINING[family]
+            log(f"phase {number}: training {spec['label']} width, 8 layers, "
+                f"sequence {spec['seq']}, through "
+                f"megatron_llm_torch.finetune")
+            train_phase(out, kernels, card, spec)
+        log(f"phase {number} passed in {time.perf_counter() - t0:.1f} s")
+        log(f"{kind} {spec['label']} ({card}): " + json.dumps(out))
+        gc.collect()
+        torch.cuda.empty_cache()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    names = ("paged_decode", "paged_prefill", "rmsnorm", "rmsnorm_bwd",
-             "flash_fwd", "flash_bwd_fused", "flash_bwd")
+    names = ("paged_decode", "paged_prefill", "paged_decode_int8",
+             "paged_prefill_int8", "rmsnorm", "rmsnorm_bwd", "layernorm",
+             "layernorm_bwd", "flash_fwd", "flash_bwd_fused", "flash_bwd")
     for n in names:
-        check(kernels[n]["launches"] > 0,
+        check(kernels[n].get("launches", 0) > 0,
               f"{n} was not launched on its path")
     line = {"kernels": [{k: kernels[n][k] for k in keys} for n in names]}
     with open(os.path.join(OUT_DIR, "chip_smoke_result.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, "serving": results,
+        json.dump({"card": card, "kernels": kernels, "serving": serving,
                    "training": training}, f, indent=1)
     log(card)
     print(json.dumps(line), flush=True)

@@ -40,11 +40,25 @@ def build_parser(extra_args_provider: Optional[Callable] = None
     g.add_argument("--rope_theta", type=float, default=10000.0)
     g.add_argument("--layernorm_epsilon", type=float, default=1e-5)
     g.add_argument("--use_rms_norm", action="store_true")
+    g.add_argument("--use_post_ln", action="store_true")
     g.add_argument("--glu_activation", type=str, default=None,
                    choices=[None, "liglu", "geglu", "reglu", "swiglu"])
     g.add_argument("--no_bias", action="store_false", dest="use_bias")
     g.add_argument("--use_bias", action="store_true", dest="use_bias")
+    g.add_argument("--parallel_attn", action="store_true")
+    g.add_argument("--parallel_layernorm", action="store_true")
     g.add_argument("--sliding_window_size", type=int, default=None)
+    g.add_argument("--add_qkv_bias", action="store_true",
+                   help="bias on the QKV projection only (Qwen2-style)")
+    g.add_argument("--embedding_multiplier", type=float, default=None,
+                   help="scale embedding output (Gemma: sqrt(hidden))")
+    g.add_argument("--rotary_percent", type=float, default=1.0,
+                   help="fraction of head dims that rotate "
+                        "(GPT-NeoX/Pythia rotary_pct)")
+    g.add_argument("--gelu_variant", default="tanh",
+                   choices=["tanh", "exact"],
+                   help="non-GLU MLP gelu: tanh-approximate (GPT-2) or "
+                        "exact erf (Falcon/NeoX)")
     g.add_argument("--no_tie_embed_logits", action="store_false",
                    dest="tie_embed_logits")
 

@@ -8,11 +8,10 @@ defaults and with the same ``__post_init__`` derivations.  Dtype names
 ``*_from_args`` functions lower the port's CLI (``arguments.py``) into
 them, for the flags this slice honours.
 
-The fields that select features outside the ported slices (MoE, Falcon's
-parallel attention, post-LN, learned absolute positions, tokentype
-embeddings, LayerNorm, dropout in training, recompute, the fused LM-head
-cross entropy, and every parallel degree above 1) are kept so that asking
-for one raises ``NotImplementedError`` instead of being ignored.
+The fields that select features outside the ported slices (MoE, tokentype
+embeddings, dropout in training, recompute, the fused LM-head cross
+entropy, and every parallel degree above 1) are kept so that asking for
+one raises ``NotImplementedError`` instead of being ignored.
 """
 
 from __future__ import annotations
@@ -92,6 +91,8 @@ class TransformerConfig:
     use_flash_attn: bool = True
     # RMSNorm through the CUDA kernels (csrc/rmsnorm.cu, B and C)
     use_fused_rmsnorm: bool = True
+    # LayerNorm through the CUDA kernels (csrc/layernorm.cu, D and E)
+    use_fused_layernorm: bool = True
     # chunked LM-head + cross entropy: not ported (asking for it raises)
     fused_lm_cross_entropy: bool = False
 
@@ -99,8 +100,10 @@ class TransformerConfig:
     recompute_granularity: Optional[str] = None
     recompute_num_layers: int = 1
 
-    # --- features outside the serving slice (see module docstring) ---
+    # --- mixture of experts: not ported (asking for it raises) ---
     num_experts: int = 0
+    # --- family knobs: Qwen2's QKV-only bias, Gemma's embedding scale,
+    # GPT-NeoX's partial rotary ---
     add_qkv_bias: bool = False
     embedding_multiplier: Optional[float] = None
     rotary_percent: float = 1.0
@@ -257,8 +260,12 @@ def transformer_config_from_args(args, model_name: Optional[str] = None
         tie_embed_logits=args.tie_embed_logits,
         normalization="rmsnorm" if args.use_rms_norm else "layernorm",
         layernorm_epsilon=args.layernorm_epsilon,
+        use_post_ln=args.use_post_ln,
         glu_activation=args.glu_activation,
+        gelu_variant=args.gelu_variant,
         add_bias_linear=args.use_bias,
+        parallel_attn=args.parallel_attn,
+        parallel_layernorm=args.parallel_layernorm,
         sliding_window_size=args.sliding_window_size,
         hidden_dropout=args.hidden_dropout,
         attention_dropout=args.attention_dropout,
@@ -267,6 +274,9 @@ def transformer_config_from_args(args, model_name: Optional[str] = None
         compute_dtype="bf16" if args.bf16 else "fp16" if args.fp16 else "fp32",
         recompute_granularity=args.recompute_granularity,
         use_flash_attn=args.use_flash_attn,
+        add_qkv_bias=args.add_qkv_bias,
+        embedding_multiplier=args.embedding_multiplier,
+        rotary_percent=args.rotary_percent,
     )
 
 

@@ -176,16 +176,6 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ scale,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-column_sum_kernel(const float* __restrict__ partial,
-                  float* __restrict__ out, int nblocks, int h) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= h) return;
-  float s = 0.f;
-  for (int i = 0; i < nblocks; ++i) s += partial[(size_t)i * h + c];
-  out[c] = s;
-}
-
 template <typename T, typename S>
 cudaError_t launch_bwd(const void* x, const void* scale, const void* g,
                        const float* rstd, void* dx, float* partial,
@@ -204,8 +194,9 @@ cudaError_t launch_bwd(const void* x, const void* scale, const void* g,
       rows_per_block);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  column_sum_kernel<<<(h + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      partial, dscale, nblocks, h);
+  mlt::column_sum_kernel<kThreads>
+      <<<(h + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+          partial, dscale, nblocks, h);
   return cudaGetLastError();
 }
 

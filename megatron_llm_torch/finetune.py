@@ -1,5 +1,5 @@
-"""Pretrain / finetune Llama models in PyTorch on one GPU (the twin of the
-repo's ``finetune.py``).
+"""Pretrain / finetune GPT-family models in PyTorch on one GPU (the twin of
+the repo's ``finetune.py``).
 
     python -m megatron_llm_torch.finetune --model_name=llama2 \\
         --num_layers=8 --hidden_size=4096 --num_attention_heads=32 \\
@@ -7,9 +7,11 @@ repo's ``finetune.py``).
         --bf16 --micro_batch_size=1 --global_batch_size=2 \\
         --train_iters=4 --lr=1e-5 --log_interval=1
 
-Same flags, presets and log lines as the JAX entry point, for the slice
-the port has: ``--model_name`` llama or llama2 (other families raise),
-random weights drawn from ``--seed``, and the synthetic data the JAX
+Same flags, presets and log lines as the JAX entry point, for the
+families the port has: ``--model_name`` llama, llama2, llama3, codellama,
+falcon, mistral, qwen2, gemma, gpt_neox, pythia or gpt (mixtral raises: the
+mixture of experts is not ported), random weights drawn from ``--seed``,
+and the synthetic data the JAX
 entry point makes when no ``--data_path`` is given (random token ids from
 ``--seed``, labels rolled by one, a loss mask of ones).  ``--device cpu``
 runs it on the CPU (the tests do); the default is the card.  Data
@@ -19,6 +21,7 @@ raise ``NotImplementedError``.
 
 from __future__ import annotations
 
+import math
 import sys
 from typing import Optional, Sequence
 
@@ -31,12 +34,13 @@ from megatron_llm_torch.config import (
     train_config_from_args,
     transformer_config_from_args,
 )
-from megatron_llm_torch.models.llama import LlamaModel
+from megatron_llm_torch.models import MODEL_REGISTRY
 from megatron_llm_torch.training import pretrain
 
-# the JAX entry point's families; the port has the Llama 1/2 ones
+# the JAX entry point's families; the port has all but mixtral
 FAMILIES = ("codellama", "falcon", "gemma", "gpt", "gpt_neox", "llama",
             "llama2", "llama3", "mistral", "mixtral", "pythia", "qwen2")
+# the JAX entry point's presets (the root finetune.py's MODEL_DEFAULTS)
 MODEL_DEFAULTS = {
     "llama": dict(position_embedding_type="rotary", glu_activation="swiglu",
                   use_rms_norm=True, use_bias=False, tie_embed_logits=False,
@@ -44,8 +48,39 @@ MODEL_DEFAULTS = {
     "llama2": dict(position_embedding_type="rotary", glu_activation="swiglu",
                    use_rms_norm=True, use_bias=False, tie_embed_logits=False,
                    hidden_dropout=0.0, attention_dropout=0.0),
+    "llama3": dict(position_embedding_type="rotary", glu_activation="swiglu",
+                   use_rms_norm=True, use_bias=False, tie_embed_logits=False,
+                   rope_theta=500000.0,
+                   hidden_dropout=0.0, attention_dropout=0.0),
+    "codellama": dict(position_embedding_type="rotary",
+                      glu_activation="swiglu", use_rms_norm=True,
+                      use_bias=False, tie_embed_logits=False, rope_theta=1e6,
+                      hidden_dropout=0.0, attention_dropout=0.0),
+    "falcon": dict(position_embedding_type="rotary", parallel_attn=True,
+                   use_bias=False, hidden_dropout=0.0, attention_dropout=0.0),
+    "mistral": dict(position_embedding_type="rotary", glu_activation="swiglu",
+                    use_rms_norm=True, use_bias=False, tie_embed_logits=False,
+                    sliding_window_size=4096,
+                    hidden_dropout=0.0, attention_dropout=0.0),
+    "qwen2": dict(position_embedding_type="rotary", glu_activation="swiglu",
+                  use_rms_norm=True, use_bias=False, add_qkv_bias=True,
+                  tie_embed_logits=False, rope_theta=1e6,
+                  hidden_dropout=0.0, attention_dropout=0.0),
+    "gemma": dict(position_embedding_type="rotary", glu_activation="geglu",
+                  use_rms_norm=True, use_bias=False, layernorm_epsilon=1e-6,
+                  hidden_dropout=0.0, attention_dropout=0.0),
+    "gpt_neox": dict(position_embedding_type="rotary", use_bias=True,
+                     parallel_attn=True, parallel_layernorm=True,
+                     rotary_percent=0.25, tie_embed_logits=False,
+                     gelu_variant="exact",
+                     hidden_dropout=0.0, attention_dropout=0.0),
+    "pythia": dict(position_embedding_type="rotary", use_bias=True,
+                   parallel_attn=True, parallel_layernorm=True,
+                   rotary_percent=0.25, tie_embed_logits=False,
+                   gelu_variant="exact",
+                   hidden_dropout=0.0, attention_dropout=0.0),
+    "gpt": dict(),
 }
-MODEL_REGISTRY = {"llama": LlamaModel, "llama2": LlamaModel}
 
 
 def extra_args(parser):
@@ -79,6 +114,10 @@ def _apply_model_defaults(args, argv):
 
 
 def model_provider(args):
+    if args.model_name == "gemma" and args.embedding_multiplier is None:
+        # gemma's sqrt(hidden) embedding scale depends on the parsed
+        # hidden size, so the preset table cannot carry it
+        args.embedding_multiplier = math.sqrt(args.hidden_size)
     cfg = transformer_config_from_args(args, args.model_name)
     return MODEL_REGISTRY[args.model_name](cfg, device=args.device)
 

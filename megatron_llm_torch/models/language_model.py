@@ -27,7 +27,8 @@ def init_language_model_params(generator: torch.Generator,
                                device=None):
     """Param tree::
 
-        {'embedding': {'word': {'embedding': [V, H]}},
+        {'embedding': {'word': {'embedding': [V, H]},
+                       'position': {'embedding': [P, H]}},  (when learned)
          'transformer': {'layers': {... stacked [L, ...]},
                          'final_norm': {...}},
          'lm_head': {'weight': [V, H]}}   (when not tie_embed_logits)
@@ -42,6 +43,10 @@ def init_language_model_params(generator: torch.Generator,
             init_method=init, dtype=dtype, device=device)},
         "transformer": init_stack_params(generator, cfg, dtype, device),
     }
+    if cfg.position_embedding_type == PositionEmbeddingType.learned_absolute:
+        params["embedding"]["position"] = init_embedding_params(
+            generator, cfg.max_position_embeddings, cfg.hidden_size,
+            init_method=init, dtype=dtype, device=device)
     if not cfg.tie_embed_logits:
         params["lm_head"] = {"weight": init(
             generator, (cfg.padded_vocab_size, cfg.hidden_size), dtype,
@@ -51,11 +56,23 @@ def init_language_model_params(generator: torch.Generator,
 
 def embedding_forward(tokens: torch.Tensor, position_ids, params,
                       cfg: TransformerConfig) -> torch.Tensor:
-    """Word embedding (rotary models add no position embedding)."""
+    """Word embedding, scaled by ``embedding_multiplier`` when set (the
+    tied head reads the raw table), plus the learned absolute position
+    embedding when the params carry one (rotary models do not)."""
     h = vocab_parallel_embedding(tokens, params["word"],
                                  compute_dtype=cfg.compute_torch_dtype)
     if cfg.embedding_multiplier is not None:
-        h = h * cfg.embedding_multiplier
+        # the multiplier is rounded to h's dtype first, as the JAX package
+        # rounds it: a Python float would multiply in fp32
+        h = h * torch.tensor(cfg.embedding_multiplier, dtype=h.dtype,
+                             device=h.device)
+    if "position" in params:
+        if position_ids is None:
+            position_ids = torch.arange(tokens.shape[1],
+                                        device=tokens.device)[None, :]
+        h = h + vocab_parallel_embedding(
+            position_ids, params["position"],
+            compute_dtype=cfg.compute_torch_dtype)
     return h
 
 
@@ -117,14 +134,6 @@ def flops_per_token(cfg: TransformerConfig,
 def unsupported_features(cfg: TransformerConfig) -> list:
     """Names of the config features this slice has not ported."""
     out = []
-    if cfg.position_embedding_type != PositionEmbeddingType.rotary:
-        out.append("learned absolute position embeddings")
-    if cfg.normalization != "rmsnorm":
-        out.append(f"{cfg.normalization} normalization")
-    if cfg.parallel_attn or cfg.parallel_layernorm:
-        out.append("parallel attention")
-    if cfg.use_post_ln:
-        out.append("post-LN")
     if cfg.num_experts > 1:
         out.append("mixture of experts")
     if cfg.num_tokentypes > 0:

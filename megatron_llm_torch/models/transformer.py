@@ -1,6 +1,8 @@
 """Transformer core: attention (flash attention for the no-cache
-forward, the paged KV branch of the serving engine), MLP, pre-LN layer
-and the layer stack, for inference and single-device training.
+forward, the paged KV branch of the serving engine over plain or int8
+pools), MLP, the decoder layer (pre- or post-LN, sequential or Falcon's
+parallel attention + MLP) and the layer stack, for inference and
+single-device training.
 
 The counterpart of ``megatron_llm_tpu/models/transformer.py``, with its
 layouts: activations ``[b, s, ...]``, the packed grouped QKV projection
@@ -47,6 +49,7 @@ from megatron_llm_torch.parallel.layers import (
     row_parallel_linear,
     scaled_init_method_normal,
 )
+from megatron_llm_torch.quantization import absmax_quantize_int8
 from megatron_llm_torch.tree import tree_map
 
 # the JAX package routes a flash-eligible unfused attention at least this
@@ -100,16 +103,23 @@ def init_mlp_params(generator, cfg: TransformerConfig, dtype, device=None):
 
 
 def init_layer_params(generator, cfg: TransformerConfig, dtype, device=None):
-    """One pre-LN decoder layer: input_norm, attention,
-    post_attention_norm, mlp."""
-    return {
+    """One decoder layer: input_norm, attention, mlp, and the pre-MLP
+    post_attention_norm unless attention and MLP run in parallel
+    (``parallel_attn``), where ``parallel_layernorm`` gives the MLP branch
+    its own mlp_norm."""
+    params = {
         "input_norm": init_norm_params(cfg.hidden_size, cfg.normalization,
                                        dtype, device),
         "attention": init_attention_params(generator, cfg, dtype, device),
         "mlp": init_mlp_params(generator, cfg, dtype, device),
-        "post_attention_norm": init_norm_params(
-            cfg.hidden_size, cfg.normalization, dtype, device),
     }
+    if not cfg.parallel_attn:
+        params["post_attention_norm"] = init_norm_params(
+            cfg.hidden_size, cfg.normalization, dtype, device)
+    if cfg.parallel_layernorm:
+        params["mlp_norm"] = init_norm_params(
+            cfg.hidden_size, cfg.normalization, dtype, device)
+    return params
 
 
 def init_stack_params(generator, cfg: TransformerConfig, dtype,
@@ -181,11 +191,20 @@ def core_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _paged_scatter(kv_cache: dict, k: torch.Tensor, v: torch.Tensor,
                    dest: torch.Tensor) -> dict:
     """Write the chunk's K/V rows into the page pools, in place, at flat
-    positions ``dest`` ([b, n] indices into the [P*bs] position axis).
-    Returns the pages-only cache dict."""
+    positions ``dest`` ([b, n] indices into the [P*bs] position axis): one
+    body for the int8 and the full-precision pools.  int8 pools quantise
+    on write with per-(position, group) absmax scales.  Returns the
+    pages-only cache dict."""
+    if "k_pages_q" in kv_cache:
+        # K and V in one call: the same values from half the launches
+        q8, scale = absmax_quantize_int8(torch.stack((k, v)), axis=-1)
+        writes = {"k_pages_q": q8[0], "k_pages_scale": scale[0],
+                  "v_pages_q": q8[1], "v_pages_scale": scale[1]}
+    else:
+        writes = {"k_pages": k, "v_pages": v}
     out = {}
     flat_dest = dest.reshape(-1)
-    for name, val in (("k_pages", k), ("v_pages", v)):
+    for name, val in writes.items():
         pool = kv_cache[name]
         P, bs = pool.shape[:2]
         flat = pool.view((P * bs,) + tuple(pool.shape[2:]))
@@ -215,13 +234,15 @@ def attention(x: torch.Tensor, params, cfg: TransformerConfig, *,
     new_cache = None
     ctx = None
     if kv_cache is not None:
-        if "k_pages" not in kv_cache:
+        quantized = "k_pages_q" in kv_cache
+        if not quantized and "k_pages" not in kv_cache:
             raise NotImplementedError(
                 "only the paged KV cache of the serving engine is ported "
-                "(linear, rolling and int8 caches are later slices)")
+                "(the linear and rolling caches are later slices)")
         # PAGED cache: one pool of [P, bs] pages per layer shared by all
         # slots; row s of the batch (a serving slot) reads and writes
-        # through its block table.  Padded and inactive tokens
+        # through its block table.  Keys: (k_pages | k_pages_q +
+        # k_pages_scale), the same for v.  Padded and inactive tokens
         # (j >= valid_lens) write to the garbage block 0.  The read is
         # ops/kernels/paged_attention.py: the decode entry for one token
         # per slot, the prefill entry for a chunk (the CUDA kernel on a
@@ -231,7 +252,8 @@ def attention(x: torch.Tensor, params, cfg: TransformerConfig, *,
         bt = kv_cache["block_tables"]
         ctx_lens = kv_cache["context_lens"]
         vlen = kv_cache["valid_lens"]
-        P, bs = kv_cache["k_pages"].shape[:2]
+        P, bs = kv_cache["k_pages_q" if quantized
+                         else "k_pages"].shape[:2]
         M = bt.shape[1]
         n = k.shape[1]
         d = k.shape[3]
@@ -242,9 +264,12 @@ def attention(x: torch.Tensor, params, cfg: TransformerConfig, *,
         dest = torch.where(real, blk * bs + pos % bs, pos % bs)
         dest = dest.clamp(0, P * bs - 1)
         new_cache = _paged_scatter(kv_cache, k, v, dest)
-        kernel_kw = dict(softmax_scale=1.0 / math.sqrt(d),
+        kernel_kw = dict(k_scales=new_cache.get("k_pages_scale"),
+                         v_scales=new_cache.get("v_pages_scale"),
+                         softmax_scale=1.0 / math.sqrt(d),
                          sliding_window=cfg.sliding_window_size)
-        kp, vp = new_cache["k_pages"], new_cache["v_pages"]
+        kp = new_cache["k_pages_q" if quantized else "k_pages"]
+        vp = new_cache["v_pages_q" if quantized else "v_pages"]
         if n == 1:
             ctx = paged_attention_decode(q[:, 0].contiguous(), kp, vp, bt,
                                          ctx_lens, **kernel_kw)[:, None]
@@ -294,14 +319,19 @@ def mlp(x: torch.Tensor, params, cfg: TransformerConfig) -> torch.Tensor:
 
 
 def _norm_uses_kernel(cfg: TransformerConfig) -> bool:
-    return cfg.use_fused_rmsnorm and cfg.normalization == "rmsnorm"
+    return ((cfg.use_fused_rmsnorm and cfg.normalization == "rmsnorm")
+            or (cfg.use_fused_layernorm
+                and cfg.normalization == "layernorm"))
 
 
 def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
                       freqs=None, attention_mask=None, position_ids=None,
                       kv_cache=None, train: bool = False):
-    """One pre-LN decoder layer (sequential attention then MLP).  Returns
-    ``(out, new_cache)``; ``new_cache`` is None without a cache."""
+    """One decoder layer: pre-LN (default) or post-LN (``use_post_ln``),
+    attention then MLP, or Falcon's parallel attention + MLP
+    (``parallel_attn``, with the MLP's own norm under
+    ``parallel_layernorm``).  Returns ``(out, new_cache)``; ``new_cache``
+    is None without a cache."""
     if train and (cfg.hidden_dropout > 0.0 or cfg.attention_dropout > 0.0):
         raise NotImplementedError(
             "dropout in training is not ported yet (it comes with "
@@ -313,7 +343,7 @@ def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
                           fp32_compute=cfg.norm_in_fp32,
                           use_kernel=_norm_uses_kernel(cfg))
 
-    ln_out = norm(x, params["input_norm"])
+    ln_out = norm(x, params["input_norm"]) if not cfg.use_post_ln else x
     attn_kw = dict(freqs=freqs, attention_mask=attention_mask,
                    position_ids=position_ids, kv_cache=kv_cache, train=train)
     if kv_cache is not None:
@@ -322,9 +352,24 @@ def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
     else:
         attn_out = attention(ln_out, params["attention"], cfg, **attn_kw)
         new_cache = None
+    if cfg.parallel_attn:
+        # the MLP reads the same norm output as attention (or its own),
+        # and attn + mlp are added before the one residual add
+        mlp_in = (norm(x, params["mlp_norm"]) if cfg.parallel_layernorm
+                  else ln_out)
+        out = x + (attn_out + mlp(mlp_in, params["mlp"], cfg))
+        if cfg.use_post_ln:
+            out = norm(out, params["input_norm"])
+        return out, new_cache
     h = x + attn_out
-    ln2 = norm(h, params["post_attention_norm"])
-    return h + mlp(ln2, params["mlp"], cfg), new_cache
+    if cfg.use_post_ln:
+        h = norm(h, params["input_norm"])
+    ln2 = (norm(h, params["post_attention_norm"]) if not cfg.use_post_ln
+           else h)
+    out = h + mlp(ln2, params["mlp"], cfg)
+    if cfg.use_post_ln:
+        out = norm(out, params["post_attention_norm"])
+    return out, new_cache
 
 
 def transformer_stack(x: torch.Tensor, stack_params, cfg: TransformerConfig,
@@ -333,9 +378,10 @@ def transformer_stack(x: torch.Tensor, stack_params, cfg: TransformerConfig,
     """Run the layers in turn, then the final norm.  Returns
     ``(h, new_caches)`` with ``kv_caches``, else ``h``.
 
-    The final norm goes through the RMSNorm kernel like the layers' norms
-    (under ``use_fused_rmsnorm``), where the JAX package takes its plain
-    norm: this way no plain norm runs on the card."""
+    The final norm goes through the norm kernel like the layers' norms
+    (under ``use_fused_rmsnorm`` / ``use_fused_layernorm``), where the JAX
+    package takes its plain norm: this way no plain norm runs on the
+    card."""
     if train and cfg.recompute_granularity is not None:
         raise NotImplementedError(
             f"recompute_granularity={cfg.recompute_granularity!r} is not "

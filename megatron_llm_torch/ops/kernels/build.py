@@ -25,7 +25,8 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("paged_attention.cu", "rmsnorm.cu", "flash_attention.cu")
+SOURCES = ("paged_attention.cu", "rmsnorm.cu", "layernorm.cu",
+           "flash_attention.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -46,15 +47,20 @@ _SIGNATURES = {
                         _c_int, _c_int, _ptr],
     "mlt_rmsnorm_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int,
                         _c_int, _c_int, _c_int, _c_int, _c_int, _ptr],
+    "mlt_layernorm_fwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
+                          _c_float, _c_int, _c_int, _ptr],
+    "mlt_layernorm_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                          _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+                          _ptr],
     "mlt_flash_fwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64s, _c_int, _c_int,
                       _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
                       _c_int, _c_int, _ptr],
     "mlt_flash_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                       _i64s, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
                       _c_float, _c_int, _c_int, _c_int, _c_int, _ptr],
-    "mlt_ragged_paged_attention": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                                   _c_int, _c_int, _c_int, _c_int, _c_int,
-                                   _c_int, _c_int, _c_int, _c_float,
+    "mlt_ragged_paged_attention": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                                   _ptr, _c_int, _c_int, _c_int, _c_int,
+                                   _c_int, _c_int, _c_int, _c_int, _c_float,
                                    _c_int, _c_int, _ptr],
 }
 

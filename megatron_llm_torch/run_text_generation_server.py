@@ -1,4 +1,4 @@
-"""Serve a Llama-family model over REST through the continuous-batching
+"""Serve a GPT-family model over REST through the continuous-batching
 engine, in PyTorch on one GPU (the twin of
 ``tools/run_text_generation_server.py``).
 
@@ -6,9 +6,11 @@ engine, in PyTorch on one GPU (the twin of
         --model_name llama2 --bf16 --tokenizer_type NullTokenizer \\
         --vocab_size 32000 --port 5000
 
-With no size flags the model is Llama-2-7B (Llama-3-8B for llama3); with no ``--load`` it serves
-random weights drawn from ``--seed``.  Loading a checkpoint is a later
-slice.  ``build_server(args, tokenizer)`` builds the model, the engine
+With no size flags the model is the family's 7B-class size (Llama-2-7B,
+Llama-3-8B, Falcon-7B, ...: see ``FAMILIES``); with no ``--load`` it
+serves random weights drawn from ``--seed``.  ``--int8_kv_cache`` keeps
+the paged KV pool as int8 with per-position scales.  Loading a checkpoint
+is a later slice.  ``build_server(args, tokenizer)`` builds the model, the engine
 and the server in-process (the port's tests and ``chip_smoke.py`` call
 it with a numeric tokenizer); ``main()`` parses the flags and serves.
 """
@@ -21,19 +23,36 @@ from typing import Optional, Sequence
 import torch
 
 from megatron_llm_torch import telemetry, tracing
-from megatron_llm_torch.models.llama import LlamaModel, llama_config
+from megatron_llm_torch.models import (
+    MODEL_REGISTRY,
+    falcon_config,
+    gemma_config,
+    gpt2_config,
+    gpt_neox_config,
+    llama_config,
+    mistral_config,
+    qwen2_config,
+)
 from megatron_llm_torch.serving import EngineConfig, InferenceEngine
 from megatron_llm_torch.text_generation_server import MegatronServer
 from megatron_llm_torch.tokenizer import build_tokenizer
 
-# family -> (llama_config size with no size flags, presets): the JAX
-# package's finetune.MODEL_DEFAULTS for the families this slice serves
+# family -> (its config table, the size served with no size flags, and
+# what the JAX package's finetune.MODEL_DEFAULTS adds to that size)
 FAMILIES = {
-    "llama": ("7B", {}),
-    "llama2": ("7B", {}),
-    "codellama": ("7B", {"rope_theta": 1e6}),
-    "llama3": ("llama3-8B", {}),
-    "mistral": ("7B", {"sliding_window_size": 4096}),
+    "llama": (llama_config, "7B", {}),
+    "llama2": (llama_config, "7B", {}),
+    "codellama": (llama_config, "7B", {"rope_theta": 1e6}),
+    "llama3": (llama_config, "llama3-8B", {}),
+    "mistral": (mistral_config, "7B", {}),
+    "falcon": (falcon_config, "7B", {}),
+    "qwen2": (qwen2_config, "7B", {}),
+    "gemma": (gemma_config, "7B", {}),
+    "gpt_neox": (gpt_neox_config, "6.9b", {}),
+    "pythia": (gpt_neox_config, "6.9b", {}),
+    # served, so no dropout
+    "gpt": (gpt2_config, "1.3B", {"hidden_dropout": 0.0,
+                                  "attention_dropout": 0.0}),
 }
 
 SIZE_FLAGS = ("num_layers", "hidden_size", "ffn_hidden_size",
@@ -93,13 +112,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def model_config_from_args(args):
-    size, presets = FAMILIES[args.model_name]
+    config_fn, size, presets = FAMILIES[args.model_name]
     overrides = dict(presets)
     overrides.update({k: getattr(args, k) for k in SIZE_FLAGS
                       if getattr(args, k) is not None})
     if args.bf16:
         overrides.update(params_dtype="bf16", compute_dtype="bf16")
-    return llama_config(size, **overrides)
+    return config_fn(size, **overrides)
 
 
 def engine_config_from_args(args) -> EngineConfig:
@@ -137,7 +156,8 @@ def build_server(args, tokenizer) -> MegatronServer:
             tracer=tracing.SpanTracer(), trace_dir=args.trace_dir))
     device = torch.device(args.device)
     engine_cfg = engine_config_from_args(args)
-    model = LlamaModel(model_config_from_args(args), device=device)
+    model = MODEL_REGISTRY[args.model_name](model_config_from_args(args),
+                                            device=device)
     print(f" no --load given: serving random weights from seed {args.seed}",
           flush=True)
     params = model.init(args.seed)

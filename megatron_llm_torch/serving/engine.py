@@ -12,8 +12,10 @@ completion with four device programs, run eagerly on the model's device:
 * ``cow_copy`` — the copy-on-write page copy of the prefix cache.
 
 On a CUDA device the paged attention of both decode and prefill is the
-ragged kernel (``csrc/paged_attention.cu``) and every RMSNorm is the norm
-kernel (``csrc/rmsnorm.cu``); ``stats()['paged_kernel']`` and
+ragged kernel (``csrc/paged_attention.cu``, over plain pools or, with
+``int8_kv_cache``, over int8 pools quantised on write) and every norm is
+its norm kernel (``csrc/rmsnorm.cu``, ``csrc/layernorm.cu``);
+``stats()['paged_kernel']`` and
 ``['prefill_kernel']`` report the resolved path, ``cuda`` or ``torch``.
 
 Per-slot mutable state (last tokens, context lengths, sampling knobs)
@@ -21,7 +23,7 @@ lives in host numpy arrays and is uploaded whole for each call; per
 request, a ``torch.Generator`` seeded from ``SamplingParams.seed`` draws
 the sampled tokens.  Pool-pressure preemption, the prefix cache, the
 non-finite sentinel, the loop profiler and the cache observatory work as
-in the JAX engine.  Speculative decoding, the host KV tier, int8 KV, the
+in the JAX engine.  Speculative decoding, the host KV tier, the
 watchdog and fault injection are later slices: asking for one raises
 ``NotImplementedError``.  No CUDA graph is captured yet.
 """
@@ -77,7 +79,7 @@ class EngineConfig:
     prefill_chunk: int = 64         # prompt tokens per prefill call
     max_queue_depth: int = 64       # admission control (HTTP 429 beyond)
     default_deadline_secs: float = 120.0  # 0 = no deadline
-    int8_kv_cache: bool = False     # later slice
+    int8_kv_cache: bool = False     # int8 pages + per-position scales
     prefix_cache: bool = True       # share KV pages across equal prefixes
     speculative: bool = False       # later slice
     watchdog_secs: float = 0.0      # later slice (0 = off)
@@ -89,7 +91,6 @@ class EngineConfig:
 
 def _check_ported(cfg: EngineConfig) -> None:
     asked = [name for name, on in (
-        ("int8_kv_cache", cfg.int8_kv_cache),
         ("speculative", cfg.speculative),
         ("watchdog_secs", cfg.watchdog_secs > 0),
         ("fault_spec", bool(cfg.fault_spec)),
@@ -192,7 +193,8 @@ class InferenceEngine:
             blocks=blocks,
             scheduler=sched,
             pages=init_paged_kv_caches(self.model.cfg, self._num_blocks,
-                                       cfg.block_size, device=self.device),
+                                       cfg.block_size, device=self.device,
+                                       quantized=cfg.int8_kv_cache),
             last_tokens=np.zeros(S, np.int64),
             context_lens=np.zeros(S, np.int32),
             active=np.zeros(S, np.int32),
@@ -297,7 +299,8 @@ class InferenceEngine:
     @staticmethod
     @torch.no_grad()
     def _cow_copy_impl(pages, src: int, dst: int):
-        # duplicate physical page src into dst in every layer's pools
+        # duplicate physical page src into dst in every layer's pool
+        # arrays (k/v, or the int8 pages and their scales)
         for p in pages:
             for v in p.values():
                 v[dst].copy_(v[src])

@@ -145,7 +145,7 @@ def test_preemption_matches_jax(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(speculative=True), dict(int8_kv_cache=True),
+    dict(speculative=True),
     dict(host_cache_bytes=1 << 20), dict(watchdog_secs=1.0),
     dict(fault_spec="nan@3")])
 def test_unported_options_raise(models, kw):

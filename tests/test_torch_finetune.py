@@ -97,7 +97,7 @@ def test_flags_for_unported_features_raise(extra):
 
 
 def test_other_families_raise():
-    argv = [a if a != "--model_name=llama2" else "--model_name=falcon"
+    argv = [a if a != "--model_name=llama2" else "--model_name=mixtral"
             for a in TINY]
     with pytest.raises(NotImplementedError):
         finetune.main(argv)

@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from megatron_llm_torch.ops.kernels import flash_attention as fa
+from megatron_llm_torch.ops.kernels import layernorm as ln
 from megatron_llm_torch.ops.kernels import paged_attention as pa
 from megatron_llm_torch.ops.kernels import rmsnorm as rn
+from megatron_llm_torch.quantization import absmax_quantize_int8
 
 torch.set_num_threads(1)
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -64,14 +66,15 @@ def test_paged_kernel_matches_plain(cuda, C, g, nh, window, dtype):
         before = pa.decode_launches
         out = pa.paged_attention_decode(q[:, 0].contiguous(), kp, vp, bt, cl,
                                         sliding_window=window)
-        ref = pa._reference_paged_attention(q[:, 0], kp, vp, bt, cl, scale,
-                                            window)
+        ref = pa._reference_paged_attention(q[:, 0], kp, vp, bt, cl, None,
+                                            None, scale, window)
         assert pa.decode_launches == before + 1
     else:
         before = pa.prefill_launches
         out = pa.paged_attention_prefill(q, kp, vp, bt, cl,
                                          sliding_window=window)
-        ref = pa._reference_paged_prefill(q, kp, vp, bt, cl, scale, window)
+        ref = pa._reference_paged_prefill(q, kp, vp, bt, cl, None, None,
+                                          scale, window)
         assert pa.prefill_launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                atol=TOL[dtype])
@@ -279,3 +282,151 @@ def test_paged_wrappers_refuse_inputs_that_require_grad(cuda):
     cl = torch.zeros(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         pa.paged_attention_decode(q, kp, kp, bt, cl)
+
+
+# -- kernel A': ragged paged attention over int8 pools ----------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C,g,nh,d,window", [
+    (1, 1, 71, 64, None), (64, 1, 71, 64, None), (1, 32, 32, 128, None),
+    (64, 8, 32, 128, 5), (16, 2, 8, 32, 12), (1, 1, 8, 256, 100)])
+def test_int8_paged_kernel_matches_plain(cuda, C, g, nh, d, window, dtype):
+    S, bs, M = 4, 16, 24
+    gen = torch.Generator(device=cuda).manual_seed(C + g + nh + d)
+    ctx = [0, 5, 17, 300] if C == 1 else [0, 3, 16, 200]
+    q = torch.randn(S, C, nh, d, device=cuda, generator=gen).to(dtype)
+    P = 1 + S * M
+    # values of unit size: a bf16 step is 0.03 above 4, more than the 2e-2
+    kq, ks = absmax_quantize_int8(
+        torch.randn(P, bs, g, d, device=cuda, generator=gen), axis=-1)
+    vq, vs = absmax_quantize_int8(
+        torch.randn(P, bs, g, d, device=cuda, generator=gen) * 0.5, axis=-1)
+    bt = (torch.randperm(P - 1, device=cuda, generator=gen) + 1).reshape(
+        S, M).to(torch.int32)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+    scale = 1.0 / math.sqrt(d)
+    plain = (pa.decode_launches, pa.prefill_launches)
+    if C == 1:
+        before = pa.quant_decode_launches
+        out = pa.paged_attention_decode(q[:, 0].contiguous(), kq, vq, bt, cl,
+                                        k_scales=ks, v_scales=vs,
+                                        sliding_window=window)
+        ref = pa._reference_paged_attention(q[:, 0], kq, vq, bt, cl, ks, vs,
+                                            scale, window)
+        assert pa.quant_decode_launches == before + 1
+    else:
+        before = pa.quant_prefill_launches
+        out = pa.paged_attention_prefill(q, kq, vq, bt, cl, k_scales=ks,
+                                         v_scales=vs, sliding_window=window)
+        ref = pa._reference_paged_prefill(q, kq, vq, bt, cl, ks, vs, scale,
+                                          window)
+        assert pa.quant_prefill_launches == before + 1
+    assert (pa.decode_launches, pa.prefill_launches) == plain
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+def test_int8_paged_wrapper_refuses_mismatched_pools(cuda):
+    q = torch.randn(2, 4, 64, device=cuda)
+    kq = torch.zeros(3, 16, 1, 64, dtype=torch.int8, device=cuda)
+    sc = torch.ones(3, 16, 1, device=cuda)
+    bt = torch.ones(2, 2, dtype=torch.int32, device=cuda)
+    cl = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):          # int8 pools without scales
+        pa.paged_attention_decode(q, kq, kq, bt, cl)
+    with pytest.raises(TypeError):          # scales beside float pools
+        pa.paged_attention_decode(q, kq.float(), kq.float(), bt, cl,
+                                  k_scales=sc, v_scales=sc)
+    with pytest.raises(ValueError):         # scales of another shape
+        pa.paged_attention_decode(q, kq, kq, bt, cl, k_scales=sc[:, :8],
+                                  v_scales=sc[:, :8])
+    with pytest.raises(ValueError):         # bf16 scales
+        pa.paged_attention_decode(q, kq, kq, bt, cl, k_scales=sc.bfloat16(),
+                                  v_scales=sc.bfloat16())
+
+
+# -- kernels D and E: LayerNorm forward and backward ------------------------
+
+LN_SHAPES = [(8, 4544), (64, 4544), (2048, 4544), (1000, 768), (3, 128),
+             (300, 1600), (17, 11008)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h", LN_SHAPES)
+def test_layernorm_kernels_match_plain(cuda, n, h, dtype):
+    g = torch.Generator(device=cuda).manual_seed(5 * n + h)
+    # outputs below 4: above it a bf16 step (0.03) exceeds the tolerance
+    x = (torch.randn(n, h, device=cuda, generator=g) * 3 + 2).to(dtype)
+    s = (torch.rand(h, device=cuda, generator=g) * 0.4 + 0.4).to(dtype)
+    b = (torch.randn(h, device=cuda, generator=g) * 0.1).to(dtype)
+    gy = torch.randn(n, h, device=cuda, generator=g).to(dtype)
+    d0, e0 = ln.launches, ln.bwd_launches
+    y, mu, rstd = ln.layer_norm_fwd(x, s, b, 1e-5)
+    y0, mu0, rstd0 = ln.layer_norm_fwd_plain(x, s, b, 1e-5)
+    assert (ln.launches, ln.bwd_launches) == (d0 + 1, e0)
+    tol = TOL[dtype]
+    torch.testing.assert_close(y.float(), y0.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(mu, mu0, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rstd, rstd0, rtol=1e-5, atol=1e-6)
+    dx, dg, db = ln.layer_norm_bwd(x, s, gy, mu0, rstd0)
+    dx0, dg0, db0 = ln.layer_norm_bwd_plain(x, s, gy, mu0, rstd0)
+    assert (ln.launches, ln.bwd_launches) == (d0 + 1, e0 + 1)
+    torch.testing.assert_close(dx.float(), dx0.float(), rtol=0, atol=tol)
+    # dgamma and dbeta sum n rows: relative to their size
+    for got, want in ((dg, dg0), (db, db0)):
+        size = want.abs().max().item() + 1.0
+        assert (got - want).abs().max().item() <= tol * size
+    # the column sums are taken in a fixed order: the same bits every run
+    again = ln.layer_norm_bwd(x, s, gy, mu0, rstd0)
+    assert torch.equal(again[1], dg) and torch.equal(again[2], db)
+
+
+def test_layernorm_fp32_keeps_1e5_on_rows_with_a_large_mean(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(64, 4544, device=cuda, generator=g) + 30.0
+    s = torch.rand(4544, device=cuda, generator=g) + 0.5
+    b = torch.randn(4544, device=cuda, generator=g)
+    y, _, _ = ln.layer_norm_fwd(x, s, b, 1e-5)
+    want = ((x.double() - x.double().mean(-1, keepdim=True))
+            * torch.rsqrt(x.double().var(-1, unbiased=False, keepdim=True)
+                          + 1e-5) * s.double() + b.double())
+    torch.testing.assert_close(y.double(), want, rtol=0, atol=1e-5)
+
+
+def test_layernorm_kernel_path_has_a_grad_fn(cuda):
+    x = torch.randn(2, 4, 4544, device=cuda, requires_grad=True)
+    s = torch.ones(4544, device=cuda, requires_grad=True)
+    b = torch.zeros(4544, device=cuda, requires_grad=True)
+    y = ln.fused_layer_norm(x, s, b)
+    assert y.grad_fn is not None
+    d0, e0 = ln.launches, ln.bwd_launches
+    # one output feeding two branches, one through a strided view
+    loss = y.square().sum() + y.transpose(0, 1).sin().sum()
+    gx, gs, gb = torch.autograd.grad(loss, (x, s, b))
+    assert ln.launches == d0 and ln.bwd_launches == e0 + 1
+    x0, s0, b0 = (t.detach().requires_grad_(True) for t in (x, s, b))
+    y0 = torch.nn.functional.layer_norm(x0, (4544,), s0, b0, 1e-5)
+    loss0 = y0.square().sum() + y0.transpose(0, 1).sin().sum()
+    rx, rs, rb = torch.autograd.grad(loss0, (x0, s0, b0))
+    torch.testing.assert_close(gx, rx, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gs, rs, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(gb, rb, rtol=1e-4, atol=1e-3)
+
+
+def test_layernorm_wrappers_refuse_instead_of_falling_back(cuda):
+    x = torch.randn(4, 102, device=cuda)        # h not a 16-byte multiple
+    one = torch.ones(102, device=cuda)
+    with pytest.raises(ValueError):
+        ln.layer_norm_fwd(x, one, one, 1e-5)
+    x = torch.randn(4, 128, device=cuda)
+    one = torch.ones(128, device=cuda)
+    with pytest.raises(TypeError):              # fp32 x, bf16 params
+        ln.layer_norm_fwd(x, one.bfloat16(), one.bfloat16(), 1e-5)
+    with pytest.raises(ValueError):             # bias of another dtype
+        ln.layer_norm_fwd(x.bfloat16(), one, one.bfloat16(), 1e-5)
+    with pytest.raises(ValueError):             # strided rows
+        ln.layer_norm_fwd_kernel(
+            torch.randn(4, 256, device=cuda)[:, :128], one, one, 1e-5)
+    with pytest.raises(ValueError):             # statistics of another run
+        ln.layer_norm_bwd(x, one, x, torch.zeros(3, 1, device=cuda),
+                          torch.ones(3, 1, device=cuda))

@@ -66,9 +66,17 @@ def test_apply_norm_matches_jax(use_kernel):
     got = tln.apply_norm(torch.from_numpy(x), {"scale": torch.from_numpy(s)},
                          "rmsnorm", eps=1e-6, use_kernel=use_kernel)
     np.testing.assert_allclose(_np(got), want, atol=ATOL, rtol=0)
-    with pytest.raises(NotImplementedError):
-        tln.apply_norm(torch.from_numpy(x), {"scale": torch.from_numpy(s)},
-                       "layernorm")
+    b = rng.standard_normal(16).astype(np.float32)
+    for bias in (None, b):
+        jp = {"scale": jnp.asarray(s)}
+        tp = {"scale": torch.from_numpy(s)}
+        if bias is not None:
+            jp["bias"], tp["bias"] = jnp.asarray(bias), torch.from_numpy(bias)
+        want = np.asarray(jln.apply_norm(jnp.asarray(x), jp, "layernorm",
+                                         eps=1e-6, use_pallas=use_kernel))
+        got = tln.apply_norm(torch.from_numpy(x), tp, "layernorm", eps=1e-6,
+                             use_kernel=use_kernel)
+        np.testing.assert_allclose(_np(got), want, atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("kw", [

@@ -99,14 +99,3 @@ def test_decode_is_the_one_row_prefill():
     pre = tpa.paged_attention_prefill(*_t(q[:, None], kp, vp, bt, LENS))
     np.testing.assert_allclose(pre[:, 0].numpy(), dec.numpy(), atol=1e-6,
                                rtol=0)
-
-
-def test_unported_int8_pools_raise():
-    q, kp, vp, bt = _t(np.zeros((1, 2, D), np.float32),
-                       np.zeros((3, BS, 1, D), np.float32),
-                       np.zeros((3, BS, 1, D), np.float32),
-                       np.zeros((1, 2), np.int32))
-    scales = torch.ones(3, BS, 1)
-    with pytest.raises(NotImplementedError):
-        tpa.paged_attention_decode(q, kp, vp, bt, torch.zeros(1, dtype=torch.int32),
-                                   k_scales=scales, v_scales=scales)
