@@ -27,7 +27,7 @@ CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("paged_attention.cu", "rmsnorm.cu", "layernorm.cu",
            "flash_attention.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -56,8 +56,11 @@ _SIGNATURES = {
                       _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
                       _c_int, _c_int, _ptr],
     "mlt_flash_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                      _i64s, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
-                      _c_float, _c_int, _c_int, _c_int, _c_int, _ptr],
+                      _ptr, _ptr, _i64s, _c_int, _c_int, _c_int, _c_int,
+                      _c_int, _c_int, _c_float, _c_int, _c_int, _c_int,
+                      _c_int, _c_int, _ptr],
+    "mlt_flash_tiles": [_c_int, _c_int, ctypes.POINTER(ctypes.c_int)],
+    "mlt_flash_smem": [_c_int, _c_int, _i64s],
     "mlt_ragged_paged_attention": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                                    _ptr, _c_int, _c_int, _c_int, _c_int,
                                    _c_int, _c_int, _c_int, _c_int, _c_float,

@@ -18,6 +18,15 @@ which applies the kernels' formulas (p = exp(s - lse), delta =
 rowsum(dO * O), ds = p * (dp - delta)) rather than autograd of the plain
 forward.  A CUDA tensor launches the kernels or raises.  A row that no
 key reaches gives o = 0 and lse = NEG_INF, and a zero gradient.
+
+The kernel variant is chosen by dtype and head_dim alone
+(``kernel_variant``): bf16 takes the Hopper kernels (F, and G at d 64
+and 128, on wgmma with a TMA ring; G at d 256 and H's dK/dV pass on
+mma.sync with a cp.async ring), fp32 the CUDA-core kernels of the
+checking path.  At MQA/GQA shapes the
+backward splits each KV group's query heads over blocks
+(``head_splits``) and sums the splits' fp32 partial dK/dV in a fixed
+order.
 """
 
 from __future__ import annotations
@@ -35,20 +44,93 @@ NEG_INF = -1e30
 # lengths that are multiples of it (the JAX package's condition for its
 # fused kernel, whose dq slab needs complete q-blocks)
 BWD_BLOCK = 64
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
+
+# Tile shapes (rows of q, rows of k) of the kernels, by dtype and head_dim:
+# the forward, G, H's dQ pass and H's dK/dV pass.  The same table as
+# ``mlt_flash_tiles`` in csrc/flash_attention.cu (each kernel's shared
+# memory fits the card's 227 KB at its head_dim); the backward's head
+# split reads the k-tile of its dK/dV kernel.
+TILES = {
+    (torch.bfloat16, 64): ((128, 128), (64, 128), (64, 64), (64, 64)),
+    (torch.bfloat16, 128): ((128, 128), (64, 64), (64, 64), (64, 64)),
+    (torch.bfloat16, 256): ((128, 64), (64, 32), (32, 32), (64, 32)),
+    (torch.float32, 64): ((32, 32),) * 4,
+    (torch.float32, 128): ((32, 32),) * 4,
+    (torch.float32, 256): ((16, 16),) * 4,
+}
 
 # kernel launches since the last reset (plain counts; chip_smoke.py zeroes
 # them before driving the training path and reads them after).  One H
 # launch is one call of the two-pass backward (its dQ pass, then its
-# dK/dV pass).
+# dK/dV pass).  ``variant_launches`` counts the same launches by
+# ``kernel_variant``.
 fwd_launches = 0
 bwd_fused_launches = 0
 bwd_launches = 0
+variant_launches: dict = {}
 
 
 def uses_fused_backward(sq: int, sk: int) -> bool:
     """G for lengths that are multiples of the backward tile, else H."""
     return sq % BWD_BLOCK == 0 and sk % BWD_BLOCK == 0
+
+
+def kernel_variant(dtype: torch.dtype, d: int, kind: str) -> str:
+    """The kernel a CUDA call of ``kind`` ("fwd", "fused" for G,
+    "two_pass" for H) takes for this dtype and head_dim:
+
+    * bf16: "fwd_bf16_wgmma" (F: wgmma, TMA ring, warp-specialised);
+      "bwd_fused_bf16_wgmma" (G at d 64 and 128: wgmma, TMA ring, dK/dV
+      in registers) or "bwd_fused_bf16_mma" (G at d 256: mma.sync,
+      cp.async ring, dK/dV in registers); "bwd_two_pass_bf16" (H: the
+      shared-memory dQ pass, then the mma.sync dK/dV kernel);
+    * fp32: "fwd_fp32", "bwd_fused_fp32", "bwd_two_pass_fp32" (CUDA-core
+      products between shared-memory tiles).
+
+    Raises for a dtype or head_dim that no kernel takes."""
+    if kind not in ("fwd", "fused", "two_pass"):
+        raise ValueError(f"unknown flash attention pass {kind!r}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got {d}")
+    tag = {torch.bfloat16: "bf16", torch.float32: "fp32"}.get(dtype)
+    if tag is None:
+        raise TypeError(f"the flash kernels take float32 or bfloat16, got "
+                        f"{dtype}")
+    if kind == "fwd":
+        return f"fwd_{tag}" + ("_wgmma" if tag == "bf16" else "")
+    if kind == "fused":
+        if tag == "fp32":
+            return "bwd_fused_fp32"
+        return "bwd_fused_bf16_" + ("mma" if d == 256 else "wgmma")
+    return f"bwd_two_pass_{tag}"
+
+
+def head_splits(b: int, sk: int, ng: int, qpg: int, block_k: int,
+                sm_count: int) -> int:
+    """How many blocks share one KV group's query heads in the backward's
+    dK/dV grid: enough that the grid (k-tiles x groups x batch x splits)
+    covers two waves of the card's SMs, at most one head a split.  MHA at
+    training lengths keeps 1; Falcon-7B in bf16 (16 k-tiles of 128 keys x
+    1 group) takes 17."""
+    blocks = b * ng * -(-sk // block_k)
+    return max(1, min(qpg, -(-2 * sm_count // blocks)))
+
+
+_SM_COUNTS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNTS:
+        _SM_COUNTS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNTS[idx]
+
+
+def _count(variant: str) -> None:
+    variant_launches[variant] = variant_launches.get(variant, 0) + 1
 
 
 def _visible(sq: int, sk: int, causal: bool, window: Optional[int],
@@ -106,6 +188,42 @@ def _reference_attention_bwd(q, k, v, o, lse, do, causal, sliding_window,
     dv = torch.einsum("bgpst,bsgpd->btgd", p, dog)
     return (dq.reshape(b, sq, nh, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def _split_head_ranges(qpg: int, splits: int):
+    """The query heads [lo, hi) within a group that each split owns (the
+    kernels' ``split_heads``)."""
+    return [(i * qpg // splits, (i + 1) * qpg // splits)
+            for i in range(splits)]
+
+
+def _reference_dkv_partials(q, k, v, o, lse, do, causal, sliding_window,
+                            softmax_scale, splits):
+    """Plain per-split dK, dV in fp32: [splits, 2, b, sk, ng, d], split i
+    holding the contribution of the query heads ``_split_head_ranges``
+    gives it in every group, as the split kernels write them."""
+    b, sq, nh, d = q.shape
+    ng = k.shape[2]
+    qpg = nh // ng
+    parts = []
+    for lo, hi in _split_head_ranges(qpg, splits):
+        heads = torch.tensor([gi * qpg + j for gi in range(ng)
+                              for j in range(lo, hi)], device=q.device)
+        _, dk, dv = _reference_attention_bwd(
+            q.float()[:, :, heads], k.float(), v.float(),
+            o.float()[:, :, heads], lse[:, heads], do.float()[:, :, heads],
+            causal, sliding_window, softmax_scale)
+        parts.append(torch.stack((dk, dv)))
+    return torch.stack(parts)
+
+
+def _sum_splits(parts: torch.Tensor) -> torch.Tensor:
+    """The splits' partials added in split order (flash_dkv_sum_kernel's
+    order): [splits, ...] -> [...]."""
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc += p
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +300,7 @@ def flash_attention_fwd_kernel(q, k, v, causal: bool,
                            code, build.stream_handle(q))
     build.check_rc(rc, "flash attention forward")
     fwd_launches += 1
+    _count(kernel_variant(q.dtype, d, "fwd"))
     return o, lse
 
 
@@ -199,23 +318,32 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, causal: bool,
     if lse.shape != (b, nh, sq) or lse.dtype != torch.float32:
         raise ValueError("lse must be the forward's [b, nh, sq] fp32")
     lse = lse.contiguous()
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    dk = torch.empty((b, sk, ng, d), dtype=k.dtype, device=k.device)
-    dv = torch.empty((b, sk, ng, d), dtype=v.dtype, device=v.device)
+    o = o.contiguous()
+    dev = q.device
+    # delta = rowsum(dO * O) is computed by the kernels' pre-pass, which
+    # also zeroes G's fp32 dq buffer
+    delta = torch.empty((b, nh, sq), dtype=torch.float32, device=dev)
+    dk = torch.empty((b, sk, ng, d), dtype=k.dtype, device=dev)
+    dv = torch.empty((b, sk, ng, d), dtype=v.dtype, device=dev)
     fused = uses_fused_backward(sq, sk)
-    if fused:
-        dq = torch.zeros((b, sq, nh, d), dtype=torch.float32,
-                         device=q.device)
-    else:
-        dq = torch.empty((b, sq, nh, d), dtype=q.dtype, device=q.device)
+    dq = torch.empty((b, sq, nh, d),
+                     dtype=torch.float32 if fused else q.dtype, device=dev)
+    splits = head_splits(b, sk, ng, nh // ng,
+                         TILES[(q.dtype, d)][1 if fused else 3][1],
+                         _sm_count(dev))
+    part = (torch.empty((splits, 2, b, sk, ng, d), dtype=torch.float32,
+                        device=dev) if splits > 1 else None)
     lib = build.load_library()
     rc = lib.mlt_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                           o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                           dv.data_ptr(),
+                           part.data_ptr() if part is not None else None,
                            _strides(q, k, v, do), b, sq, sk, nh, ng, d,
                            float(scale), int(causal), _window_arg(window),
-                           int(fused), code, build.stream_handle(q))
+                           int(fused), splits, code, build.stream_handle(q))
     build.check_rc(rc, "flash attention backward")
+    _count(kernel_variant(q.dtype, d, "fused" if fused else "two_pass"))
     if fused:
         bwd_fused_launches += 1
         dq = dq.to(q.dtype)

@@ -182,6 +182,10 @@ FA_CASES = [  # (b, s, nh, ng, d, window)
     (1, 200, 4, 1, 128, None),      # H (ragged last tile), MQA
     (1, 256, 8, 2, 128, 100),       # G, window cutting inside a tile
     (1, 130, 4, 4, 64, 7),          # H, small window
+    (1, 256, 4, 4, 256, None),      # G, head_dim 256
+    (1, 200, 8, 1, 256, None),      # H, head_dim 256, MQA
+    (1, 512, 8, 1, 256, None),      # G, Gemma-2B's MQA shape (nh 8, g 1)
+    (1, 384, 16, 16, 256, 100),     # G, Gemma-7B's heads, window
 ]
 
 
@@ -245,6 +249,84 @@ def test_flash_kernels_read_fused_qkv_views(cuda, s, nh, ng, window, dtype):
         err = (got.float() - want.float()).abs().max().item()
         size = want.float().abs().max().item()
         assert err <= tol * max(size, 1.0), (name, err, size)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,nh,ng,d", [
+    (256, 8, 1, 256),               # G, Gemma-2B's fused QKV
+    (200, 8, 1, 256),               # H
+    (256, 8, 2, 128),               # G, GQA: k and v views
+])
+def test_flash_views_take_the_dtype_variant(cuda, s, nh, ng, d, dtype):
+    # fused-QKV views at other head_dims: in bf16 the forward builds its
+    # TMA maps from the views' strides
+    qpg = nh // ng
+    gen = torch.Generator(device=cuda).manual_seed(s + nh + d)
+    mixed = torch.randn(1, s, ng, qpg + 2, d, device=cuda,
+                        generator=gen).to(dtype)
+    q = mixed[:, :, :, :qpg].reshape(1, s, nh, d)
+    k, v = mixed[:, :, :, qpg], mixed[:, :, :, qpg + 1]
+    assert not k.is_contiguous() and fa._readable(k)
+    do = torch.randn(1, s, nh, d, device=cuda, generator=gen).to(dtype)
+    scale = 1.0 / math.sqrt(d)
+    fa.variant_launches.clear()
+    o, lse = fa.flash_attention_fwd(q, k, v, True, None, scale)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, True, None, scale)
+    kind = "fused" if fa.uses_fused_backward(s, s) else "two_pass"
+    assert fa.variant_launches == {
+        fa.kernel_variant(dtype, d, "fwd"): 1,
+        fa.kernel_variant(dtype, d, kind): 1}
+    o0, lse0 = fa._reference_attention(q, k, v, True, None, scale)
+    ref = fa._reference_attention_bwd(q, k, v, o, lse, do, True, None,
+                                      scale)
+    tol = TOL[dtype]
+    torch.testing.assert_close(o.float(), o0.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(lse, lse0, rtol=0, atol=tol)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        err = (got.float() - want.float()).abs().max().item()
+        size = want.float().abs().max().item()
+        assert err <= tol * max(size, 1.0), (name, err, size)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,nh,d", [(1024, 71, 64), (512, 8, 256)])
+def test_flash_head_split_backward_is_right_and_deterministic(cuda, s, nh,
+                                                              d, dtype):
+    # MQA: one KV group's heads split over blocks; dK/dV are fp32 partials
+    # summed in split order, so two runs give the same bits
+    bk = fa.TILES[(dtype, d)][1][1]
+    splits = fa.head_splits(1, s, 1, nh, bk, fa._sm_count(cuda))
+    assert splits > 1
+    gen = torch.Generator(device=cuda).manual_seed(nh + d)
+    q, do = (torch.randn(1, s, nh, d, device=cuda, generator=gen).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(1, s, 1, d, device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa._reference_attention(q, k, v, True, None, scale)
+    one = fa.flash_attention_bwd(q, k, v, o, lse, do, True, None, scale)
+    two = fa.flash_attention_bwd(q, k, v, o, lse, do, True, None, scale)
+    assert torch.equal(one[1], two[1]) and torch.equal(one[2], two[2])
+    ref = fa._reference_attention_bwd(q, k, v, o, lse, do, True, None,
+                                      scale)
+    for name, got, want in zip(("dq", "dk", "dv"), one, ref):
+        err = (got.float() - want.float()).abs().max().item()
+        size = want.float().abs().max().item()
+        assert err <= TOL[dtype] * max(size, 1.0), (name, err, size)
+
+
+def test_flash_tiles_match_the_kernels(cuda):
+    import ctypes
+
+    from megatron_llm_torch.ops.kernels import build
+
+    lib = build.load_library()
+    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        for d in fa.HEAD_DIMS:
+            out = (ctypes.c_int * 8)()
+            assert lib.mlt_flash_tiles(code, d, out) == 0
+            assert tuple(out) == tuple(x for pair in fa.TILES[(dtype, d)]
+                                       for x in pair)
 
 
 def test_flash_rows_no_key_reaches(cuda):
