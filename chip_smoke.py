@@ -12,9 +12,15 @@ bound:
 
 * A, ragged paged attention, and A', the same over int8 pools with
   per-position scales: at Llama-2-7B's serving shapes and Falcon-7B's (71
-  query heads on one KV head of 64), and at edge cases (GQA, sliding
+  query heads on one KV head of 64), at head_dim 256 (Gemma-2B's 8 heads
+  on one KV head, Gemma-7B's 16), and at edge cases (GQA, sliding
   windows, empty context, chunks across page boundaries, a page that
-  straddles the context end);
+  straddles the context end); every case twice with equal bits, once
+  more on the other kernel variant (bf16) and once with its keys in one
+  split.  They are timed as CUDA graph replays (the device's time a
+  call) and as the host issues them, with sweeps of the key splits and
+  of the query rows a KV group at which the tensor-core variant takes
+  over;
 * B and C, the RMSNorm forward and backward, and D and E, the LayerNorm
   forward and backward: at decode, prefill and training rows of 4096 and
   4544 columns and at odd shapes;
@@ -39,7 +45,11 @@ exactly its full cached pages, and that an independent no-cache forward
 (no kernel: plain norm and ``core_attention``) agrees with the served
 tokens.  Then, on the stopped engine, it forces the copy-on-write of a
 page two requests share and checks the copy, and profiles decode steps of
-the full 8-slot batch (device-busy time against the step's).  Phase 4 does the same with
+the full 8-slot batch (device-busy time against the step's) and prefill
+chunks of 64 tokens at context 992 the same way; the paged launches must
+have taken the planned kernel variants (decode "simt" for Llama's one
+query row a KV group, "mma" for Falcon's 71; prefill "mma"; the fp32
+checks "simt").  Phase 4 does the same with
 Falcon-7B at full width over an int8 KV pool (``--int8_kv_cache``): D and
 A' run, A and B do not, the copy covers the scales, and in fp32 the paged
 path agrees with the no-cache path exactly over plain pools and within a
@@ -90,6 +100,11 @@ OUT_DIR = os.path.join(REPO, "chiprun_out")
 # tolerances (max-abs, kernel vs plain version on identical inputs): the
 # bf16 tolerance of tests/test_pallas_kernels.py, and fp32 at 1e-4
 TOL = {"bf16": 2e-2, "fp32": 1e-4}
+# bf16 paged attention, also: each row's largest error against the plain
+# version in fp32 within this share of the row's largest |value| (rows at
+# context ~1000 hold values ~0.05, where 2e-2 alone says little; the
+# error measured on the H100 is in PERF.md)
+PAGED_ROW_REL = 1e-2
 # H100 SXM published peaks (NVIDIA H100 datasheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -155,8 +170,15 @@ def check(cond: bool, msg: str) -> None:
         raise CheckFailed(msg)
 
 
+# the run's log lines also go to chip_smoke.log under OUT_DIR (main opens it)
+_LOG_FILES = []
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    for f in _LOG_FILES:
+        f.write(msg + "\n")
+        f.flush()
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +199,37 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, the graph replayed ``reps`` times between CUDA events, so
+    no host time lies between the launches (``time_ms`` times the calls
+    as the host issues them)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * iters)
+    del graph
+    return ms
 
 
 def bound(nbytes: float, flops: float, flop_rate: float):
@@ -233,24 +286,40 @@ def _paged_bytes_flops(S, C, nh, g, d, bs, ctx, window, itemsize,
     return kv + qo + S * 4 * 2, flops
 
 
-def _run_paged(pa, q, kp, vp, bt, cl, scales, window, block_q=None):
-    """(kernel output, plain output) of one paged-attention case; decode
-    when the chunk is one token."""
+def _run_paged(pa, q, kp, vp, bt, cl, scales, window, block_q=None,
+               with_ref=True):
+    """(kernel output, plain output in fp32 or None) of one paged-attention
+    case through the public entries; decode when the chunk is one token.
+    (The plain version rounds its fp32 result to q's dtype at its end.)"""
     ks, vs = scales
     scale = 1.0 / math.sqrt(q.shape[-1])
+    ref = None
     if q.shape[1] == 1:
         out = pa.paged_attention_decode(
             q[:, 0].contiguous(), kp, vp, bt, cl, k_scales=ks, v_scales=vs,
             sliding_window=window)
-        ref = pa._reference_paged_attention(q[:, 0], kp, vp, bt, cl, ks, vs,
-                                            scale, window)
+        if with_ref:
+            ref = pa._reference_paged_attention(q[:, 0].float(), kp, vp, bt,
+                                                cl, ks, vs, scale, window)
     else:
         out = pa.paged_attention_prefill(
             q, kp, vp, bt, cl, k_scales=ks, v_scales=vs,
             sliding_window=window, block_q=block_q)
-        ref = pa._reference_paged_prefill(q, kp, vp, bt, cl, ks, vs, scale,
-                                          window)
+        if with_ref:
+            ref = pa._reference_paged_prefill(q.float(), kp, vp, bt, cl, ks,
+                                              vs, scale, window)
     return out, ref
+
+
+def _paged_errors(out, ref32):
+    """(max-abs error against the plain version rounded to out's dtype,
+    the largest of each row's max-abs error against the fp32 plain
+    version over the row's largest |value|)."""
+    o = out.float().reshape(ref32.shape)
+    e = (o - ref32.to(out.dtype).float()).abs().max().item()
+    rel = ((o - ref32).abs().amax(-1)
+           / ref32.abs().amax(-1).clamp_min(1e-6)).max().item()
+    return e, rel
 
 
 def _time_paged(gen, pa, S, C, ctx, nh, g, d, quantized, sweep=False):
@@ -284,15 +353,21 @@ def _time_paged(gen, pa, S, C, ctx, nh, g, d, quantized, sweep=False):
                                                  k_scales=ks, v_scales=vs)
         plain = lambda: pa._reference_paged_prefill(q, kp, vp, bt, cl, ks,
                                                     vs, scale, None)
-    out = dict(ms=time_ms(run, iters=50), plain_ms=time_ms(plain, iters=10))
+    variant, _, _, splits = _paged_plan(pa, q, kp, bt, quantized)
+    # ms: a call as the host issues it, the wrapper's Python and ctypes
+    # included (the yardstick of every row of the kernels line);
+    # device_ms: the device's time a call (CUDA graph replay)
+    out = dict(ms=time_ms(run, iters=50), device_ms=graph_ms(run),
+               plain_ms=time_ms(plain, iters=10), variant=variant,
+               splits=splits)
     if sweep:
-        # query rows per q-block (block_q, as qpg = 1 here): the sweep
-        # behind the wrapper's default, _KERNEL_ROWS_PER_BLOCK (the kernel
-        # cuts a larger q-block into blocks of 4 rows, so 8 equals 4)
-        out["rows_per_block_ms"] = {
-            bq: time_ms(lambda bq=bq: pa.paged_attention_prefill(
-                q, kp, vp, bt, cl, block_q=bq), iters=50)
-            for bq in (1, 2, 4, 8)}
+        # the key splits, forced: the sweep behind key_splits (device
+        # times)
+        out["splits_ms"] = {
+            n: graph_ms(lambda n=n: pa._ragged_call(
+                q, kp, vp, bt, cl, ks, vs, scale=scale, window=None,
+                splits=n))
+            for n in (1, 2, 3, 4, 5, 6, 8, 12, 16)}
     # library yardstick: SDPA over a dense [S, nh, T, d] view of each
     # slot's live keys, gathered, dequantised and expanded to the query
     # heads beforehand (none of that is timed)
@@ -306,8 +381,10 @@ def _time_paged(gen, pa, S, C, ctx, nh, g, d, quantized, sweep=False):
     kpos = torch.arange(T, device="cuda")
     qpos = ctx[0] + torch.arange(C, device="cuda")
     mask = (kpos[None, :] <= qpos[:, None])[None, None]
-    out["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask), iters=50)
+    sdpa = lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                  attn_mask=mask)
+    out["library_ms"] = time_ms(sdpa, iters=50)
+    out["library_device_ms"] = graph_ms(sdpa)
     nbytes, flops = _paged_bytes_flops(S, C, nh, g, d, bs, ctx, None, 2,
                                        quantized)
     out["bound_ms"], out["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
@@ -318,9 +395,16 @@ def _time_paged(gen, pa, S, C, ctx, nh, g, d, quantized, sweep=False):
 
 
 def _log_times(label, t, library):
-    log(f"  {label} {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+    how = f" ({t['variant']}, {t['splits']} splits)" if "variant" in t else ""
+    device = (f" (device, CUDA graph replay: kernel {t['device_ms']:.4f} "
+              f"ms, library {t['library_device_ms']:.4f} ms)"
+              if "device_ms" in t else "")
+    log(f"  {label} {t['shape']}: kernel{how} {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, {library} {t['library_ms']:.4f} ms, bound "
-        f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
+        f"{t['bound_ms']:.5f} ms ({t['bound_by']}){device}")
+    if "splits_ms" in t:
+        log(f"    ms by key splits: " + ", ".join(
+            f"{n}: {v:.4f}" for n, v in t["splits_ms"].items()))
 
 
 def phase1(gen, results):
@@ -424,41 +508,81 @@ def phase1(gen, results):
         max_abs_err=err["bf16"], max_abs_err_fp32=err["fp32"],
         decode_rows=times[8], **times[2048])
 
-    # -- kernels A and A': ragged paged attention ---------------------------
-    # (label, S, C, nh, g, d, bs, M, ctx, window, block_q); every case runs
-    # over plain pools (A) and over int8 pools (A')
-    cases = [
-        ("Llama-2-7B decode", 8, 1, 32, 32, 128, 16, 128,
-         [0, 37, 100, 513, 1000, 1200, 1500, 2000], None, None),
-        ("Llama-2-7B prefill", 1, 64, 32, 32, 128, 16, 128, [1000], None,
-         None),
-        ("Llama-2-7B prefill ctx 0", 1, 64, 32, 32, 128, 16, 128, [0], None,
-         None),
-        ("Falcon-7B decode", 8, 1, 71, 1, 64, 16, 128,
-         [0, 37, 100, 513, 1000, 1200, 1500, 2000], None, None),
-        ("Falcon-7B prefill", 1, 64, 71, 1, 64, 16, 128, [1000], None, None),
-        ("Falcon-7B prefill ctx 0", 1, 64, 71, 1, 64, 16, 128, [0], None,
-         None),
-        ("Falcon-7B prefill, a page straddling the context end", 2, 64, 71,
-         1, 64, 16, 128, [9, 1003], None, None),
-        ("Falcon-7B decode window 100", 4, 1, 71, 1, 64, 16, 128,
-         [0, 99, 100, 1500], 100, None),
-        ("GQA g8 decode", 8, 1, 32, 8, 128, 16, 128,
-         [0, 5, 16, 17, 300, 700, 1100, 2000], None, None),
-        ("GQA g8 prefill", 2, 64, 32, 8, 128, 16, 128, [7, 250], None, 16),
-        ("Mistral window 4096 decode", 4, 1, 32, 8, 128, 16, 320,
-         [0, 4095, 4100, 5000], 4096, None),
-        ("window 5 prefill", 3, 64, 32, 8, 128, 16, 16, [0, 3, 40], 5, 8),
-        ("window 12 decode, bs 8", 4, 1, 8, 2, 64, 8, 16,
-         [0, 7, 30, 100], 12, None),
-        ("d 32 window 12 prefill, bs 8", 2, 16, 8, 2, 32, 8, 16, [3, 50], 12,
-         None),
-        ("page-crossing chunk, ctx % bs != 0", 2, 64, 32, 32, 128, 16, 8,
-         [9, 55], None, None),
-    ]
+    phase1_paged(gen, results)
+
+
+# (label, S, C, nh, g, d, bs, M, ctx, window, block_q) of the paged
+# attention cases; every case runs over plain pools (A) and over int8
+# pools (A')
+PAGED_CASES = [
+    ("Llama-2-7B decode", 8, 1, 32, 32, 128, 16, 128,
+     [0, 37, 100, 513, 1000, 1200, 1500, 2000], None, None),
+    ("Llama-2-7B prefill", 1, 64, 32, 32, 128, 16, 128, [1000], None, None),
+    ("Llama-2-7B prefill ctx 0", 1, 64, 32, 32, 128, 16, 128, [0], None,
+     None),
+    ("Falcon-7B decode", 8, 1, 71, 1, 64, 16, 128,
+     [0, 37, 100, 513, 1000, 1200, 1500, 2000], None, None),
+    ("Falcon-7B prefill", 1, 64, 71, 1, 64, 16, 128, [1000], None, None),
+    ("Falcon-7B prefill ctx 0", 1, 64, 71, 1, 64, 16, 128, [0], None,
+     None),
+    ("Falcon-7B prefill, a page straddling the context end", 2, 64, 71,
+     1, 64, 16, 128, [9, 1003], None, None),
+    ("Falcon-7B decode window 100", 4, 1, 71, 1, 64, 16, 128,
+     [0, 99, 100, 1500], 100, None),
+    ("GQA g8 decode", 8, 1, 32, 8, 128, 16, 128,
+     [0, 5, 16, 17, 300, 700, 1100, 2000], None, None),
+    ("GQA g8 prefill", 2, 64, 32, 8, 128, 16, 128, [7, 250], None, 16),
+    ("Mistral window 4096 decode", 4, 1, 32, 8, 128, 16, 320,
+     [0, 4095, 4100, 5000], 4096, None),
+    ("window 5 prefill", 3, 64, 32, 8, 128, 16, 16, [0, 3, 40], 5, 8),
+    ("window 12 decode, bs 8", 4, 1, 8, 2, 64, 8, 16,
+     [0, 7, 30, 100], 12, None),
+    ("d 32 window 12 prefill, bs 8", 2, 16, 8, 2, 32, 8, 16, [3, 50], 12,
+     None),
+    ("page-crossing chunk, ctx % bs != 0", 2, 64, 32, 32, 128, 16, 8,
+     [9, 55], None, None),
+    # head_dim 256: Gemma-2B (8 heads on one KV head) and Gemma-7B (16
+    # heads, MHA)
+    ("Gemma-2B decode", 8, 1, 8, 1, 256, 16, 128,
+     [0, 37, 100, 513, 1000, 1200, 1500, 2000], None, None),
+    ("Gemma-2B prefill", 2, 64, 8, 1, 256, 16, 128, [5, 1000], None, None),
+    ("Gemma-7B decode", 8, 1, 16, 16, 256, 16, 128,
+     [0, 37, 100, 513, 1000, 1200, 1500, 2000], None, None),
+    ("Gemma-7B prefill", 2, 64, 16, 16, 256, 16, 128, [0, 1000], None,
+     None),
+]
+
+
+def _paged_plan(pa, q, kp, bt, quantized, variant=None):
+    """The wrapper's plan of a call (``variant`` forces the kernel)."""
+    S, C, nh, d = q.shape
+    return pa.plan(q.dtype, S, C, nh, kp.shape[2], d, kp.shape[1],
+                   bt.shape[1], quantized, _sm_count(), variant)
+
+
+def _sm_count():
+    import torch
+
+    from megatron_llm_torch.ops.kernels import build
+
+    return build.sm_count(torch.device("cuda"))
+
+
+def phase1_paged(gen, results):
+    """A and A': every case against the plain version (the planned
+    variant twice, bitwise equal; the other variant in bf16; one split),
+    the timing shapes with the split sweep, and the sweep of the rows
+    threshold between the two variants."""
+    import torch
+
+    from megatron_llm_torch.ops.kernels import paged_attention as pa
+    from megatron_llm_torch.quantization import absmax_quantize_int8
+
+    dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
     err = {q_: {"decode": {"bf16": 0.0, "fp32": 0.0},
                 "prefill": {"bf16": 0.0, "fp32": 0.0}} for q_ in (False, True)}
-    for (label, S, C, nh, g, d, bs, M, ctx, window, bq) in cases:
+    row_rel = {"mma": 0.0, "simt": 0.0}     # bf16, by variant
+    for (label, S, C, nh, g, d, bs, M, ctx, window, bq) in PAGED_CASES:
         for tag, dt in dts.items():
             q, kp, vp, bt, cl = _paged_case(gen, S, C, nh, g, d, bs, M, ctx,
                                             dt)
@@ -469,28 +593,67 @@ def phase1(gen, results):
                                      (True, (kq, vq, (ks, vs)))):
                 out, ref = _run_paged(pa, q, pools[0], pools[1], bt, cl,
                                       pools[2], window, bq)
+                again, _ = _run_paged(pa, q, pools[0], pools[1], bt, cl,
+                                      pools[2], window, bq, with_ref=False)
                 torch.cuda.synchronize()
-                e = (out.float() - ref.float()).abs().max().item()
+                variant, _, _, splits = _paged_plan(pa, q, pools[0], bt,
+                                                    quantized)
+                e, rel = _paged_errors(out, ref)
                 name = "int8 paged attention" if quantized \
                     else "paged attention"
-                log(f"  {name} {label} {tag}: max_abs_err {e:.3g}")
+                what = f"{name} {label} {tag} ({variant}, {splits} splits)"
+                check(torch.equal(out, again),
+                      f"{what}: a second run gave other bits")
+                # the other variant (bf16 only) and one split, forced
+                others = [(variant, 1)]
+                if tag == "bf16":
+                    others.append(({"mma": "simt", "simt": "mma"}[variant],
+                                   None))
+                rels = {variant: rel}
+                errs = []
+                for v_, sp in others:
+                    o2 = pa._ragged_call(
+                        q, pools[0], pools[1], bt, cl, *pools[2],
+                        scale=1.0 / math.sqrt(d), window=window,
+                        variant=v_, splits=sp)
+                    torch.cuda.synchronize()
+                    e2, rel2 = _paged_errors(o2, ref)
+                    errs.append(f"{v_} {sp or 'planned'} splits {e2:.3g}")
+                    e = max(e, e2)
+                    rels[v_] = max(rels.get(v_, 0.0), rel2)
+                log(f"  {what}: max_abs_err {e:.3g} (forced: "
+                    f"{'; '.join(errs)}); bitwise equal on a second run"
+                    + ("; row-relative error " + ", ".join(
+                        f"{v_} {r:.3g}" for v_, r in rels.items())
+                       if tag == "bf16" else ""))
                 check(math.isfinite(e) and e <= TOL[tag],
-                      f"{name} {label} {tag}: {e} > {TOL[tag]}")
+                      f"{what}: {e} > {TOL[tag]}")
+                if tag == "bf16":
+                    for v_, r in rels.items():
+                        check(r <= PAGED_ROW_REL,
+                              f"{what}: {v_} row-relative error {r} > "
+                              f"{PAGED_ROW_REL}")
+                        row_rel[v_] = max(row_rel[v_], r)
                 err[quantized][kind][tag] = max(err[quantized][kind][tag], e)
 
+    log(f"  paged attention bf16, largest row-relative error over every "
+        f"case: mma {row_rel['mma']:.3g}, simt {row_rel['simt']:.3g} "
+        f"(limit {PAGED_ROW_REL})")
+    results["paged_bf16_row_relative_error"] = row_rel
     # timing, bf16: A at Llama-2-7B's serving shapes (its path), A' at
-    # Falcon-7B's (its path) and at Llama-2-7B's, to be read beside A
+    # Falcon-7B's (its path) and at Llama-2-7B's, to be read beside A;
+    # each with the sweep of the key splits
     llama = dict(nh=32, g=32, d=128)
     falcon = dict(nh=71, g=1, d=64)
     lib = "SDPA over a pre-gathered dense K/V (gather not timed)"
+    lib8 = ("SDPA over a pre-gathered, pre-dequantised bf16 K/V "
+            "(neither timed)")
+    log("  times: 50 calls as the host issues them, between CUDA events; "
+        "device: a CUDA graph of 20 calls replayed (device time a call)")
     for kind, (S, C, ctx) in (("decode", (8, 1, [1000] * 8)),
                               ("prefill", (1, 64, [1000]))):
-        t = _time_paged(gen, pa, S, C, ctx, quantized=False,
-                        sweep=kind == "prefill", **llama)
-        if "rows_per_block_ms" in t:
-            log("  paged attention prefill, ms by query rows per block: "
-                + ", ".join(f"{bq}: {v:.4f}"
-                            for bq, v in t["rows_per_block_ms"].items()))
+        t = _time_paged(gen, pa, S, C, ctx, quantized=False, sweep=True,
+                        **llama)
         results[f"paged_{kind}"] = dict(
             name=f"paged_attention_{kind}", route="cuda",
             source="megatron_llm_torch/csrc/paged_attention.cu",
@@ -498,7 +661,8 @@ def phase1(gen, results):
             max_abs_err=err[False][kind]["bf16"],
             max_abs_err_fp32=err[False][kind]["fp32"], **t)
         _log_times(f"paged attention {kind} (A)", t, lib)
-        tq = _time_paged(gen, pa, S, C, ctx, quantized=True, **falcon)
+        tq = _time_paged(gen, pa, S, C, ctx, quantized=True, sweep=True,
+                         **falcon)
         tq_llama = _time_paged(gen, pa, S, C, ctx, quantized=True, **llama)
         results[f"paged_{kind}_int8"] = dict(
             name=f"paged_attention_{kind}_int8", route="cuda",
@@ -507,10 +671,36 @@ def phase1(gen, results):
             max_abs_err=err[True][kind]["bf16"],
             max_abs_err_fp32=err[True][kind]["fp32"],
             llama_shape=tq_llama, **tq)
-        lib8 = ("SDPA over a pre-gathered, pre-dequantised bf16 K/V "
-                "(neither timed)")
         _log_times(f"int8 paged attention {kind} (A')", tq, lib8)
         _log_times(f"int8 paged attention {kind} (A')", tq_llama, lib8)
+
+    # the rows threshold: decode of 8 slots at context 1000 with 1, 2, 4,
+    # 8, 16 and 32 query rows a KV group, each variant at its planned
+    # splits
+    sweep = {}
+    for label, nh, g, d in (("MHA, qpg 1", 32, 32, 128),
+                            ("GQA g16, qpg 2", 32, 16, 128),
+                            ("GQA g8, qpg 4", 32, 8, 128),
+                            ("Gemma-2B, qpg 8", 8, 1, 256),
+                            ("GQA g2, qpg 16", 32, 2, 128),
+                            ("MQA, qpg 32", 32, 1, 128)):
+        q, kp, vp, bt, cl = _paged_case(gen, 8, 1, nh, g, d, 16, 128,
+                                        [1000] * 8, torch.bfloat16)
+        row = {}
+        for v_ in ("simt", "mma"):
+            splits = _paged_plan(pa, q, kp, bt, False, v_)[3]
+            row[v_] = dict(splits=splits, ms=graph_ms(
+                lambda v_=v_: pa._ragged_call(
+                    q, kp, vp, bt, cl, None, None, scale=1.0 / math.sqrt(d),
+                    window=None, variant=v_)))
+        row["planned"] = _paged_plan(pa, q, kp, bt, False)[0]
+        sweep[label] = row
+        log(f"  rows threshold, decode S=8 ctx 1000 {label} (nh={nh} g={g} "
+            f"d={d}): simt {row['simt']['ms']:.4f} ms "
+            f"({row['simt']['splits']} splits), mma "
+            f"{row['mma']['ms']:.4f} ms ({row['mma']['splits']} splits); "
+            f"planned {row['planned']}")
+    results["paged_rows_threshold_sweep"] = sweep
 
 
 # ---------------------------------------------------------------------------
@@ -733,6 +923,56 @@ def _decode_profile(engine, prefix, vocab, tag, n_steps=8):
             {k: v / n_steps for k, v in groups.items()})
 
 
+def _prefill_profile(engine, prefix, vocab, tag, variant, n_chunks=4):
+    """Where a prefill chunk goes, on the stopped engine, single-stepped:
+    requests of the cached ``prefix`` (whole pages) plus one chunk of new
+    tokens, asking for one token, so that one step admits a request and
+    runs its one prefill chunk, whose first token ends it.  ``n_chunks``
+    of them are timed on the host's clock, ``n_chunks`` more run under
+    torch.profiler.  Checks that each chunk's paged reads took
+    ``variant``.  Returns (unprofiled ms a chunk, device-busy ms a chunk,
+    ms a chunk by kernel group)."""
+    import numpy as np
+    import torch
+
+    from megatron_llm_torch.serving import SamplingParams
+
+    rng = np.random.RandomState(8765)
+    C = engine.config.prefill_chunk
+    L = engine.model.cfg.num_layers
+
+    def chunks():
+        for _ in range(n_chunks):
+            req = engine.submit(prefix + rng.randint(0, vocab, C).tolist(),
+                                SamplingParams(max_new_tokens=1,
+                                               temperature=0.0))
+            engine.step()
+            check(req.cached_prompt_tokens == len(prefix)
+                  and len(req.out_tokens) == 1,
+                  f"prefill profile: a request cached "
+                  f"{req.cached_prompt_tokens} tokens and made "
+                  f"{len(req.out_tokens)} in one step")
+        torch.cuda.synchronize()
+
+    chunks()
+    before = (engine.stats()["prefill_chunks"], _paged_variants())
+    t0 = time.perf_counter()
+    chunks()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_chunks
+    after = (engine.stats()["prefill_chunks"], _paged_variants())
+    check(after[0] - before[0] == n_chunks,
+          f"prefill profile: {after[0] - before[0]} chunks for {n_chunks} "
+          f"steps")
+    moved = {k: v - before[1].get(k, 0) for k, v in after[1].items()
+             if v != before[1].get(k, 0)}
+    check(moved == {variant: L * n_chunks},
+          f"prefill profile: paged launches by variant {moved}, expected "
+          f"{ {variant: L * n_chunks} }")
+    groups, device_ms, _ = _profile_step(chunks, tag)
+    return (wall_ms, device_ms / n_chunks,
+            {k: v / n_chunks for k, v in groups.items()})
+
+
 def _fp32_path_check(model, params, tokens, quantized):
     """Max |logit diff| between the paged path (its kernels, fp32
     variants) and the no-cache path, with fp32 params and compute, over
@@ -770,6 +1010,20 @@ def _serving_counts():
             "A' prefill": pa.quant_prefill_launches}
 
 
+def _paged_variants():
+    """Paged-attention launches by kernel variant since the last zeroing
+    (variants with none left out)."""
+    from megatron_llm_torch.ops.kernels import paged_attention as pa
+
+    return {k: v for k, v in pa.variant_launches.items() if v}
+
+
+def _merges():
+    from megatron_llm_torch.ops.kernels import paged_attention as pa
+
+    return pa.merge_launches
+
+
 # the two serving workloads: the same traffic through two model families
 SERVING = {
     "llama": dict(
@@ -781,6 +1035,9 @@ SERVING = {
         norm=("rmsnorm", "B", lambda L: 2 * L + 1),
         decode=("paged_decode", "A decode"),
         prefill=("paged_prefill", "A prefill"),
+        # the paged kernel variant of a decode step (one query row a KV
+        # group) and of a prefill chunk (64)
+        variants=("simt", "mma"),
         margin_bound=MARGIN_BOUND, min_checked=MIN_CHECKED_FRACTION),
     "falcon": dict(
         label="Falcon-7B", model_name="falcon", vocab=65024, quantized=True,
@@ -790,6 +1047,8 @@ SERVING = {
         norm=("layernorm", "D", lambda L: L + 1),
         decode=("paged_decode_int8", "A' decode"),
         prefill=("paged_prefill_int8", "A' prefill"),
+        # 71 query rows a KV group at decode, 64 x 71 in a prefill chunk
+        variants=("mma", "mma"),
         margin_bound=MARGIN_BOUND, min_checked=INT8_MIN_CHECKED_FRACTION),
 }
 
@@ -860,6 +1119,7 @@ def serve_phase(results, kernels, spec):
             time.sleep(0.01)
         check(len(records) == 10, f"{len(records)} request_done records")
         launches = _serving_counts()
+        variants = _paged_variants()
         training = {k: v for k, v in _counts().items() if k in "CEFGH"}
         s1 = engine.stats()
         for p, o in zip(prompts + [shared], outs + outs2[:1]):
@@ -898,14 +1158,31 @@ def serve_phase(results, kernels, spec):
               f"{dec} decode steps, {pre} prefill chunks)")
         check(not any(training.values()),
               f"serving launched training kernels: {training}")
+        dec_v, pre_v = spec["variants"]
+        want_v = {dec_v: 0, pre_v: 0}
+        want_v[dec_v] += L * dec
+        want_v[pre_v] += L * pre
+        log(f"  paged launches by variant {variants} (merges of split keys "
+            f"{_merges()})")
+        check(variants == want_v,
+              f"paged launches by variant {variants}, expected {want_v} "
+              f"(decode steps on {dec_v}, prefill chunks on {pre_v})")
+        results["paged_variant_launches"] = variants
         phase = f"serving {spec['label']}"
         _add_launches(kernels, norm_row, phase, launches[norm_key])
         for row, key in (spec["decode"], spec["prefill"]):
             _add_launches(kernels, row, phase, launches[key])
 
-        # independent check: no-cache forward through no kernel
+        # independent check: no-cache forward through no kernel; the fp32
+        # paged path takes the CUDA-core kernel only
+        before = _paged_variants()
         diff, diff8, scale, std = _fp32_path_check(
             engine.model, engine.params, outs[5][:-1], spec["quantized"])
+        moved = {k: v - before.get(k, 0)
+                 for k, v in _paged_variants().items()
+                 if v != before.get(k, 0)}
+        check(list(moved) == ["simt"],
+              f"the fp32 paged path launched {moved}, expected simt only")
         tol = FP32_PLAIN_POOL_TOL if spec["quantized"] else FP32_LOGIT_TOL
         log(f"  fp32 teacher-forced logits, paged over plain pools (its "
             f"kernels) vs no-cache (none), {len(outs[5]) - 1} tokens: max "
@@ -986,6 +1263,23 @@ def serve_phase(results, kernels, spec):
     results["decode_profile"] = dict(
         step_ms=wall_ms, device_ms=device_ms, idle_share=idle,
         device_ms_by_kernel=groups)
+    wall_ms, device_ms, groups = _prefill_profile(
+        engine, prompts[5][:992], vocab, "prefill_" + spec["label"].lower(),
+        spec["variants"][1])
+    idle = 1 - device_ms / wall_ms if device_ms > 0 else None
+    if device_ms > 0:
+        log(f"  prefill chunk of 64 tokens at context 992 under "
+            f"torch.profiler: device busy {device_ms:.1f} ms of an "
+            f"unprofiled chunk of {wall_ms:.1f} ms (idle share {idle:.3f});"
+            f" device ms by kernel: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in groups.items() if v))
+    else:
+        log(f"  prefill chunk of 64 tokens at context 992: {wall_ms:.1f} "
+            f"ms; torch.profiler recorded no device time (idle share not "
+            f"measured)")
+    results["prefill_profile"] = dict(
+        chunk_ms=wall_ms, device_ms=device_ms, idle_share=idle,
+        device_ms_by_kernel=groups)
 
 
 # ---------------------------------------------------------------------------
@@ -1035,6 +1329,7 @@ def _time_attention_shape(gen, b, s, nh, ng, d):
     import torch
     import torch.nn.functional as F
 
+    from megatron_llm_torch.ops.kernels import build
     from megatron_llm_torch.ops.kernels import flash_attention as fa
 
     q, do = (torch.randn(b, s, nh, d, device="cuda",
@@ -1073,7 +1368,7 @@ def _time_attention_shape(gen, b, s, nh, ng, d):
                    f"SDPA on K/V expanded to {nh} heads")
     res["G"]["head_splits"] = fa.head_splits(
         b, s, ng, nh // ng, fa.TILES[(torch.bfloat16, d)][1][1],
-        fa._sm_count(q.device))
+        build.sm_count(q.device))
     del q, k, v, do, qt, kt, vt, dot, o, lse, qr, kr, vr, out
     torch.cuda.empty_cache()
     return res
@@ -1083,6 +1378,7 @@ def phase1_training(gen, results):
     import torch
     import torch.nn.functional as F
 
+    from megatron_llm_torch.ops.kernels import build
     from megatron_llm_torch.ops.kernels import flash_attention as fa
     from megatron_llm_torch.ops.kernels import layernorm as ln
     from megatron_llm_torch.ops.kernels import rmsnorm as rn
@@ -1266,7 +1562,7 @@ def phase1_training(gen, results):
             splits = fa.head_splits(b, s, ng, nh // ng,
                                     fa.TILES[(dt, d)][
                                         1 if kind == "G" else 3][1],
-                                    fa._sm_count(q.device))
+                                    build.sm_count(q.device))
             log(f"  flash attention {label} {tag}: forward max_abs_err "
                 f"{e_f:.3g}; backward {kind} ({splits} head splits): "
                 f"max_abs_err {e_abs:.3g}, error / max|grad| {e_rel:.3g}")
@@ -1380,6 +1676,8 @@ def _zero_counts():
     ln.launches = ln.bwd_launches = 0
     pa.decode_launches = pa.prefill_launches = 0
     pa.quant_decode_launches = pa.quant_prefill_launches = 0
+    pa.merge_launches = 0
+    pa.variant_launches.clear()
 
 
 def _counts():
@@ -1410,7 +1708,8 @@ def _synthetic_batch(rng, micro, seq, vocab):
 
 # kernel-name substrings of each row of the step's device-time breakdown
 _KERNEL_GROUPS = (
-    ("A/A' paged attention", ("ragged_paged_attention_kernel",)),
+    ("A/A' paged attention", ("paged_mma_kernel", "paged_simt_kernel",
+                              "paged_merge_kernel")),
     ("F flash forward", ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")),
     ("G/H flash backward", ("flash_bwd_kv_wgmma_kernel",
                             "flash_bwd_kv_mma_kernel", "flash_bwd_kv_kernel",
@@ -1781,9 +2080,10 @@ def train_phase(results, kernels, card, spec):
 
 
 def _log_flash_build(build):
-    """Registers, spills and shared memory of every flash-attention
-    kernel instantiation: ptxas's lines from the build, and the dynamic
-    shared memory and tiles each (dtype, head_dim) launches with."""
+    """Registers, spills and shared memory of every flash-attention and
+    paged-attention kernel instantiation: ptxas's lines from the build,
+    and the dynamic shared memory and tiles each flash (dtype, head_dim)
+    launches with."""
     import ctypes
 
     import torch
@@ -1792,7 +2092,8 @@ def _log_flash_build(build):
 
     lines = build.build_log.splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '(\S*flash\S*)'", line)
+        m = re.search(r"Compiling entry function '(\S*(flash|paged)\S*)'",
+                      line)
         if not m:
             continue
         used = next((ln.split(":", 1)[1].strip() for ln in lines[i + 1:i + 4]
@@ -1841,6 +2142,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     os.makedirs(OUT_DIR, exist_ok=True)
+    _LOG_FILES.append(open(os.path.join(OUT_DIR, "chip_smoke.log"), "w"))
 
     # phase 0: device, numerics, build
     smi = subprocess.run(
@@ -1924,4 +2226,9 @@ if __name__ == "__main__":
         sys.exit(main())
     except CheckFailed as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
+        for f in _LOG_FILES:
+            f.write(f"chip_smoke: FAIL: {exc}\n")
         sys.exit(1)
+    finally:
+        for f in _LOG_FILES:
+            f.close()

@@ -62,9 +62,9 @@ _SIGNATURES = {
     "mlt_flash_tiles": [_c_int, _c_int, ctypes.POINTER(ctypes.c_int)],
     "mlt_flash_smem": [_c_int, _c_int, _i64s],
     "mlt_ragged_paged_attention": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                                   _ptr, _c_int, _c_int, _c_int, _c_int,
+                                   _ptr, _ptr, _ptr, _c_int, _c_int, _c_int,
                                    _c_int, _c_int, _c_int, _c_int, _c_float,
-                                   _c_int, _c_int, _ptr],
+                                   _c_int, _c_int, _c_int, _c_int, _ptr],
 }
 
 
@@ -151,12 +151,28 @@ def dtype_code(t: torch.Tensor) -> int:
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw cudaStream_t of the current stream on t's device (the
+    call the compiled wrappers of torch.compile make: no Stream object
+    is built for a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_rc(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with cudaError_t {rc}")
+
+
+_SM_COUNTS: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNTS:
+        _SM_COUNTS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNTS[idx]
 
 
 def require_cuda(t: torch.Tensor, name: str) -> None:

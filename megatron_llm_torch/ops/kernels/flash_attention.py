@@ -117,18 +117,6 @@ def head_splits(b: int, sk: int, ng: int, qpg: int, block_k: int,
     return max(1, min(qpg, -(-2 * sm_count // blocks)))
 
 
-_SM_COUNTS: dict = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _SM_COUNTS:
-        _SM_COUNTS[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _SM_COUNTS[idx]
-
-
 def _count(variant: str) -> None:
     variant_launches[variant] = variant_launches.get(variant, 0) + 1
 
@@ -330,7 +318,7 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, causal: bool,
                      dtype=torch.float32 if fused else q.dtype, device=dev)
     splits = head_splits(b, sk, ng, nh // ng,
                          TILES[(q.dtype, d)][1 if fused else 3][1],
-                         _sm_count(dev))
+                         build.sm_count(dev))
     part = (torch.empty((splits, 2, b, sk, ng, d), dtype=torch.float32,
                         device=dev) if splits > 1 else None)
     lib = build.load_library()
