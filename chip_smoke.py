@@ -31,9 +31,13 @@ bound:
   a 1000-token sequence that takes H with a ragged last tile, and q/k/v
   that are strided views of one fused QKV tensor, as the model passes
   them; every backward twice, with equal dK/dV (also where the heads are
-  split over blocks).  F and G are timed at Llama-2-7B's, Falcon-7B's and
-  Gemma-7B's attention shapes.  The build's register, spill and shared
-  memory figures of every flash kernel are printed.
+  split over blocks) and, for H, equal dq.  F and G are timed at
+  Llama-2-7B's, Falcon-7B's and Gemma-7B's attention shapes, H at their
+  sequence-1000 steps (beside SDPA's backward, eager and device, and the
+  device time of each of H's passes from torch.profiler), D at Falcon's
+  decode and training rows (eager and as a CUDA graph replay, with its
+  plan).  The build's register, spill and shared memory figures of every
+  flash kernel are printed.
 
 Phase 2 starts the port's HTTP server through ``build_server`` with
 Llama-2-7B at full width (random bf16 weights from a seed), answers
@@ -76,13 +80,20 @@ the bf16 kernel variants (the fp32 checks through the fp32 ones).
 
 It prints, before its last line, the card's name and power limit, one
 JSON line with every kernel's numbers (``{"kernels": [...]}``), and as
-its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
+its last line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --measure [--sweep]
+
+builds the kernels and times only H and D (``h_and_d_times``), through
+the wrappers' public entry points; ``--sweep`` adds D under other plans
+and its wrapper's host work.  It prints one JSON line and no result.  Any failed check exits
 non-zero without that line; so does a run without a CUDA device or
 outside a checkout of the repo.  Long logs go to ``chiprun_out/``.
 """
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -395,10 +406,15 @@ def _time_paged(gen, pa, S, C, ctx, nh, g, d, quantized, sweep=False):
 
 
 def _log_times(label, t, library):
-    how = f" ({t['variant']}, {t['splits']} splits)" if "variant" in t else ""
-    device = (f" (device, CUDA graph replay: kernel {t['device_ms']:.4f} "
-              f"ms, library {t['library_device_ms']:.4f} ms)"
-              if "device_ms" in t else "")
+    how = (f" ({t['variant']}" + (f", {t['splits']} splits" if "splits" in t
+                                  else "") + ")" if "variant" in t else "")
+
+    def f4(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+
+    device = (f" (device: kernel {f4(t['device_ms'])}, library "
+              f"{f4(t.get('library_device_ms'))})" if "device_ms" in t
+              else "")
     log(f"  {label} {t['shape']}: kernel{how} {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, {library} {t['library_ms']:.4f} ms, bound "
         f"{t['bound_ms']:.5f} ms ({t['bound_by']}){device}")
@@ -473,6 +489,7 @@ def phase1(gen, results):
                  + 0.4).to(dt)
             b = (torch.randn(h, device="cuda", generator=gen) * 0.1).to(dt)
             y, mu, r = ln.layer_norm_fwd_kernel(x, s, b, 1e-5)
+            again = ln.layer_norm_fwd_kernel(x, s, b, 1e-5)
             y0, mu0, r0 = ln.layer_norm_fwd_plain(x, s, b, 1e-5)
             torch.cuda.synchronize()
             e = max((y.float() - y0.float()).abs().max().item(),
@@ -480,33 +497,21 @@ def phase1(gen, results):
                     (r - r0).abs().max().item())
             # fp32 at the tolerance of the CPU tests, 1e-5
             tol = TOL[tag] if tag == "bf16" else 1e-5
-            log(f"  layernorm {tag} n={n} h={h} mean={mean:g}: max_abs_err "
-                f"{e:.3g}")
+            plan = ln.plan(n, h, dt, _sm_count())
+            log(f"  layernorm {tag} n={n} h={h} mean={mean:g} (plan "
+                f"{plan}): max_abs_err {e:.3g}")
             check(e <= tol, f"layernorm {tag} n={n} h={h}: {e} > {tol}")
+            check(all(torch.equal(a_, b_) for a_, b_ in zip(again,
+                                                            (y, mu, r))),
+                  f"layernorm {tag} n={n} h={h}: the output changed "
+                  f"between two runs")
             err[tag] = max(err[tag], e)
-    times = {}
-    for n in (2048, 8):
-        h = 4544
-        x = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
-        s = torch.ones(h, device="cuda", dtype=torch.bfloat16)
-        b = torch.zeros(h, device="cuda", dtype=torch.bfloat16)
-        b_ms, b_by = bound(2 * n * h * 2 + 2 * h * 2 + 2 * n * 4, 8 * n * h,
-                           FP32_FLOPS)
-        times[n] = dict(
-            ms=time_ms(lambda: ln.layer_norm_fwd_kernel(x, s, b, 1e-5),
-                       iters=200),
-            plain_ms=time_ms(lambda: ln.layer_norm_fwd_plain(x, s, b, 1e-5),
-                             iters=50),
-            library_ms=time_ms(lambda: F.layer_norm(x, (h,), s, b, 1e-5),
-                               iters=200),
-            bound_ms=b_ms, bound_by=b_by, shape=f"x [{n}, {h}] bf16")
-        _log_times("layernorm (D)", times[n], "F.layer_norm")
+    # timed with H in h_and_d_times, at the end of phase 1
     results["layernorm"] = dict(
         name="layernorm_fwd", route="cuda",
         source="megatron_llm_torch/csrc/layernorm.cu",
         replaces="megatron_llm_tpu/ops/pallas/layernorm.py:50",
-        max_abs_err=err["bf16"], max_abs_err_fp32=err["fp32"],
-        decode_rows=times[8], **times[2048])
+        max_abs_err=err["bf16"], max_abs_err_fp32=err["fp32"])
 
     phase1_paged(gen, results)
 
@@ -1374,6 +1379,231 @@ def _time_attention_shape(gen, b, s, nh, ng, d):
     return res
 
 
+# H's kernels by name substring: its passes' device times come from
+# torch.profiler over the calls
+_H_PASSES = (("prep", "flash_bwd_prep"), ("dq", "flash_bwd_dq"),
+             ("dkv", "flash_bwd_kv"), ("sum", "flash_dkv_sum"))
+# H's timing shapes (b, s, nh, ng, d), causal, bf16: Llama-2-7B's
+# attention at the sequence-1000 step, Falcon-7B's, Gemma-7B's
+H_SHAPES = {"llama": (1, 1000, 32, 32, 128), "falcon": (1, 1000, 71, 1, 64),
+            "gemma": (1, 1000, 16, 16, 256)}
+# D's timing rows (Falcon-7B's width): decode and a training micro-batch
+D_SHAPES = ((8, 4544), (2048, 4544))
+
+
+def _device_ms_by_pass(run, calls, passes=_H_PASSES):
+    """Device ms a call of each of ``passes`` (name, kernel-name
+    substring), from torch.profiler over ``calls`` calls of ``run``, and
+    of all kernels under "all" (None where the profiler saw none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    ms = {name: 0.0 for name, _ in passes}
+    ms["all"] = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t = evt.self_device_time_total / 1e3 / calls
+        ms["all"] += t
+        for name, key in passes:
+            if key in evt.key:
+                ms[name] += t
+    if not ms["all"]:
+        return {name: None for name in ms}
+    return ms
+
+
+def h_and_d_times(gen):
+    """H (the two-pass flash backward) at H_SHAPES and D (the LayerNorm
+    forward) at D_SHAPES, bf16: eager ms (the host issuing the calls), the
+    device ms of H and its passes (torch.profiler) and of D (a CUDA graph
+    replayed), beside SDPA's backward on K/V expanded to the query heads
+    (eager and device) and F.layer_norm in the same process, and each
+    bound.  Calls only the wrappers' public entry points."""
+    import torch
+    import torch.nn.functional as F
+
+    from megatron_llm_torch.ops.kernels import flash_attention as fa
+    from megatron_llm_torch.ops.kernels import layernorm as ln
+
+    out = {"H": {}, "D": {}}
+    runs, libs = {}, {}
+    for name, (b, s, nh, ng, d) in H_SHAPES.items():
+        q, do = (torch.randn(b, s, nh, d, device="cuda",
+                             generator=gen).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn(b, s, ng, d, device="cuda",
+                            generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa.flash_attention_fwd_kernel(q, k, v, True, None, scale)
+        runs[name] = functools.partial(fa.flash_attention_bwd_kernel, q, k,
+                                       v, o, lse, do, True, None, scale)
+        qr, kr, vr = (t_.transpose(1, 2).expand(b, nh, s, d).contiguous()
+                      .requires_grad_(True) for t_ in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        sdpa = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+        libs[name] = functools.partial(torch.autograd.grad, sdpa,
+                                       (qr, kr, vr), dot, retain_graph=True)
+        b_ms, b_by = _attn_bound(b, s, nh, ng, d, None, True)
+        out["H"][name] = dict(
+            library_ms=time_ms(libs[name], iters=10),
+            ms=time_ms(runs[name], iters=10), bound_ms=b_ms, bound_by=b_by,
+            shape=f"b={b} s={s} nh={nh} g={ng} d={d} causal bf16")
+    for n, h in D_SHAPES:
+        x = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
+        sc = torch.ones(h, device="cuda", dtype=torch.bfloat16)
+        bi = torch.zeros(h, device="cuda", dtype=torch.bfloat16)
+        b_ms, b_by = bound(2 * n * h * 2 + 2 * h * 2 + 2 * n * 4, 8 * n * h,
+                           FP32_FLOPS)
+
+        def run():
+            return ln.layer_norm_fwd_kernel(x, sc, bi, 1e-5)
+
+        def lib():
+            return F.layer_norm(x, (h,), sc, bi, 1e-5)
+
+        row = dict(ms=time_ms(run, iters=200), device_ms=graph_ms(run),
+                   library_ms=time_ms(lib, iters=200),
+                   library_device_ms=graph_ms(lib), bound_ms=b_ms,
+                   bound_by=b_by, shape=f"x [{n}, {h}] bf16")
+        out["D"][n] = row
+        log(f"  D {row['shape']}: eager {row['ms']:.4f} ms, device "
+            f"{row['device_ms']:.4f} ms; F.layer_norm eager "
+            f"{row['library_ms']:.4f} ms, device "
+            f"{row['library_device_ms']:.4f} ms; bound {b_ms:.5f} ms "
+            f"({b_by})")
+    # the profiler last: SDPA and D are timed before it attaches
+    for name, run in runs.items():
+        row = out["H"][name]
+        passes = _device_ms_by_pass(run, 10)
+        row.update({f"{p}_device_ms": v_ for p, v_ in passes.items()
+                    if p != "all"}, device_ms=passes["all"],
+                   library_device_ms=_device_ms_by_pass(libs[name], 10,
+                                                        ())["all"])
+        log(f"  H {name} {row['shape']}: eager {row['ms']:.4f} ms; device "
+            "by pass: " + ", ".join(
+                f"{p} {v_:.4f}" if v_ is not None else f"{p} not measured"
+                for p, v_ in passes.items())
+            + f" ms; SDPA backward eager {row['library_ms']:.4f} ms, device "
+            + (f"{row['library_device_ms']:.4f}"
+               if row["library_device_ms"] is not None else "not measured")
+            + f" ms; bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+    del runs, libs
+    torch.cuda.empty_cache()
+    return out
+
+
+def d_plan_sweep(gen):
+    """D's device time (CUDA graph replay) under other plans than
+    ``plan``'s, bf16, at D_SHAPES: every (row_threads, vecs) that covers
+    the row with the fewest idle vectors, one row a block and more, with
+    a grid that covers all rows at once or a few blocks an SM."""
+    import torch
+
+    from megatron_llm_torch.ops.kernels import layernorm as ln
+
+    sm = _sm_count()
+    out = {}
+    for n, h in D_SHAPES:
+        x = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
+        one = torch.ones(h, device="cuda", dtype=torch.bfloat16)
+        nvec = h // 8
+        plans = []
+        for v in range(1, 9):
+            t = 32 * -(-nvec // (32 * v))
+            if t > ln.max_threads(v):
+                continue
+            for rows in (1, 2, 4, 8):
+                if t * rows > ln.max_threads(v) or (rows > 1 and n <= sm):
+                    continue
+                blocks = -(-n // rows)
+                for grid in sorted({blocks, min(blocks, sm),
+                                    min(blocks, 2 * sm),
+                                    min(blocks, 4 * sm)}):
+                    plans.append((t, v, rows, grid))
+        times = {p: graph_ms(functools.partial(
+            ln.layer_norm_fwd_kernel, x, one, one, 1e-5, force_plan=p))
+            for p in plans}
+        best = min(times, key=times.get)
+        out[n] = {str(p): ms for p, ms in times.items()}
+        log(f"  D plans, x [{n}, {h}] bf16, device ms: " + ", ".join(
+            f"{p}: {ms:.4f}" for p, ms in sorted(times.items(),
+                                                  key=lambda kv: kv[1])[:8])
+            + f"; plan() gives {ln.plan(n, h, torch.bfloat16, sm)}, best "
+            f"{best}")
+    return out
+
+
+def d_host_breakdown():
+    """Host microseconds a call (time.perf_counter over 2000 calls, the
+    queue never full: D's decode rows take 3 us of device time) of D's
+    wrapper at [8, 4544] bf16 and of its parts, beside F.layer_norm."""
+    import torch
+    import torch.nn.functional as F
+
+    from megatron_llm_torch.ops.kernels import build
+    from megatron_llm_torch.ops.kernels import layernorm as ln
+
+    n, h = 8, 4544
+    x = torch.randn(n, h, device="cuda").to(torch.bfloat16)
+    one = torch.ones(h, device="cuda", dtype=torch.bfloat16)
+    dev = x.device
+
+    sm = _sm_count()
+    st = torch.empty((2, n, 1), dtype=torch.float32, device=dev)
+    y = torch.empty_like(x)
+    p = ln.plan(n, h, torch.bfloat16, sm)
+    packed = ln._FWD_CALL.pack(
+        x.data_ptr(), one.data_ptr(), one.data_ptr(), y.data_ptr(),
+        st.data_ptr(), st.data_ptr() + 4 * n,
+        torch._C._cuda_getCurrentRawStream(0), n, h, 1, 1, *p, 1e-5)
+    entry = build.load_library().mlt_layernorm_fwd
+    parts = {
+        "wrapper": lambda: ln.layer_norm_fwd_kernel(x, one, one, 1e-5),
+        "F.layer_norm": lambda: F.layer_norm(x, (h,), one, one, 1e-5),
+        "empty_like(x)": lambda: torch.empty_like(x),
+        "torch.empty((2, n, 1), dtype, device)": lambda: torch.empty(
+            (2, n, 1), dtype=torch.float32, device=dev),
+        "x.new_empty((2, n, 1), dtype)": lambda: x.new_empty(
+            (2, n, 1), dtype=torch.float32),
+        "st[0], st[1]": lambda: (st[0], st[1]),
+        "st.unbind(0)": lambda: st.unbind(0),
+        "plan": lambda: ln.plan(n, h, torch.bfloat16, sm),
+        "build.sm_count(x.device)": lambda: build.sm_count(x.device),
+        "stream handle": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "pack": lambda: ln._FWD_CALL.pack(
+            1, 2, 3, 4, 5, 6, 7, n, h, 1, 1, *p, 1e-5),
+        "entry(packed) (the launch)": lambda: entry(packed),
+        "checks (contiguity, devices, pointers)": lambda: (
+            x.get_device(), one.get_device(), one.get_device(),
+            x.is_contiguous(), one.is_contiguous(), one.is_contiguous(),
+            x.data_ptr(), one.data_ptr(), one.data_ptr(), x.dim(),
+            one.dim(), x.shape),
+    }
+    out = {}
+    for name, fn in parts.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        out[name] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    log("  D host us a call, x [8, 4544] bf16: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
 def phase1_training(gen, results):
     import torch
     import torch.nn.functional as F
@@ -1570,6 +1800,10 @@ def phase1_training(gen, results):
                   and torch.equal(grads[2], again[2]),
                   f"flash backward {label} {tag}: dK/dV changed between two "
                   f"runs ({splits} head splits)")
+            # H writes each dq row from one block: the same bits again
+            check(kind == "G" or torch.equal(grads[0], again[0]),
+                  f"flash backward {label} {tag}: dq changed between two "
+                  f"runs")
             check(math.isfinite(e_f) and e_f <= TOL[tag],
                   f"flash forward {label} {tag}: {e_f} > {TOL[tag]}")
             check(math.isfinite(e_rel) and e_rel <= GRAD_TOL[tag],
@@ -1585,78 +1819,122 @@ def phase1_training(gen, results):
             del q, k, v, do, o, lse, o0, lse0, grads, again, ref
             torch.cuda.empty_cache()
 
-    # timing, bf16: F and G at the Llama training path's shape, H at the
-    # shape of its H step (sequence 1000); then F and G at the Falcon
-    # training path's shape (71 heads on one KV head of 64, 2048 tokens)
-    # and at Gemma-7B's attention shape (16 heads of 256, 4096 tokens);
-    # SDPA gets K/V expanded to the query heads beforehand
+    # timing, bf16: F and G at the Llama training path's shape, then at
+    # the Falcon training path's shape (71 heads on one KV head of 64,
+    # 2048 tokens) and at Gemma-7B's attention shape (16 heads of 256,
+    # 4096 tokens); SDPA gets K/V expanded to the query heads beforehand.
+    # H is timed in h_and_d_times, at the end of phase 1.
     other = {}
     for name, (b, s, nh, ng, d) in (("falcon_shape", (1, 2048, 71, 1, 64)),
                                     ("gemma_shape", (1, 4096, 16, 16, 256))):
         other[name] = _time_attention_shape(gen, b, s, nh, ng, d)
 
-    for kind, s in (("G", 4096), ("H", 1000)):
-        b, nh, d = 1, 32, 128
-        q, k, v, do = (torch.randn(b, s, nh, d, device="cuda",
-                                   generator=gen).to(torch.bfloat16)
-                       for _ in range(4))
+    b, s, nh, d = 1, 4096, 32, 128
+    q, k, v, do = (torch.randn(b, s, nh, d, device="cuda",
+                               generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    ms = time_ms(lambda: fa.flash_attention_fwd_kernel(
+        q, k, v, True, None, scale), iters=10)
+    plain_ms = time_ms(lambda: fa._reference_attention(
+        q, k, v, True, None, scale), iters=3, warmup=1)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=10)
+    b_ms, b_by = _attn_bound(b, s, nh, nh, d, None, False)
+    shape = f"b={b} s={s} nh=g={nh} d={d} causal bf16"
+    results["flash_fwd"] = dict(
+        name="flash_attention_fwd", route="cuda",
+        source="megatron_llm_torch/csrc/flash_attention.cu",
+        replaces="megatron_llm_tpu/ops/pallas/flash_attention.py:93",
+        max_abs_err=f_err["bf16"], max_abs_err_fp32=f_err["fp32"],
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, falcon_shape=other["falcon_shape"]["F"],
+        gemma_shape=other["gemma_shape"]["F"], shape=shape)
+    log(f"  flash forward (F) {shape}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by})")
+    o, lse = fa.flash_attention_fwd_kernel(q, k, v, True, None, scale)
+    ms = time_ms(lambda: fa.flash_attention_bwd_kernel(
+        q, k, v, o, lse, do, True, None, scale), iters=5)
+    plain_ms = time_ms(lambda: fa._reference_attention_bwd(
+        q, k, v, o, lse, do, True, None, scale), iters=2, warmup=1)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qr, kr, vr), dot, retain_graph=True), iters=5)
+    b_ms, b_by = _attn_bound(b, s, nh, nh, d, None, True)
+    results["flash_bwd_fused"] = dict(
+        name="flash_attention_bwd_fused", route="cuda",
+        source="megatron_llm_torch/csrc/flash_attention.cu",
+        replaces="megatron_llm_tpu/ops/pallas/flash_attention.py:345",
+        max_abs_err=b_err["G"]["bf16"][0], max_rel_err=b_err["G"]["bf16"][1],
+        max_abs_err_fp32=b_err["G"]["fp32"][0],
+        max_rel_err_fp32=b_err["G"]["fp32"][1],
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, falcon_shape=other["falcon_shape"]["G"],
+        gemma_shape=other["gemma_shape"]["G"], shape=shape)
+    log(f"  flash backward (G) {shape}: kernel {ms:.4f} ms (delta, the dq "
+        f"buffer and its cast included), plain {plain_ms:.4f} ms, SDPA "
+        f"backward {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    results["flash_bwd"] = dict(
+        name="flash_attention_bwd_two_pass", route="cuda",
+        source="megatron_llm_torch/csrc/flash_attention.cu",
+        replaces="megatron_llm_tpu/ops/pallas/flash_attention.py:213",
+        variant=fa.kernel_variant(torch.bfloat16, 128, "two_pass"),
+        max_abs_err=b_err["H"]["bf16"][0], max_rel_err=b_err["H"]["bf16"][1],
+        max_abs_err_fp32=b_err["H"]["fp32"][0],
+        max_rel_err_fp32=b_err["H"]["fp32"][1])
+    del q, k, v, do, qt, kt, vt, dot, o, lse, qr, kr, vr, out
+    torch.cuda.empty_cache()
+
+
+def phase1_h_and_d(gen, results):
+    """H and D timed at their main-path shapes (``h_and_d_times``), the
+    plain versions beside them, into the kernels' entries: H at Llama's
+    shape with Falcon's and Gemma-7B's beside it, each with the device
+    time of its passes; D at Falcon's training rows with the decode rows
+    beside them, each with its graph-replay device time and its plan."""
+    import torch
+
+    from megatron_llm_torch.ops.kernels import flash_attention as fa
+    from megatron_llm_torch.ops.kernels import layernorm as ln
+
+    hd = h_and_d_times(gen)
+    for name, row in hd["H"].items():
+        b, s, nh, ng, d = H_SHAPES[name]
+        q, do = (torch.randn(b, s, nh, d, device="cuda",
+                             generator=gen).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn(b, s, ng, d, device="cuda",
+                            generator=gen).to(torch.bfloat16)
+                for _ in range(2))
         scale = 1.0 / math.sqrt(d)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        dot = do.transpose(1, 2).contiguous()
-        if kind == "G":
-            ms = time_ms(lambda: fa.flash_attention_fwd_kernel(
-                q, k, v, True, None, scale), iters=10)
-            plain_ms = time_ms(lambda: fa._reference_attention(
-                q, k, v, True, None, scale), iters=3, warmup=1)
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), iters=10)
-            b_ms, b_by = _attn_bound(b, s, nh, nh, d, None, False)
-            results["flash_fwd"] = dict(
-                name="flash_attention_fwd", route="cuda",
-                source="megatron_llm_torch/csrc/flash_attention.cu",
-                replaces="megatron_llm_tpu/ops/pallas/flash_attention.py:93",
-                max_abs_err=f_err["bf16"], max_abs_err_fp32=f_err["fp32"],
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, falcon_shape=other["falcon_shape"]["F"],
-                gemma_shape=other["gemma_shape"]["F"],
-                shape=f"b={b} s={s} nh=g={nh} d={d} causal bf16")
-            log(f"  flash forward (F) {results['flash_fwd']['shape']}: "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-                f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-        o, lse = fa.flash_attention_fwd_kernel(q, k, v, True, None, scale)
-        ms = time_ms(lambda: fa.flash_attention_bwd_kernel(
-            q, k, v, o, lse, do, True, None, scale), iters=5)
-        plain_ms = time_ms(lambda: fa._reference_attention_bwd(
+        o, lse = fa._reference_attention(q, k, v, True, None, scale)
+        row["plain_ms"] = time_ms(lambda: fa._reference_attention_bwd(
             q, k, v, o, lse, do, True, None, scale), iters=2, warmup=1)
-        qr, kr, vr = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
-        out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
-        lib_ms = time_ms(lambda: torch.autograd.grad(
-            out, (qr, kr, vr), dot, retain_graph=True), iters=5)
-        b_ms, b_by = _attn_bound(b, s, nh, nh, d, None, True)
-        key = "flash_bwd_fused" if kind == "G" else "flash_bwd"
-        results[key] = dict(
-            name=("flash_attention_bwd_fused" if kind == "G"
-                  else "flash_attention_bwd_two_pass"),
-            route="cuda", source="megatron_llm_torch/csrc/flash_attention.cu",
-            replaces=("megatron_llm_tpu/ops/pallas/flash_attention.py:345"
-                      if kind == "G" else
-                      "megatron_llm_tpu/ops/pallas/flash_attention.py:213"),
-            max_abs_err=b_err[kind]["bf16"][0],
-            max_rel_err=b_err[kind]["bf16"][1],
-            max_abs_err_fp32=b_err[kind]["fp32"][0],
-            max_rel_err_fp32=b_err[kind]["fp32"][1],
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms,
-            shape=f"b={b} s={s} nh=g={nh} d={d} causal bf16")
-        if kind == "G":
-            results[key]["falcon_shape"] = other["falcon_shape"]["G"]
-            results[key]["gemma_shape"] = other["gemma_shape"]["G"]
-        log(f"  flash backward ({kind}) {results[key]['shape']}: kernel "
-            f"{ms:.4f} ms (delta, the dq buffer and its cast included), "
-            f"plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, "
-            f"bound {b_ms:.5f} ms ({b_by})")
-        del q, k, v, do, qt, kt, vt, dot, o, lse, qr, kr, vr, out
+        row["variant"] = fa.kernel_variant(torch.bfloat16, d, "two_pass")
+        del q, k, v, do, o, lse
         torch.cuda.empty_cache()
+    for n, row in hd["D"].items():
+        x = torch.randn(n, 4544, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        one = torch.ones(4544, device="cuda", dtype=torch.bfloat16)
+        row["plain_ms"] = time_ms(lambda: ln.layer_norm_fwd_plain(
+            x, one, one, 1e-5), iters=50)
+        row["plan"] = list(ln.plan(n, 4544, torch.bfloat16, _sm_count()))
+    results["flash_bwd"].update(hd["H"]["llama"],
+                                falcon_shape=hd["H"]["falcon"],
+                                gemma_shape=hd["H"]["gemma"])
+    results["layernorm"].update(hd["D"][2048], decode_rows=hd["D"][8])
+    for label, row in (("H, Llama", hd["H"]["llama"]),
+                       ("H, Falcon", hd["H"]["falcon"]),
+                       ("H, Gemma-7B", hd["H"]["gemma"])):
+        _log_times(f"flash backward ({label})", row, "SDPA backward")
+    for n in (2048, 8):
+        _log_times(f"layernorm (D, plan {hd['D'][n]['plan']})", hd["D"][n],
+                   "F.layer_norm")
 
 
 # ---------------------------------------------------------------------------
@@ -1713,7 +1991,8 @@ _KERNEL_GROUPS = (
     ("F flash forward", ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")),
     ("G/H flash backward", ("flash_bwd_kv_wgmma_kernel",
                             "flash_bwd_kv_mma_kernel", "flash_bwd_kv_kernel",
-                            "flash_bwd_dq_kernel", "flash_bwd_prep_kernel",
+                            "flash_bwd_dq_kernel", "flash_bwd_dq_wgmma_kernel",
+                            "flash_bwd_prep_kernel",
                             "flash_dkv_sum_kernel")),
     ("B/D norm forward", ("rmsnorm_fwd_kernel", "layernorm_fwd_kernel")),
     ("C/E norm backward", ("rmsnorm_bwd_kernel", "layernorm_bwd_kernel",
@@ -2126,7 +2405,19 @@ def _log_flash_build(build):
 
 # ---------------------------------------------------------------------------
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--measure", action="store_true",
+        help="build the kernels, time H and D at their main-path shapes "
+             "(h_and_d_times) and stop: no phase runs, no result line")
+    parser.add_argument(
+        "--sweep", action="store_true",
+        help="with --measure: also time D under other plans (d_plan_sweep)"
+             " and its wrapper's host work (d_host_breakdown)")
+    opts = parser.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -2170,11 +2461,23 @@ def main() -> int:
 
     kernels = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if opts.measure:
+        log(f"H and D times ({card})")
+        # the sweep first: h_and_d_times ends with the profiler attached
+        sweep = d_plan_sweep(gen) if opts.sweep else None
+        host = d_host_breakdown() if opts.sweep else None
+        res = {"card": card, **h_and_d_times(gen)}
+        if sweep is not None:
+            res.update(D_plans=sweep, D_host_us=host)
+        print(json.dumps(res), flush=True)
+        return 0
     t0 = time.perf_counter()
     log("phase 1: serving kernels vs plain versions")
     phase1(gen, kernels)
     log("phase 1: training kernels vs plain versions")
     phase1_training(gen, kernels)
+    log("phase 1: H and D timed at their main-path shapes")
+    phase1_h_and_d(gen, kernels)
     log(f"phase 1 passed in {time.perf_counter() - t0:.1f} s")
     serving, training = {}, {}
     for number, kind, family in ((2, "serving", "llama"),
@@ -2209,7 +2512,10 @@ def main() -> int:
     for n in names:
         check(kernels[n].get("launches", 0) > 0,
               f"{n} was not launched on its path")
-    line = {"kernels": [{k: kernels[n][k] for k in keys} for n in names]}
+    # and, where a row has them, its device times and its plan or variant
+    extra = ("device_ms", "dq_device_ms", "dkv_device_ms", "plan", "variant")
+    line = {"kernels": [{k: kernels[n][k] for k in keys + extra
+                         if k in keys or k in kernels[n]} for n in names]}
     with open(os.path.join(OUT_DIR, "chip_smoke_result.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "serving": serving,
                    "training": training}, f, indent=1)

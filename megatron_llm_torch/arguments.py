@@ -38,6 +38,12 @@ def build_parser(extra_args_provider: Optional[Callable] = None
                    choices=["learned_absolute", "rotary"])
     g.add_argument("--rope_scaling_factor", type=float, default=1.0)
     g.add_argument("--rope_theta", type=float, default=10000.0)
+    g.add_argument("--rope_llama3_scaling", type=float, nargs=4,
+                   default=None,
+                   metavar=("FACTOR", "LOW_FREQ", "HIGH_FREQ", "ORIG_MAX"),
+                   help="Llama-3.1 NTK-by-parts rope remap: factor "
+                        "low_freq_factor high_freq_factor "
+                        "original_max_position (e.g. 8 1 4 8192)")
     g.add_argument("--layernorm_epsilon", type=float, default=1e-5)
     g.add_argument("--use_rms_norm", action="store_true")
     g.add_argument("--use_post_ln", action="store_true")
@@ -45,6 +51,8 @@ def build_parser(extra_args_provider: Optional[Callable] = None
                    choices=[None, "liglu", "geglu", "reglu", "swiglu"])
     g.add_argument("--no_bias", action="store_false", dest="use_bias")
     g.add_argument("--use_bias", action="store_true", dest="use_bias")
+    g.add_argument("--apply_residual_connection_post_layernorm",
+                   action="store_true", dest="use_post_ln")
     g.add_argument("--parallel_attn", action="store_true")
     g.add_argument("--parallel_layernorm", action="store_true")
     g.add_argument("--sliding_window_size", type=int, default=None)
@@ -94,6 +102,7 @@ def build_parser(extra_args_provider: Optional[Callable] = None
     g = p.add_argument_group("initialization")
     g.add_argument("--seed", type=int, default=1234)
     g.add_argument("--init_method_std", type=float, default=0.02)
+    g.add_argument("--init_method_xavier_uniform", action="store_true")
 
     g = p.add_argument_group("learning rate")
     g.add_argument("--lr", type=float, default=None)
@@ -108,6 +117,10 @@ def build_parser(extra_args_provider: Optional[Callable] = None
     g = p.add_argument_group("mixed precision")
     g.add_argument("--fp16", action="store_true")
     g.add_argument("--bf16", action="store_true")
+    g.add_argument("--attention_softmax_in_fp32", action="store_true",
+                   default=True)
+    g.add_argument("--no_attention_softmax_in_fp32", action="store_false",
+                   dest="attention_softmax_in_fp32")
 
     g = p.add_argument_group("checkpointing, data, parallelism")
     g.add_argument("--save", type=str, default=None)

@@ -257,6 +257,8 @@ def transformer_config_from_args(args, model_name: Optional[str] = None
         position_embedding_type=args.position_embedding_type,
         rope_scaling_factor=args.rope_scaling_factor,
         rope_theta=args.rope_theta,
+        rope_llama3_scaling=(tuple(args.rope_llama3_scaling)
+                             if args.rope_llama3_scaling else None),
         tie_embed_logits=args.tie_embed_logits,
         normalization="rmsnorm" if args.use_rms_norm else "layernorm",
         layernorm_epsilon=args.layernorm_epsilon,
@@ -270,6 +272,8 @@ def transformer_config_from_args(args, model_name: Optional[str] = None
         hidden_dropout=args.hidden_dropout,
         attention_dropout=args.attention_dropout,
         init_method_std=args.init_method_std,
+        init_method_xavier_uniform=args.init_method_xavier_uniform,
+        attention_softmax_in_fp32=args.attention_softmax_in_fp32,
         params_dtype=args.params_dtype,
         compute_dtype="bf16" if args.bf16 else "fp16" if args.fp16 else "fp32",
         recompute_granularity=args.recompute_granularity,

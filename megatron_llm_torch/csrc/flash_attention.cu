@@ -9,8 +9,9 @@
 //      flash_bwd_kv_mma_kernel<256, true> (bf16, d 256),
 //      flash_bwd_kv_kernel<float, D, true> (fp32)
 //   H  `_bwd_dq_kernel` + `_bwd_dkv_kernel` (through `_bwd_call`):
-//      flash_bwd_dq_kernel, then flash_bwd_kv_mma_kernel<D, false> (bf16)
-//      or flash_bwd_kv_kernel<float, D, false> (fp32)
+//      flash_bwd_dq_wgmma_kernel<D>, then flash_bwd_kv_mma_kernel<D, false>
+//      (bf16), or flash_bwd_dq_kernel<float, D>, then
+//      flash_bwd_kv_kernel<float, D, false> (fp32)
 // Causal and sliding-window attention with GQA/MQA (k and v carry ng <= nh
 // heads), q [b, sq, nh, d], k and v [b, sk, ng, d] read in place through
 // their batch, sequence and head strides (the JAX wrapper transposes to
@@ -64,10 +65,24 @@
 // dK/dV stay deterministic.  flash_bwd_prep_kernel computes delta =
 // rowsum(dO * O) and zeroes the dq buffer first.
 //
-// H: a dQ pass (flash_bwd_dq_kernel, the shared-memory design of the
-// first port: wmma products between shared-memory tiles), then the
-// mma.sync dK/dV kernel without dQ.  Deterministic; taken when a length is
-// no multiple of 64.
+// H in bf16: a dQ pass (flash_bwd_dq_wgmma_kernel, replacing
+// `_bwd_dq_kernel`), then the mma.sync dK/dV kernel without dQ (replacing
+// `_bwd_dkv_kernel`); taken when a length is no multiple of 64.  The dQ
+// pass does three of the backward's five products (S, dP, dQ) over the
+// visible pairs, so it is bound by operations: 0.012 ms at s 1000, nh 32,
+// d 128, causal.  It is F's skeleton: a block owns 128 query rows (64 at
+// d 256) of one head, with Q and dO loaded once by TMA and 64-key tiles
+// of K and V streaming through a two-stage TMA ring kept by a producer
+// warpgroup; each consumer warpgroup owns 64 rows.  S = Q K^T and dP =
+// dO V^T are wgmma chains from shared memory, P and dS are formed in
+// registers (lse and delta of the thread's two rows stay in registers),
+// dS becomes the bf16 register A operand of dQ += dS K with K read
+// MN-major from the same ring stage, and dQ stays in fp32 registers
+// through the whole walk: nothing goes through shared memory but the TMA
+// tiles, and each dq row is written once, by one block (deterministic,
+// no atomics).  Rows and keys past the lengths arrive as TMA's zero fill
+// and are masked; stores past sq are skipped.  At d 256 one consumer
+// warpgroup holds dQ's 128 registers a thread.
 //
 // fp32 inputs (the checking path) keep CUDA-core products between
 // shared-memory tiles (the generic kernels below), with tiles small enough
@@ -77,15 +92,11 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <mma.h>
-#include <type_traits>
-
 #include "common.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;
@@ -172,20 +183,17 @@ __device__ __forceinline__ void store_dkv2(const Args& a, int bb, int g,
 }
 
 // --------------------------------------------------------------------------
-// Generic shared-memory kernels: every fp32 pass, and H's dQ pass in bf16.
-// Products between shared-memory tiles over 4 warps (wmma for bf16, CUDA
-// cores for fp32, so the fp32 path keeps full fp32 precision).
+// Generic shared-memory kernels: every fp32 pass (the checking path).
+// Products between shared-memory tiles over 4 warps on CUDA cores, so the
+// fp32 path keeps full fp32 precision.
 // --------------------------------------------------------------------------
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
-// tile shape per element type and head_dim, small enough that every
-// kernel's tiles fit the 227 KB of shared memory at d = 256
+// tile shape per element type and head_dim (fp32 only), small enough that
+// every kernel's tiles fit the 227 KB of shared memory at d = 256
 template <typename T, int D> struct Tile;
-template <int D> struct Tile<bf16, D> {
-  static constexpr int kBr = D == 256 ? 32 : 64, kBc = kBr, kPad = 8;
-};
 template <int D> struct Tile<float, D> {
   static constexpr int kBr = D == 256 ? 16 : 32, kBc = kBr, kPad = 4;
 };
@@ -232,44 +240,6 @@ struct Carver {
 //   B_T false: B is [K][N]; true: B is stored [N][K] (B^T is used)
 template <typename T, int M, int N, int K, bool A_T, bool B_T, bool ACC>
 struct TileMM;
-
-// bf16: tensor cores, one 16x16 output tile per warp at a time
-template <int M, int N, int K, bool A_T, bool B_T, bool ACC>
-struct TileMM<bf16, M, N, K, A_T, B_T, ACC> {
-  static __device__ __forceinline__ void run(float* C, int ldc,
-                                             const bf16* A, int lda,
-                                             const bf16* B, int ldb) {
-    using ALayout = typename std::conditional<A_T, wmma::col_major,
-                                              wmma::row_major>::type;
-    using BLayout = typename std::conditional<B_T, wmma::col_major,
-                                              wmma::row_major>::type;
-    constexpr int TM = M / 16, TN = N / 16;
-    const int warp = threadIdx.x >> 5;
-    for (int t = warp; t < TM * TN; t += kWarps) {
-      const int i = t / TN, j = t % TN;
-      float* c = C + i * 16 * ldc + j * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      if constexpr (ACC) {
-        wmma::load_matrix_sync(acc, c, ldc, wmma::mem_row_major);
-      } else {
-        wmma::fill_fragment(acc, 0.f);
-      }
-#pragma unroll
-      for (int kk = 0; kk < K / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb;
-        const bf16* ap =
-            A_T ? A + kk * 16 * lda + i * 16 : A + i * 16 * lda + kk * 16;
-        const bf16* bp =
-            B_T ? B + j * 16 * ldb + kk * 16 : B + kk * 16 * ldb + j * 16;
-        wmma::load_matrix_sync(fa, ap, lda);
-        wmma::load_matrix_sync(fb, bp, ldb);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(c, acc, ldc, wmma::mem_row_major);
-    }
-  }
-};
 
 // fp32: CUDA cores, one output element per thread at a time
 template <int M, int N, int K, bool A_T, bool B_T, bool ACC>
@@ -1328,6 +1298,199 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
 }
 
 // --------------------------------------------------------------------------
+// H's dQ pass, bf16: warp-specialised wgmma + TMA
+// --------------------------------------------------------------------------
+
+// kCons consumer warpgroups of 64 query rows each, and a producer
+// warpgroup; 64-key tiles of K and V stream through a two-stage ring
+template <int D> struct DqTile {
+  static constexpr int kCons = D == 256 ? 1 : 2;
+  static constexpr int kBr = 64 * kCons;           // queries of a q-tile
+  static constexpr int kBc = 64;
+  static constexpr int kStages = 2;
+  static constexpr int kAtoms = D / 64;
+  static constexpr int kThreads = 128 * (kCons + 1);
+  static constexpr uint32_t kQBytes = kBr * D * 2;   // Q or dO
+  static constexpr uint32_t kKvBytes = kBc * D * 2;  // K or V, a stage
+  // Q, dO, the K and V ring, barriers, and slack to align to 1024
+  static constexpr size_t kSmem = 1024 + 2 * kQBytes
+                                  + 2 * kStages * kKvBytes
+                                  + 8 * (1 + 2 * kStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqTile<D>::kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
+                          const Args a) {
+  using C = DqTile<D>;
+  constexpr int Br = C::kBr, Bc = C::kBc, S = C::kStages;
+  constexpr int kAtomQ = Br * 64, kAtomKv = Bc * 64;  // elements
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(base);                // [atom][Br][64]
+  bf16* dOs = Qs + C::kAtoms * kAtomQ;
+  bf16* Ks = dOs + C::kAtoms * kAtomQ;                     // [S][atom][Bc][64]
+  bf16* Vs = Ks + S * C::kAtoms * kAtomKv;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + S * C::kAtoms
+                                                 * kAtomKv);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + S;
+
+  const int nqt = (a.sq + Br - 1) / Br;
+  const int q0 = (nqt - 1 - (int)blockIdx.z) * Br;  // heaviest tiles first
+  const int h = blockIdx.x, bb = blockIdx.y;
+  const int g = h / (a.nh / a.ng);
+  int kt_lo, kt_hi;
+  k_tile_range(a, q0, Br, Bc, &kt_lo, &kt_hi);
+  const int n_tiles = max(0, kt_hi - kt_lo + 1);
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&kv_full[s], 1);
+      sm90::mbar_init(&kv_empty[s], 4 * C::kCons);  // each consumer warp
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * C::kCons) {
+    // producer: one thread loads Q and dO, then keeps the K/V ring filled
+    if constexpr (C::kCons > 1) sm90::reg_dealloc<24>();
+    if (threadIdx.x == 128 * C::kCons) {
+      sm90::mbar_expect_tx(q_full, 2 * C::kQBytes);
+      for (int at = 0; at < C::kAtoms; ++at) {
+        sm90::tma_load_4d(Qs + at * kAtomQ, &maps.q, q_full, at * 64, q0, h,
+                          bb);
+        sm90::tma_load_4d(dOs + at * kAtomQ, &maps.dout, q_full, at * 64,
+                          q0, h, bb);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % S;
+        const int k0 = (kt_lo + it) * Bc;
+        sm90::mbar_wait(&kv_empty[s], ((it / S) & 1) ^ 1);
+        sm90::mbar_expect_tx(&kv_full[s], 2 * C::kKvBytes);
+        for (int at = 0; at < C::kAtoms; ++at) {
+          sm90::tma_load_4d(Ks + (s * C::kAtoms + at) * kAtomKv, &maps.k,
+                            &kv_full[s], at * 64, k0, g, bb);
+          sm90::tma_load_4d(Vs + (s * C::kAtoms + at) * kAtomKv, &maps.v,
+                            &kv_full[s], at * 64, k0, g, bb);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows [q0 + 64 wg, q0 + 64 wg + 64)
+    if constexpr (C::kCons > 1) sm90::reg_alloc<240>();
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int qw0 = q0 + 64 * wg;
+    const int row0 = qw0 + 16 * warp + lane / 4;  // rows row0, row0 + 8
+    const float sl = a.scale * kLog2e;
+    // this thread's rows' lse (times log2 e) and delta; 0 past sq, where
+    // every pair is masked
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const long long off = ((long long)bb * a.nh + h) * a.sq + row;
+      lse2[r] = row < a.sq ? a.lse[off] * kLog2e : 0.f;
+      dl[r] = row < a.sq ? a.delta[off] : 0.f;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    sm90::mbar_wait(q_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % S;
+      const int k0 = (kt_lo + it) * Bc;
+      const bf16* Kt = Ks + s * C::kAtoms * kAtomKv;
+      const bf16* Vt = Vs + s * C::kAtoms * kAtomKv;
+      sm90::mbar_wait(&kv_full[s], (it / S) & 1);
+      // a tile that no pair of this warpgroup's rows sees (rows past sq,
+      // the block's causal diagonal beyond them, or keys the window left
+      // behind): no products, but the stage is still waited for and
+      // released, so the ring's phases stay in step
+      const bool none = qw0 >= a.sq || (a.causal && k0 > qw0 + 63)
+                        || (a.window > 0 && k0 + Bc - 1 <= qw0 - a.window);
+      if (!none) {
+        // S = Q K^T and dP = dO V^T (K and V K-major from the ring)
+        float sc[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int off_q = (kk / 4) * kAtomQ + wg * 64 * 64 + (kk % 4) * 16;
+          const int off_kv = (kk / 4) * kAtomKv + (kk % 4) * 16;
+          sm90::Wgmma<64>::ss(sc, sm90::desc_sw128(Qs + off_q, 16, 1024),
+                              sm90::desc_sw128(Kt + off_kv, 16, 1024),
+                              kk > 0);
+          sm90::Wgmma<64>::ss(dp, sm90::desc_sw128(dOs + off_q, 16, 1024),
+                              sm90::desc_sw128(Vt + off_kv, 16, 1024),
+                              kk > 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sc);
+        sm90::fence_regs(dp);
+
+        // P = exp(S scale - lse) where visible, dS = P (dP - delta);
+        // element i is row row0 + 8 ((i >> 1) & 1), key k0 + 8 (i >> 2)
+        // + 2 (lane % 4) + (i & 1)
+        const bool need = tile_needs_mask(a, qw0, 64, k0, Bc);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          float p = exp2f(fmaf(sc[i], sl, -lse2[r]));
+          if (need && !visible(row0 + 8 * r,
+                               k0 + 8 * (i >> 2) + 2 * (lane % 4) + (i & 1),
+                               a))
+            p = 0.f;
+          dp[i] = p * (dp[i] - dl[r]);
+        }
+        // dS as the m64k16 A fragments of dQ += dS K
+        uint32_t da[Bc / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < Bc / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            da[kk][r] = sm90::pack_bf16(dp[8 * kk + 2 * r],
+                                        dp[8 * kk + 2 * r + 1]);
+
+        // dQ += dS K, K MN-major from the ring
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < Bc / 16; ++kk)
+          sm90::Wgmma<D>::rs(dq, da[kk],
+                             sm90::desc_sw128(Kt + kk * 16 * 64, Bc * 128,
+                                              1024), 1);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dq);
+      }
+      if (lane == 0) sm90::mbar_arrive(&kv_empty[s]);
+    }
+
+    // dq = scale * sum dS K, in bf16; rows past sq are not stored
+    bf16* dqp = static_cast<bf16*>(a.dq) + (long long)bb * a.sq * a.nh * D
+                + h * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < a.sq) {
+        uint32_t* dst =
+            reinterpret_cast<uint32_t*>(dqp + (long long)row * a.nh * D);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          dst[4 * j + lane % 4] =
+              sm90::pack_bf16(dq[4 * j + 2 * r] * a.scale,
+                              dq[4 * j + 2 * r + 1] * a.scale);
+      }
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
 // launchers
 // --------------------------------------------------------------------------
 
@@ -1424,6 +1587,24 @@ cudaError_t bwd_fused_wgmma(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t bwd_dq_wgmma(const Args& a, cudaStream_t st) {
+  using C = DqTile<D>;
+  BwdMaps maps;
+  if (!encode_map(&maps.q, a.q, D, a.sq, a.nh, a.b, a.qs, C::kBr) ||
+      !encode_map(&maps.dout, a.dout, D, a.sq, a.nh, a.b, a.ds, C::kBr) ||
+      !encode_map(&maps.k, a.k, D, a.sk, a.ng, a.b, a.ks, C::kBc) ||
+      !encode_map(&maps.v, a.v, D, a.sk, a.ng, a.b, a.vs, C::kBc))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_bwd_dq_wgmma_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.nh, a.b, (a.sq + C::kBr - 1) / C::kBr);
+  kernel<<<grid, C::kThreads, C::kSmem, st>>>(maps, a);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t bwd_prep(const Args& a, bool zero_dq, cudaStream_t st) {
   const long long rows = (long long)a.b * a.sq * a.nh;
@@ -1455,10 +1636,7 @@ cudaError_t run_bf16(const Args& a, int pass, cudaStream_t st) {
       e = launch(flash_bwd_kv_mma_kernel<D, true>, kv_grid, B::kThreads,
                  B::kSmem, st, a);
   } else {
-    using G = Geo<bf16, D>;
-    const dim3 dq_grid((a.sq + G::Br - 1) / G::Br, a.nh, a.b);
-    e = launch(flash_bwd_dq_kernel<bf16, D>, dq_grid, kThreads, G::kBwdDq,
-               st, a);
+    e = bwd_dq_wgmma<D>(a, st);
     if (e != cudaSuccess) return e;
     e = launch(flash_bwd_kv_mma_kernel<D, false>, kv_grid, B::kThreads,
                B::kSmem, st, a);
@@ -1546,8 +1724,8 @@ extern "C" int mlt_flash_tiles(int dtype, int d, int* out) {
   if (dtype == mlt::kBFloat16) {
     const int small = d == 256;
     const int g_keys = d == 64 ? 128 : small ? 32 : 64;
-    const int v[8] = {128, small ? 64 : 128, 64, g_keys, small ? 32 : 64,
-                      small ? 32 : 64, 64, small ? 32 : 64};
+    const int v[8] = {128, small ? 64 : 128, 64, g_keys, small ? 64 : 128,
+                      64, 64, small ? 32 : 64};
     for (int i = 0; i < 8; ++i) out[i] = v[i];
     return 0;
   }
@@ -1574,8 +1752,8 @@ extern "C" int mlt_flash_smem(int dtype, int d, long long* out) {
     out[1] = d == 64 ? BwdWgTile<64>::kSmem
              : d == 128 ? BwdWgTile<128>::kSmem : kv;
     out[3] = kv;
-    out[2] = d == 64 ? Geo<bf16, 64>::kBwdDq
-             : d == 128 ? Geo<bf16, 128>::kBwdDq : Geo<bf16, 256>::kBwdDq;
+    out[2] = d == 64 ? DqTile<64>::kSmem
+             : d == 128 ? DqTile<128>::kSmem : DqTile<256>::kSmem;
     return 0;
   }
   if (dtype == mlt::kFloat32 && (d == 64 || d == 128 || d == 256)) {

@@ -47,8 +47,8 @@ _SIGNATURES = {
                         _c_int, _c_int, _ptr],
     "mlt_rmsnorm_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int,
                         _c_int, _c_int, _c_int, _c_int, _c_int, _ptr],
-    "mlt_layernorm_fwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
-                          _c_float, _c_int, _c_int, _ptr],
+    # one packed LnFwdCall (csrc/layernorm.cu; ops/kernels/layernorm.py)
+    "mlt_layernorm_fwd": [ctypes.c_char_p],
     "mlt_layernorm_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                           _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
                           _ptr],

@@ -20,10 +20,10 @@ forward.  A CUDA tensor launches the kernels or raises.  A row that no
 key reaches gives o = 0 and lse = NEG_INF, and a zero gradient.
 
 The kernel variant is chosen by dtype and head_dim alone
-(``kernel_variant``): bf16 takes the Hopper kernels (F, and G at d 64
-and 128, on wgmma with a TMA ring; G at d 256 and H's dK/dV pass on
-mma.sync with a cp.async ring), fp32 the CUDA-core kernels of the
-checking path.  At MQA/GQA shapes the
+(``kernel_variant``): bf16 takes the Hopper kernels (F, G at d 64 and
+128, and H's dQ pass, on wgmma with a TMA ring; G at d 256 and H's dK/dV
+pass on mma.sync with a cp.async ring), fp32 the CUDA-core kernels of
+the checking path.  At MQA/GQA shapes the
 backward splits each KV group's query heads over blocks
 (``head_splits``) and sums the splits' fp32 partial dK/dV in a fixed
 order.
@@ -52,9 +52,9 @@ HEAD_DIMS = (64, 128, 256)
 # memory fits the card's 227 KB at its head_dim); the backward's head
 # split reads the k-tile of its dK/dV kernel.
 TILES = {
-    (torch.bfloat16, 64): ((128, 128), (64, 128), (64, 64), (64, 64)),
-    (torch.bfloat16, 128): ((128, 128), (64, 64), (64, 64), (64, 64)),
-    (torch.bfloat16, 256): ((128, 64), (64, 32), (32, 32), (64, 32)),
+    (torch.bfloat16, 64): ((128, 128), (64, 128), (128, 64), (64, 64)),
+    (torch.bfloat16, 128): ((128, 128), (64, 64), (128, 64), (64, 64)),
+    (torch.bfloat16, 256): ((128, 64), (64, 32), (64, 64), (64, 32)),
     (torch.float32, 64): ((32, 32),) * 4,
     (torch.float32, 128): ((32, 32),) * 4,
     (torch.float32, 256): ((16, 16),) * 4,
@@ -83,8 +83,9 @@ def kernel_variant(dtype: torch.dtype, d: int, kind: str) -> str:
     * bf16: "fwd_bf16_wgmma" (F: wgmma, TMA ring, warp-specialised);
       "bwd_fused_bf16_wgmma" (G at d 64 and 128: wgmma, TMA ring, dK/dV
       in registers) or "bwd_fused_bf16_mma" (G at d 256: mma.sync,
-      cp.async ring, dK/dV in registers); "bwd_two_pass_bf16" (H: the
-      shared-memory dQ pass, then the mma.sync dK/dV kernel);
+      cp.async ring, dK/dV in registers); "bwd_two_pass_bf16_wgmma" (H:
+      the dQ pass on wgmma with a TMA ring and dQ in registers, then the
+      mma.sync dK/dV kernel);
     * fp32: "fwd_fp32", "bwd_fused_fp32", "bwd_two_pass_fp32" (CUDA-core
       products between shared-memory tiles).
 
@@ -103,7 +104,7 @@ def kernel_variant(dtype: torch.dtype, d: int, kind: str) -> str:
         if tag == "fp32":
             return "bwd_fused_fp32"
         return "bwd_fused_bf16_" + ("mma" if d == 256 else "wgmma")
-    return f"bwd_two_pass_{tag}"
+    return f"bwd_two_pass_{tag}" + ("_wgmma" if tag == "bf16" else "")
 
 
 def head_splits(b: int, sk: int, ng: int, qpg: int, block_k: int,
@@ -176,6 +177,66 @@ def _reference_attention_bwd(q, k, v, o, lse, do, causal, sliding_window,
     dv = torch.einsum("bgpst,bsgpd->btgd", p, dog)
     return (dq.reshape(b, sq, nh, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def _k_tile_range(sk: int, q0: int, br: int, bc: int, causal: bool,
+                  window: Optional[int]) -> Tuple[int, int]:
+    """First and last k-tile of ``bc`` keys that the causal band and the
+    window let the q-tile of ``br`` rows at ``q0`` reach (the kernels'
+    ``k_tile_range``)."""
+    lo, hi = 0, (sk - 1) // bc
+    if causal:
+        hi = min(hi, (q0 + br - 1) // bc)
+    if window is not None:
+        lo = max(0, q0 - window + 1) // bc
+    return lo, hi
+
+
+def _dq_walk(sq: int, sk: int, d: int, causal: bool,
+             window: Optional[int]):
+    """H's bf16 dQ pass as its blocks walk it: (q0, q1, k-tiles) for each
+    q-tile of rows [q0, q1), with its tile from ``TILES`` (the last tile
+    ragged)."""
+    br, bc = TILES[(torch.bfloat16, d)][2]
+    walk = []
+    for q0 in range(0, sq, br):
+        lo, hi = _k_tile_range(sk, q0, br, bc, causal, window)
+        walk.append((q0, min(q0 + br, sq),
+                     [(k0, min(k0 + bc, sk))
+                      for k0 in range(lo * bc, (hi + 1) * bc, bc)]))
+    return walk
+
+
+def _reference_dq_tiles(q, k, v, o, lse, do, causal, window,
+                        softmax_scale):
+    """Plain dq in fp32 along the dQ pass's walk (``_dq_walk``): for each
+    q-tile, p = exp(s * scale - lse) over the visible pairs of each k-tile
+    it reaches, ds = p * (dp - delta), dq = scale * sum ds k; a row no key
+    reaches keeps dq = 0.  Returns dq in q's dtype."""
+    b, sq, nh, d = q.shape
+    sk, ng = k.shape[1], k.shape[2]
+    qpg = nh // ng
+    qf, dof = q.float(), do.float()
+    kf, vf = k.float(), v.float()
+    delta = (dof * o.float()).sum(-1)                            # [b, sq, nh]
+    dq = torch.zeros((b, sq, nh, d), dtype=torch.float32, device=q.device)
+    for q0, q1, ktiles in _dq_walk(sq, sk, d, causal, window):
+        qg = qf[:, q0:q1].reshape(b, q1 - q0, ng, qpg, d)
+        dog = dof[:, q0:q1].reshape(b, q1 - q0, ng, qpg, d)
+        lse_t = lse[:, :, q0:q1].reshape(b, ng, qpg, q1 - q0, 1)
+        dl = delta[:, q0:q1].reshape(b, q1 - q0, ng, qpg)
+        dl = dl.permute(0, 2, 3, 1)[..., None]
+        acc = torch.zeros_like(qg)
+        for k0, k1 in ktiles:
+            vis = _visible(sq, sk, causal, window, q.device)[q0:q1, k0:k1]
+            s = torch.einsum("bsgpd,btgd->bgpst", qg, kf[:, k0:k1])
+            p = torch.where(vis, torch.exp(torch.where(
+                vis, s * softmax_scale - lse_t, 0.0)), 0.0)
+            dp = torch.einsum("bsgpd,btgd->bgpst", dog, vf[:, k0:k1])
+            ds = p * (dp - dl)
+            acc += torch.einsum("bgpst,btgd->bsgpd", ds, kf[:, k0:k1])
+        dq[:, q0:q1] = (acc * softmax_scale).reshape(b, q1 - q0, nh, d)
+    return dq.to(q.dtype)
 
 
 def _split_head_ranges(qpg: int, splits: int):

@@ -7,11 +7,18 @@ The counterpart of ``megatron_llm_tpu/ops/pallas/layernorm.py``: the forward
 ``torch.autograd.Function`` whose forward saves mu and rstd and whose
 backward reuses them.  A CPU tensor takes the plain versions; a CUDA
 tensor launches the kernels or raises.
+
+D keeps each row in registers, split over ``row_threads`` threads of
+``vecs`` 16-byte vectors each; ``plan(n, h, dtype, sm_count)`` picks
+(row_threads, vecs, rows_per_block, grid) for a call, and the kernel
+takes the plan as given.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+import struct
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,12 +27,69 @@ from megatron_llm_torch.ops.kernels import build
 # kernel launches since the last reset (plain counts; chip_smoke.py zeroes
 # them before driving a path and reads them after).  One backward launch
 # is one call of kernel E, which runs its two passes (dx with per-block
-# dgamma/dbeta partials, then the column sum).
+# dgamma/dbeta partials, then the column sum).  ``plan_launches`` counts
+# D's launches by plan (row_threads, vecs, rows_per_block, grid).
 launches = 0
 bwd_launches = 0
+plan_launches: dict = {}
 # most row-blocks of the backward's first pass (each writes one row of
 # partial dgamma and dbeta sums): about two per SM of an H100
 _BWD_MAX_BLOCKS = 256
+
+
+# D's limits: 16-byte vectors a thread, threads a block
+MAX_VECS = 8
+MAX_THREADS = 1024
+
+
+def max_threads(vecs: int) -> int:
+    """Most threads a block of D takes at ``vecs`` vectors a thread (the
+    kernel's launch bounds: beyond 4 vectors a thread needs more than the
+    64 registers a 1024-thread block leaves)."""
+    return MAX_THREADS if vecs <= 4 else MAX_THREADS // 2
+
+
+# threads a row that decode rows (at most one a block) and training rows
+# aim for; threads a training-rows block (rows side by side); blocks an SM
+# of a training-rows grid (a block then walks further rows, keeping gamma
+# and beta).  The values that timed best at Falcon-7B's 4544 columns on
+# the H100 (chip_smoke.py --measure --sweep; PERF.md, PR 6).
+_DECODE_ROW_THREADS = 256
+_TRAIN_ROW_THREADS = 128
+_TRAIN_BLOCK_THREADS = 512
+_TRAIN_BLOCKS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(n: int, h: int, dtype: torch.dtype, sm_count: int = 132
+         ) -> Tuple[int, int, int, int]:
+    """(row_threads, vecs, rows_per_block, grid) of kernel D on [n, h]
+    rows of ``dtype``: a row's h / (16 / itemsize) vectors are spread over
+    row_threads threads (a multiple of 32) of vecs vectors each, vector v
+    on thread v % row_threads.  Of the pairs that cover the row, decode
+    rows (n at most the SM count) take the one whose row_threads is
+    nearest 256, one row a block; training rows the one nearest 128 (four
+    warps a row), several rows to a block of about 512 threads, two
+    blocks an SM.  Ties go to fewer idle vectors."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    if h % vec:
+        raise ValueError(f"layernorm needs h % {vec} == 0, got h = {h}")
+    nvec = h // vec
+    cands = []
+    for v in range(1, MAX_VECS + 1):
+        t = 32 * -(-nvec // (32 * v))
+        if t <= max_threads(v):
+            cands.append((t, v))
+    if not cands:
+        raise ValueError(f"layernorm rows of {h} {dtype} exceed one block's "
+                         f"{MAX_THREADS} threads x {MAX_VECS} vectors")
+    decode = n <= sm_count
+    target = _DECODE_ROW_THREADS if decode else _TRAIN_ROW_THREADS
+    t, v = min(cands, key=lambda c: (abs(c[0] - target), c[0] * c[1]))
+    if decode:
+        return t, v, 1, max(n, 1)
+    rows = max(1, min(_TRAIN_BLOCK_THREADS, max_threads(v)) // t)
+    return t, v, rows, min(-(-n // rows), _TRAIN_BLOCKS_PER_SM * sm_count)
 
 
 def layer_norm_fwd_plain(x2d: torch.Tensor, scale: torch.Tensor,
@@ -83,32 +147,82 @@ def _check_stat(t: torch.Tensor, n: int, name: str) -> None:
         raise ValueError(f"{name} must be the forward's [n, 1] fp32")
 
 
+# D's C entry takes one packed LnFwdCall (csrc/layernorm.cu): the seven
+# pointers x, gamma, beta, y, mu, rstd and the stream; n, h, the two dtype
+# codes and the plan (row_threads, vecs, rows_per_block, grid); eps
+_FWD_CALL = struct.Struct("=7Q8if")
+# (x dtype, parameter dtype) -> their codes, for the pairs D takes
+_FWD_CODES = {(x, p): (build.DTYPE_CODES[x], build.DTYPE_CODES[p])
+              for x, p in ((torch.bfloat16, torch.bfloat16),
+                           (torch.bfloat16, torch.float32),
+                           (torch.float32, torch.float32))}
+_fwd_entry = None
+
+
+def _fwd_fn():
+    """The library's forward entry, looked up once (no lock a call)."""
+    global _fwd_entry
+    if _fwd_entry is None:
+        _fwd_entry = build.load_library().mlt_layernorm_fwd
+    return _fwd_entry
+
+
 def layer_norm_fwd_kernel(x2d: torch.Tensor, scale: torch.Tensor,
-                          bias: torch.Tensor, eps: float
+                          bias: torch.Tensor, eps: float,
+                          force_plan: Optional[Tuple[int, int, int, int]]
+                          = None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch kernel D on [n, h] rows; returns (y, mu [n, 1], rstd [n, 1])."""
+    """Launch kernel D on [n, h] rows; returns (y, mu [n, 1], rstd [n, 1]),
+    mu and rstd the two rows of one [2, n, 1] fp32 tensor.
+    ``force_plan`` (row_threads, vecs, rows_per_block, grid) replaces
+    ``plan``'s (tests and sweeps).  Every check runs in one pass; a call
+    that fails one is refused by ``_refuse_fwd`` with the reason."""
     global launches
-    x_code, p_code = _check(x2d, scale)
+    codes = _FWD_CODES.get((x2d.dtype, scale.dtype))
+    dev = x2d.get_device()
+    if (codes is None or dev < 0 or x2d.dim() != 2 or scale.dim() != 1
+            or scale.get_device() != dev or bias.get_device() != dev
+            or bias.dtype != scale.dtype or bias.shape != scale.shape
+            or not (x2d.is_contiguous() and scale.is_contiguous()
+                    and bias.is_contiguous())):
+        _refuse_fwd(x2d, scale, bias)
+    n, h = x2d.shape
+    xp, sp, bp = x2d.data_ptr(), scale.data_ptr(), bias.data_ptr()
+    if (scale.shape[0] != h or h % (16 // x2d.element_size())
+            or (xp | sp | bp) % 16):
+        _refuse_fwd(x2d, scale, bias)
+    # mu and rstd: the two rows of one allocation (new_empty: less host
+    # work than torch.empty with a device argument)
+    y = torch.empty_like(x2d)
+    stats = x2d.new_empty((2, n, 1), dtype=torch.float32)
+    mu, rstd = stats[0], stats[1]
+    if n == 0:
+        return y, mu, rstd
+    p = force_plan or plan(n, h, x2d.dtype, build.sm_count(x2d.device))
+    sptr = stats.data_ptr()
+    rc = _fwd_fn()(_FWD_CALL.pack(
+        xp, sp, bp, y.data_ptr(), sptr, sptr + 4 * n,
+        torch._C._cuda_getCurrentRawStream(dev), n, h, codes[0], codes[1],
+        p[0], p[1], p[2], p[3], eps))
+    if rc:
+        build.check_rc(rc, "layernorm")
+    launches += 1
+    plan_launches[p] = plan_launches.get(p, 0) + 1
+    return y, mu, rstd
+
+
+def _refuse_fwd(x2d, scale, bias) -> None:
+    """Raise the error that says why D does not take these inputs."""
+    _check(x2d, scale)
     build.require_cuda(bias, "bias")
     if (bias.shape != scale.shape or bias.dtype != scale.dtype
             or bias.device != scale.device):
         raise ValueError(f"bias must match scale ({tuple(scale.shape)}, "
                          f"{scale.dtype}), got {tuple(bias.shape)}, "
                          f"{bias.dtype}")
-    n, h = x2d.shape
-    y = torch.empty_like(x2d)
-    mu = torch.empty((n, 1), dtype=torch.float32, device=x2d.device)
-    rstd = torch.empty((n, 1), dtype=torch.float32, device=x2d.device)
-    if n == 0:
-        return y, mu, rstd
-    lib = build.load_library()
-    rc = lib.mlt_layernorm_fwd(x2d.data_ptr(), scale.data_ptr(),
-                               bias.data_ptr(), y.data_ptr(), mu.data_ptr(),
-                               rstd.data_ptr(), n, h, float(eps), x_code,
-                               p_code, build.stream_handle(x2d))
-    build.check_rc(rc, "layernorm")
-    launches += 1
-    return y, mu, rstd
+    if (scale.data_ptr() | bias.data_ptr()) % 16:
+        raise ValueError("layernorm needs 16-byte aligned scale and bias")
+    raise ValueError("layernorm: inputs not taken")
 
 
 def layer_norm_bwd_kernel(x2d: torch.Tensor, scale: torch.Tensor,

@@ -1,0 +1,75 @@
+"""The port's CLI against the JAX package's: the four model flags of the
+JAX parser that the port's model implements (Llama-3.1 rope scaling, the
+post-LN alias, the Xavier init and the fp32 softmax toggle) parse in
+both, and lower into ``TransformerConfig``s that are equal on every
+field the two configs share."""
+
+import dataclasses
+
+import pytest
+
+from megatron_llm_tpu import arguments as jax_arguments
+from megatron_llm_torch import arguments
+from megatron_llm_torch.config import transformer_config_from_args
+
+# arguments both parsers need to lower a config
+BASE = ["--num_layers=2", "--hidden_size=64", "--num_attention_heads=4",
+        "--seq_length=32", "--max_position_embeddings=32",
+        "--micro_batch_size=1", "--global_batch_size=1",
+        "--padded_vocab_size=128",
+        "--position_embedding_type=rotary", "--use_rms_norm"]
+
+FLAG_ARGVS = [
+    ["--rope_llama3_scaling", "8", "1", "4", "8192"],
+    ["--apply_residual_connection_post_layernorm"],
+    ["--init_method_xavier_uniform"],
+    ["--no_attention_softmax_in_fp32"],
+]
+
+
+def _jax_config(argv):
+    args = jax_arguments.build_base_parser().parse_args(argv)
+    args = jax_arguments.validate_args(args, world_size=1)
+    return jax_arguments.transformer_config_from_args(args)
+
+
+def _torch_config(argv):
+    args = arguments.build_parser().parse_args(argv)
+    return transformer_config_from_args(arguments.validate_args(args))
+
+
+def _shared_fields(a, b):
+    names = ({f.name for f in dataclasses.fields(a)}
+             & {f.name for f in dataclasses.fields(b)})
+    return sorted(names)
+
+
+def _value(v):
+    # the position type is an enum of each package; compare by name
+    return getattr(v, "name", v)
+
+
+@pytest.mark.parametrize("flags", FLAG_ARGVS,
+                         ids=lambda f: f[0].lstrip("-"))
+def test_model_flags_lower_as_in_the_jax_package(flags):
+    argv = BASE + flags
+    want, got = _jax_config(argv), _torch_config(argv)
+    fields = _shared_fields(want, got)
+    assert len(fields) > 30
+    diff = {n: (_value(getattr(want, n)), _value(getattr(got, n)))
+            for n in fields
+            if _value(getattr(want, n)) != _value(getattr(got, n))}
+    assert diff == {}
+
+
+def test_each_flag_reaches_its_field():
+    rope = _torch_config(BASE + FLAG_ARGVS[0])
+    assert rope.rope_llama3_scaling == (8.0, 1.0, 4.0, 8192.0)
+    assert _torch_config(BASE).rope_llama3_scaling is None
+    assert _torch_config(BASE + FLAG_ARGVS[1]).use_post_ln is True
+    assert _torch_config(BASE + FLAG_ARGVS[2]).init_method_xavier_uniform
+    assert _torch_config(BASE).attention_softmax_in_fp32 is True
+    assert _torch_config(BASE + FLAG_ARGVS[3]).attention_softmax_in_fp32 \
+        is False
+    assert _torch_config(
+        BASE + ["--attention_softmax_in_fp32"]).attention_softmax_in_fp32

@@ -174,7 +174,7 @@ def test_dispatch_picks_the_variant_by_dtype_and_head_dim(d):
     assert tfa.kernel_variant(bf, d, "fwd") == "fwd_bf16_wgmma"
     assert tfa.kernel_variant(bf, d, "fused") == (
         "bwd_fused_bf16_mma" if d == 256 else "bwd_fused_bf16_wgmma")
-    assert tfa.kernel_variant(bf, d, "two_pass") == "bwd_two_pass_bf16"
+    assert tfa.kernel_variant(bf, d, "two_pass") == "bwd_two_pass_bf16_wgmma"
     assert tfa.kernel_variant(f32, d, "fwd") == "fwd_fp32"
     assert tfa.kernel_variant(f32, d, "fused") == "bwd_fused_fp32"
     assert tfa.kernel_variant(f32, d, "two_pass") == "bwd_two_pass_fp32"

@@ -235,6 +235,58 @@ def test_flash_kernels_match_plain(cuda, b, s, nh, ng, d, window, dtype):
         assert err <= tol * max(size, 1.0), (name, err, size)
 
 
+H_CASES = [  # (s, nh, ng, d, window, views): H's two passes
+    (1000, 32, 32, 128, None, False),   # Llama-2-7B's sequence-1000 step
+    (100, 4, 4, 64, None, False),       # one ragged tile of 100 rows
+    (1000, 32, 8, 128, 100, False),     # GQA with a window
+    (1000, 71, 1, 64, None, False),     # Falcon-7B's MQA heads
+    (1000, 71, 1, 64, None, True),      # ... as the model's fused QKV views
+    (1000, 16, 16, 256, None, False),   # Gemma-7B's heads of 256
+    (200, 8, 1, 256, 30, True),         # Gemma-2B's views with a window
+    (40, 4, 2, 128, None, True),        # shorter than one q-tile
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,nh,ng,d,window,views", H_CASES)
+def test_flash_two_pass_backward(cuda, s, nh, ng, d, window, views, dtype):
+    # H against its plain version, launched as its variant; dq, dk and dv
+    # are the same bits on a second run (each dq row is written by one
+    # block, dK/dV splits are summed in a fixed order)
+    gen = torch.Generator(device=cuda).manual_seed(s + nh + d)
+    if views:
+        qpg = nh // ng
+        mixed = torch.randn(1, s, ng, qpg + 2, d, device=cuda,
+                            generator=gen).to(dtype)
+        q = mixed[:, :, :, :qpg].reshape(1, s, nh, d)
+        k, v = mixed[:, :, :, qpg], mixed[:, :, :, qpg + 1]
+    else:
+        q = torch.randn(1, s, nh, d, device=cuda, generator=gen).to(dtype)
+        k, v = (torch.randn(1, s, ng, d, device=cuda, generator=gen)
+                .to(dtype) for _ in range(2))
+    do = torch.randn(1, s, nh, d, device=cuda, generator=gen).to(dtype)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa._reference_attention(q, k, v, True, window, scale)
+    assert not fa.uses_fused_backward(s, s)
+    before = dict(fa.variant_launches)
+    one = fa.flash_attention_bwd(q, k, v, o, lse, do, True, window, scale)
+    moved = {key: n for key, n in fa.variant_launches.items()
+             if n != before.get(key, 0)}
+    assert moved == {fa.kernel_variant(dtype, d, "two_pass"):
+                     before.get(fa.kernel_variant(dtype, d, "two_pass"), 0)
+                     + 1}
+    two = fa.flash_attention_bwd(q, k, v, o, lse, do, True, window, scale)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    ref = fa._reference_attention_bwd(q, k, v, o, lse, do, True, window,
+                                      scale)
+    tol = TOL[dtype]
+    for name, got, want in zip(("dq", "dk", "dv"), one, ref):
+        err = (got.float() - want.float()).abs().max().item()
+        size = want.float().abs().max().item()
+        assert err <= tol * max(size, 1.0), (name, err, size)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("s,nh,ng,window", [
     (256, 4, 4, None),              # G, q, k and v all views
@@ -342,6 +394,15 @@ def test_flash_tiles_match_the_kernels(cuda):
             assert lib.mlt_flash_tiles(code, d, out) == 0
             assert tuple(out) == tuple(x for pair in fa.TILES[(dtype, d)]
                                        for x in pair)
+            smem = (ctypes.c_longlong * 4)()
+            assert lib.mlt_flash_smem(code, d, smem) == 0
+            assert max(smem) <= 232448
+            if dtype == torch.bfloat16:
+                # H's dQ pass: Q and dO of its q-tile, a two-stage ring
+                # of K and V tiles, 5 mbarriers, 1024 bytes of alignment
+                br, bc = fa.TILES[(dtype, d)][2]
+                assert smem[2] == (1024 + 2 * br * d * 2
+                                   + 2 * 2 * bc * d * 2 + 8 * 5)
 
 
 def test_flash_rows_no_key_reaches(cuda):
@@ -605,6 +666,46 @@ def test_layernorm_kernels_match_plain(cuda, n, h, dtype):
     # the column sums are taken in a fixed order: the same bits every run
     again = ln.layer_norm_bwd(x, s, gy, mu0, rstd0)
     assert torch.equal(again[1], dg) and torch.equal(again[2], db)
+
+
+def _plans(h, dtype):
+    """Every (row_threads, vecs) D can take for rows of h, each with one
+    row a block and with several."""
+    nvec = h // (16 // torch.empty((), dtype=dtype).element_size())
+    out = []
+    for v in range(1, ln.MAX_VECS + 1):
+        t = 32 * -(-nvec // (32 * v))
+        if t <= ln.max_threads(v):
+            out += [(t, v, 1), (t, v, max(1, 256 // t))]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h", [(8, 4544), (300, 4544), (37, 768),
+                                 (64, 1600), (5, 128)])
+def test_layernorm_every_plan_matches_plain(cuda, n, h, dtype):
+    g = torch.Generator(device=cuda).manual_seed(n * h)
+    # fp32 rows with a large mean: the two-pass variance keeps 1e-5
+    mean = 30.0 if dtype == torch.float32 else 2.0
+    x = (torch.randn(n, h, device=cuda, generator=g) * 3 + mean).to(dtype)
+    s = (torch.rand(h, device=cuda, generator=g) * 0.4 + 0.4).to(dtype)
+    b = (torch.randn(h, device=cuda, generator=g) * 0.1).to(dtype)
+    y0, mu0, rstd0 = ln.layer_norm_fwd_plain(x, s, b, 1e-5)
+    tol = TOL[dtype] if dtype == torch.bfloat16 else 1e-5
+    for t, v, rows in _plans(h, dtype):
+        # a grid smaller than the rows: blocks walk several row groups
+        for grid in (-(-n // rows), max(1, n // (3 * rows))):
+            p = (t, v, rows, grid)
+            before = dict(ln.plan_launches)
+            y, mu, rstd = ln.layer_norm_fwd_kernel(x, s, b, 1e-5,
+                                                   force_plan=p)
+            assert ln.plan_launches[p] == before.get(p, 0) + 1
+            torch.testing.assert_close(y.float(), y0.float(), rtol=0,
+                                       atol=tol, msg=str(p))
+            torch.testing.assert_close(mu, mu0, rtol=0, atol=1e-5)
+            torch.testing.assert_close(rstd, rstd0, rtol=1e-5, atol=1e-6)
+            again = ln.layer_norm_fwd_kernel(x, s, b, 1e-5, force_plan=p)
+            assert torch.equal(again[0], y) and torch.equal(again[1], mu)
 
 
 def test_layernorm_fp32_keeps_1e5_on_rows_with_a_large_mean(cuda):
