@@ -23,7 +23,10 @@ bound:
   over;
 * B and C, the RMSNorm forward and backward, and D and E, the LayerNorm
   forward and backward: at decode, prefill and training rows of 4096 and
-  4544 columns and at odd shapes;
+  4544 columns and at odd shapes; B (one kernel with D) at every plan
+  its rows can take, forced grids included, with and without rstd, and E
+  at forced plans with its partial rows against their plain walk, each
+  run again with the same bits;
 * F, the flash-attention forward, and G and H, its fused and two-pass
   backward: at both models' training shapes (32 heads of 128 at 4096
   tokens; 71 heads on one KV head of 64 at 2048), at head_dim 256
@@ -35,9 +38,13 @@ bound:
   Llama-2-7B's, Falcon-7B's and Gemma-7B's attention shapes, H at their
   sequence-1000 steps (beside SDPA's backward, eager and device, and the
   device time of each of H's passes from torch.profiler), D at Falcon's
-  decode and training rows (eager and as a CUDA graph replay, with its
-  plan).  The build's register, spill and shared memory figures of every
-  flash kernel are printed.
+  decode and training rows and B at Llama's decode, prefill and training
+  rows (eager and as a CUDA graph replay, with their plans, beside
+  ``F.layer_norm`` and ``F.rms_norm``), B's serving call site, and E and
+  C at their training rows (with each pass's device time).  The build's
+  register, spill and shared memory figures of every flash kernel, and
+  the registers and spills of every norm kernel instantiation, are
+  printed.
 
 Phase 2 starts the port's HTTP server through ``build_server`` with
 Llama-2-7B at full width (random bf16 weights from a seed), answers
@@ -84,9 +91,11 @@ its last line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --measure [--sweep]
 
-builds the kernels and times only H and D (``h_and_d_times``), through
-the wrappers' public entry points; ``--sweep`` adds D under other plans
-and its wrapper's host work.  It prints one JSON line and no result.  Any failed check exits
+builds the kernels and times only B, C, D, E and H (``norm_times``,
+``h_and_d_times``, ``norm_profiles``) and B's wrapper's host work by
+part (``b_host_breakdown``), through the wrappers' public entry points;
+``--sweep`` adds B, D and E under other plans and D's wrapper's host
+work.  It prints one JSON line and no result.  Any failed check exits
 non-zero without that line; so does a run without a CUDA device or
 outside a checkout of the repo.  Long logs go to ``chiprun_out/``.
 """
@@ -252,6 +261,58 @@ def bound(nbytes: float, flops: float, flop_rate: float):
 # ---------------------------------------------------------------------------
 # phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def _fwd_plans(n, h, dtype, sm):
+    """Plans the norm forward (B, D) can take for [n, h] rows: every
+    (row_threads, vecs) that covers a row, with 1, 2, 4 or 8 rows a block
+    as its threads allow, each over a grid that covers the rows at once,
+    one of one, two or four blocks an SM (where the rows need more), and
+    one that walks the rows three times."""
+    from megatron_llm_torch.ops.kernels import norm_plan
+
+    nvec = h // (16 // _itemsize(dtype))
+    out = set()
+    for v in range(1, norm_plan.MAX_VECS + 1):
+        t = 32 * -(-nvec // (32 * v))
+        for rows in (1, 2, 4, 8):
+            if t * rows > norm_plan.max_threads(v):
+                continue
+            blocks = -(-n // rows)
+            for grid in {blocks, min(blocks, sm), min(blocks, 2 * sm),
+                         min(blocks, 4 * sm), -(-blocks // 3)}:
+                out.add((t, v, rows, grid))
+    return sorted(out)
+
+
+def _bwd_plans(n, h, dtype, sm):
+    """Plans E can take for [n, h] rows: every (row_threads, vecs) within
+    ``norm_plan.bwd_shape``'s threads, with one row a block and with as
+    many as its block holds, over a grid of one block an SM (or fewer
+    when the rows run out) and over one that walks the rows seven
+    times."""
+    from megatron_llm_torch.ops.kernels import norm_plan
+
+    vec = 16 // _itemsize(dtype)
+    nvec = h // vec
+    out = set()
+    for v in range(1, norm_plan.MAX_VECS + 1):
+        t = 32 * -(-nvec // (32 * v))
+        limit, _ = norm_plan.bwd_shape(v, vec)
+        if t > limit:
+            continue
+        for rows in {1, max(1, min(512, limit) // t)}:
+            blocks = -(-n // rows)
+            for grid in {min(blocks, sm), max(1, -(-blocks // 7))}:
+                out.add((t, v, rows, grid))
+    return sorted(out)
+
+
+def _itemsize(dtype):
+    import torch
+
+    return torch.empty((), dtype=dtype).element_size()
+
+
 
 def _paged_case(gen, S, C, nh, g, d, bs, M, ctx, dtype):
     """Pools with every slot's pages allocated in a shuffled order, and
@@ -425,7 +486,6 @@ def _log_times(label, t, library):
 
 def phase1(gen, results):
     import torch
-    import torch.nn.functional as F
 
     from megatron_llm_torch.ops.kernels import layernorm as ln
     from megatron_llm_torch.ops.kernels import paged_attention as pa
@@ -436,41 +496,45 @@ def phase1(gen, results):
 
     # -- kernel B: RMSNorm ------------------------------------------------
     # serving's decode and prefill rows, odd shapes, and the training
-    # path's mb * seq rows at sequences 4096 and 1000
+    # path's mb * seq rows at sequences 4096 and 1000: each at plan()'s
+    # plan and at every other plan the norm forward can take for the rows
+    # (forced grids included), each with rstd, without it (the no-grad
+    # path's call) and again with it: the same bits every time
+    sm = _sm_count()
     err = {"bf16": 0.0, "fp32": 0.0}
     for tag, dt in dts.items():
         for n, h in ((8, 4096), (64, 4096), (3, 128), (17, 11008 // 2),
                      (4096, 4096), (1000, 4096)):
             x = (torch.randn(n, h, device="cuda", generator=gen) * 3).to(dt)
             s = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(dt)
-            y, r = rn.rms_norm_fwd_kernel(x, s, 1e-5)
             y0, r0 = rn.rms_norm_fwd_plain(x, s, 1e-5)
-            torch.cuda.synchronize()
-            e = max((y.float() - y0.float()).abs().max().item(),
-                    (r - r0).abs().max().item())
-            log(f"  rmsnorm {tag} n={n} h={h}: max_abs_err {e:.3g}")
-            check(e <= TOL[tag], f"rmsnorm {tag} n={n} h={h}: {e} > "
-                                 f"{TOL[tag]}")
-            err[tag] = max(err[tag], e)
-    # timing at the serving path's decode shape: 8 rows of 4096, bf16
-    n, h = 8, 4096
-    x = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
-    s = torch.ones(h, device="cuda", dtype=torch.bfloat16)
-    ms = time_ms(lambda: rn.rms_norm_fwd_kernel(x, s, 1e-5), iters=200)
-    plain_ms = time_ms(lambda: rn.rms_norm_fwd_plain(x, s, 1e-5), iters=200)
-    lib_ms = time_ms(lambda: F.rms_norm(x, (h,), weight=s, eps=1e-5),
-                     iters=200)
-    b_ms, b_by = bound(2 * n * h * 2 + h * 2 + n * 4, 4 * n * h, FP32_FLOPS)
+            plans = [ln.plan(n, h, dt, sm)] + _fwd_plans(n, h, dt, sm)
+            e_max = 0.0
+            for p in plans:
+                y, r = rn.rms_norm_fwd_kernel(x, s, 1e-5, force_plan=p)
+                y2, _ = rn.rms_norm_fwd_kernel(x, s, 1e-5, rstd=False,
+                                               force_plan=p)
+                again = rn.rms_norm_fwd_kernel(x, s, 1e-5, force_plan=p)
+                torch.cuda.synchronize()
+                e = max((y.float() - y0.float()).abs().max().item(),
+                        (r - r0).abs().max().item())
+                check(e <= TOL[tag], f"rmsnorm {tag} n={n} h={h} plan {p}: "
+                                     f"{e} > {TOL[tag]}")
+                check(torch.equal(y2, y) and torch.equal(again[0], y)
+                      and torch.equal(again[1], r),
+                      f"rmsnorm {tag} n={n} h={h} plan {p}: the output "
+                      f"changed between runs")
+                e_max = max(e_max, e)
+            log(f"  rmsnorm {tag} n={n} h={h}: plan() {plans[0]} and "
+                f"{len(plans) - 1} forced plans, max_abs_err {e_max:.3g}, "
+                f"the same bits on every rerun")
+            err[tag] = max(err[tag], e_max)
+    # timed with C, D, E and H in phase1_times, at the end of phase 1
     results["rmsnorm"] = dict(
         name="rmsnorm_fwd", route="cuda",
-        source="megatron_llm_torch/csrc/rmsnorm.cu",
+        source="megatron_llm_torch/csrc/layernorm.cu",
         replaces="megatron_llm_tpu/ops/pallas/rmsnorm.py:56",
-        max_abs_err=err["bf16"], max_abs_err_fp32=err["fp32"],
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, shape=f"x [{n}, {h}] bf16")
-    log(f"  rmsnorm [8, 4096] bf16: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound "
-        f"{b_ms:.5f} ms ({b_by})")
+        max_abs_err=err["bf16"], max_abs_err_fp32=err["fp32"])
 
     # -- kernel D: LayerNorm forward ---------------------------------------
     # Falcon-7B's decode, prefill and training rows (4544 columns: 568
@@ -1015,6 +1079,23 @@ def _serving_counts():
             "A' prefill": pa.quant_prefill_launches}
 
 
+def _norm_plan_launches(counts):
+    """B's, D's and E's launches by plan since the last zeroing (kernels
+    with none left out), checked against their counts in ``counts``."""
+    from megatron_llm_torch.ops.kernels import layernorm as ln
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
+
+    out = {}
+    for key, by_plan in (("B", rn.plan_launches), ("D", ln.plan_launches),
+                         ("E", ln.bwd_plan_launches)):
+        check(sum(by_plan.values()) == counts[key],
+              f"{key}'s launches by plan {by_plan} do not add up to "
+              f"{counts[key]}")
+        if by_plan:
+            out[key] = {str(list(p)): n for p, n in by_plan.items()}
+    return out
+
+
 def _paged_variants():
     """Paged-attention launches by kernel variant since the last zeroing
     (variants with none left out)."""
@@ -1126,6 +1207,7 @@ def serve_phase(results, kernels, spec):
         launches = _serving_counts()
         variants = _paged_variants()
         training = {k: v for k, v in _counts().items() if k in "CEFGH"}
+        norm_plans = _norm_plan_launches(_counts())
         s1 = engine.stats()
         for p, o in zip(prompts + [shared], outs + outs2[:1]):
             check(o[:len(p)] == p and len(o) == len(p) + new_tokens,
@@ -1168,7 +1250,8 @@ def serve_phase(results, kernels, spec):
         want_v[dec_v] += L * dec
         want_v[pre_v] += L * pre
         log(f"  paged launches by variant {variants} (merges of split keys "
-            f"{_merges()})")
+            f"{_merges()}); norm launches by plan {norm_plans}")
+        results["norm_plan_launches"] = norm_plans
         check(variants == want_v,
               f"paged launches by variant {variants}, expected {want_v} "
               f"(decode steps on {dec_v}, prefill chunks on {pre_v})")
@@ -1502,45 +1585,66 @@ def h_and_d_times(gen):
     return out
 
 
-def d_plan_sweep(gen):
-    """D's device time (CUDA graph replay) under other plans than
-    ``plan``'s, bf16, at D_SHAPES: every (row_threads, vecs) that covers
-    the row with the fewest idle vectors, one row a block and more, with
-    a grid that covers all rows at once or a few blocks an SM."""
+def fwd_plan_sweep(gen, kind):
+    """Device time (CUDA graph replay) of the norm forward under every
+    plan ``_fwd_plans`` lists beside ``plan``'s, bf16: D (``kind`` "D")
+    at D_SHAPES or B ("B") at B_SHAPES."""
     import torch
 
     from megatron_llm_torch.ops.kernels import layernorm as ln
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
 
     sm = _sm_count()
     out = {}
-    for n, h in D_SHAPES:
+    for n, h in (D_SHAPES if kind == "D" else B_SHAPES):
         x = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
         one = torch.ones(h, device="cuda", dtype=torch.bfloat16)
-        nvec = h // 8
-        plans = []
-        for v in range(1, 9):
-            t = 32 * -(-nvec // (32 * v))
-            if t > ln.max_threads(v):
-                continue
-            for rows in (1, 2, 4, 8):
-                if t * rows > ln.max_threads(v) or (rows > 1 and n <= sm):
-                    continue
-                blocks = -(-n // rows)
-                for grid in sorted({blocks, min(blocks, sm),
-                                    min(blocks, 2 * sm),
-                                    min(blocks, 4 * sm)}):
-                    plans.append((t, v, rows, grid))
-        times = {p: graph_ms(functools.partial(
-            ln.layer_norm_fwd_kernel, x, one, one, 1e-5, force_plan=p))
-            for p in plans}
+        if kind == "D":
+            run = functools.partial(ln.layer_norm_fwd_kernel, x, one, one,
+                                    1e-5)
+        else:
+            run = functools.partial(rn.rms_norm_fwd_kernel, x, one, 1e-5)
+        times = {p: graph_ms(functools.partial(run, force_plan=p))
+                 for p in _fwd_plans(n, h, torch.bfloat16, sm)}
         best = min(times, key=times.get)
         out[n] = {str(p): ms for p, ms in times.items()}
-        log(f"  D plans, x [{n}, {h}] bf16, device ms: " + ", ".join(
+        log(f"  {kind} plans, x [{n}, {h}] bf16, device ms: " + ", ".join(
             f"{p}: {ms:.4f}" for p, ms in sorted(times.items(),
                                                   key=lambda kv: kv[1])[:8])
             + f"; plan() gives {ln.plan(n, h, torch.bfloat16, sm)}, best "
             f"{best}")
     return out
+
+
+def e_plan_sweep(gen):
+    """E's device time (CUDA graph replay) at E_SHAPE, bf16, under every
+    plan ``_bwd_plans`` lists and more grids (one and two blocks an SM,
+    all the row groups at once), beside ``bwd_plan``'s."""
+    import torch
+
+    from megatron_llm_torch.ops.kernels import layernorm as ln
+
+    sm = _sm_count()
+    n, h = E_SHAPE
+    x, g = (torch.randn(n, h, device="cuda", generator=gen).to(
+        torch.bfloat16) for _ in range(2))
+    one = torch.ones(h, device="cuda", dtype=torch.bfloat16)
+    _, mu, rstd = ln.layer_norm_fwd_kernel(x, one, one, 1e-5)
+    plans = set()
+    for t, v, rows, _ in _bwd_plans(n, h, torch.bfloat16, sm):
+        blocks = -(-n // rows)
+        plans |= {(t, v, rows, min(blocks, k * sm)) for k in (1, 2)}
+        plans.add((t, v, rows, blocks))
+    times = {p: graph_ms(functools.partial(
+        ln.layer_norm_bwd_kernel, x, one, g, mu, rstd, force_plan=p))
+        for p in sorted(plans)}
+    best = min(times, key=times.get)
+    log(f"  E plans, x, g [{n}, {h}] bf16, device ms: " + ", ".join(
+        f"{p}: {ms:.4f}" for p, ms in sorted(times.items(),
+                                              key=lambda kv: kv[1])[:10])
+        + f"; bwd_plan() gives {ln.bwd_plan(n, h, torch.bfloat16, sm)}, "
+        f"best {best}")
+    return {str(p): ms for p, ms in times.items()}
 
 
 def d_host_breakdown():
@@ -1552,6 +1656,7 @@ def d_host_breakdown():
 
     from megatron_llm_torch.ops.kernels import build
     from megatron_llm_torch.ops.kernels import layernorm as ln
+    from megatron_llm_torch.ops.kernels import norm_plan
 
     n, h = 8, 4544
     x = torch.randn(n, h, device="cuda").to(torch.bfloat16)
@@ -1562,11 +1667,11 @@ def d_host_breakdown():
     st = torch.empty((2, n, 1), dtype=torch.float32, device=dev)
     y = torch.empty_like(x)
     p = ln.plan(n, h, torch.bfloat16, sm)
-    packed = ln._FWD_CALL.pack(
+    packed = norm_plan.FWD_CALL.pack(
         x.data_ptr(), one.data_ptr(), one.data_ptr(), y.data_ptr(),
         st.data_ptr(), st.data_ptr() + 4 * n,
-        torch._C._cuda_getCurrentRawStream(0), n, h, 1, 1, *p, 1e-5)
-    entry = build.load_library().mlt_layernorm_fwd
+        torch._C._cuda_getCurrentRawStream(0), n, h, 1, 1, *p, 0, 1e-5)
+    entry = build.load_library().mlt_norm_fwd
     parts = {
         "wrapper": lambda: ln.layer_norm_fwd_kernel(x, one, one, 1e-5),
         "F.layer_norm": lambda: F.layer_norm(x, (h,), one, one, 1e-5),
@@ -1580,8 +1685,8 @@ def d_host_breakdown():
         "plan": lambda: ln.plan(n, h, torch.bfloat16, sm),
         "build.sm_count(x.device)": lambda: build.sm_count(x.device),
         "stream handle": lambda: torch._C._cuda_getCurrentRawStream(0),
-        "pack": lambda: ln._FWD_CALL.pack(
-            1, 2, 3, 4, 5, 6, 7, n, h, 1, 1, *p, 1e-5),
+        "pack": lambda: norm_plan.FWD_CALL.pack(
+            1, 2, 3, 4, 5, 6, 7, n, h, 1, 1, *p, 0, 1e-5),
         "entry(packed) (the launch)": lambda: entry(packed),
         "checks (contiguity, devices, pointers)": lambda: (
             x.get_device(), one.get_device(), one.get_device(),
@@ -1604,6 +1709,226 @@ def d_host_breakdown():
     return out
 
 
+# B's timing rows (Llama-2-7B's width): decode, a prefill chunk and a
+# training micro-batch; E's and C's training rows (Falcon-7B's, Llama's)
+B_SHAPES = ((8, 4096), (64, 4096), (4096, 4096))
+E_SHAPE = (2048, 4544)
+C_SHAPE = (4096, 4096)
+# E's and C's kernels by name substring: the device time of each pass
+_E_PASSES = (("first", "layernorm_bwd"), ("column", "column_"))
+_C_PASSES = (("first", "rmsnorm_bwd"), ("column", "column_"))
+
+
+def _median_ms(fn, iters=200, repeats=5):
+    """Median over ``repeats`` of ``time_ms`` over ``iters`` calls: the
+    eager time a call, the host issuing it."""
+    return sorted(time_ms(fn, iters=iters) for _ in range(repeats))[
+        repeats // 2]
+
+
+def norm_times(gen):
+    """B at B_SHAPES and at its serving call site, E at E_SHAPE and C at
+    C_SHAPE, bf16: eager ms (``_median_ms``) and device ms (``graph_ms``)
+    beside one library call on the same inputs (``F.rms_norm``,
+    ``F.layer_norm``'s and ``F.rms_norm``'s backward) timed the same way,
+    and each bound.  Returns (rows, profile runs): E's and C's device time
+    by pass comes later from ``norm_profiles``, after every eager timing
+    of the process."""
+    import torch
+    import torch.nn.functional as F
+
+    from megatron_llm_torch.ops import layernorm as opsln
+    from megatron_llm_torch.ops.kernels import layernorm as ln
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
+
+    bf16 = torch.bfloat16
+    out = {"B": {}, "E": {}, "C": {}}
+    runs = {}
+    for n, h in B_SHAPES:
+        x = torch.randn(n, h, device="cuda", generator=gen).to(bf16)
+        s = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(bf16)
+        # serving's rows (decode, prefill) take B as its no-grad call
+        # makes it, with no rstd; training's rows keep rstd
+        training = n > 132
+        b_ms, b_by = bound(2 * n * h * 2 + h * 2 + training * n * 4,
+                           4 * n * h, FP32_FLOPS)
+        run = functools.partial(rn.rms_norm_fwd_kernel, x, s, 1e-5,
+                                rstd=training)
+        lib = functools.partial(F.rms_norm, x, (h,), weight=s, eps=1e-5)
+        out["B"][n] = dict(ms=_median_ms(run), device_ms=graph_ms(run),
+                           library_ms=_median_ms(lib),
+                           library_device_ms=graph_ms(lib), bound_ms=b_ms,
+                           bound_by=b_by,
+                           shape=f"x [{n}, {h}] bf16, " + (
+                               "rstd kept" if training else "no rstd"))
+        if not training:
+            # the same call keeping rstd, as the training forward makes it
+            out["B"][n]["ms_with_rstd"] = _median_ms(functools.partial(
+                rn.rms_norm_fwd_kernel, x, s, 1e-5))
+        if n == 8:
+            # the cost serving pays: the norm dispatch of every layer,
+            # under inference_mode as the engine runs it
+            params = {"scale": s}
+            x3 = x.reshape(n, 1, h)
+
+            def site():
+                with torch.inference_mode():
+                    return opsln.apply_norm(x3, params, "rmsnorm",
+                                            use_kernel=True)
+
+            def site_lib():
+                with torch.inference_mode():
+                    return F.rms_norm(x3, (h,), weight=s, eps=1e-5)
+
+            out["B"]["call_site"] = dict(
+                ms=_median_ms(site), library_ms=_median_ms(site_lib),
+                shape=f"apply_norm(x [{n}, 1, {h}] bf16) under "
+                      f"inference_mode")
+    n, h = E_SHAPE
+    x = (torch.randn(n, h, device="cuda", generator=gen) * 3 + 1).to(bf16)
+    sc = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(bf16)
+    bi = torch.zeros(h, device="cuda", dtype=bf16)
+    g = torch.randn(n, h, device="cuda", generator=gen).to(bf16)
+    _, mu, rstd = ln.layer_norm_fwd_kernel(x, sc, bi, 1e-5)
+    xl, sl, bl = (t.clone().requires_grad_(True) for t in (x, sc, bi))
+    yl = F.layer_norm(xl, (h,), sl, bl, 1e-5)
+    run = functools.partial(ln.layer_norm_bwd_kernel, x, sc, g, mu, rstd)
+    lib = functools.partial(torch.autograd.grad, yl, (xl, sl, bl), g,
+                            retain_graph=True)
+    b_ms, b_by = bound(3 * n * h * 2 + 2 * n * 4 + h * 2 + 2 * h * 4,
+                       12 * n * h, FP32_FLOPS)
+    out["E"] = dict(ms=_median_ms(run), device_ms=graph_ms(run),
+                    library_ms=_median_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                    shape=f"x, g [{n}, {h}] bf16")
+    runs["E"] = (run, lib, _E_PASSES)
+    n, h = C_SHAPE
+    x = torch.randn(n, h, device="cuda", generator=gen).to(bf16)
+    sc = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(bf16)
+    g = torch.randn(n, h, device="cuda", generator=gen).to(bf16)
+    _, rstd = rn.rms_norm_fwd_kernel(x, sc, 1e-5)
+    xl, sl = (t.clone().requires_grad_(True) for t in (x, sc))
+    yl = F.rms_norm(xl, (h,), weight=sl, eps=1e-5)
+    run = functools.partial(rn.rms_norm_bwd_kernel, x, sc, g, rstd)
+    lib = functools.partial(torch.autograd.grad, yl, (xl, sl), g,
+                            retain_graph=True)
+    b_ms, b_by = bound(3 * n * h * 2 + n * 4 + h * 2 + h * 4, 8 * n * h,
+                       FP32_FLOPS)
+    out["C"] = dict(ms=_median_ms(run, iters=50), device_ms=graph_ms(run),
+                    library_ms=_median_ms(lib, iters=50), bound_ms=b_ms,
+                    bound_by=b_by, shape=f"x, g [{n}, {h}] bf16")
+    runs["C"] = (run, lib, _C_PASSES)
+    for n, row in out["B"].items():
+        log(f"  B {row['shape']}: eager {row['ms']:.4f} ms"
+            + (f" ({row['ms_with_rstd']:.4f} ms keeping rstd)"
+               if "ms_with_rstd" in row else "")
+            + (f", device {row['device_ms']:.4f} ms" if "device_ms" in row
+               else "") + f"; F.rms_norm eager {row['library_ms']:.4f} ms"
+            + (f", device {row['library_device_ms']:.4f} ms"
+               if "library_device_ms" in row else "")
+            + (f"; bound {row['bound_ms']:.5f} ms ({row['bound_by']})"
+               if "bound_ms" in row else ""))
+    return out, runs
+
+
+def norm_profiles(out, runs):
+    """E's and C's device ms a call by pass (first pass, column pass) and
+    in all, and their library calls' device ms, from torch.profiler over
+    10 calls each, into ``out`` (from ``norm_times``)."""
+    for name, (run, lib, passes) in runs.items():
+        row = out[name]
+        ms = _device_ms_by_pass(run, 10, passes)
+        row.update({f"{p}_device_ms": v_ for p, v_ in ms.items()
+                    if p != "all"}, profiled_device_ms=ms["all"],
+                   library_device_ms=_device_ms_by_pass(lib, 10, ())["all"])
+        f4 = lambda v_: "not measured" if v_ is None else f"{v_:.4f}"
+        lib_name = ("F.layer_norm" if name == "E" else "F.rms_norm")
+        log(f"  {name} {row['shape']}: eager {row['ms']:.4f} ms, device "
+            f"(graph) {row['device_ms']:.4f} ms; by pass (profiler): first "
+            f"{f4(ms['first'])}, column {f4(ms['column'])}, all "
+            f"{f4(ms['all'])} ms; {lib_name} backward eager "
+            f"{row['library_ms']:.4f} ms, device "
+            f"{f4(row['library_device_ms'])} ms; bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+
+
+def _inference_mode_only():
+    import torch
+
+    with torch.inference_mode():
+        pass
+
+
+def b_host_breakdown():
+    """Host microseconds a call (time.perf_counter over 2000 calls, the
+    queue never full) of B's wrapper at [8, 4096] bf16, of its serving
+    call site and of the parts a wrapper is made of, beside F.rms_norm."""
+    import torch
+    import torch.nn.functional as F
+
+    from megatron_llm_torch.ops import layernorm as opsln
+    from megatron_llm_torch.ops.kernels import build
+    from megatron_llm_torch.ops.kernels import norm_plan
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
+
+    n, h = 8, 4096
+    x = torch.randn(n, h, device="cuda").to(torch.bfloat16)
+    one = torch.ones(h, device="cuda", dtype=torch.bfloat16)
+    dev = x.device
+    params = {"scale": one}
+    x3 = x.reshape(n, 1, h)
+
+    def site():
+        with torch.inference_mode():
+            return opsln.apply_norm(x3, params, "rmsnorm", use_kernel=True)
+
+    sm = _sm_count()
+    p = norm_plan.plan(n, h, torch.bfloat16, sm)
+    y = torch.empty_like(x)
+    packed = norm_plan.FWD_CALL.pack(
+        x.data_ptr(), one.data_ptr(), 0, y.data_ptr(), 0, 0,
+        torch._C._cuda_getCurrentRawStream(0), n, h, 1, 1, *p, 1, 1e-5)
+    entry = norm_plan.entry("mlt_norm_fwd")
+    parts = {
+        "wrapper (y and rstd)": lambda: rn.rms_norm_fwd_kernel(x, one, 1e-5),
+        "wrapper, no rstd": lambda: rn.rms_norm_fwd_kernel(x, one, 1e-5,
+                                                           rstd=False),
+        "call site, inference_mode": site,
+        "F.rms_norm": lambda: F.rms_norm(x, (h,), weight=one, eps=1e-5),
+        "inference_mode enter and exit": _inference_mode_only,
+        "empty_like(x)": lambda: torch.empty_like(x),
+        "torch.empty((n, 1), dtype, device)": lambda: torch.empty(
+            (n, 1), dtype=torch.float32, device=dev),
+        "x.new_empty((n, 1), dtype)": lambda: x.new_empty(
+            (n, 1), dtype=torch.float32),
+        "x.reshape(-1, h)": lambda: x3.reshape(-1, h),
+        "build.load_library()": build.load_library,
+        "stream handle": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "rn._check(x, scale)": lambda: rn._check(x, one),
+        "plan": lambda: norm_plan.plan(n, h, torch.bfloat16, sm),
+        "build.sm_count(0)": lambda: build.sm_count(0),
+        "pack": lambda: norm_plan.FWD_CALL.pack(
+            1, 2, 0, 4, 0, 0, 7, n, h, 1, 1, *p, 1, 1e-5),
+        "entry(packed) (the launch)": lambda: entry(packed),
+        "checks (dtypes, devices, contiguity, pointers)": lambda: (
+            x.dtype, one.dtype, x.get_device(), one.get_device(),
+            x.is_contiguous(), one.is_contiguous(), x.data_ptr(),
+            one.data_ptr(), x.dim(), x.shape),
+    }
+    out = {}
+    for name, fn in parts.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        out[name] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    log("  B host us a call, x [8, 4096] bf16: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
 def phase1_training(gen, results):
     import torch
     import torch.nn.functional as F
@@ -1614,6 +1939,7 @@ def phase1_training(gen, results):
     from megatron_llm_torch.ops.kernels import rmsnorm as rn
 
     dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    sm = _sm_count()
 
     # -- kernel C: RMSNorm backward ---------------------------------------
     err = {"bf16": 0.0, "fp32": 0.0}
@@ -1635,35 +1961,19 @@ def phase1_training(gen, results):
                   f"rmsnorm backward {tag} n={n} h={h}: dx {e_dx}, "
                   f"dscale {e_ds}")
             err[tag] = max(err[tag], e_dx)
-    # timing at the training path's shape: 4096 rows of 4096, bf16
-    n = h = 4096
-    x = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
-    sc = torch.ones(h, device="cuda", dtype=torch.bfloat16)
-    g = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
-    _, rstd = rn.rms_norm_fwd_kernel(x, sc, 1e-5)
-    ms = time_ms(lambda: rn.rms_norm_bwd_kernel(x, sc, g, rstd), iters=50)
-    plain_ms = time_ms(lambda: rn.rms_norm_bwd_plain(x, sc, g, rstd),
-                       iters=20)
-    xl = x.clone().requires_grad_(True)
-    sl = sc.clone().requires_grad_(True)
-    yl = F.rms_norm(xl, (h,), weight=sl, eps=1e-5)
-    lib_ms = time_ms(lambda: torch.autograd.grad(yl, (xl, sl), g,
-                                                 retain_graph=True),
-                     iters=50)
-    b_ms, b_by = bound(3 * n * h * 2 + n * 4 + h * 2 + h * 4, 8 * n * h,
-                       FP32_FLOPS)
+    # timed with B, D, E and H in phase1_times, at the end of phase 1
     results["rmsnorm_bwd"] = dict(
         name="rmsnorm_bwd", route="cuda",
         source="megatron_llm_torch/csrc/rmsnorm.cu",
         replaces="megatron_llm_tpu/ops/pallas/rmsnorm.py:64",
-        max_abs_err=err["bf16"], max_abs_err_fp32=err["fp32"],
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, shape=f"x, g [{n}, {h}] bf16")
-    log(f"  rmsnorm backward [4096, 4096] bf16: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, F.rms_norm backward {lib_ms:.4f} ms, bound "
-        f"{b_ms:.5f} ms ({b_by})")
+        max_abs_err=err["bf16"], max_abs_err_fp32=err["fp32"])
 
     # -- kernel E: LayerNorm backward --------------------------------------
+    # Falcon-7B's decode, prefill and training rows, GPT-2's 768 and odd
+    # shapes: each at bwd_plan()'s plan and at forced plans, against the
+    # plain backward, its partial rows and column sums against their plain
+    # walk (_reference_bwd_partials, fp32 up to the kernel's fused
+    # multiply-adds), and run twice: the same bits for dx, dgamma, dbeta
     err = {"bf16": 0.0, "fp32": 0.0}
     for tag, dt in dts.items():
         for n, h in ((8, 4544), (64, 4544), (2048, 4544), (1000, 768),
@@ -1674,51 +1984,51 @@ def phase1_training(gen, results):
             b = torch.zeros(h, device="cuda", dtype=dt)
             g = torch.randn(n, h, device="cuda", generator=gen).to(dt)
             _, mu, rstd = ln.layer_norm_fwd_plain(x, sc, b, 1e-5)
-            dx, dg, db = ln.layer_norm_bwd_kernel(x, sc, g, mu, rstd)
             dx0, dg0, db0 = ln.layer_norm_bwd_plain(x, sc, g, mu, rstd)
-            again = ln.layer_norm_bwd_kernel(x, sc, g, mu, rstd)
-            torch.cuda.synchronize()
-            e_dx = (dx.float() - dx0.float()).abs().max().item()
-            e_dg = ((dg - dg0).abs().max()
-                    / dg0.abs().max().clamp(min=1.0)).item()
-            e_db = ((db - db0).abs().max()
-                    / db0.abs().max().clamp(min=1.0)).item()
-            log(f"  layernorm backward {tag} n={n} h={h}: dx max_abs_err "
-                f"{e_dx:.3g}, dgamma error / max|dgamma| {e_dg:.3g}, dbeta "
-                f"error / max|dbeta| {e_db:.3g}")
-            check(e_dx <= TOL[tag] and max(e_dg, e_db) <= GRAD_TOL[tag],
-                  f"layernorm backward {tag} n={n} h={h}: dx {e_dx}, "
-                  f"dgamma {e_dg}, dbeta {e_db}")
-            check(torch.equal(again[1], dg) and torch.equal(again[2], db),
-                  f"layernorm backward {tag} n={n} h={h}: the column sums "
-                  f"changed between two runs")
-            err[tag] = max(err[tag], e_dx)
-    # timing at the training path's shape: 2048 rows of 4544, bf16
-    n, h = 2048, 4544
-    x = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
-    sc = torch.ones(h, device="cuda", dtype=torch.bfloat16)
-    b = torch.zeros(h, device="cuda", dtype=torch.bfloat16)
-    g = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
-    _, mu, rstd = ln.layer_norm_fwd_kernel(x, sc, b, 1e-5)
-    xl, sl, bl = (t.clone().requires_grad_(True) for t in (x, sc, b))
-    yl = F.layer_norm(xl, (h,), sl, bl, 1e-5)
-    b_ms, b_by = bound(3 * n * h * 2 + 2 * n * 4 + h * 2 + 2 * h * 4,
-                       12 * n * h, FP32_FLOPS)
-    t = dict(
-        ms=time_ms(lambda: ln.layer_norm_bwd_kernel(x, sc, g, mu, rstd),
-                   iters=50),
-        plain_ms=time_ms(lambda: ln.layer_norm_bwd_plain(x, sc, g, mu, rstd),
-                         iters=20),
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            yl, (xl, sl, bl), g, retain_graph=True), iters=50),
-        bound_ms=b_ms, bound_by=b_by, shape=f"x, g [{n}, {h}] bf16")
+            plans = [ln.bwd_plan(n, h, dt, sm)] + _bwd_plans(n, h, dt, sm)
+            worst = [0.0, 0.0, 0.0, 0.0]
+            for p in plans:
+                dx, dg, db, part = ln.layer_norm_bwd_kernel(
+                    x, sc, g, mu, rstd, force_plan=p, partials=True)
+                again = ln.layer_norm_bwd_kernel(x, sc, g, mu, rstd,
+                                                 force_plan=p)
+                ref_part, ref_sums = ln._reference_bwd_partials(
+                    x, sc, g, mu, rstd, p)
+                torch.cuda.synchronize()
+                e_dx = (dx.float() - dx0.float()).abs().max().item()
+                e_dg = ((dg - dg0).abs().max()
+                        / dg0.abs().max().clamp(min=1.0)).item()
+                e_db = ((db - db0).abs().max()
+                        / db0.abs().max().clamp(min=1.0)).item()
+                size = ref_part.abs().max().clamp(min=1.0)
+                e_part = max(((part - ref_part).abs().max() / size).item(),
+                             ((torch.cat([dg, db]) - ref_sums).abs().max()
+                              / size).item())
+                check(e_dx <= TOL[tag] and max(e_dg, e_db) <= GRAD_TOL[tag],
+                      f"layernorm backward {tag} n={n} h={h} plan {p}: dx "
+                      f"{e_dx}, dgamma {e_dg}, dbeta {e_db}")
+                check(e_part <= 1e-5, f"layernorm backward {tag} n={n} "
+                      f"h={h} plan {p}: partial rows off their plain walk "
+                      f"by {e_part} of their size")
+                check(all(torch.equal(a_, b_) for a_, b_ in
+                          zip(again, (dx, dg, db))),
+                      f"layernorm backward {tag} n={n} h={h} plan {p}: the "
+                      f"output changed between two runs")
+                worst = [max(w, e) for w, e in zip(worst, (e_dx, e_dg, e_db,
+                                                           e_part))]
+            log(f"  layernorm backward {tag} n={n} h={h}: bwd_plan() "
+                f"{plans[0]} and {len(plans) - 1} forced plans; dx "
+                f"max_abs_err {worst[0]:.3g}, dgamma error / max|dgamma| "
+                f"{worst[1]:.3g}, dbeta {worst[2]:.3g}, partial rows "
+                f"{worst[3]:.3g} of their size; the same bits on every "
+                f"rerun")
+            err[tag] = max(err[tag], worst[0])
+    # timed with B, C, D and H in phase1_times, at the end of phase 1
     results["layernorm_bwd"] = dict(
         name="layernorm_bwd", route="cuda",
         source="megatron_llm_torch/csrc/layernorm.cu",
         replaces="megatron_llm_tpu/ops/pallas/layernorm.py:62",
-        max_abs_err=err["bf16"], max_abs_err_fp32=err["fp32"], **t)
-    _log_times("layernorm backward (E)", t, "F.layer_norm backward")
-    del x, g, xl, yl
+        max_abs_err=err["bf16"], max_abs_err_fp32=err["fp32"])
 
     # -- kernels F, G, H: flash attention ---------------------------------
     # (label, b, s, nh, ng, d, window, views); s a multiple of 64 takes G,
@@ -1890,18 +2200,29 @@ def phase1_training(gen, results):
     torch.cuda.empty_cache()
 
 
-def phase1_h_and_d(gen, results):
-    """H and D timed at their main-path shapes (``h_and_d_times``), the
-    plain versions beside them, into the kernels' entries: H at Llama's
-    shape with Falcon's and Gemma-7B's beside it, each with the device
-    time of its passes; D at Falcon's training rows with the decode rows
-    beside them, each with its graph-replay device time and its plan."""
+def phase1_times(gen, results):
+    """B, C, D, E and H timed at their main-path shapes, the plain
+    versions beside them, into the kernels' entries (every eager time
+    first, the profiler windows last): B at the decode rows with its
+    prefill and training rows, its serving call site, its host work by
+    part and its plans beside them; C and E at their training rows, with the device time of each
+    pass; H at Llama's shape with Falcon's and Gemma-7B's beside it, each
+    with the device time of its passes; D at Falcon's training rows with
+    the decode rows beside them; each norm row with its graph-replay
+    device time and its plan."""
     import torch
 
     from megatron_llm_torch.ops.kernels import flash_attention as fa
     from megatron_llm_torch.ops.kernels import layernorm as ln
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
 
+    bf16 = torch.bfloat16
+    sm = _sm_count()
+    # B's host work by part in the process whose eager times are kept
+    b_host = b_host_breakdown()
+    norms, norm_runs = norm_times(gen)
     hd = h_and_d_times(gen)
+    norm_profiles(norms, norm_runs)
     for name, row in hd["H"].items():
         b, s, nh, ng, d = H_SHAPES[name]
         q, do = (torch.randn(b, s, nh, d, device="cuda",
@@ -1918,16 +2239,46 @@ def phase1_h_and_d(gen, results):
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     for n, row in hd["D"].items():
-        x = torch.randn(n, 4544, device="cuda",
-                        generator=gen).to(torch.bfloat16)
-        one = torch.ones(4544, device="cuda", dtype=torch.bfloat16)
+        x = torch.randn(n, 4544, device="cuda", generator=gen).to(bf16)
+        one = torch.ones(4544, device="cuda", dtype=bf16)
         row["plain_ms"] = time_ms(lambda: ln.layer_norm_fwd_plain(
             x, one, one, 1e-5), iters=50)
-        row["plan"] = list(ln.plan(n, 4544, torch.bfloat16, _sm_count()))
+        row["plan"] = list(ln.plan(n, 4544, bf16, sm))
+    for n, h in B_SHAPES:
+        row = norms["B"][n]
+        x = torch.randn(n, h, device="cuda", generator=gen).to(bf16)
+        one = torch.ones(h, device="cuda", dtype=bf16)
+        row["plain_ms"] = time_ms(lambda: rn.rms_norm_fwd_plain(
+            x, one, 1e-5), iters=50)
+        row["plan"] = list(ln.plan(n, h, bf16, sm))
+    n, h = E_SHAPE
+    x, g = (torch.randn(n, h, device="cuda", generator=gen).to(bf16)
+            for _ in range(2))
+    one = torch.ones(h, device="cuda", dtype=bf16)
+    _, mu, rstd = ln.layer_norm_fwd_plain(x, one, one, 1e-5)
+    norms["E"].update(plain_ms=time_ms(lambda: ln.layer_norm_bwd_plain(
+        x, one, g, mu, rstd), iters=20), plan=list(ln.bwd_plan(n, h, bf16,
+                                                                sm)))
+    n, h = C_SHAPE
+    x, g = (torch.randn(n, h, device="cuda", generator=gen).to(bf16)
+            for _ in range(2))
+    one = torch.ones(h, device="cuda", dtype=bf16)
+    _, rstd = rn.rms_norm_fwd_plain(x, one, 1e-5)
+    norms["C"]["plain_ms"] = time_ms(lambda: rn.rms_norm_bwd_plain(
+        x, one, g, rstd), iters=20)
+    del x, g, mu, rstd
+    torch.cuda.empty_cache()
     results["flash_bwd"].update(hd["H"]["llama"],
                                 falcon_shape=hd["H"]["falcon"],
                                 gemma_shape=hd["H"]["gemma"])
     results["layernorm"].update(hd["D"][2048], decode_rows=hd["D"][8])
+    b_rows = norms["B"]
+    results["rmsnorm"].update(
+        b_rows[8], prefill_rows=b_rows[64], training_rows=b_rows[4096],
+        training_device_ms=b_rows[4096]["device_ms"],
+        call_site=b_rows["call_site"], host_us=b_host)
+    results["rmsnorm_bwd"].update(norms["C"])
+    results["layernorm_bwd"].update(norms["E"])
     for label, row in (("H, Llama", hd["H"]["llama"]),
                        ("H, Falcon", hd["H"]["falcon"]),
                        ("H, Gemma-7B", hd["H"]["gemma"])):
@@ -1935,6 +2286,12 @@ def phase1_h_and_d(gen, results):
     for n in (2048, 8):
         _log_times(f"layernorm (D, plan {hd['D'][n]['plan']})", hd["D"][n],
                    "F.layer_norm")
+    for n, _ in B_SHAPES:
+        _log_times(f"rmsnorm (B, plan {b_rows[n]['plan']})", b_rows[n],
+                   "F.rms_norm")
+    _log_times(f"layernorm backward (E, plan {norms['E']['plan']})",
+               norms["E"], "F.layer_norm backward")
+    _log_times("rmsnorm backward (C)", norms["C"], "F.rms_norm backward")
 
 
 # ---------------------------------------------------------------------------
@@ -1952,6 +2309,9 @@ def _zero_counts():
     fa.variant_launches.clear()
     rn.launches = rn.bwd_launches = 0
     ln.launches = ln.bwd_launches = 0
+    for by_plan in (rn.plan_launches, ln.plan_launches,
+                    ln.bwd_plan_launches):
+        by_plan.clear()
     pa.decode_launches = pa.prefill_launches = 0
     pa.quant_decode_launches = pa.quant_prefill_launches = 0
     pa.merge_launches = 0
@@ -1994,9 +2354,9 @@ _KERNEL_GROUPS = (
                             "flash_bwd_dq_kernel", "flash_bwd_dq_wgmma_kernel",
                             "flash_bwd_prep_kernel",
                             "flash_dkv_sum_kernel")),
-    ("B/D norm forward", ("rmsnorm_fwd_kernel", "layernorm_fwd_kernel")),
+    ("B/D norm forward", ("norm_fwd_kernel",)),
     ("C/E norm backward", ("rmsnorm_bwd_kernel", "layernorm_bwd_kernel",
-                           "column_sum_kernel")),
+                           "column_sum_kernel", "norm_column_pass_kernel")),
     ("matmuls (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
 )
 
@@ -2197,8 +2557,10 @@ def train_phase(results, kernels, card, spec):
           f"{excess}]")
     per_step = {k: v / iters for k, v in counts.items()}
     want = spec["per_step"](L, micro)
-    log(f"  launches per step {per_step} (expected {want}); peak memory "
-        f"{peak_main / 2**30:.2f} GiB; {wall:.1f} s for {iters} iterations")
+    norm_plans = _norm_plan_launches(counts)
+    log(f"  launches per step {per_step} (expected {want}); norm launches "
+        f"by plan {norm_plans}; peak memory {peak_main / 2**30:.2f} GiB; "
+        f"{wall:.1f} s for {iters} iterations")
     check(per_step == want, f"launches per step {per_step} != {want}")
     _check_variants(counts, torch.bfloat16, spec["head_dim"],
                     f"finetune.main, {iters} iterations")
@@ -2209,7 +2571,8 @@ def train_phase(results, kernels, card, spec):
         tokens_per_sec=[_log_field(ln, "tokens per second")
                         for ln in lines],
         mfu_pct=[_log_field(ln, "MFU") for ln in lines],
-        launches=counts, peak_memory_gib=peak_main / 2**30, wall_secs=wall)
+        launches=counts, norm_plan_launches=norm_plans,
+        peak_memory_gib=peak_main / 2**30, wall_secs=wall)
     _add_launches(kernels, "flash_fwd", phase, counts["F"])
     _add_launches(kernels, "flash_bwd_fused", phase, counts["G"])
     for key, row in spec["norm_rows"].items():
@@ -2403,6 +2766,43 @@ def _log_flash_build(build):
                   f"tiles {tuple(tiles)} differ from fa.TILES {want}")
 
 
+_NORM_TYPES = (("I13__nv_bfloat16S1_", "bf16/bf16"),
+               ("I13__nv_bfloat16f", "bf16/fp32"), ("Iff", "fp32/fp32"))
+
+
+def _log_norm_build(build):
+    """Registers and spills of every norm kernel instantiation, from
+    ptxas's lines of the build: one line a kernel and (x, parameter)
+    dtype pair, V (vectors a thread) by V; the forward's RMSNorm (B) and
+    LayerNorm (D) instantiations apart."""
+    lines = build.build_log.splitlines()
+    found = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\S*?(norm_fwd_kernel|"
+                      r"layernorm_bwd_kernel|rmsnorm_bwd_kernel|"
+                      r"norm_column_pass_kernel)(\S*)'", line)
+        if not m:
+            continue
+        info = " ".join(x for x in lines[i + 1:i + 4] if "Used" in x
+                        or "spill" in x)
+        regs = re.search(r"Used (\d+) registers", info)
+        spill = re.search(r"(\d+) bytes spill stores", info)
+        types = next((t for key, t in _NORM_TYPES
+                      if m.group(2).startswith(key)), "")
+        v = re.search(r"Li(\d)E", m.group(2))
+        rms = re.search(r"Lb([01])E", m.group(2))
+        kernel = m.group(1) + (" (B, RMSNorm)" if rms and rms.group(1) == "1"
+                               else " (D, LayerNorm)" if rms else "")
+        found.setdefault((kernel, types), []).append(
+            (int(v.group(1)) if v else 0, regs.group(1) if regs else "?",
+             spill.group(1) if spill else "?"))
+    for (kernel, types), rows in sorted(found.items()):
+        log(f"  ptxas {kernel} {types}: " + ", ".join(
+            (f"V{v} " if v else "") + f"{r} registers"
+            + (f" ({sp} B spilled)" if sp not in ("0", "?") else "")
+            for v, r, sp in sorted(rows)))
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -2411,12 +2811,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--measure", action="store_true",
-        help="build the kernels, time H and D at their main-path shapes "
-             "(h_and_d_times) and stop: no phase runs, no result line")
+        help="build the kernels, time B, C, D, E and H at their main-path "
+             "shapes (norm_times, h_and_d_times; B's host work by part, "
+             "b_host_breakdown) and stop: no phase runs, no result line")
     parser.add_argument(
         "--sweep", action="store_true",
-        help="with --measure: also time D under other plans (d_plan_sweep)"
-             " and its wrapper's host work (d_host_breakdown)")
+        help="with --measure: also time B, D and E under other plans "
+             "(fwd_plan_sweep, e_plan_sweep) and D's wrapper's host work "
+             "(d_host_breakdown)")
     opts = parser.parse_args(argv)
     try:
         import torch
@@ -2458,17 +2860,25 @@ def main(argv=None) -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         f.write(build.build_log)
     _log_flash_build(build)
+    _log_norm_build(build)
 
     kernels = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     if opts.measure:
-        log(f"H and D times ({card})")
-        # the sweep first: h_and_d_times ends with the profiler attached
-        sweep = d_plan_sweep(gen) if opts.sweep else None
-        host = d_host_breakdown() if opts.sweep else None
-        res = {"card": card, **h_and_d_times(gen)}
+        log(f"B, C, D, E and H times ({card})")
+        # the sweeps and every eager timing first: the profiler windows of
+        # h_and_d_times and norm_profiles come last
+        sweep = dict(D_plans=fwd_plan_sweep(gen, "D"),
+                     B_plans=fwd_plan_sweep(gen, "B"),
+                     E_plans=e_plan_sweep(gen),
+                     D_host_us=d_host_breakdown()) if opts.sweep else None
+        b_host = b_host_breakdown()
+        norms, norm_runs = norm_times(gen)
+        res = {"card": card, **h_and_d_times(gen), **norms,
+               "B_host_us": b_host}
+        norm_profiles(norms, norm_runs)
         if sweep is not None:
-            res.update(D_plans=sweep, D_host_us=host)
+            res.update(sweep)
         print(json.dumps(res), flush=True)
         return 0
     t0 = time.perf_counter()
@@ -2476,8 +2886,8 @@ def main(argv=None) -> int:
     phase1(gen, kernels)
     log("phase 1: training kernels vs plain versions")
     phase1_training(gen, kernels)
-    log("phase 1: H and D timed at their main-path shapes")
-    phase1_h_and_d(gen, kernels)
+    log("phase 1: B, C, D, E and H timed at their main-path shapes")
+    phase1_times(gen, kernels)
     log(f"phase 1 passed in {time.perf_counter() - t0:.1f} s")
     serving, training = {}, {}
     for number, kind, family in ((2, "serving", "llama"),
@@ -2513,7 +2923,10 @@ def main(argv=None) -> int:
         check(kernels[n].get("launches", 0) > 0,
               f"{n} was not launched on its path")
     # and, where a row has them, its device times and its plan or variant
-    extra = ("device_ms", "dq_device_ms", "dkv_device_ms", "plan", "variant")
+    extra = ("ms_with_rstd", "device_ms", "library_device_ms",
+             "training_device_ms",
+             "first_device_ms", "column_device_ms", "dq_device_ms",
+             "dkv_device_ms", "plan", "variant")
     line = {"kernels": [{k: kernels[n][k] for k in keys + extra
                          if k in keys or k in kernels[n]} for n in names]}
     with open(os.path.join(OUT_DIR, "chip_smoke_result.json"), "w") as f:

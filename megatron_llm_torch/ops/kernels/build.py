@@ -43,15 +43,12 @@ build_log = ""
 _c_int, _c_float, _ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _i64s = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "mlt_rmsnorm_fwd": [_ptr, _ptr, _ptr, _ptr, _c_int, _c_int, _c_float,
-                        _c_int, _c_int, _ptr],
     "mlt_rmsnorm_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int,
                         _c_int, _c_int, _c_int, _c_int, _c_int, _ptr],
-    # one packed LnFwdCall (csrc/layernorm.cu; ops/kernels/layernorm.py)
-    "mlt_layernorm_fwd": [ctypes.c_char_p],
-    "mlt_layernorm_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                          _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
-                          _ptr],
+    # one packed NormFwdCall / LnBwdCall (csrc/layernorm.cu;
+    # ops/kernels/norm_plan.py)
+    "mlt_norm_fwd": [ctypes.c_char_p],
+    "mlt_layernorm_bwd": [ctypes.c_char_p],
     "mlt_flash_fwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64s, _c_int, _c_int,
                       _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
                       _c_int, _c_int, _ptr],
@@ -165,10 +162,15 @@ def check_rc(rc: int, name: str) -> None:
 _SM_COUNTS: dict = {}
 
 
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device (cached)."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device, a torch.device or an
+    index (cached)."""
+    count = _SM_COUNTS.get(device)     # an index seen before
+    if count is not None:
+        return count
+    idx = device if isinstance(device, int) else (
+        device.index if device.index is not None
+        else torch.cuda.current_device())
     if idx not in _SM_COUNTS:
         _SM_COUNTS[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count

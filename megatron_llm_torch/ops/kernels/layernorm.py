@@ -1,95 +1,48 @@
-"""Fused LayerNorm, forward and backward: the CUDA kernels
-``csrc/layernorm.cu`` (D and E) and their plain PyTorch versions.
+"""Fused LayerNorm, forward and backward: the CUDA kernels D (the norm
+forward of ``csrc/layernorm.cu``, which kernel B shares) and E, and their
+plain PyTorch versions.
 
 The counterpart of ``megatron_llm_tpu/ops/pallas/layernorm.py``: the forward
 ``_fwd_kernel`` through ``_fwd_call``, the backward ``_bwd_kernel`` through
 ``_bwd_call``, and ``fused_layer_norm`` with its ``jax.custom_vjp``, here a
 ``torch.autograd.Function`` whose forward saves mu and rstd and whose
-backward reuses them.  A CPU tensor takes the plain versions; a CUDA
-tensor launches the kernels or raises.
+backward reuses them.  Where no gradient can be asked for (grad mode off,
+or no input that requires one, as in serving) ``fused_layer_norm`` calls
+the forward directly and keeps no statistics.  A CPU tensor takes the
+plain versions; a CUDA tensor launches the kernels or raises.
 
 D keeps each row in registers, split over ``row_threads`` threads of
 ``vecs`` 16-byte vectors each; ``plan(n, h, dtype, sm_count)`` picks
-(row_threads, vecs, rows_per_block, grid) for a call, and the kernel
-takes the plan as given.
+(row_threads, vecs, rows_per_block, grid) for a call.  E holds x and g
+of a row the same way and its dgamma and dbeta sums in registers under
+``bwd_plan``; each block writes one partial row, which E's column pass
+adds in a fixed order (``_reference_bwd_partials`` is that walk's plain
+version).  The kernels take the plans as given (``ops/kernels/
+norm_plan.py``).
 """
 
 from __future__ import annotations
 
-import functools
-import struct
 from typing import Optional, Tuple
 
 import torch
 
 from megatron_llm_torch.ops.kernels import build
+from megatron_llm_torch.ops.kernels import norm_plan
+# D's plan and its limits live in norm_plan, shared with B
+from megatron_llm_torch.ops.kernels.norm_plan import (  # noqa: F401
+    MAX_VECS, bwd_plan, max_threads, plan)
 
 # kernel launches since the last reset (plain counts; chip_smoke.py zeroes
 # them before driving a path and reads them after).  One backward launch
 # is one call of kernel E, which runs its two passes (dx with per-block
-# dgamma/dbeta partials, then the column sum).  ``plan_launches`` counts
-# D's launches by plan (row_threads, vecs, rows_per_block, grid).
+# dgamma/dbeta partials, then the column pass).  ``plan_launches`` and
+# ``bwd_plan_launches`` count D's and E's launches by plan (row_threads,
+# vecs, rows_per_block, grid).
 launches = 0
 bwd_launches = 0
 plan_launches: dict = {}
-# most row-blocks of the backward's first pass (each writes one row of
-# partial dgamma and dbeta sums): about two per SM of an H100
-_BWD_MAX_BLOCKS = 256
-
-
-# D's limits: 16-byte vectors a thread, threads a block
-MAX_VECS = 8
-MAX_THREADS = 1024
-
-
-def max_threads(vecs: int) -> int:
-    """Most threads a block of D takes at ``vecs`` vectors a thread (the
-    kernel's launch bounds: beyond 4 vectors a thread needs more than the
-    64 registers a 1024-thread block leaves)."""
-    return MAX_THREADS if vecs <= 4 else MAX_THREADS // 2
-
-
-# threads a row that decode rows (at most one a block) and training rows
-# aim for; threads a training-rows block (rows side by side); blocks an SM
-# of a training-rows grid (a block then walks further rows, keeping gamma
-# and beta).  The values that timed best at Falcon-7B's 4544 columns on
-# the H100 (chip_smoke.py --measure --sweep; PERF.md, PR 6).
-_DECODE_ROW_THREADS = 256
-_TRAIN_ROW_THREADS = 128
-_TRAIN_BLOCK_THREADS = 512
-_TRAIN_BLOCKS_PER_SM = 2
-
-
-@functools.lru_cache(maxsize=1024)
-def plan(n: int, h: int, dtype: torch.dtype, sm_count: int = 132
-         ) -> Tuple[int, int, int, int]:
-    """(row_threads, vecs, rows_per_block, grid) of kernel D on [n, h]
-    rows of ``dtype``: a row's h / (16 / itemsize) vectors are spread over
-    row_threads threads (a multiple of 32) of vecs vectors each, vector v
-    on thread v % row_threads.  Of the pairs that cover the row, decode
-    rows (n at most the SM count) take the one whose row_threads is
-    nearest 256, one row a block; training rows the one nearest 128 (four
-    warps a row), several rows to a block of about 512 threads, two
-    blocks an SM.  Ties go to fewer idle vectors."""
-    vec = 16 // torch.empty((), dtype=dtype).element_size()
-    if h % vec:
-        raise ValueError(f"layernorm needs h % {vec} == 0, got h = {h}")
-    nvec = h // vec
-    cands = []
-    for v in range(1, MAX_VECS + 1):
-        t = 32 * -(-nvec // (32 * v))
-        if t <= max_threads(v):
-            cands.append((t, v))
-    if not cands:
-        raise ValueError(f"layernorm rows of {h} {dtype} exceed one block's "
-                         f"{MAX_THREADS} threads x {MAX_VECS} vectors")
-    decode = n <= sm_count
-    target = _DECODE_ROW_THREADS if decode else _TRAIN_ROW_THREADS
-    t, v = min(cands, key=lambda c: (abs(c[0] - target), c[0] * c[1]))
-    if decode:
-        return t, v, 1, max(n, 1)
-    rows = max(1, min(_TRAIN_BLOCK_THREADS, max_threads(v)) // t)
-    return t, v, rows, min(-(-n // rows), _TRAIN_BLOCKS_PER_SM * sm_count)
+bwd_plan_launches: dict = {}
 
 
 def layer_norm_fwd_plain(x2d: torch.Tensor, scale: torch.Tensor,
@@ -122,88 +75,49 @@ def layer_norm_bwd_plain(x2d: torch.Tensor, scale: torch.Tensor,
     return dx.to(x2d.dtype), (gf * xhat).sum(dim=0), gf.sum(dim=0)
 
 
-def _check(x2d: torch.Tensor, scale: torch.Tensor) -> Tuple[int, int]:
-    build.require_cuda(x2d, "x")
-    build.require_cuda(scale, "scale")
-    if x2d.dim() != 2 or scale.shape != (x2d.shape[1],):
-        raise ValueError(f"layernorm takes x [n, h] and scale [h], got "
-                         f"{tuple(x2d.shape)} and {tuple(scale.shape)}")
-    if scale.device != x2d.device:
-        raise ValueError("x and scale must be on the same device")
-    x_code, p_code = build.dtype_code(x2d), build.dtype_code(scale)
-    if x_code == build.DTYPE_CODES[torch.float32] and p_code != x_code:
-        raise TypeError("a float32 x takes float32 scale and bias")
-    h = x2d.shape[1]
-    vec = 16 // x2d.element_size()
-    if h % vec or x2d.data_ptr() % 16:
-        raise ValueError(f"layernorm needs 16-byte aligned rows (h % {vec} "
-                         f"== 0), got h = {h}")
-    return x_code, p_code
-
-
-def _check_stat(t: torch.Tensor, n: int, name: str) -> None:
-    build.require_cuda(t, name)
-    if t.dtype != torch.float32 or t.numel() != n:
-        raise ValueError(f"{name} must be the forward's [n, 1] fp32")
-
-
-# D's C entry takes one packed LnFwdCall (csrc/layernorm.cu): the seven
-# pointers x, gamma, beta, y, mu, rstd and the stream; n, h, the two dtype
-# codes and the plan (row_threads, vecs, rows_per_block, grid); eps
-_FWD_CALL = struct.Struct("=7Q8if")
-# (x dtype, parameter dtype) -> their codes, for the pairs D takes
-_FWD_CODES = {(x, p): (build.DTYPE_CODES[x], build.DTYPE_CODES[p])
-              for x, p in ((torch.bfloat16, torch.bfloat16),
-                           (torch.bfloat16, torch.float32),
-                           (torch.float32, torch.float32))}
-_fwd_entry = None
-
-
-def _fwd_fn():
-    """The library's forward entry, looked up once (no lock a call)."""
-    global _fwd_entry
-    if _fwd_entry is None:
-        _fwd_entry = build.load_library().mlt_layernorm_fwd
-    return _fwd_entry
-
-
-def layer_norm_fwd_kernel(x2d: torch.Tensor, scale: torch.Tensor,
+def layer_norm_fwd_kernel(x: torch.Tensor, scale: torch.Tensor,
                           bias: torch.Tensor, eps: float,
                           force_plan: Optional[Tuple[int, int, int, int]]
-                          = None
-                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch kernel D on [n, h] rows; returns (y, mu [n, 1], rstd [n, 1]),
-    mu and rstd the two rows of one [2, n, 1] fp32 tensor.
+                          = None, stats: bool = True
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                     Optional[torch.Tensor]]:
+    """Launch kernel D on the rows of x [..., h] (n = x.numel() / h);
+    returns (y in x's shape, mu [n, 1], rstd [n, 1]), mu and rstd the two
+    rows of one [2, n, 1] fp32 tensor, or both None with ``stats=False``.
     ``force_plan`` (row_threads, vecs, rows_per_block, grid) replaces
     ``plan``'s (tests and sweeps).  Every check runs in one pass; a call
-    that fails one is refused by ``_refuse_fwd`` with the reason."""
+    that fails one is refused with the reason."""
     global launches
-    codes = _FWD_CODES.get((x2d.dtype, scale.dtype))
-    dev = x2d.get_device()
-    if (codes is None or dev < 0 or x2d.dim() != 2 or scale.dim() != 1
+    codes = norm_plan.CODES.get((x.dtype, scale.dtype))
+    dev = x.get_device()
+    if (codes is None or dev < 0 or x.dim() < 1 or scale.dim() != 1
             or scale.get_device() != dev or bias.get_device() != dev
             or bias.dtype != scale.dtype or bias.shape != scale.shape
-            or not (x2d.is_contiguous() and scale.is_contiguous()
+            or not (x.is_contiguous() and scale.is_contiguous()
                     and bias.is_contiguous())):
-        _refuse_fwd(x2d, scale, bias)
-    n, h = x2d.shape
-    xp, sp, bp = x2d.data_ptr(), scale.data_ptr(), bias.data_ptr()
-    if (scale.shape[0] != h or h % (16 // x2d.element_size())
+        _refuse_fwd(x, scale, bias)
+    h = scale.shape[0]
+    xp, sp, bp = x.data_ptr(), scale.data_ptr(), bias.data_ptr()
+    if (x.shape[-1] != h or h % (16 // x.element_size())
             or (xp | sp | bp) % 16):
-        _refuse_fwd(x2d, scale, bias)
+        _refuse_fwd(x, scale, bias)
+    n = x.numel() // h if h else 0
     # mu and rstd: the two rows of one allocation (new_empty: less host
     # work than torch.empty with a device argument)
-    y = torch.empty_like(x2d)
-    stats = x2d.new_empty((2, n, 1), dtype=torch.float32)
-    mu, rstd = stats[0], stats[1]
+    y = torch.empty_like(x)
+    mu = rstd = None
+    sptr = 0
+    if stats:
+        st = x.new_empty((2, n, 1), dtype=torch.float32)
+        mu, rstd = st[0], st[1]
+        sptr = st.data_ptr()
     if n == 0:
         return y, mu, rstd
-    p = force_plan or plan(n, h, x2d.dtype, build.sm_count(x2d.device))
-    sptr = stats.data_ptr()
-    rc = _fwd_fn()(_FWD_CALL.pack(
-        xp, sp, bp, y.data_ptr(), sptr, sptr + 4 * n,
+    p = force_plan or plan(n, h, x.dtype, build.sm_count(dev))
+    rc = norm_plan.entry("mlt_norm_fwd")(norm_plan.FWD_CALL.pack(
+        xp, sp, bp, y.data_ptr(), sptr, sptr + 4 * n if stats else 0,
         torch._C._cuda_getCurrentRawStream(dev), n, h, codes[0], codes[1],
-        p[0], p[1], p[2], p[3], eps))
+        p[0], p[1], p[2], p[3], 0, eps))
     if rc:
         build.check_rc(rc, "layernorm")
     launches += 1
@@ -211,56 +125,111 @@ def layer_norm_fwd_kernel(x2d: torch.Tensor, scale: torch.Tensor,
     return y, mu, rstd
 
 
-def _refuse_fwd(x2d, scale, bias) -> None:
+def _refuse_fwd(x, scale, bias) -> None:
     """Raise the error that says why D does not take these inputs."""
-    _check(x2d, scale)
-    build.require_cuda(bias, "bias")
-    if (bias.shape != scale.shape or bias.dtype != scale.dtype
-            or bias.device != scale.device):
-        raise ValueError(f"bias must match scale ({tuple(scale.shape)}, "
-                         f"{scale.dtype}), got {tuple(bias.shape)}, "
-                         f"{bias.dtype}")
-    if (scale.data_ptr() | bias.data_ptr()) % 16:
-        raise ValueError("layernorm needs 16-byte aligned scale and bias")
-    raise ValueError("layernorm: inputs not taken")
+    norm_plan.refuse("layernorm", x, scale,
+                     ("bias", bias, tuple(scale.shape), scale.dtype))
 
 
 def layer_norm_bwd_kernel(x2d: torch.Tensor, scale: torch.Tensor,
                           g2d: torch.Tensor, mu: torch.Tensor,
-                          rstd: torch.Tensor
-                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                          rstd: torch.Tensor,
+                          force_plan: Optional[Tuple[int, int, int, int]]
+                          = None, partials: bool = False):
     """Launch kernel E; returns (dx [n, h] in x's dtype, dgamma [h] fp32,
-    dbeta [h] fp32).  ``mu`` and ``rstd`` are the forward's, [n, 1] fp32."""
+    dbeta [h] fp32).  ``mu`` and ``rstd`` are the forward's, [n, 1] fp32.
+    ``force_plan`` (row_threads, vecs, rows_per_block, grid) replaces
+    ``bwd_plan``'s; ``partials=True`` also returns the first pass's
+    partial rows [grid, 2h] fp32 (tests).  dgamma and dbeta are views of
+    one fp32 allocation that also holds the partial rows: the column pass
+    writes every column, so nothing is zeroed."""
     global bwd_launches
-    x_code, p_code = _check(x2d, scale)
-    build.require_cuda(g2d, "g")
+    codes = norm_plan.CODES.get((x2d.dtype, scale.dtype))
+    dev = x2d.get_device()
+    f32 = torch.float32
+    if (codes is None or dev < 0 or x2d.dim() != 2 or scale.dim() != 1
+            or g2d.dtype != x2d.dtype or g2d.shape != x2d.shape
+            or mu.dtype != f32 or rstd.dtype != f32
+            or any(t.get_device() != dev for t in (scale, g2d, mu, rstd))
+            or not (x2d.is_contiguous() and scale.is_contiguous()
+                    and g2d.is_contiguous() and mu.is_contiguous()
+                    and rstd.is_contiguous())):
+        _refuse_bwd(x2d, scale, g2d, mu, rstd)
     n, h = x2d.shape
-    if g2d.shape != x2d.shape or g2d.dtype != x2d.dtype:
-        raise ValueError(f"g must match x ({tuple(x2d.shape)}, "
-                         f"{x2d.dtype}), got {tuple(g2d.shape)}, "
-                         f"{g2d.dtype}")
-    if g2d.data_ptr() % 16:
-        raise ValueError("g must be 16-byte aligned")
-    _check_stat(mu, n, "mu")
-    _check_stat(rstd, n, "rstd")
+    xp, sp, gp = x2d.data_ptr(), scale.data_ptr(), g2d.data_ptr()
+    if (scale.shape[0] != h or h % (16 // x2d.element_size())
+            or (xp | sp | gp) % 16 or mu.numel() != n or rstd.numel() != n):
+        _refuse_bwd(x2d, scale, g2d, mu, rstd)
     dx = torch.empty_like(x2d)
-    sums = torch.zeros(2 * h, dtype=torch.float32, device=x2d.device)
     if n == 0:
-        return dx, sums[:h], sums[h:]
-    rows = -(-n // min(n, _BWD_MAX_BLOCKS))
-    nblocks = -(-n // rows)
-    partial = torch.empty((nblocks, 2 * h), dtype=torch.float32,
-                          device=x2d.device)
-    lib = build.load_library()
-    rc = lib.mlt_layernorm_bwd(x2d.data_ptr(), scale.data_ptr(),
-                               g2d.data_ptr(), mu.data_ptr(),
-                               rstd.data_ptr(), dx.data_ptr(),
-                               partial.data_ptr(), sums.data_ptr(), n, h,
-                               rows, nblocks, x_code, p_code,
-                               build.stream_handle(x2d))
-    build.check_rc(rc, "layernorm backward")
+        sums = x2d.new_zeros((2 * h,), dtype=f32)
+        out = (dx, sums[:h], sums[h:])
+        return out + (sums[:0].view(0, 2 * h),) if partials else out
+    p = force_plan or bwd_plan(n, h, x2d.dtype, build.sm_count(dev))
+    # the sums [2h] first, then the partial rows [grid, 2h]
+    buf = x2d.new_empty(((p[3] + 1) * 2 * h,), dtype=f32)
+    bptr = buf.data_ptr()
+    rc = norm_plan.entry("mlt_layernorm_bwd")(norm_plan.BWD_CALL.pack(
+        xp, sp, gp, mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+        bptr + 8 * h, bptr, torch._C._cuda_getCurrentRawStream(dev), n, h,
+        codes[0], codes[1], p[0], p[1], p[2], p[3]))
+    if rc:
+        build.check_rc(rc, "layernorm backward")
     bwd_launches += 1
-    return dx, sums[:h], sums[h:]
+    bwd_plan_launches[p] = bwd_plan_launches.get(p, 0) + 1
+    out = (dx, buf[:h], buf[h:2 * h])
+    return out + (buf[2 * h:].view(p[3], 2 * h),) if partials else out
+
+
+def _refuse_bwd(x2d, scale, g2d, mu, rstd) -> None:
+    """Raise the error that says why E does not take these inputs."""
+    if x2d.dim() != 2:
+        raise ValueError(f"layernorm backward takes x [n, h], got "
+                         f"{tuple(x2d.shape)}")
+    norm_plan.refuse("layernorm backward", x2d, scale,
+                     ("g", g2d, tuple(x2d.shape), x2d.dtype),
+                     ("mu", mu, None, torch.float32),
+                     ("rstd", rstd, None, torch.float32))
+
+
+def _reference_bwd_partials(x2d: torch.Tensor, scale: torch.Tensor,
+                            g2d: torch.Tensor, mu: torch.Tensor,
+                            rstd: torch.Tensor,
+                            p: Tuple[int, int, int, int]
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """E's walk over the rows and its column pass, in fp32 and in their
+    orders, under plan ``p``: (partial [grid, 2h], sums [2h]).  Block b's
+    slot s takes rows b * rows + s + k * grid * rows for k = 0, 1, ...,
+    adding g * xhat and g to its columns row by row; a block adds its
+    slots' sums in slot order into its partial row [dgamma | dbeta]; the
+    column pass's warp w (of 8) adds partial rows w, w + 8, ... in order,
+    then the warps' sums are added in warp order."""
+    _, _, rows, grid = p
+    n, h = x2d.shape
+    dev = x2d.device
+    xf, gf = x2d.float(), g2d.float()
+    contrib = torch.cat([gf * ((xf - mu) * rstd), gf], dim=1)  # [n, 2h]
+    stride = grid * rows
+    trips = -(-n // stride)
+    padded = torch.zeros(trips * stride, 2 * h, device=dev)
+    padded[:n] = contrib
+    acc = torch.zeros(grid, rows, 2 * h, device=dev)
+    for k in range(trips):
+        acc = acc + padded[k * stride:(k + 1) * stride].view(grid, rows,
+                                                             2 * h)
+    partial = acc[:, 0]
+    for s in range(1, rows):
+        partial = partial + acc[:, s]
+    warps = []
+    for w in range(8):
+        part = torch.zeros(2 * h, device=dev)
+        for r in range(w, grid, 8):
+            part = part + partial[r]
+        warps.append(part)
+    sums = warps[0]
+    for part in warps[1:]:
+        sums = sums + part
+    return partial, sums
 
 
 def layer_norm_fwd(x2d: torch.Tensor, scale: torch.Tensor,
@@ -311,5 +280,15 @@ class _FusedLayerNorm(torch.autograd.Function):
 def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis of any-rank ``x``, differentiable in
-    ``x``, ``scale`` and ``bias``."""
-    return _FusedLayerNorm.apply(x, scale, bias, eps)
+    ``x``, ``scale`` and ``bias``.  Where no gradient can be asked for,
+    the forward runs without the autograd function and keeps no
+    statistics: the same y."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _FusedLayerNorm.apply(x, scale, bias, eps)
+    if x.is_cpu:
+        h = x.shape[-1]
+        return layer_norm_fwd_plain(x.reshape(-1, h), scale, bias,
+                                    eps)[0].reshape(x.shape)
+    return layer_norm_fwd_kernel(x.contiguous(), scale.contiguous(),
+                                 bias.contiguous(), eps, stats=False)[0]

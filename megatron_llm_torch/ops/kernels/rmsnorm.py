@@ -1,28 +1,37 @@
-"""Fused RMSNorm, forward and backward: the CUDA kernels
-``csrc/rmsnorm.cu`` (B and C) and their plain PyTorch versions.
+"""Fused RMSNorm, forward and backward: the CUDA kernels B (the norm
+forward of ``csrc/layernorm.cu``, which kernel D shares) and C
+(``csrc/rmsnorm.cu``), and their plain PyTorch versions.
 
 The counterpart of ``megatron_llm_tpu/ops/pallas/rmsnorm.py``: the forward
 ``_fwd_kernel`` through ``_fwd_call``, the backward ``_bwd_kernel`` through
 ``_bwd_call``, and ``fused_rms_norm`` with its ``jax.custom_vjp``, here a
 ``torch.autograd.Function`` whose forward saves rstd and whose backward
-reuses it.  A CPU tensor takes the plain versions; a CUDA tensor launches
-the kernels or raises.
+reuses it.  Where no gradient can be asked for (grad mode off, or no
+input that requires one, as in serving) ``fused_rms_norm`` calls the
+forward directly and keeps no rstd.  A CPU tensor takes the plain
+versions; a CUDA tensor launches the kernels or raises.
+
+B keeps each row in registers under ``norm_plan.plan`` (row_threads,
+vecs, rows_per_block, grid), the plan of D.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from megatron_llm_torch.ops.kernels import build
+from megatron_llm_torch.ops.kernels import norm_plan
 
 # kernel launches since the last reset (plain counts; chip_smoke.py zeroes
 # them before driving a path and reads them after).  One backward launch
 # is one call of kernel C, which runs its two passes (dx with per-block
-# dscale partials, then the column sum).
+# dscale partials, then the column sum).  ``plan_launches`` counts B's
+# launches by plan (row_threads, vecs, rows_per_block, grid).
 launches = 0
 bwd_launches = 0
+plan_launches: dict = {}
 # most row-blocks of the backward's first pass (each writes one row of
 # partial dscale sums): about two per SM of an H100
 _BWD_MAX_BLOCKS = 256
@@ -73,23 +82,42 @@ def _check(x2d: torch.Tensor, scale: torch.Tensor) -> Tuple[int, int]:
     return x_code, s_code
 
 
-def rms_norm_fwd_kernel(x2d: torch.Tensor, scale: torch.Tensor, eps: float
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel B on [n, h] rows; returns (y, rstd [n, 1])."""
+def rms_norm_fwd_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                        rstd: bool = True,
+                        force_plan: Optional[Tuple[int, int, int, int]]
+                        = None
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch kernel B on the rows of x [..., h] (n = x.numel() / h);
+    returns (y in x's shape, rstd [n, 1] fp32, or None with
+    ``rstd=False``).  ``force_plan`` (row_threads, vecs, rows_per_block,
+    grid) replaces ``norm_plan.plan``'s (tests and sweeps).  Every check
+    runs in one pass; a call that fails one is refused with the reason."""
     global launches
-    x_code, s_code = _check(x2d, scale)
-    n, h = x2d.shape
-    y = torch.empty_like(x2d)
-    rstd = torch.empty((n, 1), dtype=torch.float32, device=x2d.device)
+    codes = norm_plan.CODES.get((x.dtype, scale.dtype))
+    dev = x.get_device()
+    if (codes is None or dev < 0 or scale.dim() != 1 or x.dim() < 1
+            or scale.get_device() != dev
+            or not (x.is_contiguous() and scale.is_contiguous())):
+        norm_plan.refuse("rmsnorm", x, scale)
+    h = scale.shape[0]
+    xp, sp = x.data_ptr(), scale.data_ptr()
+    if x.shape[-1] != h or h % (16 // x.element_size()) or (xp | sp) % 16:
+        norm_plan.refuse("rmsnorm", x, scale)
+    n = x.numel() // h if h else 0
+    y = torch.empty_like(x)
+    r = x.new_empty((n, 1), dtype=torch.float32) if rstd else None
     if n == 0:
-        return y, rstd
-    lib = build.load_library()
-    rc = lib.mlt_rmsnorm_fwd(x2d.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                             rstd.data_ptr(), n, h, float(eps), x_code,
-                             s_code, build.stream_handle(x2d))
-    build.check_rc(rc, "rmsnorm")
+        return y, r
+    p = force_plan or norm_plan.plan(n, h, x.dtype, build.sm_count(dev))
+    rc = norm_plan.entry("mlt_norm_fwd")(norm_plan.FWD_CALL.pack(
+        xp, sp, 0, y.data_ptr(), 0, 0 if r is None else r.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev), n, h, codes[0], codes[1],
+        p[0], p[1], p[2], p[3], 1, eps))
+    if rc:
+        build.check_rc(rc, "rmsnorm")
     launches += 1
-    return y, rstd
+    plan_launches[p] = plan_launches.get(p, 0) + 1
+    return y, r
 
 
 def rms_norm_bwd_kernel(x2d: torch.Tensor, scale: torch.Tensor,
@@ -172,5 +200,13 @@ class _FusedRMSNorm(torch.autograd.Function):
 def fused_rms_norm(x: torch.Tensor, scale: torch.Tensor,
                    eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last axis of any-rank ``x``, differentiable in
-    ``x`` and ``scale``."""
-    return _FusedRMSNorm.apply(x, scale, eps)
+    ``x`` and ``scale``.  Where no gradient can be asked for, the forward
+    runs without the autograd function and keeps no rstd: the same y."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _FusedRMSNorm.apply(x, scale, eps)
+    if x.is_cpu:
+        h = x.shape[-1]
+        return rms_norm_fwd_plain(x.reshape(-1, h), scale, eps)[0].reshape(
+            x.shape)
+    return rms_norm_fwd_kernel(x.contiguous(), scale.contiguous(), eps,
+                               rstd=False)[0]

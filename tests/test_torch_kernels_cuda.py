@@ -16,6 +16,7 @@ import torch
 from megatron_llm_torch.ops.kernels import build
 from megatron_llm_torch.ops.kernels import flash_attention as fa
 from megatron_llm_torch.ops.kernels import layernorm as ln
+from megatron_llm_torch.ops.kernels import norm_plan
 from megatron_llm_torch.ops.kernels import paged_attention as pa
 from megatron_llm_torch.ops.kernels import rmsnorm as rn
 from megatron_llm_torch.quantization import absmax_quantize_int8
@@ -123,6 +124,52 @@ def test_wrappers_refuse_instead_of_falling_back(cuda):
     x = torch.randn(4, 256, device=cuda)[:, :128]
     with pytest.raises(ValueError):
         rn.rms_norm_fwd_kernel(x, torch.ones(128, device=cuda), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h", [(8, 4096), (300, 4096), (37, 768),
+                                 (64, 5120), (5, 128)])
+def test_rmsnorm_every_plan_matches_plain(cuda, n, h, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3 * n + h)
+    x = (torch.randn(n, h, device=cuda, generator=g) * 3).to(dtype)
+    s = (torch.rand(h, device=cuda, generator=g) + 0.5).to(dtype)
+    y0, r0 = rn.rms_norm_fwd_plain(x, s, 1e-5)
+    for t, v, rows in _plans(h, dtype):
+        # a grid smaller than the rows: blocks walk several row groups
+        for grid in (-(-n // rows), max(1, n // (3 * rows))):
+            p = (t, v, rows, grid)
+            before = dict(rn.plan_launches)
+            y, r = rn.rms_norm_fwd_kernel(x, s, 1e-5, force_plan=p)
+            assert rn.plan_launches[p] == before.get(p, 0) + 1
+            torch.testing.assert_close(y.float(), y0.float(), rtol=0,
+                                       atol=TOL[dtype], msg=str(p))
+            torch.testing.assert_close(r, r0, rtol=1e-5, atol=1e-6)
+            # without rstd: the same y; a rerun: the same bits
+            y2, none = rn.rms_norm_fwd_kernel(x, s, 1e-5, rstd=False,
+                                              force_plan=p)
+            again = rn.rms_norm_fwd_kernel(x, s, 1e-5, force_plan=p)
+            assert none is None and torch.equal(y2, y)
+            assert torch.equal(again[0], y) and torch.equal(again[1], r)
+
+
+def test_norms_without_a_gradient_keep_no_statistics(cuda):
+    x = torch.randn(2, 4, 4096, device=cuda).bfloat16()
+    s = (torch.rand(4096, device=cuda) + 0.5).bfloat16()
+    b = torch.randn(4096, device=cuda).bfloat16()
+    want = rn.rms_norm_fwd_kernel(x.reshape(-1, 4096), s, 1e-5)[0]
+    want_ln = ln.layer_norm_fwd_kernel(x, s, b, 1e-5)[0]
+    for ctx in (torch.no_grad, torch.inference_mode):
+        with ctx():
+            b0, d0 = rn.launches, ln.launches
+            y = rn.fused_rms_norm(x, s)
+            y_ln = ln.fused_layer_norm(x, s, b)
+            assert (rn.launches, ln.launches) == (b0 + 1, d0 + 1)
+        assert y.grad_fn is None and y_ln.grad_fn is None
+        assert torch.equal(y.reshape(-1, 4096), want)
+        assert torch.equal(y_ln, want_ln)
+    # grad mode on, but no input requires a gradient: the same path
+    y = rn.fused_rms_norm(x, s)
+    assert y.grad_fn is None and torch.equal(y.reshape(-1, 4096), want)
 
 
 # -- kernel C: the RMSNorm backward, and the autograd function around B/C --
@@ -706,6 +753,62 @@ def test_layernorm_every_plan_matches_plain(cuda, n, h, dtype):
             torch.testing.assert_close(rstd, rstd0, rtol=1e-5, atol=1e-6)
             again = ln.layer_norm_fwd_kernel(x, s, b, 1e-5, force_plan=p)
             assert torch.equal(again[0], y) and torch.equal(again[1], mu)
+
+
+def _bwd_plans(h, dtype):
+    """Every (row_threads, vecs) E can take for rows of h, each with one
+    row a block and with as many as fit its threads."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    nvec = h // vec
+    out = []
+    for v in range(1, ln.MAX_VECS + 1):
+        t = 32 * -(-nvec // (32 * v))
+        limit, _ = norm_plan.bwd_shape(v, vec)
+        if t <= limit:
+            out += sorted({(t, v, 1), (t, v, max(1, min(512, limit) // t))})
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h", [(300, 4544), (37, 768), (64, 1600),
+                                 (5, 128), (2048, 4544)])
+def test_layernorm_bwd_every_plan_matches_plain(cuda, n, h, dtype):
+    g = torch.Generator(device=cuda).manual_seed(11 * n + h)
+    x = (torch.randn(n, h, device=cuda, generator=g) * 3 + 1).to(dtype)
+    s = (torch.rand(h, device=cuda, generator=g) + 0.5).to(dtype)
+    gy = torch.randn(n, h, device=cuda, generator=g).to(dtype)
+    _, mu, rstd = ln.layer_norm_fwd_plain(x, s, torch.zeros_like(s), 1e-5)
+    dx0, dg0, db0 = ln.layer_norm_bwd_plain(x, s, gy, mu, rstd)
+    tol = TOL[dtype]
+    plans = _bwd_plans(h, dtype)
+    if n == 2048:       # the training rows: E's own plan and a few more
+        plans = [p[:3] for p in (ln.bwd_plan(n, h, dtype),)] + plans[::3]
+    for t, v, rows in plans:
+        for grid in sorted({min(-(-n // rows), 132), max(1, n // (7 * rows)),
+                            -(-n // rows)}):
+            p = (t, v, rows, grid)
+            before = dict(ln.bwd_plan_launches)
+            dx, dg, db, part = ln.layer_norm_bwd_kernel(
+                x, s, gy, mu, rstd, force_plan=p, partials=True)
+            assert ln.bwd_plan_launches[p] == before.get(p, 0) + 1
+            torch.testing.assert_close(dx.float(), dx0.float(), rtol=0,
+                                       atol=tol, msg=str(p))
+            for got, want in ((dg, dg0), (db, db0)):
+                size = want.abs().max().item() + 1.0
+                assert (got - want).abs().max().item() <= tol * size, p
+            # the partial rows and the column pass against their plain
+            # walk (fp32: only the kernel's fused multiply-adds differ)
+            ref_part, ref_sums = ln._reference_bwd_partials(x, s, gy, mu,
+                                                            rstd, p)
+            size = ref_part.abs().max().item() + 1.0
+            assert (part - ref_part).abs().max().item() <= 1e-5 * size, p
+            sums = torch.cat([dg, db])
+            assert (sums - ref_sums).abs().max().item() <= 1e-5 * size, p
+            # a fixed order: the same bits every run
+            again = ln.layer_norm_bwd_kernel(x, s, gy, mu, rstd,
+                                             force_plan=p)
+            assert all(torch.equal(a, b) for a, b in zip(again, (dx, dg,
+                                                                 db))), p
 
 
 def test_layernorm_fp32_keeps_1e5_on_rows_with_a_large_mean(cuda):
