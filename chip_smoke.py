@@ -24,9 +24,9 @@ bound:
 * B and C, the RMSNorm forward and backward, and D and E, the LayerNorm
   forward and backward: at decode, prefill and training rows of 4096 and
   4544 columns and at odd shapes; B (one kernel with D) at every plan
-  its rows can take, forced grids included, with and without rstd, and E
-  at forced plans with its partial rows against their plain walk, each
-  run again with the same bits;
+  its rows can take, forced grids included, with and without rstd, and C
+  and E (one kernel) at forced plans with their partial rows against
+  their plain walk, each run again with the same bits;
 * F, the flash-attention forward, and G and H, its fused and two-pass
   backward: at both models' training shapes (32 heads of 128 at 4096
   tokens; 71 heads on one KV head of 64 at 2048), at head_dim 256
@@ -40,8 +40,10 @@ bound:
   device time of each of H's passes from torch.profiler), D at Falcon's
   decode and training rows and B at Llama's decode, prefill and training
   rows (eager and as a CUDA graph replay, with their plans, beside
-  ``F.layer_norm`` and ``F.rms_norm``), B's serving call site, and E and
-  C at their training rows (with each pass's device time).  The build's
+  ``F.layer_norm`` and ``F.rms_norm``), B's serving call site, E at
+  Falcon's training rows and C at Llama's and Gemma-7B's (with each
+  pass's device time), and B's and C's wrappers' host work by part.  The
+  build's
   register, spill and shared memory figures of every flash kernel, and
   the registers and spills of every norm kernel instantiation, are
   printed.
@@ -92,12 +94,13 @@ its last line ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py --measure [--sweep]
 
 builds the kernels and times only B, C, D, E and H (``norm_times``,
-``h_and_d_times``, ``norm_profiles``) and B's wrapper's host work by
-part (``b_host_breakdown``), through the wrappers' public entry points;
-``--sweep`` adds B, D and E under other plans and D's wrapper's host
-work.  It prints one JSON line and no result.  Any failed check exits
-non-zero without that line; so does a run without a CUDA device or
-outside a checkout of the repo.  Long logs go to ``chiprun_out/``.
+``h_and_d_times``, ``norm_profiles``) and B's and C's wrappers' host
+work by part (``b_host_breakdown``, ``c_host_breakdown``), through the
+wrappers' public entry points; ``--sweep`` adds B, C, D and E under
+other plans and D's wrapper's host work.  It prints one JSON line and no
+result.  Any failed check exits non-zero without that line; so does a
+run without a CUDA device or outside a checkout of the repo.  Long logs
+go to ``chiprun_out/``.
 """
 
 from __future__ import annotations
@@ -280,29 +283,6 @@ def _fwd_plans(n, h, dtype, sm):
             blocks = -(-n // rows)
             for grid in {blocks, min(blocks, sm), min(blocks, 2 * sm),
                          min(blocks, 4 * sm), -(-blocks // 3)}:
-                out.add((t, v, rows, grid))
-    return sorted(out)
-
-
-def _bwd_plans(n, h, dtype, sm):
-    """Plans E can take for [n, h] rows: every (row_threads, vecs) within
-    ``norm_plan.bwd_shape``'s threads, with one row a block and with as
-    many as its block holds, over a grid of one block an SM (or fewer
-    when the rows run out) and over one that walks the rows seven
-    times."""
-    from megatron_llm_torch.ops.kernels import norm_plan
-
-    vec = 16 // _itemsize(dtype)
-    nvec = h // vec
-    out = set()
-    for v in range(1, norm_plan.MAX_VECS + 1):
-        t = 32 * -(-nvec // (32 * v))
-        limit, _ = norm_plan.bwd_shape(v, vec)
-        if t > limit:
-            continue
-        for rows in {1, max(1, min(512, limit) // t)}:
-            blocks = -(-n // rows)
-            for grid in {min(blocks, sm), max(1, -(-blocks // 7))}:
                 out.add((t, v, rows, grid))
     return sorted(out)
 
@@ -1080,13 +1060,15 @@ def _serving_counts():
 
 
 def _norm_plan_launches(counts):
-    """B's, D's and E's launches by plan since the last zeroing (kernels
-    with none left out), checked against their counts in ``counts``."""
+    """B's, C's, D's and E's launches by plan since the last zeroing
+    (kernels with none left out), checked against their counts in
+    ``counts``."""
     from megatron_llm_torch.ops.kernels import layernorm as ln
     from megatron_llm_torch.ops.kernels import rmsnorm as rn
 
     out = {}
-    for key, by_plan in (("B", rn.plan_launches), ("D", ln.plan_launches),
+    for key, by_plan in (("B", rn.plan_launches), ("C", rn.bwd_plan_launches),
+                         ("D", ln.plan_launches),
                          ("E", ln.bwd_plan_launches)):
         check(sum(by_plan.values()) == counts[key],
               f"{key}'s launches by plan {by_plan} do not add up to "
@@ -1616,40 +1598,143 @@ def fwd_plan_sweep(gen, kind):
     return out
 
 
+def _bwd_sweep(kind, name, n, h, run, sm, rms=False):
+    """The device time (CUDA graph replay) of ``run(force_plan=p)``, the
+    norm backward on [n, h] bf16 rows, under every (row_threads, vecs,
+    rows) ``norm_plan.bwd_plans`` lists, each over one and two blocks an
+    SM and over all the row groups at once, beside ``bwd_plan``'s plan."""
+    import torch
+
+    from megatron_llm_torch.ops.kernels import norm_plan
+
+    planned = norm_plan.bwd_plan(n, h, torch.bfloat16, sm, rms)
+    plans = {planned}
+    for t, v, rows, _ in norm_plan.bwd_plans(n, h, torch.bfloat16, sm, rms):
+        groups = -(-n // rows)
+        plans |= {(t, v, rows, min(groups, k * sm)) for k in (1, 2)}
+        plans.add((t, v, rows, groups))
+    times = {p: graph_ms(functools.partial(run, force_plan=p))
+             for p in sorted(plans)}
+    best = min(times, key=times.get)
+    log(f"  {kind} plans, {name} x, g [{n}, {h}] bf16, device ms: "
+        + ", ".join(f"{p}: {ms:.4f}" for p, ms in sorted(
+            times.items(), key=lambda kv: kv[1])[:10])
+        + f"; bwd_plan gives {planned} ({times[planned]:.4f}), best {best}")
+    return {str(p): ms for p, ms in times.items()}
+
+
 def e_plan_sweep(gen):
-    """E's device time (CUDA graph replay) at E_SHAPE, bf16, under every
-    plan ``_bwd_plans`` lists and more grids (one and two blocks an SM,
-    all the row groups at once), beside ``bwd_plan``'s."""
+    """E's device time under every plan (``_bwd_sweep``) at E_SWEEP_SHAPES:
+    Falcon-7B's training rows and GPT-2's."""
     import torch
 
     from megatron_llm_torch.ops.kernels import layernorm as ln
 
     sm = _sm_count()
-    n, h = E_SHAPE
-    x, g = (torch.randn(n, h, device="cuda", generator=gen).to(
-        torch.bfloat16) for _ in range(2))
-    one = torch.ones(h, device="cuda", dtype=torch.bfloat16)
-    _, mu, rstd = ln.layer_norm_fwd_kernel(x, one, one, 1e-5)
-    plans = set()
-    for t, v, rows, _ in _bwd_plans(n, h, torch.bfloat16, sm):
-        blocks = -(-n // rows)
-        plans |= {(t, v, rows, min(blocks, k * sm)) for k in (1, 2)}
-        plans.add((t, v, rows, blocks))
-    times = {p: graph_ms(functools.partial(
-        ln.layer_norm_bwd_kernel, x, one, g, mu, rstd, force_plan=p))
-        for p in sorted(plans)}
-    best = min(times, key=times.get)
-    log(f"  E plans, x, g [{n}, {h}] bf16, device ms: " + ", ".join(
-        f"{p}: {ms:.4f}" for p, ms in sorted(times.items(),
-                                              key=lambda kv: kv[1])[:10])
-        + f"; bwd_plan() gives {ln.bwd_plan(n, h, torch.bfloat16, sm)}, "
-        f"best {best}")
-    return {str(p): ms for p, ms in times.items()}
+    out = {}
+    for name, (n, h) in E_SWEEP_SHAPES.items():
+        x, g = (torch.randn(n, h, device="cuda", generator=gen).to(
+            torch.bfloat16) for _ in range(2))
+        one = torch.ones(h, device="cuda", dtype=torch.bfloat16)
+        _, mu, rstd = ln.layer_norm_fwd_kernel(x, one, one, 1e-5)
+        out[name] = _bwd_sweep("E", name, n, h, functools.partial(
+            ln.layer_norm_bwd_kernel, x, one, g, mu, rstd), sm)
+    return out
+
+
+def c_plan_sweep(gen):
+    """C's device time under every plan (``_bwd_sweep``) at C_SHAPES."""
+    import torch
+
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
+
+    sm = _sm_count()
+    out = {}
+    for name, (n, h) in C_SHAPES.items():
+        x, g = (torch.randn(n, h, device="cuda", generator=gen).to(
+            torch.bfloat16) for _ in range(2))
+        one = torch.ones(h, device="cuda", dtype=torch.bfloat16)
+        _, rstd = rn.rms_norm_fwd_kernel(x, one, 1e-5)
+        out[name] = _bwd_sweep("C", name, n, h, functools.partial(
+            rn.rms_norm_bwd_kernel, x, one, g, rstd), sm, rms=True)
+    return out
+
+
+def _host_us(label, parts, calls=2000, runs=1):
+    """Host microseconds a call of each of ``parts`` (name -> function of
+    no arguments): time.perf_counter over ``calls`` calls after a warm-up,
+    the median of ``runs`` such runs, synchronised around each run
+    (``calls`` few enough that the device's work never fills the launch
+    queue, so the device's time a call does not hold the host)."""
+    import torch
+
+    out = {}
+    for name, fn in parts.items():
+        for _ in range(50):
+            fn()
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+        out[name] = sorted(times)[runs // 2]
+    log(f"  {label} host us a call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def c_host_breakdown():
+    """Host microseconds a call of C's wrapper at C_SHAPES["C"] bf16 and
+    of its parts (the checks, the three allocations, plan, pack, the
+    packed call that launches both passes), beside ``F.rms_norm``'s
+    backward: ``_host_us``, the median of 5 runs of 100 calls (100 calls
+    stay inside the launch queue)."""
+    import torch
+    import torch.nn.functional as F
+
+    from megatron_llm_torch.ops.kernels import norm_plan
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
+
+    n, h = C_SHAPES["C"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    x, g = (torch.randn(n, h, device="cuda").to(bf16) for _ in range(2))
+    one = torch.ones(h, device="cuda", dtype=bf16)
+    _, rstd = rn.rms_norm_fwd_kernel(x, one, 1e-5)
+    xl, sl = (t.clone().requires_grad_(True) for t in (x, one))
+    yl = F.rms_norm(xl, (h,), weight=sl, eps=1e-5)
+    sm = _sm_count()
+    p = norm_plan.bwd_plan(n, h, bf16, sm, True)
+    dx = torch.empty_like(x)
+    sums = x.new_empty((h,), dtype=f32)
+    part = x.new_empty((p[3], h), dtype=f32)
+    packed = norm_plan.BWD_CALL.pack(
+        x.data_ptr(), one.data_ptr(), g.data_ptr(), 0, rstd.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), sums.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(0), n, h, 1, 1, *p, 1)
+    entry = norm_plan.entry("mlt_norm_bwd")
+    return _host_us(f"C, x, g [{n}, {h}] bf16", {
+        "wrapper": lambda: rn.rms_norm_bwd_kernel(x, one, g, rstd),
+        "F.rms_norm backward (autograd.grad)": lambda: torch.autograd.grad(
+            yl, (xl, sl), g, retain_graph=True),
+        "checks (norm_plan.bwd_checks)": lambda: norm_plan.bwd_checks(
+            "rmsnorm backward", x, one, g, None, rstd),
+        "allocations (dx, dscale, partials)": lambda: (
+            torch.empty_like(x), x.new_empty((h,), dtype=f32),
+            x.new_empty((p[3], h), dtype=f32)),
+        "plan": lambda: norm_plan.bwd_plan(n, h, bf16, sm, True),
+        "stream handle": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "pack": lambda: norm_plan.BWD_CALL.pack(
+            1, 2, 3, 0, 5, 6, 7, 8, 9, n, h, 1, 1, *p, 1),
+        "entry(packed) (the launch of both passes)": lambda: entry(packed),
+    }, calls=100, runs=5)
 
 
 def d_host_breakdown():
-    """Host microseconds a call (time.perf_counter over 2000 calls, the
-    queue never full: D's decode rows take 3 us of device time) of D's
+    """Host microseconds a call (``_host_us``, 2000 calls, the queue never
+    full: D's decode rows take 3 us of device time) of D's
     wrapper at [8, 4544] bf16 and of its parts, beside F.layer_norm."""
     import torch
     import torch.nn.functional as F
@@ -1671,8 +1756,8 @@ def d_host_breakdown():
         x.data_ptr(), one.data_ptr(), one.data_ptr(), y.data_ptr(),
         st.data_ptr(), st.data_ptr() + 4 * n,
         torch._C._cuda_getCurrentRawStream(0), n, h, 1, 1, *p, 0, 1e-5)
-    entry = build.load_library().mlt_norm_fwd
-    parts = {
+    entry = norm_plan.entry("mlt_norm_fwd")
+    return _host_us("D, x [8, 4544] bf16", {
         "wrapper": lambda: ln.layer_norm_fwd_kernel(x, one, one, 1e-5),
         "F.layer_norm": lambda: F.layer_norm(x, (h,), one, one, 1e-5),
         "empty_like(x)": lambda: torch.empty_like(x),
@@ -1688,35 +1773,25 @@ def d_host_breakdown():
         "pack": lambda: norm_plan.FWD_CALL.pack(
             1, 2, 3, 4, 5, 6, 7, n, h, 1, 1, *p, 0, 1e-5),
         "entry(packed) (the launch)": lambda: entry(packed),
-        "checks (contiguity, devices, pointers)": lambda: (
-            x.get_device(), one.get_device(), one.get_device(),
-            x.is_contiguous(), one.is_contiguous(), one.is_contiguous(),
-            x.data_ptr(), one.data_ptr(), one.data_ptr(), x.dim(),
-            one.dim(), x.shape),
-    }
-    out = {}
-    for name, fn in parts.items():
-        for _ in range(50):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(2000):
-            fn()
-        out[name] = (time.perf_counter() - t0) / 2000 * 1e6
-        torch.cuda.synchronize()
-    log("  D host us a call, x [8, 4544] bf16: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in out.items()))
-    return out
+        "checks (norm_plan.fwd_checks)": lambda: norm_plan.fwd_checks(
+            "layernorm", x, one, one),
+    })
 
 
 # B's timing rows (Llama-2-7B's width): decode, a prefill chunk and a
 # training micro-batch; E's and C's training rows (Falcon-7B's, Llama's)
 B_SHAPES = ((8, 4096), (64, 4096), (4096, 4096))
 E_SHAPE = (2048, 4544)
-C_SHAPE = (4096, 4096)
-# E's and C's kernels by name substring: the device time of each pass
-_E_PASSES = (("first", "layernorm_bwd"), ("column", "column_"))
-_C_PASSES = (("first", "rmsnorm_bwd"), ("column", "column_"))
+# E's plan sweep: Falcon-7B's training rows and GPT-2 125M's (a micro-batch
+# of 8 sequences of 1024 tokens, 768 columns)
+E_SWEEP_SHAPES = {"falcon": E_SHAPE, "gpt2": (8192, 768)}
+# C's training rows: Llama-2-7B's micro-batch (4096 tokens of 4096) and
+# Gemma-7B's (2048 tokens of 3072)
+C_SHAPES = {"C": (4096, 4096), "C_gemma": (2048, 3072)}
+# E's and C's kernels (one template) by name substring: the device time
+# of each pass
+_NORM_BWD_PASSES = (("first", "norm_bwd_kernel"),
+                    ("column", "norm_column_pass_kernel"))
 
 
 def _median_ms(fn, iters=200, repeats=5):
@@ -1728,7 +1803,7 @@ def _median_ms(fn, iters=200, repeats=5):
 
 def norm_times(gen):
     """B at B_SHAPES and at its serving call site, E at E_SHAPE and C at
-    C_SHAPE, bf16: eager ms (``_median_ms``) and device ms (``graph_ms``)
+    C_SHAPES, bf16: eager ms (``_median_ms``) and device ms (``graph_ms``)
     beside one library call on the same inputs (``F.rms_norm``,
     ``F.layer_norm``'s and ``F.rms_norm``'s backward) timed the same way,
     and each bound.  Returns (rows, profile runs): E's and C's device time
@@ -1742,7 +1817,7 @@ def norm_times(gen):
     from megatron_llm_torch.ops.kernels import rmsnorm as rn
 
     bf16 = torch.bfloat16
-    out = {"B": {}, "E": {}, "C": {}}
+    out = {"B": {}, "E": {}}
     runs = {}
     for n, h in B_SHAPES:
         x = torch.randn(n, h, device="cuda", generator=gen).to(bf16)
@@ -1800,23 +1875,24 @@ def norm_times(gen):
     out["E"] = dict(ms=_median_ms(run), device_ms=graph_ms(run),
                     library_ms=_median_ms(lib), bound_ms=b_ms, bound_by=b_by,
                     shape=f"x, g [{n}, {h}] bf16")
-    runs["E"] = (run, lib, _E_PASSES)
-    n, h = C_SHAPE
-    x = torch.randn(n, h, device="cuda", generator=gen).to(bf16)
-    sc = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(bf16)
-    g = torch.randn(n, h, device="cuda", generator=gen).to(bf16)
-    _, rstd = rn.rms_norm_fwd_kernel(x, sc, 1e-5)
-    xl, sl = (t.clone().requires_grad_(True) for t in (x, sc))
-    yl = F.rms_norm(xl, (h,), weight=sl, eps=1e-5)
-    run = functools.partial(rn.rms_norm_bwd_kernel, x, sc, g, rstd)
-    lib = functools.partial(torch.autograd.grad, yl, (xl, sl), g,
-                            retain_graph=True)
-    b_ms, b_by = bound(3 * n * h * 2 + n * 4 + h * 2 + h * 4, 8 * n * h,
-                       FP32_FLOPS)
-    out["C"] = dict(ms=_median_ms(run, iters=50), device_ms=graph_ms(run),
-                    library_ms=_median_ms(lib, iters=50), bound_ms=b_ms,
-                    bound_by=b_by, shape=f"x, g [{n}, {h}] bf16")
-    runs["C"] = (run, lib, _C_PASSES)
+    runs["E"] = (run, lib, _NORM_BWD_PASSES)
+    for name, (n, h) in C_SHAPES.items():
+        x = torch.randn(n, h, device="cuda", generator=gen).to(bf16)
+        sc = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(bf16)
+        g = torch.randn(n, h, device="cuda", generator=gen).to(bf16)
+        _, rstd = rn.rms_norm_fwd_kernel(x, sc, 1e-5)
+        xl, sl = (t.clone().requires_grad_(True) for t in (x, sc))
+        yl = F.rms_norm(xl, (h,), weight=sl, eps=1e-5)
+        run = functools.partial(rn.rms_norm_bwd_kernel, x, sc, g, rstd)
+        lib = functools.partial(torch.autograd.grad, yl, (xl, sl), g,
+                                retain_graph=True)
+        b_ms, b_by = bound(3 * n * h * 2 + n * 4 + h * 2 + h * 4, 8 * n * h,
+                           FP32_FLOPS)
+        out[name] = dict(ms=_median_ms(run, iters=50),
+                         device_ms=graph_ms(run),
+                         library_ms=_median_ms(lib, iters=50), bound_ms=b_ms,
+                         bound_by=b_by, shape=f"x, g [{n}, {h}] bf16")
+        runs[name] = (run, lib, _NORM_BWD_PASSES)
     for n, row in out["B"].items():
         log(f"  B {row['shape']}: eager {row['ms']:.4f} ms"
             + (f" ({row['ms_with_rstd']:.4f} ms keeping rstd)"
@@ -1859,8 +1935,8 @@ def _inference_mode_only():
 
 
 def b_host_breakdown():
-    """Host microseconds a call (time.perf_counter over 2000 calls, the
-    queue never full) of B's wrapper at [8, 4096] bf16, of its serving
+    """Host microseconds a call (``_host_us``, 2000 calls, the queue never
+    full) of B's wrapper at [8, 4096] bf16, of its serving
     call site and of the parts a wrapper is made of, beside F.rms_norm."""
     import torch
     import torch.nn.functional as F
@@ -1888,7 +1964,7 @@ def b_host_breakdown():
         x.data_ptr(), one.data_ptr(), 0, y.data_ptr(), 0, 0,
         torch._C._cuda_getCurrentRawStream(0), n, h, 1, 1, *p, 1, 1e-5)
     entry = norm_plan.entry("mlt_norm_fwd")
-    parts = {
+    return _host_us("B, x [8, 4096] bf16", {
         "wrapper (y and rstd)": lambda: rn.rms_norm_fwd_kernel(x, one, 1e-5),
         "wrapper, no rstd": lambda: rn.rms_norm_fwd_kernel(x, one, 1e-5,
                                                            rstd=False),
@@ -1903,30 +1979,14 @@ def b_host_breakdown():
         "x.reshape(-1, h)": lambda: x3.reshape(-1, h),
         "build.load_library()": build.load_library,
         "stream handle": lambda: torch._C._cuda_getCurrentRawStream(0),
-        "rn._check(x, scale)": lambda: rn._check(x, one),
         "plan": lambda: norm_plan.plan(n, h, torch.bfloat16, sm),
         "build.sm_count(0)": lambda: build.sm_count(0),
         "pack": lambda: norm_plan.FWD_CALL.pack(
             1, 2, 0, 4, 0, 0, 7, n, h, 1, 1, *p, 1, 1e-5),
         "entry(packed) (the launch)": lambda: entry(packed),
-        "checks (dtypes, devices, contiguity, pointers)": lambda: (
-            x.dtype, one.dtype, x.get_device(), one.get_device(),
-            x.is_contiguous(), one.is_contiguous(), x.data_ptr(),
-            one.data_ptr(), x.dim(), x.shape),
-    }
-    out = {}
-    for name, fn in parts.items():
-        for _ in range(50):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(2000):
-            fn()
-        out[name] = (time.perf_counter() - t0) / 2000 * 1e6
-        torch.cuda.synchronize()
-    log("  B host us a call, x [8, 4096] bf16: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in out.items()))
-    return out
+        "checks (norm_plan.fwd_checks)": lambda: norm_plan.fwd_checks(
+            "rmsnorm", x, one, None),
+    })
 
 
 def phase1_training(gen, results):
@@ -1936,35 +1996,66 @@ def phase1_training(gen, results):
     from megatron_llm_torch.ops.kernels import build
     from megatron_llm_torch.ops.kernels import flash_attention as fa
     from megatron_llm_torch.ops.kernels import layernorm as ln
+    from megatron_llm_torch.ops.kernels import norm_plan
     from megatron_llm_torch.ops.kernels import rmsnorm as rn
 
     dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
     sm = _sm_count()
 
     # -- kernel C: RMSNorm backward ---------------------------------------
+    # Llama's and Gemma-7B's training rows (C_SHAPES), a ragged row count,
+    # a tiny row and 5504 columns (idle vectors): each at bwd_plan()'s
+    # plan and at every forced plan of norm_plan.bwd_plans,
+    # against the plain backward, its partial rows and dscale against
+    # their plain walk (_reference_bwd_partials), and run twice: the same
+    # bits for dx and dscale
     err = {"bf16": 0.0, "fp32": 0.0}
     for tag, dt in dts.items():
-        for n, h in ((4096, 4096), (300, 4096), (3, 128), (17, 11008 // 2)):
+        for n, h in (*C_SHAPES.values(), (300, 4096), (3, 128),
+                     (17, 11008 // 2)):
             x = (torch.randn(n, h, device="cuda", generator=gen) * 3).to(dt)
             sc = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(dt)
             g = torch.randn(n, h, device="cuda", generator=gen).to(dt)
             _, rstd = rn.rms_norm_fwd_plain(x, sc, 1e-5)
-            dx, ds = rn.rms_norm_bwd_kernel(x, sc, g, rstd)
             dx0, ds0 = rn.rms_norm_bwd_plain(x, sc, g, rstd)
-            torch.cuda.synchronize()
-            e_dx = (dx.float() - dx0.float()).abs().max().item()
-            e_ds = ((ds - ds0).abs().max()
-                    / ds0.abs().max().clamp(min=1.0)).item()
-            log(f"  rmsnorm backward {tag} n={n} h={h}: dx max_abs_err "
-                f"{e_dx:.3g}, dscale error / max|dscale| {e_ds:.3g}")
-            check(e_dx <= TOL[tag] and e_ds <= GRAD_TOL[tag],
-                  f"rmsnorm backward {tag} n={n} h={h}: dx {e_dx}, "
-                  f"dscale {e_ds}")
-            err[tag] = max(err[tag], e_dx)
+            plans = norm_plan.bwd_plans(n, h, dt, sm, rms=True)
+            worst = [0.0, 0.0, 0.0]
+            for p in plans:
+                dx, ds, part = rn.rms_norm_bwd_kernel(
+                    x, sc, g, rstd, force_plan=p, partials=True)
+                again = rn.rms_norm_bwd_kernel(x, sc, g, rstd, force_plan=p)
+                ref_part, ref_ds = rn._reference_bwd_partials(x, sc, g, rstd,
+                                                              p)
+                torch.cuda.synchronize()
+                e_dx = (dx.float() - dx0.float()).abs().max().item()
+                e_ds = ((ds - ds0).abs().max()
+                        / ds0.abs().max().clamp(min=1.0)).item()
+                size = ref_part.abs().max().clamp(min=1.0)
+                e_part = max(((part - ref_part).abs().max() / size).item(),
+                             ((ds - ref_ds).abs().max() / size).item())
+                check(e_dx <= TOL[tag] and e_ds <= GRAD_TOL[tag],
+                      f"rmsnorm backward {tag} n={n} h={h} plan {p}: dx "
+                      f"{e_dx}, dscale {e_ds}")
+                check(e_part <= 1e-5, f"rmsnorm backward {tag} n={n} h={h} "
+                      f"plan {p}: partial rows off their plain walk by "
+                      f"{e_part} of their size")
+                check(all(torch.equal(a_, b_) for a_, b_ in
+                          zip(again, (dx, ds))),
+                      f"rmsnorm backward {tag} n={n} h={h} plan {p}: the "
+                      f"output changed between two runs")
+                worst = [max(w, e) for w, e in zip(worst, (e_dx, e_ds,
+                                                           e_part))]
+            log(f"  rmsnorm backward {tag} n={n} h={h}: bwd_plan(rms) "
+                f"{plans[0]} and {len(plans) - 1} forced plans; dx "
+                f"max_abs_err "
+                f"{worst[0]:.3g}, dscale error / max|dscale| {worst[1]:.3g},"
+                f" partial rows {worst[2]:.3g} of their size; the same bits "
+                f"on every rerun")
+            err[tag] = max(err[tag], worst[0])
     # timed with B, D, E and H in phase1_times, at the end of phase 1
     results["rmsnorm_bwd"] = dict(
         name="rmsnorm_bwd", route="cuda",
-        source="megatron_llm_torch/csrc/rmsnorm.cu",
+        source="megatron_llm_torch/csrc/layernorm.cu",
         replaces="megatron_llm_tpu/ops/pallas/rmsnorm.py:64",
         max_abs_err=err["bf16"], max_abs_err_fp32=err["fp32"])
 
@@ -1985,7 +2076,7 @@ def phase1_training(gen, results):
             g = torch.randn(n, h, device="cuda", generator=gen).to(dt)
             _, mu, rstd = ln.layer_norm_fwd_plain(x, sc, b, 1e-5)
             dx0, dg0, db0 = ln.layer_norm_bwd_plain(x, sc, g, mu, rstd)
-            plans = [ln.bwd_plan(n, h, dt, sm)] + _bwd_plans(n, h, dt, sm)
+            plans = norm_plan.bwd_plans(n, h, dt, sm)
             worst = [0.0, 0.0, 0.0, 0.0]
             for p in plans:
                 dx, dg, db, part = ln.layer_norm_bwd_kernel(
@@ -2220,6 +2311,7 @@ def phase1_times(gen, results):
     sm = _sm_count()
     # B's host work by part in the process whose eager times are kept
     b_host = b_host_breakdown()
+    c_host = c_host_breakdown()
     norms, norm_runs = norm_times(gen)
     hd = h_and_d_times(gen)
     norm_profiles(norms, norm_runs)
@@ -2259,13 +2351,13 @@ def phase1_times(gen, results):
     norms["E"].update(plain_ms=time_ms(lambda: ln.layer_norm_bwd_plain(
         x, one, g, mu, rstd), iters=20), plan=list(ln.bwd_plan(n, h, bf16,
                                                                 sm)))
-    n, h = C_SHAPE
-    x, g = (torch.randn(n, h, device="cuda", generator=gen).to(bf16)
-            for _ in range(2))
-    one = torch.ones(h, device="cuda", dtype=bf16)
-    _, rstd = rn.rms_norm_fwd_plain(x, one, 1e-5)
-    norms["C"]["plain_ms"] = time_ms(lambda: rn.rms_norm_bwd_plain(
-        x, one, g, rstd), iters=20)
+    for name, (n, h) in C_SHAPES.items():
+        x, g = (torch.randn(n, h, device="cuda", generator=gen).to(bf16)
+                for _ in range(2))
+        one = torch.ones(h, device="cuda", dtype=bf16)
+        _, rstd = rn.rms_norm_fwd_plain(x, one, 1e-5)
+        norms[name]["plain_ms"] = time_ms(lambda: rn.rms_norm_bwd_plain(
+            x, one, g, rstd), iters=20)
     del x, g, mu, rstd
     torch.cuda.empty_cache()
     results["flash_bwd"].update(hd["H"]["llama"],
@@ -2277,7 +2369,9 @@ def phase1_times(gen, results):
         b_rows[8], prefill_rows=b_rows[64], training_rows=b_rows[4096],
         training_device_ms=b_rows[4096]["device_ms"],
         call_site=b_rows["call_site"], host_us=b_host)
-    results["rmsnorm_bwd"].update(norms["C"])
+    results["rmsnorm_bwd"].update(
+        norms["C"], gemma_rows=norms["C_gemma"], host_us=c_host,
+        plan=list(ln.bwd_plan(*C_SHAPES["C"], bf16, sm, rms=True)))
     results["layernorm_bwd"].update(norms["E"])
     for label, row in (("H, Llama", hd["H"]["llama"]),
                        ("H, Falcon", hd["H"]["falcon"]),
@@ -2291,7 +2385,10 @@ def phase1_times(gen, results):
                    "F.rms_norm")
     _log_times(f"layernorm backward (E, plan {norms['E']['plan']})",
                norms["E"], "F.layer_norm backward")
-    _log_times("rmsnorm backward (C)", norms["C"], "F.rms_norm backward")
+    for name, (n, h) in C_SHAPES.items():
+        _log_times(f"rmsnorm backward (C, plan "
+                   f"{ln.bwd_plan(n, h, bf16, sm, rms=True)})", norms[name],
+                   "F.rms_norm backward")
 
 
 # ---------------------------------------------------------------------------
@@ -2309,8 +2406,8 @@ def _zero_counts():
     fa.variant_launches.clear()
     rn.launches = rn.bwd_launches = 0
     ln.launches = ln.bwd_launches = 0
-    for by_plan in (rn.plan_launches, ln.plan_launches,
-                    ln.bwd_plan_launches):
+    for by_plan in (rn.plan_launches, rn.bwd_plan_launches,
+                    ln.plan_launches, ln.bwd_plan_launches):
         by_plan.clear()
     pa.decode_launches = pa.prefill_launches = 0
     pa.quant_decode_launches = pa.quant_prefill_launches = 0
@@ -2355,8 +2452,7 @@ _KERNEL_GROUPS = (
                             "flash_bwd_prep_kernel",
                             "flash_dkv_sum_kernel")),
     ("B/D norm forward", ("norm_fwd_kernel",)),
-    ("C/E norm backward", ("rmsnorm_bwd_kernel", "layernorm_bwd_kernel",
-                           "column_sum_kernel", "norm_column_pass_kernel")),
+    ("C/E norm backward", ("norm_bwd_kernel", "norm_column_pass_kernel")),
     ("matmuls (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
 )
 
@@ -2773,14 +2869,14 @@ _NORM_TYPES = (("I13__nv_bfloat16S1_", "bf16/bf16"),
 def _log_norm_build(build):
     """Registers and spills of every norm kernel instantiation, from
     ptxas's lines of the build: one line a kernel and (x, parameter)
-    dtype pair, V (vectors a thread) by V; the forward's RMSNorm (B) and
-    LayerNorm (D) instantiations apart."""
+    dtype pair, V (vectors a thread) by V; each kernel's RMSNorm (B, C)
+    and LayerNorm (D, E) instantiations apart."""
     lines = build.build_log.splitlines()
     found = {}
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '\S*?(norm_fwd_kernel|"
-                      r"layernorm_bwd_kernel|rmsnorm_bwd_kernel|"
-                      r"norm_column_pass_kernel)(\S*)'", line)
+                      r"norm_bwd_kernel|norm_column_pass_kernel)(\S*)'",
+                      line)
         if not m:
             continue
         info = " ".join(x for x in lines[i + 1:i + 4] if "Used" in x
@@ -2791,8 +2887,11 @@ def _log_norm_build(build):
                       if m.group(2).startswith(key)), "")
         v = re.search(r"Li(\d)E", m.group(2))
         rms = re.search(r"Lb([01])E", m.group(2))
-        kernel = m.group(1) + (" (B, RMSNorm)" if rms and rms.group(1) == "1"
-                               else " (D, LayerNorm)" if rms else "")
+        names = (("B", "D") if m.group(1) == "norm_fwd_kernel"
+                 else ("C", "E"))
+        kernel = m.group(1) + (
+            f" ({names[0]}, RMSNorm)" if rms and rms.group(1) == "1"
+            else f" ({names[1]}, LayerNorm)" if rms else "")
         found.setdefault((kernel, types), []).append(
             (int(v.group(1)) if v else 0, regs.group(1) if regs else "?",
              spill.group(1) if spill else "?"))
@@ -2812,13 +2911,14 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--measure", action="store_true",
         help="build the kernels, time B, C, D, E and H at their main-path "
-             "shapes (norm_times, h_and_d_times; B's host work by part, "
-             "b_host_breakdown) and stop: no phase runs, no result line")
+             "shapes (norm_times, h_and_d_times; B's and C's host work by "
+             "part, b_host_breakdown, c_host_breakdown) and stop: no phase "
+             "runs, no result line")
     parser.add_argument(
         "--sweep", action="store_true",
-        help="with --measure: also time B, D and E under other plans "
-             "(fwd_plan_sweep, e_plan_sweep) and D's wrapper's host work "
-             "(d_host_breakdown)")
+        help="with --measure: also time B, C, D and E under other plans "
+             "(fwd_plan_sweep, e_plan_sweep, c_plan_sweep) and D's "
+             "wrapper's host work (d_host_breakdown)")
     opts = parser.parse_args(argv)
     try:
         import torch
@@ -2870,12 +2970,13 @@ def main(argv=None) -> int:
         # h_and_d_times and norm_profiles come last
         sweep = dict(D_plans=fwd_plan_sweep(gen, "D"),
                      B_plans=fwd_plan_sweep(gen, "B"),
-                     E_plans=e_plan_sweep(gen),
+                     E_plans=e_plan_sweep(gen), C_plans=c_plan_sweep(gen),
                      D_host_us=d_host_breakdown()) if opts.sweep else None
         b_host = b_host_breakdown()
+        c_host = c_host_breakdown()
         norms, norm_runs = norm_times(gen)
         res = {"card": card, **h_and_d_times(gen), **norms,
-               "B_host_us": b_host}
+               "B_host_us": b_host, "C_host_us": c_host}
         norm_profiles(norms, norm_runs)
         if sweep is not None:
             res.update(sweep)

@@ -89,7 +89,7 @@ class TransformerConfig:
     # the no-cache attention through flash attention (kernels F, G/H of
     # csrc/flash_attention.cu); off: core_attention
     use_flash_attn: bool = True
-    # RMSNorm through the CUDA kernels (csrc/rmsnorm.cu, B and C)
+    # RMSNorm through the CUDA kernels (csrc/layernorm.cu, B and C)
     use_fused_rmsnorm: bool = True
     # LayerNorm through the CUDA kernels (csrc/layernorm.cu, D and E)
     use_fused_layernorm: bool = True

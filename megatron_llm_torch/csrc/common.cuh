@@ -42,17 +42,4 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// out[c] = sum over the rows of partial [nrows, width], one thread a
-// column: the second pass of a reduction across blocks, in a fixed order.
-template <int kThreads>
-__global__ void __launch_bounds__(kThreads)
-column_sum_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                  int nrows, int width) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= width) return;
-  float s = 0.f;
-  for (int i = 0; i < nrows; ++i) s += partial[(size_t)i * width + c];
-  out[c] = s;
-}
-
 }  // namespace mlt

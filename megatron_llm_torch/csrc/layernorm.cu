@@ -1,6 +1,6 @@
 // The norm kernels for Hopper (sm_90a): one forward for RMSNorm (kernel
-// B) and LayerNorm (kernel D), and the LayerNorm backward (kernel E,
-// further down).  The RMSNorm backward (C) is in rmsnorm.cu.
+// B) and LayerNorm (kernel D), and one backward for RMSNorm (kernel C)
+// and LayerNorm (kernel E), further down.
 //
 // The forward replaces two TPU kernels, megatron_llm_tpu/ops/pallas/
 // rmsnorm.py `_fwd_kernel` (B, through `_fwd_call`) and layernorm.py
@@ -66,11 +66,13 @@ struct NormFwdCall {
 // One backward call's arguments, packed by the wrapper (ops/kernels/
 // norm_plan.py `BWD_CALL`, the same fields in the same order).  x, g, dx:
 // [n, h] row-major, 16-byte aligned, h a multiple of 16 / sizeof(x);
-// gamma: [h], 16-byte aligned; mu, rstd: [n] fp32 from the forward;
-// partial: [grid, 2h] fp32 scratch; sums: [2h] fp32, dgamma then dbeta.
-// The plan: row_threads (a multiple of 32) threads a row, vecs (1..8)
-// 16-byte vectors a thread, rows_per_block rows a block, grid blocks.
-struct LnBwdCall {
+// gamma (RMSNorm's scale): [h], 16-byte aligned; mu (not read by RMSNorm,
+// rms != 0) and rstd: [n] fp32 from the forward; partial: [grid, w] fp32
+// scratch and sums: [w] fp32, where w is h for RMSNorm (dscale) and 2h for
+// LayerNorm (dgamma, then dbeta).  The plan: row_threads (a multiple of
+// 32) threads a row, vecs (1..8) 16-byte vectors a thread, rows_per_block
+// rows a block, grid blocks.
+struct NormBwdCall {
   const void* x;
   const void* gamma;
   const void* g;
@@ -81,7 +83,7 @@ struct LnBwdCall {
   float* sums;
   void* stream;
   int n, h, x_dtype, param_dtype;
-  int row_threads, vecs, rows_per_block, grid;
+  int row_threads, vecs, rows_per_block, grid, rms;
 };
 
 namespace {
@@ -268,47 +270,55 @@ cudaError_t launch_fwd(const NormFwdCall* c) {
   }
 }
 
-// Kernel E, the LayerNorm backward, replaces layernorm.py `_bwd_kernel`
-// (through `_bwd_call`), with the forward's saved mu and rstd (not
-// recomputed):
-//   xhat = (x - mu) * rstd, ggam = g * gamma
-//   dx = rstd * (ggam - mean(ggam) - xhat * mean(ggam * xhat))   per row
-//   dgamma = sum over rows of g * xhat, dbeta = sum over rows of g  [h] fp32
+// The backward, one template for both norms (kRms as in the forward), with
+// the forward's saved statistics (not recomputed).  Kernel E, the
+// LayerNorm backward, replaces layernorm.py `_bwd_kernel` (through
+// `_bwd_call`); kernel C, the RMSNorm backward, replaces rmsnorm.py
+// `_bwd_kernel` (through `_bwd_call`):
+//   E: xhat = (x - mu) * rstd, ggam = g * gamma
+//      dx = rstd * (ggam - mean(ggam) - xhat * mean(ggam * xhat))  per row
+//      dgamma = sum over rows of g * xhat, dbeta = sum over rows of g
+//   C: gs = g * scale
+//      dx = rstd * (gs - x * rstd^2 * mean(gs * x))                per row
+//      dscale = sum over rows of g * x * rstd
+// with the column sums [h] fp32.
 //
 // Bound on this card: memory, x and g read once and dx written once,
-// 3*n*h*sizeof(x) bytes plus the statistics, gamma and the two [h] sums
-// (Falcon-7B's 2048 x 4544 bf16 rows: 55.8 MB, 0.0167 ms at 3.35 TB/s).
+// 3*n*h*sizeof(x) bytes plus the statistics, the parameter and the sums
+// (E at Falcon-7B's 2048 x 4544 bf16 rows: 55.8 MB, 0.0167 ms at 3.35
+// TB/s; C at Llama-2-7B's 4096 x 4096: 100.7 MB, 0.0301 ms).
 //
-// Design: the TPU kernel carries dgamma and dbeta across its sequential
+// Design: the TPU kernels carry the column sums across their sequential
 // grid in VMEM scratch; blocks here run in no order, so they take two
 // passes and no atomics.  Pass 1 keeps rows in registers as the forward
 // does (the same vector-to-thread map): x and g of a row are read once,
-// as 16-byte vectors, and the row's two sums (of ggam and of ggam * xhat)
-// go through one exchange across the row's warps, one barrier a row (two
-// buffers, used in turn, so a row's writes never race the last row's
-// reads).  Where registers allow (BwdShape::kPrefetch), the next row's
-// loads start before this row's exchange.  gamma is copied once a
-// block into shared memory as 16-byte vectors.  Every row a thread walks
-// puts the same columns on it, so dgamma and dbeta accumulate in its
+// as 16-byte vectors, and the row's sums (E: of ggam and of ggam * xhat;
+// C: of gs * x alone) go through one exchange across the row's warps, one
+// barrier a row (two buffers, used in turn, so a row's writes never race
+// the last row's reads).  Where registers allow (BwdShape::kPrefetch),
+// the next row's loads start before this row's exchange.  gamma is copied
+// once a block into shared memory as 16-byte vectors.  Every row a thread
+// walks puts the same columns on it, so the column sums accumulate in its
 // registers for those columns; at the end a block adds its row slots'
-// sums in slot order through shared memory and writes one partial row,
-// [dgamma | dbeta] of 2h fp32.  The grid is about one block an SM (ops/
-// kernels/norm_plan.py `bwd_plan`), so the partial rows add ~2*132*2h*4
-// bytes of traffic.  Pass 2, the column pass, gives each block 64 columns:
-// its 8 warps take every 8th partial row, each in row order, and their
-// sums are added in warp order through shared memory.  Every order is
-// fixed, so dgamma and dbeta are the same bits on every run.
+// sums in slot order through shared memory and writes one partial row:
+// [dgamma | dbeta], 2h fp32, for E; dscale, h fp32, for C.  The grid is
+// about one block an SM (ops/kernels/norm_plan.py `bwd_plan`), so the
+// partial rows add ~132 rows of traffic each way.  Pass 2, the column
+// pass, gives each block 64 columns: its 8 warps take every 8th partial
+// row, each in row order, and their sums are added in warp order through
+// shared memory.  Every order is fixed, so the column sums are the same
+// bits on every run.
 
-// Registers a thread of E needs at V vectors of kVec elements: the
-// 2*V*kVec fp32 sums of dgamma and dbeta, x and g of this row (8 a
-// vector), of the next row when it is loaded ahead (8 more), and about
-// 24 for the rest.  The next row is loaded ahead only where the whole
-// fits the 128 registers of a 512-thread block; the most threads a block
-// takes follows from the registers (ops/kernels/norm_plan.py
-// `bwd_shape`, the same rule).
-template <int kVec, int V>
+// Registers a thread needs at V vectors of kVec elements: the column
+// sums (2*V*kVec fp32 for E's dgamma and dbeta, V*kVec for C's dscale),
+// x and g of this row (8 a vector), of the next row when it is loaded
+// ahead (8 more), and about 24 for the rest.  The next row is loaded
+// ahead only where the whole fits the 128 registers of a 512-thread
+// block; the most threads a block takes follows from the registers
+// (ops/kernels/norm_plan.py `bwd_shape`, the same rule).
+template <int kVec, int V, bool kRms>
 struct BwdShape {
-  static constexpr int kBase = 2 * V * kVec + 8 * V + 24;
+  static constexpr int kBase = (kRms ? 1 : 2) * V * kVec + 8 * V + 24;
   static constexpr bool kPrefetch = kBase + 8 * V <= 128;
   static constexpr int kNeed = kBase + (kPrefetch ? 8 * V : 0);
   static constexpr int kMaxThreads =
@@ -322,19 +332,20 @@ struct BwdRow {
   float mu, rstd;
 };
 
-template <typename T, typename S, int V>
-__global__ void __launch_bounds__(BwdShape<(int)(16 / sizeof(T)), V>::kMaxThreads)
-layernorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ gamma,
-                     const T* __restrict__ g, const float* __restrict__ mu,
-                     const float* __restrict__ rstd, T* __restrict__ dx,
-                     float* __restrict__ partial, int n, int h,
-                     int row_threads) {
+template <typename T, typename S, int V, bool kRms>
+__global__ void __launch_bounds__(
+    BwdShape<(int)(16 / sizeof(T)), V, kRms>::kMaxThreads)
+norm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ gamma,
+                const T* __restrict__ g, const float* __restrict__ mu,
+                const float* __restrict__ rstd, T* __restrict__ dx,
+                float* __restrict__ partial, int n, int h, int row_threads) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kW = kVec * sizeof(S) / 16;
-  constexpr bool kPrefetch = BwdShape<kVec, V>::kPrefetch;
+  constexpr int kSums = kRms ? 1 : 2;  // column sums a column
+  constexpr bool kPrefetch = BwdShape<kVec, V, kRms>::kPrefetch;
   __shared__ float2 red[2][32];
-  // gamma's [h], raw; then, for blocks of several rows, the block's [2h]
-  // fp32 sums
+  // gamma's [h], raw; then, for blocks of several rows, the block's
+  // [kSums * h] fp32 sums
   extern __shared__ uint4 smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rows = blockDim.x / row_threads;
@@ -360,7 +371,7 @@ layernorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ gamma,
         r.g[j] = gr[v];
       }
     }
-    r.mu = live ? mu[row] : 0.f;
+    r.mu = !kRms && live ? mu[row] : 0.f;
     r.rstd = live ? rstd[row] : 0.f;
   };
   auto gamma_of = [&](int v, uint4 (&gw)[kW]) {
@@ -368,6 +379,8 @@ layernorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ gamma,
     for (int w = 0; w < kW; ++w) gw[w] = smem[v * kW + w];
   };
 
+  // the column sums of this thread's columns: dgamma (E) or dscale (C),
+  // and E's dbeta
   float dg[V][kVec], db[V][kVec];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
@@ -385,6 +398,7 @@ layernorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ gamma,
   int parity = 0;
   for (int base = blockIdx.x * rows; base < n; base += stride) {
     const int row = base + slot;
+    // E: the sums of ggam and ggam * xhat; C: s2 alone, of gs * x
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int j = 0; j < V; ++j) {
@@ -397,18 +411,24 @@ layernorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ gamma,
         const T* ye = reinterpret_cast<const T*>(&cur.g[j]);
 #pragma unroll
         for (int i = 0; i < kVec; ++i) {
-          const float xhat = (mlt::to_float(xe[i]) - cur.mu) * cur.rstd;
+          const float xv = mlt::to_float(xe[i]);
           const float gv = mlt::to_float(ye[i]);
           const float ggam = gv * mlt::to_float(ge[i]);
-          s1 += ggam;
-          s2 += ggam * xhat;
-          dg[j][i] += gv * xhat;
-          db[j][i] += gv;
+          if (kRms) {
+            s2 += ggam * xv;
+            dg[j][i] += gv * xv * cur.rstd;
+          } else {
+            const float xhat = (xv - cur.mu) * cur.rstd;
+            s1 += ggam;
+            s2 += ggam * xhat;
+            dg[j][i] += gv * xhat;
+            db[j][i] += gv;
+          }
         }
       }
     }
     if (kPrefetch) load(nxt, base + stride);
-    s1 = mlt::warp_sum(s1);
+    if (!kRms) s1 = mlt::warp_sum(s1);
     s2 = mlt::warp_sum(s2);
     if (wpr > 1) {
       float2* rb = red[parity];
@@ -423,6 +443,7 @@ layernorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ gamma,
       }
     }
     const float m1 = s1 / fh, m2 = s2 / fh;
+    const float r2 = cur.rstd * cur.rstd;
     if (row < n) {
       uint4* dxr = reinterpret_cast<uint4*>(dx + (size_t)row * h);
 #pragma unroll
@@ -438,9 +459,14 @@ layernorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ gamma,
           T* o = reinterpret_cast<T*>(&packed);
 #pragma unroll
           for (int i = 0; i < kVec; ++i) {
-            const float xhat = (mlt::to_float(xe[i]) - cur.mu) * cur.rstd;
+            const float xv = mlt::to_float(xe[i]);
             const float ggam = mlt::to_float(ye[i]) * mlt::to_float(ge[i]);
-            o[i] = mlt::from_float<T>(cur.rstd * (ggam - m1 - xhat * m2));
+            if (kRms) {
+              o[i] = mlt::from_float<T>(cur.rstd * (ggam - xv * r2 * m2));
+            } else {
+              const float xhat = (xv - cur.mu) * cur.rstd;
+              o[i] = mlt::from_float<T>(cur.rstd * (ggam - m1 - xhat * m2));
+            }
           }
           dxr[v] = packed;
         }
@@ -453,21 +479,23 @@ layernorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ gamma,
     }
   }
 
-  // this block's partial row: [dgamma | dbeta], 2h fp32
-  float* out = partial + (size_t)blockIdx.x * 2 * h;
+  // this block's partial row: [dgamma | dbeta] (E) or dscale (C)
+  float* out = partial + (size_t)blockIdx.x * kSums * h;
   if (rows == 1) {
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const int v = t + j * row_threads;
       if (v < nvec) {
         float4* og = reinterpret_cast<float4*>(out + v * kVec);
-        float4* ob = reinterpret_cast<float4*>(out + h + v * kVec);
 #pragma unroll
         for (int q = 0; q < kVec / 4; ++q) {
           og[q] = make_float4(dg[j][4 * q], dg[j][4 * q + 1],
                               dg[j][4 * q + 2], dg[j][4 * q + 3]);
-          ob[q] = make_float4(db[j][4 * q], db[j][4 * q + 1],
-                              db[j][4 * q + 2], db[j][4 * q + 3]);
+          if (!kRms) {
+            float4* ob = reinterpret_cast<float4*>(out + h + v * kVec);
+            ob[q] = make_float4(db[j][4 * q], db[j][4 * q + 1],
+                                db[j][4 * q + 2], db[j][4 * q + 3]);
+          }
         }
       }
     }
@@ -486,17 +514,23 @@ layernorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ gamma,
           for (int q = 0; q < kVec / 4; ++q) {
             float4 a = make_float4(dg[j][4 * q], dg[j][4 * q + 1],
                                    dg[j][4 * q + 2], dg[j][4 * q + 3]);
-            float4 b = make_float4(db[j][4 * q], db[j][4 * q + 1],
-                                   db[j][4 * q + 2], db[j][4 * q + 3]);
             float4* pg = sums + v * (kVec / 4) + q;
-            float4* pb = sums + (h + v * kVec) / 4 + q;
             if (s > 0) {
-              const float4 og = *pg, ob = *pb;
+              const float4 og = *pg;
               a = make_float4(og.x + a.x, og.y + a.y, og.z + a.z, og.w + a.w);
-              b = make_float4(ob.x + b.x, ob.y + b.y, ob.z + b.z, ob.w + b.w);
             }
             *pg = a;
-            *pb = b;
+            if (!kRms) {
+              float4 b = make_float4(db[j][4 * q], db[j][4 * q + 1],
+                                     db[j][4 * q + 2], db[j][4 * q + 3]);
+              float4* pb = sums + (h + v * kVec) / 4 + q;
+              if (s > 0) {
+                const float4 ob = *pb;
+                b = make_float4(ob.x + b.x, ob.y + b.y, ob.z + b.z,
+                                ob.w + b.w);
+              }
+              *pb = b;
+            }
           }
         }
       }
@@ -504,10 +538,10 @@ layernorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ gamma,
     __syncthreads();
   }
   float4* out4 = reinterpret_cast<float4*>(out);
-  for (int i = tid; i < h / 2; i += blockDim.x) out4[i] = sums[i];
+  for (int i = tid; i < kSums * h / 4; i += blockDim.x) out4[i] = sums[i];
 }
 
-// E's column pass: out[c] = sum over the nrows rows of partial
+// The column pass: out[c] = sum over the nrows rows of partial
 // [nrows, width] fp32, 64 columns a block (two adjacent ones a lane);
 // warp w adds rows w, w + kColWarps, ... in row order, then the warps'
 // sums are added in warp order.
@@ -554,14 +588,15 @@ norm_column_pass_kernel(const float* __restrict__ partial,
   }
 }
 
-template <typename T, typename S, int V>
-cudaError_t launch_bwd_v(const LnBwdCall* c) {
+template <typename T, typename S, int V, bool kRms>
+cudaError_t launch_bwd_v(const NormBwdCall* c) {
+  constexpr int kSums = kRms ? 1 : 2;
   const int threads = c->row_threads * c->rows_per_block;
-  if (threads > BwdShape<(int)(16 / sizeof(T)), V>::kMaxThreads)
+  if (threads > BwdShape<(int)(16 / sizeof(T)), V, kRms>::kMaxThreads)
     return cudaErrorInvalidValue;
-  auto kernel = layernorm_bwd_kernel<T, S, V>;
+  auto kernel = norm_bwd_kernel<T, S, V, kRms>;
   const size_t smem = (size_t)c->h * sizeof(S)
-                      + (c->rows_per_block > 1 ? (size_t)2 * c->h * 4 : 0);
+                      + (c->rows_per_block > 1 ? (size_t)kSums * c->h * 4 : 0);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -574,23 +609,26 @@ cudaError_t launch_bwd_v(const LnBwdCall* c) {
       c->partial, c->n, c->h, c->row_threads);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  // 2h columns, 64 a block
-  norm_column_pass_kernel<<<(c->h + 31) / 32, kColWarps * 32, 0, st>>>(
-      c->partial, c->sums, c->grid, 2 * c->h);
+  // kSums * h columns, 64 a block
+  const int width = kSums * c->h;
+  norm_column_pass_kernel<<<(width + 63) / 64, kColWarps * 32, 0, st>>>(
+      c->partial, c->sums, c->grid, width);
   return cudaGetLastError();
 }
 
 template <typename T, typename S>
-cudaError_t launch_bwd(const LnBwdCall* c) {
+cudaError_t launch_bwd(const NormBwdCall* c) {
   if ((long long)c->row_threads * c->vecs < c->h / (16 / (int)sizeof(T)))
     return cudaErrorInvalidValue;
-  switch (c->vecs) {
-#define MLT_LN_BWD_V(V) \
-  case V:               \
-    return launch_bwd_v<T, S, V>(c);
-    MLT_LN_BWD_V(1) MLT_LN_BWD_V(2) MLT_LN_BWD_V(3) MLT_LN_BWD_V(4)
-    MLT_LN_BWD_V(5) MLT_LN_BWD_V(6) MLT_LN_BWD_V(7) MLT_LN_BWD_V(8)
-#undef MLT_LN_BWD_V
+  switch (c->vecs * 2 + (c->rms != 0)) {
+#define MLT_NORM_BWD_V(V)                                                  \
+  case 2 * V:                                                              \
+    return launch_bwd_v<T, S, V, false>(c);                                \
+  case 2 * V + 1:                                                          \
+    return launch_bwd_v<T, S, V, true>(c);
+    MLT_NORM_BWD_V(1) MLT_NORM_BWD_V(2) MLT_NORM_BWD_V(3) MLT_NORM_BWD_V(4)
+    MLT_NORM_BWD_V(5) MLT_NORM_BWD_V(6) MLT_NORM_BWD_V(7) MLT_NORM_BWD_V(8)
+#undef MLT_NORM_BWD_V
     default:
       return cudaErrorInvalidValue;
   }
@@ -617,7 +655,7 @@ extern "C" int mlt_norm_fwd(const NormFwdCall* c) {
 }
 
 // Returns a cudaError_t (0 on success).
-extern "C" int mlt_layernorm_bwd(const LnBwdCall* c) {
+extern "C" int mlt_norm_bwd(const NormBwdCall* c) {
   if (!plan_ok(c)) return (int)cudaErrorInvalidValue;
   if (c->x_dtype == mlt::kBFloat16 && c->param_dtype == mlt::kBFloat16)
     return (int)launch_bwd<__nv_bfloat16, __nv_bfloat16>(c);

@@ -25,8 +25,7 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("paged_attention.cu", "rmsnorm.cu", "layernorm.cu",
-           "flash_attention.cu")
+SOURCES = ("paged_attention.cu", "layernorm.cu", "flash_attention.cu")
 HEADERS = ("common.cuh", "sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -43,12 +42,10 @@ build_log = ""
 _c_int, _c_float, _ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _i64s = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "mlt_rmsnorm_bwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _c_int,
-                        _c_int, _c_int, _c_int, _c_int, _c_int, _ptr],
-    # one packed NormFwdCall / LnBwdCall (csrc/layernorm.cu;
+    # one packed NormFwdCall / NormBwdCall (csrc/layernorm.cu;
     # ops/kernels/norm_plan.py)
     "mlt_norm_fwd": [ctypes.c_char_p],
-    "mlt_layernorm_bwd": [ctypes.c_char_p],
+    "mlt_norm_bwd": [ctypes.c_char_p],
     "mlt_flash_fwd": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64s, _c_int, _c_int,
                       _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
                       _c_int, _c_int, _ptr],

@@ -1,6 +1,6 @@
-"""Fused LayerNorm, forward and backward: the CUDA kernels D (the norm
-forward of ``csrc/layernorm.cu``, which kernel B shares) and E, and their
-plain PyTorch versions.
+"""Fused LayerNorm, forward and backward: the CUDA kernels D and E (the
+norm forward and backward of ``csrc/layernorm.cu``, which kernels B and C
+share), and their plain PyTorch versions.
 
 The counterpart of ``megatron_llm_tpu/ops/pallas/layernorm.py``: the forward
 ``_fwd_kernel`` through ``_fwd_call``, the backward ``_bwd_kernel`` through
@@ -85,22 +85,12 @@ def layer_norm_fwd_kernel(x: torch.Tensor, scale: torch.Tensor,
     returns (y in x's shape, mu [n, 1], rstd [n, 1]), mu and rstd the two
     rows of one [2, n, 1] fp32 tensor, or both None with ``stats=False``.
     ``force_plan`` (row_threads, vecs, rows_per_block, grid) replaces
-    ``plan``'s (tests and sweeps).  Every check runs in one pass; a call
-    that fails one is refused with the reason."""
+    ``plan``'s (tests and sweeps).  Every check runs in one pass
+    (``norm_plan.fwd_checks``); a call that fails one is refused with the
+    reason."""
     global launches
-    codes = norm_plan.CODES.get((x.dtype, scale.dtype))
-    dev = x.get_device()
-    if (codes is None or dev < 0 or x.dim() < 1 or scale.dim() != 1
-            or scale.get_device() != dev or bias.get_device() != dev
-            or bias.dtype != scale.dtype or bias.shape != scale.shape
-            or not (x.is_contiguous() and scale.is_contiguous()
-                    and bias.is_contiguous())):
-        _refuse_fwd(x, scale, bias)
-    h = scale.shape[0]
-    xp, sp, bp = x.data_ptr(), scale.data_ptr(), bias.data_ptr()
-    if (x.shape[-1] != h or h % (16 // x.element_size())
-            or (xp | sp | bp) % 16):
-        _refuse_fwd(x, scale, bias)
+    codes, dev, h, xp, sp, bp = norm_plan.fwd_checks("layernorm", x, scale,
+                                                     bias)
     n = x.numel() // h if h else 0
     # mu and rstd: the two rows of one allocation (new_empty: less host
     # work than torch.empty with a device argument)
@@ -125,71 +115,27 @@ def layer_norm_fwd_kernel(x: torch.Tensor, scale: torch.Tensor,
     return y, mu, rstd
 
 
-def _refuse_fwd(x, scale, bias) -> None:
-    """Raise the error that says why D does not take these inputs."""
-    norm_plan.refuse("layernorm", x, scale,
-                     ("bias", bias, tuple(scale.shape), scale.dtype))
-
-
 def layer_norm_bwd_kernel(x2d: torch.Tensor, scale: torch.Tensor,
                           g2d: torch.Tensor, mu: torch.Tensor,
                           rstd: torch.Tensor,
                           force_plan: Optional[Tuple[int, int, int, int]]
                           = None, partials: bool = False):
-    """Launch kernel E; returns (dx [n, h] in x's dtype, dgamma [h] fp32,
-    dbeta [h] fp32).  ``mu`` and ``rstd`` are the forward's, [n, 1] fp32.
-    ``force_plan`` (row_threads, vecs, rows_per_block, grid) replaces
-    ``bwd_plan``'s; ``partials=True`` also returns the first pass's
-    partial rows [grid, 2h] fp32 (tests).  dgamma and dbeta are views of
-    one fp32 allocation that also holds the partial rows: the column pass
-    writes every column, so nothing is zeroed."""
+    """Launch kernel E (``norm_plan.launch_bwd``); returns (dx [n, h] in
+    x's dtype, dgamma [h] fp32, dbeta [h] fp32).  ``mu`` and ``rstd`` are
+    the forward's, [n, 1] fp32.  ``force_plan`` (row_threads, vecs,
+    rows_per_block, grid) replaces ``bwd_plan``'s; ``partials=True`` also
+    returns the first pass's partial rows [grid, 2h] fp32 (tests).  A call
+    that fails a check is refused with the reason."""
     global bwd_launches
-    codes = norm_plan.CODES.get((x2d.dtype, scale.dtype))
-    dev = x2d.get_device()
-    f32 = torch.float32
-    if (codes is None or dev < 0 or x2d.dim() != 2 or scale.dim() != 1
-            or g2d.dtype != x2d.dtype or g2d.shape != x2d.shape
-            or mu.dtype != f32 or rstd.dtype != f32
-            or any(t.get_device() != dev for t in (scale, g2d, mu, rstd))
-            or not (x2d.is_contiguous() and scale.is_contiguous()
-                    and g2d.is_contiguous() and mu.is_contiguous()
-                    and rstd.is_contiguous())):
-        _refuse_bwd(x2d, scale, g2d, mu, rstd)
-    n, h = x2d.shape
-    xp, sp, gp = x2d.data_ptr(), scale.data_ptr(), g2d.data_ptr()
-    if (scale.shape[0] != h or h % (16 // x2d.element_size())
-            or (xp | sp | gp) % 16 or mu.numel() != n or rstd.numel() != n):
-        _refuse_bwd(x2d, scale, g2d, mu, rstd)
-    dx = torch.empty_like(x2d)
-    if n == 0:
-        sums = x2d.new_zeros((2 * h,), dtype=f32)
-        out = (dx, sums[:h], sums[h:])
-        return out + (sums[:0].view(0, 2 * h),) if partials else out
-    p = force_plan or bwd_plan(n, h, x2d.dtype, build.sm_count(dev))
-    # the sums [2h] first, then the partial rows [grid, 2h]
-    buf = x2d.new_empty(((p[3] + 1) * 2 * h,), dtype=f32)
-    bptr = buf.data_ptr()
-    rc = norm_plan.entry("mlt_layernorm_bwd")(norm_plan.BWD_CALL.pack(
-        xp, sp, gp, mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-        bptr + 8 * h, bptr, torch._C._cuda_getCurrentRawStream(dev), n, h,
-        codes[0], codes[1], p[0], p[1], p[2], p[3]))
-    if rc:
-        build.check_rc(rc, "layernorm backward")
-    bwd_launches += 1
-    bwd_plan_launches[p] = bwd_plan_launches.get(p, 0) + 1
-    out = (dx, buf[:h], buf[h:2 * h])
-    return out + (buf[2 * h:].view(p[3], 2 * h),) if partials else out
-
-
-def _refuse_bwd(x2d, scale, g2d, mu, rstd) -> None:
-    """Raise the error that says why E does not take these inputs."""
-    if x2d.dim() != 2:
-        raise ValueError(f"layernorm backward takes x [n, h], got "
-                         f"{tuple(x2d.shape)}")
-    norm_plan.refuse("layernorm backward", x2d, scale,
-                     ("g", g2d, tuple(x2d.shape), x2d.dtype),
-                     ("mu", mu, None, torch.float32),
-                     ("rstd", rstd, None, torch.float32))
+    dx, sums, part, p = norm_plan.launch_bwd("layernorm backward", x2d,
+                                             scale, g2d, mu, rstd,
+                                             force_plan)
+    if p is not None:
+        bwd_launches += 1
+        bwd_plan_launches[p] = bwd_plan_launches.get(p, 0) + 1
+    h = x2d.shape[1]
+    out = (dx, sums[:h], sums[h:])
+    return out + (part,) if partials else out
 
 
 def _reference_bwd_partials(x2d: torch.Tensor, scale: torch.Tensor,
@@ -198,38 +144,11 @@ def _reference_bwd_partials(x2d: torch.Tensor, scale: torch.Tensor,
                             p: Tuple[int, int, int, int]
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """E's walk over the rows and its column pass, in fp32 and in their
-    orders, under plan ``p``: (partial [grid, 2h], sums [2h]).  Block b's
-    slot s takes rows b * rows + s + k * grid * rows for k = 0, 1, ...,
-    adding g * xhat and g to its columns row by row; a block adds its
-    slots' sums in slot order into its partial row [dgamma | dbeta]; the
-    column pass's warp w (of 8) adds partial rows w, w + 8, ... in order,
-    then the warps' sums are added in warp order."""
-    _, _, rows, grid = p
-    n, h = x2d.shape
-    dev = x2d.device
+    orders (``norm_plan.bwd_walk``), under plan ``p``: (partial [grid, 2h],
+    sums [2h]), each row adding g * xhat and g to its columns."""
     xf, gf = x2d.float(), g2d.float()
-    contrib = torch.cat([gf * ((xf - mu) * rstd), gf], dim=1)  # [n, 2h]
-    stride = grid * rows
-    trips = -(-n // stride)
-    padded = torch.zeros(trips * stride, 2 * h, device=dev)
-    padded[:n] = contrib
-    acc = torch.zeros(grid, rows, 2 * h, device=dev)
-    for k in range(trips):
-        acc = acc + padded[k * stride:(k + 1) * stride].view(grid, rows,
-                                                             2 * h)
-    partial = acc[:, 0]
-    for s in range(1, rows):
-        partial = partial + acc[:, s]
-    warps = []
-    for w in range(8):
-        part = torch.zeros(2 * h, device=dev)
-        for r in range(w, grid, 8):
-            part = part + partial[r]
-        warps.append(part)
-    sums = warps[0]
-    for part in warps[1:]:
-        sums = sums + part
-    return partial, sums
+    return norm_plan.bwd_walk(torch.cat([gf * ((xf - mu) * rstd), gf], dim=1),
+                              p)
 
 
 def layer_norm_fwd(x2d: torch.Tensor, scale: torch.Tensor,

@@ -6,10 +6,15 @@ B (RMSNorm) and D (LayerNorm) are one forward kernel, ``norm_fwd_kernel``,
 that keeps each row in registers, split over ``row_threads`` threads of
 ``vecs`` 16-byte vectors each (vector v of the row on thread
 v % row_threads); ``plan(n, h, dtype, sm_count)`` picks (row_threads,
-vecs, rows_per_block, grid) for a call.  E, the LayerNorm backward, holds
-x and g of a row the same way and its dgamma and dbeta sums for the
-columns each thread owns in registers; ``bwd_plan`` picks its plan.  The
-kernels take the plans as given.
+vecs, rows_per_block, grid) for a call.  C (RMSNorm) and E (LayerNorm)
+are one backward kernel, ``norm_bwd_kernel``, that holds x and g of a row
+the same way and its column sums (C's dscale; E's dgamma and dbeta) for
+the columns each thread owns in registers; ``bwd_plan`` picks its plan,
+``bwd_plans`` lists the plans it can be forced to, and ``bwd_walk`` is
+the order in which it adds the column sums.  The kernels take the plans
+as given.  The wrappers of both kernels check their inputs with
+``fwd_checks`` and ``bwd_checks``, and the backward's launch
+(``launch_bwd``) is shared by C and E.
 """
 
 from __future__ import annotations
@@ -88,51 +93,115 @@ def plan(n: int, h: int, dtype: torch.dtype, sm_count: int = 132
     return t, v, rows, min(-(-n // rows), _TRAIN_BLOCKS_PER_SM * sm_count)
 
 
-def bwd_shape(vecs: int, vec: int) -> Tuple[int, bool]:
-    """(most threads a block, whether the next row is loaded ahead) of E
-    at ``vecs`` vectors of ``vec`` elements a thread (the kernel's
-    ``BwdShape``): registers for the 2 * vecs * vec fp32 sums, 8 for x and
-    g of a vector, 8 more to load the next row ahead, and 24 for the rest;
-    ahead only where all of it fits the 128 registers of a 512-thread
-    block."""
-    need = 2 * vecs * vec + 8 * vecs + 24
+def bwd_shape(vecs: int, vec: int, rms: bool = False) -> Tuple[int, bool]:
+    """(most threads a block, whether the next row is loaded ahead) of the
+    backward at ``vecs`` vectors of ``vec`` elements a thread (the
+    kernel's ``BwdShape``): registers for the column sums (2 * vecs * vec
+    fp32 for E's dgamma and dbeta, vecs * vec for C's dscale, ``rms``), 8
+    for x and g of a vector, 8 more to load the next row ahead, and 24 for
+    the rest; ahead only where all of it fits the 128 registers of a
+    512-thread block."""
+    need = (1 if rms else 2) * vecs * vec + 8 * vecs + 24
     ahead = need + 8 * vecs <= 128
     need += 8 * vecs if ahead else 0
     return (512 if need <= 128 else 384 if need <= 168 else 256), ahead
 
 
-# E's threads a row and threads a block aimed for, and its blocks an SM:
-# every block writes one partial row of 2h fp32, so one block an SM
-_BWD_ROW_THREADS = 192
+# the backward's threads a block and threads a row aimed for, and its
+# blocks an SM: every block writes one partial row, so one block an SM.
+# The rule that timed best for E at Falcon-7B's and GPT-2's rows and for C
+# at Llama-2-7B's and Gemma-7B's (chip_smoke.py --measure --sweep; PERF.md)
 _BWD_BLOCK_THREADS = 512
+_BWD_ROW_THREADS = 256
 _BWD_BLOCKS_PER_SM = 1
 
 
 @functools.lru_cache(maxsize=1024)
-def bwd_plan(n: int, h: int, dtype: torch.dtype, sm_count: int = 132
-             ) -> Tuple[int, int, int, int]:
-    """(row_threads, vecs, rows_per_block, grid) of E on [n, h] rows of
-    ``dtype``, the forward's vector-to-thread map.  Of the pairs that
-    cover the row within ``bwd_shape``'s threads, the fewest idle vectors,
-    then those that load the next row ahead, then row_threads nearest
-    192; as many rows a block as fit 512 threads, one block an SM (each
-    block's partial row is traffic of its own)."""
+def bwd_plan(n: int, h: int, dtype: torch.dtype, sm_count: int = 132,
+             rms: bool = False) -> Tuple[int, int, int, int]:
+    """(row_threads, vecs, rows_per_block, grid) of the backward on [n, h]
+    rows of ``dtype`` (C with ``rms``, else E), the forward's
+    vector-to-thread map.  Each pair that covers the row within
+    ``bwd_shape``'s threads takes as many rows a block as fit 512 threads;
+    of those, the fewest idle vectors, then those that load the next row
+    ahead, then rows wider than one warp, then the most threads a block,
+    then row_threads nearest 256; one block an SM (each block's partial
+    row is traffic of its own)."""
     vec, nvec = _vectors(h, dtype)
     cands = []
     for v in range(1, MAX_VECS + 1):
         t = _covering(nvec, v)
-        limit, ahead = bwd_shape(v, vec)
+        limit, ahead = bwd_shape(v, vec, rms)
         if t <= limit:
-            cands.append((t * v - nvec, not ahead, abs(t - _BWD_ROW_THREADS),
-                          t, v))
+            rows = max(1, min(_BWD_BLOCK_THREADS, limit) // t)
+            cands.append((t * v - nvec, not ahead, t == 32, -rows * t,
+                          abs(t - _BWD_ROW_THREADS), t, v, rows))
     if not cands:
-        raise ValueError(f"layernorm backward rows of {h} {dtype} exceed "
-                         f"its blocks' registers")
-    *_, t, v = min(cands)
-    limit, _ = bwd_shape(v, vec)
-    rows = max(1, min(_BWD_BLOCK_THREADS, limit) // t)
+        raise ValueError(f"norm backward rows of {h} {dtype} exceed its "
+                         f"blocks' registers")
+    *_, t, v, rows = min(cands)
     return t, v, rows, max(1, min(-(-n // rows),
                                   _BWD_BLOCKS_PER_SM * sm_count))
+
+
+def bwd_plans(n: int, h: int, dtype: torch.dtype, sm_count: int = 132,
+              rms: bool = False) -> list:
+    """``bwd_plan``'s plan for [n, h] rows first (C with ``rms``, else E),
+    then every plan the backward can be forced to (tests and sweeps): each
+    (row_threads, vecs) within ``bwd_shape``'s threads, with one row a
+    block, two, and as many as fit its threads, over a grid of one block an
+    SM (or fewer when the rows run out), one that walks the rows seven
+    times and one larger than the row groups (blocks with no row write
+    zero partial rows)."""
+    vec, nvec = _vectors(h, dtype)
+    first = bwd_plan(n, h, dtype, sm_count, rms)
+    out = set()
+    for v in range(1, MAX_VECS + 1):
+        t = _covering(nvec, v)
+        limit, _ = bwd_shape(v, vec, rms)
+        if t > limit:
+            continue
+        most = max(1, min(_BWD_BLOCK_THREADS, limit) // t)
+        for rows in {1, min(2, most), most}:
+            groups = -(-n // rows)
+            out |= {(t, v, rows, g) for g in (min(groups, sm_count),
+                                              -(-groups // 7), groups + 5)}
+    out.discard(first)
+    return [first] + sorted(out)
+
+
+def bwd_walk(contrib: torch.Tensor, p: Tuple[int, int, int, int]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward's column sums of ``contrib`` [n, w] fp32 (each row's
+    share of them) in the kernels' order under plan ``p``: (partial
+    [grid, w], sums [w]).  Block b's slot s takes rows b * rows + s +
+    k * grid * rows for k = 0, 1, ..., adding them to its columns row by
+    row; a block adds its slots' sums in slot order into its partial row;
+    the column pass's warp i (of 8) adds partial rows i, i + 8, ... in
+    order, then the warps' sums are added in warp order."""
+    _, _, rows, grid = p
+    n, w = contrib.shape
+    dev = contrib.device
+    stride = grid * rows
+    trips = -(-n // stride)
+    padded = torch.zeros(trips * stride, w, device=dev)
+    padded[:n] = contrib
+    acc = torch.zeros(grid, rows, w, device=dev)
+    for k in range(trips):
+        acc = acc + padded[k * stride:(k + 1) * stride].view(grid, rows, w)
+    partial = acc[:, 0]
+    for s in range(1, rows):
+        partial = partial + acc[:, s]
+    warps = []
+    for i in range(8):
+        part = torch.zeros(w, device=dev)
+        for r in range(i, grid, 8):
+            part = part + partial[r]
+        warps.append(part)
+    sums = warps[0]
+    for part in warps[1:]:
+        sums = sums + part
+    return partial, sums
 
 
 # (x dtype, parameter dtype) -> their codes, for the pairs the kernels take
@@ -145,9 +214,10 @@ CODES = {(x, p): (build.DTYPE_CODES[x], build.DTYPE_CODES[p])
 # and rstd may be 0); n, h, the two dtype codes, the plan (row_threads,
 # vecs, rows_per_block, grid) and rms (1 for RMSNorm); eps
 FWD_CALL = struct.Struct("=7Q9if")
-# E's takes one packed LnBwdCall: the nine pointers x, gamma, g, mu, rstd,
-# dx, partial, sums and the stream; n, h, the two dtype codes and the plan
-BWD_CALL = struct.Struct("=9Q8i")
+# the backward's takes one packed NormBwdCall: the nine pointers x, gamma,
+# g, mu, rstd, dx, partial, sums and the stream (mu 0 for RMSNorm); n, h,
+# the two dtype codes, the plan and rms (1 for RMSNorm)
+BWD_CALL = struct.Struct("=9Q9i")
 _entries: dict = {}
 
 
@@ -157,6 +227,105 @@ def entry(name: str):
     if fn is None:
         fn = _entries[name] = getattr(build.load_library(), name)
     return fn
+
+
+def fwd_checks(kind: str, x: torch.Tensor, scale: torch.Tensor, bias):
+    """The forward's checks in one pass (B where ``bias`` is None, else
+    D) on x [..., h] with ``scale`` and ``bias`` [h]: (dtype codes,
+    device, h, the pointers of x, scale and bias, 0 for none).  A call
+    that fails one is refused with the reason."""
+    codes = CODES.get((x.dtype, scale.dtype))
+    dev = x.get_device()
+    if (codes is None or dev < 0 or x.dim() < 1 or scale.dim() != 1
+            or scale.get_device() != dev
+            or not (x.is_contiguous() and scale.is_contiguous())
+            or (bias is not None
+                and (bias.get_device() != dev or bias.dtype != scale.dtype
+                     or bias.shape != scale.shape
+                     or not bias.is_contiguous()))):
+        _refuse_fwd(kind, x, scale, bias)
+    h = scale.shape[0]
+    xp, sp = x.data_ptr(), scale.data_ptr()
+    bp = 0 if bias is None else bias.data_ptr()
+    if x.shape[-1] != h or h % (16 // x.element_size()) or (xp | sp | bp) % 16:
+        _refuse_fwd(kind, x, scale, bias)
+    return codes, dev, h, xp, sp, bp
+
+
+def _refuse_fwd(kind, x, scale, bias) -> None:
+    """Raise the error that says why the forward does not take these."""
+    if bias is None:
+        refuse(kind, x, scale)
+    refuse(kind, x, scale, ("bias", bias, tuple(scale.shape), scale.dtype))
+
+
+def bwd_checks(kind: str, x2d: torch.Tensor, scale: torch.Tensor,
+               g2d: torch.Tensor, mu, rstd: torch.Tensor):
+    """The backward's checks in one pass (C where ``mu`` is None, else E)
+    on x2d [n, h] with scale [h], g2d [n, h] and the forward's mu and rstd
+    [n, 1] fp32: (dtype codes, device, the pointers of x, scale and g).  A
+    call that fails one is refused with the reason."""
+    codes = CODES.get((x2d.dtype, scale.dtype))
+    dev = x2d.get_device()
+    f32 = torch.float32
+    if (codes is None or dev < 0 or x2d.dim() != 2 or scale.dim() != 1
+            or g2d.dtype != x2d.dtype or g2d.shape != x2d.shape
+            or rstd.dtype != f32 or scale.get_device() != dev
+            or g2d.get_device() != dev or rstd.get_device() != dev
+            or not (x2d.is_contiguous() and scale.is_contiguous()
+                    and g2d.is_contiguous() and rstd.is_contiguous())
+            or (mu is not None
+                and (mu.dtype != f32 or mu.get_device() != dev
+                     or not mu.is_contiguous()))):
+        _refuse_bwd(kind, x2d, scale, g2d, mu, rstd)
+    n, h = x2d.shape
+    xp, sp, gp = x2d.data_ptr(), scale.data_ptr(), g2d.data_ptr()
+    if (scale.shape[0] != h or h % (16 // x2d.element_size())
+            or (xp | sp | gp) % 16 or rstd.numel() != n
+            or (mu is not None and mu.numel() != n)):
+        _refuse_bwd(kind, x2d, scale, g2d, mu, rstd)
+    return codes, dev, xp, sp, gp
+
+
+def _refuse_bwd(kind, x2d, scale, g2d, mu, rstd) -> None:
+    """Raise the error that says why the backward does not take these."""
+    if x2d.dim() != 2:
+        raise ValueError(f"{kind} takes x [n, h], got {tuple(x2d.shape)}")
+    stats = (("rstd", rstd, None, torch.float32),)
+    if mu is not None:
+        stats = (("mu", mu, None, torch.float32),) + stats
+    refuse(kind, x2d, scale, ("g", g2d, tuple(x2d.shape), x2d.dtype), *stats)
+
+
+def launch_bwd(kind: str, x2d: torch.Tensor, scale: torch.Tensor,
+               g2d: torch.Tensor, mu, rstd: torch.Tensor, force_plan=None):
+    """Launch the backward (C where ``mu`` is None, else E) on x2d [n, h]
+    under ``force_plan`` or ``bwd_plan``'s plan: (dx [n, h] in x's dtype,
+    the column sums [w] fp32, the partial rows [grid, w] fp32, the plan or
+    None where there is no row), w = h for C (dscale) and 2h for E (dgamma,
+    then dbeta).  The sums and the partial rows are two allocations, so a
+    gradient that keeps the sums keeps nothing more; the column pass
+    writes every column, so nothing is zeroed."""
+    codes, dev, xp, sp, gp = bwd_checks(kind, x2d, scale, g2d, mu, rstd)
+    n, h = x2d.shape
+    rms = mu is None
+    w = h if rms else 2 * h
+    f32 = torch.float32
+    dx = torch.empty_like(x2d)
+    if n == 0:
+        return (dx, x2d.new_zeros((w,), dtype=f32),
+                x2d.new_empty((0, w), dtype=f32), None)
+    p = force_plan or bwd_plan(n, h, x2d.dtype, build.sm_count(dev), rms)
+    sums = x2d.new_empty((w,), dtype=f32)
+    part = x2d.new_empty((p[3], w), dtype=f32)
+    rc = entry("mlt_norm_bwd")(BWD_CALL.pack(
+        xp, sp, gp, 0 if rms else mu.data_ptr(), rstd.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), sums.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev), n, h, codes[0], codes[1],
+        p[0], p[1], p[2], p[3], rms))
+    if rc:
+        build.check_rc(rc, kind)
+    return dx, sums, part, p
 
 
 def refuse(kind: str, x: torch.Tensor, scale: torch.Tensor, *others

@@ -1,6 +1,6 @@
-"""Fused RMSNorm, forward and backward: the CUDA kernels B (the norm
-forward of ``csrc/layernorm.cu``, which kernel D shares) and C
-(``csrc/rmsnorm.cu``), and their plain PyTorch versions.
+"""Fused RMSNorm, forward and backward: the CUDA kernels B and C (the
+norm forward and backward of ``csrc/layernorm.cu``, which kernels D and E
+share), and their plain PyTorch versions.
 
 The counterpart of ``megatron_llm_tpu/ops/pallas/rmsnorm.py``: the forward
 ``_fwd_kernel`` through ``_fwd_call``, the backward ``_bwd_kernel`` through
@@ -12,7 +12,11 @@ forward directly and keeps no rstd.  A CPU tensor takes the plain
 versions; a CUDA tensor launches the kernels or raises.
 
 B keeps each row in registers under ``norm_plan.plan`` (row_threads,
-vecs, rows_per_block, grid), the plan of D.
+vecs, rows_per_block, grid), the plan of D.  C holds x and g of a row the
+same way and its dscale sums in registers under ``norm_plan.bwd_plan(...,
+rms=True)``; each block writes one partial row, which the column pass adds
+in a fixed order (``_reference_bwd_partials`` is that walk's plain
+version).
 """
 
 from __future__ import annotations
@@ -27,14 +31,13 @@ from megatron_llm_torch.ops.kernels import norm_plan
 # kernel launches since the last reset (plain counts; chip_smoke.py zeroes
 # them before driving a path and reads them after).  One backward launch
 # is one call of kernel C, which runs its two passes (dx with per-block
-# dscale partials, then the column sum).  ``plan_launches`` counts B's
-# launches by plan (row_threads, vecs, rows_per_block, grid).
+# dscale partials, then the column pass).  ``plan_launches`` and
+# ``bwd_plan_launches`` count B's and C's launches by plan (row_threads,
+# vecs, rows_per_block, grid).
 launches = 0
 bwd_launches = 0
 plan_launches: dict = {}
-# most row-blocks of the backward's first pass (each writes one row of
-# partial dscale sums): about two per SM of an H100
-_BWD_MAX_BLOCKS = 256
+bwd_plan_launches: dict = {}
 
 
 def rms_norm_fwd_plain(x2d: torch.Tensor, scale: torch.Tensor, eps: float
@@ -60,28 +63,6 @@ def rms_norm_bwd_plain(x2d: torch.Tensor, scale: torch.Tensor,
     return dx.to(x2d.dtype), ds
 
 
-def _check(x2d: torch.Tensor, scale: torch.Tensor) -> Tuple[int, int]:
-    build.require_cuda(x2d, "x")
-    build.require_cuda(scale, "scale")
-    if x2d.dim() != 2 or scale.shape != (x2d.shape[1],):
-        raise ValueError(f"rmsnorm takes x [n, h] and scale [h], got "
-                         f"{tuple(x2d.shape)} and {tuple(scale.shape)}")
-    if scale.device != x2d.device:
-        raise ValueError("x and scale must be on the same device")
-    x_code, s_code = build.dtype_code(x2d), build.dtype_code(scale)
-    if x_code == build.DTYPE_CODES[torch.float32] and s_code != x_code:
-        raise TypeError("a float32 x takes a float32 scale")
-    if not (x2d.is_contiguous() and scale.is_contiguous()):
-        raise ValueError(f"rmsnorm reads dense rows: x (strides "
-                         f"{x2d.stride()}) and scale must be contiguous")
-    h = x2d.shape[1]
-    vec = 16 // x2d.element_size()
-    if h % vec or x2d.data_ptr() % 16:
-        raise ValueError(f"rmsnorm needs 16-byte aligned rows (h % {vec} "
-                         f"== 0), got h = {h}")
-    return x_code, s_code
-
-
 def rms_norm_fwd_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float,
                         rstd: bool = True,
                         force_plan: Optional[Tuple[int, int, int, int]]
@@ -91,18 +72,11 @@ def rms_norm_fwd_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float,
     returns (y in x's shape, rstd [n, 1] fp32, or None with
     ``rstd=False``).  ``force_plan`` (row_threads, vecs, rows_per_block,
     grid) replaces ``norm_plan.plan``'s (tests and sweeps).  Every check
-    runs in one pass; a call that fails one is refused with the reason."""
+    runs in one pass (``norm_plan.fwd_checks``); a call that fails one is
+    refused with the reason."""
     global launches
-    codes = norm_plan.CODES.get((x.dtype, scale.dtype))
-    dev = x.get_device()
-    if (codes is None or dev < 0 or scale.dim() != 1 or x.dim() < 1
-            or scale.get_device() != dev
-            or not (x.is_contiguous() and scale.is_contiguous())):
-        norm_plan.refuse("rmsnorm", x, scale)
-    h = scale.shape[0]
-    xp, sp = x.data_ptr(), scale.data_ptr()
-    if x.shape[-1] != h or h % (16 // x.element_size()) or (xp | sp) % 16:
-        norm_plan.refuse("rmsnorm", x, scale)
+    codes, dev, h, xp, sp, _ = norm_plan.fwd_checks("rmsnorm", x, scale,
+                                                    None)
     n = x.numel() // h if h else 0
     y = torch.empty_like(x)
     r = x.new_empty((n, 1), dtype=torch.float32) if rstd else None
@@ -121,41 +95,32 @@ def rms_norm_fwd_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float,
 
 
 def rms_norm_bwd_kernel(x2d: torch.Tensor, scale: torch.Tensor,
-                        g2d: torch.Tensor, rstd: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel C; returns (dx [n, h] in x's dtype, dscale [h] fp32).
-    ``rstd`` is the forward's, [n, 1] fp32."""
+                        g2d: torch.Tensor, rstd: torch.Tensor,
+                        force_plan: Optional[Tuple[int, int, int, int]]
+                        = None, partials: bool = False):
+    """Launch kernel C (``norm_plan.launch_bwd``); returns (dx [n, h] in
+    x's dtype, dscale [h] fp32).  ``rstd`` is the forward's, [n, 1] fp32.
+    ``force_plan`` (row_threads, vecs, rows_per_block, grid) replaces
+    ``bwd_plan``'s; ``partials=True`` also returns the first pass's
+    partial rows [grid, h] fp32 (tests).  A call that fails a check is
+    refused with the reason."""
     global bwd_launches
-    x_code, s_code = _check(x2d, scale)
-    build.require_cuda(g2d, "g")
-    build.require_cuda(rstd, "rstd")
-    n, h = x2d.shape
-    if g2d.shape != x2d.shape or g2d.dtype != x2d.dtype:
-        raise ValueError(f"g must match x ({tuple(x2d.shape)}, "
-                         f"{x2d.dtype}), got {tuple(g2d.shape)}, "
-                         f"{g2d.dtype}")
-    if (rstd.dtype != torch.float32 or rstd.numel() != n
-            or not rstd.is_contiguous()):
-        raise ValueError("rstd must be the forward's [n, 1] fp32")
-    if not g2d.is_contiguous() or g2d.data_ptr() % 16:
-        raise ValueError("g must be contiguous and 16-byte aligned")
-    dx = torch.empty_like(x2d)
-    dscale = torch.zeros(h, dtype=torch.float32, device=x2d.device)
-    if n == 0:
-        return dx, dscale
-    rows = -(-n // min(n, _BWD_MAX_BLOCKS))
-    nblocks = -(-n // rows)
-    partial = torch.empty((nblocks, h), dtype=torch.float32,
-                          device=x2d.device)
-    lib = build.load_library()
-    rc = lib.mlt_rmsnorm_bwd(x2d.data_ptr(), scale.data_ptr(),
-                             g2d.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-                             partial.data_ptr(), dscale.data_ptr(), n, h,
-                             rows, nblocks, x_code, s_code,
-                             build.stream_handle(x2d))
-    build.check_rc(rc, "rmsnorm backward")
-    bwd_launches += 1
-    return dx, dscale
+    dx, ds, part, p = norm_plan.launch_bwd("rmsnorm backward", x2d, scale,
+                                           g2d, None, rstd, force_plan)
+    if p is not None:
+        bwd_launches += 1
+        bwd_plan_launches[p] = bwd_plan_launches.get(p, 0) + 1
+    return (dx, ds, part) if partials else (dx, ds)
+
+
+def _reference_bwd_partials(x2d: torch.Tensor, scale: torch.Tensor,
+                            g2d: torch.Tensor, rstd: torch.Tensor,
+                            p: Tuple[int, int, int, int]
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """C's walk over the rows and its column pass, in fp32 and in their
+    orders (``norm_plan.bwd_walk``), under plan ``p``: (partial [grid, h],
+    dscale [h]), each row adding g * x * rstd to its columns."""
+    return norm_plan.bwd_walk(g2d.float() * x2d.float() * rstd, p)
 
 
 def rms_norm_fwd(x2d: torch.Tensor, scale: torch.Tensor, eps: float

@@ -14,7 +14,7 @@ completion with four device programs, run eagerly on the model's device:
 On a CUDA device the paged attention of both decode and prefill is the
 ragged kernel (``csrc/paged_attention.cu``, over plain pools or, with
 ``int8_kv_cache``, over int8 pools quantised on write) and every norm is
-its norm kernel (``csrc/rmsnorm.cu``, ``csrc/layernorm.cu``);
+its norm kernel (``csrc/layernorm.cu``);
 ``stats()['paged_kernel']`` and
 ``['prefill_kernel']`` report the resolved path, ``cuda`` or ``torch``.
 

@@ -238,6 +238,74 @@ def test_rmsnorm_strided_rows(cuda):
     torch.testing.assert_close(gs, rs, rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h", [(300, 4096), (37, 768), (5, 128),
+                                 (64, 5504), (2048, 3072)])
+def test_rmsnorm_bwd_every_plan_matches_plain(cuda, n, h, dtype):
+    # C under bwd_plan(rms=True)'s plan and forced ones: dx and dscale
+    # against the plain backward, the partial rows and dscale against
+    # their plain walk, launches counted by plan, the same bits twice
+    g = torch.Generator(device=cuda).manual_seed(13 * n + h)
+    x = (torch.randn(n, h, device=cuda, generator=g) * 3).to(dtype)
+    s = (torch.rand(h, device=cuda, generator=g) + 0.5).to(dtype)
+    gy = torch.randn(n, h, device=cuda, generator=g).to(dtype)
+    _, rstd = rn.rms_norm_fwd_plain(x, s, 1e-5)
+    dx0, ds0 = rn.rms_norm_bwd_plain(x, s, gy, rstd)
+    tol = TOL[dtype]
+    plans = norm_plan.bwd_plans(n, h, dtype, rms=True)
+    if n == 2048:       # Gemma-7B's training rows: the plan and a few more
+        plans = plans[:1] + plans[1::4]
+    for p in plans:
+        before = dict(rn.bwd_plan_launches)
+        b0 = rn.bwd_launches
+        dx, ds, part = rn.rms_norm_bwd_kernel(x, s, gy, rstd, force_plan=p,
+                                              partials=True)
+        assert rn.bwd_plan_launches[p] == before.get(p, 0) + 1
+        assert rn.bwd_launches == b0 + 1
+        assert part.shape == (p[3], h)
+        # dscale holds no more than itself: a gradient that keeps it keeps
+        # no partial row
+        assert ds.untyped_storage().nbytes() == 4 * h
+        torch.testing.assert_close(dx.float(), dx0.float(), rtol=0,
+                                   atol=tol, msg=str(p))
+        size = ds0.abs().max().item() + 1.0
+        assert (ds - ds0).abs().max().item() <= tol * size, p
+        # the partial rows and the column pass against their plain walk
+        # (fp32: only the kernel's fused multiply-adds differ)
+        ref_part, ref_ds = rn._reference_bwd_partials(x, s, gy, rstd, p)
+        size = ref_part.abs().max().item() + 1.0
+        assert (part - ref_part).abs().max().item() <= 1e-5 * size, p
+        assert (ds - ref_ds).abs().max().item() <= 1e-5 * size, p
+        again = rn.rms_norm_bwd_kernel(x, s, gy, rstd, force_plan=p)
+        assert torch.equal(again[0], dx) and torch.equal(again[1], ds), p
+
+
+def test_rmsnorm_bwd_refuses_with_the_reason(cuda):
+    h = 256
+    x = torch.randn(8, h, device=cuda)
+    s = torch.ones(h, device=cuda)
+    rstd = torch.ones(8, 1, device=cuda)
+    with pytest.raises(ValueError, match="g must be contiguous"):
+        rn.rms_norm_bwd_kernel(x, s, torch.randn(8, 2 * h,
+                                                 device=cuda)[:, :h], rstd)
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        rn.rms_norm_bwd_kernel(torch.randn(8, 2 * h, device=cuda)[:, :h], s,
+                               x, rstd)
+    with pytest.raises(TypeError, match="float32 x takes float32"):
+        rn.rms_norm_bwd_kernel(x, s.bfloat16(), x, rstd)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rn.rms_norm_bwd_kernel(x.half(), s.half(), x.half(), rstd)
+    with pytest.raises(ValueError, match="rstd must be"):
+        rn.rms_norm_bwd_kernel(x, s, x, torch.ones(3, 1, device=cuda))
+    with pytest.raises(ValueError, match="g must be"):
+        rn.rms_norm_bwd_kernel(x, s, x.bfloat16(), rstd)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        rn.rms_norm_bwd_kernel(x[:, :102].contiguous(), s[:102].contiguous(),
+                               x[:, :102].contiguous(), rstd)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        rn.rms_norm_bwd_kernel(x, s.cpu(), x, rstd)
+
+
 # -- kernels F, G, H: flash attention forward and backward -----------------
 
 FA_CASES = [  # (b, s, nh, ng, d, window)
@@ -755,20 +823,6 @@ def test_layernorm_every_plan_matches_plain(cuda, n, h, dtype):
             assert torch.equal(again[0], y) and torch.equal(again[1], mu)
 
 
-def _bwd_plans(h, dtype):
-    """Every (row_threads, vecs) E can take for rows of h, each with one
-    row a block and with as many as fit its threads."""
-    vec = 16 // torch.empty((), dtype=dtype).element_size()
-    nvec = h // vec
-    out = []
-    for v in range(1, ln.MAX_VECS + 1):
-        t = 32 * -(-nvec // (32 * v))
-        limit, _ = norm_plan.bwd_shape(v, vec)
-        if t <= limit:
-            out += sorted({(t, v, 1), (t, v, max(1, min(512, limit) // t))})
-    return out
-
-
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n,h", [(300, 4544), (37, 768), (64, 1600),
                                  (5, 128), (2048, 4544)])
@@ -780,35 +834,31 @@ def test_layernorm_bwd_every_plan_matches_plain(cuda, n, h, dtype):
     _, mu, rstd = ln.layer_norm_fwd_plain(x, s, torch.zeros_like(s), 1e-5)
     dx0, dg0, db0 = ln.layer_norm_bwd_plain(x, s, gy, mu, rstd)
     tol = TOL[dtype]
-    plans = _bwd_plans(h, dtype)
+    plans = norm_plan.bwd_plans(n, h, dtype)
     if n == 2048:       # the training rows: E's own plan and a few more
-        plans = [p[:3] for p in (ln.bwd_plan(n, h, dtype),)] + plans[::3]
-    for t, v, rows in plans:
-        for grid in sorted({min(-(-n // rows), 132), max(1, n // (7 * rows)),
-                            -(-n // rows)}):
-            p = (t, v, rows, grid)
-            before = dict(ln.bwd_plan_launches)
-            dx, dg, db, part = ln.layer_norm_bwd_kernel(
-                x, s, gy, mu, rstd, force_plan=p, partials=True)
-            assert ln.bwd_plan_launches[p] == before.get(p, 0) + 1
-            torch.testing.assert_close(dx.float(), dx0.float(), rtol=0,
-                                       atol=tol, msg=str(p))
-            for got, want in ((dg, dg0), (db, db0)):
-                size = want.abs().max().item() + 1.0
-                assert (got - want).abs().max().item() <= tol * size, p
-            # the partial rows and the column pass against their plain
-            # walk (fp32: only the kernel's fused multiply-adds differ)
-            ref_part, ref_sums = ln._reference_bwd_partials(x, s, gy, mu,
-                                                            rstd, p)
-            size = ref_part.abs().max().item() + 1.0
-            assert (part - ref_part).abs().max().item() <= 1e-5 * size, p
-            sums = torch.cat([dg, db])
-            assert (sums - ref_sums).abs().max().item() <= 1e-5 * size, p
-            # a fixed order: the same bits every run
-            again = ln.layer_norm_bwd_kernel(x, s, gy, mu, rstd,
-                                             force_plan=p)
-            assert all(torch.equal(a, b) for a, b in zip(again, (dx, dg,
-                                                                 db))), p
+        plans = plans[:1] + plans[1::4]
+    for p in plans:
+        before = dict(ln.bwd_plan_launches)
+        dx, dg, db, part = ln.layer_norm_bwd_kernel(
+            x, s, gy, mu, rstd, force_plan=p, partials=True)
+        assert ln.bwd_plan_launches[p] == before.get(p, 0) + 1
+        assert dg.untyped_storage().nbytes() == 8 * h
+        torch.testing.assert_close(dx.float(), dx0.float(), rtol=0,
+                                   atol=tol, msg=str(p))
+        for got, want in ((dg, dg0), (db, db0)):
+            size = want.abs().max().item() + 1.0
+            assert (got - want).abs().max().item() <= tol * size, p
+        # the partial rows and the column pass against their plain walk
+        # (fp32: only the kernel's fused multiply-adds differ)
+        ref_part, ref_sums = ln._reference_bwd_partials(x, s, gy, mu, rstd,
+                                                        p)
+        size = ref_part.abs().max().item() + 1.0
+        assert (part - ref_part).abs().max().item() <= 1e-5 * size, p
+        sums = torch.cat([dg, db])
+        assert (sums - ref_sums).abs().max().item() <= 1e-5 * size, p
+        # a fixed order: the same bits every run
+        again = ln.layer_norm_bwd_kernel(x, s, gy, mu, rstd, force_plan=p)
+        assert all(torch.equal(a, b) for a, b in zip(again, (dx, dg, db))), p
 
 
 def test_layernorm_fp32_keeps_1e5_on_rows_with_a_large_mean(cuda):

@@ -1,12 +1,13 @@
-"""Kernels B (the RMSNorm forward) and E (the LayerNorm backward): their
-plans and their arithmetic on the CPU.
+"""Kernels B (the RMSNorm forward), C (the RMSNorm backward) and E (the
+LayerNorm backward): their plans and their arithmetic on the CPU.
 
 ``norm_plan.plan`` for every RMSNorm preset width (Llama-2 7B/13B/70B,
 Llama-3, Mistral, Qwen2, Gemma-2B/7B) at decode, prefill and training
-rows, and ``norm_plan.bwd_plan`` for every LayerNorm preset width: every
-16-byte vector of a row is owned by exactly one (thread, slot), within
-the kernels' vectors a thread and launch bounds.  Then plain emulations
-of the kernels in torch fp32, against the JAX package's Pallas kernels in
+rows, ``norm_plan.bwd_plan(..., rms=True)`` for every RMSNorm preset
+width and ``norm_plan.bwd_plan`` for every LayerNorm one: every 16-byte
+vector of a row is owned by exactly one (thread, slot), within the
+kernels' vectors a thread and launch bounds.  Then plain emulations of
+the kernels in torch fp32, against the JAX package's Pallas kernels in
 interpret mode, within 1e-5:
 
 * B: the same partition of the row over threads, each thread's sum of
@@ -19,7 +20,12 @@ interpret mode, within 1e-5:
   one partial row, and the column pass adds the partial rows in its
   warps' order), against ``layernorm._bwd_call``, at row counts that are
   no multiple of the rows a block, grids larger than the row groups and
-  4544 columns (idle vectors).
+  4544 columns (idle vectors);
+* C: dx from the row's one sum (of g * scale * x) taken in that order,
+  and dscale from C's walk (``rmsnorm._reference_bwd_partials``, the
+  same walk over g * x * rstd), against ``rmsnorm._bwd_call``, likewise;
+  and the walk (``norm_plan.bwd_walk``) puts every row in the partial row
+  of the one block whose slot takes it.
 
 Also the call sites' no-grad path: under ``torch.no_grad()`` (and with no
 input that requires a gradient) ``apply_norm`` gives the autograd path's
@@ -126,6 +132,16 @@ def test_e_plan_of_falcon_rows():
         norm_plan.bwd_plan(8, 4546, torch.bfloat16)
 
 
+def test_e_plan_of_gpt2_rows():
+    # GPT-2 125M's 96 vectors a row: 96 threads of one, five rows a block,
+    # ahead of 32 threads of three (a one-warp row, though its 16 rows
+    # fill the block); a one-warp row where nothing wider covers the row
+    assert norm_plan.bwd_plan(8192, 768, torch.bfloat16) == (96, 1, 5, 132)
+    assert norm_plan.bwd_plan(8192, 768, torch.bfloat16, rms=True) == (
+        96, 1, 5, 132)
+    assert norm_plan.bwd_plan(64, 128, torch.float32)[0] == 32
+
+
 def _row_sum(per_elem, t, v, vec):
     """The kernels' sum over a row of [n, v, t, vec] values: each thread
     in slot order, then the warp's butterfly, then the warps in order."""
@@ -195,18 +211,6 @@ def _emulate_e_dx(x, scale, g, mu, rstd, p):
     return rstd * (ggam - m1 - xhat * m2)
 
 
-def _e_plans(n, h):
-    """E's plan for fp32 [n, h] rows, and forced ones: two rows a block
-    over a grid that walks the rows several times, and a grid larger
-    than the row groups (blocks with no row write zero partial rows)."""
-    p = norm_plan.bwd_plan(n, h, torch.float32)
-    nvec = h // 4
-    t2, v2 = next((t, v) for t, v in ((32 * -(-nvec // (32 * v)), v)
-                                      for v in range(1, 9))
-                  if 2 * t <= norm_plan.bwd_shape(v, 4)[0])
-    return [p, (t2, v2, 2, max(1, n // 7)), (p[0], p[1], 1, n + 5)]
-
-
 @pytest.mark.parametrize("n,h,mean", [(37, 4544, 0.0), (300, 768, 3.0),
                                       (5, 128, 0.0), (130, 1600, 0.0)])
 def test_emulated_e_matches_the_jax_kernel(n, h, mean):
@@ -219,7 +223,7 @@ def test_emulated_e_matches_the_jax_kernel(n, h, mean):
     want_dx, want_dg, want_db = (np.asarray(a) for a in LN._bwd_call(
         jnp.asarray(x), jnp.asarray(s), jnp.asarray(g),
         jnp.asarray(mu.numpy()), jnp.asarray(rstd.numpy()), 1e-5))
-    for p in _e_plans(n, h):
+    for p in norm_plan.bwd_plans(n, h, torch.float32):
         assert p[0] * p[1] * 4 >= h
         dx = _emulate_e_dx(tx, ts, tg, mu, rstd, p)
         np.testing.assert_allclose(dx.numpy(), want_dx, atol=1e-5, rtol=0)
@@ -233,6 +237,97 @@ def test_emulated_e_matches_the_jax_kernel(n, h, mean):
         # every row lands in exactly one partial row
         np.testing.assert_allclose(partial[:, h:].sum(0).numpy(),
                                    g.sum(0), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("preset", RMS_PRESETS,
+                         ids=lambda p: f"{p[0].__name__}-{p[1]}")
+def test_c_plan_covers_every_rmsnorm_preset(preset, dtype):
+    h = _width(preset)
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    nvec = h // vec
+    for n in ROWS:
+        t, v, rows, grid = norm_plan.bwd_plan(n, h, dtype, rms=True)
+        limit, _ = norm_plan.bwd_shape(v, vec, rms=True)
+        assert t % 32 == 0 and 1 <= v <= norm_plan.MAX_VECS
+        assert t * rows <= limit <= 512 and _owners_ok(nvec, t, v)
+        assert nvec > t * (v - 1)
+        assert 1 <= grid <= min(-(-n // rows), 132)
+
+
+def test_c_plans_of_llama_and_gemma_rows():
+    # Llama-2-7B's training rows: 512 vectors over 256 threads of 2, two
+    # rows a 512-thread block; Gemma-7B's: 384 vectors over 128 threads of
+    # 3, four rows a block; Llama-2-70B's 8192 columns: 256 threads of 4;
+    # each loading the next row ahead, one block an SM
+    assert norm_plan.bwd_plan(4096, 4096, torch.bfloat16, rms=True) == (
+        256, 2, 2, 132)
+    assert norm_plan.bwd_plan(2048, 3072, torch.bfloat16, rms=True) == (
+        128, 3, 4, 132)
+    assert norm_plan.bwd_plan(4096, 8192, torch.bfloat16, rms=True) == (
+        256, 4, 2, 132)
+    assert norm_plan.bwd_plan(3, 4096, torch.bfloat16, rms=True) == (
+        256, 2, 2, 2)
+    # C's one column sum leaves registers to load ahead at 4 bf16 vectors
+    # a thread, where E's two do not
+    assert norm_plan.bwd_shape(4, 8, rms=True) == (512, True)
+    assert norm_plan.bwd_shape(4, 8) == (512, False)
+    assert norm_plan.bwd_shape(8, 8, rms=True) == (384, False)
+
+
+def _emulate_c_dx(x, scale, g, rstd, p):
+    """Kernel C's dx in fp32 under plan ``p``: the row's one sum taken in
+    the kernels' order."""
+    t, v, _, _ = p
+    h = x.shape[1]
+    gs = g * scale
+    m = _row_sum(_parts(gs * x, t, v, 4), t, v, 4)[:, None] / h
+    return rstd * (gs - x * (rstd * rstd) * m)
+
+
+@pytest.mark.parametrize("n,h", [(37, 4096), (300, 768), (5, 128),
+                                 (130, 3072)])
+def test_emulated_c_matches_the_jax_kernel(n, h):
+    rng = np.random.RandomState(5 * n + h)
+    x = (rng.randn(n, h) * 3).astype(np.float32)
+    s = (0.5 + rng.rand(h)).astype(np.float32)
+    g = rng.randn(n, h).astype(np.float32)
+    tx, ts, tg = map(torch.from_numpy, (x, s, g))
+    _, rstd = trms.rms_norm_fwd_plain(tx, ts, 1e-5)
+    want_dx, want_ds = (np.asarray(a) for a in R._bwd_call(
+        jnp.asarray(x), jnp.asarray(s), jnp.asarray(g),
+        jnp.asarray(rstd.numpy()), 1e-5))
+    size = max(1.0, float(np.abs(want_ds).max()))
+    for p in norm_plan.bwd_plans(n, h, torch.float32, rms=True):
+        assert p[0] * p[1] * 4 >= h
+        dx = _emulate_c_dx(tx, ts, tg, rstd, p)
+        np.testing.assert_allclose(dx.numpy(), want_dx, atol=1e-5, rtol=0)
+        partial, ds = trms._reference_bwd_partials(tx, ts, tg, rstd, p)
+        assert partial.shape == (p[3], h)
+        # the sum of n rows: within 1e-5 of its size
+        np.testing.assert_allclose(ds.numpy(), want_ds, atol=1e-5 * size,
+                                   rtol=0)
+        # every row lands in exactly one partial row
+        np.testing.assert_allclose(partial.sum(0).numpy(), want_ds,
+                                   atol=1e-5 * size, rtol=0)
+        # and the CPU path (the plain backward) within the same
+        dx0, ds0 = trms.rms_norm_bwd(tx, ts, tg, rstd)
+        np.testing.assert_allclose(dx0.numpy(), want_dx, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(ds0.numpy(), want_ds, atol=1e-5 * size,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("n,p", [(37, (128, 1, 4, 5)), (37, (32, 3, 2, 3)),
+                                 (5, (32, 1, 1, 10)), (300, (64, 3, 8, 4))])
+def test_bwd_walk_puts_each_row_in_its_blocks_partial_row(n, p):
+    # row r of the walk belongs to block (r // rows) % grid: with one
+    # column a row, the partial rows hold a 1 exactly there
+    _, _, rows, grid = p
+    partial, sums = norm_plan.bwd_walk(torch.eye(n), p)
+    want = torch.zeros(grid, n)
+    want[(torch.arange(n) // rows) % grid, torch.arange(n)] = 1.0
+    assert torch.equal(partial, want)
+    assert torch.equal(sums, torch.ones(n))
 
 
 @pytest.mark.parametrize("ctx", [torch.no_grad, torch.inference_mode])
