@@ -87,6 +87,26 @@ B or C.  Phase 6 does it with Gemma-7B's width (hidden 3072, 16 heads of
 path.  Every training phase checks that its flash launches went through
 the bf16 kernel variants (the fp32 checks through the fp32 ones).
 
+Phase 7 writes an mmap corpus with the port's builder (2000 documents of
+100-4096 random ids below 32000 from seed 1234, uint16) under build/,
+and trains Llama-2-7B's width cut to 2 layers at sequence 4096 on it
+through ``finetune.main`` (``--data_path``, ``--split 98,2,0``, eval every
+2 iterations, a checkpoint every 2) for 4 iterations; then resumes from
+iteration 2 (``--load``, ``--load_iters 2``) and runs to 4.  Every leaf
+loaded (params and optimizer state) must have the device digest of the
+leaf saved, the resumed iteration 3 loss must equal the uninterrupted
+one bit for bit (one forward from identical params on the same
+samples), iteration 4 within the bf16 tolerance (G's dq sums with fp32
+atomics), the eval losses finite, and every launch count exact.  It
+prints the save and load seconds and GB/s and the checkpoint's size,
+and the step time and device idle share of a step fed by the real
+loader beside one on a batch kept on the card.  Then the port's server
+loads the iteration-4 checkpoint (``--load``) with a GPT-2 byte-level
+BPE tokenizer over a 32000-id vocabulary the script writes, answers 8
+text prompts over HTTP, and its greedy tokens are held to the no-cache
+path on the loaded params (``_token_check``).  The directory is deleted
+at the end.
+
 It prints, before its last line, the card's name and power limit, one
 JSON line with every kernel's numbers (``{"kernels": [...]}``), and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -2817,6 +2837,447 @@ def train_phase(results, kernels, card, spec):
                             worst_rel_err=worst, launches=counts32)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: train on an mmap corpus, save, resume, serve the checkpoint
+# ---------------------------------------------------------------------------
+
+# the corpus: random ids below 32000 (uint16), ~2000 documents of 100-4096
+# tokens, from one seed
+CORPUS = dict(docs=2000, min_len=100, max_len=4096, vocab=32000, seed=1234)
+# characters of the served text prompts (~0.5 tokens a character under
+# the byte-pair vocabulary below)
+TEXT_PROMPT_CHARS = (200, 500, 800, 1100, 1400, 1800, 2200, 2800)
+
+
+def text_prompts(n, seed):
+    """``n`` text prompts of random lower-case words (lengths from
+    TEXT_PROMPT_CHARS, cycled), from ``seed``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    out = []
+    for i in range(n):
+        words, size = [], 0
+        while size < TEXT_PROMPT_CHARS[i % len(TEXT_PROMPT_CHARS)]:
+            w = "".join(rng.choice(letters, size=rng.randint(2, 9)))
+            words.append(w)
+            size += len(w) + 1
+        out.append(" ".join(words))
+    return out
+
+
+def write_corpus(prefix):
+    """The phase's mmap corpus (``prefix``.bin/.idx, the port's builder);
+    returns (documents, tokens)."""
+    import numpy as np
+
+    from megatron_llm_torch.data.indexed_dataset import make_builder
+
+    rng = np.random.RandomState(CORPUS["seed"])
+    builder = make_builder(prefix + ".bin", vocab_size=CORPUS["vocab"])
+    tokens = 0
+    for _ in range(CORPUS["docs"]):
+        n = rng.randint(CORPUS["min_len"], CORPUS["max_len"] + 1)
+        builder.add_item(rng.randint(0, CORPUS["vocab"], n))
+        builder.end_document()
+        tokens += n
+    builder.finalize(prefix + ".idx")
+    return CORPUS["docs"], tokens
+
+
+def _leaf_digests(tree):
+    """{leaf key: (dtype, shape, sum, weighted sum)} of a tree, computed on
+    the leaves' device over their bits (int64 sums of the leaf viewed as
+    integers, the second weighted by position mod 1000003)."""
+    import torch
+
+    from megatron_llm_torch.checkpointing import _flat
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for key, t in _flat(tree).items():
+        v = t.detach().reshape(-1).view(ints[t.element_size()]).to(
+            torch.int64)
+        w = torch.arange(1, v.numel() + 1, device=v.device) % 1000003
+        out[key] = (str(t.dtype), tuple(t.shape), int(v.sum()),
+                    int((v * w).sum()))
+    return out
+
+
+def _run_finetune(argv):
+    """``finetune.main(argv)`` with its checkpoint IO and log lines
+    observed: returns (iteration, stdout lines, {iteration: exact lm
+    loss}, device digests of every leaf saved (by iteration) and of every
+    leaf loaded)."""
+    import contextlib
+    import io
+
+    from megatron_llm_torch import checkpointing, finetune, training
+
+    losses, saved, loaded = {}, {}, {}
+    save0, load0, log0 = (checkpointing.save_checkpoint,
+                          checkpointing.load_checkpoint,
+                          training.training_log)
+
+    def save(save_dir, iteration, params, opt_state=None, *a, **kw):
+        saved[iteration] = {**_leaf_digests(params), **_leaf_digests(
+            checkpointing._opt_state_to_tree(opt_state))}
+        return save0(save_dir, iteration, params, opt_state, *a, **kw)
+
+    def load(*a, **kw):
+        params, opt_state, meta = load0(*a, **kw)
+        if params is not None:
+            loaded.update(_leaf_digests(params))
+        if opt_state is not None:
+            loaded.update(_leaf_digests(
+                checkpointing._opt_state_to_tree(opt_state)))
+        return params, opt_state, meta
+
+    def log_line(iteration, train_iters, metrics, *a, **kw):
+        losses[iteration] = metrics["lm loss"]
+        return log0(iteration, train_iters, metrics, *a, **kw)
+
+    out = io.StringIO()
+    checkpointing.save_checkpoint, checkpointing.load_checkpoint = save, load
+    training.training_log = log_line
+    try:
+        with contextlib.redirect_stdout(out):
+            it = finetune.main(argv)
+    finally:
+        checkpointing.save_checkpoint = save0
+        checkpointing.load_checkpoint = load0
+        training.training_log = log0
+        for line in out.getvalue().splitlines():
+            log(f"  | {line}")
+    return it, out.getvalue().splitlines(), losses, saved, loaded
+
+
+def _io_lines(lines, verb):
+    """(bytes, seconds) of each ' [checkpoint] saved/loaded' line."""
+    pat = re.compile(rf"\[checkpoint\] {verb} .*: (\d+) bytes in "
+                     rf"([0-9.]+) s")
+    return [(int(m.group(1)), float(m.group(2)))
+            for m in map(pat.search, lines) if m]
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def _serve_text_wave(port, texts, new_tokens):
+    """PUT every text prompt concurrently; returns the token lists."""
+    out = [None] * len(texts)
+    errors = []
+
+    def client(i):
+        try:
+            out[i] = _put(port, {"prompts": [texts[i]],
+                                 "tokens_to_generate": new_tokens,
+                                 "temperature": 0.0})
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"request {i}: {type(exc).__name__}: {exc}")
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(texts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    check(not errors, "; ".join(errors))
+    for i, (code, body) in enumerate(out):
+        check(code == 200, f"request {i}: HTTP {code} {body}")
+    return [body["tokens"][0] for _, body in out], \
+        [body["text"][0] for _, body in out]
+
+
+def corpus_phase(results, kernels, card, synthetic_idle):
+    """Phase 7 (see the module's docstring): in a directory under build/
+    that it deletes at the end."""
+    import shutil
+
+    import torch
+
+    work = os.path.join(REPO, "build", "chip_smoke_corpus")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        _corpus_phase(results, kernels, card, synthetic_idle, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _corpus_phase(results, kernels, card, synthetic_idle, work):
+    import contextlib
+    import io
+
+    import torch
+
+    from megatron_llm_torch import finetune
+    from megatron_llm_torch.arguments import parse_args
+    from megatron_llm_torch.config import (ParallelConfig,
+                                           train_config_from_args)
+    from megatron_llm_torch.optimizer import MegatronOptimizer
+    from megatron_llm_torch.run_text_generation_server import (
+        build_parser, build_server)
+    from megatron_llm_torch.tokenizer import build_tokenizer
+    from megatron_llm_torch.tokenizer.bpe import write_byte_bpe_vocab
+    from megatron_llm_torch.training import build_train_step
+
+    spec = TRAINING["llama"]
+    L, micro, iters, seq = 2, 2, 4, spec["seq"]
+    phase = "corpus Llama-2-7B"
+    # (1) the corpus, written by the port's builder
+    prefix = os.path.join(work, "corpus_text_document")
+    t0 = time.perf_counter()
+    docs, tokens = write_corpus(prefix)
+    log(f"  corpus: {docs} documents, {tokens} tokens (uint16) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ckpt = os.path.join(work, "ckpt")
+    common = spec["flags"] + [
+        "--num_layers", str(L), "--seq_length", str(seq),
+        "--max_position_embeddings", str(seq), "--vocab_size",
+        str(CORPUS["vocab"]), "--bf16", "--micro_batch_size", "1",
+        "--global_batch_size", str(micro), "--train_iters", str(iters),
+        "--lr", "1e-4", "--clip_grad", "1.0", "--log_interval", "1",
+        "--seed", "1234", "--data_path", prefix, "--split", "98,2,0",
+        "--eval_interval", "2", "--eval_iters", "1"]
+
+    # (2) 4 iterations straight, saving at 2 and 4
+    argv = common + ["--save", ckpt, "--save_interval", "2"]
+    log(f"  finetune.main({' '.join(argv)})")
+    _zero_counts()
+    t0 = time.perf_counter()
+    it, lines_a, loss_a, saved, _ = _run_finetune(argv)
+    wall_a = time.perf_counter() - t0
+    counts = _counts()
+    evals_a = [_log_field(ln, f"validation loss at iteration {i}")
+               for i in (2, 4) for ln in lines_a
+               if f"validation loss at iteration {i}:" in ln]
+    check(it == iters and sorted(loss_a) == [1, 2, 3, 4],
+          f"uninterrupted run: iteration {it}, losses {loss_a}")
+    check(all(math.isfinite(v) for v in list(loss_a.values()) + evals_a)
+          and len(evals_a) == 2,
+          f"uninterrupted run: losses {loss_a}, eval losses {evals_a}")
+    n_evals = 2
+    want = {"F": (iters + n_evals) * L * micro, "G": iters * L * micro,
+            "H": 0, "B": (iters + n_evals) * (2 * L + 1) * micro,
+            "C": iters * (2 * L + 1) * micro, "D": 0, "E": 0, "A": 0,
+            "A'": 0}
+    log(f"  uninterrupted run: losses {loss_a}, eval losses {evals_a}; "
+        f"launches {counts} (expected {want}); {wall_a:.1f} s")
+    check(counts == want, f"corpus run launches {counts} != {want}")
+    _check_variants(counts, torch.bfloat16, spec["head_dim"],
+                    "corpus run")
+    for key, row in (("F", "flash_fwd"), ("G", "flash_bwd_fused"),
+                     ("B", "rmsnorm"), ("C", "rmsnorm_bwd")):
+        _add_launches(kernels, row, phase + ", training", counts[key])
+    steps_ms = [_log_field(ln, "elapsed time per iteration (ms)")
+                for ln in lines_a if ln.startswith(" iteration")]
+    saves = _io_lines(lines_a, "saved")
+    check(len(saves) == 2 and sorted(saved) == [2, 4],
+          f"saves {saves}, digests of iterations {sorted(saved)}")
+    size = _dir_bytes(os.path.join(ckpt, "iter_0000004"))
+
+    # (3) resume from iteration 2 and run to 4
+    argv = common + ["--load", ckpt, "--load_iters", "2"]
+    log(f"  finetune.main({' '.join(argv)})")
+    _zero_counts()
+    it, lines_b, loss_b, _, loaded = _run_finetune(argv)
+    counts_b = _counts()
+    check(it == iters and sorted(loss_b) == [3, 4],
+          f"resumed run: iteration {it}, losses {loss_b}")
+    same = sorted(k for k in saved[2] if loaded.get(k) == saved[2][k])
+    check(sorted(loaded) == sorted(saved[2]) and len(same) == len(saved[2]),
+          f"loaded leaves equal to the saved ones: {len(same)} of "
+          f"{len(saved[2])}; differing "
+          f"{sorted(set(saved[2]) - set(same))[:6]}")
+    log(f"  resumed run: every one of the {len(same)} leaves loaded "
+        f"(params and optimizer state) has the device digest of the leaf "
+        f"saved at iteration 2")
+    loads = _io_lines(lines_b, "loaded")
+    evals_b = [_log_field(ln, "validation loss at iteration 4")
+               for ln in lines_b if "validation loss at iteration 4:" in ln]
+    d3, d4 = loss_b[3] - loss_a[3], loss_b[4] - loss_a[4]
+    log(f"  resumed run: iteration 3 loss {loss_b[3]!r} against "
+        f"{loss_a[3]!r} uninterrupted (difference {d3!r}, bitwise "
+        f"{'equal' if d3 == 0 else 'NOT equal'}); iteration 4 {loss_b[4]!r}"
+        f" against {loss_a[4]!r} (difference {d4:.3g}, tolerance "
+        f"{TOL['bf16']}); eval loss at 4 {evals_b} against {evals_a[1:]};"
+        f" launches {counts_b}")
+    check(loss_b[3] == loss_a[3],
+          f"the resumed first loss {loss_b[3]!r} is not the "
+          f"uninterrupted run's {loss_a[3]!r}")
+    check(abs(d4) <= TOL["bf16"], f"iteration 4 loss differs by {d4}")
+    check(len(evals_b) == 1 and math.isfinite(evals_b[0]),
+          f"resumed eval losses {evals_b}")
+    for key, row in (("F", "flash_fwd"), ("G", "flash_bwd_fused"),
+                     ("B", "rmsnorm"), ("C", "rmsnorm_bwd")):
+        _add_launches(kernels, row, phase + ", resumed", counts_b[key])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    save_gb_s = [b / s / 1e9 for b, s in saves]
+    load_b, load_s = sum(b for b, _ in loads), sum(s for _, s in loads)
+    log(f"  checkpoint IO ({card}): iteration 4 is {size / 1e9:.3f} GB on "
+        f"disk; saves " + ", ".join(f"{b / 1e9:.3f} GB in {s:.2f} s "
+                                    f"({b / s / 1e9:.2f} GB/s)"
+                                    for b, s in saves)
+        + f"; resume load {load_b / 1e9:.3f} GB in {load_s:.2f} s "
+        f"({load_b / load_s / 1e9:.2f} GB/s, params then optimizer "
+        f"state, to the card)")
+    results.update(
+        corpus_tokens=tokens, corpus_docs=docs,
+        uninterrupted=dict(losses=loss_a, eval_losses=evals_a,
+                           step_ms=steps_ms, launches=counts,
+                           wall_secs=wall_a),
+        resumed=dict(losses=loss_b, eval_losses=evals_b,
+                     launches=counts_b, loss3_diff=d3, loss4_diff=d4,
+                     leaves_checked=len(same)),
+        checkpoint_bytes_on_disk=size,
+        save=[dict(bytes=b, secs=s, gb_per_s=b / s / 1e9) for b, s in saves],
+        load=dict(bytes=load_b, secs=load_s, gb_per_s=load_b / load_s / 1e9),
+        save_gb_per_s=save_gb_s)
+
+    # (4) the loader-fed step against a fixed device batch: 2 layers, the
+    # same flags, a train step on the real loader's batches
+    args = parse_args(common + ["--train_iters", "16"],
+                      extra_args_provider=finetune.extra_args)
+    finetune._apply_model_defaults(args, common)
+    model = finetune.model_provider(args)
+    params = model.init(1234)
+    opt = MegatronOptimizer(train_config_from_args(args),
+                            params_dtype=torch.bfloat16)
+    state = opt.init(params)
+    step = build_train_step(model, opt, ParallelConfig(), micro)
+    train_iter, _ = finetune.build_data_iterator(args, micro, device="cuda")
+    fixed = next(train_iter)
+
+    def loader_step():
+        nonlocal params, state
+        params, state, _ = step(params, state, next(train_iter), None,
+                                1e-5, 0.01)
+        torch.cuda.synchronize()
+
+    def fixed_step():
+        nonlocal params, state
+        params, state, _ = step(params, state, fixed, None, 1e-5, 0.01)
+        torch.cuda.synchronize()
+
+    shares = {}
+    for tag, run in (("fixed", fixed_step), ("loader", loader_step)):
+        run()
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = sorted(times)[len(times) // 2]
+        groups, busy, _ = _profile_step(run, f"corpus_{tag}")
+        idle = 1 - busy / ms if busy > 0 else None
+        shares[tag] = dict(step_ms=ms, step_ms_all=times, device_ms=busy,
+                           idle_share=idle, device_ms_by_kernel=groups)
+    def fmt(v):
+        return "not measured" if v is None else f"{v:.3f}"
+
+    log(f"  2-layer step ({card}): on the loader's batches "
+        f"{shares['loader']['step_ms']:.1f} ms, device idle share "
+        f"{fmt(shares['loader']['idle_share'])}; on one batch kept on the "
+        f"card {shares['fixed']['step_ms']:.1f} ms, idle share "
+        f"{fmt(shares['fixed']['idle_share'])}; phase 3's synthetic "
+        f"8-layer step: idle share {fmt(synthetic_idle)}")
+    results["loader_step"] = shares
+    results["synthetic_idle_share_phase3"] = synthetic_idle
+    del params, state, step, opt, fixed, train_iter
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (5) the port's server on the iteration-4 checkpoint, with a GPT-2
+    # byte-level BPE tokenizer over a 32000-id vocabulary
+    vf, mf = write_byte_bpe_vocab(work, CORPUS["vocab"])
+    sargs = build_parser().parse_args([
+        "--model_name", "llama2", "--num_layers", str(L), "--bf16",
+        "--load", ckpt, "--tokenizer_type", "GPT2BPETokenizer",
+        "--vocab_file", vf, "--merge_file", mf, "--serve_max_model_len",
+        "2048", "--host", "127.0.0.1", "--port", "0"])
+    tok = build_tokenizer(sargs)
+    check(sargs.padded_vocab_size == CORPUS["vocab"],
+          f"the tokenizer pads the vocab to {sargs.padded_vocab_size}")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        server = build_server(sargs, tok)
+    for line in out.getvalue().splitlines():
+        log(f"  | {line}")
+    (srv_bytes, srv_secs), = _io_lines(out.getvalue().splitlines(), "loaded")
+    engine = server.engine
+    log(f"  server on {ckpt}: built in {time.perf_counter() - t0:.1f} s, "
+        f"params loaded {srv_bytes / 1e9:.3f} GB in {srv_secs:.2f} s "
+        f"({srv_bytes / srv_secs / 1e9:.2f} GB/s)")
+    httpd = server.make_httpd("127.0.0.1", 0)
+    port = httpd.server_address[1]
+    srv = threading.Thread(target=server.run, daemon=True)
+    srv.start()
+    new_tokens = 64
+    try:
+        texts = text_prompts(8, 1234)
+        prompts = [tok.tokenize(t) for t in texts]
+        s0 = engine.stats()
+        _zero_counts()
+        outs, out_texts = _serve_text_wave(port, texts, new_tokens)
+        launches = _serving_counts()
+        s1 = engine.stats()
+        for p, o, t, ot in zip(prompts, outs, texts, out_texts):
+            check(o[:len(p)] == p and len(o) == len(p) + new_tokens,
+                  f"a request returned {len(o)} tokens for a "
+                  f"{len(p)}-token prompt")
+            check(ot.startswith(t), "the answer's text does not start "
+                                    "with its prompt")
+        dec = s1["decode_steps"] - s0["decode_steps"]
+        pre = s1["prefill_chunks"] - s0["prefill_chunks"]
+        want = {k: 0 for k in launches}
+        want["B"] = (2 * L + 1) * (dec + pre)
+        want["A decode"], want["A prefill"] = L * dec, L * pre
+        log(f"  served {len(texts)} text prompts of "
+            f"{[len(p) for p in prompts]} tokens: {dec} decode steps, "
+            f"{pre} prefill chunks; launches {launches}")
+        check(launches == want, f"serving launches {launches} != {want}")
+        _add_launches(kernels, "rmsnorm", phase + ", serving", launches["B"])
+        _add_launches(kernels, "paged_decode", phase + ", serving",
+                      launches["A decode"])
+        _add_launches(kernels, "paged_prefill", phase + ", serving",
+                      launches["A prefill"])
+        checked = agreed = positions = 0
+        for i in (2, 5):
+            n_sure, n_agree, n, spread = _token_check(
+                engine.model, engine.params, outs[i], len(prompts[i]),
+                False, MARGIN_BOUND)
+            log(f"  bf16 no-cache check on the loaded params, prompt "
+                f"{len(prompts[i])}: {n_agree}/{n_sure} served tokens agree"
+                f" where the top-2 margin > {MARGIN_BOUND} ({n} positions);"
+                f" logits, paged vs no-cache: "
+                + ", ".join(f"{k} {v:.4g}" for k, v in spread.items()))
+            checked, agreed, positions = (checked + n_sure,
+                                          agreed + n_agree, positions + n)
+        check(checked >= MIN_CHECKED_FRACTION * positions,
+              f"only {checked}/{positions} positions above the margin "
+              f"bound")
+        check(agreed == checked,
+              f"no-cache forward disagrees at {checked - agreed} positions")
+        results["served"] = dict(
+            prompt_tokens=[len(p) for p in prompts], launches=launches,
+            token_check=dict(checked=checked, agreed=agreed,
+                             positions=positions),
+            load=dict(bytes=srv_bytes, secs=srv_secs))
+    finally:
+        server.shutdown()
+        engine.stop()
+        srv.join(30)
+
+
 def _log_flash_build(build):
     """Registers, spills and shared memory of every flash-attention and
     paged-attention kernel instantiation: ptxas's lines from the build,
@@ -3015,6 +3476,14 @@ def main(argv=None) -> int:
         log(f"{kind} {spec['label']} ({card}): " + json.dumps(out))
         gc.collect()
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("phase 7: Llama-2-7B width, 2 layers, sequence 4096, trained on an "
+        "mmap corpus, saved, resumed and served from its checkpoint")
+    corpus = {}
+    corpus_phase(corpus, kernels, card,
+                 training["llama"]["profiled_step"]["idle_share"])
+    log(f"phase 7 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"corpus Llama-2-7B ({card}): " + json.dumps(corpus))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     names = ("paged_decode", "paged_prefill", "paged_decode_int8",
@@ -3032,7 +3501,7 @@ def main(argv=None) -> int:
                          if k in keys or k in kernels[n]} for n in names]}
     with open(os.path.join(OUT_DIR, "chip_smoke_result.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "serving": serving,
-                   "training": training}, f, indent=1)
+                   "training": training, "corpus": corpus}, f, indent=1)
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

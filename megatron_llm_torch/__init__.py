@@ -11,6 +11,9 @@ forward and backward and the RMSNorm backward as CUDA kernels, the
 optimizer stack (``optimizer/``), the train step and loop
 (``training.py``) and the ``finetune.py`` entry point with its flags
 (``arguments.py``).
+Slice 5 ports real weights, text and data: checkpoints in the JAX
+package's layout (``checkpointing.py``), the tokenizers (``tokenizer/``)
+and the mmap data loaders with their native index helpers (``data/``).
 Module names follow the JAX package so each counterpart is easy to find.
 The package imports neither ``jax`` nor ``megatron_llm_tpu``.
 """

@@ -3,12 +3,13 @@
 honours, under the same names and defaults, and the derivations of its
 ``validate_args`` that they need.
 
-Flags of features outside the slice that a user may well pass (data,
-``--load``/``--save``, parallel sizes, ``--fp16``) are accepted so that
-asking for one raises ``NotImplementedError`` in ``finetune.py`` or the
-config; the rest of the JAX package's flags are not defined here, and
-argparse refuses them.  ``--device`` picks the torch device (``cuda``
-unless the caller asks for ``cpu``).
+The checkpoint, evaluation, data and tokenizer flags have the JAX
+parser's names and defaults.  Flags of features outside the port that a
+user may well pass (parallel sizes, ``--fp16``, ``--async_save``) are
+accepted so that asking for one raises ``NotImplementedError`` in
+``finetune.py`` or the config; the rest of the JAX package's flags are
+not defined here, and argparse refuses them.  ``--device`` picks the
+torch device (``cuda`` unless the caller asks for ``cpu``).
 """
 
 from __future__ import annotations
@@ -95,6 +96,8 @@ def build_parser(extra_args_provider: Optional[Callable] = None
     g.add_argument("--recompute_granularity", default=None,
                    choices=[None, "full", "uniform", "block", "selective"])
     g.add_argument("--skip_iters", type=int, nargs="*", default=[])
+    g.add_argument("--dataloader_type", default="single",
+                   choices=["single", "cyclic"])
     g.add_argument("--use_flash_attn", action="store_true", default=True)
     g.add_argument("--no_flash_attn", action="store_false",
                    dest="use_flash_attn")
@@ -122,11 +125,49 @@ def build_parser(extra_args_provider: Optional[Callable] = None
     g.add_argument("--no_attention_softmax_in_fp32", action="store_false",
                    dest="attention_softmax_in_fp32")
 
-    g = p.add_argument_group("checkpointing, data, parallelism")
+    g = p.add_argument_group("checkpointing")
     g.add_argument("--save", type=str, default=None)
+    g.add_argument("--save_interval", type=int, default=None)
+    g.add_argument("--async_save", action="store_true",
+                   help="background checkpoint writes (not ported: "
+                        "raises)")
     g.add_argument("--load", type=str, default=None)
+    g.add_argument("--load_iters", type=int, default=None,
+                   help="load this iteration instead of the tracker's latest")
+    g.add_argument("--finetune", action="store_true")
+    g.add_argument("--use_checkpoint_args", action="store_true")
+    g.add_argument("--no_save_optim", action="store_true")
+    g.add_argument("--no_load_optim", action="store_true")
+    g.add_argument("--save_total_limit", type=int, default=0,
+                   help="keep only the newest N iter_* checkpoints "
+                        "(0 = keep all)")
+
+    g = p.add_argument_group("validation")
+    g.add_argument("--eval_iters", type=int, default=100)
+    g.add_argument("--eval_interval", type=int, default=1000)
+
+    g = p.add_argument_group("data")
     g.add_argument("--data_path", nargs="*", default=None)
+    g.add_argument("--split", type=str, default="969,30,1")
+    g.add_argument("--data_impl", default="mmap")
+    g.add_argument("--num_workers", type=int, default=2,
+                   help="batches the loader's background thread builds "
+                        "ahead")
+    g.add_argument("--tokenizer_type", type=str, default=None)
+    g.add_argument("--vocab_file", type=str, default=None)
+    g.add_argument("--merge_file", type=str, default=None)
+    g.add_argument("--tokenizer_path", type=str, default=None)
+    g.add_argument("--tokenizer_model", type=str, default=None)
+    g.add_argument("--vocab_extra_ids_list", type=str, default=None)
     g.add_argument("--vocab_size", type=int, default=None)
+    g.add_argument("--vocab_extra_ids", type=int, default=0)
+    g.add_argument("--no_new_tokens", action="store_false", dest="new_tokens")
+    g.add_argument("--variable_seq_lengths", action="store_true")
+    g.add_argument("--scalar_loss_mask", type=float, default=0.0)
+    g.add_argument("--data_type", default="gpt",
+                   choices=["gpt", "instruction"])
+
+    g = p.add_argument_group("parallelism")
     g.add_argument("--tensor_model_parallel_size", type=int, default=1)
     g.add_argument("--pipeline_model_parallel_size", type=int, default=1)
     g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],

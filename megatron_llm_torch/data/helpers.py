@@ -1,0 +1,363 @@
+"""ctypes bindings for the native index helpers, with numpy plain
+versions (a copy of ``megatron_llm_tpu/data/helpers.py``).
+
+Reference: ``megatron/data/helpers.cpp`` (pybind11) imported at
+``gpt_dataset.py:354-357``; the reference also ships a pure-Python version
+of ``build_sample_idx`` (``gpt_dataset.py:445-492``) — same structure here.
+
+Unlike the JAX package's copy (``make`` into the source directory, numpy
+when the build fails), the port compiles ``helpers.cpp`` with ``g++`` at
+first use into ``build/torch_helpers/`` at the repo root, named by a
+digest of the source and flags (``ops/kernels/build.source_digest``), and
+a failed build raises: the loaders never fall back to numpy in silence.
+The numpy versions (``_build_sample_idx_py``, ``_build_mapping_py``,
+``_build_blocks_mapping_py`` and ``_build_blending_indices_py``) are the
+plain versions that the tests call by name.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from megatron_llm_torch.ops.kernels.build import source_digest
+
+_SRC = Path(__file__).resolve().parent / "helpers.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_helpers"
+CXX_FLAGS = ("-O3", "-Wall", "-shared", "-std=c++17", "-fPIC")
+_lock = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def build() -> Path:
+    """Compile helpers.cpp (once per source digest) and return the
+    library's path; raises when no compiler is found or it fails.  The
+    compile goes to a temporary name and is renamed into place, so a
+    concurrent loader never opens a half-written file."""
+    so = BUILD_DIR / f"libhelpers_{source_digest([_SRC], CXX_FLAGS)}.so"
+    if so.exists():
+        return so
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++) found: the data helpers "
+                           "are built from data/helpers.cpp at first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.tmp.{os.getpid()}")
+    res = subprocess.run([cxx, *CXX_FLAGS, str(_SRC), "-o", str(tmp)],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"building the data helpers failed:\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def _load() -> ctypes.CDLL:
+    global _LIB
+    with _lock:
+        if _LIB is not None:
+            return _LIB
+        lib = ctypes.CDLL(str(build()))
+        lib.build_sample_idx.restype = ctypes.c_int64
+        lib.build_sample_idx.argtypes = [
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64,
+            ctypes.c_int32,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.build_blending_indices.restype = None
+        lib.build_blending_indices.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int32,
+            ctypes.c_int64,
+            ctypes.c_int32,
+        ]
+        lib.build_mapping.restype = ctypes.c_int64
+        lib.build_mapping.argtypes = [
+            ctypes.POINTER(ctypes.c_int64),   # docs
+            ctypes.c_int64,                   # num_docs + 1
+            ctypes.POINTER(ctypes.c_int32),   # sizes
+            ctypes.c_int32,                   # num_epochs
+            ctypes.c_int64,                   # max_num_samples
+            ctypes.c_int32,                   # max_seq_length
+            ctypes.c_double,                  # short_seq_prob
+            ctypes.c_int32,                   # seed
+            ctypes.c_int32,                   # min_num_sent
+            ctypes.POINTER(ctypes.c_int64),   # out (NULL => count only)
+        ]
+        lib.build_blocks_mapping.restype = ctypes.c_int64
+        lib.build_blocks_mapping.argtypes = [
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),   # title_sizes
+            ctypes.c_int32,
+            ctypes.c_int64,
+            ctypes.c_int32,
+            ctypes.c_int32,                   # seed
+            ctypes.c_int32,                   # use_one_sent_blocks
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        _LIB = lib
+        return _LIB
+
+
+def _ptr(arr: np.ndarray, ctype):
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def build_sample_idx(
+    sizes: np.ndarray,
+    doc_idx: np.ndarray,
+    seq_length: int,
+    num_samples: int,
+) -> np.ndarray:
+    """[num_samples+1, 2] array of (doc_idx position, token offset)."""
+    sizes = np.ascontiguousarray(sizes, np.int32)
+    doc_idx = np.ascontiguousarray(doc_idx, np.int64)
+    out = np.zeros((num_samples + 1, 2), np.int64)
+    written = _load().build_sample_idx(
+        _ptr(sizes, ctypes.c_int32),
+        _ptr(doc_idx, ctypes.c_int64),
+        len(doc_idx),
+        seq_length,
+        num_samples,
+        _ptr(out, ctypes.c_int64),
+    )
+    if written != num_samples:
+        raise RuntimeError(
+            f"build_sample_idx exhausted tokens at sample {written} "
+            f"(< {num_samples})"
+        )
+    return out
+
+
+def _build_sample_idx_py(sizes, doc_idx, seq_length, num_samples):
+    """The plain version (reference: gpt_dataset.py:445-492)."""
+    out = np.zeros((num_samples + 1, 2), np.int64)
+    di, offset = 0, 0
+    for sample in range(1, num_samples + 1):
+        remaining = seq_length + 1
+        while remaining > 0:
+            if di >= len(doc_idx):
+                raise RuntimeError(
+                    f"build_sample_idx exhausted tokens at sample {sample - 1}"
+                )
+            doc_len = sizes[doc_idx[di]] - offset
+            if doc_len > remaining:
+                offset += remaining - 1
+                remaining = 0
+            else:
+                remaining -= doc_len
+                di += 1
+                offset = 0
+                if remaining == 0:
+                    di -= 1
+                    offset = sizes[doc_idx[di]] - 1
+        out[sample, 0] = di
+        out[sample, 1] = offset
+    return out
+
+
+def build_blending_indices(
+    weights: np.ndarray, size: int, verbose: bool = False
+):
+    """Greedy proportional interleave -> (dataset_index u8[size],
+    dataset_sample_index i64[size])."""
+    weights = np.ascontiguousarray(weights, np.float64)
+    ds_index = np.zeros(size, np.uint8)
+    ds_sample = np.zeros(size, np.int64)
+    _load().build_blending_indices(
+        _ptr(ds_index, ctypes.c_uint8),
+        _ptr(ds_sample, ctypes.c_int64),
+        _ptr(weights, ctypes.c_double),
+        len(weights),
+        size,
+        int(verbose),
+    )
+    return ds_index, ds_sample
+
+
+def _build_blending_indices_py(weights, size):
+    """The plain version of ``build_blending_indices``."""
+    weights = np.ascontiguousarray(weights, np.float64)
+    ds_index = np.zeros(size, np.uint8)
+    ds_sample = np.zeros(size, np.int64)
+    current = np.zeros(len(weights), np.int64)
+    for i in range(size):
+        err = weights * (i + 1) - current
+        d = int(np.argmax(err))
+        ds_index[i] = d
+        ds_sample[i] = current[d]
+        current[d] += 1
+    return ds_index, ds_sample
+
+
+_LONG_SENTENCE_LEN = 512  # matches kLongSentenceLen in helpers.cpp
+
+
+def build_mapping(
+    doc_idx: np.ndarray,
+    sizes: np.ndarray,
+    num_epochs: int,
+    max_num_samples: int,
+    max_seq_length: int,
+    short_seq_prob: float,
+    seed: int,
+    min_num_sent: int = 2,
+) -> np.ndarray:
+    """[n, 3] rows of (start-sentence, end-sentence, target-seq-length) for
+    BERT/T5 span sampling (reference: helpers.cpp build_mapping :424)."""
+    doc_idx = np.ascontiguousarray(doc_idx, np.int64)
+    sizes = np.ascontiguousarray(sizes, np.int32)
+    lib = _load()
+    null = ctypes.POINTER(ctypes.c_int64)()
+    n = lib.build_mapping(
+        _ptr(doc_idx, ctypes.c_int64), len(doc_idx),
+        _ptr(sizes, ctypes.c_int32),
+        num_epochs, max_num_samples, max_seq_length,
+        short_seq_prob, seed, min_num_sent, null,
+    )
+    out = np.empty((n, 3), np.int64)
+    lib.build_mapping(
+        _ptr(doc_idx, ctypes.c_int64), len(doc_idx),
+        _ptr(sizes, ctypes.c_int32),
+        num_epochs, max_num_samples, max_seq_length,
+        short_seq_prob, seed, min_num_sent,
+        _ptr(out, ctypes.c_int64),
+    )
+    return out
+
+
+def _build_mapping_py(doc_idx, sizes, num_epochs, max_num_samples,
+                      max_seq_length, short_seq_prob, seed, min_num_sent):
+    """The plain version; same structure as the native loop but with
+    numpy RNG (native/py maps differ in shuffle order, both are valid
+    samplings)."""
+    rng = np.random.RandomState(seed)
+    rows = []
+    num_docs = len(doc_idx) - 1
+    for epoch in range(num_epochs):
+        if len(rows) >= max_num_samples:
+            break
+        if epoch == 1 and not rows:
+            break  # no eligible document; don't spin 2^31 epochs
+        for doc in range(num_docs):
+            first, last = int(doc_idx[doc]), int(doc_idx[doc + 1])
+            remain = last - first
+            if remain < min_num_sent:
+                continue
+            if np.any(sizes[first:last] > _LONG_SENTENCE_LEN):
+                continue
+
+            def draw_target():
+                if short_seq_prob > 0 and rng.rand() < short_seq_prob:
+                    return int(rng.randint(2, max_seq_length + 1))
+                return max_seq_length
+
+            start, seq_len, num_sent = first, 0, 0
+            target = draw_target()
+            for s in range(first, last):
+                seq_len += int(sizes[s])
+                num_sent += 1
+                remain -= 1
+                if ((seq_len >= target and remain > 1
+                     and num_sent >= min_num_sent) or remain == 0):
+                    rows.append((start, s + 1, target))
+                    start = s + 1
+                    target = draw_target()
+                    seq_len, num_sent = 0, 0
+    out = np.asarray(rows[: int(max_num_samples) if max_num_samples else None],
+                     np.int64).reshape(-1, 3)
+    np.random.RandomState(seed + 1).shuffle(out)
+    return out
+
+
+def build_blocks_mapping(
+    doc_idx: np.ndarray,
+    sizes: np.ndarray,
+    title_sizes: np.ndarray,
+    num_epochs: int,
+    max_num_samples: int,
+    max_seq_length: int,
+    seed: int,
+    use_one_sent_blocks: bool = False,
+) -> np.ndarray:
+    """[n, 4] rows of (start-sentence, end-sentence, doc-index, block-id) for
+    ICT/REALM block sampling (reference: helpers.cpp build_blocks_mapping)."""
+    doc_idx = np.ascontiguousarray(doc_idx, np.int64)
+    sizes = np.ascontiguousarray(sizes, np.int32)
+    title_sizes = np.ascontiguousarray(title_sizes, np.int32)
+    lib = _load()
+    null = ctypes.POINTER(ctypes.c_int64)()
+    n = lib.build_blocks_mapping(
+        _ptr(doc_idx, ctypes.c_int64), len(doc_idx),
+        _ptr(sizes, ctypes.c_int32), _ptr(title_sizes, ctypes.c_int32),
+        num_epochs, max_num_samples, max_seq_length, seed,
+        int(use_one_sent_blocks), null,
+    )
+    out = np.empty((n, 4), np.int64)
+    lib.build_blocks_mapping(
+        _ptr(doc_idx, ctypes.c_int64), len(doc_idx),
+        _ptr(sizes, ctypes.c_int32), _ptr(title_sizes, ctypes.c_int32),
+        num_epochs, max_num_samples, max_seq_length, seed,
+        int(use_one_sent_blocks), _ptr(out, ctypes.c_int64),
+    )
+    return out
+
+
+def _build_blocks_mapping_py(doc_idx, sizes, title_sizes, num_epochs,
+                             max_num_samples, max_seq_length, seed,
+                             use_one_sent_blocks):
+    min_num_sent = 1 if use_one_sent_blocks else 2
+    rows = []
+    num_docs = len(doc_idx) - 1
+    block_id = 0  # unique across epochs (REALM retrieval key)
+    for epoch in range(num_epochs):
+        if len(rows) >= max_num_samples:
+            break
+        if epoch == 1 and not rows:
+            break
+        for doc in range(num_docs):
+            first, last = int(doc_idx[doc]), int(doc_idx[doc + 1])
+            remain = last - first
+            if remain < min_num_sent:
+                continue
+            budget = max_seq_length - int(title_sizes[doc])
+            if np.any(sizes[first:last] > budget):
+                continue
+            start, seq_len, num_sent = first, 0, 0
+            for s in range(first, last):
+                seq_len += int(sizes[s])
+                num_sent += 1
+                remain -= 1
+                nxt = int(sizes[s + 1]) if remain > 0 else 0
+                if ((seq_len + nxt > budget and num_sent >= min_num_sent
+                     and remain >= min_num_sent)
+                        or remain == 0):
+                    rows.append((start, s + 1, doc, block_id))
+                    block_id += 1
+                    start = s + 1
+                    seq_len, num_sent = 0, 0
+    out = np.asarray(rows[: int(max_num_samples) if max_num_samples else None],
+                     np.int64).reshape(-1, 4)
+    np.random.RandomState(seed + 1).shuffle(out)
+    return out
+
+
+def using_native() -> bool:
+    """True once the native library is loaded (building it if needed):
+    the public functions above always run it."""
+    return _load() is not None

@@ -74,12 +74,20 @@ def _nvcc() -> str:
                        " the CUDA kernels are built from csrc/ at first use")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        h.update(name.encode())
-        h.update((CSRC_DIR / name).read_bytes())
+def source_digest(paths, flags) -> str:
+    """A digest of the compiler flags and the named source files: the
+    name a build is stored under, so an edited source never loads a
+    stale build (the data helpers' g++ build takes it too)."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in paths:
+        h.update(Path(path).name.encode())
+        h.update(Path(path).read_bytes())
     return h.hexdigest()[:16]
+
+
+def _digest() -> str:
+    return source_digest([CSRC_DIR / n for n in SOURCES + HEADERS],
+                         NVCC_FLAGS)
 
 
 def build() -> Path:

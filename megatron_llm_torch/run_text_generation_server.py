@@ -3,16 +3,20 @@ engine, in PyTorch on one GPU (the twin of
 ``tools/run_text_generation_server.py``).
 
     python -m megatron_llm_torch.run_text_generation_server \\
-        --model_name llama2 --bf16 --tokenizer_type NullTokenizer \\
-        --vocab_size 32000 --port 5000
+        --model_name llama2 --bf16 --load ckpt \\
+        --tokenizer_type GPT2BPETokenizer --vocab_file vocab.json \\
+        --merge_file merges.txt --port 5000
 
 With no size flags the model is the family's 7B-class size (Llama-2-7B,
-Llama-3-8B, Falcon-7B, ...: see ``FAMILIES``); with no ``--load`` it
-serves random weights drawn from ``--seed``.  ``--int8_kv_cache`` keeps
-the paged KV pool as int8 with per-position scales.  Loading a checkpoint
-is a later slice.  ``build_server(args, tokenizer)`` builds the model, the engine
-and the server in-process (the port's tests and ``chip_smoke.py`` call
-it with a numeric tokenizer); ``main()`` parses the flags and serves.
+Llama-3-8B, Falcon-7B, ...: see ``FAMILIES``), its vocabulary padded from
+the tokenizer's (``build_tokenizer``).  ``--load`` serves a checkpoint of
+the port's trainer (its params only, from the tracker's iteration, held
+to the model's tree), as the JAX server does; with no ``--load`` it serves
+random weights drawn from ``--seed``.  ``--int8_kv_cache`` keeps the
+paged KV pool as int8 with per-position scales.  ``build_server(args,
+tokenizer)`` builds the model, the engine and the server in-process (the
+port's tests and ``chip_smoke.py`` call it); ``main()`` parses the flags,
+builds the tokenizer and serves.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from megatron_llm_torch import telemetry, tracing
+from megatron_llm_torch import checkpointing, telemetry, tracing
 from megatron_llm_torch.models import (
     MODEL_REGISTRY,
     falcon_config,
@@ -32,6 +36,9 @@ from megatron_llm_torch.models import (
     llama_config,
     mistral_config,
     qwen2_config,
+)
+from megatron_llm_torch.models.language_model import (
+    init_language_model_params,
 )
 from megatron_llm_torch.serving import EngineConfig, InferenceEngine
 from megatron_llm_torch.text_generation_server import MegatronServer
@@ -83,7 +90,13 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--device", default="cuda",
                    help="torch device to serve on ('cpu' for tests)")
     g.add_argument("--tokenizer_type", type=str, default="NullTokenizer")
+    g.add_argument("--vocab_file", type=str, default=None)
+    g.add_argument("--merge_file", type=str, default=None)
+    g.add_argument("--tokenizer_path", type=str, default=None)
+    g.add_argument("--tokenizer_model", type=str, default=None)
+    g.add_argument("--vocab_extra_ids", type=int, default=0)
     g.add_argument("--vocab_size", type=int, default=None)
+    g.add_argument("--make_vocab_size_divisible_by", type=int, default=128)
     s = p.add_argument_group("server")
     s.add_argument("--port", type=int, default=5000)
     s.add_argument("--host", default="0.0.0.0")
@@ -141,13 +154,10 @@ def engine_config_from_args(args) -> EngineConfig:
 
 
 def build_server(args, tokenizer) -> MegatronServer:
-    """Model (random weights from ``--seed``), warmed and started engine,
-    and the HTTP server in front of it; ``server.engine`` is the engine.
-    The caller binds and runs the server and stops the engine."""
-    if args.load:
-        raise NotImplementedError(
-            "loading a checkpoint is not ported yet; omit --load to serve "
-            "random weights from --seed")
+    """Model (the ``--load`` checkpoint's params, or random weights from
+    ``--seed``), warmed and started engine, and the HTTP server in front
+    of it; ``server.engine`` is the engine.  The caller binds and runs the
+    server and stops the engine."""
     if args.structured_log_dir:
         telemetry.install_stream(
             telemetry.TelemetryStream(args.structured_log_dir))
@@ -158,9 +168,20 @@ def build_server(args, tokenizer) -> MegatronServer:
     engine_cfg = engine_config_from_args(args)
     model = MODEL_REGISTRY[args.model_name](model_config_from_args(args),
                                             device=device)
-    print(f" no --load given: serving random weights from seed {args.seed}",
-          flush=True)
-    params = model.init(args.seed)
+    if args.load:
+        # params only, held to the model's tree (meta tensors: shapes and
+        # dtypes, no memory) and cast to its dtype
+        params, _, _ = checkpointing.load_checkpoint(
+            args.load, finetune=True, device=device,
+            params_template=init_language_model_params(None, model.cfg,
+                                                       device="meta"))
+        if params is None:
+            raise FileNotFoundError(f"--load {args.load}: no valid "
+                                    f"checkpoint there")
+    else:
+        print(f" no --load given: serving random weights from seed "
+              f"{args.seed}", flush=True)
+        params = model.init(args.seed)
     engine = InferenceEngine(model, params, engine_cfg)
     print(f" * paged-attention decode path: {engine.paged_kernel}",
           flush=True)
@@ -176,7 +197,7 @@ def build_server(args, tokenizer) -> MegatronServer:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    tokenizer = build_tokenizer(args.tokenizer_type, args.vocab_size)
+    tokenizer = build_tokenizer(args)   # sets args.padded_vocab_size
     server = build_server(args, tokenizer)
     try:
         server.run(args.host, args.port)

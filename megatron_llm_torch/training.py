@@ -9,8 +9,14 @@ runs eagerly, so there is nothing to compile and nothing is donated: the
 optimizer updates the params and its state in place.  ``pretrain`` runs
 the loop with the scheduler, the ``batch-generator`` / ``train-step``
 timers, the JAX package's log line (throughput and MFU included),
-``skip_iters`` and ``exit_interval``.  Resilience, evaluation,
-checkpoint saving, the layer-stats observatory, the JSONL stream, the
+``skip_iters``, ``exit_interval``, resuming (``start_iteration``,
+``opt_state``), checkpoint saving every ``save_interval`` iterations and
+evaluation every ``eval_interval`` (a forward-only step over
+``eval_iters`` batches); eval and save time is left out of the logged
+time per iteration, as in the JAX package.  ``pretrain`` counts the
+samples consumed from its ``consumed_samples`` argument on, and a
+checkpoint records that count.  Resilience,
+asynchronous saves, the layer-stats observatory, the JSONL stream, the
 tracer and TensorBoard writers are later slices: asking for one raises
 ``NotImplementedError``.
 """
@@ -23,6 +29,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from megatron_llm_torch import checkpointing
 from megatron_llm_torch.config import ParallelConfig, TrainConfig
 from megatron_llm_torch.optimizer import (
     MegatronOptimizer,
@@ -175,16 +182,13 @@ def _sync(device) -> None:
 
 
 _UNPORTED = {
-    "save_interval": "checkpoint saving", "save_dir": "checkpoint saving",
-    "save_fn": "checkpoint saving", "async_save": "checkpoint saving",
-    "eval_iterator": "evaluation", "eval_interval": "evaluation",
+    "async_save": "asynchronous checkpoint saving",
     "exit_signal_handler": "the signal handler",
     "log_params_norm": "--log_params_norm",
     "log_num_zeros_in_grad": "--log_num_zeros_in_grad",
     "log_layer_stats_interval": "the layer-stats observatory",
     "writer": "metrics writers", "resilience": "resilience",
     "telemetry": "the JSONL stream, profiler and tracer",
-    "start_iteration": "resuming", "opt_state": "resuming",
     "train_step": "a custom train step",
     "exit_duration_in_mins": "--exit_duration_in_mins",
 }
@@ -201,21 +205,38 @@ def pretrain(
     optimizer: Optional[MegatronOptimizer] = None,
     loss_func: Callable = default_loss_func,
     log_interval: int = 10,
+    save_interval: Optional[int] = None,
+    save_dir: Optional[str] = None,
+    eval_iterator=None,
+    eval_interval: Optional[int] = None,
+    eval_iters: int = 10,
+    start_iteration: int = 0,
+    consumed_samples: int = 0,
+    opt_state=None,
     timers=None,
     skip_iters=(),
     exit_interval: Optional[int] = None,
+    save_fn=None,
     **unported,
 ):
-    """The training loop from iteration 0; returns ``(params, opt_state,
-    iteration)``.
+    """The training loop from ``start_iteration``; returns ``(params,
+    opt_state, iteration)``.
 
     ``batch_iterator`` yields batch dicts shaped [num_micro, batch, seq].
+    ``opt_state``: a restored optimizer state (else a fresh one).
+    ``consumed_samples``: the samples consumed before ``start_iteration``
+    (a resumed checkpoint's); the loop adds each batch's sequences.
+    ``save_interval`` / ``save_dir``: save a checkpoint at every multiple
+    (through ``save_fn(save_dir, it, params, opt_state, scheduler,
+    consumed_samples)`` when given), recording the samples consumed so
+    far.  ``eval_iterator`` / ``eval_interval``: the mean loss of
+    ``eval_iters`` forward-only batches, printed at every multiple.
     ``skip_iters``: iteration numbers that run forward-only (the loss is
-    logged, nothing is updated).  ``exit_interval``: exit
-    (``sys.exit(0)``) at a multiple of it.  The JAX package's other
-    keyword arguments (resuming, saving, evaluation, resilience,
-    telemetry, writers, layer stats, signal handling, a custom step)
-    raise ``NotImplementedError`` when set."""
+    logged, nothing is updated).  ``exit_interval``: save (with a
+    ``save_dir``) and exit (``sys.exit(0)``) at a multiple of it.  The
+    JAX package's other keyword arguments (resilience, telemetry,
+    writers, layer stats, signal handling, asynchronous saves, a custom
+    step) raise ``NotImplementedError`` when set."""
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"pretrain() got an unexpected keyword "
@@ -233,7 +254,8 @@ def pretrain(
     if optimizer is None:
         optimizer = MegatronOptimizer(
             train_cfg, params_dtype=model.cfg.params_torch_dtype)
-    opt_state = optimizer.init(params)
+    if opt_state is None:
+        opt_state = optimizer.init(params)
     if scheduler is None:
         swd = train_cfg.start_weight_decay
         ewd = train_cfg.end_weight_decay
@@ -249,12 +271,36 @@ def pretrain(
             wd_incr_steps=max(train_cfg.train_iters, 1),
             wd_incr_style=train_cfg.weight_decay_incr_style,
         )
+        scheduler.num_steps = start_iteration
     train_step = build_train_step(model, optimizer, parallel_cfg, num_micro,
                                   loss_func)
+    eval_step = (build_train_step(model, optimizer, parallel_cfg, num_micro,
+                                  loss_func, forward_only=True)
+                 if eval_iterator is not None else None)
     skip_step = None
+    consumed = int(consumed_samples)
     device = model.device
-    iteration = 0
+    iteration = start_iteration
     last_time = time.perf_counter()
+    # eval and checkpoint-save wall time inside the current log interval,
+    # left out of the logged time per iteration (tokens/s and MFU)
+    non_train = 0.0
+
+    def _save(it):
+        nonlocal non_train
+        t0 = time.perf_counter()
+        timers("save-checkpoint", log_level=0).start()
+        if save_fn is not None:
+            save_fn(save_dir, it, params, opt_state, scheduler, consumed)
+        else:
+            checkpointing.save_checkpoint(
+                save_dir, it, params, opt_state, scheduler,
+                consumed_samples=consumed,
+                args=checkpointing.config_to_args(
+                    getattr(model, "cfg", None)))
+        timers("save-checkpoint").stop()
+        non_train += time.perf_counter() - t0
+
     while iteration < train_cfg.train_iters:
         timers("batch-generator", log_level=1).start()
         batch = next(batch_iterator)
@@ -264,7 +310,7 @@ def pretrain(
             print(" IMPORTANT! skipping backprop for this iteration!",
                   flush=True)
             if skip_step is None:
-                skip_step = build_train_step(
+                skip_step = eval_step or build_train_step(
                     model, optimizer, parallel_cfg, num_micro, loss_func,
                     forward_only=True)
             metrics = {"lm loss": skip_step(params, batch, None),
@@ -276,23 +322,46 @@ def pretrain(
             timers("train-step").stop()
         iteration += 1
         tokens = batch["tokens"].numel()
+        # one sample is one sequence: every leading axis but seq
+        consumed += tokens // batch["tokens"].shape[-1]
 
         if log_interval and iteration % log_interval == 0:
             timers("train-step-sync", log_level=1).start()
             _sync(device)
             timers("train-step-sync").stop()
             now = time.perf_counter()
-            elapsed = max(now - last_time, 1e-9) / log_interval
+            interval_time = (now - last_time) / log_interval
+            elapsed = max(now - last_time - non_train, 1e-9) / log_interval
+            non_train = 0.0
             last_time = now
             log_metrics = {k: (v if isinstance(v, int) else float(v))
                            for k, v in metrics.items()}
             training_log(iteration, train_cfg.train_iters, log_metrics,
                          elapsed, tokens, lr,
                          throughput=throughput.compute(tokens, elapsed),
-                         interval_time=elapsed)
+                         interval_time=interval_time)
             timers.report(None, iteration, normalizer=log_interval)
 
+        if eval_step is not None and eval_interval \
+                and iteration % eval_interval == 0:
+            t_eval0 = time.perf_counter()
+            timers("eval-time", log_level=0).start()
+            losses = [float(eval_step(params, next(eval_iterator), None))
+                      for _ in range(eval_iters)]
+            timers("eval-time").stop()
+            non_train += time.perf_counter() - t_eval0
+            val = sum(losses) / len(losses)
+            print(f" validation loss at iteration {iteration}: {val:.6E}",
+                  flush=True)
+
+        saved = False
+        if save_interval and save_dir and iteration % save_interval == 0:
+            _save(iteration)
+            saved = True
+
         if exit_interval and iteration % exit_interval == 0:
+            if save_dir and not saved:
+                _save(iteration)
             print(f" exiting program at iteration {iteration}", flush=True)
             sys.exit(0)
     return params, opt_state, iteration

@@ -73,3 +73,41 @@ def test_each_flag_reaches_its_field():
         is False
     assert _torch_config(
         BASE + ["--attention_softmax_in_fp32"]).attention_softmax_in_fp32
+
+
+# the checkpoint, evaluation, data and tokenizer flags the port's trainer
+# reads: flag -> a value other than its default (None: a store flag)
+NEW_FLAGS = {
+    "--save_interval": "5", "--async_save": None, "--load_iters": "3",
+    "--finetune": None, "--use_checkpoint_args": None,
+    "--no_save_optim": None, "--no_load_optim": None,
+    "--save_total_limit": "3", "--eval_iters": "7", "--eval_interval": "9",
+    "--split": "98,2,0", "--data_impl": "infer", "--num_workers": "4",
+    "--tokenizer_type": "GPT2BPETokenizer", "--vocab_file": "vocab.json",
+    "--merge_file": "merges.txt", "--tokenizer_path": "tok",
+    "--tokenizer_model": "tok.model", "--vocab_extra_ids_list": "a,b",
+    "--vocab_extra_ids": "2", "--no_new_tokens": None,
+    "--variable_seq_lengths": None, "--scalar_loss_mask": "0.5",
+    "--data_type": "instruction", "--dataloader_type": "cyclic",
+    "--make_vocab_size_divisible_by": "64",
+}
+
+
+def _parsed(argv):
+    want = jax_arguments.build_base_parser().parse_args(argv)
+    got = arguments.build_parser().parse_args(argv)
+    return want, got
+
+
+@pytest.mark.parametrize("flag", sorted(NEW_FLAGS))
+def test_new_flags_parse_as_in_the_jax_package(flag):
+    value = NEW_FLAGS[flag]
+    argv = [flag] if value is None else [flag, value]
+    for args in ([], argv):
+        want, got = _parsed(args)
+        dests = {a.dest for a in arguments.build_parser()._actions
+                 if flag in a.option_strings}
+        assert len(dests) == 1
+        dest = dests.pop()
+        assert getattr(got, dest) == getattr(want, dest), (args, dest)
+    assert getattr(got, dest) != getattr(_parsed([])[1], dest)

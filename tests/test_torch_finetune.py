@@ -3,10 +3,18 @@
 tiny flags of the verify notes runs 3 iterations; its log lines carry
 the JAX ``training_log`` fields (the line format is the JAX package's,
 character for character), with no MFU on the CPU; flags of unported
-features raise."""
+features raise.  On an mmap corpus in tmp_path: 4 iterations straight
+and 2 + save + resume 2 give the same losses, eval losses, final params
+and optimizer state, bit for bit; the logged eval loss is the JAX
+model's loss on the carried params and the same valid batch (fp32, 1e-5);
+``--use_checkpoint_args``, ``--no_save_optim`` and instruction data
+work."""
 
+import json
+import os
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -87,7 +95,8 @@ def test_flags_lower_to_configs():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--data_path", "corpus"], ["--load", "ckpt"], ["--save", "ckpt"],
+    ["--save", "ckpt", "--async_save"],
+    ["--pipeline_model_parallel_size", "2"], ["--attention_dropout", "0.1"],
     ["--tensor_model_parallel_size", "2"], ["--fp16"],
     ["--recompute_granularity", "selective"], ["--hidden_dropout", "0.1"],
 ])
@@ -101,3 +110,219 @@ def test_other_families_raise():
             for a in TINY]
     with pytest.raises(NotImplementedError):
         finetune.main(argv)
+
+
+# ---------------------------------------------------------------------------
+# data, checkpoints, resume and eval on an mmap corpus
+# ---------------------------------------------------------------------------
+
+def _corpus(tmp_path, vocab=128, docs=120):
+    from megatron_llm_torch.data.indexed_dataset import make_builder
+
+    prefix = str(tmp_path / "corpus_text_document")
+    rng = np.random.RandomState(1234)
+    b = make_builder(prefix + ".bin", vocab_size=vocab)
+    for _ in range(docs):
+        b.add_item(rng.randint(0, vocab, rng.randint(5, 80)))
+        b.end_document()
+    b.finalize(prefix + ".idx")
+    return prefix
+
+
+def _data_flags(prefix, iters):
+    return [a for a in TINY if not a.startswith("--train_iters")] + [
+        f"--train_iters={iters}", "--data_path", prefix, "--split",
+        "90,10,0", "--eval_interval", "2", "--eval_iters", "1"]
+
+
+def _run(argv, monkeypatch):
+    """finetune.main(argv) -> (iteration, {iteration: exact lm loss},
+    {iteration: printed eval loss})."""
+    import io
+    from contextlib import redirect_stdout
+
+    from megatron_llm_torch import training
+
+    losses = {}
+    real = training.training_log
+
+    def log_line(iteration, train_iters, metrics, *a, **kw):
+        losses[iteration] = metrics["lm loss"]
+        return real(iteration, train_iters, metrics, *a, **kw)
+
+    monkeypatch.setattr(training, "training_log", log_line)
+    out = io.StringIO()
+    with redirect_stdout(out):
+        it = finetune.main(argv)
+    evals = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"validation loss at iteration (\d+): (\S+)", out.getvalue())}
+    return it, losses, evals
+
+
+def _payload(ckpt, it, part):
+    from megatron_llm_torch import checkpointing
+
+    return checkpointing._read_tree(
+        os.path.join(ckpt, f"iter_{it:07d}", part), "cpu")
+
+
+def _bitwise(a, b):
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+        assert torch.equal(a[k].reshape(-1).view(torch.uint8),
+                           b[k].reshape(-1).view(torch.uint8)), k
+
+
+@pytest.mark.parametrize("dtype", [[], ["--bf16"]], ids=["fp32", "bf16"])
+def test_resume_reproduces_the_uninterrupted_run(tmp_path, monkeypatch,
+                                                 dtype):
+    prefix = _corpus(tmp_path)
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    flags = _data_flags(prefix, 4) + dtype
+    it, loss_a, eval_a = _run(flags + ["--save", a, "--save_interval", "2"],
+                              monkeypatch)
+    assert it == 4 and sorted(loss_a) == [1, 2, 3, 4]
+    assert sorted(os.listdir(a)) == ["iter_0000002", "iter_0000004",
+                                     "latest_checkpointed_iteration.txt"]
+    it, loss_b, eval_b = _run(flags + ["--load", a, "--load_iters", "2",
+                                       "--save", b], monkeypatch)
+    assert it == 4 and sorted(loss_b) == [3, 4]
+    assert (loss_b[3], loss_b[4]) == (loss_a[3], loss_a[4])
+    assert sorted(eval_a) == [2, 4] and eval_b == {4: eval_a[4]}
+    for part in ("model", "optim"):
+        _bitwise(_payload(a, 4, part), _payload(b, 4, part))
+    meta = json.load(open(os.path.join(b, "iter_0000004", "meta.json")))
+    assert meta["consumed_samples"] == 16
+    assert meta["opt_param_scheduler"]["num_steps"] == 4
+
+
+def _meta_samples(ckpt, it):
+    with open(os.path.join(ckpt, f"iter_{it:07d}", "meta.json")) as f:
+        return json.load(f)["consumed_samples"]
+
+
+def test_pretrain_saves_the_samples_of_its_own_run(tmp_path):
+    """pretrain counts the samples from its consumed_samples argument on:
+    two calls in one process each record their own run's count, through
+    its own save path and through a save_fn."""
+    from megatron_llm_torch import training
+    from megatron_llm_torch.arguments import parse_args
+
+    args = parse_args(TINY, extra_args_provider=finetune.extra_args)
+    finetune._apply_model_defaults(args, TINY)
+    model = finetune.model_provider(args)
+    tc, pc = train_config_from_args(args), parallel_config_from_args(args)
+    rng = np.random.RandomState(0)
+
+    def batches():
+        while True:     # [num_micro=2, mb=2, seq=32]
+            toks = torch.from_numpy(rng.randint(0, 128, (2, 2, 32)))
+            yield {"tokens": toks, "labels": toks.roll(-1, -1),
+                   "loss_mask": torch.ones(2, 2, 32)}
+
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    for ckpt in (a, b):
+        training.pretrain(model, model.init(0), tc, pc, batches(),
+                          log_interval=0, save_interval=2, save_dir=ckpt)
+        assert _meta_samples(ckpt, 2) == 8
+    seen = []
+    training.pretrain(model, model.init(0), tc, pc, batches(),
+                      log_interval=0, save_interval=1, save_dir=b,
+                      start_iteration=1, consumed_samples=100,
+                      save_fn=lambda *a: seen.append((a[1], a[-1])))
+    assert seen == [(2, 104), (3, 108)]
+
+
+def test_final_save_records_every_iterations_samples(tmp_path, monkeypatch):
+    prefix = _corpus(tmp_path)
+    ckpt = str(tmp_path / "ck")
+    it, _, _ = _run(_data_flags(prefix, 3) + ["--save", ckpt,
+                                              "--save_interval", "2"],
+                    monkeypatch)
+    assert it == 3
+    assert (_meta_samples(ckpt, 2), _meta_samples(ckpt, 3)) == (8, 12)
+
+
+def test_eval_loss_matches_jax(tmp_path, monkeypatch):
+    import jax.numpy as jnp
+
+    from megatron_llm_tpu.checkpointing import config_to_args
+    from megatron_llm_tpu.data.gpt_dataset import (
+        build_train_valid_test_datasets,
+    )
+    from megatron_llm_tpu.models.llama import LlamaModel as JaxLlama
+    from megatron_llm_tpu.models.llama import llama_config
+    from megatron_llm_torch.weights import params_to_numpy
+
+    prefix = _corpus(tmp_path)
+    ckpt = str(tmp_path / "ck")
+    _, _, evals = _run(_data_flags(prefix, 2) + ["--save", ckpt],
+                       monkeypatch)
+    meta = json.load(open(os.path.join(ckpt, "iter_0000002", "meta.json")))
+    size = {k: meta["args"][k] for k in (
+        "num_layers", "hidden_size", "num_attention_heads",
+        "ffn_hidden_size", "padded_vocab_size", "seq_length",
+        "max_position_embeddings")}
+    jcfg = llama_config("tiny", use_flash_attn=False, **size)
+    want_args = config_to_args(jcfg)
+    for k in ("normalization", "layernorm_epsilon", "glu_activation",
+              "position_embedding_type", "rope_theta", "tie_embed_logits",
+              "add_bias_linear", "num_attention_heads_kv", "kv_channels"):
+        assert meta["args"][k] == want_args[k], k
+    from megatron_llm_torch.checkpointing import _unflat
+
+    params = params_to_numpy(_unflat(_payload(ckpt, 2, "model")))
+    # the valid split as the port's loader builds it: (2 // 2 + 1) evals
+    # of one global batch of 4
+    valid = build_train_valid_test_datasets([prefix], "90,10,0", [8, 8, 0],
+                                            32, 1234)[1]
+    texts = np.stack([valid[i]["text"] for i in range(4)]).reshape(
+        2, 2, 33)
+    jmodel = JaxLlama(jcfg)
+    losses = [float(jnp.mean(jmodel(params, jnp.asarray(t[:, :-1]),
+                                    labels=jnp.asarray(t[:, 1:]))))
+              for t in texts]
+    assert abs(evals[2] - np.mean(losses)) <= 1e-5
+
+
+def test_use_checkpoint_args_and_no_save_optim(tmp_path, monkeypatch):
+    prefix = _corpus(tmp_path)
+    ckpt = str(tmp_path / "ck")
+    _run(_data_flags(prefix, 2) + ["--save", ckpt, "--no_save_optim"],
+         monkeypatch)
+    assert not os.path.exists(os.path.join(ckpt, "iter_0000002", "optim"))
+    # another width on the command line: the checkpoint's wins
+    argv = [a if a != "--hidden_size=64" else "--hidden_size=32"
+            for a in _data_flags(prefix, 3)]
+    with pytest.raises(ValueError, match="shape"):
+        _run(argv + ["--load", ckpt], monkeypatch)
+    it, losses, _ = _run(argv + ["--load", ckpt, "--use_checkpoint_args"],
+                         monkeypatch)
+    # no optimizer state was saved: the resume restores what there is
+    assert it == 3 and sorted(losses) == [3]
+
+
+def test_instruction_data_trains(tmp_path, monkeypatch):
+    from megatron_llm_torch.data.indexed_dataset import (
+        MMapIndexedDatasetBuilder,
+    )
+
+    prefix = str(tmp_path / "chat")
+    rng = np.random.RandomState(0)
+    lens = rng.randint(8, 40, 30)
+    for suffix, make in (("-text", lambda n: rng.randint(0, 127, n)),
+                         ("-role", lambda n: rng.randint(1, 4, n))):
+        b = MMapIndexedDatasetBuilder(prefix + suffix + ".bin",
+                                      dtype=np.int32)
+        for n in lens:
+            b.add_item(make(n))
+            b.end_document()
+        b.finalize(prefix + suffix + ".idx")
+    argv = [a for a in TINY if not a.startswith(("--train_iters",
+                                                 "--vocab_size"))]
+    it, losses, _ = _run(argv + [
+        "--train_iters=2", "--data_path", prefix, "--data_type",
+        "instruction", "--tokenizer_type", "NullTokenizer",
+        "--vocab_size", "127", "--scalar_loss_mask", "0.5"], monkeypatch)
+    assert it == 2 and all(np.isfinite(v) for v in losses.values())

@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: every module imports with ``jax``
-blocked, no file of the port (or chip_smoke.py) imports jax or
-megatron_llm_tpu, entry points default to the GPU, and chip_smoke.py
-refuses to run without a CUDA device or outside a checkout."""
+"""The PyTorch port stands alone: every module imports with ``jax``,
+``orbax`` and ``tensorstore`` blocked, no file of the port (or
+chip_smoke.py) imports jax, orbax, tensorstore or megatron_llm_tpu,
+entry points default to the GPU, and chip_smoke.py refuses to run
+without a CUDA device or outside a checkout."""
 
 import ast
 import inspect
@@ -43,6 +44,8 @@ def test_every_port_module_imports_with_jax_blocked():
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['megatron_llm_tpu'] = None\n"
+            "sys.modules['orbax'] = None\n"
+            "sys.modules['tensorstore'] = None\n"
             f"for m in {_modules()!r}:\n"
             "    importlib.import_module(m)\n"
             "assert not any(k == 'jax' or k.startswith('jax.') "
@@ -54,7 +57,7 @@ def test_every_port_module_imports_with_jax_blocked():
 
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
-    banned = ("jax", "jaxlib", "megatron_llm_tpu")
+    banned = ("jax", "jaxlib", "megatron_llm_tpu", "orbax", "tensorstore")
     for path in _port_files() + [os.path.join(REPO, "chip_smoke.py")]:
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)

@@ -1,6 +1,9 @@
 """The port's HTTP server, built in-process by build_server with a tiny
 Llama on the CPU and the numeric tokenizer of tests/_serve_replica.py,
-on port 0: PUT /api, GET /health, GET /metrics, and the JSON 400s."""
+on port 0: PUT /api, GET /health, GET /metrics, and the JSON 400s.  And
+with ``--load`` and a GPT-2 BPE tokenizer (``build_tokenizer``): it
+serves the checkpoint's params, answers a text prompt, and its greedy
+tokens are the no-cache path's on those params."""
 
 import json
 import threading
@@ -102,3 +105,59 @@ def test_unported_flags_raise():
     args = build_parser().parse_args(TINY + ["--serve_speculative", "1"])
     with pytest.raises(NotImplementedError):
         build_server(args, _FakeTokenizer())
+
+
+def test_load_with_a_bpe_tokenizer_answers_text(tmp_path):
+    from megatron_llm_torch import checkpointing
+    from megatron_llm_torch.models.llama import LlamaModel, llama_config
+    from megatron_llm_torch.tokenizer import build_tokenizer
+    from megatron_llm_torch.tokenizer.bpe import write_byte_bpe_vocab
+    from megatron_llm_torch.tree import tree_leaves_with_path
+
+    vf, mf = write_byte_bpe_vocab(str(tmp_path), 384)
+    size = ["--num_layers", "2", "--hidden_size", "64",
+            "--num_attention_heads", "4", "--ffn_hidden_size", "96",
+            "--seq_length", "64", "--max_position_embeddings", "64"]
+    cfg = llama_config("tiny", num_layers=2, hidden_size=64,
+                       num_attention_heads=4, ffn_hidden_size=96,
+                       padded_vocab_size=384, seq_length=64,
+                       max_position_embeddings=64)
+    model = LlamaModel(cfg, device="cpu")
+    saved = model.init(5)
+    checkpointing.save_checkpoint(str(tmp_path / "ck"), 6, saved,
+                                  args=checkpointing.config_to_args(cfg))
+    args = build_parser().parse_args(
+        ["--model_name", "llama2", "--device", "cpu", "--serve_num_slots",
+         "2", "--serve_block_size", "8", "--serve_prefill_chunk", "16",
+         "--load", str(tmp_path / "ck"), "--tokenizer_type",
+         "GPT2BPETokenizer", "--vocab_file", vf, "--merge_file", mf] + size)
+    tok = build_tokenizer(args)
+    assert args.padded_vocab_size == 384
+    server = build_server(args, tok)
+    for (path, a), (_, b) in zip(tree_leaves_with_path(saved),
+                                 tree_leaves_with_path(server.engine.params)):
+        assert torch.equal(a, b), path
+    httpd = server.make_httpd("127.0.0.1", 0)
+    t = threading.Thread(target=server.run, daemon=True)
+    t.start()
+    try:
+        text = "hello world, the served checkpoint"
+        code, body = _call(httpd.server_address[1], "PUT", "/api", {
+            "prompts": [text], "tokens_to_generate": 8,
+            "temperature": 0.0})
+    finally:
+        server.shutdown()
+        server.engine.stop()
+        t.join(10)
+    assert code == 200, body
+    prompt = tok.tokenize(text)
+    served = body["tokens"][0]
+    assert served[:len(prompt)] == prompt and len(served) == len(prompt) + 8
+    assert body["text"][0] == tok.detokenize(served)
+    assert body["text"][0].startswith(text)
+    want = list(prompt)
+    with torch.no_grad():
+        for _ in range(8):
+            logits = model(saved, torch.tensor([want]))
+            want.append(int(logits[0, -1].argmax()))
+    assert served == want
