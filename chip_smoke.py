@@ -107,6 +107,35 @@ text prompts over HTTP, and its greedy tokens are held to the no-cache
 path on the loaded params (``_token_check``).  The directory is deleted
 at the end.
 
+Phase 8 pretrains GPT-2 345M at full width and depth (24 layers, hidden
+1024, 16 heads, sequence 1024, micro-batch 4, global batch 8, the lr,
+schedule, clip and weight decay of ``examples/pretrain_gpt.sh``, bf16,
+hidden and attention dropout 0.1) through
+``megatron_llm_torch.pretrain_gpt.main`` for 20 iterations, evaluating
+10 batches every 10, on an mmap corpus the script writes (2500 documents
+of random ids below 50257 from seed 1234) with a GPT-2 byte-level BPE of
+50257 ids padded to 50304.  Training takes ``core_attention`` (attention
+dropout) and the evaluations flash attention: F runs only in them, G
+never, and D and E as the dispatches say.  One iteration each of the
+same run again, with both dropouts at 0, with ``--recompute_granularity
+full`` and with ``--lima_dropout``: the same seed and full recompute give
+the iteration-1 loss bit for bit and the grad norm within 1e-3 (the
+embedding backward's atomics), no dropout another loss.
+
+Phase 9 trains Llama-3-8B's width (hidden 4096, 32 heads on 8 KV heads,
+ffn 14336, vocab 128256, rope theta 5e5) cut to 4 of 32 layers at its own
+sequence 8192 through ``finetune.main`` (micro-batch 1, global batch 2,
+synthetic data, 3 iterations) five ways: the fused LM-head cross entropy
+(``--fused_lm_cross_entropy``: at 128256 ids the JAX package's policy,
+on from 131072, leaves it off), the defaults (unfused, with the policy's
+note), fused with selective and with full recompute, and fused without
+flash attention (the q-chunked attention at 8192).  Against the first:
+the unfused loss within 1e-3 and its forward+backward peak memory at
+least 6 GB higher; the recompute runs' iteration-1 loss bit for bit,
+grad norm within 1e-3, peaks full < selective < none, F twice a layer;
+the chunked run's loss within 1e-3 with no F or G.  Each variant's step
+time, tokens/s, MFU and peak memory are printed.
+
 It prints, before its last line, the card's name and power limit, one
 JSON line with every kernel's numbers (``{"kernels": [...]}``), and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -125,6 +154,7 @@ go to ``chiprun_out/``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -139,6 +169,18 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
+
+# the norms' training rows of phases 8 and 9 (GPT-2 345M: 4 x 1024 tokens
+# of 1024; Llama-3-8B's width: 8192 tokens of 4096), checked in phase 1
+# with the flash cases of those phases on inputs drawn from their own
+# generator (``_phase8_9_gen``), so that the earlier cases keep theirs
+PHASE8_9_ROWS = ((4096, 1024), (8192, 4096))
+
+
+def _phase8_9_gen():
+    import torch
+
+    return torch.Generator(device="cuda").manual_seed(89)
 
 # tolerances (max-abs, kernel vs plain version on identical inputs): the
 # bf16 tolerance of tests/test_pallas_kernels.py, and fp32 at 1e-4
@@ -496,17 +538,29 @@ def phase1(gen, results):
 
     # -- kernel B: RMSNorm ------------------------------------------------
     # serving's decode and prefill rows, odd shapes, and the training
-    # path's mb * seq rows at sequences 4096 and 1000: each at plan()'s
+    # path's mb * seq rows at sequences 4096, 1000 and Llama-3's 8192
+    # (phase 9): each at plan()'s
     # plan and at every other plan the norm forward can take for the rows
     # (forced grids included), each with rstd, without it (the no-grad
     # path's call) and again with it: the same bits every time
     sm = _sm_count()
     err = {"bf16": 0.0, "fp32": 0.0}
+    gen89 = _phase8_9_gen()
     for tag, dt in dts.items():
         for n, h in ((8, 4096), (64, 4096), (3, 128), (17, 11008 // 2),
-                     (4096, 4096), (1000, 4096)):
-            x = (torch.randn(n, h, device="cuda", generator=gen) * 3).to(dt)
-            s = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(dt)
+                     (4096, 4096), (1000, 4096), (8192, 4096)):
+            gen_ = gen89 if (n, h) in PHASE8_9_ROWS else gen
+            x = (torch.randn(n, h, device="cuda", generator=gen_) * 3).to(dt)
+            # Llama-3's 33.5 M outputs with the scale in [0.4, 0.8], as
+            # D's check keeps its outputs below 4: above it a bf16 step
+            # (0.03) is more than the tolerance, and a plan whose sum of
+            # squares rounds one fp32 step apart flips the output where
+            # the plain fp32 value sits on a bf16 tie (0.03125 under 15
+            # forced plans on the card with the scale up to 1.5; the
+            # fp32 case holds the arithmetic)
+            lo, width = (0.4, 0.4) if n == 8192 else (0.5, 1.0)
+            s = (torch.rand(h, device="cuda", generator=gen_) * width
+                 + lo).to(dt)
             y0, r0 = rn.rms_norm_fwd_plain(x, s, 1e-5)
             plans = [ln.plan(n, h, dt, sm)] + _fwd_plans(n, h, dt, sm)
             e_max = 0.0
@@ -539,19 +593,22 @@ def phase1(gen, results):
     # -- kernel D: LayerNorm forward ---------------------------------------
     # Falcon-7B's decode, prefill and training rows (4544 columns: 568
     # vectors of 8 bf16, no multiple of the block's 256 threads), GPT-2's
-    # 768, odd shapes, and rows with a large mean in fp32
+    # 768, GPT-2 345M's training rows (phase 8: 4 x 1024 tokens of 1024),
+    # odd shapes, and rows with a large mean in fp32
     err = {"bf16": 0.0, "fp32": 0.0}
+    gen89 = _phase8_9_gen()
     for tag, dt in dts.items():
         for n, h, mean in ((8, 4544, 0.0), (64, 4544, 0.0), (2048, 4544, 0.0),
-                           (1000, 768, 0.0), (3, 128, 0.0), (17, 1600, 0.0),
-                           (64, 4544, 30.0)):
+                           (1000, 768, 0.0), (4096, 1024, 0.0), (3, 128, 0.0),
+                           (17, 1600, 0.0), (64, 4544, 30.0)):
+            gen_ = gen89 if (n, h) in PHASE8_9_ROWS else gen
             # outputs below 4: above it a bf16 step is 0.03, more than
             # the tolerance, and a last-bit fp32 difference can flip one
-            x = (torch.randn(n, h, device="cuda", generator=gen) * 3
+            x = (torch.randn(n, h, device="cuda", generator=gen_) * 3
                  + mean).to(dt)
-            s = (torch.rand(h, device="cuda", generator=gen) * 0.4
+            s = (torch.rand(h, device="cuda", generator=gen_) * 0.4
                  + 0.4).to(dt)
-            b = (torch.randn(h, device="cuda", generator=gen) * 0.1).to(dt)
+            b = (torch.randn(h, device="cuda", generator=gen_) * 0.1).to(dt)
             y, mu, r = ln.layer_norm_fwd_kernel(x, s, b, 1e-5)
             again = ln.layer_norm_fwd_kernel(x, s, b, 1e-5)
             y0, mu0, r0 = ln.layer_norm_fwd_plain(x, s, b, 1e-5)
@@ -2009,6 +2066,43 @@ def b_host_breakdown():
     })
 
 
+def _reference_by_group(fa, q, k, v, causal, window, scale, grads_of=None):
+    """The plain forward (o, lse), or with ``grads_of`` = (o, lse, do) the
+    plain backward (dq, dk, dv), one KV group at a time where a call's
+    fp32 scores would pass 1 GiB ([b, nh, s, s] at 8192 tokens and 32
+    heads is 8 GiB, and the backward holds several), else in one call.
+    Each group's query heads go with their K/V head and their rows of o,
+    lse and do; the groups share nothing, so the outputs, put back in
+    head order, are the plain function's."""
+    import torch
+
+    b, s, nh, _ = q.shape
+    ng = k.shape[2]
+
+    def plain(q, k, v, o=None, lse=None, do=None):
+        if grads_of is None:
+            return fa._reference_attention(q, k, v, causal, window, scale)
+        return fa._reference_attention_bwd(q, k, v, o, lse, do, causal,
+                                           window, scale)
+
+    if b * nh * s * k.shape[1] * 4 <= 1 << 30:
+        return plain(q, k, v, *(grads_of or ()))
+    qpg = nh // ng
+    outs = []
+    for j in range(ng):
+        hs = slice(j * qpg, (j + 1) * qpg)
+        extra = ()
+        if grads_of is not None:
+            o, lse, do = grads_of
+            extra = (o[:, :, hs], lse[:, hs], do[:, :, hs])
+        outs.append(plain(q[:, :, hs], k[:, :, j:j + 1], v[:, :, j:j + 1],
+                          *extra))
+    if grads_of is None:
+        return (torch.cat([o_ for o_, _ in outs], dim=2),
+                torch.cat([l_ for _, l_ in outs], dim=1))
+    return tuple(torch.cat(parts, dim=2) for parts in zip(*outs))
+
+
 def phase1_training(gen, results):
     import torch
     import torch.nn.functional as F
@@ -2023,19 +2117,22 @@ def phase1_training(gen, results):
     sm = _sm_count()
 
     # -- kernel C: RMSNorm backward ---------------------------------------
-    # Llama's and Gemma-7B's training rows (C_SHAPES), a ragged row count,
-    # a tiny row and 5504 columns (idle vectors): each at bwd_plan()'s
+    # Llama's and Gemma-7B's training rows (C_SHAPES), Llama-3's at 8192
+    # tokens (phase 9), a ragged row count, a tiny row and 5504 columns
+    # (idle vectors): each at bwd_plan()'s
     # plan and at every forced plan of norm_plan.bwd_plans,
     # against the plain backward, its partial rows and dscale against
     # their plain walk (_reference_bwd_partials), and run twice: the same
     # bits for dx and dscale
     err = {"bf16": 0.0, "fp32": 0.0}
+    gen89 = _phase8_9_gen()
     for tag, dt in dts.items():
-        for n, h in (*C_SHAPES.values(), (300, 4096), (3, 128),
-                     (17, 11008 // 2)):
-            x = (torch.randn(n, h, device="cuda", generator=gen) * 3).to(dt)
-            sc = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(dt)
-            g = torch.randn(n, h, device="cuda", generator=gen).to(dt)
+        for n, h in (*C_SHAPES.values(), (8192, 4096), (300, 4096),
+                     (3, 128), (17, 11008 // 2)):
+            gen_ = gen89 if (n, h) in PHASE8_9_ROWS else gen
+            x = (torch.randn(n, h, device="cuda", generator=gen_) * 3).to(dt)
+            sc = (torch.rand(h, device="cuda", generator=gen_) + 0.5).to(dt)
+            g = torch.randn(n, h, device="cuda", generator=gen_).to(dt)
             _, rstd = rn.rms_norm_fwd_plain(x, sc, 1e-5)
             dx0, ds0 = rn.rms_norm_bwd_plain(x, sc, g, rstd)
             plans = norm_plan.bwd_plans(n, h, dt, sm, rms=True)
@@ -2080,20 +2177,23 @@ def phase1_training(gen, results):
         max_abs_err=err["bf16"], max_abs_err_fp32=err["fp32"])
 
     # -- kernel E: LayerNorm backward --------------------------------------
-    # Falcon-7B's decode, prefill and training rows, GPT-2's 768 and odd
-    # shapes: each at bwd_plan()'s plan and at forced plans, against the
+    # Falcon-7B's decode, prefill and training rows, GPT-2's 768, GPT-2
+    # 345M's training rows (phase 8) and odd shapes: each at bwd_plan()'s
+    # plan and at forced plans, against the
     # plain backward, its partial rows and column sums against their plain
     # walk (_reference_bwd_partials, fp32 up to the kernel's fused
     # multiply-adds), and run twice: the same bits for dx, dgamma, dbeta
     err = {"bf16": 0.0, "fp32": 0.0}
+    gen89 = _phase8_9_gen()
     for tag, dt in dts.items():
         for n, h in ((8, 4544), (64, 4544), (2048, 4544), (1000, 768),
-                     (3, 128), (300, 1600)):
-            x = (torch.randn(n, h, device="cuda", generator=gen) * 3
+                     (4096, 1024), (3, 128), (300, 1600)):
+            gen_ = gen89 if (n, h) in PHASE8_9_ROWS else gen
+            x = (torch.randn(n, h, device="cuda", generator=gen_) * 3
                  + 1).to(dt)
-            sc = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(dt)
+            sc = (torch.rand(h, device="cuda", generator=gen_) + 0.5).to(dt)
             b = torch.zeros(h, device="cuda", dtype=dt)
-            g = torch.randn(n, h, device="cuda", generator=gen).to(dt)
+            g = torch.randn(n, h, device="cuda", generator=gen_).to(dt)
             _, mu, rstd = ln.layer_norm_fwd_plain(x, sc, b, 1e-5)
             dx0, dg0, db0 = ln.layer_norm_bwd_plain(x, sc, g, mu, rstd)
             plans = norm_plan.bwd_plans(n, h, dt, sm)
@@ -2171,14 +2271,25 @@ def phase1_training(gen, results):
         ("Gemma-7B d256 s1000 window 300", 1, 1000, 16, 16, 256, 300,
          False),
     ]
+    # the training paths of phases 8 and 9, on inputs of their own
+    # generator: GPT-2 345M (16 heads of 64, micro-batch 4 of 1024 tokens;
+    # one KV head a query head, so q is a view too) and Llama-3-8B at its
+    # own sequence (32 heads on 8 KV heads of 128, 8192 tokens)
+    gen89 = _phase8_9_gen()
+    cases = [(c, gen) for c in cases] + [(c, gen89) for c in (
+        ("GPT-2 345M b4 s1024 nh16 d64", 4, 1024, 16, 16, 64, None, False),
+        ("GPT-2 345M fused-QKV views b4 s1024", 4, 1024, 16, 16, 64, None,
+         True),
+        ("Llama-3 fused-QKV views GQA g8 s8192", 1, 8192, 32, 8, 128, None,
+         True))]
     f_err = {"bf16": 0.0, "fp32": 0.0}
     b_err = {k: {"bf16": [0.0, 0.0], "fp32": [0.0, 0.0]} for k in "GH"}
-    for label, b, s, nh, ng, d, w, views in cases:
+    for (label, b, s, nh, ng, d, w, views), gen_ in cases:
         for tag, dt in dts.items():
             if views:
                 qpg = nh // ng
                 mixed = torch.randn(b, s, ng, qpg + 2, d, device="cuda",
-                                    generator=gen).to(dt)
+                                    generator=gen_).to(dt)
                 q = mixed[:, :, :, :qpg].reshape(b, s, nh, d)
                 k, v = mixed[:, :, :, qpg], mixed[:, :, :, qpg + 1]
                 check(not k.is_contiguous() and not v.is_contiguous()
@@ -2186,16 +2297,16 @@ def phase1_training(gen, results):
                       f"{label}: the views are contiguous")
             else:
                 q = torch.randn(b, s, nh, d, device="cuda",
-                                generator=gen).to(dt)
+                                generator=gen_).to(dt)
                 k = torch.randn(b, s, ng, d, device="cuda",
-                                generator=gen).to(dt)
+                                generator=gen_).to(dt)
                 v = torch.randn(b, s, ng, d, device="cuda",
-                                generator=gen).to(dt)
+                                generator=gen_).to(dt)
             do = torch.randn(b, s, nh, d, device="cuda",
-                             generator=gen).to(dt)
+                             generator=gen_).to(dt)
             scale = 1.0 / math.sqrt(d)
             o, lse = fa.flash_attention_fwd_kernel(q, k, v, True, w, scale)
-            o0, lse0 = fa._reference_attention(q, k, v, True, w, scale)
+            o0, lse0 = _reference_by_group(fa, q, k, v, True, w, scale)
             torch.cuda.synchronize()
             e_f = max((o.float() - o0.float()).abs().max().item(),
                       (lse - lse0).abs().max().item())
@@ -2206,8 +2317,8 @@ def phase1_training(gen, results):
             after = (fa.bwd_fused_launches, fa.bwd_launches)
             again = fa.flash_attention_bwd_kernel(q, k, v, o0, lse0, do,
                                                   True, w, scale)
-            ref = fa._reference_attention_bwd(q, k, v, o0, lse0, do, True,
-                                              w, scale)
+            ref = _reference_by_group(fa, q, k, v, True, w, scale,
+                                      grads_of=(o0, lse0, do))
             torch.cuda.synchronize()
             e_abs, e_rel = _grad_errors(grads, ref)
             splits = fa.head_splits(b, s, ng, nh // ng,
@@ -2867,23 +2978,23 @@ def text_prompts(n, seed):
     return out
 
 
-def write_corpus(prefix):
-    """The phase's mmap corpus (``prefix``.bin/.idx, the port's builder);
-    returns (documents, tokens)."""
+def write_corpus(prefix, spec=CORPUS):
+    """An mmap corpus of ``spec`` (``prefix``.bin/.idx, the port's
+    builder); returns (documents, tokens)."""
     import numpy as np
 
     from megatron_llm_torch.data.indexed_dataset import make_builder
 
-    rng = np.random.RandomState(CORPUS["seed"])
-    builder = make_builder(prefix + ".bin", vocab_size=CORPUS["vocab"])
+    rng = np.random.RandomState(spec["seed"])
+    builder = make_builder(prefix + ".bin", vocab_size=spec["vocab"])
     tokens = 0
-    for _ in range(CORPUS["docs"]):
-        n = rng.randint(CORPUS["min_len"], CORPUS["max_len"] + 1)
-        builder.add_item(rng.randint(0, CORPUS["vocab"], n))
+    for _ in range(spec["docs"]):
+        n = rng.randint(spec["min_len"], spec["max_len"] + 1)
+        builder.add_item(rng.randint(0, spec["vocab"], n))
         builder.end_document()
         tokens += n
     builder.finalize(prefix + ".idx")
-    return CORPUS["docs"], tokens
+    return spec["docs"], tokens
 
 
 def _leaf_digests(tree):
@@ -2905,16 +3016,20 @@ def _leaf_digests(tree):
     return out
 
 
-def _run_finetune(argv):
-    """``finetune.main(argv)`` with its checkpoint IO and log lines
-    observed: returns (iteration, stdout lines, {iteration: exact lm
-    loss}, device digests of every leaf saved (by iteration) and of every
-    leaf loaded)."""
+def _run_finetune(argv, entry=None, norms=None):
+    """``finetune.main(argv)`` (or ``entry(argv)``) with its checkpoint IO
+    and log lines observed: returns (iteration, stdout lines, {iteration:
+    exact lm loss}, device digests of every leaf saved (by iteration) and
+    of every leaf loaded); ``norms`` gets {iteration: exact grad norm}.
+    An exit of the loop with code 0 (``--exit_interval``) returns the last
+    iteration logged."""
     import contextlib
     import io
 
     from megatron_llm_torch import checkpointing, finetune, training
 
+    entry = entry or finetune.main
+    norms = {} if norms is None else norms
     losses, saved, loaded = {}, {}, {}
     save0, load0, log0 = (checkpointing.save_checkpoint,
                           checkpointing.load_checkpoint,
@@ -2936,6 +3051,7 @@ def _run_finetune(argv):
 
     def log_line(iteration, train_iters, metrics, *a, **kw):
         losses[iteration] = metrics["lm loss"]
+        norms[iteration] = metrics.get("grad_norm")
         return log0(iteration, train_iters, metrics, *a, **kw)
 
     out = io.StringIO()
@@ -2943,7 +3059,11 @@ def _run_finetune(argv):
     training.training_log = log_line
     try:
         with contextlib.redirect_stdout(out):
-            it = finetune.main(argv)
+            it = entry(argv)
+    except SystemExit as exc:
+        if exc.code not in (0, None):
+            raise
+        it = max(losses, default=0)
     finally:
         checkpointing.save_checkpoint = save0
         checkpointing.load_checkpoint = load0
@@ -3364,6 +3484,330 @@ def _log_norm_build(build):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: GPT-2 345M pretraining with its dropouts
+# ---------------------------------------------------------------------------
+
+# the corpus: random ids below GPT-2's 50257 (uint16), documents of
+# 100-4096 tokens, from one seed: enough for 20 iterations of 8 samples
+# and a 5% valid split that holds three evaluations of 10 batches
+GPT2_CORPUS = dict(docs=2500, min_len=100, max_len=4096, vocab=50257,
+                   seed=1234)
+# examples/pretrain_gpt.sh, with 20 iterations and eval every 10
+GPT2_FLAGS = [
+    "--num_layers", "24", "--hidden_size", "1024",
+    "--num_attention_heads", "16", "--seq_length", "1024",
+    "--max_position_embeddings", "1024", "--micro_batch_size", "4",
+    "--global_batch_size", "8", "--lr_decay_iters", "320000",
+    "--lr", "0.00015", "--min_lr", "1e-5", "--lr_decay_style", "cosine",
+    "--lr_warmup_fraction", "0.01", "--weight_decay", "0.01",
+    "--clip_grad", "1.0", "--bf16", "--split", "949,50,1",
+    "--tokenizer_type", "GPT2BPETokenizer", "--log_interval", "1",
+    "--eval_interval", "10", "--eval_iters", "10", "--seed", "1234"]
+
+
+@contextlib.contextmanager
+def _optimizer_peaks(peaks):
+    """Record, at each optimizer step, the peak device memory since the
+    last step ended (the forward and backward, and any eval between) and
+    the peak of the step itself, in GiB."""
+    import torch
+
+    from megatron_llm_torch.optimizer import MegatronOptimizer
+
+    step0 = MegatronOptimizer.step
+
+    def step(self, *a, **kw):
+        peaks.setdefault("fwd_bwd", []).append(
+            torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.reset_peak_memory_stats()
+        out = step0(self, *a, **kw)
+        peaks.setdefault("optimizer", []).append(
+            torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    MegatronOptimizer.step = step
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        yield peaks
+    finally:
+        MegatronOptimizer.step = step0
+
+
+def _entry_run(entry, argv, label):
+    """One run of a training entry point: (iteration, log lines, exact
+    losses, exact grad norms, launches, peaks, wall seconds)."""
+    import torch
+
+    log(f"  {label}: {entry.__module__}.main({' '.join(argv)})")
+    _zero_counts()
+    norms, peaks = {}, {}
+    t0 = time.perf_counter()
+    with _optimizer_peaks(peaks):
+        it, lines, losses, _, _ = _run_finetune(argv, entry=entry,
+                                                norms=norms)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return it, lines, losses, norms, _counts(), peaks, wall
+
+
+def _loop_numbers(lines, skip_first=True):
+    """Step ms, tokens/s and MFU (%) of the log's iteration lines."""
+    its = [ln for ln in lines if ln.startswith(" iteration")]
+    its = its[1:] if skip_first and len(its) > 1 else its
+    return dict(
+        step_ms=[_log_field(ln, "elapsed time per iteration (ms)")
+                 for ln in its],
+        tokens_per_sec=[_log_field(ln, "tokens per second") for ln in its],
+        mfu_pct=[_log_field(ln, "MFU") for ln in its])
+
+
+def _median(xs):
+    xs = sorted(x for x in xs if x is not None)
+    return xs[len(xs) // 2] if xs else None
+
+
+def gpt2_phase(results, kernels, card):
+    """Phase 8 (see the module's docstring): in a directory under build/
+    that it deletes at the end."""
+    import shutil
+
+    import torch
+
+    work = os.path.join(REPO, "build", "chip_smoke_gpt2")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        _gpt2_phase(results, kernels, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _gpt2_phase(results, kernels, card, work):
+    import torch
+
+    from megatron_llm_torch import pretrain_gpt
+    from megatron_llm_torch.tokenizer.bpe import write_byte_bpe_vocab
+
+    L, micro, iters, evals, eval_iters = 24, 2, 20, 2, 10
+    phase = "pretraining GPT-2 345M"
+    prefix = os.path.join(work, "corpus_text_document")
+    t0 = time.perf_counter()
+    docs, tokens = write_corpus(prefix, GPT2_CORPUS)
+    vf, mf = write_byte_bpe_vocab(work, GPT2_CORPUS["vocab"])
+    log(f"  corpus: {docs} documents, {tokens} tokens below "
+        f"{GPT2_CORPUS['vocab']} (uint16), byte-level BPE of "
+        f"{GPT2_CORPUS['vocab']} ids, in {time.perf_counter() - t0:.1f} s")
+    common = GPT2_FLAGS + ["--data_path", prefix, "--vocab_file", vf,
+                           "--merge_file", mf]
+
+    def argv(n, *extra):
+        return common + ["--train_iters", str(n)] + list(extra)
+
+    # (1) 20 iterations with the parser's dropouts (0.1 and 0.1)
+    it, lines, loss, norm, counts, peaks, wall = _entry_run(
+        pretrain_gpt.main, argv(iters), "dropout 0.1/0.1")
+    check(it == iters and sorted(loss) == list(range(1, iters + 1)),
+          f"GPT-2 run: iteration {it}, losses {sorted(loss)}")
+    check(any("padded vocab (size: 50257)" in ln and "50304" in ln
+              for ln in lines), "the tokenizer did not pad 50257 to 50304")
+    vals = [_log_field(ln, f"validation loss at iteration {i}")
+            for i in (10, 20) for ln in lines
+            if f"validation loss at iteration {i}:" in ln]
+    check(len(vals) == evals and all(math.isfinite(v) for v in
+                                     list(loss.values()) + vals),
+          f"GPT-2 run: losses {loss}, eval losses {vals}")
+    # a random model predicts about uniformly over the padded vocabulary:
+    # the first loss lies near ln 50304
+    check(abs(loss[1] - math.log(50304)) <= 0.5,
+          f"first loss {loss[1]}, ln 50304 = {math.log(50304):.4f}")
+    # training takes core_attention (attention dropout), the evaluations
+    # flash attention; every norm is the LayerNorm kernels
+    want = {"F": evals * eval_iters * L * micro, "G": 0, "H": 0,
+            "D": (iters + evals * eval_iters) * (2 * L + 1) * micro,
+            "E": iters * (2 * L + 1) * micro, "B": 0, "C": 0, "A": 0,
+            "A'": 0}
+    nums = _loop_numbers(lines)
+    log(f"  GPT-2 345M ({card}): losses {[loss[i] for i in (1, 10, 20)]} "
+        f"at iterations 1, 10, 20; eval losses {vals}; step "
+        f"{_median(nums['step_ms'])} ms, {_median(nums['tokens_per_sec'])} "
+        f"tokens/s, MFU {_median(nums['mfu_pct'])}% (medians after "
+        f"iteration 1); peak memory forward+backward "
+        f"{max(peaks['fwd_bwd']):.2f} GiB, optimizer "
+        f"{max(peaks['optimizer']):.2f} GiB; launches {counts} (expected "
+        f"{want}); {wall:.1f} s")
+    check(counts == want, f"GPT-2 launches {counts} != {want}")
+    _check_variants(counts, torch.bfloat16, 64, "GPT-2 345M evaluations")
+    for key, row in (("F", "flash_fwd"), ("D", "layernorm"),
+                     ("E", "layernorm_bwd")):
+        _add_launches(kernels, row, phase, counts[key])
+    results["dropout"] = dict(
+        losses=loss, grad_norms=norm, eval_losses=vals, launches=counts,
+        peak_fwd_bwd_gib=max(peaks["fwd_bwd"]),
+        peak_optimizer_gib=max(peaks["optimizer"]), wall_secs=wall, **nums)
+
+    # (2) the same run again, both dropouts at 0, full recompute, LIMA:
+    # one iteration each (--exit_interval 1: the samples' order depends on
+    # --train_iters), against the iteration-1 loss and grad norm
+    variants = (
+        ("same seed", [], True),
+        ("dropout 0", ["--hidden_dropout", "0", "--attention_dropout", "0"],
+         False),
+        ("recompute full", ["--recompute_granularity", "full"], True),
+        ("lima", ["--lima_dropout"], None))
+    for label, extra, same in variants:
+        it, lines, l1, n1, counts, peaks, wall = _entry_run(
+            pretrain_gpt.main, argv(iters, "--exit_interval", "1", *extra),
+            label)
+        check(it == 1 and math.isfinite(l1[1]), f"{label}: {l1}")
+        rel = abs(n1[1] - norm[1]) / abs(norm[1])
+        log(f"  {label}: iteration-1 loss {l1[1]!r} against {loss[1]!r} "
+            f"({'equal' if l1[1] == loss[1] else 'different'}), grad norm "
+            f"{n1[1]!r} against {norm[1]!r} (relative {rel:.3g}); peak "
+            f"memory forward+backward {max(peaks['fwd_bwd']):.2f} GiB; "
+            f"launches {counts}; {wall:.1f} s")
+        if same is True:
+            check(l1[1] == loss[1], f"{label}: the iteration-1 loss "
+                                    f"{l1[1]!r} is not {loss[1]!r}")
+            check(rel <= 1e-3, f"{label}: grad norm off by {rel}")
+        elif same is False:
+            check(l1[1] != loss[1], f"{label}: the loss did not change")
+        rec = 2 if label == "recompute full" else 1
+        want = {"F": 0, "G": 0, "H": 0,
+                "D": (rec * 2 * L + 1) * micro, "E": (2 * L + 1) * micro,
+                "B": 0, "C": 0, "A": 0, "A'": 0}
+        if label == "dropout 0":
+            # no attention dropout: flash attention trains
+            want.update(F=L * micro, G=L * micro)
+        check(counts == want, f"{label}: launches {counts} != {want}")
+        for key, row in (("F", "flash_fwd"), ("G", "flash_bwd_fused"),
+                         ("D", "layernorm"), ("E", "layernorm_bwd")):
+            _add_launches(kernels, row, f"{phase}, {label}", counts[key])
+        results[label.replace(" ", "_")] = dict(
+            loss=l1[1], grad_norm=n1[1], grad_norm_rel=rel, launches=counts,
+            peak_fwd_bwd_gib=max(peaks["fwd_bwd"]), wall_secs=wall)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: Llama-3-8B's width at its own sequence 8192
+# ---------------------------------------------------------------------------
+
+LLAMA3_FLAGS = [
+    "--model_name", "llama3", "--num_layers", "4", "--hidden_size", "4096",
+    "--num_attention_heads", "32", "--num_attention_heads_kv", "8",
+    "--ffn_hidden_size", "14336", "--vocab_size", "128256",
+    "--seq_length", "8192", "--max_position_embeddings", "8192", "--bf16",
+    "--micro_batch_size", "1", "--global_batch_size", "2",
+    "--train_iters", "3", "--lr", "1e-4", "--clip_grad", "1.0",
+    "--log_interval", "1", "--seed", "1234"]
+LLAMA3_VARIANTS = (
+    ("fused CE", ["--fused_lm_cross_entropy"]),
+    ("defaults", []),
+    ("fused CE, recompute selective",
+     ["--fused_lm_cross_entropy", "--recompute_granularity", "selective"]),
+    ("fused CE, recompute full",
+     ["--fused_lm_cross_entropy", "--recompute_granularity", "full"]),
+    ("fused CE, no flash", ["--fused_lm_cross_entropy", "--no_flash_attn"]),
+)
+
+
+def llama3_phase(results, kernels, card):
+    import torch
+
+    from megatron_llm_torch import finetune
+    from megatron_llm_torch.models.llama import llama_config
+
+    L, micro, iters, seq = 4, 2, 3, 8192
+    phase = "training Llama-3-8B"
+    ref = llama_config("llama3-8B", num_layers=L)
+    runs = {}
+    for label, extra in LLAMA3_VARIANTS:
+        it, lines, loss, norm, counts, peaks, wall = _entry_run(
+            finetune.main, LLAMA3_FLAGS + extra, label)
+        check(it == iters and all(math.isfinite(loss[i]) for i in loss),
+              f"{label}: iteration {it}, losses {loss}")
+        auto = any("auto-enabling fused_lm_cross_entropy" in ln
+                   for ln in lines)
+        note = any("padded_vocab_size >= 64k" in ln for ln in lines)
+        nums = _loop_numbers(lines)
+        runs[label] = r = dict(
+            losses=loss, grad_norms=norm, launches=counts,
+            peak_fwd_bwd_gib=max(peaks["fwd_bwd"]),
+            peak_optimizer_gib=max(peaks["optimizer"]), wall_secs=wall,
+            policy_auto_on=auto, policy_note=note, **nums)
+        log(f"  {label} ({card}): losses {[loss[i] for i in sorted(loss)]}"
+            f", grad norms {[norm[i] for i in sorted(norm)]}; step "
+            f"{_median(nums['step_ms'])} ms, "
+            f"{_median(nums['tokens_per_sec'])} tokens/s, MFU "
+            f"{_median(nums['mfu_pct'])}% (iterations 2-3); peak memory "
+            f"forward+backward {r['peak_fwd_bwd_gib']:.2f} GiB, optimizer "
+            f"{r['peak_optimizer_gib']:.2f} GiB; launches {counts}; policy "
+            f"auto-on {auto}, 64k note {note}; {wall:.1f} s")
+        # per step: attention once a layer and micro-batch (twice under
+        # recompute), two norms a layer plus the final one (the layers'
+        # twice under recompute)
+        rec = 2 if "recompute" in label else 1
+        flash = "no flash" not in label
+        want = {"F": iters * rec * L * micro * flash,
+                "G": iters * L * micro * flash, "H": 0,
+                "B": iters * (rec * 2 * L + 1) * micro,
+                "C": iters * (2 * L + 1) * micro, "D": 0, "E": 0, "A": 0,
+                "A'": 0}
+        check(counts == want, f"{label}: launches {counts} != {want}")
+        if flash:
+            _check_variants(counts, torch.bfloat16, ref.head_dim, label)
+        for key, row in (("F", "flash_fwd"), ("G", "flash_bwd_fused"),
+                         ("B", "rmsnorm"), ("C", "rmsnorm_bwd")):
+            _add_launches(kernels, row, f"{phase}, {label}", counts[key])
+    a = runs["fused CE"]
+    # at 128256 ids the policy (on from 131072) leaves the head unfused
+    # and says so; the explicit flag is what turns it on
+    check(not runs["defaults"]["policy_auto_on"]
+          and runs["defaults"]["policy_note"],
+          "the fused-CE policy did not leave 128256 ids unfused with its "
+          "note")
+    for label, r in runs.items():
+        if label == "fused CE":
+            continue
+        rel = abs(r["losses"][1] - a["losses"][1]) / abs(a["losses"][1])
+        nrel = abs(r["grad_norms"][1] - a["grad_norms"][1]) \
+            / abs(a["grad_norms"][1])
+        r.update(loss1_rel=rel, grad_norm1_rel=nrel)
+        log(f"  {label} against fused CE: iteration-1 loss relative "
+            f"{rel:.3g}, grad norm relative {nrel:.3g}")
+        if "recompute" in label:
+            check(r["losses"][1] == a["losses"][1],
+                  f"{label}: iteration-1 loss {r['losses'][1]!r} is not "
+                  f"{a['losses'][1]!r}")
+            check(nrel <= 1e-3, f"{label}: grad norm off by {nrel}")
+        else:
+            check(rel <= 1e-3, f"{label}: iteration-1 loss off by {rel}")
+    extra_gib = runs["defaults"]["peak_fwd_bwd_gib"] - a["peak_fwd_bwd_gib"]
+    sel = runs["fused CE, recompute selective"]["peak_fwd_bwd_gib"]
+    full = runs["fused CE, recompute full"]["peak_fwd_bwd_gib"]
+    log(f"  peak forward+backward memory: unfused head +{extra_gib:.2f} GiB"
+        f" over fused; recompute full {full:.2f} < selective {sel:.2f} < "
+        f"none {a['peak_fwd_bwd_gib']:.2f} GiB")
+    check(extra_gib * 2**30 >= 6e9,
+          f"the unfused head adds only {extra_gib:.2f} GiB")
+    check(full < sel < a["peak_fwd_bwd_gib"],
+          f"recompute peaks full {full}, selective {sel}, none "
+          f"{a['peak_fwd_bwd_gib']}")
+    results.update(runs=runs, unfused_extra_gib=extra_gib,
+                   config=dict(hidden=ref.hidden_size,
+                               heads=ref.num_attention_heads,
+                               kv_heads=ref.num_query_groups,
+                               ffn=ref.ffn_hidden_size,
+                               vocab=ref.padded_vocab_size,
+                               rope_theta=ref.rope_theta, layers=L,
+                               seq=seq))
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     import argparse
@@ -3484,6 +3928,20 @@ def main(argv=None) -> int:
                  training["llama"]["profiled_step"]["idle_share"])
     log(f"phase 7 passed in {time.perf_counter() - t0:.1f} s")
     log(f"corpus Llama-2-7B ({card}): " + json.dumps(corpus))
+    t0 = time.perf_counter()
+    log("phase 8: GPT-2 345M pretraining at full width and depth with its "
+        "dropouts, through megatron_llm_torch.pretrain_gpt")
+    gpt2 = {}
+    gpt2_phase(gpt2, kernels, card)
+    log(f"phase 8 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"pretraining GPT-2 345M ({card}): " + json.dumps(gpt2))
+    t0 = time.perf_counter()
+    log("phase 9: Llama-3-8B width, 4 layers, sequence 8192: the fused LM "
+        "head cross entropy, recompute and the chunked attention")
+    llama3 = {}
+    llama3_phase(llama3, kernels, card)
+    log(f"phase 9 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"training Llama-3-8B ({card}): " + json.dumps(llama3))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     names = ("paged_decode", "paged_prefill", "paged_decode_int8",
@@ -3501,7 +3959,8 @@ def main(argv=None) -> int:
                          if k in keys or k in kernels[n]} for n in names]}
     with open(os.path.join(OUT_DIR, "chip_smoke_result.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "serving": serving,
-                   "training": training, "corpus": corpus}, f, indent=1)
+                   "training": training, "corpus": corpus, "gpt2": gpt2,
+                   "llama3": llama3}, f, indent=1)
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,17 @@
 honours, under the same names and defaults, and the derivations of its
 ``validate_args`` that they need.
 
-The checkpoint, evaluation, data and tokenizer flags have the JAX
-parser's names and defaults.  Flags of features outside the port that a
-user may well pass (parallel sizes, ``--fp16``, ``--async_save``) are
-accepted so that asking for one raises ``NotImplementedError`` in
-``finetune.py`` or the config; the rest of the JAX package's flags are
-not defined here, and argparse refuses them.  ``--device`` picks the
-torch device (``cuda`` unless the caller asks for ``cpu``).
+The checkpoint, evaluation, data, tokenizer, dropout, recompute and fused
+cross-entropy flags have the JAX parser's names and defaults, and
+``apply_fused_ce_policy`` is the JAX package's (re-fired by
+``build_tokenizer`` once the padded vocabulary is known).  Flags of
+features outside the port that a user may well pass (parallel sizes,
+``--fp16``, ``--async_save``) are accepted so that asking for one raises
+``NotImplementedError`` in ``finetune.py`` or the config;
+``--bias_dropout_fusion`` is accepted and ignored, as the JAX parser
+accepts it.  The rest of the JAX package's flags are not defined here,
+and argparse refuses them.  ``--device`` picks the torch device
+(``cuda`` unless the caller asks for ``cpu``).
 """
 
 from __future__ import annotations
@@ -74,6 +78,7 @@ def build_parser(extra_args_provider: Optional[Callable] = None
     g = p.add_argument_group("regularization")
     g.add_argument("--attention_dropout", type=float, default=0.1)
     g.add_argument("--hidden_dropout", type=float, default=0.1)
+    g.add_argument("--lima_dropout", action="store_true")
     g.add_argument("--weight_decay", type=float, default=0.01)
     g.add_argument("--start_weight_decay", type=float, default=None)
     g.add_argument("--end_weight_decay", type=float, default=None)
@@ -92,15 +97,29 @@ def build_parser(extra_args_provider: Optional[Callable] = None
     g.add_argument("--global_batch_size", type=int, default=None)
     g.add_argument("--train_iters", type=int, default=None)
     g.add_argument("--exit_interval", type=int, default=None)
+    g.add_argument("--exit_duration_in_mins", type=int, default=None)
     g.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
     g.add_argument("--recompute_granularity", default=None,
                    choices=[None, "full", "uniform", "block", "selective"])
+    g.add_argument("--recompute_num_layers", type=int, default=1)
+    # --recompute_activations is the selective granularity,
+    # --recompute_method picks the full-layer schedule (validate_args)
+    g.add_argument("--recompute_activations", action="store_true")
+    g.add_argument("--recompute_method", default=None,
+                   choices=[None, "uniform", "block"])
+    g.add_argument("--eval_only", action="store_true")
     g.add_argument("--skip_iters", type=int, nargs="*", default=[])
     g.add_argument("--dataloader_type", default="single",
                    choices=["single", "cyclic"])
     g.add_argument("--use_flash_attn", action="store_true", default=True)
     g.add_argument("--no_flash_attn", action="store_false",
                    dest="use_flash_attn")
+    # None = not given: apply_fused_ce_policy decides from the vocabulary
+    g.add_argument("--fused_lm_cross_entropy", action="store_const",
+                   const=True, default=None)
+    g.add_argument("--no_fused_lm_cross_entropy", action="store_const",
+                   const=False, dest="fused_lm_cross_entropy")
+    g.add_argument("--fused_ce_chunk_size", type=int, default=8192)
 
     g = p.add_argument_group("initialization")
     g.add_argument("--seed", type=int, default=1234)
@@ -175,14 +194,62 @@ def build_parser(extra_args_provider: Optional[Callable] = None
 
     g = p.add_argument_group("logging")
     g.add_argument("--log_interval", type=int, default=100)
+    g.add_argument("--log_params_norm", action="store_true")
+    g.add_argument("--log_num_zeros_in_grad", action="store_true")
+
+    g = p.add_argument_group("compat (ignored)")
+    g.add_argument("--bias_dropout_fusion", action="store_true")
+    g.add_argument("--no_bias_dropout_fusion", action="store_false",
+                   dest="bias_dropout_fusion")
 
     if extra_args_provider is not None:
         p = extra_args_provider(p)
     return p
 
 
+def apply_fused_ce_policy(args, vocab=None):
+    """Decide ``fused_lm_cross_entropy`` from the best-known vocab size
+    (the JAX package's policy): off below 64k, a note at 64k-128k, on at
+    128k or more with an unsharded vocabulary.  The user's explicit
+    choice, resolved on the first call, always wins; otherwise a later
+    call (the tokenizer's padding, a second ``validate_args`` after
+    ``--use_checkpoint_args``) decides again from the larger vocab."""
+    if vocab is None:
+        vocab = max(getattr(args, "padded_vocab_size", 0) or 0,
+                    getattr(args, "vocab_size", 0) or 0)
+    if getattr(args, "fused_ce_user_explicit", None) is None:
+        args.fused_ce_user_explicit = \
+            getattr(args, "fused_lm_cross_entropy", None) is not None
+    if args.fused_ce_user_explicit:
+        return
+    rank0 = getattr(args, "rank", 0) == 0
+    tp = getattr(args, "tensor_model_parallel_size", 1) or 1
+    if vocab >= 131072 and tp == 1:
+        if not getattr(args, "fused_lm_cross_entropy", False) and rank0:
+            print(" > vocab >= 128k: auto-enabling fused_lm_cross_entropy "
+                  "(streams the head matmul + CE over vocab chunks; "
+                  "opt out with --no_fused_lm_cross_entropy)", flush=True)
+        args.fused_lm_cross_entropy = True
+    else:
+        args.fused_lm_cross_entropy = False
+        if rank0 and vocab >= 131072:
+            print(" > NOTE: vocab >= 128k but tensor-parallel vocab "
+                  "sharding is active — fused_lm_cross_entropy is inert "
+                  "under a sharded vocab (the vocab-parallel CE already "
+                  "avoids the full logits); leaving it off", flush=True)
+        elif rank0 and vocab >= 65536:
+            print(" > NOTE: padded_vocab_size >= 64k — consider "
+                  "--fused_lm_cross_entropy", flush=True)
+
+
 def validate_args(args):
     """The JAX package's derivations for the flags above (one device)."""
+    # the reference's recompute spellings
+    if args.recompute_activations and args.recompute_granularity is None:
+        args.recompute_granularity = "selective"
+    if args.recompute_method and args.recompute_granularity in (None,
+                                                                "full"):
+        args.recompute_granularity = args.recompute_method
     if args.fp16 and args.bf16:
         raise ValueError("--fp16 and --bf16 are exclusive")
     args.params_dtype = ("fp16" if args.fp16 else "bf16" if args.bf16
@@ -194,6 +261,7 @@ def validate_args(args):
         raise ValueError(f"global batch ({args.global_batch_size}) not "
                          f"divisible by micro batch "
                          f"({args.micro_batch_size})")
+    apply_fused_ce_policy(args)
     if args.ffn_hidden_size is None and args.hidden_size is not None:
         args.ffn_hidden_size = 4 * args.hidden_size
     if args.kv_channels is None and args.hidden_size is not None:

@@ -9,8 +9,7 @@ defaults and with the same ``__post_init__`` derivations.  Dtype names
 them, for the flags this slice honours.
 
 The fields that select features outside the ported slices (MoE, tokentype
-embeddings, dropout in training, recompute, the fused LM-head cross
-entropy, and every parallel degree above 1) are kept so that asking for
+embeddings and every parallel degree above 1) are kept so that asking for
 one raises ``NotImplementedError`` instead of being ignored.
 """
 
@@ -93,12 +92,18 @@ class TransformerConfig:
     use_fused_rmsnorm: bool = True
     # LayerNorm through the CUDA kernels (csrc/layernorm.cu, D and E)
     use_fused_layernorm: bool = True
-    # chunked LM-head + cross entropy: not ported (asking for it raises)
+    # the LM head and the cross entropy fused over vocabulary chunks
+    # (ops/cross_entropy.py), chunks of at most fused_ce_chunk_size rows
     fused_lm_cross_entropy: bool = False
+    fused_ce_chunk_size: int = 8192
 
-    # --- recompute: not ported (training with it raises) ---
+    # --- recompute: torch.utils.checkpoint of each layer in training ---
+    # None | 'full' | 'uniform' | 'block' | 'selective'
     recompute_granularity: Optional[str] = None
     recompute_num_layers: int = 1
+
+    # --- LIMA dropout: hidden dropout rising linearly over the layers ---
+    lima_dropout: bool = False
 
     # --- mixture of experts: not ported (asking for it raises) ---
     num_experts: int = 0
@@ -271,13 +276,17 @@ def transformer_config_from_args(args, model_name: Optional[str] = None
         sliding_window_size=args.sliding_window_size,
         hidden_dropout=args.hidden_dropout,
         attention_dropout=args.attention_dropout,
+        lima_dropout=args.lima_dropout,
         init_method_std=args.init_method_std,
         init_method_xavier_uniform=args.init_method_xavier_uniform,
         attention_softmax_in_fp32=args.attention_softmax_in_fp32,
         params_dtype=args.params_dtype,
         compute_dtype="bf16" if args.bf16 else "fp16" if args.fp16 else "fp32",
         recompute_granularity=args.recompute_granularity,
+        recompute_num_layers=args.recompute_num_layers,
         use_flash_attn=args.use_flash_attn,
+        fused_lm_cross_entropy=args.fused_lm_cross_entropy,
+        fused_ce_chunk_size=args.fused_ce_chunk_size,
         add_qkv_bias=args.add_qkv_bias,
         embedding_multiplier=args.embedding_multiplier,
         rotary_percent=args.rotary_percent,

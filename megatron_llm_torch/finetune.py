@@ -25,9 +25,14 @@ write checkpoints in the JAX package's layout
 then the optimizer and scheduler state and the data order (not with
 ``--finetune``), from the tracker's iteration or ``--load_iters``;
 ``--use_checkpoint_args`` takes the architecture from the checkpoint.
-``--device cpu`` runs it on the CPU (the tests do); the default is the
-card.  Parallelism, ``--fp16``, ``--async_save``, dropout and recompute
-raise ``NotImplementedError``.
+Dropout (``--hidden_dropout``, ``--attention_dropout``, ``--lima_dropout``;
+the ``gpt`` preset keeps the parser's 0.1), ``--recompute_granularity``
+and the fused LM-head cross entropy train as in the JAX entry point;
+``--eval_only`` runs one evaluation and no training.  ``--device cpu``
+runs it on the CPU (the tests do); the default is the card.
+Parallelism, ``--fp16`` and ``--async_save`` raise
+``NotImplementedError``.  ``python -m megatron_llm_torch.pretrain_gpt``
+is this entry point with ``--model_name=gpt``.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from megatron_llm_torch.optimizer import (
     OptimizerParamScheduler,
 )
 from megatron_llm_torch.tokenizer import build_tokenizer
-from megatron_llm_torch.training import pretrain
+from megatron_llm_torch.training import build_train_step, pretrain
 
 # the JAX entry point's families; the port has all but mixtral
 FAMILIES = ("codellama", "falcon", "gemma", "gpt", "gpt_neox", "llama",
@@ -409,6 +414,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
           f"params ({model.cfg.num_layers} layers) on {model.device}, "
           f"{num_micro} micro-batch(es) of {args.micro_batch_size} x "
           f"{args.seq_length} tokens per iteration", flush=True)
+    if args.eval_only:
+        # no training, one evaluation pass
+        if eval_iter is None:
+            raise SystemExit("--eval_only requires validation data")
+        eval_step = build_train_step(model, optimizer, pc, num_micro,
+                                     forward_only=True)
+        losses = [float(eval_step(params, next(eval_iter), None))
+                  for _ in range(args.eval_iters)]
+        print(f" eval_only: validation loss "
+              f"{sum(losses) / len(losses):.6E}", flush=True)
+        return start_iteration
     params, opt_state, it = pretrain(
         model, params, tc, pc, train_iter,
         optimizer=optimizer,
@@ -425,6 +441,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         opt_state=opt_state,
         skip_iters=args.skip_iters,
         exit_interval=args.exit_interval,
+        exit_duration_in_mins=args.exit_duration_in_mins,
+        log_params_norm=args.log_params_norm,
+        log_num_zeros_in_grad=args.log_num_zeros_in_grad,
     )
     # the final checkpoint, unless the loop has just written this one
     if args.save and saved_at[-1:] != [it]:

@@ -13,9 +13,13 @@ from megatron_llm_torch.models.language_model import (
     flops_per_token,
     init_language_model_params,
     language_model_forward,
+    lm_head_weight,
     unsupported_features,
 )
-from megatron_llm_torch.ops.cross_entropy import vocab_parallel_cross_entropy
+from megatron_llm_torch.ops.cross_entropy import (
+    fused_linear_cross_entropy,
+    vocab_parallel_cross_entropy,
+)
 
 
 class GPTModel:
@@ -56,18 +60,28 @@ class GPTModel:
                  position_ids: Optional[torch.Tensor] = None,
                  attention_mask: Optional[torch.Tensor] = None,
                  labels: Optional[torch.Tensor] = None, *,
-                 train: bool = False, kv_caches=None):
+                 rng_key: Optional[int] = None, train: bool = False,
+                 kv_caches=None):
         """Per-token loss [b, s] fp32 when ``labels`` are given, else
         logits [b, s, V] (each with the new caches under ``kv_caches``).
-        Training with dropout raises, so no generator is taken (the JAX
-        package's ``rng_key``)."""
-        if labels is not None and self.cfg.fused_lm_cross_entropy:
-            raise NotImplementedError(
-                "fused_lm_cross_entropy (the chunked LM head + cross "
-                "entropy) is not ported yet")
+        ``rng_key``: the micro-batch's dropout key (an integer,
+        ``megatron_llm_torch/random.py``); without one nothing is
+        dropped."""
+        cfg = self.cfg
+        if (labels is not None and kv_caches is None
+                and cfg.fused_lm_cross_entropy):
+            # the head and the loss fused over vocabulary chunks: the [b,
+            # s, V] logits are never built; a tied head's gradient joins
+            # the embedding lookup's through autograd
+            h = language_model_forward(params, tokens, position_ids,
+                                       attention_mask, cfg, rng_key=rng_key,
+                                       train=train, compute_logits=False)
+            head = lm_head_weight(params).to(cfg.compute_torch_dtype)
+            return fused_linear_cross_entropy(
+                h, head, labels, chunk_size=cfg.fused_ce_chunk_size)
         out = language_model_forward(params, tokens, position_ids,
-                                     attention_mask, self.cfg, train=train,
-                                     kv_caches=kv_caches)
+                                     attention_mask, cfg, rng_key=rng_key,
+                                     train=train, kv_caches=kv_caches)
         if labels is None:
             return out
         logits, new_caches = out if kv_caches is not None else (out, None)

@@ -8,8 +8,10 @@ from typing import Optional
 
 import torch
 
+from megatron_llm_torch import random as mrandom
 from megatron_llm_torch.config import PositionEmbeddingType, TransformerConfig
 from megatron_llm_torch.models.transformer import (
+    _dropout,
     init_stack_params,
     rotary_freqs,
     transformer_stack,
@@ -55,10 +57,13 @@ def init_language_model_params(generator: torch.Generator,
 
 
 def embedding_forward(tokens: torch.Tensor, position_ids, params,
-                      cfg: TransformerConfig) -> torch.Tensor:
+                      cfg: TransformerConfig, *,
+                      rng_key: Optional[int] = None,
+                      train: bool = False) -> torch.Tensor:
     """Word embedding, scaled by ``embedding_multiplier`` when set (the
     tied head reads the raw table), plus the learned absolute position
-    embedding when the params carry one (rotary models do not)."""
+    embedding when the params carry one (rotary models do not), then the
+    hidden dropout in training with a key."""
     h = vocab_parallel_embedding(tokens, params["word"],
                                  compute_dtype=cfg.compute_torch_dtype)
     if cfg.embedding_multiplier is not None:
@@ -73,7 +78,7 @@ def embedding_forward(tokens: torch.Tensor, position_ids, params,
         h = h + vocab_parallel_embedding(
             position_ids, params["position"],
             compute_dtype=cfg.compute_torch_dtype)
-    return h
+    return _dropout(h, cfg.hidden_dropout, rng_key, train)
 
 
 def lm_head_weight(params) -> torch.Tensor:
@@ -86,20 +91,28 @@ def lm_head_weight(params) -> torch.Tensor:
 def language_model_forward(params, tokens: torch.Tensor,
                            position_ids: Optional[torch.Tensor],
                            attention_mask: Optional[torch.Tensor],
-                           cfg: TransformerConfig, *, train: bool = False,
+                           cfg: TransformerConfig, *,
+                           rng_key: Optional[int] = None,
+                           train: bool = False,
                            compute_logits: bool = True, kv_caches=None,
                            freqs=None):
     """Full LM forward -> logits [b, s, V] (or the final hidden states
     when ``compute_logits=False``); with ``kv_caches`` returns
-    ``(out, new_caches)``.  Differentiable; inference callers run it
+    ``(out, new_caches)``.  ``rng_key`` (an integer key,
+    ``megatron_llm_torch/random.py``) is split into the embedding's and
+    the stack's dropout keys.  Differentiable; inference callers run it
     under ``torch.no_grad()``."""
-    h = embedding_forward(tokens, position_ids, params["embedding"], cfg)
+    train = train and kv_caches is None
+    k_embed, k_stack = (mrandom.split(rng_key) if rng_key is not None
+                        else (None, None))
+    h = embedding_forward(tokens, position_ids, params["embedding"], cfg,
+                          rng_key=k_embed, train=train)
     if freqs is None:
         freqs = rotary_freqs(cfg, device=h.device)
     out = transformer_stack(h, params["transformer"], cfg, freqs=freqs,
                             attention_mask=attention_mask,
                             position_ids=position_ids, kv_caches=kv_caches,
-                            train=train and kv_caches is None)
+                            rng_key=k_stack, train=train)
     h, new_caches = out if kv_caches is not None else (out, None)
     if compute_logits:
         h = parallel_lm_logits(h, lm_head_weight(params),

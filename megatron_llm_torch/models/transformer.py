@@ -10,9 +10,15 @@ layouts: activations ``[b, s, ...]``, the packed grouped QKV projection
 ``[num_layers]`` axis, and page pools ``[P, bs, g, d]``.  The stack is a
 Python loop over the layers (the JAX package scans it); each forward
 unbinds the stacked params once, so the backward stacks each leaf's
-layer grads once.  Dropout in training, recompute and the chunked
-attention of long unfused sequences are later slices and raise
-``NotImplementedError``.
+layer grads once.
+
+Dropout follows the JAX package's sites and streams: the step's key
+(an integer, ``megatron_llm_torch/random.py``) is split into one key a
+layer and each layer's into the attention-probs, post-attention and
+post-MLP sites; each mask is drawn from a generator seeded inside the
+layer function, so recompute (``torch.utils.checkpoint`` of each layer,
+``recompute_granularity``) draws the same masks again.  Long unfused
+attention takes the q-chunked path (``ops/chunked_attention.py``).
 
 The JAX package's paged branch is functional: it returns fresh pools.
 Here the scatter writes into the pools in place, which saves copying a
@@ -27,8 +33,15 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from megatron_llm_torch import random as mrandom
 from megatron_llm_torch.config import PositionEmbeddingType, TransformerConfig
+from megatron_llm_torch.ops import chunked_attention
 from megatron_llm_torch.ops.activations import apply_mlp_activation
 from megatron_llm_torch.ops.kernels.flash_attention import flash_attention
 from megatron_llm_torch.ops.kernels.paged_attention import (
@@ -51,10 +64,6 @@ from megatron_llm_torch.parallel.layers import (
 )
 from megatron_llm_torch.quantization import absmax_quantize_int8
 from megatron_llm_torch.tree import tree_map
-
-# the JAX package routes a flash-eligible unfused attention at least this
-# long to its q-chunked XLA path (ops/chunked_attention.py), not ported
-CHUNKED_ATTENTION_MIN_SEQ = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -162,10 +171,13 @@ def _split_qkv(mixed: torch.Tensor, cfg: TransformerConfig):
 
 def core_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    cfg: TransformerConfig,
-                   attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Unfused attention: scaled QK^T -> masked softmax -> PV, with GQA
-    contracting group-shared K/V.  ``attention_mask`` [b, 1, sq, sk] bool
-    (True = masked); None applies the causal (+ window) mask."""
+                   attention_mask: Optional[torch.Tensor],
+                   dropout_key: Optional[int] = None,
+                   train: bool = False) -> torch.Tensor:
+    """Unfused attention: scaled QK^T -> masked softmax -> dropout -> PV,
+    with GQA contracting group-shared K/V.  ``attention_mask`` [b, 1, sq,
+    sk] bool (True = masked); None applies the causal (+ window) mask.
+    The probs are dropped in training with a ``dropout_key``."""
     b, sq, nh, d = q.shape
     ng = k.shape[2]
     qpg = nh // ng
@@ -184,6 +196,7 @@ def core_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = fused_scale_mask_softmax(
         scores, mask, scale=1.0 / math.sqrt(d),
         softmax_in_fp32=cfg.attention_softmax_in_fp32)
+    probs = _dropout(probs, cfg.attention_dropout, dropout_key, train)
     ctx = torch.einsum("bgpst,btgd->bsgpd", probs.to(v.dtype), v)
     return ctx.reshape(b, sq, nh, d)
 
@@ -217,7 +230,8 @@ def _paged_scatter(kv_cache: dict, k: torch.Tensor, v: torch.Tensor,
 def attention(x: torch.Tensor, params, cfg: TransformerConfig, *,
               freqs: Optional[tuple], attention_mask: Optional[torch.Tensor],
               position_ids: Optional[torch.Tensor],
-              kv_cache: Optional[dict] = None, train: bool = False):
+              kv_cache: Optional[dict] = None,
+              dropout_key: Optional[int] = None, train: bool = False):
     """QKV projection, RoPE, attention, output projection.  With a paged
     ``kv_cache`` (pools plus block_tables / context_lens / valid_lens)
     returns ``(out, new_cache)``."""
@@ -283,7 +297,9 @@ def attention(x: torch.Tensor, params, cfg: TransformerConfig, *,
         # the no-cache forward, dispatched as in the JAX package: flash
         # attention (kernels F and G/H on the card, their plain versions
         # on the CPU) when the causal(+window) mask is the whole mask and
-        # no attention dropout runs, else core_attention
+        # no attention dropout runs; without flash, the q-chunked path
+        # for long sequences under the same conditions, else
+        # core_attention
         flash_eligible = (attention_mask is None
                           and not (train and cfg.attention_dropout > 0.0))
         if cfg.use_flash_attn and flash_eligible:
@@ -291,13 +307,15 @@ def attention(x: torch.Tensor, params, cfg: TransformerConfig, *,
                                   sliding_window=cfg.sliding_window_size,
                                   softmax_scale=1.0 / math.sqrt(
                                       cfg.head_dim))
-        elif flash_eligible and q.shape[1] >= CHUNKED_ATTENTION_MIN_SEQ:
-            raise NotImplementedError(
-                f"unfused attention at {q.shape[1]} tokens takes the JAX "
-                f"package's chunked_causal_attention, which is not ported; "
-                f"use flash attention")
+        elif (flash_eligible and q.shape[1]
+              >= chunked_attention.CHUNKED_ATTENTION_MIN_SEQ):
+            ctx = chunked_attention.chunked_causal_attention(
+                q, k, v, causal=True,
+                sliding_window=cfg.sliding_window_size,
+                softmax_scale=1.0 / math.sqrt(cfg.head_dim))
         else:
-            ctx = core_attention(q, k, v, cfg, attention_mask)
+            ctx = core_attention(q, k, v, cfg, attention_mask, dropout_key,
+                                 train)
 
     b, s = ctx.shape[:2]
     ctx = ctx.reshape(b, s, cfg.num_attention_heads * cfg.head_dim)
@@ -324,18 +342,39 @@ def _norm_uses_kernel(cfg: TransformerConfig) -> bool:
                 and cfg.normalization == "layernorm"))
 
 
+@functools.lru_cache(maxsize=64)
+def _keep_scale(rate: float, dtype: torch.dtype) -> float:
+    """1 - rate as the JAX package divides by it: in fp32, then rounded
+    to the activation's dtype."""
+    return torch.tensor(1.0 - rate, dtype=torch.float32).to(dtype).item()
+
+
+def _dropout(x: torch.Tensor, rate: float, key: Optional[int],
+             train: bool) -> torch.Tensor:
+    """Inverted dropout at ``rate`` with the mask of ``key``; the identity
+    outside training, without a key, or at a rate of 0."""
+    if not train or key is None or rate <= 0.0:
+        return x
+    keep = mrandom.bernoulli(key, 1.0 - rate, x.shape, x.device)
+    return x * keep.to(x.dtype) / _keep_scale(rate, x.dtype)
+
+
 def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
                       freqs=None, attention_mask=None, position_ids=None,
-                      kv_cache=None, train: bool = False):
+                      kv_cache=None, rng_key: Optional[int] = None,
+                      train: bool = False,
+                      hidden_dropout: Optional[float] = None):
     """One decoder layer: pre-LN (default) or post-LN (``use_post_ln``),
     attention then MLP, or Falcon's parallel attention + MLP
     (``parallel_attn``, with the MLP's own norm under
-    ``parallel_layernorm``).  Returns ``(out, new_cache)``; ``new_cache``
-    is None without a cache."""
-    if train and (cfg.hidden_dropout > 0.0 or cfg.attention_dropout > 0.0):
-        raise NotImplementedError(
-            "dropout in training is not ported yet (it comes with "
-            "random.py); set hidden_dropout and attention_dropout to 0")
+    ``parallel_layernorm``).  ``rng_key`` is the layer's dropout key and
+    ``hidden_dropout`` overrides the config's rate (LIMA's per-layer
+    rate).  Returns ``(out, new_cache)``; ``new_cache`` is None without a
+    cache."""
+    if hidden_dropout is None:
+        hidden_dropout = cfg.hidden_dropout
+    k_attn_drop, k_h1, k_h2 = (mrandom.split(rng_key, 3)
+                               if rng_key is not None else (None,) * 3)
 
     def norm(h, p):
         return apply_norm(h, p, cfg.normalization,
@@ -345,7 +384,8 @@ def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
 
     ln_out = norm(x, params["input_norm"]) if not cfg.use_post_ln else x
     attn_kw = dict(freqs=freqs, attention_mask=attention_mask,
-                   position_ids=position_ids, kv_cache=kv_cache, train=train)
+                   position_ids=position_ids, kv_cache=kv_cache,
+                   dropout_key=k_attn_drop, train=train)
     if kv_cache is not None:
         attn_out, new_cache = attention(ln_out, params["attention"], cfg,
                                         **attn_kw)
@@ -357,49 +397,104 @@ def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
         # and attn + mlp are added before the one residual add
         mlp_in = (norm(x, params["mlp_norm"]) if cfg.parallel_layernorm
                   else ln_out)
-        out = x + (attn_out + mlp(mlp_in, params["mlp"], cfg))
+        out = x + _dropout(attn_out + mlp(mlp_in, params["mlp"], cfg),
+                           hidden_dropout, k_h1, train)
         if cfg.use_post_ln:
             out = norm(out, params["input_norm"])
         return out, new_cache
-    h = x + attn_out
+    h = x + _dropout(attn_out, hidden_dropout, k_h1, train)
     if cfg.use_post_ln:
         h = norm(h, params["input_norm"])
     ln2 = (norm(h, params["post_attention_norm"]) if not cfg.use_post_ln
            else h)
-    out = h + mlp(ln2, params["mlp"], cfg)
+    out = h + _dropout(mlp(ln2, params["mlp"], cfg), hidden_dropout, k_h2,
+                       train)
     if cfg.use_post_ln:
         out = norm(out, params["post_attention_norm"])
     return out, new_cache
 
 
+def _lima_dropout_rates(cfg: TransformerConfig) -> list:
+    """LIMA's linearly increasing layer dropout p_l = p * l / (L - 1), the
+    JAX package's fp32 values as Python floats."""
+    L = cfg.num_layers
+    if L == 1:
+        return [0.0]
+    rates = (torch.tensor(cfg.hidden_dropout, dtype=torch.float32)
+             * torch.arange(L, dtype=torch.float32) / (L - 1))
+    return rates.tolist()
+
+
+# the selective policy keeps the dense products (the JAX package's
+# dots_with_no_batch_dims_saveable: core_attention's einsums are batched,
+# so they are recomputed with the norms, rope, attention, softmax and
+# dropout)
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _selective_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def transformer_stack(x: torch.Tensor, stack_params, cfg: TransformerConfig,
                       *, freqs=None, attention_mask=None, position_ids=None,
-                      kv_caches=None, train: bool = False):
+                      kv_caches=None, rng_key: Optional[int] = None,
+                      train: bool = False):
     """Run the layers in turn, then the final norm.  Returns
     ``(h, new_caches)`` with ``kv_caches``, else ``h``.
+
+    ``rng_key`` (the stack's dropout key) is split into one key a layer;
+    ``lima_dropout`` gives each layer its own hidden-dropout rate.  Under
+    ``recompute_granularity`` each layer of a forward that builds a graph
+    runs under ``torch.utils.checkpoint`` (non-reentrant, as
+    ``torch.autograd.grad`` needs): 'full', 'uniform' and 'block' keep
+    only the layer's input, 'selective' also the outputs of its dense
+    products.  ``recompute_num_layers`` is not read, as in the JAX
+    package.
 
     The final norm goes through the norm kernel like the layers' norms
     (under ``use_fused_rmsnorm`` / ``use_fused_layernorm``), where the JAX
     package takes its plain norm: this way no plain norm runs on the
     card."""
-    if train and cfg.recompute_granularity is not None:
-        raise NotImplementedError(
-            f"recompute_granularity={cfg.recompute_granularity!r} is not "
-            f"ported yet (torch.utils.checkpoint is a later slice)")
+    L = cfg.num_layers
+    rates = _lima_dropout_rates(cfg) if cfg.lima_dropout else None
+    keys = mrandom.split(rng_key, L) if rng_key is not None else (None,) * L
+    recompute = None
+    if (train and kv_caches is None and torch.is_grad_enabled()
+            and cfg.recompute_granularity is not None):
+        recompute = ({} if cfg.recompute_granularity != "selective"
+                      else {"context_fn": functools.partial(
+                          create_selective_checkpoint_contexts,
+                          _selective_policy)})
     # one unbind per leaf and forward: indexing p[i] per layer would give
     # each layer's backward a whole [L, ...] zero tensor to scatter into
     unbound = tree_map(lambda p: p.unbind(0), stack_params["layers"])
     new_caches = [] if kv_caches is not None else None
-    h = x
-    for i in range(cfg.num_layers):
-        layer_p = tree_map(lambda p: p[i], unbound)
-        h, c = transformer_layer(
+
+    def layer_fn(h, layer_p, key, rate):
+        return transformer_layer(
             h, layer_p, cfg, freqs=freqs, attention_mask=attention_mask,
-            position_ids=position_ids,
-            kv_cache=kv_caches[i] if kv_caches is not None else None,
-            train=train)
-        if new_caches is not None:
+            position_ids=position_ids, rng_key=key, train=train,
+            hidden_dropout=rate)[0]
+
+    h = x
+    for i in range(L):
+        layer_p = tree_map(lambda p: p[i], unbound)
+        rate = rates[i] if rates is not None else None
+        if kv_caches is not None:
+            h, c = transformer_layer(
+                h, layer_p, cfg, freqs=freqs, attention_mask=attention_mask,
+                position_ids=position_ids, kv_cache=kv_caches[i])
             new_caches.append(c)
+        elif recompute is not None:
+            # the masks' generators are seeded inside layer_fn, so the
+            # recompute draws the same masks; no default generator is read
+            h = checkpoint(layer_fn, h, layer_p, keys[i], rate,
+                           use_reentrant=False, preserve_rng_state=False,
+                           **recompute)
+        else:
+            h = layer_fn(h, layer_p, keys[i], rate)
     h = apply_norm(h, stack_params["final_norm"], cfg.normalization,
                    eps=cfg.layernorm_epsilon, fp32_compute=cfg.norm_in_fp32,
                    use_kernel=_norm_uses_kernel(cfg))

@@ -16,11 +16,8 @@ clear error (or the HF fast tokenizer for the same model when given a
 directory).  The port's one other change: where a ``transformers`` fast
 tokenizer does not read the vocabulary file (its 5.x constructors take
 the vocabulary itself), the standalone backend is used as if
-``transformers`` were missing.  Unlike the JAX package, the port has no
-fused cross entropy,
-so padding the vocab sets ``padded_vocab_size`` and nothing else; a
-parser without ``--tensor_model_parallel_size`` (the server's) pads as
-for one device.
+``transformers`` were missing.  A parser without
+``--tensor_model_parallel_size`` (the server's) pads as for one device.
 """
 
 from __future__ import annotations
@@ -89,6 +86,12 @@ def _vocab_size_with_padding(orig_vocab_size: int, args) -> int:
         print(f" > padded vocab (size: {orig_vocab_size}) with "
               f"{after - orig_vocab_size} dummy tokens "
               f"(new size: {after})", flush=True)
+    # re-fire the fused-CE policy now that the tokenizer-derived vocab
+    # is known (validate_args ran before the tokenizer was built); the
+    # guard keeps parsers without the policy's flags (the server's) out
+    if getattr(args, "fused_ce_user_explicit", None) is not None:
+        from megatron_llm_torch.arguments import apply_fused_ce_policy
+        apply_fused_ce_policy(args, vocab=after)
     return after
 
 

@@ -9,16 +9,23 @@ runs eagerly, so there is nothing to compile and nothing is donated: the
 optimizer updates the params and its state in place.  ``pretrain`` runs
 the loop with the scheduler, the ``batch-generator`` / ``train-step``
 timers, the JAX package's log line (throughput and MFU included),
-``skip_iters``, ``exit_interval``, resuming (``start_iteration``,
-``opt_state``), checkpoint saving every ``save_interval`` iterations and
-evaluation every ``eval_interval`` (a forward-only step over
-``eval_iters`` batches); eval and save time is left out of the logged
-time per iteration, as in the JAX package.  ``pretrain`` counts the
-samples consumed from its ``consumed_samples`` argument on, and a
-checkpoint records that count.  Resilience,
-asynchronous saves, the layer-stats observatory, the JSONL stream, the
-tracer and TensorBoard writers are later slices: asking for one raises
-``NotImplementedError``.
+``skip_iters``, ``exit_interval``, ``exit_duration_in_mins``, resuming
+(``start_iteration``, ``opt_state``), checkpoint saving every
+``save_interval`` iterations, evaluation every ``eval_interval`` (a
+forward-only step over ``eval_iters`` batches) and the params norm and
+the count of zero grads in the log line; eval and save time is left out
+of the logged time per iteration, as in the JAX package.  ``pretrain``
+counts the samples consumed from its ``consumed_samples`` argument on,
+and a checkpoint records that count.
+
+Dropout keys follow the JAX package: the step's key is the base key of
+``TrainConfig.seed`` folded with the iteration, and each micro-batch's
+is the step's folded with the micro-batch index
+(``megatron_llm_torch/random.py``); the model splits it further by
+layer and site.  A resumed run therefore draws the masks of an
+uninterrupted one.  Resilience, asynchronous saves, the layer-stats
+observatory, the JSONL stream, the tracer and TensorBoard writers are
+later slices: asking for one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,11 +37,13 @@ from typing import Callable, Dict, Optional
 import torch
 
 from megatron_llm_torch import checkpointing
+from megatron_llm_torch import random as mrandom
 from megatron_llm_torch.config import ParallelConfig, TrainConfig
 from megatron_llm_torch.optimizer import (
     MegatronOptimizer,
     OptimizerParamScheduler,
 )
+from megatron_llm_torch.optimizer.optimizer import global_grad_norm
 from megatron_llm_torch.telemetry import ThroughputCalculator
 from megatron_llm_torch.timers import Timers
 from megatron_llm_torch.tree import tree_leaves, tree_unflatten
@@ -57,6 +66,7 @@ def build_train_step(
     num_microbatches: int,
     loss_func: Callable = default_loss_func,
     forward_only: bool = False,
+    log_num_zeros_in_grad: bool = False,
 ):
     """One global training step.
 
@@ -65,16 +75,19 @@ def build_train_step(
     go to the model as keyword arguments).  Returns
     ``train_step(params, opt_state, batch, rng_key, lr, wd) ->
     (params, opt_state, metrics)``, or with ``forward_only`` the eval
-    step ``(params, batch, rng_key) -> mean loss``.  ``rng_key`` feeds
-    dropout in the JAX package; with dropout off nothing draws from it."""
+    step ``(params, batch, rng_key) -> mean loss``.  ``rng_key`` is the
+    step's dropout key (an integer, or None to drop nothing); micro-batch
+    i trains on ``random.fold_in(rng_key, i)``.  The eval step draws
+    nothing.  ``log_num_zeros_in_grad`` adds the count of zero entries of
+    the accumulated grads as ``num zeros``."""
     if parallel_cfg.world_size != 1:
         raise NotImplementedError("the port trains on one device")
 
-    def microbatch_loss(params, micro, scale, train):
+    def microbatch_loss(params, micro, scale, train, rng_key=None):
         extra = {k: v for k, v in micro.items()
                  if k not in ("tokens", "labels", "loss_mask")}
         loss_tok = model(params, micro["tokens"], labels=micro["labels"],
-                         train=train, **extra)
+                         rng_key=rng_key, train=train, **extra)
         out = loss_func(loss_tok, micro["loss_mask"])
         # loss_func may return (total, {metric: scalar})
         loss, aux = out if isinstance(out, tuple) else (out, {})
@@ -99,8 +112,10 @@ def build_train_step(
                  for p in leaves]
         losses, auxes = [], {}
         for i in range(num_microbatches):
+            mkey = (mrandom.fold_in(rng_key, i) if rng_key is not None
+                    else None)
             total, loss, aux = microbatch_loss(params, _micro(batch, i),
-                                               scale, True)
+                                               scale, True, mkey)
             g = torch.autograd.grad(total, leaves, allow_unused=True)
             del total
             # accumulate in fp32 and drop each micro-batch's own grads
@@ -111,6 +126,9 @@ def build_train_step(
             losses.append(loss.detach())
             for k, v in aux.items():
                 auxes.setdefault(k, []).append(v.detach())
+        # counted before the optimizer, which may scale the grads in place
+        num_zeros = (torch.stack([(g == 0.0).sum() for g in grads]).sum()
+                     if log_num_zeros_in_grad else None)
         grad_tree = tree_unflatten(params, grads)
         params, opt_state, stats = optimizer.step(params, grad_tree,
                                                   opt_state, lr, wd)
@@ -120,6 +138,8 @@ def build_train_step(
             "loss_scale": stats["loss_scale"],
             "skipped_iter": int(stats["found_inf"]),
         }
+        if num_zeros is not None:
+            metrics["num zeros"] = num_zeros
         metrics.update({k: torch.stack(v).mean() for k, v in auxes.items()})
         return params, opt_state, metrics
 
@@ -184,13 +204,10 @@ def _sync(device) -> None:
 _UNPORTED = {
     "async_save": "asynchronous checkpoint saving",
     "exit_signal_handler": "the signal handler",
-    "log_params_norm": "--log_params_norm",
-    "log_num_zeros_in_grad": "--log_num_zeros_in_grad",
     "log_layer_stats_interval": "the layer-stats observatory",
     "writer": "metrics writers", "resilience": "resilience",
     "telemetry": "the JSONL stream, profiler and tracer",
     "train_step": "a custom train step",
-    "exit_duration_in_mins": "--exit_duration_in_mins",
 }
 
 
@@ -216,7 +233,10 @@ def pretrain(
     timers=None,
     skip_iters=(),
     exit_interval: Optional[int] = None,
+    exit_duration_in_mins: Optional[float] = None,
     save_fn=None,
+    log_params_norm: bool = False,
+    log_num_zeros_in_grad: bool = False,
     **unported,
 ):
     """The training loop from ``start_iteration``; returns ``(params,
@@ -233,7 +253,10 @@ def pretrain(
     ``eval_iters`` forward-only batches, printed at every multiple.
     ``skip_iters``: iteration numbers that run forward-only (the loss is
     logged, nothing is updated).  ``exit_interval``: save (with a
-    ``save_dir``) and exit (``sys.exit(0)``) at a multiple of it.  The
+    ``save_dir``) and exit (``sys.exit(0)``) at a multiple of it;
+    ``exit_duration_in_mins``: the same once the loop has run that long.
+    ``log_params_norm`` adds the params' L2 norm to each log line,
+    ``log_num_zeros_in_grad`` the count of zero grads.  The
     JAX package's other keyword arguments (resilience, telemetry,
     writers, layer stats, signal handling, asynchronous saves, a custom
     step) raise ``NotImplementedError`` when set."""
@@ -273,15 +296,17 @@ def pretrain(
         )
         scheduler.num_steps = start_iteration
     train_step = build_train_step(model, optimizer, parallel_cfg, num_micro,
-                                  loss_func)
+                                  loss_func,
+                                  log_num_zeros_in_grad=log_num_zeros_in_grad)
     eval_step = (build_train_step(model, optimizer, parallel_cfg, num_micro,
                                   loss_func, forward_only=True)
                  if eval_iterator is not None else None)
     skip_step = None
     consumed = int(consumed_samples)
     device = model.device
+    base_key = mrandom.base_key(train_cfg.seed)
     iteration = start_iteration
-    last_time = time.perf_counter()
+    last_time = train_start = time.perf_counter()
     # eval and checkpoint-save wall time inside the current log interval,
     # left out of the logged time per iteration (tokens/s and MFU)
     non_train = 0.0
@@ -306,6 +331,7 @@ def pretrain(
         batch = next(batch_iterator)
         timers("batch-generator").stop()
         lr, wd = scheduler.step(1)
+        step_key = mrandom.fold_in(base_key, iteration)
         if (iteration + 1) in skip_iters:
             print(" IMPORTANT! skipping backprop for this iteration!",
                   flush=True)
@@ -313,12 +339,12 @@ def pretrain(
                 skip_step = eval_step or build_train_step(
                     model, optimizer, parallel_cfg, num_micro, loss_func,
                     forward_only=True)
-            metrics = {"lm loss": skip_step(params, batch, None),
+            metrics = {"lm loss": skip_step(params, batch, step_key),
                        "skipped_iter": 1}
         else:
             timers("train-step", log_level=1).start()
             params, opt_state, metrics = train_step(
-                params, opt_state, batch, None, lr, wd)
+                params, opt_state, batch, step_key, lr, wd)
             timers("train-step").stop()
         iteration += 1
         tokens = batch["tokens"].numel()
@@ -326,6 +352,10 @@ def pretrain(
         consumed += tokens // batch["tokens"].shape[-1]
 
         if log_interval and iteration % log_interval == 0:
+            if log_params_norm:
+                with torch.no_grad():
+                    metrics = {**metrics,
+                               "params norm": global_grad_norm(params)}
             timers("train-step-sync", log_level=1).start()
             _sync(device)
             timers("train-step-sync").stop()
@@ -359,9 +389,15 @@ def pretrain(
             _save(iteration)
             saved = True
 
-        if exit_interval and iteration % exit_interval == 0:
-            if save_dir and not saved:
-                _save(iteration)
-            print(f" exiting program at iteration {iteration}", flush=True)
-            sys.exit(0)
+        train_mins = (time.perf_counter() - train_start) / 60.0
+        if exit_duration_in_mins and train_mins > exit_duration_in_mins:
+            why = f"after {train_mins:.1f} minutes"
+        elif exit_interval and iteration % exit_interval == 0:
+            why = f"at iteration {iteration}"
+        else:
+            continue
+        if save_dir and not saved:
+            _save(iteration)
+        print(f" exiting program {why}", flush=True)
+        sys.exit(0)
     return params, opt_state, iteration

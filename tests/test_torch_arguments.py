@@ -24,6 +24,11 @@ FLAG_ARGVS = [
     ["--apply_residual_connection_post_layernorm"],
     ["--init_method_xavier_uniform"],
     ["--no_attention_softmax_in_fp32"],
+    ["--lima_dropout", "--hidden_dropout", "0.2"],
+    ["--recompute_granularity", "selective", "--recompute_num_layers", "2"],
+    ["--recompute_activations"],
+    ["--fused_lm_cross_entropy", "--fused_ce_chunk_size", "4096"],
+    ["--no_fused_lm_cross_entropy"],
 ]
 
 
@@ -73,11 +78,29 @@ def test_each_flag_reaches_its_field():
         is False
     assert _torch_config(
         BASE + ["--attention_softmax_in_fp32"]).attention_softmax_in_fp32
+    lima = _torch_config(BASE + FLAG_ARGVS[4])
+    assert lima.lima_dropout and lima.hidden_dropout == 0.2
+    sel = _torch_config(BASE + FLAG_ARGVS[5])
+    assert (sel.recompute_granularity, sel.recompute_num_layers) == (
+        "selective", 2)
+    assert _torch_config(BASE + FLAG_ARGVS[6]).recompute_granularity \
+        == "selective"
+    fused = _torch_config(BASE + FLAG_ARGVS[7])
+    assert fused.fused_lm_cross_entropy and fused.fused_ce_chunk_size == 4096
+    # the policy leaves a 128-entry vocabulary unfused
+    assert _torch_config(BASE).fused_lm_cross_entropy is False
 
 
-# the checkpoint, evaluation, data and tokenizer flags the port's trainer
-# reads: flag -> a value other than its default (None: a store flag)
+# the checkpoint, evaluation, data, tokenizer, dropout, recompute, fused
+# cross-entropy and loop flags the port's trainer reads: flag -> a value
+# other than its default (None: a store flag)
 NEW_FLAGS = {
+    "--lima_dropout": None, "--recompute_num_layers": "4",
+    "--recompute_activations": None, "--recompute_method": "block",
+    "--fused_lm_cross_entropy": None, "--no_fused_lm_cross_entropy": None,
+    "--fused_ce_chunk_size": "1024", "--bias_dropout_fusion": None,
+    "--eval_only": None, "--log_params_norm": None,
+    "--log_num_zeros_in_grad": None, "--exit_duration_in_mins": "30",
     "--save_interval": "5", "--async_save": None, "--load_iters": "3",
     "--finetune": None, "--use_checkpoint_args": None,
     "--no_save_optim": None, "--no_load_optim": None,

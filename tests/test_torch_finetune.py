@@ -96,9 +96,8 @@ def test_flags_lower_to_configs():
 
 @pytest.mark.parametrize("extra", [
     ["--save", "ckpt", "--async_save"],
-    ["--pipeline_model_parallel_size", "2"], ["--attention_dropout", "0.1"],
+    ["--pipeline_model_parallel_size", "2"],
     ["--tensor_model_parallel_size", "2"], ["--fp16"],
-    ["--recompute_granularity", "selective"], ["--hidden_dropout", "0.1"],
 ])
 def test_flags_for_unported_features_raise(extra):
     with pytest.raises(NotImplementedError):
@@ -326,3 +325,77 @@ def test_instruction_data_trains(tmp_path, monkeypatch):
         "instruction", "--tokenizer_type", "NullTokenizer",
         "--vocab_size", "127", "--scalar_loss_mask", "0.5"], monkeypatch)
     assert it == 2 and all(np.isfinite(v) for v in losses.values())
+
+
+# ---------------------------------------------------------------------------
+# GPT pretraining with its dropouts, --eval_only, --log_params_norm
+# ---------------------------------------------------------------------------
+
+GPT_TINY = [a for a in TINY if a != "--model_name=llama2"]
+
+
+def test_gpt_preset_trains_with_the_parsers_dropouts(capsys, monkeypatch):
+    from megatron_llm_torch import pretrain_gpt
+    from megatron_llm_torch import random as mrandom
+
+    draws = []
+    real = mrandom.bernoulli
+
+    def counted(key, p, shape, device):
+        draws.append((key, p))
+        return real(key, p, shape, device)
+
+    monkeypatch.setattr(mrandom, "bernoulli", counted)
+    assert pretrain_gpt.main(GPT_TINY) == 3
+    out = capsys.readouterr().out
+    assert "> gpt:" in out
+    losses = [float(m) for m in re.findall(r"lm loss: (\S+)", out)]
+    assert len(losses) == 3 and all(4.0 < x < 6.0 for x in losses)
+    # per iteration and micro-batch: the embedding, then per layer the
+    # probs (0.9 kept) and two hidden sites
+    assert len(draws) == 3 * 2 * (1 + 3 * 2)
+    assert {p for _, p in draws} == {0.9}
+    assert len({k for k, _ in draws}) == len(draws)
+
+
+def test_eval_only_evaluates_and_trains_nothing(tmp_path, monkeypatch,
+                                                capsys):
+    prefix = _corpus(tmp_path)
+    ckpt = str(tmp_path / "ckpt")
+    flags = _data_flags(prefix, 2)
+    _, _, evals = _run(flags + ["--save", ckpt, "--save_interval", "2"],
+                       monkeypatch)
+    capsys.readouterr()
+    # the params of iteration 2 (loaded as a finetune: from iteration 0)
+    # on the first valid batch, as the run's evaluation at iteration 2
+    # read them
+    assert finetune.main(flags + ["--load", ckpt, "--finetune",
+                                  "--eval_only"]) == 0
+    out = capsys.readouterr().out
+    assert not [ln for ln in out.splitlines()
+                if ln.startswith(" iteration")]
+    got = float(re.search(r"eval_only: validation loss (\S+)", out).group(1))
+    assert got == evals[2]
+    with pytest.raises(SystemExit, match="validation data"):
+        finetune.main(TINY + ["--eval_only"])
+
+
+def test_log_params_norm_is_the_norm_of_the_params(tmp_path, capsys):
+    from megatron_llm_torch import checkpointing
+
+    ckpt = str(tmp_path / "ckpt")
+    argv = [a for a in TINY if not a.startswith("--train_iters")] + [
+        "--train_iters=1", "--log_params_norm", "--log_num_zeros_in_grad",
+        "--save", ckpt]
+    finetune.main(argv)
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith(" iteration")][0]
+    norm = float(re.search(r"params norm: (\S+)", line).group(1))
+    zeros = float(re.search(r"num zeros: (\S+)", line).group(1))
+    tree = checkpointing._read_tree(
+        os.path.join(ckpt, "iter_0000001", "model"), "cpu")
+    want = torch.stack([t.double().square().sum()
+                        for t in tree.values()]).sum().sqrt()
+    np.testing.assert_allclose(norm, float(want), rtol=1e-6)
+    # the padded vocabulary's rows of the untied head get no gradient
+    assert zeros >= 0.0

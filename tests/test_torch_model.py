@@ -136,11 +136,6 @@ def test_unported_features_raise():
         LlamaModel(llama_config("tiny", num_experts=4), device="cpu")
     jmodel, jparams, tmodel, tparams = _models("llama")
     toks = torch.zeros(1, 4, dtype=torch.long)
-    # the training loss is ported; its chunked LM-head variant is not
-    fused = LlamaModel(tmodel.cfg.replace(fused_lm_cross_entropy=True),
-                       device="cpu")
-    with pytest.raises(NotImplementedError):
-        fused(tparams, toks, labels=toks)
     # only the serving engine's paged KV cache is ported
     with pytest.raises(NotImplementedError):
         tmodel(tparams, toks, kv_caches=[{"k": None, "v": None,

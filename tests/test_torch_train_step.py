@@ -146,20 +146,10 @@ def test_eval_step_matches_the_train_losses():
 
 
 def test_unported_training_options_raise():
-    _, _, tmodel, tparams = _models("llama", True)
-    toks = torch.zeros(1, 8, dtype=torch.long)
-    for bad in (dict(hidden_dropout=0.1), dict(attention_dropout=0.1),
-                dict(recompute_granularity="selective"),
-                dict(fused_lm_cross_entropy=True)):
-        m = LlamaModel(tmodel.cfg.replace(**bad), device="cpu")
-        with pytest.raises(NotImplementedError):
-            m(tparams, toks, labels=toks, train=True)
-    long = LlamaModel(tmodel.cfg.replace(use_flash_attn=False,
-                                         seq_length=4096,
-                                         max_position_embeddings=4096),
-                      device="cpu")
-    with pytest.raises(NotImplementedError):   # chunked_causal_attention
-        long(tparams, torch.zeros(1, 4096, dtype=torch.long))
+    # dropout, recompute, the fused LM-head cross entropy and the chunked
+    # attention train since they were ported (test_torch_dropout.py,
+    # test_torch_recompute.py, test_torch_fused_ce.py,
+    # test_torch_chunked_attention.py); parallelism still raises
     with pytest.raises(NotImplementedError):
         ParallelConfig(tensor_model_parallel_size=2)
     with pytest.raises(NotImplementedError):
