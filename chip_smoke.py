@@ -136,6 +136,29 @@ grad norm within 1e-3, peaks full < selective < none, F twice a layer;
 the chunked run's loss within 1e-3 with no F or G.  Each variant's step
 time, tokens/s, MFU and peak memory are printed.
 
+Phase 10 takes real weights through the port without JAX.  It builds
+HuggingFace's ``LlamaForCausalLM`` at Llama-3.1-8B's published width
+(hidden 4096, 32 heads on 8 KV heads, ffn 14336, vocab 128256, rope theta
+5e5 with the llama3 remap, factor 8 from 8192 positions) cut to 2 of 32
+layers, initialised on the card from seed 1234 and saved as fp32
+safetensors; converts it with ``python -m
+megatron_llm_torch.weights_conversion.hf_to_megatron llama3`` (seconds and
+GB/s); verifies it with ``megatron_llm_torch.verify_correctness`` in fp32
+against the HF checkpoint on 2 batches of 2 x 512 ids (max-abs logits
+error and loss delta both within 1e-3; B and F launched once a layer and
+forward, F on its fp32 variant); serves it through the argv of
+``examples/run_text_generation_server.sh`` (``--use_checkpoint_args``,
+``--bf16``; module path, ``--model_name=llama3`` and a byte-level BPE of
+128256 ids in place of its SentencePiece model), where the server's model
+config must be the checkpoint's, 8 HTTP requests' greedy tokens are held to
+the no-cache path (``_token_check``) and A's and B's launches to the
+engine's dispatches; and exports it back with ``python -m
+megatron_llm_torch.weights_conversion.megatron_to_hf``, reloaded by
+``transformers`` with every tensor equal to the original's bit for bit.
+Falcon-7B's width (71 heads on one KV head, parallel attention, vocab
+65024) cut to 2 layers goes through the same steps but serving: D and F
+run in its verify.  Each directory is deleted as soon as its step is done.
+
 It prints, before its last line, the card's name and power limit, one
 JSON line with every kernel's numbers (``{"kernels": [...]}``), and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -827,6 +850,58 @@ def phase1_paged(gen, results):
             f"{row['mma']['ms']:.4f} ms ({row['mma']['splits']} splits); "
             f"planned {row['planned']}")
     results["paged_rows_threshold_sweep"] = sweep
+    phase1_long_tables(results)
+
+
+# (label, S, C, bs, M, ctx) of A at the block tables of Llama-3.1's 131072
+# positions (8192 pages of 16: more than one split's shared-memory page
+# list, so the plan splits the keys at least table_splits ways), GQA 32/8
+# at d 128, the shapes of phase 10's serving
+LONG_TABLE_CASES = [
+    ("Llama-3.1 decode, 131072-position tables", 8, 1, 16, 8192,
+     [0, 100, 1000, 5000, 20000, 65536, 100000, 131070]),
+    ("Llama-3.1 prefill, 131072-position tables", 2, 64, 16, 8192,
+     [1000, 131000]),
+]
+
+
+def phase1_long_tables(results):
+    """A over the long block tables of phase 10's serving, against the
+    plain version, twice with equal bits, on inputs from its own
+    generator (the earlier cases keep theirs)."""
+    import torch
+
+    from megatron_llm_torch.ops.kernels import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    nh, g, d = 32, 8, 128
+    errs = {}
+    for label, S, C, bs, M, ctx in LONG_TABLE_CASES:
+        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q, kp, vp, bt, cl = _paged_case(gen, S, C, nh, g, d, bs, M, ctx,
+                                            dt)
+            variant, _, _, splits = _paged_plan(pa, q, kp, bt, False)
+            out, ref = _run_paged(pa, q, kp, vp, bt, cl, (None, None), None)
+            again, _ = _run_paged(pa, q, kp, vp, bt, cl, (None, None), None,
+                                  with_ref=False)
+            torch.cuda.synchronize()
+            e, _ = _paged_errors(out, ref)
+            what = (f"paged attention {label} {tag} ({variant}, {splits} "
+                    f"splits)")
+            log(f"  {what}: max_abs_err {e:.3g}; bitwise equal on a second "
+                f"run")
+            keys = pa.tile_shape(variant, dt, C * nh // g, d, False)[1]
+            check(splits >= pa.table_splits(M, bs, keys) > 1,
+                  f"{what}: fewer splits than the page list needs")
+            check(torch.equal(out, again), f"{what}: a second run gave "
+                                           f"other bits")
+            check(math.isfinite(e) and e <= TOL[tag],
+                  f"{what}: {e} > {TOL[tag]}")
+            errs[f"{label} {tag}"] = dict(err=e, variant=variant,
+                                          splits=splits)
+            del q, kp, vp, bt, cl, out, ref, again
+            torch.cuda.empty_cache()
+    results["paged_long_tables"] = errs
 
 
 # ---------------------------------------------------------------------------
@@ -3808,6 +3883,343 @@ def llama3_phase(results, kernels, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: HF weights in, verified, served and out
+# ---------------------------------------------------------------------------
+
+# the two HF models of phase 10, at their published widths cut to 2 of 32
+# layers: Llama-3.1-8B (GQA 32/8, theta 5e5, the llama3 rope remap) and
+# Falcon-7B (71 query heads on one KV head, parallel attention)
+WEIGHTS = {
+    "llama3": dict(
+        label="Llama-3.1-8B", hf_model="LlamaForCausalLM",
+        hf_config="LlamaConfig", norm=("rmsnorm", "B"), head_dim=128,
+        config=dict(vocab_size=128256, hidden_size=4096,
+                    intermediate_size=14336, num_hidden_layers=2,
+                    num_attention_heads=32, num_key_value_heads=8,
+                    max_position_embeddings=131072, rms_norm_eps=1e-5,
+                    tie_word_embeddings=False),
+        rope=(500000.0, {"rope_type": "llama3", "factor": 8.0,
+                         "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                         "original_max_position_embeddings": 8192})),
+    "falcon": dict(
+        label="Falcon-7B", hf_model="FalconForCausalLM",
+        hf_config="FalconConfig", norm=("layernorm", "D"), head_dim=64,
+        config=dict(vocab_size=65024, hidden_size=4544, num_hidden_layers=2,
+                    num_attention_heads=71, multi_query=True,
+                    new_decoder_architecture=False, parallel_attn=True,
+                    bias=False, alibi=False, max_position_embeddings=2048,
+                    layer_norm_epsilon=1e-5, tie_word_embeddings=True),
+        rope=None),
+}
+# verify_correctness's batches: examples/verify.sh's 2 x 512 ids, 2 of them
+VERIFY_ITERS, VERIFY_BATCH, VERIFY_SEQ, VERIFY_ATOL = 2, 2, 512, 1e-3
+
+
+def _example_argv(script, *script_args, work):
+    """The argv an ``examples/*.sh`` script passes to python: the script
+    runs with a ``python`` on PATH that prints its arguments as JSON."""
+    fake = os.path.join(work, "fake_bin")
+    os.makedirs(fake, exist_ok=True)
+    with open(os.path.join(fake, "python"), "w") as f:
+        f.write("#!/bin/sh\nexec \"$FAKE_PY\" -c 'import json, sys; "
+                "print(json.dumps(sys.argv[1:]))' \"$@\"\n")
+    os.chmod(os.path.join(fake, "python"), 0o755)
+    res = subprocess.run(
+        ["bash", os.path.join(REPO, "examples", script), *script_args],
+        cwd=REPO, capture_output=True, text=True, timeout=60,
+        env=dict(os.environ, PATH=f"{fake}:{os.environ['PATH']}",
+                 FAKE_PY=sys.executable))
+    check(res.returncode == 0, f"{script}: {res.stderr[-500:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _run_module(module, argv, label, timeout=900):
+    """``python -m module argv`` from the checkout; returns (seconds,
+    output lines)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", module, *argv], cwd=REPO,
+                         capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    lines = (res.stdout + res.stderr).splitlines()
+    for line in lines[-12:]:
+        log(f"  | {line}")
+    check(res.returncode == 0, f"{label} exited {res.returncode}")
+    return secs, lines
+
+
+def _gb(nbytes):
+    return f"{nbytes / 1e9:.3f} GB"
+
+
+def weights_phase(results, kernels, card):
+    """Phase 10 (see the module's docstring): in a directory under build/
+    that it deletes at the end."""
+    import shutil
+
+    import torch
+
+    work = os.path.join(REPO, "build", "chip_smoke_weights")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        try:
+            import transformers
+        except ImportError as exc:
+            raise CheckFailed(f"phase 10 needs transformers: {exc}")
+        log(f"  transformers {transformers.__version__}")
+        for family in ("llama3", "falcon"):
+            results[family] = out = {}
+            _weights_family(out, kernels, card, work, family)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _weights_family(out, kernels, card, work, family):
+    import shutil
+
+    import torch
+    import transformers
+
+    from megatron_llm_torch import checkpointing, verify_correctness
+    from megatron_llm_torch.weights_conversion.hf_to_megatron import (
+        rope_settings)
+    from megatron_llm_torch.weights_conversion.megatron_to_hf import (
+        rope_kwargs)
+
+    spec = WEIGHTS[family]
+    label = spec["label"]
+    phase = f"weights {label}"
+    L = spec["config"]["num_hidden_layers"]
+    hf_dir = os.path.join(work, f"{family}_hf")
+    ck = os.path.join(work, f"{family}_ckpt")
+    exp = os.path.join(work, f"{family}_export")
+
+    # (1) the HF model at its published width, initialised on the card
+    # from seed 1234, saved as fp32 safetensors
+    config_cls = getattr(transformers, spec["hf_config"])
+    kw = dict(spec["config"])
+    if spec["rope"]:
+        kw.update(rope_kwargs(config_cls, *spec["rope"]))
+    hf_cfg = config_cls(**kw)
+    if spec["rope"]:
+        got = rope_settings(hf_cfg)
+        log(f"  {spec['hf_config']} keeps the rope settings as "
+            + ("rope_parameters" if getattr(hf_cfg, "rope_parameters", None)
+               else "rope_theta / rope_scaling") + f": read back {got}")
+        theta, scaling = spec["rope"]
+        check(got[0] == theta and got[1] is not None
+              and all(got[1].get(k) == v for k, v in scaling.items()),
+              f"the HF config's rope settings read back as {got}")
+    torch.manual_seed(1234)
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        hf = getattr(transformers, spec["hf_model"])(hf_cfg).eval()
+    n_params = sum(p.numel() for p in hf.parameters())
+    hf.save_pretrained(hf_dir, safe_serialization=True)
+    hf_bytes = _dir_bytes(hf_dir)
+    log(f"  (1) {label} width, {L} layers: {n_params / 1e9:.3f} B params "
+        f"built on the card and saved in {time.perf_counter() - t0:.1f} s; "
+        f"{hf_dir}: {_gb(hf_bytes)} on disk")
+
+    # (2) the converter, as a user runs it
+    secs, lines = _run_module(
+        "megatron_llm_torch.weights_conversion.hf_to_megatron",
+        [family, "--model_path", hf_dir, "--out", ck, "--dtype", "fp32"],
+        "hf_to_megatron")
+    ck_bytes = _dir_bytes(ck)
+    (saved, save_s), = _io_lines(lines, "saved")
+    log(f"  (2) converted in {secs:.1f} s of wall time ({card}'s host): "
+        f"{_gb(ck_bytes)} on disk, {hf_bytes / secs / 1e9:.3f} GB/s of HF "
+        f"weights end to end; the checkpoint write {_gb(saved)} in "
+        f"{save_s:.2f} s ({saved / save_s / 1e9:.2f} GB/s)")
+    recorded = checkpointing.load_checkpoint_args(ck)
+    check(recorded.get("model_name") == family,
+          f"the checkpoint records model_name {recorded.get('model_name')}")
+
+    # (3) verify_correctness against the HF checkpoint, fp32 on the card
+    argv = [f"--model_name={family}", "--load", ck, "--huggingface_path",
+            hf_dir, "--iters", str(VERIFY_ITERS), "--batch",
+            str(VERIFY_BATCH), "--seq_length", str(VERIFY_SEQ), "--atol",
+            str(VERIFY_ATOL)]
+    norm_row, norm_key = spec["norm"]
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = verify_correctness.run(argv)
+    vsecs = time.perf_counter() - t0
+    counts = _counts()
+    per_fwd = 2 * L + 1 if norm_key == "B" else L + 1
+    want = {k: 0 for k in counts}
+    want[norm_key] = VERIFY_ITERS * per_fwd
+    want["F"] = VERIFY_ITERS * L
+    log(f"  (3) verify_correctness ({card}, fp32, TF32 off, {VERIFY_ITERS} "
+        f"batches of {VERIFY_BATCH} x {VERIFY_SEQ}): max-abs logits error "
+        f"{res['max_abs_err']:.3e} (mean of the batches' "
+        f"{res['mean_max_abs_err']:.3e}), loss delta "
+        f"{res['max_loss_delta']:.3e}, tolerance {VERIFY_ATOL}; "
+        f"{vsecs:.1f} s; launches {counts}")
+    check(res["ok"] and res["max_abs_err"] <= VERIFY_ATOL
+          and res["max_loss_delta"] <= VERIFY_ATOL,
+          f"verify_correctness: {res}")
+    check(counts == want, f"verify launches {counts} != {want}")
+    _check_variants(counts, torch.float32, spec["head_dim"], "verify")
+    _add_launches(kernels, norm_row, phase + ", verify", counts[norm_key])
+    _add_launches(kernels, "flash_fwd", phase + ", verify", counts["F"])
+    shutil.rmtree(hf_dir)
+    out.update(params=n_params, hf_bytes=hf_bytes, checkpoint_bytes=ck_bytes,
+               convert_secs=secs, convert_gb_per_s=hf_bytes / secs / 1e9,
+               checkpoint_write=dict(bytes=saved, secs=save_s),
+               verify=dict(res, secs=vsecs, launches=counts))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) served through the example's argv (Llama-3 only)
+    if family == "llama3":
+        _serve_converted(out, kernels, card, work, ck, recorded, phase)
+
+    # (5) back to HF, reloaded by transformers: every tensor the original's
+    secs, _ = _run_module(
+        "megatron_llm_torch.weights_conversion.megatron_to_hf",
+        ["--input_dir", ck, "--output_dir", exp], "megatron_to_hf")
+    exp_bytes = _dir_bytes(exp)
+    shutil.rmtree(ck)
+    back = getattr(transformers, spec["hf_model"]).from_pretrained(
+        exp, dtype=torch.float32)
+    orig = hf.state_dict()
+    got = back.state_dict()
+    same = [k for k in orig if k in got
+            and torch.equal(got[k], orig[k].cpu())]
+    log(f"  (5) megatron_to_hf in {secs:.1f} s ({_gb(exp_bytes)} on disk); "
+        f"reloaded by transformers: {len(same)} of {len(orig)} tensors "
+        f"equal the original's bit for bit")
+    check(len(same) == len(orig) and sorted(got) == sorted(orig),
+          f"exported tensors differ: "
+          f"{sorted(set(orig) - set(same))[:6]}, keys "
+          f"{sorted(set(got) ^ set(orig))[:6]}")
+    shutil.rmtree(exp)
+    out.update(export=dict(secs=secs, bytes=exp_bytes,
+                           tensors_equal=len(same)))
+    del hf, back, orig, got
+
+
+def _serve_converted(out, kernels, card, work, ck, recorded, phase):
+    """Step (4): the converted Llama-3 served through
+    examples/run_text_generation_server.sh's argv with the module path,
+    --model_name=llama3 and a byte-level BPE of 128256 ids for its
+    SentencePiece model; the HTTP server binds an ephemeral port (the
+    argv's --port 5000 is parsed)."""
+    import contextlib
+    import io
+
+    from megatron_llm_torch.run_text_generation_server import (
+        build_parser, build_server)
+    from megatron_llm_torch.tokenizer import build_tokenizer
+    from megatron_llm_torch.tokenizer.bpe import write_byte_bpe_vocab
+
+    vf, mf = write_byte_bpe_vocab(work, recorded["padded_vocab_size"])
+    script = _example_argv("run_text_generation_server.sh", ck, vf,
+                           work=work)
+    check(script[0] == "tools/run_text_generation_server.py",
+          f"the example runs {script[0]}")
+    argv = [{"--model_name=llama2": "--model_name=llama3",
+             "SentencePieceTokenizer": "GPT2BPETokenizer"}.get(a, a)
+            for a in script[1:]] + ["--merge_file", mf]
+    log(f"  (4) python -m megatron_llm_torch.run_text_generation_server "
+        f"{' '.join(argv)}")
+    args = build_parser().parse_args(argv)
+    tok = build_tokenizer(args)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        server = build_server(args, tok)
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    engine = server.engine
+    cfg = engine.model.cfg
+    built = time.perf_counter() - t0
+    # the server's model config is the checkpoint's
+    differ = {}
+    for key, value in recorded.items():
+        if key in ("model_name", "hidden_dropout", "attention_dropout"):
+            continue
+        have = getattr(cfg, key)
+        have = getattr(have, "value", have)
+        if isinstance(have, tuple):
+            have = list(have)
+        if have != value:
+            differ[key] = (have, value)
+    check(not differ, f"server config differs from the checkpoint's: "
+                      f"{differ}")
+    check(cfg.params_dtype == "bf16", f"served in {cfg.params_dtype}")
+    httpd = server.make_httpd("127.0.0.1", 0)
+    port = httpd.server_address[1]
+    srv = threading.Thread(target=server.run, daemon=True)
+    srv.start()
+    new_tokens = 32
+    try:
+        texts = text_prompts(8, 1234)
+        prompts = [tok.tokenize(t) for t in texts]
+        s0 = engine.stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        outs, _ = _serve_text_wave(port, texts, new_tokens)
+        wave = time.perf_counter() - t0
+        launches = _serving_counts()
+        s1 = engine.stats()
+        for p, o in zip(prompts, outs):
+            check(o[:len(p)] == p and len(o) == len(p) + new_tokens,
+                  f"a request returned {len(o)} tokens for a "
+                  f"{len(p)}-token prompt")
+        L = cfg.num_layers
+        dec = s1["decode_steps"] - s0["decode_steps"]
+        pre = s1["prefill_chunks"] - s0["prefill_chunks"]
+        want = {k: 0 for k in launches}
+        want["B"] = (2 * L + 1) * (dec + pre)
+        want["A decode"], want["A prefill"] = L * dec, L * pre
+        log(f"  served {len(texts)} requests of {[len(p) for p in prompts]}"
+            f" prompt tokens + {new_tokens} in {wave:.1f} s ({card}; server"
+            f" built in {built:.1f} s): {dec} decode steps, {pre} prefill "
+            f"chunks; launches {launches}; the server's config is the "
+            f"checkpoint's ({len(recorded) - 3} fields)")
+        check(launches == want, f"serving launches {launches} != {want}")
+        _add_launches(kernels, "rmsnorm", phase + ", serving", launches["B"])
+        _add_launches(kernels, "paged_decode", phase + ", serving",
+                      launches["A decode"])
+        _add_launches(kernels, "paged_prefill", phase + ", serving",
+                      launches["A prefill"])
+        checked = agreed = positions = 0
+        for i in (1, 6):
+            n_sure, n_agree, n, spread = _token_check(
+                engine.model, engine.params, outs[i], len(prompts[i]),
+                False, MARGIN_BOUND)
+            log(f"  bf16 no-cache check, prompt {len(prompts[i])}: "
+                f"{n_agree}/{n_sure} served tokens agree where the top-2 "
+                f"margin > {MARGIN_BOUND} ({n} positions); logits, paged "
+                f"vs no-cache: "
+                + ", ".join(f"{k} {v:.4g}" for k, v in spread.items()))
+            checked, agreed, positions = (checked + n_sure,
+                                          agreed + n_agree, positions + n)
+        check(checked >= MIN_CHECKED_FRACTION * positions,
+              f"only {checked}/{positions} positions above the margin "
+              f"bound")
+        check(agreed == checked,
+              f"no-cache forward disagrees at {checked - agreed} positions")
+        out["served"] = dict(
+            argv=argv, prompt_tokens=[len(p) for p in prompts],
+            new_tokens=new_tokens, wave_secs=wave, launches=launches,
+            decode_steps=dec, prefill_chunks=pre,
+            token_check=dict(checked=checked, agreed=agreed,
+                             positions=positions))
+    finally:
+        server.shutdown()
+        engine.stop()
+        srv.join(30)
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     import argparse
@@ -3942,6 +4354,13 @@ def main(argv=None) -> int:
     llama3_phase(llama3, kernels, card)
     log(f"phase 9 passed in {time.perf_counter() - t0:.1f} s")
     log(f"training Llama-3-8B ({card}): " + json.dumps(llama3))
+    t0 = time.perf_counter()
+    log("phase 10: HF weights in, verified, served and out: Llama-3.1-8B "
+        "and Falcon-7B widths, 2 layers, through the port's converters")
+    weights = {}
+    weights_phase(weights, kernels, card)
+    log(f"phase 10 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"weights ({card}): " + json.dumps(weights))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     names = ("paged_decode", "paged_prefill", "paged_decode_int8",
@@ -3960,7 +4379,7 @@ def main(argv=None) -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke_result.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "serving": serving,
                    "training": training, "corpus": corpus, "gpt2": gpt2,
-                   "llama3": llama3}, f, indent=1)
+                   "llama3": llama3, "weights": weights}, f, indent=1)
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,40 +1,96 @@
-"""Command-line flags of the port's trainer: the subset of
-``megatron_llm_tpu/arguments.py`` that the single-device training slice
-honours, under the same names and defaults, and the derivations of its
-``validate_args`` that they need.
+"""Command-line flags of the port's entry points: the JAX package's parser
+(``megatron_llm_tpu/arguments.py``) group by group, under the same names,
+dests and defaults, and the derivations of its ``validate_args`` that one
+device needs.
 
-The checkpoint, evaluation, data, tokenizer, dropout, recompute and fused
-cross-entropy flags have the JAX parser's names and defaults, and
-``apply_fused_ce_policy`` is the JAX package's (re-fired by
-``build_tokenizer`` once the padded vocabulary is known).  Flags of
-features outside the port that a user may well pass (parallel sizes,
-``--fp16``, ``--async_save``) are accepted so that asking for one raises
-``NotImplementedError`` in ``finetune.py`` or the config;
-``--bias_dropout_fusion`` is accepted and ignored, as the JAX parser
-accepts it.  The rest of the JAX package's flags are not defined here,
-and argparse refuses them.  ``--device`` picks the torch device
-(``cuda`` unless the caller asks for ``cpu``).
+Every flag of the JAX parser parses here but the few in
+``JAX_FLAGS_NOT_HERE``, each with its reason.  The flags divide three
+ways:
+
+* flags the port honours (the model, training, checkpoint, data,
+  tokenizer and serving flags);
+* flags that are implementation details of the reference's CUDA build
+  (``_add_compat_noop_args``), accepted and ignored as in the JAX
+  package, and reference features the JAX package does not implement
+  (``_add_unimplemented_compat_args``), accepted with a warning when one
+  is set away from its default (``warn_unimplemented``);
+* flags of features the port has not ported yet (parallel degrees, MoE,
+  the metrics writers, resilience, the training-side telemetry, ...):
+  they parse, and asking for one raises ``NotImplementedError`` where the
+  feature is refused: the parallel sizes in ``ParallelConfig``,
+  ``--num_experts`` in the model, the rest through ``refuse_unported``
+  with the entry point's table (``UNPORTED_TRAINING``,
+  ``UNPORTED_SERVING``).
+
+``--device`` picks the torch device (``cuda`` unless the caller asks for
+``cpu``).
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Callable, Optional, Sequence
+from typing import Callable, Mapping, Optional, Sequence
+
+# dests of the JAX parser that the port's does not define, and why
+JAX_FLAGS_NOT_HERE = {
+    "serve_paged_kernel": "the port has no kernel on/off switch: the paged "
+                          "path is keyed on the tensor's device alone",
+    "serve_prefill_kernel": "as serve_paged_kernel",
+    "serve_alerts": "the SLO sentinel is not ported (ROADMAP item 10), and "
+                    "the JAX default (1, on) would make every launch ask "
+                    "for it",
+}
 
 
 def build_parser(extra_args_provider: Optional[Callable] = None
                  ) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Megatron-LLM training in PyTorch on one GPU",
-        allow_abbrev=False)
-    g = p.add_argument_group("network size")
+        description="Megatron-LLM in PyTorch on one GPU", allow_abbrev=False)
+    _add_network_size_args(p)
+    _add_regularization_args(p)
+    _add_training_args(p)
+    _add_initialization_args(p)
+    _add_learning_rate_args(p)
+    _add_checkpointing_args(p)
+    _add_mixed_precision_args(p)
+    _add_distributed_args(p)
+    _add_validation_args(p)
+    _add_data_args(p)
+    _add_logging_args(p)
+    _add_telemetry_args(p)
+    _add_inference_args(p)
+    _add_resilience_args(p)
+    _add_compat_noop_args(p)
+    _add_unimplemented_compat_args(p)
+    if extra_args_provider is not None:
+        p = extra_args_provider(p)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# groups
+# ---------------------------------------------------------------------------
+
+def _add_network_size_args(parser):
+    g = parser.add_argument_group("network size")
     g.add_argument("--num_layers", type=int, default=None)
+    # encoder/decoder spellings (num_layers/seq_length fall back to them)
+    g.add_argument("--encoder_num_layers", type=int, default=None)
+    g.add_argument("--encoder_seq_length", type=int, default=None)
     g.add_argument("--hidden_size", type=int, default=None)
     g.add_argument("--ffn_hidden_size", type=int, default=None)
     g.add_argument("--num_attention_heads", type=int, default=None)
     g.add_argument("--num_attention_heads_kv", type=int, default=None)
     g.add_argument("--kv_channels", type=int, default=None)
+    # mixture of experts: not ported (the model refuses num_experts > 1)
+    g.add_argument("--num_experts", type=int, default=0)
+    g.add_argument("--moe_top_k", type=int, default=2)
+    g.add_argument("--moe_capacity_factor", type=float, default=1.25)
+    g.add_argument("--moe_min_capacity", type=int, default=4)
+    g.add_argument("--moe_aux_loss_coeff", type=float, default=1e-2)
+    g.add_argument("--moe_z_loss_coeff", type=float, default=0.0)
     g.add_argument("--seq_length", type=int, default=None)
+    g.add_argument("--decoder_seq_length", type=int, default=None)
     g.add_argument("--max_position_embeddings", type=int, default=None)
     g.add_argument("--make_vocab_size_divisible_by", type=int, default=128)
     g.add_argument("--padded_vocab_size", type=int, default=None)
@@ -58,6 +114,7 @@ def build_parser(extra_args_provider: Optional[Callable] = None
     g.add_argument("--use_bias", action="store_true", dest="use_bias")
     g.add_argument("--apply_residual_connection_post_layernorm",
                    action="store_true", dest="use_post_ln")
+    g.add_argument("--init_method_xavier_uniform", action="store_true")
     g.add_argument("--parallel_attn", action="store_true")
     g.add_argument("--parallel_layernorm", action="store_true")
     g.add_argument("--sliding_window_size", type=int, default=None)
@@ -75,7 +132,9 @@ def build_parser(extra_args_provider: Optional[Callable] = None
     g.add_argument("--no_tie_embed_logits", action="store_false",
                    dest="tie_embed_logits")
 
-    g = p.add_argument_group("regularization")
+
+def _add_regularization_args(parser):
+    g = parser.add_argument_group("regularization")
     g.add_argument("--attention_dropout", type=float, default=0.1)
     g.add_argument("--hidden_dropout", type=float, default=0.1)
     g.add_argument("--lima_dropout", action="store_true")
@@ -92,13 +151,19 @@ def build_parser(extra_args_provider: Optional[Callable] = None
     g.add_argument("--optimizer_state_dtype", default="fp32",
                    choices=["fp32", "bf16"])
 
-    g = p.add_argument_group("training")
+
+def _add_training_args(parser):
+    g = parser.add_argument_group("training")
     g.add_argument("--micro_batch_size", type=int, default=1)
     g.add_argument("--global_batch_size", type=int, default=None)
+    g.add_argument("--rampup_batch_size", nargs=3, type=int, default=None)
     g.add_argument("--train_iters", type=int, default=None)
     g.add_argument("--exit_interval", type=int, default=None)
     g.add_argument("--exit_duration_in_mins", type=int, default=None)
+    g.add_argument("--exit_signal_handler", action="store_true")
     g.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
+    g.add_argument("--dataloader_type", default="single",
+                   choices=["single", "cyclic"])
     g.add_argument("--recompute_granularity", default=None,
                    choices=[None, "full", "uniform", "block", "selective"])
     g.add_argument("--recompute_num_layers", type=int, default=1)
@@ -109,8 +174,6 @@ def build_parser(extra_args_provider: Optional[Callable] = None
                    choices=[None, "uniform", "block"])
     g.add_argument("--eval_only", action="store_true")
     g.add_argument("--skip_iters", type=int, nargs="*", default=[])
-    g.add_argument("--dataloader_type", default="single",
-                   choices=["single", "cyclic"])
     g.add_argument("--use_flash_attn", action="store_true", default=True)
     g.add_argument("--no_flash_attn", action="store_false",
                    dest="use_flash_attn")
@@ -121,12 +184,16 @@ def build_parser(extra_args_provider: Optional[Callable] = None
                    const=False, dest="fused_lm_cross_entropy")
     g.add_argument("--fused_ce_chunk_size", type=int, default=8192)
 
-    g = p.add_argument_group("initialization")
-    g.add_argument("--seed", type=int, default=1234)
-    g.add_argument("--init_method_std", type=float, default=0.02)
-    g.add_argument("--init_method_xavier_uniform", action="store_true")
 
-    g = p.add_argument_group("learning rate")
+def _add_initialization_args(parser):
+    g = parser.add_argument_group("initialization")
+    g.add_argument("--seed", type=int, default=1234)
+    g.add_argument("--data_parallel_random_init", action="store_true")
+    g.add_argument("--init_method_std", type=float, default=0.02)
+
+
+def _add_learning_rate_args(parser):
+    g = parser.add_argument_group("learning rate")
     g.add_argument("--lr", type=float, default=None)
     g.add_argument("--lr_decay_style", default="linear",
                    choices=["constant", "linear", "cosine",
@@ -136,15 +203,9 @@ def build_parser(extra_args_provider: Optional[Callable] = None
     g.add_argument("--lr_warmup_iters", type=int, default=0)
     g.add_argument("--min_lr", type=float, default=0.0)
 
-    g = p.add_argument_group("mixed precision")
-    g.add_argument("--fp16", action="store_true")
-    g.add_argument("--bf16", action="store_true")
-    g.add_argument("--attention_softmax_in_fp32", action="store_true",
-                   default=True)
-    g.add_argument("--no_attention_softmax_in_fp32", action="store_false",
-                   dest="attention_softmax_in_fp32")
 
-    g = p.add_argument_group("checkpointing")
+def _add_checkpointing_args(parser):
+    g = parser.add_argument_group("checkpointing")
     g.add_argument("--save", type=str, default=None)
     g.add_argument("--save_interval", type=int, default=None)
     g.add_argument("--async_save", action="store_true",
@@ -155,17 +216,55 @@ def build_parser(extra_args_provider: Optional[Callable] = None
                    help="load this iteration instead of the tracker's latest")
     g.add_argument("--finetune", action="store_true")
     g.add_argument("--use_checkpoint_args", action="store_true")
+    # implemented here (the JAX package accepts them with a warning)
     g.add_argument("--no_save_optim", action="store_true")
     g.add_argument("--no_load_optim", action="store_true")
-    g.add_argument("--save_total_limit", type=int, default=0,
-                   help="keep only the newest N iter_* checkpoints "
-                        "(0 = keep all)")
 
-    g = p.add_argument_group("validation")
+
+def _add_mixed_precision_args(parser):
+    g = parser.add_argument_group("mixed precision")
+    g.add_argument("--fp16", action="store_true")
+    g.add_argument("--bf16", action="store_true")
+    g.add_argument("--loss_scale", type=float, default=None)
+    g.add_argument("--initial_loss_scale", type=float, default=2.0 ** 32)
+    g.add_argument("--min_loss_scale", type=float, default=1.0)
+    g.add_argument("--loss_scale_window", type=int, default=1000)
+    g.add_argument("--hysteresis", type=int, default=2)
+    g.add_argument("--attention_softmax_in_fp32", action="store_true",
+                   default=True)
+    g.add_argument("--no_attention_softmax_in_fp32", action="store_false",
+                   dest="attention_softmax_in_fp32")
+
+
+def _add_distributed_args(parser):
+    # the port runs on one device: any size above 1 raises in
+    # ParallelConfig; --sequence_parallel is off at tp 1 (validate_args)
+    g = parser.add_argument_group("distributed")
+    g.add_argument("--tensor_model_parallel_size", type=int, default=1)
+    g.add_argument("--pipeline_model_parallel_size", type=int, default=1)
+    g.add_argument("--num_layers_per_virtual_pipeline_stage", type=int,
+                   default=None)
+    g.add_argument("--sequence_parallel", action="store_true")
+    g.add_argument("--context_parallel_size", type=int, default=1)
+    g.add_argument("--context_parallel_algo", default="ring",
+                   choices=["ring", "ulysses", "zigzag"])
+    g.add_argument("--use_distributed_optimizer", action="store_true")
+    g.add_argument("--expert_model_parallel_size", type=int, default=1)
+    g.add_argument("--num_slices", type=int, default=1)
+    g.add_argument("--multislice_flat_reduce", action="store_true")
+    g.add_argument("--preempt_exit_code", type=int, default=None)
+    g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="torch device to run on ('cpu' for tests)")
+
+
+def _add_validation_args(parser):
+    g = parser.add_argument_group("validation")
     g.add_argument("--eval_iters", type=int, default=100)
     g.add_argument("--eval_interval", type=int, default=1000)
 
-    g = p.add_argument_group("data")
+
+def _add_data_args(parser):
+    g = parser.add_argument_group("data")
     g.add_argument("--data_path", nargs="*", default=None)
     g.add_argument("--split", type=str, default="969,30,1")
     g.add_argument("--data_impl", default="mmap")
@@ -186,26 +285,319 @@ def build_parser(extra_args_provider: Optional[Callable] = None
     g.add_argument("--data_type", default="gpt",
                    choices=["gpt", "instruction"])
 
-    g = p.add_argument_group("parallelism")
-    g.add_argument("--tensor_model_parallel_size", type=int, default=1)
-    g.add_argument("--pipeline_model_parallel_size", type=int, default=1)
-    g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="torch device to train on ('cpu' for tests)")
 
-    g = p.add_argument_group("logging")
+def _add_logging_args(parser):
+    g = parser.add_argument_group("logging")
     g.add_argument("--log_interval", type=int, default=100)
+    g.add_argument("--log_timers_to_tensorboard", action="store_true")
+    g.add_argument("--timing_log_level", type=int, default=2,
+                   choices=[0, 1, 2])
+    g.add_argument("--timing_log_option", default="minmax",
+                   choices=["max", "minmax", "all"])
     g.add_argument("--log_params_norm", action="store_true")
     g.add_argument("--log_num_zeros_in_grad", action="store_true")
+    g.add_argument("--log_layer_stats_interval", type=int, default=0)
+    g.add_argument("--log_batch_size_to_tensorboard", action="store_true")
+    g.add_argument("--log_memory_to_tensorboard", action="store_true")
+    g.add_argument("--log_world_size_to_tensorboard", action="store_true")
+    g.add_argument("--log_validation_ppl_to_tensorboard",
+                   action="store_true")
+    g.add_argument("--tensorboard_log_interval", type=int, default=1)
+    g.add_argument("--wandb_resume", action="store_true")
+    g.add_argument("--tensorboard_dir", type=str, default=None)
+    g.add_argument("--wandb_logger", action="store_true")
+    g.add_argument("--wandb_project", type=str, default=None)
+    g.add_argument("--wandb_entity", type=str, default=None)
+    g.add_argument("--wandb_name", type=str, default=None)
+    g.add_argument("--wandb_id", type=str, default=None)
+    g.add_argument("--wandb_api_key", type=str, default=None)
 
-    g = p.add_argument_group("compat (ignored)")
+
+def _add_telemetry_args(parser):
+    g = parser.add_argument_group("telemetry")
+    g.add_argument("--structured_log_dir", type=str, default=None,
+                   help="the server's JSONL stream (request_done records)")
+    g.add_argument("--flight_recorder_size", type=int, default=64)
+    g.add_argument("--status_port", type=int, default=None)
+    g.add_argument("--profile", action="store_true")
+    g.add_argument("--profile_step_start", type=int, default=10)
+    g.add_argument("--profile_step_end", type=int, default=12)
+    g.add_argument("--profile_dir", type=str, default=None)
+    g.add_argument("--profiler_port", type=int, default=None)
+    g.add_argument("--trace_dir", type=str, default=None,
+                   help="the server's span trace (Chrome trace_event JSON)")
+    g.add_argument("--trace_buffer_size", type=int, default=100000)
+    g.add_argument("--straggler_threshold", type=float, default=1.5)
+
+
+def _add_inference_args(parser):
+    g = parser.add_argument_group("inference")
+    g.add_argument("--serve_max_prompts", type=int, default=128)
+    g.add_argument("--serve_max_tokens", type=int, default=1024)
+    g.add_argument("--log_requests", action="store_true")
+    g.add_argument("--serve_engine", action="store_true",
+                   help="accepted and ignored: the port always serves "
+                        "through the continuous-batching engine")
+    g.add_argument("--serve_num_slots", type=int, default=8)
+    g.add_argument("--serve_block_size", type=int, default=16)
+    g.add_argument("--serve_num_blocks", type=int, default=0)
+    g.add_argument("--serve_prefill_chunk", type=int, default=64)
+    g.add_argument("--serve_max_queue_depth", type=int, default=64)
+    g.add_argument("--serve_deadline_secs", type=float, default=120.0)
+    g.add_argument("--serve_max_model_len", type=int, default=0)
+    # later slices: the engine raises NotImplementedError when one is on
+    g.add_argument("--serve_speculative", type=int, default=0)
+    g.add_argument("--serve_draft_k", type=int, default=4)
+    g.add_argument("--serve_prefix_cache", type=int, default=1)
+    g.add_argument("--serve_host_cache_bytes", type=int, default=0)
+    g.add_argument("--serve_watchdog_secs", type=float, default=0.0)
+    g.add_argument("--serve_preemption", type=int, default=1)
+    g.add_argument("--serve_restart_backoff_secs", type=float, default=0.5)
+    g.add_argument("--serve_fault_inject", type=str, default="")
+    g.add_argument("--alert_rules", type=str, default=None)
+    g.add_argument("--alert_webhook", type=str, default=None)
+
+
+def _add_resilience_args(parser):
+    g = parser.add_argument_group("resilience")
+    g.add_argument("--rewind_on_spike", action="store_true")
+    g.add_argument("--spike_factor", type=float, default=3.0)
+    g.add_argument("--spike_ema_beta", type=float, default=0.98)
+    g.add_argument("--rewind_patience", type=int, default=1)
+    g.add_argument("--snapshot_interval", type=int, default=50)
+    g.add_argument("--resilience_check_interval", type=int, default=0)
+    g.add_argument("--rewind_lr_factor", type=float, default=1.0)
+    g.add_argument("--max_rewinds", type=int, default=8)
+    g.add_argument("--watchdog_timeout_secs", type=float, default=None)
+    g.add_argument("--watchdog_no_hard_exit", action="store_true")
+    g.add_argument("--save_total_limit", type=int, default=0,
+                   help="keep only the newest N iter_* checkpoints "
+                        "(0 = keep all)")
+    g.add_argument("--save_retries", type=int, default=2,
+                   help="retry a failed checkpoint save this many times "
+                        "(exponential backoff)")
+    g.add_argument("--save_retry_backoff", type=float, default=0.25,
+                   help="initial save-retry backoff in seconds (doubles "
+                        "per attempt)")
+    g.add_argument("--fault_inject", type=str, default=None)
+
+
+def _add_compat_noop_args(parser):
+    """Reference flags that are implementation details of its CUDA build
+    (fusions, DDP, fp8, ...): accepted and ignored, as the JAX package
+    does, so that reference launch scripts run unchanged."""
+    g = parser.add_argument_group("compat (ignored)")
+    g.add_argument("--masked_softmax_fusion", action="store_true")
+    g.add_argument("--no_masked_softmax_fusion", action="store_false",
+                   dest="masked_softmax_fusion")
+    g.add_argument("--bias_gelu_fusion", action="store_true")
+    g.add_argument("--no_bias_gelu_fusion", action="store_false",
+                   dest="bias_gelu_fusion")
     g.add_argument("--bias_dropout_fusion", action="store_true")
     g.add_argument("--no_bias_dropout_fusion", action="store_false",
                    dest="bias_dropout_fusion")
+    g.add_argument("--gradient_accumulation_fusion", action="store_true")
+    g.add_argument("--DDP_impl", default="local", choices=["local", "torch"])
+    g.add_argument("--use_ring_exchange_p2p", action="store_true")
+    g.add_argument("--empty_unused_memory_level", type=int, default=0)
+    g.add_argument("--transformer_impl", default="local")
+    g.add_argument("--fp8_e4m3", action="store_true")
+    g.add_argument("--fp8_hybrid", action="store_true")
+    g.add_argument("--fp8_margin", type=int, default=0)
+    g.add_argument("--fp8_interval", type=int, default=1)
+    g.add_argument("--fp8_amax_history_len", type=int, default=1)
+    g.add_argument("--fp8_amax_compute_algo", default="most_recent")
+    g.add_argument("--no_fp8_wgrad", action="store_false", dest="fp8_wgrad")
+    g.add_argument("--barrier_with_L1_time", action="store_true",
+                   default=True)
+    g.add_argument("--no_async_tensor_model_parallel_allreduce",
+                   action="store_true")
+    g.add_argument("--no_contiguous_buffers_in_local_ddp",
+                   action="store_false",
+                   dest="use_contiguous_buffers_in_local_ddp")
+    g.add_argument("--no_gradient_accumulation_fusion",
+                   action="store_false", dest="gradient_accumulation_fusion")
+    g.add_argument("--no_persist_layer_norm", action="store_true")
+    g.add_argument("--no_scatter_gather_tensors_in_pipeline",
+                   action="store_true")
+    g.add_argument("--distribute_saved_activations", action="store_true")
+    g.add_argument("--no_data_sharding", action="store_true")
+    g.add_argument("--no_initialization", action="store_false",
+                   dest="perform_initialization")
+    g.add_argument("--use_cpu_initialization", action="store_true")
+    g.add_argument("--standalone_embedding_stage", action="store_true")
+    g.add_argument("--pipeline_model_parallel_split_rank", type=int,
+                   default=None)
+    g.add_argument("--adlr_autoresume", action="store_true")
+    g.add_argument("--adlr_autoresume_interval", type=int, default=1000)
+    # the residual stream stays in the compute dtype and the cross entropy
+    # runs in fp32, as in the JAX package
+    g.add_argument("--fp32_residual_connection", action="store_true")
+    g.add_argument("--fp16_lm_cross_entropy", action="store_true")
+    g.add_argument("--no_query_key_layer_scaling", action="store_true")
+    g.add_argument("--onnx_safe", action="store_true")
+    g.add_argument("--accumulate_allreduce_grads_in_fp32",
+                   action="store_true", default=True)
+    g.add_argument("--distributed_backend", default="xla",
+                   choices=["xla", "nccl", "gloo"])
+    g.add_argument("--local_rank", type=int, default=None)
+    g.add_argument("--mmap_warmup", action="store_true")
+    g.add_argument("--tensorboard_queue_size", type=int, default=1000)
 
-    if extra_args_provider is not None:
-        p = extra_args_provider(p)
-    return p
 
+#: dest -> parser default of every flag in _add_unimplemented_compat_args
+#: (the JAX package's table less --no_save_optim and --no_load_optim,
+#: which the port implements); warn_unimplemented warns when one is set
+#: away from its default
+_UNIMPLEMENTED_DEFAULTS = {
+    "decoder_num_layers": None,
+    "train_samples": None,
+    "lr_decay_samples": None,
+    "lr_warmup_samples": 0,
+    "override_opt_param_scheduler": False,
+    "use_checkpoint_opt_param_scheduler": False,
+    "no_save_rng": False,
+    "no_load_rng": False,
+    "metrics": [],
+    "train_data_path": None,
+    "valid_data_path": None,
+    "test_data_path": None,
+    "reset_position_ids": False,
+    "reset_attention_mask": False,
+    "eod_mask_loss": False,
+    "inference_batch_times_seqlen_threshold": 512,
+    "max_tokens_to_oom": 12000,
+}
+
+
+def _add_unimplemented_compat_args(parser):
+    """Reference features the JAX package does not implement either: the
+    flags are accepted so that reference launch scripts parse unchanged,
+    and setting one away from its default draws a warning
+    (``warn_unimplemented``) instead of being silently ignored."""
+    g = parser.add_argument_group("unimplemented (accepted with a warning)")
+    g.add_argument("--decoder_num_layers", type=int, default=None)
+    g.add_argument("--train_samples", type=int, default=None)
+    g.add_argument("--lr_decay_samples", type=int, default=None)
+    g.add_argument("--lr_warmup_samples", type=int, default=0)
+    g.add_argument("--override_opt_param_scheduler", action="store_true")
+    g.add_argument("--use_checkpoint_opt_param_scheduler",
+                   action="store_true")
+    g.add_argument("--no_save_rng", action="store_true")
+    g.add_argument("--no_load_rng", action="store_true")
+    g.add_argument("--metrics", nargs="*", default=[])
+    g.add_argument("--train_data_path", nargs="*", default=None)
+    g.add_argument("--valid_data_path", nargs="*", default=None)
+    g.add_argument("--test_data_path", nargs="*", default=None)
+    g.add_argument("--reset_position_ids", action="store_true")
+    g.add_argument("--reset_attention_mask", action="store_true")
+    g.add_argument("--eod_mask_loss", action="store_true")
+    g.add_argument("--inference_batch_times_seqlen_threshold", type=int,
+                   default=512)
+    g.add_argument("--max_tokens_to_oom", type=int, default=12000)
+
+
+# ---------------------------------------------------------------------------
+# features the port has not ported yet: dest -> what it asks for
+# ---------------------------------------------------------------------------
+
+_UNPORTED_COMMON = {
+    "moe_top_k": "the mixture of experts (ROADMAP item 13)",
+    "moe_capacity_factor": "the mixture of experts (ROADMAP item 13)",
+    "moe_min_capacity": "the mixture of experts (ROADMAP item 13)",
+    "moe_aux_loss_coeff": "the mixture of experts (ROADMAP item 13)",
+    "moe_z_loss_coeff": "the mixture of experts (ROADMAP item 13)",
+    "decoder_seq_length": "the T5 decoder (ROADMAP item 14)",
+    "context_parallel_algo": "context parallelism (ROADMAP item 15)",
+    "multislice_flat_reduce": "multislice training (ROADMAP item 15)",
+    "wandb_logger": "the metrics writers (ROADMAP item 7)",
+    "wandb_resume": "the metrics writers (ROADMAP item 7)",
+    "wandb_project": "the metrics writers (ROADMAP item 7)",
+    "wandb_entity": "the metrics writers (ROADMAP item 7)",
+    "wandb_name": "the metrics writers (ROADMAP item 7)",
+    "wandb_id": "the metrics writers (ROADMAP item 7)",
+    "wandb_api_key": "the metrics writers (ROADMAP item 7)",
+    "tensorboard_dir": "the metrics writers (ROADMAP item 7)",
+    "tensorboard_log_interval": "the metrics writers (ROADMAP item 7)",
+    "log_timers_to_tensorboard": "the metrics writers (ROADMAP item 7)",
+    "log_batch_size_to_tensorboard": "the metrics writers (ROADMAP item 7)",
+    "log_memory_to_tensorboard": "the metrics writers (ROADMAP item 7)",
+    "log_world_size_to_tensorboard": "the metrics writers (ROADMAP item 7)",
+    "log_validation_ppl_to_tensorboard":
+        "the metrics writers (ROADMAP item 7)",
+    "status_port": "the trainer's status endpoint (ROADMAP item 7)",
+    "profile": "the in-loop profiler (ROADMAP item 7)",
+    "profile_step_start": "the in-loop profiler (ROADMAP item 7)",
+    "profile_step_end": "the in-loop profiler (ROADMAP item 7)",
+    "profile_dir": "the in-loop profiler (ROADMAP item 7)",
+    "profiler_port": "the in-loop profiler (ROADMAP item 7)",
+    "flight_recorder_size": "the flight recorder (ROADMAP item 7)",
+    "straggler_threshold": "straggler detection (ROADMAP item 7)",
+    "trace_buffer_size": "the span tracer's ring (ROADMAP item 7)",
+}
+
+#: the trainer's table: the common one, the loop's missing pieces and the
+#: training-side telemetry
+UNPORTED_TRAINING = {
+    **_UNPORTED_COMMON,
+    "rampup_batch_size": "batch-size rampup",
+    "exit_signal_handler": "the signal handler (ROADMAP item 7)",
+    "timing_log_level": "the timer levels (ROADMAP item 7)",
+    "timing_log_option": "the timer levels (ROADMAP item 7)",
+    "log_layer_stats_interval": "the layer-stats observatory "
+                                "(ROADMAP item 7)",
+    "structured_log_dir": "the trainer's JSONL stream (ROADMAP item 7)",
+    "trace_dir": "the trainer's span tracer (ROADMAP item 7)",
+    "rewind_on_spike": "resilience (ROADMAP item 7)",
+    "spike_factor": "resilience (ROADMAP item 7)",
+    "spike_ema_beta": "resilience (ROADMAP item 7)",
+    "rewind_patience": "resilience (ROADMAP item 7)",
+    "snapshot_interval": "resilience (ROADMAP item 7)",
+    "resilience_check_interval": "resilience (ROADMAP item 7)",
+    "rewind_lr_factor": "resilience (ROADMAP item 7)",
+    "max_rewinds": "resilience (ROADMAP item 7)",
+    "watchdog_timeout_secs": "the hang watchdog (ROADMAP item 7)",
+    "watchdog_no_hard_exit": "the hang watchdog (ROADMAP item 7)",
+    "fault_inject": "the fault injector (ROADMAP item 7)",
+}
+
+#: the server's table (the engine refuses its own: speculative decoding,
+#: the host KV tier, the watchdog and the fault injector)
+UNPORTED_SERVING = {
+    **_UNPORTED_COMMON,
+    "serve_restart_backoff_secs": "the engine watchdog's restarts "
+                                  "(ROADMAP item 10)",
+    "alert_rules": "the SLO sentinel (ROADMAP item 10)",
+    "alert_webhook": "the SLO sentinel (ROADMAP item 10)",
+}
+
+
+def refuse_unported(args, table: Mapping[str, str],
+                    extra_args_provider: Optional[Callable] = None) -> None:
+    """Raise ``NotImplementedError`` for the first flag of ``table`` that
+    is set away from its parser default."""
+    defaults = build_parser(extra_args_provider)
+    for dest, feature in table.items():
+        if getattr(args, dest) != defaults.get_default(dest):
+            raise NotImplementedError(
+                f"--{dest}: {feature} is not ported yet")
+
+
+def warn_unimplemented(args) -> None:
+    """The JAX package's loud accept-and-ignore: unimplemented reference
+    features parse (launch scripts carry over) but never silently no-op
+    when set."""
+    for dest in sorted(_UNIMPLEMENTED_DEFAULTS):
+        default = _UNIMPLEMENTED_DEFAULTS[dest]
+        if getattr(args, dest, default) != default:
+            print(f" > WARNING: --{dest} is accepted for launch-script "
+                  f"compatibility but NOT implemented on this stack — "
+                  f"ignoring it", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# validation / derivation
+# ---------------------------------------------------------------------------
 
 def apply_fused_ce_policy(args, vocab=None):
     """Decide ``fused_lm_cross_entropy`` from the best-known vocab size
@@ -243,7 +635,17 @@ def apply_fused_ce_policy(args, vocab=None):
 
 
 def validate_args(args):
-    """The JAX package's derivations for the flags above (one device)."""
+    """The JAX package's derivations for one device."""
+    warn_unimplemented(args)
+    # encoder spellings fall back onto the canonical names
+    if args.num_layers is None and args.encoder_num_layers is not None:
+        args.num_layers = args.encoder_num_layers
+    if args.encoder_num_layers is None:
+        args.encoder_num_layers = args.num_layers
+    if args.seq_length is None and args.encoder_seq_length is not None:
+        args.seq_length = args.encoder_seq_length
+    if args.encoder_seq_length is None:
+        args.encoder_seq_length = args.seq_length
     # the reference's recompute spellings
     if args.recompute_activations and args.recompute_granularity is None:
         args.recompute_granularity = "selective"
@@ -255,6 +657,10 @@ def validate_args(args):
     args.params_dtype = ("fp16" if args.fp16 else "bf16" if args.bf16
                          else "fp32")
     args.data_parallel_size = 1
+    # the exit code after a preemption rescue save (multislice: 17); the
+    # port has no multislice run (ParallelConfig refuses num_slices > 1)
+    if args.preempt_exit_code is None:
+        args.preempt_exit_code = 17 if args.num_slices > 1 else 0
     if args.global_batch_size is None:
         args.global_batch_size = args.micro_batch_size
     if args.global_batch_size % args.micro_batch_size:
@@ -275,6 +681,9 @@ def validate_args(args):
     if args.lr_warmup_fraction is not None:
         args.lr_warmup_iters = int(
             args.lr_warmup_fraction * (args.lr_decay_iters or 0))
+    # sequence parallelism needs tp > 1 (reference: arguments.py:329-335)
+    if args.sequence_parallel and args.tensor_model_parallel_size == 1:
+        args.sequence_parallel = False
     if args.padded_vocab_size is None and args.vocab_size is not None:
         mult = (args.make_vocab_size_divisible_by
                 * args.tensor_model_parallel_size)

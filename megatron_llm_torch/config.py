@@ -290,7 +290,21 @@ def transformer_config_from_args(args, model_name: Optional[str] = None
         add_qkv_bias=args.add_qkv_bias,
         embedding_multiplier=args.embedding_multiplier,
         rotary_percent=args.rotary_percent,
+        num_experts=args.num_experts,
     )
+
+
+def transformer_config_from_dict(fields: dict, **overrides
+                                 ) -> TransformerConfig:
+    """A ``TransformerConfig`` from a dict of its fields: a converter's
+    config or a checkpoint's recorded args (``meta.json``, where tuples
+    came back as lists).  Keys that are not fields (``model_name``, the
+    parallel sizes) are left out."""
+    names = {f.name for f in dataclasses.fields(TransformerConfig)}
+    kw = {k: v for k, v in {**fields, **overrides}.items() if k in names}
+    if kw.get("rope_llama3_scaling"):
+        kw["rope_llama3_scaling"] = tuple(kw["rope_llama3_scaling"])
+    return TransformerConfig(**kw)
 
 
 def train_config_from_args(args) -> TrainConfig:
@@ -316,7 +330,13 @@ def train_config_from_args(args) -> TrainConfig:
         clip_grad=args.clip_grad,
         fp16=args.fp16,
         bf16=args.bf16,
+        loss_scale=args.loss_scale,
+        initial_loss_scale=args.initial_loss_scale,
+        min_loss_scale=args.min_loss_scale,
+        loss_scale_window=args.loss_scale_window,
+        hysteresis=args.hysteresis,
         seed=args.seed,
+        data_parallel_random_init=args.data_parallel_random_init,
     )
 
 
@@ -324,4 +344,11 @@ def parallel_config_from_args(args) -> ParallelConfig:
     return ParallelConfig(
         tensor_model_parallel_size=args.tensor_model_parallel_size,
         pipeline_model_parallel_size=args.pipeline_model_parallel_size,
+        virtual_pipeline_model_parallel_size=(
+            args.num_layers_per_virtual_pipeline_stage),
+        sequence_parallel=args.sequence_parallel,
+        use_distributed_optimizer=args.use_distributed_optimizer,
+        context_parallel_size=args.context_parallel_size,
+        expert_model_parallel_size=args.expert_model_parallel_size,
+        num_slices=args.num_slices,
     )

@@ -24,14 +24,16 @@ write checkpoints in the JAX package's layout
 (``megatron_llm_torch/checkpointing.py``); ``--load`` resumes the params,
 then the optimizer and scheduler state and the data order (not with
 ``--finetune``), from the tracker's iteration or ``--load_iters``;
-``--use_checkpoint_args`` takes the architecture from the checkpoint.
+``--use_checkpoint_args`` takes the architecture from the checkpoint
+(its padded vocabulary wins over the tokenizer's).
 Dropout (``--hidden_dropout``, ``--attention_dropout``, ``--lima_dropout``;
 the ``gpt`` preset keeps the parser's 0.1), ``--recompute_granularity``
 and the fused LM-head cross entropy train as in the JAX entry point;
 ``--eval_only`` runs one evaluation and no training.  ``--device cpu``
 runs it on the CPU (the tests do); the default is the card.
-Parallelism, ``--fp16`` and ``--async_save`` raise
-``NotImplementedError``.  ``python -m megatron_llm_torch.pretrain_gpt``
+Parallelism, ``--fp16``, ``--async_save`` and the flags of the other
+features the port lacks (``arguments.UNPORTED_TRAINING``, LoRA) parse and
+raise ``NotImplementedError``.  ``python -m megatron_llm_torch.pretrain_gpt``
 is this entry point with ``--model_name=gpt``.
 """
 
@@ -45,7 +47,12 @@ import numpy as np
 import torch
 
 from megatron_llm_torch import checkpointing
-from megatron_llm_torch.arguments import parse_args, validate_args
+from megatron_llm_torch.arguments import (
+    UNPORTED_TRAINING,
+    parse_args,
+    refuse_unported,
+    validate_args,
+)
 from megatron_llm_torch.config import (
     parallel_config_from_args,
     train_config_from_args,
@@ -111,7 +118,20 @@ MODEL_DEFAULTS = {
 def extra_args(parser):
     g = parser.add_argument_group("finetune")
     g.add_argument("--model_name", required=True, choices=FAMILIES)
+    g.add_argument("--model_type", default=None)  # compat
+    # LoRA: parsed with the JAX entry point's names; not ported (raises)
+    g.add_argument("--lora_rank", type=int, default=0)
+    g.add_argument("--lora_alpha", type=float, default=None)
+    g.add_argument("--lora_targets", default="query_key_value,dense")
     return parser
+
+
+# the entry point's own flags of features it has not ported
+_UNPORTED_HERE = {
+    "lora_rank": "LoRA (ROADMAP item 13)",
+    "lora_alpha": "LoRA (ROADMAP item 13)",
+    "lora_targets": "LoRA (ROADMAP item 13)",
+}
 
 
 _INVERTED_FLAGS = {
@@ -288,25 +308,35 @@ _CKPT_ARG_MAP = {
 }
 
 
-def _apply_checkpoint_args(args):
-    """--use_checkpoint_args: the architecture recorded in the checkpoint
-    overrides the CLI (reference checkpointing.py:520-560).  The JAX
-    entry point's MoE fields are left out: the port has no MoE."""
-    ckpt_args = checkpointing.load_checkpoint_args(args.load,
-                                                   args.load_iters)
+def checkpoint_architecture(load: str, load_iters=None) -> dict:
+    """{CLI args attribute: value} of the architecture recorded in the
+    checkpoint (reference checkpointing.py:520-560), or {} when it
+    records none.  The JAX entry point's MoE fields are left out: the port
+    has no MoE."""
+    ckpt_args = checkpointing.load_checkpoint_args(load, load_iters)
     if not ckpt_args:
         print(" > WARNING: --use_checkpoint_args but the checkpoint "
               "records no args", flush=True)
-        return
-    for src, dst in _CKPT_ARG_MAP.items():
-        # no is-not-None filter: a recorded null is a real override
-        # (e.g. glu_activation=None must clear a model preset's swiglu,
-        # or the restored MLP shapes mismatch the checkpoint)
-        if src in ckpt_args:
-            setattr(args, dst, ckpt_args[src])
+        return {}
+    # no is-not-None filter: a recorded null is a real override (e.g.
+    # glu_activation=None must clear a model preset's swiglu, or the
+    # restored MLP shapes mismatch the checkpoint)
+    arch = {dst: ckpt_args[src] for src, dst in _CKPT_ARG_MAP.items()
+            if src in ckpt_args}
     if ckpt_args.get("normalization") is not None:
-        args.use_rms_norm = ckpt_args["normalization"] == "rmsnorm"
-    print(" > using architecture args from the checkpoint", flush=True)
+        arch["use_rms_norm"] = ckpt_args["normalization"] == "rmsnorm"
+    return arch
+
+
+def _apply_checkpoint_args(args) -> dict:
+    """--use_checkpoint_args: the architecture recorded in the checkpoint
+    overrides the CLI; returns what it set."""
+    arch = checkpoint_architecture(args.load, args.load_iters)
+    for dst, value in arch.items():
+        setattr(args, dst, value)
+    if arch:
+        print(" > using architecture args from the checkpoint", flush=True)
+    return arch
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -315,8 +345,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv, extra_args_provider=extra_args)
     _apply_model_defaults(args, argv)
+    refuse_unported(args, {**UNPORTED_TRAINING, **_UNPORTED_HERE},
+                    extra_args)
+    arch = {}
     if args.use_checkpoint_args and args.load:
-        _apply_checkpoint_args(args)
+        arch = _apply_checkpoint_args(args)
         # re-derive what validate_args computed from the CLI architecture
         validate_args(args)
     if args.fp16:
@@ -329,10 +362,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     tokenizer = None
     if args.tokenizer_type is not None:
         tokenizer = build_tokenizer(args)   # sets args.padded_vocab_size
+        if "padded_vocab_size" in arch:
+            # the checkpoint's architecture wins over the tokenizer's pad
+            args.padded_vocab_size = arch["padded_vocab_size"]
     if args.padded_vocab_size is None:
         raise SystemExit("need --vocab_size/--padded_vocab_size or a "
                          "tokenizer")
-    checkpointing.configure_save(total_limit=args.save_total_limit)
+    checkpointing.configure_save(total_limit=args.save_total_limit,
+                                 retries=args.save_retries,
+                                 retry_backoff=args.save_retry_backoff)
     pc = parallel_config_from_args(args)
     tc = train_config_from_args(args)
     model = model_provider(args)

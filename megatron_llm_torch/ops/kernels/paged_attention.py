@@ -27,7 +27,9 @@ at least ``MMA_MIN_ROWS`` query rows a (slot, KV group) (every prefill
 chunk, and the decode of GQA and MQA groups, as Falcon-7B's 71 heads on
 one); "simt", the CUDA-core kernel, for the rest (MHA decode, one row a
 group) and for fp32.  The keys of each block are split over
-``key_splits`` blocks; more than one split writes fp32 partials that a
+``key_splits`` blocks, and over at least ``table_splits`` where a long
+block table would overflow the kernels' shared-memory page list; more
+than one split writes fp32 partials that a
 merge kernel adds in split order (``_reference_split_partials`` and
 ``_reference_merge`` are the plain versions of the two steps, and the
 card tests hold a launch's partials to the first).  The plan lives here
@@ -59,6 +61,10 @@ MMA_MIN_ROWS = 2
 MMA_TILE = (64, 64)
 SIMT_TILE_BYTES = 16384
 WAVE_FILL = 85      # percent
+# block-table entries a split stages in shared memory: the kernels'
+# kPagesSmem (16 KB) of int32; a longer table takes more splits
+# (table_splits), as Llama-3.1's 131072 positions at 16 a page do
+PAGES_SMEM_ENTRIES = 4096
 
 # kernel launches through each entry since the last reset (plain
 # counts; chip_smoke.py zeroes them before driving the serving path and
@@ -116,6 +122,23 @@ def key_splits(blocks: int, M: int, bs: int, tile_keys: int,
     return cap
 
 
+def pages_cap(M: int, bs: int, splits: int, tile_keys: int) -> int:
+    """The most block-table entries one split's key tiles reach (the
+    kernels' ``pages_cap``)."""
+    max_tiles = -(-M * bs // tile_keys) + 1
+    per_split = -(-max_tiles // splits)
+    return min(M, per_split * tile_keys // bs + 2)
+
+
+def table_splits(M: int, bs: int, tile_keys: int) -> int:
+    """The fewest splits whose page lists fit the kernels' shared-memory
+    list of PAGES_SMEM_ENTRIES entries."""
+    n = 1
+    while pages_cap(M, bs, n, tile_keys) > PAGES_SMEM_ENTRIES:
+        n += 1
+    return n
+
+
 @functools.lru_cache(maxsize=1024)
 def plan(dtype: torch.dtype, S: int, C: int, nh: int, g: int, d: int,
          bs: int, M: int, quantized: bool, sm_count: int,
@@ -127,7 +150,8 @@ def plan(dtype: torch.dtype, S: int, C: int, nh: int, g: int, d: int,
     variant = variant or kernel_variant(dtype, rows, d, quantized)
     tr, tk = tile_shape(variant, dtype, rows, d, quantized)
     blocks = S * -(-rows // tr) * g
-    return variant, tr, tk, key_splits(blocks, M, bs, tk, sm_count)
+    return variant, tr, tk, max(key_splits(blocks, M, bs, tk, sm_count),
+                                table_splits(M, bs, tk))
 
 
 def _gather(k_pages, v_pages, block_tables, k_scales, v_scales):

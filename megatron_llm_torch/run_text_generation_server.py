@@ -7,12 +7,19 @@ engine, in PyTorch on one GPU (the twin of
         --tokenizer_type GPT2BPETokenizer --vocab_file vocab.json \\
         --merge_file merges.txt --port 5000
 
+The flags are the shared parser's (``arguments.build_parser``) plus the
+server group (``extra_args``), as the JAX tool parses them through
+``initialize_megatron``, so the reference launch scripts' training flags
+(``--micro_batch_size``, ``--train_iters``, ``--lr``, ...) parse too.
 With no size flags the model is the family's 7B-class size (Llama-2-7B,
 Llama-3-8B, Falcon-7B, ...: see ``FAMILIES``), its vocabulary padded from
 the tokenizer's (``build_tokenizer``).  ``--load`` serves a checkpoint of
-the port's trainer (its params only, from the tracker's iteration, held
-to the model's tree), as the JAX server does; with no ``--load`` it serves
-random weights drawn from ``--seed``.  ``--int8_kv_cache`` keeps the
+the port's trainer or converters (its params only, from the tracker's
+iteration or ``--load_iters``, held to the model's tree), as the JAX
+server does; ``--use_checkpoint_args`` takes the architecture the
+checkpoint records (``finetune.checkpoint_architecture``), which wins over
+the size flags and the tokenizer's padded vocabulary.  With no ``--load``
+it serves random weights drawn from ``--seed``.  ``--int8_kv_cache`` keeps the
 paged KV pool as int8 with per-position scales.  ``build_server(args,
 tokenizer)`` builds the model, the engine and the server in-process (the
 port's tests and ``chip_smoke.py`` call it); ``main()`` parses the flags,
@@ -26,7 +33,13 @@ from typing import Optional, Sequence
 
 import torch
 
-from megatron_llm_torch import checkpointing, telemetry, tracing
+from megatron_llm_torch import arguments, checkpointing, telemetry, tracing
+from megatron_llm_torch.arguments import (
+    UNPORTED_SERVING,
+    refuse_unported,
+    warn_unimplemented,
+)
+from megatron_llm_torch.finetune import checkpoint_architecture
 from megatron_llm_torch.models import (
     MODEL_REGISTRY,
     falcon_config,
@@ -68,67 +81,50 @@ SIZE_FLAGS = ("num_layers", "hidden_size", "ffn_hidden_size",
               "padded_vocab_size", "rope_theta", "sliding_window_size")
 
 
+def extra_args(parser):
+    """The server group (the JAX tool's ``extra_args``).  With no size
+    flag a family's 7B-class size is served, so the size flags default to
+    None here (the family's config fills them); with no tokenizer flag
+    the numeric one of ``--vocab_size`` ids."""
+    g = parser.add_argument_group("server")
+    g.add_argument("--model_name", required=True, choices=sorted(FAMILIES))
+    g.add_argument("--port", type=int, default=5000)
+    g.add_argument("--host", default="0.0.0.0")
+    g.add_argument("--int8_weights", action="store_true",
+                   help="weight-only int8 linears (not ported: raises)")
+    g.add_argument("--int8_kv_cache", action="store_true",
+                   help="store decode K/V as int8 with per-position scales")
+    parser.set_defaults(tokenizer_type="NullTokenizer",
+                        **{k: None for k in SIZE_FLAGS})
+    return parser
+
+
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    g = p.add_argument_group("model")
-    g.add_argument("--model_name", required=True,
-                   choices=sorted(FAMILIES))
-    g.add_argument("--num_layers", type=int, default=None)
-    g.add_argument("--hidden_size", type=int, default=None)
-    g.add_argument("--ffn_hidden_size", type=int, default=None)
-    g.add_argument("--num_attention_heads", type=int, default=None)
-    g.add_argument("--num_attention_heads_kv", type=int, default=None)
-    g.add_argument("--kv_channels", type=int, default=None)
-    g.add_argument("--seq_length", type=int, default=None)
-    g.add_argument("--max_position_embeddings", type=int, default=None)
-    g.add_argument("--padded_vocab_size", type=int, default=None)
-    g.add_argument("--rope_theta", type=float, default=None)
-    g.add_argument("--sliding_window_size", type=int, default=None)
-    g.add_argument("--bf16", action="store_true")
-    g.add_argument("--seed", type=int, default=1234)
-    g.add_argument("--load", type=str, default=None)
-    g.add_argument("--device", default="cuda",
-                   help="torch device to serve on ('cpu' for tests)")
-    g.add_argument("--tokenizer_type", type=str, default="NullTokenizer")
-    g.add_argument("--vocab_file", type=str, default=None)
-    g.add_argument("--merge_file", type=str, default=None)
-    g.add_argument("--tokenizer_path", type=str, default=None)
-    g.add_argument("--tokenizer_model", type=str, default=None)
-    g.add_argument("--vocab_extra_ids", type=int, default=0)
-    g.add_argument("--vocab_size", type=int, default=None)
-    g.add_argument("--make_vocab_size_divisible_by", type=int, default=128)
-    s = p.add_argument_group("server")
-    s.add_argument("--port", type=int, default=5000)
-    s.add_argument("--host", default="0.0.0.0")
-    s.add_argument("--log_requests", action="store_true")
-    s.add_argument("--serve_max_prompts", type=int, default=128)
-    s.add_argument("--serve_max_tokens", type=int, default=1024)
-    s.add_argument("--serve_num_slots", type=int, default=8)
-    s.add_argument("--serve_block_size", type=int, default=16)
-    s.add_argument("--serve_num_blocks", type=int, default=0)
-    s.add_argument("--serve_prefill_chunk", type=int, default=64)
-    s.add_argument("--serve_max_queue_depth", type=int, default=64)
-    s.add_argument("--serve_deadline_secs", type=float, default=120.0)
-    s.add_argument("--serve_max_model_len", type=int, default=0)
-    s.add_argument("--serve_prefix_cache", type=int, default=1)
-    s.add_argument("--serve_preemption", type=int, default=1)
-    # later slices: accepted with the JAX package's names and defaults,
-    # and the engine raises NotImplementedError when one is turned on
-    s.add_argument("--serve_speculative", type=int, default=0)
-    s.add_argument("--serve_host_cache_bytes", type=int, default=0)
-    s.add_argument("--serve_watchdog_secs", type=float, default=0.0)
-    s.add_argument("--serve_fault_inject", type=str, default="")
-    s.add_argument("--int8_kv_cache", action="store_true")
-    s.add_argument("--structured_log_dir", type=str, default=None)
-    s.add_argument("--trace_dir", type=str, default=None)
-    return p
+    """The shared parser (``arguments.build_parser``) with the server
+    group, as the JAX tool parses through ``initialize_megatron``."""
+    return arguments.build_parser(extra_args)
 
 
-def model_config_from_args(args):
+# CLI args attribute -> TransformerConfig field, where they differ
+_ARG_TO_FIELD = {"use_bias": "add_bias_linear"}
+
+
+def model_config_from_args(args, arch: Optional[dict] = None):
+    """The family's config at its serving size, with the size flags given
+    and then ``arch`` (``--use_checkpoint_args``: the checkpoint's
+    architecture, which wins over every flag and the tokenizer's padded
+    vocabulary)."""
     config_fn, size, presets = FAMILIES[args.model_name]
     overrides = dict(presets)
     overrides.update({k: getattr(args, k) for k in SIZE_FLAGS
                       if getattr(args, k) is not None})
+    for dst, value in (arch or {}).items():
+        if dst == "use_rms_norm":
+            overrides["normalization"] = "rmsnorm" if value else "layernorm"
+        elif dst == "rope_llama3_scaling":
+            overrides[dst] = tuple(value) if value else None
+        else:
+            overrides[_ARG_TO_FIELD.get(dst, dst)] = value
     if args.bf16:
         overrides.update(params_dtype="bf16", compute_dtype="bf16")
     return config_fn(size, **overrides)
@@ -164,15 +160,25 @@ def build_server(args, tokenizer) -> MegatronServer:
     if args.trace_dir:
         tracing.install_tracing(tracing.Tracing(
             tracer=tracing.SpanTracer(), trace_dir=args.trace_dir))
+    refuse_unported(args, UNPORTED_SERVING)
+    if args.int8_weights:
+        raise NotImplementedError("--int8_weights: weight-only int8 is "
+                                  "not ported yet (ROADMAP item 11)")
+    warn_unimplemented(args)
     device = torch.device(args.device)
     engine_cfg = engine_config_from_args(args)
-    model = MODEL_REGISTRY[args.model_name](model_config_from_args(args),
-                                            device=device)
+    arch = None
+    if args.use_checkpoint_args and args.load:
+        arch = checkpoint_architecture(args.load, args.load_iters)
+        print(" > using architecture args from the checkpoint", flush=True)
+    model = MODEL_REGISTRY[args.model_name](
+        model_config_from_args(args, arch), device=device)
     if args.load:
         # params only, held to the model's tree (meta tensors: shapes and
         # dtypes, no memory) and cast to its dtype
         params, _, _ = checkpointing.load_checkpoint(
-            args.load, finetune=True, device=device,
+            args.load, finetune=True, iteration=args.load_iters,
+            device=device,
             params_template=init_language_model_params(None, model.cfg,
                                                        device="meta"))
         if params is None:

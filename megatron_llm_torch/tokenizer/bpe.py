@@ -166,12 +166,15 @@ class StandaloneGPT2BPE:
 def write_byte_bpe_vocab(out_dir: str, vocab_size: int) -> Tuple[str, str]:
     """GPT-2 byte-level BPE files of exactly ``vocab_size`` ids, written
     into ``out_dir``: the 256 byte symbols, then the first ``vocab_size -
-    257`` pairs of them (in the byte table's order) as merges, and
-    ``<|endoftext|>`` last.  Every id decodes, so a model with random
-    weights may emit any of them.  Returns the paths of vocab.json and
-    merges.txt."""
+    257`` merges — the pairs of byte symbols (in the byte table's order),
+    then, past their 65536 (Llama-3's 128256 ids), a pair and a byte
+    symbol — and ``<|endoftext|>`` last.  Every id decodes, so a model
+    with random weights may emit any of them.  Returns the paths of
+    vocab.json and merges.txt."""
     base = list(bytes_to_unicode().values())
-    merges = list(itertools.islice(((a, b) for a in base for b in base),
+    pairs = ((a, b) for a in base for b in base)
+    triples = ((a + b, c) for a in base for b in base for c in base)
+    merges = list(itertools.islice(itertools.chain(pairs, triples),
                                    vocab_size - len(base) - 1))
     tokens = base + [a + b for a, b in merges] + ["<|endoftext|>"]
     vf = os.path.join(out_dir, "vocab.json")

@@ -134,3 +134,136 @@ def test_new_flags_parse_as_in_the_jax_package(flag):
         dest = dests.pop()
         assert getattr(got, dest) == getattr(want, dest), (args, dest)
     assert getattr(got, dest) != getattr(_parsed([])[1], dest)
+
+
+# ---------------------------------------------------------------------------
+# the whole JAX parser, and the example launch scripts' argvs (F2)
+# ---------------------------------------------------------------------------
+
+import json  # noqa: E402
+import os  # noqa: E402
+import stat  # noqa: E402
+import subprocess  # noqa: E402
+
+import finetune as jax_finetune  # noqa: E402
+
+from megatron_llm_torch import finetune  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _dests(parser):
+    return {a.dest for a in parser._actions} - {"help"}
+
+
+def test_every_jax_dest_is_in_the_port_parser_or_excused():
+    want = _dests(jax_finetune.extra_args(
+        jax_arguments.build_base_parser()))
+    got = _dests(arguments.build_parser(finetune.extra_args))
+    assert sorted(want - got) == sorted(arguments.JAX_FLAGS_NOT_HERE)
+    assert all(arguments.JAX_FLAGS_NOT_HERE.values())
+    # every dest the port adds beyond the JAX parser's is the device's
+    # spelling only, which both parsers define
+    assert got - want == set()
+
+
+def example_argv(script, *script_args, tmp_path):
+    """The argv an ``examples/*.sh`` script passes to python: the script
+    runs with a ``python`` on PATH that records its arguments."""
+    fake = tmp_path / "bin"
+    fake.mkdir(exist_ok=True)
+    (fake / "python").write_text(
+        "#!/bin/sh\nexec \"$FAKE_PY\" -c 'import json, sys; "
+        "print(json.dumps(sys.argv[1:]))' \"$@\"\n")
+    (fake / "python").chmod(0o755 | stat.S_IEXEC)
+    import sys as _sys
+    res = subprocess.run(
+        ["bash", os.path.join(REPO, "examples", script), *script_args],
+        cwd=REPO, capture_output=True, text=True, timeout=60,
+        env=dict(os.environ, PATH=f"{fake}:{os.environ['PATH']}",
+                 FAKE_PY=_sys.executable))
+    assert res.returncode == 0, res.stderr
+    argv = json.loads(res.stdout.strip().splitlines()[-1])
+    return argv[0], argv[1:]
+
+
+# finetune.sh's families at tp 1 (mixtral waits for the MoE port)
+FINETUNE_FAMILIES = ("llama", "llama2", "llama3", "codellama", "mistral",
+                     "falcon", "gpt")
+# parsed values that differ by design: the device's choices
+DIFFER_BY_DESIGN = {"device"}
+
+
+def _both(argv):
+    want = jax_finetune.extra_args(
+        jax_arguments.build_base_parser()).parse_args(argv)
+    jax_finetune._apply_model_defaults(want, argv)
+    want = jax_arguments.validate_args(want, world_size=1)
+    got = arguments.parse_args(argv, extra_args_provider=finetune.extra_args)
+    finetune._apply_model_defaults(got, argv)
+    return want, got
+
+
+def _shared_differences(want, got):
+    shared = (set(vars(want)) & set(vars(got))) - DIFFER_BY_DESIGN
+    assert len(shared) > 250
+    return {k: (getattr(want, k), getattr(got, k)) for k in sorted(shared)
+            if getattr(want, k) != getattr(got, k)}
+
+
+@pytest.mark.parametrize("family", FINETUNE_FAMILIES)
+def test_finetune_example_parses_as_in_the_jax_package(family, tmp_path):
+    entry, argv = example_argv("finetune.sh", family, "--tp=1",
+                               "--data=corpus", "--checkpoint=ck",
+                               tmp_path=tmp_path)
+    assert entry == "finetune.py"
+    assert "--sequence_parallel" in argv and "--tensor_model_parallel_size=1" \
+        in argv
+    want, got = _both(argv)
+    assert _shared_differences(want, got) == {}
+    assert got.sequence_parallel is False and got.bias_gelu_fusion in (
+        True, False)
+
+
+def test_pretrain_gpt_example_parses_as_in_the_jax_package(tmp_path):
+    entry, argv = example_argv("pretrain_gpt.sh", "corpus", tmp_path=tmp_path)
+    assert entry == "pretrain_gpt.py"
+    want, got = _both(argv + ["--model_name=gpt"])
+    assert _shared_differences(want, got) == {}
+
+
+def test_sequence_parallel_is_off_at_tp_1_and_refused_above():
+    args = arguments.parse_args(["--sequence_parallel"])
+    assert args.sequence_parallel is False
+    from megatron_llm_torch.config import parallel_config_from_args
+    args = arguments.parse_args(["--sequence_parallel",
+                                 "--tensor_model_parallel_size", "2"])
+    assert args.sequence_parallel is True
+    with pytest.raises(NotImplementedError):
+        parallel_config_from_args(args)
+
+
+TINY_TRAIN = ["--model_name=llama2", "--num_layers=1", "--hidden_size=64",
+              "--num_attention_heads=4", "--seq_length=8",
+              "--vocab_size=128", "--train_iters=1", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--wandb_logger"], ["--num_experts", "8"], ["--moe_top_k", "1"],
+    ["--context_parallel_size", "2"], ["--num_slices", "2"],
+    ["--use_distributed_optimizer"], ["--rewind_on_spike"],
+    ["--structured_log_dir", "logs"], ["--lora_rank", "8"],
+    ["--log_layer_stats_interval", "5"], ["--fault_inject", "nan@2"]],
+    ids=lambda f: f[0].lstrip("-"))
+def test_unported_features_parse_then_raise(flags):
+    with pytest.raises(NotImplementedError):
+        finetune.main(TINY_TRAIN + flags)
+
+
+def test_unimplemented_flags_warn(capsys):
+    arguments.parse_args(["--train_samples", "10", "--eod_mask_loss"])
+    out = capsys.readouterr().out
+    assert "--train_samples is accepted" in out
+    assert "--eod_mask_loss is accepted" in out
+    arguments.parse_args(["--no_bias_gelu_fusion", "--fp8_hybrid"])
+    assert "WARNING" not in capsys.readouterr().out

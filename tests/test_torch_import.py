@@ -1,8 +1,10 @@
-"""The PyTorch port stands alone: every module imports with ``jax``,
-``orbax`` and ``tensorstore`` blocked, no file of the port (or
-chip_smoke.py) imports jax, orbax, tensorstore or megatron_llm_tpu,
-entry points default to the GPU, and chip_smoke.py refuses to run
-without a CUDA device or outside a checkout."""
+"""The PyTorch port stands alone: every module (the ``weights_conversion/``
+and ``tools/`` subpackages and ``verify_correctness.py`` included)
+imports with ``jax``, ``orbax``, ``tensorstore``, the JAX package and the
+repo's root modules (``weights_conversion``, ``tools``, ``finetune``,
+``verify_correctness``) blocked, no file of the port (or chip_smoke.py)
+imports any of them, entry points default to the GPU, and chip_smoke.py
+refuses to run without a CUDA device or outside a checkout."""
 
 import ast
 import inspect
@@ -40,13 +42,19 @@ def _modules():
             .removesuffix(".__init__") for p in _port_files()]
 
 
+# the JAX package, its dependencies and the repo's root modules
+BANNED = ("jax", "jaxlib", "megatron_llm_tpu", "orbax", "tensorstore",
+          "weights_conversion", "tools", "finetune", "verify_correctness")
+
+
 def test_every_port_module_imports_with_jax_blocked():
+    mods = _modules()
+    for sub in ("weights_conversion", "tools", "verify_correctness"):
+        assert any(m.startswith(f"megatron_llm_torch.{sub}") for m in mods)
     code = ("import importlib, sys\n"
-            "sys.modules['jax'] = None\n"
-            "sys.modules['megatron_llm_tpu'] = None\n"
-            "sys.modules['orbax'] = None\n"
-            "sys.modules['tensorstore'] = None\n"
-            f"for m in {_modules()!r}:\n"
+            f"for b in {BANNED!r}:\n"
+            "    sys.modules[b] = None\n"
+            f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "assert not any(k == 'jax' or k.startswith('jax.') "
             "for k, v in sys.modules.items() if v is not None)\n"
@@ -57,7 +65,7 @@ def test_every_port_module_imports_with_jax_blocked():
 
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
-    banned = ("jax", "jaxlib", "megatron_llm_tpu", "orbax", "tensorstore")
+    banned = BANNED
     for path in _port_files() + [os.path.join(REPO, "chip_smoke.py")]:
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)

@@ -239,3 +239,24 @@ def test_plan_routes_the_timed_shapes():
         tpa.kernel_variant(bf, 16, 48, False)
     with pytest.raises(TypeError):
         tpa.kernel_variant(torch.float16, 16, 64, False)
+
+
+def test_long_tables_split_to_fit_the_page_list():
+    """A split stages its block-table entries in shared memory (4096 of
+    them, the kernels' kPagesSmem): Llama-3.1's 131072 positions at 16 a
+    page take at least 3 splits, short tables none more."""
+    assert tpa.table_splits(128, 16, 64) == 1
+    assert tpa.table_splits(4094, 16, 64) == 1
+    assert tpa.table_splits(8192, 16, 64) == 3
+    for M, bs, tk in ((8192, 16, 64), (8192, 16, 16), (16384, 8, 64),
+                      (65536, 16, 64)):
+        n = tpa.table_splits(M, bs, tk)
+        assert tpa.pages_cap(M, bs, n, tk) <= tpa.PAGES_SMEM_ENTRIES
+        assert n == 1 or tpa.pages_cap(M, bs, n - 1, tk) \
+            > tpa.PAGES_SMEM_ENTRIES
+    # the plan takes them at Llama-3.1's serving shapes, decode and prefill
+    bf = torch.bfloat16
+    for S, C in ((8, 1), (1, 64)):
+        variant, _, tk, splits = tpa.plan(bf, S, C, 32, 8, 128, 16, 8192,
+                                          False, H100_SMS)
+        assert splits >= tpa.table_splits(8192, 16, tk) == 3

@@ -161,3 +161,116 @@ def test_load_with_a_bpe_tokenizer_answers_text(tmp_path):
             logits = model(saved, torch.tensor([want]))
             want.append(int(logits[0, -1].argmax()))
     assert served == want
+
+
+# ---------------------------------------------------------------------------
+# the shared CLI and --use_checkpoint_args (F3)
+# ---------------------------------------------------------------------------
+
+def _jax_server_config(argv):
+    """The JAX tool's parser (the base parser and the tool's server group)
+    on ``argv``, then its entry point's presets, the checkpoint's
+    architecture and validate_args: the model config it builds."""
+    import importlib.util
+    import os
+
+    import finetune as jax_finetune
+    from megatron_llm_tpu import arguments as jax_arguments
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "run_text_generation_server.py")
+    spec = importlib.util.spec_from_file_location("_jax_server_tool", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    args = tool.extra_args(jax_arguments.build_base_parser()).parse_args(
+        argv)
+    jax_finetune._apply_model_defaults(args, argv)
+    jax_finetune._apply_checkpoint_args(args)
+    args = jax_arguments.validate_args(args, world_size=1)
+    return args, jax_arguments.transformer_config_from_args(args)
+
+
+def test_example_argv_serves_a_converted_checkpoint(tmp_path):
+    """examples/run_text_generation_server.sh's argv, with llama3, a
+    byte-level BPE in place of SentencePiece and the CPU, parses in both
+    parsers; the port's server takes the converted checkpoint's
+    architecture (--use_checkpoint_args) over its family preset and over
+    the tokenizer's padded vocabulary (384 ids here, 512 in the
+    checkpoint), and the model configs agree field for field."""
+    import dataclasses
+
+    transformers = pytest.importorskip("transformers")
+    from test_torch_arguments import example_argv
+
+    from megatron_llm_torch import checkpointing
+    from megatron_llm_torch.tokenizer import build_tokenizer
+    from megatron_llm_torch.tokenizer.bpe import write_byte_bpe_vocab
+    from megatron_llm_torch.tree import tree_leaves_with_path
+    from megatron_llm_torch.weights_conversion import hf_to_megatron
+
+    torch.manual_seed(0)
+    hf = transformers.LlamaForCausalLM(transformers.LlamaConfig(
+        vocab_size=512, hidden_size=64, intermediate_size=176,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128, rope_theta=5e5,
+        rope_scaling={"rope_type": "llama3", "factor": 8.0,
+                      "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                      "original_max_position_embeddings": 32},
+        tie_word_embeddings=False))
+    hf.save_pretrained(str(tmp_path / "hf"))
+    ck = str(tmp_path / "ck")
+    hf_to_megatron.main(["llama3", "--model_path", str(tmp_path / "hf"),
+                         "--out", ck])
+    vf, mf = write_byte_bpe_vocab(str(tmp_path), 384)
+    entry, argv = example_argv("run_text_generation_server.sh", ck, vf,
+                               tmp_path=tmp_path)
+    assert entry == "tools/run_text_generation_server.py"
+    argv = [{"--model_name=llama2": "--model_name=llama3",
+             "SentencePieceTokenizer": "GPT2BPETokenizer"}.get(a, a)
+            for a in argv] + ["--merge_file", mf, "--device", "cpu"]
+    assert "--use_checkpoint_args" in argv and "--train_iters" in argv
+
+    jax_args, want = _jax_server_config(argv)
+    args = build_parser().parse_args(argv)
+    tok = build_tokenizer(args)
+    assert args.padded_vocab_size == 384
+    server = build_server(args, tok)
+    try:
+        got = server.engine.model.cfg
+        fields = sorted({f.name for f in dataclasses.fields(want)}
+                        & {f.name for f in dataclasses.fields(got)})
+        assert len(fields) > 30
+        diff = {n: (getattr(want, n), getattr(got, n)) for n in fields
+                if getattr(getattr(want, n), "name", getattr(want, n))
+                != getattr(getattr(got, n), "name", getattr(got, n))}
+        assert diff == {}
+        recorded = checkpointing.load_checkpoint_args(ck)
+        for key in ("padded_vocab_size", "num_layers", "hidden_size",
+                    "num_attention_heads_kv", "ffn_hidden_size",
+                    "rope_theta", "max_position_embeddings"):
+            assert getattr(got, key) == recorded[key], key
+        assert got.padded_vocab_size == 512
+        assert got.rope_llama3_scaling == (8.0, 1.0, 4.0, 32)
+        assert got.params_dtype == "bf16"
+        params, _, _ = checkpointing.load_checkpoint(ck, device="cpu")
+        for (path, a), (_, b) in zip(
+                tree_leaves_with_path(params),
+                tree_leaves_with_path(server.engine.params)):
+            assert torch.equal(a.to(torch.bfloat16), b), path
+    finally:
+        server.engine.stop()
+    # without --use_checkpoint_args the family preset (Llama-3-8B) stands
+    plain = build_parser().parse_args(
+        [a for a in argv if a != "--use_checkpoint_args"])
+    from megatron_llm_torch.run_text_generation_server import (
+        model_config_from_args,
+    )
+    assert model_config_from_args(plain).hidden_size == 4096
+
+
+def test_server_flags_of_unported_features_raise():
+    for flags in (["--int8_weights"], ["--alert_rules", "{}"],
+                  ["--wandb_logger"]):
+        args = build_parser().parse_args(TINY + flags)
+        with pytest.raises(NotImplementedError):
+            build_server(args, _FakeTokenizer())
