@@ -159,6 +159,26 @@ Falcon-7B's width (71 heads on one KV head, parallel attention, vocab
 65024) cut to 2 layers goes through the same steps but serving: D and F
 run in its verify.  Each directory is deleted as soon as its step is done.
 
+Phase 11 takes Mixtral-8x7B's published width (hidden 4096, 32 heads on 8
+KV heads, 8 experts of ffn 14336 a layer, top-2, vocab 32000, rope theta
+1e6) through phase 10's steps cut to 1 of 32 layers: built by
+``transformers`` on the card from seed 1234, converted, verified against
+HF in fp32 (the converted capacity is dropless), served through the
+example's argv (``--model_name=mixtral``) and exported back bit for bit.
+Then it trains the same width at 2 layers and sequence 4096 through
+``finetune.main`` for 3 iterations (capacity factor 1.25, aux coefficient
+1e-2, Adam, clip 1.0): finite losses and ``moe aux loss``, the launches,
+step time, tokens/s, MFU, peak memory and the third step's device time
+by group with the MoE's dispatch and combine apart from its expert
+products.  Last, LoRA (rank 8, alpha 16, the attention projections) on
+Llama-2-7B at full width and depth in bf16, sequence 4096, 3 iterations
+through ``finetune.main --lora_rank``: every base tensor keeps its bits,
+the optimizer state holds the adapters' values only, the adapters move,
+and the merged checkpoint that ``--save`` writes equals the script's own
+fp32 merge of the base and the adapters within one bf16 step; its peak
+memory is printed beside the reckoning of the params and the adapters'
+state.
+
 It prints, before its last line, the card's name and power limit, one
 JSON line with every kernel's numbers (``{"kernels": [...]}``), and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -1001,10 +1021,12 @@ def _no_cache_logits(model, params, tokens, cfg=None):
         language_model_forward)
 
     inp = torch.tensor([tokens], device="cuda")
+    cfg = _plain_path(cfg or model.cfg)
     with torch.no_grad():
-        return language_model_forward(params, inp, None, None,
-                                      _plain_path(cfg or model.cfg)
-                                      )[0].float()
+        out = language_model_forward(params, inp, None, None, cfg)
+    if cfg.num_experts > 1:
+        out, _ = out                    # the MoE's routing aux
+    return out[0].float()
 
 
 def _token_check(model, params, tokens, n_prompt, quantized, margin_bound):
@@ -2663,10 +2685,14 @@ _KERNEL_GROUPS = (
 )
 
 
-def _profile_step(run, tag):
-    """Device time by kernel group over one call of ``run`` (which ends
-    in a synchronize), from torch.profiler; returns (ms by group, device
-    ms in all, wall ms).  The full table goes to chiprun_out/."""
+def _profile_step(run, tag, op_groups=None):
+    """Device time by group over one call of ``run`` (which ends in a
+    synchronize), from torch.profiler; returns (ms by group, device ms
+    in all, wall ms).  Kernels group by ``_KERNEL_GROUPS``'s name
+    substrings, the rest as "other kernels".  With ``op_groups`` ((row,
+    aten op names), ...) the cuBLAS row gives way to those ops' own
+    device time, and the rest is "other".  The full table goes to
+    chiprun_out/."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2675,21 +2701,28 @@ def _profile_step(run, tag):
                              ProfilerActivity.CUDA]) as prof:
         run()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {name: 0.0 for name, _ in _KERNEL_GROUPS}
-    groups["other kernels"] = 0.0
+    kernel_groups = _KERNEL_GROUPS[:-1] if op_groups else _KERNEL_GROUPS
+    groups = {name: 0.0 for name, _ in kernel_groups + (op_groups or ())}
+    total = 0.0
     events = prof.key_averages()
     for evt in events:
-        if evt.device_type != DeviceType.CUDA:
-            continue
         ms = evt.self_device_time_total / 1e3
-        name = next((g for g, keys in _KERNEL_GROUPS
-                     if any(k in evt.key for k in keys)), "other kernels")
-        groups[name] += ms
+        if evt.device_type == DeviceType.CUDA:
+            total += ms
+            name = next((g for g, keys in kernel_groups
+                         if any(k in evt.key for k in keys)), None)
+        else:
+            name = next((g for g, keys in op_groups or ()
+                         if evt.key in keys), None)
+        if name is not None:
+            groups[name] += ms
+    groups["other" if op_groups else "other kernels"] = (
+        total - sum(groups.values()))
     with open(os.path.join(OUT_DIR, f"chip_smoke_profile_{tag}.txt"),
               "w") as f:
         f.write(events.table(sort_by="self_device_time_total",
-                             row_limit=60))
-    return groups, sum(groups.values()), wall_ms
+                             row_limit=80))
+    return groups, total, wall_ms
 
 
 def _fp32_grad_check(spec, seq, L=2):
@@ -3074,21 +3107,30 @@ def write_corpus(prefix, spec=CORPUS):
 
 def _leaf_digests(tree):
     """{leaf key: (dtype, shape, sum, weighted sum)} of a tree, computed on
-    the leaves' device over their bits (int64 sums of the leaf viewed as
-    integers, the second weighted by position mod 1000003)."""
-    import torch
-
+    the leaves' device over their bits (``_chunked_digest``)."""
     from megatron_llm_torch.checkpointing import _flat
 
+    return {key: (str(t.dtype), tuple(t.shape)) + _chunked_digest(t)
+            for key, t in _flat(tree).items()}
+
+
+def _chunked_digest(t, chunk=1 << 26):
+    """(sum, position-weighted sum) of a tensor's bits: int64 sums of the
+    tensor viewed as integers, the second weighted by position (from 1)
+    mod 1000003, a chunk at a time (a 7B model's leaf widened to int64
+    whole would not fit on the card)."""
+    import torch
+
     ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
-    out = {}
-    for key, t in _flat(tree).items():
-        v = t.detach().reshape(-1).view(ints[t.element_size()]).to(
-            torch.int64)
-        w = torch.arange(1, v.numel() + 1, device=v.device) % 1000003
-        out[key] = (str(t.dtype), tuple(t.shape), int(v.sum()),
-                    int((v * w).sum()))
-    return out
+    v = t.detach().reshape(-1).view(ints[t.element_size()])
+    total = weighted = 0
+    for lo in range(0, v.numel(), chunk):
+        c = v[lo:lo + chunk].to(torch.int64)
+        w = (torch.arange(lo + 1, lo + c.numel() + 1, device=c.device)
+             % 1000003)
+        total += int(c.sum())
+        weighted += int((c * w).sum())
+    return total, weighted
 
 
 def _run_finetune(argv, entry=None, norms=None):
@@ -3111,8 +3153,9 @@ def _run_finetune(argv, entry=None, norms=None):
                           training.training_log)
 
     def save(save_dir, iteration, params, opt_state=None, *a, **kw):
-        saved[iteration] = {**_leaf_digests(params), **_leaf_digests(
-            checkpointing._opt_state_to_tree(opt_state))}
+        saved[iteration] = {**_leaf_digests(params), **(_leaf_digests(
+            checkpointing._opt_state_to_tree(opt_state))
+            if opt_state is not None else {})}
         return save0(save_dir, iteration, params, opt_state, *a, **kw)
 
     def load(*a, **kw):
@@ -3886,12 +3929,15 @@ def llama3_phase(results, kernels, card):
 # phase 10: HF weights in, verified, served and out
 # ---------------------------------------------------------------------------
 
-# the two HF models of phase 10, at their published widths cut to 2 of 32
-# layers: Llama-3.1-8B (GQA 32/8, theta 5e5, the llama3 rope remap) and
-# Falcon-7B (71 query heads on one KV head, parallel attention)
+# the HF models of phases 10 and 11, at their published widths: in phase
+# 10 Llama-3.1-8B (GQA 32/8, theta 5e5, the llama3 rope remap) and
+# Falcon-7B (71 query heads on one KV head, parallel attention) cut to 2
+# of 32 layers, in phase 11 Mixtral-8x7B (GQA 32/8, theta 1e6, 8 experts
+# of ffn 14336 a layer, top-2) cut to 1 of 32 layers; the ones marked
+# ``serve`` are also served
 WEIGHTS = {
     "llama3": dict(
-        label="Llama-3.1-8B", hf_model="LlamaForCausalLM",
+        label="Llama-3.1-8B", hf_model="LlamaForCausalLM", serve=True,
         hf_config="LlamaConfig", norm=("rmsnorm", "B"), head_dim=128,
         config=dict(vocab_size=128256, hidden_size=4096,
                     intermediate_size=14336, num_hidden_layers=2,
@@ -3910,6 +3956,16 @@ WEIGHTS = {
                     bias=False, alibi=False, max_position_embeddings=2048,
                     layer_norm_epsilon=1e-5, tie_word_embeddings=True),
         rope=None),
+    "mixtral": dict(
+        label="Mixtral-8x7B", hf_model="MixtralForCausalLM", serve=True,
+        hf_config="MixtralConfig", norm=("rmsnorm", "B"), head_dim=128,
+        config=dict(vocab_size=32000, hidden_size=4096,
+                    intermediate_size=14336, num_hidden_layers=1,
+                    num_attention_heads=32, num_key_value_heads=8,
+                    num_local_experts=8, num_experts_per_tok=2,
+                    max_position_embeddings=32768, rms_norm_eps=1e-5,
+                    tie_word_embeddings=False),
+        rope=(1e6, None)),
 }
 # verify_correctness's batches: examples/verify.sh's 2 x 512 ids, 2 of them
 VERIFY_ITERS, VERIFY_BATCH, VERIFY_SEQ, VERIFY_ATOL = 2, 2, 512, 1e-3
@@ -4011,8 +4067,8 @@ def _weights_family(out, kernels, card, work, family):
             + ("rope_parameters" if getattr(hf_cfg, "rope_parameters", None)
                else "rope_theta / rope_scaling") + f": read back {got}")
         theta, scaling = spec["rope"]
-        check(got[0] == theta and got[1] is not None
-              and all(got[1].get(k) == v for k, v in scaling.items()),
+        check(got[0] == theta and (got[1] is None) == (scaling is None)
+              and all(got[1].get(k) == v for k, v in (scaling or {}).items()),
               f"the HF config's rope settings read back as {got}")
     torch.manual_seed(1234)
     t0 = time.perf_counter()
@@ -4076,9 +4132,10 @@ def _weights_family(out, kernels, card, work, family):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (4) served through the example's argv (Llama-3 only)
-    if family == "llama3":
-        _serve_converted(out, kernels, card, work, ck, recorded, phase)
+    # (4) served through the example's argv (Llama-3, Mixtral)
+    if spec.get("serve"):
+        _serve_converted(out, kernels, card, work, ck, recorded, phase,
+                         family)
 
     # (5) back to HF, reloaded by transformers: every tensor the original's
     secs, _ = _run_module(
@@ -4105,12 +4162,12 @@ def _weights_family(out, kernels, card, work, family):
     del hf, back, orig, got
 
 
-def _serve_converted(out, kernels, card, work, ck, recorded, phase):
-    """Step (4): the converted Llama-3 served through
+def _serve_converted(out, kernels, card, work, ck, recorded, phase, family):
+    """Step (4): the converted model served through
     examples/run_text_generation_server.sh's argv with the module path,
-    --model_name=llama3 and a byte-level BPE of 128256 ids for its
-    SentencePiece model; the HTTP server binds an ephemeral port (the
-    argv's --port 5000 is parsed)."""
+    ``--model_name`` of the family and a byte-level BPE of the model's
+    vocabulary for its SentencePiece model; the HTTP server binds an
+    ephemeral port (the argv's --port 5000 is parsed)."""
     import contextlib
     import io
 
@@ -4124,7 +4181,7 @@ def _serve_converted(out, kernels, card, work, ck, recorded, phase):
                            work=work)
     check(script[0] == "tools/run_text_generation_server.py",
           f"the example runs {script[0]}")
-    argv = [{"--model_name=llama2": "--model_name=llama3",
+    argv = [{"--model_name=llama2": f"--model_name={family}",
              "SentencePieceTokenizer": "GPT2BPETokenizer"}.get(a, a)
             for a in script[1:]] + ["--merge_file", mf]
     log(f"  (4) python -m megatron_llm_torch.run_text_generation_server "
@@ -4217,6 +4274,303 @@ def _serve_converted(out, kernels, card, work, ck, recorded, phase):
         server.shutdown()
         engine.stop()
         srv.join(30)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: Mixtral (HF weights in, served, trained) and LoRA
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B's published width cut to 2 of 32 layers, trained at its
+# sequence 4096 with the preset's capacity factor 1.25 and aux coefficient
+# 1e-2 (the parser's defaults)
+MIXTRAL_FLAGS = [
+    "--model_name", "mixtral", "--num_layers", "2", "--hidden_size", "4096",
+    "--num_attention_heads", "32", "--num_attention_heads_kv", "8",
+    "--ffn_hidden_size", "14336", "--vocab_size", "32000",
+    "--seq_length", "4096", "--max_position_embeddings", "4096", "--bf16",
+    "--micro_batch_size", "1", "--global_batch_size", "2",
+    "--train_iters", "3", "--lr", "1e-4", "--clip_grad", "1.0",
+    "--log_interval", "1", "--seed", "1234"]
+# Llama-2-7B at full width and depth, bf16, LoRA rank 8 on the default
+# targets (the attention projections): the finetune users run on one card
+LORA_FLAGS = [
+    "--model_name", "llama2", "--num_layers", "32", "--hidden_size", "4096",
+    "--num_attention_heads", "32", "--ffn_hidden_size", "11008",
+    "--vocab_size", "32000", "--seq_length", "4096",
+    "--max_position_embeddings", "4096", "--bf16", "--micro_batch_size",
+    "1", "--global_batch_size", "2", "--train_iters", "3", "--lr", "1e-4",
+    "--clip_grad", "1.0", "--log_interval", "1", "--seed", "1234",
+    "--lora_rank", "8", "--lora_alpha", "16"]
+# the aten ops whose own device time is the mixture of experts' dispatch
+# and combine (models/moe.py moves rows by index), and its expert
+# products; the routing's other ops (softmax, sort, cumsum, masks, zero
+# fills) fall in "other"
+_MOE_OP_GROUPS = (
+    ("MoE dispatch + combine", ("aten::index_copy", "aten::index_copy_",
+                                "aten::index_select", "aten::index_add",
+                                "aten::index_add_")),
+    ("MoE expert matmuls (bmm)", ("aten::bmm",)),
+    ("other matmuls (mm)", ("aten::mm", "aten::addmm")),
+)
+
+
+def mixtral_phase(results, kernels, card):
+    """Phase 11 (see the module's docstring): Mixtral's HF weights in a
+    directory under build/ that it deletes, then Mixtral's training and
+    the LoRA finetune of Llama-2-7B."""
+    import shutil
+
+    import torch
+
+    work = os.path.join(REPO, "build", "chip_smoke_mixtral")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        results["weights"] = out = {}
+        t0 = time.perf_counter()
+        _weights_family(out, kernels, card, work, "mixtral")
+        log(f"  (phase 11, part 1: {time.perf_counter() - t0:.1f} s)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        results["training"] = _mixtral_training(kernels, card)
+        log(f"  (phase 11, part 2: {time.perf_counter() - t0:.1f} s)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        results["lora"] = _lora_finetune(kernels, card, work)
+        log(f"  (phase 11, part 3: {time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _mixtral_training(kernels, card):
+    """Part 2: Mixtral-8x7B's width at 2 layers trained through
+    ``finetune.main``; the third step is profiled by group."""
+    import torch
+
+    from megatron_llm_torch import finetune, training
+    from megatron_llm_torch.models.language_model import flops_per_token
+    from megatron_llm_torch.models.mixtral import mixtral_config
+
+    L, micro, iters = 2, 2, 3
+    phase = "training Mixtral-8x7B"
+    ref = mixtral_config("8x7B", num_layers=L)
+    prof = {}
+    build0 = training.build_train_step
+
+    def build(*a, **kw):
+        step = build0(*a, **kw)
+        if kw.get("forward_only"):
+            return step
+        calls = []
+
+        def profiled(*sa, **skw):
+            calls.append(1)
+            if len(calls) != iters:
+                return step(*sa, **skw)
+            res = []
+
+            def run():
+                res.append(step(*sa, **skw))
+                torch.cuda.synchronize()
+
+            prof["groups"], prof["device_ms"], prof["wall_ms"] = \
+                _profile_step(run, "mixtral_step", _MOE_OP_GROUPS)
+            return res[0]
+
+        return profiled
+
+    training.build_train_step = build
+    try:
+        it, lines, loss, norm, counts, peaks, wall = _entry_run(
+            finetune.main, MIXTRAL_FLAGS, "Mixtral-8x7B, 2 layers")
+    finally:
+        training.build_train_step = build0
+    its = [ln for ln in lines if ln.startswith(" iteration")]
+    aux = [_log_field(ln, "moe aux loss") for ln in its]
+    check(it == iters and len(its) == iters
+          and all(math.isfinite(loss[i]) for i in loss)
+          and all(x is not None and math.isfinite(x) for x in aux),
+          f"Mixtral: iteration {it}, losses {loss}, moe aux losses {aux}")
+    nums = _loop_numbers(lines)
+    want = {"F": iters * L * micro, "G": iters * L * micro, "H": 0,
+            "B": iters * (2 * L + 1) * micro,
+            "C": iters * (2 * L + 1) * micro, "D": 0, "E": 0, "A": 0,
+            "A'": 0}
+    check(counts == want, f"Mixtral training launches {counts} != {want}")
+    # iteration 2 is the steady step the profiler does not slow down
+    nums = {k: v[:1] for k, v in nums.items()}
+    _check_variants(counts, torch.bfloat16, ref.head_dim, phase)
+    for key, row in (("F", "flash_fwd"), ("G", "flash_bwd_fused"),
+                     ("B", "rmsnorm"), ("C", "rmsnorm_bwd")):
+        _add_launches(kernels, row, phase, counts[key])
+    groups, dev_ms = prof["groups"], prof["device_ms"]
+    share = {k: v / max(dev_ms, 1e-9) for k, v in groups.items()}
+    r = dict(losses=loss, grad_norms=norm, moe_aux_loss=aux,
+             launches=counts, peak_fwd_bwd_gib=max(peaks["fwd_bwd"]),
+             peak_optimizer_gib=max(peaks["optimizer"]), wall_secs=wall,
+             flops_per_token=flops_per_token(ref),
+             profiled_step=dict(groups_ms=groups, device_ms=dev_ms,
+                                wall_ms=prof["wall_ms"],
+                                idle_share=1.0 - dev_ms / prof["wall_ms"]),
+             **nums)
+    log(f"  Mixtral-8x7B width, {L} layers, sequence 4096 ({card}): losses "
+        f"{[loss[i] for i in sorted(loss)]}, moe aux losses {aux}, grad "
+        f"norms {[norm[i] for i in sorted(norm)]}; step "
+        f"{_median(nums['step_ms'])} ms, {_median(nums['tokens_per_sec'])} "
+        f"tokens/s, MFU {_median(nums['mfu_pct'])}% (iteration 2; "
+        f"flops_per_token {r['flops_per_token']:.4g}); peak memory "
+        f"forward+backward {r['peak_fwd_bwd_gib']:.2f} GiB, optimizer "
+        f"{r['peak_optimizer_gib']:.2f} GiB; launches {counts}")
+    log(f"  profiled step 3 ({card}): {dev_ms:.1f} ms of device time in "
+        f"{prof['wall_ms']:.1f} ms; by group " + ", ".join(
+            f"{k} {v:.1f} ms ({100 * share[k]:.1f}%)"
+            for k, v in groups.items()))
+    return r
+
+
+def _lora_finetune(kernels, card, work):
+    """Part 3: LoRA on Llama-2-7B at full width and depth through
+    ``finetune.main --lora_rank 8``: the base params' bits before and
+    after, the optimizer state's size, the adapters' movement, and the
+    merged checkpoint against the script's own fp32 merge."""
+    import shutil
+
+    import torch
+
+    from megatron_llm_torch import checkpointing, finetune
+    from megatron_llm_torch.models.llama import llama_config
+    from megatron_llm_torch.optimizer import MegatronOptimizer
+    from megatron_llm_torch.tree import tree_leaves, tree_leaves_with_path
+
+    L, micro, iters = 32, 2, 3
+    phase = "LoRA Llama-2-7B"
+    ref = llama_config("7B")
+    ck = os.path.join(work, "lora_merged")
+    seen = {}
+    adapter0, merge0 = finetune.LoraAdapter, finetune.merge_lora
+    init0 = MegatronOptimizer.init
+
+    class Adapter(adapter0):
+        def __init__(self, model, base_params):
+            super().__init__(model, base_params)
+            seen["base"] = base_params
+            seen["before"] = {"/".join(p): _chunked_digest(t) for p, t in
+                              tree_leaves_with_path(base_params)}
+
+    def merge(base, lora):
+        seen["lora"] = {"/".join(p): t.detach().clone() for p, t in
+                        tree_leaves_with_path(lora)}
+        return merge0(base, lora)
+
+    def opt_init(self, params):
+        state = init0(self, params)
+        seen["state_numel"] = sum(
+            t.numel() for tree in (state.master_params, state.exp_avg,
+                                   state.exp_avg_sq) if tree is not None
+            for t in tree_leaves(tree))
+        seen["trained_numel"] = sum(t.numel() for t in tree_leaves(params))
+        return state
+
+    finetune.LoraAdapter, finetune.merge_lora = Adapter, merge
+    MegatronOptimizer.init = opt_init
+    try:
+        it, lines, loss, norm, counts, peaks, wall = _entry_run(
+            finetune.main, LORA_FLAGS + ["--save", ck],
+            "LoRA rank 8 on Llama-2-7B, 32 layers")
+    finally:
+        finetune.LoraAdapter, finetune.merge_lora = adapter0, merge0
+        MegatronOptimizer.init = init0
+    check(it == iters and all(math.isfinite(loss[i]) for i in loss),
+          f"LoRA: iteration {it}, losses {loss}")
+    # C runs one norm fewer a micro-batch than in full training: the
+    # first layer's input norm reads the embedding and a frozen scale,
+    # so nothing before it asks for a gradient
+    want = {"F": iters * L * micro, "G": iters * L * micro, "H": 0,
+            "B": iters * (2 * L + 1) * micro,
+            "C": iters * 2 * L * micro, "D": 0, "E": 0, "A": 0,
+            "A'": 0}
+    check(counts == want, f"LoRA launches {counts} != {want}")
+    _check_variants(counts, torch.bfloat16, ref.head_dim, phase)
+    for key, row in (("F", "flash_fwd"), ("G", "flash_bwd_fused"),
+                     ("B", "rmsnorm"), ("C", "rmsnorm_bwd")):
+        _add_launches(kernels, row, phase, counts[key])
+    base = seen.pop("base")
+    n_base = sum(t.numel() for t in tree_leaves(base))
+    base_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(base))
+    after = {"/".join(p): _chunked_digest(t) for p, t in
+             tree_leaves_with_path(base)}
+    unchanged = sum(after[k] == v for k, v in seen["before"].items())
+    check(unchanged == len(after),
+          f"LoRA changed {len(after) - unchanged} base tensors")
+    check(all(not t.requires_grad and t.grad is None
+              for t in tree_leaves(base)), "a base tensor carries a grad")
+    lora = seen["lora"]
+    n_lora = sum(t.numel() for t in lora.values())
+    b_max = max(float(t.abs().max()) for k, t in lora.items()
+                if k.endswith("lora_B"))
+    check(b_max > 0, "the adapters' B stayed at zero")
+    check(seen["trained_numel"] == n_lora
+          and seen["state_numel"] <= 3 * n_lora,
+          f"optimizer state of {seen['state_numel']} values for "
+          f"{seen['trained_numel']} trained ({n_lora} adapter values)")
+    nums = _loop_numbers(lines)
+    peak = max(peaks["fwd_bwd"])
+    # the merged checkpoint against the script's own merge, layer by
+    # layer: kernel + scale * A @ B in fp32, rounded to bf16 once
+    params, opt, meta = checkpointing.load_checkpoint(ck, device="cuda")
+    check(opt is None and meta["iteration"] == iters,
+          f"merged checkpoint: optimizer state {opt is not None}, "
+          f"iteration {meta['iteration']}")
+    worst, exact, total = 0.0, 0, 0
+    flat_base = {"/".join(p): t for p, t in tree_leaves_with_path(base)}
+    for p, t in tree_leaves_with_path(params):
+        key = "/".join(p)
+        a_key = key[:-len("kernel")] + "lora_A"
+        if key.endswith("/kernel") and a_key in lora:
+            a, b = lora[a_key], lora[a_key[:-1] + "B"]
+            sc = lora[a_key[:-1] + "scale"]
+            for i in range(t.shape[0]):
+                want_i = (flat_base[key][i].float()
+                          + (a[i].float() @ b[i].float()) * float(sc[i])
+                          ).to(torch.bfloat16)
+                step = want_i.float().abs() * 2.0 ** -8
+                diff = (t[i].float() - want_i.float()).abs()
+                worst = max(worst, float((diff - step).max()))
+                exact += int((t[i] == want_i).sum())
+                total += t[i].numel()
+        else:
+            check(torch.equal(t, flat_base[key]),
+                  f"merged checkpoint changed the untargeted {key}")
+    check(worst <= 0.0, f"merged kernels beyond one bf16 step of the fp32 "
+                        f"merge by {worst}")
+    ck_bytes = _dir_bytes(ck)
+    shutil.rmtree(ck)
+    reckoning = (base_bytes + n_lora * (2 + 4 * 3 + 4)) / 2**30
+    log(f"  LoRA rank 8 on Llama-2-7B, 32 layers, sequence 4096 ({card}): "
+        f"losses {[loss[i] for i in sorted(loss)]}; step "
+        f"{_median(nums['step_ms'])} ms, {_median(nums['tokens_per_sec'])} "
+        f"tokens/s, MFU {_median(nums['mfu_pct'])}% (iterations 2-3; MFU "
+        f"counts the full model's 6ND); {n_base / 1e9:.3f} B base params "
+        f"frozen, all {len(after)} base tensors unchanged bit for bit; "
+        f"{n_lora / 1e6:.2f} M adapter values, optimizer state "
+        f"{seen['state_numel'] / 1e6:.2f} M values; peak memory "
+        f"forward+backward {peak:.2f} GiB beside the reckoning of the "
+        f"params and the adapters' state {reckoning:.2f} GiB (the rest is "
+        f"activations); merged checkpoint {_gb(ck_bytes)}: {exact} of "
+        f"{total} merged kernel values equal the fp32 merge's bits, the "
+        f"rest within one bf16 step")
+    return dict(losses=loss, grad_norms=norm, launches=counts,
+                base_params=n_base, base_tensors_unchanged=unchanged,
+                adapter_values=n_lora, optimizer_state_values=seen[
+                    "state_numel"], peak_fwd_bwd_gib=peak,
+                peak_optimizer_gib=max(peaks["optimizer"]),
+                reckoning_gib=reckoning, merged_bytes=ck_bytes,
+                merged_exact=exact, merged_total=total, wall_secs=wall,
+                **nums)
 
 
 # ---------------------------------------------------------------------------
@@ -4361,6 +4715,13 @@ def main(argv=None) -> int:
     weights_phase(weights, kernels, card)
     log(f"phase 10 passed in {time.perf_counter() - t0:.1f} s")
     log(f"weights ({card}): " + json.dumps(weights))
+    t0 = time.perf_counter()
+    log("phase 11: Mixtral-8x7B width: HF weights in, verified, served and "
+        "out (1 layer), trained (2 layers); LoRA on Llama-2-7B (32 layers)")
+    mixtral = {}
+    mixtral_phase(mixtral, kernels, card)
+    log(f"phase 11 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"mixtral and LoRA ({card}): " + json.dumps(mixtral))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     names = ("paged_decode", "paged_prefill", "paged_decode_int8",
@@ -4379,7 +4740,8 @@ def main(argv=None) -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke_result.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "serving": serving,
                    "training": training, "corpus": corpus, "gpt2": gpt2,
-                   "llama3": llama3, "weights": weights}, f, indent=1)
+                   "llama3": llama3, "weights": weights,
+                   "mixtral": mixtral}, f, indent=1)
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,13 +14,13 @@ ways:
   package, and reference features the JAX package does not implement
   (``_add_unimplemented_compat_args``), accepted with a warning when one
   is set away from its default (``warn_unimplemented``);
-* flags of features the port has not ported yet (parallel degrees, MoE,
-  the metrics writers, resilience, the training-side telemetry, ...):
-  they parse, and asking for one raises ``NotImplementedError`` where the
-  feature is refused: the parallel sizes in ``ParallelConfig``,
-  ``--num_experts`` in the model, the rest through ``refuse_unported``
-  with the entry point's table (``UNPORTED_TRAINING``,
-  ``UNPORTED_SERVING``).
+* flags of features the port has not ported yet (parallel degrees, the
+  metrics writers, resilience, the training-side telemetry, ...): they
+  parse, and asking for one raises ``NotImplementedError`` where the
+  feature is refused: the parallel sizes in ``ParallelConfig``, the rest
+  through ``refuse_unported`` with the entry point's table
+  (``UNPORTED_TRAINING``, ``UNPORTED_SERVING``).  The mixture of experts'
+  flags (``--num_experts``, ``--moe_*``) are honoured.
 
 ``--device`` picks the torch device (``cuda`` unless the caller asks for
 ``cpu``).
@@ -82,7 +82,7 @@ def _add_network_size_args(parser):
     g.add_argument("--num_attention_heads", type=int, default=None)
     g.add_argument("--num_attention_heads_kv", type=int, default=None)
     g.add_argument("--kv_channels", type=int, default=None)
-    # mixture of experts: not ported (the model refuses num_experts > 1)
+    # mixture of experts (models/moe.py)
     g.add_argument("--num_experts", type=int, default=0)
     g.add_argument("--moe_top_k", type=int, default=2)
     g.add_argument("--moe_capacity_factor", type=float, default=1.25)
@@ -502,11 +502,6 @@ def _add_unimplemented_compat_args(parser):
 # ---------------------------------------------------------------------------
 
 _UNPORTED_COMMON = {
-    "moe_top_k": "the mixture of experts (ROADMAP item 13)",
-    "moe_capacity_factor": "the mixture of experts (ROADMAP item 13)",
-    "moe_min_capacity": "the mixture of experts (ROADMAP item 13)",
-    "moe_aux_loss_coeff": "the mixture of experts (ROADMAP item 13)",
-    "moe_z_loss_coeff": "the mixture of experts (ROADMAP item 13)",
     "decoder_seq_length": "the T5 decoder (ROADMAP item 14)",
     "context_parallel_algo": "context parallelism (ROADMAP item 15)",
     "multislice_flat_reduce": "multislice training (ROADMAP item 15)",
@@ -688,6 +683,19 @@ def validate_args(args):
         mult = (args.make_vocab_size_divisible_by
                 * args.tensor_model_parallel_size)
         args.padded_vocab_size = -(-args.vocab_size // mult) * mult
+    # a dropless capacity (factor >= E / top_k: every expert can hold a
+    # whole row) is what converted models record; warn when training
+    # asks for it, as the JAX package does
+    if (args.num_experts or 0) > 1:
+        dropless = args.num_experts / max(args.moe_top_k, 1)
+        if args.moe_capacity_factor >= dropless:
+            print(f" > WARNING: moe_capacity_factor "
+                  f"({args.moe_capacity_factor:g}) >= num_experts/top_k "
+                  f"({dropless:g}) is a DROPLESS (inference-exact) "
+                  f"setting; the expert buffers grow with it at "
+                  f"seq_length={args.seq_length}.  For training, "
+                  f"--moe_capacity_factor 1.25 (the default) is the usual "
+                  f"choice.", flush=True)
     return args
 
 

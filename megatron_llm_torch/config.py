@@ -8,9 +8,11 @@ defaults and with the same ``__post_init__`` derivations.  Dtype names
 ``*_from_args`` functions lower the port's CLI (``arguments.py``) into
 them, for the flags this slice honours.
 
-The fields that select features outside the ported slices (MoE, tokentype
+The fields that select features outside the ported slices (tokentype
 embeddings and every parallel degree above 1) are kept so that asking for
-one raises ``NotImplementedError`` instead of being ignored.
+one raises ``NotImplementedError`` instead of being ignored.  The MoE
+fields are the JAX package's; ``moe_expert_axis`` is validated and has no
+effect on one device.
 """
 
 from __future__ import annotations
@@ -105,8 +107,17 @@ class TransformerConfig:
     # --- LIMA dropout: hidden dropout rising linearly over the layers ---
     lima_dropout: bool = False
 
-    # --- mixture of experts: not ported (asking for it raises) ---
-    num_experts: int = 0
+    # --- mixture of experts (models/moe.py): experts replace the dense
+    # MLP in every layer when num_experts > 1 ---
+    num_experts: int = 0                 # 0/1 = dense MLP
+    moe_top_k: int = 2                   # experts per token
+    moe_capacity_factor: float = 1.25    # per-expert buffer slack
+    moe_min_capacity: int = 4            # capacity floor (decode s=1)
+    moe_aux_loss_coeff: float = 1e-2     # load-balance loss weight
+    moe_z_loss_coeff: float = 0.0        # router logit z-loss weight
+    # the expert dim's placement over a mesh: auto | expert | replicated
+    # (validated; one device holds every expert)
+    moe_expert_axis: str = "auto"
     # --- family knobs: Qwen2's QKV-only bias, Gemma's embedding scale,
     # GPT-NeoX's partial rotary ---
     add_qkv_bias: bool = False
@@ -134,6 +145,18 @@ class TransformerConfig:
             raise ValueError(
                 f"dtypes must be one of {sorted(DTYPES)}, got "
                 f"{self.params_dtype!r}/{self.compute_dtype!r}")
+        if self.num_experts > 1:
+            if self.add_bias_linear:
+                raise ValueError("MoE experts do not support linear biases "
+                                 "(set add_bias_linear=False)")
+            if not (1 <= self.moe_top_k <= self.num_experts):
+                raise ValueError(
+                    f"moe_top_k ({self.moe_top_k}) must be in "
+                    f"[1, num_experts={self.num_experts}]")
+            if self.moe_expert_axis not in ("auto", "expert", "replicated"):
+                raise ValueError(
+                    f"moe_expert_axis must be auto|expert|replicated, got "
+                    f"{self.moe_expert_axis!r}")
 
     @property
     def head_dim(self) -> int:
@@ -291,6 +314,11 @@ def transformer_config_from_args(args, model_name: Optional[str] = None
         embedding_multiplier=args.embedding_multiplier,
         rotary_percent=args.rotary_percent,
         num_experts=args.num_experts,
+        moe_top_k=args.moe_top_k,
+        moe_capacity_factor=args.moe_capacity_factor,
+        moe_min_capacity=args.moe_min_capacity,
+        moe_aux_loss_coeff=args.moe_aux_loss_coeff,
+        moe_z_loss_coeff=args.moe_z_loss_coeff,
     )
 
 

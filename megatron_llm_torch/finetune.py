@@ -11,8 +11,9 @@ the repo's ``finetune.py``).
 
 Same flags, presets and log lines as the JAX entry point, for the
 families the port has: ``--model_name`` llama, llama2, llama3, codellama,
-falcon, mistral, qwen2, gemma, gpt_neox, pythia or gpt (mixtral raises: the
-mixture of experts is not ported).  ``--data_path`` trains on an mmap
+falcon, mistral, mixtral (the mixture of experts, ``models/moe.py``, with
+its ``--num_experts`` / ``--moe_*`` flags), qwen2, gemma, gpt_neox,
+pythia or gpt.  ``--data_path`` trains on an mmap
 corpus (``tools/preprocess_data.py`` writes one that both packages read):
 packed GPT samples, split by ``--split`` into train and valid (evaluated
 every ``--eval_interval``), weighted blends, or ``--data_type
@@ -29,11 +30,15 @@ then the optimizer and scheduler state and the data order (not with
 Dropout (``--hidden_dropout``, ``--attention_dropout``, ``--lima_dropout``;
 the ``gpt`` preset keeps the parser's 0.1), ``--recompute_granularity``
 and the fused LM-head cross entropy train as in the JAX entry point;
-``--eval_only`` runs one evaluation and no training.  ``--device cpu``
-runs it on the CPU (the tests do); the default is the card.
-Parallelism, ``--fp16``, ``--async_save`` and the flags of the other
-features the port lacks (``arguments.UNPORTED_TRAINING``, LoRA) parse and
-raise ``NotImplementedError``.  ``python -m megatron_llm_torch.pretrain_gpt``
+``--eval_only`` runs one evaluation and no training.  ``--lora_rank``
+(with ``--lora_alpha`` and ``--lora_targets``) trains LoRA adapters over
+the frozen base (``lora.py``); its checkpoints hold the merged
+base-format params and no optimizer state, and a LoRA run with
+``--load`` needs ``--finetune``.  ``--device cpu`` runs it on the CPU
+(the tests do); the default is the card.  Parallelism, ``--fp16``,
+``--async_save`` and the flags of the other features the port lacks
+(``arguments.UNPORTED_TRAINING``) parse and raise
+``NotImplementedError``.  ``python -m megatron_llm_torch.pretrain_gpt``
 is this entry point with ``--model_name=gpt``.
 """
 
@@ -58,6 +63,7 @@ from megatron_llm_torch.config import (
     train_config_from_args,
     transformer_config_from_args,
 )
+from megatron_llm_torch.lora import LoraAdapter, merge_lora
 from megatron_llm_torch.models import MODEL_REGISTRY
 from megatron_llm_torch.models.language_model import (
     init_language_model_params,
@@ -68,10 +74,8 @@ from megatron_llm_torch.optimizer import (
 )
 from megatron_llm_torch.tokenizer import build_tokenizer
 from megatron_llm_torch.training import build_train_step, pretrain
+from megatron_llm_torch.tree import tree_leaves
 
-# the JAX entry point's families; the port has all but mixtral
-FAMILIES = ("codellama", "falcon", "gemma", "gpt", "gpt_neox", "llama",
-            "llama2", "llama3", "mistral", "mixtral", "pythia", "qwen2")
 # the JAX entry point's presets (the root finetune.py's MODEL_DEFAULTS)
 MODEL_DEFAULTS = {
     "llama": dict(position_embedding_type="rotary", glu_activation="swiglu",
@@ -93,6 +97,11 @@ MODEL_DEFAULTS = {
     "mistral": dict(position_embedding_type="rotary", glu_activation="swiglu",
                     use_rms_norm=True, use_bias=False, tie_embed_logits=False,
                     sliding_window_size=4096,
+                    hidden_dropout=0.0, attention_dropout=0.0),
+    # sparse-MoE mistral
+    "mixtral": dict(position_embedding_type="rotary", glu_activation="swiglu",
+                    use_rms_norm=True, use_bias=False, tie_embed_logits=False,
+                    num_experts=8, moe_top_k=2, rope_theta=1e6,
                     hidden_dropout=0.0, attention_dropout=0.0),
     "qwen2": dict(position_embedding_type="rotary", glu_activation="swiglu",
                   use_rms_norm=True, use_bias=False, add_qkv_bias=True,
@@ -117,21 +126,18 @@ MODEL_DEFAULTS = {
 
 def extra_args(parser):
     g = parser.add_argument_group("finetune")
-    g.add_argument("--model_name", required=True, choices=FAMILIES)
+    g.add_argument("--model_name", required=True,
+                   choices=sorted(MODEL_DEFAULTS))
     g.add_argument("--model_type", default=None)  # compat
-    # LoRA: parsed with the JAX entry point's names; not ported (raises)
-    g.add_argument("--lora_rank", type=int, default=0)
-    g.add_argument("--lora_alpha", type=float, default=None)
-    g.add_argument("--lora_targets", default="query_key_value,dense")
+    # LoRA (lora.py): low-rank adapters over a frozen base; checkpoints
+    # are saved merged (the base format)
+    g.add_argument("--lora_rank", type=int, default=0,
+                   help="enable LoRA with this rank (0 = off)")
+    g.add_argument("--lora_alpha", type=float, default=None,
+                   help="LoRA scaling numerator (default 2*rank)")
+    g.add_argument("--lora_targets", default="query_key_value,dense",
+                   help="comma-separated linear names to adapt")
     return parser
-
-
-# the entry point's own flags of features it has not ported
-_UNPORTED_HERE = {
-    "lora_rank": "LoRA (ROADMAP item 13)",
-    "lora_alpha": "LoRA (ROADMAP item 13)",
-    "lora_targets": "LoRA (ROADMAP item 13)",
-}
 
 
 _INVERTED_FLAGS = {
@@ -142,10 +148,6 @@ _INVERTED_FLAGS = {
 
 def _apply_model_defaults(args, argv):
     """Model presets fill any flag the user didn't pass explicitly."""
-    if args.model_name not in MODEL_DEFAULTS:
-        raise NotImplementedError(
-            f"--model_name {args.model_name} is not ported yet (the port "
-            f"trains {', '.join(sorted(MODEL_DEFAULTS))})")
     for k, v in MODEL_DEFAULTS[args.model_name].items():
         flags = [f"--{k}"]
         if k in _INVERTED_FLAGS:
@@ -298,6 +300,12 @@ _CKPT_ARG_MAP = {
     "rope_theta": "rope_theta",
     "rope_scaling_factor": "rope_scaling_factor",
     "rope_llama3_scaling": "rope_llama3_scaling",
+    # MoE architecture fields: a dense rebuild of an MoE checkpoint (or
+    # the reverse) would not fit its param tree
+    "num_experts": "num_experts",
+    "moe_top_k": "moe_top_k",
+    "moe_capacity_factor": "moe_capacity_factor",
+    "moe_min_capacity": "moe_min_capacity",
     # qwen2's QKV-only bias changes the param tree
     "add_qkv_bias": "add_qkv_bias",
     # gemma's embedding normalizer changes forward math, not the tree
@@ -311,8 +319,7 @@ _CKPT_ARG_MAP = {
 def checkpoint_architecture(load: str, load_iters=None) -> dict:
     """{CLI args attribute: value} of the architecture recorded in the
     checkpoint (reference checkpointing.py:520-560), or {} when it
-    records none.  The JAX entry point's MoE fields are left out: the port
-    has no MoE."""
+    records none."""
     ckpt_args = checkpointing.load_checkpoint_args(load, load_iters)
     if not ckpt_args:
         print(" > WARNING: --use_checkpoint_args but the checkpoint "
@@ -345,8 +352,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv, extra_args_provider=extra_args)
     _apply_model_defaults(args, argv)
-    refuse_unported(args, {**UNPORTED_TRAINING, **_UNPORTED_HERE},
-                    extra_args)
+    refuse_unported(args, UNPORTED_TRAINING, extra_args)
+    if args.lora_rank and args.load and not args.finetune:
+        raise SystemExit(
+            "--lora_rank with --load requires --finetune: LoRA runs start "
+            "fresh from base weights (checkpoints are saved merged; there "
+            "is no LoRA-shaped optimizer state to resume)")
     arch = {}
     if args.use_checkpoint_args and args.load:
         arch = _apply_checkpoint_args(args)
@@ -397,6 +408,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if params is None:
         params = model.init(args.seed)
 
+    # LoRA: the trained tree becomes the adapters over the frozen base
+    lora_base = None
+    if args.lora_rank:
+        lora_base = params
+        model = LoraAdapter(model, lora_base)
+        params = model.init_lora(
+            args.lora_rank, args.seed + 1, alpha=args.lora_alpha,
+            targets=tuple(t for t in args.lora_targets.split(",") if t))
+        print(f" > LoRA rank {args.lora_rank}: "
+              f"{model.num_params(params) / 1e6:.2f}M adapter params "
+              f"trainable, base frozen", flush=True)
+
     # the evaluations before start_iteration read these valid samples
     # (reference: training.py build_train_valid_test_data_iterators)
     valid_done = (start_iteration // max(args.eval_interval, 1)
@@ -406,8 +429,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         args, num_micro, consumed_samples=consumed_samples,
         tokenizer=tokenizer, consumed_valid_samples=valid_done,
         device=model.device)
+    # the first leaf's dtype: the params' own, or the adapters'
     optimizer = MegatronOptimizer(tc,
-                                  params_dtype=model.cfg.params_torch_dtype)
+                                  params_dtype=tree_leaves(params)[0].dtype)
     scheduler = OptimizerParamScheduler(
         max_lr=tc.lr, min_lr=tc.min_lr,
         lr_warmup_steps=tc.lr_warmup_iters,
@@ -441,6 +465,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     def save_natural(save_dir, it_, params_, opt_state_, scheduler_,
                      consumed_samples_):
+        if lora_base is not None:
+            # the merged params in the base format, which loads wherever
+            # a base checkpoint does; the adapters' optimizer state does
+            # not fit that tree, so none is saved
+            params_, opt_state_ = merge_lora(lora_base, params_), None
         checkpointing.save_checkpoint(
             save_dir, it_, params_,
             None if args.no_save_optim else opt_state_, scheduler_,

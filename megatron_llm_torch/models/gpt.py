@@ -64,10 +64,14 @@ class GPTModel:
                  kv_caches=None):
         """Per-token loss [b, s] fp32 when ``labels`` are given, else
         logits [b, s, V] (each with the new caches under ``kv_caches``).
+        A mixture of experts returns ``(loss, moe_aux)`` on the loss path
+        without caches (the routing aux ``[lb, z]``, which the train step
+        weights); generation drops the aux.
         ``rng_key``: the micro-batch's dropout key (an integer,
         ``megatron_llm_torch/random.py``); without one nothing is
         dropped."""
         cfg = self.cfg
+        moe_on = cfg.num_experts > 1
         if (labels is not None and kv_caches is None
                 and cfg.fused_lm_cross_entropy):
             # the head and the loss fused over vocabulary chunks: the [b,
@@ -76,16 +80,27 @@ class GPTModel:
             h = language_model_forward(params, tokens, position_ids,
                                        attention_mask, cfg, rng_key=rng_key,
                                        train=train, compute_logits=False)
+            moe_aux = None
+            if moe_on:
+                h, moe_aux = h
             head = lm_head_weight(params).to(cfg.compute_torch_dtype)
-            return fused_linear_cross_entropy(
+            loss = fused_linear_cross_entropy(
                 h, head, labels, chunk_size=cfg.fused_ce_chunk_size)
+            return (loss, moe_aux) if moe_on else loss
         out = language_model_forward(params, tokens, position_ids,
                                      attention_mask, cfg, rng_key=rng_key,
                                      train=train, kv_caches=kv_caches)
+        moe_aux = new_caches = None
+        if kv_caches is not None:
+            logits, new_caches = out
+        elif moe_on:
+            logits, moe_aux = out
+        else:
+            logits = out
         if labels is None:
-            return out
-        logits, new_caches = out if kv_caches is not None else (out, None)
+            # generation: the routing aux is not needed
+            return (logits, new_caches) if kv_caches is not None else logits
         loss = vocab_parallel_cross_entropy(logits.float(), labels)
         if kv_caches is not None:
             return loss, new_caches
-        return loss
+        return (loss, moe_aux) if moe_on else loss

@@ -98,9 +98,10 @@ def language_model_forward(params, tokens: torch.Tensor,
                            freqs=None):
     """Full LM forward -> logits [b, s, V] (or the final hidden states
     when ``compute_logits=False``); with ``kv_caches`` returns
-    ``(out, new_caches)``.  ``rng_key`` (an integer key,
-    ``megatron_llm_torch/random.py``) is split into the embedding's and
-    the stack's dropout keys.  Differentiable; inference callers run it
+    ``(out, new_caches)``, and for a mixture of experts without them
+    ``(out, moe_aux)`` (the layers' routing aux ``[lb, z]``, summed).
+    ``rng_key`` (an integer key, ``megatron_llm_torch/random.py``) is
+    split into the embedding's and the stack's dropout keys.  Differentiable; inference callers run it
     under ``torch.no_grad()``."""
     train = train and kv_caches is None
     k_embed, k_stack = (mrandom.split(rng_key) if rng_key is not None
@@ -113,13 +114,19 @@ def language_model_forward(params, tokens: torch.Tensor,
                             attention_mask=attention_mask,
                             position_ids=position_ids, kv_caches=kv_caches,
                             rng_key=k_stack, train=train)
-    h, new_caches = out if kv_caches is not None else (out, None)
+    moe_aux = None
+    if kv_caches is not None:
+        h, new_caches = out
+    elif cfg.num_experts > 1:
+        h, moe_aux = out
+    else:
+        h = out
     if compute_logits:
         h = parallel_lm_logits(h, lm_head_weight(params),
                                compute_dtype=cfg.compute_torch_dtype)
     if kv_caches is not None:
         return h, new_caches
-    return h
+    return (h, moe_aux) if moe_aux is not None else h
 
 
 def flops_per_token(cfg: TransformerConfig,
@@ -136,7 +143,10 @@ def flops_per_token(cfg: TransformerConfig,
     mult = 2 if cfg.glu_activation else 1
     qkv = h * (nh + 2 * ng) * d
     proj = nh * d * h
-    mlp_p = h * ffn * mult + ffn * h      # dense MLP (MoE is not ported)
+    mlp_p = h * ffn * mult + ffn * h
+    if cfg.num_experts > 1:
+        # MoE: top_k experts touched per token + the router matmul
+        mlp_p = cfg.moe_top_k * mlp_p + h * cfg.num_experts
     dense = L * (qkv + proj + mlp_p)
     emb = cfg.padded_vocab_size * h
     # fwd = 2 flops/param/token, bwd = 4, attention = 2*2*s*nh*d per layer
@@ -147,8 +157,6 @@ def flops_per_token(cfg: TransformerConfig,
 def unsupported_features(cfg: TransformerConfig) -> list:
     """Names of the config features this slice has not ported."""
     out = []
-    if cfg.num_experts > 1:
-        out.append("mixture of experts")
     if cfg.num_tokentypes > 0:
         out.append("tokentype embeddings")
     return out

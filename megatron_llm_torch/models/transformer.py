@@ -1,8 +1,8 @@
 """Transformer core: attention (flash attention for the no-cache
 forward, the paged KV branch of the serving engine over plain or int8
-pools), MLP, the decoder layer (pre- or post-LN, sequential or Falcon's
-parallel attention + MLP) and the layer stack, for inference and
-single-device training.
+pools), MLP or mixture of experts (``models/moe.py``), the decoder
+layer (pre- or post-LN, sequential or Falcon's parallel attention +
+MLP) and the layer stack, for inference and single-device training.
 
 The counterpart of ``megatron_llm_tpu/models/transformer.py``, with its
 layouts: activations ``[b, s, ...]``, the packed grouped QKV projection
@@ -11,6 +11,11 @@ layouts: activations ``[b, s, ...]``, the packed grouped QKV projection
 Python loop over the layers (the JAX package scans it); each forward
 unbinds the stacked params once, so the backward stacks each leaf's
 layer grads once.
+
+With ``num_experts > 1`` each layer's MLP is the mixture of experts, and
+the no-cache stack returns the sum over the layers of their routing aux
+``[lb, z]`` beside the hidden states (the JAX package carries it through
+its scan); the paged branch drops it, as the JAX package does.
 
 Dropout follows the JAX package's sites and streams: the step's key
 (an integer, ``megatron_llm_torch/random.py``) is split into one key a
@@ -41,6 +46,7 @@ from torch.utils.checkpoint import (
 
 from megatron_llm_torch import random as mrandom
 from megatron_llm_torch.config import PositionEmbeddingType, TransformerConfig
+from megatron_llm_torch.models.moe import init_moe_mlp_params, moe_mlp
 from megatron_llm_torch.ops import chunked_attention
 from megatron_llm_torch.ops.activations import apply_mlp_activation
 from megatron_llm_torch.ops.kernels.flash_attention import flash_attention
@@ -98,6 +104,10 @@ def init_attention_params(generator, cfg: TransformerConfig, dtype,
 
 
 def init_mlp_params(generator, cfg: TransformerConfig, dtype, device=None):
+    """The dense MLP's params, or the mixture of experts' when
+    ``num_experts > 1``."""
+    if cfg.num_experts > 1:
+        return init_moe_mlp_params(generator, cfg, dtype, device)
     mult = 2 if cfg.glu_activation else 1
     return {
         "dense_h_to_4h": init_linear_params(
@@ -369,8 +379,9 @@ def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
     (``parallel_attn``, with the MLP's own norm under
     ``parallel_layernorm``).  ``rng_key`` is the layer's dropout key and
     ``hidden_dropout`` overrides the config's rate (LIMA's per-layer
-    rate).  Returns ``(out, new_cache)``; ``new_cache`` is None without a
-    cache."""
+    rate).  Returns ``(out, new_cache, moe_aux)``: ``new_cache`` is None
+    without a cache, ``moe_aux`` (the routing aux ``[lb, z]`` fp32) None
+    for a dense MLP."""
     if hidden_dropout is None:
         hidden_dropout = cfg.hidden_dropout
     k_attn_drop, k_h1, k_h2 = (mrandom.split(rng_key, 3)
@@ -392,26 +403,32 @@ def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
     else:
         attn_out = attention(ln_out, params["attention"], cfg, **attn_kw)
         new_cache = None
+
+    def run_mlp(inp):
+        if cfg.num_experts > 1:
+            return moe_mlp(inp, params["mlp"], cfg)
+        return mlp(inp, params["mlp"], cfg), None
+
     if cfg.parallel_attn:
         # the MLP reads the same norm output as attention (or its own),
         # and attn + mlp are added before the one residual add
         mlp_in = (norm(x, params["mlp_norm"]) if cfg.parallel_layernorm
                   else ln_out)
-        out = x + _dropout(attn_out + mlp(mlp_in, params["mlp"], cfg),
-                           hidden_dropout, k_h1, train)
+        mlp_out, moe_aux = run_mlp(mlp_in)
+        out = x + _dropout(attn_out + mlp_out, hidden_dropout, k_h1, train)
         if cfg.use_post_ln:
             out = norm(out, params["input_norm"])
-        return out, new_cache
+        return out, new_cache, moe_aux
     h = x + _dropout(attn_out, hidden_dropout, k_h1, train)
     if cfg.use_post_ln:
         h = norm(h, params["input_norm"])
     ln2 = (norm(h, params["post_attention_norm"]) if not cfg.use_post_ln
            else h)
-    out = h + _dropout(mlp(ln2, params["mlp"], cfg), hidden_dropout, k_h2,
-                       train)
+    mlp_out, moe_aux = run_mlp(ln2)
+    out = h + _dropout(mlp_out, hidden_dropout, k_h2, train)
     if cfg.use_post_ln:
         out = norm(out, params["post_attention_norm"])
-    return out, new_cache
+    return out, new_cache, moe_aux
 
 
 def _lima_dropout_rates(cfg: TransformerConfig) -> list:
@@ -442,7 +459,9 @@ def transformer_stack(x: torch.Tensor, stack_params, cfg: TransformerConfig,
                       kv_caches=None, rng_key: Optional[int] = None,
                       train: bool = False):
     """Run the layers in turn, then the final norm.  Returns
-    ``(h, new_caches)`` with ``kv_caches``, else ``h``.
+    ``(h, new_caches)`` with ``kv_caches``, else ``h``, or ``(h,
+    moe_aux)`` for a mixture of experts (the layers' ``[lb, z]`` added
+    up in layer order, in fp32).
 
     ``rng_key`` (the stack's dropout key) is split into one key a layer;
     ``lima_dropout`` gives each layer its own hidden-dropout rate.  Under
@@ -450,8 +469,9 @@ def transformer_stack(x: torch.Tensor, stack_params, cfg: TransformerConfig,
     runs under ``torch.utils.checkpoint`` (non-reentrant, as
     ``torch.autograd.grad`` needs): 'full', 'uniform' and 'block' keep
     only the layer's input, 'selective' also the outputs of its dense
-    products.  ``recompute_num_layers`` is not read, as in the JAX
-    package.
+    products; a checkpointed MoE layer returns its aux with its output,
+    so the aux is counted once.  ``recompute_num_layers`` is not read,
+    as in the JAX package.
 
     The final norm goes through the norm kernel like the layers' norms
     (under ``use_fused_rmsnorm`` / ``use_fused_layernorm``), where the JAX
@@ -472,35 +492,47 @@ def transformer_stack(x: torch.Tensor, stack_params, cfg: TransformerConfig,
     unbound = tree_map(lambda p: p.unbind(0), stack_params["layers"])
     new_caches = [] if kv_caches is not None else None
 
+    moe_on = cfg.num_experts > 1
+
     def layer_fn(h, layer_p, key, rate):
-        return transformer_layer(
+        out, _, moe_aux = transformer_layer(
             h, layer_p, cfg, freqs=freqs, attention_mask=attention_mask,
             position_ids=position_ids, rng_key=key, train=train,
-            hidden_dropout=rate)[0]
+            hidden_dropout=rate)
+        return (out, moe_aux) if moe_on else out
 
     h = x
+    aux_acc = (torch.zeros(2, dtype=torch.float32, device=x.device)
+               if moe_on and kv_caches is None else None)
     for i in range(L):
         layer_p = tree_map(lambda p: p[i], unbound)
         rate = rates[i] if rates is not None else None
         if kv_caches is not None:
-            h, c = transformer_layer(
+            # the routing aux is not needed at decode time: dropped
+            h, c, _ = transformer_layer(
                 h, layer_p, cfg, freqs=freqs, attention_mask=attention_mask,
                 position_ids=position_ids, kv_cache=kv_caches[i])
             new_caches.append(c)
-        elif recompute is not None:
+            continue
+        if recompute is not None:
             # the masks' generators are seeded inside layer_fn, so the
             # recompute draws the same masks; no default generator is read
-            h = checkpoint(layer_fn, h, layer_p, keys[i], rate,
-                           use_reentrant=False, preserve_rng_state=False,
-                           **recompute)
+            out = checkpoint(layer_fn, h, layer_p, keys[i], rate,
+                             use_reentrant=False, preserve_rng_state=False,
+                             **recompute)
         else:
-            h = layer_fn(h, layer_p, keys[i], rate)
+            out = layer_fn(h, layer_p, keys[i], rate)
+        if moe_on:
+            h, moe_aux = out
+            aux_acc = aux_acc + moe_aux
+        else:
+            h = out
     h = apply_norm(h, stack_params["final_norm"], cfg.normalization,
                    eps=cfg.layernorm_epsilon, fp32_compute=cfg.norm_in_fp32,
                    use_kernel=_norm_uses_kernel(cfg))
     if kv_caches is not None:
         return h, new_caches
-    return h
+    return (h, aux_acc) if moe_on else h
 
 
 @functools.lru_cache(maxsize=8)

@@ -4,8 +4,9 @@ The tp=1 subset of ``megatron_llm_tpu/parallel/layers.py``: column- and
 row-parallel linears are plain matmuls over ``{'kernel': [in, out]}``
 params (the JAX package's layout, so one param dict loads into both),
 the vocab-parallel embedding is a gather, and the logits are a matmul
-against the ``[V, H]`` head.  LoRA and int8 weights belong to later
-slices; the dense products stay ``torch.matmul``, as the JAX package
+against the ``[V, H]`` head.  A linear whose dict carries LoRA leaves
+(``lora.py``) adds its low-rank path.  int8 weights belong to a later
+slice; the dense products stay ``torch.matmul``, as the JAX package
 leaves them to XLA.
 """
 
@@ -76,10 +77,24 @@ def vocab_parallel_embedding(tokens: torch.Tensor, params,
     return _cast(params["embedding"], compute_dtype)[tokens]
 
 
+def _lora_delta(x: torch.Tensor, params) -> torch.Tensor:
+    """The LoRA low-rank path ``(x A) B * scale`` (``lora.py``): two thin
+    matmuls, never the materialised [in, out] update.  ``lora_scale`` is a
+    constant (alpha / r): detached, it gets no gradient although it rides
+    in the trained tree for structure (the optimizer also leaves it out of
+    weight decay)."""
+    a = params["lora_A"].to(x.dtype)
+    b = params["lora_B"].to(x.dtype)
+    scale = params["lora_scale"].detach().to(x.dtype)
+    return torch.matmul(torch.matmul(x, a), b) * scale
+
+
 def column_parallel_linear(x: torch.Tensor, params, *,
                            compute_dtype=None) -> torch.Tensor:
-    """y = x @ W (+ b)."""
+    """y = x @ W (+ the LoRA path) (+ b)."""
     y = torch.matmul(x, _cast(params["kernel"], compute_dtype))
+    if "lora_A" in params:
+        y = y + _lora_delta(x, params)
     bias = _cast(params.get("bias"), compute_dtype)
     return y if bias is None else y + bias
 

@@ -12,7 +12,9 @@ server group (``extra_args``), as the JAX tool parses them through
 ``initialize_megatron``, so the reference launch scripts' training flags
 (``--micro_batch_size``, ``--train_iters``, ``--lr``, ...) parse too.
 With no size flags the model is the family's 7B-class size (Llama-2-7B,
-Llama-3-8B, Falcon-7B, ...: see ``FAMILIES``), its vocabulary padded from
+Llama-3-8B, Falcon-7B, Mixtral-8x7B, ...: see ``FAMILIES``; the MoE
+flags ``--num_experts`` and ``--moe_*`` are size flags too), its
+vocabulary padded from
 the tokenizer's (``build_tokenizer``).  ``--load`` serves a checkpoint of
 the port's trainer or converters (its params only, from the tracker's
 iteration or ``--load_iters``, held to the model's tree), as the JAX
@@ -48,6 +50,7 @@ from megatron_llm_torch.models import (
     gpt_neox_config,
     llama_config,
     mistral_config,
+    mixtral_config,
     qwen2_config,
 )
 from megatron_llm_torch.models.language_model import (
@@ -65,6 +68,7 @@ FAMILIES = {
     "codellama": (llama_config, "7B", {"rope_theta": 1e6}),
     "llama3": (llama_config, "llama3-8B", {}),
     "mistral": (mistral_config, "7B", {}),
+    "mixtral": (mixtral_config, "8x7B", {}),
     "falcon": (falcon_config, "7B", {}),
     "qwen2": (qwen2_config, "7B", {}),
     "gemma": (gemma_config, "7B", {}),
@@ -78,7 +82,9 @@ FAMILIES = {
 SIZE_FLAGS = ("num_layers", "hidden_size", "ffn_hidden_size",
               "num_attention_heads", "num_attention_heads_kv",
               "kv_channels", "seq_length", "max_position_embeddings",
-              "padded_vocab_size", "rope_theta", "sliding_window_size")
+              "padded_vocab_size", "rope_theta", "sliding_window_size",
+              "num_experts", "moe_top_k", "moe_capacity_factor",
+              "moe_min_capacity")
 
 
 def extra_args(parser):

@@ -79,19 +79,38 @@ def build_train_step(
     step's dropout key (an integer, or None to drop nothing); micro-batch
     i trains on ``random.fold_in(rng_key, i)``.  The eval step draws
     nothing.  ``log_num_zeros_in_grad`` adds the count of zero entries of
-    the accumulated grads as ``num zeros``."""
+    the accumulated grads as ``num zeros``.
+
+    A mixture of experts (``model.cfg.num_experts > 1``) returns its
+    routing aux ``[lb, z]`` with the per-token loss: the optimized
+    objective adds ``moe_aux_loss_coeff * lb + moe_z_loss_coeff * z`` to
+    the LM loss, which is logged alone as ``lm loss``, with the balance
+    loss as ``moe aux loss`` and, when its coefficient is above 0, the
+    z-loss as ``moe z loss``."""
     if parallel_cfg.world_size != 1:
         raise NotImplementedError("the port trains on one device")
+    cfg = getattr(model, "cfg", None)
+    moe_on = getattr(cfg, "num_experts", 0) > 1
 
     def microbatch_loss(params, micro, scale, train, rng_key=None):
         extra = {k: v for k, v in micro.items()
                  if k not in ("tokens", "labels", "loss_mask")}
         loss_tok = model(params, micro["tokens"], labels=micro["labels"],
                          rng_key=rng_key, train=train, **extra)
+        moe_aux = None
+        if moe_on:
+            loss_tok, moe_aux = loss_tok
         out = loss_func(loss_tok, micro["loss_mask"])
         # loss_func may return (total, {metric: scalar})
         loss, aux = out if isinstance(out, tuple) else (out, {})
-        return loss * scale / num_microbatches, loss, aux
+        total = loss
+        if moe_aux is not None:
+            aux = {**aux, "moe aux loss": moe_aux[0]}
+            if cfg.moe_z_loss_coeff > 0.0:
+                aux["moe z loss"] = moe_aux[1]
+            total = (loss + cfg.moe_aux_loss_coeff * moe_aux[0]
+                     + cfg.moe_z_loss_coeff * moe_aux[1])
+        return total * scale / num_microbatches, loss, aux
 
     if forward_only:
         @torch.no_grad()

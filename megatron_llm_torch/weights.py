@@ -3,7 +3,9 @@
 Both packages use one param tree: ``embedding.word.embedding`` [V, H],
 ``transformer.layers`` with a leading ``[num_layers]`` axis on every leaf
 (``input_norm``, ``attention.query_key_value`` / ``attention.dense``,
-``mlp.dense_h_to_4h`` / ``mlp.dense_4h_to_h``, ``post_attention_norm``
+``mlp.dense_h_to_4h`` / ``mlp.dense_4h_to_h``, or for a mixture of
+experts ``mlp.router.kernel`` [H, E] with ``mlp.experts.w_in`` [E, H,
+(2x)F] and ``mlp.experts.w_out`` [E, F, H], ``post_attention_norm``
 unless attention and MLP run in parallel, ``mlp_norm`` under
 ``parallel_layernorm``), ``transformer.final_norm``,
 ``embedding.position.embedding`` when positions are learned, and
@@ -99,9 +101,35 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
     if qkv.shape != want:
         raise ValueError(f"query_key_value kernel {qkv.shape} does not "
                          f"match the config's {want}")
+    _check_mlp(layers["mlp"], cfg)
     if not cfg.tie_embed_logits and "lm_head" not in tree:
         raise KeyError("untied config but the tree has no lm_head")
     return _convert(tree, dtype, device)
+
+
+def _check_mlp(mlp: Dict[str, Any], cfg: TransformerConfig) -> None:
+    """The stacked MLP subtree holds the dense MLP's leaves, or the
+    mixture of experts' at the config's shapes."""
+    L, H, Fd = cfg.num_layers, cfg.hidden_size, cfg.ffn_hidden_size
+    mult = 2 if cfg.glu_activation else 1
+    if cfg.num_experts > 1:
+        E = cfg.num_experts
+        want = {("router", "kernel"): (L, H, E),
+                ("experts", "w_in"): (L, E, H, mult * Fd),
+                ("experts", "w_out"): (L, E, Fd, H)}
+    else:
+        want = {("dense_h_to_4h", "kernel"): (L, H, mult * Fd),
+                ("dense_4h_to_h", "kernel"): (L, Fd, H)}
+    groups = {path[0] for path in want}
+    if set(mlp) != groups:
+        raise KeyError(f"transformer.layers.mlp has {sorted(mlp)}, the "
+                       f"config (num_experts={cfg.num_experts}) needs "
+                       f"{sorted(groups)}")
+    for (group, leaf), shape in want.items():
+        got = tuple(np.shape(mlp[group].get(leaf)))
+        if got != shape:
+            raise ValueError(f"mlp.{group}.{leaf} {got} does not match "
+                             f"the config's {shape}")
 
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:

@@ -77,6 +77,14 @@ def _np(t):
     return t.detach().to("cpu").float().numpy().copy()
 
 
+def _np_transposed(t):
+    """Each [.., a, b] matrix of ``t`` as a contiguous fp32 [.., b, a]
+    numpy copy (torch's copy runs on all the host's threads, numpy's
+    strided one on one)."""
+    return t.detach().to("cpu").float().transpose(-1, -2).contiguous(
+    ).numpy()
+
+
 def rope_settings(hf_cfg, default_theta: float = 10000.0):
     """(theta, scaling dict or None) of an HF config, in either spelling:
     ``rope_theta`` / ``rope_scaling`` attributes (transformers 4.x), or
@@ -390,11 +398,57 @@ def convert_qwen2(hf_model, dtype=torch.float32):
 
 
 def convert_mixtral(hf_model, dtype=torch.float32):
-    """MixtralForCausalLM: the mixture of experts is not ported."""
-    raise NotImplementedError(
-        "mixtral: the mixture of experts (models/moe.py, models/mixtral.py "
-        "and the MoE layout of the converter) is not ported yet (ROADMAP "
-        "item 13)")
+    """MixtralForCausalLM -> param tree + config dict.
+
+    The trunk (embeddings, norms, GQA attention, lm_head) converts exactly
+    like the llama family; the MoE block maps to the layout of
+    ``models/moe.py``, from either layout of ``transformers``:
+
+    * 4.x, ``block_sparse_moe.``: ``gate.weight`` [E, h] -> router kernel
+      [h, E]; per expert ``w1`` (gate) and ``w3`` (up), both [f, h] ->
+      w_in [E, h, 2f] (the GLU halves of ``pack_glu_ffn``); per expert
+      ``w2`` [h, f] -> w_out [E, f, h];
+    * 5.x, ``mlp.``: ``gate.weight`` as above; ``experts.gate_up_proj``
+      [E, 2f, h] (gate rows, then up rows) -> w_in, each expert's matrix
+      transposed; ``experts.down_proj`` [E, h, f] -> w_out, likewise.
+
+    The capacity factor recorded is E / top_k, at which every expert can
+    hold a whole row: the converted model is dropless, as HF's is.
+    """
+    hf_cfg = hf_model.config
+    E = hf_cfg.num_local_experts
+
+    def moe_mlp(sd, p):
+        if p + "mlp.experts.gate_up_proj" in sd:
+            moe = p + "mlp."
+            w_in = _np_transposed(sd[moe + "experts.gate_up_proj"])
+            w_out = _np_transposed(sd[moe + "experts.down_proj"])
+        else:
+            moe = p + "block_sparse_moe."
+            w_in = np.stack([
+                pack_glu_ffn(_np(sd[f"{moe}experts.{e}.w1.weight"]),
+                             _np(sd[f"{moe}experts.{e}.w3.weight"]))
+                for e in range(E)])
+            w_out = np.stack([_np(sd[f"{moe}experts.{e}.w2.weight"]).T
+                              for e in range(E)])
+        return {
+            "router": {"kernel": np.ascontiguousarray(
+                _np(sd[moe + "gate.weight"]).T)},
+            "experts": {"w_in": np.ascontiguousarray(w_in),
+                        "w_out": np.ascontiguousarray(w_out)},
+        }
+
+    params, config = convert_llama_family(hf_model, dtype, layer_mlp=moe_mlp)
+    top_k = hf_cfg.num_experts_per_tok
+    config.update({
+        "num_experts": E,
+        "moe_top_k": top_k,
+        # HF routes every token (dropless); E / top_k gives each expert
+        # room for a whole row, so converted models reproduce HF's logits.
+        # Training may lower it (1.25 is the default for MoE from scratch)
+        "moe_capacity_factor": float(E) / top_k,
+    })
+    return params, config
 
 
 def falcon_kv_heads(hf_cfg) -> int:

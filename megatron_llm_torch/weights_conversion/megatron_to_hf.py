@@ -10,7 +10,9 @@ param tree holds torch tensors) and ``save_pretrained``s the HF model.
 ``hf_config_for`` writes the rope settings in the spelling of the
 installed ``transformers``: ``rope_theta`` / ``rope_scaling`` (4.x), or
 one ``rope_parameters`` dict where the config class takes it (5.x).
-Mixtral's writer raises: the mixture of experts is not ported.
+Mixtral's experts are written in the layout the installed class holds:
+per-expert ``block_sparse_moe.experts.{e}.w1/w2/w3`` (4.x) or the fused
+``mlp.experts.gate_up_proj`` / ``down_proj`` (5.x).
 
 Usage:
     python -m megatron_llm_torch.weights_conversion.megatron_to_hf \\
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import inspect
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -169,11 +172,44 @@ def falcon_state_dict(params, config):
     return sd
 
 
-def mixtral_state_dict(params, config):
-    """Mixtral: the mixture of experts is not ported."""
-    raise NotImplementedError(
-        "mixtral: the mixture of experts and its state-dict writer are not "
-        "ported yet (ROADMAP item 13)")
+def mixtral_state_dict(params, config, fused: bool = False):
+    """param tree -> HF MixtralForCausalLM state dict (the inverse of
+    ``hf_to_megatron.convert_mixtral``): the trunk shared with the llama
+    family, the MoE MLP back to the router's ``gate.weight`` and the
+    experts, per expert ``w1``/``w3``/``w2`` under ``block_sparse_moe.``
+    or, with ``fused`` (transformers 5.x), one ``gate_up_proj`` [E, 2f, h]
+    and one ``down_proj`` [E, h, f] under ``mlp.``."""
+    E = config["num_experts"]
+
+    def moe_writer(sd, p, g, t):
+        moe = p + ("mlp." if fused else "block_sparse_moe.")
+        sd[moe + "gate.weight"] = t(
+            np.ascontiguousarray(g("mlp", "router", "kernel").T))
+        w_in = g("mlp", "experts", "w_in")      # [E, h, 2f]
+        w_out = g("mlp", "experts", "w_out")    # [E, f, h]
+        if fused:
+            # each expert's matrix transposed by torch's copy, which runs
+            # on all the host's threads (numpy's strided copy on one)
+            sd[moe + "experts.gate_up_proj"] = torch.from_numpy(
+                w_in).transpose(1, 2).contiguous()
+            sd[moe + "experts.down_proj"] = torch.from_numpy(
+                w_out).transpose(1, 2).contiguous()
+            return
+        for e in range(E):
+            gate, up = unpack_glu_ffn(w_in[e])
+            sd[f"{moe}experts.{e}.w1.weight"] = t(gate)
+            sd[f"{moe}experts.{e}.w3.weight"] = t(up)
+            sd[f"{moe}experts.{e}.w2.weight"] = t(
+                np.ascontiguousarray(w_out[e].T))
+
+    return llama_family_state_dict(params, config, mlp_writer=moe_writer)
+
+
+def fused_experts(hf_model) -> bool:
+    """Whether the HF model holds each layer's experts fused
+    (transformers 5.x) rather than one module per expert."""
+    return any(k.endswith("experts.gate_up_proj")
+               for k in hf_model.state_dict())
 
 
 def _index(tree, path, i):
@@ -246,9 +282,24 @@ def hf_config_for(model_name: str, config: dict):
                            config.get("rope_theta", 10000.0), rope_scaling),
         )
     if model_name == "mixtral":
-        raise NotImplementedError(
-            "mixtral: the mixture of experts is not ported yet (ROADMAP "
-            "item 13)")
+        from transformers import MixtralConfig
+
+        return MixtralConfig(
+            vocab_size=config["padded_vocab_size"],
+            hidden_size=config["hidden_size"],
+            intermediate_size=config["ffn_hidden_size"],
+            num_hidden_layers=config["num_layers"],
+            num_attention_heads=config["num_attention_heads"],
+            num_key_value_heads=config.get("num_attention_heads_kv"),
+            max_position_embeddings=config["max_position_embeddings"],
+            rms_norm_eps=config.get("layernorm_epsilon", 1e-5),
+            sliding_window=config.get("sliding_window_size"),
+            num_local_experts=config["num_experts"],
+            num_experts_per_tok=config.get("moe_top_k", 2),
+            tie_word_embeddings=False,
+            **rope_kwargs(MixtralConfig, config.get("rope_theta", 1e6),
+                           rope_scaling),
+        )
     if model_name == "falcon":
         from transformers import FalconConfig
 
@@ -322,9 +373,27 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def empty_model(hf_cfg):
+    """The HF model with its parameters on the meta device: no memory and
+    no random init, since the exported weights replace every parameter
+    (``load_state_dict(..., assign=True)``).  It is built under
+    ``torch.device("meta")``, which holds for this thread alone; the
+    modules that then hold meta buffers (the rotary ``inv_freq``, which
+    is not saved) are built again on the host from their config."""
     from transformers import AutoModelForCausalLM
 
+    with torch.device("meta"):
+        hf = AutoModelForCausalLM.from_config(hf_cfg)
+    for name, module in list(hf.named_modules()):
+        if any(b.is_meta for b in module.buffers(recurse=False)):
+            parent, _, child = name.rpartition(".")
+            hf.get_submodule(parent).register_module(
+                child, type(module)(config=module.config))
+    return hf
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    t0 = time.perf_counter()
     from megatron_llm_torch import checkpointing
 
     args = build_parser().parse_args(argv)
@@ -336,16 +405,30 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             args.input_dir, release=True, finetune=True, device="cpu")
     config = meta["args"]
     model_name = args.model or config.get("model_name", "llama2")
+    t1 = time.perf_counter()
 
     hf_cfg = hf_config_for(model_name, config)
-    hf = AutoModelForCausalLM.from_config(hf_cfg)
-    writer = WRITERS.get(model_name, llama_family_state_dict)
-    sd = writer(params, config)
-    missing, unexpected = hf.load_state_dict(sd, strict=False)
-    if missing or unexpected:
-        print(f" note: missing={missing} unexpected={unexpected}")
+    hf = empty_model(hf_cfg)
+    if model_name == "mixtral":
+        sd = mixtral_state_dict(params, config, fused=fused_experts(hf))
+    else:
+        sd = WRITERS.get(model_name, llama_family_state_dict)(params, config)
+    del params
+    t2 = time.perf_counter()
+    missing, unexpected = hf.load_state_dict(sd, strict=False, assign=True)
+    hf.tie_weights()
+    left = [n for n, p in [*hf.named_parameters(), *hf.named_buffers()]
+            if p.is_meta]
+    if left or unexpected:
+        raise ValueError(f"the {model_name} state dict does not fill "
+                         f"{type(hf).__name__}: missing {left}, unexpected "
+                         f"{unexpected}")
+    if missing:
+        print(f" note: tied, not written: {missing}")
     hf.save_pretrained(args.output_dir, safe_serialization=True)
-    print(f" exported {args.input_dir} -> {args.output_dir}", flush=True)
+    print(f" exported {args.input_dir} -> {args.output_dir}: read "
+          f"{t1 - t0:.2f} s, convert {t2 - t1:.2f} s, write "
+          f"{time.perf_counter() - t2:.2f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -187,9 +187,9 @@ def example_argv(script, *script_args, tmp_path):
     return argv[0], argv[1:]
 
 
-# finetune.sh's families at tp 1 (mixtral waits for the MoE port)
+# finetune.sh's families at tp 1
 FINETUNE_FAMILIES = ("llama", "llama2", "llama3", "codellama", "mistral",
-                     "falcon", "gpt")
+                     "mixtral", "falcon", "gpt")
 # parsed values that differ by design: the device's choices
 DIFFER_BY_DESIGN = {"device"}
 
@@ -249,15 +249,42 @@ TINY_TRAIN = ["--model_name=llama2", "--num_layers=1", "--hidden_size=64",
 
 
 @pytest.mark.parametrize("flags", [
-    ["--wandb_logger"], ["--num_experts", "8"], ["--moe_top_k", "1"],
+    ["--wandb_logger"],
     ["--context_parallel_size", "2"], ["--num_slices", "2"],
     ["--use_distributed_optimizer"], ["--rewind_on_spike"],
-    ["--structured_log_dir", "logs"], ["--lora_rank", "8"],
+    ["--structured_log_dir", "logs"],
     ["--log_layer_stats_interval", "5"], ["--fault_inject", "nan@2"]],
     ids=lambda f: f[0].lstrip("-"))
 def test_unported_features_parse_then_raise(flags):
     with pytest.raises(NotImplementedError):
         finetune.main(TINY_TRAIN + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--num_experts", "4"],
+    ["--num_experts", "4", "--moe_top_k", "1", "--moe_z_loss_coeff", "0.1"],
+    ["--lora_rank", "8"]],
+    ids=["num_experts", "moe_top_k", "lora_rank"])
+def test_moe_and_lora_flags_train(flags, capsys):
+    """The MoE and LoRA flags used to parse and raise: they train now,
+    with the JAX parser's values."""
+    assert finetune.main(TINY_TRAIN + ["--log_interval=1"] + flags) == 1
+    out = capsys.readouterr().out
+    if "--num_experts" in flags:
+        assert "moe aux loss" in out
+        assert ("moe z loss" in out) == ("--moe_z_loss_coeff" in flags)
+    else:
+        assert "LoRA rank 8" in out
+    want = jax_finetune.extra_args(
+        jax_arguments.build_base_parser()).parse_args(TINY_TRAIN[:-2]
+                                                      + flags)
+    got = arguments.parse_args(TINY_TRAIN + flags,
+                               extra_args_provider=finetune.extra_args)
+    for dest in ("num_experts", "moe_top_k", "moe_capacity_factor",
+                 "moe_min_capacity", "moe_aux_loss_coeff",
+                 "moe_z_loss_coeff", "lora_rank", "lora_alpha",
+                 "lora_targets"):
+        assert getattr(got, dest) == getattr(want, dest), dest
 
 
 def test_unimplemented_flags_warn(capsys):

@@ -118,8 +118,8 @@ def test_layer_matches_jax(same_masks, family):
     want, _, _ = jT.transformer_layer(
         jnp.asarray(x), jp, jcfg, freqs=jfreqs, rng_key=jax.random.PRNGKey(4),
         train=True)
-    got, _ = tT.transformer_layer(_t(x), tp, tcfg, freqs=tfreqs, rng_key=11,
-                                  train=True)
+    got, _, _ = tT.transformer_layer(_t(x), tp, tcfg, freqs=tfreqs,
+                                     rng_key=11, train=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=0)
 

@@ -59,6 +59,7 @@ FAMILIES = {
     "mistral": ("MistralModel", "mistral_config", {}),
     "qwen2": ("Qwen2Model", "qwen2_config", {}),
     "gemma": ("GemmaModel", "gemma_config", {}),
+    "mixtral": ("MixtralModel", "mixtral_config", {}),
 }
 
 
@@ -201,6 +202,8 @@ def test_embedding_multiplier_rounds_like_jax_in_bf16():
     ("Qwen2Model", "qwen2_config", dict(add_qkv_bias=False)),
     ("GemmaModel", "gemma_config", dict(glu_activation="swiglu")),
     ("GemmaModel", "gemma_config", dict(tie_embed_logits=False)),
+    ("MixtralModel", "mixtral_config", dict(num_experts=0)),
+    ("MixtralModel", "mixtral_config", dict(glu_activation="geglu")),
 ])
 def test_wrappers_refuse_what_the_jax_wrappers_refuse(cls, cfg_fn, bad):
     with pytest.raises(AssertionError):
@@ -213,7 +216,7 @@ def test_wrappers_refuse_what_the_jax_wrappers_refuse(cls, cfg_fn, bad):
     ("falcon_config", "7B"), ("falcon_config", "40B"),
     ("gpt2_config", "1.3B"), ("gpt_neox_config", "6.9b"),
     ("mistral_config", "7B"), ("qwen2_config", "0.5B"),
-    ("gemma_config", "7B")])
+    ("gemma_config", "7B"), ("mixtral_config", "8x7B")])
 def test_config_tables_equal_the_jax_tables(fn, size):
     want = getattr(jm, fn)(size)
     got = getattr(tm, fn)(size)
@@ -230,7 +233,7 @@ def test_config_tables_equal_the_jax_tables(fn, size):
         assert getattr(got, field) == getattr(want, field), field
     assert got.position_embedding_type.value == \
         want.position_embedding_type.value
-    assert set(tm.MODEL_REGISTRY) == set(jm.MODEL_REGISTRY) - {"mixtral"}
+    assert set(tm.MODEL_REGISTRY) == set(jm.MODEL_REGISTRY)
 
 
 def test_weights_check_the_tree_against_the_config():
@@ -277,15 +280,19 @@ TINY = ["--num_layers=2", "--hidden_size=64", "--num_attention_heads=4",
 
 
 @pytest.mark.parametrize("family", ["falcon", "gpt_neox", "gemma", "gpt",
-                                    "qwen2", "mistral", "llama3"])
+                                    "qwen2", "mistral", "llama3",
+                                    "mixtral"])
 def test_finetune_main_trains_the_family_on_the_cpu(family, capsys):
     extra = {"falcon": ["--num_attention_heads_kv=1"],
-             "gpt": ["--hidden_dropout=0", "--attention_dropout=0"]}
+             "gpt": ["--hidden_dropout=0", "--attention_dropout=0"],
+             "mixtral": ["--num_experts=4", "--num_attention_heads_kv=2"]}
     argv = [f"--model_name={family}"] + TINY + extra.get(family, [])
     assert finetune.main(argv) == 2
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith(" iteration")]
     assert len(lines) == 2 and "lm loss" in lines[0]
+    if family == "mixtral":
+        assert "moe aux loss" in lines[0]
 
 
 def test_trainer_presets_are_the_jax_entry_points():
@@ -299,11 +306,21 @@ def test_trainer_presets_are_the_jax_entry_points():
     end = src.index("\n}\n", start) + 3
     scope = {}
     exec(src[start:end], scope)        # the table is a literal
-    want = {k: v for k, v in scope["MODEL_DEFAULTS"].items()
-            if k != "mixtral"}
-    assert finetune.MODEL_DEFAULTS == want
+    assert finetune.MODEL_DEFAULTS == scope["MODEL_DEFAULTS"]
     assert importlib.util.find_spec("megatron_llm_torch.models.mixtral") \
-        is None
+        is not None
+    # the mixtral preset lowers every MoE field into the config
+    argv = ["--model_name=mixtral", "--moe_capacity_factor=2.0",
+            "--moe_min_capacity=2", "--moe_aux_loss_coeff=0.05",
+            "--moe_z_loss_coeff=1e-3"] + TINY
+    args = parse_args(argv, extra_args_provider=finetune.extra_args)
+    finetune._apply_model_defaults(args, argv)
+    model = finetune.model_provider(args)
+    assert type(model).__name__ == "MixtralModel"
+    assert (model.cfg.num_experts, model.cfg.moe_top_k,
+            model.cfg.moe_capacity_factor, model.cfg.moe_min_capacity,
+            model.cfg.moe_aux_loss_coeff, model.cfg.moe_z_loss_coeff,
+            model.cfg.rope_theta) == (8, 2, 2.0, 2, 0.05, 1e-3, 1e6)
     # the presets lower into the config; gemma derives its multiplier
     argv = ["--model_name=gemma"] + TINY
     args = parse_args(argv, extra_args_provider=finetune.extra_args)

@@ -131,9 +131,23 @@ def test_weights_check_the_tree_against_the_config():
         np.asarray(bf16["lm_head"]["weight"], np.float32))
 
 
+def test_llama_with_experts_matches_jax():
+    """num_experts > 1 used to be refused: the layers' MLP is now the
+    mixture of experts (models/moe.py), in any GPT-family model."""
+    kw = dict(_cfg_kwargs("gqa"), num_experts=4)
+    jmodel = JaxLlama(jax_llama_config("tiny", use_flash_attn=False, **kw))
+    jparams = jmodel.init(jax.random.PRNGKey(5))
+    tcfg = llama_config("tiny", **kw)
+    tparams = params_from_jax(jax.device_get(jparams), tcfg, device="cpu")
+    assert set(tparams["transformer"]["layers"]["mlp"]) == {"router",
+                                                            "experts"}
+    tokens = np.random.default_rng(1).integers(0, 64, (2, 12))
+    want = np.asarray(jmodel(jparams, jnp.asarray(tokens)))
+    got = LlamaModel(tcfg, device="cpu")(tparams, torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError):
-        LlamaModel(llama_config("tiny", num_experts=4), device="cpu")
     jmodel, jparams, tmodel, tparams = _models("llama")
     toks = torch.zeros(1, 4, dtype=torch.long)
     # only the serving engine's paged KV cache is ported

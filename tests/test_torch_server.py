@@ -274,3 +274,41 @@ def test_server_flags_of_unported_features_raise():
         args = build_parser().parse_args(TINY + flags)
         with pytest.raises(NotImplementedError):
             build_server(args, _FakeTokenizer())
+
+
+def test_server_serves_mixtral(tmp_path):
+    """``--model_name mixtral`` (the mixture of experts) through the HTTP
+    server: at the dropless capacity (E / top_k) the greedy tokens are the
+    no-cache forward's argmax, whatever the engine's row layouts."""
+    argv = ["--model_name", "mixtral", "--num_layers", "2", "--hidden_size",
+            "64", "--num_attention_heads", "4", "--num_attention_heads_kv",
+            "2", "--ffn_hidden_size", "96", "--num_experts", "4",
+            "--moe_capacity_factor", "2.0", "--padded_vocab_size", "64",
+            "--seq_length", "64", "--max_position_embeddings", "64",
+            "--device", "cpu", "--serve_num_slots", "2",
+            "--serve_block_size", "8", "--serve_prefill_chunk", "8",
+            "--seed", "0"]
+    server = build_server(build_parser().parse_args(argv), _FakeTokenizer())
+    httpd = server.make_httpd("127.0.0.1", 0)
+    t = threading.Thread(target=server.run, daemon=True)
+    t.start()
+    try:
+        engine = server.engine
+        assert type(engine.model).__name__ == "MixtralModel"
+        assert engine.model.cfg.num_experts == 4
+        prompt = [3, 14, 15, 9, 2, 6, 5, 35, 8, 9, 7, 9]
+        code, body = _call(httpd.server_address[1], "PUT", "/api", {
+            "prompts": [" ".join(map(str, prompt))],
+            "tokens_to_generate": 6, "temperature": 0.0})
+        assert code == 200, body
+        got = body["tokens"][0]
+        toks = list(prompt)
+        with torch.no_grad():
+            for _ in range(6):
+                logits = engine.model(engine.params, torch.tensor([toks]))
+                toks.append(int(logits[0, -1].argmax()))
+        assert got == toks
+    finally:
+        server.shutdown()
+        server.engine.stop()
+        t.join(10)

@@ -65,3 +65,21 @@ def test_swapped_heads_fail(converted, capsys):
     assert exc.value.code == 1
     out = capsys.readouterr().out
     assert " FAIL" in out
+
+
+def test_converted_mixtral_passes(tmp_path, capsys):
+    """``--model_name=mixtral`` through MODEL_REGISTRY: the converter
+    records the dropless capacity, so the port's logits are HF's."""
+    torch.manual_seed(1)
+    hf = transformers.MixtralForCausalLM(transformers.MixtralConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=96,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        num_local_experts=4, num_experts_per_tok=2,
+        max_position_embeddings=128, tie_word_embeddings=False)).eval()
+    hf.save_pretrained(str(tmp_path / "hf"))
+    hf_to_megatron.main(["mixtral", "--model_path", str(tmp_path / "hf"),
+                         "--out", str(tmp_path / "ck")])
+    argv = [a.replace("llama3", "mixtral") for a in _argv(tmp_path, "ck")]
+    res = verify_correctness.run(argv)
+    assert res["ok"] and res["max_abs_err"] < 1e-4, res
+    assert " OK" in capsys.readouterr().out

@@ -66,6 +66,14 @@ FAMILIES = {
         max_position_embeddings=64, rotary_pct=0.25,
         use_parallel_residual=True, layer_norm_eps=1e-5,
         hidden_act="gelu"), (2, 16)),
+    # 4 experts, top-2, GQA; the converted capacity is dropless, as HF's
+    # routing is
+    "mixtral": ("MixtralForCausalLM", "MixtralConfig", dict(
+        vocab_size=128, hidden_size=64, intermediate_size=96,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        num_local_experts=4, num_experts_per_tok=2,
+        max_position_embeddings=64, rms_norm_eps=1e-5,
+        tie_word_embeddings=False), (2, 16)),
     # the new decoder architecture with 2 KV heads (the JAX tests' case)
     "falcon": ("FalconForCausalLM", "FalconConfig", dict(
         vocab_size=128, hidden_size=64, num_hidden_layers=2,
@@ -79,7 +87,7 @@ CONVERTER = {"llama2": "convert_llama_family",
              "llama3": "convert_llama_family",
              "mistral": "convert_llama_family", "qwen2": "convert_qwen2",
              "gemma": "convert_gemma", "gpt_neox": "convert_gpt_neox",
-             "falcon": "convert_falcon"}
+             "falcon": "convert_falcon", "mixtral": "convert_mixtral"}
 
 
 def _hf(family, seed=0, **over):
@@ -160,14 +168,17 @@ WRITER = {"llama2": "llama_family_state_dict",
           "llama3": "llama_family_state_dict",
           "mistral": "llama_family_state_dict",
           "qwen2": "llama_family_state_dict",
-          "gemma": "gemma_state_dict", "falcon": "falcon_state_dict"}
+          "gemma": "gemma_state_dict", "falcon": "falcon_state_dict",
+          "mixtral": "mixtral_state_dict"}
 
 
 @pytest.mark.parametrize("family", sorted(WRITER))
 def test_megatron_to_hf_round_trips_bit_for_bit(family):
     hf = _hf(family, seed=3)
     params, config = getattr(port, CONVERTER[family])(hf)
-    back = getattr(port_back, WRITER[family])(params, config)
+    kw = ({"fused": port_back.fused_experts(hf)} if family == "mixtral"
+          else {})
+    back = getattr(port_back, WRITER[family])(params, config, **kw)
     orig = hf.state_dict()
     for k, v in orig.items():
         if k not in back and family == "gemma" and k == "lm_head.weight":
@@ -184,6 +195,46 @@ def test_megatron_to_hf_round_trips_bit_for_bit(family):
     toks = np.random.RandomState(2).randint(0, config["padded_vocab_size"],
                                             (1, 16))
     assert torch.equal(_hf_logits(hf2.eval(), toks), _hf_logits(hf, toks))
+
+
+@pytest.mark.parametrize("family", sorted(WRITER))
+def test_cli_round_trip_reloads_bit_for_bit(family, tmp_path):
+    """``hf_to_megatron.main`` then ``megatron_to_hf.main`` (whose HF
+    model starts with its parameters on the meta device): the saved
+    model reloads with every tensor the original's and the same
+    logits."""
+    hf = _hf(family, seed=6)
+    hf.save_pretrained(str(tmp_path / "hf"))
+    port.main([family, "--model_path", str(tmp_path / "hf"), "--out",
+               str(tmp_path / "ck")])
+    port_back.main(["--input_dir", str(tmp_path / "ck"), "--output_dir",
+                    str(tmp_path / "back")])
+    back = type(hf).from_pretrained(str(tmp_path / "back"),
+                                    dtype=torch.float32).eval()
+    orig, got = hf.state_dict(), back.state_dict()
+    assert sorted(got) == sorted(orig)
+    for k, v in orig.items():
+        assert torch.equal(got[k], v), k
+    toks = np.random.RandomState(4).randint(0, FAMILIES[family][2][
+        "vocab_size"], (1, 16))
+    assert torch.equal(_hf_logits(back, toks), _hf_logits(hf, toks))
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_export_model_starts_empty(family):
+    """The export's HF model holds every parameter on the meta device and
+    every buffer real: the rotary ``inv_freq`` equals a model built the
+    usual way.  Modules built after it get real parameters again."""
+    hf = _hf(family)
+    empty = port_back.empty_model(hf.config)
+    assert [n for n, _ in empty.named_parameters()] == [
+        n for n, _ in hf.named_parameters()]
+    assert all(p.is_meta for p in empty.parameters())
+    bufs = dict(hf.named_buffers())
+    assert bufs and sorted(dict(empty.named_buffers())) == sorted(bufs)
+    for name, buf in empty.named_buffers():
+        assert torch.equal(buf, bufs[name]), name
+    assert not torch.nn.Linear(2, 2).weight.is_meta
 
 
 def test_rope_settings_read_both_spellings():
@@ -224,13 +275,53 @@ def test_rope_settings_read_both_spellings():
     assert port.rope_settings(V5Config(**kw)) == attrs
 
 
+def _fused_names(sd, experts):
+    """A 4.x Mixtral state dict under transformers 5.x's names: the
+    router and the experts under ``mlp.``, each layer's experts fused
+    into ``gate_up_proj`` [E, 2f, h] (w1 rows, then w3 rows) and
+    ``down_proj`` [E, h, f] (as 5.x's loader fuses them)."""
+    out, layers = {}, set()
+    for k, v in sd.items():
+        if ".block_sparse_moe.experts." in k:
+            layers.add(k.split(".block_sparse_moe.")[0])
+            continue
+        out[k.replace(".block_sparse_moe.", ".mlp.")] = v
+    for p in sorted(layers):
+        moe = p + ".block_sparse_moe.experts."
+        out[p + ".mlp.experts.gate_up_proj"] = torch.stack([
+            torch.cat([sd[f"{moe}{e}.w1.weight"], sd[f"{moe}{e}.w3.weight"]])
+            for e in range(experts)])
+        out[p + ".mlp.experts.down_proj"] = torch.stack([
+            sd[f"{moe}{e}.w2.weight"] for e in range(experts)])
+    return out
+
+
 def test_mixtral_raises():
+    """Mixtral converts (it used to raise): a model holding
+    transformers 5.x's fused expert layout gives the same params as the
+    4.x layout, and the export writes whichever layout the installed
+    class holds (``fused_experts``), bit for bit."""
     assert "mixtral" in port.build_parser()._actions[1].choices
-    for call in (lambda: port.CONVERTERS["mixtral"](None),
-                 lambda: port_back.mixtral_state_dict({}, {}),
-                 lambda: port_back.hf_config_for("mixtral", {})):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
+    hf = _hf("mixtral", seed=4)
+    sd = hf.state_dict()
+    fused = _fused_names(sd, 4)
+    assert not port_back.fused_experts(hf)
+    assert port_back.fused_experts(types.SimpleNamespace(
+        state_dict=lambda: fused))
+    v5 = types.SimpleNamespace(config=hf.config, state_dict=lambda: fused)
+    params, config = port.convert_mixtral(hf)
+    p5, c5 = port.convert_mixtral(v5)
+    assert c5 == config and config["moe_capacity_factor"] == 2.0
+    got, want = _flat(p5), _flat(params)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    back = port_back.mixtral_state_dict(params, config, fused=True)
+    assert sorted(back) == sorted(fused)
+    for k, v in fused.items():
+        assert torch.equal(back[k], v), k
+    cfg = port_back.hf_config_for("mixtral", config)
+    assert (cfg.num_local_experts, cfg.num_experts_per_tok) == (4, 2)
 
 
 def test_cli_writes_a_release_checkpoint_the_port_serves(tmp_path):
