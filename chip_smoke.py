@@ -20,7 +20,11 @@ bound:
   split.  They are timed as CUDA graph replays (the device's time a
   call) and as the host issues them, with sweeps of the key splits and
   of the query rows a KV group at which the tensor-core variant takes
-  over;
+  over.  At the speculative verify shape (8 slots of 5 rows, Llama-2-7B's
+  and Falcon-7B's heads, contexts 0-1500, one slot inactive at context 0
+  on the garbage page, one with one valid row) the valid rows are held
+  to the plain version and every row must be finite, and both are timed
+  at context 1000;
 * B and C, the RMSNorm forward and backward, and D and E, the LayerNorm
   forward and backward: at decode, prefill and training rows of 4096 and
   4544 columns and at odd shapes; B (one kernel with D) at every plan
@@ -179,6 +183,31 @@ fp32 merge of the base and the adapters within one bf16 step; its peak
 memory is printed beside the reckoning of the params and the adapters'
 state.
 
+Phase 12 serves Llama-2-7B at full width and depth (random bf16 weights,
+seed 1234) through ``build_server`` with speculative decoding (K 4), a
+pool of 400 pages, a host KV tier of 8 GiB, the watchdog at 3 s, a fault
+spec, the JSONL stream and an alert rule.  (a) ``tools/serve_bench.py
+--stream --json`` runs as a subprocess against it, 8 clients, 32
+requests of 260 unique ids and 64 new tokens: the client's TTFT and TPOT
+p50/p95 and tokens/s are printed, every request must succeed, and A's
+prefill launches must equal the verify steps and prefill chunks times
+the layers (A's decode none).  (b) Repetitive prompts draft; the served
+tokens agree with the no-cache forward where its top-2 margin is above
+0.5; and at the same width cut to 2 layers in fp32, speculation on
+gives the tokens of speculation off.  (c) A 320-token prefix served from
+the pool, evicted by fillers and served again from a swap-in gives the
+same tokens; the swap-in's seconds are printed.  (d) A hang under the
+watchdog restarts the engine: the requests queued complete, the stream
+that had sent a token ends with an error, and the peak device memory
+across the restart (both pools) is printed.  (e) An injected NaN evicts
+one slot with ``nonfinite``.  (f) The restart's alert transition is on
+the JSONL stream, with an incident bundle and the Prometheus firing
+gauge.  (g) Two servers started as subprocesses from
+``examples/run_text_generation_server.sh``'s argv (a 2-layer checkpoint)
+end by ``/drain`` and by SIGTERM with an open stream, each with exit 0.
+(h) Falcon-7B over int8 pools with speculation serves 4 requests: A' and
+D launches as the dispatches say.
+
 It prints, before its last line, the card's name and power limit, one
 JSON line with every kernel's numbers (``{"kernels": [...]}``), and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -208,6 +237,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -871,6 +901,7 @@ def phase1_paged(gen, results):
             f"planned {row['planned']}")
     results["paged_rows_threshold_sweep"] = sweep
     phase1_long_tables(results)
+    phase1_verify(results)
 
 
 # (label, S, C, bs, M, ctx) of A at the block tables of Llama-3.1's 131072
@@ -922,6 +953,93 @@ def phase1_long_tables(results):
             del q, kp, vp, bt, cl, out, ref, again
             torch.cuda.empty_cache()
     results["paged_long_tables"] = errs
+
+
+# (label, nh, g, d) of A and A' at the speculative verify call of phase 12:
+# q [S=8, C=K+1=5], row j of slot s the last token (j = 0) or draft j,
+# vlens[s] = 1 + drafts rows valid; the slot with vlens 0 is inactive
+# (context 0, every table entry on the garbage page 0), the one with
+# vlens 1 drafted nothing
+VERIFY_CASES = [("Llama-2-7B verify", 32, 32, 128),
+                ("Falcon-7B verify", 71, 1, 64)]
+VERIFY_CTX = [100, 0, 257, 513, 800, 1000, 1234, 1500]
+VERIFY_VLENS = [5, 0, 1, 3, 5, 2, 5, 4]
+VERIFY_K1 = 5
+
+
+def phase1_verify(results):
+    """A and A' at the verify shape against the plain version over the
+    valid rows, in bf16 and fp32, over plain and int8 pools: the planned
+    split twice with equal bits and one split forced; every row of both,
+    padded and inactive ones included, finite.  Then A and A' timed at
+    the verify shape (8 slots at context 1000, 5 rows each).  Inputs from
+    its own generator (the earlier cases keep theirs)."""
+    import torch
+
+    from megatron_llm_torch.ops.kernels import paged_attention as pa
+    from megatron_llm_torch.quantization import absmax_quantize_int8
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    S, C, bs, M = len(VERIFY_CTX), VERIFY_K1, 16, 128
+    valid = (torch.arange(C, device="cuda")[None, :]
+             < torch.tensor(VERIFY_VLENS, device="cuda")[:, None])
+    idle = [s for s, v in enumerate(VERIFY_VLENS) if v == 0]
+    errs = {}
+    for label, nh, g, d in VERIFY_CASES:
+        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q, kp, vp, bt, cl = _paged_case(gen, S, C, nh, g, d, bs, M,
+                                            VERIFY_CTX, dt)
+            bt[idle] = 0
+            kq, ks = absmax_quantize_int8(kp, axis=-1)
+            vq, vs = absmax_quantize_int8(vp, axis=-1)
+            for quantized, pools in ((False, (kp, vp, (None, None))),
+                                     (True, (kq, vq, (ks, vs)))):
+                out, ref = _run_paged(pa, q, pools[0], pools[1], bt, cl,
+                                      pools[2], None)
+                again, _ = _run_paged(pa, q, pools[0], pools[1], bt, cl,
+                                      pools[2], None, with_ref=False)
+                one = pa._ragged_call(q, pools[0], pools[1], bt, cl,
+                                      *pools[2], scale=1.0 / math.sqrt(d),
+                                      window=None, splits=1)
+                torch.cuda.synchronize()
+                variant, _, _, splits = _paged_plan(pa, q, pools[0], bt,
+                                                    quantized)
+                name = "int8 paged attention" if quantized \
+                    else "paged attention"
+                what = f"{name} {label} {tag} ({variant}, {splits} splits)"
+                check(torch.equal(out, again),
+                      f"{what}: a second run gave other bits")
+                check(bool(torch.isfinite(out).all())
+                      and bool(torch.isfinite(one).all()),
+                      f"{what}: a non-finite value in a padded or "
+                      f"inactive row")
+                e, rel = _paged_errors(out[valid], ref[valid])
+                e1, rel1 = _paged_errors(one[valid], ref[valid])
+                log(f"  {what}, vlens {VERIFY_VLENS}, contexts "
+                    f"{VERIFY_CTX}: valid rows max_abs_err {e:.3g} (one "
+                    f"split {e1:.3g})" + (f"; row-relative {rel:.3g} "
+                                          f"({rel1:.3g})"
+                                          if tag == "bf16" else "")
+                    + "; every row finite; bitwise equal on a second run")
+                check(max(e, e1) <= TOL[tag],
+                      f"{what}: {max(e, e1)} > {TOL[tag]}")
+                if tag == "bf16":
+                    check(max(rel, rel1) <= PAGED_ROW_REL,
+                          f"{what}: row-relative error {max(rel, rel1)} "
+                          f"> {PAGED_ROW_REL}")
+                errs[f"{what}"] = max(e, e1)
+            del q, kp, vp, bt, cl, kq, vq
+    results["paged_verify_errors"] = errs
+    lib = "SDPA over a pre-gathered dense K/V (gather not timed)"
+    for row, label, quantized, shape in (
+            ("paged_prefill", "paged attention verify (A)", False,
+             dict(nh=32, g=32, d=128)),
+            ("paged_prefill_int8", "int8 paged attention verify (A')",
+             True, dict(nh=71, g=1, d=64))):
+        t = _time_paged(gen, pa, S, C, [1000] * S, quantized=quantized,
+                        **shape)
+        results[row]["verify_shape"] = t
+        _log_times(label, t, lib)
 
 
 # ---------------------------------------------------------------------------
@@ -4575,6 +4693,776 @@ def _lora_finetune(kernels, card, work):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 12: the rest of one-replica serving
+# ---------------------------------------------------------------------------
+
+# The replica of phase 12 beyond phase 2's flags: speculation with K 4, a
+# pool of 400 pages (3.1 GiB; the bench's 8 clients hold ~170, so fillers
+# can evict a prefix), a host KV tier of 8 GiB (1024 pages of 8 MiB), the
+# watchdog at 3 s without restart backoff, a 100 ms latency spike at the
+# first dispatch after warmup (it must not trip the watchdog), the JSONL
+# stream and one alert rule that fires on the first restart.
+PHASE12_WATCHDOG_SECS = 3.0
+PHASE12_HANG_SECS = 8.0
+PHASE12_ALERT_RULES = json.dumps({"interval_secs": 0.25, "rules": [
+    {"name": "engine_restarted", "kind": "threshold",
+     "path": "engine.engine_restarts", "op": ">=", "value": 1,
+     "clear_secs": 0.0, "severity": "page"}]})
+PHASE12_BENCH = ["--clients", "8", "--requests", "32", "--tokens", "64",
+                 "--prefix_tokens", "256", "--shared_prefix_frac", "0",
+                 "--temperature", "0", "--seed", "1234", "--stream",
+                 "--json"]
+
+
+def _phase12_falcon_argv():
+    return ["--model_name", "falcon", "--bf16", "--seed", "1234", "--host",
+            "127.0.0.1", "--port", "0", "--int8_kv_cache",
+            "--serve_max_model_len", "2048", "--serve_speculative", "1",
+            "--serve_draft_k", "4", "--serve_alerts", "0"]
+
+
+def _phase12_argv(work):
+    return ["--model_name", "llama2", "--bf16", "--seed", "1234",
+            "--host", "127.0.0.1", "--port", "0",
+            "--serve_max_model_len", "2048",
+            "--serve_speculative", "1", "--serve_draft_k", "4",
+            "--serve_num_blocks", "400",
+            "--serve_host_cache_bytes", str(8 << 30),
+            "--serve_watchdog_secs", str(PHASE12_WATCHDOG_SECS),
+            "--serve_restart_backoff_secs", "0",
+            "--serve_fault_inject", "slow@1:100",
+            "--structured_log_dir", os.path.join(work, "stream"),
+            "--alert_rules", PHASE12_ALERT_RULES]
+
+
+def _repetitive_prompts(rng, vocab, n, length=192):
+    """Prompts that repeat a motif of 6-12 random ids: prompt lookup
+    finds drafts in them from the start."""
+    out = []
+    for _ in range(n):
+        motif = rng.randint(0, vocab, size=rng.randint(6, 13)).tolist()
+        out.append((motif * (length // len(motif) + 1))[:length])
+    return out
+
+
+def _sse_request(port, prompt, new_tokens, first=None):
+    """PUT /api/stream; returns the events.  ``first``, an Event, is set
+    once the first token event has arrived."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/api/stream", method="PUT",
+        data=json.dumps({"prompts": [" ".join(map(str, prompt))],
+                         "tokens_to_generate": new_tokens,
+                         "temperature": 0.0}).encode())
+    events = []
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        for line in resp:
+            if line.startswith(b"data: "):
+                events.append(json.loads(line[6:]))
+                if first is not None:
+                    first.set()
+    return events
+
+
+def _put_code(port, prompt, new_tokens):
+    """(HTTP code, body) of one greedy PUT /api, errors included."""
+    try:
+        return _put(port, {"prompts": [" ".join(map(str, prompt))],
+                           "tokens_to_generate": new_tokens,
+                           "temperature": 0.0})
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read() or b"{}")
+
+
+def _in_threads(fns):
+    """Run each callable on its own thread; returns their results."""
+    out = [None] * len(fns)
+    errors = []
+
+    def run(i):
+        try:
+            out[i] = fns[i]()
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"{i}: {type(exc).__name__}: {exc}")
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"client threads: {errors}")
+    return out
+
+
+def _free_device_memory():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serving_rest_phase(results, kernels, card):
+    import shutil
+
+    from megatron_llm_torch import telemetry
+
+    work = os.path.join(REPO, "build", "chip_smoke_serving")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        # each replica's weights and pool go once its function returned:
+        # its locals (the server, the engine, the httpd and the hooks that
+        # hold them) are gone by then, and their cycles go at the collect
+        results["bench_without_host_tier"] = _bench_without_host_tier(work)
+        _free_device_memory()
+        _replica_phase(results, kernels, card, work)
+        _free_device_memory()
+        _fp32_speculative_check(results)
+        _example_server_exits(results, work)
+        _falcon_speculative_wave(results, kernels, card)
+        _free_device_memory()
+    finally:
+        stream = telemetry.get_stream()
+        telemetry.install_stream(None)
+        if stream is not None:
+            stream.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _serve_bench(port, engine):
+    """tools/serve_bench.py with PHASE12_BENCH as a subprocess against
+    the replica on ``port``; returns its JSON and the engine's stats
+    before and after."""
+    s0 = engine.stats()
+    res = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "serve_bench.py"),
+         "--port", str(port), *PHASE12_BENCH], cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    s1 = engine.stats()
+    check(res.returncode == 0, f"serve_bench exited {res.returncode}: "
+                               f"{res.stderr[-800:]}")
+    bench = json.loads(res.stdout[res.stdout.index("{"):])
+    check(bench["ok"] == bench["requests"] == 32 and not bench["errors"],
+          f"serve_bench: {bench['ok']} ok, {bench['errors']} errors")
+    return bench, s0, s1
+
+
+def _engine_split(s0, s1, bench):
+    """The engine's time in verify steps and prefill chunks over a bench
+    run (each step's time ends at its host sync, so it holds the device
+    time), and their share of the bench's wall time."""
+    ver = max(s1["decode_steps"] - s0["decode_steps"], 1)
+    pre = max(s1["prefill_chunks"] - s0["prefill_chunks"], 1)
+    dec = s1["decode_secs"] - s0["decode_secs"]
+    fill = s1["prefill_secs"] - s0["prefill_secs"]
+    return dict(verify_ms=1e3 * dec / ver, prefill_ms=1e3 * fill / pre,
+                engine_share=(dec + fill) / bench["wall_secs"])
+
+
+def _bench_without_host_tier(work):
+    """(a) without the host KV tier: the same replica and bench with
+    --serve_host_cache_bytes 0, so that the tier's spill copies show as
+    the difference of the two runs."""
+    from megatron_llm_torch import telemetry
+    from megatron_llm_torch.run_text_generation_server import (
+        build_parser, build_server)
+    from megatron_llm_torch.tokenizer import NullTokenizer
+
+    argv = _phase12_argv(os.path.join(work, "tier_off"))
+    argv += ["--serve_host_cache_bytes", "0"]
+    server = build_server(build_parser().parse_args(argv),
+                          NullTokenizer(32000))
+    engine = server.engine
+    check(engine.host_cache is None, "the host tier is on")
+    httpd = server.make_httpd("127.0.0.1", 0)
+    srv = threading.Thread(target=server.run, daemon=True)
+    srv.start()
+    try:
+        bench, s0, s1 = _serve_bench(httpd.server_address[1], engine)
+    finally:
+        server.shutdown()
+        engine.stop()
+        srv.join(30)
+        stream = telemetry.get_stream()
+        telemetry.install_stream(None)
+        if stream is not None:
+            stream.close()
+    out = {k: bench[k] for k in ("ttft_p50_secs", "ttft_p95_secs",
+                                 "tpot_p50_secs", "tpot_p95_secs",
+                                 "tokens_per_sec", "wall_secs")}
+    out.update(_engine_split(s0, s1, bench))
+    return out
+
+
+def _replica_phase(results, kernels, card, work):
+    """(a)-(f) on one Llama-2-7B replica at full width and depth."""
+    import numpy as np
+    import torch
+
+    from megatron_llm_torch import telemetry
+    from megatron_llm_torch.run_text_generation_server import (
+        build_parser, build_server)
+    from megatron_llm_torch.serving import chain_block_digests
+    from megatron_llm_torch.tokenizer import NullTokenizer
+
+    phase = "serving Llama-2-7B, speculative"
+    vocab = 32000
+    off = results["bench_without_host_tier"]
+    args = build_parser().parse_args(_phase12_argv(work))
+    t0 = time.perf_counter()
+    server = build_server(args, NullTokenizer(vocab))
+    engine = server.engine
+    L = engine.model.cfg.num_layers
+    pool_bytes = sum(v.numel() * v.element_size()
+                     for p in engine._st.pages for v in p.values())
+    log(f"  model + engine + warmup: {time.perf_counter() - t0:.1f} s; "
+        f"{L} layers; speculative={engine.speculative} draft_k="
+        f"{engine.draft_k}; pool {engine._num_blocks} pages, "
+        f"{pool_bytes / 2**30:.2f} GiB; host tier "
+        f"{engine.host_cache.capacity_blocks} pages of "
+        f"{engine.host_cache.block_bytes / 2**20:.0f} MiB")
+    check(engine.speculative and engine.draft_k == 4
+          and engine.host_cache is not None
+          and engine.fault_injector is not None
+          and engine._watchdog is not None
+          and server.metrics.alert_engine is not None,
+          "phase 12's flags did not reach the engine and the server")
+    httpd = server.make_httpd("127.0.0.1", 0)
+    port = httpd.server_address[1]
+    srv = threading.Thread(target=server.run, daemon=True)
+    srv.start()
+    records = []
+    hook = engine.request_done_hook
+
+    def collect(rec):
+        records.append(rec)
+        hook(rec)
+
+    engine.request_done_hook = collect
+    rng = np.random.RandomState(1234)
+    try:
+        # (a) the client's TTFT and TPOT, from serve_bench over SSE
+        spills0 = engine.host_cache.stats()["spills_completed"]
+        _zero_counts()
+        bench, s0, s1 = _serve_bench(port, engine)
+        launches = _serving_counts()
+        spills = engine.host_cache.stats()["spills_completed"] - spills0
+        ver = s1["decode_steps"] - s0["decode_steps"]
+        pre = s1["prefill_chunks"] - s0["prefill_chunks"]
+        want = {k: 0 for k in launches}
+        want["B"] = (2 * L + 1) * (ver + pre)
+        want["A prefill"] = L * (ver + pre)
+        log(f"  (a) serve_bench {' '.join(PHASE12_BENCH)} ({card}): "
+            f"{bench['ok']} of {bench['requests']} ok in "
+            f"{bench['wall_secs']:.2f} s; TTFT p50 {bench['ttft_p50_secs']}"
+            f" s, p95 {bench['ttft_p95_secs']} s; TPOT p50 "
+            f"{bench['tpot_p50_secs']} s, p95 {bench['tpot_p95_secs']} s; "
+            f"{bench['tokens_per_sec']:.1f} tokens/s; drafted "
+            f"{bench['drafted_tokens']}, accepted "
+            f"{bench['accepted_tokens']} (rate {bench['accept_rate']}); "
+            f"{ver} verify steps, {pre} prefill chunks; launches "
+            f"{launches}")
+        split = _engine_split(s0, s1, bench)
+        log(f"  (a) where the time goes: {split['verify_ms']:.1f} ms a "
+            f"verify step, {split['prefill_ms']:.1f} ms a prefill chunk, "
+            f"{split['engine_share']:.3f} of the wall in the two; "
+            f"{spills} pages spilled to the host tier; without the tier "
+            f"(the same bench on a replica with --serve_host_cache_bytes "
+            f"0): TTFT p50 {off['ttft_p50_secs']} s, TPOT p50 "
+            f"{off['tpot_p50_secs']} s, {off['tokens_per_sec']:.1f} "
+            f"tokens/s, {off['verify_ms']:.1f} ms a verify step, "
+            f"{off['prefill_ms']:.1f} ms a prefill chunk")
+        check(launches == want,
+              f"launches {launches}, expected {want} ({L} layers, {ver} "
+              f"verify steps, {pre} prefill chunks)")
+        check(s1["engine_restarts"] == 0,
+              "the 100 ms spike tripped the watchdog")
+        _add_launches(kernels, "rmsnorm", phase, launches["B"])
+        _add_launches(kernels, "paged_prefill", phase, launches["A prefill"])
+        results["bench"] = {k: bench[k] for k in (
+            "requests", "ok", "wall_secs", "ttft_p50_secs", "ttft_p95_secs",
+            "tpot_p50_secs", "tpot_p95_secs", "tokens_per_sec",
+            "drafted_tokens", "accepted_tokens", "accept_rate",
+            "latency_p50_secs", "latency_p95_secs")}
+        results["bench"].update(verify_steps=ver, prefill_chunks=pre,
+                                launches=launches, spills=spills, **split)
+
+        # (b) speculation at full depth in bf16: 4 repetitive prompts with
+        # prompt lookup, then again with drafts from an oracle that knows
+        # the first run's tokens (every third wrong); the second run's
+        # tokens agree with the no-cache forward where its top-2 margin
+        # is above the bound
+        prompts = _repetitive_prompts(rng, vocab, 4)
+        counts = []
+        outs = None
+        for run in ("lookup", "oracle"):
+            s0 = engine.stats()
+            if run == "oracle":
+                outs = _with_oracle_drafts(prompts, outs, vocab,
+                                           lambda: _serve_wave(
+                                               port, prompts, 48))
+            else:
+                outs = _serve_wave(port, prompts, 48)
+            s1 = engine.stats()
+            counts.append((s1["drafted_tokens"] - s0["drafted_tokens"],
+                           s1["accepted_tokens"] - s0["accepted_tokens"],
+                           s1["decode_steps"] - s0["decode_steps"]))
+        checked = agreed = positions = 0
+        for p, o in zip(prompts[:2], outs[:2]):
+            n_sure, n_agree, n, _ = _token_check(
+                engine.model, engine.params, o, len(p), False, MARGIN_BOUND)
+            checked, agreed, positions = (checked + n_sure,
+                                          agreed + n_agree, positions + n)
+        log(f"  (b) 4 repetitive prompts of 192 ids, 48 new tokens: prompt "
+            f"lookup drafted {counts[0][0]}, accepted {counts[0][1]} in "
+            f"{counts[0][2]} verify steps; oracle drafts drafted "
+            f"{counts[1][0]}, accepted {counts[1][1]} in {counts[1][2]} "
+            f"verify steps; {agreed}/{checked} served tokens agree with the"
+            f" no-cache forward where the top-2 margin > {MARGIN_BOUND} "
+            f"({positions} positions)")
+        # prompt lookup drafts only where the output repeats itself, which
+        # random weights seldom do: its counts are logged, not held
+        check(counts[1][1] > 0, "no oracle draft was accepted")
+        check(checked >= MIN_CHECKED_FRACTION * positions,
+              f"only {checked}/{positions} positions above the margin bound")
+        check(agreed == checked, f"the no-cache forward disagrees at "
+                                 f"{checked - agreed} positions")
+        results["bf16_speculative"] = dict(
+            lookup=dict(zip(("drafted", "accepted", "verify_steps"),
+                            counts[0])),
+            oracle=dict(zip(("drafted", "accepted", "verify_steps"),
+                            counts[1])),
+            checked=checked, agreed=agreed, positions=positions)
+
+        # (c) the host tier: a prefix served from the pool, evicted by
+        # fillers, then served again by swap-in
+        prompt = rng.randint(0, vocab, size=320).tolist()
+        del records[:]
+        first = _serve_wave(port, [prompt], 16)[0]
+        resident = _serve_wave(port, [prompt], 16)[0]
+        check(engine.host_cache.drain(timeout=120), "spills did not drain")
+        digests = chain_block_digests(prompt, 16, 19)
+        waves = 0
+        while any(engine.blocks.host_spill_check(d) for d in digests):
+            check(waves < 8, "fillers did not evict the prefix")
+            _serve_wave(port, [rng.randint(0, vocab, size=1000).tolist()
+                               for _ in range(4)], 2)
+            waves += 1
+        check(engine.host_cache.drain(timeout=120), "spills did not drain")
+        hits0 = engine.stats()["prefix_cache_host_hits"]
+        swapped = _serve_wave(port, [prompt], 16)[0]
+        deadline = time.monotonic() + 30
+        while len(records) < 3 + 4 * waves and time.monotonic() < deadline:
+            time.sleep(0.01)
+        mine = [r for r in records if r["prompt_tokens"] == 320]
+        check(len(mine) == 3, f"{len(mine)} records of the prefix")
+        hs = engine.host_cache.stats()
+        log(f"  (c) a 320-token prefix: cached tokens "
+            f"{[r['cached_prompt_tokens'] for r in mine]}, host-tier pages "
+            f"{[r['host_hit_blocks'] for r in mine]}, swap-in "
+            f"{mine[2]['swap_in_secs']:.4f} s for 19 pages of "
+            f"{engine.host_cache.block_bytes / 2**20:.0f} MiB after "
+            f"{waves} filler waves; host tier: {hs['entries']} entries, "
+            f"{hs['spills_completed']} spills, {hs['spills_dropped']} "
+            f"dropped; tokens from the pool and from the swap-in "
+            f"{'equal' if swapped == resident else 'DIFFER'} (first run "
+            f"{'equal' if first == resident else 'differs'})")
+        check(mine[1]["cached_prompt_tokens"] == 304
+              and mine[1]["host_hit_blocks"] == 0,
+              f"the second run: {mine[1]}")
+        check(mine[2]["cached_prompt_tokens"] == 304
+              and mine[2]["host_hit_blocks"] == 19
+              and mine[2]["swap_in_secs"] > 0,
+              f"the swap-in run: {mine[2]}")
+        check(engine.stats()["prefix_cache_host_hits"] - hits0 == 19,
+              "prefix_cache_host_hits did not count the swap-in")
+        check(swapped == resident,
+              "the swapped-in prefix gave other tokens than the resident")
+        results["host_tier"] = dict(
+            swap_in_secs=mine[2]["swap_in_secs"], pages=19,
+            page_mib=engine.host_cache.block_bytes / 2**20,
+            filler_waves=waves, spills=hs["spills_completed"],
+            spills_dropped=hs["spills_dropped"])
+
+        # (d) hang@N under the watchdog: the engine restarts, requests
+        # that streamed nothing complete, the stream that did ends with
+        # an error; the peak memory holds both pools
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        inj = engine.fault_injector
+        r0 = engine.stats()["engine_restarts"]
+        streaming = threading.Event()
+        box = {}
+        stream_prompt = rng.randint(0, vocab, size=50).tolist()
+        reader = threading.Thread(target=lambda: box.update(
+            events=_sse_request(port, stream_prompt, 64, streaming)))
+        reader.start()
+        check(streaming.wait(120), "the stream sent no token")
+        # the stream has sent a token: wedge the engine two dispatches on,
+        # then queue three more requests
+        hang_at = engine._dispatches + 2
+        inj.hang_at, inj.hang_secs = hang_at, PHASE12_HANG_SECS
+        t_hang = time.monotonic()
+        queued = [rng.randint(0, vocab, size=n).tolist()
+                  for n in (80, 150, 300)]
+        outs = _in_threads([lambda p=p: _put_code(port, p, 32)
+                            for p in queued])
+        reader.join(300)
+        events = box.get("events") or [{}]
+        peak = torch.cuda.max_memory_allocated()
+        restarts = engine.stats()["engine_restarts"] - r0
+        log(f"  (d) hang of {PHASE12_HANG_SECS} s at dispatch "
+            f"{hang_at} under a {PHASE12_WATCHDOG_SECS} s "
+            f"watchdog: {restarts} restart; the stream sent "
+            f"{sum('token' in e for e in events)} tokens and ended "
+            f"{events[-1].get('finish_reason')}; queued requests "
+            f"{[c for c, _ in outs]}; "
+            f"peak device memory across the restart "
+            f"{peak / 2**30:.2f} GiB over {base / 2**30:.2f} GiB before "
+            f"(a pool is {pool_bytes / 2**30:.2f} GiB)")
+        check(restarts == 1, f"{restarts} restarts")
+        check(events[-1].get("done")
+              and events[-1]["finish_reason"] == "error",
+              f"the stream ended {events[-1]}")
+        for (code, body), p in zip(outs, queued):
+            check(code == 200 and len(body["tokens"][0]) == len(p) + 32,
+                  f"a queued request: HTTP {code}")
+        check(peak >= base + pool_bytes,
+              "the peak does not hold the new pool beside the old one")
+        results["restart"] = dict(peak_gib=peak / 2**30,
+                                  before_gib=base / 2**30,
+                                  pool_gib=pool_bytes / 2**30)
+
+        # (e) nan@N evicts one slot with "nonfinite"; its batch-mates
+        # finish
+        ev0 = engine.stats()["slots_evicted_nonfinite"]
+        inj.nan_at = engine._dispatches + 2
+        outs = _in_threads([lambda p=p: _put_code(port, p, 24)
+                            for p in _repetitive_prompts(rng, vocab, 3)])
+        codes = sorted(c for c, _ in outs)
+        evicted = engine.stats()["slots_evicted_nonfinite"] - ev0
+        log(f"  (e) nan at dispatch {engine._dispatches}: HTTP codes "
+            f"{codes}, {evicted} slot evicted non-finite")
+        check(codes == [200, 200, 500] and evicted == 1,
+              f"codes {codes}, {evicted} evicted")
+        check(any(b.get("finish_reason") == "nonfinite" for c, b in outs
+                  if c == 500), "the 500 is not the non-finite one")
+
+        # (f) the restart fired the alert rule: its transition is on the
+        # JSONL stream, its bundle under incidents/, and /metrics shows it
+        path = os.path.join(work, "stream", telemetry.STREAM_FILENAME)
+        deadline = time.monotonic() + 20
+        fired = []
+        while not fired and time.monotonic() < deadline:
+            with open(path) as f:
+                fired = [json.loads(x) for x in f
+                         if '"alert_transition"' in x]
+            time.sleep(0.1)
+        met = _get(port, "/metrics")[1]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/metrics?format=prometheus")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            prom = resp.read().decode()
+        incidents = os.listdir(os.path.join(work, "stream", "incidents"))
+        log(f"  (f) alert transitions on the stream: "
+            f"{[(r['rule'], r['state']) for r in fired]}; incidents "
+            f"{incidents}; /metrics firing {met['alerts']['firing_count']}")
+        check(any(r["rule"] == "engine_restarted" and r["state"] == "firing"
+                  and r["kind"] == "serve" for r in fired),
+              "no alert transition on the JSONL stream")
+        check(incidents and 'megatron_alert_firing{rule="engine_restarted"'
+              in prom, "no incident bundle or no firing gauge")
+        # the wedged thread returns after its hang: the old pool goes
+        time.sleep(max(t_hang + PHASE12_HANG_SECS + 1 - time.monotonic(),
+                       0))
+        gc.collect()
+        after = torch.cuda.memory_allocated()
+        log(f"  after the wedged thread returned: {after / 2**30:.2f} GiB "
+            f"allocated")
+        results["restart"]["after_gib"] = after / 2**30
+    finally:
+        server.shutdown()
+        engine.stop()
+        srv.join(30)
+
+
+def _with_oracle_drafts(prompts, outputs, vocab, run):
+    """``run()`` with the engine's prompt lookup replaced by an oracle
+    that drafts the continuation of ``outputs`` (the full token lists of
+    ``prompts``) with every third draft wrong."""
+    from megatron_llm_torch.serving import engine as engine_mod
+
+    want = {tuple(t[:len(p)]): t for p, t in zip(prompts, outputs)}
+
+    def oracle(tokens, k):
+        full = next(t for p, t in want.items()
+                    if tuple(tokens[:len(p)]) == p)
+        draft = list(full[len(tokens):len(tokens) + k])
+        if len(draft) > 2:
+            draft[2] = (draft[2] + 1) % vocab
+        return draft
+
+    real = engine_mod.lookup_draft
+    engine_mod.lookup_draft = oracle
+    try:
+        return run()
+    finally:
+        engine_mod.lookup_draft = real
+
+
+def _fp32_speculative_check(results):
+    """Speculation is exact: at Llama-2-7B's width cut to 2 layers in
+    fp32 over plain pools (the paged kernel's fp32 variant), and at
+    Falcon-7B's width cut to 2 layers in fp32 over int8 pools (A' at the
+    verify shape, its fp32 variant), the engine with speculation on gives
+    the tokens of the engine with it off.  Random weights seldom repeat
+    themselves, so prompt lookup seldom drafts; a second run takes its
+    drafts from an oracle that knows the speculation-off tokens and
+    corrupts every third one, so that verify steps accept and reject
+    drafts at these widths."""
+    import numpy as np
+    import torch
+
+    from megatron_llm_torch.models.falcon import FalconModel, falcon_config
+    from megatron_llm_torch.models.llama import LlamaModel, llama_config
+    from megatron_llm_torch.serving import (
+        EngineConfig, InferenceEngine, SamplingParams)
+
+    for key, label, model_cls, cfg_fn, vocab, int8 in (
+            ("fp32_speculative", "Llama-2-7B, plain pools", LlamaModel,
+             llama_config, 32000, False),
+            ("fp32_speculative_falcon_int8", "Falcon-7B, int8 pools",
+             FalconModel, falcon_config, 65024, True)):
+        cfg = cfg_fn("7B", num_layers=2, params_dtype="fp32",
+                     compute_dtype="fp32")
+        model = model_cls(cfg, device="cuda")
+        params = model.init(1234)
+        prompts = _repetitive_prompts(np.random.RandomState(99), vocab, 8)
+
+        def serve(spec):
+            eng = InferenceEngine(model, params, EngineConfig(
+                max_model_len=2048, speculative=spec, int8_kv_cache=int8))
+            reqs = [eng.submit(p, SamplingParams(max_new_tokens=48,
+                                                 temperature=0.0))
+                    for p in prompts]
+            for _ in range(5000):
+                if all(r.state == "done" for r in reqs):
+                    break
+                eng.step()
+            st = eng.stats()
+            eng.stop()
+            return ([r.tokens for r in reqs], st["decode_steps"],
+                    st["drafted_tokens"], st["accepted_tokens"])
+
+        off = serve(False)
+        lookup = serve(True)
+        drafted = _with_oracle_drafts(prompts, off[0], vocab,
+                                      lambda: serve(True))
+        log(f"  (b) fp32, {label}, 2 layers, 8 repetitive prompts, 48 "
+            f"tokens: {off[1]} decode steps without speculation; prompt "
+            f"lookup: {lookup[1]} verify steps, drafted {lookup[2]}, "
+            f"accepted {lookup[3]}; oracle drafts (every third wrong): "
+            f"{drafted[1]} verify steps, drafted {drafted[2]}, accepted "
+            f"{drafted[3]}; tokens equal to speculation off: "
+            f"{lookup[0] == off[0]}, {drafted[0] == off[0]}")
+        check(lookup[0] == off[0] and drafted[0] == off[0],
+              f"fp32 speculation changed the tokens ({label})")
+        check(0 < drafted[3] < drafted[2] and drafted[1] < off[1],
+              f"the oracle's drafts were not partly accepted ({label})")
+        results[key] = dict(
+            decode_steps=off[1], lookup=dict(verify_steps=lookup[1],
+                                             drafted=lookup[2],
+                                             accepted=lookup[3]),
+            oracle=dict(verify_steps=drafted[1], drafted=drafted[2],
+                        accepted=drafted[3]))
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _example_server_exits(results, work):
+    """(g) Two servers started as subprocesses from
+    examples/run_text_generation_server.sh's argv (module path, a BPE of
+    32000 ids for its SentencePiece model, a 2-layer Llama-2-7B-width
+    checkpoint, a free port): one drained by ``/drain``, one by SIGTERM,
+    each while a stream is open; new requests get 503, the stream
+    finishes, each exits 0."""
+    import signal
+
+    from megatron_llm_torch import checkpointing
+    from megatron_llm_torch.models.llama import LlamaModel, llama_config
+    from megatron_llm_torch.tokenizer.bpe import write_byte_bpe_vocab
+
+    cfg = llama_config("7B", num_layers=2, params_dtype="bf16",
+                       compute_dtype="bf16")
+    ck = os.path.join(work, "ck")
+    checkpointing.save_checkpoint(
+        ck, 1, LlamaModel(cfg, device="cuda").init(1234),
+        args=checkpointing.config_to_args(cfg))
+    vf, mf = write_byte_bpe_vocab(work, 32000)
+    script = _example_argv("run_text_generation_server.sh", ck, vf,
+                           work=work)
+    check(script[0] == "tools/run_text_generation_server.py",
+          f"the example runs {script[0]}")
+    base = [{"SentencePieceTokenizer": "GPT2BPETokenizer"}.get(a, a)
+            for a in script[1:]] + ["--merge_file", mf, "--host",
+                                    "127.0.0.1"]
+    procs = {}
+    try:
+        for how in ("drain", "SIGTERM"):
+            port = _free_port()
+            out = open(os.path.join(OUT_DIR, f"chip_smoke_server_{how}.log"),
+                       "w")
+            procs[how] = (subprocess.Popen(
+                [sys.executable, "-m",
+                 "megatron_llm_torch.run_text_generation_server", *base,
+                 "--port", str(port)], cwd=REPO, stdout=out,
+                stderr=subprocess.STDOUT), port, out)
+        log(f"  (g) python -m megatron_llm_torch.run_text_generation_server "
+            f"{' '.join(base)} --port N, twice")
+        for how, (proc, port, _) in procs.items():
+            deadline = time.monotonic() + 300
+            while True:
+                check(proc.poll() is None, f"the {how} server exited "
+                                           f"{proc.returncode} early")
+                check(time.monotonic() < deadline, f"the {how} server did "
+                                                   f"not come up")
+                try:
+                    if _get(port, "/health")[1].get("status") == "ok":
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.5)
+        out = {}
+        for how, (proc, port, _) in procs.items():
+            first = threading.Event()
+            box = {}
+            t = threading.Thread(target=lambda: box.update(
+                events=_sse_request(port, list(range(1, 65)), 256, first)))
+            t.start()
+            check(first.wait(120), f"the {how} server's stream sent nothing")
+            t0 = time.perf_counter()
+            if how == "drain":
+                code, body = _put_code_path(port, "/drain")
+                check(code == 200 and body.get("started"), f"/drain: {body}")
+            else:
+                proc.send_signal(signal.SIGTERM)
+                deadline = time.monotonic() + 30
+                while _get(port, "/health")[1].get("status") != "draining":
+                    check(time.monotonic() < deadline, "SIGTERM: no drain")
+                    time.sleep(0.05)
+            refused, _ = _put_code(port, [1, 2, 3], 4)
+            t.join(300)
+            rc = proc.wait(timeout=300)
+            events = box.get("events") or [{}]
+            out[how] = dict(exit_code=rc, refused_with=refused,
+                            stream_tokens=sum("token" in e for e in events),
+                            stream_end=events[-1].get("finish_reason"),
+                            secs_to_exit=time.perf_counter() - t0)
+            log(f"  (g) {how}: a new request got {refused}; the open stream "
+                f"ended {events[-1].get('finish_reason')} after "
+                f"{out[how]['stream_tokens']} tokens; exit {rc} "
+                f"{out[how]['secs_to_exit']:.1f} s after the {how}")
+            check(refused == 503 and rc == 0
+                  and out[how]["stream_end"] == "length"
+                  and out[how]["stream_tokens"] == 256,
+                  f"{how}: {out[how]}")
+        results["example_server_exits"] = out
+    finally:
+        for proc, _, f in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+            f.close()
+
+
+def _put_code_path(port, path):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=b"{}", method="PUT")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read() or b"{}")
+
+
+def _falcon_speculative_wave(results, kernels, card):
+    """(h) Falcon-7B at full width and depth over int8 pools with
+    speculation on: 4 repetitive prompts; A' takes the verify calls (and
+    A none), D runs once a norm and dispatch, and the served tokens agree
+    with the no-cache forward where its margin is above the bound."""
+    import numpy as np
+
+    from megatron_llm_torch.run_text_generation_server import (
+        build_parser, build_server)
+    from megatron_llm_torch.tokenizer import NullTokenizer
+
+    phase = "serving Falcon-7B int8, speculative"
+    vocab = 65024
+    args = build_parser().parse_args(_phase12_falcon_argv())
+    server = build_server(args, NullTokenizer(vocab))
+    engine = server.engine
+    L = engine.model.cfg.num_layers
+    httpd = server.make_httpd("127.0.0.1", 0)
+    port = httpd.server_address[1]
+    srv = threading.Thread(target=server.run, daemon=True)
+    srv.start()
+    try:
+        prompts = _repetitive_prompts(np.random.RandomState(7), vocab, 4)
+        s0 = engine.stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        outs = _serve_wave(port, prompts, 48)
+        wall = time.perf_counter() - t0
+        launches = _serving_counts()
+        s1 = engine.stats()
+        ver = s1["decode_steps"] - s0["decode_steps"]
+        pre = s1["prefill_chunks"] - s0["prefill_chunks"]
+        drafted = s1["drafted_tokens"] - s0["drafted_tokens"]
+        accepted = s1["accepted_tokens"] - s0["accepted_tokens"]
+        want = {k: 0 for k in launches}
+        want["D"] = (L + 1) * (ver + pre)
+        want["A' prefill"] = L * (ver + pre)
+        n_sure = n_agree = n = 0
+        for p, o in zip(prompts, outs):
+            sure, agree, positions, _ = _token_check(
+                engine.model, engine.params, o, len(p), True, MARGIN_BOUND)
+            n_sure, n_agree, n = n_sure + sure, n_agree + agree, n + positions
+        log(f"  (h) Falcon-7B, {L} layers, int8 pools, 4 repetitive prompts"
+            f" of 192 ids + 48 tokens in {wall:.1f} s ({card}): {ver} verify"
+            f" steps, {pre} prefill chunks, drafted {drafted}, accepted "
+            f"{accepted}; launches {launches}; {n_agree}/{n_sure} tokens "
+            f"agree with the no-cache forward above the margin ({n} "
+            f"positions)")
+        check(launches == want, f"launches {launches}, expected {want}")
+        check(n_sure >= MIN_CHECKED_FRACTION * n,
+              f"only {n_sure}/{n} positions above the margin bound")
+        check(n_agree == n_sure,
+              f"{n_agree}/{n_sure} of {n} sure tokens agree")
+        _add_launches(kernels, "layernorm", phase, launches["D"])
+        _add_launches(kernels, "paged_prefill_int8", phase,
+                      launches["A' prefill"])
+        results["falcon_int8"] = dict(
+            verify_steps=ver, prefill_chunks=pre, drafted=drafted,
+            accepted=accepted, wall_secs=wall, launches=launches,
+            token_check=dict(checked=n_sure, agreed=n_agree, positions=n))
+    finally:
+        server.shutdown()
+        engine.stop()
+        srv.join(30)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4722,6 +5610,14 @@ def main(argv=None) -> int:
     mixtral_phase(mixtral, kernels, card)
     log(f"phase 11 passed in {time.perf_counter() - t0:.1f} s")
     log(f"mixtral and LoRA ({card}): " + json.dumps(mixtral))
+    t0 = time.perf_counter()
+    log("phase 12: Llama-2-7B served with speculation, the host KV tier, "
+        "the watchdog, faults, SSE, alerts and drain; Falcon-7B int8 with "
+        "speculation")
+    rest = {}
+    serving_rest_phase(rest, kernels, card)
+    log(f"phase 12 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"serving, the rest ({card}): " + json.dumps(rest))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     names = ("paged_decode", "paged_prefill", "paged_decode_int8",
@@ -4741,7 +5637,7 @@ def main(argv=None) -> int:
         json.dump({"card": card, "kernels": kernels, "serving": serving,
                    "training": training, "corpus": corpus, "gpt2": gpt2,
                    "llama3": llama3, "weights": weights,
-                   "mixtral": mixtral}, f, indent=1)
+                   "mixtral": mixtral, "serving_rest": rest}, f, indent=1)
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,9 +36,6 @@ JAX_FLAGS_NOT_HERE = {
     "serve_paged_kernel": "the port has no kernel on/off switch: the paged "
                           "path is keyed on the tensor's device alone",
     "serve_prefill_kernel": "as serve_paged_kernel",
-    "serve_alerts": "the SLO sentinel is not ported (ROADMAP item 10), and "
-                    "the JAX default (1, on) would make every launch ask "
-                    "for it",
 }
 
 
@@ -345,7 +342,8 @@ def _add_inference_args(parser):
     g.add_argument("--serve_max_queue_depth", type=int, default=64)
     g.add_argument("--serve_deadline_secs", type=float, default=120.0)
     g.add_argument("--serve_max_model_len", type=int, default=0)
-    # later slices: the engine raises NotImplementedError when one is on
+    # speculative decoding, the host KV tier and the engine's resilience
+    # (serving/engine.py, host_cache.py, resilience.py)
     g.add_argument("--serve_speculative", type=int, default=0)
     g.add_argument("--serve_draft_k", type=int, default=4)
     g.add_argument("--serve_prefix_cache", type=int, default=1)
@@ -354,6 +352,9 @@ def _add_inference_args(parser):
     g.add_argument("--serve_preemption", type=int, default=1)
     g.add_argument("--serve_restart_backoff_secs", type=float, default=0.5)
     g.add_argument("--serve_fault_inject", type=str, default="")
+    # the SLO sentinel (serving/alerts.py), on by default as in the JAX
+    # package
+    g.add_argument("--serve_alerts", type=int, default=1)
     g.add_argument("--alert_rules", type=str, default=None)
     g.add_argument("--alert_webhook", type=str, default=None)
 
@@ -556,15 +557,9 @@ UNPORTED_TRAINING = {
     "fault_inject": "the fault injector (ROADMAP item 7)",
 }
 
-#: the server's table (the engine refuses its own: speculative decoding,
-#: the host KV tier, the watchdog and the fault injector)
-UNPORTED_SERVING = {
-    **_UNPORTED_COMMON,
-    "serve_restart_backoff_secs": "the engine watchdog's restarts "
-                                  "(ROADMAP item 10)",
-    "alert_rules": "the SLO sentinel (ROADMAP item 10)",
-    "alert_webhook": "the SLO sentinel (ROADMAP item 10)",
-}
+#: the server's table: the common one (every serving flag is ported;
+#: weight-only int8 is refused by the server itself)
+UNPORTED_SERVING = dict(_UNPORTED_COMMON)
 
 
 def refuse_unported(args, table: Mapping[str, str],

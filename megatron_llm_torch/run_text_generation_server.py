@@ -22,10 +22,18 @@ server does; ``--use_checkpoint_args`` takes the architecture the
 checkpoint records (``finetune.checkpoint_architecture``), which wins over
 the size flags and the tokenizer's padded vocabulary.  With no ``--load``
 it serves random weights drawn from ``--seed``.  ``--int8_kv_cache`` keeps the
-paged KV pool as int8 with per-position scales.  ``build_server(args,
-tokenizer)`` builds the model, the engine and the server in-process (the
-port's tests and ``chip_smoke.py`` call it); ``main()`` parses the flags,
-builds the tokenizer and serves.
+paged KV pool as int8 with per-position scales.  The engine flags are the
+JAX server's: ``--serve_speculative`` / ``--serve_draft_k`` (speculative
+decoding), ``--serve_host_cache_bytes`` (the host KV tier),
+``--serve_watchdog_secs``, ``--serve_restart_backoff_secs`` and
+``--serve_fault_inject`` (the engine's resilience); ``--serve_alerts``
+(on by default), ``--alert_rules`` and ``--alert_webhook`` run the SLO
+sentinel, with its transitions on the ``--structured_log_dir`` stream and
+its incident bundles under ``<structured_log_dir>/incidents``.  SIGTERM,
+or ``PUT /drain``, drains the server and ``main()`` returns.
+``build_server(args, tokenizer)`` builds the model, the engine and the
+server in-process (the port's tests and ``chip_smoke.py`` call it);
+``main()`` parses the flags, builds the tokenizer and serves.
 """
 
 from __future__ import annotations
@@ -57,7 +65,10 @@ from megatron_llm_torch.models.language_model import (
     init_language_model_params,
 )
 from megatron_llm_torch.serving import EngineConfig, InferenceEngine
-from megatron_llm_torch.text_generation_server import MegatronServer
+from megatron_llm_torch.text_generation_server import (
+    MegatronServer,
+    build_server_alerts,
+)
 from megatron_llm_torch.tokenizer import build_tokenizer
 
 # family -> (its config table, the size served with no size flags, and
@@ -149,17 +160,20 @@ def engine_config_from_args(args) -> EngineConfig:
         prefix_cache=bool(args.serve_prefix_cache),
         host_cache_bytes=args.serve_host_cache_bytes,
         speculative=bool(args.serve_speculative),
+        draft_k=args.serve_draft_k,
         watchdog_secs=args.serve_watchdog_secs,
         preemption=bool(args.serve_preemption),
         fault_spec=args.serve_fault_inject,
+        restart_backoff_secs=args.serve_restart_backoff_secs,
     )
 
 
 def build_server(args, tokenizer) -> MegatronServer:
     """Model (the ``--load`` checkpoint's params, or random weights from
     ``--seed``), warmed and started engine, and the HTTP server in front
-    of it; ``server.engine`` is the engine.  The caller binds and runs the
-    server and stops the engine."""
+    of it, with the SLO sentinel when ``--serve_alerts``; ``server.engine``
+    is the engine.  The caller binds and runs the server, and stops it
+    (``server.shutdown()``, which stops the sentinel) and the engine."""
     if args.structured_log_dir:
         telemetry.install_stream(
             telemetry.TelemetryStream(args.structured_log_dir))
@@ -199,12 +213,21 @@ def build_server(args, tokenizer) -> MegatronServer:
           flush=True)
     print(f" * paged-attention prefill path: {engine.prefill_kernel}",
           flush=True)
+    spec = (f"on (draft_k={engine.draft_k})" if engine.speculative
+            else "off")
+    print(f" * speculative decoding: {spec}", flush=True)
     engine.warmup()
     engine.start()
-    return MegatronServer(tokenizer, engine,
-                          log_requests=args.log_requests,
-                          max_prompts=args.serve_max_prompts,
-                          max_tokens=args.serve_max_tokens)
+    server = MegatronServer(tokenizer, engine,
+                            log_requests=args.log_requests,
+                            max_prompts=args.serve_max_prompts,
+                            max_tokens=args.serve_max_tokens)
+    if args.serve_alerts:
+        build_server_alerts(server, engine=engine,
+                            structured_log_dir=args.structured_log_dir,
+                            alert_rules=args.alert_rules,
+                            alert_webhook=args.alert_webhook)
+    return server
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -214,7 +237,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     try:
         server.run(args.host, args.port)
     finally:
-        server.engine.stop()
+        server.shutdown()
+        if not server.draining:     # a drain has stopped it already
+            server.engine.stop()
         bundle = tracing.get_tracing()
         if bundle is not None:
             bundle.write_trace(reason="shutdown")

@@ -5,13 +5,18 @@ pool bookkeeping and the refcounted prefix cache) -> ``request``
 (lifecycle and admission queue) -> ``scheduler`` (slot admission,
 prefill/decode interleaving) -> ``engine`` (the background thread and the
 device programs).  ``kv_blocks``, ``request``, ``scheduler``,
-``cache_observatory`` and ``loop_profiler`` are copies of the JAX
-package's host-side modules with only their imports changed.  The HTTP
-front-end is ``megatron_llm_torch.text_generation_server``.
+``cache_observatory``, ``loop_profiler``, ``drafter`` (prompt-lookup
+drafts for speculative decoding), ``host_cache`` (the host KV tier),
+``resilience`` (the fault injector and the engine watchdog) and
+``alerts`` (the SLO sentinel) are copies of the JAX package's host-side
+modules with only their imports changed (``resilience`` keeps its own
+stack and memory dump).  The HTTP front-end is
+``megatron_llm_torch.text_generation_server``.
 """
 
 from megatron_llm_torch.serving.cache_observatory import CacheObservatory
 from megatron_llm_torch.serving.engine import EngineConfig, InferenceEngine
+from megatron_llm_torch.serving.host_cache import HostKVCache
 from megatron_llm_torch.serving.kv_blocks import (
     BlockManager,
     NoCapacity,
@@ -26,6 +31,10 @@ from megatron_llm_torch.serving.request import (
     RequestQueue,
     SamplingParams,
 )
+from megatron_llm_torch.serving.resilience import (
+    EngineWatchdog,
+    ServingFaultInjector,
+)
 from megatron_llm_torch.serving.scheduler import Scheduler
 
 __all__ = [
@@ -33,6 +42,8 @@ __all__ = [
     "CacheObservatory",
     "EngineConfig",
     "EngineError",
+    "EngineWatchdog",
+    "HostKVCache",
     "InferenceEngine",
     "LoopProfiler",
     "NoCapacity",
@@ -41,6 +52,7 @@ __all__ = [
     "RequestQueue",
     "SamplingParams",
     "Scheduler",
+    "ServingFaultInjector",
     "chain_block_digests",
     "derive_num_blocks",
 ]

@@ -8,9 +8,13 @@ The subset of ``megatron_llm_tpu/telemetry.py`` that the port's trainer
 Record shapes, bucket bounds and the schema version are the same, so the
 stdlib report tools (``tools/serve_report.py``,
 ``tools/telemetry_report.py``) read a port replica's stream unchanged.
-The peak table is the H100's; it has no TPU entry, and a CPU has no peak,
-so no MFU is ever made up for one.  The trainer's JSONL stream, status
-server and profiler session are later slices.
+The server's Prometheus text exposition
+(``prometheus_exposition``, ``_wants_prometheus``) and the postmortem
+bundle writers of the SLO sentinel (``atomic_write_json``,
+``capture_thread_stacks``, ``write_snapshot_bundle``) are copies of the
+JAX package's.  The peak table is the H100's; it has no TPU entry, and a
+CPU has no peak, so no MFU is ever made up for one.  The trainer's JSONL
+stream, status server and profiler session are later slices.
 """
 
 from __future__ import annotations
@@ -216,6 +220,194 @@ def histogram_percentile(snap: Dict[str, Any], q: float) -> Optional[float]:
         if bound != float("inf"):
             lo = bound
     return lo
+
+
+
+# ---------------------------------------------------------------------------
+# Atomic snapshot writing (shared by the flight recorder, the crash
+# path's stack dump, and the serving alert engine's postmortem bundles)
+# ---------------------------------------------------------------------------
+
+def atomic_write_json(path: str, payload: Any, indent: int = 1) -> str:
+    """Write JSON atomically (tmp + rename): a reader — or a scraper
+    racing process death — sees either the old file or the complete new
+    one, never a truncated write."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(payload, f, indent=indent, default=str)
+    os.replace(tmp, path)
+    return path
+
+
+def capture_thread_stacks() -> str:
+    """All-thread stack report (the watchdog/crash dump and the alert
+    bundles share this): one block per thread with name/daemon flag and
+    the formatted frames from ``sys._current_frames``."""
+    import sys
+    import traceback
+
+    frames = sys._current_frames()
+    names = {t.ident: t for t in threading.enumerate()}
+    out = []
+    for ident, frame in sorted(frames.items()):
+        t = names.get(ident)
+        label = f"{t.name}{' (daemon)' if t.daemon else ''}" \
+            if t is not None else "unknown"
+        out.append(f"--- thread {label} (ident {ident}) ---")
+        out.append("".join(traceback.format_stack(frame)))
+    return "\n".join(out)
+
+
+def write_snapshot_bundle(dir_path: str, parts: Dict[str, Any],
+                          max_bytes_per_part: int = 2_000_000,
+                          manifest_extra: Optional[Dict[str, Any]] = None
+                          ) -> str:
+    """Write a postmortem bundle as an atomically-published directory.
+
+    ``parts`` maps part name -> payload: a str becomes ``<name>.txt``,
+    anything else JSON-serializes to ``<name>.json``.  Every part is
+    size-bounded (oversize payloads are truncated with a marker, never
+    dropped silently) and the bundle carries a ``manifest.json`` listing
+    what landed.  The whole directory is staged under a pid-suffixed tmp
+    name and published with one ``os.replace`` so a reader never sees a
+    half-written bundle — the same tmp+rename discipline as
+    :func:`atomic_write_json`, at directory granularity."""
+    tmp = f"{dir_path}.tmp.{os.getpid()}"
+    os.makedirs(tmp, exist_ok=True)
+    manifest: Dict[str, Any] = {
+        "written_at_unix": time.time(),
+        "parts": {},
+    }
+    if manifest_extra:
+        manifest.update(manifest_extra)
+    for name, payload in sorted(parts.items()):
+        try:
+            if isinstance(payload, str):
+                fname, data = f"{name}.txt", payload
+            else:
+                fname, data = f"{name}.json", json.dumps(
+                    payload, indent=1, default=str)
+            truncated = False
+            if len(data) > max_bytes_per_part:
+                data = data[:max_bytes_per_part] \
+                    + "\n...[truncated by bundle size bound]"
+                truncated = True
+            with open(os.path.join(tmp, fname), "w") as f:
+                f.write(data)
+            manifest["parts"][name] = {"file": fname,
+                                       "bytes": len(data),
+                                       "truncated": truncated}
+        except Exception as exc:    # noqa: BLE001 - forensics: best effort
+            manifest["parts"][name] = {"error": repr(exc)}
+    atomic_write_json(os.path.join(tmp, "manifest.json"), manifest)
+    if os.path.isdir(dir_path):     # an older bundle with the same name
+        os.replace(os.path.join(tmp, "manifest.json"),
+                   os.path.join(dir_path, "manifest.json"))
+        for f in os.listdir(tmp):
+            os.replace(os.path.join(tmp, f), os.path.join(dir_path, f))
+        os.rmdir(tmp)
+    else:
+        os.replace(tmp, dir_path)
+    return dir_path
+
+
+# ---------------------------------------------------------------------------
+# Prometheus text exposition (shared by serving /metrics, the router's
+# fleet /metrics, and the trainer's --status_port endpoint)
+# ---------------------------------------------------------------------------
+
+def _metric_name(name: str) -> str:
+    name = "".join(c if (c.isalnum() and c.isascii()) or c == "_"
+                   else "_" for c in name)
+    if name and name[0].isdigit():
+        name = "_" + name
+    return name
+
+
+def prometheus_exposition(snapshot: dict,
+                          prefix: str = "megatron_serve_") -> str:
+    """Render a metrics snapshot dict as Prometheus text exposition
+    format (0.0.4) so standard scrapers can hit ``/metrics`` without a
+    JSON-translating sidecar.  Nested dicts (the ``engine`` block, its
+    per-reason completion counts) flatten into underscore-joined names;
+    None values (e.g. empty-window percentiles) are omitted; numbers are
+    exported as gauges — the scraper cannot tell a monotone counter from
+    a level, and gauge is always safe.  Histogram snapshots (the
+    ``Histogram.snapshot()`` shape) render as proper Prometheus
+    histograms: cumulative ``_bucket{le=...}`` series plus ``_sum`` and
+    ``_count``.  An ``alerts`` block (the serving alert engine's
+    snapshot shape) renders its firing list as the labeled gauge
+    ``megatron_alert_firing{rule=...,scope=...} 1`` — the one labeled
+    series in the exposition, with a fixed unprefixed name so the same
+    alerting config scrapes replica and fleet endpoints alike — and its
+    numeric counters as ordinary gauges."""
+    lines = []
+
+    def esc(v):
+        return str(v).replace("\\", "\\\\").replace('"', '\\"')
+
+    def emit_alert_block(path, block):
+        lines.append("# TYPE megatron_alert_firing gauge")
+        for entry in block.get("firing") or []:
+            if not isinstance(entry, dict):
+                continue
+            lines.append(
+                f'megatron_alert_firing{{rule="{esc(entry.get("rule"))}"'
+                f',scope="{esc(entry.get("scope"))}"'
+                f',severity="{esc(entry.get("severity"))}"}} 1')
+        rest = {k: v for k, v in block.items()
+                if k not in ("firing", "pending")}
+        walk(rest, path)
+
+    def emit(name, value):
+        if isinstance(value, bool) or not isinstance(value, (int, float)):
+            return
+        name = _metric_name(name)
+        lines.append(f"# TYPE {name} gauge")
+        lines.append(f"{name} {float(value):g}")
+
+    def emit_histogram(name, snap):
+        name = _metric_name(name)
+        items = []
+        for k, v in snap["buckets"].items():
+            bound = float("inf") if k in (_INF_LABEL, "inf") else float(k)
+            items.append((bound, k, int(v)))
+        items.sort()
+        lines.append(f"# TYPE {name} histogram")
+        cum = 0
+        for bound, label, c in items:
+            cum += c
+            lines.append(f'{name}_bucket{{le="{label}"}} {cum}')
+        lines.append(f"{name}_sum {float(snap.get('sum') or 0.0):g}")
+        lines.append(f"{name}_count {int(snap.get('count') or 0)}")
+
+    def walk(d, path):
+        for k, v in sorted(d.items()):
+            if is_histogram_snapshot(v):
+                emit_histogram(f"{path}{k}", v)
+            elif k == "alerts" and isinstance(v, dict) \
+                    and isinstance(v.get("firing"), list):
+                emit_alert_block(f"{path}{k}_", v)
+            elif isinstance(v, dict):
+                walk(v, f"{path}{k}_")
+            else:
+                emit(f"{path}{k}", v)
+
+    walk(snapshot, prefix)
+    return "\n".join(lines) + "\n"
+
+
+def _wants_prometheus(path: str, accept: str) -> bool:
+    """Content negotiation for /metrics: an explicit ?format=prometheus
+    query wins; otherwise an Accept header preferring text/plain (what
+    the Prometheus scraper sends) selects the text exposition."""
+    query = path.partition("?")[2]
+    for pair in query.split("&"):
+        if pair.partition("=")[::2] == ("format", "prometheus"):
+            return True
+    accept = accept.lower()
+    return ("text/plain" in accept or "openmetrics" in accept) \
+        and "application/json" not in accept
 
 
 class TelemetryStream:

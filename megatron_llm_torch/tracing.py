@@ -153,6 +153,16 @@ def instant(name: str, category: str = "other", **attrs) -> None:
         t.tracer.instant(name, category, **attrs)
 
 
+def dump_trace(reason: str = "") -> Optional[str]:
+    """Write the active trace (the alert bundles' path — never raises)."""
+    try:
+        if _ACTIVE is None:
+            return None
+        return _ACTIVE.write_trace(reason=reason)
+    except Exception:   # noqa: BLE001 - forensics: best effort
+        return None
+
+
 def new_trace_id() -> str:
     """A fleet-unique request trace id (the ``X-Request-Trace`` value)."""
     return uuid.uuid4().hex[:16]

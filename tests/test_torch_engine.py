@@ -3,9 +3,10 @@ the same tiny Llama params (carried across by weights.py), the same
 EngineConfig, the same greedy requests, single-stepped on the CPU — the
 generated tokens must be identical.  Cases: co-batched prompts, a shared
 prefix served from the prefix cache, a forced copy-on-write of a shared
-page, and preemption under a deliberately small pool.  Also: unported
-options raise, and the stats / request_done keys keep the JAX engine's
-(schema 13) so the stdlib serve tools read a port replica."""
+page, and preemption under a deliberately small pool.  Also: the
+options that were refused before they were ported build engines that
+serve the same tokens, and the stats / request_done keys keep the JAX
+engine's (schema 13) so the stdlib serve tools read a port replica."""
 
 import json
 import os
@@ -99,6 +100,21 @@ def test_shared_prefix_hits_the_cache_like_jax(models):
         jeng.stats()["prefix_cache_hit_tokens"] > 0
 
 
+
+def test_prefix_hit_chunk_at_the_position_table_end(models):
+    """A 56-token cached prefix (seven pages) leaves the next prompt's
+    chunk starting at 56 with prefill_chunk 16: its padded tail lies past
+    max_position_embeddings (64) and must neither fail the chunk nor
+    change the JAX engine's tokens."""
+    jeng, teng = _engines(models)
+    common = [(7 * i + 3) % 60 + 1 for i in range(56)]
+    for prompts in ([common + [2]], [common + [3, 4, 5, 6]]):
+        want = _serve(jeng, JaxSamplingParams, prompts, n=2)
+        got = _serve(teng, SamplingParams, prompts, n=2)
+        assert got[0].tokens == want[0].tokens
+        assert got[0].cached_prompt_tokens == want[0].cached_prompt_tokens
+    assert got[0].cached_prompt_tokens == 56
+
 def test_copy_on_write_of_a_shared_page(models):
     """Two live requests adopt the same cached pages; forcing the write
     barrier on one of them copies the page on the device, repoints its
@@ -149,9 +165,22 @@ def test_preemption_matches_jax(models):
     dict(host_cache_bytes=1 << 20), dict(watchdog_secs=1.0),
     dict(fault_spec="nan@3")])
 def test_unported_options_raise(models, kw):
+    """The four options that the port used to refuse (speculative
+    decoding, the host KV tier, the watchdog, the fault injector) now
+    build an engine that serves the plain engine's greedy tokens (the
+    fault spec stays disarmed without a warmup)."""
     _, _, tmodel, tparams = models
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(tmodel, tparams, EngineConfig(**ENGINE_KW, **kw))
+    eng = InferenceEngine(tmodel, tparams, EngineConfig(**ENGINE_KW, **kw))
+    try:
+        got = _serve(eng, SamplingParams, PROMPTS)
+        _, plain = _engines(models)
+        want = _serve(plain, SamplingParams, PROMPTS)
+        assert [r.tokens for r in got] == [r.tokens for r in want]
+        assert eng.stats()["speculative"] == bool(kw.get("speculative"))
+        assert (eng.host_cache is not None) == ("host_cache_bytes" in kw)
+        assert (eng.fault_injector is not None) == ("fault_spec" in kw)
+    finally:
+        eng.stop()
 
 
 def test_stats_and_request_done_keep_the_jax_keys(models):

@@ -49,7 +49,9 @@ BANNED = ("jax", "jaxlib", "megatron_llm_tpu", "orbax", "tensorstore",
 
 def test_every_port_module_imports_with_jax_blocked():
     mods = _modules()
-    for sub in ("weights_conversion", "tools", "verify_correctness"):
+    for sub in ("weights_conversion", "tools", "verify_correctness",
+                "serving.drafter", "serving.host_cache",
+                "serving.resilience", "serving.alerts"):
         assert any(m.startswith(f"megatron_llm_torch.{sub}") for m in mods)
     code = ("import importlib, sys\n"
             f"for b in {BANNED!r}:\n"

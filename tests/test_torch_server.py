@@ -3,10 +3,13 @@ Llama on the CPU and the numeric tokenizer of tests/_serve_replica.py,
 on port 0: PUT /api, GET /health, GET /metrics, and the JSON 400s.  And
 with ``--load`` and a GPT-2 BPE tokenizer (``build_tokenizer``): it
 serves the checkpoint's params, answers a text prompt, and its greedy
-tokens are the no-cache path's on those params."""
+tokens are the no-cache path's on those params.  Beside the JAX server
+on the same params: the SSE events of ``/api/stream``, the Prometheus
+text of ``/metrics``, the demo page; and the drain by ``/drain``."""
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -102,9 +105,17 @@ def test_bad_requests_are_json_400s(port, payload):
 
 
 def test_unported_flags_raise():
-    args = build_parser().parse_args(TINY + ["--serve_speculative", "1"])
-    with pytest.raises(NotImplementedError):
-        build_server(args, _FakeTokenizer())
+    """``--serve_speculative`` used to be refused; it now reaches the
+    engine with the JAX parser's draft length."""
+    args = build_parser().parse_args(TINY + ["--serve_speculative", "1",
+                                             "--serve_draft_k", "3"])
+    server = build_server(args, _FakeTokenizer())
+    try:
+        st = server.engine.stats()
+        assert st["speculative"] is True and st["draft_k"] == 3
+    finally:
+        server.shutdown()
+        server.engine.stop()
 
 
 def test_load_with_a_bpe_tokenizer_answers_text(tmp_path):
@@ -269,11 +280,31 @@ def test_example_argv_serves_a_converted_checkpoint(tmp_path):
 
 
 def test_server_flags_of_unported_features_raise():
-    for flags in (["--int8_weights"], ["--alert_rules", "{}"],
-                  ["--wandb_logger"]):
+    for flags in (["--int8_weights"], ["--wandb_logger"]):
         args = build_parser().parse_args(TINY + flags)
         with pytest.raises(NotImplementedError):
             build_server(args, _FakeTokenizer())
+    # the alert and restart flags are honoured now: the rules given
+    # replace the defaults, --serve_alerts 0 runs no sentinel, and the
+    # backoff reaches the engine
+    rules = ('[{"name": "slow_ttft", "kind": "threshold", '
+             '"path": "slo.ttft_secs_p95", "op": ">", "value": 5}]')
+    for flags, names in (
+            (["--alert_rules", rules, "--serve_restart_backoff_secs",
+              "0.25"], ["slow_ttft"]),
+            (["--serve_alerts", "0"], None)):
+        server = build_server(build_parser().parse_args(TINY + flags),
+                              _FakeTokenizer())
+        try:
+            alerts = server.metrics.alert_engine
+            if names is None:
+                assert alerts is None
+            else:
+                assert [r["name"] for r in alerts.rules] == names
+                assert server.engine.config.restart_backoff_secs == 0.25
+        finally:
+            server.shutdown()
+            server.engine.stop()
 
 
 def test_server_serves_mixtral(tmp_path):
@@ -308,6 +339,200 @@ def test_server_serves_mixtral(tmp_path):
                 logits = engine.model(engine.params, torch.tensor([toks]))
                 toks.append(int(logits[0, -1].argmax()))
         assert got == toks
+    finally:
+        server.shutdown()
+        server.engine.stop()
+        t.join(10)
+
+
+# ---------------------------------------------------------------------------
+# streaming, Prometheus text, the demo page and drain, beside the JAX
+# server on the same params
+# ---------------------------------------------------------------------------
+
+def _start_jax_server(jmodel, jparams):
+    from megatron_llm_tpu.serving import EngineConfig as JaxEngineConfig
+    from megatron_llm_tpu.serving import InferenceEngine as JaxEngine
+    from megatron_llm_tpu.text_generation_server import (
+        MegatronServer as JaxServer,
+    )
+
+    engine = JaxEngine(jmodel, jparams, JaxEngineConfig(**SERVE_ENGINE_KW))
+    engine.warmup()
+    engine.start()
+    server = JaxServer(jmodel, jparams, _FakeTokenizer(), engine=engine)
+    t = threading.Thread(target=server.run, kwargs={"host": "127.0.0.1",
+                                                    "port": 0}, daemon=True)
+    t.start()
+    deadline = time.monotonic() + 30
+    while getattr(server, "httpd", None) is None:
+        assert time.monotonic() < deadline, "the JAX server did not bind"
+        time.sleep(0.02)
+    return server, engine, t
+
+
+SERVE_ENGINE_KW = dict(num_slots=4, block_size=8, prefill_chunk=16,
+                       max_model_len=64)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """The port's server and the JAX server over the same tiny Llama
+    params (the JAX init, carried across by weights.py)."""
+    import jax
+
+    from megatron_llm_tpu.models.llama import LlamaModel as JaxLlama
+    from megatron_llm_tpu.models.llama import llama_config as jax_cfg
+    from megatron_llm_torch.models.llama import LlamaModel, llama_config
+    from megatron_llm_torch.serving import EngineConfig, InferenceEngine
+    from megatron_llm_torch.text_generation_server import MegatronServer
+    from megatron_llm_torch.weights import params_from_jax
+
+    kw = dict(num_layers=2, seq_length=64, max_position_embeddings=64,
+              padded_vocab_size=64)
+    jmodel = JaxLlama(jax_cfg("tiny", use_flash_attn=False, **kw))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tcfg = llama_config("tiny", **kw)
+    engine = InferenceEngine(
+        LlamaModel(tcfg, device="cpu"),
+        params_from_jax(jax.device_get(jparams), tcfg, device="cpu"),
+        EngineConfig(**SERVE_ENGINE_KW))
+    engine.warmup()
+    engine.start()
+    server = MegatronServer(_FakeTokenizer(), engine)
+    httpd = server.make_httpd("127.0.0.1", 0)
+    t = threading.Thread(target=server.run, daemon=True)
+    t.start()
+    jserver, jengine, jt = _start_jax_server(jmodel, jparams)
+    try:
+        yield (server, httpd.server_address[1],
+               jserver, jserver.httpd.server_address[1])
+    finally:
+        server.shutdown()
+        engine.stop()
+        jserver.httpd.shutdown()
+        jengine.stop()
+        t.join(10)
+        jt.join(10)
+
+
+def _sse(port, payload, path="/api/stream"):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode(),
+                                 method="PUT")
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        assert resp.headers["Content-Type"] == "text/event-stream"
+        raw = resp.read().decode()
+    events = [json.loads(block[len("data: "):])
+              for block in raw.split("\n\n") if block.strip()]
+    assert all(block.startswith("data: ")
+               for block in raw.split("\n\n") if block.strip())
+    return events
+
+
+def test_sse_events_equal_the_jax_servers(pair):
+    _, port, _, jport = pair
+    payload = {"prompts": ["3 9 27 17 5 8"], "tokens_to_generate": 7,
+               "temperature": 0.0}
+    got = _sse(port, payload)
+    want = _sse(jport, payload)
+    assert got == want
+    assert len(got) == 8 and got[-1]["done"] is True
+    assert got[-1]["finish_reason"] == "length"
+    assert [e["token"] for e in got[:-1]] == got[-1]["tokens"][6:]
+    assert _sse(port, payload, "/generate/stream") == got
+    # the JSON path serves the same tokens
+    assert _call(port, "PUT", "/api", payload)[1]["tokens"][0] == \
+        got[-1]["tokens"]
+    # a streaming request takes one prompt
+    code, body = _call(port, "PUT", "/api/stream",
+                       {"prompts": ["1", "2"], "tokens_to_generate": 2})
+    assert code == 400 and "single prompt" in body["message"]
+
+
+def test_prometheus_text_has_the_jax_names(pair):
+    from megatron_llm_tpu.telemetry import (
+        prometheus_exposition as jax_exposition,
+    )
+
+    server, port, _, _ = pair
+    _call(port, "PUT", "/api", {"prompts": ["4 5"], "tokens_to_generate": 2,
+                                "temperature": 0.0})
+    snap = server.metrics.snapshot()
+    from megatron_llm_torch.telemetry import prometheus_exposition
+
+    assert prometheus_exposition(snap) == jax_exposition(snap)
+
+    def names(text):
+        return {line.split()[2] for line in text.splitlines()
+                if line.startswith("# TYPE")}
+
+    for how in ({"path": "/metrics?format=prometheus"},
+                {"path": "/metrics", "headers": {"Accept": "text/plain"}}):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{how['path']}",
+                                     headers=how.get("headers", {}))
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            assert resp.headers["Content-Type"].startswith("text/plain")
+            text = resp.read().decode()
+        assert names(text) == names(jax_exposition(snap))
+        assert "megatron_serve_engine_decode_steps" in names(text)
+        assert "megatron_serve_histograms_ttft_secs" in names(text)
+    # JSON stays the default
+    assert "engine" in _call(port, "GET", "/metrics")[1]
+
+
+def test_index_page_is_served(pair):
+    _, port, _, _ = pair
+    for path in ("/", "/index.html"):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as resp:
+            assert resp.status == 200
+            assert resp.headers["Content-Type"].startswith("text/html")
+            assert b"<html" in resp.read().lower()
+
+
+def test_drain_refuses_new_requests_and_finishes_in_flight():
+    """``/drain``: new requests get 503 with Retry-After, /health says
+    draining, the stream already open finishes with its done record, and
+    the server stops (run() returns)."""
+    server = build_server(build_parser().parse_args(TINY),
+                          _FakeTokenizer())
+    httpd = server.make_httpd("127.0.0.1", 0)
+    port = httpd.server_address[1]
+    t = threading.Thread(target=server.run, daemon=True)
+    t.start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/api/stream", method="PUT",
+            data=json.dumps({"prompts": ["1 2 3 4"],
+                             "tokens_to_generate": 30,
+                             "temperature": 0.0}).encode())
+        stream = urllib.request.urlopen(req, timeout=60)
+        first = stream.readline()
+        assert first.startswith(b"data: ")
+        code, body = _call(port, "PUT", "/drain")
+        assert code == 200 and body == {"status": "draining",
+                                        "started": True}
+        assert _call(port, "POST", "/drain")[1]["started"] is False
+        assert _call(port, "GET", "/health")[1]["status"] == "draining"
+        refused = urllib.request.Request(
+            f"http://127.0.0.1:{port}/api", method="PUT",
+            data=json.dumps({"prompts": ["5"]}).encode())
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            urllib.request.urlopen(refused, timeout=30)
+        assert exc.value.code == 503
+        assert exc.value.headers["Retry-After"] == "1"
+        assert json.loads(exc.value.read())["draining"] is True
+        rest = (first + stream.read()).decode()
+        stream.close()
+        events = [json.loads(b[len("data: "):])
+                  for b in rest.split("\n\n") if b.strip()]
+        assert events[-1]["done"] is True
+        assert events[-1]["finish_reason"] == "length"
+        assert len(events) == 31
+        t.join(30)
+        assert not t.is_alive(), "the drain did not stop the server"
+        assert server.metrics.snapshot()["drained"] == 1
     finally:
         server.shutdown()
         server.engine.stop()
