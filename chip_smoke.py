@@ -175,7 +175,7 @@ Then it trains the same width at 2 layers and sequence 4096 through
 step time, tokens/s, MFU, peak memory and the third step's device time
 by group with the MoE's dispatch and combine apart from its expert
 products.  Last, LoRA (rank 8, alpha 16, the attention projections) on
-Llama-2-7B at full width and depth in bf16, sequence 4096, 3 iterations
+Llama-2-7B at full width, 8 of 32 layers, in bf16, sequence 4096, 3 iterations
 through ``finetune.main --lora_rank``: every base tensor keeps its bits,
 the optimizer state holds the adapters' values only, the adapters move,
 and the merged checkpoint that ``--save`` writes equals the script's own
@@ -183,8 +183,8 @@ fp32 merge of the base and the adapters within one bf16 step; its peak
 memory is printed beside the reckoning of the params and the adapters'
 state.
 
-Phase 12 serves Llama-2-7B at full width and depth (random bf16 weights,
-seed 1234) through ``build_server`` with speculative decoding (K 4), a
+Phase 12 serves Llama-2-7B at full width, 8 of 32 layers (random bf16
+weights, seed 1234) through ``build_server`` with speculative decoding (K 4), a
 pool of 400 pages, a host KV tier of 8 GiB, the watchdog at 3 s, a fault
 spec, the JSONL stream and an alert rule.  (a) ``tools/serve_bench.py
 --stream --json`` runs as a subprocess against it, 8 clients, 32
@@ -207,6 +207,37 @@ gauge.  (g) Two servers started as subprocesses from
 end by ``/drain`` and by SIGTERM with an open stream, each with exit 0.
 (h) Falcon-7B over int8 pools with speculation serves 4 requests: A' and
 D launches as the dispatches say.
+
+Phase 13 trains Llama-2-7B's width cut to 2 layers at sequence 4096
+through ``examples/finetune.sh llama2 --wandb``'s argv (tp 1, module
+path, a 32000-id BPE for its SentencePiece model, phase 7's corpus, 16
+train iterations and the exit at 14, 2 warmup iterations) with every
+runtime flag of the training loop.  (a) In a subprocess, with the layer
+stats, the JSONL stream, the tracer, the sentinel checked every
+iteration, snapshots every 2, async saves every 3 (two of them failing
+first by ``save_io*2``), the profiler window at iterations 6-7, the
+status port and ``nan@4`` and ``sigterm@10``: exit 0 after the signal
+save; 1 rewind, 2 save retries, 1 signal save; ``/health`` answering
+while it trains; the flight recorder's health record of iteration 4
+naming the embedding as the first group with non-finite grads; every
+stream record of schema 13 with its layer stats and device memory; the
+launches of 12 steps; the profiler window's kernel events of B, C, F
+and G equal to their wrappers' counts over it; ``tools/
+telemetry_report.py``, ``health_report.py`` and ``trace_report.py``
+exiting 0 on the run's files (goodput printed), and the async saves'
+block and commit times.  (b) In-process, an uninterrupted run with the
+same faults and a synchronous save, and a resume from the async signal
+save to 14: every leaf loaded has the digest of the leaf the signal
+save copied; the async checkpoint at 14 equals a synchronous save of
+the same state bit for bit; iteration 1's loss equals (a)'s bit for
+bit, and iterations 11-14 are held within 1e-3 of the uninterrupted
+run (G adds dq with fp32 atomics, so two runs on the card part from
+their first backward).  (c) A hang 3x past a 5 s watchdog in a
+subprocess: one fire, a stack dump naming the sleeping frame, a rescue
+checkpoint that validates and loads, exit 17.  (d) At phase 3's 8-layer
+cut, the step time with the layer stats, the stream and the tracer on
+against all off (medians), and a snapshot's host copy, first and
+steady.  Phase 0 logs the host's RAM.
 
 It prints, before its last line, the card's name and power limit, one
 JSON line with every kernel's numbers (``{"kernels": [...]}``), and as
@@ -4411,8 +4442,12 @@ MIXTRAL_FLAGS = [
     "--log_interval", "1", "--seed", "1234"]
 # Llama-2-7B at full width and depth, bf16, LoRA rank 8 on the default
 # targets (the attention projections): the finetune users run on one card
+# LoRA's and phase 12's Llama-2-7B at 8 of 32 layers (all 32 before
+# phase 13 came): the script's time limit needed room for phase 13
+LORA_LAYERS = PHASE12_LAYERS = 8
 LORA_FLAGS = [
-    "--model_name", "llama2", "--num_layers", "32", "--hidden_size", "4096",
+    "--model_name", "llama2", "--num_layers", str(LORA_LAYERS),
+    "--hidden_size", "4096",
     "--num_attention_heads", "32", "--ffn_hidden_size", "11008",
     "--vocab_size", "32000", "--seq_length", "4096",
     "--max_position_embeddings", "4096", "--bf16", "--micro_batch_size",
@@ -4564,7 +4599,7 @@ def _lora_finetune(kernels, card, work):
     from megatron_llm_torch.optimizer import MegatronOptimizer
     from megatron_llm_torch.tree import tree_leaves, tree_leaves_with_path
 
-    L, micro, iters = 32, 2, 3
+    L, micro, iters = LORA_LAYERS, 2, 3
     phase = "LoRA Llama-2-7B"
     ref = llama_config("7B")
     ck = os.path.join(work, "lora_merged")
@@ -4598,7 +4633,7 @@ def _lora_finetune(kernels, card, work):
     try:
         it, lines, loss, norm, counts, peaks, wall = _entry_run(
             finetune.main, LORA_FLAGS + ["--save", ck],
-            "LoRA rank 8 on Llama-2-7B, 32 layers")
+            f"LoRA rank 8 on Llama-2-7B, {L} layers")
     finally:
         finetune.LoraAdapter, finetune.merge_lora = adapter0, merge0
         MegatronOptimizer.init = init0
@@ -4668,7 +4703,7 @@ def _lora_finetune(kernels, card, work):
     ck_bytes = _dir_bytes(ck)
     shutil.rmtree(ck)
     reckoning = (base_bytes + n_lora * (2 + 4 * 3 + 4)) / 2**30
-    log(f"  LoRA rank 8 on Llama-2-7B, 32 layers, sequence 4096 ({card}): "
+    log(f"  LoRA rank 8 on Llama-2-7B, {L} layers, sequence 4096 ({card}): "
         f"losses {[loss[i] for i in sorted(loss)]}; step "
         f"{_median(nums['step_ms'])} ms, {_median(nums['tokens_per_sec'])} "
         f"tokens/s, MFU {_median(nums['mfu_pct'])}% (iterations 2-3; MFU "
@@ -4723,7 +4758,8 @@ def _phase12_falcon_argv():
 
 
 def _phase12_argv(work):
-    return ["--model_name", "llama2", "--bf16", "--seed", "1234",
+    return ["--model_name", "llama2", "--num_layers", str(PHASE12_LAYERS),
+            "--bf16", "--seed", "1234",
             "--host", "127.0.0.1", "--port", "0",
             "--serve_max_model_len", "2048",
             "--serve_speculative", "1", "--serve_draft_k", "4",
@@ -4897,7 +4933,8 @@ def _bench_without_host_tier(work):
 
 
 def _replica_phase(results, kernels, card, work):
-    """(a)-(f) on one Llama-2-7B replica at full width and depth."""
+    """(a)-(f) on one Llama-2-7B replica at full width, PHASE12_LAYERS
+    deep."""
     import numpy as np
     import torch
 
@@ -4989,7 +5026,7 @@ def _replica_phase(results, kernels, card, work):
         results["bench"].update(verify_steps=ver, prefill_chunks=pre,
                                 launches=launches, spills=spills, **split)
 
-        # (b) speculation at full depth in bf16: 4 repetitive prompts with
+        # (b) speculation at PHASE12_LAYERS in bf16: 4 repetitive prompts with
         # prompt lookup, then again with drafts from an oracle that knows
         # the first run's tokens (every third wrong); the second run's
         # tokens agree with the no-cache forward where its top-2 margin
@@ -5463,6 +5500,647 @@ def _falcon_speculative_wave(results, kernels, card):
         srv.join(30)
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 13: the training loop's resilience and observability
+# ---------------------------------------------------------------------------
+
+# the runs end at iteration 14 by --exit_interval: a rewind draws two
+# batches more than it trains, and the dataset holds train_iters global
+# batches (16)
+PHASE13_ITERS, PHASE13_TRAIN_ITERS, PHASE13_SIGTERM_AT = 14, 16, 10
+PHASE13_FAULTS = "nan@4,save_io*2"
+PHASE13_WATCHDOG_SECS = 5.0
+# the kernel names of the profiler window's rows, and their counters
+PHASE13_WINDOW_KERNELS = (("norm_fwd_kernel", "B"), ("norm_bwd_kernel", "C"),
+                          ("flash_fwd_wgmma_kernel", "F"),
+                          ("flash_bwd_kv_wgmma_kernel", "G"))
+# resumed against uninterrupted: the losses of iterations 11-14 (the
+# two runs part in the low bits, see _phase13_resume)
+PHASE13_LOSS_TOL = 1e-3
+# a subprocess that runs finetune.main and records, into a JSON file, the
+# kernels' counters at the profiler window's edges and at the end, and the
+# device digests of the state it saves at one iteration
+PHASE13_RUNNER = '''
+import json, sys
+sys.path.insert(0, {repo!r})
+import chip_smoke as cs
+from megatron_llm_torch import checkpointing, finetune, telemetry, training
+
+out = {{"window": {{}}, "saved": {{}}, "counts": None, "losses": {{}}}}
+start0 = telemetry.ProfilerSession.maybe_start
+stop0 = telemetry.ProfilerSession._stop
+save0 = checkpointing.save_checkpoint
+log0 = training.training_log
+
+
+def log_line(iteration, train_iters, metrics, *a, **kw):
+    out["losses"][iteration] = metrics["lm loss"]
+    return log0(iteration, train_iters, metrics, *a, **kw)
+
+
+def start(self, iteration):
+    started = start0(self, iteration)
+    if started:
+        out["window"]["start"] = cs._counts()
+    return started
+
+
+def stop(self):
+    out["window"]["stop"] = cs._counts()
+    stop0(self)
+
+
+def save(save_dir, iteration, params, opt_state=None, *a, **kw):
+    if iteration == {digest_at}:
+        out["saved"] = {{**cs._leaf_digests(params), **cs._leaf_digests(
+            checkpointing._opt_state_to_tree(opt_state))}}
+    return save0(save_dir, iteration, params, opt_state, *a, **kw)
+
+
+telemetry.ProfilerSession.maybe_start = start
+telemetry.ProfilerSession._stop = stop
+checkpointing.save_checkpoint = save
+training.training_log = log_line
+try:
+    finetune.main({argv!r})
+finally:
+    out["counts"] = cs._counts()
+    with open({out!r}, "w") as f:
+        json.dump(out, f)
+'''
+
+
+def _phase13_argv(work, prefix, vf, mf):
+    """examples/finetune.sh llama2 --wandb's argv at tp 1 (module path, a
+    BPE of 32000 ids for its SentencePiece model, the corpus of phase 7),
+    with Llama-2-7B's width cut to 2 layers, 2 warmup iterations (the
+    script's 100 exceed the run) and the exit at PHASE13_ITERS."""
+    script = _example_argv(
+        "finetune.sh", "llama2", "--tp=1", "--micro-batch=1",
+        "--global-batch=2", f"--iters={PHASE13_TRAIN_ITERS}",
+        f"--data={prefix}",
+        f"--out={os.path.join(work, 'ck_async')}", "--wandb", work=work)
+    check(script[0] == "finetune.py" and "--wandb_logger" in script,
+          f"the example runs {script[:1]} with {script[-2:]}")
+    return [{"SentencePieceTokenizer": "GPT2BPETokenizer"}.get(a, a)
+            for a in script[1:]] + [
+        "--vocab_file", vf, "--merge_file", mf, "--num_layers", "2",
+        "--hidden_size", "4096", "--num_attention_heads", "32",
+        "--ffn_hidden_size", "11008", "--seed", "1234", "--split",
+        "98,2,0", "--lr_warmup_iters", "2", "--exit_interval",
+        str(PHASE13_ITERS)]
+
+
+def _run_traced(work, argv, tag, digest_at=-1, timeout=900, poll=None):
+    """PHASE13_RUNNER in a subprocess: (exit code, output lines, its JSON,
+    seconds); ``poll(proc)`` runs while it does."""
+    path = os.path.join(work, f"runner_{tag}.json")
+    code = PHASE13_RUNNER.format(repo=REPO, argv=argv, out=path,
+                                 digest_at=digest_at)
+    log_path = os.path.join(OUT_DIR, f"chip_smoke_phase13_{tag}.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=work,
+                                stdout=f, stderr=subprocess.STDOUT)
+        try:
+            if poll is not None:
+                poll(proc)
+            rc = proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = time.perf_counter() - t0
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    for line in lines[-8:]:
+        log(f"  | {line}")
+    out = None
+    if os.path.exists(path):
+        with open(path) as f:
+            out = json.load(f)
+    return rc, lines, out, secs
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _release_host_memory():
+    """Drop the async saves' host buffers and give the pinned host memory
+    the allocator caches back (the next part's state has other sizes)."""
+    import torch
+
+    from megatron_llm_torch import checkpointing
+
+    checkpointing._ASYNC["buffers"] = None
+    gc.collect()
+    empty = getattr(getattr(torch, "accelerator", None), "empty_host_cache",
+                    None) or torch._C._host_emptyCache
+    empty()
+
+
+def _window_kernels(trace_path):
+    """Launches of PHASE13_WINDOW_KERNELS in a torch.profiler Chrome trace
+    (its kernel events, matched by name)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events
+             if e.get("cat") == "kernel"]
+    return {key: sum(1 for n in names if kernel in n)
+            for kernel, key in PHASE13_WINDOW_KERNELS}
+
+
+def resilience_phase(results, kernels, card):
+    """Phase 13 (see the module's docstring): in a directory under build/
+    that it deletes at the end."""
+    import shutil
+
+    import torch
+
+    work = os.path.join(REPO, "build", "chip_smoke_resilience")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        _resilience_phase(results, kernels, card, work)
+    finally:
+        from megatron_llm_torch import checkpointing
+
+        checkpointing.finalize_async_saves()
+        _release_host_memory()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _resilience_phase(results, kernels, card, work):
+    from megatron_llm_torch.tokenizer.bpe import write_byte_bpe_vocab
+
+    phase = "resilience Llama-2-7B"
+    prefix = os.path.join(work, "corpus_text_document")
+    write_corpus(prefix)
+    vf, mf = write_byte_bpe_vocab(work, CORPUS["vocab"])
+    base = _phase13_argv(work, prefix, vf, mf)
+    t0 = time.perf_counter()
+    a = _phase13_loop(results, kernels, card, work, base, phase)
+    log(f"  (phase 13, part a: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    _phase13_resume(results, kernels, card, work, base, phase, a)
+    _release_host_memory()
+    log(f"  (phase 13, part b: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    _phase13_hang(results, card, work, base)
+    log(f"  (phase 13, part c: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    _phase13_costs(results, kernels, card, work)
+    log(f"  (phase 13, part d: {time.perf_counter() - t0:.1f} s)")
+
+
+def _phase13_loop(results, kernels, card, work, base, phase):
+    """(a) the whole loop through finetune.main in a subprocess."""
+    port = _free_port()
+    argv = base + [
+        "--structured_log_dir", "logs", "--trace_dir", "trace",
+        "--log_layer_stats_interval", "1", "--rewind_on_spike",
+        "--snapshot_interval", "2", "--resilience_check_interval", "1",
+        "--exit_signal_handler", "--save_interval", "3", "--async_save",
+        "--profile", "--profile_step_start", "6", "--profile_step_end", "7",
+        "--status_port", str(port), "--save_total_limit", "1",
+        "--fault_inject", f"{PHASE13_FAULTS},sigterm@{PHASE13_SIGTERM_AT}"]
+    log(f"  (a) python -m megatron_llm_torch.finetune {' '.join(argv)}")
+    health = []
+
+    def poll(proc):
+        # /health answers while the run trains
+        while proc.poll() is None and not health:
+            try:
+                code, body = _get(port, "/health")
+                if code == 200 and (body.get("iteration") or 0) >= 1:
+                    health.append(body)
+            except (OSError, ValueError):
+                pass
+            time.sleep(0.5)
+
+    rc, lines, out, secs = _run_traced(work, argv, "loop",
+                                       digest_at=PHASE13_SIGTERM_AT,
+                                       poll=poll)
+    check(rc == 0, f"(a) exited {rc} (the JAX signal save exits 0)")
+    check(out is not None and out["saved"],
+          "(a) the runner recorded no signal save")
+    text = "\n".join(lines)
+    check("delivering SIGTERM before iteration 10" in text
+          and "exiting on termination signal" in text,
+          "(a) no signal save in the output")
+    summary = [r for r in _jsonl(os.path.join(work, "wandb_offline.jsonl"))
+               if r.get("event") == "recovery_summary"]
+    check(len(summary) == 1, f"(a) recovery summaries {summary}")
+    rec = {k: summary[0][k] for k in ("rewinds", "save_retries",
+                                      "signal_saves", "watchdog_fires")}
+    check(rec == {"rewinds": 1, "save_retries": 2, "signal_saves": 1,
+                  "watchdog_fires": 0}, f"(a) recovery counters {rec}")
+    check(health and health[0]["status"] == "ok",
+          f"(a) /health while training: {health}")
+    fr = json.load(open(os.path.join(work, "logs", "flight_recorder.json")))
+    healths = [r for r in fr["records"] if r.get("kind") == "health"]
+    check(len(healths) == 1 and healths[0]["iteration"] == 4
+          and healths[0]["offenders"]["first_nonfinite"] == "embedding",
+          f"(a) health records {[(r['iteration'], r['offenders']) for r in healths]}")
+    records = _jsonl(os.path.join(work, "logs", "telemetry.jsonl"))
+    check([r["iteration"] for r in records] ==
+          [1, 2, 3, 3, 4, 5, 6, 7, 8, 9, 10]
+          and all(r["schema"] == 13 and "layer_stats" in r
+                  and r["memory"].get("bytes_in_use", 0) > 0
+                  for r in records),
+          f"(a) stream records {[r['iteration'] for r in records]}")
+    # the launches: 12 steps (iterations 1-4, rewound to 2, then 3-10)
+    steps = 12
+    want = TRAINING["llama"]["per_step"](2, 2)
+    want = {k: v * steps for k, v in want.items()}
+    counts = out["counts"]
+    check(counts == want, f"(a) launches {counts} != {want}")
+    for key, row in (("F", "flash_fwd"), ("G", "flash_bwd_fused"),
+                     ("B", "rmsnorm"), ("C", "rmsnorm_bwd")):
+        _add_launches(kernels, row, phase + " (a)", counts[key])
+    # the profiler window sees the hand-written kernels, as many times as
+    # their wrappers counted launches over it
+    trace = os.path.join(work, "logs", "profile", "trace_iter6-7.json")
+    seen = _window_kernels(trace)
+    w0, w1 = out["window"]["start"], out["window"]["stop"]
+    counted = {k: w1[k] - w0[k] for _, k in PHASE13_WINDOW_KERNELS}
+    check(seen == counted and all(v > 0 for v in seen.values()),
+          f"(a) profiler window kernels {seen}, counters {counted}")
+    log(f"  (a) profiler window, iterations 6-7: kernel events {seen} = "
+        f"the wrappers' counts over it")
+    # the report tools read the run's files
+    tools = {}
+    for tool, path in (("telemetry_report", "logs"),
+                       ("health_report", "logs"),
+                       ("trace_report", "trace")):
+        cmd = [sys.executable, os.path.join(REPO, "tools", f"{tool}.py"),
+               path] + (["--log_dir", "logs"]
+                        if tool == "trace_report" else [])
+        res = subprocess.run(cmd, cwd=work, capture_output=True, text=True,
+                             timeout=120)
+        check(res.returncode == 0, f"(a) {tool} exited {res.returncode}: "
+                                   f"{res.stderr[-500:]}")
+        tools[tool] = res.stdout
+        with open(os.path.join(OUT_DIR, f"chip_smoke_phase13_{tool}.txt"),
+                  "w") as f:
+            f.write(res.stdout)
+    goodput = re.search(r"goodput breakdown \(wall ([0-9.]+)s, goodput "
+                        r"([0-9.]+)%\)", tools["trace_report"])
+    check(goodput is not None, "(a) trace_report printed no goodput")
+    for line in tools["trace_report"].splitlines()[:8]:
+        log(f"  (a) trace_report | {line}")
+    blocks = [float(m.group(2)) for m in map(re.compile(
+        r"async save of iteration (\d+): \d+ bytes copied to host in "
+        r"([0-9.]+) s").search, lines) if m]
+    commits = [secs for _, secs in _io_lines(lines, "saved")]
+    check(len(blocks) == 5 and len(commits) == 5,
+          f"(a) {len(blocks)} async saves, {len(commits)} commits")
+    losses = {int(k): v for k, v in out["losses"].items()}
+    stats = _loop_numbers([ln for ln in lines
+                           if ln.startswith(" iteration")])
+    log(f"  (a) {secs:.1f} s ({card}): losses {losses}; recovery {rec}; "
+        f"/health {health[0]}; goodput {goodput.group(2)}% of "
+        f"{goodput.group(1)} s; step ms median "
+        f"{_median(stats['step_ms'])}; the five async saves blocked "
+        f"{', '.join(f'{x:.2f}' for x in blocks)} s (the first waits out "
+        f"the two retries' backoff and allocates the pinned buffers) and "
+        f"were committed "
+        f"{', '.join(f'{x:.1f}' for x in commits)} s after their calls")
+    results["loop"] = dict(
+        secs=secs, recovery=rec, losses=losses, window_kernels=seen,
+        goodput_pct=float(goodput.group(2)),
+        trace_wall_secs=float(goodput.group(1)),
+        step_ms_median=_median(stats["step_ms"]), async_block_s=blocks,
+        async_commit_s=commits)
+    return dict(out=out, losses=losses)
+
+
+def _phase13_resume(results, kernels, card, work, base, phase, a):
+    """(b) resume from the signal save against an uninterrupted run."""
+    import shutil
+
+    import torch
+
+    from megatron_llm_torch import checkpointing, global_vars
+    from megatron_llm_torch.models.language_model import (
+        init_language_model_params)
+    from megatron_llm_torch.models.llama import llama_config
+    from megatron_llm_torch.optimizer import MegatronOptimizer
+    from megatron_llm_torch.resilience import recovery_counters
+
+    ck_async = os.path.join(work, "ck_async")
+    ck_sync = os.path.join(work, "ck_sync")
+    ck_same = os.path.join(work, "ck_same_state")
+    check(checkpointing.read_tracker(ck_async) ==
+          (PHASE13_SIGTERM_AT, False),
+          f"(b) the async tracker {checkpointing.read_tracker(ck_async)}")
+    # the uninterrupted run: the same faults but the SIGTERM, one
+    # synchronous save (at 14, where the save faults land)
+    sync_argv = [x if x != ck_async else ck_sync for x in base] + [
+        "--rewind_on_spike", "--snapshot_interval", "2",
+        "--resilience_check_interval", "1", "--save_interval",
+        str(PHASE13_ITERS), "--fault_inject", PHASE13_FAULTS]
+    log(f"  (b) uninterrupted, synchronous saves: finetune.main("
+        f"{' '.join(sync_argv)})")
+    _zero_counts()
+    global_vars.reset_counters()
+    t0 = time.perf_counter()
+    it, lines, losses, _, _ = _run_finetune(sync_argv)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    check(it == PHASE13_ITERS, f"(b) the uninterrupted run ended at {it}")
+    rec = recovery_counters()
+    check(rec == {"rewinds": 1, "save_retries": 2, "signal_saves": 0,
+                  "watchdog_fires": 0},
+          f"(b) the uninterrupted run's recovery counters {rec}")
+    steps = PHASE13_ITERS + 2
+    want = {k: v * steps for k, v in
+            TRAINING["llama"]["per_step"](2, 2).items()}
+    check(counts == want, f"(b) uninterrupted launches {counts} != {want}")
+    # the resumed run: (a)'s argv, from the async signal save
+    resume_argv = base + [
+        "--rewind_on_spike", "--snapshot_interval", "2",
+        "--resilience_check_interval", "1", "--save_interval", "9",
+        "--save_total_limit", "1", "--async_save", "--load", ck_async]
+    from megatron_llm_torch import checkpointing as ckm
+    save0 = ckm.save_checkpoint
+    save_s = {}
+
+    def save_twice(save_dir, iteration, params, opt_state=None, *args,
+                   **kw):
+        # a synchronous save of the very state the async save copies,
+        # each timed (the async one until it returns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save0(ck_same, iteration, params, opt_state, *args,
+              **{**kw, "async_save": False})
+        save_s["sync"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = save0(save_dir, iteration, params, opt_state, *args, **kw)
+        save_s["async_block"] = time.perf_counter() - t0
+        return out
+
+    ckm.save_checkpoint = save_twice
+    try:
+        _zero_counts()
+        rit, _, rlosses, _, loaded = _run_finetune(resume_argv)
+        rcounts = _counts()
+    finally:
+        ckm.save_checkpoint = save0
+    check(rit == PHASE13_ITERS, f"(b) the resumed run ended at {rit}")
+    want_r = {k: v * (PHASE13_ITERS - PHASE13_SIGTERM_AT) for k, v in
+              TRAINING["llama"]["per_step"](2, 2).items()}
+    check(rcounts == want_r, f"(b) resumed launches {rcounts} != {want_r}")
+    for key, row in (("F", "flash_fwd"), ("G", "flash_bwd_fused"),
+                     ("B", "rmsnorm"), ("C", "rmsnorm_bwd")):
+        _add_launches(kernels, row, phase + " (b)",
+                      counts[key] + rcounts[key])
+    saved = {k: tuple(v[:1]) + (tuple(v[1]),) + tuple(v[2:])
+             for k, v in a["out"]["saved"].items()}
+    check(set(loaded) == set(saved)
+          and all(loaded[k] == saved[k] for k in saved),
+          "(b) a leaf the resumed run loaded differs from the leaf the "
+          "signal save copied: "
+          f"{[k for k in saved if loaded.get(k) != saved[k]][:3]}")
+    # the async checkpoint's tensors against a synchronous save of the
+    # same state, bit for bit
+    cfg = llama_config("7B", num_layers=2, params_dtype="bf16",
+                       compute_dtype="bf16")
+    tmpl = init_language_model_params(None, cfg, device="meta")
+    otmpl = MegatronOptimizer(_phase13_tc(), params_dtype=torch.bfloat16
+                              ).init(tmpl)
+
+    def load(d):
+        p, _, _ = checkpointing.load_checkpoint(
+            d, iteration=PHASE13_ITERS, params_template=tmpl,
+            device="cuda")
+        _, o, _ = checkpointing.load_checkpoint(
+            d, iteration=PHASE13_ITERS, load_params=False,
+            opt_state_template=otmpl, device="cuda")
+        return {**checkpointing._flat(p),
+                **checkpointing._flat(checkpointing._opt_state_to_tree(o))}
+
+    same_async, same_sync = load(ck_async), load(ck_same)
+    check(same_async.keys() == same_sync.keys() and all(
+        torch.equal(same_async[k], same_sync[k]) for k in same_sync),
+        "(b) the async checkpoint differs from a synchronous save of the "
+        "same state")
+    del same_sync
+    shutil.rmtree(ck_same, ignore_errors=True)
+    uninterrupted = load(ck_sync)
+    # G adds dq with fp32 atomics, so two runs on the card part in the low
+    # bits from their first backward, and Adam's normalised update turns
+    # such bits on near-zero grads into whole steps: the trajectories are
+    # held by their losses, the params' distance is reported
+    keys = [k for k in uninterrupted if uninterrupted[k].dim()
+            and uninterrupted[k].is_floating_point()]
+    rel_max = max(((same_async[k].float() - uninterrupted[k].float())
+                   .abs().max() / uninterrupted[k].float().abs().max()
+                   .clamp_min(1e-12)).item() for k in keys)
+    rel_l2 = max(((same_async[k].float() - uninterrupted[k].float())
+                  .norm() / uninterrupted[k].float().norm()
+                  .clamp_min(1e-12)).item() for k in keys)
+    del same_async, uninterrupted
+    for d in (ck_async, ck_sync):
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    first_equal = losses.get(1) == a["losses"].get(1)
+    parted = next((i for i in range(1, PHASE13_SIGTERM_AT + 1)
+                   if losses.get(i) != a["losses"].get(i)), None)
+    loss_diff = max(abs(rlosses[i] - losses[i])
+                    for i in range(PHASE13_SIGTERM_AT + 1,
+                                   PHASE13_ITERS + 1))
+    check(first_equal, f"(b) iteration 1 loss {losses.get(1)} != "
+                       f"{a['losses'].get(1)} of (a)")
+    check(loss_diff <= PHASE13_LOSS_TOL,
+          f"(b) resumed against uninterrupted: losses within {loss_diff}")
+    log(f"  (b) ({card}): the resumed run loaded {len(loaded)} leaves, "
+        f"each with the digest of the leaf the signal save copied; the "
+        f"async iteration-{PHASE13_ITERS} checkpoint equals a synchronous "
+        f"save of the same state bit for bit; against the uninterrupted "
+        f"run: iteration 1 loss bit for bit (the two runs' losses part "
+        f"at iteration {parted}), iterations "
+        f"{PHASE13_SIGTERM_AT + 1}-{PHASE13_ITERS} losses within "
+        f"{loss_diff:.3g}; params: largest leaf distance {rel_l2:.3g} of "
+        f"its norm, {rel_max:.3g} of its max-abs (G's atomic dq, through "
+        f"Adam); uninterrupted run {wall:.1f} s; at iteration "
+        f"{PHASE13_ITERS} a synchronous save of the 2-layer state took "
+        f"{save_s['sync']:.2f} s and the async save blocked "
+        f"{save_s['async_block']:.2f} s")
+    results["resume"] = dict(
+        leaves_loaded_bitwise=len(loaded), async_equals_sync=True,
+        resumed_losses={i: rlosses[i] for i in sorted(rlosses)},
+        uninterrupted_losses={i: losses[i] for i in sorted(losses)},
+        loss_max_diff=loss_diff, losses_part_at=parted,
+        param_rel_l2=rel_l2, param_rel_max_abs=rel_max,
+        uninterrupted_secs=wall, sync_save_s=save_s["sync"],
+        async_block_s=save_s["async_block"])
+
+
+def _phase13_tc():
+    from megatron_llm_torch.config import TrainConfig
+
+    return TrainConfig(micro_batch_size=1, global_batch_size=2, bf16=True)
+
+
+def _phase13_hang(results, card, work, base):
+    """(c) a hang past the watchdog: one fire, a stack dump naming the
+    sleeping frame, a rescue checkpoint that validates and loads, and
+    the hard exit's code."""
+    import shutil
+
+    import torch
+
+    from megatron_llm_torch import checkpointing
+    from megatron_llm_torch.resilience import PREEMPT_EXIT_CODE
+
+    ck = os.path.join(work, "ck_hang")
+    hang = 3 * PHASE13_WATCHDOG_SECS
+    argv = [x if x != os.path.join(work, "ck_async") else ck
+            for x in base] + [
+        "--rewind_on_spike", "--snapshot_interval", "2",
+        "--watchdog_timeout_secs", str(PHASE13_WATCHDOG_SECS),
+        "--fault_inject", f"hang@5:{hang}"]
+    log(f"  (c) python -m megatron_llm_torch.finetune ... "
+        f"--watchdog_timeout_secs {PHASE13_WATCHDOG_SECS} --fault_inject "
+        f"hang@5:{hang}")
+    rc, lines, _, secs = _run_traced(work, argv, "hang", timeout=600)
+    text = "\n".join(lines)
+    check(rc == PREEMPT_EXIT_CODE, f"(c) exited {rc}, not "
+                                   f"{PREEMPT_EXIT_CODE}")
+    check(text.count("[watchdog] no iteration completed") == 1,
+          "(c) the watchdog did not fire exactly once")
+    check("in before_iteration" in text and "time.sleep" in text,
+          "(c) the stack dump does not name the sleeping frame")
+    d = os.path.join(ck, "iter_0000004")
+    ok, why = checkpointing.validate_checkpoint_dir(d)
+    check(ok, f"(c) the rescue checkpoint does not validate: {why}")
+    params, opt_state, meta = checkpointing.load_checkpoint(
+        ck, iteration=4, device="cuda")
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in checkpointing._flat(params).values())
+    check(meta["iteration"] == 4 and finite,
+          f"(c) the rescue checkpoint loads iteration {meta['iteration']}, "
+          f"finite {finite}")
+    del params, opt_state
+    shutil.rmtree(ck, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (c) ({card}): exit {rc} after {secs:.1f} s; one watchdog fire; "
+        f"the dump names before_iteration's sleep; rescue checkpoint "
+        f"{os.path.basename(d)} validates (manifest sha256) and loads")
+    results["hang"] = dict(exit_code=rc, secs=secs, rescue_iteration=4)
+
+
+def _phase13_costs(results, kernels, card, work):
+    """(d) at phase 3's 8-layer cut: the step with the layer stats, the
+    stream and the tracer on against all off, and the snapshot's host
+    copy.  (The time an async save blocks, against a synchronous save,
+    is (a)'s and (b)'s, at 2 layers: at 8 each save writes 26 GB at
+    ~0.7 GB/s, which the script's time limit has no room for.)"""
+    import argparse
+    import io
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from megatron_llm_torch import checkpointing, resilience, telemetry, \
+        training
+    from megatron_llm_torch.config import ParallelConfig, TrainConfig
+    from megatron_llm_torch.models.llama import LlamaModel, llama_config
+    from megatron_llm_torch.optimizer import MegatronOptimizer
+
+    L, micro, iters = 8, 2, 6
+    cfg = llama_config("7B", num_layers=L, params_dtype="bf16",
+                       compute_dtype="bf16")
+    model = LlamaModel(cfg, device="cuda")
+    params = model.init(1234)
+    tc = TrainConfig(micro_batch_size=1, global_batch_size=micro,
+                     train_iters=iters, lr=3e-4, clip_grad=1.0, bf16=True)
+    opt = MegatronOptimizer(tc, params_dtype=torch.bfloat16)
+    state = opt.init(params)
+    batch = _synthetic_batch(np.random.RandomState(0), micro, 4096, 32000)
+    step_ms = {"off": [], "on": []}
+    log0 = training.training_log
+    _zero_counts()
+    for rnd in range(2):
+        for mode in ("off", "on"):
+            seen = []
+
+            def log_line(iteration, train_iters, metrics, elapsed, *a,
+                         **kw):
+                seen.append(elapsed * 1e3)
+                return log0(iteration, train_iters, metrics, elapsed,
+                            *a, **kw)
+
+            bundle = None
+            if mode == "on":
+                d = os.path.join(work, f"costs_{rnd}")
+                bundle = telemetry.build_telemetry(argparse.Namespace(
+                    structured_log_dir=d, trace_dir=d, profile=False,
+                    flight_recorder_size=64, trace_buffer_size=100_000,
+                    straggler_threshold=1.5, status_port=None), model)
+            training.training_log = log_line
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    params, state, _ = training.pretrain(
+                        model, params, tc, ParallelConfig(),
+                        itertools.repeat(batch), optimizer=opt,
+                        opt_state=state, log_interval=1,
+                        log_layer_stats_interval=1 if mode == "on" else 0,
+                        telemetry=bundle)
+            finally:
+                training.training_log = log0
+                if bundle is not None:
+                    bundle.close()
+            step_ms[mode] += seen[1:]
+    counts = _counts()
+    want = {k: v * 4 * iters for k, v in
+            TRAINING["llama"]["per_step"](L, micro).items()}
+    check(counts == want, f"(d) launches {counts} != {want}")
+    for key, row in (("F", "flash_fwd"), ("G", "flash_bwd_fused"),
+                     ("B", "rmsnorm"), ("C", "rmsnorm_bwd")):
+        _add_launches(kernels, row, "resilience Llama-2-7B (d)", counts[key])
+    off, on = _median(step_ms["off"]), _median(step_ms["on"])
+    state_bytes = sum(t.numel() * t.element_size() for tree in (
+        params, state.master_params, state.exp_avg, state.exp_avg_sq)
+        for t in checkpointing._flat(tree).values())
+    # the snapshot's host copy: the first allocates the pinned buffers
+    rm = resilience.ResilienceManager(resilience.ResilienceConfig())
+    snap_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(rm.take_snapshot(iters, params, state), "(d) no snapshot")
+        snap_s.append(time.perf_counter() - t0)
+    # the pinned bytes the host allocator holds for the snapshot (it
+    # rounds each block up to a power of two)
+    stats_fn = getattr(torch.cuda, "host_memory_stats", None)
+    host_stats = ({k: v for k, v in stats_fn().items() if "bytes" in k}
+                  if stats_fn is not None else "not available")
+    del rm, params, state, opt, model
+    _release_host_memory()
+    torch.cuda.empty_cache()
+    log(f"  (d) Llama-2-7B width, {L} layers, 2 x 4096 ({card}): step "
+        f"{off:.1f} ms with everything off, {on:.1f} ms with the layer "
+        f"stats, the stream and the tracer on ({(on / off - 1) * 100:+.1f}%, "
+        f"medians of {len(step_ms['off'])} steps each); the state "
+        f"{state_bytes / 1e9:.3f} GB: snapshot {snap_s[0]:.2f} s the first "
+        f"time (pinned buffers allocated), {snap_s[1]:.2f} s after "
+        f"({state_bytes / 1e9 / snap_s[1]:.1f} GB/s)")
+    results["costs"] = dict(
+        layers=L, step_ms_off=off, step_ms_on=on,
+        step_ms_off_all=step_ms["off"], step_ms_on_all=step_ms["on"],
+        state_bytes=state_bytes, snapshot_first_s=snap_s[0],
+        snapshot_s=snap_s[1], host_memory_stats=host_stats)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5505,6 +6183,12 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
+    with open("/proc/meminfo") as f:
+        mem = {ln.split(":")[0]: int(ln.split()[1]) * 1024 for ln in f
+               if ln.split(":")[0] in ("MemTotal", "MemAvailable")}
+    log(f"host RAM: {_gb(mem['MemTotal'])} in all, "
+        f"{_gb(mem['MemAvailable'])} available (phase 13's snapshot and "
+        f"async buffers hold ~9.3 GB each at 2 layers)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for matmuls and cuDNN (fp32 comparisons run in full fp32)")
@@ -5605,19 +6289,30 @@ def main(argv=None) -> int:
     log(f"weights ({card}): " + json.dumps(weights))
     t0 = time.perf_counter()
     log("phase 11: Mixtral-8x7B width: HF weights in, verified, served and "
-        "out (1 layer), trained (2 layers); LoRA on Llama-2-7B (32 layers)")
+        f"out (1 layer), trained (2 layers); LoRA on Llama-2-7B "
+        f"({LORA_LAYERS} layers)")
     mixtral = {}
     mixtral_phase(mixtral, kernels, card)
     log(f"phase 11 passed in {time.perf_counter() - t0:.1f} s")
     log(f"mixtral and LoRA ({card}): " + json.dumps(mixtral))
     t0 = time.perf_counter()
-    log("phase 12: Llama-2-7B served with speculation, the host KV tier, "
+    log(f"phase 12: Llama-2-7B ({PHASE12_LAYERS} layers) served with "
+        "speculation, the host KV tier, "
         "the watchdog, faults, SSE, alerts and drain; Falcon-7B int8 with "
         "speculation")
     rest = {}
     serving_rest_phase(rest, kernels, card)
     log(f"phase 12 passed in {time.perf_counter() - t0:.1f} s")
     log(f"serving, the rest ({card}): " + json.dumps(rest))
+    t0 = time.perf_counter()
+    log("phase 13: Llama-2-7B width, 2 layers, sequence 4096: the training "
+        "loop's resilience and observability through finetune.main (a NaN "
+        "and rewind, save faults, async saves, a SIGTERM save, a resume, a "
+        "hang and its rescue, the profiler window); costs at 8 layers")
+    resil = {}
+    resilience_phase(resil, kernels, card)
+    log(f"phase 13 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"resilience ({card}): " + json.dumps(resil))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     names = ("paged_decode", "paged_prefill", "paged_decode_int8",
@@ -5637,7 +6332,8 @@ def main(argv=None) -> int:
         json.dump({"card": card, "kernels": kernels, "serving": serving,
                    "training": training, "corpus": corpus, "gpt2": gpt2,
                    "llama3": llama3, "weights": weights,
-                   "mixtral": mixtral, "serving_rest": rest}, f, indent=1)
+                   "mixtral": mixtral, "serving_rest": rest,
+                   "resilience": resil}, f, indent=1)
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,9 +14,9 @@ ways:
   package, and reference features the JAX package does not implement
   (``_add_unimplemented_compat_args``), accepted with a warning when one
   is set away from its default (``warn_unimplemented``);
-* flags of features the port has not ported yet (parallel degrees, the
-  metrics writers, resilience, the training-side telemetry, ...): they
-  parse, and asking for one raises ``NotImplementedError`` where the
+* flags of features the port has not ported yet (parallel degrees,
+  batch-size rampup, the T5 decoder, JAX's live profiler server, ...):
+  they parse, and asking for one raises ``NotImplementedError`` where the
   feature is refused: the parallel sizes in ``ParallelConfig``, the rest
   through ``refuse_unported`` with the entry point's table
   (``UNPORTED_TRAINING``, ``UNPORTED_SERVING``).  The mixture of experts'
@@ -506,55 +506,19 @@ _UNPORTED_COMMON = {
     "decoder_seq_length": "the T5 decoder (ROADMAP item 14)",
     "context_parallel_algo": "context parallelism (ROADMAP item 15)",
     "multislice_flat_reduce": "multislice training (ROADMAP item 15)",
-    "wandb_logger": "the metrics writers (ROADMAP item 7)",
-    "wandb_resume": "the metrics writers (ROADMAP item 7)",
-    "wandb_project": "the metrics writers (ROADMAP item 7)",
-    "wandb_entity": "the metrics writers (ROADMAP item 7)",
-    "wandb_name": "the metrics writers (ROADMAP item 7)",
-    "wandb_id": "the metrics writers (ROADMAP item 7)",
-    "wandb_api_key": "the metrics writers (ROADMAP item 7)",
-    "tensorboard_dir": "the metrics writers (ROADMAP item 7)",
-    "tensorboard_log_interval": "the metrics writers (ROADMAP item 7)",
-    "log_timers_to_tensorboard": "the metrics writers (ROADMAP item 7)",
-    "log_batch_size_to_tensorboard": "the metrics writers (ROADMAP item 7)",
-    "log_memory_to_tensorboard": "the metrics writers (ROADMAP item 7)",
-    "log_world_size_to_tensorboard": "the metrics writers (ROADMAP item 7)",
-    "log_validation_ppl_to_tensorboard":
-        "the metrics writers (ROADMAP item 7)",
-    "status_port": "the trainer's status endpoint (ROADMAP item 7)",
-    "profile": "the in-loop profiler (ROADMAP item 7)",
-    "profile_step_start": "the in-loop profiler (ROADMAP item 7)",
-    "profile_step_end": "the in-loop profiler (ROADMAP item 7)",
-    "profile_dir": "the in-loop profiler (ROADMAP item 7)",
-    "profiler_port": "the in-loop profiler (ROADMAP item 7)",
-    "flight_recorder_size": "the flight recorder (ROADMAP item 7)",
-    "straggler_threshold": "straggler detection (ROADMAP item 7)",
-    "trace_buffer_size": "the span tracer's ring (ROADMAP item 7)",
+    # JAX starts jax.profiler's live-capture server here, for
+    # TensorBoard's "capture profile"; PyTorch has no such server, and
+    # --profile's window (a torch.profiler Chrome trace) is the port's
+    # capture
+    "profiler_port": "jax.profiler's live-capture server (no PyTorch "
+                     "counterpart; --profile's window is the port's "
+                     "capture)",
 }
 
-#: the trainer's table: the common one, the loop's missing pieces and the
-#: training-side telemetry
+#: the trainer's table: the common one and the loop's missing pieces
 UNPORTED_TRAINING = {
     **_UNPORTED_COMMON,
     "rampup_batch_size": "batch-size rampup",
-    "exit_signal_handler": "the signal handler (ROADMAP item 7)",
-    "timing_log_level": "the timer levels (ROADMAP item 7)",
-    "timing_log_option": "the timer levels (ROADMAP item 7)",
-    "log_layer_stats_interval": "the layer-stats observatory "
-                                "(ROADMAP item 7)",
-    "structured_log_dir": "the trainer's JSONL stream (ROADMAP item 7)",
-    "trace_dir": "the trainer's span tracer (ROADMAP item 7)",
-    "rewind_on_spike": "resilience (ROADMAP item 7)",
-    "spike_factor": "resilience (ROADMAP item 7)",
-    "spike_ema_beta": "resilience (ROADMAP item 7)",
-    "rewind_patience": "resilience (ROADMAP item 7)",
-    "snapshot_interval": "resilience (ROADMAP item 7)",
-    "resilience_check_interval": "resilience (ROADMAP item 7)",
-    "rewind_lr_factor": "resilience (ROADMAP item 7)",
-    "max_rewinds": "resilience (ROADMAP item 7)",
-    "watchdog_timeout_secs": "the hang watchdog (ROADMAP item 7)",
-    "watchdog_no_hard_exit": "the hang watchdog (ROADMAP item 7)",
-    "fault_inject": "the fault injector (ROADMAP item 7)",
 }
 
 #: the server's table: the common one (every serving flag is ported;

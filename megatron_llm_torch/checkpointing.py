@@ -30,8 +30,20 @@ one ``tree.pt``, a ``torch.save`` of a flat ``{keystr: tensor}`` dict,
 read back with ``weights_only=True``.  bf16 survives as bf16.  The
 optimizer state's scalars (step, loss scale, scaler trackers) are stored
 as 0-dim int32 / float32 tensors, the JAX package's dtypes.  Single
-process: one writer.  ``async_save`` waits for the resilience slice and
-raises ``NotImplementedError``.
+process: one writer.
+
+``async_save`` copies every leaf into host buffers (allocated once and
+reused, pinned when the leaf is on the card) and waits for the copies
+before it returns, so the in-place optimizer may update the live tensors
+at once; a background thread then writes the payload and ``meta.json``
+(the manifest and its sha256) into ``iter_N.tmp``.  The rename and the
+tracker wait for ``finalize_async_saves()``, which the next save and
+every exit path of the train loop and of ``finetune.main`` call; a
+failed background write raises there and is never retried as a
+synchronous save.  The resilience runtime's save fault hook
+(``resilience.set_save_fault_hook``) is consulted on every attempt of
+the retry loop, and every retry counts in the global
+``counters['save_retries']`` (``global_vars.get_counters``).
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import json
 import os
 import re
 import shutil
+import threading
 import time
 from pathlib import Path
 from typing import Any, Optional, Tuple
@@ -49,6 +62,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from megatron_llm_torch import tracing
+from megatron_llm_torch.global_vars import get_counters
 from megatron_llm_torch.optimizer.grad_scaler import GradScalerState
 from megatron_llm_torch.optimizer.optimizer import OptimizerState
 from megatron_llm_torch.tree import tree_leaves_with_path
@@ -60,7 +74,6 @@ PAYLOAD = "tree.pt"       # the one file in model/ and optim/
 # keeps every checkpoint; retries>0 re-attempts a failed save with
 # exponential backoff; every retry increments counters['save_retries'].
 _SAVE_CONFIG = {"total_limit": 0, "retries": 2, "retry_backoff": 0.25}
-counters = {"save_retries": 0}
 
 
 def configure_save(total_limit: Optional[int] = None,
@@ -72,6 +85,16 @@ def configure_save(total_limit: Optional[int] = None,
         _SAVE_CONFIG["retries"] = int(retries)
     if retry_backoff is not None:
         _SAVE_CONFIG["retry_backoff"] = float(retry_backoff)
+
+
+def _fault_hook_check() -> None:
+    """Chaos hook: resilience.FaultInjector (when active) raises a
+    transient IOError here to exercise the retry path."""
+    from megatron_llm_torch.resilience import get_save_fault_hook
+
+    hook = get_save_fault_hook()
+    if hook is not None:
+        hook()
 
 
 def get_checkpoint_name(save_dir: str, iteration: int,
@@ -266,6 +289,81 @@ def _write_tree(path: Path, tree) -> int:
     return sum(v.numel() * v.element_size() for v in flat.values())
 
 
+# The one asynchronous save in flight: its writer thread, the error it
+# met, the commit it waits for, and the host buffers it writes from
+# (reused by the next async save of the same leaves).
+_ASYNC = {"thread": None, "error": None, "slot": None, "buffers": None,
+          "t0": 0.0, "nbytes": 0}
+
+
+def copy_to_host(live, buffers=None):
+    """Copy the tensors ``live`` into host buffers and return the buffers:
+    ``buffers`` when they match ``live`` in shape and dtype (a previous
+    call's), else new ones, pinned for tensors on the card.  The copies
+    run on a side stream ordered after the work that made ``live`` and
+    are complete when this returns, so the caller may update ``live`` in
+    place at once.  Each buffer is its own storage (``torch.save`` writes
+    a view's whole storage)."""
+    live = [t.detach() for t in live]
+    if buffers is None or len(buffers) != len(live) or any(
+            b.shape != t.shape or b.dtype != t.dtype
+            for b, t in zip(buffers, live)):
+        buffers = [torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=t.device.type == "cuda")
+                   for t in live]
+    cuda = [t for t in live if t.device.type == "cuda"]
+    if cuda:
+        side = torch.cuda.Stream(device=cuda[0].device)
+        side.wait_stream(torch.cuda.current_stream(cuda[0].device))
+        with torch.cuda.stream(side):
+            for b, t in zip(buffers, live):
+                b.copy_(t, non_blocking=True)
+        side.synchronize()
+    else:
+        for b, t in zip(buffers, live):
+            b.copy_(t)
+    return buffers
+
+
+def _host_copy(trees):
+    """The trees' leaves copied into the async host buffers (kept for the
+    next save); the copies are done when this returns."""
+    bufs = _ASYNC["buffers"] = copy_to_host(
+        [t for tree in trees if tree is not None
+         for t in _flat(tree).values()], _ASYNC["buffers"])
+    it = iter(bufs)
+    return [None if tree is None else
+            _unflat({k: next(it) for k in _flat(tree)}) for tree in trees]
+
+
+def finalize_async_saves() -> None:
+    """Wait until the in-flight async save is written, THEN rename it into
+    place and write its tracker — a crash mid-async-save must never leave
+    the tracker pointing at an incomplete checkpoint.  A failed write
+    raises here (``RuntimeError`` from the writer's error).  No-op when
+    nothing is pending; the train loop calls this in a finally block so
+    every exit path flushes."""
+    if _ASYNC["thread"] is None and _ASYNC["slot"] is None:
+        return
+    with tracing.span("checkpoint_finalize", "checkpoint"):
+        if _ASYNC["thread"] is not None:
+            _ASYNC["thread"].join()
+            _ASYNC["thread"] = None
+        err, slot = _ASYNC["error"], _ASYNC["slot"]
+        _ASYNC["error"] = _ASYNC["slot"] = None
+        if err is not None:
+            raise RuntimeError(f"asynchronous checkpoint save failed: "
+                               f"{err!r}") from err
+        if slot is not None:
+            save_dir, iteration, release, tmp_dir, final_dir = slot
+            _commit_checkpoint(save_dir, iteration, release, tmp_dir,
+                               final_dir)
+            print(f" [checkpoint] saved iteration {iteration} to "
+                  f"{final_dir}: {_ASYNC['nbytes']} bytes in "
+                  f"{time.perf_counter() - _ASYNC['t0']:.3f} s (async)",
+                  flush=True)
+
+
 def _read_tree(path: Path, device) -> dict:
     flat = torch.load(Path(path) / PAYLOAD, map_location="cpu",
                       weights_only=True, mmap=True)
@@ -286,6 +384,11 @@ def save_checkpoint(
 ) -> str:
     """Reference: save_checkpoint (checkpointing.py:243-337).
 
+    ``async_save``: the leaves are copied to host buffers before this
+    returns and written by a background thread; the rename and the
+    tracker happen at ``finalize_async_saves()`` (called first by the
+    next save, and by the train loop on every exit path).
+
     Hardened IO: everything is written into ``iter_NNN.tmp`` and atomically
     renamed into place only once complete, so readers never observe a
     half-written checkpoint; transient IO errors are retried with
@@ -293,9 +396,9 @@ def save_checkpoint(
     ``counters['save_retries']``.  Prints one line with the bytes written
     and the seconds taken."""
     if async_save:
-        raise NotImplementedError(
-            "async_save: background checkpoint writes wait for the "
-            "resilience slice")
+        # at most one outstanding save: the previous one becomes durable
+        # (rename + tracker) before this one starts
+        finalize_async_saves()
     t0 = time.perf_counter()
     final_dir = Path(get_checkpoint_name(save_dir, iteration,
                                          release)).absolute()
@@ -316,30 +419,59 @@ def save_checkpoint(
         "manifest_sha256": _manifest_sha256(manifest),
     }
 
+    def write(model_tree, optim_tree):
+        n = _write_tree(tmp_dir / "model", model_tree)
+        if optim_tree is not None:
+            n += _write_tree(tmp_dir / "optim", optim_tree)
+        with open(tmp_dir / "meta.json", "w") as f:
+            json.dump(meta, f, indent=1)
+        return n
+
     retries = max(0, _SAVE_CONFIG["retries"])
     nbytes = 0
     for attempt in range(retries + 1):
         try:
+            _fault_hook_check()
             if tmp_dir.exists():
                 shutil.rmtree(tmp_dir)
             tmp_dir.mkdir(parents=True)
             with tracing.span("checkpoint_write", "checkpoint",
-                              iteration=int(iteration), attempt=attempt):
-                nbytes = _write_tree(tmp_dir / "model", params)
-                if opt_tree is not None:
-                    nbytes += _write_tree(tmp_dir / "optim", opt_tree)
-                with open(tmp_dir / "meta.json", "w") as f:
-                    json.dump(meta, f, indent=1)
+                              iteration=int(iteration), attempt=attempt,
+                              async_save=async_save):
+                if async_save:
+                    host = _host_copy([params, opt_tree])
+                    nbytes = sum(v.numel() * v.element_size()
+                                 for tree in host if tree is not None
+                                 for v in _flat(tree).values())
+                else:
+                    nbytes = write(params, opt_tree)
             break
         except (IOError, OSError) as e:
             if attempt >= retries:
                 raise
-            counters["save_retries"] += 1
+            get_counters()["save_retries"] += 1
             delay = _SAVE_CONFIG["retry_backoff"] * (2 ** attempt)
             print(f" [checkpoint] save attempt {attempt + 1}/{retries + 1} "
                   f"failed ({e}); retrying in {delay:.2f}s", flush=True)
             time.sleep(delay)
 
+    if async_save:
+        def writer():
+            try:
+                write(*host)
+            except Exception as exc:   # noqa: BLE001 - raised at finalize
+                _ASYNC["error"] = exc
+
+        _ASYNC.update(slot=(save_dir, iteration, release, tmp_dir,
+                            final_dir), t0=t0, nbytes=nbytes, error=None)
+        _ASYNC["thread"] = threading.Thread(
+            target=writer, name="checkpoint-writer", daemon=True)
+        _ASYNC["thread"].start()
+        print(f" [checkpoint] async save of iteration {iteration}: "
+              f"{nbytes} bytes copied to host in "
+              f"{time.perf_counter() - t0:.3f} s, writing to {tmp_dir}",
+              flush=True)
+        return str(final_dir)
     _commit_checkpoint(save_dir, iteration, release, tmp_dir, final_dir)
     secs = time.perf_counter() - t0
     print(f" [checkpoint] saved iteration {iteration} to {final_dir}: "

@@ -34,9 +34,20 @@ and the fused LM-head cross entropy train as in the JAX entry point;
 (with ``--lora_alpha`` and ``--lora_targets``) trains LoRA adapters over
 the frozen base (``lora.py``); its checkpoints hold the merged
 base-format params and no optimizer state, and a LoRA run with
-``--load`` needs ``--finetune``.  ``--device cpu`` runs it on the CPU
-(the tests do); the default is the card.  Parallelism, ``--fp16``,
-``--async_save`` and the flags of the other features the port lacks
+``--load`` needs ``--finetune``.  The JAX entry point's runtime flags
+work as there: resilience (``--rewind_on_spike`` and the sentinel
+knobs, ``--watchdog_timeout_secs``, ``--fault_inject``), the signal
+handler (``--exit_signal_handler``), ``--async_save``, the layer-stats
+observatory (``--log_layer_stats_interval``), telemetry
+(``--structured_log_dir``, ``--status_port``, ``--profile`` with its
+window, ``--flight_recorder_size``), the span tracer (``--trace_dir``,
+``--trace_buffer_size``, ``--straggler_threshold``), the timer levels
+(``--timing_log_level``, ``--timing_log_option``) and the metrics
+writer (``--wandb_logger``, ``--tensorboard_dir`` and the
+``--log_*_to_tensorboard`` flags; without ``wandb`` installed it writes
+JSONL).  ``--device cpu`` runs it on the CPU (the tests do); the
+default is the card.  Parallelism, ``--fp16``, ``--profiler_port`` and
+the flags of the other features the port lacks
 (``arguments.UNPORTED_TRAINING``) parse and raise
 ``NotImplementedError``.  ``python -m megatron_llm_torch.pretrain_gpt``
 is this entry point with ``--model_name=gpt``.
@@ -45,6 +56,7 @@ is this entry point with ``--model_name=gpt``.
 from __future__ import annotations
 
 import math
+import os
 import sys
 from typing import Optional, Sequence
 
@@ -63,6 +75,8 @@ from megatron_llm_torch.config import (
     train_config_from_args,
     transformer_config_from_args,
 )
+from megatron_llm_torch.dist_signal_handler import DistributedSignalHandler
+from megatron_llm_torch.global_vars import get_counters
 from megatron_llm_torch.lora import LoraAdapter, merge_lora
 from megatron_llm_torch.models import MODEL_REGISTRY
 from megatron_llm_torch.models.language_model import (
@@ -72,9 +86,13 @@ from megatron_llm_torch.optimizer import (
     MegatronOptimizer,
     OptimizerParamScheduler,
 )
+from megatron_llm_torch.resilience import build_resilience
+from megatron_llm_torch.telemetry import build_telemetry
+from megatron_llm_torch.timers import Timers
 from megatron_llm_torch.tokenizer import build_tokenizer
 from megatron_llm_torch.training import build_train_step, pretrain
 from megatron_llm_torch.tree import tree_leaves
+from megatron_llm_torch.wandb_logger import WandbTBShim
 
 # the JAX entry point's presets (the root finetune.py's MODEL_DEFAULTS)
 MODEL_DEFAULTS = {
@@ -366,10 +384,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.fp16:
         raise NotImplementedError(
             "--fp16: the kernels take fp32 or bf16; use --bf16")
-    if args.async_save:
-        raise NotImplementedError(
-            "--async_save: background checkpoint writes wait for the "
-            "resilience slice")
     tokenizer = None
     if args.tokenizer_type is not None:
         tokenizer = build_tokenizer(args)   # sets args.padded_vocab_size
@@ -386,6 +400,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     tc = train_config_from_args(args)
     model = model_provider(args)
     num_micro = args.global_batch_size // args.micro_batch_size
+    resilience = build_resilience(args)
+    # built before the checkpoint load so the startup restore lands in
+    # the trace (--trace_dir opens a checkpoint_load span)
+    telemetry = build_telemetry(args, model)
+    try:
+        return _train(args, model, pc, tc, num_micro, tokenizer, arch,
+                      resilience, telemetry)
+    finally:
+        # stop the watchdog thread and uninstall the fault hook on every
+        # exit path (a signal save exits through SystemExit), then close
+        # the telemetry (a crash path above may still dump the flight
+        # recorder through the installed stream)
+        if resilience is not None:
+            resilience.close()
+        telemetry.close()
+        # flush a final --async_save on every exit path
+        checkpointing.finalize_async_saves()
+
+
+def _train(args, model, pc, tc, num_micro, tokenizer, arch, resilience,
+           telemetry) -> int:
+    """``main`` after the model, resilience and telemetry exist."""
 
     # params: fresh init or checkpoint, held to the model's tree on the
     # meta device (shapes and dtypes, no memory: the JAX entry point's
@@ -474,7 +510,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             save_dir, it_, params_,
             None if args.no_save_optim else opt_state_, scheduler_,
             args=checkpointing.config_to_args(model.cfg),
-            consumed_samples=consumed_samples_)
+            consumed_samples=consumed_samples_,
+            async_save=args.async_save)
         saved_at.append(it_)
 
     print(f" > {args.model_name}: {model.num_params(params) / 1e6:.1f}M "
@@ -492,32 +529,73 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f" eval_only: validation loss "
               f"{sum(losses) / len(losses):.6E}", flush=True)
         return start_iteration
-    params, opt_state, it = pretrain(
-        model, params, tc, pc, train_iter,
-        optimizer=optimizer,
-        scheduler=scheduler,
-        save_fn=save_natural,
-        log_interval=args.log_interval,
-        save_interval=args.save_interval,
-        save_dir=args.save,
-        eval_iterator=eval_iter,
-        eval_interval=args.eval_interval if eval_iter else None,
-        eval_iters=args.eval_iters,
-        start_iteration=start_iteration,
-        consumed_samples=consumed_samples,
-        opt_state=opt_state,
-        skip_iters=args.skip_iters,
-        exit_interval=args.exit_interval,
-        exit_duration_in_mins=args.exit_duration_in_mins,
-        log_params_norm=args.log_params_norm,
-        log_num_zeros_in_grad=args.log_num_zeros_in_grad,
-    )
+    handler = DistributedSignalHandler() if args.exit_signal_handler \
+        else None
+    if handler:
+        handler.install()
+    # metrics writer: wandb (or its JSONL offline fallback) and/or a
+    # tensorboard-dir JSONL stream — one add_scalar code path either way
+    writer = None
+    if args.wandb_logger or args.tensorboard_dir:
+        fallback = (os.path.join(args.tensorboard_dir, "metrics.jsonl")
+                    if args.tensorboard_dir else "wandb_offline.jsonl")
+        if args.tensorboard_dir:
+            os.makedirs(args.tensorboard_dir, exist_ok=True)
+        writer = WandbTBShim(
+            config=checkpointing.config_to_args(model.cfg),
+            project=args.wandb_project, entity=args.wandb_entity,
+            name=args.wandb_name, run_id=args.wandb_id,
+            api_key=args.wandb_api_key, fallback_path=fallback,
+            resume="must" if args.wandb_resume else "allow",
+            force_offline=not args.wandb_logger)
+    try:
+        params, opt_state, it = pretrain(
+            model, params, tc, pc, train_iter,
+            optimizer=optimizer,
+            scheduler=scheduler,
+            save_fn=save_natural,
+            resilience=resilience,
+            telemetry=telemetry,
+            timers=Timers(log_level=args.timing_log_level,
+                          log_option=args.timing_log_option),
+            log_interval=args.log_interval,
+            save_interval=args.save_interval,
+            save_dir=args.save,
+            eval_iterator=eval_iter,
+            eval_interval=args.eval_interval if eval_iter else None,
+            eval_iters=args.eval_iters,
+            exit_signal_handler=handler,
+            start_iteration=start_iteration,
+            consumed_samples=consumed_samples,
+            opt_state=opt_state,
+            skip_iters=args.skip_iters,
+            exit_interval=args.exit_interval,
+            exit_duration_in_mins=args.exit_duration_in_mins,
+            log_params_norm=args.log_params_norm,
+            log_num_zeros_in_grad=args.log_num_zeros_in_grad,
+            log_layer_stats_interval=args.log_layer_stats_interval,
+            writer=writer,
+            tensorboard_log_interval=args.tensorboard_log_interval,
+            log_timers=args.log_timers_to_tensorboard,
+            log_memory=args.log_memory_to_tensorboard,
+            log_batch_size=args.log_batch_size_to_tensorboard,
+            log_world_size=args.log_world_size_to_tensorboard,
+            log_validation_ppl=args.log_validation_ppl_to_tensorboard,
+            async_save=args.async_save,
+            preempt_exit_code=args.preempt_exit_code or 0,
+        )
+    finally:
+        if writer is not None:
+            # the recovery and telemetry summaries, while the stream is
+            # still installed
+            writer.finish()
+        if handler:
+            handler.__exit__(None, None, None)
     # the final checkpoint, unless the loop has just written this one
     if args.save and saved_at[-1:] != [it]:
-        # each iteration reads one global batch: [num_micro, mb x dp, seq]
-        per_iter = num_micro * args.micro_batch_size * args.data_parallel_size
+        # the samples the loop drew, rewound iterations' batches included
         save_natural(args.save, it, params, opt_state, scheduler,
-                     consumed_samples + (it - start_iteration) * per_iter)
+                     get_counters()["samples"])
         print(f" saved final checkpoint at iteration {it}", flush=True)
     return it
 

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -131,15 +132,24 @@ def build() -> Path:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
+    """The kernels' shared library, built on first use.  The build (or
+    the load of a cached build) is the port's counterpart of an XLA
+    compile: it runs in a ``kernel_build`` span of category ``compile``
+    and reports its seconds to the recompile detector
+    (``tracing.note_compile``), so goodput counts it as compile time."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            from megatron_llm_torch import tracing
+
+            t0 = time.perf_counter()
+            with tracing.span("kernel_build", "compile"):
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+            tracing.note_compile(time.perf_counter() - t0)
             _lib = lib
         return _lib
 

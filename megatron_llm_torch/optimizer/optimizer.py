@@ -13,7 +13,14 @@ masters and the moments in place, leaf by leaf, so the step's transient
 memory is a few temporaries the size of the largest leaf, not a second
 copy of the state.  The inf/nan check is read on the host: a step that
 finds one changes no param or moment, only the loss scaler.  The update
-is plain tensor code, as the JAX package leaves it to XLA.  ZeRO-1 and
+is plain tensor code, as the JAX package leaves it to XLA.  With
+``layer_stats`` the step also returns the health observatory's per-group
+stats (``health.py``), accumulated inside the same leaf loop: the grad
+norms and non-finite counts of the unscaled grads before the clip, the
+param norms of the masters before the update, and the update norms of
+the master after the step minus the master before it, one stacked row at
+a time so that no second copy of the masters is made.  A step that
+finds an inf/nan gets the same record with zero updates.  ZeRO-1 and
 the state's sharding specs are a later slice.
 """
 
@@ -24,6 +31,7 @@ from typing import Any, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from megatron_llm_torch import health
 from megatron_llm_torch.config import TrainConfig
 from megatron_llm_torch.optimizer.grad_scaler import (
     ConstantGradScaler,
@@ -107,13 +115,18 @@ class MegatronOptimizer:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def step(self, params, grads, state: OptimizerState, lr: float,
-             weight_decay: Optional[float] = None):
+             weight_decay: Optional[float] = None, *,
+             layer_stats: bool = False):
         """One optimizer step.  ``grads`` are the *scaled* grads (the train
         step multiplies the loss by the current scale); they are read, not
         written.  Updates ``params``, the masters and the moments in place
         and returns ``(params, new_state, stats)`` with stats =
-        {'grad_norm', 'found_inf', 'loss_scale'}.  The health
-        observatory's per-layer stats are a later slice."""
+        {'grad_norm', 'found_inf', 'loss_scale'}; with ``layer_stats``
+        also 'layer_stats': the per-group [G] tensors of
+        ``health.compute_layer_stats`` (grad norms over the unscaled
+        pre-clip grads, param norms over the masters before the step,
+        update norms over the applied master delta, zero on a skipped
+        step)."""
         cfg = self.cfg
         wd = cfg.weight_decay if weight_decay is None else weight_decay
         scale = state.grad_scaler.scale
@@ -130,12 +143,19 @@ class MegatronOptimizer:
             [grad_norm, finite.all().float()]).tolist()
         found_inf = finite_host < 1.0
         new_step = state.step + (0 if found_inf else 1)
+        masters = (tree_leaves(state.master_params)
+                   if self.is_low_precision else [p for _, p in named])
+        gs = (health.GroupStats(health.layer_group_names(params),
+                                g_leaves[0].device)
+              if layer_stats else None)
+        if gs is not None and found_inf:
+            # the skipped step's record: what the NaN localizer reads
+            for (path, _), g, p32 in zip(named, g_leaves, masters):
+                self._grad_stats(gs, path, g.float() * inv_scale, p32)
         if not found_inf:
             coeff = 1.0
             if cfg.clip_grad > 0.0:
                 coeff = min(1.0, cfg.clip_grad / (norm_host + 1.0e-6))
-            masters = (tree_leaves(state.master_params)
-                       if self.is_low_precision else [p for _, p in named])
             m_leaves = tree_leaves(state.exp_avg)
             v_leaves = (tree_leaves(state.exp_avg_sq)
                         if state.exp_avg_sq is not None
@@ -144,12 +164,24 @@ class MegatronOptimizer:
                                                m_leaves, v_leaves):
                 w = 0.0 if _no_weight_decay(path) else wd
                 gf = g.float() * inv_scale
+                if gs is not None:
+                    # read before the clip scales gf in place
+                    self._grad_stats(gs, path, gf, p32)
                 if coeff != 1.0:
                     gf.mul_(coeff)
-                if cfg.optimizer == "adam":
-                    self._adam(p32, gf, m, v, lr, w, new_step)
+                if gs is None:
+                    self._update(p32, gf, m, v, lr, w, new_step)
                 else:
-                    self._sgd(p32, gf, m, lr, w)
+                    stacked, _ = gs.slots(path)
+                    for r in (range(p32.shape[0]) if stacked else (None,)):
+                        def row(t):
+                            return t if r is None or t is None else t[r]
+                        before = row(p32).clone()
+                        self._update(row(p32), row(gf), row(m), row(v), lr,
+                                     w, new_step)
+                        gs.add("update_norm", path,
+                               (row(p32) - before).square().sum(), row=r)
+                        del before
                 del gf
                 if self.is_low_precision:
                     p.copy_(p32)
@@ -160,7 +192,22 @@ class MegatronOptimizer:
                                                 found_inf))
         stats = {"grad_norm": grad_norm, "found_inf": found_inf,
                  "loss_scale": scale}
+        if gs is not None:
+            stats["layer_stats"] = gs.result()
         return params, new_state, stats
+
+    @staticmethod
+    def _grad_stats(gs, path, gf, p32):
+        stacked, _ = gs.slots(path)
+        gs.add("grad_norm", path, health.row_sumsq(gf, stacked))
+        gs.add("nonfinite", path, health.row_nonfinite(gf, stacked))
+        gs.add("param_norm", path, health.row_sumsq(p32, stacked))
+
+    def _update(self, p32, g, m, v, lr, w, t):
+        if self.cfg.optimizer == "adam":
+            self._adam(p32, g, m, v, lr, w, t)
+        else:
+            self._sgd(p32, g, m, lr, w)
 
     def _adam(self, p32, g, m, v, lr, w, t):
         b1, b2, eps = self.cfg.adam_beta1, self.cfg.adam_beta2, \

@@ -136,32 +136,6 @@ class ServingFaultInjector:
               flush=True)
 
 
-def dump_stacks_and_memory(printer: Callable[[str], None] = print) -> str:
-    """Python stacks of every thread and the CUDA allocator's memory
-    counters (the training package's watchdog dump, which the port has
-    not ported, reduced to what a wedged serving engine needs).  Returns
-    the dump as a string (also sent through ``printer``); never raises."""
-    from megatron_llm_torch import telemetry
-
-    lines = ["==== watchdog: python stacks ====",
-             telemetry.capture_thread_stacks(),
-             "==== watchdog: device memory ===="]
-    try:
-        import torch
-
-        for i in range(torch.cuda.device_count()):
-            st = torch.cuda.memory_stats(i)
-            lines.append(f"-- cuda:{i} -- bytes_in_use="
-                         f"{st.get('allocated_bytes.all.current', 'n/a')} "
-                         f"peak_bytes_in_use="
-                         f"{st.get('allocated_bytes.all.peak', 'n/a')}")
-    except Exception as e:      # diagnostics must never raise
-        lines.append(f"(device stats unavailable: {e})")
-    text = "\n".join(lines)
-    printer(text)
-    return text
-
-
 class EngineWatchdog:
     """Detects a wedged engine: no dispatch progress within
     ``timeout_secs`` while ``has_work()`` says there is work to do.
@@ -238,12 +212,12 @@ class EngineWatchdog:
             f"(timeout {self.timeout_secs:.1f}s) — dumping diagnostics "
             f"and restarting the engine in-process")
         try:
-            from megatron_llm_torch import tracing
+            from megatron_llm_torch import resilience, tracing
 
             tracing.instant("engine_watchdog_fire", "watchdog",
                             stalled_secs=float(stalled),
                             timeout_secs=self.timeout_secs)
-            dump_stacks_and_memory(self.printer)
+            resilience.dump_stacks_and_memory(self.printer)
         except Exception:
             pass
         try:

@@ -1,20 +1,27 @@
-"""Telemetry: the trainer's throughput and MFU accounting, and for
-serving the JSONL record stream, its flight recorder and the
-fixed-bucket latency histograms behind ``/metrics``.
+"""Runtime telemetry (the counterpart of ``megatron_llm_tpu/telemetry.py``):
+the throughput and MFU accounting, the schema-13 JSONL stream and its
+flight recorder, the fixed-bucket latency histograms and Prometheus text
+behind ``/metrics``, the trainer's live status endpoint and the in-loop
+profiler window.
 
-The subset of ``megatron_llm_tpu/telemetry.py`` that the port's trainer
-(``training.py``), the serving engine and its host-side modules
-(``serving/loop_profiler.py``, ``serving/cache_observatory.py``) call.
-Record shapes, bucket bounds and the schema version are the same, so the
-stdlib report tools (``tools/serve_report.py``,
-``tools/telemetry_report.py``) read a port replica's stream unchanged.
-The server's Prometheus text exposition
-(``prometheus_exposition``, ``_wants_prometheus``) and the postmortem
-bundle writers of the SLO sentinel (``atomic_write_json``,
-``capture_thread_stacks``, ``write_snapshot_bundle``) are copies of the
-JAX package's.  The peak table is the H100's; it has no TPU entry, and a
-CPU has no peak, so no MFU is ever made up for one.  The trainer's JSONL
-stream, status server and profiler session are later slices.
+Record shapes, bucket bounds and the schema version are the JAX
+package's, so the stdlib report tools (``tools/telemetry_report.py``,
+``tools/serve_report.py``, ``tools/health_report.py``,
+``tools/trace_report.py``) read the port's files unchanged.  Where the
+JAX module calls JAX, this one calls its torch counterpart:
+
+* the peak table is the H100's; it has no TPU entry, and a CPU has no
+  peak, so no MFU is ever made up for one;
+* ``device_memory_stats`` reads ``torch.cuda.memory_stats`` (which never
+  synchronizes) under the JAX key names;
+* ``ProfilerSession`` wraps ``torch.profiler.profile`` (CPU and CUDA
+  activities) over the iteration window and writes a Chrome trace into
+  the profile directory where the JAX package writes an xplane.  JAX's
+  live-capture server (``--profiler_port``) has no PyTorch counterpart
+  and is refused by the argument tables.
+
+The port trains in one process, so the stream always writes (the JAX
+package writes from process 0) and there is one device.
 """
 
 from __future__ import annotations
@@ -25,9 +32,12 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
+
+from megatron_llm_torch.global_vars import get_counters
 
 TELEMETRY_SCHEMA_VERSION = 13
 
@@ -114,6 +124,7 @@ class ThroughputCalculator:
                 out["mfu"] = mfu if mfu <= MFU_SANITY_LIMIT else None
         return out
 STREAM_FILENAME = "telemetry.jsonl"
+FLIGHT_RECORDER_FILENAME = "flight_recorder.json"
 
 
 class FlightRecorder:
@@ -132,6 +143,17 @@ class FlightRecorder:
 
     def __len__(self) -> int:
         return len(self._records)
+
+    def dump(self, path: str, reason: str = "") -> str:
+        """Write the recorder as JSON (atomic: tmp + rename — the caller
+        may be a watchdog thread racing process death)."""
+        payload = {
+            "dumped_at_unix": time.time(),
+            "reason": reason,
+            "capacity": self.capacity,
+            "records": self.records(),
+        }
+        return atomic_write_json(path, payload)
 
 
 # Prometheus-style latency buckets (seconds).  Fixed across the fleet so
@@ -411,20 +433,28 @@ def _wants_prometheus(path: str, accept: str) -> bool:
 
 
 class TelemetryStream:
-    """Schema-13 JSONL records under ``log_dir`` (one line per record),
-    each also kept in the flight recorder."""
+    """One schema-13 JSONL record per log boundary under ``log_dir``,
+    each also kept in the flight recorder.  Tracks running aggregates
+    for the end-of-run summary (mean MFU etc. — percentiles are the
+    offline ``tools/telemetry_report.py``'s job)."""
 
     def __init__(self, log_dir: Optional[str] = None,
                  flight_recorder_size: int = 64):
         self.log_dir = log_dir
         self.flight_recorder = FlightRecorder(flight_recorder_size)
         self._file = None
+        # a StatusServer (--status_port) sees every emitted record; None
+        # when no live endpoint is attached
+        self.status_server: Optional["StatusServer"] = None
+        self._sums = {"steps": 0, "mfu": 0.0, "mfu_n": 0,
+                      "tokens_per_sec_per_device": 0.0, "step_time": 0.0}
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self._file = open(os.path.join(log_dir, STREAM_FILENAME),
                               "a", buffering=1)
 
     def emit(self, record: Dict[str, Any]) -> Dict[str, Any]:
+        """Stamp, persist, and flight-record one log-boundary record."""
         rec = {"schema": TELEMETRY_SCHEMA_VERSION, "kind": "log",
                "time_unix": time.time(), **record}
         if self._file is not None:
@@ -432,8 +462,41 @@ class TelemetryStream:
                 self._file.write(json.dumps(rec) + "\n")
             except ValueError:
                 pass    # closed mid-shutdown while the engine retires
+        if self.status_server is not None:
+            self.status_server.update(rec)
         self.flight_recorder.record(rec)
+        s = self._sums
+        s["steps"] += 1
+        s["step_time"] += float(rec.get("step_time_secs") or 0.0)
+        s["tokens_per_sec_per_device"] += float(
+            rec.get("tokens_per_sec_per_device") or 0.0)
+        if rec.get("mfu") is not None:
+            s["mfu"] += float(rec["mfu"])
+            s["mfu_n"] += 1
         return rec
+
+    def record_dispatch(self, rec: Dict[str, Any]) -> None:
+        """Lightweight per-iteration entry — host-side fields only, never
+        a device sync, so it is safe (and cheap) every step."""
+        self.flight_recorder.record({"kind": "dispatch",
+                                     "time_unix": time.time(), **rec})
+
+    def summary(self) -> Dict[str, Any]:
+        s = self._sums
+        n = max(s["steps"], 1)
+        return {
+            "log_boundaries": s["steps"],
+            "mean_step_time_secs": s["step_time"] / n,
+            "mean_tokens_per_sec_per_device":
+                s["tokens_per_sec_per_device"] / n,
+            "mean_mfu": (s["mfu"] / s["mfu_n"]) if s["mfu_n"] else None,
+        }
+
+    def dump_flight_recorder(self, reason: str = "") -> Optional[str]:
+        if self.log_dir is None or not len(self.flight_recorder):
+            return None
+        path = os.path.join(self.log_dir, FLIGHT_RECORDER_FILENAME)
+        return self.flight_recorder.dump(path, reason=reason)
 
     def close(self) -> None:
         if self._file is not None:
@@ -441,6 +504,9 @@ class TelemetryStream:
             self._file = None
 
 
+# Active stream registry: the watchdog/crash path (resilience.py) and the
+# wandb finish() summary reach the run's telemetry without threading it
+# through every call chain — same pattern as resilience's save-fault hook.
 _ACTIVE_STREAM: Optional[TelemetryStream] = None
 
 
@@ -455,3 +521,329 @@ def get_stream() -> Optional[TelemetryStream]:
 
 def get_flight_recorder() -> Optional[FlightRecorder]:
     return _ACTIVE_STREAM.flight_recorder if _ACTIVE_STREAM else None
+
+
+def dump_flight_recorder(reason: str = "") -> Optional[str]:
+    """Dump the active run's flight recorder next to its JSONL stream
+    (no-op without an installed stream or records).  Diagnostics path —
+    never raises."""
+    try:
+        if _ACTIVE_STREAM is None:
+            return None
+        return _ACTIVE_STREAM.dump_flight_recorder(reason=reason)
+    except Exception:
+        return None
+
+
+def run_summary() -> Optional[Dict[str, Any]]:
+    """The active stream's aggregate summary (wandb finish() pulls this),
+    merged with the active tracer's goodput breakdown + recompile /
+    straggler counts when tracing is on."""
+    out = _ACTIVE_STREAM.summary() if _ACTIVE_STREAM else None
+    from megatron_llm_torch import tracing
+
+    g = tracing.goodput_summary()
+    if g is not None:
+        out = dict(out or {})
+        out["goodput_pct"] = g["goodput_pct"]
+        out["goodput"] = g
+        out["recompiles"] = int(get_counters().get("recompiles", 0))
+        out["straggler_events"] = int(
+            get_counters().get("straggler_events", 0))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Device memory
+# ---------------------------------------------------------------------------
+
+# JAX memory_stats() key -> torch.cuda.memory_stats() key
+_CUDA_MEMORY_KEYS = {
+    "bytes_in_use": "allocated_bytes.all.current",
+    "peak_bytes_in_use": "allocated_bytes.all.peak",
+    "bytes_reserved": "reserved_bytes.all.current",
+    "largest_alloc_size": "active_bytes.all.peak",
+    "num_allocs": "allocation.all.allocated",
+}
+
+
+def device_memory_stats(device=None) -> Dict[str, int]:
+    """The CUDA caching allocator's counters of one device under the JAX
+    package's ``memory_stats()`` key names (``bytes_in_use``,
+    ``peak_bytes_in_use``, ``bytes_limit``, ``largest_alloc_size``,
+    ``num_allocs``, and ``bytes_reserved``), so the report tools read
+    them unchanged.  The allocator's counters are host-side and never
+    synchronize the device, so a watchdog thread may read them while the
+    main thread is wedged.  {} without a card (the JAX CPU backend's
+    answer too)."""
+    try:
+        if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+            return {}
+        if device is None:
+            device = torch.cuda.current_device()
+        stats = torch.cuda.memory_stats(device)
+        out = {k: int(stats[v]) for k, v in _CUDA_MEMORY_KEYS.items()
+               if v in stats}
+        out["bytes_limit"] = int(
+            torch.cuda.get_device_properties(device).total_memory)
+        return out
+    except Exception:
+        return {}
+
+
+# ---------------------------------------------------------------------------
+# In-loop profiler capture
+# ---------------------------------------------------------------------------
+
+PROFILE_TRACE_FILENAME = "trace_iter{start}-{end}.json"
+
+
+class ProfilerSession:
+    """Wraps a chosen iteration window ``[step_start, step_end]`` in
+    ``torch.profiler`` capture (CPU and, with a card, CUDA activities)
+    during real training.  The loop calls ``maybe_start(upcoming
+    iteration)`` before the step and ``maybe_stop(completed_iteration,
+    sync=...)`` after; ``sync`` waits for the step's device work (the
+    loop passes ``torch.cuda.synchronize``) so the window holds it, not
+    just its launches.  On stop the Chrome trace is written into
+    ``profile_dir`` (``PROFILE_TRACE_FILENAME``) and ``key_averages()``
+    stays readable on ``self.profile``.  One-shot: the window fires once
+    per run.  A failed start raises."""
+
+    def __init__(self, profile_dir: str, step_start: int, step_end: int,
+                 cuda: Optional[bool] = None):
+        if step_end < step_start:
+            raise ValueError(
+                f"profile_step_end ({step_end}) < profile_step_start "
+                f"({step_start})")
+        self.profile_dir = profile_dir
+        self.step_start = int(step_start)
+        self.step_end = int(step_end)
+        self.cuda = torch.cuda.is_available() if cuda is None else cuda
+        self.active = False
+        self.done = False
+        self.profile = None
+        self.trace_path: Optional[str] = None
+
+    def maybe_start(self, upcoming_iteration: int) -> bool:
+        if self.done or self.active \
+                or upcoming_iteration != self.step_start:
+            return False
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(self.profile_dir, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if self.cuda:
+            acts.append(ProfilerActivity.CUDA)
+        self.profile = profile(activities=acts)
+        self.profile.__enter__()
+        self.active = True
+        print(f" [profiler] trace started at iteration "
+              f"{upcoming_iteration} -> {self.profile_dir}", flush=True)
+        return True
+
+    def maybe_stop(self, completed_iteration: int,
+                   sync: Optional[Callable[[], Any]] = None) -> bool:
+        if not self.active or completed_iteration < self.step_end:
+            return False
+        if sync is not None:
+            sync()      # device work of the window lands inside the trace
+        elif self.cuda:
+            torch.cuda.synchronize()
+        self._stop()
+        print(f" [profiler] trace stopped after iteration "
+              f"{completed_iteration} -> {self.trace_path} (Chrome "
+              f"trace: Perfetto or chrome://tracing)", flush=True)
+        return True
+
+    def _stop(self) -> None:
+        self.profile.__exit__(None, None, None)
+        self.active = False
+        self.done = True
+        self.trace_path = os.path.join(
+            self.profile_dir, PROFILE_TRACE_FILENAME.format(
+                start=self.step_start, end=self.step_end))
+        self.profile.export_chrome_trace(self.trace_path)
+
+    def close(self) -> None:
+        """Stop an in-flight window on any exit path (a truncated window
+        still yields a usable trace)."""
+        if self.active:
+            self._stop()
+
+
+# ---------------------------------------------------------------------------
+# Trainer live-status endpoint (--status_port)
+# ---------------------------------------------------------------------------
+
+class StatusServer:
+    """Stdlib HTTP ``/health`` + ``/metrics`` over the latest telemetry
+    record — the trainer-side twin of the serving server's endpoints, so
+    the same scraper config covers both halves of the system.  Runs as a
+    daemon thread; ``update()`` is called from the stream's ``emit()``
+    so it costs one dict assignment per log boundary.
+
+    ``/health``  -> {"status": "ok", "iteration", "secs_since_last_record",
+                     "uptime_secs"}
+    ``/metrics`` -> the latest record as JSON, or Prometheus text
+                    exposition under the usual negotiation
+                    (?format=prometheus or an Accept preferring
+                    text/plain), prefix ``megatron_train_``.
+    """
+
+    def __init__(self, port: int, host: str = "0.0.0.0"):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self._latest: Optional[Dict[str, Any]] = None
+        self._latest_at: Optional[float] = None
+        self._t_start = time.time()
+        self._lock = threading.Lock()
+        status = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *a):     # silence per-request noise
+                pass
+
+            def _send(self, code, payload, content_type="application/json"):
+                body = payload if isinstance(payload, bytes) \
+                    else json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                path = self.path
+                if path.partition("?")[0] == "/health":
+                    self._send(200, status.health())
+                elif path.partition("?")[0] == "/metrics":
+                    latest = status.latest() or {}
+                    if _wants_prometheus(path,
+                                         self.headers.get("Accept", "")):
+                        text = prometheus_exposition(
+                            latest, prefix="megatron_train_")
+                        self._send(200, text.encode(),
+                                   content_type="text/plain; version=0.0.4")
+                    else:
+                        self._send(200, latest)
+                else:
+                    self._send(404, {"message": "not found"})
+
+        self.httpd = ThreadingHTTPServer((host, int(port)), Handler)
+        self.httpd.daemon_threads = True
+        self.port = self.httpd.server_address[1]    # resolved when port=0
+        self._thread = threading.Thread(
+            target=self.httpd.serve_forever, name="status-server",
+            daemon=True)
+        self._thread.start()
+
+    def update(self, rec: Dict[str, Any]) -> None:
+        # keep only JSON-serializable leaves; the record already is
+        with self._lock:
+            self._latest = rec
+            self._latest_at = time.time()
+
+    def latest(self) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            return dict(self._latest) if self._latest else None
+
+    def health(self) -> Dict[str, Any]:
+        with self._lock:
+            latest, at = self._latest, self._latest_at
+        return {
+            "status": "ok",
+            "iteration": (latest or {}).get("iteration"),
+            "secs_since_last_record":
+                (round(time.time() - at, 3) if at else None),
+            "uptime_secs": round(time.time() - self._t_start, 3),
+        }
+
+    def close(self) -> None:
+        try:
+            self.httpd.shutdown()
+            self.httpd.server_close()
+        except Exception:
+            pass
+
+
+# ---------------------------------------------------------------------------
+# Bundle + CLI wiring
+# ---------------------------------------------------------------------------
+
+@dataclass
+class Telemetry:
+    """Everything the train loop needs, in one optional argument."""
+
+    throughput: Optional[ThroughputCalculator] = None
+    stream: Optional[TelemetryStream] = None
+    profiler: Optional[ProfilerSession] = None
+    tracing: Optional[Any] = None       # a tracing.Tracing bundle
+    status: Optional[StatusServer] = None
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def default(cls, model) -> "Telemetry":
+        """Throughput-only telemetry (free): every run reports
+        tokens/sec/device + MFU at log boundaries even with no flags."""
+        return cls(throughput=ThroughputCalculator.from_model(model))
+
+    def close(self) -> None:
+        if self.profiler is not None:
+            self.profiler.close()
+        if self.tracing is not None:
+            # writes the trace file, then uninstalls the module registry
+            self.tracing.close()
+        if self.status is not None:
+            self.status.close()
+        if self.stream is not None:
+            if get_stream() is self.stream:
+                install_stream(None)
+            self.stream.close()
+
+
+def recovery_counters() -> Dict[str, int]:
+    from megatron_llm_torch.resilience import recovery_counters as rc
+
+    return rc()
+
+
+def build_telemetry(args, model) -> Telemetry:
+    """CLI wiring: a Telemetry bundle from parsed args.  Always returns a
+    bundle (throughput accounting is free); the stream/profiler members
+    exist only when their flags ask for them."""
+    t = Telemetry.default(model)
+    log_dir = getattr(args, "structured_log_dir", None)
+    if log_dir:
+        t.stream = TelemetryStream(
+            log_dir,
+            flight_recorder_size=getattr(args, "flight_recorder_size", 64))
+        install_stream(t.stream)
+    if getattr(args, "profile", False):
+        profile_dir = getattr(args, "profile_dir", None) \
+            or (os.path.join(log_dir, "profile") if log_dir
+                else "profile_trace")
+        t.profiler = ProfilerSession(
+            profile_dir,
+            step_start=getattr(args, "profile_step_start", 10),
+            step_end=getattr(args, "profile_step_end", 12),
+            cuda=torch.device(model.device).type == "cuda",
+        )
+    status_port = getattr(args, "status_port", None)
+    if status_port is not None:
+        if t.stream is None:
+            # in-memory stream: the endpoint needs emit() records even
+            # when nothing asked for the JSONL file
+            t.stream = TelemetryStream(
+                None,
+                flight_recorder_size=getattr(
+                    args, "flight_recorder_size", 64))
+            install_stream(t.stream)
+        t.status = StatusServer(int(status_port))
+        t.stream.status_server = t.status
+        print(f" [telemetry] status endpoint on port {t.status.port} "
+              f"(/health, /metrics)", flush=True)
+    from megatron_llm_torch import tracing as _tracing
+
+    t.tracing = _tracing.build_tracing(args)    # None without --trace_dir
+    return t

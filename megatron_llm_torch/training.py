@@ -23,28 +23,42 @@ Dropout keys follow the JAX package: the step's key is the base key of
 is the step's folded with the micro-batch index
 (``megatron_llm_torch/random.py``); the model splits it further by
 layer and site.  A resumed run therefore draws the masks of an
-uninterrupted one.  Resilience, asynchronous saves, the layer-stats
-observatory, the JSONL stream, the tracer and TensorBoard writers are
-later slices: asking for one raises ``NotImplementedError``.
+uninterrupted one.
+
+``pretrain`` carries the JAX loop's runtime hooks, all host-side:
+resilience (``resilience.py``: snapshots, the NaN/spike sentinel and
+rewind, the hang watchdog and the fault injector), the layer-stats
+observatory (``health.py``, the optimizer step's per-group stats),
+telemetry (``telemetry.py``: the schema-13 JSONL stream and its flight
+recorder, the status endpoint, the ``torch.profiler`` window), the span
+tracer with its goodput accounting (``tracing.py``: the root ``train``
+span and the ``data_next``, ``step``, ``step_sync``,
+``checkpoint_save`` and ``eval`` spans), a metrics writer
+(``wandb_logger.WandbTBShim``), the signal handler's save-and-exit and
+asynchronous checkpoint saves, finalized on every exit path.  A custom
+train step (the JAX package's pipelined engine) is the one keyword the
+port refuses.
 """
 
 from __future__ import annotations
 
+import math
 import sys
 import time
 from typing import Callable, Dict, Optional
 
 import torch
 
-from megatron_llm_torch import checkpointing
+from megatron_llm_torch import checkpointing, health, tracing
 from megatron_llm_torch import random as mrandom
 from megatron_llm_torch.config import ParallelConfig, TrainConfig
+from megatron_llm_torch.global_vars import get_counters
 from megatron_llm_torch.optimizer import (
     MegatronOptimizer,
     OptimizerParamScheduler,
 )
 from megatron_llm_torch.optimizer.optimizer import global_grad_norm
-from megatron_llm_torch.telemetry import ThroughputCalculator
+from megatron_llm_torch.telemetry import Telemetry
 from megatron_llm_torch.timers import Timers
 from megatron_llm_torch.tree import tree_leaves, tree_unflatten
 
@@ -67,6 +81,7 @@ def build_train_step(
     loss_func: Callable = default_loss_func,
     forward_only: bool = False,
     log_num_zeros_in_grad: bool = False,
+    log_layer_stats: bool = False,
 ):
     """One global training step.
 
@@ -79,7 +94,9 @@ def build_train_step(
     step's dropout key (an integer, or None to drop nothing); micro-batch
     i trains on ``random.fold_in(rng_key, i)``.  The eval step draws
     nothing.  ``log_num_zeros_in_grad`` adds the count of zero entries of
-    the accumulated grads as ``num zeros``.
+    the accumulated grads as ``num zeros``; ``log_layer_stats`` adds the
+    optimizer step's per-group stats as ``layer_stats`` (a dict of [G]
+    tensors, ``health.compute_layer_stats``'s).
 
     A mixture of experts (``model.cfg.num_experts > 1``) returns its
     routing aux ``[lb, z]`` with the per-token loss: the optimized
@@ -149,14 +166,17 @@ def build_train_step(
         num_zeros = (torch.stack([(g == 0.0).sum() for g in grads]).sum()
                      if log_num_zeros_in_grad else None)
         grad_tree = tree_unflatten(params, grads)
-        params, opt_state, stats = optimizer.step(params, grad_tree,
-                                                  opt_state, lr, wd)
+        params, opt_state, stats = optimizer.step(
+            params, grad_tree, opt_state, lr, wd,
+            layer_stats=log_layer_stats)
         metrics = {
             "lm loss": torch.stack(losses).mean(),
             "grad_norm": stats["grad_norm"],
             "loss_scale": stats["loss_scale"],
             "skipped_iter": int(stats["found_inf"]),
         }
+        if log_layer_stats:
+            metrics["layer_stats"] = stats["layer_stats"]
         if num_zeros is not None:
             metrics["num zeros"] = num_zeros
         metrics.update({k: torch.stack(v).mean() for k, v in auxes.items()})
@@ -179,9 +199,11 @@ def training_log(
     printer=print,
     throughput: Optional[Dict] = None,
     interval_time: Optional[float] = None,
+    writer=None,
 ):
     """One console log line, in the JAX package's format (null MFU fields
-    are omitted, never printed as numbers)."""
+    are omitted, never printed as numbers), and with a ``writer`` its
+    scalars."""
     tps = tokens_per_iter / max(elapsed_per_iter, 1e-9)
     line = (
         f" iteration {iteration:8d}/{train_iters:8d} |"
@@ -212,6 +234,23 @@ def training_log(
         line += (f" {k}: {v} |" if isinstance(v, int)
                  else f" {k}: {float(v):.6E} |")
     printer(line)
+    if writer is not None:
+        for k, v in metrics.items():
+            writer.add_scalar(k, float(v), iteration)
+        writer.add_scalar("tokens_per_sec", tps, iteration)
+        writer.add_scalar("learning_rate", lr, iteration)
+        if interval_time is not None:
+            writer.add_scalar("interval-time-per-iteration", interval_time,
+                              iteration)
+        if throughput is not None:
+            writer.add_scalar("tokens_per_sec_per_device",
+                              throughput["tokens_per_sec_per_device"],
+                              iteration)
+            if throughput.get("tflops_per_device") is not None:
+                writer.add_scalar("tflops_per_device",
+                                  throughput["tflops_per_device"], iteration)
+            if throughput.get("mfu") is not None:
+                writer.add_scalar("mfu", throughput["mfu"], iteration)
     return tps
 
 
@@ -220,14 +259,19 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-_UNPORTED = {
-    "async_save": "asynchronous checkpoint saving",
-    "exit_signal_handler": "the signal handler",
-    "log_layer_stats_interval": "the layer-stats observatory",
-    "writer": "metrics writers", "resilience": "resilience",
-    "telemetry": "the JSONL stream, profiler and tracer",
-    "train_step": "a custom train step",
-}
+_UNPORTED = {"train_step": "a custom train step"}
+
+
+def _layer_stats_host(stats) -> Dict[str, list]:
+    """The step's [G] stat tensors as host lists, in one device sync."""
+    keys = sorted(stats)
+    flat = torch.cat([stats[k].double() for k in keys]).tolist()
+    out, i = {}, 0
+    for k in keys:
+        n = stats[k].numel()
+        out[k] = flat[i:i + n]
+        i += n
+    return out
 
 
 def pretrain(
@@ -246,9 +290,11 @@ def pretrain(
     eval_iterator=None,
     eval_interval: Optional[int] = None,
     eval_iters: int = 10,
+    exit_signal_handler=None,
     start_iteration: int = 0,
     consumed_samples: int = 0,
     opt_state=None,
+    on_metrics=None,
     timers=None,
     skip_iters=(),
     exit_interval: Optional[int] = None,
@@ -256,6 +302,18 @@ def pretrain(
     save_fn=None,
     log_params_norm: bool = False,
     log_num_zeros_in_grad: bool = False,
+    log_layer_stats_interval: int = 0,
+    writer=None,
+    tensorboard_log_interval: int = 1,
+    log_timers: bool = True,
+    async_save: bool = False,
+    log_memory: bool = False,
+    log_batch_size: bool = False,
+    log_world_size: bool = False,
+    log_validation_ppl: bool = False,
+    resilience=None,
+    telemetry=None,
+    preempt_exit_code: int = 0,
     **unported,
 ):
     """The training loop from ``start_iteration``; returns ``(params,
@@ -264,21 +322,56 @@ def pretrain(
     ``batch_iterator`` yields batch dicts shaped [num_micro, batch, seq].
     ``opt_state``: a restored optimizer state (else a fresh one).
     ``consumed_samples``: the samples consumed before ``start_iteration``
-    (a resumed checkpoint's); the loop adds each batch's sequences.
-    ``save_interval`` / ``save_dir``: save a checkpoint at every multiple
-    (through ``save_fn(save_dir, it, params, opt_state, scheduler,
-    consumed_samples)`` when given), recording the samples consumed so
-    far.  ``eval_iterator`` / ``eval_interval``: the mean loss of
-    ``eval_iters`` forward-only batches, printed at every multiple.
-    ``skip_iters``: iteration numbers that run forward-only (the loss is
-    logged, nothing is updated).  ``exit_interval``: save (with a
-    ``save_dir``) and exit (``sys.exit(0)``) at a multiple of it;
+    (a resumed checkpoint's); the loop adds each batch's sequences, also
+    into ``counters['samples']`` (and its tokens into
+    ``counters['tokens']``).  ``save_interval`` / ``save_dir``: save a
+    checkpoint at every multiple (through ``save_fn(save_dir, it,
+    params, opt_state, scheduler, consumed_samples)`` when given, else
+    ``checkpointing.save_checkpoint`` with ``async_save``), recording the
+    samples consumed so far.  ``eval_iterator`` / ``eval_interval``: the
+    mean loss of ``eval_iters`` forward-only batches, printed at every
+    multiple.  ``skip_iters``: iteration numbers that run forward-only
+    (the loss is logged, nothing is updated).  ``exit_interval``: save
+    (with a ``save_dir``) and exit (``sys.exit(0)``) at a multiple of it;
     ``exit_duration_in_mins``: the same once the loop has run that long.
     ``log_params_norm`` adds the params' L2 norm to each log line,
-    ``log_num_zeros_in_grad`` the count of zero grads.  The
-    JAX package's other keyword arguments (resilience, telemetry,
-    writers, layer stats, signal handling, asynchronous saves, a custom
-    step) raise ``NotImplementedError`` when set."""
+    ``log_num_zeros_in_grad`` the count of zero grads.
+
+    The JAX loop's runtime arguments, with its semantics:
+
+    * ``resilience`` (a ``resilience.ResilienceManager``): snapshots
+      before the step when due, the injector's stall/SIGTERM before the
+      batch and its NaN in the batch's loss mask, the sentinel at check
+      boundaries (``check_due``/``record_metrics``) with rewind
+      (``should_rewind``/``rewind``; the batch iterator moves on), the
+      layer stats of a bad step handed to the NaN localizer, the LR
+      scaled by ``lr_scale``, and the watchdog armed after the first
+      step, paused around saves, evaluation and rewinds; its rescue save
+      goes to ``save_dir``.
+    * ``log_layer_stats_interval``: the optimizer step returns per-group
+      stats; they are read at log boundaries (feeding
+      ``--log_params_norm`` and the resilience localizer) and go into the
+      JSONL record and the writer every ``interval`` iterations.
+    * ``telemetry`` (a ``telemetry.Telemetry``; default throughput-only):
+      throughput/MFU in the log line, the stream's per-iteration
+      ``record_dispatch`` and per-boundary ``emit`` (the JAX record's
+      keys, ``schema`` 13), the profiler window (``maybe_start`` /
+      ``maybe_stop`` after a synchronize), and its tracer: the root
+      ``train`` span and the ``data_next``, ``step``, ``step_sync``,
+      ``checkpoint_save`` and ``eval`` spans, the goodput summary in the
+      record, and the recompile and straggler detectors.
+    * ``writer`` (``add_scalar``/``flush``): the log line's scalars every
+      ``tensorboard_log_interval`` iterations, the timers
+      (``log_timers``), memory, batch size, world size, the layer stats
+      and the validation loss (and ppl).
+    * ``exit_signal_handler``: after a signal, save (with a ``save_dir``,
+      counted in ``counters['signal_saves']``) and ``sys.exit``
+      (``preempt_exit_code``).
+    * ``async_save``: checkpoint writes in the background;
+      ``checkpointing.finalize_async_saves()`` runs before the next save
+      and on every exit path.
+
+    A custom ``train_step`` raises ``NotImplementedError``."""
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"pretrain() got an unexpected keyword "
@@ -288,7 +381,15 @@ def pretrain(
                                       f"ported yet")
     if timers is None:
         timers = Timers(log_level=2)
-    throughput = ThroughputCalculator.from_model(model)
+    if telemetry is None:
+        telemetry = Telemetry.default(model)
+    stream = telemetry.stream
+    profiler = telemetry.profiler
+    trace = getattr(telemetry, "tracing", None)
+    if trace is not None:
+        tracing.install_tracing(trace)
+    recompile = trace.recompile if trace is not None else None
+    straggler = trace.straggler if trace is not None else None
     skip_iters = frozenset(skip_iters or ())
     num_micro = max(train_cfg.global_batch_size
                     // (train_cfg.micro_batch_size
@@ -314,14 +415,17 @@ def pretrain(
             wd_incr_style=train_cfg.weight_decay_incr_style,
         )
         scheduler.num_steps = start_iteration
-    train_step = build_train_step(model, optimizer, parallel_cfg, num_micro,
-                                  loss_func,
-                                  log_num_zeros_in_grad=log_num_zeros_in_grad)
+    train_step = build_train_step(
+        model, optimizer, parallel_cfg, num_micro, loss_func,
+        log_num_zeros_in_grad=log_num_zeros_in_grad,
+        log_layer_stats=log_layer_stats_interval > 0)
     eval_step = (build_train_step(model, optimizer, parallel_cfg, num_micro,
                                   loss_func, forward_only=True)
                  if eval_iterator is not None else None)
     skip_step = None
+    counters = get_counters()
     consumed = int(consumed_samples)
+    counters["samples"] = consumed
     device = model.device
     base_key = mrandom.base_key(train_cfg.seed)
     iteration = start_iteration
@@ -329,94 +433,367 @@ def pretrain(
     # eval and checkpoint-save wall time inside the current log interval,
     # left out of the logged time per iteration (tokens/s and MFU)
     non_train = 0.0
+    ls_names = None   # health group names, resolved on first stats fetch
+
+    def _layer_stats_record(ls_dev):
+        """The step's stat tensors -> the host JSONL record ({groups,
+        grad_norm, param_norm, update_norm, update_ratio,
+        nonfinite_grads})."""
+        nonlocal ls_names
+        if ls_names is None:
+            ls_names = health.layer_group_names(params)
+        return health.to_record(ls_names, _layer_stats_host(ls_dev))
+
+    injector = resilience.injector if resilience is not None else None
+    watchdog = resilience.watchdog if resilience is not None else None
+    if resilience is not None:
+        resilience.bind_rescue(
+            save_dir,
+            checkpointing.config_to_args(getattr(model, "cfg", None)))
+    if watchdog is not None:
+        # armed only after the first step completes: the first step
+        # builds the kernels' library, which can dwarf a hang timeout
+        watchdog.start()
+        watchdog.pause()
 
     def _save(it):
         nonlocal non_train
+        if watchdog is not None:
+            watchdog.pause()        # storage latency is not a hang
         t0 = time.perf_counter()
-        timers("save-checkpoint", log_level=0).start()
-        if save_fn is not None:
-            save_fn(save_dir, it, params, opt_state, scheduler, consumed)
-        else:
-            checkpointing.save_checkpoint(
-                save_dir, it, params, opt_state, scheduler,
-                consumed_samples=consumed,
-                args=checkpointing.config_to_args(
-                    getattr(model, "cfg", None)))
-        timers("save-checkpoint").stop()
+        with tracing.span("checkpoint_save", "checkpoint", iteration=it):
+            timers("save-checkpoint", log_level=0).start()
+            if save_fn is not None:
+                save_fn(save_dir, it, params, opt_state, scheduler, consumed)
+            else:
+                checkpointing.save_checkpoint(
+                    save_dir, it, params, opt_state, scheduler,
+                    consumed_samples=consumed,
+                    args=checkpointing.config_to_args(
+                        getattr(model, "cfg", None)),
+                    async_save=async_save)
+            timers("save-checkpoint").stop()
         non_train += time.perf_counter() - t0
+        if watchdog is not None:
+            watchdog.resume()
 
-    while iteration < train_cfg.train_iters:
-        timers("batch-generator", log_level=1).start()
-        batch = next(batch_iterator)
-        timers("batch-generator").stop()
-        lr, wd = scheduler.step(1)
-        step_key = mrandom.fold_in(base_key, iteration)
-        if (iteration + 1) in skip_iters:
-            print(" IMPORTANT! skipping backprop for this iteration!",
-                  flush=True)
-            if skip_step is None:
-                skip_step = eval_step or build_train_step(
-                    model, optimizer, parallel_cfg, num_micro, loss_func,
-                    forward_only=True)
-            metrics = {"lm loss": skip_step(params, batch, step_key),
-                       "skipped_iter": 1}
-        else:
-            timers("train-step", log_level=1).start()
-            params, opt_state, metrics = train_step(
-                params, opt_state, batch, step_key, lr, wd)
-            timers("train-step").stop()
-        iteration += 1
-        tokens = batch["tokens"].numel()
-        # one sample is one sequence: every leading axis but seq
-        consumed += tokens // batch["tokens"].shape[-1]
+    # one root span spans the whole loop (category "run" is trace-only,
+    # so goodput never counts it); the finally below closes it on every
+    # exit path (SystemExit included)
+    root_span = tracing.span("train", "run", start_iteration=start_iteration)
+    root_span.__enter__()
+    try:
+        while iteration < train_cfg.train_iters:
+            if resilience is not None and resilience.snapshot_due(iteration):
+                # host-copy the last known-good state BEFORE this step
+                # runs: the step updates the live tensors in place
+                resilience.take_snapshot(iteration, params, opt_state,
+                                         scheduler)
+            if injector is not None:
+                injector.before_iteration(iteration + 1)
+            if profiler is not None:
+                profiler.maybe_start(iteration + 1)
+            timers("batch-generator", log_level=1).start()
+            with tracing.span("data_next", "data"):
+                batch = next(batch_iterator)
+            timers("batch-generator").stop()
+            if injector is not None:
+                batch = injector.poison_batch(iteration + 1, batch)
+            lr, wd = scheduler.step(1)
+            if resilience is not None:
+                lr = lr * resilience.lr_scale
+            step_key = mrandom.fold_in(base_key, iteration)
+            if (iteration + 1) in skip_iters:
+                print(" IMPORTANT! skipping backprop for this iteration!",
+                      flush=True)
+                if recompile is not None:
+                    recompile.pause()
+                if skip_step is None:
+                    skip_step = eval_step or build_train_step(
+                        model, optimizer, parallel_cfg, num_micro,
+                        loss_func, forward_only=True)
+                metrics = {"lm loss": skip_step(params, batch, step_key),
+                           "skipped_iter": 1}
+                if recompile is not None:
+                    recompile.resume()
+            else:
+                timers("train-step", log_level=1).start()
+                t_step0 = time.perf_counter()
+                with tracing.span("step", "step", iteration=iteration + 1):
+                    params, opt_state, metrics = train_step(
+                        params, opt_state, batch, step_key, lr, wd)
+                step_secs = time.perf_counter() - t_step0
+                timers("train-step").stop()
+                if recompile is not None:
+                    # the kernels' build inside the step span is not
+                    # productive step time — reattribute it to 'compile'
+                    _, csecs = recompile.drain()
+                    if csecs > 0.0 and trace is not None:
+                        trace.tracer.goodput.move("step", "compile", csecs)
+                    recompile.observe_step_time(step_secs)
+            if watchdog is not None:
+                watchdog.resume()   # (re)arms; the first arm is post-build
+            iteration += 1
+            if recompile is not None and iteration == start_iteration + 1:
+                recompile.mark_steady()
+            if profiler is not None:
+                # sync so the window holds the device work of its last
+                # step, not just that step's launches
+                profiler.maybe_stop(iteration, sync=lambda: _sync(device))
+            tokens = batch["tokens"].numel()
+            counters["tokens"] += tokens
+            # one sample is one sequence: every leading axis but seq
+            consumed += tokens // batch["tokens"].shape[-1]
+            counters["samples"] = consumed
+            if stream is not None:
+                # host-side fields only: never a device sync
+                stream.record_dispatch({
+                    "iteration": iteration,
+                    "lr": float(lr),
+                    "tokens": int(tokens),
+                })
 
-        if log_interval and iteration % log_interval == 0:
-            if log_params_norm:
-                with torch.no_grad():
-                    metrics = {**metrics,
-                               "params norm": global_grad_norm(params)}
-            timers("train-step-sync", log_level=1).start()
-            _sync(device)
-            timers("train-step-sync").stop()
-            now = time.perf_counter()
-            interval_time = (now - last_time) / log_interval
-            elapsed = max(now - last_time - non_train, 1e-9) / log_interval
-            non_train = 0.0
-            last_time = now
-            log_metrics = {k: (v if isinstance(v, int) else float(v))
-                           for k, v in metrics.items()}
-            training_log(iteration, train_cfg.train_iters, log_metrics,
-                         elapsed, tokens, lr,
-                         throughput=throughput.compute(tokens, elapsed),
-                         interval_time=interval_time)
-            timers.report(None, iteration, normalizer=log_interval)
+            at_log_boundary = bool(log_interval
+                                   and iteration % log_interval == 0)
+            if (resilience is not None
+                    and resilience.check_due(iteration, at_log_boundary)):
+                loss_val = float(metrics["lm loss"])    # device sync
+                if watchdog is not None:
+                    watchdog.progress()
+                gn = metrics.get("grad_norm")
+                bad = resilience.record_metrics(
+                    iteration, loss_val,
+                    None if gn is None else float(gn))
+                if bad and "layer_stats" in metrics:
+                    # NaN localization: hand the sentinel this step's
+                    # per-group stats so the rewind names the offenders
+                    resilience.observe_layer_stats(
+                        iteration,
+                        _layer_stats_record(metrics["layer_stats"]),
+                        announce=True)
+                if bad and resilience.should_rewind():
+                    if watchdog is not None:
+                        watchdog.pause()
+                    params, opt_state, iteration = resilience.rewind(
+                        params, opt_state, scheduler, batch_iterator)
+                    if watchdog is not None:
+                        watchdog.resume()
+                    last_time = time.perf_counter()
+                    non_train = 0.0
+                    continue
 
-        if eval_step is not None and eval_interval \
-                and iteration % eval_interval == 0:
-            t_eval0 = time.perf_counter()
-            timers("eval-time", log_level=0).start()
-            losses = [float(eval_step(params, next(eval_iterator), None))
-                      for _ in range(eval_iters)]
-            timers("eval-time").stop()
-            non_train += time.perf_counter() - t_eval0
-            val = sum(losses) / len(losses)
-            print(f" validation loss at iteration {iteration}: {val:.6E}",
-                  flush=True)
+            if at_log_boundary:
+                ls_host = None
+                if "layer_stats" in metrics:
+                    # read once here; fans out to params norm,
+                    # resilience, the writer and the JSONL record
+                    metrics = dict(metrics)
+                    ls_host = _layer_stats_record(metrics.pop("layer_stats"))
+                    if resilience is not None:
+                        resilience.observe_layer_stats(iteration, ls_host)
+                at_stats_boundary = bool(
+                    ls_host is not None and log_layer_stats_interval
+                    and iteration % log_layer_stats_interval == 0)
+                if log_params_norm:
+                    metrics = dict(metrics)
+                    if ls_host is not None:
+                        # the per-group norms partition the sum of squares
+                        metrics["params norm"] = health.derived_params_norm(
+                            ls_host)
+                    else:
+                        with torch.no_grad():
+                            metrics["params norm"] = global_grad_norm(params)
+                timers("train-step-sync", log_level=1).start()
+                with tracing.span("step_sync", "step", iteration=iteration):
+                    _sync(device)
+                timers("train-step-sync").stop()
+                now = time.perf_counter()
+                interval_time = (now - last_time) / log_interval
+                elapsed = max(now - last_time - non_train, 1e-9) \
+                    / log_interval
+                non_train = 0.0
+                last_time = now
+                # --tensorboard_log_interval is an absolute iteration
+                # interval; metrics only exist at log boundaries, so the
+                # cadence is their intersection
+                use_writer = (writer if writer is not None
+                              and iteration % max(tensorboard_log_interval, 1)
+                              == 0 else None)
+                if use_writer is not None:
+                    if log_batch_size:
+                        use_writer.add_scalar("batch-size",
+                                              train_cfg.global_batch_size,
+                                              iteration)
+                    if log_world_size:
+                        use_writer.add_scalar("world-size",
+                                              parallel_cfg.world_size,
+                                              iteration)
+                    if log_memory:
+                        from megatron_llm_torch.telemetry import (
+                            device_memory_stats,
+                        )
+                        stats = device_memory_stats()
+                        use_writer.add_scalar(
+                            "mem-bytes-in-use",
+                            stats.get("bytes_in_use", 0), iteration)
+                        if "peak_bytes_in_use" in stats:
+                            use_writer.add_scalar(
+                                "mem-peak-bytes-in-use",
+                                stats["peak_bytes_in_use"], iteration)
+                        if "num_allocs" in stats:
+                            use_writer.add_scalar(
+                                "mem-num-allocs",
+                                stats["num_allocs"], iteration)
+                    if at_stats_boundary:
+                        # grouped scalars: layer_stats/<stat>/<group>
+                        ur = ls_host.get("update_ratio")
+                        for i, g in enumerate(ls_host["groups"]):
+                            for key in ("grad_norm", "param_norm",
+                                        "update_norm"):
+                                if key in ls_host:
+                                    use_writer.add_scalar(
+                                        f"layer_stats/{key}/{g}",
+                                        health.record_value(ls_host[key][i]),
+                                        iteration)
+                            if ur is not None and ur[i] is not None:
+                                use_writer.add_scalar(
+                                    f"layer_stats/update_ratio/{g}",
+                                    ur[i], iteration)
+                log_metrics = {k: (v if isinstance(v, int) else float(v))
+                               for k, v in metrics.items()}
+                if resilience is not None:
+                    from megatron_llm_torch.resilience import (
+                        recovery_counters,
+                    )
+                    log_metrics.update(recovery_counters())
+                throughput = (telemetry.throughput.compute(tokens, elapsed)
+                              if telemetry.throughput is not None else None)
+                training_log(iteration, train_cfg.train_iters, log_metrics,
+                             elapsed, tokens, lr, writer=use_writer,
+                             throughput=throughput,
+                             interval_time=interval_time)
+                # one snapshot feeds the writer and the console line; the
+                # per-host values feed the straggler detector
+                gathered = timers.report(
+                    use_writer if log_timers else None, iteration,
+                    normalizer=log_interval)
+                if straggler is not None and gathered:
+                    straggler.check(gathered, iteration)
+                if stream is not None:
+                    from megatron_llm_torch.resilience import (
+                        recovery_counters,
+                    )
+                    from megatron_llm_torch.telemetry import (
+                        device_memory_stats,
+                    )
+                    rec = {
+                        "iteration": iteration,
+                        "train_iters": train_cfg.train_iters,
+                        "lm_loss": log_metrics.get("lm loss"),
+                        "grad_norm": log_metrics.get("grad_norm"),
+                        "loss_scale": log_metrics.get("loss_scale"),
+                        "skipped_iter": int(log_metrics.get("skipped_iter",
+                                                            0)),
+                        "learning_rate": float(lr),
+                        "step_time_secs": elapsed,
+                        "interval_time_secs": interval_time,
+                        "tokens_per_iter": int(tokens),
+                        **(throughput or {}),
+                        "memory": device_memory_stats(),
+                        "recovery": recovery_counters(),
+                    }
+                    if trace is not None:
+                        g = trace.goodput_summary()
+                        rec["goodput_pct"] = g["goodput_pct"]
+                        rec["goodput"] = {
+                            k: round(v, 4) if isinstance(v, (int, float))
+                            else v
+                            for k, v in g.items()}
+                        rec["recompiles"] = int(
+                            counters.get("recompiles", 0))
+                        rec["straggler_events"] = int(
+                            counters.get("straggler_events", 0))
+                    if at_stats_boundary:
+                        rec["layer_stats"] = ls_host
+                    stream.emit(rec)
+                if use_writer is not None and hasattr(use_writer, "flush"):
+                    use_writer.flush()
+                if on_metrics is not None:
+                    on_metrics(iteration, metrics)
 
-        saved = False
-        if save_interval and save_dir and iteration % save_interval == 0:
-            _save(iteration)
-            saved = True
+            if eval_step is not None and eval_interval \
+                    and iteration % eval_interval == 0:
+                if watchdog is not None:
+                    watchdog.pause()    # eval has its own duration budget
+                if recompile is not None:
+                    recompile.pause()
+                t_eval0 = time.perf_counter()
+                with tracing.span("eval", "eval", iteration=iteration):
+                    timers("eval-time", log_level=0).start()
+                    losses = [float(eval_step(params, next(eval_iterator),
+                                              None))
+                              for _ in range(eval_iters)]
+                    timers("eval-time").stop()
+                non_train += time.perf_counter() - t_eval0
+                if recompile is not None:
+                    recompile.resume()
+                if watchdog is not None:
+                    watchdog.resume()
+                val = sum(losses) / len(losses)
+                print(f" validation loss at iteration {iteration}: "
+                      f"{val:.6E}", flush=True)
+                if writer is not None:
+                    writer.add_scalar("validation loss", val, iteration)
+                    if log_validation_ppl:
+                        writer.add_scalar("validation ppl",
+                                          math.exp(min(val, 20.0)),
+                                          iteration)
+                    if hasattr(writer, "flush"):
+                        writer.flush()
 
-        train_mins = (time.perf_counter() - train_start) / 60.0
-        if exit_duration_in_mins and train_mins > exit_duration_in_mins:
-            why = f"after {train_mins:.1f} minutes"
-        elif exit_interval and iteration % exit_interval == 0:
-            why = f"at iteration {iteration}"
-        else:
-            continue
-        if save_dir and not saved:
-            _save(iteration)
-        print(f" exiting program {why}", flush=True)
-        sys.exit(0)
+            saved = False
+            if save_interval and save_dir and iteration % save_interval == 0:
+                _save(iteration)
+                saved = True
+
+            # one process: the local flag is the answer at every iteration
+            at_boundary = (saved or at_log_boundary
+                           or iteration >= train_cfg.train_iters)
+            if exit_signal_handler is not None \
+                    and exit_signal_handler.signals_received(
+                        consensus=at_boundary):
+                print("exiting on termination signal: saving checkpoint",
+                      flush=True)
+                if save_dir:
+                    if not saved:
+                        _save(iteration)
+                    counters["signal_saves"] += 1
+                code = int(preempt_exit_code or 0)
+                if code and stream is not None:
+                    stream.emit({"kind": "preempt_rescue",
+                                 "iteration": iteration,
+                                 "exit_code": code,
+                                 "saved": bool(save_dir)})
+                sys.exit(code)
+
+            train_mins = (time.perf_counter() - train_start) / 60.0
+            if exit_duration_in_mins and train_mins > exit_duration_in_mins:
+                why = f"after {train_mins:.1f} minutes"
+            elif exit_interval and iteration % exit_interval == 0:
+                why = f"at iteration {iteration}"
+            else:
+                continue
+            if save_dir and not saved:
+                _save(iteration)
+            print(f" exiting program {why}", flush=True)
+            sys.exit(0)
+    finally:
+        # every exit path — completion, sys.exit, an exception — closes
+        # the root span and flushes the in-flight async save
+        root_span.__exit__(None, None, None)
+        if watchdog is not None:
+            watchdog.stop()
+        if profiler is not None:
+            profiler.close()
+        checkpointing.finalize_async_saves()
     return params, opt_state, iteration

@@ -249,11 +249,8 @@ TINY_TRAIN = ["--model_name=llama2", "--num_layers=1", "--hidden_size=64",
 
 
 @pytest.mark.parametrize("flags", [
-    ["--wandb_logger"],
     ["--context_parallel_size", "2"], ["--num_slices", "2"],
-    ["--use_distributed_optimizer"], ["--rewind_on_spike"],
-    ["--structured_log_dir", "logs"],
-    ["--log_layer_stats_interval", "5"], ["--fault_inject", "nan@2"]],
+    ["--use_distributed_optimizer"], ["--profiler_port", "9012"]],
     ids=lambda f: f[0].lstrip("-"))
 def test_unported_features_parse_then_raise(flags):
     with pytest.raises(NotImplementedError):
@@ -294,3 +291,287 @@ def test_unimplemented_flags_warn(capsys):
     assert "--eod_mask_loss is accepted" in out
     arguments.parse_args(["--no_bias_gelu_fusion", "--fp8_hybrid"])
     assert "WARNING" not in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the training loop's runtime flags (resilience, telemetry, tracing, the
+# signal handler, async saves, timers, metrics writers): each parses as in
+# the JAX parser and finetune.main honours it
+# ---------------------------------------------------------------------------
+
+import numpy as np  # noqa: E402
+
+from megatron_llm_torch import checkpointing  # noqa: E402
+from megatron_llm_torch import global_vars  # noqa: E402
+from megatron_llm_torch import resilience as port_resilience  # noqa: E402
+from megatron_llm_torch import telemetry as port_telemetry  # noqa: E402
+from megatron_llm_torch import training as port_training  # noqa: E402
+
+RUNTIME = ["--model_name=llama2", "--num_layers=1", "--hidden_size=32",
+           "--num_attention_heads=4", "--seq_length=8",
+           "--max_position_embeddings=8", "--micro_batch_size=1",
+           "--global_batch_size=1", "--vocab_size=64", "--train_iters=4",
+           "--log_interval=1", "--lr=1e-3", "--device", "cpu"]
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _scalars(path):
+    keys = set()
+    for rec in _jsonl(path):
+        keys |= set(rec) - {"step", "event", "config", "time"}
+    return keys
+
+
+def _steps(path):
+    return [r["step"] for r in _jsonl(path) if "step" in r]
+
+
+def _resilience(ctx):
+    return ctx["built"]["resilience"]
+
+
+def _corpus_flags(tmp_path):
+    from megatron_llm_torch.data.indexed_dataset import make_builder
+
+    prefix = str(tmp_path / "corpus_text_document")
+    rng = np.random.RandomState(1234)
+    b = make_builder(prefix + ".bin", vocab_size=64)
+    for _ in range(80):
+        b.add_item(rng.randint(0, 64, rng.randint(5, 40)))
+        b.end_document()
+    b.finalize(prefix + ".idx")
+    return ["--data_path", prefix, "--split", "90,10,0",
+            "--eval_interval", "2", "--eval_iters", "1"]
+
+
+# dest -> (flags, check(ctx)); ctx: tmp (the run's cwd), out (stdout),
+# built (the telemetry bundle and resilience manager finetune built),
+# exit (SystemExit code or None), health (a /health answer mid-run)
+ITEM7 = {
+    "wandb_logger": (["--wandb_logger"], lambda c: _steps(
+        c["tmp"] / "wandb_offline.jsonl") == [1, 2, 3, 4]),
+    "wandb_resume": (["--wandb_logger", "--wandb_resume"],
+                     lambda c: isinstance(c["error"], ImportError)),
+    "wandb_project": (["--wandb_logger", "--wandb_project", "p"],
+                      lambda c: c["wandb"]["project"] == "p"),
+    "wandb_entity": (["--wandb_logger", "--wandb_entity", "e"],
+                     lambda c: c["wandb"]["entity"] == "e"),
+    "wandb_name": (["--wandb_logger", "--wandb_name", "n"],
+                   lambda c: c["wandb"]["name"] == "n"),
+    "wandb_id": (["--wandb_logger", "--wandb_id", "i"],
+                 lambda c: c["wandb"]["id"] == "i"),
+    "wandb_api_key": (["--wandb_logger", "--wandb_api_key", "k"],
+                      lambda c: c["env"].get("WANDB_API_KEY") == "k"),
+    "tensorboard_dir": (["--tensorboard_dir", "tb"], lambda c: _steps(
+        c["tmp"] / "tb" / "metrics.jsonl") == [1, 2, 3, 4]),
+    "tensorboard_log_interval": (
+        ["--tensorboard_dir", "tb", "--tensorboard_log_interval", "2"],
+        lambda c: _steps(c["tmp"] / "tb" / "metrics.jsonl") == [2, 4]),
+    "log_timers_to_tensorboard": (
+        ["--tensorboard_dir", "tb", "--log_timers_to_tensorboard"],
+        lambda c: "train-step-time" in _scalars(
+            c["tmp"] / "tb" / "metrics.jsonl")),
+    "log_batch_size_to_tensorboard": (
+        ["--tensorboard_dir", "tb", "--log_batch_size_to_tensorboard"],
+        lambda c: "batch-size" in _scalars(
+            c["tmp"] / "tb" / "metrics.jsonl")),
+    "log_memory_to_tensorboard": (
+        ["--tensorboard_dir", "tb", "--log_memory_to_tensorboard"],
+        lambda c: "mem-bytes-in-use" in _scalars(
+            c["tmp"] / "tb" / "metrics.jsonl")),
+    "log_world_size_to_tensorboard": (
+        ["--tensorboard_dir", "tb", "--log_world_size_to_tensorboard"],
+        lambda c: "world-size" in _scalars(
+            c["tmp"] / "tb" / "metrics.jsonl")),
+    "log_validation_ppl_to_tensorboard": (
+        ["--tensorboard_dir", "tb", "--log_validation_ppl_to_tensorboard",
+         "CORPUS"],
+        lambda c: {"validation loss", "validation ppl"} <= _scalars(
+            c["tmp"] / "tb" / "metrics.jsonl")),
+    "status_port": (["--status_port", "0"],
+                    lambda c: c["health"]["status"] == "ok"
+                    and c["health"]["iteration"] >= 1),
+    "profile": (["--profile", "--profile_step_start", "2",
+                 "--profile_step_end", "3"],
+                lambda c: (c["tmp"] / "profile_trace"
+                           / "trace_iter2-3.json").exists()),
+    "profile_step_start": (["--profile", "--profile_step_start", "1",
+                            "--profile_step_end", "3"],
+                           lambda c: (c["tmp"] / "profile_trace"
+                                      / "trace_iter1-3.json").exists()),
+    "profile_step_end": (["--profile", "--profile_step_start", "2",
+                          "--profile_step_end", "4"],
+                         lambda c: (c["tmp"] / "profile_trace"
+                                    / "trace_iter2-4.json").exists()),
+    "profile_dir": (["--profile", "--profile_step_start", "2",
+                     "--profile_step_end", "2", "--profile_dir", "pd"],
+                    lambda c: (c["tmp"] / "pd"
+                               / "trace_iter2-2.json").exists()),
+    "flight_recorder_size": (
+        ["--structured_log_dir", "logs", "--flight_recorder_size", "3"],
+        lambda c: len(c["built"]["telemetry"].stream.flight_recorder) == 3),
+    "straggler_threshold": (
+        ["--trace_dir", "tr", "--straggler_threshold", "2.5"],
+        lambda c: c["built"]["telemetry"].tracing.straggler.threshold
+        == 2.5),
+    "trace_buffer_size": (["--trace_dir", "tr", "--trace_buffer_size", "5"],
+                          lambda c: c["built"]["telemetry"].tracing.tracer
+                          .capacity == 5 and c["built"]["telemetry"]
+                          .tracing.tracer.dropped > 0),
+    "exit_signal_handler": (
+        ["--exit_signal_handler", "--fault_inject", "sigterm@2", "--save",
+         "ck"],
+        lambda c: c["exit"] == 0
+        and checkpointing.read_tracker(str(c["tmp"] / "ck")) == (2, False)),
+    "timing_log_level": (["--timing_log_level", "0"],
+                         lambda c: "batch-generator" not in c["out"]
+                         and "iteration" in c["out"]),
+    "timing_log_option": (["--timing_log_option", "max"],
+                          lambda c: "\nmax time (ms) | batch-generator"
+                          in c["out"]),
+    "log_layer_stats_interval": (
+        ["--structured_log_dir", "logs", "--log_layer_stats_interval", "2"],
+        lambda c: ["layer_stats" in r for r in _jsonl(
+            c["tmp"] / "logs" / "telemetry.jsonl")]
+        == [False, True, False, True]),
+    "structured_log_dir": (["--structured_log_dir", "logs"],
+                           lambda c: [r["schema"] for r in _jsonl(
+                               c["tmp"] / "logs" / "telemetry.jsonl")]
+                           == [13] * 4),
+    "trace_dir": (["--trace_dir", "tr"], lambda c: "step" in {
+        e["name"] for e in json.load(open(c["tmp"] / "tr" / "trace.json"))
+        ["traceEvents"]}),
+    "rewind_on_spike": (["--rewind_on_spike", "--fault_inject", "nan@3",
+                         "--snapshot_interval", "1"],
+                        lambda c: "rewinds: 1" in c["out"]),
+    "spike_factor": (["--rewind_on_spike", "--spike_factor", "5"],
+                     lambda c: _resilience(c).config.spike_factor == 5.0),
+    "spike_ema_beta": (["--rewind_on_spike", "--spike_ema_beta", "0.5"],
+                       lambda c: _resilience(c).config.spike_ema_beta
+                       == 0.5),
+    "rewind_patience": (["--rewind_on_spike", "--rewind_patience", "3"],
+                        lambda c: _resilience(c).config.patience == 3),
+    "snapshot_interval": (["--rewind_on_spike", "--snapshot_interval", "2"],
+                          lambda c: _resilience(c).snapshot_iteration == 2),
+    "resilience_check_interval": (
+        ["--rewind_on_spike", "--resilience_check_interval", "1",
+         "--log_interval", "4", "--fault_inject", "nan@2",
+         "--snapshot_interval", "1"],
+        lambda c: "bad step at iteration 2" in c["out"]),
+    "rewind_lr_factor": (
+        ["--rewind_on_spike", "--rewind_lr_factor", "0.5", "--fault_inject",
+         "nan@3", "--snapshot_interval", "1"],
+        lambda c: _resilience(c).lr_scale == 0.5),
+    "max_rewinds": (
+        ["--rewind_on_spike", "--max_rewinds", "0", "--fault_inject",
+         "nan@3", "--snapshot_interval", "1"],
+        lambda c: "max_rewinds=0" in str(c["error"])),
+    "watchdog_timeout_secs": (["--watchdog_timeout_secs", "30"],
+                              lambda c: _resilience(c).watchdog.timeout_secs
+                              == 30.0 and _resilience(c).watchdog.hard_exit),
+    "watchdog_no_hard_exit": (["--watchdog_timeout_secs", "30",
+                               "--watchdog_no_hard_exit"],
+                              lambda c: not _resilience(c).watchdog
+                              .hard_exit),
+    "fault_inject": (["--fault_inject", "nan@2"],
+                     lambda c: "poisoning iteration 2" in c["out"]
+                     and "skipped iterations: 1" in c["out"]),
+}
+
+
+def test_item7_table_is_every_formerly_refused_flag():
+    """The forty dests that waited for this slice: thirty-nine are
+    honoured, and --profiler_port alone stays refused."""
+    assert len(ITEM7) == 39
+    assert set(ITEM7).isdisjoint(arguments.UNPORTED_TRAINING)
+    assert "profiler_port" in arguments.UNPORTED_TRAINING
+    assert "profiler_port" in arguments.UNPORTED_SERVING
+
+
+@pytest.mark.parametrize("dest", sorted(ITEM7))
+def test_item7_flags_parse_as_in_the_jax_package(dest):
+    flags = [f for f in ITEM7[dest][0] if f != "CORPUS"]
+    want, got = _parsed(flags)
+    # the device is each package's own (tpu / cuda)
+    names = {d for d in vars(want) if d in vars(got)} - {"device"}
+    assert {n: getattr(got, n) for n in names} == \
+        {n: getattr(want, n) for n in names}
+
+
+@pytest.mark.parametrize("dest", sorted(ITEM7))
+def test_item7_flags_are_honoured(dest, tmp_path, monkeypatch, capsys):
+    flags, check = ITEM7[dest]
+    if "CORPUS" in flags:
+        flags = [f for f in flags if f != "CORPUS"] + _corpus_flags(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    environ = dict(os.environ)
+    monkeypatch.setattr(os, "environ", environ)
+    ctx = {"tmp": tmp_path, "built": {}, "exit": None, "error": None,
+           "env": environ, "health": None, "wandb": None}
+    if "--wandb_logger" in flags and "--wandb_resume" not in flags:
+        import sys
+        import types
+
+        class Run:
+            summary = {}
+
+            def finish(self):
+                pass
+
+        monkeypatch.setitem(sys.modules, "wandb", types.SimpleNamespace(
+            init=lambda **kw: ctx.update(wandb=kw) or Run(),
+            log=lambda payload, step: None))
+        if dest == "wandb_logger":
+            monkeypatch.setitem(sys.modules, "wandb", None)
+    else:
+        import sys
+        monkeypatch.setitem(sys.modules, "wandb", None)
+    build_tel, build_res = finetune.build_telemetry, \
+        finetune.build_resilience
+
+    def tel_spy(args, model):
+        ctx["built"]["telemetry"] = t = build_tel(args, model)
+        return t
+
+    def res_spy(args):
+        ctx["built"]["resilience"] = r = build_res(args)
+        return r
+
+    log0 = port_training.training_log
+
+    def log_spy(iteration, *a, **kw):
+        status = getattr(ctx["built"].get("telemetry"), "status", None)
+        if status is not None and iteration == 2:
+            import urllib.request
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{status.port}/health",
+                    timeout=30) as r:
+                ctx["health"] = json.loads(r.read())
+        return log0(iteration, *a, **kw)
+
+    monkeypatch.setattr(finetune, "build_telemetry", tel_spy)
+    monkeypatch.setattr(finetune, "build_resilience", res_spy)
+    monkeypatch.setattr(port_training, "training_log", log_spy)
+    global_vars.reset_counters()
+    try:
+        finetune.main(RUNTIME + flags)
+    except SystemExit as exc:
+        ctx["exit"] = exc.code
+    except (ImportError, RuntimeError) as exc:
+        ctx["error"] = exc
+    finally:
+        port_resilience.set_save_fault_hook(None)
+        port_telemetry.install_stream(None)
+        global_vars.reset_counters()
+    ctx["out"] = capsys.readouterr().out
+    assert check(ctx), ctx["out"][-2000:]
+
+
+def test_profiler_port_raises_with_its_reason():
+    with pytest.raises(NotImplementedError,
+                       match="live-capture server.*no PyTorch counterpart"):
+        finetune.main(RUNTIME + ["--profiler_port", "9012"])

@@ -26,6 +26,7 @@ from megatron_llm_tpu.models.llama import llama_config as jax_llama_config
 from megatron_llm_tpu.optimizer import MegatronOptimizer as JaxOptimizer
 from megatron_llm_torch import checkpointing as ck
 from megatron_llm_torch.config import TrainConfig
+from megatron_llm_torch.global_vars import get_counters
 from megatron_llm_torch.models.language_model import (
     init_language_model_params,
 )
@@ -46,7 +47,7 @@ KW = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
 @pytest.fixture(autouse=True)
 def _save_config():
     ck.configure_save(total_limit=0, retries=2, retry_backoff=0.01)
-    ck.counters["save_retries"] = 0
+    get_counters()["save_retries"] = 0
     yield
     ck.configure_save(total_limit=0, retries=2, retry_backoff=0.25)
 
@@ -340,7 +341,7 @@ def _retries(d):
         _save(d, 4)
     finally:
         ck._write_tree = real
-    assert ck.counters["save_retries"] == 2
+    assert get_counters()["save_retries"] == 2
     assert ck.validate_checkpoint_dir(d / "iter_0000004")[0]
 
 
@@ -357,21 +358,24 @@ def _retry_exhaustion(d):
             _save(d, 4)
     finally:
         ck._write_tree = real
-    assert ck.counters["save_retries"] == 1
+    assert get_counters()["save_retries"] == 1
     assert not (d / "iter_0000004").exists()
     assert not os.path.exists(_tracker(d))
 
 
-def _async_save_raises(d):
-    with pytest.raises(NotImplementedError):
-        ck.save_checkpoint(str(d), 1, _params(), async_save=True)
-    assert not list(d.iterdir())
+def _async_save(d):
+    # the rename and the tracker wait for finalize_async_saves()
+    ck.save_checkpoint(str(d), 1, _params(), async_save=True)
+    assert not os.path.exists(_tracker(d))
+    ck.finalize_async_saves()
+    assert ck.read_tracker(str(d)) == (1, False)
+    assert ck.validate_checkpoint_dir(d / "iter_0000001")[0]
 
 
 HARDENING = {f.__name__.lstrip("_"): f for f in (
     _atomic_save, _tamper_detection, _shape_mismatch, _corrupt_tracker,
     _no_valid_checkpoint, _explicit_iteration_not_substituted, _total_limit,
-    _retries, _retry_exhaustion, _async_save_raises)}
+    _retries, _retry_exhaustion, _async_save)}
 
 
 @pytest.mark.parametrize("case", sorted(HARDENING))

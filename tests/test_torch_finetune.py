@@ -95,7 +95,7 @@ def test_flags_lower_to_configs():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--save", "ckpt", "--async_save"],
+    ["--profiler_port", "9012"],
     ["--pipeline_model_parallel_size", "2"],
     ["--tensor_model_parallel_size", "2"], ["--fp16"],
 ])

@@ -910,3 +910,75 @@ def test_layernorm_wrappers_refuse_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):             # statistics of another run
         ln.layer_norm_bwd(x, one, x, torch.zeros(3, 1, device=cuda),
                           torch.ones(3, 1, device=cuda))
+
+
+# -- the training runtime's host copies of CUDA tensors ----------------------
+
+def _cuda_state(cuda):
+    from megatron_llm_torch.config import TrainConfig
+    from megatron_llm_torch.optimizer import MegatronOptimizer
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    params = {"embedding": {"w": torch.randn(64, 32, device=cuda,
+                                             generator=g)
+                            .to(torch.bfloat16)},
+              "transformer": {"layers": {"w": torch.randn(
+                  2, 32, 32, device=cuda, generator=g).to(torch.bfloat16)}}}
+    opt = MegatronOptimizer(TrainConfig(micro_batch_size=1,
+                                        global_batch_size=1, lr=1e-2),
+                            params_dtype=torch.bfloat16)
+    state = opt.init(params)
+
+    def step(p, s):
+        grads = {"embedding": {"w": torch.ones(64, 32, device=cuda)},
+                 "transformer": {"layers": {"w": torch.ones(
+                     2, 32, 32, device=cuda)}}}
+        return opt.step(p, grads, s, 1e-2)[:2]
+
+    return step(params, state) + (step,)
+
+
+def test_snapshot_copies_cuda_tensors_into_pinned_memory(cuda):
+    from megatron_llm_torch import resilience
+    from megatron_llm_torch.tree import tree_leaves
+
+    params, state, step = _cuda_state(cuda)
+    rm = resilience.ResilienceManager(resilience.ResilienceConfig())
+    assert rm.take_snapshot(1, params, state)
+    snap = rm.host_snapshot()
+    live = [params, state.master_params, state.exp_avg, state.exp_avg_sq]
+    held = [snap.params, snap.opt_state.master_params,
+            snap.opt_state.exp_avg, snap.opt_state.exp_avg_sq]
+    want = [t.cpu() for tree in live for t in tree_leaves(tree)]
+    got = [t for tree in held for t in tree_leaves(tree)]
+    assert all(t.is_pinned() and t.device.type == "cpu" for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    params, state = step(params, state)       # in place, right after
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    params, state, _ = rm.rewind(params, state)
+    assert all(torch.equal(t.cpu(), b) for t, b in
+               zip([t for tree in live for t in tree_leaves(tree)], want))
+
+
+def test_async_save_copies_cuda_tensors_before_it_returns(cuda, tmp_path):
+    from megatron_llm_torch import checkpointing as ck
+
+    params, state, step = _cuda_state(cuda)
+    want = {k: v.cpu() for k, v in ck._flat(params).items()}
+    ck.save_checkpoint(str(tmp_path), 1, params, state, async_save=True)
+    assert all(b.is_pinned() for b in ck._ASYNC["buffers"])
+    params, state = step(params, state)       # the next step, at once
+    ck.finalize_async_saves()
+    got, _, _ = ck.load_checkpoint(str(tmp_path), device="cpu")
+    for k, v in ck._flat(got).items():
+        assert torch.equal(v, want[k]), k
+    # the synchronous save of the same state holds the same tensors
+    state_now = {k: v.cpu() for k, v in ck._flat(params).items()}
+    ck.save_checkpoint(str(tmp_path / "sync"), 2, params, state)
+    ck.save_checkpoint(str(tmp_path / "async"), 2, params, state,
+                       async_save=True)
+    ck.finalize_async_saves()
+    for sub in ("sync", "async"):
+        got, _, _ = ck.load_checkpoint(str(tmp_path / sub), device="cpu")
+        for k, v in ck._flat(got).items():
+            assert torch.equal(v, state_now[k]), (sub, k)

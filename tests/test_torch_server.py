@@ -280,7 +280,7 @@ def test_example_argv_serves_a_converted_checkpoint(tmp_path):
 
 
 def test_server_flags_of_unported_features_raise():
-    for flags in (["--int8_weights"], ["--wandb_logger"]):
+    for flags in (["--int8_weights"], ["--profiler_port", "9012"]):
         args = build_parser().parse_args(TINY + flags)
         with pytest.raises(NotImplementedError):
             build_server(args, _FakeTokenizer())
