@@ -333,8 +333,10 @@ def _add_inference_args(parser):
     g.add_argument("--serve_max_tokens", type=int, default=1024)
     g.add_argument("--log_requests", action="store_true")
     g.add_argument("--serve_engine", action="store_true",
-                   help="accepted and ignored: the port always serves "
-                        "through the continuous-batching engine")
+                   help="serve through the continuous-batching engine "
+                        "(beam search, logprobs and tokens_to_generate=0 "
+                        "still take the legacy path); without it every "
+                        "request takes the legacy generate path")
     g.add_argument("--serve_num_slots", type=int, default=8)
     g.add_argument("--serve_block_size", type=int, default=16)
     g.add_argument("--serve_num_blocks", type=int, default=0)

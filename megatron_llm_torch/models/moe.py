@@ -46,6 +46,7 @@ from megatron_llm_torch.parallel.layers import (
     init_method_for,
     scaled_init_method_normal,
 )
+from megatron_llm_torch.quantization import dequantize_weight
 
 
 def moe_capacity(cfg: TransformerConfig, seq_len: int) -> int:
@@ -134,8 +135,9 @@ def moe_mlp(x: torch.Tensor, params, cfg: TransformerConfig):
                                                xc.index_select(0, token))
     expert_in = buf[:rows].view(E, b * c, h)
 
-    w_in = params["experts"]["w_in"].to(cdt)
-    w_out = params["experts"]["w_out"].to(cdt)
+    # int8 expert banks (``quantization.py``) dequantise on the operand
+    w_in = dequantize_weight(params["experts"], "w_in", cdt)
+    w_out = dequantize_weight(params["experts"], "w_out", cdt)
     mid = apply_mlp_activation(torch.bmm(expert_in, w_in), cfg)
     expert_out = torch.bmm(mid, w_out).view(rows, h)
 

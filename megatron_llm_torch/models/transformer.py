@@ -1,6 +1,7 @@
 """Transformer core: attention (flash attention for the no-cache
 forward, the paged KV branch of the serving engine over plain or int8
-pools), MLP or mixture of experts (``models/moe.py``), the decoder
+pools, the legacy generate path's linear, int8 linear and rolling
+caches), MLP or mixture of experts (``models/moe.py``), the decoder
 layer (pre- or post-LN, sequential or Falcon's parallel attention +
 MLP) and the layer stack, for inference and single-device training.
 
@@ -25,10 +26,10 @@ layer function, so recompute (``torch.utils.checkpoint`` of each layer,
 ``recompute_granularity``) draws the same masks again.  Long unfused
 attention takes the q-chunked path (``ops/chunked_attention.py``).
 
-The JAX package's paged branch is functional: it returns fresh pools.
-Here the scatter writes into the pools in place, which saves copying a
-whole pool per layer per step; the returned cache dicts hold the same
-tensors.
+The JAX package's cache branches are functional: they return fresh
+pools and caches.  Here every cache is written in place, which saves
+copying a whole cache per layer per step; the returned cache dicts hold
+the same tensors, and a cache's ``index`` is a Python int.
 """
 
 from __future__ import annotations
@@ -237,14 +238,101 @@ def _paged_scatter(kv_cache: dict, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _window_mask(key_pos: torch.Tensor, pos: torch.Tensor,
+                 cfg: TransformerConfig) -> torch.Tensor:
+    """[sq, sk] bool, True where query position ``pos`` may read key
+    position ``key_pos``: causal, and inside the sliding window if any."""
+    valid = key_pos[None, :] <= pos[:, None]
+    if cfg.sliding_window_size is not None:
+        valid &= key_pos[None, :] > pos[:, None] - cfg.sliding_window_size
+    return valid
+
+
+def _dense_cache_step(kv_cache: dict, k: torch.Tensor, v: torch.Tensor,
+                      cfg: TransformerConfig):
+    """The non-paged decode caches of ``text_generation/generation.py``
+    (``init_kv_caches``), each written in place at ``kv_cache["index"]``
+    (a Python int):
+
+    * rolling (``"rolling"`` key; sliding-window models): a ring of W
+      slots, slot j holding the newest position == j (mod W) written so
+      far.  The chunk attends over [the ring as it was before the chunk
+      || the chunk], and only then is the chunk written, so its writes
+      never clobber keys its own queries still need; a chunk of n >= W
+      writes only its last W tokens (all n would hit each slot more than
+      once, where only the newest may win);
+    * int8 linear (``k_q``, ``k_scale``, ``v_q``, ``v_scale``): K/V as
+      int8 with per-(batch, position, group) absmax scales, quantised on
+      write and dequantised on read;
+    * linear (``k``, ``v``): the whole [b, max_len] cache, masked beyond
+      the current positions.
+
+    Returns (keys, values, mask [b, 1, sq, sk] with True = masked, the
+    new cache dict with ``index`` advanced by the chunk)."""
+    idx = int(kv_cache["index"])
+    b, n = k.shape[:2]
+    dev = k.device
+    pos = idx + torch.arange(n, device=dev)
+    if "rolling" in kv_cache:
+        assert cfg.sliding_window_size is not None, \
+            "rolling KV caches require a sliding-window model"
+        ring_k, ring_v = kv_cache["k"], kv_cache["v"]
+        W = ring_k.shape[1]
+        last_pre = idx - 1
+        # newest position == slot (mod W) written before this chunk;
+        # negative = never written
+        slot = torch.arange(W, device=dev)
+        cache_pos = last_pre - torch.remainder(last_pre - slot, W)
+        key_pos = torch.cat([cache_pos, pos])
+        valid = (key_pos[None, :] >= 0) & _window_mask(key_pos, pos, cfg)
+        keys = torch.cat([ring_k, k.to(ring_k.dtype)], dim=1)
+        values = torch.cat([ring_v, v.to(ring_v.dtype)], dim=1)
+        if n >= W:
+            w_pos, wk, wv = pos[-W:], k[:, -W:], v[:, -W:]
+        else:
+            w_pos, wk, wv = pos, k, v
+        write = torch.remainder(w_pos, W)
+        ring_k[:, write] = wk.to(ring_k.dtype)
+        ring_v[:, write] = wv.to(ring_v.dtype)
+        new_cache = {"k": ring_k, "v": ring_v, "index": idx + n,
+                     "rolling": None}
+    elif "k_q" in kv_cache:
+        kq, ks = absmax_quantize_int8(k, axis=-1)
+        vq, vs = absmax_quantize_int8(v, axis=-1)
+        for name, val in (("k_q", kq), ("k_scale", ks), ("v_q", vq),
+                          ("v_scale", vs)):
+            kv_cache[name][:, idx:idx + n] = val
+        sk = kv_cache["k_q"].shape[1]
+        valid = _window_mask(torch.arange(sk, device=dev), pos, cfg)
+        cdt = k.dtype
+        keys = (kv_cache["k_q"].to(cdt)
+                * kv_cache["k_scale"][..., None].to(cdt))
+        values = (kv_cache["v_q"].to(cdt)
+                  * kv_cache["v_scale"][..., None].to(cdt))
+        new_cache = {name: kv_cache[name]
+                     for name in ("k_q", "k_scale", "v_q", "v_scale")}
+        new_cache["index"] = idx + n
+    else:
+        kv_cache["k"][:, idx:idx + n] = k
+        kv_cache["v"][:, idx:idx + n] = v
+        keys, values = kv_cache["k"], kv_cache["v"]
+        valid = _window_mask(torch.arange(keys.shape[1], device=dev), pos,
+                             cfg)
+        new_cache = {"k": keys, "v": values, "index": idx + n}
+    mask = (~valid)[None, None].expand(b, 1, -1, -1)
+    return keys, values, mask, new_cache
+
+
 def attention(x: torch.Tensor, params, cfg: TransformerConfig, *,
               freqs: Optional[tuple], attention_mask: Optional[torch.Tensor],
               position_ids: Optional[torch.Tensor],
               kv_cache: Optional[dict] = None,
               dropout_key: Optional[int] = None, train: bool = False):
-    """QKV projection, RoPE, attention, output projection.  With a paged
-    ``kv_cache`` (pools plus block_tables / context_lens / valid_lens)
-    returns ``(out, new_cache)``."""
+    """QKV projection, RoPE, attention, output projection.  With a
+    ``kv_cache`` returns ``(out, new_cache)``: a paged one (pools plus
+    block_tables / context_lens / valid_lens) for the serving engine, or
+    a rolling, int8 linear or linear one (``_dense_cache_step``) for the
+    legacy generate path."""
     cdt = cfg.compute_torch_dtype
     mixed = column_parallel_linear(x, params["query_key_value"],
                                    compute_dtype=cdt)
@@ -257,12 +345,14 @@ def attention(x: torch.Tensor, params, cfg: TransformerConfig, *,
 
     new_cache = None
     ctx = None
-    if kv_cache is not None:
+    if kv_cache is not None and not ("k_pages" in kv_cache
+                                     or "k_pages_q" in kv_cache):
+        # the legacy generate path's caches (text_generation/generation.py):
+        # their mask goes to core_attention below
+        k, v, attention_mask, new_cache = _dense_cache_step(kv_cache, k, v,
+                                                            cfg)
+    elif kv_cache is not None:
         quantized = "k_pages_q" in kv_cache
-        if not quantized and "k_pages" not in kv_cache:
-            raise NotImplementedError(
-                "only the paged KV cache of the serving engine is ported "
-                "(the linear and rolling caches are later slices)")
         # PAGED cache: one pool of [P, bs] pages per layer shared by all
         # slots; row s of the batch (a serving slot) reads and writes
         # through its block table.  Keys: (k_pages | k_pages_q +
@@ -310,7 +400,7 @@ def attention(x: torch.Tensor, params, cfg: TransformerConfig, *,
         # no attention dropout runs; without flash, the q-chunked path
         # for long sequences under the same conditions, else
         # core_attention
-        flash_eligible = (attention_mask is None
+        flash_eligible = (kv_cache is None and attention_mask is None
                           and not (train and cfg.attention_dropout > 0.0))
         if cfg.use_flash_attn and flash_eligible:
             ctx = flash_attention(q, k, v, causal=True,

@@ -5,9 +5,10 @@ row-parallel linears are plain matmuls over ``{'kernel': [in, out]}``
 params (the JAX package's layout, so one param dict loads into both),
 the vocab-parallel embedding is a gather, and the logits are a matmul
 against the ``[V, H]`` head.  A linear whose dict carries LoRA leaves
-(``lora.py``) adds its low-rank path.  int8 weights belong to a later
-slice; the dense products stay ``torch.matmul``, as the JAX package
-leaves them to XLA.
+(``lora.py``) adds its low-rank path; one whose dict carries int8
+``kernel_q`` / ``kernel_scale`` (``quantization.py``) takes its operand
+through ``dequantize_kernel``.  The dense products stay ``torch.matmul``,
+as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import math
 from typing import Optional
 
 import torch
+
+from megatron_llm_torch.quantization import dequantize_kernel
 
 
 def init_method_normal(std: float):
@@ -91,8 +94,9 @@ def _lora_delta(x: torch.Tensor, params) -> torch.Tensor:
 
 def column_parallel_linear(x: torch.Tensor, params, *,
                            compute_dtype=None) -> torch.Tensor:
-    """y = x @ W (+ the LoRA path) (+ b)."""
-    y = torch.matmul(x, _cast(params["kernel"], compute_dtype))
+    """y = x @ W (+ the LoRA path) (+ b); W is the int8 kernel times its
+    scales where the dict holds them."""
+    y = torch.matmul(x, dequantize_kernel(params, compute_dtype))
     if "lora_A" in params:
         y = y + _lora_delta(x, params)
     bias = _cast(params.get("bias"), compute_dtype)

@@ -1,11 +1,15 @@
-"""Serve a GPT-family model over REST through the continuous-batching
-engine, in PyTorch on one GPU (the twin of
+"""Serve a GPT-family model over REST, in PyTorch on one GPU (the twin of
 ``tools/run_text_generation_server.py``).
 
     python -m megatron_llm_torch.run_text_generation_server \\
         --model_name llama2 --bf16 --load ckpt \\
         --tokenizer_type GPT2BPETokenizer --vocab_file vocab.json \\
-        --merge_file merges.txt --port 5000
+        --merge_file merges.txt --serve_engine --port 5000
+
+As in the JAX tool, ``--serve_engine`` serves requests through the
+continuous-batching engine (beam search, logprobs and
+``tokens_to_generate == 0`` still take the legacy path); without it every
+request takes the legacy path, one ``generate`` call at a time.
 
 The flags are the shared parser's (``arguments.build_parser``) plus the
 server group (``extra_args``), as the JAX tool parses them through
@@ -21,8 +25,12 @@ iteration or ``--load_iters``, held to the model's tree), as the JAX
 server does; ``--use_checkpoint_args`` takes the architecture the
 checkpoint records (``finetune.checkpoint_architecture``), which wins over
 the size flags and the tokenizer's padded vocabulary.  With no ``--load``
-it serves random weights drawn from ``--seed``.  ``--int8_kv_cache`` keeps the
-paged KV pool as int8 with per-position scales.  The engine flags are the
+it serves random weights drawn from ``--seed``.  ``--int8_weights`` stores
+the linear kernels and expert banks as int8 with per-channel scales
+(``quantization.py``), quantised after the load and printed as ``int8
+weights: <q> MB int8 + <f> MB float``.  ``--int8_kv_cache`` keeps the KV
+cache (the engine's paged pool or the legacy path's linear cache) as int8
+with per-position scales.  The engine flags are the
 JAX server's: ``--serve_speculative`` / ``--serve_draft_k`` (speculative
 decoding), ``--serve_host_cache_bytes`` (the host KV tier),
 ``--serve_watchdog_secs``, ``--serve_restart_backoff_secs`` and
@@ -30,9 +38,12 @@ decoding), ``--serve_host_cache_bytes`` (the host KV tier),
 (on by default), ``--alert_rules`` and ``--alert_webhook`` run the SLO
 sentinel, with its transitions on the ``--structured_log_dir`` stream and
 its incident bundles under ``<structured_log_dir>/incidents``.  SIGTERM,
-or ``PUT /drain``, drains the server and ``main()`` returns.
-``build_server(args, tokenizer)`` builds the model, the engine and the
-server in-process (the port's tests and ``chip_smoke.py`` call it);
+or ``PUT /drain``, drains the server and ``main()`` returns.  With
+``--port 0`` the server binds a free port and writes ``PORT <n>`` on
+stdout, the handshake of ``megatron_llm_torch.tools.serve_fleet``'s
+replicas.  ``build_server(args, tokenizer)`` builds the model, the engine
+(with ``--serve_engine``) and the server in-process (the port's tests and
+``chip_smoke.py`` call it);
 ``main()`` parses the flags, builds the tokenizer and serves.
 """
 
@@ -63,6 +74,10 @@ from megatron_llm_torch.models import (
 )
 from megatron_llm_torch.models.language_model import (
     init_language_model_params,
+)
+from megatron_llm_torch.quantization import (
+    quantize_linear_weights_int8,
+    quantized_weight_bytes,
 )
 from megatron_llm_torch.serving import EngineConfig, InferenceEngine
 from megatron_llm_torch.text_generation_server import (
@@ -108,7 +123,8 @@ def extra_args(parser):
     g.add_argument("--port", type=int, default=5000)
     g.add_argument("--host", default="0.0.0.0")
     g.add_argument("--int8_weights", action="store_true",
-                   help="weight-only int8 linears (not ported: raises)")
+                   help="weight-only int8 quantization of the linear "
+                        "kernels at load (halves decode weight traffic)")
     g.add_argument("--int8_kv_cache", action="store_true",
                    help="store decode K/V as int8 with per-position scales")
     parser.set_defaults(tokenizer_type="NullTokenizer",
@@ -170,9 +186,10 @@ def engine_config_from_args(args) -> EngineConfig:
 
 def build_server(args, tokenizer) -> MegatronServer:
     """Model (the ``--load`` checkpoint's params, or random weights from
-    ``--seed``), warmed and started engine, and the HTTP server in front
-    of it, with the SLO sentinel when ``--serve_alerts``; ``server.engine``
-    is the engine.  The caller binds and runs the server, and stops it
+    ``--seed``; int8 under ``--int8_weights``), with ``--serve_engine`` a
+    warmed and started engine, and the HTTP server in front of them, with
+    the SLO sentinel when ``--serve_alerts``; ``server.engine`` is the
+    engine or None.  The caller binds and runs the server, and stops it
     (``server.shutdown()``, which stops the sentinel) and the engine."""
     if args.structured_log_dir:
         telemetry.install_stream(
@@ -181,9 +198,6 @@ def build_server(args, tokenizer) -> MegatronServer:
         tracing.install_tracing(tracing.Tracing(
             tracer=tracing.SpanTracer(), trace_dir=args.trace_dir))
     refuse_unported(args, UNPORTED_SERVING)
-    if args.int8_weights:
-        raise NotImplementedError("--int8_weights: weight-only int8 is "
-                                  "not ported yet (ROADMAP item 11)")
     warn_unimplemented(args)
     device = torch.device(args.device)
     engine_cfg = engine_config_from_args(args)
@@ -208,17 +222,26 @@ def build_server(args, tokenizer) -> MegatronServer:
         print(f" no --load given: serving random weights from seed "
               f"{args.seed}", flush=True)
         params = model.init(args.seed)
-    engine = InferenceEngine(model, params, engine_cfg)
-    print(f" * paged-attention decode path: {engine.paged_kernel}",
-          flush=True)
-    print(f" * paged-attention prefill path: {engine.prefill_kernel}",
-          flush=True)
-    spec = (f"on (draft_k={engine.draft_k})" if engine.speculative
-            else "off")
-    print(f" * speculative decoding: {spec}", flush=True)
-    engine.warmup()
-    engine.start()
-    server = MegatronServer(tokenizer, engine,
+    if args.int8_weights:
+        # float leaves go one by one as their int8 copies are made
+        params = quantize_linear_weights_int8(params, consume=True)
+        qb, fb = quantized_weight_bytes(params)
+        print(f" int8 weights: {qb/1e6:.1f} MB int8 + {fb/1e6:.1f} MB float",
+              flush=True)
+    engine = None
+    if args.serve_engine:
+        engine = InferenceEngine(model, params, engine_cfg)
+        print(f" * paged-attention decode path: {engine.paged_kernel}",
+              flush=True)
+        print(f" * paged-attention prefill path: {engine.prefill_kernel}",
+              flush=True)
+        spec = (f"on (draft_k={engine.draft_k})" if engine.speculative
+                else "off")
+        print(f" * speculative decoding: {spec}", flush=True)
+        engine.warmup()
+        engine.start()
+    server = MegatronServer(model, params, tokenizer,
+                            int8_kv_cache=args.int8_kv_cache, engine=engine,
                             log_requests=args.log_requests,
                             max_prompts=args.serve_max_prompts,
                             max_tokens=args.serve_max_tokens)
@@ -238,7 +261,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         server.run(args.host, args.port)
     finally:
         server.shutdown()
-        if not server.draining:     # a drain has stopped it already
+        # a drain has stopped the engine already
+        if server.engine is not None and not server.draining:
             server.engine.stop()
         bundle = tracing.get_tracing()
         if bundle is not None:

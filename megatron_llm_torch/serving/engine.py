@@ -31,6 +31,11 @@ with ``int8_kv_cache``, over int8 pools quantised on write) and every
 norm is its norm kernel (``csrc/layernorm.cu``);
 ``stats()['paged_kernel']`` and
 ``['prefill_kernel']`` report the resolved path, ``cuda`` or ``torch``.
+``kernel_launch_snapshot()`` returns the kernel wrappers' own launch
+counts (``ops/kernels``), read at the end of the last dispatch together
+with that moment's decode-step and prefill-chunk counts, so a reader in
+another process (a fleet's replica behind ``/metrics``) can hold each
+kernel's launches against the dispatches that made them.
 
 Per-slot mutable state (last tokens, context lengths, sampling knobs)
 lives in host numpy arrays and is uploaded whole for each call; per
@@ -91,6 +96,22 @@ from megatron_llm_torch.serving.resilience import (
 from megatron_llm_torch.serving.scheduler import Scheduler
 from megatron_llm_torch.text_generation.generation import init_paged_kv_caches
 from megatron_llm_torch.text_generation.sampling import NEG_INF, sample_batched
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The serving kernels' wrapper counts in this process, by their row
+    names in ``chip_smoke.py``'s kernels line: kernel A (``paged_*``), A'
+    over int8 pools (``paged_*_int8``), B (``rmsnorm``), D
+    (``layernorm``).  They count launches on the card only."""
+    from megatron_llm_torch.ops.kernels import layernorm as ln
+    from megatron_llm_torch.ops.kernels import paged_attention as pa
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
+
+    return {"paged_decode": pa.decode_launches,
+            "paged_prefill": pa.prefill_launches,
+            "paged_decode_int8": pa.quant_decode_launches,
+            "paged_prefill_int8": pa.quant_prefill_launches,
+            "rmsnorm": rn.launches, "layernorm": ln.launches}
 
 
 @dataclass
@@ -214,6 +235,8 @@ class InferenceEngine:
         # counters (read by stats()/the HTTP /metrics endpoint)
         self.decode_steps = 0
         self.prefill_chunks = 0
+        self._launch_snapshot: Dict[str, int] = dict(
+            decode_steps=0, prefill_chunks=0, **kernel_launches())
         self.tokens_generated = 0
         self.prefill_tokens_submitted = 0
         self.prefill_tokens_computed = 0
@@ -898,6 +921,7 @@ class InferenceEngine:
         self.prefill_secs += chunk_secs
         req.prefill_compute_secs += chunk_secs
         self.prefill_chunks += 1
+        self._note_launches()
         self.prefill_tokens_computed += valid
         req.prefill_pos = start + valid
         # freshly filled full blocks become shareable right away
@@ -969,6 +993,7 @@ class InferenceEngine:
         step_secs = time.perf_counter() - t0
         self.decode_secs += step_secs
         self.decode_steps += 1
+        self._note_launches()
         self.occupancy_sum += len(slots)
         # amortized TPOT: each co-batched request pays an equal share
         share = step_secs / max(len(decoding), 1)
@@ -1054,6 +1079,7 @@ class InferenceEngine:
         step_secs = time.perf_counter() - t0
         self.decode_secs += step_secs
         self.decode_steps += 1
+        self._note_launches()
         self.occupancy_sum += len(slots)
         share = step_secs / max(len(decoding), 1)
         for req in decoding:
@@ -1245,6 +1271,20 @@ class InferenceEngine:
         per_req = (self.prefill_secs + self.decode_secs) / done
         return round(self.queue.depth() * per_req
                      / max(self.config.num_slots, 1), 3)
+
+    def _note_launches(self) -> None:
+        """Publish the wrapper counts with this dispatch's totals, in one
+        assignment, so that a reader never sees a launch without its
+        dispatch."""
+        self._launch_snapshot = dict(decode_steps=self.decode_steps,
+                                     prefill_chunks=self.prefill_chunks,
+                                     **kernel_launches())
+
+    def kernel_launch_snapshot(self) -> Dict[str, int]:
+        """The process's kernel launches (``kernel_launches()``) with the
+        decode-step and prefill-chunk totals, both as of the end of the
+        last dispatch."""
+        return dict(self._launch_snapshot)
 
     def stats(self) -> Dict[str, Any]:
         s: Dict[str, Any] = dict(self.scheduler.stats())

@@ -1,12 +1,15 @@
-"""Per-row temperature / top-k / top-p sampling for the serving engine
-(the counterpart of ``modify_logits_batched`` and ``sample_batched`` in
-``megatron_llm_tpu/text_generation/sampling.py``).
+"""Temperature / top-k / top-p sampling (the counterpart of
+``megatron_llm_tpu/text_generation/sampling.py``): ``modify_logits`` and
+``sample`` with one set of knobs for the whole batch (the legacy generate
+path), ``modify_logits_batched`` and ``sample_batched`` with knobs per row
+(the serving engine).
 
-Each sampled row draws with its own ``torch.Generator`` (one per
-request, seeded from its ``SamplingParams.seed``), so a request's sample
-stream does not depend on its batch-mates.  The generators give other
-numbers than the JAX package's PRNG keys; greedy rows are an exact
-argmax in both.
+Draws come from ``torch.Generator``s: the legacy path's one generator is
+seeded by the request's ``random_seed``, and each sampled row of the
+engine draws with its own (one per request, seeded from its
+``SamplingParams.seed``), so a request's sample stream does not depend on
+its batch-mates.  The generators give other numbers than the JAX
+package's PRNG keys; greedy rows are an exact argmax in both.
 """
 
 from __future__ import annotations
@@ -16,6 +19,45 @@ from typing import Optional, Sequence
 import torch
 
 NEG_INF = -1e10
+
+
+def modify_logits(logits: torch.Tensor, top_k: int = 0, top_p: float = 0.0,
+                  temperature: float = 1.0) -> torch.Tensor:
+    """logits [..., V] -> fp32 logits scaled by ``temperature``, then with
+    everything below the k-th largest (``top_k`` > 0) and outside the
+    smallest set whose mass reaches ``top_p`` (0 < top_p < 1; the top-1
+    always stays) set to ``NEG_INF``."""
+    logits = logits.float()
+    if temperature != 1.0 and temperature > 0:
+        logits = logits / temperature
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, torch.full_like(logits, NEG_INF),
+                             logits)
+    if 0.0 < top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        cutoff_idx = ((cum - probs) < top_p).sum(dim=-1, keepdim=True) - 1
+        cutoff = torch.gather(sorted_logits, -1, cutoff_idx.clamp(min=0))
+        logits = torch.where(logits < cutoff,
+                             torch.full_like(logits, NEG_INF), logits)
+    return logits
+
+
+def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
+           top_k: int = 0, top_p: float = 0.0, temperature: float = 1.0,
+           greedy: bool = False) -> torch.Tensor:
+    """Token ids [...] from logits [..., V]: the argmax when ``greedy``,
+    ``top_k`` 1 or ``temperature`` 0, else one draw a row from the
+    filtered distribution with ``generator``."""
+    if greedy or top_k == 1 or temperature == 0.0:
+        return torch.argmax(logits.float(), dim=-1)
+    probs = torch.softmax(modify_logits(logits, top_k, top_p, temperature),
+                          dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    drawn = torch.multinomial(flat, 1, generator=generator)
+    return drawn.reshape(probs.shape[:-1])
 
 
 def modify_logits_batched(logits: torch.Tensor, top_k: torch.Tensor,

@@ -1,27 +1,39 @@
-"""REST text-generation server over the continuous-batching engine.
+"""REST text-generation server (the counterpart of
+``megatron_llm_tpu/text_generation_server.py``), with its two dispatch
+paths behind one contract:
 
-The engine path of ``megatron_llm_tpu/text_generation_server.py`` with
-the same contract:
+* legacy (no engine): one ``generate_and_post_process`` (or
+  ``beam_search_and_post_process``) call a request under a lock, so one
+  generation is in flight and the others wait on the lock.  Beam search,
+  logprobs and ``tokens_to_generate == 0`` always take it;
+* engine (an ``InferenceEngine`` passed in, by ``--serve_engine``):
+  requests are co-batched token by token by the continuous-batching
+  engine, a full queue answers 429, and ``PUT /api/stream`` serves
+  tokens as they come.
+
+The contract:
 
 * ``PUT /api`` (or ``/generate``): request validation, JSON 400s, 429
   with ``Retry-After`` when the engine queue is full, ``{"text",
-  "segments", "tokens"}`` bodies;
-* ``PUT /api/stream`` (or ``/generate/stream``): one prompt served as
-  server-sent events, one ``data:`` event a token and a final
+  "segments", "tokens"}`` bodies (``"logprobs"`` too when asked;
+  ``{"text", "scores"}`` for beam search);
+* ``PUT /api/stream`` (or ``/generate/stream``, engine only): one prompt
+  served as server-sent events, one ``data:`` event a token and a final
   ``{"done": ...}`` record;
 * graceful drain, by ``/drain`` or SIGTERM (``begin_drain``): new
   requests get 503 with ``Retry-After``, ``/health`` says
   ``"draining"``, in-flight work finishes, then the server stops;
 * ``GET /health``; ``GET /metrics`` as JSON (the engine's ``stats()``
-  under ``"engine"``, the mergeable SLO histograms, the SLO sentinel's
-  ``"alerts"``) or, asked by ``?format=prometheus`` or an ``Accept``
+  under ``"engine"``, its ``kernel_launch_snapshot()`` under
+  ``"kernel_launches"``, the mergeable SLO histograms, the SLO
+  sentinel's ``"alerts"``) or, asked by ``?format=prometheus`` or an ``Accept``
   header that prefers it, as Prometheus text;
 * ``GET /`` and ``/index.html``: the demo page (``static/index.html``).
 
 ``build_server_alerts`` wires the SLO sentinel (``serving/alerts.py``)
-over the server's own ``/metrics`` snapshot.  Beam search, logprobs and
-``tokens_to_generate == 0`` need the JAX package's batch generate path
-and answer 400 here.
+over the server's own ``/metrics`` snapshot.  Run on port 0, the server
+writes ``PORT <n>`` on stdout once it accepts, the handshake that the
+fleet supervisor (``serving/supervisor.py``) waits for.
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ from __future__ import annotations
 import json
 import os
 import signal
+import sys
 import threading
 import time
 from collections import deque
@@ -48,7 +61,11 @@ from megatron_llm_torch.telemetry import (
     histogram_percentile,
     prometheus_exposition,
 )
-from megatron_llm_torch.text_generation.api import resolve_stop_rules
+from megatron_llm_torch.text_generation.api import (
+    beam_search_and_post_process,
+    generate_and_post_process,
+    resolve_stop_rules,
+)
 from megatron_llm_torch.tracing import new_trace_id
 
 MAX_PROMPTS = 128       # defaults; override with --serve_max_prompts /
@@ -82,6 +99,9 @@ class ServerMetrics:
         self.drained = 0            # graceful-drain initiations
         self.tokens_generated = 0
         self.engine_stats_fn = None
+        # the engine's kernel_launch_snapshot (a port addition, not in
+        # the JAX server): /metrics "kernel_launches"
+        self.kernel_launches_fn = None
         self.histograms = {
             "ttft_secs": Histogram(),
             "tpot_secs": Histogram(),
@@ -160,6 +180,9 @@ class ServerMetrics:
                 out["engine"] = fn()
             except Exception:   # noqa: BLE001 - metrics never stop serving
                 pass
+        fn = self.kernel_launches_fn
+        if fn is not None:
+            out["kernel_launches"] = fn()
         alerts = self.alert_engine
         if alerts is not None:
             try:
@@ -182,15 +205,21 @@ def _count_tokens(body: dict) -> int:
 
 
 class MegatronGenerate:
-    """Request validation + dispatch to the engine."""
+    """Request validation + dispatch to the engine or the legacy path."""
 
-    def __init__(self, tokenizer, engine, log_requests=False,
-                 max_prompts=None, max_tokens=None):
+    def __init__(self, model, params, tokenizer, int8_kv_cache=False,
+                 engine=None, log_requests=False, max_prompts=None,
+                 max_tokens=None):
+        self.model = model
+        self.params = params
         self.tokenizer = tokenizer
+        self.int8_kv_cache = int8_kv_cache
         self.engine = engine
         self.log_requests = bool(log_requests)
         self.max_prompts = int(max_prompts or MAX_PROMPTS)
         self.max_tokens = int(max_tokens or MAX_TOKENS)
+        # the legacy path runs one generation at a time
+        self.lock = threading.Lock()
 
     def _parse(self, payload: dict):
         """``(None, knobs)`` on success or ``((code, body), None)``."""
@@ -257,6 +286,8 @@ class MegatronGenerate:
             "prevent_newline_after_colon": bool(
                 payload.get("prevent_newline_after_colon", False)),
             "beam_width": payload.get("beam_width", None),
+            "stop_token": payload.get("stop_token", None),
+            "length_penalty": float(payload.get("length_penalty", 1.0)),
             "random_seed": int(payload.get("random_seed", 0)),
             "no_log": bool(payload.get("no_log", False)),
         }
@@ -271,12 +302,48 @@ class MegatronGenerate:
             return err
         if self.log_requests and not knobs["no_log"]:
             print(json.dumps(payload), flush=True)
-        if (knobs["beam_width"] is not None or knobs["logprobs"]
-                or knobs["tokens_to_generate"] == 0):
-            return 400, {"message": "beam search, logprobs and "
-                                    "tokens_to_generate=0 are not served by "
-                                    "the PyTorch engine yet"}
-        return self._handle_engine(knobs, trace_id=trace_id)
+        use_engine = (self.engine is not None
+                      and knobs["beam_width"] is None
+                      and not knobs["logprobs"]
+                      and knobs["tokens_to_generate"] > 0)
+        if use_engine:
+            return self._handle_engine(knobs, trace_id=trace_id)
+        return self._handle_legacy(knobs)
+
+    def _handle_legacy(self, knobs: dict):
+        with self.lock:
+            if knobs["beam_width"] is not None:
+                if len(knobs["prompts"]) > 1:
+                    return 400, {"message": "beam search requires one prompt"}
+                texts, scores = beam_search_and_post_process(
+                    self.model, self.params, self.tokenizer,
+                    knobs["prompts"],
+                    tokens_to_generate=knobs["tokens_to_generate"],
+                    beam_size=int(knobs["beam_width"]),
+                    length_penalty=knobs["length_penalty"],
+                    stop_token=(int(knobs["stop_token"])
+                                if knobs["stop_token"] is not None else None))
+                return 200, {"text": texts, "scores": scores.tolist()}
+            texts, segments, log_probs, tokens = generate_and_post_process(
+                self.model, self.params, self.tokenizer, knobs["prompts"],
+                tokens_to_generate=knobs["tokens_to_generate"],
+                return_output_log_probs=knobs["logprobs"],
+                top_k_sampling=knobs["top_k"],
+                top_p_sampling=knobs["top_p"],
+                temperature=knobs["temperature"],
+                random_seed=knobs["random_seed"],
+                add_BOS=knobs["add_BOS"],
+                top_p_decay=knobs["top_p_decay"],
+                top_p_bound=knobs["top_p_bound"],
+                stop_on_eol=knobs["stop_on_eol"],
+                stop_on_double_eol=knobs["stop_on_double_eol"],
+                prevent_newline_after_colon=knobs[
+                    "prevent_newline_after_colon"],
+                int8_kv_cache=self.int8_kv_cache)
+            out = {"text": texts, "segments": segments, "tokens": tokens}
+            if knobs["logprobs"]:
+                out["logprobs"] = log_probs.tolist()
+            return 200, out
 
     def _tokenize(self, prompt: str, add_BOS: bool):
         toks = self.tokenizer.tokenize(prompt)
@@ -370,6 +437,10 @@ class MegatronGenerate:
             return 400, {"message": f"malformed parameter: {exc}"}, None
         if err is not None:
             return err[0], err[1], None
+        if self.engine is None:
+            return 400, {"message": "streaming requires the continuous-"
+                                    "batching engine (start the server "
+                                    "with --serve_engine)"}, None
         if len(knobs["prompts"]) != 1:
             return 400, {"message": "streaming supports a single prompt"}, \
                 None
@@ -406,18 +477,23 @@ class MegatronGenerate:
 
 
 class MegatronServer:
-    """Stdlib HTTP server in front of one engine."""
+    """Stdlib HTTP server in front of the model: through ``engine`` when
+    one is given, else the legacy path alone."""
 
-    def __init__(self, tokenizer, engine, log_requests=False,
-                 max_prompts=None, max_tokens=None,
-                 drain_timeout_secs: float = 600.0):
+    def __init__(self, model, params, tokenizer, int8_kv_cache=False,
+                 engine=None, log_requests=False, max_prompts=None,
+                 max_tokens=None, drain_timeout_secs: float = 600.0):
         self.generator = MegatronGenerate(
-            tokenizer, engine, log_requests=log_requests,
+            model, params, tokenizer, int8_kv_cache=int8_kv_cache,
+            engine=engine, log_requests=log_requests,
             max_prompts=max_prompts, max_tokens=max_tokens)
         self.engine = engine
         self.metrics = ServerMetrics()
-        self.metrics.engine_stats_fn = engine.stats
-        engine.request_done_hook = self.metrics.observe_request_done
+        if engine is not None:
+            self.metrics.engine_stats_fn = engine.stats
+            self.metrics.kernel_launches_fn = engine.kernel_launch_snapshot
+            # every retired request feeds the SLO histograms
+            engine.request_done_hook = self.metrics.observe_request_done
         # graceful drain (SIGTERM / /drain): admission answers 503,
         # /health reports "draining", in-flight work finishes, then the
         # server stops and run() returns
@@ -461,15 +537,16 @@ class MegatronServer:
         while time.monotonic() < deadline:
             with self._in_flight_lock:
                 busy = self._in_flight > 0
-            if not busy:
+            if engine is not None and not busy:
                 busy = engine.scheduler.has_work()
             if not busy:
                 break
             time.sleep(0.05)
-        try:
-            engine.stop()
-        except Exception:   # noqa: BLE001 - the server stops regardless
-            pass
+        if engine is not None:
+            try:
+                engine.stop()
+            except Exception:   # noqa: BLE001 - the server stops regardless
+                pass
         if self.httpd is not None and self._serving:
             self.httpd.shutdown()   # run() returns; the process exits
 
@@ -644,6 +721,11 @@ class MegatronServer:
                 pass
         print(f" * serving on http://{host}:{httpd.server_address[1]}/ "
               f"(demo page) and /api", flush=True)
+        if port == 0:
+            # the replica handshake: one write and one flush, so the line
+            # reaches the supervisor's reader whole
+            sys.stdout.write(f"PORT {httpd.server_address[1]}\n")
+            sys.stdout.flush()
         self._serving = True
         httpd.serve_forever()
 

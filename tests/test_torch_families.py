@@ -355,7 +355,8 @@ def test_server_builds_and_serves_falcon_with_int8_kv_on_the_cpu():
             "--padded_vocab_size", "64", "--seq_length", "64",
             "--max_position_embeddings", "64", "--device", "cpu",
             "--serve_num_slots", "2", "--serve_block_size", "8",
-            "--serve_prefill_chunk", "16", "--seed", "0", "--int8_kv_cache"]
+            "--serve_prefill_chunk", "16", "--seed", "0", "--int8_kv_cache",
+            "--serve_engine"]
     srv = server.build_server(server.build_parser().parse_args(argv),
                               _FakeTokenizer())
     try:

@@ -13,6 +13,7 @@ engine's spill and swap-in) against the JAX package's.
 * The swapped-in pages are the spilled pages, byte for byte.
 """
 
+import queue
 import random
 
 import jax
@@ -49,10 +50,27 @@ def _fetch(manager, block):
 
 
 def _tiers(cls_bm, cls_host):
-    host = cls_host(6, 1, fetch=_fetch).start()
+    # no spill thread: ``_pump`` runs the queued spills at the same points
+    # in both packages, so their counters cannot part by thread timing
+    # (a spill finished between two enqueues of one operation in one
+    # package and not in the other changed the dedup, and spills_queued)
+    host = cls_host(6, 1, fetch=_fetch)
     bm = cls_bm(num_blocks=13, block_size=BS, num_slots=3,
                 max_blocks_per_slot=8, prefix_cache=True, host_cache=host)
     return bm, host
+
+
+def _pump(host):
+    """Run every queued spill as the spill thread does, in this thread."""
+    while True:
+        try:
+            item = host._queue.get_nowait()
+        except queue.Empty:
+            return
+        try:
+            host._process_spill(*item)
+        finally:
+            host._queue.task_done()
 
 
 def _swap_ins(bm, host, slot):
@@ -112,6 +130,7 @@ def test_host_kv_cache_follows_the_jax_copy_under_churn():
                 for bm, _ in pairs:
                     bm.free(s, token_ids=p, n_written=n)
             for bm, host in pairs:
+                _pump(host)
                 assert host.drain()
                 bm.check_invariants()
             assert _state(*pairs[0]) == _state(*pairs[1])

@@ -22,7 +22,10 @@ from megatron_llm_torch.models.llama import LlamaModel, llama_config
 from megatron_llm_torch.tree import tree_map
 from megatron_llm_torch.optimizer import MegatronOptimizer
 from megatron_llm_torch.run_text_generation_server import build_parser
-from megatron_llm_torch.text_generation.generation import init_paged_kv_caches
+from megatron_llm_torch.text_generation.generation import (
+    init_kv_caches,
+    init_paged_kv_caches,
+)
 from megatron_llm_torch.weights import params_from_jax
 
 torch.set_num_threads(1)
@@ -51,7 +54,10 @@ def test_every_port_module_imports_with_jax_blocked():
     mods = _modules()
     for sub in ("weights_conversion", "tools", "verify_correctness",
                 "serving.drafter", "serving.host_cache",
-                "serving.resilience", "serving.alerts"):
+                "serving.resilience", "serving.alerts", "serving.router",
+                "serving.supervisor", "tools.serve_router",
+                "tools.serve_fleet", "quantization",
+                "text_generation.generation", "text_generation.api"):
         assert any(m.startswith(f"megatron_llm_torch.{sub}") for m in mods)
     code = ("import importlib, sys\n"
             f"for b in {BANNED!r}:\n"
@@ -87,7 +93,7 @@ def test_entry_points_default_to_the_gpu():
     assert model.device.type == "cuda"
     args = build_parser().parse_args(["--model_name", "llama2"])
     assert args.device == "cuda"
-    for fn in (init_paged_kv_caches, params_from_jax,
+    for fn in (init_paged_kv_caches, init_kv_caches, params_from_jax,
                finetune.build_data_iterator):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert build_train_parser().parse_args([]).device == "cuda"

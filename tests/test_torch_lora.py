@@ -252,7 +252,8 @@ def test_finetune_trains_saves_merged_and_the_server_loads_it(tmp_path,
                 "--seq_length", "32",
                 "--max_position_embeddings", "32", "--device", "cpu",
                 "--serve_num_slots", "2", "--serve_block_size", "8",
-                "--serve_prefill_chunk", "16", "--load", out]
+                "--serve_prefill_chunk", "16", "--load", out,
+                "--serve_engine"]
 
     class Tok:
         vocab_size, eod, pad = 128, 127, 0

@@ -150,7 +150,16 @@ def test_llama_with_experts_matches_jax():
 def test_unported_features_raise():
     jmodel, jparams, tmodel, tparams = _models("llama")
     toks = torch.zeros(1, 4, dtype=torch.long)
-    # only the serving engine's paged KV cache is ported
-    with pytest.raises(NotImplementedError):
-        tmodel(tparams, toks, kv_caches=[{"k": None, "v": None,
-                                          "index": 0}] * 2)
+    # the linear, int8 linear and rolling caches are ported
+    # (test_torch_generation.py holds them to the JAX package); the
+    # tokentype embeddings of BERT and T5 are not
+    with pytest.raises(NotImplementedError, match="tokentype"):
+        LlamaModel(tmodel.cfg.replace(num_tokentypes=2), device="cpu")
+    caches = [{"k": torch.zeros(1, 4, tmodel.cfg.num_query_groups,
+                                tmodel.cfg.head_dim),
+               "v": torch.zeros(1, 4, tmodel.cfg.num_query_groups,
+                                tmodel.cfg.head_dim),
+               "index": 0} for _ in range(tmodel.cfg.num_layers)]
+    with torch.no_grad():
+        logits, caches = tmodel(tparams, toks, kv_caches=caches)
+    assert logits.shape[:2] == (1, 4) and caches[0]["index"] == 4

@@ -28,7 +28,7 @@ TINY = ["--model_name", "llama2", "--num_layers", "2", "--hidden_size",
         "--padded_vocab_size", "64", "--seq_length", "64",
         "--max_position_embeddings", "64", "--device", "cpu",
         "--serve_num_slots", "4", "--serve_block_size", "8",
-        "--serve_prefill_chunk", "16", "--seed", "0"]
+        "--serve_prefill_chunk", "16", "--seed", "0", "--serve_engine"]
 
 
 class _FakeTokenizer:
@@ -97,7 +97,7 @@ def test_health_and_metrics(port):
 
 @pytest.mark.parametrize("payload", [
     {}, {"prompts": []}, {"prompts": ["1"], "tokens_to_generate": -1},
-    {"prompts": ["1"], "top_p": 2.0}, {"prompts": ["1"], "logprobs": True},
+    {"prompts": ["1"], "top_p": 2.0}, {"prompts": ["1", "2"], "beam_width": 2},
     {"prompts": ["1"], "tokens_to_generate": 10000}])
 def test_bad_requests_are_json_400s(port, payload):
     code, body = _call(port, "PUT", "/api", payload)
@@ -141,7 +141,8 @@ def test_load_with_a_bpe_tokenizer_answers_text(tmp_path):
         ["--model_name", "llama2", "--device", "cpu", "--serve_num_slots",
          "2", "--serve_block_size", "8", "--serve_prefill_chunk", "16",
          "--load", str(tmp_path / "ck"), "--tokenizer_type",
-         "GPT2BPETokenizer", "--vocab_file", vf, "--merge_file", mf] + size)
+         "GPT2BPETokenizer", "--vocab_file", vf, "--merge_file", mf,
+         "--serve_engine"] + size)
     tok = build_tokenizer(args)
     assert args.padded_vocab_size == 384
     server = build_server(args, tok)
@@ -246,8 +247,10 @@ def test_example_argv_serves_a_converted_checkpoint(tmp_path):
     tok = build_tokenizer(args)
     assert args.padded_vocab_size == 384
     server = build_server(args, tok)
+    # no --serve_engine in the example: the legacy path serves, as in JAX
+    assert server.engine is None
     try:
-        got = server.engine.model.cfg
+        got = server.generator.model.cfg
         fields = sorted({f.name for f in dataclasses.fields(want)}
                         & {f.name for f in dataclasses.fields(got)})
         assert len(fields) > 30
@@ -266,10 +269,10 @@ def test_example_argv_serves_a_converted_checkpoint(tmp_path):
         params, _, _ = checkpointing.load_checkpoint(ck, device="cpu")
         for (path, a), (_, b) in zip(
                 tree_leaves_with_path(params),
-                tree_leaves_with_path(server.engine.params)):
+                tree_leaves_with_path(server.generator.params)):
             assert torch.equal(a.to(torch.bfloat16), b), path
     finally:
-        server.engine.stop()
+        server.shutdown()
     # without --use_checkpoint_args the family preset (Llama-3-8B) stands
     plain = build_parser().parse_args(
         [a for a in argv if a != "--use_checkpoint_args"])
@@ -280,7 +283,7 @@ def test_example_argv_serves_a_converted_checkpoint(tmp_path):
 
 
 def test_server_flags_of_unported_features_raise():
-    for flags in (["--int8_weights"], ["--profiler_port", "9012"]):
+    for flags in (["--profiler_port", "9012"],):
         args = build_parser().parse_args(TINY + flags)
         with pytest.raises(NotImplementedError):
             build_server(args, _FakeTokenizer())
@@ -318,7 +321,7 @@ def test_server_serves_mixtral(tmp_path):
             "--seq_length", "64", "--max_position_embeddings", "64",
             "--device", "cpu", "--serve_num_slots", "2",
             "--serve_block_size", "8", "--serve_prefill_chunk", "8",
-            "--seed", "0"]
+            "--seed", "0", "--serve_engine"]
     server = build_server(build_parser().parse_args(argv), _FakeTokenizer())
     httpd = server.make_httpd("127.0.0.1", 0)
     t = threading.Thread(target=server.run, daemon=True)
@@ -399,7 +402,8 @@ def pair():
         EngineConfig(**SERVE_ENGINE_KW))
     engine.warmup()
     engine.start()
-    server = MegatronServer(_FakeTokenizer(), engine)
+    server = MegatronServer(engine.model, engine.params, _FakeTokenizer(),
+                            engine=engine)
     httpd = server.make_httpd("127.0.0.1", 0)
     t = threading.Thread(target=server.run, daemon=True)
     t.start()
