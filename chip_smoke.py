@@ -6,7 +6,7 @@ GPU.
 
 Phase 0 prints the card and builds the port's CUDA kernels from
 ``megatron_llm_torch/csrc``.  Phase 1 holds each of the nine kernels
-against its plain PyTorch version on the card, in bf16 and fp32, times
+against its plain PyTorch version on the card, in bf16, fp16 and fp32, times
 it, its plain version and one PyTorch library call, and computes its
 bound:
 
@@ -94,7 +94,8 @@ the bf16 kernel variants (the fp32 checks through the fp32 ones).
 
 Phase 7 writes an mmap corpus with the port's builder (2000 documents of
 100-4096 random ids below 32000 from seed 1234, uint16) under build/,
-and trains Llama-2-7B's width cut to 2 layers at sequence 4096 on it
+and trains Llama-2-7B's width cut to 1 layer (CORPUS_LAYERS; 2 before
+phase 17 came) at sequence 4096 on it
 through ``finetune.main`` (``--data_path``, ``--split 98,2,0``, eval every
 2 iterations, a checkpoint every 2) for 4 iterations; then resumes from
 iteration 2 (``--load``, ``--load_iters 2``) and runs to 4.  Every leaf
@@ -213,7 +214,8 @@ exit 0.
 requests: A' and
 D launches as the dispatches say.
 
-Phase 13 trains Llama-2-7B's width cut to 2 layers at sequence 4096
+Phase 13 trains Llama-2-7B's width cut to 1 layer (PHASE13_LAYERS; 2
+before phase 17 came) at sequence 4096
 through ``examples/finetune.sh llama2 --wandb``'s argv (tp 1, module
 path, a 32000-id BPE for its SentencePiece model, phase 7's corpus, 16
 train iterations and the exit at 14, 2 warmup iterations) with every
@@ -239,10 +241,10 @@ bit, and iterations 11-14 are held within 1e-3 of the uninterrupted
 run (G adds dq with fp32 atomics, so two runs on the card part from
 their first backward).  (c) A hang 3x past a 5 s watchdog in a
 subprocess: one fire, a stack dump naming the sleeping frame, a rescue
-checkpoint that validates and loads, exit 17.  (d) At phase 3's 8-layer
-cut, the step time with the layer stats, the stream and the tracer on
-against all off (medians), and a snapshot's host copy, first and
-steady.  Phase 0 logs the host's RAM.
+checkpoint that validates and loads, exit 17.  (d) At 4 layers
+(PHASE13_COST_LAYERS; 8 before phase 17), the step time with the layer
+stats, the stream and the tracer on against all off (medians), and a
+snapshot's host copy, first and steady.  Phase 0 logs the host's RAM.
 
 Phase 14 runs ``megatron_llm_torch/tools/serve_fleet.py`` as a subprocess
 over the port's own server (``--serve_engine --port 0``: each replica
@@ -259,11 +261,12 @@ ranks first.  Each replica's ``/metrics`` must name the CUDA paged path;
 its dispatch counts give A's and B's launches.  Every replica is
 reaped.
 
-Phase 15 serves Llama-2-7B at full width and depth (32 layers, random
-bf16 weights) through the engine with phase 2's 8 greedy requests,
-with and without ``--int8_weights``: the bytes line, the device memory
-held and its peak, the decode step and prefill chunk ms, and the share
-of greedy tokens equal; the int8 logits' drift at 2 layers in fp32 is
+Phase 15 serves Llama-2-7B at full width, 16 of 32 layers
+(INT8_WEIGHT_LAYERS; 32 before phase 17 came; random bf16 weights)
+through the engine with phase 2's 8 greedy requests, with and without
+``--int8_weights``: the bytes line, the device memory held and its
+peak, the decode step and prefill chunk ms, and the share of greedy
+tokens equal; the int8 logits' drift at 2 layers in fp32 is
 held to the JAX test's bound at that test's model and measured at full
 width; Mixtral-8x7B's width at 1 layer is served with int8 expert banks
 and a float router.  Then the legacy path: the example argv on a 2-layer
@@ -299,6 +302,28 @@ BERT 2 a layer and the final norm (its MLM head's norm is plain), T5's
 decoder 3 a layer, each ICT tower 2 a layer and the final norm; the
 index D alone.  Phase 1 holds D and E at these runs' rows ([8192, 768],
 [2048, 1024], [2048, 768]) and times them at [8192, 768].
+
+Phase 17 runs fp16 (``--fp16``: fp16 params and compute, fp32 masters
+and moments, the dynamic loss scale from 2^32 with hysteresis 2) through
+the normal entry points, each kernel on its fp16 variant: Llama-2-7B at
+full width and depth served over fp16 pools and again over int8 pools
+(phase 2's requests; launches held to layers x dispatches; params and
+pools fp16; served greedy tokens the fp16 no-cache argmax where its top-2
+margin clears 0.5); Llama-2-7B's width cut to 4 layers at sequence 4096
+through ``finetune.main --fp16`` for 28 iterations (the logged scales
+follow the scaler's rule, at least 5 steps apply, launches layers x
+micro-batches x iterations), then a fixed batch through
+``build_train_step`` from 2^32 until 5 steps apply (every skipped step
+keeps every parameter, master and moment bit for bit and the Adam step
+count; every applied step lowers the next loss; the first settled
+step's largest |dS| in fp32 against fp16's 65504), one step at sequence
+1000 (H) (``train_phase`` with ``TRAINING["llama_fp16"]``); and GPT-2 345M
+through phase 8's argv with ``--fp16`` for 30 iterations, then a fixed
+batch of its shape.  Phase 1 holds every fp16 variant against its plain
+version (``phase1_fp16``: an eighth of bf16's tolerance, or one fp16
+step at the output's magnitude), each backward also on an inf and a NaN
+in its incoming gradient (non-finite in the plain version's rows), and
+times each at its bf16 row's shape beside one library call in fp16.
 
 It prints, before its last line, the card's name and power limit, one
 JSON line with every kernel's numbers (``{"kernels": [...]}``), and as
@@ -613,25 +638,26 @@ def _paged_errors(out, ref32):
     return e, rel
 
 
-def _time_paged(gen, pa, S, C, ctx, nh, g, d, quantized, sweep=False):
-    """Times of one paged-attention shape in bf16: the kernel, its plain
-    version, SDPA over a pre-gathered (pre-dequantised, heads expanded)
-    dense K/V, and the bound."""
+def _time_paged(gen, pa, S, C, ctx, nh, g, d, quantized, sweep=False,
+                dtype=None):
+    """Times of one paged-attention shape in bf16 (or ``dtype``): the
+    kernel, its plain version, SDPA over a pre-gathered (pre-dequantised,
+    heads expanded) dense K/V, and the bound."""
     import torch
     import torch.nn.functional as F
 
     from megatron_llm_torch.quantization import absmax_quantize_int8
 
     bs, M = 16, 128
-    q, kp, vp, bt, cl = _paged_case(gen, S, C, nh, g, d, bs, M, ctx,
-                                    torch.bfloat16)
+    dt = dtype or torch.bfloat16
+    q, kp, vp, bt, cl = _paged_case(gen, S, C, nh, g, d, bs, M, ctx, dt)
     ks = vs = None
     dense_k, dense_v = kp, vp
     if quantized:
         kp, ks = absmax_quantize_int8(kp, axis=-1)
         vp, vs = absmax_quantize_int8(vp, axis=-1)
-        dense_k = (kp.float() * ks[..., None]).to(torch.bfloat16)
-        dense_v = (vp.float() * vs[..., None]).to(torch.bfloat16)
+        dense_k = (kp.float() * ks[..., None]).to(dt)
+        dense_v = (vp.float() * vs[..., None]).to(dt)
     scale = 1.0 / math.sqrt(d)
     if C == 1:
         q1 = q[:, 0].contiguous()
@@ -679,9 +705,10 @@ def _time_paged(gen, pa, S, C, ctx, nh, g, d, quantized, sweep=False):
     nbytes, flops = _paged_bytes_flops(S, C, nh, g, d, bs, ctx, None, 2,
                                        quantized)
     out["bound_ms"], out["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
-    pools = "int8 pools" if quantized else "bf16 pools"
+    tag = {torch.bfloat16: "bf16", torch.float16: "fp16"}[dt]
+    pools = "int8 pools" if quantized else f"{tag} pools"
     out["shape"] = (f"S={S} C={C} nh={nh} g={g} d={d} bs={bs} ctx={ctx[0]} "
-                    f"bf16, {pools}")
+                    f"{tag}, {pools}")
     return out
 
 
@@ -1522,6 +1549,29 @@ SERVING = {
         # 71 query rows a KV group at decode, 64 x 71 in a prefill chunk
         variants=("mma", "mma"),
         margin_bound=MARGIN_BOUND, min_checked=INT8_MIN_CHECKED_FRACTION),
+    # phase 17: Llama-2-7B at full width and depth in fp16, over fp16 pools
+    # and again over int8 pools (which dequantise into fp16), phase 2's
+    # traffic; "light": the launch and token checks only (the fp32 path
+    # check, the copy-on-write and the profiles are phase 2's)
+    "llama_fp16": dict(
+        label="Llama-2-7B fp16", model_name="llama2", vocab=32000,
+        quantized=False, precision="fp16", light=True,
+        flags=["--serve_max_model_len", "2048"],
+        norm=("rmsnorm_fp16", "B", lambda L: 2 * L + 1),
+        decode=("paged_decode_fp16", "A decode"),
+        prefill=("paged_prefill_fp16", "A prefill"),
+        variants=("simt", "mma"), token_prompts=(2, 5),
+        margin_bound=MARGIN_BOUND, min_checked=MIN_CHECKED_FRACTION),
+    "llama_fp16_int8": dict(
+        label="Llama-2-7B fp16, int8 pools", model_name="llama2",
+        vocab=32000, quantized=True, precision="fp16", light=True,
+        flags=["--int8_kv_cache", "--serve_max_model_len", "2048"],
+        norm=("rmsnorm_fp16", "B", lambda L: 2 * L + 1),
+        decode=("paged_decode_int8_fp16", "A' decode"),
+        prefill=("paged_prefill_int8_fp16", "A' prefill"),
+        # one query row a KV group at decode (MHA), 64 in a prefill chunk
+        variants=("simt", "mma"), token_prompts=(5,),
+        margin_bound=MARGIN_BOUND, min_checked=INT8_MIN_CHECKED_FRACTION),
 }
 
 
@@ -1530,6 +1580,64 @@ def _add_launches(kernels, row, phase, n):
     k = kernels[row]
     k["launches"] = k.get("launches", 0) + n
     k.setdefault("launches_by_phase", {})[phase] = n
+
+
+def _serving_fp32_check(results, engine, spec, outs):
+    """The independent check: the no-cache forward launches no kernel; the
+    fp32 paged path takes the CUDA-core kernel only and agrees with it
+    (over plain pools, and over int8 ones within the drift bound)."""
+    # independent check: no-cache forward through no kernel; the fp32
+    # paged path takes the CUDA-core kernel only
+    before = _paged_variants()
+    diff, diff8, scale, std = _fp32_path_check(
+        engine.model, engine.params, outs[5][:-1], spec["quantized"])
+    moved = {k: v - before.get(k, 0)
+             for k, v in _paged_variants().items()
+             if v != before.get(k, 0)}
+    check(list(moved) == ["simt"],
+          f"the fp32 paged path launched {moved}, expected simt only")
+    tol = FP32_PLAIN_POOL_TOL if spec["quantized"] else FP32_LOGIT_TOL
+    log(f"  fp32 teacher-forced logits, paged over plain pools (its "
+        f"kernels) vs no-cache (none), {len(outs[5]) - 1} tokens: max "
+        f"|diff| {diff:.3g} (max |logit| {scale:.3g}, tolerance {tol})")
+    check(diff <= tol, f"fp32 paged vs no-cache logits differ by {diff}")
+    results["fp32_paged_vs_no_cache_max_abs"] = diff
+    if diff8 is not None:
+        log(f"  fp32 teacher-forced logits, paged over int8 pools vs "
+            f"no-cache: max |diff| {diff8:.3g}, {diff8 / std:.3g} of "
+            f"the logits' std {std:.3g} (bound "
+            f"{INT8_LOGIT_DRIFT_BOUND}: quantisation, not summation "
+            f"order)")
+        check(diff8 <= INT8_LOGIT_DRIFT_BOUND * std,
+              f"fp32 int8 paged vs no-cache logits differ by {diff8}, "
+              f"{diff8 / std} of their std")
+        check(diff8 > diff, "the int8 pools are as exact as the plain "
+                            "ones: they were not quantised")
+        results["fp32_int8_paged_vs_no_cache_max_abs"] = diff8
+        results["fp32_logit_std"] = std
+
+
+def _served_token_checks(results, engine, spec, prompts, outs, precision):
+    """The served greedy tokens of the prompts ``spec["token_prompts"]``
+    against the no-cache argmax in the served dtype, wherever its top-2
+    margin clears the spec's bound, with the spread of the two paths'
+    teacher-forced logits."""
+    for i in spec.get("token_prompts", (2, 5)):
+        n_sure, n_agree, n, spread = _token_check(
+            engine.model, engine.params, outs[i], len(prompts[i]),
+            spec["quantized"], spec["margin_bound"])
+        log(f"  {precision} no-cache check, prompt {len(prompts[i])}: "
+            f"{n_agree}/{n_sure} served tokens agree where the top-2 "
+            f"margin > {spec['margin_bound']} ({n} positions); {precision} "
+            f"teacher-forced logits, paged vs no-cache: "
+            + ", ".join(f"{k} {v:.4g}" for k, v in spread.items()))
+        results[f"{precision}_paged_vs_no_cache_prompt{len(prompts[i])}"] = \
+            dict(spread, checked=n_sure, agreed=n_agree, positions=n)
+        check(n_sure >= spec["min_checked"] * n,
+              f"only {n_sure}/{n} positions above the margin bound")
+        check(n_agree == n_sure,
+              f"no-cache forward disagrees at {n_sure - n_agree} "
+              f"positions")
 
 
 def serve_phase(results, kernels, spec):
@@ -1542,8 +1650,9 @@ def serve_phase(results, kernels, spec):
 
     new_tokens = 64
     vocab = spec["vocab"]
-    argv = ["--model_name", spec["model_name"], "--bf16", "--seed", "1234",
-            "--host", "127.0.0.1", "--port", "0",
+    precision = spec.get("precision", "bf16")
+    argv = ["--model_name", spec["model_name"], f"--{precision}", "--seed",
+            "1234", "--host", "127.0.0.1", "--port", "0",
             "--serve_engine"] + spec["flags"]
     args = build_parser().parse_args(argv)
     t0 = time.perf_counter()
@@ -1556,6 +1665,15 @@ def serve_phase(results, kernels, spec):
         f"{sorted(engine._st.pages[0])}")
     check(("k_pages_q" in engine._st.pages[0]) == spec["quantized"],
           f"pool arrays {sorted(engine._st.pages[0])}")
+    want_dt = {"bf16": torch.bfloat16, "fp16": torch.float16}[precision]
+    from megatron_llm_torch.tree import tree_leaves
+
+    dts = {t.dtype for t in tree_leaves(engine.params)}
+    pool_dts = {t.dtype for t in engine._st.pages[0].values()}
+    check(dts == {want_dt} and pool_dts == ({torch.int8, torch.float32}
+                                            if spec["quantized"]
+                                            else {want_dt}),
+          f"params {dts}, pools {pool_dts}: not served in {precision}")
     httpd = server.make_httpd("127.0.0.1", 0)
     port = httpd.server_address[1]
     srv = threading.Thread(target=server.run, daemon=True)
@@ -1648,51 +1766,10 @@ def serve_phase(results, kernels, spec):
         for row, key in (spec["decode"], spec["prefill"]):
             _add_launches(kernels, row, phase, launches[key])
 
-        # independent check: no-cache forward through no kernel; the fp32
-        # paged path takes the CUDA-core kernel only
-        before = _paged_variants()
-        diff, diff8, scale, std = _fp32_path_check(
-            engine.model, engine.params, outs[5][:-1], spec["quantized"])
-        moved = {k: v - before.get(k, 0)
-                 for k, v in _paged_variants().items()
-                 if v != before.get(k, 0)}
-        check(list(moved) == ["simt"],
-              f"the fp32 paged path launched {moved}, expected simt only")
-        tol = FP32_PLAIN_POOL_TOL if spec["quantized"] else FP32_LOGIT_TOL
-        log(f"  fp32 teacher-forced logits, paged over plain pools (its "
-            f"kernels) vs no-cache (none), {len(outs[5]) - 1} tokens: max "
-            f"|diff| {diff:.3g} (max |logit| {scale:.3g}, tolerance {tol})")
-        check(diff <= tol, f"fp32 paged vs no-cache logits differ by {diff}")
-        results["fp32_paged_vs_no_cache_max_abs"] = diff
-        if diff8 is not None:
-            log(f"  fp32 teacher-forced logits, paged over int8 pools vs "
-                f"no-cache: max |diff| {diff8:.3g}, {diff8 / std:.3g} of "
-                f"the logits' std {std:.3g} (bound "
-                f"{INT8_LOGIT_DRIFT_BOUND}: quantisation, not summation "
-                f"order)")
-            check(diff8 <= INT8_LOGIT_DRIFT_BOUND * std,
-                  f"fp32 int8 paged vs no-cache logits differ by {diff8}, "
-                  f"{diff8 / std} of their std")
-            check(diff8 > diff, "the int8 pools are as exact as the plain "
-                                "ones: they were not quantised")
-            results["fp32_int8_paged_vs_no_cache_max_abs"] = diff8
-            results["fp32_logit_std"] = std
-        for i in (2, 5):
-            n_sure, n_agree, n, spread = _token_check(
-                engine.model, engine.params, outs[i], len(prompts[i]),
-                spec["quantized"], spec["margin_bound"])
-            log(f"  bf16 no-cache check, prompt {len(prompts[i])}: "
-                f"{n_agree}/{n_sure} served tokens agree where the top-2 "
-                f"margin > {spec['margin_bound']} ({n} positions); bf16 "
-                f"teacher-forced logits, paged vs no-cache: "
-                + ", ".join(f"{k} {v:.4g}" for k, v in spread.items()))
-            results[f"bf16_paged_vs_no_cache_prompt{len(prompts[i])}"] = \
-                dict(spread, checked=n_sure, agreed=n_agree, positions=n)
-            check(n_sure >= spec["min_checked"] * n,
-                  f"only {n_sure}/{n} positions above the margin bound")
-            check(n_agree == n_sure,
-                  f"no-cache forward disagrees at {n_sure - n_agree} "
-                  f"positions")
+        if not spec.get("light"):
+            _serving_fp32_check(results, engine, spec, outs)
+        _served_token_checks(results, engine, spec, prompts, outs,
+                             precision)
 
         met = _get(port, "/metrics")[1]
         check(met["engine"]["paged_kernel"] == "cuda", "/metrics engine")
@@ -1714,6 +1791,8 @@ def serve_phase(results, kernels, spec):
         server.shutdown()
         engine.stop()
         srv.join(30)
+    if spec.get("light"):
+        return
     cow0 = engine.stats()["cow_copies"]
     hits = _cow_check(engine, [prompts[5], shared], [outs[5], outs2[0]])
     cow = engine.stats()["cow_copies"] - cow0
@@ -2908,6 +2987,365 @@ def phase1_times(gen, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 1, fp16: every kernel's fp16 variant against its plain version
+# ---------------------------------------------------------------------------
+
+# fp16 keeps 3 more mantissa bits than bf16, so its tolerance starts at an
+# eighth of bf16's.  Where the output reaches a magnitude whose fp16 step
+# (ulp) is larger, the tolerance is that one step: the kernel and the
+# plain version round the same fp32 value, and a last-bit fp32 difference
+# flips it to the neighbouring fp16 value where it sits on a tie.
+FP16_TOL = TOL["bf16"] / 8
+# gradients: error over the gradient's max-abs, as GRAD_TOL
+FP16_GRAD_TOL = GRAD_TOL["bf16"] / 8
+FP16_MAX = 65504.0
+
+
+def _fp16_tol(ref):
+    """FP16_TOL, or one fp16 step at ``ref``'s largest |value| where that
+    is more."""
+    m = ref.float().abs().max().item()
+    return max(FP16_TOL, 2.0 ** (math.floor(math.log2(m)) - 10)
+               if m > 0 else 0.0)
+
+
+def _nonfinite_rows(t):
+    """Indices of the rows (every axis but the last flattened) holding an
+    inf or a NaN."""
+    import torch
+
+    bad = ~torch.isfinite(t.reshape(-1, t.shape[-1])).all(-1)
+    return set(bad.nonzero().flatten().tolist())
+
+
+def _fp16_row(name, source, replaces, err, **extra):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                dtype="fp16", max_abs_err=err, **extra)
+
+
+def phase1_fp16(results):
+    """Kernels A, A', B-H in fp16 at their main paths' shapes against their
+    plain versions (FP16_TOL), the backward kernels also on inputs holding
+    an inf and a NaN (non-finite in the plain version's rows), each timed
+    beside its plain version and one library call in fp16, on inputs from
+    their own generator (the bf16 and fp32 cases keep theirs).  Fills the
+    fp16 rows of the kernels line (``*_fp16``)."""
+    import torch
+
+    from megatron_llm_torch.ops.kernels import flash_attention as fa
+    from megatron_llm_torch.ops.kernels import layernorm as ln
+    from megatron_llm_torch.ops.kernels import paged_attention as pa
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
+    from megatron_llm_torch.quantization import absmax_quantize_int8
+
+    gen = torch.Generator(device="cuda").manual_seed(1616)
+    f16 = torch.float16
+    sm = _sm_count()
+    src_norm = "megatron_llm_torch/csrc/layernorm.cu"
+    src_flash = "megatron_llm_torch/csrc/flash_attention.cu"
+    src_paged = "megatron_llm_torch/csrc/paged_attention.cu"
+    pallas = "megatron_llm_tpu/ops/pallas/"
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(f16)
+
+    def nonfinite_check(what, got, want):
+        g, w = _nonfinite_rows(got), _nonfinite_rows(want)
+        check(g == w and g, f"{what}: non-finite rows {sorted(g)[:8]} "
+                            f"against the plain version's {sorted(w)[:8]}")
+        return len(g)
+
+    # -- B and D: the norm forwards ---------------------------------------
+    # serving's decode and prefill rows and the training rows (B: Llama's
+    # 4096 columns; D: GPT-2 345M's 1024), parameters in fp16 (the
+    # models') and in fp32
+    for key, rows, h in (("B", (8, 64, 1000, 4096), 4096),
+                         ("D", (8, 4096), 1024)):
+        err = 0.0
+        for n in rows:
+            x = randn(n, h, scale=3.0)
+            for pdt in (f16, torch.float32):
+                s = (torch.rand(h, device="cuda", generator=gen) * 0.4
+                     + 0.4).to(pdt)
+                b = (torch.randn(h, device="cuda", generator=gen)
+                     * 0.1).to(pdt)
+                if key == "B":
+                    y, r = rn.rms_norm_fwd_kernel(x, s, 1e-5)
+                    y0, r0 = rn.rms_norm_fwd_plain(x, s, 1e-5)
+                    stats = [(r, r0)]
+                else:
+                    y, mu, r = ln.layer_norm_fwd_kernel(x, s, b, 1e-5)
+                    y0, mu0, r0 = ln.layer_norm_fwd_plain(x, s, b, 1e-5)
+                    stats = [(mu, mu0), (r, r0)]
+                torch.cuda.synchronize()
+                check(y.dtype == f16, f"{key} fp16 gave {y.dtype}")
+                e = (y.float() - y0.float()).abs().max().item()
+                tol = _fp16_tol(y0)
+                e_st = max((a - b_).abs().max().item() for a, b_ in stats)
+                log(f"  {key} fp16 [{n}, {h}], parameters {pdt}: max_abs_err "
+                    f"{e:.3g} (tolerance {tol:.3g}), statistics {e_st:.3g}")
+                check(e <= tol and e_st <= 1e-5,
+                      f"{key} fp16 [{n}, {h}] {pdt}: {e} > {tol} or "
+                      f"statistics {e_st}")
+                err = max(err, e)
+        row = "rmsnorm_fp16" if key == "B" else "layernorm_fp16"
+        results[row] = _fp16_row(
+            "rmsnorm_fwd_fp16" if key == "B" else "layernorm_fwd_fp16",
+            src_norm, pallas + ("rmsnorm.py:56" if key == "B"
+                                else "layernorm.py:50"), err)
+
+    # -- C and E: the norm backwards, then on an inf and a NaN ------------
+    for key, (n, h) in (("C", (4096, 4096)), ("C", (1000, 4096)),
+                        ("E", (4096, 1024))):
+        x, g = randn(n, h, scale=3.0), randn(n, h)
+        s = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(f16)
+        b = torch.zeros(h, device="cuda", dtype=f16)
+        if key == "C":
+            _, r = rn.rms_norm_fwd_plain(x, s, 1e-5)
+            run = lambda g_: rn.rms_norm_bwd_kernel(x, s, g_, r)
+            plain = lambda g_: rn.rms_norm_bwd_plain(x, s, g_, r)
+        else:
+            _, mu, r = ln.layer_norm_fwd_plain(x, s, b, 1e-5)
+            run = lambda g_: ln.layer_norm_bwd_kernel(x, s, g_, mu, r)
+            plain = lambda g_: ln.layer_norm_bwd_plain(x, s, g_, mu, r)
+        got, want = run(g), plain(g)
+        torch.cuda.synchronize()
+        e = max((a.float() - w.float()).abs().max().item()
+                / w.float().abs().max().item() for a, w in zip(got, want))
+        # an inf in row n // 3 and a NaN in row n - 2 of the gradient: the
+        # same non-finite dx rows, and non-finite column sums
+        bad = g.clone()
+        bad[n // 3, 5] = float("inf")
+        bad[n - 2, 7] = float("nan")
+        gb, wb = run(bad), plain(bad)
+        torch.cuda.synchronize()
+        rows = nonfinite_check(f"{key} fp16 [{n}, {h}] dx", gb[0], wb[0])
+        for a, w in zip(gb[1:], wb[1:]):
+            check(not bool(torch.isfinite(a).all())
+                  and set((~torch.isfinite(a)).nonzero().flatten().tolist())
+                  == set((~torch.isfinite(w)).nonzero().flatten().tolist()),
+                  f"{key} fp16 [{n}, {h}]: the column sums' non-finite "
+                  f"entries differ from the plain version's")
+        log(f"  {key} fp16 [{n}, {h}]: error / max-abs {e:.3g} (tolerance "
+            f"{FP16_GRAD_TOL}); an inf and a NaN in g: {rows} non-finite dx "
+            f"rows and the column sums' non-finite entries as the plain "
+            f"version's")
+        check(e <= FP16_GRAD_TOL, f"{key} fp16 [{n}, {h}]: {e}")
+        row = "rmsnorm_bwd_fp16" if key == "C" else "layernorm_bwd_fp16"
+        prev = results.get(row, {}).get("max_abs_err", 0.0)
+        results[row] = _fp16_row(
+            "rmsnorm_bwd_fp16" if key == "C" else "layernorm_bwd_fp16",
+            src_norm, pallas + ("rmsnorm.py:64" if key == "C"
+                                else "layernorm.py:62"), max(prev, e))
+        del x, g, bad, got, want, gb, wb
+    torch.cuda.empty_cache()
+
+    # -- F, G and H: Llama-2-7B's training attention (G at 4096, H at
+    # 1000), MHA d 128 and Falcon's MQA d 64, then an inf and a NaN in dO
+    ferr = gerr = herr = 0.0
+    for b_, s_, nh, ng, d in ((1, 4096, 32, 32, 128), (1, 1000, 32, 32, 128),
+                              (1, 2048, 71, 1, 64), (1, 1000, 71, 1, 64)):
+        q, do = randn(b_, s_, nh, d), randn(b_, s_, nh, d)
+        k, v = randn(b_, s_, ng, d), randn(b_, s_, ng, d)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa.flash_attention_fwd_kernel(q, k, v, True, None, scale)
+        o0, lse0 = _reference_by_group(fa, q, k, v, True, None, scale)
+        torch.cuda.synchronize()
+        ef = max((o.float() - o0.float()).abs().max().item(),
+                 (lse - lse0).abs().max().item())
+        check(ef <= _fp16_tol(o0), f"F fp16 s={s_} nh={nh}: {ef}")
+        ferr = max(ferr, ef)
+        grads = fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, True,
+                                              None, scale)
+        want = _reference_by_group(fa, q, k, v, True, None, scale,
+                                   grads_of=(o, lse, do))
+        torch.cuda.synchronize()
+        _, eg = _grad_errors(grads, want)
+        kind = "G" if fa.uses_fused_backward(s_, s_) else "H"
+        # both in the last query row, which every key reaches: the plain
+        # version's products carry a NaN of dO to every key (0 * NaN where
+        # the mask zeroes P), the kernels to the keys they visit
+        bad = do.clone()
+        bad[0, s_ - 1, 3, 0] = float("inf")
+        bad[0, s_ - 1, 1, 2] = float("nan")
+        gb = fa.flash_attention_bwd_kernel(q, k, v, o, lse, bad, True, None,
+                                           scale)
+        wb = _reference_by_group(fa, q, k, v, True, None, scale,
+                                 grads_of=(o, lse, bad))
+        torch.cuda.synchronize()
+        n_bad = [nonfinite_check(f"{kind} fp16 s={s_} nh={nh} {name}",
+                                 a.transpose(1, 2), w.transpose(1, 2))
+                 for name, a, w in zip(("dq", "dk", "dv"), gb, wb)]
+        log(f"  F/{kind} fp16 b={b_} s={s_} nh={nh} g={ng} d={d} causal: F "
+            f"max_abs_err {ef:.3g}; {kind} error / max-abs {eg:.3g} "
+            f"(tolerance {FP16_GRAD_TOL}); an inf and a NaN in dO: "
+            f"non-finite (batch, head) rows of dq, dk, dv {n_bad}, as the "
+            f"plain version's")
+        check(eg <= FP16_GRAD_TOL, f"{kind} fp16 s={s_} nh={nh}: {eg}")
+        if kind == "G":
+            gerr = max(gerr, eg)
+        else:
+            herr = max(herr, eg)
+        del q, k, v, do, o, lse, o0, lse0, grads, want, bad, gb, wb
+        torch.cuda.empty_cache()
+    results["flash_fwd_fp16"] = _fp16_row(
+        "flash_attention_fwd_fp16", src_flash,
+        pallas + "flash_attention.py:93", ferr)
+    results["flash_bwd_fused_fp16"] = _fp16_row(
+        "flash_attention_bwd_fused_fp16", src_flash,
+        pallas + "flash_attention.py:345", gerr)
+    results["flash_bwd_fp16"] = _fp16_row(
+        "flash_attention_bwd_two_pass_fp16", src_flash,
+        pallas + "flash_attention.py:213,276", herr)
+
+    # -- A and A': Llama-2-7B's decode and prefill over fp16 and int8 pools
+    perr = {}
+    for kind, (S, C, ctx) in (("decode", (8, 1, [0, 37, 100, 513, 1000, 1200,
+                                                 1500, 2000])),
+                              ("prefill", (2, 64, [0, 1000]))):
+        q, kp, vp, bt, cl = _paged_case(gen, S, C, 32, 32, 128, 16, 128, ctx,
+                                        f16)
+        kq, ks = absmax_quantize_int8(kp, axis=-1)
+        vq, vs = absmax_quantize_int8(vp, axis=-1)
+        for quantized, pools in ((False, (kp, vp, (None, None))),
+                                 (True, (kq, vq, (ks, vs)))):
+            out, ref = _run_paged(pa, q, pools[0], pools[1], bt, cl, pools[2],
+                                  None)
+            torch.cuda.synchronize()
+            variant = _paged_plan(pa, q, pools[0], bt, quantized)[0]
+            e, rel = _paged_errors(out, ref)
+            tol = _fp16_tol(ref)
+            what = (f"{'int8 ' if quantized else ''}paged attention {kind} "
+                    f"fp16 ({variant})")
+            log(f"  {what}: max_abs_err {e:.3g} (tolerance {tol:.3g}); "
+                f"row-relative {rel:.3g}")
+            check(out.dtype == f16 and math.isfinite(e) and e <= tol,
+                  f"{what}: {e} > {tol}")
+            perr[(kind, quantized)] = e
+    for kind in ("decode", "prefill"):
+        results[f"paged_{kind}_fp16"] = _fp16_row(
+            f"paged_attention_{kind}_fp16", src_paged,
+            pallas + "paged_attention.py:133", perr[(kind, False)])
+        results[f"paged_{kind}_int8_fp16"] = _fp16_row(
+            f"paged_attention_{kind}_int8_fp16", src_paged,
+            pallas + "paged_attention.py:217", perr[(kind, True)])
+    phase1_fp16_times(gen, results)
+
+
+def phase1_fp16_times(gen, results):
+    """The fp16 rows timed at the bf16 rows' shapes: the kernel (eager, the
+    host issuing it), its plain version and one library call in fp16
+    (SDPA, ``F.rms_norm``, ``F.layer_norm`` and their backwards), and the
+    bf16 row's bound (H100's dense fp16 and bf16 peaks are equal)."""
+    import torch
+    import torch.nn.functional as F
+
+    from megatron_llm_torch.ops.kernels import flash_attention as fa
+    from megatron_llm_torch.ops.kernels import layernorm as ln
+    from megatron_llm_torch.ops.kernels import paged_attention as pa
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
+
+    f16 = torch.float16
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(f16)
+
+    def put(row, shape, ms, plain_ms, library_ms, b, library):
+        results[row].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=b[0], bound_by=b[1], shape=shape)
+        _log_times(f"{row}", results[row], library)
+
+    # at the shapes of the bf16 rows: B at the decode rows, C at Llama's
+    # training rows, D and E at Falcon-7B's (the fp16 paths' D and E rows,
+    # GPT-2 345M's [4096, 1024], are held in phase1_fp16)
+    n, h = 8, 4096
+    x, s = randn(n, h), randn(h)
+    put("rmsnorm_fp16", f"x [{n}, {h}] fp16, no rstd (serving's call)",
+        _median_ms(lambda: rn.rms_norm_fwd_kernel(x, s, 1e-5, rstd=False)),
+        time_ms(lambda: rn.rms_norm_fwd_plain(x, s, 1e-5), iters=50),
+        _median_ms(lambda: F.rms_norm(x, (h,), s, 1e-5)),
+        bound(2 * n * h * 2 + h * 2, 4 * n * h, FP32_FLOPS), "F.rms_norm")
+    n, h = 4096, 4096
+    x, g, s = randn(n, h), randn(n, h), randn(h)
+    _, r = rn.rms_norm_fwd_plain(x, s, 1e-5)
+    xl, sl = (t.clone().requires_grad_(True) for t in (x, s))
+    yl = F.rms_norm(xl, (h,), sl, 1e-5)
+    put("rmsnorm_bwd_fp16", f"x, g [{n}, {h}] fp16",
+        _median_ms(lambda: rn.rms_norm_bwd_kernel(x, s, g, r), iters=50),
+        time_ms(lambda: rn.rms_norm_bwd_plain(x, s, g, r), iters=20),
+        _median_ms(lambda: torch.autograd.grad(yl, (xl, sl), g,
+                                               retain_graph=True), iters=50),
+        bound(3 * n * h * 2 + n * 4 + h * 2 + h * 4, 8 * n * h, FP32_FLOPS),
+        "F.rms_norm backward")
+    n, h = E_SHAPE
+    x, g, s, b = randn(n, h), randn(n, h), randn(h), randn(h)
+    put("layernorm_fp16", f"x [{n}, {h}] fp16",
+        _median_ms(lambda: ln.layer_norm_fwd_kernel(x, s, b, 1e-5)),
+        time_ms(lambda: ln.layer_norm_fwd_plain(x, s, b, 1e-5), iters=50),
+        _median_ms(lambda: F.layer_norm(x, (h,), s, b, 1e-5)),
+        bound(2 * n * h * 2 + 2 * h * 2 + 2 * n * 4, 8 * n * h, FP32_FLOPS),
+        "F.layer_norm")
+    _, mu, r = ln.layer_norm_fwd_plain(x, s, b, 1e-5)
+    xl, sl, bl = (t.clone().requires_grad_(True) for t in (x, s, b))
+    yl = F.layer_norm(xl, (h,), sl, bl, 1e-5)
+    put("layernorm_bwd_fp16", f"x, g [{n}, {h}] fp16",
+        _median_ms(lambda: ln.layer_norm_bwd_kernel(x, s, g, mu, r),
+                   iters=50),
+        time_ms(lambda: ln.layer_norm_bwd_plain(x, s, g, mu, r), iters=20),
+        _median_ms(lambda: torch.autograd.grad(yl, (xl, sl, bl), g,
+                                               retain_graph=True), iters=50),
+        bound(3 * n * h * 2 + 2 * n * 4 + h * 2 + 2 * h * 4, 12 * n * h,
+              FP32_FLOPS), "F.layer_norm backward")
+    del x, g, s, b, xl, sl, bl, yl, r, mu
+
+    # F and G at Llama-2-7B's training attention, H at its sequence-1000
+    # step
+    for rows, (b_, s_, nh, d) in ((("flash_fwd_fp16", "flash_bwd_fused_fp16"),
+                                   (1, 4096, 32, 128)),
+                                  ((None, "flash_bwd_fp16"),
+                                   (1, 1000, 32, 128))):
+        q, k, v, do = (randn(b_, s_, nh, d) for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        o, lse = fa.flash_attention_fwd_kernel(q, k, v, True, None, scale)
+        qr, kr, vr = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+        shape = f"b={b_} s={s_} nh={nh} d={d} causal fp16"
+        if rows[0]:
+            put(rows[0], shape,
+                time_ms(lambda: fa.flash_attention_fwd_kernel(
+                    q, k, v, True, None, scale), iters=10),
+                time_ms(lambda: fa._reference_attention(q, k, v, True, None,
+                                                        scale),
+                        iters=2, warmup=1),
+                time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), iters=10),
+                _attn_bound(b_, s_, nh, nh, d, None, False), "SDPA")
+        put(rows[1], shape,
+            time_ms(lambda: fa.flash_attention_bwd_kernel(
+                q, k, v, o, lse, do, True, None, scale), iters=10),
+            time_ms(lambda: fa._reference_attention_bwd(
+                q, k, v, o, lse, do, True, None, scale), iters=2, warmup=1),
+            time_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), dot,
+                                                retain_graph=True),
+                    iters=10),
+            _attn_bound(b_, s_, nh, nh, d, None, True), "SDPA backward")
+        del q, k, v, do, qt, kt, vt, dot, o, lse, qr, kr, vr, out
+        torch.cuda.empty_cache()
+
+    # A and A' at Llama-2-7B's serving shapes (context 1000)
+    for kind, (S, C) in (("decode", (8, 1)), ("prefill", (1, 64))):
+        for quantized in (False, True):
+            t = _time_paged(gen, pa, S, C, [1000] * S, 32, 32, 128,
+                            quantized, dtype=f16)
+            row = f"paged_{kind}{'_int8' if quantized else ''}_fp16"
+            results[row].update(t)
+            _log_times(row, t, "SDPA over a pre-gathered dense K/V")
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 5: the training slice at 7B width, 8 layers
 # ---------------------------------------------------------------------------
 
@@ -2949,10 +3387,10 @@ def _log_field(line, name):
     return float(m.group(1)) if m else None
 
 
-def _synthetic_batch(rng, micro, seq, vocab):
+def _synthetic_batch(rng, micro, seq, vocab, mb=1):
     import torch
 
-    toks = torch.from_numpy(rng.randint(0, vocab, (micro, 1, seq))).cuda()
+    toks = torch.from_numpy(rng.randint(0, vocab, (micro, mb, seq))).cuda()
     return {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1),
             "loss_mask": torch.ones(toks.shape, device="cuda")}
 
@@ -3108,6 +3546,14 @@ TRAINING = {
             "D": 0, "E": 0, "A": 0, "A'": 0},
         norm_rows={"B": "rmsnorm", "C": "rmsnorm_bwd"}),
 }
+# phase 17: Llama-2-7B's width in fp16, 4 layers, 28 iterations of the
+# entry point (from 2^32 the scaler needs ~12 overflowing steps to
+# settle, and at least FP16_MIN_APPLIED steps must then apply), the fixed
+# batch from 2^32 (``_fp16_fixed_batch``) and the step at sequence 1000;
+# no fp32 check (phase 3's)
+TRAINING["llama_fp16"] = dict(
+    TRAINING["llama"], label="Llama-2-7B fp16", precision="fp16",
+    layers=4, iters=28)
 
 
 def _check_variants(counts, dtype, d, what):
@@ -3125,91 +3571,18 @@ def _check_variants(counts, dtype, d, what):
                        f"expected {want}")
 
 
-def train_phase(results, kernels, card, spec):
-    import contextlib
-    import gc
-    import io
-
-    import numpy as np
+def _bf16_fixed_batch(results, card, spec, model, batch, micro, seq):
+    """Phase 3's (2): a fixed batch, 5 steps of build_train_step in bf16:
+    the loss falls at every step; forward+backward and optimizer timed by
+    CUDA events; one more step under torch.profiler.  Returns (params,
+    state, step)."""
     import torch
 
-    from megatron_llm_torch import finetune, models
     from megatron_llm_torch.config import ParallelConfig, TrainConfig
     from megatron_llm_torch.optimizer import MegatronOptimizer
     from megatron_llm_torch.telemetry import ThroughputCalculator
     from megatron_llm_torch.training import build_train_step
 
-    L, micro, iters = spec.get("layers", 8), 2, 4
-    seq, vocab = spec["seq"], spec["vocab"]
-    phase = f"training {spec['label']}"
-    # (1) the entry point: the model's width cut to 8 of its 32 layers
-    argv = spec["flags"] + [
-        "--num_layers", str(L), "--seq_length", str(seq),
-        "--max_position_embeddings", str(seq), "--vocab_size", str(vocab),
-        "--bf16", "--micro_batch_size", "1", "--global_batch_size",
-        str(micro), "--train_iters", str(iters), "--lr", "1e-4",
-        "--clip_grad", "1.0", "--log_interval", "1", "--seed", "1234"]
-    log(f"  finetune.main({' '.join(argv)})")
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
-    out = io.StringIO()
-    t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(out):
-            done = finetune.main(argv)
-    finally:
-        for line in out.getvalue().splitlines():
-            log(f"  | {line}")
-    wall = time.perf_counter() - t0
-    counts = _counts()
-    peak_main = torch.cuda.max_memory_allocated()
-    lines = [ln for ln in out.getvalue().splitlines()
-             if ln.startswith(" iteration")]
-    check(done == iters and len(lines) == iters,
-          f"{done} iterations, {len(lines)} log lines")
-    losses = [_log_field(ln, "lm loss") for ln in lines]
-    norms = [_log_field(ln, "grad norm") for ln in lines]
-    check(all(x is not None and math.isfinite(x) for x in losses + norms),
-          f"non-finite loss or grad norm: {losses} {norms}")
-    # random weights predict no better than chance: the first loss is at
-    # least ln V; above it by at most first_loss_excess
-    excess = spec.get("first_loss_excess", 1.5)
-    check(math.log(vocab) <= losses[0]
-          and (excess is None or losses[0] <= math.log(vocab) + excess),
-          f"first loss {losses[0]} outside [ln {vocab}, ln {vocab} + "
-          f"{excess}]")
-    per_step = {k: v / iters for k, v in counts.items()}
-    want = spec["per_step"](L, micro)
-    norm_plans = _norm_plan_launches(counts)
-    log(f"  launches per step {per_step} (expected {want}); norm launches "
-        f"by plan {norm_plans}; peak memory {peak_main / 2**30:.2f} GiB; "
-        f"{wall:.1f} s for {iters} iterations")
-    check(per_step == want, f"launches per step {per_step} != {want}")
-    _check_variants(counts, torch.bfloat16, spec["head_dim"],
-                    f"finetune.main, {iters} iterations")
-    step_ms = [_log_field(ln, "elapsed time per iteration (ms)")
-               for ln in lines]
-    results["entry_point"] = dict(
-        losses=losses, grad_norms=norms, step_ms=step_ms,
-        tokens_per_sec=[_log_field(ln, "tokens per second")
-                        for ln in lines],
-        mfu_pct=[_log_field(ln, "MFU") for ln in lines],
-        launches=counts, norm_plan_launches=norm_plans,
-        peak_memory_gib=peak_main / 2**30, wall_secs=wall)
-    _add_launches(kernels, "flash_fwd", phase, counts["F"])
-    _add_launches(kernels, "flash_bwd_fused", phase, counts["G"])
-    for key, row in spec["norm_rows"].items():
-        _add_launches(kernels, row, phase, counts[key])
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # (2) a fixed batch, 5 steps of build_train_step: the loss falls at
-    # every step; forward+backward and optimizer timed by CUDA events
-    model_cls, config_fn = (getattr(models, n) for n in spec["model"])
-    cfg = config_fn("7B", num_layers=L, seq_length=seq,
-                    max_position_embeddings=seq, params_dtype="bf16",
-                    compute_dtype="bf16")
-    model = model_cls(cfg)
     params = model.init(1234)
     lr = spec["lr"]
     tc = TrainConfig(micro_batch_size=1, global_batch_size=micro, lr=lr,
@@ -3229,8 +3602,6 @@ def train_phase(results, kernels, card, spec):
     opt = TimedOptimizer(tc, params_dtype=torch.bfloat16)
     state = opt.init(params)
     step = build_train_step(model, opt, ParallelConfig(), micro)
-    rng = np.random.RandomState(7)
-    batch = _synthetic_batch(rng, micro, seq, vocab)
     torch.cuda.reset_peak_memory_stats()
     fixed, totals, opts = [], [], []
     for i in range(5):
@@ -3296,6 +3667,110 @@ def train_phase(results, kernels, card, spec):
         f" ms + optimizer {opt_ms:.1f} ms; peak memory "
         f"{peak_fixed / 2**30:.2f} GiB; {model.num_params(params) / 1e9:.3f}"
         f" B params")
+    return params, state, step
+
+
+def train_phase(results, kernels, card, spec):
+    import contextlib
+    import gc
+    import io
+
+    import numpy as np
+    import torch
+
+    from megatron_llm_torch import finetune, models
+
+    L, micro, iters = spec.get("layers", 8), 2, spec.get("iters", 4)
+    seq, vocab = spec["seq"], spec["vocab"]
+    precision = spec.get("precision", "bf16")
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16}[precision]
+    # the kernels line's rows of this precision (fp16's end in _fp16)
+    sfx = "" if precision == "bf16" else f"_{precision}"
+    phase = f"training {spec['label']}"
+    # (1) the entry point: the model's width cut to L of its 32 layers
+    argv = spec["flags"] + [
+        "--num_layers", str(L), "--seq_length", str(seq),
+        "--max_position_embeddings", str(seq), "--vocab_size", str(vocab),
+        f"--{precision}", "--micro_batch_size", "1", "--global_batch_size",
+        str(micro), "--train_iters", str(iters), "--lr", "1e-4",
+        "--clip_grad", "1.0", "--log_interval", "1", "--seed", "1234"]
+    log(f"  finetune.main({' '.join(argv)})")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            done = finetune.main(argv)
+    finally:
+        for line in out.getvalue().splitlines():
+            log(f"  | {line}")
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak_main = torch.cuda.max_memory_allocated()
+    lines = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith(" iteration")]
+    check(done == iters and len(lines) == iters,
+          f"{done} iterations, {len(lines)} log lines")
+    losses = [_log_field(ln, "lm loss") for ln in lines]
+    norms = [_log_field(ln, "grad norm") for ln in lines]
+    # fp16: the scale from 2^32 by the scaler's rule; an overflowing
+    # step's grad norm is not finite
+    scaler = (_fp16_log(lines, f"finetune.main --{precision}")
+              if precision == "fp16" else {})
+    applied = [i for i in range(iters) if not scaler.get(
+        "skipped", [0] * iters)[i]]
+    check(all(x is not None and math.isfinite(x) for x in losses)
+          and all(math.isfinite(norms[i]) for i in applied),
+          f"non-finite loss or grad norm: {losses} {norms}")
+    # random weights predict no better than chance: the first loss is at
+    # least ln V; above it by at most first_loss_excess
+    excess = spec.get("first_loss_excess", 1.5)
+    check(math.log(vocab) <= losses[0]
+          and (excess is None or losses[0] <= math.log(vocab) + excess),
+          f"first loss {losses[0]} outside [ln {vocab}, ln {vocab} + "
+          f"{excess}]")
+    per_step = {k: v / iters for k, v in counts.items()}
+    want = spec["per_step"](L, micro)
+    norm_plans = _norm_plan_launches(counts)
+    log(f"  launches per step {per_step} (expected {want}); norm launches "
+        f"by plan {norm_plans}; peak memory {peak_main / 2**30:.2f} GiB; "
+        f"{wall:.1f} s for {iters} iterations")
+    check(per_step == want, f"launches per step {per_step} != {want}")
+    _check_variants(counts, dtype, spec["head_dim"],
+                    f"finetune.main, {iters} iterations")
+    step_ms = [_log_field(ln, "elapsed time per iteration (ms)")
+               for ln in lines]
+    results["entry_point"] = dict(
+        losses=losses, grad_norms=norms, step_ms=step_ms,
+        tokens_per_sec=[_log_field(ln, "tokens per second")
+                        for ln in lines],
+        mfu_pct=[_log_field(ln, "MFU") for ln in lines],
+        launches=counts, norm_plan_launches=norm_plans,
+        peak_memory_gib=peak_main / 2**30, wall_secs=wall, **scaler)
+    _add_launches(kernels, "flash_fwd" + sfx, phase, counts["F"])
+    _add_launches(kernels, "flash_bwd_fused" + sfx, phase, counts["G"])
+    for key, row in spec["norm_rows"].items():
+        _add_launches(kernels, row + sfx, phase, counts[key])
+    gc.collect()
+    torch.cuda.empty_cache()
+    model_cls, config_fn = (getattr(models, n) for n in spec["model"])
+    cfg = config_fn("7B", num_layers=L, seq_length=seq,
+                    max_position_embeddings=seq, params_dtype=precision,
+                    compute_dtype=precision)
+    model = model_cls(cfg)
+    lr = spec["lr"]
+    rng = np.random.RandomState(7)
+    batch = _synthetic_batch(rng, micro, seq, vocab)
+    if precision == "fp16":
+        # (2) the fixed batch from the scale 2^32 (the skipped steps'
+        # state, the applied steps' falling loss, the largest |dS|)
+        params, state, step, results["fixed_batch"] = _fp16_fixed_batch(
+            spec["label"], model, model.init(1234), batch, micro, lr,
+            probe_ds=True)
+    else:
+        params, state, step = _bf16_fixed_batch(results, card, spec, model,
+                                                batch, micro, seq)
 
     # (3) one step at sequence 1000, which takes the two-pass backward
     batch = _synthetic_batch(rng, micro, 1000, vocab)
@@ -3309,13 +3784,16 @@ def train_phase(results, kernels, card, spec):
     check(counts_h["H"] == L * micro and counts_h["G"] == 0
           and counts_h["F"] == L * micro,
           f"H step launches {counts_h}")
-    _check_variants(counts_h, torch.bfloat16, spec["head_dim"],
+    _check_variants(counts_h, dtype, spec["head_dim"],
                     "step at sequence 1000")
-    _add_launches(kernels, "flash_bwd", phase, counts_h["H"])
-    results["h_step"] = dict(loss=float(m["lm loss"]), launches=counts_h)
-    del params, state, m, step, opt, batch
+    _add_launches(kernels, "flash_bwd" + sfx, phase, counts_h["H"])
+    results["h_step"] = dict(loss=float(m["lm loss"]), launches=counts_h,
+                             skipped=int(m["skipped_iter"]))
+    del params, state, m, step, batch, model
     gc.collect()
     torch.cuda.empty_cache()
+    if precision != "bf16":
+        return
 
     # (4) the independent check in fp32: kernels against the plain path,
     # at sequence 1024 (backward G) and at 1000 (backward H, on the
@@ -3345,12 +3823,215 @@ def train_phase(results, kernels, card, spec):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: fp16 -- serving (SERVING["llama_fp16*"]), Llama-2-7B's width
+# trained, GPT-2 345M pretrained (gpt2_phase with fp16)
+# ---------------------------------------------------------------------------
+
+# the fp16 runs apply at least this many steps after the scale settles;
+# GPT-2 345M's run takes 30 iterations (3 evaluations)
+FP16_MIN_APPLIED, FP16_GPT2_ITERS = 5, 30
+
+
+def _scaler_rule(skipped, initial=2.0 ** 32, hysteresis=2, window=1000):
+    """The scale of each step under the dynamic scaler's rule
+    (optimizer/grad_scaler.py: an overflow takes one from the hysteresis
+    and halves the scale once it is spent, a clean step restores it, and
+    ``window`` clean steps in a row double the scale), for the steps'
+    skipped flags."""
+    scale, hys, growth, out = initial, hysteresis, 0, []
+    for s in skipped:
+        out.append(scale)
+        if s:
+            hys, growth = hys - 1, 0
+            if hys <= 0:
+                scale = max(scale / 2, 1.0)
+        else:
+            hys, growth = hysteresis, growth + 1
+            if growth >= window:
+                scale, growth = scale * 2, 0
+    return out
+
+
+def _fp16_log(lines, what):
+    """The loss scale, skipped flag and loss of each iteration line of an
+    fp16 run, checked: the scale follows the scaler's rule from 2^32, at
+    least FP16_MIN_APPLIED steps apply, and their losses are finite."""
+    its = [ln for ln in lines if ln.startswith(" iteration")]
+    scales = [_log_field(ln, "loss scale") for ln in its]
+    skipped = [int(_log_field(ln, "skipped iterations")) for ln in its]
+    losses = [_log_field(ln, "lm loss") for ln in its]
+    check(scales == _scaler_rule(skipped),
+          f"{what}: loss scales {scales} do not follow the scaler's rule "
+          f"for the skipped steps {skipped}")
+    applied = [x for x, s in zip(losses, skipped) if not s]
+    check(len(applied) >= FP16_MIN_APPLIED
+          and all(math.isfinite(x) for x in applied),
+          f"{what}: {len(applied)} applied steps, losses {applied}")
+    first = skipped.index(0)
+    log(f"  {what}: loss scale from 2^32 to 2^{math.log2(scales[first]):g} "
+        f"at iteration {first + 1}; {sum(skipped)} of {len(its)} iterations "
+        f"skipped ({[i + 1 for i, s in enumerate(skipped) if s][-3:]} the "
+        f"last); applied losses {applied[0]:.4f} ... {applied[-1]:.4f}")
+    return dict(loss_scale=scales, skipped=skipped,
+                settled_iteration=first + 1, settled_scale=scales[first],
+                skipped_count=sum(skipped))
+
+
+def _max_ds(q, k, v, o, lse, do, scale):
+    """The largest |dS| = |P (dP - delta)| of a causal flash backward on
+    these inputs (batch 0), in fp32 from the plain formulas, one head at a
+    time: the value the kernels round to fp16 before dQ and dK."""
+    import torch
+
+    s, nh = q.shape[1], q.shape[2]
+    qpg = nh // k.shape[2]
+    vis = torch.ones(s, k.shape[1], dtype=torch.bool,
+                     device=q.device).tril()
+    m = torch.zeros((), device=q.device)
+    for h in range(nh):
+        g = h // qpg
+        qh, kh, vh = q[0, :, h].float(), k[0, :, g].float(), v[0, :, g].float()
+        doh = do[0, :, h].float()
+        p = torch.exp(qh @ kh.T * scale - lse[0, h][:, None]) * vis
+        delta = (doh * o[0, :, h].float()).sum(-1, keepdim=True)
+        m = torch.maximum(m, (p * (doh @ vh.T - delta)).abs().max())
+    return m.item()
+
+
+@contextlib.contextmanager
+def _ds_probe(found):
+    """Record in ``found`` the largest |dS| of every flash backward while
+    the context is open (``_max_ds`` on the kernel's own inputs)."""
+    from megatron_llm_torch.ops.kernels import flash_attention as fa
+
+    real = fa.flash_attention_bwd_kernel
+
+    def probed(q, k, v, o, lse, do, causal, window, scale):
+        found.append(_max_ds(q, k, v, o, lse, do, scale))
+        return real(q, k, v, o, lse, do, causal, window, scale)
+
+    fa.flash_attention_bwd_kernel = probed
+    try:
+        yield
+    finally:
+        fa.flash_attention_bwd_kernel = real
+
+
+def _fp16_fixed_batch(label, model, params, batch, micro, lr, probe_ds,
+                      mb=1, max_steps=40):
+    """Steps of ``build_train_step`` on one fixed batch in fp16 from the
+    default scale 2^32 until FP16_MIN_APPLIED steps apply.  Every skipped
+    step keeps every parameter, master and moment bit for bit and the
+    Adam step count; every applied step lowers the next step's loss (the
+    same batch); the scales follow the scaler's rule.  With
+    ``probe_ds``, the first applied step's largest |dS| over its flash
+    backwards.  Returns (params, state, step, the record)."""
+    import torch
+
+    from megatron_llm_torch.config import ParallelConfig, TrainConfig
+    from megatron_llm_torch.optimizer import MegatronOptimizer
+    from megatron_llm_torch.training import build_train_step
+    from megatron_llm_torch.tree import tree_leaves
+
+    tc = TrainConfig(micro_batch_size=mb, global_batch_size=micro * mb,
+                     lr=lr, fp16=True, clip_grad=1.0)
+    opt = MegatronOptimizer(tc, params_dtype=torch.float16)
+    state = opt.init(params)
+    check({t.dtype for t in tree_leaves(params)} == {torch.float16}
+          and {t.dtype for t in tree_leaves(state.master_params)
+               + tree_leaves(state.exp_avg) + tree_leaves(state.exp_avg_sq)}
+          == {torch.float32},
+          f"{label}: params, masters or moments in the wrong dtype")
+    step = build_train_step(model, opt, ParallelConfig(), micro)
+    rows, ds = [], []
+    while (sum(not r["skipped"] for r in rows) < FP16_MIN_APPLIED
+           and len(rows) < max_steps):
+        leaves = (tree_leaves(params) + tree_leaves(state.master_params)
+                  + tree_leaves(state.exp_avg)
+                  + tree_leaves(state.exp_avg_sq))
+        before = [t.clone() for t in leaves]
+        n0 = state.step
+        probing = probe_ds and rows and not rows[-1]["skipped"] and not ds
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        with (_ds_probe(ds) if probing else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            e0.record()
+            params, state, m = step(params, state, batch, None, lr, 0.01)
+            e1.record()
+            torch.cuda.synchronize()
+        skipped = bool(m["skipped_iter"])
+        if skipped:
+            check(state.step == n0 and all(
+                torch.equal(a, b) for a, b in zip(leaves, before)),
+                f"{label}: skipped step {len(rows) + 1} changed a "
+                f"parameter, master or moment, or the step count")
+        else:
+            check(state.step == n0 + 1, f"{label}: the step count did not "
+                                        f"advance on an applied step")
+        del before
+        rows.append(dict(loss=float(m["lm loss"]),
+                         scale=float(m["loss_scale"]), skipped=skipped,
+                         ms=e0.elapsed_time(e1), probed=bool(probing)))
+    skipped = [r["skipped"] for r in rows]
+    check(sum(not s for s in skipped) >= FP16_MIN_APPLIED,
+          f"{label}: {sum(not s for s in skipped)} steps applied in "
+          f"{len(rows)}")
+    check([r["scale"] for r in rows] == _scaler_rule(skipped),
+          f"{label}: scales {[r['scale'] for r in rows]}")
+    losses = [r["loss"] for r in rows]
+    check(all(math.isfinite(x) for x, s in zip(losses, skipped) if not s),
+          f"{label}: a non-finite applied loss {losses}")
+    for i in range(len(rows) - 1):
+        if not skipped[i]:
+            check(losses[i + 1] < losses[i],
+                  f"{label}: the loss rose after applied step {i + 1}: "
+                  f"{losses[i]} -> {losses[i + 1]}")
+    ms = sorted(r["ms"] for r in rows[1:] if not r["probed"])
+    rec = dict(steps=rows, skipped_count=sum(skipped),
+               settled_scale=rows[skipped.index(False)]["scale"],
+               median_step_ms=ms[len(ms) // 2],
+               same_loss_after_skips=all(
+                   losses[i + 1] == losses[i] for i in range(len(rows) - 1)
+                   if skipped[i]))
+    if ds:
+        rec.update(max_abs_ds=max(ds), ds_over_fp16_max=max(ds) / FP16_MAX,
+                   ds_calls=len(ds))
+    log(f"  {label}, fixed batch from 2^32: {sum(skipped)} steps skipped "
+        f"(every parameter, master and moment kept its bits; the loss "
+        f"after each "
+        f"{'equal' if rec['same_loss_after_skips'] else 'not always equal'}"
+        f"), then {len(rows) - sum(skipped)} applied at scale "
+        f"{rec['settled_scale']:g}: losses "
+        + ", ".join(f"{x:.4f}" for x, s in zip(losses, skipped) if not s)
+        + f"; median step {rec['median_step_ms']:.1f} ms"
+        + (f"; largest |dS| {max(ds):.4g} over {len(ds)} backwards at the "
+           f"settled scale, {max(ds) / FP16_MAX:.3g} of fp16's 65504"
+           if ds else ""))
+    return params, state, step, rec
+
+
+def _entry_model(argv):
+    """The model an entry point builds for ``argv`` (finetune's parser, the
+    family's defaults and ``model_provider``)."""
+    from megatron_llm_torch import finetune
+
+    args = finetune.parse_args(list(argv),
+                               extra_args_provider=finetune.extra_args)
+    finetune._apply_model_defaults(args, list(argv))
+    return finetune.model_provider(args)
+
+
+# ---------------------------------------------------------------------------
 # phase 7: train on an mmap corpus, save, resume, serve the checkpoint
 # ---------------------------------------------------------------------------
 
 # the corpus: random ids below 32000 (uint16), ~2000 documents of 100-4096
 # tokens, from one seed
 CORPUS = dict(docs=2000, min_len=100, max_len=4096, vocab=32000, seed=1234)
+# phase 7's depth: Llama-2-7B's width cut to 1 layer (2 until phase 17
+# needed the time: each checkpoint then held 9.3 GB)
+CORPUS_LAYERS = 1
 # characters of the served text prompts (~0.5 tokens a character under
 # the byte-pair vocabulary below)
 TEXT_PROMPT_CHARS = (200, 500, 800, 1100, 1400, 1800, 2200, 2800)
@@ -3554,7 +4235,7 @@ def _corpus_phase(results, kernels, card, synthetic_idle, work):
     from megatron_llm_torch.training import build_train_step
 
     spec = TRAINING["llama"]
-    L, micro, iters, seq = 2, 2, 4, spec["seq"]
+    L, micro, iters, seq = CORPUS_LAYERS, 2, 4, spec["seq"]
     phase = "corpus Llama-2-7B"
     # (1) the corpus, written by the port's builder
     prefix = os.path.join(work, "corpus_text_document")
@@ -3668,7 +4349,7 @@ def _corpus_phase(results, kernels, card, synthetic_idle, work):
         load=dict(bytes=load_b, secs=load_s, gb_per_s=load_b / load_s / 1e9),
         save_gb_per_s=save_gb_s)
 
-    # (4) the loader-fed step against a fixed device batch: 2 layers, the
+    # (4) the loader-fed step against a fixed device batch: L layers, the
     # same flags, a train step on the real loader's batches
     args = parse_args(common + ["--train_iters", "16"],
                       extra_args_provider=finetune.extra_args)
@@ -3709,7 +4390,7 @@ def _corpus_phase(results, kernels, card, synthetic_idle, work):
     def fmt(v):
         return "not measured" if v is None else f"{v:.3f}"
 
-    log(f"  2-layer step ({card}): on the loader's batches "
+    log(f"  {L}-layer step ({card}): on the loader's batches "
         f"{shares['loader']['step_ms']:.1f} ms, device idle share "
         f"{fmt(shares['loader']['idle_share'])}; on one batch kept on the "
         f"card {shares['fixed']['step_ms']:.1f} ms, idle share "
@@ -3830,7 +4511,7 @@ def _log_flash_build(build):
         if line.startswith("ptxas") and "warn" in line.lower():
             log(f"  {line.strip()}")
     lib = build.load_library()
-    for code, tag in ((1, "bf16"), (0, "fp32")):
+    for code, tag in ((1, "bf16"), (2, "fp16"), (0, "fp32")):
         for d in (64, 128, 256):
             smem = (ctypes.c_longlong * 4)()
             tiles = (ctypes.c_int * 8)()
@@ -3843,14 +4524,17 @@ def _log_flash_build(build):
                 f"{tuple(tiles[4:6])}, H dK/dV {tuple(tiles[6:8])}")
             check(max(smem) <= 232448, f"flash {tag} d={d}: {tuple(smem)} B"
                                        f" of shared memory")
-            dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[tag]
+            dt = {"bf16": torch.bfloat16, "fp16": torch.float16,
+                  "fp32": torch.float32}[tag]
             want = tuple(x for pair in fa.TILES[(dt, d)] for x in pair)
             check(tuple(tiles) == want, f"flash {tag} d={d}: the kernels' "
                   f"tiles {tuple(tiles)} differ from fa.TILES {want}")
 
 
 _NORM_TYPES = (("I13__nv_bfloat16S1_", "bf16/bf16"),
-               ("I13__nv_bfloat16f", "bf16/fp32"), ("Iff", "fp32/fp32"))
+               ("I13__nv_bfloat16f", "bf16/fp32"),
+               ("I6__halfS1_", "fp16/fp16"), ("I6__halff", "fp16/fp32"),
+               ("Iff", "fp32/fp32"))
 
 
 def _log_norm_build(build):
@@ -3975,9 +4659,10 @@ def _median(xs):
     return xs[len(xs) // 2] if xs else None
 
 
-def gpt2_phase(results, kernels, card):
-    """Phase 8 (see the module's docstring): in a directory under build/
-    that it deletes at the end."""
+def gpt2_phase(results, kernels, card, fp16=False):
+    """Phase 8 (see the module's docstring), or with ``fp16`` its fp16 run
+    in phase 17: in a directory under build/ that it deletes at the
+    end."""
     import shutil
 
     import torch
@@ -3986,14 +4671,15 @@ def gpt2_phase(results, kernels, card):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        _gpt2_phase(results, kernels, card, work)
+        _gpt2_phase(results, kernels, card, work, fp16)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
 
 
-def _gpt2_phase(results, kernels, card, work):
+def _gpt2_phase(results, kernels, card, work, fp16=False):
+    import numpy as np
     import torch
 
     from megatron_llm_torch import pretrain_gpt
@@ -4001,6 +4687,14 @@ def _gpt2_phase(results, kernels, card, work):
 
     L, micro, iters, evals, eval_iters = 24, 2, 20, 2, 10
     phase = "pretraining GPT-2 345M"
+    flags, dt, sfx = GPT2_FLAGS, torch.bfloat16, ""
+    if fp16:
+        # pretrain_gpt.sh's fp16 run: --fp16 in place of --bf16, and
+        # enough iterations for the scale to settle from 2^32
+        iters, evals, dt, sfx = FP16_GPT2_ITERS, FP16_GPT2_ITERS // 10, \
+            torch.float16, "_fp16"
+        flags = ["--fp16" if a == "--bf16" else a for a in GPT2_FLAGS]
+        phase += " fp16"
     prefix = os.path.join(work, "corpus_text_document")
     t0 = time.perf_counter()
     docs, tokens = write_corpus(prefix, GPT2_CORPUS)
@@ -4008,8 +4702,8 @@ def _gpt2_phase(results, kernels, card, work):
     log(f"  corpus: {docs} documents, {tokens} tokens below "
         f"{GPT2_CORPUS['vocab']} (uint16), byte-level BPE of "
         f"{GPT2_CORPUS['vocab']} ids, in {time.perf_counter() - t0:.1f} s")
-    common = GPT2_FLAGS + ["--data_path", prefix, "--vocab_file", vf,
-                           "--merge_file", mf]
+    common = flags + ["--data_path", prefix, "--vocab_file", vf,
+                      "--merge_file", mf]
 
     def argv(n, *extra):
         return common + ["--train_iters", str(n)] + list(extra)
@@ -4022,7 +4716,7 @@ def _gpt2_phase(results, kernels, card, work):
     check(any("padded vocab (size: 50257)" in ln and "50304" in ln
               for ln in lines), "the tokenizer did not pad 50257 to 50304")
     vals = [_log_field(ln, f"validation loss at iteration {i}")
-            for i in (10, 20) for ln in lines
+            for i in range(10, iters + 1, 10) for ln in lines
             if f"validation loss at iteration {i}:" in ln]
     check(len(vals) == evals and all(math.isfinite(v) for v in
                                      list(loss.values()) + vals),
@@ -4047,14 +4741,32 @@ def _gpt2_phase(results, kernels, card, work):
         f"{max(peaks['optimizer']):.2f} GiB; launches {counts} (expected "
         f"{want}); {wall:.1f} s")
     check(counts == want, f"GPT-2 launches {counts} != {want}")
-    _check_variants(counts, torch.bfloat16, 64, "GPT-2 345M evaluations")
+    _check_variants(counts, dt, 64, "GPT-2 345M evaluations")
     for key, row in (("F", "flash_fwd"), ("D", "layernorm"),
                      ("E", "layernorm_bwd")):
-        _add_launches(kernels, row, phase, counts[key])
+        _add_launches(kernels, row + sfx, phase, counts[key])
     results["dropout"] = dict(
         losses=loss, grad_norms=norm, eval_losses=vals, launches=counts,
         peak_fwd_bwd_gib=max(peaks["fwd_bwd"]),
         peak_optimizer_gib=max(peaks["optimizer"]), wall_secs=wall, **nums)
+    if fp16:
+        results["dropout"].update(_fp16_log(lines, "pretrain_gpt --fp16"))
+        # a fixed batch of pretrain_gpt.sh's shape (2 micro-batches of 4 x
+        # 1024) through build_train_step: the skipped steps' state, the
+        # applied steps' falling loss (no dropout: no random key)
+        model = _entry_model(
+            [a for a in flags if a not in ("--tokenizer_type",
+                                           "GPT2BPETokenizer")]
+            + ["--vocab_size", "50257", "--model_name=gpt"])
+        check(model.cfg.padded_vocab_size == 50304,
+              f"padded vocabulary {model.cfg.padded_vocab_size}")
+        batch = _synthetic_batch(np.random.RandomState(9), micro, 1024,
+                                 50257, mb=4)
+        _, _, _, fixed = _fp16_fixed_batch(
+            "GPT-2 345M fp16", model, model.init(1234), batch, micro, 5e-5,
+            probe_ds=False, mb=4)
+        results["fixed_batch"] = fixed
+        return
 
     # (2) the same run again, both dropouts at 0, full recompute, LIMA:
     # one iteration each (--exit_interval 1: the samples' order depends on
@@ -5676,6 +6388,10 @@ def _falcon_speculative_wave(results, kernels, card):
 # batches more than it trains, and the dataset holds train_iters global
 # batches (16)
 PHASE13_ITERS, PHASE13_TRAIN_ITERS, PHASE13_SIGTERM_AT = 14, 16, 10
+# Llama-2-7B's width cut to 1 layer for (a)-(c) (2 until the fp16 phases
+# needed the time: each save then writes 6.5 GB instead of 9.3) and to 4
+# for (d)'s costs (8 before)
+PHASE13_LAYERS, PHASE13_COST_LAYERS = 1, 4
 PHASE13_FAULTS = "nan@4,save_io*2"
 PHASE13_WATCHDOG_SECS = 5.0
 # the kernel names of the profiler window's rows, and their counters
@@ -5741,8 +6457,9 @@ finally:
 def _phase13_argv(work, prefix, vf, mf):
     """examples/finetune.sh llama2 --wandb's argv at tp 1 (module path, a
     BPE of 32000 ids for its SentencePiece model, the corpus of phase 7),
-    with Llama-2-7B's width cut to 2 layers, 2 warmup iterations (the
-    script's 100 exceed the run) and the exit at PHASE13_ITERS."""
+    with Llama-2-7B's width cut to PHASE13_LAYERS layers, 2 warmup
+    iterations (the script's 100 exceed the run) and the exit at
+    PHASE13_ITERS."""
     script = _example_argv(
         "finetune.sh", "llama2", "--tp=1", "--micro-batch=1",
         "--global-batch=2", f"--iters={PHASE13_TRAIN_ITERS}",
@@ -5752,7 +6469,8 @@ def _phase13_argv(work, prefix, vf, mf):
           f"the example runs {script[:1]} with {script[-2:]}")
     return [{"SentencePieceTokenizer": "GPT2BPETokenizer"}.get(a, a)
             for a in script[1:]] + [
-        "--vocab_file", vf, "--merge_file", mf, "--num_layers", "2",
+        "--vocab_file", vf, "--merge_file", mf, "--num_layers",
+        str(PHASE13_LAYERS),
         "--hidden_size", "4096", "--num_attention_heads", "32",
         "--ffn_hidden_size", "11008", "--seed", "1234", "--split",
         "98,2,0", "--lr_warmup_iters", "2", "--exit_interval",
@@ -5922,7 +6640,7 @@ def _phase13_loop(results, kernels, card, work, base, phase):
           f"(a) stream records {[r['iteration'] for r in records]}")
     # the launches: 12 steps (iterations 1-4, rewound to 2, then 3-10)
     steps = 12
-    want = TRAINING["llama"]["per_step"](2, 2)
+    want = TRAINING["llama"]["per_step"](PHASE13_LAYERS, 2)
     want = {k: v * steps for k, v in want.items()}
     counts = out["counts"]
     check(counts == want, f"(a) launches {counts} != {want}")
@@ -6026,7 +6744,7 @@ def _phase13_resume(results, kernels, card, work, base, phase, a):
           f"(b) the uninterrupted run's recovery counters {rec}")
     steps = PHASE13_ITERS + 2
     want = {k: v * steps for k, v in
-            TRAINING["llama"]["per_step"](2, 2).items()}
+            TRAINING["llama"]["per_step"](PHASE13_LAYERS, 2).items()}
     check(counts == want, f"(b) uninterrupted launches {counts} != {want}")
     # the resumed run: (a)'s argv, from the async signal save
     resume_argv = base + [
@@ -6060,7 +6778,7 @@ def _phase13_resume(results, kernels, card, work, base, phase, a):
         ckm.save_checkpoint = save0
     check(rit == PHASE13_ITERS, f"(b) the resumed run ended at {rit}")
     want_r = {k: v * (PHASE13_ITERS - PHASE13_SIGTERM_AT) for k, v in
-              TRAINING["llama"]["per_step"](2, 2).items()}
+              TRAINING["llama"]["per_step"](PHASE13_LAYERS, 2).items()}
     check(rcounts == want_r, f"(b) resumed launches {rcounts} != {want_r}")
     for key, row in (("F", "flash_fwd"), ("G", "flash_bwd_fused"),
                      ("B", "rmsnorm"), ("C", "rmsnorm_bwd")):
@@ -6075,8 +6793,8 @@ def _phase13_resume(results, kernels, card, work, base, phase, a):
           f"{[k for k in saved if loaded.get(k) != saved[k]][:3]}")
     # the async checkpoint's tensors against a synchronous save of the
     # same state, bit for bit
-    cfg = llama_config("7B", num_layers=2, params_dtype="bf16",
-                       compute_dtype="bf16")
+    cfg = llama_config("7B", num_layers=PHASE13_LAYERS,
+                       params_dtype="bf16", compute_dtype="bf16")
     tmpl = init_language_model_params(None, cfg, device="meta")
     otmpl = MegatronOptimizer(_phase13_tc(), params_dtype=torch.bfloat16
                               ).init(tmpl)
@@ -6136,8 +6854,8 @@ def _phase13_resume(results, kernels, card, work, base, phase, a):
         f"{loss_diff:.3g}; params: largest leaf distance {rel_l2:.3g} of "
         f"its norm, {rel_max:.3g} of its max-abs (G's atomic dq, through "
         f"Adam); uninterrupted run {wall:.1f} s; at iteration "
-        f"{PHASE13_ITERS} a synchronous save of the 2-layer state took "
-        f"{save_s['sync']:.2f} s and the async save blocked "
+        f"{PHASE13_ITERS} a synchronous save of the {PHASE13_LAYERS}-layer "
+        f"state took {save_s['sync']:.2f} s and the async save blocked "
         f"{save_s['async_block']:.2f} s")
     results["resume"] = dict(
         leaves_loaded_bitwise=len(loaded), async_equals_sync=True,
@@ -6205,11 +6923,12 @@ def _phase13_hang(results, card, work, base):
 
 
 def _phase13_costs(results, kernels, card, work):
-    """(d) at phase 3's 8-layer cut: the step with the layer stats, the
-    stream and the tracer on against all off, and the snapshot's host
-    copy.  (The time an async save blocks, against a synchronous save,
-    is (a)'s and (b)'s, at 2 layers: at 8 each save writes 26 GB at
-    ~0.7 GB/s, which the script's time limit has no room for.)"""
+    """(d) at PHASE13_COST_LAYERS layers: the step with the layer stats,
+    the stream and the tracer on against all off, and the snapshot's
+    host copy.  (The time an async save blocks, against a synchronous
+    save, is (a)'s and (b)'s, at PHASE13_LAYERS: at 8 layers each save
+    writes 26 GB at ~0.7 GB/s, which the script's time limit has no room
+    for.)"""
     import argparse
     import io
     import itertools
@@ -6223,7 +6942,7 @@ def _phase13_costs(results, kernels, card, work):
     from megatron_llm_torch.models.llama import LlamaModel, llama_config
     from megatron_llm_torch.optimizer import MegatronOptimizer
 
-    L, micro, iters = 8, 2, 6
+    L, micro, iters = PHASE13_COST_LAYERS, 2, 6
     cfg = llama_config("7B", num_layers=L, params_dtype="bf16",
                        compute_dtype="bf16")
     model = LlamaModel(cfg, device="cuda")
@@ -6865,10 +7584,16 @@ def _serve_tokens(argv, prompts, new_tokens, vocab):
     return outs, lines, stats, launches, peak, (model, params)
 
 
+# phase 15's depth: 16 of Llama-2-7B's 32 layers (32 until phase 17
+# needed the time)
+INT8_WEIGHT_LAYERS = 16
+
+
 def int8_weights_phase(results, kernels, card):
-    """Phase 15 (a) and (b): Llama-2-7B at full width and depth served
-    with ``--int8_weights`` beside bf16, the fp32 logits' drift at 2
-    layers, and Mixtral-8x7B's width at 1 layer with int8 expert banks."""
+    """Phase 15 (a) and (b): Llama-2-7B at full width, INT8_WEIGHT_LAYERS
+    layers, served with ``--int8_weights`` beside bf16, the fp32 logits'
+    drift at 2 layers, and Mixtral-8x7B's width at 1 layer with int8
+    expert banks."""
     import numpy as np
     import torch
 
@@ -6881,7 +7606,8 @@ def int8_weights_phase(results, kernels, card):
     lens = [100, 250, 400, 600, 800, 1000, 1200, 1500]
     prompts = [rng.randint(0, vocab, size=n).tolist() for n in lens]
     base = ["--model_name", "llama2", "--bf16", "--seed", "1234",
-            "--serve_engine", "--serve_max_model_len", "2048"]
+            "--num_layers", str(INT8_WEIGHT_LAYERS), "--serve_engine",
+            "--serve_max_model_len", "2048"]
     runs = {}
     served_check = {}
     for name, flags in (("bf16", []), ("int8", ["--int8_weights"])):
@@ -6901,7 +7627,8 @@ def int8_weights_phase(results, kernels, card):
                 n_sure, n_agree, n, _ = _token_check(
                     qmodel, qparams, outs[i], len(prompts[i]), False,
                     MARGIN_BOUND)
-                log(f"  int8 weights, 32 layers, no-cache check, prompt "
+                log(f"  int8 weights, {INT8_WEIGHT_LAYERS} layers, no-cache "
+                    f"check, prompt "
                     f"{len(prompts[i])}: {n_agree}/{n_sure} served tokens "
                     f"agree where the top-2 margin > {MARGIN_BOUND} ({n} "
                     f"positions)")
@@ -6924,7 +7651,8 @@ def int8_weights_phase(results, kernels, card):
                       launches["A decode"])
         _add_launches(kernels, "paged_prefill", f"int8 weights ({name})",
                       launches["A prefill"])
-        log(f"  Llama-2-7B, 32 layers, {name} weights ({card}): decode "
+        log(f"  Llama-2-7B, {INT8_WEIGHT_LAYERS} layers, {name} weights "
+            f"({card}): decode "
             f"step {stats['decode_ms']:.2f} ms, prefill chunk "
             f"{stats['prefill_ms']:.2f} ms ({stats['decode_steps']} steps,"
             f" {stats['prefill_chunks']} chunks), device memory held "
@@ -7878,6 +8606,9 @@ def main(argv=None) -> int:
         f"{os.path.relpath(lib_path, REPO)}")
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         f.write(build.build_log)
+    for line in build.build_log.splitlines():
+        if line.startswith("== nvcc "):
+            log(f"  {line[3:]}")
     _log_flash_build(build)
     _log_norm_build(build)
 
@@ -7906,6 +8637,11 @@ def main(argv=None) -> int:
     phase1(gen, kernels)
     log("phase 1: training kernels vs plain versions")
     phase1_training(gen, kernels)
+    # before phase1_times: after a torch.profiler window in the process
+    # SDPA's backward runs ~3x slower, and phase1_fp16 times it
+    log("phase 1: every kernel's fp16 variant vs its plain version, on "
+        "inf and NaN too, and timed")
+    phase1_fp16(kernels)
     log("phase 1: B, C, D, E and H timed at their main-path shapes")
     phase1_times(gen, kernels)
     log(f"phase 1 passed in {time.perf_counter() - t0:.1f} s")
@@ -7935,8 +8671,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    log("phase 7: Llama-2-7B width, 2 layers, sequence 4096, trained on an "
-        "mmap corpus, saved, resumed and served from its checkpoint")
+    log(f"phase 7: Llama-2-7B width, {CORPUS_LAYERS} layer(s), sequence "
+        "4096, trained on an mmap corpus, saved, resumed and served from "
+        "its checkpoint")
     corpus = {}
     corpus_phase(corpus, kernels, card,
                  training["llama"]["profiled_step"]["idle_share"])
@@ -7981,10 +8718,12 @@ def main(argv=None) -> int:
     log(f"phase 12 passed in {time.perf_counter() - t0:.1f} s")
     log(f"serving, the rest ({card}): " + json.dumps(rest))
     t0 = time.perf_counter()
-    log("phase 13: Llama-2-7B width, 2 layers, sequence 4096: the training "
+    log(f"phase 13: Llama-2-7B width, {PHASE13_LAYERS} layer(s), sequence "
+        "4096: the training "
         "loop's resilience and observability through finetune.main (a NaN "
         "and rewind, save faults, async saves, a SIGTERM save, a resume, a "
-        "hang and its rescue, the profiler window); costs at 8 layers")
+        f"hang and its rescue, the profiler window); costs at "
+        f"{PHASE13_COST_LAYERS} layers")
     resil = {}
     resilience_phase(resil, kernels, card)
     log(f"phase 13 passed in {time.perf_counter() - t0:.1f} s")
@@ -7999,9 +8738,9 @@ def main(argv=None) -> int:
     log(f"phase 14 passed in {time.perf_counter() - t0:.1f} s")
     log(f"fleet ({card}): " + json.dumps(fleet))
     t0 = time.perf_counter()
-    log("phase 15: int8 weights (Llama-2-7B, 32 layers; Mixtral-8x7B's "
-        "experts) and the legacy generate path (HTTP, fp32 against the "
-        "engine, rolling against linear caches)")
+    log(f"phase 15: int8 weights (Llama-2-7B, {INT8_WEIGHT_LAYERS} layers; "
+        "Mixtral-8x7B's experts) and the legacy generate path (HTTP, fp32 "
+        "against the engine, rolling against linear caches)")
     int8_legacy = {"int8": {}, "legacy": {}}
     int8_weights_phase(int8_legacy["int8"], kernels, card)
     legacy_phase(int8_legacy["legacy"], kernels, card)
@@ -8016,11 +8755,32 @@ def main(argv=None) -> int:
     bert_t5_phase(bert_t5, kernels, card)
     log(f"phase 16 passed in {time.perf_counter() - t0:.1f} s")
     log(f"BERT, T5 and retrieval ({card}): " + json.dumps(bert_t5))
+    t0 = time.perf_counter()
+    log("phase 17: fp16 -- Llama-2-7B (32 layers) served over fp16 and "
+        f"int8 pools, its width trained at "
+        f"{TRAINING['llama_fp16']['layers']} layers, "
+        "GPT-2 345M pretrained, from the dynamic loss scale 2^32")
+    fp16 = {}
+    for key in ("llama_fp16", "llama_fp16_int8"):
+        spec = SERVING[key]
+        log(f"  serving {spec['label']} through the port's HTTP server")
+        serve_phase(fp16.setdefault(key, {}), kernels, spec)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"  training {TRAINING['llama_fp16']['label']} width, "
+        f"{TRAINING['llama_fp16']['layers']} layers, sequence 4096, "
+        f"through megatron_llm_torch.finetune")
+    train_phase(fp16.setdefault("training", {}), kernels, card,
+                TRAINING["llama_fp16"])
+    gpt2_phase(fp16.setdefault("gpt2", {}), kernels, card, fp16=True)
+    log(f"phase 17 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"fp16 ({card}): " + json.dumps(fp16))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     names = ("paged_decode", "paged_prefill", "paged_decode_int8",
              "paged_prefill_int8", "rmsnorm", "rmsnorm_bwd", "layernorm",
              "layernorm_bwd", "flash_fwd", "flash_bwd_fused", "flash_bwd")
+    names += tuple(f"{n}_fp16" for n in names)
     for n in names:
         check(kernels[n].get("launches", 0) > 0,
               f"{n} was not launched on its path")
@@ -8037,7 +8797,8 @@ def main(argv=None) -> int:
                    "llama3": llama3, "weights": weights,
                    "mixtral": mixtral, "serving_rest": rest,
                    "resilience": resil, "fleet": fleet,
-                   "int8_legacy": int8_legacy, "bert_t5": bert_t5}, f,
+                   "int8_legacy": int8_legacy, "bert_t5": bert_t5,
+                   "fp16": fp16}, f,
                   indent=1)
     log(card)
     print(json.dumps(line), flush=True)

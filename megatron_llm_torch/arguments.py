@@ -220,7 +220,12 @@ def _add_checkpointing_args(parser):
 
 def _add_mixed_precision_args(parser):
     g = parser.add_argument_group("mixed precision")
-    g.add_argument("--fp16", action="store_true")
+    g.add_argument("--fp16", action="store_true",
+                   help="fp16 parameters and compute (fp32 masters and "
+                        "moments), the loss scaled by --loss_scale or "
+                        "dynamically from --initial_loss_scale, steps "
+                        "whose gradients overflow skipped; the server "
+                        "serves fp16 weights and KV pools")
     g.add_argument("--bf16", action="store_true")
     g.add_argument("--loss_scale", type=float, default=None)
     g.add_argument("--initial_loss_scale", type=float, default=2.0 ** 32)
@@ -523,7 +528,7 @@ UNPORTED_TRAINING = {
 }
 
 #: the server's table: the common one (every serving flag is ported,
-#: ``--int8_weights`` included; ``--fp16`` is refused by ``build_server``)
+#: ``--int8_weights`` and ``--fp16`` included)
 UNPORTED_SERVING = dict(_UNPORTED_COMMON)
 
 

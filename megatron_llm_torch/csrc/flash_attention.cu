@@ -2,15 +2,17 @@
 //
 // Replaces the TPU kernels of
 // megatron_llm_tpu/ops/pallas/flash_attention.py:
-//   F  `_fwd_kernel` (through `_fwd_call`): flash_fwd_wgmma_kernel (bf16),
+//   F  `_fwd_kernel` (through `_fwd_call`): flash_fwd_wgmma_kernel (bf16
+//      and fp16, as every tensor-core kernel below),
 //      flash_fwd_kernel (fp32)
 //   G  `_bwd_fused_kernel` (through `_bwd_fused_call`):
-//      flash_bwd_kv_wgmma_kernel<D> (bf16, d 64 and 128),
-//      flash_bwd_kv_mma_kernel<256, true> (bf16, d 256),
+//      flash_bwd_kv_wgmma_kernel<T, D> (T bf16 or fp16, d 64 and 128),
+//      flash_bwd_kv_mma_kernel<T, 256, true> (d 256),
 //      flash_bwd_kv_kernel<float, D, true> (fp32)
 //   H  `_bwd_dq_kernel` + `_bwd_dkv_kernel` (through `_bwd_call`):
-//      flash_bwd_dq_wgmma_kernel<D>, then flash_bwd_kv_mma_kernel<D, false>
-//      (bf16), or flash_bwd_dq_kernel<float, D>, then
+//      flash_bwd_dq_wgmma_kernel<T, D>, then
+//      flash_bwd_kv_mma_kernel<T, D, false>, or
+//      flash_bwd_dq_kernel<float, D>, then
 //      flash_bwd_kv_kernel<float, D, false> (fp32)
 // Causal and sliding-window attention with GQA/MQA (k and v carry ng <= nh
 // heads), q [b, sq, nh, d], k and v [b, sk, ng, d] read in place through
@@ -84,6 +86,18 @@
 // and are masked; stores past sq are skipped.  At d 256 one consumer
 // warpgroup holds dQ's 128 registers a thread.
 //
+// fp16 inputs take the same tensor-core kernels as bf16 (the element
+// type T is a template parameter of each): the wgmma and mma.sync
+// products in their .f16 forms, TMA maps of FLOAT16, the same tiles and
+// shared memory (H100's dense fp16 and bf16 peaks are equal, so the
+// bounds are bf16's).  Everything between the products is fp32; P and dS
+// are rounded to T before the second products, as in bf16.  fp16's
+// largest value is 65504: a scaled dS past it rounds to inf, which
+// reaches dQ/dK/dV, so the loss scaler skips that step (the JAX kernels
+// keep dS in fp32 and round only dQ/dK/dV).  No guard turns an inf or a
+// NaN of the inputs into a finite value: a non-finite dO row gives
+// non-finite gradients, which is what the scaler's skip reads.
+//
 // fp32 inputs (the checking path) keep CUDA-core products between
 // shared-memory tiles (the generic kernels below), with tiles small enough
 // for d = 256.  The path is chosen by dtype and head_dim alone.  The JAX
@@ -91,6 +105,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -611,7 +627,7 @@ __global__ void __launch_bounds__(256) flash_dkv_sum_kernel(Args a) {
 }
 
 // --------------------------------------------------------------------------
-// F, bf16: warp-specialised wgmma + TMA
+// F, bf16 and fp16 (T): warp-specialised wgmma + TMA
 // --------------------------------------------------------------------------
 
 template <int D> struct FwdTile {
@@ -636,7 +652,7 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (s & 1023)) & 1023);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(384, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const Args a) {
   using C = FwdTile<D>;
@@ -644,9 +660,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const Args a) {
   constexpr int kAtomQ = Br * 64, kAtomKv = Bc * 64;  // elements
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
-  bf16* Qs = reinterpret_cast<bf16*>(base);                // [atom][Br][64]
-  bf16* Ks = reinterpret_cast<bf16*>(base + C::kQBytes);   // [S][atom][Bc][64]
-  bf16* Vs = Ks + S * C::kAtoms * kAtomKv;
+  T* Qs = reinterpret_cast<T*>(base);                // [atom][Br][64]
+  T* Ks = reinterpret_cast<T*>(base + C::kQBytes);   // [S][atom][Bc][64]
+  T* Vs = Ks + S * C::kAtoms * kAtomKv;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(
       base + C::kQBytes + 2 * S * C::kKvBytes);
   uint64_t* k_full = q_full + 1;
@@ -711,8 +727,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const Args a) {
       const int s = it % S;
       const uint32_t ph = (it / S) & 1;
       const int k0 = (kt_lo + it) * Bc;
-      const bf16* Kt = Ks + s * C::kAtoms * kAtomKv;
-      const bf16* Vt = Vs + s * C::kAtoms * kAtomKv;
+      const T* Kt = Ks + s * C::kAtoms * kAtomKv;
+      const T* Vt = Vs + s * C::kAtoms * kAtomKv;
 
       // S = Q K^T (raw scores)
       float sc[Bc / 2];
@@ -726,7 +742,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const Args a) {
             Qs + (kk / 4) * kAtomQ + wg * 64 * 64 + (kk % 4) * 16, 16, 1024);
         const uint64_t db = sm90::desc_sw128(
             Kt + (kk / 4) * kAtomKv + (kk % 4) * 16, 16, 1024);
-        sm90::Wgmma<Bc>::ss(sc, da, db, kk > 0);
+        sm90::Wgmma<Bc, T>::ss(sc, da, db, kk > 0);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -769,10 +785,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const Args a) {
       uint32_t pa[Bc / 16][4];
 #pragma unroll
       for (int kk = 0; kk < Bc / 16; ++kk) {
-        pa[kk][0] = sm90::pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-        pa[kk][1] = sm90::pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = sm90::pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = sm90::pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        pa[kk][0] = sm90::pack<T>(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = sm90::pack<T>(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = sm90::pack<T>(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = sm90::pack<T>(sc[8 * kk + 6], sc[8 * kk + 7]);
       }
 
       // O += P V, V MN-major from the ring
@@ -782,7 +798,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const Args a) {
       for (int kk = 0; kk < Bc / 16; ++kk) {
         const uint64_t db =
             sm90::desc_sw128(Vt + kk * 16 * 64, Bc * 128, 1024);
-        sm90::Wgmma<D>::rs(o, pa[kk], db, 1);
+        sm90::Wgmma<D, T>::rs(o, pa[kk], db, 1);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -792,7 +808,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const Args a) {
 
     // o = acc / l and lse = m scale + log l; a row no key reaches gives
     // o = 0 and lse = NEG_INF (the guard of the Pallas kernel's `_finish`)
-    bf16* op = static_cast<bf16*>(a.o) + (long long)bb * a.sq * a.nh * D
+    T* op = static_cast<T*>(a.o) + (long long)bb * a.sq * a.nh * D
                + h * D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -805,7 +821,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const Args a) {
             reinterpret_cast<uint32_t*>(op + (long long)row * a.nh * D);
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
-          dst[4 * j + lane % 4] = sm90::pack_bf16(o[4 * j + 2 * r] * inv,
+          dst[4 * j + lane % 4] = sm90::pack<T>(o[4 * j + 2 * r] * inv,
                                                   o[4 * j + 2 * r + 1] * inv);
         if (lane % 4 == 0)
           a.lse[((long long)bb * a.nh + h) * a.sq + row] =
@@ -816,7 +832,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const Args a) {
 }
 
 // --------------------------------------------------------------------------
-// G at d 256 and H's second pass, bf16: dK/dV in registers, mma.sync
+// G at d 256 and H's second pass, bf16 and fp16: dK/dV in registers,
+// mma.sync
 // products
 // --------------------------------------------------------------------------
 
@@ -836,18 +853,18 @@ template <int D> struct BwdTile {
                                   + 4 * 4 * kBr;
 };
 
-template <int D, bool kFused>
+template <typename T, int D, bool kFused>
 __global__ void __launch_bounds__(256, 1) flash_bwd_kv_mma_kernel(Args a) {
   using C = BwdTile<D>;
   using sm90::swz;
   constexpr int Br = C::kBr, Bc = C::kBc;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [Bc][D], swizzled
-  bf16* Vs = Ks + C::kKv;
-  bf16* Qs = Vs + C::kKv;                    // [2][Br][D] ring
-  bf16* dOs = Qs + 2 * C::kQ;                // [2][Br][D] ring
-  bf16* Ps = dOs + 2 * C::kQ;                // [Bc][Br]: P^T
-  bf16* dSs = Ps + C::kP;                    // [Bc][Br]: dS^T
+  T* Ks = reinterpret_cast<T*>(smem);  // [Bc][D], swizzled
+  T* Vs = Ks + C::kKv;
+  T* Qs = Vs + C::kKv;                    // [2][Br][D] ring
+  T* dOs = Qs + 2 * C::kQ;                // [2][Br][D] ring
+  T* Ps = dOs + 2 * C::kQ;                // [Bc][Br]: P^T
+  T* dSs = Ps + C::kP;                    // [Bc][Br]: dS^T
   float* lse_s = reinterpret_cast<float*>(dSs + C::kP);  // [2][Br]
   float* delta_s = lse_s + 2 * Br;                       // [2][Br]
 
@@ -863,9 +880,9 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_kv_mma_kernel(Args a) {
 
   // K and V of this k-tile, once (rows past sk are zero)
   {
-    const bf16* kp = static_cast<const bf16*>(a.k) + bb * a.ks[0]
+    const T* kp = static_cast<const T*>(a.k) + bb * a.ks[0]
                      + g * a.ks[2];
-    const bf16* vp = static_cast<const bf16*>(a.v) + bb * a.vs[0]
+    const T* vp = static_cast<const T*>(a.v) + bb * a.vs[0]
                      + g * a.vs[2];
     for (int e = tid; e < Bc * D / 8; e += C::kThreads) {
       const int r = e / (D / 8), c = (e % (D / 8)) * 8;
@@ -880,9 +897,9 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_kv_mma_kernel(Args a) {
   // Q, dO, lse and delta of iteration `it` into ring stage it & 1
   auto issue = [&](int it) {
     const int h = h_lo + it / nq, q0 = (qt_lo + it % nq) * Br, st = it & 1;
-    const bf16* qp = static_cast<const bf16*>(a.q) + bb * a.qs[0]
+    const T* qp = static_cast<const T*>(a.q) + bb * a.qs[0]
                      + h * a.qs[2];
-    const bf16* dop = static_cast<const bf16*>(a.dout) + bb * a.ds[0]
+    const T* dop = static_cast<const T*>(a.dout) + bb * a.ds[0]
                       + h * a.ds[2];
     for (int e = tid; e < Br * D / 8; e += C::kThreads) {
       const int r = e / (D / 8), c = (e % (D / 8)) * 8;
@@ -928,8 +945,8 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_kv_mma_kernel(Args a) {
     __syncthreads();
     if (it + 1 < n_iter) issue(it + 1);
     sm90::cp_async_commit();
-    const bf16* Qt = Qs + st * C::kQ;
-    const bf16* dOt = dOs + st * C::kQ;
+    const T* Qt = Qs + st * C::kQ;
+    const T* dOt = dOs + st * C::kQ;
     const float* lse_t = lse_s + st * Br;
     const float* delta_t = delta_s + st * Br;
 
@@ -952,14 +969,14 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_kv_mma_kernel(Args a) {
         const int bc = 16 * kk + ((lane >> 3) & 1) * 8;
         sm90::ldsm_x4(bq, Qt + swz(br, bc, D));
         sm90::ldsm_x4(bo, dOt + swz(br, bc, D));
-        sm90::mma16816(s[2 * n2], ak, bq[0], bq[1]);
-        sm90::mma16816(s[2 * n2 + 1], ak, bq[2], bq[3]);
-        sm90::mma16816(dp[2 * n2], av, bo[0], bo[1]);
-        sm90::mma16816(dp[2 * n2 + 1], av, bo[2], bo[3]);
+        sm90::mma16816<T>(s[2 * n2], ak, bq[0], bq[1]);
+        sm90::mma16816<T>(s[2 * n2 + 1], ak, bq[2], bq[3]);
+        sm90::mma16816<T>(dp[2 * n2], av, bo[0], bo[1]);
+        sm90::mma16816<T>(dp[2 * n2 + 1], av, bo[2], bo[3]);
       }
     }
     // P^T = exp(S^T scale - lse) where visible, dS^T = P^T (dP^T - delta),
-    // rounded to bf16 into shared memory
+    // rounded to T into shared memory
     const bool need = tile_needs_mask(a, q0, Br, k0, Bc);
 #pragma unroll
     for (int n = 0; n < C::kWq / 8; ++n) {
@@ -977,9 +994,9 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_kv_mma_kernel(Args a) {
           ds[e] = pv * (dp[n][2 * hf + e] - delta_t[qq + e]);
         }
         *reinterpret_cast<uint32_t*>(Ps + swz(key, qq, Br)) =
-            sm90::pack_bf16(p[0], p[1]);
+            sm90::pack<T>(p[0], p[1]);
         *reinterpret_cast<uint32_t*>(dSs + swz(key, qq, Br)) =
-            sm90::pack_bf16(ds[0], ds[1]);
+            sm90::pack<T>(ds[0], ds[1]);
       }
     }
     __syncthreads();
@@ -998,10 +1015,10 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_kv_mma_kernel(Args a) {
         const int bc = dc + 16 * n2 + (lane >> 4) * 8;
         sm90::ldsm_x4_t(bo, dOt + swz(br, bc, D));
         sm90::ldsm_x4_t(bq, Qt + swz(br, bc, D));
-        sm90::mma16816(dv[2 * n2], ap, bo[0], bo[1]);
-        sm90::mma16816(dv[2 * n2 + 1], ap, bo[2], bo[3]);
-        sm90::mma16816(dk[2 * n2], as, bq[0], bq[1]);
-        sm90::mma16816(dk[2 * n2 + 1], as, bq[2], bq[3]);
+        sm90::mma16816<T>(dv[2 * n2], ap, bo[0], bo[1]);
+        sm90::mma16816<T>(dv[2 * n2 + 1], ap, bo[2], bo[3]);
+        sm90::mma16816<T>(dk[2 * n2], as, bq[0], bq[1]);
+        sm90::mma16816<T>(dk[2 * n2 + 1], as, bq[2], bq[3]);
       }
     }
     if constexpr (kFused) {
@@ -1022,8 +1039,8 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_kv_mma_kernel(Args a) {
           sm90::ldsm_x4_t(bk, Ks + swz(16 * kk + (lane & 7)
                                            + ((lane >> 3) & 1) * 8,
                                        dqc + 16 * n2 + (lane >> 4) * 8, D));
-          sm90::mma16816(acc[2 * n2], ad, bk[0], bk[1]);
-          sm90::mma16816(acc[2 * n2 + 1], ad, bk[2], bk[3]);
+          sm90::mma16816<T>(acc[2 * n2], ad, bk[0], bk[1]);
+          sm90::mma16816<T>(acc[2 * n2 + 1], ad, bk[2], bk[3]);
         }
       }
       float* dqp = static_cast<float*>(a.dq)
@@ -1052,7 +1069,7 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_kv_mma_kernel(Args a) {
       const int key = k0 + kr + lane / 4 + 8 * hf;
       const int col = dc + 8 * n + 2 * (lane % 4);
       if (key < a.sk)
-        store_dkv2<bf16>(a, bb, g, split, key, col,
+        store_dkv2<T>(a, bb, g, split, key, col,
                          dk[n][2 * hf] * a.scale,
                          dk[n][2 * hf + 1] * a.scale, dv[n][2 * hf],
                          dv[n][2 * hf + 1]);
@@ -1061,7 +1078,7 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_kv_mma_kernel(Args a) {
 }
 
 // --------------------------------------------------------------------------
-// G, bf16, d 64 and 128: warp-specialised wgmma + TMA
+// G, bf16 and fp16, d 64 and 128: warp-specialised wgmma + TMA
 // --------------------------------------------------------------------------
 
 // kCons consumer warpgroups of 64 keys each, and a producer warpgroup
@@ -1087,7 +1104,7 @@ struct BwdMaps {
   CUtensorMap q, k, v, dout;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(BwdWgTile<D>::kThreads, 1)
 flash_bwd_kv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
                           const Args a) {
@@ -1096,11 +1113,11 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
   constexpr int kAtomKv = Bc * 64, kAtomQ = Br * 64;  // elements
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
-  bf16* Ks = reinterpret_cast<bf16*>(base);           // [atom][Bc][64]
-  bf16* Vs = Ks + C::kAtoms * kAtomKv;
-  bf16* Qs = Vs + C::kAtoms * kAtomKv;                // [S][atom][Br][64]
-  bf16* dOs = Qs + S * C::kAtoms * kAtomQ;
-  bf16* dSs = dOs + S * C::kAtoms * kAtomQ;           // [2][Bc][Br]
+  T* Ks = reinterpret_cast<T*>(base);           // [atom][Bc][64]
+  T* Vs = Ks + C::kAtoms * kAtomKv;
+  T* Qs = Vs + C::kAtoms * kAtomKv;                // [S][atom][Br][64]
+  T* dOs = Qs + S * C::kAtoms * kAtomQ;
+  T* dSs = dOs + S * C::kAtoms * kAtomQ;           // [2][Bc][Br]
   float* lse_s = reinterpret_cast<float*>(dSs + 2 * Bc * Br);  // [S][Br]
   float* delta_s = lse_s + S * Br;                             // [S][Br]
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(delta_s + S * Br);
@@ -1163,8 +1180,8 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
     const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
     const int kr0 = 64 * wg + 16 * warp + lane / 4;  // rows kr0, kr0 + 8
     const float sl = a.scale * kLog2e;
-    const bf16* Kw = Ks + wg * 64 * 64;  // this warpgroup's rows, atom 0
-    const bf16* Vw = Vs + wg * 64 * 64;
+    const T* Kw = Ks + wg * 64 * 64;  // this warpgroup's rows, atom 0
+    const T* Vw = Vs + wg * 64 * 64;
     float dk[D / 2], dv[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
@@ -1173,8 +1190,8 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
       const int s = it % S;
       const uint32_t ph = (it / S) & 1;
       const int h = h_lo + it / nq, q0 = (qt_lo + it % nq) * Br;
-      const bf16* Qt = Qs + s * C::kAtoms * kAtomQ;
-      const bf16* dOt = dOs + s * C::kAtoms * kAtomQ;
+      const T* Qt = Qs + s * C::kAtoms * kAtomQ;
+      const T* dOt = dOs + s * C::kAtoms * kAtomQ;
       const float* lse_t = lse_s + s * Br;
       const float* delta_t = delta_s + s * Br;
 
@@ -1188,9 +1205,9 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
       for (int kk = 0; kk < D / 16; ++kk) {
         const int off_kv = (kk / 4) * kAtomKv + (kk % 4) * 16;
         const int off_q = (kk / 4) * kAtomQ + (kk % 4) * 16;
-        sm90::Wgmma<64>::ss(st, sm90::desc_sw128(Kw + off_kv, 16, 1024),
+        sm90::Wgmma<64, T>::ss(st, sm90::desc_sw128(Kw + off_kv, 16, 1024),
                             sm90::desc_sw128(Qt + off_q, 16, 1024), kk > 0);
-        sm90::Wgmma<64>::ss(dpt, sm90::desc_sw128(Vw + off_kv, 16, 1024),
+        sm90::Wgmma<64, T>::ss(dpt, sm90::desc_sw128(Vw + off_kv, 16, 1024),
                             sm90::desc_sw128(dOt + off_q, 16, 1024),
                             kk > 0);
       }
@@ -1218,9 +1235,9 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          pa[kk][r] = sm90::pack_bf16(st[8 * kk + 2 * r],
+          pa[kk][r] = sm90::pack<T>(st[8 * kk + 2 * r],
                                       st[8 * kk + 2 * r + 1]);
-          da[kk][r] = sm90::pack_bf16(dpt[8 * kk + 2 * r],
+          da[kk][r] = sm90::pack<T>(dpt[8 * kk + 2 * r],
                                       dpt[8 * kk + 2 * r + 1]);
         }
       // dS^T into this iteration's buffer, 128-byte swizzled rows of 64
@@ -1244,10 +1261,10 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        sm90::Wgmma<D>::rs(dv, pa[kk],
+        sm90::Wgmma<D, T>::rs(dv, pa[kk],
                            sm90::desc_sw128(dOt + kk * 16 * 64, Br * 128,
                                             1024), 1);
-        sm90::Wgmma<D>::rs(dk, da[kk],
+        sm90::Wgmma<D, T>::rs(dk, da[kk],
                            sm90::desc_sw128(Qt + kk * 16 * 64, Br * 128,
                                             1024), 1);
       }
@@ -1260,10 +1277,10 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
       sm90::wgmma_fence();
-      const bf16* ds_rows = dSs + (it & 1) * Bc * Br + 64 * wg * 64;
+      const T* ds_rows = dSs + (it & 1) * Bc * Br + 64 * wg * 64;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        sm90::Wgmma<D>::ss_tt(
+        sm90::Wgmma<D, T>::ss_tt(
             dq, sm90::desc_sw128(ds_rows + kk * 16 * 64, 16, 1024),
             sm90::desc_sw128(Kw + kk * 16 * 64, Bc * 128, 1024), kk > 0);
       sm90::wgmma_commit();
@@ -1291,14 +1308,14 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
       const int key = k0 + kr0 + 8 * ((i >> 1) & 1);
       const int col = 8 * (i >> 2) + 2 * (lane % 4);
       if (key < a.sk)
-        store_dkv2<bf16>(a, bb, g, split, key, col, dk[i] * a.scale,
+        store_dkv2<T>(a, bb, g, split, key, col, dk[i] * a.scale,
                          dk[i + 1] * a.scale, dv[i], dv[i + 1]);
     }
   }
 }
 
 // --------------------------------------------------------------------------
-// H's dQ pass, bf16: warp-specialised wgmma + TMA
+// H's dQ pass, bf16 and fp16: warp-specialised wgmma + TMA
 // --------------------------------------------------------------------------
 
 // kCons consumer warpgroups of 64 query rows each, and a producer
@@ -1318,7 +1335,7 @@ template <int D> struct DqTile {
                                   + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(DqTile<D>::kThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
                           const Args a) {
@@ -1327,10 +1344,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
   constexpr int kAtomQ = Br * 64, kAtomKv = Bc * 64;  // elements
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
-  bf16* Qs = reinterpret_cast<bf16*>(base);                // [atom][Br][64]
-  bf16* dOs = Qs + C::kAtoms * kAtomQ;
-  bf16* Ks = dOs + C::kAtoms * kAtomQ;                     // [S][atom][Bc][64]
-  bf16* Vs = Ks + S * C::kAtoms * kAtomKv;
+  T* Qs = reinterpret_cast<T*>(base);                // [atom][Br][64]
+  T* dOs = Qs + C::kAtoms * kAtomQ;
+  T* Ks = dOs + C::kAtoms * kAtomQ;                     // [S][atom][Bc][64]
+  T* Vs = Ks + S * C::kAtoms * kAtomKv;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + S * C::kAtoms
                                                  * kAtomKv);
   uint64_t* kv_full = q_full + 1;
@@ -1403,8 +1420,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % S;
       const int k0 = (kt_lo + it) * Bc;
-      const bf16* Kt = Ks + s * C::kAtoms * kAtomKv;
-      const bf16* Vt = Vs + s * C::kAtoms * kAtomKv;
+      const T* Kt = Ks + s * C::kAtoms * kAtomKv;
+      const T* Vt = Vs + s * C::kAtoms * kAtomKv;
       sm90::mbar_wait(&kv_full[s], (it / S) & 1);
       // a tile that no pair of this warpgroup's rows sees (rows past sq,
       // the block's causal diagonal beyond them, or keys the window left
@@ -1422,10 +1439,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
         for (int kk = 0; kk < D / 16; ++kk) {
           const int off_q = (kk / 4) * kAtomQ + wg * 64 * 64 + (kk % 4) * 16;
           const int off_kv = (kk / 4) * kAtomKv + (kk % 4) * 16;
-          sm90::Wgmma<64>::ss(sc, sm90::desc_sw128(Qs + off_q, 16, 1024),
+          sm90::Wgmma<64, T>::ss(sc, sm90::desc_sw128(Qs + off_q, 16, 1024),
                               sm90::desc_sw128(Kt + off_kv, 16, 1024),
                               kk > 0);
-          sm90::Wgmma<64>::ss(dp, sm90::desc_sw128(dOs + off_q, 16, 1024),
+          sm90::Wgmma<64, T>::ss(dp, sm90::desc_sw128(dOs + off_q, 16, 1024),
                               sm90::desc_sw128(Vt + off_kv, 16, 1024),
                               kk > 0);
         }
@@ -1454,14 +1471,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
         for (int kk = 0; kk < Bc / 16; ++kk)
 #pragma unroll
           for (int r = 0; r < 4; ++r)
-            da[kk][r] = sm90::pack_bf16(dp[8 * kk + 2 * r],
+            da[kk][r] = sm90::pack<T>(dp[8 * kk + 2 * r],
                                         dp[8 * kk + 2 * r + 1]);
 
         // dQ += dS K, K MN-major from the ring
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < Bc / 16; ++kk)
-          sm90::Wgmma<D>::rs(dq, da[kk],
+          sm90::Wgmma<D, T>::rs(dq, da[kk],
                              sm90::desc_sw128(Kt + kk * 16 * 64, Bc * 128,
                                               1024), 1);
         sm90::wgmma_commit();
@@ -1471,8 +1488,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
       if (lane == 0) sm90::mbar_arrive(&kv_empty[s]);
     }
 
-    // dq = scale * sum dS K, in bf16; rows past sq are not stored
-    bf16* dqp = static_cast<bf16*>(a.dq) + (long long)bb * a.sq * a.nh * D
+    // dq = scale * sum dS K, in T; rows past sq are not stored
+    T* dqp = static_cast<T*>(a.dq) + (long long)bb * a.sq * a.nh * D
                 + h * D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1483,7 +1500,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
           dst[4 * j + lane % 4] =
-              sm90::pack_bf16(dq[4 * j + 2 * r] * a.scale,
+              sm90::pack<T>(dq[4 * j + 2 * r] * a.scale,
                               dq[4 * j + 2 * r + 1] * a.scale);
       }
     }
@@ -1531,9 +1548,18 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a [b, rows, heads, d] bf16 tensor read through its strides (elements:
-// batch, seq, head), in boxes of 64 columns x box_rows rows with the
-// 128-byte swizzle that wgmma reads; rows past the end read as zero
+// the TMA element type of T
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// a [b, rows, heads, d] tensor of T (bf16 or fp16) read through its
+// strides (elements: batch, seq, head), in boxes of 64 columns x box_rows
+// rows with the 128-byte swizzle that wgmma reads; rows past the end read
+// as zero
+template <typename T>
 bool encode_map(CUtensorMap* map, const void* ptr, int d, int rows,
                 int heads, int batch, const long long* st, int box_rows) {
   EncodeTiledFn fn = encode_tiled();
@@ -1545,22 +1571,22 @@ bool encode_map(CUtensorMap* map, const void* ptr, int d, int rows,
                                  (cuuint64_t)st[0] * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  return fn(map, tma_type<T>(), 4,
             const_cast<void*>(ptr), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-cudaError_t fwd_bf16(const Args& a, cudaStream_t st) {
+template <typename T, int D>
+cudaError_t fwd_tc(const Args& a, cudaStream_t st) {
   using C = FwdTile<D>;
   FwdMaps maps;
-  if (!encode_map(&maps.q, a.q, D, a.sq, a.nh, a.b, a.qs, C::kBr) ||
-      !encode_map(&maps.k, a.k, D, a.sk, a.ng, a.b, a.ks, C::kBc) ||
-      !encode_map(&maps.v, a.v, D, a.sk, a.ng, a.b, a.vs, C::kBc))
+  if (!encode_map<T>(&maps.q, a.q, D, a.sq, a.nh, a.b, a.qs, C::kBr) ||
+      !encode_map<T>(&maps.k, a.k, D, a.sk, a.ng, a.b, a.ks, C::kBc) ||
+      !encode_map<T>(&maps.v, a.v, D, a.sk, a.ng, a.b, a.vs, C::kBc))
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_wgmma_kernel<D>;
+  auto kernel = flash_fwd_wgmma_kernel<T, D>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
   if (e != cudaSuccess) return e;
@@ -1569,16 +1595,16 @@ cudaError_t fwd_bf16(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t bwd_fused_wgmma(const Args& a, cudaStream_t st) {
   using C = BwdWgTile<D>;
   BwdMaps maps;
-  if (!encode_map(&maps.q, a.q, D, a.sq, a.nh, a.b, a.qs, C::kBr) ||
-      !encode_map(&maps.dout, a.dout, D, a.sq, a.nh, a.b, a.ds, C::kBr) ||
-      !encode_map(&maps.k, a.k, D, a.sk, a.ng, a.b, a.ks, C::kBc) ||
-      !encode_map(&maps.v, a.v, D, a.sk, a.ng, a.b, a.vs, C::kBc))
+  if (!encode_map<T>(&maps.q, a.q, D, a.sq, a.nh, a.b, a.qs, C::kBr) ||
+      !encode_map<T>(&maps.dout, a.dout, D, a.sq, a.nh, a.b, a.ds, C::kBr) ||
+      !encode_map<T>(&maps.k, a.k, D, a.sk, a.ng, a.b, a.ks, C::kBc) ||
+      !encode_map<T>(&maps.v, a.v, D, a.sk, a.ng, a.b, a.vs, C::kBc))
     return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_kv_wgmma_kernel<D>;
+  auto kernel = flash_bwd_kv_wgmma_kernel<T, D>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
   if (e != cudaSuccess) return e;
@@ -1587,16 +1613,16 @@ cudaError_t bwd_fused_wgmma(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t bwd_dq_wgmma(const Args& a, cudaStream_t st) {
   using C = DqTile<D>;
   BwdMaps maps;
-  if (!encode_map(&maps.q, a.q, D, a.sq, a.nh, a.b, a.qs, C::kBr) ||
-      !encode_map(&maps.dout, a.dout, D, a.sq, a.nh, a.b, a.ds, C::kBr) ||
-      !encode_map(&maps.k, a.k, D, a.sk, a.ng, a.b, a.ks, C::kBc) ||
-      !encode_map(&maps.v, a.v, D, a.sk, a.ng, a.b, a.vs, C::kBc))
+  if (!encode_map<T>(&maps.q, a.q, D, a.sq, a.nh, a.b, a.qs, C::kBr) ||
+      !encode_map<T>(&maps.dout, a.dout, D, a.sq, a.nh, a.b, a.ds, C::kBr) ||
+      !encode_map<T>(&maps.k, a.k, D, a.sk, a.ng, a.b, a.ks, C::kBc) ||
+      !encode_map<T>(&maps.v, a.v, D, a.sk, a.ng, a.b, a.vs, C::kBc))
     return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_dq_wgmma_kernel<D>;
+  auto kernel = flash_bwd_dq_wgmma_kernel<T, D>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
   if (e != cudaSuccess) return e;
@@ -1621,28 +1647,29 @@ cudaError_t dkv_sum(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// pass 0: forward; 1: fused backward (G); 2: two-pass backward (H)
-template <int D>
-cudaError_t run_bf16(const Args& a, int pass, cudaStream_t st) {
-  if (pass == 0) return fwd_bf16<D>(a, st);
+// pass 0: forward; 1: fused backward (G); 2: two-pass backward (H), on
+// the tensor cores for T = bf16 or fp16
+template <typename T, int D>
+cudaError_t run_tc(const Args& a, int pass, cudaStream_t st) {
+  if (pass == 0) return fwd_tc<T, D>(a, st);
   using B = BwdTile<D>;
   const dim3 kv_grid(a.ng * a.splits, a.b, (a.sk + B::kBc - 1) / B::kBc);
-  cudaError_t e = bwd_prep<bf16>(a, pass == 1, st);
+  cudaError_t e = bwd_prep<T>(a, pass == 1, st);
   if (e != cudaSuccess) return e;
   if (pass == 1) {
     if constexpr (D <= 128)
-      e = bwd_fused_wgmma<D>(a, st);
+      e = bwd_fused_wgmma<T, D>(a, st);
     else
-      e = launch(flash_bwd_kv_mma_kernel<D, true>, kv_grid, B::kThreads,
+      e = launch(flash_bwd_kv_mma_kernel<T, D, true>, kv_grid, B::kThreads,
                  B::kSmem, st, a);
   } else {
-    e = bwd_dq_wgmma<D>(a, st);
+    e = bwd_dq_wgmma<T, D>(a, st);
     if (e != cudaSuccess) return e;
-    e = launch(flash_bwd_kv_mma_kernel<D, false>, kv_grid, B::kThreads,
+    e = launch(flash_bwd_kv_mma_kernel<T, D, false>, kv_grid, B::kThreads,
                B::kSmem, st, a);
   }
   if (e != cudaSuccess) return e;
-  return dkv_sum<bf16>(a, st);
+  return dkv_sum<T>(a, st);
 }
 
 template <int D>
@@ -1673,9 +1700,13 @@ cudaError_t run_fp32(const Args& a, int pass, cudaStream_t st) {
 
 cudaError_t dispatch(const Args& a, int dtype, int pass, cudaStream_t st) {
   if (dtype == mlt::kBFloat16) {
-    if (a.d == 64) return run_bf16<64>(a, pass, st);
-    if (a.d == 128) return run_bf16<128>(a, pass, st);
-    if (a.d == 256) return run_bf16<256>(a, pass, st);
+    if (a.d == 64) return run_tc<bf16, 64>(a, pass, st);
+    if (a.d == 128) return run_tc<bf16, 128>(a, pass, st);
+    if (a.d == 256) return run_tc<bf16, 256>(a, pass, st);
+  } else if (dtype == mlt::kFloat16) {
+    if (a.d == 64) return run_tc<__half, 64>(a, pass, st);
+    if (a.d == 128) return run_tc<__half, 128>(a, pass, st);
+    if (a.d == 256) return run_tc<__half, 256>(a, pass, st);
   } else if (dtype == mlt::kFloat32) {
     if (a.d == 64) return run_fp32<64>(a, pass, st);
     if (a.d == 128) return run_fp32<128>(a, pass, st);
@@ -1721,7 +1752,7 @@ bool valid_shape(int b, int sq, int sk, int nh, int ng) {
 // Returns 0, or cudaErrorInvalidValue for a pair with no kernel.
 extern "C" int mlt_flash_tiles(int dtype, int d, int* out) {
   if (d != 64 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
-  if (dtype == mlt::kBFloat16) {
+  if (dtype == mlt::kBFloat16 || dtype == mlt::kFloat16) {
     const int small = d == 256;
     const int g_keys = d == 64 ? 128 : small ? 32 : 64;
     const int v[8] = {128, small ? 64 : 128, 64, g_keys, small ? 64 : 128,
@@ -1741,7 +1772,8 @@ extern "C" int mlt_flash_tiles(int dtype, int d, int* out) {
 // head_dim, into out[4]: the forward, G's dK/dV kernel, H's dQ pass and
 // H's dK/dV pass.  Returns 0, or cudaErrorInvalidValue.
 extern "C" int mlt_flash_smem(int dtype, int d, long long* out) {
-  if (dtype == mlt::kBFloat16 && (d == 64 || d == 128 || d == 256)) {
+  if ((dtype == mlt::kBFloat16 || dtype == mlt::kFloat16)
+      && (d == 64 || d == 128 || d == 256)) {
     const long long fwd = d == 64 ? FwdTile<64>::kSmem
                           : d == 128 ? FwdTile<128>::kSmem
                                      : FwdTile<256>::kSmem;

@@ -11,6 +11,13 @@
 //   D: mu = mean(x), rstd = rsqrt(mean((x - mu)^2) + eps),
 //      y = (x - mu) * rstd * gamma + beta, mu and rstd [n] kept likewise.
 //
+// x in fp32, bf16 or fp16, with parameters of x's type or fp32 (fp32 x
+// takes fp32 parameters): five (x, parameter) type pairs, each
+// instantiated at every V and for both norms, in one object a dtype of x
+// (build.py's parts; the entries dispatch to them).  fp16 rows take bf16's
+// plans (8 elements a 16-byte vector); an fp16 output past 65504 rounds to
+// inf, and nothing clamps an inf or a NaN of x, g or the statistics.
+//
 // Bound on this card: memory, 2*n*h*sizeof(x) bytes (x read once, y
 // written once) plus the parameters and the statistics.  At decode rows
 // (8 x 4096) the bytes take 0.04 us: the launch and the latency of one
@@ -642,26 +649,69 @@ bool plan_ok(const Call* c) {
 
 }  // namespace
 
+// One part function a kind and x's dtype code (common.cuh MLT_PART): each
+// holds the instantiations of its x type, with parameters of x's type or
+// fp32, in the object of its part.
+extern "C" int mlt_norm_fwd_part0(const NormFwdCall* c);
+extern "C" int mlt_norm_fwd_part1(const NormFwdCall* c);
+extern "C" int mlt_norm_fwd_part2(const NormFwdCall* c);
+extern "C" int mlt_norm_bwd_part0(const NormBwdCall* c);
+extern "C" int mlt_norm_bwd_part1(const NormBwdCall* c);
+extern "C" int mlt_norm_bwd_part2(const NormBwdCall* c);
+#define MLT_NORM_PART(code)                                                \
+  extern "C" int mlt_norm_fwd_part##code(const NormFwdCall* c) {           \
+    using T = mlt::CodeType<code>::T;                                       \
+    if (c->param_dtype == code) return (int)launch_fwd<T, T>(c);            \
+    if (c->param_dtype == mlt::kFloat32)                                    \
+      return (int)launch_fwd<T, float>(c);                                  \
+    return (int)cudaErrorInvalidValue;                                      \
+  }                                                                         \
+  extern "C" int mlt_norm_bwd_part##code(const NormBwdCall* c) {           \
+    using T = mlt::CodeType<code>::T;                                       \
+    if (c->param_dtype == code) return (int)launch_bwd<T, T>(c);            \
+    if (c->param_dtype == mlt::kFloat32)                                    \
+      return (int)launch_bwd<T, float>(c);                                  \
+    return (int)cudaErrorInvalidValue;                                      \
+  }
+#if MLT_IN_PART(0)
+MLT_NORM_PART(0)
+#endif
+#if MLT_IN_PART(1)
+MLT_NORM_PART(1)
+#endif
+#if MLT_IN_PART(2)
+MLT_NORM_PART(2)
+#endif
+#undef MLT_NORM_PART
+
+#if MLT_IN_PART(0)
 // Returns a cudaError_t (0 on success).
 extern "C" int mlt_norm_fwd(const NormFwdCall* c) {
   if (!plan_ok(c)) return (int)cudaErrorInvalidValue;
-  if (c->x_dtype == mlt::kBFloat16 && c->param_dtype == mlt::kBFloat16)
-    return (int)launch_fwd<__nv_bfloat16, __nv_bfloat16>(c);
-  if (c->x_dtype == mlt::kBFloat16 && c->param_dtype == mlt::kFloat32)
-    return (int)launch_fwd<__nv_bfloat16, float>(c);
-  if (c->x_dtype == mlt::kFloat32 && c->param_dtype == mlt::kFloat32)
-    return (int)launch_fwd<float, float>(c);
-  return (int)cudaErrorInvalidValue;
+  switch (c->x_dtype) {
+    case mlt::kFloat32:
+      return mlt_norm_fwd_part0(c);
+    case mlt::kBFloat16:
+      return mlt_norm_fwd_part1(c);
+    case mlt::kFloat16:
+      return mlt_norm_fwd_part2(c);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Returns a cudaError_t (0 on success).
 extern "C" int mlt_norm_bwd(const NormBwdCall* c) {
   if (!plan_ok(c)) return (int)cudaErrorInvalidValue;
-  if (c->x_dtype == mlt::kBFloat16 && c->param_dtype == mlt::kBFloat16)
-    return (int)launch_bwd<__nv_bfloat16, __nv_bfloat16>(c);
-  if (c->x_dtype == mlt::kBFloat16 && c->param_dtype == mlt::kFloat32)
-    return (int)launch_bwd<__nv_bfloat16, float>(c);
-  if (c->x_dtype == mlt::kFloat32 && c->param_dtype == mlt::kFloat32)
-    return (int)launch_bwd<float, float>(c);
-  return (int)cudaErrorInvalidValue;
+  switch (c->x_dtype) {
+    case mlt::kFloat32:
+      return mlt_norm_bwd_part0(c);
+    case mlt::kBFloat16:
+      return mlt_norm_bwd_part1(c);
+    case mlt::kFloat16:
+      return mlt_norm_bwd_part2(c);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
+#endif

@@ -36,10 +36,10 @@
 // run).  A split that no key of a row reaches leaves m = -inf and l = 0,
 // weight 0.
 //
-// * `paged_mma_kernel` (bf16 q; pools bf16, or int8 converted exactly to
-//   bf16 in shared memory) takes every bf16 call with at least 2 rows a
-//   (slot, group): prefill chunks, and decode of GQA and MQA groups
-//   (Falcon's 71 heads on one group).  On an H100 it beat the CUDA-core
+// * `paged_mma_kernel` (bf16 or fp16 q; pools of q's type, or int8
+//   converted exactly to it in shared memory) takes every bf16 and fp16
+//   call with at least 2 rows a (slot, group): prefill chunks, and
+//   decode of GQA and MQA groups (Falcon's 71 heads on one group).  On an H100 it beat the CUDA-core
 //   kernel from 2 rows on at d 128 and lost by 5% at 1 row (chip_smoke.py's
 //   sweep of the threshold).  4 warps own a tile of 64 flat rows, 16 a
 //   warp; a warp whose rows all lie past the group's skips its products.
@@ -52,9 +52,9 @@
 //   only on tiles the causal edge, the window or the table's end cuts;
 //   online softmax in registers (the flash forward's rules: a fully
 //   masked row keeps m = -inf and takes 0 as its exponent base); P
-//   packed to bf16 as the A fragment of O += PV, V through
+//   packed to q's type as the A fragment of O += PV, V through
 //   ldmatrix.trans.  int8 pools: the scale of each key is applied to S's
-//   column and to P's column in fp32 before P is packed, so P's bf16
+//   column and to P's column in fp32 before P is packed, so P's
 //   rounding is the only one beyond the reference's fp32.
 // * `paged_simt_kernel` takes the rest: one row a (slot, group) (MHA
 //   decode, as Llama-2-7B's) and every fp32 call.  A block owns 1, 2 or
@@ -66,6 +66,10 @@
 //   their shuffle reductions overlap.  Key tiles of ~16 KB of K (and as
 //   much V) arrive by cp.async in a ring of three; int8 values become
 //   float(int8) * scale where a warp reads them.
+//
+// Every (q type, pool type, head_dim, rows) has its kernels, in one
+// object a q type (build.py's parts, which build in parallel; the entry
+// dispatches to them).
 //
 // The caller picks the variant and the splits (ops/kernels/paged_attention.py
 // `plan`) and passes them to `mlt_ragged_paged_attention`; each kernel's
@@ -81,8 +85,6 @@
 #include "sm90.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -198,14 +200,15 @@ __device__ __forceinline__ void store_row(const Args& a, size_t row, int D,
   }
 }
 
-// 8 int8 values -> 8 bf16 (exact: |x| <= 127)
-__device__ __forceinline__ uint4 i8x8_to_bf16(uint2 w) {
+// 8 int8 values -> 8 of T, bf16 or fp16 (exact: |x| <= 127)
+template <typename T>
+__device__ __forceinline__ uint4 i8x8_to(uint2 w) {
   const int8_t* b = reinterpret_cast<const int8_t*>(&w);
   uint4 r;
-  r.x = sm90::pack_bf16((float)b[0], (float)b[1]);
-  r.y = sm90::pack_bf16((float)b[2], (float)b[3]);
-  r.z = sm90::pack_bf16((float)b[4], (float)b[5]);
-  r.w = sm90::pack_bf16((float)b[6], (float)b[7]);
+  r.x = sm90::pack<T>((float)b[0], (float)b[1]);
+  r.y = sm90::pack<T>((float)b[2], (float)b[3]);
+  r.z = sm90::pack<T>((float)b[4], (float)b[5]);
+  r.w = sm90::pack<T>((float)b[6], (float)b[7]);
   return r;
 }
 
@@ -217,10 +220,10 @@ template <typename KV, int D>
 struct MmaTile {
   static constexpr bool kQuant = sizeof(KV) == 1;
   static constexpr int kStages = D <= 64 ? 3 : 2;
-  static constexpr int kPitch = D + 8;  // bf16 elements of a staged row
+  static constexpr int kPitch = D + 8;  // 16-bit elements of a staged row
   static constexpr bool kQInRegs = D <= 128;
   static constexpr int kQBytes = kMmaRows * kPitch * 2;
-  static constexpr int kTile16 = kMmaKeys * kPitch * 2;  // K or V in bf16
+  static constexpr int kTile16 = kMmaKeys * kPitch * 2;  // K or V, 16-bit
   // a ring stage: K and V as they arrive (int8 pools: [64][D] int8 each,
   // then the 64 K scales and the 64 V scales)
   static constexpr int kStage =
@@ -230,16 +233,18 @@ struct MmaTile {
       kQBytes + kStages * kStage + (kQuant ? 2 * kTile16 : 0);
 };
 
-template <typename KV, int D>
+// T: type of q and out, bf16 or fp16; KV: element type of the pools (T,
+// or int8_t with the scales)
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads) paged_mma_kernel(Args a) {
   using L = MmaTile<KV, D>;
   constexpr int P = L::kPitch;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  T* Qs = reinterpret_cast<T*>(smem);
   unsigned char* ring = smem + L::kQBytes;
-  // int8 pools: the arrived tile converted to bf16
-  bf16* K16 = reinterpret_cast<bf16*>(ring + L::kStages * L::kStage);
-  bf16* V16 = K16 + kMmaKeys * P;
+  // int8 pools: the arrived tile converted to T
+  T* K16 = reinterpret_cast<T*>(ring + L::kStages * L::kStage);
+  T* V16 = K16 + kMmaKeys * P;
   int* pages = reinterpret_cast<int*>(smem + L::kSmem);
 
   const Block b = block_of(a, kMmaRows, kMmaKeys);
@@ -250,7 +255,7 @@ __global__ void __launch_bounds__(kThreads) paged_mma_kernel(Args a) {
 
   // Q: the tile's 64 rows (rows past the group's are zero)
   {
-    const bf16* q = static_cast<const bf16*>(a.q);
+    const T* q = static_cast<const T*>(a.q);
     for (int e = tid; e < kMmaRows * D / 8; e += kThreads) {
       const int i = e / (D / 8), c = (e % (D / 8)) * 8;
       const bool in = b.r0 + i < b.r1;
@@ -317,13 +322,13 @@ __global__ void __launch_bounds__(kThreads) paged_mma_kernel(Args a) {
     const int t = b.t_begin + it;
     const unsigned char* st = ring + (it % L::kStages) * L::kStage;
     // tile `it` (and Q) landed; every warp is done with tile it - 1, so
-    // its stage (and the bf16 tile) may be refilled
+    // its stage (and the converted tile) may be refilled
     sm90::cp_async_wait<L::kStages - 2>();
     __syncthreads();
     if (it + L::kStages - 1 < n_t) issue(t + L::kStages - 1);
     sm90::cp_async_commit();
-    const bf16* Kt;
-    const bf16* Vt;
+    const T* Kt;
+    const T* Vt;
     const float* kst = nullptr;
     const float* vst = nullptr;
     if constexpr (L::kQuant) {
@@ -332,9 +337,9 @@ __global__ void __launch_bounds__(kThreads) paged_mma_kernel(Args a) {
       for (int e = tid; e < kMmaKeys * D / 8; e += kThreads) {
         const int j = e / (D / 8), c = (e % (D / 8)) * 8;
         *reinterpret_cast<uint4*>(K16 + j * P + c) =
-            i8x8_to_bf16(*reinterpret_cast<const uint2*>(K8 + j * D + c));
+            i8x8_to<T>(*reinterpret_cast<const uint2*>(K8 + j * D + c));
         *reinterpret_cast<uint4*>(V16 + j * P + c) =
-            i8x8_to_bf16(*reinterpret_cast<const uint2*>(V8 + j * D + c));
+            i8x8_to<T>(*reinterpret_cast<const uint2*>(V8 + j * D + c));
       }
       kst = reinterpret_cast<const float*>(st + 2 * kMmaKeys * D);
       vst = kst + kMmaKeys;
@@ -342,7 +347,7 @@ __global__ void __launch_bounds__(kThreads) paged_mma_kernel(Args a) {
       Vt = V16;
       __syncthreads();
     } else {
-      Kt = reinterpret_cast<const bf16*>(st);
+      Kt = reinterpret_cast<const T*>(st);
       Vt = Kt + kMmaKeys * P;
     }
     if (!live) continue;  // warp-uniform: the warp's rows are past R
@@ -377,8 +382,8 @@ __global__ void __launch_bounds__(kThreads) paged_mma_kernel(Args a) {
         uint32_t bk[4];
         sm90::ldsm_x4(bk, Kt + (16 * n2 + (lane & 7) + ((lane >> 4) << 3)) * P
                               + 16 * kk + ((lane >> 3) & 1) * 8);
-        sm90::mma16816(s[2 * n2], aq, bk[0], bk[1]);
-        sm90::mma16816(s[2 * n2 + 1], aq, bk[2], bk[3]);
+        sm90::mma16816<T>(s[2 * n2], aq, bk[0], bk[1]);
+        sm90::mma16816<T>(s[2 * n2 + 1], aq, bk[2], bk[3]);
       }
     }
 
@@ -419,7 +424,7 @@ __global__ void __launch_bounds__(kThreads) paged_mma_kernel(Args a) {
     }
 
     // P = exp2(S - base): its row sums in fp32, then (int8: times each
-    // key's V scale) packed to bf16 as the A fragment of O += P V
+    // key's V scale) packed to T as the A fragment of O += P V
 #pragma unroll
     for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
       uint32_t ap[4];
@@ -439,16 +444,16 @@ __global__ void __launch_bounds__(kThreads) paged_mma_kernel(Args a) {
           p[2] *= vst[col];
           p[3] *= vst[col + 1];
         }
-        ap[2 * h2] = sm90::pack_bf16(p[0], p[1]);      // row lane / 4
-        ap[2 * h2 + 1] = sm90::pack_bf16(p[2], p[3]);  // row lane / 4 + 8
+        ap[2 * h2] = sm90::pack<T>(p[0], p[1]);      // row lane / 4
+        ap[2 * h2 + 1] = sm90::pack<T>(p[2], p[3]);  // row lane / 4 + 8
       }
 #pragma unroll
       for (int n2 = 0; n2 < D / 16; ++n2) {
         uint32_t bv[4];
         sm90::ldsm_x4_t(bv, Vt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8)
                                      * P + 16 * n2 + (lane >> 4) * 8);
-        sm90::mma16816(o[2 * n2], ap, bv[0], bv[1]);
-        sm90::mma16816(o[2 * n2 + 1], ap, bv[2], bv[3]);
+        sm90::mma16816<T>(o[2 * n2], ap, bv[0], bv[1]);
+        sm90::mma16816<T>(o[2 * n2 + 1], ap, bv[2], bv[3]);
       }
     }
   }
@@ -465,7 +470,7 @@ __global__ void __launch_bounds__(kThreads) paged_mma_kernel(Args a) {
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const float pair[2] = {o[n][2 * hf], o[n][2 * hf + 1]};
-      store_row<bf16, 2>(a, row, D, 8 * n + 2 * (lane & 3), pair,
+      store_row<T, 2>(a, row, D, 8 * n + 2 * (lane & 3), pair,
                          m[hf] * kLn2, l[hf], n == 0 && (lane & 3) == 0);
     }
   }
@@ -773,9 +778,9 @@ inline dim3 grid_of(const Args& a, int tile_rows) {
   return dim3(a.S, a.g * ((R + tile_rows - 1) / tile_rows), a.splits);
 }
 
-template <typename KV, int D>
+template <typename T, typename KV, int D>
 cudaError_t launch_mma(Args a, cudaStream_t st) {
-  auto kernel = paged_mma_kernel<KV, D>;
+  auto kernel = paged_mma_kernel<T, KV, D>;
   constexpr size_t kBase = MmaTile<KV, D>::kSmem;
   static const cudaError_t attr =
       smem_attr((const void*)kernel, kBase + kPagesSmem);
@@ -805,8 +810,9 @@ cudaError_t launch_simt(Args a, cudaStream_t st) {
 template <typename T, typename KV, int D>
 cudaError_t launch_variant(const Args& a, int variant, cudaStream_t st) {
   if (variant == 1) {
-    if constexpr (sizeof(T) == 2) return launch_mma<KV, D>(a, st);
-    return cudaErrorInvalidValue;  // the tensor-core kernel takes bf16 q
+    if constexpr (sizeof(T) == 2) return launch_mma<T, KV, D>(a, st);
+    // the tensor-core kernel takes bf16 or fp16 q
+    return cudaErrorInvalidValue;
   }
   switch (simt_rows(a.C * (a.nh / a.g))) {
     case 1:
@@ -845,21 +851,15 @@ cudaError_t launch_all(const Args& a, int d, int variant, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// q, out: [S, C, nh, d]; k_pages, v_pages: [P, bs, g, d], contiguous, of
-// q's dtype when k_scales and v_scales are null, else int8 with the scales
-// [P, bs, g] fp32; block_tables: [S, M] int32; context_lens: [S] int32.
-// window <= 0 means no sliding window; dtype is q's.  variant: 0 the
-// CUDA-core kernel, 1 the tensor-core kernel (bf16 only).  splits > 1
-// needs o_part [splits, S, C, nh, d] and ml_part [splits, S, C, nh, 2]
-// fp32 scratch.  Returns a cudaError_t (0 on success).
-extern "C" int mlt_ragged_paged_attention(
-    const void* q, const void* k_pages, const void* v_pages,
-    const float* k_scales, const float* v_scales, const int* block_tables,
-    const int* context_lens, void* out, float* o_part, float* ml_part,
-    int S, int C, int nh, int g, int d, int bs, int M, float scale,
-    int window, int splits, int variant, int dtype, void* stream) {
+// the checks of one call, its Args, and the launch of the kernels of q's
+// type T
+template <typename T>
+int ragged_call(const void* q, const void* k_pages, const void* v_pages,
+                const float* k_scales, const float* v_scales,
+                const int* block_tables, const int* context_lens, void* out,
+                float* o_part, float* ml_part, int S, int C, int nh, int g,
+                int d, int bs, int M, float scale, int window, int splits,
+                int variant, void* stream) {
   if (S <= 0 || C <= 0 || g <= 0 || nh % g || bs <= 0 || M <= 0 ||
       splits <= 0 || splits > 65535 || (variant != 0 && variant != 1) ||
       (k_scales == nullptr) != (v_scales == nullptr) ||
@@ -872,8 +872,67 @@ extern "C" int mlt_ragged_paged_attention(
   Args a{q,       k_pages, v_pages, k_scales, v_scales, block_tables,
          context_lens, out, o_part, ml_part, S, C, nh, g, bs, M, window,
          splits, 0, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == mlt::kBFloat16) return (int)launch_all<bf16>(a, d, variant, st);
-  if (dtype == mlt::kFloat32) return (int)launch_all<float>(a, d, variant, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_all<T>(a, d, variant,
+                            static_cast<cudaStream_t>(stream));
 }
+
+}  // namespace
+
+// One part function a dtype code (common.cuh MLT_PART): each holds the
+// kernels of its q type, in the object of its part.
+#define MLT_PAGED_PARAMS                                                     \
+  const void *q, const void *k_pages, const void *v_pages,                   \
+      const float *k_scales, const float *v_scales, const int *block_tables, \
+      const int *context_lens, void *out, float *o_part, float *ml_part,     \
+      int S, int C, int nh, int g, int d, int bs, int M, float scale,        \
+      int window, int splits, int variant, void *stream
+#define MLT_PAGED_ARGS                                                      \
+  q, k_pages, v_pages, k_scales, v_scales, block_tables, context_lens, out,  \
+      o_part, ml_part, S, C, nh, g, d, bs, M, scale, window, splits,         \
+      variant, stream
+extern "C" int mlt_paged_part0(MLT_PAGED_PARAMS);
+extern "C" int mlt_paged_part1(MLT_PAGED_PARAMS);
+extern "C" int mlt_paged_part2(MLT_PAGED_PARAMS);
+#if MLT_IN_PART(0)
+extern "C" int mlt_paged_part0(MLT_PAGED_PARAMS) {
+  return ragged_call<mlt::CodeType<mlt::kFloat32>::T>(MLT_PAGED_ARGS);
+}
+#endif
+#if MLT_IN_PART(1)
+extern "C" int mlt_paged_part1(MLT_PAGED_PARAMS) {
+  return ragged_call<mlt::CodeType<mlt::kBFloat16>::T>(MLT_PAGED_ARGS);
+}
+#endif
+#if MLT_IN_PART(2)
+extern "C" int mlt_paged_part2(MLT_PAGED_PARAMS) {
+  return ragged_call<mlt::CodeType<mlt::kFloat16>::T>(MLT_PAGED_ARGS);
+}
+#endif
+
+#if MLT_IN_PART(0)
+// q, out: [S, C, nh, d]; k_pages, v_pages: [P, bs, g, d], contiguous, of
+// q's dtype when k_scales and v_scales are null, else int8 with the scales
+// [P, bs, g] fp32; block_tables: [S, M] int32; context_lens: [S] int32.
+// window <= 0 means no sliding window; dtype is q's.  variant: 0 the
+// CUDA-core kernel, 1 the tensor-core kernel (bf16 and fp16 only).
+// splits > 1 needs o_part [splits, S, C, nh, d] and ml_part
+// [splits, S, C, nh, 2] fp32 scratch.  Returns a cudaError_t (0 on
+// success).
+extern "C" int mlt_ragged_paged_attention(
+    const void* q, const void* k_pages, const void* v_pages,
+    const float* k_scales, const float* v_scales, const int* block_tables,
+    const int* context_lens, void* out, float* o_part, float* ml_part,
+    int S, int C, int nh, int g, int d, int bs, int M, float scale,
+    int window, int splits, int variant, int dtype, void* stream) {
+  switch (dtype) {
+    case mlt::kFloat32:
+      return mlt_paged_part0(MLT_PAGED_ARGS);
+    case mlt::kBFloat16:
+      return mlt_paged_part1(MLT_PAGED_ARGS);
+    case mlt::kFloat16:
+      return mlt_paged_part2(MLT_PAGED_ARGS);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+#endif

@@ -46,8 +46,9 @@ window, ``--flight_recorder_size``), the span tracer (``--trace_dir``,
 writer (``--wandb_logger``, ``--tensorboard_dir`` and the
 ``--log_*_to_tensorboard`` flags; without ``wandb`` installed it writes
 JSONL).  ``--device cpu`` runs it on the CPU (the tests do); the
-default is the card.  Parallelism, ``--fp16``, ``--profiler_port`` and
-the flags of the other features the port lacks
+default is the card.  ``--fp16`` trains fp16 parameters under the loss
+scale, as ``--bf16`` trains bf16 ones.  Parallelism, ``--profiler_port``
+and the flags of the other features the port lacks
 (``arguments.UNPORTED_TRAINING``) parse and raise
 ``NotImplementedError``.  ``python -m megatron_llm_torch.pretrain_gpt``
 is this entry point with ``--model_name=gpt``.
@@ -382,9 +383,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         arch = _apply_checkpoint_args(args)
         # re-derive what validate_args computed from the CLI architecture
         validate_args(args)
-    if args.fp16:
-        raise NotImplementedError(
-            "--fp16: the kernels take fp32 or bf16; use --bf16")
     tokenizer = None
     if args.tokenizer_type is not None:
         tokenizer = build_tokenizer(args)   # sets args.padded_vocab_size

@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
-``nvcc`` process per source, all started together), and the objects are
-linked into one shared library with a plain C interface, loaded with
-``ctypes``.  No PyTorch header is compiled, so a cold build takes
+``nvcc`` process per unit of ``UNITS``, all started together), and the
+objects are linked into one shared library with a plain C interface,
+loaded with ``ctypes``.  A source whose kernels are instantiated for
+every dtype is compiled once a dtype (``-DMLT_PART=<dtype code>``,
+``csrc/common.cuh``), so its parts build in parallel.  No PyTorch header is compiled, so a cold build takes
 seconds.  The library lands in ``build/torch_kernels/`` at the repo root,
 named by a digest of the sources and flags, so an edited source never
 loads a stale build.  Nothing here runs at import time: the first
@@ -27,12 +29,19 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("paged_attention.cu", "layernorm.cu", "flash_attention.cu")
+# (source, part): one nvcc process each.  The paged and norm sources are
+# compiled once a dtype code (fp32, bf16, fp16; None: the whole source):
+# whole, with fp16 added, they took 93 s and 62 s on an H100 machine's
+# host, the flash source 36 s
+UNITS = (("paged_attention.cu", 0), ("paged_attention.cu", 1),
+         ("paged_attention.cu", 2), ("layernorm.cu", 0), ("layernorm.cu", 1),
+         ("layernorm.cu", 2), ("flash_attention.cu", None))
 HEADERS = ("common.cuh", "sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # dtype codes of the C interface (csrc/common.cuh)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -86,9 +95,13 @@ def source_digest(paths, flags) -> str:
     return h.hexdigest()[:16]
 
 
+def _unit_flags(part) -> tuple:
+    return NVCC_FLAGS + (() if part is None else (f"-DMLT_PART={part}",))
+
+
 def _digest() -> str:
     return source_digest([CSRC_DIR / n for n in SOURCES + HEADERS],
-                         NVCC_FLAGS)
+                         NVCC_FLAGS + tuple(map(str, UNITS)))
 
 
 def build() -> Path:
@@ -101,20 +114,33 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{lib_path.stem}.{os.getpid()}"
-    objs, procs = [], []
-    for src in SOURCES:
-        obj = BUILD_DIR / f"{Path(src).stem}.{tag}.o"
+    objs, procs, outs = [], [], []
+    t0 = time.perf_counter()
+    for src, part in UNITS:
+        stem = Path(src).stem + ("" if part is None else f"_part{part}")
+        obj = BUILD_DIR / f"{stem}.{tag}.o"
+        out = BUILD_DIR / f"{stem}.{tag}.log"
         objs.append(obj)
-        procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / src), "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs.append(out)
+        with open(out, "w") as f:
+            procs.append(subprocess.Popen(
+                [nvcc, *_unit_flags(part), "-c", str(CSRC_DIR / src), "-o",
+                 str(obj)], stdout=f, stderr=subprocess.STDOUT))
+    # each source's seconds: the build waits for the slowest
+    secs = [None] * len(procs)
+    while None in secs:
+        for i, p in enumerate(procs):
+            if secs[i] is None and p.poll() is not None:
+                secs[i] = time.perf_counter() - t0
+        time.sleep(0.05)
     logs = []
     failed = []
-    for src, p in zip(SOURCES, procs):
-        out, _ = p.communicate()
-        logs.append(f"== nvcc {src}\n{out}")
+    for (src, part), p, out, sec in zip(UNITS, procs, outs, secs):
+        name = src if part is None else f"{src} part {part}"
+        logs.append(f"== nvcc {name} ({sec:.1f} s)\n{out.read_text()}")
+        out.unlink(missing_ok=True)
         if p.returncode != 0:
-            failed.append(src)
+            failed.append(name)
     build_log = "\n".join(logs)
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
@@ -158,8 +184,8 @@ def dtype_code(t: torch.Tensor) -> int:
     try:
         return DTYPE_CODES[t.dtype]
     except KeyError:
-        raise TypeError(f"the CUDA kernels take float32 or bfloat16, got "
-                        f"{t.dtype}") from None
+        raise TypeError(f"the CUDA kernels take float32, bfloat16 or "
+                        f"float16, got {t.dtype}") from None
 
 
 def stream_handle(t: torch.Tensor) -> int:

@@ -20,11 +20,10 @@ forward.  A CUDA tensor launches the kernels or raises.  A row that no
 key reaches gives o = 0 and lse = NEG_INF, and a zero gradient.
 
 The kernel variant is chosen by dtype and head_dim alone
-(``kernel_variant``): bf16 takes the Hopper kernels (F, G at d 64 and
-128, and H's dQ pass, on wgmma with a TMA ring; G at d 256 and H's dK/dV
-pass on mma.sync with a cp.async ring), fp32 the CUDA-core kernels of
-the checking path.  At MQA/GQA shapes the
-backward splits each KV group's query heads over blocks
+(``kernel_variant``): bf16 and fp16 take the Hopper kernels (F, G at d
+64 and 128, and H's dQ pass, on wgmma with a TMA ring; G at d 256 and
+H's dK/dV pass on mma.sync with a cp.async ring), fp32 the CUDA-core
+kernels of the checking path.  At MQA/GQA shapes the backward splits each KV group's query heads over blocks
 (``head_splits``) and sums the splits' fp32 partial dK/dV in a fixed
 order.
 """
@@ -59,6 +58,13 @@ TILES = {
     (torch.float32, 128): ((32, 32),) * 4,
     (torch.float32, 256): ((16, 16),) * 4,
 }
+# fp16 takes the bf16 kernels with fp16 elements: the same tiles
+TILES.update({(torch.float16, d): TILES[(torch.bfloat16, d)]
+              for d in HEAD_DIMS})
+# the kernel variants' dtype tags; fp16 and bf16 run the tensor-core
+# kernels, fp32 the CUDA-core ones
+_TAGS = {torch.bfloat16: "bf16", torch.float16: "fp16",
+         torch.float32: "fp32"}
 
 # kernel launches since the last reset (plain counts; chip_smoke.py zeroes
 # them before driving the training path and reads them after).  One H
@@ -80,7 +86,9 @@ def kernel_variant(dtype: torch.dtype, d: int, kind: str) -> str:
     """The kernel a CUDA call of ``kind`` ("fwd", "fused" for G,
     "two_pass" for H) takes for this dtype and head_dim:
 
-    * bf16: "fwd_bf16_wgmma" (F: wgmma, TMA ring, warp-specialised);
+    * bf16 (and fp16, "fp16" in place of "bf16": the same kernels with
+      fp16 elements): "fwd_bf16_wgmma" (F: wgmma, TMA ring,
+      warp-specialised);
       "bwd_fused_bf16_wgmma" (G at d 64 and 128: wgmma, TMA ring, dK/dV
       in registers) or "bwd_fused_bf16_mma" (G at d 256: mma.sync,
       cp.async ring, dK/dV in registers); "bwd_two_pass_bf16_wgmma" (H:
@@ -94,17 +102,17 @@ def kernel_variant(dtype: torch.dtype, d: int, kind: str) -> str:
         raise ValueError(f"unknown flash attention pass {kind!r}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got {d}")
-    tag = {torch.bfloat16: "bf16", torch.float32: "fp32"}.get(dtype)
+    tag = _TAGS.get(dtype)
     if tag is None:
-        raise TypeError(f"the flash kernels take float32 or bfloat16, got "
-                        f"{dtype}")
+        raise TypeError(f"the flash kernels take float32, bfloat16 or "
+                        f"float16, got {dtype}")
     if kind == "fwd":
-        return f"fwd_{tag}" + ("_wgmma" if tag == "bf16" else "")
+        return f"fwd_{tag}" + ("_wgmma" if tag != "fp32" else "")
     if kind == "fused":
         if tag == "fp32":
             return "bwd_fused_fp32"
-        return "bwd_fused_bf16_" + ("mma" if d == 256 else "wgmma")
-    return f"bwd_two_pass_{tag}" + ("_wgmma" if tag == "bf16" else "")
+        return f"bwd_fused_{tag}_" + ("mma" if d == 256 else "wgmma")
+    return f"bwd_two_pass_{tag}" + ("_wgmma" if tag != "fp32" else "")
 
 
 def head_splits(b: int, sk: int, ng: int, qpg: int, block_k: int,

@@ -208,6 +208,8 @@ def bwd_walk(contrib: torch.Tensor, p: Tuple[int, int, int, int]
 CODES = {(x, p): (build.DTYPE_CODES[x], build.DTYPE_CODES[p])
          for x, p in ((torch.bfloat16, torch.bfloat16),
                       (torch.bfloat16, torch.float32),
+                      (torch.float16, torch.float16),
+                      (torch.float16, torch.float32),
                       (torch.float32, torch.float32))}
 # the forward's C entry takes one packed NormFwdCall (csrc/layernorm.cu):
 # the seven pointers x, gamma, beta, y, mu, rstd and the stream (beta, mu

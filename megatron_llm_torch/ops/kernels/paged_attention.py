@@ -22,10 +22,10 @@ dequantised when there are scales, then masked fp32 softmax); a CUDA
 tensor launches the kernel or raises.
 
 On the card, ``plan`` picks the kernel from the call's shapes alone
-(``kernel_variant``): "mma", the tensor-core kernel, for bf16 calls with
-at least ``MMA_MIN_ROWS`` query rows a (slot, KV group) (every prefill
-chunk, and the decode of GQA and MQA groups, as Falcon-7B's 71 heads on
-one); "simt", the CUDA-core kernel, for the rest (MHA decode, one row a
+(``kernel_variant``): "mma", the tensor-core kernel, for bf16 and fp16
+calls with at least ``MMA_MIN_ROWS`` query rows a (slot, KV group)
+(every prefill chunk, and the decode of GQA and MQA groups, as
+Falcon-7B's 71 heads on one); "simt", the CUDA-core kernel, for the rest (MHA decode, one row a
 group) and for fp32.  The keys of each block are split over
 ``key_splits`` blocks, and over at least ``table_splits`` where a long
 block table would overflow the kernels' shared-memory page list; more
@@ -81,17 +81,17 @@ variant_launches: dict = {}
 
 def kernel_variant(dtype: torch.dtype, rows_per_group: int, d: int,
                    quantized: bool) -> str:
-    """The kernel a CUDA call takes: "mma" for bf16 with at least
-    MMA_MIN_ROWS query rows a (slot, KV group) (C * nh / g), else
+    """The kernel a CUDA call takes: "mma" for bf16 and fp16 with at
+    least MMA_MIN_ROWS query rows a (slot, KV group) (C * nh / g), else
     "simt".  Pools of q's dtype or int8 (``quantized``) take the same
     route.  Raises for a dtype or head_dim no kernel takes."""
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got {d}")
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"the paged kernels take float32 or bfloat16 q, "
-                        f"got {dtype}")
+    if dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise TypeError(f"the paged kernels take float32, bfloat16 or "
+                        f"float16 q, got {dtype}")
     del quantized   # int8 pools are converted where they are read
-    if dtype == torch.bfloat16 and rows_per_group >= MMA_MIN_ROWS:
+    if dtype != torch.float32 and rows_per_group >= MMA_MIN_ROWS:
         return "mma"
     return "simt"
 
@@ -332,8 +332,8 @@ def _ragged_call(q, k_pages, v_pages, block_tables, context_lens,
     variant, _, _, planned = plan(q.dtype, S, C, nh, g, d, bs, M,
                                   quantized, build.sm_count(device),
                                   variant)
-    if variant == "mma" and q.dtype != torch.bfloat16:
-        raise TypeError("the tensor-core kernel takes bf16 q")
+    if variant == "mma" and q.dtype == torch.float32:
+        raise TypeError("the tensor-core kernel takes bf16 or fp16 q")
     splits = splits or planned
     if partials and splits < 2:
         raise ValueError("partials come from a launch of 2 splits or more")

@@ -45,9 +45,6 @@ def parse(argv: Sequence[str], extra_args: Callable):
     trainer and ``args.padded_vocab_size`` set."""
     args = parse_args(list(argv), extra_args_provider=extra_args)
     refuse_unported(args, UNPORTED_TRAINING, extra_args)
-    if args.fp16:
-        raise NotImplementedError(
-            "--fp16: the kernels take fp32 or bf16; use --bf16")
     tokenizer = build_tokenizer(args) if args.tokenizer_type else None
     if args.padded_vocab_size is None:
         raise SystemExit("need --vocab_size/--padded_vocab_size or a "

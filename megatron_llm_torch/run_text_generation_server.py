@@ -158,8 +158,9 @@ def model_config_from_args(args, arch: Optional[dict] = None):
             overrides[dst] = tuple(value) if value else None
         else:
             overrides[_ARG_TO_FIELD.get(dst, dst)] = value
-    if args.bf16:
-        overrides.update(params_dtype="bf16", compute_dtype="bf16")
+    if args.bf16 or args.fp16:
+        dt = "bf16" if args.bf16 else "fp16"
+        overrides.update(params_dtype=dt, compute_dtype=dt)
     return config_fn(size, **overrides)
 
 
@@ -198,11 +199,6 @@ def build_server(args, tokenizer) -> MegatronServer:
         tracing.install_tracing(tracing.Tracing(
             tracer=tracing.SpanTracer(), trace_dir=args.trace_dir))
     refuse_unported(args, UNPORTED_SERVING)
-    if args.fp16:
-        # the JAX tool serves fp16 (ROADMAP item 18); refused here as the
-        # trainer refuses it, where it would otherwise serve fp32
-        raise NotImplementedError(
-            "--fp16: the kernels take fp32 or bf16; use --bf16")
     warn_unimplemented(args)
     device = torch.device(args.device)
     engine_cfg = engine_config_from_args(args)

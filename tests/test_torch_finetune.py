@@ -97,11 +97,38 @@ def test_flags_lower_to_configs():
 @pytest.mark.parametrize("extra", [
     ["--profiler_port", "9012"],
     ["--pipeline_model_parallel_size", "2"],
-    ["--tensor_model_parallel_size", "2"], ["--fp16"],
+    ["--tensor_model_parallel_size", "2"],
 ])
 def test_flags_for_unported_features_raise(extra):
     with pytest.raises(NotImplementedError):
         finetune.main(TINY + extra)
+
+
+@pytest.mark.parametrize("entry", ["finetune", "pretrain_gpt"])
+def test_fp16_trains_under_the_dynamic_loss_scale(entry, capsys):
+    """--fp16 trains (it was refused before the kernels took fp16): from
+    the default scale 2^32 the overflowing steps are skipped and the scale
+    halves, then steps apply with finite losses."""
+    from megatron_llm_torch import pretrain_gpt
+
+    main = finetune.main if entry == "finetune" else pretrain_gpt.main
+    argv = [a for a in TINY if a != "--model_name=llama2" or entry ==
+            "finetune"]
+    argv = [a for a in argv if not a.startswith("--train_iters")]
+    assert main(argv + ["--fp16", "--train_iters=20"]) == 20
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith(" iteration")]
+    fields = [dict(f.strip().rsplit(": ", 1) for f in ln.split("|")
+                   if ": " in f) for ln in lines]
+    scales = [float(f["loss scale"]) for f in fields]
+    skipped = [int(f["skipped iterations"]) for f in fields]
+    assert scales[0] == 2.0 ** 32 and skipped[:2] == [1, 1]
+    assert scales[-1] < 2.0 ** 32 and skipped[-1] == 0
+    assert all(b_ == a_ / 2 or b_ == a_ for a_, b_ in zip(scales,
+                                                          scales[1:]))
+    applied = [float(f["lm loss"]) for f, s in zip(fields, skipped)
+               if not s]
+    assert len(applied) >= 3 and all(np.isfinite(applied))
 
 
 def test_other_families_raise(capsys):

@@ -189,9 +189,14 @@ def test_dispatch_refuses_what_no_kernel_takes():
     with pytest.raises(ValueError):
         tfa.kernel_variant(torch.bfloat16, 96, "fwd")
     with pytest.raises(TypeError):
-        tfa.kernel_variant(torch.float16, 128, "fwd")
+        tfa.kernel_variant(torch.float64, 128, "fwd")
     with pytest.raises(ValueError):
         tfa.kernel_variant(torch.float32, 128, "dq")
+    # fp16 runs the bf16 kernels with fp16 elements, on their tiles
+    assert tfa.kernel_variant(torch.float16, 128, "fwd") == "fwd_fp16_wgmma"
     assert set(tfa.TILES) == {(dt, d) for dt in (torch.bfloat16,
+                                                 torch.float16,
                                                  torch.float32)
                               for d in tfa.HEAD_DIMS}
+    assert all(tfa.TILES[(torch.float16, d)] == tfa.TILES[(torch.bfloat16, d)]
+               for d in tfa.HEAD_DIMS)

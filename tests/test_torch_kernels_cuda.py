@@ -4,7 +4,11 @@ This file imports no jax, so it also runs on a GPU machine without it:
 
     python -m pytest tests/test_torch_kernels_cuda.py
 
-Tolerances: bf16 2e-2 (tests/test_pallas_kernels.py), fp32 1e-4.  Also
+Tolerances: bf16 2e-2 (tests/test_pallas_kernels.py), fp32 1e-4, fp16
+an eighth of bf16's (fp16 keeps 3 more mantissa bits) or, where outputs
+reach a magnitude whose fp16 step is larger, that one step (``_tol``: the
+kernel and the plain version round fp32 values that may differ in their
+last bit).  Also
 checks, everywhere, that a wrapper refuses what its kernel does not
 take instead of falling back."""
 
@@ -22,7 +26,18 @@ from megatron_llm_torch.ops.kernels import rmsnorm as rn
 from megatron_llm_torch.quantization import absmax_quantize_int8
 
 torch.set_num_threads(1)
-TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2 / 8, torch.float32: 1e-4}
+DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+def _tol(dtype, ref):
+    """TOL[dtype]; in fp16, at least one fp16 step at ``ref``'s largest
+    |value|."""
+    tol = TOL[dtype]
+    m = ref.float().abs().max().item()
+    if dtype == torch.float16 and m > 0:
+        tol = max(tol, 2.0 ** (math.floor(math.log2(m)) - 10))
+    return tol
 # bf16 paged attention, also: each row's largest error against the fp32
 # plain version within this share of the row's largest |value| (the
 # outputs of a row at context ~1000 are ~0.05, where 2e-2 alone says
@@ -32,14 +47,16 @@ PAGED_ROW_REL = 1e-2
 
 def _assert_paged_close(out, ref32, dtype):
     """The kernel's output against the plain version computed in fp32
-    (``ref32``): within TOL of it rounded to ``dtype``, and in bf16 also
-    within PAGED_ROW_REL of each row's largest |value|."""
+    (``ref32``): within ``_tol`` of it rounded to ``dtype``, and in bf16
+    (fp16) also within PAGED_ROW_REL (an eighth of it) of each row's
+    largest |value|."""
     torch.testing.assert_close(out.float(), ref32.to(dtype).float(), rtol=0,
-                               atol=TOL[dtype])
-    if dtype == torch.bfloat16:
+                               atol=_tol(dtype, ref32))
+    if dtype != torch.float32:
         err = (out.float() - ref32).abs().amax(-1)
         rel = err / ref32.abs().amax(-1).clamp_min(1e-6)
-        assert rel.max().item() <= PAGED_ROW_REL, rel.max().item()
+        limit = PAGED_ROW_REL / (8 if dtype == torch.float16 else 1)
+        assert rel.max().item() <= limit, rel.max().item()
 
 
 @pytest.fixture
@@ -49,7 +66,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,h", [(8, 4096), (64, 4096), (3, 128),
                                  (4096, 4096), (1000, 4096)])
 def test_rmsnorm_kernel_matches_plain(cuda, n, h, dtype):
@@ -61,11 +78,11 @@ def test_rmsnorm_kernel_matches_plain(cuda, n, h, dtype):
     y0, r0 = rn.rms_norm_fwd_plain(x, s, 1e-5)
     assert rn.launches == before + 1
     torch.testing.assert_close(y.float(), y0.float(), rtol=0,
-                               atol=TOL[dtype])
+                               atol=_tol(dtype, y0))
     torch.testing.assert_close(r, r0, rtol=0, atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("C,g,nh,window", [
     (1, 32, 32, None), (1, 8, 32, 4096), (64, 32, 32, None),
     (64, 8, 32, 5), (16, 2, 8, 12)])
@@ -103,7 +120,8 @@ def test_wrappers_refuse_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         rn.rms_norm_fwd(x, torch.ones(102, device=cuda), 1e-5)
     with pytest.raises(TypeError):
-        rn.rms_norm_fwd(x.half(), torch.ones(102, device=cuda).half(), 1e-5)
+        rn.rms_norm_fwd(x.double(), torch.ones(102, device=cuda).double(),
+                        1e-5)
     q = torch.randn(2, 4, 48, device=cuda)      # head_dim 48: no kernel
     kp = torch.randn(3, 16, 4, 48, device=cuda)
     bt = torch.ones(2, 2, dtype=torch.int32, device=cuda)
@@ -126,7 +144,7 @@ def test_wrappers_refuse_instead_of_falling_back(cuda):
         rn.rms_norm_fwd_kernel(x, torch.ones(128, device=cuda), 1e-5)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,h", [(8, 4096), (300, 4096), (37, 768),
                                  (64, 5120), (5, 128)])
 def test_rmsnorm_every_plan_matches_plain(cuda, n, h, dtype):
@@ -142,7 +160,7 @@ def test_rmsnorm_every_plan_matches_plain(cuda, n, h, dtype):
             y, r = rn.rms_norm_fwd_kernel(x, s, 1e-5, force_plan=p)
             assert rn.plan_launches[p] == before.get(p, 0) + 1
             torch.testing.assert_close(y.float(), y0.float(), rtol=0,
-                                       atol=TOL[dtype], msg=str(p))
+                                       atol=_tol(dtype, y0), msg=str(p))
             torch.testing.assert_close(r, r0, rtol=1e-5, atol=1e-6)
             # without rstd: the same y; a rerun: the same bits
             y2, none = rn.rms_norm_fwd_kernel(x, s, 1e-5, rstd=False,
@@ -174,7 +192,7 @@ def test_norms_without_a_gradient_keep_no_statistics(cuda):
 
 # -- kernel C: the RMSNorm backward, and the autograd function around B/C --
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,h", [(4096, 4096), (300, 4096), (3, 128)])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, n, h, dtype):
     g = torch.Generator(device=cuda).manual_seed(7 * n + h)
@@ -187,7 +205,7 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, n, h, dtype):
     dx0, ds0 = rn.rms_norm_bwd_plain(x, s, gy, rstd)
     assert rn.bwd_launches == before + 1
     torch.testing.assert_close(dx.float(), dx0.float(), rtol=0,
-                               atol=TOL[dtype])
+                               atol=_tol(dtype, dx0))
     # dscale sums n rows: relative to its size
     scale = ds0.abs().max().item() + 1.0
     assert (ds - ds0).abs().max().item() <= TOL[dtype] * scale
@@ -238,7 +256,7 @@ def test_rmsnorm_strided_rows(cuda):
     torch.testing.assert_close(gs, rs, rtol=1e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,h", [(300, 4096), (37, 768), (5, 128),
                                  (64, 5504), (2048, 3072)])
 def test_rmsnorm_bwd_every_plan_matches_plain(cuda, n, h, dtype):
@@ -251,7 +269,7 @@ def test_rmsnorm_bwd_every_plan_matches_plain(cuda, n, h, dtype):
     gy = torch.randn(n, h, device=cuda, generator=g).to(dtype)
     _, rstd = rn.rms_norm_fwd_plain(x, s, 1e-5)
     dx0, ds0 = rn.rms_norm_bwd_plain(x, s, gy, rstd)
-    tol = TOL[dtype]
+    tol = _tol(dtype, dx0)
     plans = norm_plan.bwd_plans(n, h, dtype, rms=True)
     if n == 2048:       # Gemma-7B's training rows: the plan and a few more
         plans = plans[:1] + plans[1::4]
@@ -293,8 +311,8 @@ def test_rmsnorm_bwd_refuses_with_the_reason(cuda):
                                x, rstd)
     with pytest.raises(TypeError, match="float32 x takes float32"):
         rn.rms_norm_bwd_kernel(x, s.bfloat16(), x, rstd)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        rn.rms_norm_bwd_kernel(x.half(), s.half(), x.half(), rstd)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        rn.rms_norm_bwd_kernel(x.double(), s.double(), x.double(), rstd)
     with pytest.raises(ValueError, match="rstd must be"):
         rn.rms_norm_bwd_kernel(x, s, x, torch.ones(3, 1, device=cuda))
     with pytest.raises(ValueError, match="g must be"):
@@ -321,7 +339,7 @@ FA_CASES = [  # (b, s, nh, ng, d, window)
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,s,nh,ng,d,window", FA_CASES)
 def test_flash_kernels_match_plain(cuda, b, s, nh, ng, d, window, dtype):
     gen = torch.Generator(device=cuda).manual_seed(s + nh + ng + d)
@@ -332,7 +350,7 @@ def test_flash_kernels_match_plain(cuda, b, s, nh, ng, d, window, dtype):
     o, lse = fa.flash_attention_fwd(q, k, v, True, window, scale)
     o0, lse0 = fa._reference_attention(q, k, v, True, window, scale)
     assert fa.fwd_launches == f0 + 1
-    tol = TOL[dtype]
+    tol = _tol(dtype, o0)
     torch.testing.assert_close(o.float(), o0.float(), rtol=0, atol=tol)
     torch.testing.assert_close(lse, lse0, rtol=0, atol=tol)
     fused = fa.uses_fused_backward(s, s)
@@ -362,7 +380,7 @@ H_CASES = [  # (s, nh, ng, d, window, views): H's two passes
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("s,nh,ng,d,window,views", H_CASES)
 def test_flash_two_pass_backward(cuda, s, nh, ng, d, window, views, dtype):
     # H against its plain version, launched as its variant; dq, dk and dv
@@ -402,7 +420,7 @@ def test_flash_two_pass_backward(cuda, s, nh, ng, d, window, views, dtype):
         assert err <= tol * max(size, 1.0), (name, err, size)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("s,nh,ng,window", [
     (256, 4, 4, None),              # G, q, k and v all views
     (200, 4, 4, None),              # H, q, k and v all views
@@ -422,7 +440,7 @@ def test_flash_kernels_read_fused_qkv_views(cuda, s, nh, ng, window, dtype):
     scale = 1.0 / math.sqrt(d)
     o, lse = fa.flash_attention_fwd(q, k, v, True, window, scale)
     o0, lse0 = fa._reference_attention(q, k, v, True, window, scale)
-    tol = TOL[dtype]
+    tol = _tol(dtype, o0)
     torch.testing.assert_close(o.float(), o0.float(), rtol=0, atol=tol)
     torch.testing.assert_close(lse, lse0, rtol=0, atol=tol)
     grads = fa.flash_attention_bwd(q, k, v, o0, lse0, do, True, window,
@@ -435,7 +453,7 @@ def test_flash_kernels_read_fused_qkv_views(cuda, s, nh, ng, window, dtype):
         assert err <= tol * max(size, 1.0), (name, err, size)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("s,nh,ng,d", [
     (256, 8, 1, 256),               # G, Gemma-2B's fused QKV
     (200, 8, 1, 256),               # H
@@ -463,7 +481,7 @@ def test_flash_views_take_the_dtype_variant(cuda, s, nh, ng, d, dtype):
     o0, lse0 = fa._reference_attention(q, k, v, True, None, scale)
     ref = fa._reference_attention_bwd(q, k, v, o, lse, do, True, None,
                                       scale)
-    tol = TOL[dtype]
+    tol = _tol(dtype, o0)
     torch.testing.assert_close(o.float(), o0.float(), rtol=0, atol=tol)
     torch.testing.assert_close(lse, lse0, rtol=0, atol=tol)
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
@@ -472,7 +490,7 @@ def test_flash_views_take_the_dtype_variant(cuda, s, nh, ng, d, dtype):
         assert err <= tol * max(size, 1.0), (name, err, size)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("s,nh,d", [(1024, 71, 64), (512, 8, 256)])
 def test_flash_head_split_backward_is_right_and_deterministic(cuda, s, nh,
                                                               d, dtype):
@@ -503,7 +521,8 @@ def test_flash_tiles_match_the_kernels(cuda):
     import ctypes
 
     lib = build.load_library()
-    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+    for dtype, code in ((torch.bfloat16, 1), (torch.float16, 2),
+                        (torch.float32, 0)):
         for d in fa.HEAD_DIMS:
             out = (ctypes.c_int * 8)()
             assert lib.mlt_flash_tiles(code, d, out) == 0
@@ -512,7 +531,7 @@ def test_flash_tiles_match_the_kernels(cuda):
             smem = (ctypes.c_longlong * 4)()
             assert lib.mlt_flash_smem(code, d, smem) == 0
             assert max(smem) <= 232448
-            if dtype == torch.bfloat16:
+            if dtype != torch.float32:
                 # H's dQ pass: Q and dO of its q-tile, a two-stage ring
                 # of K and V tiles, 5 mbarriers, 1024 bytes of alignment
                 br, bc = fa.TILES[(dtype, d)][2]
@@ -559,7 +578,7 @@ def test_paged_wrappers_refuse_inputs_that_require_grad(cuda):
 
 # -- kernel A': ragged paged attention over int8 pools ----------------------
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("C,g,nh,d,window", [
     (1, 1, 71, 64, None), (64, 1, 71, 64, None), (1, 32, 32, 128, None),
     (64, 8, 32, 128, 5), (16, 2, 8, 32, 12), (1, 1, 8, 256, 100)])
@@ -641,6 +660,7 @@ def _paged_inputs(cuda, S, C, nh, g, d, quantized, dtype, seed, bs=16,
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("variant,dtype", [
     ("mma", torch.bfloat16), ("simt", torch.bfloat16),
+    ("mma", torch.float16), ("simt", torch.float16),
     ("simt", torch.float32)])
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("C,g,nh,window", [(1, 1, 8, None), (16, 2, 8, 12),
@@ -660,6 +680,7 @@ def test_paged_variants_match_plain(cuda, C, g, nh, window, d, variant,
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("variant,dtype", [
     ("mma", torch.bfloat16), ("simt", torch.bfloat16),
+    ("mma", torch.float16), ("simt", torch.float16),
     ("simt", torch.float32)])
 def test_paged_forced_splits_agree_and_repeat(cuda, variant, dtype,
                                               quantized):
@@ -684,6 +705,7 @@ def test_paged_forced_splits_agree_and_repeat(cuda, variant, dtype,
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("variant,dtype", [
     ("mma", torch.bfloat16), ("simt", torch.bfloat16),
+    ("mma", torch.float16), ("simt", torch.float16),
     ("simt", torch.float32)])
 @pytest.mark.parametrize("C,g,nh,d,window,splits", [
     (1, 1, 8, 64, None, 4), (1, 4, 4, 128, 12, 3), (16, 2, 8, 128, None, 5),
@@ -715,15 +737,18 @@ def test_paged_split_partials_match_the_reference(cuda, C, g, nh, d, window,
     torch.testing.assert_close(l[live], l0[live], rtol=1e-4, atol=0)
     torch.testing.assert_close((o / l[..., None])[live],
                                (o0 / l0[..., None])[live], rtol=0,
-                               atol=TOL[dtype])
+                               atol=_tol(dtype, out))
     torch.testing.assert_close(pa._reference_merge(o, m, l, dtype).float(),
-                               out.float(), rtol=0, atol=TOL[dtype])
+                               out.float(), rtol=0, atol=_tol(dtype, out))
 
 
 def test_paged_variant_launches_follow_the_plan(cuda):
     for C, nh, g, dtype, want in [(1, 32, 32, torch.bfloat16, "simt"),
                                   (1, 71, 1, torch.bfloat16, "mma"),
                                   (64, 32, 32, torch.bfloat16, "mma"),
+                                  (1, 32, 32, torch.float16, "simt"),
+                                  (1, 71, 1, torch.float16, "mma"),
+                                  (64, 32, 32, torch.float16, "mma"),
                                   (64, 32, 32, torch.float32, "simt")]:
         q, k, v, bt, cl, _, _ = _paged_inputs(cuda, 2, C, nh, g, 64, False,
                                               dtype, 3)
@@ -753,7 +778,7 @@ LN_SHAPES = [(8, 4544), (64, 4544), (2048, 4544), (1000, 768), (3, 128),
              (300, 1600), (17, 11008)]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,h", LN_SHAPES)
 def test_layernorm_kernels_match_plain(cuda, n, h, dtype):
     g = torch.Generator(device=cuda).manual_seed(5 * n + h)
@@ -766,13 +791,14 @@ def test_layernorm_kernels_match_plain(cuda, n, h, dtype):
     y, mu, rstd = ln.layer_norm_fwd(x, s, b, 1e-5)
     y0, mu0, rstd0 = ln.layer_norm_fwd_plain(x, s, b, 1e-5)
     assert (ln.launches, ln.bwd_launches) == (d0 + 1, e0)
-    tol = TOL[dtype]
+    tol = _tol(dtype, y0)
     torch.testing.assert_close(y.float(), y0.float(), rtol=0, atol=tol)
     torch.testing.assert_close(mu, mu0, rtol=0, atol=1e-5)
     torch.testing.assert_close(rstd, rstd0, rtol=1e-5, atol=1e-6)
     dx, dg, db = ln.layer_norm_bwd(x, s, gy, mu0, rstd0)
     dx0, dg0, db0 = ln.layer_norm_bwd_plain(x, s, gy, mu0, rstd0)
     assert (ln.launches, ln.bwd_launches) == (d0 + 1, e0 + 1)
+    tol = _tol(dtype, dx0)
     torch.testing.assert_close(dx.float(), dx0.float(), rtol=0, atol=tol)
     # dgamma and dbeta sum n rows: relative to their size
     for got, want in ((dg, dg0), (db, db0)):
@@ -795,7 +821,7 @@ def _plans(h, dtype):
     return out
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,h", [(8, 4544), (300, 4544), (37, 768),
                                  (64, 1600), (5, 128)])
 def test_layernorm_every_plan_matches_plain(cuda, n, h, dtype):
@@ -806,7 +832,7 @@ def test_layernorm_every_plan_matches_plain(cuda, n, h, dtype):
     s = (torch.rand(h, device=cuda, generator=g) * 0.4 + 0.4).to(dtype)
     b = (torch.randn(h, device=cuda, generator=g) * 0.1).to(dtype)
     y0, mu0, rstd0 = ln.layer_norm_fwd_plain(x, s, b, 1e-5)
-    tol = TOL[dtype] if dtype == torch.bfloat16 else 1e-5
+    tol = 1e-5 if dtype == torch.float32 else _tol(dtype, y0)
     for t, v, rows in _plans(h, dtype):
         # a grid smaller than the rows: blocks walk several row groups
         for grid in (-(-n // rows), max(1, n // (3 * rows))):
@@ -823,7 +849,7 @@ def test_layernorm_every_plan_matches_plain(cuda, n, h, dtype):
             assert torch.equal(again[0], y) and torch.equal(again[1], mu)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,h", [(300, 4544), (37, 768), (64, 1600),
                                  (5, 128), (2048, 4544)])
 def test_layernorm_bwd_every_plan_matches_plain(cuda, n, h, dtype):
@@ -833,7 +859,7 @@ def test_layernorm_bwd_every_plan_matches_plain(cuda, n, h, dtype):
     gy = torch.randn(n, h, device=cuda, generator=g).to(dtype)
     _, mu, rstd = ln.layer_norm_fwd_plain(x, s, torch.zeros_like(s), 1e-5)
     dx0, dg0, db0 = ln.layer_norm_bwd_plain(x, s, gy, mu, rstd)
-    tol = TOL[dtype]
+    tol = _tol(dtype, dx0)
     plans = norm_plan.bwd_plans(n, h, dtype)
     if n == 2048:       # the training rows: E's own plan and a few more
         plans = plans[:1] + plans[1::4]
@@ -910,6 +936,59 @@ def test_layernorm_wrappers_refuse_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):             # statistics of another run
         ln.layer_norm_bwd(x, one, x, torch.zeros(3, 1, device=cuda),
                           torch.ones(3, 1, device=cuda))
+
+
+# -- fp16: an inf or a NaN of the gradient passes through -------------------
+
+def _bad_rows(t):
+    """The rows (every axis but the last flattened) holding an inf or a
+    NaN."""
+    bad = ~torch.isfinite(t.reshape(-1, t.shape[-1]).float()).all(-1)
+    return set(bad.nonzero().flatten().tolist())
+
+
+@pytest.mark.parametrize("kind", ["C", "E", "G", "H"])
+def test_fp16_backwards_keep_an_inf_and_a_nan_non_finite(cuda, kind):
+    # a loss-scaled step whose gradient overflows must come out
+    # non-finite, or the scaler applies it: an inf and a NaN in the
+    # incoming gradient give the plain version's non-finite rows (the
+    # attention's in the last query row, which every key reaches: the
+    # plain products carry a NaN of dO to every key, the kernels to the
+    # keys they visit)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    f16 = torch.float16
+    if kind in ("C", "E"):
+        n, h = 300, 1024
+        x = (torch.randn(n, h, device=cuda, generator=gen) * 3).to(f16)
+        s = (torch.rand(h, device=cuda, generator=gen) + 0.5).to(f16)
+        gy = torch.randn(n, h, device=cuda, generator=gen).to(f16)
+        gy[7, 5], gy[n - 1, 9] = float("inf"), float("nan")
+        if kind == "C":
+            _, rstd = rn.rms_norm_fwd_plain(x, s, 1e-5)
+            got = rn.rms_norm_bwd_kernel(x, s, gy, rstd)
+            want = rn.rms_norm_bwd_plain(x, s, gy, rstd)
+        else:
+            _, mu, rstd = ln.layer_norm_fwd_plain(x, s, torch.zeros_like(s),
+                                                  1e-5)
+            got = ln.layer_norm_bwd_kernel(x, s, gy, mu, rstd)
+            want = ln.layer_norm_bwd_plain(x, s, gy, mu, rstd)
+        assert _bad_rows(got[0]) == _bad_rows(want[0]) == {7, n - 1}
+        for a, w in zip(got[1:], want[1:]):
+            assert _bad_rows(a[:, None]) == _bad_rows(w[:, None]) == {5, 9}
+        return
+    s_ = 1024 if kind == "G" else 1000
+    q, do = (torch.randn(1, s_, 8, 64, device=cuda, generator=gen).to(f16)
+             for _ in range(2))
+    k, v = (torch.randn(1, s_, 2, 64, device=cuda, generator=gen).to(f16)
+            for _ in range(2))
+    o, lse = fa._reference_attention(q, k, v, True, None, 0.125)
+    do[0, s_ - 1, 3, 0], do[0, s_ - 1, 6, 1] = float("inf"), float("nan")
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, True, None, 0.125)
+    want = fa._reference_attention_bwd(q, k, v, o, lse, do, True, None,
+                                       0.125)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        ga, gw = _bad_rows(a.transpose(1, 2)), _bad_rows(w.transpose(1, 2))
+        assert ga == gw and ga, (name, len(ga), len(gw))
 
 
 # -- the training runtime's host copies of CUDA tensors ----------------------

@@ -237,8 +237,11 @@ def test_plan_routes_the_timed_shapes():
     assert tpa.plan(bf, 8, 1, 32, 8, 128, 16, 128, False, 132)[0] == "mma"
     with pytest.raises(ValueError):
         tpa.kernel_variant(bf, 16, 48, False)
+    # fp16 takes bf16's routes (since fp16 was ported); float64 no kernel
+    assert tpa.kernel_variant(torch.float16, 2, 64, False) == "mma"
+    assert tpa.kernel_variant(torch.float16, 1, 64, False) == "simt"
     with pytest.raises(TypeError):
-        tpa.kernel_variant(torch.float16, 16, 64, False)
+        tpa.kernel_variant(torch.float64, 16, 64, False)
 
 
 def test_long_tables_split_to_fit_the_page_list():

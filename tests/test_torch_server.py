@@ -118,15 +118,39 @@ def test_unported_flags_raise():
         server.engine.stop()
 
 
-def test_server_refuses_fp16():
-    """F8: the server used to serve fp32 under --fp16; it refuses it with
-    the trainer's message until fp16 is ported."""
-    argv = ["--model_name", "llama2", "--fp16", "--num_layers", "2",
-            "--hidden_size", "64", "--num_attention_heads", "4",
-            "--vocab_size", "128", "--seq_length", "32",
-            "--max_position_embeddings", "32", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="--fp16"):
-        build_server(build_parser().parse_args(argv), _FakeTokenizer())
+@pytest.mark.parametrize("extra", [[], ["--int8_kv_cache"],
+                                   ["--int8_weights"]],
+                         ids=["fp16", "int8_kv", "int8_weights"])
+def test_server_serves_fp16(extra):
+    """--fp16 serves fp16 weights and pools (F8: it once served fp32):
+    every float leaf and the KV pools are fp16 (int8 pools keep their fp32
+    scales; int8 weights dequantise into fp16), and PUT /api answers."""
+    from megatron_llm_torch.tree import tree_leaves
+
+    args = build_parser().parse_args(TINY + ["--fp16"] + extra)
+    server = build_server(args, _FakeTokenizer())
+    httpd = server.make_httpd("127.0.0.1", 0)
+    t = threading.Thread(target=server.run, daemon=True)
+    t.start()
+    try:
+        engine = server.engine
+        assert engine.model.cfg.compute_torch_dtype == torch.float16
+        floats = {x.dtype for x in tree_leaves(engine.params)
+                  if x.dtype != torch.int8}
+        want = {torch.float16} if "--int8_weights" not in extra else {
+            torch.float16, torch.float32}
+        assert floats == want
+        pools = {x.dtype for x in engine._st.pages[0].values()}
+        assert pools == ({torch.int8, torch.float32} if extra ==
+                         ["--int8_kv_cache"] else {torch.float16})
+        code, body = _call(httpd.server_address[1], "PUT", "/api", {
+            "prompts": ["1 2 3 4 5"], "tokens_to_generate": 6,
+            "temperature": 0.0})
+        assert code == 200 and len(body["tokens"][0]) == 11, body
+    finally:
+        server.shutdown()
+        server.engine.stop()
+        t.join(10)
 
 
 def test_load_with_a_bpe_tokenizer_answers_text(tmp_path):
