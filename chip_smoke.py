@@ -67,7 +67,7 @@ chunks of 64 tokens at context 992 the same way; the paged launches must
 have taken the planned kernel variants (decode "simt" for Llama's one
 query row a KV group, "mma" for Falcon's 71; prefill "mma"; the fp32
 checks "simt").  Phase 4 does the same with
-Falcon-7B at full width, 8 of 32 layers, over an int8 KV pool
+Falcon-7B at full width, 4 of 32 layers, over an int8 KV pool
 (``--int8_kv_cache``): D and
 A' run, A and B do not, the copy covers the scales, and in fp32 the paged
 path agrees with the no-cache path exactly over plain pools and within a
@@ -210,7 +210,7 @@ gauge.  (g) Two servers started as subprocesses from
 no ``--serve_engine``, so the legacy path) end by ``/drain`` and by
 SIGTERM with a 512-token request in flight, which completes, each with
 exit 0.
-(h) Falcon-7B (8 layers) over int8 pools with speculation serves 4
+(h) Falcon-7B (4 layers) over int8 pools with speculation serves 4
 requests: A' and
 D launches as the dispatches say.
 
@@ -261,8 +261,9 @@ ranks first.  Each replica's ``/metrics`` must name the CUDA paged path;
 its dispatch counts give A's and B's launches.  Every replica is
 reaped.
 
-Phase 15 serves Llama-2-7B at full width, 16 of 32 layers
-(INT8_WEIGHT_LAYERS; 32 before phase 17 came; random bf16 weights)
+Phase 15 serves Llama-2-7B at full width, 8 of 32 layers
+(INT8_WEIGHT_LAYERS; 32 before phase 17 came, 16 before phase 18;
+random bf16 weights)
 through the engine with phase 2's 8 greedy requests, with and without
 ``--int8_weights``: the bytes line, the device memory held and its
 peak, the decode step and prefill chunk ms, and the share of greedy
@@ -306,7 +307,8 @@ index D alone.  Phase 1 holds D and E at these runs' rows ([8192, 768],
 Phase 17 runs fp16 (``--fp16``: fp16 params and compute, fp32 masters
 and moments, the dynamic loss scale from 2^32 with hysteresis 2) through
 the normal entry points, each kernel on its fp16 variant: Llama-2-7B at
-full width and depth served over fp16 pools and again over int8 pools
+full width, 8 of its 32 layers, served over fp16 pools and again over
+int8 pools
 (phase 2's requests; launches held to layers x dispatches; params and
 pools fp16; served greedy tokens the fp16 no-cache argmax where its top-2
 margin clears 0.5); Llama-2-7B's width cut to 4 layers at sequence 4096
@@ -324,6 +326,36 @@ version (``phase1_fp16``: an eighth of bf16's tolerance, or one fp16
 step at the output's magnitude), each backward also on an inf and a NaN
 in its incoming gradient (non-finite in the plain version's rows), and
 times each at its bf16 row's shape beside one library call in fp16.
+
+Phase 18 runs the downstream tasks through ``megatron_llm_torch.tasks.
+main.main(argv)`` in-process, on random weights from seed 1234 saved as
+checkpoints (``--load``, ``--pretrained_checkpoint``) and inputs it
+writes under build/: (a) GPT-2 345M at full width and depth (bf16, a
+32000-id byte-level BPE), WIKITEXT103 over ~40k generated ids with
+``--overlapping_eval 32`` (average loss within 0.5 of ln 32000; every
+batch's loss sum within 2e-2 of the plain path's; F 24 and D 49 a
+batch), once more as ``python -m megatron_llm_torch.tasks.main`` on the
+text's first 1500 words, and
+LAMBADA over 64 cloze lines; in fp32 at 2 layers every batch's loss sum
+within 1e-5 and count correct equal to the plain path's; (b) HELLASWAG
+and PIQA at Llama-2-7B's width, 4 layers, rows of 512 (finite scores; F
+4 and B 9 a batch); in fp32 at 2 layers the row scores within 1e-4 of
+the plain path's, argmaxes equal above that margin; (c) MNLI with
+BERT-large (24 x 1024, sequence 128) from a pretrained trunk (three
+grafts), 2 epochs of 1024 toy rows at micro-batch 32, the second
+epoch's mean loss below the first's, per-epoch predictions of both dev
+splits and a valid ``best/`` checkpoint; RACE for 1 epoch of 128
+4-option samples (D and E 49 a step, D 49 an evaluation batch); (d)
+RETRIEVER-EVAL with ICT's towers at BERT-base width, the store of 2000
+evidence rows built by the indexer, 64 questions whose answers are
+planted in one row each (D 25 a batch); in fp32 at 2 layers each
+question's top-20 over 256 rows equal to the plain path's; (e)
+MSDP-PROMPT-KNWL with (a)'s GPT-2 345M, 8 inputs + 32 greedy ids on the
+legacy path (D 49 a forward), MSDP-EVAL-F1 on its output; in fp32 at 2
+layers the greedy ids equal the no-cache plain argmax above a 1e-4
+margin; (f) ``tools/profile_step`` (one traced step; the trace names F's
+and G's kernels), ``decode_bench`` (one trial) and ``mfu_sweep`` (one
+trial) at the bench shape, each line parsed, each launch count exact.
 
 It prints, before its last line, the card's name and power limit, one
 JSON line with every kernel's numbers (``{"kernels": [...]}``), and as
@@ -1517,9 +1549,12 @@ def _merges():
     return pa.merge_launches
 
 
-# Falcon-7B's serving depth in phases 4 and 12 (h): its full width, 8 of
-# its 32 layers
-FALCON_SERVING_LAYERS = 8
+# Falcon-7B's serving depth in phases 4 and 12 (h): its full width, 4 of
+# its 32 layers (8 until phase 18 came)
+FALCON_SERVING_LAYERS = 4
+# phase 17's fp16 serving depth: Llama-2-7B's full width, 8 of its 32
+# layers (32 until phase 18 came: phase 2 still serves all 32 in bf16)
+FP16_SERVING_LAYERS = 8
 
 # the two serving workloads: the same traffic through two model families
 SERVING = {
@@ -1538,8 +1573,8 @@ SERVING = {
         margin_bound=MARGIN_BOUND, min_checked=MIN_CHECKED_FRACTION),
     "falcon": dict(
         label="Falcon-7B", model_name="falcon", vocab=65024, quantized=True,
-        # max_model_len 2048 is the model's own; 8 of 32 layers since the
-        # script's limit needed room for phases 14 and 15
+        # max_model_len 2048 is the model's own; FALCON_SERVING_LAYERS of
+        # 32 since the script's limit needed room for phases 14, 15 and 18
         flags=["--int8_kv_cache", "--serve_max_model_len", "2048",
                "--num_layers", str(FALCON_SERVING_LAYERS)],
         # the parallel block has one norm a layer
@@ -1556,7 +1591,8 @@ SERVING = {
     "llama_fp16": dict(
         label="Llama-2-7B fp16", model_name="llama2", vocab=32000,
         quantized=False, precision="fp16", light=True,
-        flags=["--serve_max_model_len", "2048"],
+        flags=["--serve_max_model_len", "2048",
+               "--num_layers", str(FP16_SERVING_LAYERS)],
         norm=("rmsnorm_fp16", "B", lambda L: 2 * L + 1),
         decode=("paged_decode_fp16", "A decode"),
         prefill=("paged_prefill_fp16", "A prefill"),
@@ -1565,7 +1601,8 @@ SERVING = {
     "llama_fp16_int8": dict(
         label="Llama-2-7B fp16, int8 pools", model_name="llama2",
         vocab=32000, quantized=True, precision="fp16", light=True,
-        flags=["--int8_kv_cache", "--serve_max_model_len", "2048"],
+        flags=["--int8_kv_cache", "--serve_max_model_len", "2048",
+               "--num_layers", str(FP16_SERVING_LAYERS)],
         norm=("rmsnorm_fp16", "B", lambda L: 2 * L + 1),
         decode=("paged_decode_int8_fp16", "A' decode"),
         prefill=("paged_prefill_int8_fp16", "A' prefill"),
@@ -7033,7 +7070,8 @@ def _phase13_costs(results, kernels, card, work):
 
 # Llama-2-7B at full width cut to 4 of 32 layers, one process a replica,
 # all on the one card; the engine's pool sized explicitly (400 pages of 16
-# tokens: 8 slots of 632 tokens need 320)
+# tokens: 8 slots of 632 tokens need 320).  Not fewer: at 2 layers the
+# scale-up waves' TTFT stays under the 0.05 s SLO and no scale-up comes
 FLEET_LAYERS = 4
 FLEET_REPLICA = ["--model_name", "llama2", "--num_layers", str(FLEET_LAYERS),
                  "--bf16", "--seed", "1234", "--vocab_size", "32000",
@@ -7584,9 +7622,9 @@ def _serve_tokens(argv, prompts, new_tokens, vocab):
     return outs, lines, stats, launches, peak, (model, params)
 
 
-# phase 15's depth: 16 of Llama-2-7B's 32 layers (32 until phase 17
-# needed the time)
-INT8_WEIGHT_LAYERS = 16
+# phase 15's depth: 8 of Llama-2-7B's 32 layers (32 until phase 17
+# needed the time, 16 until phase 18)
+INT8_WEIGHT_LAYERS = 8
 
 
 def int8_weights_phase(results, kernels, card):
@@ -7986,14 +8024,10 @@ BERT_CORPUS = dict(vocab=30522, docs=120, sentences=(15, 45),
 BERT_STEPS, T5_STEPS, ICT_STEPS, BERT_SAVE_AT = 5, 3, 3, 3
 
 
-def write_wordpiece_corpus(work, spec=None):
-    """vocab.txt, the sentence-level corpus and the titles (each through
-    the port's tools/preprocess_data.py --split_sentences) and wiki.tsv
-    under ``work``; returns (vocab, corpus prefix, titles prefix, tsv,
-    sentences, words)."""
+def write_wordpiece_vocab(work, spec=None):
+    """vocab.txt under ``work``: the special tokens, then the corpus's
+    words; returns (vocab path, words, the generator that drew them)."""
     import numpy as np
-
-    from megatron_llm_torch.tools import preprocess_data
 
     spec = spec or BERT_CORPUS
     rng = np.random.RandomState(spec["seed"])
@@ -8006,6 +8040,20 @@ def write_wordpiece_corpus(work, spec=None):
     vocab = os.path.join(work, "vocab.txt")
     with open(vocab, "w") as f:
         f.write("\n".join(special + words) + "\n")
+    return vocab, words, rng
+
+
+def write_wordpiece_corpus(work, spec=None):
+    """vocab.txt, the sentence-level corpus and the titles (each through
+    the port's tools/preprocess_data.py --split_sentences) and wiki.tsv
+    under ``work``; returns (vocab, corpus prefix, titles prefix, tsv,
+    sentences, words)."""
+    import numpy as np
+
+    from megatron_llm_torch.tools import preprocess_data
+
+    spec = spec or BERT_CORPUS
+    vocab, words, rng = write_wordpiece_vocab(work, spec)
     p = 1.0 / np.arange(1, len(words) + 1) ** 1.05
     p /= p.sum()
     arr = np.array(words)
@@ -8545,6 +8593,820 @@ def _bert_t5_fp32_checks(prefix, vocab, work):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the downstream tasks and the perf tools
+# ---------------------------------------------------------------------------
+
+TASKS_SEED = 1234
+# GPT-2 345M at full width and depth (pretrain_gpt.sh's shape), phase 7's
+# 32000-id byte-level BPE
+GPT2_TASK_FLAGS = [
+    "--num_layers", "24", "--hidden_size", "1024",
+    "--num_attention_heads", "16", "--seq_length", "1024",
+    "--max_position_embeddings", "1024", "--bf16", "--seed", "1234",
+    "--tokenizer_type", "GPT2BPETokenizer"]
+# Llama-2-7B's width, 4 of its 32 layers, rows of 512
+LLAMA_TASK_LAYERS = 4
+LLAMA_TASK_FLAGS = [
+    "--num_layers", str(LLAMA_TASK_LAYERS), "--hidden_size", "4096",
+    "--num_attention_heads", "32", "--ffn_hidden_size", "11008",
+    "--seq_length", "512", "--max_position_embeddings", "4096",
+    "--use_rms_norm", "--glu_activation", "swiglu",
+    "--position_embedding_type", "rotary", "--no_bias",
+    "--no_tie_embed_logits", "--hidden_dropout", "0",
+    "--attention_dropout", "0", "--bf16", "--seed", "1234",
+    "--tokenizer_type", "GPT2BPETokenizer", "--micro_batch_size", "8"]
+# BERT-large at full width and depth, sequence 128 (GLUE's), phase 16's
+# WordPiece vocabulary
+BERT_TASK_FLAGS = [
+    "--num_layers", "24", "--hidden_size", "1024",
+    "--num_attention_heads", "16", "--seq_length", "128",
+    "--max_position_embeddings", "512", "--bf16", "--seed", "1234",
+    "--tokenizer_type", "BertWordPieceLowerCase", "--lr", "1e-4",
+    "--lr_warmup_fraction", "0.1", "--log_interval", "1"]
+# ICT's towers at BERT-base width
+ICT_TASK_FLAGS = [
+    "--num_layers", "12", "--hidden_size", "768",
+    "--num_attention_heads", "12", "--seq_length", "256",
+    "--max_position_embeddings", "512", "--bf16", "--seed", "1234",
+    "--tokenizer_type", "BertWordPieceLowerCase",
+    "--biencoder_projection_dim", "128", "--indexer_batch_size", "128",
+    "--retriever_report_topk_accuracies", "1", "5", "20"]
+TASK_WIKI_WORDS = 9000          # ~40k byte-BPE ids of generated text
+TASK_CLI_WORDS = 1500           # the CLI's run: ~7k ids
+TASK_FP32_TOL = 1e-5            # fp32 loss sums, relative
+TASK_SCORE_ATOL = 1e-4          # fp32 row scores, max-abs
+
+
+def _task_text(rng, words, n):
+    return " ".join(rng.choice(words, n))
+
+
+def _task_main(argv, label):
+    """``tasks.main.main(argv)`` in this process: (its return, its stdout
+    lines, seconds).  The lines also go to chiprun_out/."""
+    import io
+
+    import torch
+
+    from megatron_llm_torch.tasks import main as tasks_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = tasks_main.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, f"chip_smoke_tasks_{label}.log"),
+              "w") as f:
+        f.write(buf.getvalue())
+    return out, buf.getvalue().splitlines(), secs
+
+
+def _task_counts(label, want):
+    """The kernels' launches since the last ``_zero_counts`` against
+    ``want`` (keys left out must be 0)."""
+    counts = _counts()
+    full = {k: want.get(k, 0) for k in counts}
+    check(counts == full, f"{label}: launches {counts} != {full}")
+    return counts
+
+
+@contextlib.contextmanager
+def _eval_against_plain(records):
+    """Wrap the zero-shot evaluator: each batch's loss sum or count
+    correct on the kernel path, with the same params and batch through
+    the plain path (plain norms, core_attention: no kernel) beside it,
+    appended to ``records`` as (metric, kernel, plain)."""
+    from megatron_llm_torch.models.gpt import GPTModel
+    from megatron_llm_torch.tasks.zeroshot_gpt import evaluate as ev
+
+    real = ev._build_eval_fns
+
+    def build(model):
+        fns = real(model)
+        plain = real(GPTModel(_plain_path(model.cfg), device=model.device))
+
+        def pair(i):
+            def fn(params, toks, mask):
+                got = fns[i](params, toks, mask)
+                records.append((i, float(got),
+                                float(plain[i](params, toks, mask))))
+                return got
+            return fn
+        return pair(0), pair(1)
+
+    ev._build_eval_fns = build
+    try:
+        yield
+    finally:
+        ev._build_eval_fns = real
+
+
+@contextlib.contextmanager
+def _recorded(module, name, out):
+    """Append each return of ``module.name`` to ``out``."""
+    real = getattr(module, name)
+
+    def rec(*a, **kw):
+        r = real(*a, **kw)
+        out.append(r)
+        return r
+
+    setattr(module, name, rec)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _save_random(model, path, seed=TASKS_SEED):
+    """``model.init(seed)`` saved as a checkpoint at ``path``."""
+    from megatron_llm_torch import checkpointing
+
+    params = model.init(seed)
+    checkpointing.save_checkpoint(path, 1, params,
+                                  args=checkpointing.config_to_args(
+                                      model.cfg))
+    del params
+    _free_device_memory()
+
+
+def tasks_phase(results, kernels, card):
+    """Phase 18 (see the module's docstring): in a directory under build/
+    that it deletes at the end."""
+    import shutil
+
+    work = os.path.join(REPO, "build", "chip_smoke_tasks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        _tasks_phase(results, kernels, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        _free_device_memory()
+
+
+def _tasks_phase(results, kernels, card, work):
+    import numpy as np
+
+    from megatron_llm_torch.tokenizer.bpe import write_byte_bpe_vocab
+
+    rng = np.random.RandomState(TASKS_SEED)
+    vf, mf = write_byte_bpe_vocab(work, 32000)
+    bpe = ["--vocab_file", vf, "--merge_file", mf]
+    _, words, _ = write_wordpiece_vocab(work)
+    wp = ["--vocab_file", os.path.join(work, "vocab.txt")]
+    words = np.array(words)
+    for part, fn, args in (
+            ("gpt2", _tasks_gpt2, (bpe,)),
+            ("llama", _tasks_llama, (bpe,)),
+            ("bert", _tasks_bert, (wp,)),
+            ("ict", _tasks_ict, (wp,)),
+            ("msdp", _tasks_msdp, (bpe,)),
+            ("tools", _tasks_tools, ())):
+        t0 = time.perf_counter()
+        out = results.setdefault(part, {})
+        fn(out, kernels, work, rng, words, *args)
+        out["secs"] = time.perf_counter() - t0
+        log(f"  phase 18 ({part}) passed in {out['secs']:.1f} s ({card})")
+        _free_device_memory()
+
+
+def _tasks_gpt2(out, kernels, work, rng, words, bpe):
+    """(a) GPT-2 345M: WIKITEXT103 and LAMBADA from a --load checkpoint,
+    each batch against the plain path; the CLI once; fp32 at 2 layers."""
+    from megatron_llm_torch.config import transformer_config_from_args
+    from megatron_llm_torch.models.gpt import GPTModel
+    from megatron_llm_torch.tasks import main as tasks_main
+
+    wiki = os.path.join(work, "wiki.valid.tokens")
+    with open(wiki, "w") as f:
+        f.write(_task_text(rng, words, TASK_WIKI_WORDS))
+    lambada = os.path.join(work, "lambada.jsonl")
+    with open(lambada, "w") as f:
+        for _ in range(64):
+            f.write(json.dumps({"text": _task_text(
+                rng, words, int(rng.randint(20, 120)))}) + "\n")
+    ck = os.path.join(work, "gpt2_ck")
+    argv = GPT2_TASK_FLAGS + bpe + ["--load", ck, "--micro_batch_size", "8"]
+    args, _ = tasks_main.parse(argv + ["--task", "LAMBADA"])
+    cfg = transformer_config_from_args(args)
+    _save_random(GPTModel(cfg, device="cuda"), ck)
+    wiki_argv = argv + ["--task", "WIKITEXT103", "--overlapping_eval",
+                        "32", "--log_interval", "50"]
+    # the CLI, once, on the text's first words: started here and read at
+    # the end of (a), so its start-up overlaps the in-process runs (its
+    # launches are its own process's)
+    head = os.path.join(work, "wiki.head.tokens")
+    with open(wiki) as f, open(head, "w") as g:
+        g.write(" ".join(f.read().split()[:TASK_CLI_WORDS]))
+    cli_log = os.path.join(OUT_DIR, "chip_smoke_tasks_cli.log")
+    t0 = time.perf_counter()
+    with open(cli_log, "w") as f:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "megatron_llm_torch.tasks.main"]
+            + wiki_argv + ["--valid_data", head], cwd=REPO, stdout=f,
+            stderr=subprocess.STDOUT, text=True)
+    try:
+        _tasks_gpt2_in_process(out, kernels, work, argv, wiki_argv, wiki,
+                               head, lambada, cfg)
+        rc = cli.wait(timeout=600)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    cli_secs = time.perf_counter() - t0
+    with open(cli_log) as f:
+        cli_out = f.read()
+    check(rc == 0, f"tasks.main CLI exit {rc}: {cli_out[-2000:]}")
+    cli_avg = _log_field(next(ln for ln in cli_out.splitlines()
+                              if "avg loss" in ln), "avg loss")
+    log(f"  (a) python -m megatron_llm_torch.tasks.main --task WIKITEXT103 "
+        f"on the first {TASK_CLI_WORDS} words: exit 0 {cli_secs:.1f} s "
+        f"after its start, avg loss {cli_avg:.4f}")
+    check(math.isfinite(cli_avg) and abs(cli_avg - math.log(32000)) < 0.5,
+          f"the CLI's avg loss {cli_avg}")
+    out.update(cli_avg_loss=cli_avg, cli_secs=cli_secs)
+
+
+def _tasks_gpt2_in_process(out, kernels, work, argv, wiki_argv, wiki, head,
+                           lambada, cfg):
+    """(a)'s runs in this process: WIKITEXT103 and LAMBADA against the
+    plain path batch by batch, then fp32 at 2 layers."""
+    from megatron_llm_torch.models.gpt import GPTModel
+    from megatron_llm_torch.tasks import main as tasks_main
+    from megatron_llm_torch.tasks.zeroshot_gpt import evaluate as ev
+    from megatron_llm_torch.tasks.zeroshot_gpt.datasets import build_dataset
+
+    L = cfg.num_layers
+    records = []
+    _zero_counts()
+    with _eval_against_plain(records):
+        total, lines, secs = _task_main(wiki_argv + ["--valid_data", wiki],
+                                        "wikitext103")
+    n = n_wiki = len(records)
+    counts = _task_counts("WIKITEXT103", {"F": L * n, "D": (2 * L + 1) * n})
+    avg = _log_field(next(ln for ln in lines if "avg loss" in ln),
+                     "avg loss")
+    # (the dataset's last windows score nothing: their sums are 0 on both
+    # paths)
+    worst = max(abs(k - p) / max(abs(p), 1e-30) for _, k, p in records)
+    log(f"  (a) WIKITEXT103, GPT-2 345M, random weights: {n} batches of 8 x "
+        f"1024 in {secs:.1f} s; avg loss {avg:.4f} (ln 32000 = "
+        f"{math.log(32000):.4f}); worst batch loss sum against the plain "
+        f"path {worst:.2e} relative; launches {counts}")
+    check(math.isfinite(avg) and abs(avg - math.log(32000)) < 0.5,
+          f"WIKITEXT103 avg loss {avg}")
+    check(worst <= TOL["bf16"], f"WIKITEXT103 batch loss sums {worst:.3e} "
+          f"from the plain path")
+    _add_launches(kernels, "flash_fwd", "tasks WIKITEXT103", counts["F"])
+    _add_launches(kernels, "layernorm", "tasks WIKITEXT103", counts["D"])
+
+    records.clear()
+    _zero_counts()
+    with _eval_against_plain(records):
+        correct, lines, secs = _task_main(
+            argv + ["--task", "LAMBADA", "--valid_data", lambada],
+            "lambada")
+    n = len(records)
+    counts = _task_counts("LAMBADA", {"F": L * n, "D": (2 * L + 1) * n})
+    log(f"  (a) LAMBADA, 64 cloze lines: {int(correct)} correct (random "
+        f"weights; the plain path {sum(p for _, _, p in records):.0f}) in "
+        f"{secs:.1f} s; launches {counts}")
+    _add_launches(kernels, "flash_fwd", "tasks LAMBADA", counts["F"])
+    _add_launches(kernels, "layernorm", "tasks LAMBADA", counts["D"])
+    out.update(wikitext_avg_loss=avg, wikitext_batches=n_wiki,
+               wikitext_worst_rel=worst, lambada_correct=correct)
+
+    # fp32 at 2 layers: every batch's loss sum and count against the
+    # plain path's
+    cfg32 = cfg.replace(num_layers=2, params_dtype="fp32",
+                        compute_dtype="fp32")
+    model = GPTModel(cfg32, device="cuda")
+    params = model.init(TASKS_SEED)
+    args32, tok = tasks_main.parse(argv + ["--task", "LAMBADA",
+                                           "--valid_data", lambada])
+    datasets = {"LAMBADA": build_dataset("LAMBADA", args32, tok)}
+    args32.valid_data, args32.overlapping_eval = [head], 256
+    datasets["WIKITEXT103"] = build_dataset("WIKITEXT103", args32, tok)
+    records.clear()
+    with _eval_against_plain(records):
+        for name, ds in datasets.items():
+            for metric in ("loss", "accuracy"):
+                ev.evaluate(ds, model, params, metric, 8, 10 ** 9)
+    losses = [(k, p) for i, k, p in records if i == 0]
+    counts_ = [(k, p) for i, k, p in records if i == 1]
+    worst32 = max(abs(k - p) / max(abs(p), 1e-30) for k, p in losses)
+    log(f"  (a) fp32, GPT-2 width, 2 layers: {len(losses)} batch loss sums "
+        f"within {worst32:.2e} relative of the plain path; counts correct "
+        f"{[int(k) for k, _ in counts_]} (plain "
+        f"{[int(p) for _, p in counts_]})")
+    check(worst32 <= TASK_FP32_TOL, f"fp32 loss sums {worst32:.3e} from "
+          f"the plain path")
+    check(all(k == p for k, p in counts_), "fp32 counts correct differ "
+          "from the plain path's")
+    out["fp32"] = dict(worst_rel=worst32, batches=len(losses),
+                       correct=[int(k) for k, _ in counts_])
+    del model, params
+
+
+def _mc_jsonl(path, rows):
+    with open(path, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+
+
+def _tasks_llama(out, kernels, work, rng, words, bpe):
+    """(b) Llama-2-7B's width, 4 layers: HELLASWAG and PIQA; fp32 at 2
+    layers against the plain path."""
+    import numpy as np
+
+    from megatron_llm_torch.config import transformer_config_from_args
+    from megatron_llm_torch.models.gpt import GPTModel
+    from megatron_llm_torch.tasks import main as tasks_main
+    from megatron_llm_torch.tasks.zeroshot_gpt import mc_tasks as mc
+
+    hs = os.path.join(work, "hellaswag.jsonl")
+    _mc_jsonl(hs, [{"ctx": _task_text(rng, words, int(rng.randint(40, 200))),
+                    "endings": [_task_text(rng, words,
+                                           int(rng.randint(3, 20)))
+                                for _ in range(4)],
+                    "label": int(rng.randint(4))} for _ in range(32)])
+    piqa = os.path.join(work, "piqa.jsonl")
+    _mc_jsonl(piqa, [{"goal": _task_text(rng, words,
+                                         int(rng.randint(5, 40))),
+                      "sol1": _task_text(rng, words, int(rng.randint(3, 30))),
+                      "sol2": _task_text(rng, words, int(rng.randint(3, 30))),
+                      "label": int(rng.randint(2))} for _ in range(32)])
+    ck = os.path.join(work, "llama_ck")
+    argv = LLAMA_TASK_FLAGS + bpe + ["--load", ck]
+    args, _ = tasks_main.parse(argv + ["--task", "PIQA"])
+    cfg = transformer_config_from_args(args)
+    _save_random(GPTModel(cfg, device="cuda"), ck)
+    L = cfg.num_layers
+    for task, path, choices in (("HELLASWAG", hs, 4), ("PIQA", piqa, 2)):
+        scored = []
+        _zero_counts()
+        with _recorded(mc, "score_choices", scored):
+            acc, lines, secs = _task_main(
+                argv + ["--task", task, "--valid_data", path], task.lower())
+        batches = -(-32 * choices // 8)
+        counts = _task_counts(task, {"F": L * batches,
+                                     "B": (2 * L + 1) * batches})
+        scores = scored[0][1]
+        finite = bool(np.isfinite(scores[:, :choices]).all())
+        log(f"  (b) {task}, Llama-2-7B width, {L} layers, rows of 512: "
+            f"{next(ln for ln in lines if task + ':' in ln).strip()} "
+            f"(random weights) in {secs:.1f} s; scores finite: {finite}; "
+            f"launches {counts}")
+        check(finite, f"{task}: non-finite row scores")
+        _add_launches(kernels, "flash_fwd", f"tasks {task}", counts["F"])
+        _add_launches(kernels, "rmsnorm", f"tasks {task}", counts["B"])
+        out[task] = dict(acc=acc, secs=secs, launches=counts)
+
+    # fp32 at 2 layers: the row scores against the plain path's
+    args32, tok = tasks_main.parse(argv + ["--task", "HELLASWAG"])
+    cfg32 = cfg.replace(num_layers=2, params_dtype="fp32",
+                        compute_dtype="fp32")
+    model = GPTModel(cfg32, device="cuda")
+    params = model.init(TASKS_SEED)
+    samples = mc.load_mc_samples("HELLASWAG", hs)
+    _, got = mc.score_choices(model, params, tok, samples, 512, 8, True)
+    _, want = mc.score_choices(GPTModel(_plain_path(cfg32), device="cuda"),
+                               params, tok, samples, 512, 8, True)
+    err = float(np.abs(got - want).max())
+    top2 = np.sort(want, axis=1)[:, -2:]
+    sure = (top2[:, 1] - top2[:, 0]) > TASK_SCORE_ATOL
+    agree = got.argmax(1) == want.argmax(1)
+    log(f"  (b) fp32, Llama-2-7B width, 2 layers: row scores within "
+        f"{err:.2e} of the plain path; argmax equal on {int((agree & sure).sum())}"
+        f"/{int(sure.sum())} samples above the {TASK_SCORE_ATOL} margin")
+    check(err <= TASK_SCORE_ATOL, f"fp32 row scores {err:.3e} from plain")
+    check(bool(agree[sure].all()), "fp32 argmax differs from the plain "
+          "path's above the margin")
+    out["fp32"] = dict(max_abs_err=err, sure=int(sure.sum()))
+    del model, params
+
+
+def _glue_tsv(path, words, n, seed):
+    """tests/test_glue_finetune_e2e.py's separable toy MNLI, over the
+    vocabulary's words: the label is the hypothesis's first word."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    first = {"entailment": words[0], "contradiction": words[1],
+             "neutral": words[2]}
+    lines = ["\t".join(f"c{i}" for i in range(11))]
+    for uid in range(n):
+        label = ["contradiction", "entailment", "neutral"][uid % 3]
+        filler = " ".join(rng.choice(words[3:10], 3))
+        row = [str(uid)] + ["x"] * 7 + [f"{words[3]} {filler}",
+                                        f"{first[label]} {filler}", label]
+        lines.append("\t".join(row))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def _race_dir(d, words, n, seed):
+    """tests/test_race_finetune_e2e.py's toy RACE: the right option holds
+    words[0], the others words[1]."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "part.txt"), "w") as f:
+        for _ in range(n):
+            correct = int(rng.randint(4))
+            opts = [(words[0] if c == correct else words[1]) + " "
+                    + " ".join(rng.choice(words[4:10], 2)) for c in range(4)]
+            f.write(json.dumps({
+                "article": " ".join(rng.choice(words[4:], 30)),
+                "questions": [f"{words[2]} {words[3]} _"],
+                "options": [opts],
+                "answers": [chr(ord("A") + correct)]}) + "\n")
+
+
+def _epoch_losses(lines):
+    by = {}
+    for ln in lines:
+        m = re.match(r"epoch (\d+) iter \d+ \| lr \S+ \| loss (\S+)", ln)
+        if m:
+            by.setdefault(int(m.group(1)), []).append(float(m.group(2)))
+    return by
+
+
+def _tasks_bert(out, kernels, work, rng, words, wp):
+    """(c) BERT-large: MNLI for 2 epochs from a pretrained trunk, saved;
+    RACE for 1 epoch."""
+    from megatron_llm_torch import checkpointing
+    from megatron_llm_torch.models.bert import BertModel
+    from megatron_llm_torch.tasks import main as tasks_main
+    from megatron_llm_torch.tasks.model_utils import bert_task_config
+
+    w = list(words[:12])
+    train = os.path.join(work, "mnli_train.tsv")
+    _glue_tsv(train, w, 1024, 0)
+    devs = [os.path.join(work, f"dev_{n}.tsv") for n in ("matched",
+                                                         "mismatched")]
+    for i, d in enumerate(devs):
+        _glue_tsv(d, w, 128, i + 1)
+    trunk = os.path.join(work, "bert_trunk")
+    save = os.path.join(work, "mnli_out")
+    argv = BERT_TASK_FLAGS + wp + ["--pretrained_checkpoint", trunk]
+    args, _ = tasks_main.parse(argv + ["--task", "MNLI"])
+    _save_random(BertModel(bert_task_config(args), device="cuda"), trunk)
+    L = args.num_layers
+    d_fwd = 2 * L + 1
+    _zero_counts()
+    best, lines, secs = _task_main(
+        argv + ["--task", "MNLI", "--train_data", train, "--valid_data",
+                *devs, "--micro_batch_size", "32", "--epochs", "2",
+                "--save", save, "--no_save_optim"], "mnli")
+    steps, evals = 2 * 1024 // 32, 2 * 2 * 128 // 32
+    counts = _task_counts("MNLI", {"D": d_fwd * (steps + evals),
+                                   "E": d_fwd * steps})
+    grafts = [ln.split("'")[1] for ln in lines
+              if ln.startswith(" > loaded pretrained")]
+    losses = _epoch_losses(lines)
+    means = [sum(v) / len(v) for _, v in sorted(losses.items())]
+    finite = all(math.isfinite(x) for v in losses.values() for x in v)
+    preds = {}
+    for e in range(2):
+        with open(os.path.join(save, f"predictions_epoch{e}.json")) as f:
+            preds[e] = sorted(json.load(f))
+    it, _ = checkpointing.read_tracker(os.path.join(save, "best"))
+    ok, why = checkpointing.validate_checkpoint_dir(
+        checkpointing.get_checkpoint_name(os.path.join(save, "best"), it))
+    log(f"  (c) MNLI, BERT-large, 2 epochs of 1024 rows at micro-batch 32: "
+        f"grafted {grafts}; epoch mean losses {means}; best validation "
+        f"accuracy {best * 100:.2f}% in {secs:.1f} s "
+        f"({secs / steps * 1e3:.0f} ms a step with the evaluations); "
+        f"predictions {preds}; best/ at iteration {it}: {ok} {why}; "
+        f"launches {counts}")
+    check(grafts == ["embedding", "transformer", "pooler"],
+          f"grafts {grafts}")
+    check(finite and len(losses.get(0, [])) == len(losses.get(1, []))
+          == steps // 2, f"MNLI losses {losses}")
+    check(means[1] < means[0], f"MNLI epoch mean losses {means}")
+    check(all(p == ["dev_matched", "dev_mismatched"]
+              for p in preds.values()), f"predictions {preds}")
+    check(ok, f"best/ checkpoint: {why}")
+    _add_launches(kernels, "layernorm", "tasks MNLI", counts["D"])
+    _add_launches(kernels, "layernorm_bwd", "tasks MNLI", counts["E"])
+    out["mnli"] = dict(epoch_mean_loss=means, best=best, secs=secs,
+                       ms_per_step=secs / steps * 1e3, launches=counts)
+
+    race_train = os.path.join(work, "race_train")
+    race_dev = os.path.join(work, "race_dev")
+    _race_dir(race_train, w, 128, 3)
+    _race_dir(race_dev, w, 32, 4)
+    _zero_counts()
+    best, lines, secs = _task_main(
+        argv + ["--task", "RACE", "--train_data", race_train,
+                "--valid_data", race_dev, "--micro_batch_size", "8",
+                "--epochs", "1"], "race")
+    steps, evals = 128 // 8, 32 // 8
+    counts = _task_counts("RACE", {"D": d_fwd * (steps + evals),
+                                   "E": d_fwd * steps})
+    losses = _epoch_losses(lines)[0]
+    log(f"  (c) RACE, BERT-large, 1 epoch of 128 4-option samples: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, validation accuracy "
+        f"{best * 100:.2f}% in {secs:.1f} s; launches {counts}")
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
+          f"RACE losses {losses}")
+    _add_launches(kernels, "layernorm", "tasks RACE", counts["D"])
+    _add_launches(kernels, "layernorm_bwd", "tasks RACE", counts["E"])
+    out["race"] = dict(losses=losses, best=best, secs=secs, launches=counts)
+
+
+def _tasks_ict(out, kernels, work, rng, words, wp):
+    """(d) ICT at BERT-base width: RETRIEVER-EVAL over 2000 evidence rows
+    (the store built by the indexer), 64 questions; fp32 at 2 layers."""
+    import numpy as np
+    import torch
+
+    from megatron_llm_torch.data.orqa_wiki_dataset import (
+        OpenRetrievalEvidenceDataset,
+        build_tokens_types_paddings_from_ids,
+    )
+    from megatron_llm_torch.data.realm_index import BruteForceMIPSIndex
+    from megatron_llm_torch.models.biencoder import BiEncoderModel
+    from megatron_llm_torch.tasks import main as tasks_main
+    from megatron_llm_torch.tasks.model_utils import bert_task_config
+
+    # each question's answer is a word planted in one row alone: a
+    # 6-letter word from the part of the vocabulary the rows never draw
+    # (no word contains it)
+    common = words[:20000]
+    rare = [w for w in words[20000:] if len(w) == 6][:64]
+    rows = [[_task_text(rng, common, int(rng.randint(20, 60))),
+             _task_text(rng, common, 3)] for _ in range(2000)]
+    planted = rng.choice(2000, 64, replace=False)
+    qa = []
+    for i, r in enumerate(planted):
+        text = rows[r][0].split()
+        text.insert(int(rng.randint(len(text))), rare[i])
+        rows[r][0] = " ".join(text)
+        q = " ".join(text[:6] + list(rng.choice(common, 4)))
+        qa.append({"question": q, "answers": [rare[i]]})
+    tsv = os.path.join(work, "evidence.tsv")
+    with open(tsv, "w") as f:
+        f.write("id\ttext\ttitle\n")
+        for i, (text, title) in enumerate(rows):
+            f.write(f"{i + 1}\t{text}\t{title}\n")
+    qa_path = os.path.join(work, "qa.jsonl")
+    _mc_jsonl(qa_path, qa)
+    ck = os.path.join(work, "ict_ck")
+    argv = ICT_TASK_FLAGS + wp + ["--load", ck]
+    args, tok = tasks_main.parse(argv + ["--task", "RETRIEVER-EVAL"])
+    cfg = bert_task_config(args)
+    _save_random(BiEncoderModel(cfg, projection_dim=128, device="cuda"), ck)
+    emb = os.path.join(work, "evidence_emb.pkl")
+    _zero_counts()
+    recall, lines, secs = _task_main(
+        argv + ["--task", "RETRIEVER-EVAL", "--evidence_data_path", tsv,
+                "--embedding_path", emb, "--qa_data_dev", qa_path],
+        "retriever")
+    forwards = -(-2000 // 128) + -(-64 // 32)
+    counts = _task_counts("RETRIEVER-EVAL",
+                          {"D": (2 * args.num_layers + 1) * forwards})
+    log(f"  (d) RETRIEVER-EVAL, ICT towers at BERT-base width, 2000 rows "
+        f"indexed, 64 questions: {recall} (random weights) in {secs:.1f} "
+        f"s; launches {counts}")
+    check(sorted(recall) == ["recall@1", "recall@20", "recall@5"]
+          and os.path.exists(emb), f"recall {recall}")
+    _add_launches(kernels, "layernorm", "tasks RETRIEVER-EVAL", counts["D"])
+    out.update(recall=recall, secs_eval=secs, launches=counts)
+
+    # fp32 at 2 layers, 256 rows: each question's top-20 against the
+    # plain path's
+    cfg32 = cfg.replace(num_layers=2, params_dtype="fp32",
+                        compute_dtype="fp32")
+    ds = OpenRetrievalEvidenceDataset(tsv, tok, args.seq_length)
+    ds.samples = ds.samples[:256]
+    ctx = np.stack([ds[i]["context"] for i in range(256)])
+    cmask = np.stack([ds[i]["context_pad_mask"] for i in range(256)])
+    qs = [build_tokens_types_paddings_from_ids(
+        tok.tokenize(r["question"]), args.seq_length, tok.cls, tok.sep,
+        tok.pad) for r in qa]
+    qt = np.stack([q[0] for q in qs])
+    qm = np.stack([q[2] for q in qs])
+    tops = []
+    params = BiEncoderModel(cfg32, projection_dim=128,
+                            device="cuda").init(TASKS_SEED)
+    for c in (cfg32, _plain_path(cfg32)):
+        model = BiEncoderModel(c, projection_dim=128, device="cuda")
+        with torch.no_grad():
+            ce = model.embed_context(params, torch.from_numpy(ctx).cuda(),
+                                     torch.from_numpy(cmask).cuda())
+            qe = model.embed_query(params, torch.from_numpy(qt).cuda(),
+                                   torch.from_numpy(qm).cuda())
+        index = BruteForceMIPSIndex(128, {i: e for i, e in enumerate(
+            ce.cpu().numpy())})
+        tops.append(index.search_mips_index(qe.cpu().numpy(), 21))
+    (_, ki), (pd, pi) = tops
+    # a rank of the top 20 may differ only where the plain path's scores
+    # at it and a neighbouring rank (the 21st included) tie within fp32's
+    # reach
+    tie = np.abs(np.diff(pd, axis=1)) < 1e-5 * np.abs(pd).max()
+    near = np.zeros(pi.shape, bool)
+    near[:, :-1] |= tie
+    near[:, 1:] |= tie
+    ki, pi, near = ki[:, :20], pi[:, :20], near[:, :20]
+    same = (ki == pi) | near
+    log(f"  (d) fp32, BERT-base width, 2 layers, 256 rows: top-20 of each "
+        f"question equal to the plain path's at {int((ki == pi).sum())}/"
+        f"{ki.size} ranks ({int(near.sum())} near-ties)")
+    check(bool(same.all()), "fp32 top-20 differs from the plain path's")
+    out["fp32"] = dict(equal_ranks=int((ki == pi).sum()), ranks=ki.size)
+    del params
+
+
+def _tasks_msdp(out, kernels, work, rng, words, bpe):
+    """(e) MSDP knowledge prompting with GPT-2 345M (phase 18's (a)
+    checkpoint), F1 on its output; fp32 at 2 layers against the no-cache
+    plain path's greedy tokens."""
+    import numpy as np
+
+    from megatron_llm_torch.config import transformer_config_from_args
+    from megatron_llm_torch.models.gpt import GPTModel
+    from megatron_llm_torch.tasks import main as tasks_main
+    from megatron_llm_torch.tasks.msdp import prompt as msdp_prompt
+    from megatron_llm_torch.text_generation.api import generate
+
+    topics = list(rng.choice(words[:500], 8))
+    lines, prompts = [], {}
+    for t in topics:
+        turns = [_task_text(rng, words[:2000], int(rng.randint(4, 12)))
+                 for _ in range(2)]
+        lines.append(f"{t}\t{' [SEP] '.join(turns)}")
+        prompts[f"{t} {turns[-1]}"] = [
+            f"( {_task_text(rng, words[:2000], 6)} ) {t} => "
+            f"{_task_text(rng, words[:2000], 10)}" for _ in range(2)]
+    inp = os.path.join(work, "msdp_input.tsv")
+    with open(inp, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    pf = os.path.join(work, "msdp_prompts.jsonl")
+    with open(pf, "w") as f:
+        for k, v in prompts.items():
+            f.write(json.dumps({k: v}) + "\n")
+    gen = os.path.join(work, "msdp_knowledge.txt")
+    ck = os.path.join(work, "gpt2_ck")
+    argv = GPT2_TASK_FLAGS + bpe + ["--load", ck]
+    forwards, undo = _count_forwards()
+    _zero_counts()
+    try:
+        _, _, secs = _task_main(
+            argv + ["--task", "MSDP-PROMPT-KNWL", "--prompt_type",
+                    "knowledge", "--prompt_file", pf, "--sample_input_file",
+                    inp, "--sample_output_file", gen, "--out_seq_length",
+                    "32"], "msdp_prompt")
+    finally:
+        undo()
+    counts = _task_counts("MSDP-PROMPT-KNWL", {"D": 49 * forwards[0]})
+    with open(gen) as f:
+        outputs = f.read().split("\n")[:-1]
+    answers = os.path.join(work, "msdp_answers.txt")
+    with open(answers, "w") as f:
+        f.write("\n".join(_task_text(rng, words[:2000], 8)
+                          for _ in outputs) + "\n")
+    f1, f1_lines, _ = _task_main(["--task", "MSDP-EVAL-F1", "--guess_file",
+                                  gen, "--answer_file", answers], "msdp_f1")
+    log(f"  (e) MSDP-PROMPT-KNWL, GPT-2 345M, 8 inputs + 32 greedy: "
+        f"{len(outputs)} lines in {secs:.1f} s, {forwards[0]} forwards; "
+        f"MSDP-EVAL-F1 {f1_lines[-1].strip()} (random weights); launches "
+        f"{counts}")
+    check(len(outputs) == 8, f"{len(outputs)} generations for 8 inputs")
+    check(all(math.isfinite(x) for x in f1), f"F1 {f1}")
+    _add_launches(kernels, "layernorm", "tasks MSDP", counts["D"])
+    out.update(secs_prompt=secs, forwards=forwards[0], f1=list(f1),
+               launches=counts)
+
+    # fp32 at 2 layers: greedy tokens against the no-cache plain argmax
+    args, tok = tasks_main.parse(argv + ["--task", "MSDP-PROMPT-KNWL"])
+    cfg32 = transformer_config_from_args(args).replace(
+        num_layers=2, params_dtype="fp32", compute_dtype="fp32")
+    model = GPTModel(cfg32, device="cuda")
+    params = model.init(TASKS_SEED)
+    kp = msdp_prompt.read_knowledge_prompts(pf)
+    sure = agree = total = 0
+    for line in lines[:4]:
+        raw = msdp_prompt.build_input(line, "knowledge", kp)
+        _, toks, _ = generate(model, params, tok, [raw],
+                              tokens_to_generate=32, top_k=1, greedy=True)
+        toks = toks[0]
+        n_prompt = len(tok.tokenize(raw))
+        logits = _no_cache_logits(model, params, toks[:-1], cfg32)
+        gen_logits = logits[n_prompt - 1:]
+        want = np.asarray(toks[n_prompt:])
+        top2 = gen_logits.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy() > TASK_SCORE_ATOL
+        hit = gen_logits.argmax(-1).cpu().numpy() == want
+        sure += int(margin.sum())
+        agree += int((hit & margin).sum())
+        total += len(want)
+    log(f"  (e) fp32, GPT-2 width, 2 layers, 4 prompts: {agree}/{sure} "
+        f"greedy tokens above the {TASK_SCORE_ATOL} margin equal the "
+        f"no-cache plain argmax ({total} generated)")
+    check(sure > 0 and agree == sure, "fp32 greedy tokens differ from the "
+          "no-cache plain path's")
+    out["fp32"] = dict(sure=sure, agree=agree, generated=total)
+    del model, params
+
+
+def _tool_lines(fn, argv, label):
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(argv)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, f"chip_smoke_tools_{label}.log"),
+              "w") as f:
+        f.write(buf.getvalue())
+    return ret, buf.getvalue().splitlines(), secs
+
+
+def _tasks_tools(out, kernels, work, rng, words):
+    """(f) profile_step, decode_bench and mfu_sweep at BENCH_SHAPE, each
+    once, in this process; every line they print parsed."""
+    from megatron_llm_torch.tools import decode_bench, mfu_sweep, profile_step
+    from megatron_llm_torch.tools.bench_harness import BENCH_SHAPE
+
+    L = BENCH_SHAPE["L"]
+    # selective recompute runs each layer's forward twice: F and B's
+    # layer norms twice a step, G and C once (phase 9's rule)
+    def train_launches(steps, layers):
+        return {"F": steps * 2 * layers, "G": steps * layers,
+                "B": steps * (4 * layers + 1), "C": steps * (2 * layers + 1)}
+
+    trace_dir = os.path.join(work, "trace")
+    _zero_counts()
+    path, lines, secs = _tool_lines(
+        profile_step.main, ["--preset", "bench", "--logdir", trace_dir,
+                            "--steps", "1"], "profile_step")
+    counts = _task_counts("profile_step", train_launches(3, L))
+    step_ms = [float(m.group(1)) for m in (
+        re.match(r"profile_step: step \d+: ([0-9.]+) ms", ln)
+        for ln in lines) if m]
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    f_kernel = any("flash_fwd_wgmma_kernel" in n for n in names)
+    g_kernel = any("flash_bwd_kv_wgmma_kernel" in n for n in names)
+    log(f"  (f) profile_step at the bench shape (~650M, mb 4 x 2048): step "
+        f"{step_ms} ms in {secs:.1f} s; trace {os.path.getsize(path)} bytes "
+        f"names F's kernel: {f_kernel}, G's: {g_kernel}; launches {counts}")
+    check(len(step_ms) == 1 and f_kernel and g_kernel,
+          f"profile_step: steps {step_ms}, F {f_kernel}, G {g_kernel}")
+    out["profile_step"] = dict(step_ms=step_ms, secs=secs, launches=counts)
+
+    forwards, undo = _count_forwards()
+    _zero_counts()
+    try:
+        res, lines, secs = _tool_lines(
+            decode_bench.main, ["--preset", "bench", "--batches", "8",
+                                "--gen", "64", "--variants", "bf16"],
+            "decode_bench")
+    finally:
+        undo()
+    counts = _task_counts("decode_bench", {"B": (2 * L + 1) * forwards[0]})
+    (r,) = res
+    log(f"  (f) decode_bench at the bench shape, b 8, prompt 128, gen 64 / "
+        f"128: decode {r['decode_tps']} tok/s, prefill "
+        f"{r['prefill_tps']:.1f} tok/s, e2e {r['e2e_tps']:.1f} tok/s in "
+        f"{secs:.1f} s; {forwards[0]} forwards; launches {counts}")
+    check(r["decode_tps"] is not None and r["decode_tps"] > 0
+          and r["prefill_tps"] > 0 and r["e2e_tps"] > 0
+          and any(re.search(r"decode\s+[0-9.]+ tok/s \| prefill", ln)
+                  for ln in lines), f"decode_bench: {r} {lines}")
+    out["decode_bench"] = dict(r, secs=secs, launches=counts)
+
+    _zero_counts()
+    rc, lines, secs = _tool_lines(mfu_sweep.main,
+                                  ["baseline", "--trials", "1"], "mfu_sweep")
+    trial = mfu_sweep.GROUPS["baseline"][0]
+    counts = _task_counts("mfu_sweep", train_launches(7, trial.get("L", 16)))
+    m = next(filter(None, (re.search(
+        r"n=\s*([0-9.]+)M dt=\s*([0-9.]+)ms tps=\s*([0-9.]+) "
+        r"mfu=([0-9.]+)", ln) for ln in lines)), None)
+    log(f"  (f) mfu_sweep baseline, 1 trial: {lines[-1].strip()} in "
+        f"{secs:.1f} s; launches {counts}")
+    check(rc == 0 and m is not None and 0 < float(m.group(4)) < 1,
+          f"mfu_sweep: rc {rc}, {lines}")
+    out["mfu_sweep"] = dict(params_m=float(m.group(1)),
+                            ms=float(m.group(2)), tps=float(m.group(3)),
+                            mfu=float(m.group(4)), secs=secs,
+                            launches=counts)
+    for key, row in (("F", "flash_fwd"), ("G", "flash_bwd_fused"),
+                     ("B", "rmsnorm"), ("C", "rmsnorm_bwd")):
+        n = (out["profile_step"]["launches"][key]
+             + out["mfu_sweep"]["launches"][key]
+             + out["decode_bench"]["launches"][key])
+        _add_launches(kernels, row, "tasks tools", n)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -8756,7 +9618,8 @@ def main(argv=None) -> int:
     log(f"phase 16 passed in {time.perf_counter() - t0:.1f} s")
     log(f"BERT, T5 and retrieval ({card}): " + json.dumps(bert_t5))
     t0 = time.perf_counter()
-    log("phase 17: fp16 -- Llama-2-7B (32 layers) served over fp16 and "
+    log(f"phase 17: fp16 -- Llama-2-7B ({FP16_SERVING_LAYERS} layers) "
+        "served over fp16 and "
         f"int8 pools, its width trained at "
         f"{TRAINING['llama_fp16']['layers']} layers, "
         "GPT-2 345M pretrained, from the dynamic loss scale 2^32")
@@ -8775,6 +9638,16 @@ def main(argv=None) -> int:
     gpt2_phase(fp16.setdefault("gpt2", {}), kernels, card, fp16=True)
     log(f"phase 17 passed in {time.perf_counter() - t0:.1f} s")
     log(f"fp16 ({card}): " + json.dumps(fp16))
+    t0 = time.perf_counter()
+    log("phase 18: the downstream tasks through megatron_llm_torch.tasks."
+        "main -- WIKITEXT103, LAMBADA and MSDP with GPT-2 345M, HELLASWAG "
+        f"and PIQA at Llama-2-7B's width ({LLAMA_TASK_LAYERS} layers), MNLI "
+        "and RACE with BERT-large, RETRIEVER-EVAL with ICT's towers -- and "
+        "the perf tools at the bench shape")
+    tasks = {}
+    tasks_phase(tasks, kernels, card)
+    log(f"phase 18 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"tasks and tools ({card}): " + json.dumps(tasks))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     names = ("paged_decode", "paged_prefill", "paged_decode_int8",
@@ -8798,7 +9671,7 @@ def main(argv=None) -> int:
                    "mixtral": mixtral, "serving_rest": rest,
                    "resilience": resil, "fleet": fleet,
                    "int8_legacy": int8_legacy, "bert_t5": bert_t5,
-                   "fp16": fp16}, f,
+                   "fp16": fp16, "tasks": tasks}, f,
                   indent=1)
     log(card)
     print(json.dumps(line), flush=True)

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: every module (the ``weights_conversion/``
 and ``tools/`` subpackages and ``verify_correctness.py`` included)
 imports with ``jax``, ``orbax``, ``tensorstore``, the JAX package and the
-repo's root modules (``weights_conversion``, ``tools``, ``finetune``,
-``verify_correctness``) blocked, no file of the port (or chip_smoke.py)
+repo's root modules (``weights_conversion``, ``tools``, ``tasks``,
+``finetune``, ``verify_correctness``) blocked, no file of the port (or chip_smoke.py)
 imports any of them, entry points default to the GPU, and chip_smoke.py
 refuses to run without a CUDA device or outside a checkout."""
 
@@ -47,8 +47,9 @@ def _modules():
 
 # the JAX package, its dependencies and the repo's root modules
 BANNED = ("jax", "jaxlib", "megatron_llm_tpu", "orbax", "tensorstore",
-          "weights_conversion", "tools", "finetune", "verify_correctness",
-          "pretrain_gpt", "pretrain_bert", "pretrain_t5", "pretrain_ict")
+          "weights_conversion", "tools", "tasks", "finetune",
+          "verify_correctness", "pretrain_gpt", "pretrain_bert",
+          "pretrain_t5", "pretrain_ict")
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -64,7 +65,13 @@ def test_every_port_module_imports_with_jax_blocked():
                 "pretrain_bert", "pretrain_t5", "pretrain_ict",
                 "tools.create_doc_index", "data.dataset_utils",
                 "data.bert_dataset", "data.t5_dataset", "data.ict_dataset",
-                "data.orqa_wiki_dataset", "data.realm_index"):
+                "data.orqa_wiki_dataset", "data.realm_index",
+                "tasks", "tasks.main", "tasks.finetune_utils",
+                "tasks.glue.finetune", "tasks.race.finetune",
+                "tasks.zeroshot_gpt.evaluate", "tasks.zeroshot_gpt.mc_tasks",
+                "tasks.orqa.evaluate_orqa", "tasks.msdp.prompt",
+                "tools.bench_harness", "tools.profile_step",
+                "tools.decode_bench", "tools.mfu_sweep"):
         assert any(m.startswith(f"megatron_llm_torch.{sub}") for m in mods)
     code = ("import importlib, sys\n"
             f"for b in {BANNED!r}:\n"
@@ -95,7 +102,7 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
                 assert name.split(".")[0] not in banned, (path, name)
 
 
-def test_entry_points_default_to_the_gpu():
+def test_entry_points_default_to_the_gpu(tmp_path):
     model = LlamaModel(llama_config("tiny"))
     assert model.device.type == "cuda"
     from megatron_llm_torch.models.bert import BertModel, bert_config
@@ -110,6 +117,10 @@ def test_entry_points_default_to_the_gpu():
                finetune.build_data_iterator):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert build_train_parser().parse_args([]).device == "cuda"
+    from megatron_llm_torch.tasks import main as tasks_main
+    tasks_args, _ = tasks_main.parse(["--task", "PIQA", "--vocab_size",
+                                      "64"])
+    assert tasks_args.device == "cuda"
     # the train step and the optimizer allocate where the params live
     # (a default model's: the card)
     cpu_params = LlamaModel(llama_config("tiny"), device="cpu").init(0)
@@ -126,6 +137,22 @@ def test_entry_points_default_to_the_gpu():
         for entry in (pretrain_bert, pretrain_t5, pretrain_ict):
             with pytest.raises((AssertionError, RuntimeError)):
                 entry.main(tiny[1:])
+        # the tasks and the perf tools reach for the card too
+        lm = tmp_path / "lm.tokens"
+        lm.write_text(" ".join(str(i % 50) for i in range(40)))
+        with pytest.raises((AssertionError, RuntimeError)):
+            tasks_main.main(["--task", "WIKITEXT103", "--valid_data",
+                             str(lm), "--tokenizer_type", "NullTokenizer",
+                             *tiny[1:]])
+        from megatron_llm_torch.tools import (decode_bench, mfu_sweep,
+                                              profile_step)
+        with pytest.raises((AssertionError, RuntimeError)):
+            profile_step.main(["--preset", "tiny", "--logdir",
+                               str(tmp_path / "trace")])
+        with pytest.raises((AssertionError, RuntimeError)):
+            decode_bench.main(["--preset", "tiny"])
+        # a sweep reports a failed trial and exits 1
+        assert mfu_sweep.main(["tiny"]) == 1
         # with no card, the defaults reach for one and fail loudly
         cfg = llama_config("tiny")
         with pytest.raises((AssertionError, RuntimeError)):
