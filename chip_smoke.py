@@ -147,9 +147,10 @@ HuggingFace's ``LlamaForCausalLM`` at Llama-3.1-8B's published width
 (hidden 4096, 32 heads on 8 KV heads, ffn 14336, vocab 128256, rope theta
 5e5 with the llama3 remap, factor 8 from 8192 positions) cut to 1 of 32
 layers (2 before phase 16 came: the script's time limit needed room), initialised on the card from seed 1234 and saved as fp32
-safetensors; converts it with ``python -m
-megatron_llm_torch.weights_conversion.hf_to_megatron llama3`` (seconds and
-GB/s); verifies it with ``megatron_llm_torch.verify_correctness`` in fp32
+safetensors; converts it with the main of ``python -m
+megatron_llm_torch.weights_conversion.hf_to_megatron llama3``, called in
+this process with that argv (seconds and GB/s; in a subprocess until
+phase 19 came: its start-up took ~10 s a call); verifies it with ``megatron_llm_torch.verify_correctness`` in fp32
 against the HF checkpoint on 2 batches of 2 x 512 ids (max-abs logits
 error and loss delta both within 1e-3; B and F launched once a layer and
 forward, F on its fp32 variant); serves it through the argv of
@@ -159,7 +160,7 @@ forward, F on its fp32 variant); serves it through the argv of
 config must be the checkpoint's, 8 HTTP requests' greedy tokens are held to
 the no-cache path (``_token_check``) and B's launches to the legacy path's
 forwards (the argv has no ``--serve_engine``, so, as in the JAX server,
-no engine is built); and exports it back with ``python -m
+no engine is built); and exports it back with the main of ``python -m
 megatron_llm_torch.weights_conversion.megatron_to_hf``, reloaded by
 ``transformers`` with every tensor equal to the original's bit for bit.
 Falcon-7B's width (71 heads on one KV head, parallel attention, vocab
@@ -357,9 +358,31 @@ margin; (f) ``tools/profile_step`` (one traced step; the trace names F's
 and G's kernels), ``decode_bench`` (one trial) and ``mfu_sweep`` (one
 trial) at the bench shape, each line parsed, each launch count exact.
 
+Phase 19 trains with tensor and sequence parallelism: the port's
+``finetune.py`` under ``python -m torch.distributed.run`` at Llama-2-70B's
+width (hidden 8192, 64 heads on 8 KV groups, ffn 28672, vocab 32000)
+cut to 2 layers, micro-batch 1 of 4096 tokens, 3 iterations in bf16 from
+seed 1234, at tp 2 with ``--sequence_parallel`` (both ranks on the one
+GPU over gloo: NCCL refuses two ranks on one device) and at tp 1 (a
+world of one over NCCL), then one fp32 iteration of 1024 tokens at 1
+layer each way, the two runs at once.  Held: every bf16 loss and grad
+norm within 2e-2 relative of tp 1's, the fp32 loss within 1e-5 and its
+grad norm within 1e-4; each rank's F, G, B and C launches exact (2, 2,
+5, 5 a step at 2 layers, 1, 1, 3, 3 at 1) and no other kernel; each rank's param bytes half of tp 1's with the replicated
+norms whole.  Each rank's peak memory, the steps' ms and the
+collectives by route are printed; with two ranks on one card over gloo
+these are not tp's speed.  Phase 1 holds F and G at a tp-2 rank's
+attention (32 query heads on 4 KV heads of 128, 4096 tokens) and B and
+C at its rows ([2048, 8192]) and times them.
+
 It prints, before its last line, the card's name and power limit, one
 JSON line with every kernel's numbers (``{"kernels": [...]}``), and as
 its last line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --tp_only
+
+builds the kernels, holds F, G, B and C at a tp-2 rank's shapes and
+runs phase 19 alone; it prints no result line.
 
     python3 chip_smoke.py --measure [--sweep]
 
@@ -415,6 +438,20 @@ def _phase16_gen():
     import torch
 
     return torch.Generator(device="cuda").manual_seed(16)
+
+
+# a tp-2 rank's shapes in phase 19 (Llama-2-70B's width at tp 2 with
+# sequence parallelism, sequence 4096): the norms' rows (2048 tokens of
+# 8192) and the attention of its 32 query heads on 4 KV heads of 128, on
+# inputs of their own generator for the same reason
+TP2_NORM_ROWS = (2048, 8192)
+TP2_ATTN = (1, 4096, 32, 4, 128)
+
+
+def _phase19_gen():
+    import torch
+
+    return torch.Generator(device="cuda").manual_seed(19)
 
 # tolerances (max-abs, kernel vs plain version on identical inputs): the
 # bf16 tolerance of tests/test_pallas_kernels.py, and fp32 at 1e-4
@@ -781,11 +818,13 @@ def phase1(gen, results):
     # path's call) and again with it: the same bits every time
     sm = _sm_count()
     err = {"bf16": 0.0, "fp32": 0.0}
-    gen89 = _phase8_9_gen()
+    gen89, gen19 = _phase8_9_gen(), _phase19_gen()
     for tag, dt in dts.items():
         for n, h in ((8, 4096), (64, 4096), (3, 128), (17, 11008 // 2),
-                     (4096, 4096), (1000, 4096), (8192, 4096)):
-            gen_ = gen89 if (n, h) in PHASE8_9_ROWS else gen
+                     (4096, 4096), (1000, 4096), (8192, 4096),
+                     TP2_NORM_ROWS):
+            gen_ = (gen89 if (n, h) in PHASE8_9_ROWS
+                    else gen19 if (n, h) == TP2_NORM_ROWS else gen)
             x = (torch.randn(n, h, device="cuda", generator=gen_) * 3).to(dt)
             # Llama-3's 33.5 M outputs with the scale in [0.4, 0.8], as
             # D's check keeps its outputs below 4: above it a bf16 step
@@ -794,11 +833,16 @@ def phase1(gen, results):
             # the plain fp32 value sits on a bf16 tie (0.03125 under 15
             # forced plans on the card with the scale up to 1.5; the
             # fp32 case holds the arithmetic)
-            lo, width = (0.4, 0.4) if n == 8192 else (0.5, 1.0)
+            # (and the tp-2 rows' 16.8 M, as many per bf16 tie)
+            lo, width = ((0.4, 0.4) if n == 8192 or (n, h) == TP2_NORM_ROWS
+                         else (0.5, 1.0))
             s = (torch.rand(h, device="cuda", generator=gen_) * width
                  + lo).to(dt)
             y0, r0 = rn.rms_norm_fwd_plain(x, s, 1e-5)
-            plans = [ln.plan(n, h, dt, sm)] + _fwd_plans(n, h, dt, sm)
+            plans = [ln.plan(n, h, dt, sm)] + (
+                # a tp-2 rank's rows at plan()'s plan alone (the script's
+                # time); the forced plans run at the other rows
+                [] if (n, h) == TP2_NORM_ROWS else _fwd_plans(n, h, dt, sm))
             e_max = 0.0
             for p in plans:
                 y, r = rn.rms_norm_fwd_kernel(x, s, 1e-5, force_plan=p)
@@ -1553,8 +1597,11 @@ def _merges():
 # its 32 layers (8 until phase 18 came)
 FALCON_SERVING_LAYERS = 4
 # phase 17's fp16 serving depth: Llama-2-7B's full width, 8 of its 32
-# layers (32 until phase 18 came: phase 2 still serves all 32 in bf16)
+# layers (32 until phase 18 came)
 FP16_SERVING_LAYERS = 8
+# phase 2's bf16 serving depth: Llama-2-7B's full width, 16 of its 32
+# layers (32 until phase 19 came: the script's limit needed room)
+LLAMA_SERVING_LAYERS = 16
 
 # the two serving workloads: the same traffic through two model families
 SERVING = {
@@ -1562,7 +1609,8 @@ SERVING = {
         label="Llama-2-7B", model_name="llama2", vocab=32000, quantized=False,
         # max_model_len cut from 4096 to 2048 to halve the KV pool
         # (8 slots x 2048 tokens), default serve flags
-        flags=["--serve_max_model_len", "2048"],
+        flags=["--serve_max_model_len", "2048", "--num_layers",
+               str(LLAMA_SERVING_LAYERS)],
         # kernel row -> (count key, launches per layer and dispatch kind)
         norm=("rmsnorm", "B", lambda L: 2 * L + 1),
         decode=("paged_decode", "A decode"),
@@ -1928,8 +1976,9 @@ def _time_attention_shape(gen, b, s, nh, ng, d):
     k, v = (torch.randn(b, s, ng, d, device="cuda",
                         generator=gen).to(torch.bfloat16) for _ in range(2))
     scale = 1.0 / math.sqrt(d)
-    qt, kt, vt = (t_.transpose(1, 2).expand(b, nh, s, d).contiguous()
-                  for t_ in (q, k, v))
+    # K/V expanded to the query heads: query head i reads group i // qpg
+    qt, kt, vt = (t_.transpose(1, 2).repeat_interleave(
+        nh // t_.shape[2], dim=1).contiguous() for t_ in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
     o, lse = fa.flash_attention_fwd_kernel(q, k, v, True, None, scale)
     qr, kr, vr = (t_.detach().requires_grad_(True) for t_ in (qt, kt, vt))
@@ -2301,7 +2350,7 @@ def d_host_breakdown():
 
 # B's timing rows (Llama-2-7B's width): decode, a prefill chunk and a
 # training micro-batch; E's and C's training rows (Falcon-7B's, Llama's)
-B_SHAPES = ((8, 4096), (64, 4096), (4096, 4096))
+B_SHAPES = ((8, 4096), (64, 4096), (4096, 4096), TP2_NORM_ROWS)
 E_SHAPE = (2048, 4544)
 # E's plan sweep: Falcon-7B's training rows and GPT-2 125M's (a micro-batch
 # of 8 sequences of 1024 tokens, 768 columns)
@@ -2309,6 +2358,8 @@ E_SWEEP_SHAPES = {"falcon": E_SHAPE, "gpt2": (8192, 768)}
 # C's training rows: Llama-2-7B's micro-batch (4096 tokens of 4096) and
 # Gemma-7B's (2048 tokens of 3072)
 C_SHAPES = {"C": (4096, 4096), "C_gemma": (2048, 3072)}
+# C's timing rows: those, and a tp-2 rank's rows of phase 19
+C_TIMED = {**C_SHAPES, "C_tp2": TP2_NORM_ROWS}
 # E's and C's kernels (one template) by name substring: the device time
 # of each pass
 _NORM_BWD_PASSES = (("first", "norm_bwd_kernel"),
@@ -2450,7 +2501,7 @@ def norm_times(gen):
                     library_ms=_median_ms(lib), bound_ms=b_ms, bound_by=b_by,
                     shape=f"x, g [{n}, {h}] bf16")
     runs["E"] = (run, lib, _NORM_BWD_PASSES)
-    for name, (n, h) in C_SHAPES.items():
+    for name, (n, h) in C_TIMED.items():
         x = torch.randn(n, h, device="cuda", generator=gen).to(bf16)
         sc = (torch.rand(h, device="cuda", generator=gen) + 0.5).to(bf16)
         g = torch.randn(n, h, device="cuda", generator=gen).to(bf16)
@@ -2622,17 +2673,24 @@ def phase1_training(gen, results):
     # their plain walk (_reference_bwd_partials), and run twice: the same
     # bits for dx and dscale
     err = {"bf16": 0.0, "fp32": 0.0}
-    gen89 = _phase8_9_gen()
+    gen89, gen19 = _phase8_9_gen(), _phase19_gen()
     for tag, dt in dts.items():
         for n, h in (*C_SHAPES.values(), (8192, 4096), (300, 4096),
-                     (3, 128), (17, 11008 // 2)):
-            gen_ = gen89 if (n, h) in PHASE8_9_ROWS else gen
+                     (3, 128), (17, 11008 // 2), TP2_NORM_ROWS):
+            gen_ = (gen89 if (n, h) in PHASE8_9_ROWS
+                    else gen19 if (n, h) == TP2_NORM_ROWS else gen)
             x = (torch.randn(n, h, device="cuda", generator=gen_) * 3).to(dt)
             sc = (torch.rand(h, device="cuda", generator=gen_) + 0.5).to(dt)
             g = torch.randn(n, h, device="cuda", generator=gen_).to(dt)
             _, rstd = rn.rms_norm_fwd_plain(x, sc, 1e-5)
             dx0, ds0 = rn.rms_norm_bwd_plain(x, sc, g, rstd)
             plans = norm_plan.bwd_plans(n, h, dt, sm, rms=True)
+            if (n, h) == TP2_NORM_ROWS:
+                # bwd_plan()'s plan, and the forced plans of several rows
+                # a block (the dscale sums in shared memory beside the
+                # scale: the launch that opts in above 47 KB)
+                plans = [plans[0]] + sorted(
+                    {p for p in plans[1:] if p[2] > 1 and p[3] <= sm})[:2]
             worst = [0.0, 0.0, 0.0]
             for p in plans:
                 dx, ds, part = rn.rms_norm_bwd_kernel(
@@ -2779,7 +2837,8 @@ def phase1_training(gen, results):
         ("GPT-2 345M fused-QKV views b4 s1024", 4, 1024, 16, 16, 64, None,
          True),
         ("Llama-3 fused-QKV views GQA g8 s8192", 1, 8192, 32, 8, 128, None,
-         True))]
+         True))] + [(("Llama-2-70B tp-2 rank fused-QKV views GQA g4 s4096",
+                      *TP2_ATTN, None, True), _phase19_gen())]
     f_err = {"bf16": 0.0, "fp32": 0.0}
     b_err = {k: {"bf16": [0.0, 0.0], "fp32": [0.0, 0.0]} for k in "GH"}
     for (label, b, s, nh, ng, d, w, views), gen_ in cases:
@@ -2858,6 +2917,8 @@ def phase1_training(gen, results):
     for name, (b, s, nh, ng, d) in (("falcon_shape", (1, 2048, 71, 1, 64)),
                                     ("gemma_shape", (1, 4096, 16, 16, 256))):
         other[name] = _time_attention_shape(gen, b, s, nh, ng, d)
+    # a tp-2 rank's attention in phase 19, on its own generator
+    other["tp2_shape"] = _time_attention_shape(_phase19_gen(), *TP2_ATTN)
 
     b, s, nh, d = 1, 4096, 32, 128
     q, k, v, do = (torch.randn(b, s, nh, d, device="cuda",
@@ -2881,7 +2942,8 @@ def phase1_training(gen, results):
         max_abs_err=f_err["bf16"], max_abs_err_fp32=f_err["fp32"],
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms, falcon_shape=other["falcon_shape"]["F"],
-        gemma_shape=other["gemma_shape"]["F"], shape=shape)
+        gemma_shape=other["gemma_shape"]["F"],
+        tp2_shape=other["tp2_shape"]["F"], shape=shape)
     log(f"  flash forward (F) {shape}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
         f"({b_by})")
@@ -2904,7 +2966,8 @@ def phase1_training(gen, results):
         max_rel_err_fp32=b_err["G"]["fp32"][1],
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms, falcon_shape=other["falcon_shape"]["G"],
-        gemma_shape=other["gemma_shape"]["G"], shape=shape)
+        gemma_shape=other["gemma_shape"]["G"],
+        tp2_shape=other["tp2_shape"]["G"], shape=shape)
     log(f"  flash backward (G) {shape}: kernel {ms:.4f} ms (delta, the dq "
         f"buffer and its cast included), plain {plain_ms:.4f} ms, SDPA "
         f"backward {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
@@ -2981,7 +3044,7 @@ def phase1_times(gen, results):
     norms["E"].update(plain_ms=time_ms(lambda: ln.layer_norm_bwd_plain(
         x, one, g, mu, rstd), iters=20), plan=list(ln.bwd_plan(n, h, bf16,
                                                                 sm)))
-    for name, (n, h) in C_SHAPES.items():
+    for name, (n, h) in C_TIMED.items():
         x, g = (torch.randn(n, h, device="cuda", generator=gen).to(bf16)
                 for _ in range(2))
         one = torch.ones(h, device="cuda", dtype=bf16)
@@ -2998,9 +3061,11 @@ def phase1_times(gen, results):
     results["rmsnorm"].update(
         b_rows[8], prefill_rows=b_rows[64], training_rows=b_rows[4096],
         training_device_ms=b_rows[4096]["device_ms"],
+        tp2_rows=b_rows[TP2_NORM_ROWS[0]],
         call_site=b_rows["call_site"], host_us=b_host)
     results["rmsnorm_bwd"].update(
-        norms["C"], gemma_rows=norms["C_gemma"], host_us=c_host,
+        norms["C"], gemma_rows=norms["C_gemma"], tp2_rows=norms["C_tp2"],
+        host_us=c_host,
         plan=list(ln.bwd_plan(*C_SHAPES["C"], bf16, sm, rms=True)))
     results["layernorm_bwd"].update(norms["E"])
     results["layernorm"]["t5_rows"] = phase16_norms["D"]
@@ -3017,7 +3082,7 @@ def phase1_times(gen, results):
                    "F.rms_norm")
     _log_times(f"layernorm backward (E, plan {norms['E']['plan']})",
                norms["E"], "F.layer_norm backward")
-    for name, (n, h) in C_SHAPES.items():
+    for name, (n, h) in C_TIMED.items():
         _log_times(f"rmsnorm backward (C, plan "
                    f"{ln.bwd_plan(n, h, bf16, sm, rms=True)})", norms[name],
                    "F.rms_norm backward")
@@ -5026,17 +5091,27 @@ def _example_argv(script, *script_args, work):
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
-def _run_module(module, argv, label, timeout=900):
-    """``python -m module argv`` from the checkout; returns (seconds,
-    output lines)."""
+def _run_module(module, argv, label):
+    """``module.main(argv)``, in this process (the converters' entry, as
+    ``python -m module argv`` runs it, without another interpreter's
+    start-up and imports: ~10 s a call); returns (seconds, output
+    lines)."""
+    import importlib
+    import io
+
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", module, *argv], cwd=REPO,
-                         capture_output=True, text=True, timeout=timeout)
+    out = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(out):
+        try:
+            importlib.import_module(module).main(argv)
+        except SystemExit as exc:
+            code = exc.code or 0
     secs = time.perf_counter() - t0
-    lines = (res.stdout + res.stderr).splitlines()
+    lines = out.getvalue().splitlines()
     for line in lines[-12:]:
         log(f"  | {line}")
-    check(res.returncode == 0, f"{label} exited {res.returncode}")
+    check(code == 0, f"{label} exited {code}")
     return secs, lines
 
 
@@ -5118,7 +5193,7 @@ def _weights_family(out, kernels, card, work, family):
         f"built on the card and saved in {time.perf_counter() - t0:.1f} s; "
         f"{hf_dir}: {_gb(hf_bytes)} on disk")
 
-    # (2) the converter, as a user runs it
+    # (2) the converter's main, with the argv a user gives it
     secs, lines = _run_module(
         "megatron_llm_torch.weights_conversion.hf_to_megatron",
         [family, "--model_path", hf_dir, "--out", ck, "--dtype", "fp32"],
@@ -5765,7 +5840,7 @@ def _serve_bench(port, engine):
         capture_output=True, text=True, timeout=600)
     s1 = engine.stats()
     check(res.returncode == 0, f"serve_bench exited {res.returncode}: "
-                               f"{res.stderr[-800:]}")
+                               f"{res.stdout[-1500:]} {res.stderr[-800:]}")
     bench = json.loads(res.stdout[res.stdout.index("{"):])
     check(bench["ok"] == bench["requests"] == 32 and not bench["errors"],
           f"serve_bench: {bench['ok']} ok, {bench['errors']} errors")
@@ -7395,8 +7470,14 @@ def fleet_phase(results, kernels, card):
             return any(e["event"] == "scale_up"
                        for e in _fleet_events(events_path))
 
+        # waves run until three replicas are ready, not only until a
+        # scale_up event: on a slow host the first scale-up's replica can
+        # get ready before the respawn, and with no traffic the idle
+        # drain takes one away before three are ever ready at once
         t_wave = time.time()
-        while not scaled_up() and time.time() - t_wave < 120:
+        three = ready(3)
+        while (not scaled_up() or three() is None) \
+                and time.time() - t_wave < 180:
             wave = [threading.Thread(target=client, args=(i,))
                     for i in range(8)]
             for t in wave:
@@ -7406,7 +7487,7 @@ def fleet_phase(results, kernels, card):
             check(all(isinstance(a, tuple) and a[0] == 200
                       for a in answers[:8]),
                   f"a scale-up wave's requests failed: {answers[:8]}")
-        _wait_for("three ready replicas", ready(3), 180)
+        _wait_for("three ready replicas", three, 180)
         # no request is in flight and none comes before the drain: this
         # read is the final count of the replica that drains away
         note(_fleet_metrics(port))
@@ -9407,6 +9488,357 @@ def _tasks_tools(out, kernels, work, rng, words):
         _add_launches(kernels, row, "tasks tools", n)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: tensor and sequence parallelism, Llama-2-70B's width at tp 2
+# ---------------------------------------------------------------------------
+
+# Llama-2-70B's width (llama_config("70B")), cut to 2 layers; micro-batch
+# 1 of 4096 tokens, 3 iterations in bf16; one fp32 iteration of 1024 at
+# 1 layer, tp 2 and tp 1 at once (their ~56 GiB fit the card together;
+# at 2 layers they take 46 and 44 GiB and run one after the other)
+TP_WIDTH = ("--hidden_size=8192", "--num_attention_heads=64",
+            "--num_attention_heads_kv=8", "--ffn_hidden_size=28672",
+            "--vocab_size=32000")
+TP_LAYERS = 2
+TP_SEQ = 4096
+TP_ITERS = 3
+TP_FP32_LAYERS = 1
+TP_FP32_SEQ = 1024
+# tp 2 against the tp 1 run, relative: bf16 losses and grad norms; fp32
+# loss and grad norm
+TP_BF16_TOL = 2e-2
+TP_FP32_LOSS_TOL = 1e-5
+TP_FP32_NORM_TOL = 1e-4
+
+
+def _tp_argv(work, tag, tp, layers, seq, iters, bf16):
+    argv = ["--model_name=llama2", f"--num_layers={layers}", *TP_WIDTH,
+            f"--seq_length={seq}", f"--max_position_embeddings={seq}",
+            "--micro_batch_size=1", "--global_batch_size=1",
+            f"--train_iters={iters}", "--lr=1e-5", "--log_interval=1",
+            "--seed=1234", f"--structured_log_dir={os.path.join(work, tag)}"]
+    argv += ["--bf16"] if bf16 else []
+    if tp > 1:
+        # two ranks on the one GPU: NCCL refuses that, gloo takes it
+        argv += [f"--tensor_model_parallel_size={tp}", "--sequence_parallel",
+                 "--distributed_backend=gloo"]
+    else:
+        argv += ["--distributed_backend=nccl"]
+    return argv
+
+
+def _torchrun(work, tag, tp, layers, seq, iters, bf16):
+    """Start one launch of the port's finetune.py under torchrun (``tp``
+    ranks, one node, each rank's output to a file of its own); returns
+    what ``_torchrun_done`` reads."""
+    argv = _tp_argv(work, tag, tp, layers, seq, iters, bf16)
+    logs = os.path.join(work, f"{tag}_logs")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={tp}", f"--log-dir={logs}", "--redirects=3",
+           "-m", "megatron_llm_torch.finetune", *argv]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="4")
+    log(f"  {tag}: torchrun --nproc_per_node={tp} -m "
+        f"megatron_llm_torch.finetune {' '.join(argv)}")
+    out = open(os.path.join(work, f"{tag}_torchrun.log"), "w+")
+    # a session of its own: the launcher and its ranks end together
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    return dict(tag=tag, tp=tp, iters=iters, work=work, logs=logs,
+                proc=proc, out=out, t0=time.perf_counter())
+
+
+def _torchrun_kill(run):
+    """End a launch of ``_torchrun`` that still runs, its ranks too."""
+    import signal
+
+    if run["proc"].poll() is None:
+        os.killpg(run["proc"].pid, signal.SIGKILL)
+        run["proc"].wait()
+
+
+def _torchrun_done(run, timeout=300):
+    """Wait for a launch of ``_torchrun`` (killing it at ``timeout``):
+    (the rank summaries by rank, the JSONL records of rank 0's
+    iterations, wall seconds).  The ranks' output goes to chiprun_out/."""
+    import glob
+
+    tag, tp, iters, work, logs = (run[k] for k in ("tag", "tp", "iters",
+                                                   "work", "logs"))
+    proc = run["proc"]
+    try:
+        proc.wait(timeout=max(run["t0"] + timeout - time.perf_counter(),
+                              1.0))
+    except subprocess.TimeoutExpired:
+        _torchrun_kill(run)
+    wall = time.perf_counter() - run["t0"]
+    run["out"].seek(0)
+    launcher = run["out"].read()
+    run["out"].close()
+    ranks = {}
+    for path in glob.glob(os.path.join(logs, "**", "stdout.log"),
+                          recursive=True):
+        rank = int(os.path.basename(os.path.dirname(path)))
+        with open(path) as f:
+            ranks[rank] = f.read()
+        with open(os.path.join(os.path.dirname(path), "stderr.log")) as f:
+            ranks[rank] += "\n--- stderr ---\n" + f.read()
+    with open(os.path.join(OUT_DIR, f"chip_smoke_tp_{tag}.log"), "w") as f:
+        f.write(launcher)
+        for rank in sorted(ranks):
+            f.write(f"\n=== rank {rank} ===\n{ranks[rank]}")
+    for rank in sorted(ranks):
+        for line in ranks[rank].splitlines():
+            if line.startswith(" iteration") or "rank summary" in line \
+                    or "shares cuda" in line:
+                log(f"  | rank {rank}: {line}")
+    check(proc.returncode == 0,
+          f"phase 19 {tag}: torchrun exited {proc.returncode}: "
+          f"{launcher[-3000:]}")
+    summaries = sorted(
+        (json.loads(ln.split("rank summary: ", 1)[1])
+         for text in ranks.values() for ln in text.splitlines()
+         if "rank summary: " in ln),
+        key=lambda r: r["rank"])
+    check(len(summaries) == tp, f"phase 19 {tag}: {len(summaries)} rank "
+                                f"summaries for {tp} ranks")
+    recs = [r for r in _jsonl(os.path.join(work, tag, "telemetry.jsonl"))
+            if "lm_loss" in r]
+    check([r["iteration"] for r in recs] == list(range(1, iters + 1)),
+          f"phase 19 {tag}: iterations {[r['iteration'] for r in recs]}")
+    return summaries, recs, wall
+
+
+def _gib(nbytes):
+    return None if nbytes is None else round(nbytes / 2**30, 3)
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def tp_phase(results, kernels, card):
+    """Phase 19 (see the module's docstring): in a directory under build/
+    that it deletes at the end."""
+    import shutil
+
+    work = os.path.join(REPO, "build", "chip19")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    _free_device_memory()
+    try:
+        _tp_phase(results, kernels, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _tp_phase(results, kernels, card, work):
+    runs, layers = {}, {}
+    # the bf16 pair one after the other, then the fp32 pair at once
+    for group in ((("tp2_bf16", 2, TP_LAYERS, TP_SEQ, TP_ITERS, True),),
+                  (("tp1_bf16", 1, TP_LAYERS, TP_SEQ, TP_ITERS, True),),
+                  (("tp2_fp32", 2, TP_FP32_LAYERS, TP_FP32_SEQ, 1, False),
+                   ("tp1_fp32", 1, TP_FP32_LAYERS, TP_FP32_SEQ, 1, False))):
+        started = [_torchrun(work, *spec) for spec in group]
+        try:
+            for spec, run in zip(group, started):
+                runs[spec[0]] = _torchrun_done(run)
+                layers[spec[0]] = spec[2]
+        finally:
+            for run in started:
+                _torchrun_kill(run)
+    for tag in ("tp2_bf16", "tp1_bf16", "tp2_fp32", "tp1_fp32"):
+        summaries, recs, wall = runs[tag]
+        L, iters = layers[tag], len(recs)
+        # each rank launched F and G once a layer and step, B and C once a
+        # norm (two a layer and the final norm) and step; nothing else
+        want = {"flash_fwd": L * iters, "flash_bwd_fused": L * iters,
+                "rmsnorm": (2 * L + 1) * iters,
+                "rmsnorm_bwd": (2 * L + 1) * iters, "flash_bwd": 0,
+                "layernorm": 0, "layernorm_bwd": 0}
+        for sm in summaries:
+            check(sm["kernel_launches"] == want,
+                  f"phase 19 {tag} rank {sm['rank']}: launches "
+                  f"{sm['kernel_launches']}, expected {want}")
+            for row in ("flash_fwd", "flash_bwd_fused", "rmsnorm",
+                        "rmsnorm_bwd"):
+                _add_launches(kernels, row, f"tp {tag} rank {sm['rank']}",
+                              sm["kernel_launches"][row])
+        log(f"  {tag}: {wall:.1f} s; losses "
+            f"{[r['lm_loss'] for r in recs]}, grad norms "
+            f"{[r['grad_norm'] for r in recs]}; peak device GiB by rank "
+            f"{[_gib(sm['peak_device_bytes']) for sm in summaries]}; "
+            f"collectives {summaries[0].get('collectives')}")
+    out = {}
+    for dt in ("bf16", "fp32"):
+        two, one = runs[f"tp2_{dt}"], runs[f"tp1_{dt}"]
+        losses = [(a["lm_loss"], b["lm_loss"]) for a, b in zip(two[1],
+                                                                one[1])]
+        norms = [(a["grad_norm"], b["grad_norm"]) for a, b in zip(two[1],
+                                                                 one[1])]
+        e_loss = max(_rel(a, b) for a, b in losses)
+        e_norm = max(_rel(a, b) for a, b in norms)
+        tol_loss, tol_norm = ((TP_BF16_TOL, TP_BF16_TOL) if dt == "bf16"
+                              else (TP_FP32_LOSS_TOL, TP_FP32_NORM_TOL))
+        check(e_loss <= tol_loss and e_norm <= tol_norm,
+              f"phase 19 {dt}: tp 2 against tp 1, losses {losses} (rel "
+              f"{e_loss:.3g} > {tol_loss}?), grad norms {norms} (rel "
+              f"{e_norm:.3g} > {tol_norm}?)")
+        check(all(math.isfinite(a) for a, _ in losses + norms),
+              f"phase 19 {dt}: a non-finite loss or norm")
+        # each rank holds half of the tp 1 bytes, and the replicated
+        # norms (2 a layer and the final one, hidden each) whole
+        itemsize = 2 if dt == "bf16" else 4
+        hidden = int(TP_WIDTH[0].split("=")[1])
+        replicated = (2 * layers[f"tp1_{dt}"] + 1) * hidden * itemsize
+        full = one[0][0]["param_bytes"]
+        per_rank = [sm["param_bytes"] for sm in two[0]]
+        check(all(2 * b == full + replicated for b in per_rank),
+              f"phase 19 {dt}: param bytes by rank {per_rank}, tp 1 {full}, "
+              f"replicated {replicated}")
+        step_ms = {t: [r["step_time_secs"] * 1000.0 for r in runs[t][1]]
+                   for t in (f"tp2_{dt}", f"tp1_{dt}")}
+        out[dt] = dict(
+            losses=losses, grad_norms=norms, loss_rel_err=e_loss,
+            grad_norm_rel_err=e_norm, param_bytes_tp1=full,
+            param_bytes_by_rank=per_rank,
+            peak_gib_by_rank={t: [_gib(sm["peak_device_bytes"])
+                                  for sm in runs[t][0]]
+                              for t in (f"tp2_{dt}", f"tp1_{dt}")},
+            step_ms=step_ms, wall_s={t: runs[t][2] for t in (
+                f"tp2_{dt}", f"tp1_{dt}")},
+            collectives=runs[f"tp2_{dt}"][0][0].get("collectives"))
+        log(f"  {dt}: tp 2 (two ranks on one GPU over gloo, which stages "
+            f"every collective through the host) against tp 1 (NCCL, a world of "
+            f"one): losses {losses}, rel {e_loss:.3g}; grad norms {norms}, "
+            f"rel {e_norm:.3g}; param bytes by rank {per_rank} against "
+            f"{full} at tp 1 ({replicated} replicated); step ms {step_ms} "
+            f"({card}; not a tp speed: two ranks share the card, gloo "
+            f"stages every collective through the host)")
+    results.update(out)
+
+
+def tp_only(gen, kernels, card) -> int:
+    """``--tp_only``: F and G at a tp-2 rank's attention and B and C at its
+    rows against their plain versions, bf16 and fp32, then phase 19."""
+    import torch
+
+    from megatron_llm_torch.ops.kernels import flash_attention as fa
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
+
+    kernels.update({row: {} for row in ("flash_fwd", "flash_bwd_fused",
+                                         "rmsnorm", "rmsnorm_bwd")})
+    gen19 = _phase19_gen()
+    n, h = TP2_NORM_ROWS
+    b, s, nh, ng, d = TP2_ATTN
+    for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        x = (torch.randn(n, h, device="cuda", generator=gen19) * 3).to(dt)
+        sc = (torch.rand(h, device="cuda", generator=gen19) * 0.4
+              + 0.4).to(dt)
+        g = torch.randn(n, h, device="cuda", generator=gen19).to(dt)
+        y, r = rn.rms_norm_fwd_kernel(x, sc, 1e-5)
+        y0, r0 = rn.rms_norm_fwd_plain(x, sc, 1e-5)
+        dx, ds = rn.rms_norm_bwd_kernel(x, sc, g, r0)
+        dx0, ds0 = rn.rms_norm_bwd_plain(x, sc, g, r0)
+        q, do = (torch.randn(b, s, nh, d, device="cuda",
+                             generator=gen19).to(dt) for _ in range(2))
+        k, v = (torch.randn(b, s, ng, d, device="cuda",
+                            generator=gen19).to(dt) for _ in range(2))
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa.flash_attention_fwd_kernel(q, k, v, True, None, scale)
+        o0, lse0 = _reference_by_group(fa, q, k, v, True, None, scale)
+        grads = fa.flash_attention_bwd_kernel(q, k, v, o0, lse0, do, True,
+                                              None, scale)
+        ref = _reference_by_group(fa, q, k, v, True, None, scale,
+                                  grads_of=(o0, lse0, do))
+        torch.cuda.synchronize()
+        e = dict(B=max((y.float() - y0.float()).abs().max().item(),
+                       (r - r0).abs().max().item()),
+                 C=(dx.float() - dx0.float()).abs().max().item(),
+                 C_dscale=((ds - ds0).abs().max()
+                           / ds0.abs().max().clamp(min=1.0)).item(),
+                 F=max((o.float() - o0.float()).abs().max().item(),
+                       (lse - lse0).abs().max().item()),
+                 G=_grad_errors(grads, ref)[1])
+        log(f"  tp-2 rank shapes {tag}: {e}")
+        check(e["B"] <= TOL[tag] and e["C"] <= TOL[tag]
+              and e["F"] <= TOL[tag] and e["C_dscale"] <= GRAD_TOL[tag]
+              and e["G"] <= GRAD_TOL[tag], f"tp-2 rank shapes {tag}: {e}")
+        del x, sc, g, y, r, y0, r0, dx, ds, dx0, ds0, q, do, k, v, o, lse
+        del o0, lse0, grads, ref
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp = {}
+    tp_phase(tp, kernels, card)
+    log(f"phase 19 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"tensor parallelism ({card}): " + json.dumps(tp))
+    log(f"the tp collectives at a tp-2 rank's shapes, two ranks on the "
+        f"card over gloo ({card}): " + json.dumps(collective_times()))
+    return 0
+
+
+# the collectives of a tp-2 + SP step at Llama-2-70B's width: a rank's
+# sequence shard all-gathered, a rank's partial product reduce-scattered
+# over the sequence, a shard all-reduced; bf16
+COLLECTIVE_SHAPES = {"all_gather": (1, 2048, 8192),
+                     "reduce_scatter": (1, 4096, 8192),
+                     "all_reduce": (1, 2048, 8192)}
+
+
+def collective_worker() -> int:
+    """``--collectives``: one rank of a torchrun world of 2 on the card,
+    gloo.  Times ``mappings.collective`` (gloo's own CUDA route) and the
+    same op on a host copy made here, 5 calls each after one, at
+    COLLECTIVE_SHAPES; rank 0 prints one JSON line of ms a call."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from megatron_llm_torch import topology
+    from megatron_llm_torch.parallel import mappings
+
+    dist.init_process_group("gloo",
+                            timeout=datetime.timedelta(seconds=120))
+    torch.cuda.set_device(0)
+    topology.initialize_model_parallel(dist.get_world_size())
+    out = {}
+    for op, shape in COLLECTIVE_SHAPES.items():
+        x = torch.randn(shape, device="cuda").to(torch.bfloat16)
+        for route, run in (
+                ("gloo_cuda", lambda: mappings.collective(op, x, dim=1)),
+                ("host_copy", lambda: mappings.collective(
+                    op, x.cpu(), dim=1).cuda())):
+            run()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                run()
+            torch.cuda.synchronize()
+            out[f"{op} {list(shape)} {route}"] = (
+                (time.perf_counter() - t0) / 5 * 1000.0)
+    if dist.get_rank() == 0:
+        print("COLLECTIVE_TIMES " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def collective_times() -> dict:
+    """ms a call of the tp collectives (``collective_worker``), from a
+    torchrun world of 2 on the card."""
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=2", os.path.join(REPO, "chip_smoke.py"),
+         "--collectives"], cwd=REPO, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("COLLECTIVE_TIMES ")]
+    check(res.returncode == 0 and len(lines) == 1,
+          f"collective times: exit {res.returncode}: {res.stderr[-2000:]}")
+    return json.loads(lines[0].split(" ", 1)[1])
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -9422,6 +9854,16 @@ def main(argv=None) -> int:
         help="with --measure: also time B, C, D and E under other plans "
              "(fwd_plan_sweep, e_plan_sweep, c_plan_sweep) and D's "
              "wrapper's host work (d_host_breakdown)")
+    parser.add_argument(
+        "--tp_only", action="store_true",
+        help="build the kernels, hold F, G, B and C at a tp-2 rank's "
+             "shapes against their plain versions and run phase 19 (tp 2 "
+             "+ SP at Llama-2-70B's width against tp 1) alone: no result "
+             "line")
+    parser.add_argument(
+        "--collectives", action="store_true",
+        help="(one rank of --tp_only's torchrun world) time the tp "
+             "collectives at a tp-2 rank's shapes and print them")
     opts = parser.parse_args(argv)
     try:
         import torch
@@ -9437,6 +9879,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if opts.collectives:
+        return collective_worker()
     os.makedirs(OUT_DIR, exist_ok=True)
     _LOG_FILES.append(open(os.path.join(OUT_DIR, "chip_smoke.log"), "w"))
 
@@ -9494,6 +9938,8 @@ def main(argv=None) -> int:
             res.update(sweep)
         print(json.dumps(res), flush=True)
         return 0
+    if opts.tp_only:
+        return tp_only(gen, kernels, card)
     t0 = time.perf_counter()
     log("phase 1: serving kernels vs plain versions")
     phase1(gen, kernels)
@@ -9648,6 +10094,15 @@ def main(argv=None) -> int:
     tasks_phase(tasks, kernels, card)
     log(f"phase 18 passed in {time.perf_counter() - t0:.1f} s")
     log(f"tasks and tools ({card}): " + json.dumps(tasks))
+    t0 = time.perf_counter()
+    log(f"phase 19: tensor and sequence parallelism -- Llama-2-70B's width, "
+        f"{TP_LAYERS} layers, through megatron_llm_torch.finetune under "
+        f"torchrun at tp 2 + SP (two ranks on the one GPU over gloo) "
+        f"against tp 1 (NCCL)")
+    tp = {}
+    tp_phase(tp, kernels, card)
+    log(f"phase 19 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"tensor parallelism ({card}): " + json.dumps(tp))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     names = ("paged_decode", "paged_prefill", "paged_decode_int8",
@@ -9671,7 +10126,7 @@ def main(argv=None) -> int:
                    "mixtral": mixtral, "serving_rest": rest,
                    "resilience": resil, "fleet": fleet,
                    "int8_legacy": int8_legacy, "bert_t5": bert_t5,
-                   "fp16": fp16, "tasks": tasks}, f,
+                   "fp16": fp16, "tasks": tasks, "tp": tp}, f,
                   indent=1)
     log(card)
     print(json.dumps(line), flush=True)

@@ -14,16 +14,18 @@ ways:
   package, and reference features the JAX package does not implement
   (``_add_unimplemented_compat_args``), accepted with a warning when one
   is set away from its default (``warn_unimplemented``);
-* flags of features the port has not ported yet (parallel degrees,
-  batch-size rampup, the T5 decoder, JAX's live profiler server, ...):
-  they parse, and asking for one raises ``NotImplementedError`` where the
+* flags of features the port has not ported yet (the parallel degrees
+  but tp, batch-size rampup, JAX's live profiler server, ...): they
+  parse, and asking for one raises ``NotImplementedError`` where the
   feature is refused: the parallel sizes in ``ParallelConfig``, the rest
   through ``refuse_unported`` with the entry point's table
   (``UNPORTED_TRAINING``, ``UNPORTED_SERVING``).  The mixture of experts'
   flags (``--num_experts``, ``--moe_*``) are honoured.
 
 ``--device`` picks the torch device (``cuda`` unless the caller asks for
-``cpu``).
+``cpu``).  ``validate_args`` derives dp from the world (torchrun's
+``WORLD_SIZE``, or the process group's) as the JAX package derives it;
+this slice runs worlds of tp ranks only (dp 1).
 """
 
 from __future__ import annotations
@@ -239,8 +241,9 @@ def _add_mixed_precision_args(parser):
 
 
 def _add_distributed_args(parser):
-    # the port runs on one device: any size above 1 raises in
-    # ParallelConfig; --sequence_parallel is off at tp 1 (validate_args)
+    # tp runs over torch.distributed (topology.py); the other sizes above
+    # 1 raise in ParallelConfig; --sequence_parallel is off at tp 1
+    # (validate_args)
     g = parser.add_argument_group("distributed")
     g.add_argument("--tensor_model_parallel_size", type=int, default=1)
     g.add_argument("--pipeline_model_parallel_size", type=int, default=1)
@@ -594,8 +597,21 @@ def apply_fused_ce_policy(args, vocab=None):
                   "--fused_lm_cross_entropy", flush=True)
 
 
-def validate_args(args):
-    """The JAX package's derivations for one device."""
+def _world_size() -> int:
+    """torchrun's ``WORLD_SIZE``, else the process group's, else 1."""
+    import os
+
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def validate_args(args, world_size: Optional[int] = None):
+    """The JAX package's derivations.  ``world_size`` defaults to the
+    launcher's (``_world_size``); dp is world // (tp x pp x cp), and this
+    slice takes a world of tp ranks only."""
     warn_unimplemented(args)
     # encoder spellings fall back onto the canonical names
     if args.num_layers is None and args.encoder_num_layers is not None:
@@ -616,7 +632,28 @@ def validate_args(args):
         raise ValueError("--fp16 and --bf16 are exclusive")
     args.params_dtype = ("fp16" if args.fp16 else "bf16" if args.bf16
                          else "fp32")
-    args.data_parallel_size = 1
+    # the parallel features this slice lacks raise by name before the
+    # world is asked to hold them
+    from megatron_llm_torch.config import parallel_config_from_args
+
+    parallel_config_from_args(args)
+    if world_size is None:
+        world_size = _world_size()
+    mp = (args.tensor_model_parallel_size * args.pipeline_model_parallel_size
+          * args.context_parallel_size)
+    if mp < 1 or world_size % mp:
+        raise ValueError(
+            f"world size ({world_size}) not divisible by tp "
+            f"({args.tensor_model_parallel_size}) x pp "
+            f"({args.pipeline_model_parallel_size}) x cp "
+            f"({args.context_parallel_size})")
+    args.world_size = world_size
+    args.data_parallel_size = world_size // mp
+    if args.data_parallel_size != 1:
+        raise NotImplementedError(
+            f"data parallelism (a world of {world_size} over tp x pp x cp "
+            f"= {mp}, dp {args.data_parallel_size}) is not ported yet "
+            f"(ROADMAP item 15)")
     # the exit code after a preemption rescue save (multislice: 17); the
     # port has no multislice run (ParallelConfig refuses num_slices > 1)
     if args.preempt_exit_code is None:

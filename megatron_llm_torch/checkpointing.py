@@ -61,7 +61,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from megatron_llm_torch import tracing
+from megatron_llm_torch import topology, tracing
 from megatron_llm_torch.global_vars import get_counters
 from megatron_llm_torch.optimizer.grad_scaler import GradScalerState
 from megatron_llm_torch.optimizer.optimizer import OptimizerState
@@ -394,7 +394,10 @@ def save_checkpoint(
     half-written checkpoint; transient IO errors are retried with
     exponential backoff (``configure_save``), counted in
     ``counters['save_retries']``.  Prints one line with the bytes written
-    and the seconds taken."""
+    and the seconds taken.  Checkpoints of a tensor-parallel run are
+    not ported yet (their one layout is a later slice): at tp > 1 this
+    raises."""
+    topology.refuse_at_tp("saving a checkpoint")
     if async_save:
         # at most one outstanding save: the previous one becomes durable
         # (rename + tracker) before this one starts
@@ -568,8 +571,10 @@ def load_checkpoint(
     is missing/corrupt or points at a checkpoint that fails validation
     (missing payload, unreadable meta.json, manifest checksum mismatch),
     the newest iter_* dir that *does* validate is used instead.  An
-    explicitly requested iteration is never silently substituted.
+    explicitly requested iteration is never silently substituted.  At
+    tp > 1 this raises: checkpoints at tp are a later slice.
     """
+    topology.refuse_at_tp("loading a checkpoint")
     t0 = time.perf_counter()
     explicit = iteration is not None or release
     if not explicit:

@@ -2,15 +2,18 @@
 
 The counterpart of ``megatron_llm_tpu/config.py``: ``TransformerConfig``
 with the fields the serving and training paths read, ``TrainConfig``
-whole, and ``ParallelConfig`` for one device, under the same names and
-defaults and with the same ``__post_init__`` derivations.  Dtype names
+whole, and ``ParallelConfig`` with the tensor-parallel size and sequence
+parallelism, under the same names and defaults and with the same
+``__post_init__`` derivations.  Dtype names
 (``"fp32"``, ``"bf16"``, ``"fp16"``) map to ``torch.dtype``s.  The
 ``*_from_args`` functions lower the port's CLI (``arguments.py``) into
 them, for the flags this slice honours.
 
-The fields that select features outside the ported slices (tokentype
-embeddings and every parallel degree above 1) are kept so that asking for
-one raises ``NotImplementedError`` instead of being ignored.  The MoE
+The fields that select features outside the ported slices (the parallel
+degrees other than tp, ZeRO-1, virtual pipelining) are kept so that
+asking for one raises ``NotImplementedError`` instead of being ignored.
+``TransformerConfig.sequence_parallel`` carries ``--sequence_parallel``
+to the model (the JAX package passes it to the model's call).  The MoE
 fields are the JAX package's; ``moe_expert_axis`` is validated and has no
 effect on one device.
 """
@@ -84,6 +87,10 @@ class TransformerConfig:
     params_dtype: str = "fp32"
     compute_dtype: str = "fp32"
     norm_in_fp32: bool = True
+
+    # --- tensor parallelism: the residual stream, norms and hidden
+    # dropouts on this rank's sequence shard (at tp > 1 only) ---
+    sequence_parallel: bool = False
 
     # --- attention numerics ---
     attention_softmax_in_fp32: bool = True
@@ -178,13 +185,29 @@ class TransformerConfig:
         return dataclasses.replace(self, **kw)
 
 
+# the parallel features this slice does not run: field -> (feature, the
+# one value it takes) (ROADMAP item 15)
+_UNPORTED_PARALLEL = {
+    "pipeline_model_parallel_size": ("pipeline parallelism", 1),
+    "data_parallel_size": ("data parallelism", 1),
+    "context_parallel_size": ("context parallelism", 1),
+    "expert_model_parallel_size": ("the expert axis", 1),
+    "num_slices": ("multislice training", 1),
+    "use_distributed_optimizer": ("ZeRO-1 (the distributed optimizer)",
+                                  False),
+    "multislice_hierarchical": ("multislice training", False),
+    "virtual_pipeline_model_parallel_size": ("the interleaved pipeline",
+                                             None),
+}
+
+
 @dataclass(frozen=True)
 class ParallelConfig:
     """Mesh shape + parallelism behaviour (the JAX package's fields).
-    This slice runs on one device: any parallel degree above 1, sequence
-    parallelism, ZeRO-1 or virtual pipelining raises
-    ``NotImplementedError`` (parallelism over ``torch.distributed`` is a
-    later slice)."""
+    Tensor parallelism runs over ``torch.distributed`` (``topology.py``),
+    with sequence parallelism at tp > 1; every other parallel degree
+    above 1, ZeRO-1 and virtual pipelining raise ``NotImplementedError``
+    naming the feature (later slices of ROADMAP item 15)."""
 
     tensor_model_parallel_size: int = 1
     pipeline_model_parallel_size: int = 1
@@ -198,24 +221,24 @@ class ParallelConfig:
     multislice_hierarchical: bool = False
 
     def __post_init__(self):
-        sizes = {k: getattr(self, k) for k in (
-            "tensor_model_parallel_size", "pipeline_model_parallel_size",
-            "data_parallel_size", "context_parallel_size",
-            "expert_model_parallel_size", "num_slices")}
-        over = {k: v for k, v in sizes.items() if v != 1}
-        flags = [k for k in ("sequence_parallel", "use_distributed_optimizer",
-                             "multislice_hierarchical") if getattr(self, k)]
-        if self.virtual_pipeline_model_parallel_size is not None:
-            flags.append("virtual_pipeline_model_parallel_size")
-        if over or flags:
-            raise NotImplementedError(
-                f"the port trains on one device; parallelism is a later "
-                f"slice (got {over or ''}{' ' if over and flags else ''}"
-                f"{flags or ''})")
+        if self.tensor_model_parallel_size < 1:
+            raise ValueError(f"tensor_model_parallel_size must be >= 1, "
+                             f"got {self.tensor_model_parallel_size}")
+        for name, (feature, ok) in _UNPORTED_PARALLEL.items():
+            value = getattr(self, name)
+            if value != ok:
+                raise NotImplementedError(
+                    f"{feature} ({name}={value}) is not ported yet: this "
+                    f"slice runs tensor and sequence parallelism only "
+                    f"(ROADMAP item 15)")
 
     @property
     def world_size(self) -> int:
-        return 1
+        """The process group's size (1 without one)."""
+        import torch.distributed as dist
+
+        return (dist.get_world_size() if dist.is_available()
+                and dist.is_initialized() else 1)
 
 
 @dataclass(frozen=True)
@@ -306,6 +329,7 @@ def transformer_config_from_args(args, model_name: Optional[str] = None
         params_dtype=args.params_dtype,
         compute_dtype="bf16" if args.bf16 else "fp16" if args.fp16 else "fp32",
         recompute_granularity=args.recompute_granularity,
+        sequence_parallel=bool(getattr(args, "sequence_parallel", False)),
         recompute_num_layers=args.recompute_num_layers,
         use_flash_attn=args.use_flash_attn,
         fused_lm_cross_entropy=args.fused_lm_cross_entropy,
@@ -372,6 +396,7 @@ def parallel_config_from_args(args) -> ParallelConfig:
     return ParallelConfig(
         tensor_model_parallel_size=args.tensor_model_parallel_size,
         pipeline_model_parallel_size=args.pipeline_model_parallel_size,
+        data_parallel_size=getattr(args, "data_parallel_size", 1),
         virtual_pipeline_model_parallel_size=(
             args.num_layers_per_virtual_pipeline_stage),
         sequence_parallel=args.sequence_parallel,

@@ -95,6 +95,11 @@ struct NormBwdCall {
 
 namespace {
 
+// the dynamic shared memory a launch takes without opting in: 48 KB less
+// the kernels' static shared memory (at most 512 B: the forward's and the
+// backward's reduction buffers), since the 48 KB default holds both
+constexpr size_t kDefaultDynamicSmem = 48 * 1024 - 1024;
+
 // most threads a forward block takes at V vectors a thread: up to 4 a
 // thread fit ptxas's 64 registers of a 1024-thread block, more need up to
 // 128 (ops/kernels/norm_plan.py `max_threads`, the same rule)
@@ -245,7 +250,7 @@ cudaError_t launch_fwd_v(const NormFwdCall* c) {
     return cudaErrorInvalidValue;
   auto kernel = norm_fwd_kernel<T, S, V, kRms>;
   const size_t smem = (size_t)(kRms ? 1 : 2) * c->h * sizeof(S);
-  if (smem > 48 * 1024) {
+  if (smem > kDefaultDynamicSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
@@ -604,7 +609,7 @@ cudaError_t launch_bwd_v(const NormBwdCall* c) {
   auto kernel = norm_bwd_kernel<T, S, V, kRms>;
   const size_t smem = (size_t)c->h * sizeof(S)
                       + (c->rows_per_block > 1 ? (size_t)kSums * c->h * 4 : 0);
-  if (smem > 48 * 1024) {
+  if (smem > kDefaultDynamicSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;

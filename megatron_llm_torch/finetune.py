@@ -47,8 +47,26 @@ writer (``--wandb_logger``, ``--tensorboard_dir`` and the
 ``--log_*_to_tensorboard`` flags; without ``wandb`` installed it writes
 JSONL).  ``--device cpu`` runs it on the CPU (the tests do); the
 default is the card.  ``--fp16`` trains fp16 parameters under the loss
-scale, as ``--bf16`` trains bf16 ones.  Parallelism, ``--profiler_port``
-and the flags of the other features the port lacks
+scale, as ``--bf16`` trains bf16 ones.
+
+Tensor parallelism runs under torchrun, one process a rank::
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m megatron_llm_torch.finetune --model_name=llama2 ... \
+        --tensor_model_parallel_size 2 --sequence_parallel
+
+``initialize.initialize_parallel`` boots the process group from
+torchrun's environment (``--distributed_backend``: ``xla``, the default,
+is NCCL on the card and gloo on the CPU; ``gloo`` lets ranks share one
+GPU) and places each rank on ``cuda:LOCAL_RANK``.  Each rank inits the
+one-device params from ``--seed`` and keeps its slices, so a seed gives
+the same model at every tp.  Rank 0 logs and writes the JSONL stream;
+at the end of the run every rank prints one line with its param bytes,
+its peak device memory and its kernel launches.  At tp > 1 LoRA,
+``--save`` / ``--load`` / ``--async_save`` and
+``--log_layer_stats_interval`` raise ``NotImplementedError``; so do
+data, pipeline and context parallelism at any tp (ROADMAP item 15).
+``--profiler_port`` and the flags of the other features the port lacks
 (``arguments.UNPORTED_TRAINING``) parse and raise
 ``NotImplementedError``.  ``python -m megatron_llm_torch.pretrain_gpt``
 is this entry point with ``--model_name=gpt``.
@@ -56,6 +74,8 @@ is this entry point with ``--model_name=gpt``.
 
 from __future__ import annotations
 
+import contextlib
+import json
 import math
 import os
 import sys
@@ -64,7 +84,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from megatron_llm_torch import checkpointing
+from megatron_llm_torch import checkpointing, topology
 from megatron_llm_torch.arguments import (
     UNPORTED_TRAINING,
     parse_args,
@@ -78,12 +98,14 @@ from megatron_llm_torch.config import (
 )
 from megatron_llm_torch.dist_signal_handler import DistributedSignalHandler
 from megatron_llm_torch.global_vars import get_counters
+from megatron_llm_torch.initialize import initialize_parallel
 from megatron_llm_torch.lora import LoraAdapter, merge_lora
 from megatron_llm_torch.models import MODEL_REGISTRY
 from megatron_llm_torch.models.language_model import (
     init_language_model_params,
 )
 from megatron_llm_torch.optimizer import MegatronOptimizer
+from megatron_llm_torch.parallel import mappings
 from megatron_llm_torch.resilience import build_resilience
 from megatron_llm_torch.telemetry import build_telemetry
 from megatron_llm_torch.timers import Timers
@@ -91,6 +113,7 @@ from megatron_llm_torch.tokenizer import build_tokenizer
 from megatron_llm_torch.training import (
     build_scheduler,
     build_train_step,
+    kernel_launches,
     pretrain,
 )
 from megatron_llm_torch.tree import tree_leaves
@@ -366,13 +389,69 @@ def _apply_checkpoint_args(args) -> dict:
     return arch
 
 
+# flags of features this slice runs on one device only (ROADMAP item 15)
+_ONE_DEVICE_ONLY = {
+    "lora_rank": "LoRA (--lora_rank)",
+    "save": "checkpoints (--save)",
+    "load": "checkpoints (--load)",
+    "async_save": "async checkpoint saves (--async_save)",
+    "log_layer_stats_interval": "the layer-stats observatory "
+                                "(--log_layer_stats_interval)",
+}
+
+# the outputs only rank 0 writes
+_RANK_0_OUTPUTS = ("structured_log_dir", "tensorboard_dir", "trace_dir",
+                   "status_port")
+
+
+def _refuse_at_tp(args) -> None:
+    if args.tensor_model_parallel_size > 1:
+        for dest, feature in _ONE_DEVICE_ONLY.items():
+            if getattr(args, dest):
+                raise NotImplementedError(
+                    f"{feature} at tensor-parallel size "
+                    f"{args.tensor_model_parallel_size} is not ported yet "
+                    f"(ROADMAP item 15)")
+
+
+def _global_rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if topology.is_distributed() else 0
+
+
+def rank_summary(params) -> dict:
+    """This rank's param bytes and elements, its peak device memory and
+    its kernel launches (what the end-of-run line prints)."""
+    ps = tree_leaves(params)
+    dev = ps[0].device
+    return {
+        "rank": _global_rank(),
+        "tp_rank": topology.get_tensor_model_parallel_rank(),
+        "tp": topology.get_tensor_model_parallel_world_size(),
+        "param_bytes": sum(p.numel() * p.element_size() for p in ps),
+        "param_elements": sum(p.numel() for p in ps),
+        "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
+        "kernel_launches": kernel_launches(),
+        # the tp collectives by (backend, device, op)
+        "collectives": {"/".join(k): n for k, n in mappings.calls.items()},
+    }
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    """Parse the flags, build (or load) the model and train; returns the
-    last iteration."""
+    """Parse the flags, boot the tp ranks (under torchrun), build (or
+    load) the model and train; returns the last iteration."""
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv, extra_args_provider=extra_args)
     _apply_model_defaults(args, argv)
     refuse_unported(args, UNPORTED_TRAINING, extra_args)
+    _refuse_at_tp(args)
+    initialize_parallel(args)
+    if not topology.is_rank_0():
+        for dest in _RANK_0_OUTPUTS:
+            setattr(args, dest, None)
+        args.wandb_logger = args.profile = False
     if args.lora_rank and args.load and not args.finetune:
         raise SystemExit(
             "--lora_rank with --load requires --finetune: LoRA runs start "
@@ -403,9 +482,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     # built before the checkpoint load so the startup restore lands in
     # the trace (--trace_dir opens a checkpoint_load span)
     telemetry = build_telemetry(args, model)
+    summary = {}
     try:
-        return _train(args, model, pc, tc, num_micro, tokenizer, arch,
-                      resilience, telemetry)
+        # ranks but 0 run without a console; each prints its summary
+        with contextlib.ExitStack() as quiet:
+            if not topology.is_rank_0():
+                quiet.enter_context(contextlib.redirect_stdout(
+                    quiet.enter_context(open(os.devnull, "w"))))
+            it = _train(args, model, pc, tc, num_micro, tokenizer, arch,
+                        resilience, telemetry, summary)
+        if topology.is_distributed():
+            print(f" > rank summary: {json.dumps(summary)}", flush=True)
+        return it
     finally:
         # stop the watchdog thread and uninstall the fault hook on every
         # exit path (a signal save exits through SystemExit), then close
@@ -419,7 +507,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
 
 def _train(args, model, pc, tc, num_micro, tokenizer, arch, resilience,
-           telemetry) -> int:
+           telemetry, summary) -> int:
     """``main`` after the model, resilience and telemetry exist."""
 
     # params: fresh init or checkpoint, held to the model's tree on the
@@ -578,6 +666,7 @@ def _train(args, model, pc, tc, num_micro, tokenizer, arch, resilience,
             writer.finish()
         if handler:
             handler.__exit__(None, None, None)
+    summary.update(rank_summary(params))
     # the final checkpoint, unless the loop has just written this one
     if args.save and saved_at[-1:] != [it]:
         # the samples the loop drew, rewound iterations' batches included

@@ -33,6 +33,7 @@ from typing import Any, Optional, Sequence, Union
 
 import torch
 
+from megatron_llm_torch import topology
 from megatron_llm_torch.tree import tree_leaves
 
 # default targets: the attention projections (the standard LoRA recipe);
@@ -140,6 +141,7 @@ class LoraAdapter:
     here (no grads, no optimizer state, no fp32 masters)."""
 
     def __init__(self, model, base_params):
+        topology.refuse_at_tp("LoRA")
         self.model = model
         self.base_params = base_params
         self.cfg = model.cfg

@@ -13,6 +13,7 @@ from typing import Optional, Union
 
 import torch
 
+from megatron_llm_torch import topology
 from megatron_llm_torch.config import PositionEmbeddingType, TransformerConfig
 from megatron_llm_torch.models.language_model import (
     flops_per_token,
@@ -124,6 +125,7 @@ class BertModel:
             raise NotImplementedError(
                 "MoE (num_experts > 1) is only wired for the decoder-only "
                 "GPT family")
+        topology.refuse_at_tp("BERT")
         self.cfg = cfg
         self.add_binary_head = add_binary_head
         self.device = torch.device(device if device is not None else "cuda")

@@ -11,6 +11,7 @@ from typing import Optional, Union
 import torch
 
 from megatron_llm_torch import random as mrandom
+from megatron_llm_torch import topology
 from megatron_llm_torch.config import TransformerConfig
 from megatron_llm_torch.models.bert import (
     bert_extended_attention_mask,
@@ -43,6 +44,7 @@ class BiEncoderModel:
             raise NotImplementedError(
                 "MoE (num_experts > 1) is only wired for the decoder-only "
                 "GPT family")
+        topology.refuse_at_tp("the biencoder (ICT)")
         self.cfg = cfg
         self.projection_dim = projection_dim
         self.shared = shared_query_context

@@ -10,6 +10,7 @@ from typing import Optional, Union
 import torch
 
 from megatron_llm_torch import random as mrandom
+from megatron_llm_torch import topology
 from megatron_llm_torch.config import TransformerConfig
 from megatron_llm_torch.models.bert import (
     bert_extended_attention_mask,
@@ -41,6 +42,7 @@ class ClassificationModel:
             raise NotImplementedError(
                 "MoE (num_experts > 1) is only wired for the decoder-only "
                 "GPT family")
+        topology.refuse_at_tp("the classification heads")
         self.cfg = cfg
         self.num_classes = num_classes
         self.device = torch.device(device if device is not None else "cuda")

@@ -1,6 +1,9 @@
 """GPT-style decoder-only model wrapper (the counterpart of
 ``megatron_llm_tpu/models/gpt.py``): holds the config and the device;
-params live in a dict tree owned by the caller."""
+params live in a dict tree owned by the caller.  At tp > 1 the tree is
+this rank's slices (``parallel/sharding.py``), the loss the
+vocab-parallel cross entropy over this rank's logits, and the logits of
+a call without labels are gathered to the whole vocabulary."""
 
 from __future__ import annotations
 
@@ -8,10 +11,11 @@ from typing import Optional, Union
 
 import torch
 
+from megatron_llm_torch import topology
 from megatron_llm_torch.config import TransformerConfig
 from megatron_llm_torch.models.language_model import (
     flops_per_token,
-    init_language_model_params,
+    init_params_at_tp,
     language_model_forward,
     lm_head_weight,
     make_generator,
@@ -22,6 +26,7 @@ from megatron_llm_torch.ops.cross_entropy import (
     fused_linear_cross_entropy,
     vocab_parallel_cross_entropy,
 )
+from megatron_llm_torch.parallel import mappings
 
 
 class GPTModel:
@@ -36,9 +41,10 @@ class GPTModel:
 
     def init(self, seed: Union[int, torch.Generator]) -> dict:
         """Random params from ``seed`` (an int, or a generator on the
-        model's device), in ``cfg.params_dtype``."""
-        return init_language_model_params(
-            make_generator(seed, self.device), self.cfg, device=self.device)
+        model's device), in ``cfg.params_dtype``: at tp > 1 this rank's
+        slices of the one-device draws."""
+        return init_params_at_tp(make_generator(seed, self.device),
+                                 self.cfg, device=self.device)
 
     def num_params(self, params) -> int:
         return num_params(params)
@@ -62,6 +68,12 @@ class GPTModel:
         dropped."""
         cfg = self.cfg
         moe_on = cfg.num_experts > 1
+        tp = topology.get_tensor_model_parallel_world_size()
+        if cfg.fused_lm_cross_entropy and tp > 1:
+            raise NotImplementedError(
+                "fused_lm_cross_entropy over a vocab sharded at tp > 1 is "
+                "not ported (the vocab-parallel cross entropy already "
+                "avoids the full logits)")
         if (labels is not None and kv_caches is None
                 and cfg.fused_lm_cross_entropy):
             # the head and the loss fused over vocabulary chunks: the [b,
@@ -88,6 +100,9 @@ class GPTModel:
         else:
             logits = out
         if labels is None:
+            if tp > 1:
+                logits = mappings.gather_from_tensor_model_parallel_region(
+                    logits)
             # generation: the routing aux is not needed
             return (logits, new_caches) if kv_caches is not None else logits
         loss = vocab_parallel_cross_entropy(logits.float(), labels)

@@ -1,6 +1,14 @@
 """Embedding + transformer + LM head (the counterpart of
 ``megatron_llm_tpu/models/language_model.py``, with its param tree), and
-the model's FLOP count per token for MFU accounting."""
+the model's FLOP count per token for MFU accounting.
+
+At tp > 1 a rank holds its slice of the tree (``parallel/sharding.py``'s
+spec tables): the init draws every full leaf in the one-device order and
+keeps this rank's slice, so that a seed gives the same model at every
+tp.  The word embedding and the head are vocab-parallel, the logits stay
+this rank's vocabulary shard, and under sequence parallelism the
+embedding's output (and its dropout mask, and the position embedding's
+rows) is this rank's sequence shard."""
 
 from __future__ import annotations
 
@@ -9,11 +17,15 @@ from typing import Optional
 import torch
 
 from megatron_llm_torch import random as mrandom
+from megatron_llm_torch import topology
 from megatron_llm_torch.config import PositionEmbeddingType, TransformerConfig
 from megatron_llm_torch.models.transformer import (
     _dropout,
+    _sequence_local,
     init_stack_params,
     rotary_freqs,
+    sequence_parallel_on,
+    sequence_shard,
     transformer_stack,
 )
 from megatron_llm_torch.parallel.layers import (
@@ -21,6 +33,11 @@ from megatron_llm_torch.parallel.layers import (
     init_method_for,
     parallel_lm_logits,
     vocab_parallel_embedding,
+)
+from megatron_llm_torch.parallel.sharding import (
+    _norm_spec,
+    tp_sharder,
+    transformer_layer_specs,
 )
 
 
@@ -49,7 +66,7 @@ def num_params(params) -> int:
 
 def init_language_model_params(generator: torch.Generator,
                                cfg: TransformerConfig, dtype=None,
-                               device=None):
+                               device=None, shard=None):
     """Param tree::
 
         {'embedding': {'word': {'embedding': [V, H]},
@@ -60,30 +77,55 @@ def init_language_model_params(generator: torch.Generator,
                          'final_norm': {...}},
          'lm_head': {'weight': [V, H]}}   (when not tie_embed_logits)
 
-    drawn from ``generator`` on ``device``.
+    drawn from ``generator`` on ``device``.  ``shard(subtree,
+    spec_subtree)`` (``sharding.tp_sharder``), when given, keeps each
+    leaf's tensor-parallel slice as soon as the full leaf is drawn (one
+    layer at a time for the stack), so the peak is one full layer above
+    the shards.
     """
     dtype = dtype or cfg.params_torch_dtype
     init = init_method_for(cfg)
+    keep = shard or (lambda tree, specs: tree)
     params = {
-        "embedding": {"word": init_embedding_params(
+        "embedding": {"word": keep(init_embedding_params(
             generator, cfg.padded_vocab_size, cfg.hidden_size,
-            init_method=init, dtype=dtype, device=device)},
-        "transformer": init_stack_params(generator, cfg, dtype, device),
+            init_method=init, dtype=dtype, device=device),
+            {"embedding": ("vocab", None)})},
+        "transformer": init_stack_params(
+            generator, cfg, dtype, device,
+            shard_layer=None if shard is None else (
+                lambda lp: shard(lp, transformer_layer_specs(
+                    lp, stacked=False)))),
     }
+    if shard is not None:
+        params["transformer"]["final_norm"] = keep(
+            params["transformer"]["final_norm"],
+            _norm_spec(params["transformer"]["final_norm"], False))
     if cfg.position_embedding_type == PositionEmbeddingType.learned_absolute:
-        params["embedding"]["position"] = init_embedding_params(
+        params["embedding"]["position"] = keep(init_embedding_params(
             generator, cfg.max_position_embeddings, cfg.hidden_size,
-            init_method=init, dtype=dtype, device=device)
+            init_method=init, dtype=dtype, device=device),
+            {"embedding": (None, None)})
     if cfg.num_tokentypes > 0:
         # segment embeddings (BERT's sentence A / B)
-        params["embedding"]["tokentype"] = init_embedding_params(
+        params["embedding"]["tokentype"] = keep(init_embedding_params(
             generator, cfg.num_tokentypes, cfg.hidden_size,
-            init_method=init, dtype=dtype, device=device)
+            init_method=init, dtype=dtype, device=device),
+            {"embedding": (None, None)})
     if not cfg.tie_embed_logits:
-        params["lm_head"] = {"weight": init(
+        params["lm_head"] = keep({"weight": init(
             generator, (cfg.padded_vocab_size, cfg.hidden_size), dtype,
-            device)}
+            device)}, {"weight": ("vocab", None)})
     return params
+
+
+def init_params_at_tp(generator, cfg: TransformerConfig, dtype=None,
+                      device=None):
+    """``init_language_model_params`` for this rank: its slices at tp > 1
+    (the one-device draws, each leaf cut as it comes), the whole tree at
+    tp 1."""
+    return init_language_model_params(generator, cfg, dtype, device,
+                                      shard=tp_sharder(cfg))
 
 
 def embedding_forward(tokens: torch.Tensor, position_ids, params,
@@ -96,8 +138,10 @@ def embedding_forward(tokens: torch.Tensor, position_ids, params,
     embedding when the params carry one (rotary models do not), plus the
     tokentype embedding of ``tokentype_ids`` when both are there, then
     the hidden dropout in training with a key."""
+    sp = sequence_parallel_on(cfg)
     h = vocab_parallel_embedding(tokens, params["word"],
-                                 compute_dtype=cfg.compute_torch_dtype)
+                                 compute_dtype=cfg.compute_torch_dtype,
+                                 sequence_parallel=sp)
     if cfg.embedding_multiplier is not None:
         # the multiplier is rounded to h's dtype first, as the JAX package
         # rounds it: a Python float would multiply in fp32
@@ -107,14 +151,27 @@ def embedding_forward(tokens: torch.Tensor, position_ids, params,
         if position_ids is None:
             position_ids = torch.arange(tokens.shape[1],
                                         device=tokens.device)[None, :]
-        h = h + vocab_parallel_embedding(
-            position_ids, params["position"],
-            compute_dtype=cfg.compute_torch_dtype)
+        if sp:
+            # this rank's positions; the table's grad from them alone is
+            # summed over the ranks by the train step
+            position_ids = position_ids.narrow(
+                *sequence_shard(position_ids.shape[1]))
+        # the table is replicated: a plain lookup at any tp
+        h = h + _cast_table(params["position"], cfg)[position_ids]
     if "tokentype" in params and tokentype_ids is not None:
+        if topology.get_tensor_model_parallel_world_size() > 1:
+            raise NotImplementedError(
+                "tokentype embeddings (BERT, T5) at tp > 1 are not ported "
+                "(ROADMAP item 15)")
         h = h + vocab_parallel_embedding(
             tokentype_ids, params["tokentype"],
             compute_dtype=cfg.compute_torch_dtype)
-    return _dropout(h, cfg.hidden_dropout, rng_key, train)
+    return _dropout(h, cfg.hidden_dropout, rng_key, train,
+                    local=_sequence_local(h, cfg))
+
+
+def _cast_table(p, cfg) -> torch.Tensor:
+    return p["embedding"].to(cfg.compute_torch_dtype)
 
 
 def lm_head_weight(params) -> torch.Tensor:
@@ -140,6 +197,9 @@ def language_model_forward(params, tokens: torch.Tensor,
     ``rng_key`` (an integer key, ``megatron_llm_torch/random.py``) is
     split into the embedding's and the stack's dropout keys.  Differentiable; inference callers run it
     under ``torch.no_grad()``."""
+    if kv_caches is not None:
+        topology.refuse_at_tp("serving (a KV cache; the JAX engine has no "
+                              "mesh)")
     train = train and kv_caches is None
     k_embed, k_stack = (mrandom.split(rng_key) if rng_key is not None
                         else (None, None))
@@ -161,7 +221,8 @@ def language_model_forward(params, tokens: torch.Tensor,
         h = out
     if compute_logits:
         h = parallel_lm_logits(h, lm_head_weight(params),
-                               compute_dtype=cfg.compute_torch_dtype)
+                               compute_dtype=cfg.compute_torch_dtype,
+                               sequence_parallel=sequence_parallel_on(cfg))
     if kv_caches is not None:
         return h, new_caches
     return (h, moe_aux) if moe_aux is not None else h

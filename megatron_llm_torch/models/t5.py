@@ -21,6 +21,7 @@ from typing import Optional, Union
 import torch
 
 from megatron_llm_torch import random as mrandom
+from megatron_llm_torch import topology
 from megatron_llm_torch.config import PositionEmbeddingType, TransformerConfig
 from megatron_llm_torch.models.language_model import (
     embedding_forward,
@@ -87,6 +88,7 @@ class T5Model:
             raise NotImplementedError(
                 "MoE (num_experts > 1) is only wired for the decoder-only "
                 "GPT family")
+        topology.refuse_at_tp("T5")
         self.cfg = cfg
         self.device = torch.device(device if device is not None else "cuda")
 

@@ -4,8 +4,8 @@ pools, the legacy generate path's linear, int8 linear and rolling
 caches), MLP or mixture of experts (``models/moe.py``), the decoder
 layer (pre- or post-LN, sequential or Falcon's parallel attention +
 MLP; and T5's decoder layer, which adds the cross-attention over the
-encoder's output) and the layer stack, for inference and single-device
-training.
+encoder's output) and the layer stack, for inference and training, on
+one device or at tensor-parallel size above 1.
 
 The counterpart of ``megatron_llm_tpu/models/transformer.py``, with its
 layouts: activations ``[b, s, ...]``, the packed grouped QKV projection
@@ -32,6 +32,16 @@ The JAX package's cache branches are functional: they return fresh
 pools and caches.  Here every cache is written in place, which saves
 copying a whole cache per layer per step; the returned cache dicts hold
 the same tensors, and a cache's ``index`` is a Python int.
+
+At tp > 1 (``topology``) a rank holds its slice of every sharded leaf
+(``parallel/sharding.py``): its query heads and their KV groups, its
+columns of the MLP; attention and flash run on the local heads, and the
+linears' collectives (``parallel/layers.py``) join the ranks.  Under
+``sequence_parallel`` the residual stream, the norms and the hidden
+dropouts work on this rank's sequence shard ``[b, s / tp, h]``, and a
+dropout mask is this shard's slice of the one-device mask
+(``random.bernoulli``).  Serving at tp > 1 is not ported (the JAX
+engine has no mesh either): ``language_model_forward`` refuses a cache.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from torch.utils.checkpoint import (
 )
 
 from megatron_llm_torch import random as mrandom
+from megatron_llm_torch import topology
 from megatron_llm_torch.config import PositionEmbeddingType, TransformerConfig
 from megatron_llm_torch.models.moe import init_moe_mlp_params, moe_mlp
 from megatron_llm_torch.ops import chunked_attention
@@ -65,6 +76,7 @@ from megatron_llm_torch.ops.softmax import (
     sliding_window_mask,
 )
 from megatron_llm_torch.parallel.layers import (
+    SEQ_DIM,
     column_parallel_linear,
     init_linear_params,
     init_method_for,
@@ -72,6 +84,7 @@ from megatron_llm_torch.parallel.layers import (
     row_parallel_linear,
     scaled_init_method_normal,
 )
+from megatron_llm_torch.parallel.sharding import local_heads
 from megatron_llm_torch.quantization import absmax_quantize_int8
 from megatron_llm_torch.tree import tree_map
 
@@ -177,14 +190,19 @@ def init_layer_params(generator, cfg: TransformerConfig, dtype, device=None,
 
 
 def init_stack_params(generator, cfg: TransformerConfig, dtype,
-                      device=None, layer_type: str = "encoder"):
+                      device=None, layer_type: str = "encoder",
+                      shard_layer=None):
     """Layer-stacked params: every leaf gets a leading [num_layers] axis.
     Each layer is drawn and copied into the stacked tensors in turn, so
-    the peak is one layer above the final size."""
+    the peak is one layer above the final size.  ``shard_layer(layer)``,
+    when given, cuts each drawn layer to this rank's tensor-parallel
+    slices before it is stacked."""
     L = cfg.num_layers
     layers = None
     for i in range(L):
         lp = init_layer_params(generator, cfg, dtype, device, layer_type)
+        if shard_layer is not None:
+            lp = shard_layer(lp)
         if layers is None:
             layers = tree_map(lambda t: torch.empty(
                 (L,) + tuple(t.shape), dtype=t.dtype, device=t.device), lp)
@@ -200,12 +218,27 @@ def init_stack_params(generator, cfg: TransformerConfig, dtype,
 # Attention
 # ---------------------------------------------------------------------------
 
+def sequence_parallel_on(cfg: TransformerConfig) -> bool:
+    """Sequence parallelism is on: asked for, at tp > 1."""
+    return bool(getattr(cfg, "sequence_parallel", False)) and \
+        topology.get_tensor_model_parallel_world_size() > 1
+
+
+def sequence_shard(full_len: int) -> tuple:
+    """(dim, start, length) of this rank's sequence shard of a ``[b, s,
+    ...]`` tensor of ``full_len`` positions."""
+    tp = topology.get_tensor_model_parallel_world_size()
+    n = full_len // tp
+    return (SEQ_DIM, topology.get_tensor_model_parallel_rank() * n, n)
+
+
 def _split_qkv(mixed: torch.Tensor, cfg: TransformerConfig):
     """mixed [b, s, ng*(qpg+2)*d] in Megatron's grouped layout ->
-    q [b, s, nh, d], k [b, s, ng, d], v [b, s, ng, d]."""
+    q [b, s, nh, d], k [b, s, ng, d], v [b, s, ng, d], with this rank's
+    heads and groups at tp > 1."""
     b, s, _ = mixed.shape
-    ng = cfg.num_query_groups
-    qpg = cfg.num_attention_heads // ng
+    nh, ng = local_heads(cfg)
+    qpg = nh // ng
     d = cfg.head_dim
     mixed = mixed.reshape(b, s, ng, qpg + 2, d)
     q = mixed[:, :, :, :qpg, :].reshape(b, s, ng * qpg, d)
@@ -241,7 +274,13 @@ def core_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = fused_scale_mask_softmax(
         scores, mask, scale=1.0 / math.sqrt(d),
         softmax_in_fp32=cfg.attention_softmax_in_fp32)
-    probs = _dropout(probs, cfg.attention_dropout, dropout_key, train)
+    local = None
+    if topology.get_tensor_model_parallel_world_size() > 1:
+        # this rank's heads of the one-device mask [b, nh, sq, sk]
+        local = ((b, cfg.num_attention_heads, sq, sk), (
+            1, topology.get_tensor_model_parallel_rank() * nh, nh))
+    probs = _dropout(probs, cfg.attention_dropout, dropout_key, train,
+                     local=local)
     ctx = torch.einsum("bgpst,btgd->bsgpd", probs.to(v.dtype), v)
     return ctx.reshape(b, sq, nh, d)
 
@@ -368,8 +407,9 @@ def attention(x: torch.Tensor, params, cfg: TransformerConfig, *,
     a rolling, int8 linear or linear one (``_dense_cache_step``) for the
     legacy generate path."""
     cdt = cfg.compute_torch_dtype
+    sp = sequence_parallel_on(cfg)
     mixed = column_parallel_linear(x, params["query_key_value"],
-                                   compute_dtype=cdt)
+                                   compute_dtype=cdt, sequence_parallel=sp)
     q, k, v = _split_qkv(mixed, cfg)
     if (cfg.position_embedding_type == PositionEmbeddingType.rotary
             and freqs is not None):
@@ -452,8 +492,9 @@ def attention(x: torch.Tensor, params, cfg: TransformerConfig, *,
                                  train)
 
     b, s = ctx.shape[:2]
-    ctx = ctx.reshape(b, s, cfg.num_attention_heads * cfg.head_dim)
-    out = row_parallel_linear(ctx, params["dense"], compute_dtype=cdt)
+    ctx = ctx.reshape(b, s, q.shape[2] * cfg.head_dim)
+    out = row_parallel_linear(ctx, params["dense"], compute_dtype=cdt,
+                              sequence_parallel=sp)
     if kv_cache is not None:
         return out, new_cache
     return out
@@ -492,9 +533,12 @@ def cross_attention(x: torch.Tensor, encoder_output: torch.Tensor, params,
 
 def mlp(x: torch.Tensor, params, cfg: TransformerConfig) -> torch.Tensor:
     cdt = cfg.compute_torch_dtype
-    h = column_parallel_linear(x, params["dense_h_to_4h"], compute_dtype=cdt)
+    sp = sequence_parallel_on(cfg)
+    h = column_parallel_linear(x, params["dense_h_to_4h"], compute_dtype=cdt,
+                               sequence_parallel=sp)
     h = apply_mlp_activation(h, cfg)
-    return row_parallel_linear(h, params["dense_4h_to_h"], compute_dtype=cdt)
+    return row_parallel_linear(h, params["dense_4h_to_h"], compute_dtype=cdt,
+                               sequence_parallel=sp)
 
 
 def _norm_uses_kernel(cfg: TransformerConfig) -> bool:
@@ -511,13 +555,30 @@ def _keep_scale(rate: float, dtype: torch.dtype) -> float:
 
 
 def _dropout(x: torch.Tensor, rate: float, key: Optional[int],
-             train: bool) -> torch.Tensor:
+             train: bool, local=None) -> torch.Tensor:
     """Inverted dropout at ``rate`` with the mask of ``key``; the identity
-    outside training, without a key, or at a rate of 0."""
+    outside training, without a key, or at a rate of 0.  ``local =
+    (full shape, (dim, start, length))``: ``x`` is that slice of a tensor
+    of the full shape (a tensor-parallel shard), and takes that slice of
+    the full shape's mask."""
     if not train or key is None or rate <= 0.0:
         return x
-    keep = mrandom.bernoulli(key, 1.0 - rate, x.shape, x.device)
+    if local is None:
+        keep = mrandom.bernoulli(key, 1.0 - rate, x.shape, x.device)
+    else:
+        keep = mrandom.bernoulli(key, 1.0 - rate, local[0], x.device,
+                                 local=local[1]).reshape(x.shape)
     return x * keep.to(x.dtype) / _keep_scale(rate, x.dtype)
+
+
+def _sequence_local(x: torch.Tensor, cfg: TransformerConfig):
+    """``_dropout``'s ``local`` for a residual-stream tensor: its
+    sequence shard's slice under sequence parallelism, else None."""
+    if not sequence_parallel_on(cfg):
+        return None
+    tp = topology.get_tensor_model_parallel_world_size()
+    full = (x.shape[0], x.shape[1] * tp) + tuple(x.shape[2:])
+    return full, sequence_shard(full[1])
 
 
 def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
@@ -572,6 +633,10 @@ def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
 
     def run_mlp(inp):
         if cfg.num_experts > 1:
+            if topology.get_tensor_model_parallel_world_size() > 1:
+                raise NotImplementedError(
+                    "the mixture of experts at tp > 1 is not ported "
+                    "(ROADMAP item 15)")
             return moe_mlp(inp, params["mlp"], cfg)
         return mlp(inp, params["mlp"], cfg), None
 
@@ -581,11 +646,13 @@ def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
         mlp_in = (norm(x, params["mlp_norm"]) if cfg.parallel_layernorm
                   else ln_out)
         mlp_out, moe_aux = run_mlp(mlp_in)
-        out = x + _dropout(attn_out + mlp_out, hidden_dropout, k_h1, train)
+        out = x + _dropout(attn_out + mlp_out, hidden_dropout, k_h1, train,
+                           local=_sequence_local(x, cfg))
         if cfg.use_post_ln:
             out = norm(out, params["input_norm"])
         return out, new_cache, moe_aux
-    h = x + _dropout(attn_out, hidden_dropout, k_h1, train)
+    h = x + _dropout(attn_out, hidden_dropout, k_h1, train,
+                     local=_sequence_local(x, cfg))
     if cfg.use_post_ln:
         h = norm(h, params["input_norm"])
     ln2 = (norm(h, params["post_attention_norm"]) if not cfg.use_post_ln
@@ -601,7 +668,8 @@ def transformer_layer(x: torch.Tensor, params, cfg: TransformerConfig, *,
         ln2 = (norm(h, params["post_inter_attention_norm"])
                if not cfg.use_post_ln else h)
     mlp_out, moe_aux = run_mlp(ln2)
-    out = h + _dropout(mlp_out, hidden_dropout, k_h2, train)
+    out = h + _dropout(mlp_out, hidden_dropout, k_h2, train,
+                       local=_sequence_local(h, cfg))
     if cfg.use_post_ln:
         out = norm(out, params["post_inter_attention_norm" if is_decoder
                                else "post_attention_norm"])

@@ -1,24 +1,33 @@
-"""Cross entropy over the vocabulary (the tp=1 counterpart of
+"""Cross entropy over the vocabulary (the counterpart of
 ``megatron_llm_tpu/ops/cross_entropy.py``).
 
-``vocab_parallel_cross_entropy`` is the JAX package's function at tensor
-parallel size 1: the whole vocabulary lives on one device, so its
-all-reduces are plain reductions, and autograd derives the
-softmax-minus-one-hot backward.  ``fused_linear_cross_entropy`` is the
-LM head and the loss fused over vocabulary chunks, so that the [tokens,
-V] logits are never built; ``GPTModel`` takes it under
-``fused_lm_cross_entropy`` (which ``arguments.apply_fused_ce_policy``
-turns on at 128k vocabularies and above, as in the JAX package).  Its
-chunk products are cuBLAS calls with fp32 outputs
-(``ops/matmul.mm_f32``), as the JAX package computes them outside any
-Pallas kernel.
+``vocab_parallel_cross_entropy`` takes the logits of the whole
+vocabulary at tp 1, where its all-reduces are plain reductions and
+autograd derives the softmax-minus-one-hot backward.  At tp > 1 the
+logits are this rank's vocabulary shard, and it is
+``shard_vocab_parallel_cross_entropy``: the reference's hand-written
+function (``_VocabParallelCrossEntropy``), an all-reduce(MAX) of the
+shards' maxima, the target logit picked on its owning rank and summed,
+the shards' sum-exp summed, label smoothing over the whole vocabulary,
+and the backward written out on the local shard.
+``shard_vocab_parallel_max_indices`` is the argmax across shards (ties
+to the lowest id).  ``fused_linear_cross_entropy`` is the LM head and
+the loss fused over vocabulary chunks, so that the [tokens, V] logits
+are never built; ``GPTModel`` takes it under ``fused_lm_cross_entropy``
+(which ``arguments.apply_fused_ce_policy`` turns on at 128k vocabularies
+and above with an unsharded vocabulary, as in the JAX package).  Its
+chunk products are cuBLAS calls with fp32 outputs (``ops/matmul.mm_f32``),
+as the JAX package computes them outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from megatron_llm_torch import topology
 from megatron_llm_torch.ops.matmul import mm_f32
+from megatron_llm_torch.parallel import mappings
 
 
 def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -26,7 +35,11 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                                  ) -> torch.Tensor:
     """Per-token loss [...] fp32 of logits [..., V] against int labels
     [...]; with ``label_smoothing`` the target is smoothed against the
-    uniform distribution over the vocabulary."""
+    uniform distribution over the vocabulary.  At tp > 1 ``logits`` are
+    this rank's vocabulary shard and ``labels`` global ids."""
+    if topology.get_tensor_model_parallel_world_size() > 1:
+        return shard_vocab_parallel_cross_entropy(logits, labels,
+                                                  label_smoothing)
     logits = logits.float()
     logits_max = logits.max(dim=-1, keepdim=True).values.detach()
     shifted = logits - logits_max
@@ -39,6 +52,88 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         mean_log_probs = shifted.mean(dim=-1) - log_z
         loss = (1.0 - smoothing) * loss - smoothing * mean_log_probs
     return loss
+
+
+class _VocabParallelCrossEntropy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local_logits, labels, label_smoothing, group):
+        x = local_logits.float()
+        vl = x.shape[-1]
+        rank = dist.get_rank(mappings._group(group))
+        n = dist.get_world_size(mappings._group(group))
+        vocab = vl * n
+        # 1) the global max (all-reduce MAX)
+        gmax = mappings.collective("all_reduce", x.max(dim=-1).values,
+                                   group, reduce="max")
+        shifted = x - gmax[..., None]
+        # 2) the target logit on its owning rank, summed over the ranks
+        local = labels.long() - rank * vl
+        inside = (local >= 0) & (local < vl)
+        picked = shifted.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+        target = mappings.collective(
+            "all_reduce", torch.where(inside, picked, 0.0), group)
+        # 3) the shards' sum-exp, summed
+        exp = shifted.exp()
+        sum_exp = mappings.collective("all_reduce", exp.sum(dim=-1), group)
+        log_z = sum_exp.log()
+        loss = log_z - target
+        smoothing = 0.0
+        if label_smoothing > 0.0:
+            smoothing = label_smoothing * vocab / (vocab - 1)
+            mean_log_probs = mappings.collective(
+                "all_reduce", shifted.sum(dim=-1), group) / vocab - log_z
+            loss = (1.0 - smoothing) * loss - smoothing * mean_log_probs
+        softmax = exp.div_(sum_exp[..., None])
+        ctx.save_for_backward(softmax, local.clamp(0, vl - 1), inside)
+        ctx.smoothing, ctx.vocab = smoothing, vocab
+        ctx.in_dtype = local_logits.dtype
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        softmax, local, inside = ctx.saved_tensors
+        # d loss / d logit_j = softmax_j - (1 - s) onehot_j - s / V
+        grad = softmax.clone()
+        hit = torch.zeros_like(grad).scatter_(
+            -1, local[..., None], inside[..., None].to(grad.dtype))
+        grad.sub_(hit, alpha=1.0 - ctx.smoothing)
+        if ctx.smoothing:
+            grad.sub_(ctx.smoothing / ctx.vocab)
+        grad.mul_(g[..., None].float())
+        return grad.to(ctx.in_dtype), None, None, None
+
+
+def shard_vocab_parallel_cross_entropy(local_logits: torch.Tensor,
+                                       labels: torch.Tensor,
+                                       label_smoothing: float = 0.0,
+                                       group=None) -> torch.Tensor:
+    """Per-token loss [...] fp32 over the local vocab shard
+    ``local_logits`` [..., V / tp] of the tp ``group`` (the topology's by
+    default); ``labels`` are global ids."""
+    return _VocabParallelCrossEntropy.apply(local_logits, labels,
+                                            float(label_smoothing), group)
+
+
+def vocab_parallel_max_indices(logits: torch.Tensor) -> torch.Tensor:
+    """The global argmax over the (at tp > 1, sharded) vocabulary."""
+    if topology.get_tensor_model_parallel_world_size() > 1:
+        return shard_vocab_parallel_max_indices(logits)
+    return logits.argmax(dim=-1).int()
+
+
+def shard_vocab_parallel_max_indices(local_logits: torch.Tensor,
+                                     group=None) -> torch.Tensor:
+    """The argmax across the tp group's vocab shards, ties to the lowest
+    id as a sequential argmax breaks them."""
+    vl = local_logits.shape[-1]
+    rank = dist.get_rank(mappings._group(group))
+    x = local_logits.float()
+    local_max, local_arg = x.max(dim=-1)
+    local_arg = local_arg.int() + rank * vl
+    gmax = mappings.collective("all_reduce", local_max, group, reduce="max")
+    cand = torch.where(local_max >= gmax, local_arg,
+                       torch.full_like(local_arg, 2 ** 31 - 1))
+    return mappings.collective("all_reduce", cand, group, reduce="min")
 
 
 def dense_cross_entropy(logits: torch.Tensor,

@@ -8,13 +8,17 @@ every dtype is compiled once a dtype (``-DMLT_PART=<dtype code>``,
 ``csrc/common.cuh``), so its parts build in parallel.  No PyTorch header is compiled, so a cold build takes
 seconds.  The library lands in ``build/torch_kernels/`` at the repo root,
 named by a digest of the sources and flags, so an edited source never
-loads a stale build.  Nothing here runs at import time: the first
-wrapper call on a CUDA tensor builds and loads the library.
+loads a stale build.  Processes that build at once (the ranks of a
+tensor-parallel run on a cold checkout) take turns on a file lock, so
+one compiles and the others load its library.  Nothing here runs at
+import time: the first wrapper call on a CUDA tensor builds and loads
+the library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -106,12 +110,23 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile the sources (in parallel) and link the library; returns
-    its path.  A library already built from the same sources is reused."""
-    global build_log
+    its path.  A library already built from the same sources is reused,
+    also one that another process built while this one waited for the
+    build lock."""
     lib_path = BUILD_DIR / f"libmlt_kernels_{_digest()}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{lib_path.name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib_path.exists():
+            _compile(lib_path)
+    return lib_path
+
+
+def _compile(lib_path: Path) -> None:
+    """``build``'s compile and link, into ``lib_path``."""
+    global build_log
     nvcc = _nvcc()
     tag = f"{lib_path.stem}.{os.getpid()}"
     objs, procs, outs = [], [], []
@@ -154,7 +169,6 @@ def build() -> Path:
     if link.returncode != 0:
         raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
     os.replace(tmp, lib_path)
-    return lib_path
 
 
 def load_library() -> ctypes.CDLL:

@@ -20,8 +20,13 @@ norms and non-finite counts of the unscaled grads before the clip, the
 param norms of the masters before the update, and the update norms of
 the master after the step minus the master before it, one stacked row at
 a time so that no second copy of the masters is made.  A step that
-finds an inf/nan gets the same record with zero updates.  ZeRO-1 and
-the state's sharding specs are a later slice.
+finds an inf/nan gets the same record with zero updates.  At
+tensor-parallel size above 1 the step takes the train step's
+``TensorParallelPlan`` (``parallel/sharding.py``): the grad norm sums
+the squares of every rank's sharded leaves and of each replicated
+element once, over the tp group, and the inf/nan check is all-reduced,
+so that every rank clips by the same norm and skips the same step.
+ZeRO-1 and the state's sharding specs are a later slice.
 """
 
 from __future__ import annotations
@@ -62,11 +67,18 @@ def _no_weight_decay(path: Sequence[str], leaf=None) -> bool:
     return any("norm" in n for n in names)
 
 
-def global_grad_norm(grads) -> torch.Tensor:
-    """L2 norm over the whole grad tree, in fp32 (a 0-dim tensor)."""
+def _sumsq(t: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(t.float()).square()
+
+
+def global_grad_norm(grads, tp_plan=None) -> torch.Tensor:
+    """L2 norm over the whole grad tree, in fp32 (a 0-dim tensor); with a
+    ``tp_plan``, over the tp group's whole tree, each element once."""
+    if tp_plan is not None:
+        return tp_plan.global_sum(tree_leaves_with_path(grads),
+                                  _sumsq).sqrt()
     leaves = tree_leaves(grads)
-    sq = torch.stack([torch.linalg.vector_norm(g.float()).square()
-                      for g in leaves])
+    sq = torch.stack([_sumsq(g) for g in leaves])
     return sq.sum().sqrt()
 
 
@@ -116,7 +128,7 @@ class MegatronOptimizer:
     @torch.no_grad()
     def step(self, params, grads, state: OptimizerState, lr: float,
              weight_decay: Optional[float] = None, *,
-             layer_stats: bool = False):
+             layer_stats: bool = False, tp_plan=None):
         """One optimizer step.  ``grads`` are the *scaled* grads (the train
         step multiplies the loss by the current scale); they are read, not
         written.  Updates ``params``, the masters and the moments in place
@@ -126,8 +138,13 @@ class MegatronOptimizer:
         ``health.compute_layer_stats`` (grad norms over the unscaled
         pre-clip grads, param norms over the masters before the step,
         update norms over the applied master delta, zero on a skipped
-        step)."""
+        step).  ``tp_plan``: the train step's ``TensorParallelPlan`` at
+        tp > 1 (the norm and the inf/nan check over the tp group)."""
         cfg = self.cfg
+        if layer_stats and tp_plan is not None:
+            raise NotImplementedError(
+                "the layer-stats observatory at tp > 1 is not ported yet "
+                "(ROADMAP item 15)")
         wd = cfg.weight_decay if weight_decay is None else weight_decay
         scale = state.grad_scaler.scale
         inv_scale = 1.0 / scale
@@ -137,10 +154,12 @@ class MegatronOptimizer:
             raise ValueError("grads and params differ in structure")
         # global inf/nan consensus and the norm of the unscaled grads,
         # read together in one host sync
-        finite = torch.stack([torch.isfinite(g).all() for g in g_leaves])
-        grad_norm = global_grad_norm(grads) * inv_scale
-        norm_host, finite_host = torch.stack(
-            [grad_norm, finite.all().float()]).tolist()
+        finite = torch.stack([torch.isfinite(g).all()
+                              for g in g_leaves]).all().float()
+        if tp_plan is not None:
+            finite = tp_plan.all_finite(finite)
+        grad_norm = global_grad_norm(grads, tp_plan) * inv_scale
+        norm_host, finite_host = torch.stack([grad_norm, finite]).tolist()
         found_inf = finite_host < 1.0
         new_step = state.step + (0 if found_inf else 1)
         masters = (tree_leaves(state.master_params)

@@ -28,6 +28,8 @@ from typing import Any, Tuple
 
 import torch
 
+from megatron_llm_torch import topology
+
 
 def absmax_quantize_int8(t: torch.Tensor, axis: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -95,7 +97,10 @@ def quantize_linear_weights_int8(params: Any, min_params: int = 4096,
     kernels, MoE routers) is kept, the same tensors.  With ``consume``
     each float leaf is also popped from ``params`` once its int8 copy
     exists, so a caller that holds no other reference frees the float
-    tree leaf by leaf instead of holding both trees at once."""
+    tree leaf by leaf instead of holding both trees at once.  Int8
+    weights at tp > 1 raise (their specs are a later slice)."""
+    topology.refuse_at_tp("int8 weights (--int8_weights)")
+
     def walk(node):
         if isinstance(node, dict):
             # never quantise MoE routers: their logits choose the experts

@@ -65,13 +65,22 @@ def generator(key: int, device) -> torch.Generator:
     return gen
 
 
-def bernoulli(key: int, p: float, shape, device) -> torch.Tensor:
+def bernoulli(key: int, p: float, shape, device, local=None
+              ) -> torch.Tensor:
     """Bool mask of ``shape``, True with probability ``p`` (``jax.random.
     bernoulli``: a uniform draw below ``p``).  The one function that
-    draws a dropout mask."""
+    draws a dropout mask.
+
+    ``local = (dim, start, length)``: the slice of that mask along
+    ``dim`` that a tensor-parallel rank keeps (its sequence shard, its
+    heads).  A mask then does not depend on the sharding: a rank's slice
+    equals the same slice of the one-device mask for the same key (the
+    JAX package's sharding-invariant bits).  Each rank draws the whole
+    mask to keep its slice, tp times the draws of its share."""
     u = torch.rand(tuple(shape), generator=generator(key, device),
                    device=device)
-    return u < p
+    mask = u < p
+    return mask if local is None else mask.narrow(*local)
 
 
 class KeySeq:

@@ -61,7 +61,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from megatron_llm_torch import telemetry, tracing
+from megatron_llm_torch import telemetry, topology, tracing
 from megatron_llm_torch.models.language_model import (
     language_model_forward,
     lm_head_weight,
@@ -185,6 +185,7 @@ class InferenceEngine:
     }
 
     def __init__(self, model, params, config: Optional[EngineConfig] = None):
+        topology.refuse_at_tp("serving (the JAX engine has no mesh)")
         self.model = model
         self.params = params
         self.config = cfg = config or EngineConfig()

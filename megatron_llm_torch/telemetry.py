@@ -786,7 +786,10 @@ class Telemetry:
     def default(cls, model) -> "Telemetry":
         """Throughput-only telemetry (free): every run reports
         tokens/sec/device + MFU at log boundaries even with no flags."""
-        return cls(throughput=ThroughputCalculator.from_model(model))
+        from megatron_llm_torch import topology
+
+        return cls(throughput=ThroughputCalculator.from_model(
+            model, device_count=topology.get_world_size()))
 
     def close(self) -> None:
         if self.profiler is not None:

@@ -1,5 +1,6 @@
-"""Training runtime on one device: the train step and the pretrain loop
-(the counterpart of ``megatron_llm_tpu/training.py``).
+"""Training runtime: the train step and the pretrain loop (the
+counterpart of ``megatron_llm_tpu/training.py``), on one device or at
+tensor-parallel size above 1.
 
 ``build_train_step`` returns a step with the JAX package's signature and
 metrics: a loop over the micro-batches, each a forward and
@@ -25,6 +26,14 @@ is the step's folded with the micro-batch index
 layer and site.  A resumed run therefore draws the masks of an
 uninterrupted one.
 
+At tp > 1 every rank runs the same step on its slices of the params:
+the step finishes the grads with the ``TensorParallelPlan`` of
+``parallel/sharding.py`` (under sequence parallelism the replicated
+leaves' grads, which each saw one sequence shard, are summed over the
+tp group; so are the K/V columns ranks share), and the optimizer clips
+and skips over the tp group.  The loss is the vocab-parallel cross
+entropy's, the same on every rank.
+
 ``pretrain`` carries the JAX loop's runtime hooks, all host-side:
 resilience (``resilience.py``: snapshots, the NaN/spike sentinel and
 rewind, the hang watchdog and the fault injector), the layer-stats
@@ -49,7 +58,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from megatron_llm_torch import checkpointing, health, tracing
+from megatron_llm_torch import checkpointing, health, topology, tracing
 from megatron_llm_torch import random as mrandom
 from megatron_llm_torch.config import ParallelConfig, TrainConfig
 from megatron_llm_torch.global_vars import get_counters
@@ -58,9 +67,31 @@ from megatron_llm_torch.optimizer import (
     OptimizerParamScheduler,
 )
 from megatron_llm_torch.optimizer.optimizer import global_grad_norm
+from megatron_llm_torch.parallel.sharding import plan_for
 from megatron_llm_torch.telemetry import Telemetry
 from megatron_llm_torch.timers import Timers
-from megatron_llm_torch.tree import tree_leaves, tree_unflatten
+from megatron_llm_torch.tree import (
+    tree_leaves,
+    tree_leaves_with_path,
+    tree_unflatten,
+)
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The training kernels' wrapper counts in this process, by their row
+    names in ``chip_smoke.py``'s kernels line: F (``flash_fwd``), G
+    (``flash_bwd_fused``), H (``flash_bwd``), B and C (``rmsnorm``,
+    ``rmsnorm_bwd``), D and E (``layernorm``, ``layernorm_bwd``).  They
+    count launches on the card only."""
+    from megatron_llm_torch.ops.kernels import flash_attention as fa
+    from megatron_llm_torch.ops.kernels import layernorm as ln
+    from megatron_llm_torch.ops.kernels import rmsnorm as rn
+
+    return {"flash_fwd": fa.fwd_launches,
+            "flash_bwd_fused": fa.bwd_fused_launches,
+            "flash_bwd": fa.bwd_launches, "rmsnorm": rn.launches,
+            "rmsnorm_bwd": rn.bwd_launches, "layernorm": ln.launches,
+            "layernorm_bwd": ln.bwd_launches}
 
 
 def default_loss_func(loss_tok: torch.Tensor, loss_mask: torch.Tensor):
@@ -103,10 +134,19 @@ def build_train_step(
     objective adds ``moe_aux_loss_coeff * lb + moe_z_loss_coeff * z`` to
     the LM loss, which is logged alone as ``lm loss``, with the balance
     loss as ``moe aux loss`` and, when its coefficient is above 0, the
-    z-loss as ``moe z loss``."""
-    if parallel_cfg.world_size != 1:
-        raise NotImplementedError("the port trains on one device")
+    z-loss as ``moe z loss``.
+
+    At tp > 1 (``topology``) ``params`` are this rank's slices; the step
+    finishes the grads over the tp group (``TensorParallelPlan``) before
+    the optimizer, and the num-zeros count counts each element once."""
+    tp = topology.get_tensor_model_parallel_world_size()
+    if parallel_cfg.tensor_model_parallel_size != tp:
+        raise ValueError(
+            f"the parallel config's tp "
+            f"({parallel_cfg.tensor_model_parallel_size}) is not the "
+            f"topology's ({tp}): initialize_model_parallel first")
     cfg = getattr(model, "cfg", None)
+    plans = {}
     moe_on = getattr(cfg, "num_experts", 0) > 1
 
     def microbatch_loss(params, micro, scale, train, rng_key=None):
@@ -162,13 +202,23 @@ def build_train_step(
             losses.append(loss.detach())
             for k, v in aux.items():
                 auxes.setdefault(k, []).append(v.detach())
-        # counted before the optimizer, which may scale the grads in place
-        num_zeros = (torch.stack([(g == 0.0).sum() for g in grads]).sum()
-                     if log_num_zeros_in_grad else None)
         grad_tree = tree_unflatten(params, grads)
+        if "plan" not in plans:
+            plans["plan"] = plan_for(params, cfg, bool(
+                getattr(cfg, "sequence_parallel", False)))
+        plan = plans["plan"]
+        if plan is not None:
+            plan.finish_grads(tree_leaves_with_path(grad_tree))
+        # counted before the optimizer, which may scale the grads in place
+        num_zeros = None
+        if log_num_zeros_in_grad:
+            num_zeros = (plan.global_sum(tree_leaves_with_path(grad_tree),
+                                         lambda t: (t == 0.0).sum())
+                         if plan is not None else
+                         torch.stack([(g == 0.0).sum() for g in grads]).sum())
         params, opt_state, stats = optimizer.step(
             params, grad_tree, opt_state, lr, wd,
-            layer_stats=log_layer_stats)
+            layer_stats=log_layer_stats, tp_plan=plan)
         metrics = {
             "lm loss": torch.stack(losses).mean(),
             "grad_norm": stats["grad_norm"],
@@ -401,6 +451,12 @@ def pretrain(
         if value not in (None, False, 0):
             raise NotImplementedError(f"{_UNPORTED[name]} ({name}) is not "
                                       f"ported yet")
+    if log_layer_stats_interval:
+        topology.refuse_at_tp("--log_layer_stats_interval")
+    # at tp > 1 the params norm sums over the tp group
+    norm_plan = (plan_for(params, model.cfg, bool(getattr(
+        model.cfg, "sequence_parallel", False)))
+                 if log_params_norm and hasattr(model, "cfg") else None)
     if timers is None:
         timers = Timers(log_level=2)
     if telemetry is None:
@@ -610,7 +666,8 @@ def pretrain(
                             ls_host)
                     else:
                         with torch.no_grad():
-                            metrics["params norm"] = global_grad_norm(params)
+                            metrics["params norm"] = global_grad_norm(
+                                params, norm_plan)
                 timers("train-step-sync", log_level=1).start()
                 with tracing.span("step_sync", "step", iteration=iteration):
                     _sync(device)

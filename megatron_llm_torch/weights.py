@@ -60,12 +60,15 @@ def _to_tensor(arr: Any, dtype: Optional[torch.dtype], device) -> torch.Tensor:
 def _convert(node, dtype, device):
     if isinstance(node, dict):
         return {k: _convert(v, dtype, device) for k, v in node.items()}
+    if isinstance(node, torch.Tensor):
+        return node.to(device=device, dtype=dtype or node.dtype)
     return _to_tensor(node, dtype, device)
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
                     dtype: Optional[torch.dtype] = None,
-                    device="cuda") -> Dict[str, Any]:
+                    device="cuda", tp_rank: int = 0,
+                    tp_size: int = 1) -> Dict[str, Any]:
     """The JAX package's param tree (numpy leaves) -> the port's (tensor
     leaves on ``device``, cast to ``dtype`` when given).  The tree is one
     of the JAX package's models': a language model (GPT families, and
@@ -73,7 +76,10 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
     ``binary_head``, or the classification head), T5 (``encoder``,
     ``decoder`` with ``inter_attention``, ``lm_head.bias``) or the
     biencoder ({query, context} or {shared} towers, each with an optional
-    ``projection``); its shapes are checked against the config."""
+    ``projection``); its shapes are checked against the config.  With
+    ``tp_size`` above 1 (a language model's tree) the result is rank
+    ``tp_rank``'s slices (``parallel/sharding.py``), cut on the host
+    before they move to ``device``."""
     if "encoder" in tree:
         _check_t5(tree, cfg)
     elif set(tree) & {"query", "context", "shared"}:
@@ -90,6 +96,20 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
                               cfg.hidden_size, None)
     else:
         _check_language_model(tree, cfg)
+        if tp_size > 1:
+            from megatron_llm_torch.parallel.sharding import (
+                language_model_param_specs,
+                shard_params,
+            )
+
+            host = _convert(tree, None, "cpu")
+            local = shard_params(host, language_model_param_specs(host),
+                                 tp_rank, tp_size, cfg)
+            return _convert(local, dtype, device)
+    if tp_size > 1:
+        raise NotImplementedError(
+            "only a language model's tree loads at tp > 1 (BERT, T5 and "
+            "the biencoder at tp are ROADMAP item 15)")
     return _convert(tree, dtype, device)
 
 

@@ -233,14 +233,23 @@ def test_pretrain_gpt_example_parses_as_in_the_jax_package(tmp_path):
 
 
 def test_sequence_parallel_is_off_at_tp_1_and_refused_above():
+    """Off at tp 1; kept at tp 2 in a world of 2 ranks, which a world of
+    one process cannot hold; data parallelism (a world of more ranks than
+    tp) is still refused."""
     args = arguments.parse_args(["--sequence_parallel"])
     assert args.sequence_parallel is False
     from megatron_llm_torch.config import parallel_config_from_args
-    args = arguments.parse_args(["--sequence_parallel",
-                                 "--tensor_model_parallel_size", "2"])
-    assert args.sequence_parallel is True
+    argv = ["--sequence_parallel", "--tensor_model_parallel_size", "2"]
+    with pytest.raises(ValueError):
+        arguments.parse_args(argv)
+    args = arguments.validate_args(arguments.build_parser().parse_args(argv),
+                                   world_size=2)
+    assert args.sequence_parallel is True and args.data_parallel_size == 1
+    pc = parallel_config_from_args(args)
+    assert (pc.tensor_model_parallel_size, pc.sequence_parallel) == (2, True)
     with pytest.raises(NotImplementedError):
-        parallel_config_from_args(args)
+        arguments.validate_args(arguments.build_parser().parse_args(argv),
+                                world_size=4)
 
 
 TINY_TRAIN = ["--model_name=llama2", "--num_layers=1", "--hidden_size=64",

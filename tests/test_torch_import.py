@@ -1,9 +1,12 @@
 """The PyTorch port stands alone: every module (the ``weights_conversion/``
-and ``tools/`` subpackages and ``verify_correctness.py`` included)
-imports with ``jax``, ``orbax``, ``tensorstore``, the JAX package and the
-repo's root modules (``weights_conversion``, ``tools``, ``tasks``,
-``finetune``, ``verify_correctness``) blocked, no file of the port (or chip_smoke.py)
-imports any of them, entry points default to the GPU, and chip_smoke.py
+and ``tools/`` subpackages, ``verify_correctness.py`` and the tensor
+parallelism's ``topology``, ``initialize`` and ``parallel/`` included)
+and the tensor-parallel worlds' helper of the tests
+(``tests/_torch_tp_world.py``) import with ``jax``, ``orbax``,
+``tensorstore``, the JAX package and the repo's root modules
+(``weights_conversion``, ``tools``, ``tasks``, ``finetune``,
+``verify_correctness``) blocked, no file of the port (or chip_smoke.py,
+or that helper) imports any of them, entry points default to the GPU, and chip_smoke.py
 refuses to run without a CUDA device or outside a checkout."""
 
 import ast
@@ -31,6 +34,9 @@ from megatron_llm_torch.weights import params_from_jax
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "megatron_llm_torch")
+# the helper that runs the tests' tensor-parallel worlds: its ranks import
+# the port and nothing of JAX
+TP_WORLD = os.path.join(REPO, "tests", "_torch_tp_world.py")
 
 
 def _port_files():
@@ -71,13 +77,17 @@ def test_every_port_module_imports_with_jax_blocked():
                 "tasks.zeroshot_gpt.evaluate", "tasks.zeroshot_gpt.mc_tasks",
                 "tasks.orqa.evaluate_orqa", "tasks.msdp.prompt",
                 "tools.bench_harness", "tools.profile_step",
-                "tools.decode_bench", "tools.mfu_sweep"):
+                "tools.decode_bench", "tools.mfu_sweep", "topology",
+                "initialize", "parallel.mappings", "parallel.sharding",
+                "parallel.layers"):
         assert any(m.startswith(f"megatron_llm_torch.{sub}") for m in mods)
     code = ("import importlib, sys\n"
             f"for b in {BANNED!r}:\n"
             "    sys.modules[b] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            f"sys.path.insert(0, {os.path.dirname(TP_WORLD)!r})\n"
+            "importlib.import_module('_torch_tp_world')\n"
             "assert not any(k == 'jax' or k.startswith('jax.') "
             "for k, v in sys.modules.items() if v is not None)\n"
             "print('ok')\n")
@@ -88,7 +98,8 @@ def test_every_port_module_imports_with_jax_blocked():
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     banned = BANNED
-    for path in _port_files() + [os.path.join(REPO, "chip_smoke.py")]:
+    for path in _port_files() + [os.path.join(REPO, "chip_smoke.py"),
+                                 TP_WORLD]:
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)
         for node in ast.walk(tree):

@@ -192,8 +192,13 @@ def test_norms_without_a_gradient_keep_no_statistics(cuda):
 
 # -- kernel C: the RMSNorm backward, and the autograd function around B/C --
 
+# (2048, 8192): a tp-2 rank's rows at Llama-2-70B's width, whose 16 KB of
+# bf16 scale and 32 KB of dscale sums take exactly the 48 KB of dynamic
+# shared memory a launch has without opting in, beside the kernel's static
+# reduction buffer: the launch opts in
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,h", [(4096, 4096), (300, 4096), (3, 128)])
+@pytest.mark.parametrize("n,h", [(4096, 4096), (300, 4096), (3, 128),
+                                 (2048, 8192)])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, n, h, dtype):
     g = torch.Generator(device=cuda).manual_seed(7 * n + h)
     x = (torch.randn(n, h, device=cuda, generator=g) * 3).to(dtype)

@@ -149,8 +149,11 @@ def test_unported_training_options_raise():
     # dropout, recompute, the fused LM-head cross entropy and the chunked
     # attention train since they were ported (test_torch_dropout.py,
     # test_torch_recompute.py, test_torch_fused_ce.py,
-    # test_torch_chunked_attention.py); parallelism still raises
+    # test_torch_chunked_attention.py); tensor and sequence parallelism
+    # run (test_torch_tp_*.py); the other parallel degrees still raise
+    ParallelConfig(tensor_model_parallel_size=2, sequence_parallel=True)
     with pytest.raises(NotImplementedError):
-        ParallelConfig(tensor_model_parallel_size=2)
+        ParallelConfig(tensor_model_parallel_size=2,
+                       pipeline_model_parallel_size=2)
     with pytest.raises(NotImplementedError):
         ParallelConfig(data_parallel_size=2)
