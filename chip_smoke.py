@@ -364,16 +364,35 @@ width (hidden 8192, 64 heads on 8 KV groups, ffn 28672, vocab 32000)
 cut to 2 layers, micro-batch 1 of 4096 tokens, 3 iterations in bf16 from
 seed 1234, at tp 2 with ``--sequence_parallel`` (both ranks on the one
 GPU over gloo: NCCL refuses two ranks on one device) and at tp 1 (a
-world of one over NCCL), then one fp32 iteration of 1024 tokens at 1
-layer each way, the two runs at once.  Held: every bf16 loss and grad
-norm within 2e-2 relative of tp 1's, the fp32 loss within 1e-5 and its
-grad norm within 1e-4; each rank's F, G, B and C launches exact (2, 2,
-5, 5 a step at 2 layers, 1, 1, 3, 3 at 1) and no other kernel; each rank's param bytes half of tp 1's with the replicated
-norms whole.  Each rank's peak memory, the steps' ms and the
+world of one, in the script's own process).  Held: every bf16 loss and
+grad norm within 2e-2 relative of tp 1's; each rank's F, G, B and C
+launches exact (2, 2, 5, 5 a step) and no other kernel; each rank's
+param bytes half of tp 1's with the replicated norms whole (its fp32
+pair went for the script's time: phase 20 holds tp 2 in fp32).  Each rank's peak memory, the steps' ms and the
 collectives by route are printed; with two ranks on one card over gloo
 these are not tp's speed.  Phase 1 holds F and G at a tp-2 rank's
 attention (32 query heads on 4 KV heads of 128, 4096 tokens) and B and
 C at its rows ([2048, 8192]) and times them.
+
+Phase 20 trains with data parallelism and ZeRO-1 at tp: ``finetune.py``
+under ``python -m torch.distributed.run`` (each rank through
+``--dp_rank``, which observes its checkpoint calls) at Llama-2-7B's
+width (hidden 4096, 32 heads, ffn 11008, vocab 32000) cut to 1 layer,
+global batch 2 of 4096 tokens from a generated corpus, 3 bf16
+iterations at tp 2 x dp 2 with ``--sequence_parallel
+--use_distributed_optimizer`` (four ranks on the one GPU over gloo) and
+at tp 1 (a world of one, micro-batch 2), with the layer stats on; one
+fp32 iteration of 1024 tokens at 1 layer each way.  The tp 2 x dp 2 run
+saves iteration 2 synchronously and iteration 3 asynchronously (rank 0
+writes the one layout); iteration 2 is loaded at tp 1 and at tp 2 x dp 2
+and trained one step more.  Held: bf16 losses, grad norms and per-group
+norms within 2e-2 relative of tp 1's, the fp32 loss within 1e-5 and its
+norm within 1e-4; each loaded tree, gathered, equal to the payload bit
+for bit; the resumed iteration-3 losses within 2e-2 of the
+uninterrupted run's; each rank's optimizer state a quarter of tp 1's
+but the norms' (split over dp only); each rank's F, G, B and C launches
+exact.  The save and load GB/s, the gathers' seconds and each rank's
+peak memory are printed.
 
 It prints, before its last line, the card's name and power limit, one
 JSON line with every kernel's numbers (``{"kernels": [...]}``), and as
@@ -383,6 +402,10 @@ its last line ``{"ok": true, "device": {...}}``.
 
 builds the kernels, holds F, G, B and C at a tp-2 rank's shapes and
 runs phase 19 alone; it prints no result line.
+
+    python3 chip_smoke.py --dp_only
+
+builds the kernels and runs phase 20 alone; it prints no result line.
 
     python3 chip_smoke.py --measure [--sweep]
 
@@ -5580,8 +5603,8 @@ def _lora_finetune(kernels, card, work):
                         tree_leaves_with_path(lora)}
         return merge0(base, lora)
 
-    def opt_init(self, params):
-        state = init0(self, params)
+    def opt_init(self, params, *a, **kw):
+        state = init0(self, params, *a, **kw)
         seen["state_numel"] = sum(
             t.numel() for tree in (state.master_params, state.exp_avg,
                                    state.exp_avg_sq) if tree is not None
@@ -6682,13 +6705,29 @@ def _resilience_phase(results, kernels, card, work):
     t0 = time.perf_counter()
     a = _phase13_loop(results, kernels, card, work, base, phase)
     log(f"  (phase 13, part a: {time.perf_counter() - t0:.1f} s)")
+    # (c)'s hang runs in a subprocess beside (b) (the script's time)
+    hang_error = []
+
+    def hang():
+        t0 = time.perf_counter()
+        try:
+            _phase13_hang(results, card, work, base)
+        except BaseException as exc:    # raised again below
+            hang_error.append(exc)
+        log(f"  (phase 13, part c, beside b: "
+            f"{time.perf_counter() - t0:.1f} s)")
+
     t0 = time.perf_counter()
-    _phase13_resume(results, kernels, card, work, base, phase, a)
+    hang_thread = threading.Thread(target=hang, name="phase13-hang")
+    hang_thread.start()
+    try:
+        _phase13_resume(results, kernels, card, work, base, phase, a)
+    finally:
+        hang_thread.join()
+    if hang_error:
+        raise hang_error[0]
     _release_host_memory()
-    log(f"  (phase 13, part b: {time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    _phase13_hang(results, card, work, base)
-    log(f"  (phase 13, part c: {time.perf_counter() - t0:.1f} s)")
+    log(f"  (phase 13, parts b and c: {time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     _phase13_costs(results, kernels, card, work)
     log(f"  (phase 13, part d: {time.perf_counter() - t0:.1f} s)")
@@ -9493,22 +9532,17 @@ def _tasks_tools(out, kernels, work, rng, words):
 # ---------------------------------------------------------------------------
 
 # Llama-2-70B's width (llama_config("70B")), cut to 2 layers; micro-batch
-# 1 of 4096 tokens, 3 iterations in bf16; one fp32 iteration of 1024 at
-# 1 layer, tp 2 and tp 1 at once (their ~56 GiB fit the card together;
-# at 2 layers they take 46 and 44 GiB and run one after the other)
+# 1 of 4096 tokens, 3 iterations in bf16 (46 and 44 GiB at tp 2 and tp
+# 1: one after the other).  Its fp32 pair went for the script's time:
+# phase 20 holds tp 2 (x dp 2) against tp 1 in fp32
 TP_WIDTH = ("--hidden_size=8192", "--num_attention_heads=64",
             "--num_attention_heads_kv=8", "--ffn_hidden_size=28672",
             "--vocab_size=32000")
 TP_LAYERS = 2
 TP_SEQ = 4096
 TP_ITERS = 3
-TP_FP32_LAYERS = 1
-TP_FP32_SEQ = 1024
-# tp 2 against the tp 1 run, relative: bf16 losses and grad norms; fp32
-# loss and grad norm
+# tp 2 against the tp 1 run, relative: bf16 losses and grad norms
 TP_BF16_TOL = 2e-2
-TP_FP32_LOSS_TOL = 1e-5
-TP_FP32_NORM_TOL = 1e-4
 
 
 def _tp_argv(work, tag, tp, layers, seq, iters, bf16):
@@ -9565,6 +9599,8 @@ def _torchrun_done(run, timeout=300):
 
     tag, tp, iters, work, logs = (run[k] for k in ("tag", "tp", "iters",
                                                    "work", "logs"))
+    phase = run.get("phase", "phase 19")
+    first = run.get("first", 1)
     proc = run["proc"]
     try:
         proc.wait(timeout=max(run["t0"] + timeout - time.perf_counter(),
@@ -9584,6 +9620,7 @@ def _torchrun_done(run, timeout=300):
         with open(os.path.join(os.path.dirname(path), "stderr.log")) as f:
             ranks[rank] += "\n--- stderr ---\n" + f.read()
     with open(os.path.join(OUT_DIR, f"chip_smoke_tp_{tag}.log"), "w") as f:
+        run["ranks_text"] = ranks
         f.write(launcher)
         for rank in sorted(ranks):
             f.write(f"\n=== rank {rank} ===\n{ranks[rank]}")
@@ -9593,19 +9630,21 @@ def _torchrun_done(run, timeout=300):
                     or "shares cuda" in line:
                 log(f"  | rank {rank}: {line}")
     check(proc.returncode == 0,
-          f"phase 19 {tag}: torchrun exited {proc.returncode}: "
-          f"{launcher[-3000:]}")
+          f"{phase} {tag}: torchrun exited {proc.returncode}: "
+          f"{launcher[-3000:]}"
+          + "".join(f"\n--- rank {r} ---\n{t[-2000:]}"
+                    for r, t in sorted(ranks.items())))
     summaries = sorted(
         (json.loads(ln.split("rank summary: ", 1)[1])
          for text in ranks.values() for ln in text.splitlines()
          if "rank summary: " in ln),
         key=lambda r: r["rank"])
-    check(len(summaries) == tp, f"phase 19 {tag}: {len(summaries)} rank "
+    check(len(summaries) == tp, f"{phase} {tag}: {len(summaries)} rank "
                                 f"summaries for {tp} ranks")
     recs = [r for r in _jsonl(os.path.join(work, tag, "telemetry.jsonl"))
             if "lm_loss" in r]
-    check([r["iteration"] for r in recs] == list(range(1, iters + 1)),
-          f"phase 19 {tag}: iterations {[r['iteration'] for r in recs]}")
+    check([r["iteration"] for r in recs] == list(range(first, iters + 1)),
+          f"{phase} {tag}: iterations {[r['iteration'] for r in recs]}")
     return summaries, recs, wall
 
 
@@ -9634,20 +9673,26 @@ def tp_phase(results, kernels, card):
 
 def _tp_phase(results, kernels, card, work):
     runs, layers = {}, {}
-    # the bf16 pair one after the other, then the fp32 pair at once
+    # the bf16 pair one after the other; the tp-1 run in this process (no
+    # start-up of its own)
     for group in ((("tp2_bf16", 2, TP_LAYERS, TP_SEQ, TP_ITERS, True),),
-                  (("tp1_bf16", 1, TP_LAYERS, TP_SEQ, TP_ITERS, True),),
-                  (("tp2_fp32", 2, TP_FP32_LAYERS, TP_FP32_SEQ, 1, False),
-                   ("tp1_fp32", 1, TP_FP32_LAYERS, TP_FP32_SEQ, 1, False))):
-        started = [_torchrun(work, *spec) for spec in group]
+                  (("tp1_bf16", 1, TP_LAYERS, TP_SEQ, TP_ITERS, True),)):
+        started = {spec[0]: _torchrun(work, *spec) for spec in group
+                   if spec[1] > 1}
         try:
-            for spec, run in zip(group, started):
-                runs[spec[0]] = _torchrun_done(run)
-                layers[spec[0]] = spec[2]
+            # the in-process runs first, beside the torchrun worlds
+            for spec in sorted(group, key=lambda sp: sp[0] in started):
+                tag, layers[tag] = spec[0], spec[2]
+                if tag in started:
+                    runs[tag] = _torchrun_done(started[tag])
+                else:
+                    runs[tag] = _dp_in_process(
+                        work, tag, dict(argv=_tp_argv(work, *spec)),
+                        spec[4], phase="phase 19")[:3]
         finally:
-            for run in started:
+            for run in started.values():
                 _torchrun_kill(run)
-    for tag in ("tp2_bf16", "tp1_bf16", "tp2_fp32", "tp1_fp32"):
+    for tag in ("tp2_bf16", "tp1_bf16"):
         summaries, recs, wall = runs[tag]
         L, iters = layers[tag], len(recs)
         # each rank launched F and G once a layer and step, B and C once a
@@ -9670,7 +9715,7 @@ def _tp_phase(results, kernels, card, work):
             f"{[_gib(sm['peak_device_bytes']) for sm in summaries]}; "
             f"collectives {summaries[0].get('collectives')}")
     out = {}
-    for dt in ("bf16", "fp32"):
+    for dt in ("bf16",):
         two, one = runs[f"tp2_{dt}"], runs[f"tp1_{dt}"]
         losses = [(a["lm_loss"], b["lm_loss"]) for a, b in zip(two[1],
                                                                 one[1])]
@@ -9678,8 +9723,7 @@ def _tp_phase(results, kernels, card, work):
                                                                  one[1])]
         e_loss = max(_rel(a, b) for a, b in losses)
         e_norm = max(_rel(a, b) for a, b in norms)
-        tol_loss, tol_norm = ((TP_BF16_TOL, TP_BF16_TOL) if dt == "bf16"
-                              else (TP_FP32_LOSS_TOL, TP_FP32_NORM_TOL))
+        tol_loss, tol_norm = TP_BF16_TOL, TP_BF16_TOL
         check(e_loss <= tol_loss and e_norm <= tol_norm,
               f"phase 19 {dt}: tp 2 against tp 1, losses {losses} (rel "
               f"{e_loss:.3g} > {tol_loss}?), grad norms {norms} (rel "
@@ -9709,13 +9753,501 @@ def _tp_phase(results, kernels, card, work):
                 f"tp2_{dt}", f"tp1_{dt}")},
             collectives=runs[f"tp2_{dt}"][0][0].get("collectives"))
         log(f"  {dt}: tp 2 (two ranks on one GPU over gloo, which stages "
-            f"every collective through the host) against tp 1 (NCCL, a world of "
-            f"one): losses {losses}, rel {e_loss:.3g}; grad norms {norms}, "
+            f"every collective through the host) against tp 1 (a world of "
+            f"one, in this process): losses {losses}, rel {e_loss:.3g}; grad norms {norms}, "
             f"rel {e_norm:.3g}; param bytes by rank {per_rank} against "
             f"{full} at tp 1 ({replicated} replicated); step ms {step_ms} "
             f"({card}; not a tp speed: two ranks share the card, gloo "
             f"stages every collective through the host)")
     results.update(out)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: data parallelism, ZeRO-1 and checkpoints at tp x dp
+# ---------------------------------------------------------------------------
+
+# Llama-2-7B's width cut to 1 layer (~465 M params, a 6.5 GB checkpoint
+# with the fp32 masters and moments; 2 layers' 9.3 GB took the script past
+# 1200 s on slower hosts), sequence 4096, bf16; global batch 2:
+# tp 2 x dp 2 (4 ranks on the one GPU over gloo) takes micro-batch 1 on
+# each dp rank, tp 1 (a world of one) micro-batch 2, the one global micro
+# batch of 2 rows either way
+DP_WIDTH = ("--hidden_size=4096", "--num_attention_heads=32",
+            "--ffn_hidden_size=11008", "--vocab_size=32000")
+DP_TP, DP_DP = 2, 2
+DP_LAYERS = 1
+DP_SEQ = 4096
+DP_ITERS = 3
+DP_FP32_LAYERS = 1
+DP_FP32_SEQ = 1024
+# the corpus the bf16 runs read (a resume continues its data order)
+DP_CORPUS = dict(docs=60, min_len=100, max_len=4096, vocab=32000, seed=20)
+# tp 2 x dp 2 against tp 1, relative: bf16 losses, grad norms and
+# per-group norms; the fp32 loss and grad norm
+DP_BF16_TOL = 2e-2
+DP_FP32_LOSS_TOL = 1e-5
+DP_FP32_NORM_TOL = 1e-4
+
+
+def _dp_argv(work, tag, world, layers, seq, iters, bf16, extra=()):
+    argv = ["--model_name=llama2", f"--num_layers={layers}", *DP_WIDTH,
+            f"--seq_length={seq}", f"--max_position_embeddings={seq}",
+            f"--micro_batch_size={2 if world == 1 else 1}",
+            "--global_batch_size=2", f"--train_iters={iters}", "--lr=1e-4",
+            "--log_interval=1", "--seed=1234",
+            f"--structured_log_dir={os.path.join(work, tag)}", *extra]
+    argv += ["--bf16"] if bf16 else []
+    if world > 1:
+        # four ranks on the one GPU: NCCL refuses that, gloo takes it
+        argv += [f"--tensor_model_parallel_size={DP_TP}",
+                 "--sequence_parallel", "--use_distributed_optimizer",
+                 "--distributed_backend=gloo"]
+    else:
+        argv += ["--distributed_backend=nccl"]
+    return argv
+
+
+def _dp_torchrun(work, tag, world, iters, spec, first=1):
+    """Start one launch of ``dp_rank_worker`` under torchrun (``world``
+    ranks, one node, each rank's output to a file of its own): each rank
+    runs ``finetune.main(spec['argv'])``; returns what ``_torchrun_done``
+    reads."""
+    logs = os.path.join(work, f"{tag}_logs")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={world}", f"--log-dir={logs}", "--redirects=3",
+           os.path.join(REPO, "chip_smoke.py"), "--dp_rank", json.dumps(spec)]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="2")
+    log(f"  {tag}: torchrun --nproc_per_node={world} -m "
+        f"megatron_llm_torch.finetune {' '.join(spec['argv'])}")
+    out = open(os.path.join(work, f"{tag}_torchrun.log"), "w+")
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    return dict(tag=tag, tp=world, iters=iters, work=work, logs=logs,
+                proc=proc, out=out, t0=time.perf_counter(), first=first,
+                phase="phase 20")
+
+
+@contextlib.contextmanager
+def _dp_observed(spec):
+    """``finetune.main``'s checkpoint calls observed for phase 20: a save
+    at ``spec['async_at']`` is asynchronous and the others synchronous;
+    after a load, the loaded pieces are gathered into the one layout
+    (``checkpointing.gather_one_layout``) and rank 0 holds them to the
+    payload on disk, bit for bit, and prints ``LOAD_CHECK {json}``."""
+    from megatron_llm_torch import checkpointing
+
+    save0, load0 = checkpointing.save_checkpoint, \
+        checkpointing.load_checkpoint
+    async_at = spec.get("async_at")
+    loaded = {}
+
+    def save(save_dir, iteration, *a, **kw):
+        if async_at is not None:
+            kw["async_save"] = iteration == async_at
+        return save0(save_dir, iteration, *a, **kw)
+
+    def load(load_dir, **kw):
+        params, opt_state, meta = load0(load_dir, **kw)
+        if params is not None:
+            loaded["params"] = params
+        if opt_state is not None:
+            _dp_load_check(load_dir, meta["iteration"], loaded["params"],
+                           opt_state, kw.get("plan"))
+        return params, opt_state, meta
+
+    checkpointing.save_checkpoint = save
+    checkpointing.load_checkpoint = load
+    try:
+        yield
+    finally:
+        checkpointing.save_checkpoint = save0
+        checkpointing.load_checkpoint = load0
+
+
+def dp_rank_worker(spec_json) -> int:
+    """``--dp_rank``: one rank of a phase-20 torchrun world.  Runs
+    ``finetune.main(argv)`` as a user launches it (once ``wait_for``
+    exists, when the spec names it), its checkpoint calls observed
+    (``_dp_observed``)."""
+    import torch
+
+    from megatron_llm_torch import finetune
+
+    spec = json.loads(spec_json)
+    t0 = time.perf_counter()
+    while spec.get("wait_for") and not os.path.isdir(spec["wait_for"]):
+        if time.perf_counter() - t0 > 600:
+            raise RuntimeError(f"no {spec['wait_for']} after 600 s")
+        time.sleep(0.2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with _dp_observed(spec):
+        finetune.main(spec["argv"])
+    return 0
+
+
+def _dp_in_process(work, tag, spec, iters, first=1, phase="phase 20"):
+    """One tp-1 run of phases 19 and 20 (a world of one) in this process,
+    beside their torchrun worlds (no start-up of its own): what
+    ``_torchrun_done`` returns, its summary the one ``finetune``
+    computes."""
+    import contextlib
+    import io
+
+    import torch
+
+    from megatron_llm_torch import finetune
+
+    log(f"  {tag}: finetune.main({' '.join(spec['argv'])}) in this process")
+    seen = {}
+    summary0 = finetune.rank_summary
+
+    def summary(*a, **kw):
+        seen["summary"] = summary0(*a, **kw)
+        return seen["summary"]
+
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    finetune.rank_summary = summary
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf), _dp_observed(spec):
+            finetune.main(spec["argv"])
+    finally:
+        finetune.rank_summary = summary0
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        with open(os.path.join(OUT_DIR, f"chip_smoke_tp_{tag}.log"),
+                  "w") as f:
+            f.write(text)
+        _free_device_memory()
+    recs = [r for r in _jsonl(os.path.join(work, tag, "telemetry.jsonl"))
+            if "lm_loss" in r]
+    check([r["iteration"] for r in recs] == list(range(first, iters + 1)),
+          f"{phase} {tag}: iterations {[r['iteration'] for r in recs]}")
+    return [seen["summary"]], recs, wall, dict(ranks_text={0: text})
+
+
+def _dp_load_check(load_dir, iteration, params, opt_state, plan):
+    import torch
+
+    from megatron_llm_torch import checkpointing, topology
+
+    t0 = time.perf_counter()
+    opt_tree = checkpointing._opt_state_to_tree(opt_state)
+    if plan is None:
+        trees = (params, opt_tree)
+    else:
+        p_h, o_h, _ = checkpointing.gather_one_layout(plan, params, opt_tree)
+        trees = (p_h, o_h)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    if not topology.is_rank_0():
+        return
+    t0 = time.perf_counter()
+    d = checkpointing.get_checkpoint_name(load_dir, iteration)
+    equal, leaves, nbytes = True, 0, 0
+    for part, tree in zip(("model", "optim"), trees):
+        payload = torch.load(os.path.join(d, part, checkpointing.PAYLOAD),
+                             map_location="cpu", mmap=True,
+                             weights_only=True)
+        flat = checkpointing._flat(tree)
+        equal = equal and set(flat) == set(payload)
+        for key, v in flat.items():
+            w = payload[key]
+            same = (v.dtype == w.dtype and v.shape == w.shape
+                    and torch.equal(v, w.to(v.device)))
+            equal = equal and bool(same)
+            leaves += 1
+            nbytes += w.numel() * w.element_size()
+    print("LOAD_CHECK " + json.dumps(dict(
+        equal=equal, leaves=leaves, bytes=nbytes, gather_s=gather_s,
+        compare_s=time.perf_counter() - t0, gathered=plan is not None)),
+        flush=True)
+
+
+_CKPT_SAVED = re.compile(
+    r"\[checkpoint\] saved iteration (\d+) to \S+: (\d+) bytes in "
+    r"([0-9.]+) s( \(the gather over tp x dp ([0-9.]+) s of it\))?"
+    r"( \(async\))?")
+_CKPT_ASYNC = re.compile(
+    r"\[checkpoint\] async save of iteration (\d+): (\d+) bytes copied to "
+    r"host in ([0-9.]+) s( \(the gather over tp x dp ([0-9.]+) s of it\))?")
+_CKPT_LOADED = re.compile(
+    r"\[checkpoint\] loaded (\S+) from \S+: (\d+) bytes in ([0-9.]+) s")
+
+
+def _dp_rank0(run) -> str:
+    return run["ranks_text"][0]
+
+
+def _dp_ckpt_lines(text):
+    """The rank's checkpoint lines: saves {iteration: {...}}, async
+    copies {iteration: {...}}, loads [{...}], load checks [{...}]."""
+    saves, copies, loads, checks = {}, {}, [], []
+    for line in text.splitlines():
+        m = _CKPT_SAVED.search(line)
+        if m:
+            saves[int(m.group(1))] = dict(
+                bytes=int(m.group(2)), secs=float(m.group(3)),
+                gather_s=None if m.group(5) is None else float(m.group(5)),
+                is_async=m.group(6) is not None)
+        m = _CKPT_ASYNC.search(line)
+        if m:
+            copies[int(m.group(1))] = dict(
+                bytes=int(m.group(2)), secs=float(m.group(3)),
+                gather_s=None if m.group(5) is None else float(m.group(5)))
+        m = _CKPT_LOADED.search(line)
+        if m:
+            loads.append(dict(name=m.group(1), bytes=int(m.group(2)),
+                              secs=float(m.group(3))))
+        if line.startswith("LOAD_CHECK "):
+            checks.append(json.loads(line.split(" ", 1)[1]))
+    return saves, copies, loads, checks
+
+
+def dp_phase(results, kernels, card):
+    """Phase 20 (see the module's docstring): in a directory under build/
+    that it deletes at the end."""
+    import shutil
+
+    work = os.path.join(REPO, "build", "chip20")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    _free_device_memory()
+    try:
+        _dp_phase(results, kernels, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _dp_launches(layers, iters):
+    # each rank launched F and G once a layer and step (one micro batch a
+    # rank), B and C once a norm (two a layer and the final norm) and
+    # step; nothing else
+    return {"flash_fwd": layers * iters, "flash_bwd_fused": layers * iters,
+            "rmsnorm": (2 * layers + 1) * iters,
+            "rmsnorm_bwd": (2 * layers + 1) * iters, "flash_bwd": 0,
+            "layernorm": 0, "layernorm_bwd": 0}
+
+
+def _dp_phase(results, kernels, card, work):
+    t0 = time.perf_counter()
+    prefix = os.path.join(work, "corpus_text_document")
+    docs, tokens = write_corpus(prefix, DP_CORPUS)
+    # the data helpers' library, built once before the ranks load it
+    from megatron_llm_torch.data import helpers
+
+    helpers._load()
+    log(f"  corpus: {docs} documents, {tokens} tokens in "
+        f"{time.perf_counter() - t0:.1f} s")
+    save = os.path.join(work, "ckpt")
+    data = ["--data_path", prefix, "--split", "100,0,0"]
+    stats = ["--log_layer_stats_interval=1"]
+    specs = {
+        # (a), (c) and the saves of (b)
+        "ref_bf16": (1, DP_LAYERS, DP_SEQ, DP_ITERS, True, data + stats, {},
+                     1),
+        "dp_bf16": (DP_TP * DP_DP, DP_LAYERS, DP_SEQ, DP_ITERS, True,
+                    data + stats + ["--save", save, "--save_interval", "2",
+                                    "--async_save"],
+                    {"async_at": DP_ITERS}, 1),
+        # (b): iteration 2 loaded at tp 1 and at tp 2 x dp 2, one more step
+        "load_tp1": (1, DP_LAYERS, DP_SEQ, DP_ITERS, True,
+                     data + ["--load", save, "--load_iters", "2"],
+                     {"wait_for": os.path.join(save, "iter_0000002")}, 3),
+        "load_dp": (DP_TP * DP_DP, DP_LAYERS, DP_SEQ, DP_ITERS, True,
+                    data + ["--load", save, "--load_iters", "2"],
+                    {"wait_for": os.path.join(save, "iter_0000002")}, 3),
+        # (a) in fp32 on the synthetic batches
+        "fp32_tp1": (1, DP_FP32_LAYERS, DP_FP32_SEQ, 1, False, [], {}, 1),
+        "fp32_dp": (DP_TP * DP_DP, DP_FP32_LAYERS, DP_FP32_SEQ, 1, False, [],
+                    {}, 1),
+    }
+    runs, layers, started = {}, {}, {}
+
+    def spec_of(tag):
+        world, L, seq, iters, bf16, extra, opts, first = specs[tag]
+        layers[tag] = L
+        return dict(argv=_dp_argv(work, tag, world, L, seq, iters, bf16,
+                                  extra), **opts), iters, first
+
+    def start(tag):
+        spec, iters, first = spec_of(tag)
+        started[tag] = _dp_torchrun(work, tag, specs[tag][0], iters, spec,
+                                    first)
+
+    def done(tag):
+        runs[tag] = _torchrun_done(started[tag], timeout=400) + (
+            started[tag],)
+
+    def here(tag):
+        spec, iters, first = spec_of(tag)
+        runs[tag] = _dp_in_process(work, tag, spec, iters, first)
+
+    # the tp 2 x dp 2 runs under torchrun, the tp-1 runs in this process
+    # beside them, as much at once as the card holds (~1.3 GiB a process
+    # comes on top of each run's peak): the bf16 run with the fp32 run
+    # and the tp-1 reference, then the fp32 tp-1 run; the tp 2 x dp 2
+    # load, whose ranks start up beside the rest of the bf16 run and wait
+    # for iteration 2's committed checkpoint; the tp-1 load once the bf16
+    # run has ended
+    try:
+        for tag in ("dp_bf16", "fp32_dp"):
+            start(tag)
+        here("ref_bf16")
+        here("fp32_tp1")
+        done("fp32_dp")
+        start("load_dp")
+        done("dp_bf16")
+        here("load_tp1")
+        done("load_dp")
+    finally:
+        for run in started.values():
+            _torchrun_kill(run)
+    runs = {tag: runs[tag] for tag in specs}
+    out = {"card": card}
+    # (d) the launches, exact on every rank, and the peaks
+    for tag, (summaries, recs, wall, run) in runs.items():
+        want = _dp_launches(layers[tag], len(recs))
+        for sm in summaries:
+            check(sm["kernel_launches"] == want,
+                  f"phase 20 {tag} rank {sm['rank']}: launches "
+                  f"{sm['kernel_launches']}, expected {want}")
+            for row in ("flash_fwd", "flash_bwd_fused", "rmsnorm",
+                        "rmsnorm_bwd"):
+                _add_launches(kernels, row, f"dp {tag} rank {sm['rank']}",
+                              sm["kernel_launches"][row])
+        log(f"  {tag}: {wall:.1f} s; losses {[r['lm_loss'] for r in recs]}, "
+            f"grad norms {[r['grad_norm'] for r in recs]}; peak device GiB "
+            f"by rank {[_gib(sm['peak_device_bytes']) for sm in summaries]}; "
+            f"collectives {summaries[0].get('collectives')}")
+        out.setdefault("wall_s", {})[tag] = wall
+        out.setdefault("peak_gib_by_rank", {})[tag] = [
+            _gib(sm["peak_device_bytes"]) for sm in summaries]
+        out.setdefault("step_ms", {})[tag] = [
+            r["step_time_secs"] * 1000.0 for r in recs]
+    # (a) tp 2 x dp 2 against tp 1
+    for dt, two, one, tols in (
+            ("bf16", "dp_bf16", "ref_bf16", (DP_BF16_TOL, DP_BF16_TOL)),
+            ("fp32", "fp32_dp", "fp32_tp1",
+             (DP_FP32_LOSS_TOL, DP_FP32_NORM_TOL))):
+        a, b = runs[two][1], runs[one][1]
+        losses = [(x["lm_loss"], y["lm_loss"]) for x, y in zip(a, b)]
+        norms = [(x["grad_norm"], y["grad_norm"]) for x, y in zip(a, b)]
+        e_loss = max(_rel(x, y) for x, y in losses)
+        e_norm = max(_rel(x, y) for x, y in norms)
+        check(all(math.isfinite(x) for x, _ in losses + norms),
+              f"phase 20 {dt}: a non-finite loss or norm")
+        check(e_loss <= tols[0] and e_norm <= tols[1],
+              f"phase 20 {dt}: tp 2 x dp 2 against tp 1, losses {losses} "
+              f"(rel {e_loss:.3g} > {tols[0]}?), grad norms {norms} (rel "
+              f"{e_norm:.3g} > {tols[1]}?)")
+        out[dt] = dict(losses=losses, grad_norms=norms, loss_rel_err=e_loss,
+                       grad_norm_rel_err=e_norm)
+        log(f"  (a) {dt}: tp 2 x dp 2 (four ranks on one GPU over gloo) "
+            f"against tp 1: losses {losses}, rel {e_loss:.3g}; grad norms "
+            f"{norms}, rel {e_norm:.3g}")
+    # (c) the layer stats, group by group
+    worst = 0.0
+    for x, y in zip(runs["dp_bf16"][1], runs["ref_bf16"][1]):
+        lx, ly = x.get("layer_stats"), y.get("layer_stats")
+        check(lx is not None and ly is not None
+              and lx["groups"] == ly["groups"],
+              f"phase 20 (c): layer stats at iteration {x['iteration']}: "
+              f"{lx and lx['groups']} against {ly and ly['groups']}")
+        for key in ("grad_norm", "param_norm", "update_norm"):
+            for g, u, v in zip(lx["groups"], lx[key], ly[key]):
+                e = _rel(float(u), float(v))
+                worst = max(worst, e)
+                check(e <= DP_BF16_TOL,
+                      f"phase 20 (c): {key} of {g} at iteration "
+                      f"{x['iteration']}: {u} against tp 1's {v}")
+    out["layer_stats_rel_err"] = worst
+    log(f"  (c) layer stats at tp 2 x dp 2 against tp 1: "
+        f"{len(runs['ref_bf16'][1][0]['layer_stats']['groups'])} groups x 3 "
+        f"norms x {DP_ITERS} iterations, worst rel {worst:.3g}")
+    # (b) the saves, the loads and the continued losses
+    saves, copies, _, _ = _dp_ckpt_lines(_dp_rank0(runs["dp_bf16"][3]))
+    check(sorted(saves) == [2, 3] and not saves[2]["is_async"]
+          and saves[3]["is_async"] and sorted(copies) == [3],
+          f"phase 20 (b): saves {saves}, async copies {copies}")
+    from megatron_llm_torch import checkpointing
+
+    check(checkpointing.read_tracker(save) == (3, False),
+          f"phase 20 (b): tracker {checkpointing.read_tracker(save)}")
+    ck = {"sync_save_2": dict(saves[2], gb_per_s=saves[2]["bytes"] / 1e9
+                              / saves[2]["secs"]),
+          "async_copy_3": copies[3],
+          "async_save_3": dict(saves[3], gb_per_s=saves[3]["bytes"] / 1e9
+                               / saves[3]["secs"])}
+    uninterrupted = runs["dp_bf16"][1][-1]
+    for tag in ("load_tp1", "load_dp"):
+        _, _, loads, lchecks = _dp_ckpt_lines(_dp_rank0(runs[tag][3]))
+        check(len(lchecks) == 1 and lchecks[0]["equal"]
+              and lchecks[0]["gathered"] == (tag == "load_dp"),
+              f"phase 20 (b) {tag}: the loaded trees against the payload: "
+              f"{lchecks}")
+        check(len(loads) == 2, f"phase 20 (b) {tag}: loads {loads}")
+        rec = runs[tag][1][0]
+        e = _rel(rec["lm_loss"], uninterrupted["lm_loss"])
+        check(rec["iteration"] == DP_ITERS and e <= DP_BF16_TOL,
+              f"phase 20 (b) {tag}: iteration {rec['iteration']} loss "
+              f"{rec['lm_loss']} against the uninterrupted "
+              f"{uninterrupted['lm_loss']} (rel {e:.3g})")
+        nbytes = sum(ld["bytes"] for ld in loads)
+        secs = sum(ld["secs"] for ld in loads)
+        ck[tag] = dict(load_bytes=nbytes, load_s=secs,
+                       gb_per_s=nbytes / 1e9 / secs, check=lchecks[0],
+                       loss=rec["lm_loss"], loss_rel_err=e)
+    out["checkpoints"] = ck
+    log(f"  (b) checkpoints ({card}): sync save of iteration 2 "
+        f"{saves[2]['bytes']} bytes in {saves[2]['secs']:.3f} s "
+        f"({ck['sync_save_2']['gb_per_s']:.3f} GB/s, the gather "
+        f"{saves[2]['gather_s']:.3f} s of it); async save of iteration 3: "
+        f"copied (the gather included) in {copies[3]['secs']:.3f} s, "
+        f"written in {saves[3]['secs']:.3f} s; loads: "
+        + "; ".join(f"{t} {ck[t]['load_bytes']} bytes in "
+                    f"{ck[t]['load_s']:.3f} s ({ck[t]['gb_per_s']:.3f} "
+                    f"GB/s), equal to the payload bit for bit (the "
+                    f"gather {ck[t]['check']['gather_s']:.3f} s, the "
+                    f"compare {ck[t]['check']['compare_s']:.3f} s), "
+                    f"iteration 3 loss {ck[t]['loss']} (rel "
+                    f"{ck[t]['loss_rel_err']:.3g})"
+                    for t in ("load_tp1", "load_dp")))
+    # (d) each rank's optimizer state against tp 1's: the replicated
+    # norms' state (2 a layer and the final one, hidden each, 3 fp32
+    # trees) splits over dp only, everything else over tp x dp
+    full = runs["ref_bf16"][0][0]["opt_state_bytes"]
+    hidden = int(DP_WIDTH[0].split("=")[1])
+    rep = 3 * 4 * (2 * DP_LAYERS + 1) * hidden
+    want = (full - rep) // (DP_TP * DP_DP) + rep // DP_DP
+    got = [sm["opt_state_bytes"] for sm in runs["dp_bf16"][0]]
+    check(all(b == want for b in got),
+          f"phase 20 (d): optimizer-state bytes by rank {got}, expected "
+          f"{want} of tp 1's {full}")
+    out["opt_state_bytes"] = dict(tp1=full, by_rank=got,
+                                  replicated_norms=rep)
+    log(f"  (d) optimizer state: {got} bytes by rank against {full} at tp 1 "
+        f"(1/{DP_TP * DP_DP} but the norms' {rep}, split over dp only); "
+        f"peak GiB by rank {out['peak_gib_by_rank']}")
+    results.update(out)
+
+
+def dp_only(kernels, card) -> int:
+    """``--dp_only``: phase 20 alone."""
+    kernels.update({row: {} for row in ("flash_fwd", "flash_bwd_fused",
+                                         "rmsnorm", "rmsnorm_bwd")})
+    t0 = time.perf_counter()
+    dp = {}
+    dp_phase(dp, kernels, card)
+    log(f"phase 20 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"data parallelism ({card}): " + json.dumps(dp))
+    return 0
+
 
 
 def tp_only(gen, kernels, card) -> int:
@@ -9861,6 +10393,15 @@ def main(argv=None) -> int:
              "+ SP at Llama-2-70B's width against tp 1) alone: no result "
              "line")
     parser.add_argument(
+        "--dp_only", action="store_true",
+        help="build the kernels and run phase 20 (tp 2 x dp 2 with ZeRO-1 "
+             "and checkpoints at Llama-2-7B's width against tp 1) alone: "
+             "no result line")
+    parser.add_argument(
+        "--dp_rank", default=None, metavar="SPEC",
+        help="(one rank of phase 20's torchrun worlds) finetune.main over "
+             "the JSON spec's argv, its checkpoint calls observed")
+    parser.add_argument(
         "--collectives", action="store_true",
         help="(one rank of --tp_only's torchrun world) time the tp "
              "collectives at a tp-2 rank's shapes and print them")
@@ -9881,6 +10422,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     if opts.collectives:
         return collective_worker()
+    if opts.dp_rank is not None:
+        return dp_rank_worker(opts.dp_rank)
     os.makedirs(OUT_DIR, exist_ok=True)
     _LOG_FILES.append(open(os.path.join(OUT_DIR, "chip_smoke.log"), "w"))
 
@@ -9940,6 +10483,8 @@ def main(argv=None) -> int:
         return 0
     if opts.tp_only:
         return tp_only(gen, kernels, card)
+    if opts.dp_only:
+        return dp_only(kernels, card)
     t0 = time.perf_counter()
     log("phase 1: serving kernels vs plain versions")
     phase1(gen, kernels)
@@ -10103,6 +10648,15 @@ def main(argv=None) -> int:
     tp_phase(tp, kernels, card)
     log(f"phase 19 passed in {time.perf_counter() - t0:.1f} s")
     log(f"tensor parallelism ({card}): " + json.dumps(tp))
+    t0 = time.perf_counter()
+    log(f"phase 20: data parallelism, ZeRO-1 and checkpoints at tp x dp -- "
+        f"Llama-2-7B's width, {DP_LAYERS} layers, through "
+        f"megatron_llm_torch.finetune under torchrun at tp {DP_TP} x dp "
+        f"{DP_DP} (four ranks on the one GPU over gloo) against tp 1")
+    dp = {}
+    dp_phase(dp, kernels, card)
+    log(f"phase 20 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"data parallelism ({card}): " + json.dumps(dp))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     names = ("paged_decode", "paged_prefill", "paged_decode_int8",
@@ -10126,7 +10680,7 @@ def main(argv=None) -> int:
                    "mixtral": mixtral, "serving_rest": rest,
                    "resilience": resil, "fleet": fleet,
                    "int8_legacy": int8_legacy, "bert_t5": bert_t5,
-                   "fp16": fp16, "tasks": tasks, "tp": tp}, f,
+                   "fp16": fp16, "tasks": tasks, "tp": tp, "dp": dp}, f,
                   indent=1)
     log(card)
     print(json.dumps(line), flush=True)

@@ -610,8 +610,7 @@ def _world_size() -> int:
 
 def validate_args(args, world_size: Optional[int] = None):
     """The JAX package's derivations.  ``world_size`` defaults to the
-    launcher's (``_world_size``); dp is world // (tp x pp x cp), and this
-    slice takes a world of tp ranks only."""
+    launcher's (``_world_size``); dp is world // (tp x pp x cp)."""
     warn_unimplemented(args)
     # encoder spellings fall back onto the canonical names
     if args.num_layers is None and args.encoder_num_layers is not None:
@@ -649,21 +648,21 @@ def validate_args(args, world_size: Optional[int] = None):
             f"({args.context_parallel_size})")
     args.world_size = world_size
     args.data_parallel_size = world_size // mp
-    if args.data_parallel_size != 1:
-        raise NotImplementedError(
-            f"data parallelism (a world of {world_size} over tp x pp x cp "
-            f"= {mp}, dp {args.data_parallel_size}) is not ported yet "
-            f"(ROADMAP item 15)")
     # the exit code after a preemption rescue save (multislice: 17); the
     # port has no multislice run (ParallelConfig refuses num_slices > 1)
     if args.preempt_exit_code is None:
         args.preempt_exit_code = 17 if args.num_slices > 1 else 0
+    # the batch math runs on dp (the JAX package's total dp: dp x slices,
+    # and the port has one slice)
     if args.global_batch_size is None:
-        args.global_batch_size = args.micro_batch_size
-    if args.global_batch_size % args.micro_batch_size:
+        args.global_batch_size = args.micro_batch_size \
+            * args.data_parallel_size
+    if args.global_batch_size % (args.micro_batch_size
+                                 * args.data_parallel_size):
         raise ValueError(f"global batch ({args.global_batch_size}) not "
                          f"divisible by micro batch "
-                         f"({args.micro_batch_size})")
+                         f"({args.micro_batch_size}) x dp "
+                         f"({args.data_parallel_size})")
     apply_fused_ce_policy(args)
     if args.ffn_hidden_size is None and args.hidden_size is not None:
         args.ffn_hidden_size = 4 * args.hidden_size

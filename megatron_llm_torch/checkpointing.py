@@ -29,8 +29,17 @@ tensorstore trees, which need JAX): ``model/`` and ``optim/`` each hold
 one ``tree.pt``, a ``torch.save`` of a flat ``{keystr: tensor}`` dict,
 read back with ``weights_only=True``.  bf16 survives as bf16.  The
 optimizer state's scalars (step, loss scale, scaler trackers) are stored
-as 0-dim int32 / float32 tensors, the JAX package's dtypes.  Single
-process: one writer.
+as 0-dim int32 / float32 tensors, the JAX package's dtypes.  One
+writer: at tp x dp above 1 every rank gathers each leaf, one at a time,
+over tp and (the ZeRO-1 state) over dp (the step's ``TensorParallelPlan``
+``gather_leaf``) into rank 0's host memory, and rank 0 writes the one
+layout, with the keys, shapes, dtypes, manifest and tracker of a tp-1
+save, while the other ranks wait at a barrier with a timeout.  A load
+reads the one layout on every rank and cuts each leaf with the plan's
+``shard_leaf`` (its tp slice, and its ZeRO-1 dp slice), so a checkpoint
+saved at any tp x dp loads at any other, and into the tp-1 server.
+Rank 0 holds the whole tree in host memory while it writes (ROADMAP
+item 5).
 
 ``async_save`` copies every leaf into host buffers (allocated once and
 reused, pinned when the leaf is on the card) and waits for the copies
@@ -40,7 +49,9 @@ at once; a background thread then writes the payload and ``meta.json``
 tracker wait for ``finalize_async_saves()``, which the next save and
 every exit path of the train loop and of ``finetune.main`` call; a
 failed background write raises there and is never retried as a
-synchronous save.  The resilience runtime's save fault hook
+synchronous save.  At tp x dp the gather into rank 0's host buffers
+runs before the writer thread starts, so the thread, and the retries of
+a failed write, issue no collective.  The resilience runtime's save fault hook
 (``resilience.set_save_fault_hook``) is consulted on every attempt of
 the retry loop, and every retry counts in the global
 ``counters['save_retries']`` (``global_vars.get_counters``).
@@ -73,7 +84,8 @@ PAYLOAD = "tree.pt"       # the one file in model/ and optim/
 # Hardened-IO knobs (wired from the CLI via configure_save).  total_limit=0
 # keeps every checkpoint; retries>0 re-attempts a failed save with
 # exponential backoff; every retry increments counters['save_retries'].
-_SAVE_CONFIG = {"total_limit": 0, "retries": 2, "retry_backoff": 0.25}
+_SAVE_CONFIG = {"total_limit": 0, "retries": 2, "retry_backoff": 0.25,
+                "barrier_secs": 1800.0}
 
 
 def configure_save(total_limit: Optional[int] = None,
@@ -153,11 +165,16 @@ def _flat(tree) -> dict:
             if leaf is not None}
 
 
+def _key_path(key: str) -> tuple:
+    """The dict keys of a ``keystr``."""
+    return tuple(re.findall(r"\['((?:[^'\\]|\\.)*)'\]", key))
+
+
 def _unflat(flat: dict) -> dict:
     """The nested dict of a ``{keystr: tensor}`` dict."""
     out: dict = {}
     for key, leaf in flat.items():
-        path = re.findall(r"\['((?:[^'\\]|\\.)*)'\]", key)
+        path = _key_path(key)
         if keystr(path) != key:
             raise ValueError(f"checkpoint key {key!r} is not a path of "
                              f"string dict keys")
@@ -364,6 +381,81 @@ def finalize_async_saves() -> None:
                   flush=True)
 
 
+_STATE_TREES = ("master_params", "exp_avg", "exp_avg_sq")
+
+
+def _state_leaf(path) -> tuple:
+    """(the param path, whether the leaf is ZeRO-1 state) of a path of
+    the optimizer tree: its param-shaped trees' leaves carry the param
+    path after the tree's name; the scalars carry none."""
+    if path and path[0] in _STATE_TREES:
+        return tuple(path[1:]), True
+    return None, False
+
+
+def gather_one_layout(plan, params, opt_tree=None, buffers=None,
+                      pinned: bool = False):
+    """The one-device trees of this rank's ``params`` and optimizer tree
+    (``_opt_state_to_tree``), gathered leaf by leaf over tp and dp (a
+    collective: every rank calls it) into host tensors on global rank 0:
+    ``(params, opt_tree, buffers)`` there, ``(None, None, buffers)``
+    elsewhere.  Each leaf is copied into ``buffers[i]`` when that matches
+    it (a previous call's, ``pinned`` for an async save), else into a new
+    host tensor, so the caller may update the live tensors at once."""
+    rank0 = topology.is_rank_0()
+    bufs = list(buffers or [])
+    out, i = [], 0
+    for tree, is_opt in ((params, False), (opt_tree, True)):
+        if tree is None:
+            out.append(None)
+            continue
+        flat = {}
+        for path, leaf in tree_leaves_with_path(tree):
+            if is_opt:
+                ppath, state = _state_leaf(path)
+                full = (plan.gather_leaf(ppath, leaf, sliced=plan.zero1)
+                        if state else leaf.detach())
+            else:
+                full = plan.gather_leaf(path, leaf)
+            if rank0:
+                if (not pinned and full.device.type == "cpu"
+                        and full.untyped_storage().data_ptr()
+                        != leaf.untyped_storage().data_ptr()):
+                    # a host tensor of the gather's own: no second copy
+                    buf = full
+                elif i < len(bufs) and bufs[i].shape == full.shape \
+                        and bufs[i].dtype == full.dtype:
+                    buf = bufs[i]
+                    buf.copy_(full)
+                else:
+                    buf = torch.empty(full.shape, dtype=full.dtype,
+                                      pin_memory=pinned and
+                                      torch.cuda.is_available())
+                    buf.copy_(full)
+                if pinned:
+                    bufs[i:i + 1] = [buf]
+                flat[keystr(path)] = buf
+            i += 1
+            del full
+        out.append(_unflat(flat) if rank0 else None)
+    return out[0], out[1], bufs
+
+
+def _wait_for_rank_0() -> None:
+    """The ranks but 0 wait here for rank 0's write, at most
+    ``barrier_secs`` under gloo (``monitored_barrier``; NCCL's barrier
+    has the process group's timeout)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if dist.get_backend() == "gloo":
+        dist.monitored_barrier(timeout=datetime.timedelta(
+            seconds=_SAVE_CONFIG["barrier_secs"]))
+    else:
+        dist.barrier()
+
+
 def _read_tree(path: Path, device) -> dict:
     flat = torch.load(Path(path) / PAYLOAD, map_location="cpu",
                       weights_only=True, mmap=True)
@@ -381,6 +473,8 @@ def save_checkpoint(
     consumed_samples: int = 0,
     release: bool = False,
     async_save: bool = False,
+    plan=None,
+    gathered: bool = False,
 ) -> str:
     """Reference: save_checkpoint (checkpointing.py:243-337).
 
@@ -394,10 +488,19 @@ def save_checkpoint(
     half-written checkpoint; transient IO errors are retried with
     exponential backoff (``configure_save``), counted in
     ``counters['save_retries']``.  Prints one line with the bytes written
-    and the seconds taken.  Checkpoints of a tensor-parallel run are
-    not ported yet (their one layout is a later slice): at tp > 1 this
-    raises."""
-    topology.refuse_at_tp("saving a checkpoint")
+    and the seconds taken.
+
+    At tp x dp above 1 every rank calls this with its pieces and the
+    step's ``plan`` (``parallel/sharding.TensorParallelPlan``): the trees
+    are gathered into rank 0's host memory first (the line adds the
+    gather's seconds), rank 0 writes them, and a synchronous save returns
+    on the other ranks once rank 0 has committed it.  ``gathered``: the
+    trees are already the one-device trees (a rescue save from rank 0's
+    host snapshot), and this process writes them alone, with no
+    collective."""
+    if plan is None and not gathered and not topology.is_one_device():
+        raise ValueError("at tp x dp above 1 save_checkpoint needs the "
+                         "step's plan to gather the one layout")
     if async_save:
         # at most one outstanding save: the previous one becomes durable
         # (rename + tracker) before this one starts
@@ -406,10 +509,22 @@ def save_checkpoint(
     final_dir = Path(get_checkpoint_name(save_dir, iteration,
                                          release)).absolute()
     tmp_dir = final_dir.with_name(final_dir.name + ".tmp")
-    final_dir.parent.mkdir(parents=True, exist_ok=True)
 
     opt_tree = _opt_state_to_tree(opt_state) if opt_state is not None \
         else None
+    gather_secs = None
+    if plan is not None:
+        params, opt_tree, bufs = gather_one_layout(
+            plan, params, opt_tree,
+            _ASYNC["buffers"] if async_save else None, pinned=async_save)
+        if async_save:
+            _ASYNC["buffers"] = bufs
+        gather_secs = time.perf_counter() - t0
+        if not topology.is_rank_0():
+            if not async_save:
+                _wait_for_rank_0()
+            return str(final_dir)
+    final_dir.parent.mkdir(parents=True, exist_ok=True)
     manifest = {"model": _tree_manifest(params),
                 "optim": _tree_manifest(opt_tree)}
     meta = {
@@ -442,7 +557,9 @@ def save_checkpoint(
                               iteration=int(iteration), attempt=attempt,
                               async_save=async_save):
                 if async_save:
-                    host = _host_copy([params, opt_tree])
+                    # the gathered trees are host copies already
+                    host = ([params, opt_tree] if plan is not None else
+                            _host_copy([params, opt_tree]))
                     nbytes = sum(v.numel() * v.element_size()
                                  for tree in host if tree is not None
                                  for v in _flat(tree).values())
@@ -472,14 +589,23 @@ def save_checkpoint(
         _ASYNC["thread"].start()
         print(f" [checkpoint] async save of iteration {iteration}: "
               f"{nbytes} bytes copied to host in "
-              f"{time.perf_counter() - t0:.3f} s, writing to {tmp_dir}",
+              f"{time.perf_counter() - t0:.3f} s"
+              + _gathered(gather_secs) + f", writing to {tmp_dir}",
               flush=True)
         return str(final_dir)
     _commit_checkpoint(save_dir, iteration, release, tmp_dir, final_dir)
     secs = time.perf_counter() - t0
     print(f" [checkpoint] saved iteration {iteration} to {final_dir}: "
-          f"{nbytes} bytes in {secs:.3f} s", flush=True)
+          f"{nbytes} bytes in {secs:.3f} s" + _gathered(gather_secs),
+          flush=True)
+    if plan is not None and not async_save:
+        _wait_for_rank_0()
     return str(final_dir)
+
+
+def _gathered(secs) -> str:
+    return "" if secs is None else \
+        f" (the gather over tp x dp {secs:.3f} s of it)"
 
 
 def load_checkpoint_args(load_dir: str,
@@ -556,6 +682,7 @@ def load_checkpoint(
     finetune: bool = False,
     load_params: bool = True,
     device="cuda",
+    plan=None,
 ):
     """Load the latest (or given) checkpoint.
 
@@ -571,10 +698,16 @@ def load_checkpoint(
     is missing/corrupt or points at a checkpoint that fails validation
     (missing payload, unreadable meta.json, manifest checksum mismatch),
     the newest iter_* dir that *does* validate is used instead.  An
-    explicitly requested iteration is never silently substituted.  At
-    tp > 1 this raises: checkpoints at tp are a later slice.
+    explicitly requested iteration is never silently substituted.
+
+    At tp x dp above 1 give the step's ``plan``: every rank reads the one
+    layout, held to the one-device templates, and keeps its piece of
+    each leaf (``plan.shard_leaf``: the tp slice, and the ZeRO-1 dp
+    slice of the optimizer state).
     """
-    topology.refuse_at_tp("loading a checkpoint")
+    if plan is None and not topology.is_one_device():
+        raise ValueError("at tp x dp above 1 load_checkpoint needs the "
+                         "step's plan to cut the one layout")
     t0 = time.perf_counter()
     explicit = iteration is not None or release
     if not explicit:
@@ -611,26 +744,30 @@ def load_checkpoint(
     nbytes = 0
     with tracing.span("checkpoint_load", "checkpoint",
                       iteration=int(iteration or 0)):
+        # at tp x dp each leaf is read on the host and cut there
+        read_on = "cpu" if plan is not None else device
         params = None
         if load_params:
-            flat = _read_tree(ckpt_dir / "model", device)
+            flat = _read_tree(ckpt_dir / "model", read_on)
             _verify_leaves(_unflat(flat), manifest.get("model"), "model")
             if params_template is not None:
                 flat = _match_template(flat, params_template, "model")
-            params = _unflat(flat)
             nbytes += sum(v.numel() * v.element_size()
                           for v in flat.values())
+            params = _unflat(flat if plan is None else
+                             _cut(plan, flat, False, device))
 
         opt_state = None
         if not finetune and (ckpt_dir / "optim").exists() \
                 and opt_state_template is not None:
-            flat = _read_tree(ckpt_dir / "optim", device)
+            flat = _read_tree(ckpt_dir / "optim", read_on)
             _verify_leaves(_unflat(flat), manifest.get("optim"), "optim")
             flat = _match_template(
                 flat, _opt_state_to_tree(opt_state_template), "optim")
-            opt_state = _tree_to_opt_state(_unflat(flat))
             nbytes += sum(v.numel() * v.element_size()
                           for v in flat.values())
+            opt_state = _tree_to_opt_state(_unflat(
+                flat if plan is None else _cut(plan, flat, True, device)))
 
     if finetune:
         meta["iteration"] = 0
@@ -642,6 +779,21 @@ def load_checkpoint(
     print(f" [checkpoint] loaded {ckpt_dir.name} from {load_dir}: {nbytes} "
           f"bytes in {time.perf_counter() - t0:.3f} s", flush=True)
     return params, opt_state, meta
+
+
+def _cut(plan, flat: dict, is_opt: bool, device) -> dict:
+    """This rank's pieces of a one-device flat tree, on ``device``."""
+    out = {}
+    for key, leaf in flat.items():
+        path = _key_path(key)
+        if is_opt:
+            ppath, state = _state_leaf(path)
+            piece = (plan.shard_leaf(ppath, leaf, sliced=plan.zero1)
+                     if state else leaf)
+        else:
+            piece = plan.shard_leaf(path, leaf)
+        out[key] = piece.to(device)
+    return out
 
 
 # -- opt-state <-> plain tree ------------------------------------------------

@@ -189,12 +189,9 @@ class TransformerConfig:
 # one value it takes) (ROADMAP item 15)
 _UNPORTED_PARALLEL = {
     "pipeline_model_parallel_size": ("pipeline parallelism", 1),
-    "data_parallel_size": ("data parallelism", 1),
     "context_parallel_size": ("context parallelism", 1),
     "expert_model_parallel_size": ("the expert axis", 1),
     "num_slices": ("multislice training", 1),
-    "use_distributed_optimizer": ("ZeRO-1 (the distributed optimizer)",
-                                  False),
     "multislice_hierarchical": ("multislice training", False),
     "virtual_pipeline_model_parallel_size": ("the interleaved pipeline",
                                              None),
@@ -204,9 +201,10 @@ _UNPORTED_PARALLEL = {
 @dataclass(frozen=True)
 class ParallelConfig:
     """Mesh shape + parallelism behaviour (the JAX package's fields).
-    Tensor parallelism runs over ``torch.distributed`` (``topology.py``),
-    with sequence parallelism at tp > 1; every other parallel degree
-    above 1, ZeRO-1 and virtual pipelining raise ``NotImplementedError``
+    Tensor and data parallelism run over ``torch.distributed``
+    (``topology.py``), with sequence parallelism at tp > 1 and ZeRO-1
+    (``use_distributed_optimizer``) at dp > 1; every other parallel
+    degree above 1 and virtual pipelining raise ``NotImplementedError``
     naming the feature (later slices of ROADMAP item 15)."""
 
     tensor_model_parallel_size: int = 1
@@ -229,8 +227,8 @@ class ParallelConfig:
             if value != ok:
                 raise NotImplementedError(
                     f"{feature} ({name}={value}) is not ported yet: this "
-                    f"slice runs tensor and sequence parallelism only "
-                    f"(ROADMAP item 15)")
+                    f"slice runs tensor, sequence and data parallelism "
+                    f"only (ROADMAP item 15)")
 
     @property
     def world_size(self) -> int:

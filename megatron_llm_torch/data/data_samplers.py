@@ -8,9 +8,13 @@ Reference: ``megatron/data/data_samplers.py`` —
 
 The loader yields **global** host batches (numpy) shaped
 ``[num_micro, micro_batch * dp, seq]``.  The JAX package places them on
-its mesh (``place_host_batch``, ``_verify_cross_host_batch``); the port
-trains on one device, so ``finetune.build_data_iterator`` moves each
-batch to it with ``torch.from_numpy(...).to(device)``.
+its mesh (``place_host_batch``, ``_verify_cross_host_batch``), whose
+logical ``batch`` axis maps to ``dp``; the port's dp rank r keeps rows
+``r * mb ... (r + 1) * mb - 1`` of each micro batch (``dp_rows``, the
+slice the JAX placement gives that rank), and
+``finetune.build_data_iterator`` moves them to the rank's device with
+``torch.from_numpy(...).to(device)``.  ``consumed_samples`` counts the
+global batch.
 """
 
 from __future__ import annotations
@@ -92,6 +96,23 @@ class MegatronPretrainingRandomSampler:
                     break
                 self.consumed_samples += len(batch)
                 yield batch
+
+
+def dp_rows(batch: dict, dp_rank: int, dp_size: int) -> dict:
+    """dp rank ``dp_rank``'s rows of a global batch dict of
+    ``[num_micro, mb * dp, ...]`` arrays: rows ``dp_rank * mb`` up to
+    ``(dp_rank + 1) * mb`` of each micro batch."""
+    if dp_size == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        rows = v.shape[1]
+        if rows % dp_size:
+            raise ValueError(f"{k}: {rows} rows a micro batch do not split "
+                             f"over dp {dp_size}")
+        mb = rows // dp_size
+        out[k] = v[:, dp_rank * mb:(dp_rank + 1) * mb]
+    return out
 
 
 def build_pretraining_data_loader(

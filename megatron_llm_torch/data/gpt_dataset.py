@@ -140,9 +140,15 @@ def _build_index_mappings(
     rng.shuffle(shuffle_idx)
 
     try:
-        np.save(doc_p, doc_idx, allow_pickle=False)
-        np.save(samp_p, sample_idx, allow_pickle=False)
-        np.save(shuf_p, shuffle_idx, allow_pickle=False)
+        # each file whole or absent: the ranks of a data-parallel run
+        # build the same mappings at once, and one may read what another
+        # writes
+        for path, arr in ((doc_p, doc_idx), (samp_p, sample_idx),
+                          (shuf_p, shuffle_idx)):
+            tmp = f"{path}.tmp{os.getpid()}"
+            with open(tmp, "wb") as f:
+                np.save(f, arr, allow_pickle=False)
+            os.replace(tmp, path)
     except OSError:
         pass  # read-only data dir: skip caching
     if time.time() - t0 > 5:

@@ -2,9 +2,12 @@
 counterpart of ``megatron_llm_tpu/dist_signal_handler.py``).
 
 The handler sets a flag; the train loop polls it after each iteration
-and, when it is set, saves a checkpoint and exits.  The port trains in
-one process, so ``signals_received`` reads the local flag with or
-without ``consensus`` and gathers nothing.
+and, when it is set, saves a checkpoint and exits.  In one process
+``signals_received`` reads the local flag.  In a world of ranks (tp x
+dp under torchrun) no rank acts alone: without ``consensus`` the answer
+is False, and with it the flag is max-reduced over the world, as the
+JAX package reduces it over hosts, so every rank enters the save's
+collectives together.
 """
 
 from __future__ import annotations
@@ -42,6 +45,24 @@ class DistributedSignalHandler:
         self._received = True
 
     def signals_received(self, consensus: bool = False) -> bool:
-        """Whether to stop for a signal: the local flag (one process, so
-        ``consensus`` changes nothing)."""
-        return self._received
+        """Whether to stop for a signal.  ``consensus=False``: the local
+        flag in one process, False in a world of ranks.
+        ``consensus=True``: the flag max-reduced over the world (a
+        collective: call it only where every rank is in lockstep, the
+        train loop's log and save boundaries)."""
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()) \
+                or dist.get_world_size() == 1:
+            return self._received
+        if not consensus:
+            return False
+        import torch
+
+        from megatron_llm_torch.parallel import mappings
+
+        world = dist.group.WORLD
+        dev = "cuda" if dist.get_backend(world) == "nccl" else "cpu"
+        flag = torch.tensor(1.0 if self._received else 0.0, device=dev)
+        return bool(mappings.collective("all_reduce", flag, world,
+                                        reduce="max") > 0)

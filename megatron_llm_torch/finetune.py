@@ -49,23 +49,31 @@ JSONL).  ``--device cpu`` runs it on the CPU (the tests do); the
 default is the card.  ``--fp16`` trains fp16 parameters under the loss
 scale, as ``--bf16`` trains bf16 ones.
 
-Tensor parallelism runs under torchrun, one process a rank::
+Tensor and data parallelism run under torchrun, one process a rank;
+dp is the world over tp::
 
-    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
         -m megatron_llm_torch.finetune --model_name=llama2 ... \
-        --tensor_model_parallel_size 2 --sequence_parallel
+        --tensor_model_parallel_size 2 --sequence_parallel \
+        --use_distributed_optimizer --save ck --save_interval 2
 
 ``initialize.initialize_parallel`` boots the process group from
 torchrun's environment (``--distributed_backend``: ``xla``, the default,
 is NCCL on the card and gloo on the CPU; ``gloo`` lets ranks share one
 GPU) and places each rank on ``cuda:LOCAL_RANK``.  Each rank inits the
 one-device params from ``--seed`` and keeps its slices, so a seed gives
-the same model at every tp.  Rank 0 logs and writes the JSONL stream;
-at the end of the run every rank prints one line with its param bytes,
-its peak device memory and its kernel launches.  At tp > 1 LoRA,
-``--save`` / ``--load`` / ``--async_save`` and
-``--log_layer_stats_interval`` raise ``NotImplementedError``; so do
-data, pipeline and context parallelism at any tp (ROADMAP item 15).
+the same model at every tp; dp rank r trains on rows ``r * mb ... (r +
+1) * mb - 1`` of each global micro batch, and
+``--use_distributed_optimizer`` (ZeRO-1) splits the optimizer state
+over dp.  ``--save`` / ``--load`` / ``--async_save`` write and read the
+one layout a tp-1 run writes (rank 0 writes it; every rank cuts its
+pieces from it), so a run resumes at any tp x dp, and the tp-1 server
+serves it.  Rank 0 logs and writes the JSONL stream; at the end of the
+run every rank prints one line with its param and optimizer-state
+bytes, its peak device memory and its kernel launches.  In a world of
+more than one rank LoRA raises ``NotImplementedError``, and so do the
+mixture of experts at dp > 1 and pipeline and context parallelism at
+any size (ROADMAP item 15).
 ``--profiler_port`` and the flags of the other features the port lacks
 (``arguments.UNPORTED_TRAINING``) parse and raise
 ``NotImplementedError``.  ``python -m megatron_llm_torch.pretrain_gpt``
@@ -106,6 +114,7 @@ from megatron_llm_torch.models.language_model import (
 )
 from megatron_llm_torch.optimizer import MegatronOptimizer
 from megatron_llm_torch.parallel import mappings
+from megatron_llm_torch.parallel.sharding import plan_for
 from megatron_llm_torch.resilience import build_resilience
 from megatron_llm_torch.telemetry import build_telemetry
 from megatron_llm_torch.timers import Timers
@@ -113,8 +122,10 @@ from megatron_llm_torch.tokenizer import build_tokenizer
 from megatron_llm_torch.training import (
     build_scheduler,
     build_train_step,
+    default_loss_func,
     kernel_launches,
     pretrain,
+    refuse_at_dp,
 )
 from megatron_llm_torch.tree import tree_leaves
 from megatron_llm_torch.wandb_logger import WandbTBShim
@@ -215,9 +226,10 @@ def model_provider(args):
 def build_data_iterator(args, num_micro, consumed_samples=0,
                         tokenizer=None, consumed_valid_samples=0,
                         device="cuda"):
-    """(train, valid) iterators of global batches, dicts of [num_micro,
-    mb, seq] tensors on ``device`` (the JAX entry point's
-    ``build_data_iterator``, with ``.to(device)`` for its mesh placement):
+    """(train, valid) iterators of this dp rank's rows of the global
+    batches, dicts of [num_micro, mb, seq] tensors on ``device`` (the JAX
+    entry point's ``build_data_iterator``, with ``data_samplers.dp_rows``
+    and ``.to(device)`` for its mesh placement):
 
     * no ``--data_path``: random token ids from ``--seed`` (numpy, as the
       JAX entry point draws them), labels rolled by one, a loss mask of
@@ -237,9 +249,11 @@ def build_data_iterator(args, num_micro, consumed_samples=0,
     fresh batches (the JAX entry point sizes it for one evaluation)."""
     from megatron_llm_torch.data.data_samplers import (
         build_pretraining_data_loader,
+        dp_rows,
     )
 
     total_dp = args.data_parallel_size
+    dp_rank = topology.get_data_parallel_rank()
     if args.data_path is None:
         rng = np.random.RandomState(args.seed)
         mb = args.micro_batch_size * total_dp
@@ -312,8 +326,9 @@ def build_data_iterator(args, num_micro, consumed_samples=0,
 
         def gen():
             for b in it:
-                yield {k: torch.from_numpy(v).to(device)
-                       for k, v in b.items()}
+                b = dp_rows(b, dp_rank, total_dp)
+                yield {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                    device) for k, v in b.items()}
         return gen()
 
     return place(host_iter), place(eval_iter)
@@ -389,14 +404,10 @@ def _apply_checkpoint_args(args) -> dict:
     return arch
 
 
-# flags of features this slice runs on one device only (ROADMAP item 15)
+# flags of features this slice runs in a world of one only (ROADMAP item
+# 15 (f))
 _ONE_DEVICE_ONLY = {
     "lora_rank": "LoRA (--lora_rank)",
-    "save": "checkpoints (--save)",
-    "load": "checkpoints (--load)",
-    "async_save": "async checkpoint saves (--async_save)",
-    "log_layer_stats_interval": "the layer-stats observatory "
-                                "(--log_layer_stats_interval)",
 }
 
 # the outputs only rank 0 writes
@@ -405,13 +416,17 @@ _RANK_0_OUTPUTS = ("structured_log_dir", "tensorboard_dir", "trace_dir",
 
 
 def _refuse_at_tp(args) -> None:
-    if args.tensor_model_parallel_size > 1:
-        for dest, feature in _ONE_DEVICE_ONLY.items():
-            if getattr(args, dest):
-                raise NotImplementedError(
-                    f"{feature} at tensor-parallel size "
-                    f"{args.tensor_model_parallel_size} is not ported yet "
-                    f"(ROADMAP item 15)")
+    sizes = [(f"tensor-parallel size {args.tensor_model_parallel_size}",
+              args.tensor_model_parallel_size),
+             (f"data-parallel size {args.data_parallel_size}",
+              args.data_parallel_size)]
+    for where, size in sizes:
+        if size > 1:
+            for dest, feature in _ONE_DEVICE_ONLY.items():
+                if getattr(args, dest):
+                    raise NotImplementedError(
+                        f"{feature} at {where} is not ported yet (ROADMAP "
+                        f"item 15 (f))")
 
 
 def _global_rank() -> int:
@@ -420,17 +435,25 @@ def _global_rank() -> int:
     return dist.get_rank() if topology.is_distributed() else 0
 
 
-def rank_summary(params) -> dict:
-    """This rank's param bytes and elements, its peak device memory and
-    its kernel launches (what the end-of-run line prints)."""
+def rank_summary(params, opt_state=None) -> dict:
+    """This rank's param and optimizer-state bytes, its peak device
+    memory and its kernel launches (what the end-of-run line prints)."""
     ps = tree_leaves(params)
     dev = ps[0].device
+    state = [] if opt_state is None else [
+        t for tree in (opt_state.master_params, opt_state.exp_avg,
+                       opt_state.exp_avg_sq) if tree is not None
+        for t in tree_leaves(tree)]
     return {
         "rank": _global_rank(),
         "tp_rank": topology.get_tensor_model_parallel_rank(),
         "tp": topology.get_tensor_model_parallel_world_size(),
+        "dp_rank": topology.get_data_parallel_rank(),
+        "dp": topology.get_data_parallel_world_size(),
         "param_bytes": sum(p.numel() * p.element_size() for p in ps),
         "param_elements": sum(p.numel() for p in ps),
+        "opt_state_bytes": sum(t.numel() * t.element_size()
+                               for t in state),
         "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None),
         "kernel_launches": kernel_launches(),
@@ -477,7 +500,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     pc = parallel_config_from_args(args)
     tc = train_config_from_args(args)
     model = model_provider(args)
-    num_micro = args.global_batch_size // args.micro_batch_size
+    # the features this slice does not split over dp raise before any
+    # collective
+    refuse_at_dp(model.cfg, default_loss_func)
+    num_micro = args.global_batch_size // (args.micro_batch_size
+                                           * args.data_parallel_size)
     resilience = build_resilience(args)
     # built before the checkpoint load so the startup restore lands in
     # the trace (--trace_dir opens a checkpoint_load span)
@@ -515,12 +542,14 @@ def _train(args, model, pc, tc, num_micro, tokenizer, arch, resilience,
     # jax.eval_shape template)
     params, opt_state = None, None
     start_iteration = consumed_samples = 0
+    template = init_language_model_params(None, model.cfg, device="meta")
+    # at tp x dp: the step's plan, which cuts a load and gathers a save
+    plan = plan_for(template, model.cfg, args.sequence_parallel,
+                    args.use_distributed_optimizer)
     if args.load:
-        template = init_language_model_params(None, model.cfg,
-                                              device="meta")
         params, _, meta = checkpointing.load_checkpoint(
             args.load, finetune=args.finetune, iteration=args.load_iters,
-            params_template=template, device=model.device)
+            params_template=template, device=model.device, plan=plan)
         if params is not None:
             start_iteration = meta["iteration"]
             print(f" loaded checkpoint at iteration {start_iteration}",
@@ -568,7 +597,7 @@ def _train(args, model, pc, tc, num_micro, tokenizer, arch, resilience,
             _, opt_state, _ = checkpointing.load_checkpoint(
                 args.load, iteration=args.load_iters, load_params=False,
                 opt_state_template=optimizer.init(template),
-                scheduler=scheduler, device=model.device)
+                scheduler=scheduler, device=model.device, plan=plan)
             if opt_state is not None:
                 print(" restored optimizer + scheduler state", flush=True)
 
@@ -586,7 +615,7 @@ def _train(args, model, pc, tc, num_micro, tokenizer, arch, resilience,
             None if args.no_save_optim else opt_state_, scheduler_,
             args=checkpointing.config_to_args(model.cfg),
             consumed_samples=consumed_samples_,
-            async_save=args.async_save)
+            async_save=args.async_save, plan=plan)
         saved_at.append(it_)
 
     print(f" > {args.model_name}: {model.num_params(params) / 1e6:.1f}M "
@@ -666,7 +695,7 @@ def _train(args, model, pc, tc, num_micro, tokenizer, arch, resilience,
             writer.finish()
         if handler:
             handler.__exit__(None, None, None)
-    summary.update(rank_summary(params))
+    summary.update(rank_summary(params, opt_state))
     # the final checkpoint, unless the loop has just written this one
     if args.save and saved_at[-1:] != [it]:
         # the samples the loop drew, rewound iterations' batches included

@@ -90,11 +90,20 @@ class GroupStats:
     one leaf (or one stacked row) at a time, on the leaves' device.
 
     ``slots(path, leaf)`` gives the leaf's group slot (``int``) or, for a
-    stacked leaf, the start of its row slots; ``add_sumsq`` and
-    ``add_nonfinite`` take a [rows] vector for a stacked leaf (one
-    reduction over all but the leading axis) or a scalar."""
+    stacked leaf, the start of its row slots; ``add`` takes a [rows]
+    vector for a stacked leaf (one reduction over all but the leading
+    axis) or a scalar, and ``add_sumsq`` reduces a tensor of the leaf
+    itself.
 
-    def __init__(self, names: Sequence[str], device):
+    At tp x dp a ``plan`` (``parallel/sharding.TensorParallelPlan``)
+    makes ``add_sumsq`` count each element once, as the grad norm does
+    (``unique_parts``; ``sliced``: the tensors are ZeRO-1 slices), and
+    ``result`` sums the groups over tp x dp, so that every rank holds the
+    one-device stats."""
+
+    def __init__(self, names: Sequence[str], device, plan=None,
+                 sliced: bool = False):
+        self.plan, self.sliced = plan, sliced
         self.names = list(names)
         self.start = _layer_slot(self.names)
         self.device = device
@@ -121,13 +130,37 @@ class GroupStats:
         else:
             acc[slot + (row or 0)] += value
 
+    def add_sumsq(self, key: str, path, t: torch.Tensor,
+                  row: Optional[int] = None) -> None:
+        """Add the sum of squares of ``t`` (with ``key`` "nonfinite", its
+        count of non-finite entries) to the leaf's slot, counting only
+        the parts of ``t`` this rank counts: ``t`` is the whole leaf
+        (per row when stacked), or stacked row ``row`` of it."""
+        stacked, _ = self.slots(path)
+        per_row = stacked and row is None
+        parts = [t] if self.plan is None else \
+            self.plan.unique_parts(path, t, self.sliced)
+        fn = row_nonfinite if key == "nonfinite" else row_sumsq
+        for part in parts:
+            self.add(key, path, fn(part, per_row), row=row)
+
     def result(self, updates: bool = True) -> Dict[str, torch.Tensor]:
         """The fixed-shape [G] stats: fp32 norms, int32 counts."""
-        out = {"grad_norm": self.sumsq["grad_norm"].sqrt(),
-               "param_norm": self.sumsq["param_norm"].sqrt(),
-               "nonfinite_grads": self.nonfinite.to(torch.int32)}
+        sums = dict(self.sumsq)
+        nonfinite = self.nonfinite
+        if self.plan is not None:
+            keys = [k for k in ("grad_norm", "param_norm", "update_norm")
+                    if updates or k != "update_norm"]
+            total = self.plan.all_sum(torch.cat([sums[k] for k in keys]))
+            n = len(self.names)
+            for i, k in enumerate(keys):
+                sums[k] = total[i * n:(i + 1) * n]
+            nonfinite = self.plan.all_sum(nonfinite)
+        out = {"grad_norm": sums["grad_norm"].sqrt(),
+               "param_norm": sums["param_norm"].sqrt(),
+               "nonfinite_grads": nonfinite.to(torch.int32)}
         if updates:
-            out["update_norm"] = self.sumsq["update_norm"].sqrt()
+            out["update_norm"] = sums["update_norm"].sqrt()
         return out
 
 
@@ -148,27 +181,29 @@ def row_nonfinite(x: torch.Tensor, stacked: bool) -> torch.Tensor:
     return bad.sum()
 
 
-def compute_layer_stats(params, grads, updates=None) -> Dict[str, torch.Tensor]:
+def compute_layer_stats(params, grads, updates=None, plan=None,
+                        sliced: bool = False) -> Dict[str, torch.Tensor]:
     """Per-group stats of whole trees (all share the param tree's
     structure): ``grads`` should be the unscaled, pre-clip gradients (so
     grad norms partition the global grad norm) and ``updates`` the
     applied master-weight delta (zero on a skipped overflow step).
     Returns fixed-shape ``[G]`` tensors — grad_norm, param_norm,
     update_norm (fp32), nonfinite_grads (int32) — in
-    ``layer_group_names(params)`` order."""
+    ``layer_group_names(params)`` order.  At tp x dp, with the step's
+    ``plan``, the trees are this rank's pieces (``sliced``: ZeRO-1
+    slices) and the sums run over tp x dp, each element once."""
     names = layer_group_names(params)
     leaves = tree_leaves_with_path(params)
-    gs = GroupStats(names, leaves[0][1].device if leaves else "cpu")
+    gs = GroupStats(names, leaves[0][1].device if leaves else "cpu", plan,
+                    sliced)
     trees = (("param_norm", params), ("grad_norm", grads))
     if updates is not None:
         trees += (("update_norm", updates),)
     for key, tree in trees:
         for path, leaf in tree_leaves_with_path(tree):
-            stacked, _ = gs.slots(path)
-            gs.add(key, path, row_sumsq(leaf, stacked))
+            gs.add_sumsq(key, path, leaf)
             if key == "grad_norm":
-                gs.add("nonfinite", path,
-                       row_nonfinite(leaf.float(), stacked))
+                gs.add_sumsq("nonfinite", path, leaf.float())
     return gs.result(updates=updates is not None)
 
 

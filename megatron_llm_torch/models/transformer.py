@@ -560,14 +560,24 @@ def _dropout(x: torch.Tensor, rate: float, key: Optional[int],
     outside training, without a key, or at a rate of 0.  ``local =
     (full shape, (dim, start, length))``: ``x`` is that slice of a tensor
     of the full shape (a tensor-parallel shard), and takes that slice of
-    the full shape's mask."""
+    the full shape's mask.  At dp > 1 ``x`` (batch-major) holds this
+    rank's rows of the global micro batch, and the mask is drawn at the
+    global batch's rows too, so that every tp x dp gives the one-device
+    masks."""
     if not train or key is None or rate <= 0.0:
         return x
-    if local is None:
+    full, cuts = (tuple(x.shape), []) if local is None else \
+        (tuple(local[0]), [local[1]])
+    dp = topology.get_data_parallel_world_size()
+    if dp > 1:
+        b = full[0]
+        full = (b * dp,) + full[1:]
+        cuts.append((0, topology.get_data_parallel_rank() * b, b))
+    if not cuts:
         keep = mrandom.bernoulli(key, 1.0 - rate, x.shape, x.device)
     else:
-        keep = mrandom.bernoulli(key, 1.0 - rate, local[0], x.device,
-                                 local=local[1]).reshape(x.shape)
+        keep = mrandom.bernoulli(key, 1.0 - rate, full, x.device,
+                                 local=cuts).reshape(x.shape)
     return x * keep.to(x.dtype) / _keep_scale(rate, x.dtype)
 
 

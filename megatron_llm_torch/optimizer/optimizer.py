@@ -20,13 +20,20 @@ norms and non-finite counts of the unscaled grads before the clip, the
 param norms of the masters before the update, and the update norms of
 the master after the step minus the master before it, one stacked row at
 a time so that no second copy of the masters is made.  A step that
-finds an inf/nan gets the same record with zero updates.  At
-tensor-parallel size above 1 the step takes the train step's
-``TensorParallelPlan`` (``parallel/sharding.py``): the grad norm sums
-the squares of every rank's sharded leaves and of each replicated
-element once, over the tp group, and the inf/nan check is all-reduced,
-so that every rank clips by the same norm and skips the same step.
-ZeRO-1 and the state's sharding specs are a later slice.
+finds an inf/nan gets the same record with zero updates.  At tp x dp
+above 1 the step takes the train step's ``TensorParallelPlan``
+(``parallel/sharding.py``): the grad norm sums the squares of every
+element once over tp x dp, the inf/nan check is agreed over the world,
+so that every rank clips by the same norm and skips the same step, and
+the layer stats' per-group sums count each element once the same way.
+Under ZeRO-1 (the plan's ``zero1``: ``--use_distributed_optimizer`` at
+dp > 1) a rank holds the masters and moments of its dp slice of each
+leaf that has one (``init(params, plan)``; the JAX package's
+``state_specs(zero1=True)``), takes that slice of the grads (the train
+step reduce-scatters them), updates it, and all-gathers the updated
+compute-dtype slices over dp into the live params.  Adam is elementwise,
+so given the same clip coefficient the update equals plain dp's bit for
+bit.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from megatron_llm_torch.tree import (
     tree_leaves,
     tree_leaves_with_path,
     tree_map,
+    tree_unflatten,
 )
 
 
@@ -71,12 +79,14 @@ def _sumsq(t: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(t.float()).square()
 
 
-def global_grad_norm(grads, tp_plan=None) -> torch.Tensor:
+def global_grad_norm(grads, plan=None, sliced: bool = False
+                     ) -> torch.Tensor:
     """L2 norm over the whole grad tree, in fp32 (a 0-dim tensor); with a
-    ``tp_plan``, over the tp group's whole tree, each element once."""
-    if tp_plan is not None:
-        return tp_plan.global_sum(tree_leaves_with_path(grads),
-                                  _sumsq).sqrt()
+    ``plan``, over the whole tree of tp x dp, each element once
+    (``sliced``: the tree holds the ZeRO-1 slices)."""
+    if plan is not None:
+        return plan.global_sum(tree_leaves_with_path(grads), _sumsq,
+                               sliced).sqrt()
     leaves = tree_leaves(grads)
     sq = torch.stack([_sumsq(g) for g in leaves])
     return sq.sum().sqrt()
@@ -111,14 +121,22 @@ class MegatronOptimizer:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def init(self, params) -> OptimizerState:
+    def init(self, params, plan=None) -> OptimizerState:
+        """The state of ``params``; with a ZeRO-1 ``plan``, of this dp
+        rank's slice of each leaf that has one."""
         sd = self.state_dtype
+        if plan is not None and plan.zero1:
+            src = tree_unflatten(params, [
+                plan.dp_slice(path, p)
+                for path, p in tree_leaves_with_path(params)])
+        else:
+            src = params
         master = (tree_map(lambda p: p.detach().to(torch.float32, copy=True),
-                           params)
+                           src)
                   if self.is_low_precision else None)
-        exp_avg = tree_map(lambda p: torch.zeros_like(p, dtype=sd), params)
+        exp_avg = tree_map(lambda p: torch.zeros_like(p, dtype=sd), src)
         exp_avg_sq = (tree_map(lambda p: torch.zeros_like(p, dtype=sd),
-                               params)
+                               src)
                       if self.cfg.optimizer == "adam" else None)
         return OptimizerState(step=0, master_params=master, exp_avg=exp_avg,
                               exp_avg_sq=exp_avg_sq,
@@ -128,7 +146,7 @@ class MegatronOptimizer:
     @torch.no_grad()
     def step(self, params, grads, state: OptimizerState, lr: float,
              weight_decay: Optional[float] = None, *,
-             layer_stats: bool = False, tp_plan=None):
+             layer_stats: bool = False, plan=None):
         """One optimizer step.  ``grads`` are the *scaled* grads (the train
         step multiplies the loss by the current scale); they are read, not
         written.  Updates ``params``, the masters and the moments in place
@@ -138,13 +156,12 @@ class MegatronOptimizer:
         ``health.compute_layer_stats`` (grad norms over the unscaled
         pre-clip grads, param norms over the masters before the step,
         update norms over the applied master delta, zero on a skipped
-        step).  ``tp_plan``: the train step's ``TensorParallelPlan`` at
-        tp > 1 (the norm and the inf/nan check over the tp group)."""
+        step).  ``plan``: the train step's ``TensorParallelPlan`` at tp x
+        dp > 1 (the norm, the inf/nan check and the layer stats over tp x
+        dp); under its ZeRO-1 ``grads`` hold this rank's slice of each
+        leaf that has one, and the state is that slice's."""
         cfg = self.cfg
-        if layer_stats and tp_plan is not None:
-            raise NotImplementedError(
-                "the layer-stats observatory at tp > 1 is not ported yet "
-                "(ROADMAP item 15)")
+        zero = plan is not None and plan.zero1
         wd = cfg.weight_decay if weight_decay is None else weight_decay
         scale = state.grad_scaler.scale
         inv_scale = 1.0 / scale
@@ -156,16 +173,19 @@ class MegatronOptimizer:
         # read together in one host sync
         finite = torch.stack([torch.isfinite(g).all()
                               for g in g_leaves]).all().float()
-        if tp_plan is not None:
-            finite = tp_plan.all_finite(finite)
-        grad_norm = global_grad_norm(grads, tp_plan) * inv_scale
+        if plan is not None:
+            finite = plan.all_finite(finite)
+        grad_norm = global_grad_norm(grads, plan, zero) * inv_scale
         norm_host, finite_host = torch.stack([grad_norm, finite]).tolist()
         found_inf = finite_host < 1.0
         new_step = state.step + (0 if found_inf else 1)
+        # fp32 params under ZeRO-1 update their dp slice in place
         masters = (tree_leaves(state.master_params)
-                   if self.is_low_precision else [p for _, p in named])
+                   if self.is_low_precision else
+                   [plan.dp_slice(path, p) if zero else p
+                    for path, p in named])
         gs = (health.GroupStats(health.layer_group_names(params),
-                                g_leaves[0].device)
+                                g_leaves[0].device, plan, zero)
               if layer_stats else None)
         if gs is not None and found_inf:
             # the skipped step's record: what the NaN localizer reads
@@ -198,11 +218,14 @@ class MegatronOptimizer:
                         before = row(p32).clone()
                         self._update(row(p32), row(gf), row(m), row(v), lr,
                                      w, new_step)
-                        gs.add("update_norm", path,
-                               (row(p32) - before).square().sum(), row=r)
+                        gs.add_sumsq("update_norm", path,
+                                     row(p32) - before, row=r)
                         del before
                 del gf
-                if self.is_low_precision:
+                if zero and plan.zero_dim(path) is not None:
+                    # the dp ranks' updated slices into the live leaf
+                    p.copy_(plan.dp_gather(path, p32.to(p.dtype)))
+                elif self.is_low_precision:
                     p.copy_(p32)
         new_state = OptimizerState(
             step=new_step, master_params=state.master_params,
@@ -217,10 +240,9 @@ class MegatronOptimizer:
 
     @staticmethod
     def _grad_stats(gs, path, gf, p32):
-        stacked, _ = gs.slots(path)
-        gs.add("grad_norm", path, health.row_sumsq(gf, stacked))
-        gs.add("nonfinite", path, health.row_nonfinite(gf, stacked))
-        gs.add("param_norm", path, health.row_sumsq(p32, stacked))
+        gs.add_sumsq("grad_norm", path, gf)
+        gs.add_sumsq("nonfinite", path, gf)
+        gs.add_sumsq("param_norm", path, p32)
 
     def _update(self, p32, g, m, v, lr, w, t):
         if self.cfg.optimizer == "adam":

@@ -22,7 +22,9 @@ over tp, so the grads of all ranks must be summed.
 
 Every collective goes through ``collective``, on the (backend, device
 type, op) triples of the fixed table ``ROUTES``; any other raises
-``NotImplementedError``.  gloo takes CUDA tensors for all three ops and
+``NotImplementedError``.  Besides the three of the mappings, ``gather``
+(to the group's first rank) moves a checkpoint's pieces to the writer:
+on host tensors under gloo, on CUDA tensors under NCCL.  gloo takes CUDA tensors for all three ops and
 stages them through the host itself, so no op stages a copy here: two
 ranks on one H100 (torch 2.11) took 117, 100 and 49 ms for a tp-2
 rank's all-gather, reduce-scatter and all-reduce on gloo's own CUDA
@@ -44,7 +46,8 @@ from megatron_llm_torch import topology
 ROUTES = frozenset((backend, dev, op)
                    for backend, dev in (("gloo", "cpu"), ("gloo", "cuda"),
                                         ("nccl", "cuda"))
-                   for op in ("all_reduce", "all_gather", "reduce_scatter"))
+                   for op in ("all_reduce", "all_gather", "reduce_scatter")
+                   ) | {("gloo", "cpu", "gather"), ("nccl", "cuda", "gather")}
 
 # (backend, device type, op) -> calls in this process
 calls: Counter = Counter()
@@ -63,8 +66,9 @@ def collective(op: str, x: torch.Tensor, group=None, *, dim: int = 0,
     """One collective over ``group`` (the tp group by default), returning
     a new tensor: ``all_reduce`` (``reduce`` sum, max or min),
     ``all_gather`` (the ranks' ``x`` concatenated along ``dim``, in rank
-    order) or ``reduce_scatter`` (the sum over the ranks, this rank's
-    chunk of it along ``dim``)."""
+    order), ``reduce_scatter`` (the sum over the ranks, this rank's
+    chunk of it along ``dim``) or ``gather`` (on the group's first rank
+    what ``all_gather`` gives, None on the others)."""
     group = _group(group)
     n = dist.get_world_size(group)
     key = (dist.get_backend(group), x.device.type, op)
@@ -80,6 +84,12 @@ def collective(op: str, x: torch.Tensor, group=None, *, dim: int = 0,
         parts = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(parts, t, group=group)
         out = torch.cat(parts, dim=dim)
+    elif op == "gather":
+        root = dist.get_global_rank(group, 0)
+        mine = dist.get_rank() == root
+        parts = [torch.empty_like(t) for _ in range(n)] if mine else None
+        dist.gather(t, parts, dst=root, group=group)
+        out = torch.cat(parts, dim=dim) if mine else None
     elif op == "reduce_scatter":
         if t.shape[dim] % n:
             raise ValueError(f"reduce_scatter: dim {dim} of "

@@ -2,8 +2,12 @@
 tables (the port's copy of ``megatron_llm_tpu/models/language_model.py``'s
 ``_linear_spec``, ``_norm_spec``, ``transformer_layer_specs`` and
 ``language_model_param_specs``), the shard and gather of a tree on the
-JAX layout, and ``TensorParallelPlan``, which the train step and the
-optimizer use to finish a step's grads and to count each element once.
+JAX layout, the ZeRO-1 state's dp dims (``dp_shard_dim``, the JAX
+optimizer's ``state_specs(zero1=True)``), and ``TensorParallelPlan``,
+which the train step, the optimizer, the checkpoints and the snapshots
+use to finish and reduce a step's grads over tp x dp, to count each
+element once, and to move a tree between a rank's pieces and the one
+layout.
 
 A spec names the logical axis of each dim of a leaf (``'vocab'``,
 ``'ffn'``, ``'heads'``, ``'stage'`` or None).  The JAX package maps
@@ -326,33 +330,141 @@ def tp_sharder(cfg):
 
 
 # ---------------------------------------------------------------------------
-# the step's grads at tp
+# ZeRO-1: the optimizer state's dp slices
+# ---------------------------------------------------------------------------
+
+# the logical -> mesh axis table the JAX package shards with (its
+# ``DEFAULT_RULES``, the entries a param spec can name): ZeRO-1 reads it to
+# skip a leaf already on dp
+DEFAULT_RULES = {"vocab": topology.TP_AXIS, "ffn": topology.TP_AXIS,
+                 "heads": topology.TP_AXIS, "kv_heads": topology.TP_AXIS,
+                 "stage": topology.PP_AXIS, "expert": topology.DP_AXIS,
+                 "dp_shard": topology.DP_AXIS, "hidden": None, None: None}
+
+
+def dp_shard_dim(spec, shape, dp: int, rules=None) -> Optional[int]:
+    """The dim of a leaf whose optimizer state ZeRO-1 splits over dp (the
+    JAX package's ``state_specs(zero1=True)``): the first dim whose
+    logical axis is None and whose size divides by dp.  None when dp is
+    1, when the leaf is already on dp under ``rules`` (the MoE's
+    ``expert`` axis by default), or when no dim qualifies: the state then
+    stays replicated.  A stacked leaf leads with ``'stage'``, so its
+    layer axis is never the dp dim."""
+    if dp <= 1:
+        return None
+    active = rules if rules is not None else DEFAULT_RULES
+    if any(active.get(ax) == topology.DP_AXIS for ax in spec
+           if ax is not None):
+        return None
+    for i, (ax, n) in enumerate(zip(spec, shape)):
+        if ax is None and n % dp == 0:
+            return i
+    return None
+
+
+def zero1_state_specs(specs, params, dp: int, rules=None):
+    """The spec tree of the ZeRO-1 state (``master_params``,
+    ``exp_avg``, ``exp_avg_sq`` each): ``specs`` with ``'dp_shard'`` on
+    each leaf's ``dp_shard_dim``."""
+    def one(t, spec):
+        dim = dp_shard_dim(spec, t.shape, dp, rules)
+        spec = tuple(spec)
+        return spec if dim is None else \
+            spec[:dim] + ("dp_shard",) + spec[dim + 1:]
+
+    return _map_with_specs(one, params, specs)
+
+
+# ---------------------------------------------------------------------------
+# the step's grads at tp x dp
 # ---------------------------------------------------------------------------
 
 class TensorParallelPlan:
-    """What a step needs to know of the tree's placement at tp: which
-    leaves are sharded, which replicated leaves saw a sequence shard in
-    the forward, and which part of the QKV leaf several ranks hold.
+    """What a step needs to know of the tree's placement at tp x dp:
+    which leaves are sharded over tp, which replicated leaves saw a
+    sequence shard in the forward, which part of the QKV leaf several
+    ranks hold, and, under ZeRO-1, which dim of each leaf's optimizer
+    state is cut over dp (``zero_dims``).  Built from this rank's tree
+    or from the one-device tree alike (a dp dim is never a tp dim, so
+    its size is the same in both).
 
-    * ``finish_grads`` completes a step's grads in place: under sequence
-      parallelism each replicated leaf (the norms' scales and biases,
-      the row-parallel linears' biases, the position embedding) got only
-      its own sequence shard's contribution, and the sum over the tp
-      ranks is its grad; the K/V columns that tp / ng ranks share get
-      the sum of those ranks' contributions.
+    * ``finish_grads`` completes a step's grads over tp in place: under
+      sequence parallelism each replicated leaf (the norms' scales and
+      biases, the row-parallel linears' biases, the position embedding)
+      got only its own sequence shard's contribution, and the sum over
+      the tp ranks is its grad; the K/V columns that tp / ng ranks share
+      get the sum of those ranks' contributions.
+    * ``reduce_grads`` sums them over dp: an all-reduce, or under ZeRO-1
+      a reduce-scatter onto each rank's state slice (``dp_slice``) for
+      the leaves that have one.
     * ``unique_parts`` names the elements this rank counts in a global
-      sum (the grad norm, the zero count): all of a sharded leaf, a
-      replicated leaf on tp rank 0 only, and the shared K/V columns on
-      the first rank of their group only.
+      sum (the grad norm, the zero count, the layer stats): all of a
+      tp-sharded leaf, a tp-replicated leaf on tp rank 0 only, the shared
+      K/V columns on the first rank of their group only; over dp, a
+      ZeRO-1 slice on every rank (the slices are disjoint) and anything
+      else on dp rank 0 only.  ``global_sum`` adds them over tp, then
+      over dp; ``all_finite`` agrees a flag over the whole world.
+    * ``gather_leaf`` / ``shard_leaf``: a leaf (or its optimizer state)
+      between this rank's piece and the one-device layout, for the
+      checkpoints and the snapshots.
     """
 
-    def __init__(self, params, cfg, sequence_parallel: bool):
+    def __init__(self, params, cfg, sequence_parallel: bool,
+                 zero1: bool = False):
         self.tp = topology.get_tensor_model_parallel_world_size()
         self.rank = topology.get_tensor_model_parallel_rank()
+        self.dp = topology.get_data_parallel_world_size()
+        self.dp_rank = topology.get_data_parallel_rank()
         self.sequence_parallel = sequence_parallel
+        self.zero1 = bool(zero1) and self.dp > 1
+        self.cfg = cfg
         self.layout = head_layout(cfg, self.tp)
         self.specs = {p: s for p, s in tree_leaves_with_path(
             language_model_param_specs(params, cfg))}
+        self.zero_dims = {}
+        if self.zero1:
+            self.zero_dims = {
+                p: dp_shard_dim(self.specs[p], t.shape, self.dp)
+                for p, t in tree_leaves_with_path(params)}
+
+    # -- collectives over the axes of size > 1 ------------------------------
+
+    def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.tp == 1 else mappings.collective("all_reduce", x)
+
+    def dp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.dp == 1 else mappings.collective(
+            "all_reduce", x, topology.get_data_parallel_group())
+
+    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over tp, then over dp."""
+        return self.dp_sum(self.tp_sum(x))
+
+    # -- ZeRO-1 slices ------------------------------------------------------
+
+    def zero_dim(self, path) -> Optional[int]:
+        return self.zero_dims.get(path)
+
+    def dp_slice(self, path, t: torch.Tensor) -> torch.Tensor:
+        """This dp rank's slice (a view) of a leaf's ``zero_dim``; the
+        leaf itself when it has none."""
+        dim = self.zero_dim(path)
+        if dim is None:
+            return t
+        n = t.shape[dim] // self.dp
+        return t.narrow(dim, self.dp_rank * n, n)
+
+    def dp_gather(self, path, t: torch.Tensor) -> torch.Tensor:
+        """The dp ranks' slices of a leaf joined along its ``zero_dim``
+        (every rank of the dp group calls it)."""
+        dim = self.zero_dim(path)
+        if dim is None:
+            return t
+        return mappings.collective("all_gather", t,
+                                   topology.get_data_parallel_group(),
+                                   dim=dim)
+
+    # -- grads ----------------------------------------------------------------
 
     def _qkv(self, path) -> bool:
         return "query_key_value" in path and self.layout.kv_shared
@@ -366,7 +478,9 @@ class TensorParallelPlan:
 
     def finish_grads(self, named_grads) -> None:
         """``named_grads``: [(path, grad)] of this rank's tree, fp32,
-        reduced in place."""
+        reduced over tp in place."""
+        if self.tp == 1:
+            return
         for path, g in named_grads:
             spec = self.specs[path]
             if self.sequence_parallel and not is_sharded(spec):
@@ -387,7 +501,34 @@ class TensorParallelPlan:
         total = mappings.collective("all_reduce", buf)
         kv.copy_(total[grp])
 
-    def unique_parts(self, path, t: torch.Tensor) -> list:
+    def reduce_grads(self, named_grads) -> list:
+        """The grads summed over dp: [(path, grad)] with each leaf's whole
+        sum (an all-reduce, in place), or under ZeRO-1 this rank's slice
+        of it for a leaf with a ``zero_dim`` (a reduce-scatter)."""
+        if self.dp == 1:
+            return list(named_grads)
+        group = topology.get_data_parallel_group()
+        out = []
+        for path, g in named_grads:
+            dim = self.zero_dim(path)
+            if dim is None:
+                g.copy_(mappings.collective("all_reduce", g, group))
+                out.append((path, g))
+            else:
+                out.append((path, mappings.collective(
+                    "reduce_scatter", g, group, dim=dim)))
+        return out
+
+    # -- counting each element once -----------------------------------------
+
+    def unique_parts(self, path, t: torch.Tensor, sliced: bool = False
+                     ) -> list:
+        """The parts of this rank's ``t`` that it counts in a global sum.
+        ``sliced``: ``t`` is the ZeRO-1 slice of a leaf that has one (the
+        reduced grads, the state), not the whole tp-local leaf."""
+        if not (sliced and self.zero_dim(path) is not None) \
+                and self.dp_rank != 0:
+            return []
         if not is_sharded(self.specs[path]):
             return [t] if self.rank == 0 else []
         if self._qkv(path):
@@ -396,25 +537,71 @@ class TensorParallelPlan:
             return [q, kv] if first else [q]
         return [t]
 
-    def global_sum(self, named, fn) -> torch.Tensor:
-        """The sum over the tp group of ``fn(part)`` (a 0-dim tensor) over
+    def global_sum(self, named, fn, sliced: bool = False) -> torch.Tensor:
+        """The sum over tp x dp of ``fn(part)`` (a 0-dim tensor) over
         every part each rank counts (``unique_parts``), in fp32."""
         dev = named[0][1].device
         total = torch.zeros((), dtype=torch.float32, device=dev)
         for path, t in named:
-            for part in self.unique_parts(path, t):
+            for part in self.unique_parts(path, t, sliced):
                 total = total + fn(part).float()
-        return mappings.collective("all_reduce", total)
+        return self.all_sum(total)
 
     def all_finite(self, finite: torch.Tensor) -> torch.Tensor:
-        """The tp group's consensus on a local all-finite flag (a 0-dim
-        float tensor, 1.0 when finite): every rank skips the same step."""
-        return mappings.collective("all_reduce", finite, reduce="min")
+        """The world's consensus on a local all-finite flag (a 0-dim
+        float tensor, 1.0 when finite): every rank skips the same
+        step."""
+        import torch.distributed as dist
+
+        return mappings.collective("all_reduce", finite, dist.group.WORLD,
+                                   reduce="min")
+
+    # -- the one-device layout ------------------------------------------------
+
+    def gather_leaf(self, path, t: torch.Tensor, sliced: bool = False
+                    ) -> Optional[torch.Tensor]:
+        """The one-device leaf on global rank 0 from every rank's piece (a
+        collective: every rank calls it; the others get None).
+        ``sliced``: ``t`` is a ZeRO-1 state slice.  The pieces are
+        gathered to rank 0 alone, over dp into each dp rank 0, then over
+        tp, on host tensors under gloo: the bytes a save must move to
+        its writer, and no more."""
+        if sliced and self.zero_dim(path) is not None:
+            t = self._to_root(t, topology.get_data_parallel_group(),
+                              self.zero_dim(path))
+        if self.dp_rank != 0:
+            return None
+        spec = self.specs[path]
+        if self.tp == 1 or _tp_dim(spec) is None:
+            return t.detach() if self.rank == 0 else None
+        parts = self._to_root(t.unsqueeze(0),
+                              topology.get_tensor_model_parallel_group())
+        return None if parts is None else \
+            unshard_leaf(list(parts.unbind(0)), spec, self.cfg)
+
+    @staticmethod
+    def _to_root(t: torch.Tensor, group, dim: int = 0):
+        """``t`` of every rank of ``group`` joined along ``dim`` on its
+        first rank (None elsewhere): on host tensors under gloo."""
+        import torch.distributed as dist
+
+        x = t.detach()
+        if dist.get_backend(group) != "nccl":
+            x = x.cpu()
+        return mappings.collective("gather", x, group, dim=dim)
+
+    def shard_leaf(self, path, full: torch.Tensor, sliced: bool = False
+                   ) -> torch.Tensor:
+        """This rank's piece of a one-device leaf (a new tensor): its tp
+        slice, and with ``sliced`` its ZeRO-1 slice of that."""
+        local = shard_leaf(full, self.specs[path], self.rank, self.tp,
+                           self.cfg)
+        return self.dp_slice(path, local).contiguous() if sliced else local
 
 
-def plan_for(params, cfg, sequence_parallel: bool):
-    """A ``TensorParallelPlan`` at tp > 1, else None."""
-    if topology.get_tensor_model_parallel_world_size() == 1:
+def plan_for(params, cfg, sequence_parallel: bool, zero1: bool = False):
+    """A ``TensorParallelPlan`` at tp > 1 or dp > 1, else None."""
+    if topology.get_tensor_model_parallel_world_size() == 1 \
+            and topology.get_data_parallel_world_size() == 1:
         return None
-    return TensorParallelPlan(params, cfg, sequence_parallel)
-
+    return TensorParallelPlan(params, cfg, sequence_parallel, zero1)

@@ -45,6 +45,13 @@ def parse(argv: Sequence[str], extra_args: Callable):
     trainer and ``args.padded_vocab_size`` set."""
     args = parse_args(list(argv), extra_args_provider=extra_args)
     refuse_unported(args, UNPORTED_TRAINING, extra_args)
+    if args.data_parallel_size > 1:
+        # their losses are not row-separable (BERT's and T5's token means
+        # over the batch, ICT's in-batch negatives)
+        raise NotImplementedError(
+            f"BERT, T5 and ICT at data-parallel size "
+            f"{args.data_parallel_size} are not ported yet (ROADMAP item "
+            f"15 (g))")
     tokenizer = build_tokenizer(args) if args.tokenizer_type else None
     if args.padded_vocab_size is None:
         raise SystemExit("need --vocab_size/--padded_vocab_size or a "

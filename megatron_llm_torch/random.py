@@ -71,16 +71,21 @@ def bernoulli(key: int, p: float, shape, device, local=None
     bernoulli``: a uniform draw below ``p``).  The one function that
     draws a dropout mask.
 
-    ``local = (dim, start, length)``: the slice of that mask along
-    ``dim`` that a tensor-parallel rank keeps (its sequence shard, its
-    heads).  A mask then does not depend on the sharding: a rank's slice
-    equals the same slice of the one-device mask for the same key (the
-    JAX package's sharding-invariant bits).  Each rank draws the whole
-    mask to keep its slice, tp times the draws of its share."""
+    ``local = (dim, start, length)``, or a list of them: the slice of
+    that mask along each ``dim`` that a rank keeps (a tensor-parallel
+    rank's sequence shard or heads, a data-parallel rank's rows).  A
+    mask then does not depend on the sharding: a rank's slice equals the
+    same slice of the one-device mask for the same key (the JAX
+    package's sharding-invariant bits).  Each rank draws the whole mask
+    to keep its slice, tp x dp times the draws of its share."""
     u = torch.rand(tuple(shape), generator=generator(key, device),
                    device=device)
     mask = u < p
-    return mask if local is None else mask.narrow(*local)
+    if local is None:
+        return mask
+    for cut in ([local] if isinstance(local[0], int) else local):
+        mask = mask.narrow(*cut)
+    return mask
 
 
 class KeySeq:

@@ -40,6 +40,16 @@ into the very tensors the model and the optimizer hold.  A snapshot
 being written is no rescue target: the watchdog finds none until the
 copy is done.
 
+At tp x dp above 1 (the train step's ``TensorParallelPlan``) each rank
+snapshots its own pieces for the rewind, and the ranks agree on the
+finite check; when a rescue is bound, the snapshot also gathers the
+one-device tree into rank 0's host memory (``checkpointing.
+gather_one_layout``), at the step boundary where every rank is live, as
+the JAX package's snapshot is host numpy of the global arrays.  The
+rescue save then writes it from rank 0 with no collective, so a hung
+rank's watchdog never enters one; the other ranks' watchdogs write
+nothing.
+
 * **FaultInjector**: a deterministic chaos hook (flag- or env-driven,
   ``--fault_inject`` / ``MEGATRON_FAULT_INJECT``) that can poison the
   gradients of iteration i with NaN (by NaN-ing the loss mask — the NaN
@@ -412,6 +422,11 @@ class ResilienceManager:
         self._bad_streak = 0
         self._rewinds = 0
         self._snapshot: Optional[_Snapshot] = None
+        # at tp x dp: the plan, and rank 0's one-device host trees of the
+        # snapshot (params, optimizer tree) when a rescue is bound
+        self._plan = None
+        self._rescue_trees = None
+        self._rescue_bound = False
         # host buffers, one per leaf of (params, masters, m, v), allocated
         # by the first snapshot and written in place by every later one
         self._buffers: Optional[List[torch.Tensor]] = None
@@ -432,16 +447,25 @@ class ResilienceManager:
                      or (k > 0 and iteration % k == 0)))
 
     def take_snapshot(self, iteration: int, params, opt_state,
-                      scheduler=None) -> bool:
+                      scheduler=None, plan=None) -> bool:
         """Copy the training state into the host buffers.  Rejected
         (returns False) when any param is non-finite — a snapshot must be
         a known-good rewind target, and detection can lag the blow-up by
         up to a check interval.  The copies are complete when this
-        returns: the next step updates the live tensors in place."""
+        returns: the next step updates the live tensors in place.  At
+        tp x dp every rank calls it with the step's ``plan``: the finite
+        check is agreed, and a bound rescue gathers the one-device tree
+        into rank 0's host memory."""
+        if plan is not None:
+            self._plan = plan
         live = tree_leaves(params)
         floats = [t for t in live if t.is_floating_point()]
-        if floats and not bool(torch.stack(
-                [torch.isfinite(t).all() for t in floats]).all()):
+        finite = (torch.stack([torch.isfinite(t).all() for t in floats]
+                              ).all().float() if floats else
+                  torch.ones((), device=live[0].device) if live else None)
+        if finite is not None and self._plan is not None:
+            finite = self._plan.all_finite(finite)
+        if finite is not None and float(finite) < 1.0:
             print(f" [resilience] refusing snapshot at iteration "
                   f"{iteration}: non-finite parameters", flush=True)
             return False
@@ -452,6 +476,17 @@ class ResilienceManager:
         from megatron_llm_torch.checkpointing import copy_to_host
 
         self._snapshot = None           # no rescue target mid-copy
+        self._rescue_trees = None
+        if self._plan is not None and self._rescue_bound:
+            from megatron_llm_torch.checkpointing import (
+                _opt_state_to_tree,
+                gather_one_layout,
+            )
+
+            p_h, o_h, _ = gather_one_layout(
+                self._plan, params, None if opt_state is None else
+                _opt_state_to_tree(opt_state))
+            self._rescue_trees = None if p_h is None else (p_h, o_h)
         bufs = self._buffers = copy_to_host(live, self._buffers)
         it = iter(bufs)
 
@@ -632,6 +667,7 @@ class ResilienceManager:
             return
         if self.watchdog.on_fire is not None:
             return                   # caller installed a custom handler
+        self._rescue_bound = True
 
         def rescue():
             self.save_rescue(save_dir, save_args)
@@ -641,19 +677,32 @@ class ResilienceManager:
     def save_rescue(self, save_dir: str, save_args=None) -> Optional[str]:
         """Write the latest host snapshot as a normal checkpoint (callable
         from the watchdog thread: the snapshot is host memory, so this
-        never touches the wedged device stream)."""
+        never touches the wedged device stream).  At tp x dp rank 0
+        writes its one-device host trees and issues no collective; the
+        other ranks write nothing."""
         if self._snapshot is None:
             print(" [resilience] no snapshot to rescue-save", flush=True)
             return None
         from megatron_llm_torch import checkpointing, tracing
 
         snap = self._snapshot
+        if self._plan is not None:
+            if self._rescue_trees is None:
+                print(" [resilience] the rescue checkpoint is rank 0's to "
+                      "write", flush=True)
+                return None
+            params, opt_tree = self._rescue_trees
+            opt_state = (None if opt_tree is None else
+                         checkpointing._tree_to_opt_state(opt_tree))
+        else:
+            params, opt_state = snap.params, snap.opt_state
         with tracing.span("rescue_save", "checkpoint",
                           iteration=snap.iteration):
             path = checkpointing.save_checkpoint(
-                save_dir, snap.iteration, snap.params, snap.opt_state,
+                save_dir, snap.iteration, params, opt_state,
                 args=save_args,
                 consumed_samples=get_counters().get("samples", 0),
+                gathered=self._plan is not None,
             )
         print(f" [resilience] rescue checkpoint written: {path}", flush=True)
         return path

@@ -6,7 +6,9 @@ The JAX package lays its devices out as one mesh with axes ``('slice',
 order, tp innermost, so that a tensor-parallel group is a block of
 consecutive ranks (``rank_grid``).  ``initialize_model_parallel`` derives
 dp as world // (slice x tp x pp x cp), as the JAX package does, and
-builds one ``torch.distributed`` group for each tp block.  The getters
+builds one ``torch.distributed`` group for each tp block and one for each
+(slice, pp, cp, tp) coordinate, whose ranks stride cp x tp: the dp
+group, the JAX mesh's ``dp`` axis.  The getters
 answer from the process's own rank (the JAX package answers inside
 ``shard_map`` with ``axis_index``).  Before ``initialize_model_parallel``
 runs, every size is 1 and every rank 0: the single-device paths never
@@ -39,10 +41,11 @@ TP_AXIS = "tp"
 MESH_AXES = (SLICE_AXIS, PP_AXIS, DP_AXIS, CP_AXIS, TP_AXIS)
 
 # the sizes of the axes, their ranks for this process, and this process's
-# tp group (None in a world of one process)
+# tp and dp groups (None in a world of one process, or at size 1)
 _SIZES: Optional[dict] = None
 _COORDS: Optional[dict] = None
 _TP_GROUP = None
+_DP_GROUP = None
 _VIRTUAL_PIPELINE_MODEL_PARALLEL_SIZE: Optional[int] = None
 
 
@@ -78,13 +81,14 @@ def initialize_model_parallel(
     world_size: Optional[int] = None,
     rank: Optional[int] = None,
 ) -> np.ndarray:
-    """Lay the ranks out and build the tp groups; returns ``rank_grid``'s
-    array.  ``world_size`` and ``rank`` default to the process group's
+    """Lay the ranks out and build the tp and dp groups; returns
+    ``rank_grid``'s array.  ``world_size`` and ``rank`` default to the process group's
     (1 and 0 without one).  Given without a process group, only the
     sizes and ranks are set: no group is built (the rank arithmetic of
     the JAX package's mesh tests).  Every rank of a process group must
     call this, in the same order: ``new_group`` is collective."""
-    global _SIZES, _COORDS, _TP_GROUP, _VIRTUAL_PIPELINE_MODEL_PARALLEL_SIZE
+    global _SIZES, _COORDS, _TP_GROUP, _DP_GROUP
+    global _VIRTUAL_PIPELINE_MODEL_PARALLEL_SIZE
     have_pg = dist.is_available() and dist.is_initialized()
     if world_size is None:
         world_size = dist.get_world_size() if have_pg else 1
@@ -101,9 +105,19 @@ def initialize_model_parallel(
             group = dist.new_group([int(r) for r in block])
             if rank in block:
                 tp_group = group
+    dp_group = None
+    dp = grid.shape[2]
+    if have_pg and world_size > 1 and dp > 1:
+        # the dp axis to the end: each row is one (slice, pp, cp, tp)
+        # coordinate's dp ranks, which stride cp x tp
+        for row in np.moveaxis(grid, 2, -1).reshape(-1, dp):
+            group = dist.new_group([int(r) for r in row])
+            if rank in row:
+                dp_group = group
     _SIZES = dict(zip(MESH_AXES, grid.shape))
     _COORDS = {a: int(c) for a, c in zip(MESH_AXES, coords)}
     _TP_GROUP = tp_group
+    _DP_GROUP = dp_group
     _VIRTUAL_PIPELINE_MODEL_PARALLEL_SIZE = \
         virtual_pipeline_model_parallel_size
     return grid
@@ -115,8 +129,9 @@ def model_parallel_is_initialized() -> bool:
 
 def destroy_model_parallel() -> None:
     """Forget the layout (the process group itself stays up)."""
-    global _SIZES, _COORDS, _TP_GROUP, _VIRTUAL_PIPELINE_MODEL_PARALLEL_SIZE
-    _SIZES = _COORDS = _TP_GROUP = None
+    global _SIZES, _COORDS, _TP_GROUP, _DP_GROUP
+    global _VIRTUAL_PIPELINE_MODEL_PARALLEL_SIZE
+    _SIZES = _COORDS = _TP_GROUP = _DP_GROUP = None
     _VIRTUAL_PIPELINE_MODEL_PARALLEL_SIZE = None
 
 
@@ -184,6 +199,23 @@ def get_tensor_model_parallel_group():
                            "initialize_model_parallel ran without a "
                            "process group")
     return _TP_GROUP
+
+
+def get_data_parallel_group():
+    """This rank's dp group; raises when dp is 1 or when the layout was
+    set without a process group."""
+    if _DP_GROUP is None:
+        raise RuntimeError("no data-parallel group: dp is 1 or "
+                           "initialize_model_parallel ran without a "
+                           "process group")
+    return _DP_GROUP
+
+
+def is_one_device() -> bool:
+    """tp and dp are both 1: the rank holds the whole tree and the whole
+    optimizer state (the save paths' single-writer case)."""
+    return (get_tensor_model_parallel_world_size() == 1
+            and get_data_parallel_world_size() == 1)
 
 
 def resolve_backend(flag: str, device_type: str) -> str:
@@ -262,6 +294,17 @@ def refuse_at_tp(what: str) -> None:
         raise NotImplementedError(
             f"{what} at tensor-parallel size {tp} is not ported yet "
             f"(ROADMAP item 15)")
+
+
+def refuse_at_dp(what: str, item: str) -> None:
+    """Raise ``NotImplementedError`` for ``what`` at dp > 1 (a feature
+    whose loss or state this slice does not split over dp; ROADMAP item
+    15 ``item``)."""
+    dp = get_data_parallel_world_size()
+    if dp > 1:
+        raise NotImplementedError(
+            f"{what} at data-parallel size {dp} is not ported yet "
+            f"(ROADMAP item 15 {item})")
 
 
 def is_distributed() -> bool:

@@ -1,6 +1,6 @@
 """Training runtime: the train step and the pretrain loop (the
 counterpart of ``megatron_llm_tpu/training.py``), on one device or at
-tensor-parallel size above 1.
+tensor- and data-parallel sizes above 1.
 
 ``build_train_step`` returns a step with the JAX package's signature and
 metrics: a loop over the micro-batches, each a forward and
@@ -33,6 +33,17 @@ leaves' grads, which each saw one sequence shard, are summed over the
 tp group; so are the K/V columns ranks share), and the optimizer clips
 and skips over the tp group.  The loss is the vocab-parallel cross
 entropy's, the same on every rank.
+
+At dp > 1 each rank holds its rows of every micro batch
+(``data_samplers.dp_rows``).  A micro batch's loss is normalised as the
+JAX package's over the global micro batch: this rank's masked sum over
+the dp-summed mask count, so that the dp ranks' losses and grads add up
+to the global ones even where their masks differ.  The grads are summed
+over the dp group (an all-reduce, or under ZeRO-1 a reduce-scatter onto
+each rank's state slice, ``TensorParallelPlan.reduce_grads``), and
+``lm loss`` is the dp-global mean.  The mixture of experts and losses
+other than the masked token mean (BERT, T5, ICT) are refused at dp > 1
+(ROADMAP item 15 (f), (g)).
 
 ``pretrain`` carries the JAX loop's runtime hooks, all host-side:
 resilience (``resilience.py``: snapshots, the NaN/spike sentinel and
@@ -104,6 +115,35 @@ def _micro(batch: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
     return {k: v[i] for k, v in batch.items()}
 
 
+def _dp_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over this rank's dp group (itself at dp 1)."""
+    if topology.get_data_parallel_world_size() == 1:
+        return x
+    from megatron_llm_torch.parallel import mappings
+
+    return mappings.collective("all_reduce", x,
+                               topology.get_data_parallel_group())
+
+
+def _global_mask_counts(batch) -> torch.Tensor:
+    """[num_micro] loss-mask counts of the global micro batches (the dp
+    ranks' rows together), at least 1: the denominators of the JAX
+    package's ``default_loss_func`` over ``[mb x dp, seq]``."""
+    mask = batch["loss_mask"].float()
+    return _dp_sum(mask.reshape(mask.shape[0], -1).sum(dim=1)
+                   ).clamp(min=1.0)
+
+
+def refuse_at_dp(cfg, loss_func) -> None:
+    """The features whose loss or params this slice does not split over
+    dp raise at dp > 1."""
+    if getattr(cfg, "num_experts", 0) > 1:
+        topology.refuse_at_dp("the mixture of experts", "(f)")
+    if loss_func is not default_loss_func:
+        topology.refuse_at_dp("a loss other than the masked token mean "
+                              "(BERT, T5, ICT)", "(g)")
+
+
 def build_train_step(
     model,
     optimizer: MegatronOptimizer,
@@ -113,6 +153,7 @@ def build_train_step(
     forward_only: bool = False,
     log_num_zeros_in_grad: bool = False,
     log_layer_stats: bool = False,
+    plan=None,
 ):
     """One global training step.
 
@@ -136,20 +177,28 @@ def build_train_step(
     loss as ``moe aux loss`` and, when its coefficient is above 0, the
     z-loss as ``moe z loss``.
 
-    At tp > 1 (``topology``) ``params`` are this rank's slices; the step
-    finishes the grads over the tp group (``TensorParallelPlan``) before
-    the optimizer, and the num-zeros count counts each element once."""
+    At tp x dp > 1 (``topology``) ``params`` are this rank's slices and
+    the batch its rows of each micro batch; the step finishes the grads
+    over the tp group and sums them over dp (``TensorParallelPlan``,
+    ``plan`` or one built from the params and ``parallel_cfg``'s ZeRO-1
+    flag) before the optimizer, and the num-zeros count counts each
+    element once."""
     tp = topology.get_tensor_model_parallel_world_size()
-    if parallel_cfg.tensor_model_parallel_size != tp:
+    dp = topology.get_data_parallel_world_size()
+    if (parallel_cfg.tensor_model_parallel_size,
+            parallel_cfg.data_parallel_size) != (tp, dp):
         raise ValueError(
-            f"the parallel config's tp "
-            f"({parallel_cfg.tensor_model_parallel_size}) is not the "
-            f"topology's ({tp}): initialize_model_parallel first")
+            f"the parallel config's tp x dp "
+            f"({parallel_cfg.tensor_model_parallel_size} x "
+            f"{parallel_cfg.data_parallel_size}) is not the topology's "
+            f"({tp} x {dp}): initialize_model_parallel first")
     cfg = getattr(model, "cfg", None)
-    plans = {}
+    refuse_at_dp(cfg, loss_func)
+    plans = {"plan": plan} if plan is not None else {}
     moe_on = getattr(cfg, "num_experts", 0) > 1
 
-    def microbatch_loss(params, micro, scale, train, rng_key=None):
+    def microbatch_loss(params, micro, scale, train, rng_key=None,
+                        count=None):
         extra = {k: v for k, v in micro.items()
                  if k not in ("tokens", "labels", "loss_mask")}
         loss_tok = model(params, micro["tokens"], labels=micro["labels"],
@@ -157,7 +206,11 @@ def build_train_step(
         moe_aux = None
         if moe_on:
             loss_tok, moe_aux = loss_tok
-        out = loss_func(loss_tok, micro["loss_mask"])
+        if count is None:
+            out = loss_func(loss_tok, micro["loss_mask"])
+        else:
+            # this rank's share of the global micro batch's token mean
+            out = (loss_tok * micro["loss_mask"].float()).sum() / count
         # loss_func may return (total, {metric: scalar})
         loss, aux = out if isinstance(out, tuple) else (out, {})
         total = loss
@@ -169,13 +222,18 @@ def build_train_step(
                      + cfg.moe_z_loss_coeff * moe_aux[1])
         return total * scale / num_microbatches, loss, aux
 
+    def counts(batch):
+        return _global_mask_counts(batch) if dp > 1 else \
+            [None] * num_microbatches
+
     if forward_only:
         @torch.no_grad()
         def eval_step(params, batch, rng_key=None):
+            cs = counts(batch)
             losses = [microbatch_loss(params, _micro(batch, i), 1.0,
-                                      False)[1]
+                                      False, count=cs[i])[1]
                       for i in range(num_microbatches)]
-            return torch.stack(losses).mean()
+            return _dp_sum(torch.stack(losses).mean())
 
         return eval_step
 
@@ -187,11 +245,12 @@ def build_train_step(
         grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for p in leaves]
         losses, auxes = [], {}
+        cs = counts(batch)
         for i in range(num_microbatches):
             mkey = (mrandom.fold_in(rng_key, i) if rng_key is not None
                     else None)
             total, loss, aux = microbatch_loss(params, _micro(batch, i),
-                                               scale, True, mkey)
+                                               scale, True, mkey, cs[i])
             g = torch.autograd.grad(total, leaves, allow_unused=True)
             del total
             # accumulate in fp32 and drop each micro-batch's own grads
@@ -202,25 +261,33 @@ def build_train_step(
             losses.append(loss.detach())
             for k, v in aux.items():
                 auxes.setdefault(k, []).append(v.detach())
-        grad_tree = tree_unflatten(params, grads)
         if "plan" not in plans:
-            plans["plan"] = plan_for(params, cfg, bool(
-                getattr(cfg, "sequence_parallel", False)))
+            plans["plan"] = plan_for(
+                params, cfg, bool(getattr(cfg, "sequence_parallel", False)),
+                parallel_cfg.use_distributed_optimizer)
         plan = plans["plan"]
         if plan is not None:
-            plan.finish_grads(tree_leaves_with_path(grad_tree))
+            named = list(zip([p for p, _ in tree_leaves_with_path(params)],
+                             grads))
+            plan.finish_grads(named)
+            # under ZeRO-1 the whole accumulators go once sliced
+            grads = [g for _, g in plan.reduce_grads(named)]
+            del named
+        grad_tree = tree_unflatten(params, grads)
         # counted before the optimizer, which may scale the grads in place
         num_zeros = None
         if log_num_zeros_in_grad:
             num_zeros = (plan.global_sum(tree_leaves_with_path(grad_tree),
-                                         lambda t: (t == 0.0).sum())
+                                         lambda t: (t == 0.0).sum(),
+                                         plan.zero1)
                          if plan is not None else
                          torch.stack([(g == 0.0).sum() for g in grads]).sum())
+        del grads
         params, opt_state, stats = optimizer.step(
             params, grad_tree, opt_state, lr, wd,
-            layer_stats=log_layer_stats, tp_plan=plan)
+            layer_stats=log_layer_stats, plan=plan)
         metrics = {
-            "lm loss": torch.stack(losses).mean(),
+            "lm loss": _dp_sum(torch.stack(losses).mean()),
             "grad_norm": stats["grad_norm"],
             "loss_scale": stats["loss_scale"],
             "skipped_iter": int(stats["found_inf"]),
@@ -334,6 +401,18 @@ def _sync(device) -> None:
 _UNPORTED = {"train_step": "a custom train step"}
 
 
+def _world_max(x: float) -> torch.Tensor:
+    """The largest ``x`` over the world."""
+    import torch.distributed as dist
+
+    from megatron_llm_torch.parallel import mappings
+
+    world = dist.group.WORLD
+    dev = "cuda" if dist.get_backend(world) == "nccl" else "cpu"
+    return mappings.collective("all_reduce", torch.tensor(x, device=dev),
+                               world, reduce="max")
+
+
 def _layer_stats_host(stats) -> Dict[str, list]:
     """The step's [G] stat tensors as host lists, in one device sync."""
     keys = sorted(stats)
@@ -443,6 +522,13 @@ def pretrain(
       ``checkpointing.finalize_async_saves()`` runs before the next save
       and on every exit path.
 
+    At tp x dp > 1 every rank runs this loop on its pieces and its rows:
+    the loop builds the step's ``TensorParallelPlan`` (ZeRO-1 under
+    ``parallel_cfg.use_distributed_optimizer``), whose state slices the
+    fresh optimizer state takes, and which the saves, the snapshots, the
+    params norm and the layer stats use; the samples and tokens it counts
+    are the global batch's.
+
     A custom ``train_step`` raises ``NotImplementedError``."""
     for name, value in unported.items():
         if name not in _UNPORTED:
@@ -451,12 +537,14 @@ def pretrain(
         if value not in (None, False, 0):
             raise NotImplementedError(f"{_UNPORTED[name]} ({name}) is not "
                                       f"ported yet")
-    if log_layer_stats_interval:
-        topology.refuse_at_tp("--log_layer_stats_interval")
-    # at tp > 1 the params norm sums over the tp group
-    norm_plan = (plan_for(params, model.cfg, bool(getattr(
-        model.cfg, "sequence_parallel", False)))
-                 if log_params_norm and hasattr(model, "cfg") else None)
+    refuse_at_dp(getattr(model, "cfg", None), loss_func)
+    dp = topology.get_data_parallel_world_size()
+    # at tp x dp the step's grads, the params norm, the saves and the
+    # snapshots go through one plan
+    plan = (plan_for(params, model.cfg, bool(getattr(
+        model.cfg, "sequence_parallel", False)),
+        parallel_cfg.use_distributed_optimizer)
+        if hasattr(model, "cfg") else None)
     if timers is None:
         timers = Timers(log_level=2)
     if telemetry is None:
@@ -476,13 +564,13 @@ def pretrain(
         optimizer = MegatronOptimizer(
             train_cfg, params_dtype=model.cfg.params_torch_dtype)
     if opt_state is None:
-        opt_state = optimizer.init(params)
+        opt_state = optimizer.init(params, plan)
     if scheduler is None:
         scheduler = build_scheduler(train_cfg, start_iteration)
     train_step = build_train_step(
         model, optimizer, parallel_cfg, num_micro, loss_func,
         log_num_zeros_in_grad=log_num_zeros_in_grad,
-        log_layer_stats=log_layer_stats_interval > 0)
+        log_layer_stats=log_layer_stats_interval > 0, plan=plan)
     eval_step = (build_train_step(model, optimizer, parallel_cfg, num_micro,
                                   loss_func, forward_only=True)
                  if eval_iterator is not None else None)
@@ -535,7 +623,7 @@ def pretrain(
                     consumed_samples=consumed,
                     args=checkpointing.config_to_args(
                         getattr(model, "cfg", None)),
-                    async_save=async_save)
+                    async_save=async_save, plan=plan)
             timers("save-checkpoint").stop()
         non_train += time.perf_counter() - t0
         if watchdog is not None:
@@ -552,7 +640,7 @@ def pretrain(
                 # host-copy the last known-good state BEFORE this step
                 # runs: the step updates the live tensors in place
                 resilience.take_snapshot(iteration, params, opt_state,
-                                         scheduler)
+                                         scheduler, plan=plan)
             if injector is not None:
                 injector.before_iteration(iteration + 1)
             if profiler is not None:
@@ -604,7 +692,8 @@ def pretrain(
                 # sync so the window holds the device work of its last
                 # step, not just that step's launches
                 profiler.maybe_stop(iteration, sync=lambda: _sync(device))
-            tokens = batch["tokens"].numel()
+            # the global batch's: every dp rank trained on its rows
+            tokens = batch["tokens"].numel() * dp
             counters["tokens"] += tokens
             # one sample is one sequence: every leading axis but seq
             consumed += tokens // batch["tokens"].shape[-1]
@@ -667,7 +756,7 @@ def pretrain(
                     else:
                         with torch.no_grad():
                             metrics["params norm"] = global_grad_norm(
-                                params, norm_plan)
+                                params, plan)
                 timers("train-step-sync", log_level=1).start()
                 with tracing.span("step_sync", "step", iteration=iteration):
                     _sync(device)
@@ -821,7 +910,8 @@ def pretrain(
                 _save(iteration)
                 saved = True
 
-            # one process: the local flag is the answer at every iteration
+            # one process: the local flag is the answer at every iteration;
+            # a world of ranks agrees at the boundaries
             at_boundary = (saved or at_log_boundary
                            or iteration >= train_cfg.train_iters)
             if exit_signal_handler is not None \
@@ -842,6 +932,10 @@ def pretrain(
                 sys.exit(code)
 
             train_mins = (time.perf_counter() - train_start) / 60.0
+            if exit_duration_in_mins and topology.is_distributed():
+                # every rank leaves at the same iteration: the slowest
+                # clock decides
+                train_mins = float(_world_max(train_mins))
             if exit_duration_in_mins and train_mins > exit_duration_in_mins:
                 why = f"after {train_mins:.1f} minutes"
             elif exit_interval and iteration % exit_interval == 0:

@@ -1,5 +1,5 @@
-"""Tensor-parallel worlds of the port on the CPU, for the
-``test_torch_tp_*.py`` files: ``run_world`` starts one process a rank
+"""Tensor- and data-parallel worlds of the port on the CPU, for the
+``test_torch_tp_*.py`` and ``test_torch_dp.py`` files: ``run_world`` starts one process a rank
 (``subprocess``), joined by a gloo process group over a ``file://``
 store in the test's temporary directory (never a fixed port, so files
 running side by side do not meet), runs one task in every rank and
@@ -249,12 +249,17 @@ def task_families(rank, world, payload):
 
 
 def task_finetune(rank, world, payload):
-    """``finetune.main(argv)`` in this rank, with every logged
-    iteration's exact loss, grad norm and learning rate."""
+    """``finetune.main(argv)`` (or the ``entry`` module's ``main``) in
+    this rank, with every logged iteration's exact loss, grad norm and
+    learning rate."""
     import contextlib
+    import importlib
     import io
 
-    from megatron_llm_torch import finetune, training
+    from megatron_llm_torch import training
+
+    entry = importlib.import_module(
+        f"megatron_llm_torch.{payload.get('entry', 'finetune')}")
 
     seen = {}
     log0 = training.training_log
@@ -271,14 +276,267 @@ def task_finetune(rank, world, payload):
     buf = io.StringIO()
     try:
         with contextlib.redirect_stdout(buf):
-            it = finetune.main(payload["argv"])
+            it = entry.main(payload["argv"])
     finally:
         training.training_log = log0
     return dict(iteration=it, logged=seen, stdout=buf.getvalue())
 
 
+def _np_tree(tree) -> dict:
+    """{keystr: (fp32 numpy, dtype name)} of a tree (bf16 and fp16 widen
+    to fp32 exactly, so equal arrays mean equal bits)."""
+    from megatron_llm_torch.checkpointing import _flat, dtype_name
+
+    return {k: (v.detach().float().numpy().copy(), dtype_name(v))
+            for k, v in _flat(tree).items()}
+
+
+def _rows(batch, dp_rank, dp):
+    """This dp rank's rows of a numpy global batch, as tensors."""
+    import numpy as np
+    import torch
+
+    from megatron_llm_torch.data.data_samplers import dp_rows
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in dp_rows(batch, dp_rank, dp).items()}
+
+
+def _setup(case, world):
+    """The topology at the case's tp (dp the rest of the world), its
+    model, this rank's params (from the JAX package's, or the seed's
+    init), optimizer, parallel config and plan."""
+    import torch
+
+    from megatron_llm_torch import topology
+    from megatron_llm_torch.config import ParallelConfig, TrainConfig
+    from megatron_llm_torch.optimizer import MegatronOptimizer
+    from megatron_llm_torch.parallel.sharding import plan_for
+    from megatron_llm_torch.tree import tree_map
+    from megatron_llm_torch.weights import params_from_jax
+
+    tp = case["tp"]
+    topology.initialize_model_parallel(tp)
+    sp = case.get("sp", False) and tp > 1
+    model = _family_model(case["family"], sp, **case.get("over", {}))
+    if "params" in case:
+        params = params_from_jax(
+            case["params"], model.cfg, dtype=model.cfg.params_torch_dtype,
+            device="cpu", tp_rank=topology.get_tensor_model_parallel_rank(),
+            tp_size=tp)
+        # own storage: the cases share the payload's arrays, which
+        # from_numpy would hand to the in-place optimizer
+        params = tree_map(lambda t: t.clone(), params)
+    else:
+        params = model.init(case.get("seed", 0))
+    tc = TrainConfig(**case["train"])
+    opt = MegatronOptimizer(tc, params_dtype=model.cfg.params_torch_dtype)
+    pc = ParallelConfig(tensor_model_parallel_size=tp,
+                        data_parallel_size=world // tp, sequence_parallel=sp,
+                        use_distributed_optimizer=case.get("zero1", False))
+    plan = plan_for(params, model.cfg, sp, pc.use_distributed_optimizer)
+    torch.manual_seed(0)
+    return model, params, tc, opt, pc, plan
+
+
+def _gathered(plan, params, opt_state=None):
+    """Rank 0's one-device numpy trees of this rank's pieces (a
+    collective), or None elsewhere."""
+    from megatron_llm_torch import checkpointing
+
+    opt_tree = (None if opt_state is None else
+                checkpointing._opt_state_to_tree(opt_state))
+    if plan is None:
+        return (_np_tree(params),
+                None if opt_tree is None else _np_tree(opt_tree))
+    p_h, o_h, _ = checkpointing.gather_one_layout(plan, params, opt_tree)
+    if p_h is None:
+        return None
+    return _np_tree(p_h), None if o_h is None else _np_tree(o_h)
+
+
+def _state_bytes(opt_state) -> int:
+    from megatron_llm_torch.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size()
+               for tree in (opt_state.master_params, opt_state.exp_avg,
+                            opt_state.exp_avg_sq) if tree is not None
+               for t in tree_leaves(tree))
+
+
+class _PoisonFirst:
+    """A model whose first ``calls`` per-token losses are NaN (this rank's
+    grads of the first step), the loss masks untouched."""
+
+    def __init__(self, model, calls):
+        self.model, self.cfg, self.calls = model, model.cfg, calls
+
+    def __call__(self, *a, **kw):
+        out = self.model(*a, **kw)
+        if self.calls > 0:
+            self.calls -= 1
+            out = out * float("nan")
+        return out
+
+
+def task_dp_step(rank, world, payload):
+    """Each case: ``build_train_step`` at its tp, dp the rest of the
+    world, on this rank's rows of the case's global batches; the logged
+    metrics of each step (the layer stats too), the state bytes, and
+    rank 0's gathered params and state after the last step."""
+    from megatron_llm_torch import topology
+    from megatron_llm_torch.training import build_train_step
+
+    out = {}
+    for name, case in payload["cases"].items():
+        model, params, tc, opt, pc, plan = _setup(case, world)
+        dp = pc.data_parallel_size
+        dp_rank = topology.get_data_parallel_rank()
+        state = opt.init(params, plan)
+        num_micro = case["batches"][0]["tokens"].shape[0]
+        if case.get("nan_rank") == rank:
+            model = _PoisonFirst(model, num_micro)
+        step = build_train_step(model, opt, pc, num_micro,
+                                log_num_zeros_in_grad=True,
+                                log_layer_stats=case.get("layer_stats",
+                                                         False), plan=plan)
+        logs = []
+        for it, batch in enumerate(case["batches"]):
+            b = _rows(batch, dp_rank, dp)
+            params, state, m = step(params, state, b, None, case["lrs"][it],
+                                    tc.weight_decay)
+            rec = {}
+            for k, v in m.items():
+                if k == "layer_stats":
+                    rec[k] = {g: t.tolist() for g, t in v.items()}
+                else:
+                    rec[k] = float(v)
+            logs.append(rec)
+        out[name] = dict(logs=logs, state_bytes=_state_bytes(state),
+                         dp_rank=dp_rank,
+                         tp_rank=topology.get_tensor_model_parallel_rank(),
+                         trees=_gathered(plan, params, state))
+    return out
+
+
+def task_ck(rank, world, payload):
+    """Checkpoint operations, in order, each at its own tp (dp the rest
+    of the world): ``train`` runs ``training.pretrain`` on a fixed global
+    batch (with its saves), ``load`` reads a checkpoint (``plan``
+    cuts it) and ``resume`` loads one and trains on; each returns rank
+    0's gathered trees, and ``train`` every rank's state bytes."""
+    from megatron_llm_torch import checkpointing, topology
+    from megatron_llm_torch.models.language_model import (
+        init_language_model_params,
+    )
+    from megatron_llm_torch.training import pretrain
+
+    out = {}
+    for op in payload["ops"]:
+        model, params, tc, opt, pc, plan = _setup(op, world)
+        dp = pc.data_parallel_size
+        dp_rank = topology.get_data_parallel_rank()
+        opt_state, start = None, 0
+        if op["op"] in ("load", "resume"):
+            tmpl = init_language_model_params(None, model.cfg, device="meta")
+            params, _, meta = checkpointing.load_checkpoint(
+                op["dir"], iteration=op.get("iteration"),
+                params_template=tmpl, device="cpu", plan=plan)
+            _, opt_state, _ = checkpointing.load_checkpoint(
+                op["dir"], iteration=op.get("iteration"), load_params=False,
+                opt_state_template=opt.init(tmpl), device="cpu", plan=plan)
+            start = meta["iteration"]
+        if op["op"] in ("train", "resume"):
+            def batches():
+                while True:
+                    yield _rows(op["batch"], dp_rank, dp)
+
+            params, opt_state, _ = pretrain(
+                model, params, tc, pc, batches(), optimizer=opt,
+                log_interval=0, save_interval=op.get("save_interval"),
+                save_dir=op.get("save_dir"), start_iteration=start,
+                opt_state=opt_state, async_save=op.get("async", False))
+        out[op["name"]] = dict(trees=_gathered(plan, params, opt_state),
+                               state_bytes=_state_bytes(opt_state))
+    return out
+
+
+def task_runtime(rank, world, payload):
+    """The runtime's saves at the world's tp (dp the rest): a hang on one
+    rank fires the watchdogs, and rank 0's writes the rescue checkpoint
+    from its host snapshot (every collective's thread is recorded); a
+    SIGTERM to one rank makes every rank save and leave at the next
+    boundary."""
+    import threading
+
+    from megatron_llm_torch import topology
+    from megatron_llm_torch.dist_signal_handler import (
+        DistributedSignalHandler,
+    )
+    from megatron_llm_torch.parallel import mappings
+    from megatron_llm_torch.resilience import (
+        FaultInjector,
+        HangWatchdog,
+        ResilienceConfig,
+        ResilienceManager,
+    )
+    from megatron_llm_torch.training import pretrain
+
+    threads = set()
+    collective0 = mappings.collective
+
+    def recorded(*a, **kw):
+        threads.add(threading.current_thread().name)
+        return collective0(*a, **kw)
+
+    mappings.collective = recorded
+    out = {}
+    for op in payload["ops"]:
+        model, params, tc, opt, pc, plan = _setup(op, world)
+        dp = pc.data_parallel_size
+        dp_rank = topology.get_data_parallel_rank()
+
+        def batches():
+            while True:
+                yield _rows(op["batch"], dp_rank, dp)
+
+        spec = op["faults"].get(rank)
+        kw = {}
+        handler = None
+        if op["op"] == "rescue":
+            fired = []
+            kw["resilience"] = ResilienceManager(
+                ResilienceConfig(snapshot_interval=1),
+                injector=FaultInjector.from_spec(spec),
+                watchdog=HangWatchdog(op["watchdog_secs"], hard_exit=False),
+                rewind_enabled=True)
+        else:
+            handler = DistributedSignalHandler().install()
+            kw["exit_signal_handler"] = handler
+            kw["resilience"] = ResilienceManager(
+                injector=FaultInjector.from_spec(spec),
+                rewind_enabled=False)
+        threads.clear()
+        code = None
+        try:
+            pretrain(model, params, tc, pc, batches(), optimizer=opt,
+                     log_interval=1, save_dir=op["save_dir"], **kw)
+        except SystemExit as exc:
+            code = exc.code
+        finally:
+            kw["resilience"].close()
+            if handler is not None:
+                handler.__exit__(None, None, None)
+        wd = kw["resilience"].watchdog
+        out[op["name"]] = dict(exit=code, threads=sorted(threads),
+                               fired=None if wd is None else wd.fired)
+    mappings.collective = collective0
+    return out
+
+
 TASKS = {"ops": task_ops, "families": task_families,
-         "finetune": task_finetune}
+         "finetune": task_finetune, "dp_step": task_dp_step,
+         "ck": task_ck, "runtime": task_runtime}
 
 
 def main(argv) -> int:
@@ -293,9 +551,9 @@ def main(argv) -> int:
         timeout=datetime.timedelta(seconds=INIT_TIMEOUT_SECS))
     from megatron_llm_torch import topology
 
-    topology.initialize_model_parallel(world)
     with open(inp, "rb") as f:
         payload = pickle.load(f)
+    topology.initialize_model_parallel(payload.get("tp", world))
     result = TASKS[task](rank, world, payload)
     with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(result, f)

@@ -234,8 +234,8 @@ def test_pretrain_gpt_example_parses_as_in_the_jax_package(tmp_path):
 
 def test_sequence_parallel_is_off_at_tp_1_and_refused_above():
     """Off at tp 1; kept at tp 2 in a world of 2 ranks, which a world of
-    one process cannot hold; data parallelism (a world of more ranks than
-    tp) is still refused."""
+    one process cannot hold; a world of more ranks than tp is data
+    parallelism, dp the rest of the world."""
     args = arguments.parse_args(["--sequence_parallel"])
     assert args.sequence_parallel is False
     from megatron_llm_torch.config import parallel_config_from_args
@@ -247,9 +247,9 @@ def test_sequence_parallel_is_off_at_tp_1_and_refused_above():
     assert args.sequence_parallel is True and args.data_parallel_size == 1
     pc = parallel_config_from_args(args)
     assert (pc.tensor_model_parallel_size, pc.sequence_parallel) == (2, True)
-    with pytest.raises(NotImplementedError):
-        arguments.validate_args(arguments.build_parser().parse_args(argv),
-                                world_size=4)
+    args = arguments.validate_args(arguments.build_parser().parse_args(argv),
+                                   world_size=4)
+    assert (args.data_parallel_size, args.sequence_parallel) == (2, True)
 
 
 TINY_TRAIN = ["--model_name=llama2", "--num_layers=1", "--hidden_size=64",
@@ -259,7 +259,7 @@ TINY_TRAIN = ["--model_name=llama2", "--num_layers=1", "--hidden_size=64",
 
 @pytest.mark.parametrize("flags", [
     ["--context_parallel_size", "2"], ["--num_slices", "2"],
-    ["--use_distributed_optimizer"], ["--profiler_port", "9012"]],
+    ["--profiler_port", "9012"]],
     ids=lambda f: f[0].lstrip("-"))
 def test_unported_features_parse_then_raise(flags):
     with pytest.raises(NotImplementedError):

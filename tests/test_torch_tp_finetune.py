@@ -8,9 +8,11 @@ batches the entry point draws from that seed, at the learning rates the
 run logged: each iteration's loss and grad norm within 1e-5 relative
 (fp32), on both ranks.  Each rank's summary line counts half the params
 and the replicated norms whole.  Then, in one process with the layout
-set for tp 2 (no process group), each feature this slice runs on one
-device only raises ``NotImplementedError`` at its site, and so do the
-parallel degrees it lacks."""
+set for tp 2 (no process group), each feature that still runs in a
+world of one only raises ``NotImplementedError`` at its site, and so do
+the parallel degrees the port lacks (data parallelism, ZeRO-1 and the
+checkpoints at tp are held in ``test_torch_dp.py`` and
+``test_torch_tp_checkpoint.py``)."""
 
 import dataclasses
 import json
@@ -136,10 +138,8 @@ def tp2():
     topology.destroy_model_parallel()
 
 
-@pytest.mark.parametrize("flags", [
-    ["--lora_rank=4"], ["--save=/nonexistent/ck"], ["--load=/nonexistent/ck"],
-    ["--async_save"], ["--log_layer_stats_interval=1"]],
-    ids=lambda f: f[0].lstrip("-").split("=")[0])
+@pytest.mark.parametrize("flags", [["--lora_rank=4"]],
+                         ids=lambda f: f[0].lstrip("-").split("=")[0])
 def test_finetune_refuses_one_device_features_at_tp(monkeypatch, flags):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="tensor-parallel size 2"):
@@ -147,18 +147,12 @@ def test_finetune_refuses_one_device_features_at_tp(monkeypatch, flags):
     assert not torch.distributed.is_initialized()
 
 
-def test_data_parallelism_is_refused(monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="data parallelism"):
-        finetune.main(ARGV + TP_FLAGS)
-
-
 @pytest.mark.parametrize("field", [
-    "pipeline_model_parallel_size", "data_parallel_size",
-    "context_parallel_size", "expert_model_parallel_size", "num_slices",
-    "use_distributed_optimizer", "virtual_pipeline_model_parallel_size"])
+    "pipeline_model_parallel_size", "context_parallel_size",
+    "expert_model_parallel_size", "num_slices",
+    "virtual_pipeline_model_parallel_size"])
 def test_other_parallel_degrees_are_refused_at_tp(field):
-    value = {"use_distributed_optimizer": True}.get(field, 2)
+    value = 2
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         ParallelConfig(tensor_model_parallel_size=2, sequence_parallel=True,
                        **{field: value})
@@ -168,15 +162,6 @@ def _tiny(name="llama"):
     from _torch_tp_world import _family_model
 
     return _family_model(name, True)
-
-
-def test_checkpoints_are_refused_at_tp(tp2, tmp_path):
-    from megatron_llm_torch import checkpointing
-
-    with pytest.raises(NotImplementedError, match="saving a checkpoint"):
-        checkpointing.save_checkpoint(str(tmp_path), 1, {})
-    with pytest.raises(NotImplementedError, match="loading a checkpoint"):
-        checkpointing.load_checkpoint(str(tmp_path))
 
 
 def test_lora_and_int8_weights_are_refused_at_tp(tp2):
@@ -221,17 +206,13 @@ def test_encoders_are_refused_at_tp(tp2, which):
 
 
 def test_mixture_of_experts_and_layer_stats_are_refused_at_tp(tp2):
-    from megatron_llm_torch.config import TrainConfig
+    """The MoE's expert axis stays refused at tp; the layer stats run at
+    tp since they count each element once over tp x dp
+    (``test_torch_dp.py``)."""
     from megatron_llm_torch.models.mixtral import MixtralModel, mixtral_config
-    from megatron_llm_torch.training import pretrain
 
     with pytest.raises(NotImplementedError, match="expert axis"):
         MixtralModel(mixtral_config("tiny"), device="cpu").init(0)
-    model = _tiny()
-    with pytest.raises(NotImplementedError, match="layer_stats"):
-        pretrain(model, {}, TrainConfig(train_iters=1),
-                 ParallelConfig(tensor_model_parallel_size=2), iter(()),
-                 log_layer_stats_interval=1)
 
 
 def test_fused_cross_entropy_is_refused_at_tp(tp2):
