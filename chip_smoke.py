@@ -394,6 +394,23 @@ but the norms' (split over dp only); each rank's F, G, B and C launches
 exact.  The save and load GB/s, the gathers' seconds and each rank's
 peak memory are printed.
 
+Phase 21 trains with pipeline parallelism: ``finetune.py`` under
+``python -m torch.distributed.run`` (each rank through ``--dp_rank``) at
+Llama-2-7B's width cut to 4 layers, 4 micro batches of one 4096-token
+sequence of random ids (``finetune``'s synthetic batches, from
+``--seed``), bf16 from seed 1234, at pp 2 (two ranks on the one GPU
+over gloo): (a) the 1F1B schedule, 3 iterations, saving the params at
+iteration 3; (b) the interleaved schedule over 2 virtual stages
+(``--num_layers_per_virtual_pipeline_stage 1``), 2 iterations; (c) pp 1
+in the script's own process on the same batches, before both.  Held:
+each rank's F, G, B and C launches exact against the schedule's counts
+(``pp_launches``) and its point-to-point sends (``pp_sends``); (a)'s
+and (b)'s iteration-1 loss within 1e-5 and grad norm within 3e-5 of
+(c)'s, and every loss and grad norm within 1e-3, relative; each stage's param
+bytes (c)'s less half the stack; (a)'s checkpoint, loaded at pp 1,
+equal bit for bit to rank 0's gathered trees.  Each rank's peak memory,
+the steps' ms and the collectives by route are printed.
+
 It prints, before its last line, the card's name and power limit, one
 JSON line with every kernel's numbers (``{"kernels": [...]}``), and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -406,6 +423,10 @@ runs phase 19 alone; it prints no result line.
     python3 chip_smoke.py --dp_only
 
 builds the kernels and runs phase 20 alone; it prints no result line.
+
+    python3 chip_smoke.py --pp_only
+
+builds the kernels and runs phase 21 alone; it prints no result line.
 
     python3 chip_smoke.py --measure [--sweep]
 
@@ -5836,8 +5857,6 @@ def serving_rest_phase(results, kernels, card):
         # each replica's weights and pool go once its function returned:
         # its locals (the server, the engine, the httpd and the hooks that
         # hold them) are gone by then, and their cycles go at the collect
-        results["bench_without_host_tier"] = _bench_without_host_tier(work)
-        _free_device_memory()
         _replica_phase(results, kernels, card, work)
         _free_device_memory()
         _fp32_speculative_check(results)
@@ -5882,41 +5901,6 @@ def _engine_split(s0, s1, bench):
                 engine_share=(dec + fill) / bench["wall_secs"])
 
 
-def _bench_without_host_tier(work):
-    """(a) without the host KV tier: the same replica and bench with
-    --serve_host_cache_bytes 0, so that the tier's spill copies show as
-    the difference of the two runs."""
-    from megatron_llm_torch import telemetry
-    from megatron_llm_torch.run_text_generation_server import (
-        build_parser, build_server)
-    from megatron_llm_torch.tokenizer import NullTokenizer
-
-    argv = _phase12_argv(os.path.join(work, "tier_off"))
-    argv += ["--serve_host_cache_bytes", "0"]
-    server = build_server(build_parser().parse_args(argv),
-                          NullTokenizer(32000))
-    engine = server.engine
-    check(engine.host_cache is None, "the host tier is on")
-    httpd = server.make_httpd("127.0.0.1", 0)
-    srv = threading.Thread(target=server.run, daemon=True)
-    srv.start()
-    try:
-        bench, s0, s1 = _serve_bench(httpd.server_address[1], engine)
-    finally:
-        server.shutdown()
-        engine.stop()
-        srv.join(30)
-        stream = telemetry.get_stream()
-        telemetry.install_stream(None)
-        if stream is not None:
-            stream.close()
-    out = {k: bench[k] for k in ("ttft_p50_secs", "ttft_p95_secs",
-                                 "tpot_p50_secs", "tpot_p95_secs",
-                                 "tokens_per_sec", "wall_secs")}
-    out.update(_engine_split(s0, s1, bench))
-    return out
-
-
 def _replica_phase(results, kernels, card, work):
     """(a)-(f) on one Llama-2-7B replica at full width, PHASE12_LAYERS
     deep."""
@@ -5931,7 +5915,6 @@ def _replica_phase(results, kernels, card, work):
 
     phase = "serving Llama-2-7B, speculative"
     vocab = 32000
-    off = results["bench_without_host_tier"]
     args = build_parser().parse_args(_phase12_argv(work))
     t0 = time.perf_counter()
     server = build_server(args, NullTokenizer(vocab))
@@ -5990,12 +5973,7 @@ def _replica_phase(results, kernels, card, work):
         log(f"  (a) where the time goes: {split['verify_ms']:.1f} ms a "
             f"verify step, {split['prefill_ms']:.1f} ms a prefill chunk, "
             f"{split['engine_share']:.3f} of the wall in the two; "
-            f"{spills} pages spilled to the host tier; without the tier "
-            f"(the same bench on a replica with --serve_host_cache_bytes "
-            f"0): TTFT p50 {off['ttft_p50_secs']} s, TPOT p50 "
-            f"{off['tpot_p50_secs']} s, {off['tokens_per_sec']:.1f} "
-            f"tokens/s, {off['verify_ms']:.1f} ms a verify step, "
-            f"{off['prefill_ms']:.1f} ms a prefill chunk")
+            f"{spills} pages spilled to the host tier")
         check(launches == want,
               f"launches {launches}, expected {want} ({L} layers, {ver} "
               f"verify steps, {pre} prefill chunks)")
@@ -9834,13 +9812,31 @@ def _dp_observed(spec):
     at ``spec['async_at']`` is asynchronous and the others synchronous;
     after a load, the loaded pieces are gathered into the one layout
     (``checkpointing.gather_one_layout``) and rank 0 holds them to the
-    payload on disk, bit for bit, and prints ``LOAD_CHECK {json}``."""
+    payload on disk, bit for bit, and prints ``LOAD_CHECK {json}``.  With
+    ``spec['gather_digests']`` (phase 21) rank 0 prints ``GATHERED
+    {json}`` after each gather of a save: the device digests of the
+    one-device trees it gathered (``_leaf_digests``), which the save
+    writes."""
     from megatron_llm_torch import checkpointing
 
     save0, load0 = checkpointing.save_checkpoint, \
         checkpointing.load_checkpoint
+    gather0 = checkpointing.gather_one_layout
     async_at = spec.get("async_at")
     loaded = {}
+
+    def gather(*a, **kw):
+        p_h, o_h, bufs = gather0(*a, **kw)
+        if p_h is not None:
+            import torch
+
+            from megatron_llm_torch.tree import tree_map
+
+            dev = tree_map(lambda t: t.to(PP_DEVICE), p_h)
+            print("GATHERED " + json.dumps(_leaf_digests(dev)), flush=True)
+            del dev
+            torch.cuda.empty_cache()
+        return p_h, o_h, bufs
 
     def save(save_dir, iteration, *a, **kw):
         if async_at is not None:
@@ -9858,15 +9854,18 @@ def _dp_observed(spec):
 
     checkpointing.save_checkpoint = save
     checkpointing.load_checkpoint = load
+    if spec.get("gather_digests"):
+        checkpointing.gather_one_layout = gather
     try:
         yield
     finally:
         checkpointing.save_checkpoint = save0
         checkpointing.load_checkpoint = load0
+        checkpointing.gather_one_layout = gather0
 
 
 def dp_rank_worker(spec_json) -> int:
-    """``--dp_rank``: one rank of a phase-20 torchrun world.  Runs
+    """``--dp_rank``: one rank of a phase-20 or phase-21 torchrun world.  Runs
     ``finetune.main(argv)`` as a user launches it (once ``wait_for``
     exists, when the spec names it), its checkpoint calls observed
     (``_dp_observed``)."""
@@ -9888,8 +9887,8 @@ def dp_rank_worker(spec_json) -> int:
 
 
 def _dp_in_process(work, tag, spec, iters, first=1, phase="phase 20"):
-    """One tp-1 run of phases 19 and 20 (a world of one) in this process,
-    beside their torchrun worlds (no start-up of its own): what
+    """One tp-1 (pp-1) run of phases 19-21 (a world of one) in this
+    process, beside their torchrun worlds (no start-up of its own): what
     ``_torchrun_done`` returns, its summary the one ``finetune``
     computes."""
     import contextlib
@@ -10249,6 +10248,277 @@ def dp_only(kernels, card) -> int:
     return 0
 
 
+PP_WIDTH = DP_WIDTH
+# where phase 21 digests the gathered and the loaded trees
+PP_DEVICE = "cuda"
+PP_LAYERS = 4
+PP_SEQ = 4096
+PP_MICRO = 4
+# (a) and (c) 3 iterations, (b) 2 (cut for time); the runs read the
+# synthetic batches (random ids from --seed), whose order, unlike a
+# corpus run's, does not depend on --train_iters
+PP_ITERS, PP_VPP_ITERS = 3, 2
+# (a) and (b) against (c), relative: iteration 1's loss and grad norm
+# are the same arithmetic but for the summation order of the objective
+# and G's fp32 atomics (a bug shows far above them).  The first norms
+# read 4.9e-7 to 8.03e-6 off pp 1's on an H100 (two runs of the same
+# 1F1B code 5.9e-6 apart), hence 3e-5.  Every loss and grad norm, once
+# the atomics have parted the updates, within PP_TOL
+PP_FIRST_LOSS_TOL = 1e-5
+PP_FIRST_NORM_TOL = 3e-5
+PP_TOL = 1e-3
+
+
+def _pp_argv(work, tag, pp, iters, extra=()):
+    argv = ["--model_name=llama2", f"--num_layers={PP_LAYERS}", *PP_WIDTH,
+            f"--seq_length={PP_SEQ}", f"--max_position_embeddings={PP_SEQ}",
+            "--micro_batch_size=1", f"--global_batch_size={PP_MICRO}",
+            f"--train_iters={iters}", "--lr=1e-4",
+            "--lr_decay_style=constant", "--log_interval=1", "--seed=1234",
+            "--bf16", f"--structured_log_dir={os.path.join(work, tag)}",
+            *extra]
+    if pp > 1:
+        # two ranks on the one GPU: NCCL refuses that, gloo takes it
+        argv += [f"--pipeline_model_parallel_size={pp}",
+                 "--distributed_backend=gloo"]
+    else:
+        argv += ["--distributed_backend=nccl"]
+    return argv
+
+
+def pp_launches(layers, pp, vpp, micro, rank, steps=1):
+    """The launches of F, G, B and C on stage ``rank`` of a pipeline of
+    ``pp`` stages, ``vpp`` virtual stages, ``micro`` micro batches of one
+    sequence (a multiple of 64), ``steps`` steps (``PERF.md`` §6):
+    cl = layers / (pp vpp) layers a chunk, M V chunks a stage; the forward
+    sweep (1F1B's forward) runs every chunk but the last stage's last
+    (whose output only the head reads), without a graph; the backward
+    recomputes every chunk and runs its backward; the last stage's last
+    chunks add the final norm.  A pp of 1 is the one-device step: one
+    forward with its graph and one backward a layer and micro batch."""
+    if pp == 1:
+        return {"flash_fwd": layers * micro * steps,
+                "flash_bwd_fused": layers * micro * steps,
+                "rmsnorm": (2 * layers + 1) * micro * steps,
+                "rmsnorm_bwd": (2 * layers + 1) * micro * steps,
+                "flash_bwd": 0, "layernorm": 0, "layernorm_bwd": 0}
+    cl = layers // (pp * vpp)
+    last = int(rank == pp - 1)
+    fwd = cl * (micro * vpp - last * micro)
+    rec = cl * micro * vpp
+    return {"flash_fwd": (fwd + rec) * steps, "flash_bwd_fused": rec * steps,
+            "rmsnorm": (2 * fwd + 2 * rec + last * micro) * steps,
+            "rmsnorm_bwd": (2 * rec + last * micro) * steps,
+            "flash_bwd": 0, "layernorm": 0, "layernorm_bwd": 0}
+
+
+def pp_sends(pp, vpp, micro, rank, steps=1):
+    """The point-to-point sends of stage ``rank`` a run: an activation for
+    every item but the last stage's last chunks, a cotangent for every
+    item but stage 0's first chunks."""
+    items = micro * vpp
+    return (2 * items - micro * int(rank == pp - 1)
+            - micro * int(rank == 0)) * steps
+
+
+def pp_phase(results, kernels, card):
+    """Phase 21 (see the module's docstring): in a directory under build/
+    that it deletes at the end."""
+    import shutil
+
+    work = os.path.join(REPO, "build", "chip21")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    _free_device_memory()
+    try:
+        _pp_phase(results, kernels, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+_GATHERED = re.compile(r"^GATHERED (.*)$", re.M)
+
+
+def _pp_phase(results, kernels, card, work):
+    import torch
+
+    t_phase = time.perf_counter()
+    save = os.path.join(work, "ckpt")
+    specs = {
+        "ref": (1, PP_ITERS, []),
+        "1f1b": (2, PP_ITERS, ["--save", save, "--save_interval",
+                               str(PP_ITERS), "--no_save_optim"]),
+        "vpp": (2, PP_VPP_ITERS,
+                ["--num_layers_per_virtual_pipeline_stage", "1"]),
+    }
+    vpps = {"ref": 1, "1f1b": 1, "vpp": PP_LAYERS // 2}
+    argvs = {tag: _pp_argv(work, tag, pp, iters, extra)
+             for tag, (pp, iters, extra) in specs.items()}
+    runs, started = {}, {}
+    # (c) in this process first, its memory freed before (a) and (b)
+    # start together under torchrun (peaks 22.4 GiB at pp 1, 13.3-14.4 a
+    # pp rank on an H100)
+    try:
+        runs["ref"] = _dp_in_process(work, "ref", dict(argv=argvs["ref"]),
+                                     PP_ITERS, phase="phase 21")
+        for tag, extra in (("1f1b", {"gather_digests": True}),
+                           ("vpp", {})):
+            started[tag] = _dp_torchrun(work, tag, 2, specs[tag][1],
+                                        dict(argv=argvs[tag], **extra))
+            started[tag]["phase"] = "phase 21"
+        for tag in ("1f1b", "vpp"):
+            runs[tag] = _torchrun_done(started[tag], timeout=400) + (
+                started[tag],)
+    finally:
+        for run in started.values():
+            _torchrun_kill(run)
+    out = {"card": card, "iterations": {t: v[1] for t, v in specs.items()}}
+    # the launches of F, G, B and C, exact on every rank; the sends
+    for tag, (summaries, recs, wall, run) in runs.items():
+        pp = 1 if tag == "ref" else 2
+        for sm in summaries:
+            rank = sm.get("pp_rank", 0)
+            want = pp_launches(PP_LAYERS, pp, vpps[tag], PP_MICRO, rank,
+                               len(recs))
+            check(sm["kernel_launches"] == want,
+                  f"phase 21 {tag} rank {rank}: launches "
+                  f"{sm['kernel_launches']}, expected {want}")
+            for row in ("flash_fwd", "flash_bwd_fused", "rmsnorm",
+                        "rmsnorm_bwd"):
+                _add_launches(kernels, row, f"pp {tag} rank {rank}",
+                              sm["kernel_launches"][row])
+            if pp > 1:
+                sends = sm["collectives"].get("gloo/cuda/permute", 0)
+                want_s = pp_sends(pp, vpps[tag], PP_MICRO, rank, len(recs))
+                check(sends == want_s,
+                      f"phase 21 {tag} rank {rank}: {sends} point-to-point "
+                      f"sends over gloo/cuda, expected {want_s}")
+        log(f"  {tag}: {wall:.1f} s; losses {[r['lm_loss'] for r in recs]}, "
+            f"grad norms {[r['grad_norm'] for r in recs]}; param bytes by "
+            f"rank {[sm['param_bytes'] for sm in summaries]}; peak device "
+            f"GiB by rank "
+            f"{[_gib(sm['peak_device_bytes']) for sm in summaries]}; "
+            f"launches by rank {[sm['kernel_launches'] for sm in summaries]}"
+            f"; collectives by rank "
+            f"{[sm.get('collectives') for sm in summaries]}")
+        out.setdefault("wall_s", {})[tag] = wall
+        out.setdefault("peak_gib_by_rank", {})[tag] = [
+            _gib(sm["peak_device_bytes"]) for sm in summaries]
+        out.setdefault("param_bytes_by_rank", {})[tag] = [
+            sm["param_bytes"] for sm in summaries]
+        out.setdefault("step_ms", {})[tag] = [
+            r["step_time_secs"] * 1000.0 for r in recs]
+        out.setdefault("collectives_by_rank", {})[tag] = [
+            sm.get("collectives") for sm in summaries]
+    # (a) and (b) against (c)
+    ref = runs["ref"][1]
+    for tag in ("1f1b", "vpp"):
+        recs = runs[tag][1]
+        losses = [(x["lm_loss"], y["lm_loss"]) for x, y in zip(recs, ref)]
+        norms = [(x["grad_norm"], y["grad_norm"]) for x, y in zip(recs, ref)]
+        e_first = _rel(*losses[0])
+        e_first_norm = _rel(*norms[0])
+        e_loss = max(_rel(x, y) for x, y in losses)
+        e_norm = max(_rel(x, y) for x, y in norms)
+        check(len(losses) == specs[tag][1]
+              and all(math.isfinite(x) for x, _ in losses + norms),
+              f"phase 21 {tag}: {len(losses)} iterations compared, or a "
+              f"non-finite loss or norm")
+        check(e_first <= PP_FIRST_LOSS_TOL
+              and e_first_norm <= PP_FIRST_NORM_TOL and e_loss <= PP_TOL
+              and e_norm <= PP_TOL,
+              f"phase 21 {tag}: against pp 1, losses {losses} (iteration "
+              f"1 rel {e_first:.3g} > {PP_FIRST_LOSS_TOL}? all {e_loss:.3g} "
+              f"> {PP_TOL}?), grad norms {norms} (iteration 1 rel "
+              f"{e_first_norm:.3g} > {PP_FIRST_NORM_TOL}? all "
+              f"{e_norm:.3g} > {PP_TOL}?)")
+        out[tag] = dict(losses=losses, grad_norms=norms,
+                        first_loss_rel_err=e_first,
+                        first_grad_norm_rel_err=e_first_norm,
+                        loss_rel_err=e_loss, grad_norm_rel_err=e_norm)
+        log(f"  ({'a' if tag == '1f1b' else 'b'}) {tag} (two ranks on one "
+            f"GPU over gloo) against pp 1: losses {losses}, iteration 1 "
+            f"rel {e_first:.3g}, all {e_loss:.3g}; grad norms {norms}, "
+            f"iteration 1 rel {e_first_norm:.3g}, all {e_norm:.3g}")
+    # each stage holds its half of the stack and the whole embedding,
+    # final norm and head
+    full = runs["ref"][0][0]["param_bytes"]
+    width = dict(a.lstrip("-").split("=") for a in PP_WIDTH)
+    h, f = int(width["hidden_size"]), int(width["ffn_hidden_size"])
+    # a layer's bf16 bytes: QKV, the output projection, the SwiGLU pair,
+    # its down projection and two norms
+    layer = 2 * (h * 3 * h + h * h + h * 2 * f + f * h + 2 * h)
+    want = full - layer * PP_LAYERS // 2
+    for tag in ("1f1b", "vpp"):
+        got = [sm["param_bytes"] for sm in runs[tag][0]]
+        check(got == [want, want],
+              f"phase 21 {tag}: param bytes by rank {got}, expected {want} "
+              f"of pp 1's {full}")
+    # the iteration-3 checkpoint of (a), loaded at pp 1 in this process,
+    # against rank 0's gathered trees
+    text = runs["1f1b"][3]["ranks_text"][0]
+    gathered = [json.loads(m) for m in _GATHERED.findall(text)]
+    check(len(gathered) == 1, f"phase 21 (a): {len(gathered)} gathers "
+                              f"reported by rank 0, expected 1")
+    from megatron_llm_torch import checkpointing
+    from megatron_llm_torch.models.language_model import (
+        init_language_model_params,
+    )
+    from megatron_llm_torch.models.llama import LlamaModel, llama_config
+
+    check(checkpointing.read_tracker(save) == (PP_ITERS, False),
+          f"phase 21 (a): tracker {checkpointing.read_tracker(save)}")
+    cfg = llama_config("7B", num_layers=PP_LAYERS, params_dtype="bf16",
+                       compute_dtype="bf16", seq_length=PP_SEQ)
+    tmpl = init_language_model_params(None, cfg, device="meta")
+    t0 = time.perf_counter()
+    params, state, meta = checkpointing.load_checkpoint(
+        save, iteration=PP_ITERS, params_template=tmpl, device=PP_DEVICE)
+    load_s = time.perf_counter() - t0
+    # through JSON as the gathered digests came (tuples as lists)
+    digests = json.loads(json.dumps(_leaf_digests(params)))
+    want_d = gathered[0]
+    check(digests == want_d and state is None,
+          f"phase 21 (a): the iteration-{PP_ITERS} checkpoint loaded at pp 1 "
+          f"is not rank 0's gathered trees: "
+          + "; ".join(f"{k} {digests.get(k)} against {want_d[k]}"
+                      for k in sorted(want_d)
+                      if digests.get(k) != want_d[k]))
+    del params
+    _free_device_memory()
+    nbytes = _dir_bytes(checkpointing.get_checkpoint_name(save, PP_ITERS))
+    out["checkpoint"] = dict(leaves=len(digests), bytes=nbytes,
+                             load_s=load_s, equal=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  (a) the iteration-{PP_ITERS} save (params only, {nbytes} bytes) "
+        f"loaded at pp 1 in {load_s:.3f} s: {len(digests)} leaves equal to "
+        f"rank 0's gathered trees bit for bit; param bytes a stage {want} "
+        f"against pp 1's {full}; phase 21 {out['phase_s']:.1f} s")
+    results.update(out)
+
+
+def run_pp_phase(kernels, card) -> dict:
+    """Phase 21 with its log lines (``main`` and ``--pp_only``); returns
+    its results."""
+    t0 = time.perf_counter()
+    log(f"phase 21: pipeline parallelism -- Llama-2-7B's width, "
+        f"{PP_LAYERS} layers, through megatron_llm_torch.finetune under "
+        f"torchrun at pp 2 with 1F1B and with the interleaved schedule "
+        f"(two ranks on the one GPU over gloo) against pp 1")
+    pp = {}
+    pp_phase(pp, kernels, card)
+    log(f"phase 21 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"pipeline parallelism ({card}): " + json.dumps(pp))
+    return pp
+
+
+def pp_only(kernels, card) -> int:
+    """``--pp_only``: phase 21 alone."""
+    kernels.update({row: {} for row in ("flash_fwd", "flash_bwd_fused",
+                                         "rmsnorm", "rmsnorm_bwd")})
+    run_pp_phase(kernels, card)
+    return 0
+
 
 def tp_only(gen, kernels, card) -> int:
     """``--tp_only``: F and G at a tp-2 rank's attention and B and C at its
@@ -10398,9 +10668,15 @@ def main(argv=None) -> int:
              "and checkpoints at Llama-2-7B's width against tp 1) alone: "
              "no result line")
     parser.add_argument(
+        "--pp_only", action="store_true",
+        help="build the kernels and run phase 21 (pp 2 under 1F1B and "
+             "the interleaved schedule at Llama-2-7B's width against pp 1) "
+             "alone: no result line")
+    parser.add_argument(
         "--dp_rank", default=None, metavar="SPEC",
-        help="(one rank of phase 20's torchrun worlds) finetune.main over "
-             "the JSON spec's argv, its checkpoint calls observed")
+        help="(one rank of phases 20's and 21's torchrun worlds) "
+             "finetune.main over the JSON spec's argv, its checkpoint calls "
+             "observed")
     parser.add_argument(
         "--collectives", action="store_true",
         help="(one rank of --tp_only's torchrun world) time the tp "
@@ -10485,6 +10761,8 @@ def main(argv=None) -> int:
         return tp_only(gen, kernels, card)
     if opts.dp_only:
         return dp_only(kernels, card)
+    if opts.pp_only:
+        return pp_only(kernels, card)
     t0 = time.perf_counter()
     log("phase 1: serving kernels vs plain versions")
     phase1(gen, kernels)
@@ -10657,6 +10935,7 @@ def main(argv=None) -> int:
     dp_phase(dp, kernels, card)
     log(f"phase 20 passed in {time.perf_counter() - t0:.1f} s")
     log(f"data parallelism ({card}): " + json.dumps(dp))
+    pp = run_pp_phase(kernels, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     names = ("paged_decode", "paged_prefill", "paged_decode_int8",
@@ -10680,7 +10959,8 @@ def main(argv=None) -> int:
                    "mixtral": mixtral, "serving_rest": rest,
                    "resilience": resil, "fleet": fleet,
                    "int8_legacy": int8_legacy, "bert_t5": bert_t5,
-                   "fp16": fp16, "tasks": tasks, "tp": tp, "dp": dp}, f,
+                   "fp16": fp16, "tasks": tasks, "tp": tp, "dp": dp,
+                   "pp": pp}, f,
                   indent=1)
     log(card)
     print(json.dumps(line), flush=True)

@@ -15,7 +15,7 @@ ways:
   (``_add_unimplemented_compat_args``), accepted with a warning when one
   is set away from its default (``warn_unimplemented``);
 * flags of features the port has not ported yet (the parallel degrees
-  but tp, batch-size rampup, JAX's live profiler server, ...): they
+  but tp, dp and pp, batch-size rampup, JAX's live profiler server, ...): they
   parse, and asking for one raises ``NotImplementedError`` where the
   feature is refused: the parallel sizes in ``ParallelConfig``, the rest
   through ``refuse_unported`` with the entry point's table
@@ -24,8 +24,10 @@ ways:
 
 ``--device`` picks the torch device (``cuda`` unless the caller asks for
 ``cpu``).  ``validate_args`` derives dp from the world (torchrun's
-``WORLD_SIZE``, or the process group's) as the JAX package derives it;
-this slice runs worlds of tp ranks only (dp 1).
+``WORLD_SIZE``, or the process group's) as the JAX package derives it,
+world // (tp x pp x cp), and the interleaved pipeline's virtual stages
+(``virtual_pipeline_model_parallel_size``) from
+``--num_layers_per_virtual_pipeline_stage`` as it does.
 """
 
 from __future__ import annotations
@@ -631,6 +633,28 @@ def validate_args(args, world_size: Optional[int] = None):
         raise ValueError("--fp16 and --bf16 are exclusive")
     args.params_dtype = ("fp16" if args.fp16 else "bf16" if args.bf16
                          else "fp32")
+    # the interleaved pipeline's virtual stages, as the JAX package
+    # derives them (reference: arguments.py:121-132): the layers a stage
+    # holds over the layers a virtual stage holds
+    pp = args.pipeline_model_parallel_size
+    if args.num_layers_per_virtual_pipeline_stage is not None:
+        per_stage = args.num_layers_per_virtual_pipeline_stage
+        if pp <= 1:
+            raise ValueError("--num_layers_per_virtual_pipeline_stage needs "
+                             "--pipeline_model_parallel_size > 1")
+        if args.num_layers % pp or (args.num_layers // pp) % per_stage:
+            raise ValueError(
+                f"--num_layers ({args.num_layers}) must divide into "
+                f"--pipeline_model_parallel_size ({pp}) stages of whole "
+                f"virtual stages of "
+                f"--num_layers_per_virtual_pipeline_stage ({per_stage})")
+        args.virtual_pipeline_model_parallel_size = \
+            args.num_layers // pp // per_stage
+    else:
+        args.virtual_pipeline_model_parallel_size = None
+    if pp > 1 and args.num_layers is not None and args.num_layers % pp:
+        raise ValueError(f"--num_layers ({args.num_layers}) must divide "
+                         f"by --pipeline_model_parallel_size ({pp})")
     # the parallel features this slice lacks raise by name before the
     # world is asked to hold them
     from megatron_llm_torch.config import parallel_config_from_args
@@ -663,6 +687,15 @@ def validate_args(args, world_size: Optional[int] = None):
                          f"divisible by micro batch "
                          f"({args.micro_batch_size}) x dp "
                          f"({args.data_parallel_size})")
+    num_micro = args.global_batch_size // (args.micro_batch_size
+                                           * args.data_parallel_size)
+    if (args.virtual_pipeline_model_parallel_size or 1) > 1 and \
+            num_micro % pp:
+        # the interleaved schedule groups the micro batches by stage
+        # (JAX pipeline.py:250-257)
+        raise ValueError(
+            f"the interleaved pipeline needs the micro batches ({num_micro}) "
+            f"to divide by --pipeline_model_parallel_size ({pp})")
     apply_fused_ce_policy(args)
     if args.ffn_hidden_size is None and args.hidden_size is not None:
         args.ffn_hidden_size = 4 * args.hidden_size

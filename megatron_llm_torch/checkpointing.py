@@ -38,8 +38,12 @@ save, while the other ranks wait at a barrier with a timeout.  A load
 reads the one layout on every rank and cuts each leaf with the plan's
 ``shard_leaf`` (its tp slice, and its ZeRO-1 dp slice), so a checkpoint
 saved at any tp x dp loads at any other, and into the tp-1 server.
-Rank 0 holds the whole tree in host memory while it writes (ROADMAP
-item 5).
+At pp > 1 the plan also gathers a layer-stack leaf's rows over the pp
+group and puts them back in natural order (the stages hold them
+stage-major under the interleaved pipeline), and a load permutes the
+natural stack and cuts the stage's rows before its tp and dp slices:
+the layout is still the one a tp-1 run writes.  Rank 0 holds the whole
+tree in host memory while it writes (ROADMAP item 5).
 
 ``async_save`` copies every leaf into host buffers (allocated once and
 reused, pinned when the leaf is on the card) and waits for the copies
@@ -49,9 +53,9 @@ at once; a background thread then writes the payload and ``meta.json``
 tracker wait for ``finalize_async_saves()``, which the next save and
 every exit path of the train loop and of ``finetune.main`` call; a
 failed background write raises there and is never retried as a
-synchronous save.  At tp x dp the gather into rank 0's host buffers
-runs before the writer thread starts, so the thread, and the retries of
-a failed write, issue no collective.  The resilience runtime's save fault hook
+synchronous save.  At tp x dp x pp the gather into rank 0's host
+buffers runs before the writer thread starts, so the thread, and the
+retries of a failed write, issue no collective.  The resilience runtime's save fault hook
 (``resilience.set_save_fault_hook``) is consulted on every attempt of
 the retry loop, and every retry counts in the global
 ``counters['save_retries']`` (``global_vars.get_counters``).
@@ -396,8 +400,9 @@ def _state_leaf(path) -> tuple:
 def gather_one_layout(plan, params, opt_tree=None, buffers=None,
                       pinned: bool = False):
     """The one-device trees of this rank's ``params`` and optimizer tree
-    (``_opt_state_to_tree``), gathered leaf by leaf over tp and dp (a
-    collective: every rank calls it) into host tensors on global rank 0:
+    (``_opt_state_to_tree``), gathered leaf by leaf over tp and dp, and
+    a layer-stack leaf's rows over pp in natural order (a collective:
+    every rank calls it) into host tensors on global rank 0:
     ``(params, opt_tree, buffers)`` there, ``(None, None, buffers)``
     elsewhere.  Each leaf is copied into ``buffers[i]`` when that matches
     it (a previous call's, ``pinned`` for an async save), else into a new
@@ -499,8 +504,8 @@ def save_checkpoint(
     host snapshot), and this process writes them alone, with no
     collective."""
     if plan is None and not gathered and not topology.is_one_device():
-        raise ValueError("at tp x dp above 1 save_checkpoint needs the "
-                         "step's plan to gather the one layout")
+        raise ValueError("at tp x dp x pp above 1 save_checkpoint needs "
+                         "the step's plan to gather the one layout")
     if async_save:
         # at most one outstanding save: the previous one becomes durable
         # (rename + tracker) before this one starts
@@ -706,8 +711,8 @@ def load_checkpoint(
     slice of the optimizer state).
     """
     if plan is None and not topology.is_one_device():
-        raise ValueError("at tp x dp above 1 load_checkpoint needs the "
-                         "step's plan to cut the one layout")
+        raise ValueError("at tp x dp x pp above 1 load_checkpoint needs "
+                         "the step's plan to cut the one layout")
     t0 = time.perf_counter()
     explicit = iteration is not None or release
     if not explicit:

@@ -188,24 +188,23 @@ class TransformerConfig:
 # the parallel features this slice does not run: field -> (feature, the
 # one value it takes) (ROADMAP item 15)
 _UNPORTED_PARALLEL = {
-    "pipeline_model_parallel_size": ("pipeline parallelism", 1),
     "context_parallel_size": ("context parallelism", 1),
     "expert_model_parallel_size": ("the expert axis", 1),
     "num_slices": ("multislice training", 1),
     "multislice_hierarchical": ("multislice training", False),
-    "virtual_pipeline_model_parallel_size": ("the interleaved pipeline",
-                                             None),
 }
 
 
 @dataclass(frozen=True)
 class ParallelConfig:
     """Mesh shape + parallelism behaviour (the JAX package's fields).
-    Tensor and data parallelism run over ``torch.distributed``
-    (``topology.py``), with sequence parallelism at tp > 1 and ZeRO-1
-    (``use_distributed_optimizer``) at dp > 1; every other parallel
-    degree above 1 and virtual pipelining raise ``NotImplementedError``
-    naming the feature (later slices of ROADMAP item 15)."""
+    Tensor, data and pipeline parallelism run over ``torch.distributed``
+    (``topology.py``), with sequence parallelism at tp > 1, ZeRO-1
+    (``use_distributed_optimizer``) at dp > 1 and the interleaved
+    schedule at ``virtual_pipeline_model_parallel_size`` > 1 (which
+    needs pp > 1); context parallelism, the expert axis and multislice
+    raise ``NotImplementedError`` naming the feature (later slices of
+    ROADMAP item 15)."""
 
     tensor_model_parallel_size: int = 1
     pipeline_model_parallel_size: int = 1
@@ -222,13 +221,23 @@ class ParallelConfig:
         if self.tensor_model_parallel_size < 1:
             raise ValueError(f"tensor_model_parallel_size must be >= 1, "
                              f"got {self.tensor_model_parallel_size}")
+        if self.pipeline_model_parallel_size < 1:
+            raise ValueError(f"pipeline_model_parallel_size must be >= 1, "
+                             f"got {self.pipeline_model_parallel_size}")
         for name, (feature, ok) in _UNPORTED_PARALLEL.items():
             value = getattr(self, name)
             if value != ok:
                 raise NotImplementedError(
                     f"{feature} ({name}={value}) is not ported yet: this "
-                    f"slice runs tensor, sequence and data parallelism "
-                    f"only (ROADMAP item 15)")
+                    f"slice runs tensor, sequence, data and pipeline "
+                    f"parallelism only (ROADMAP item 15)")
+        vpp = self.virtual_pipeline_model_parallel_size
+        if vpp is not None and (vpp < 1 or (
+                vpp > 1 and self.pipeline_model_parallel_size == 1)):
+            raise ValueError(
+                f"virtual_pipeline_model_parallel_size {vpp} needs "
+                f"pipeline_model_parallel_size > 1 (got "
+                f"{self.pipeline_model_parallel_size})")
 
     @property
     def world_size(self) -> int:
@@ -395,8 +404,8 @@ def parallel_config_from_args(args) -> ParallelConfig:
         tensor_model_parallel_size=args.tensor_model_parallel_size,
         pipeline_model_parallel_size=args.pipeline_model_parallel_size,
         data_parallel_size=getattr(args, "data_parallel_size", 1),
-        virtual_pipeline_model_parallel_size=(
-            args.num_layers_per_virtual_pipeline_stage),
+        virtual_pipeline_model_parallel_size=getattr(
+            args, "virtual_pipeline_model_parallel_size", None),
         sequence_parallel=args.sequence_parallel,
         use_distributed_optimizer=args.use_distributed_optimizer,
         context_parallel_size=args.context_parallel_size,

@@ -70,10 +70,21 @@ one layout a tp-1 run writes (rank 0 writes it; every rank cuts its
 pieces from it), so a run resumes at any tp x dp, and the tp-1 server
 serves it.  Rank 0 logs and writes the JSONL stream; at the end of the
 run every rank prints one line with its param and optimizer-state
-bytes, its peak device memory and its kernel launches.  In a world of
-more than one rank LoRA raises ``NotImplementedError``, and so do the
-mixture of experts at dp > 1 and pipeline and context parallelism at
-any size (ROADMAP item 15).
+bytes, its peak device memory and its kernel launches.
+
+``--pipeline_model_parallel_size S`` trains with the pipeline
+(``parallel/pipeline.py``, the JAX entry point's custom train step): the
+1F1B schedule, or with ``--num_layers_per_virtual_pipeline_stage`` the
+interleaved (stream) schedule over its virtual stages; dp is then the
+world over tp x pp, and every stage inits the one-device params from
+``--seed`` and keeps its rows of the layer stack (stage-major under the
+interleaved schedule) with the embedding, the final norm and the head.
+The pipelined step has no forward-only program, so a pp run evaluates
+nothing and ``--eval_only`` exits, as in the JAX entry point; its saves
+and loads keep the one layout in natural layer order.  LoRA raises
+``NotImplementedError`` at tp or dp > 1 and exits at pp > 1 (as the JAX
+CLI does); the mixture of experts raises at tp or dp > 1, and context
+parallelism at any size (ROADMAP item 15).
 ``--profiler_port`` and the flags of the other features the port lacks
 (``arguments.UNPORTED_TRAINING``) parse and raise
 ``NotImplementedError``.  ``python -m megatron_llm_torch.pretrain_gpt``
@@ -114,6 +125,7 @@ from megatron_llm_torch.models.language_model import (
 )
 from megatron_llm_torch.optimizer import MegatronOptimizer
 from megatron_llm_torch.parallel import mappings
+from megatron_llm_torch.parallel.pipeline import refuse_at_pp
 from megatron_llm_torch.parallel.sharding import plan_for
 from megatron_llm_torch.resilience import build_resilience
 from megatron_llm_torch.telemetry import build_telemetry
@@ -416,6 +428,15 @@ _RANK_0_OUTPUTS = ("structured_log_dir", "tensorboard_dir", "trace_dir",
 
 
 def _refuse_at_tp(args) -> None:
+    if args.pipeline_model_parallel_size > 1:
+        # the JAX CLI's refusals (root finetune.py:422-424, :550-554)
+        if args.lora_rank:
+            raise SystemExit("--lora_rank supports pp=1 on the CLI path "
+                             "(the lora.py library composes manually)")
+        if args.eval_only:
+            raise SystemExit(
+                "--eval_only is not supported with pipeline parallelism "
+                "(no forward-only program for the pipelined engine)")
     sizes = [(f"tensor-parallel size {args.tensor_model_parallel_size}",
               args.tensor_model_parallel_size),
              (f"data-parallel size {args.data_parallel_size}",
@@ -450,6 +471,8 @@ def rank_summary(params, opt_state=None) -> dict:
         "tp": topology.get_tensor_model_parallel_world_size(),
         "dp_rank": topology.get_data_parallel_rank(),
         "dp": topology.get_data_parallel_world_size(),
+        "pp_rank": topology.get_pipeline_model_parallel_rank(),
+        "pp": topology.get_pipeline_model_parallel_world_size(),
         "param_bytes": sum(p.numel() * p.element_size() for p in ps),
         "param_elements": sum(p.numel() for p in ps),
         "opt_state_bytes": sum(t.numel() * t.element_size()
@@ -457,7 +480,8 @@ def rank_summary(params, opt_state=None) -> dict:
         "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None),
         "kernel_launches": kernel_launches(),
-        # the tp collectives by (backend, device, op)
+        # the collectives and the pipeline's point-to-point steps by
+        # (backend, device, op)
         "collectives": {"/".join(k): n for k, n in mappings.calls.items()},
     }
 
@@ -500,9 +524,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     pc = parallel_config_from_args(args)
     tc = train_config_from_args(args)
     model = model_provider(args)
-    # the features this slice does not split over dp raise before any
-    # collective
+    # the features this slice does not split over dp or pipeline raise
+    # before any collective
     refuse_at_dp(model.cfg, default_loss_func)
+    refuse_at_pp(model)
     num_micro = args.global_batch_size // (args.micro_batch_size
                                            * args.data_parallel_size)
     resilience = build_resilience(args)
@@ -543,7 +568,8 @@ def _train(args, model, pc, tc, num_micro, tokenizer, arch, resilience,
     params, opt_state = None, None
     start_iteration = consumed_samples = 0
     template = init_language_model_params(None, model.cfg, device="meta")
-    # at tp x dp: the step's plan, which cuts a load and gathers a save
+    # at tp x dp x pp: the step's plan, which cuts a load (a stage's rows
+    # of the natural stack) and gathers a save
     plan = plan_for(template, model.cfg, args.sequence_parallel,
                     args.use_distributed_optimizer)
     if args.load:
@@ -623,7 +649,7 @@ def _train(args, model, pc, tc, num_micro, tokenizer, arch, resilience,
           f"{num_micro} micro-batch(es) of {args.micro_batch_size} x "
           f"{args.seq_length} tokens per iteration", flush=True)
     if args.eval_only:
-        # no training, one evaluation pass
+        # no training, one evaluation pass (refused at pp by main)
         if eval_iter is None:
             raise SystemExit("--eval_only requires validation data")
         eval_step = build_train_step(model, optimizer, pc, num_micro,
@@ -633,6 +659,11 @@ def _train(args, model, pc, tc, num_micro, tokenizer, arch, resilience,
         print(f" eval_only: validation loss "
               f"{sum(losses) / len(losses):.6E}", flush=True)
         return start_iteration
+    if pc.pipeline_model_parallel_size > 1:
+        # pretrain trains pp > 1 through the pipelined step (the JAX entry
+        # point's custom train_step); it has no forward-only program, so
+        # nothing is evaluated
+        eval_iter = None
     handler = DistributedSignalHandler() if args.exit_signal_handler \
         else None
     if handler:

@@ -58,11 +58,21 @@ def _classify(path: Sequence[str]) -> Tuple[bool, str]:
     return False, names[0]
 
 
-def layer_group_names(params) -> List[str]:
+def layer_group_names(params, plan=None) -> List[str]:
     """Deterministic group names for a param tree: ``embedding`` first (when
     present), then one ``layer_NNN`` per stacked transformer-layer row, then
     the remaining top-level groups in flatten order (``final_norm``,
-    ``lm_head``, ...)."""
+    ``lm_head``, ...).  At pp > 1 (a ``plan`` whose ``pp`` is) ``params``
+    is a stage's, and the names are the whole stack's: ``layer_NNN``
+    indexes the stacked rows, which are stage-major under the interleaved
+    pipeline (the JAX package's ``health.py:18-21``)."""
+    if plan is not None and getattr(plan, "pp", 1) > 1:
+        names = layer_group_names(params)
+        start = _layer_slot(names)
+        rows = sum(1 for n in names if n.startswith("layer_"))
+        return (names[:start] + [LAYER_GROUP_FMT.format(i)
+                                 for i in range(plan.num_layers)]
+                + names[start + rows:])
     num_layers = 0
     others: List[str] = []
     for path, leaf in tree_leaves_with_path(params):
@@ -99,13 +109,16 @@ class GroupStats:
     makes ``add_sumsq`` count each element once, as the grad norm does
     (``unique_parts``; ``sliced``: the tensors are ZeRO-1 slices), and
     ``result`` sums the groups over tp x dp, so that every rank holds the
-    one-device stats."""
+    one-device stats.  At pp > 1 a stage's stacked rows take the slots
+    of its rows of the whole stack (``plan.row0`` on), and ``result``
+    sums over pp too."""
 
     def __init__(self, names: Sequence[str], device, plan=None,
                  sliced: bool = False):
         self.plan, self.sliced = plan, sliced
         self.names = list(names)
-        self.start = _layer_slot(self.names)
+        self.start = _layer_slot(self.names) + (
+            getattr(plan, "row0", 0) if plan is not None else 0)
         self.device = device
         self.sumsq = {k: torch.zeros(len(self.names), dtype=torch.float32,
                                      device=device)
@@ -192,7 +205,7 @@ def compute_layer_stats(params, grads, updates=None, plan=None,
     ``layer_group_names(params)`` order.  At tp x dp, with the step's
     ``plan``, the trees are this rank's pieces (``sliced``: ZeRO-1
     slices) and the sums run over tp x dp, each element once."""
-    names = layer_group_names(params)
+    names = layer_group_names(params, plan)
     leaves = tree_leaves_with_path(params)
     gs = GroupStats(names, leaves[0][1].device if leaves else "cpu", plan,
                     sliced)

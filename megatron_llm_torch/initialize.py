@@ -34,7 +34,7 @@ def initialize_parallel(args, init_method: Optional[str] = None):
         tensor_model_parallel_size=args.tensor_model_parallel_size,
         pipeline_model_parallel_size=args.pipeline_model_parallel_size,
         virtual_pipeline_model_parallel_size=(
-            args.num_layers_per_virtual_pipeline_stage),
+            args.virtual_pipeline_model_parallel_size),
         context_parallel_size=args.context_parallel_size,
         num_slices=args.num_slices)
     return args

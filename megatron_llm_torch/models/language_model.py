@@ -5,7 +5,7 @@ the model's FLOP count per token for MFU accounting.
 At tp > 1 a rank holds its slice of the tree (``parallel/sharding.py``'s
 spec tables): the init draws every full leaf in the one-device order and
 keeps this rank's slice, so that a seed gives the same model at every
-tp.  The word embedding and the head are vocab-parallel, the logits stay
+tp; at pp > 1 it keeps the stage's rows of the layer stack.  The word embedding and the head are vocab-parallel, the logits stay
 this rank's vocabulary shard, and under sequence parallelism the
 embedding's output (and its dropout mask, and the position embedding's
 rows) is this rank's sequence shard."""
@@ -66,7 +66,7 @@ def num_params(params) -> int:
 
 def init_language_model_params(generator: torch.Generator,
                                cfg: TransformerConfig, dtype=None,
-                               device=None, shard=None):
+                               device=None, shard=None, rows=None):
     """Param tree::
 
         {'embedding': {'word': {'embedding': [V, H]},
@@ -81,7 +81,8 @@ def init_language_model_params(generator: torch.Generator,
     spec_subtree)`` (``sharding.tp_sharder``), when given, keeps each
     leaf's tensor-parallel slice as soon as the full leaf is drawn (one
     layer at a time for the stack), so the peak is one full layer above
-    the shards.
+    the shards.  ``rows`` keeps a pipeline stage's layers of the stack
+    (``init_stack_params``).
     """
     dtype = dtype or cfg.params_torch_dtype
     init = init_method_for(cfg)
@@ -95,7 +96,7 @@ def init_language_model_params(generator: torch.Generator,
             generator, cfg, dtype, device,
             shard_layer=None if shard is None else (
                 lambda lp: shard(lp, transformer_layer_specs(
-                    lp, stacked=False)))),
+                    lp, stacked=False))), rows=rows),
     }
     if shard is not None:
         params["transformer"]["final_norm"] = keep(
@@ -122,10 +123,20 @@ def init_language_model_params(generator: torch.Generator,
 def init_params_at_tp(generator, cfg: TransformerConfig, dtype=None,
                       device=None):
     """``init_language_model_params`` for this rank: its slices at tp > 1
-    (the one-device draws, each leaf cut as it comes), the whole tree at
-    tp 1."""
+    (the one-device draws, each leaf cut as it comes) and at pp > 1 its
+    stage's rows of the layer stack (``parallel/pipeline.py``), the
+    whole tree on one device."""
+    rows = None
+    pp = topology.get_pipeline_model_parallel_world_size()
+    if pp > 1:
+        from megatron_llm_torch.parallel.pipeline import stage_layer_rows
+
+        rows = stage_layer_rows(
+            cfg.num_layers, pp,
+            topology.get_virtual_pipeline_model_parallel_world_size(),
+            topology.get_pipeline_model_parallel_rank())
     return init_language_model_params(generator, cfg, dtype, device,
-                                      shard=tp_sharder(cfg))
+                                      shard=tp_sharder(cfg), rows=rows)
 
 
 def embedding_forward(tokens: torch.Tensor, position_ids, params,

@@ -191,22 +191,29 @@ def init_layer_params(generator, cfg: TransformerConfig, dtype, device=None,
 
 def init_stack_params(generator, cfg: TransformerConfig, dtype,
                       device=None, layer_type: str = "encoder",
-                      shard_layer=None):
+                      shard_layer=None, rows=None):
     """Layer-stacked params: every leaf gets a leading [num_layers] axis.
     Each layer is drawn and copied into the stacked tensors in turn, so
     the peak is one layer above the final size.  ``shard_layer(layer)``,
     when given, cuts each drawn layer to this rank's tensor-parallel
-    slices before it is stacked."""
+    slices before it is stacked.  ``rows`` (a pipeline stage's natural
+    layers, in its row order) keeps those layers alone; every layer is
+    still drawn, so that a seed gives the same model at every pp."""
     L = cfg.num_layers
+    slot = {layer: j for j, layer in enumerate(rows)} if rows is not None \
+        else {i: i for i in range(L)}
     layers = None
     for i in range(L):
         lp = init_layer_params(generator, cfg, dtype, device, layer_type)
+        if i not in slot:
+            continue
         if shard_layer is not None:
             lp = shard_layer(lp)
         if layers is None:
             layers = tree_map(lambda t: torch.empty(
-                (L,) + tuple(t.shape), dtype=t.dtype, device=t.device), lp)
-        tree_map(lambda dst, src: dst[i].copy_(src), layers, lp)
+                (len(slot),) + tuple(t.shape), dtype=t.dtype,
+                device=t.device), lp)
+        tree_map(lambda dst, src: dst[slot[i]].copy_(src), layers, lp)
     return {
         "layers": layers,
         "final_norm": init_norm_params(cfg.hidden_size, cfg.normalization,

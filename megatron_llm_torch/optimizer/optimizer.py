@@ -26,6 +26,10 @@ above 1 the step takes the train step's ``TensorParallelPlan``
 element once over tp x dp, the inf/nan check is agreed over the world,
 so that every rank clips by the same norm and skips the same step, and
 the layer stats' per-group sums count each element once the same way.
+At pp > 1 the plan adds the stages' sums over the pp group (each
+stage's rows of the layer stack once, the leaves every stage holds on
+stage 0 only) and the inf/nan consensus is the world's, so that every
+stage clips by the whole model's norm and skips the same steps.
 Under ZeRO-1 (the plan's ``zero1``: ``--use_distributed_optimizer`` at
 dp > 1) a rank holds the masters and moments of its dp slice of each
 leaf that has one (``init(params, plan)``; the JAX package's
@@ -184,7 +188,7 @@ class MegatronOptimizer:
                    if self.is_low_precision else
                    [plan.dp_slice(path, p) if zero else p
                     for path, p in named])
-        gs = (health.GroupStats(health.layer_group_names(params),
+        gs = (health.GroupStats(health.layer_group_names(params, plan),
                                 g_leaves[0].device, plan, zero)
               if layer_stats else None)
         if gs is not None and found_inf:

@@ -24,13 +24,28 @@ Every collective goes through ``collective``, on the (backend, device
 type, op) triples of the fixed table ``ROUTES``; any other raises
 ``NotImplementedError``.  Besides the three of the mappings, ``gather``
 (to the group's first rank) moves a checkpoint's pieces to the writer:
-on host tensors under gloo, on CUDA tensors under NCCL.  gloo takes CUDA tensors for all three ops and
-stages them through the host itself, so no op stages a copy here: two
+on host tensors under gloo, on CUDA tensors under NCCL.  ``permute`` is
+the pipeline's point-to-point step over the pp group, the counterpart
+of ``lax.ppermute`` with the JAX engine's ``_fwd_rotation`` /
+``_bwd_rotation``: each rank sends a tensor ``shift`` stages on and
+receives one from ``shift`` stages back.  ``permute_many`` posts every
+send and receive of a pipeline tick before it waits on any, so no two
+stages wait on each other; a tensor that a rank does not send (a bubble,
+the unused wrap-around) is left out by both ends alike.  Under NCCL the
+ops go in one ``batch_isend_irecv``; under gloo, ``isend`` / ``irecv``
+with one tag a direction.  gloo's point-to-point reads a CUDA tensor's
+pointer as host memory (a send between two ranks on one H100 failed
+with "writev: Bad address"), so ``STAGED`` routes copy each CUDA tensor
+to the host before the send and the received host tensor back to the
+card, on every call.  gloo takes CUDA tensors for the three collectives
+of the mappings and stages them through the host itself, so those stage
+no copy here: two
 ranks on one H100 (torch 2.11) took 117, 100 and 49 ms for a tp-2
 rank's all-gather, reduce-scatter and all-reduce on gloo's own CUDA
 route against 191, 196 and 88 ms through a host copy made in Python
 (``chip_smoke.py --tp_only``; ``PERF.md`` §5).  ``calls`` counts the
-collectives by triple, so that a run can report them.
+collectives by triple (a permute's sends), so that a run can report
+them.
 """
 
 from __future__ import annotations
@@ -47,7 +62,12 @@ ROUTES = frozenset((backend, dev, op)
                    for backend, dev in (("gloo", "cpu"), ("gloo", "cuda"),
                                         ("nccl", "cuda"))
                    for op in ("all_reduce", "all_gather", "reduce_scatter")
-                   ) | {("gloo", "cpu", "gather"), ("nccl", "cuda", "gather")}
+                   ) | {("gloo", "cpu", "gather"), ("nccl", "cuda", "gather"),
+                        ("gloo", "cpu", "permute"), ("gloo", "cuda", "permute"),
+                        ("nccl", "cuda", "permute")}
+
+# the routes whose tensors go through a host copy on every call
+STAGED = frozenset({("gloo", "cuda", "permute")})
 
 # (backend, device type, op) -> calls in this process
 calls: Counter = Counter()
@@ -100,6 +120,69 @@ def collective(op: str, x: torch.Tensor, group=None, *, dim: int = 0,
     else:
         raise ValueError(f"unknown collective {op!r}")
     return out
+
+
+def _pp_group(group):
+    return group if group is not None else \
+        topology.get_pipeline_model_parallel_group()
+
+
+def permute_many(sends, recvs, group=None) -> list:
+    """One pipeline tick's point-to-point ops over ``group`` (the pp group
+    by default), all posted before any is waited on.  ``sends``: [(x,
+    shift)], each ``x`` to the stage ``shift`` on; ``recvs``: [(like,
+    shift)], each a tensor shaped and typed as ``like`` from the stage
+    ``shift`` back.  Returns the received tensors in order.  Both ends
+    must name the same ops: a rank's send of shift s pairs with the
+    receive of shift s on the stage s on."""
+    group = _pp_group(group)
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    backend = dist.get_backend(group)
+    ops, posted, outs, landing = [], [], [], []
+    for x, shift in sends:
+        key = (backend, x.device.type, "permute")
+        if key not in ROUTES:
+            raise NotImplementedError(f"no route for permute over "
+                                      f"{key[0]} on {key[1]} tensors")
+        calls[key] += 1
+        t = x.detach().contiguous()
+        if key in STAGED:
+            t = t.cpu()
+        peer = dist.get_global_rank(group, (me + shift) % n)
+        ops.append(("send", t, peer, shift))
+    for like, shift in recvs:
+        key = (backend, like.device.type, "permute")
+        if key not in ROUTES:
+            raise NotImplementedError(f"no route for permute over "
+                                      f"{key[0]} on {key[1]} tensors")
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if key in STAGED else like.device)
+        peer = dist.get_global_rank(group, (me - shift) % n)
+        ops.append(("recv", buf, peer, shift))
+        outs.append(buf)
+        landing.append(like.device)
+    if backend == "nccl":
+        p2p = [dist.P2POp(dist.isend if kind == "send" else dist.irecv, t,
+                          peer, group) for kind, t, peer, _ in ops]
+        posted = dist.batch_isend_irecv(p2p) if p2p else []
+    else:
+        # one tag a direction: a forward and a backward message between
+        # the same two stages in one tick stay apart
+        for kind, t, peer, shift in ops:
+            fn = dist.isend if kind == "send" else dist.irecv
+            posted.append(fn(t, peer, group=group, tag=int(shift < 0)))
+    for req in posted:
+        req.wait()
+    return [buf if buf.device == dev else buf.to(dev)
+            for buf, dev in zip(outs, landing)]
+
+
+def permute(x: torch.Tensor, shift: int, group=None) -> torch.Tensor:
+    """``lax.ppermute`` over the pp group: ``x`` to the stage ``shift``
+    on, and the tensor of the stage ``shift`` back returned (every stage
+    sends and receives)."""
+    return permute_many([(x, shift)], [(x, shift)], group)[0]
 
 
 def _split(x: torch.Tensor, dim: int, group) -> torch.Tensor:

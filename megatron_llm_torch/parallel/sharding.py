@@ -7,7 +7,7 @@ optimizer's ``state_specs(zero1=True)``), and ``TensorParallelPlan``,
 which the train step, the optimizer, the checkpoints and the snapshots
 use to finish and reduce a step's grads over tp x dp, to count each
 element once, and to move a tree between a rank's pieces and the one
-layout.
+layout (and, at pp > 1, between a stage's rows and the whole stack).
 
 A spec names the logical axis of each dim of a leaf (``'vocab'``,
 ``'ffn'``, ``'heads'``, ``'stage'`` or None).  The JAX package maps
@@ -70,11 +70,19 @@ def _norm_spec(p, stacked):
 def transformer_layer_specs(layers, stacked: bool = True, cfg=None) -> dict:
     """Logical-axis specs of one (layer-stacked) transformer layer tree,
     the decoder's ``inter_attention`` included.  The mixture of experts'
-    ``expert`` axis is not ported (ROADMAP item 15): its specs raise."""
+    ``expert`` axis is not ported (ROADMAP item 15): at tp 1 its leaves
+    are replicated (their specs name no tp axis, the pipeline's stages
+    the stacked dim), and at tp > 1 its specs raise."""
+    moe_mlp = None
     if "experts" in layers["mlp"]:
-        raise NotImplementedError(
-            "the mixture of experts' expert axis at tp > 1 is not ported "
-            "yet (ROADMAP item 15)")
+        if topology.get_tensor_model_parallel_world_size() > 1:
+            raise NotImplementedError(
+                "the mixture of experts' expert axis at tp > 1 is not "
+                "ported yet (ROADMAP item 15)")
+        lead = ("stage",) if stacked else ()
+        moe_mlp = _map_with_specs(
+            lambda t, _: lead + (None,) * (t.dim() - len(lead)),
+            layers["mlp"], layers["mlp"])
     layer_specs = {
         "input_norm": _norm_spec(layers["input_norm"], stacked),
         "attention": {
@@ -84,7 +92,7 @@ def transformer_layer_specs(layers, stacked: bool = True, cfg=None) -> dict:
             "dense": _linear_spec(layers["attention"]["dense"], "heads",
                                   None, stacked),
         },
-        "mlp": {
+        "mlp": moe_mlp or {
             "dense_h_to_4h": _linear_spec(
                 layers["mlp"]["dense_h_to_4h"], None, "ffn", stacked),
             "dense_4h_to_h": _linear_spec(
@@ -407,6 +415,15 @@ class TensorParallelPlan:
     * ``gather_leaf`` / ``shard_leaf``: a leaf (or its optimizer state)
       between this rank's piece and the one-device layout, for the
       checkpoints and the snapshots.
+
+    At pp > 1 a stage holds its rows of the layer stack (stage-major
+    under the interleaved pipeline, ``parallel/pipeline.py``) and the
+    whole of every other leaf, as every stage does: a global sum counts
+    the stage's rows on every stage and the other leaves on pp rank 0
+    only, and adds over pp last; ``gather_leaf`` gathers the rows over
+    pp and puts them back in natural order, ``shard_leaf`` takes a
+    stage's rows of the natural stack.  ``row0`` is the stage's first
+    stacked row (the layer stats' ``layer_NNN`` slots).
     """
 
     def __init__(self, params, cfg, sequence_parallel: bool,
@@ -415,6 +432,12 @@ class TensorParallelPlan:
         self.rank = topology.get_tensor_model_parallel_rank()
         self.dp = topology.get_data_parallel_world_size()
         self.dp_rank = topology.get_data_parallel_rank()
+        self.pp = topology.get_pipeline_model_parallel_world_size()
+        self.pp_rank = topology.get_pipeline_model_parallel_rank()
+        self.vpp = (topology.get_virtual_pipeline_model_parallel_world_size()
+                    or 1)
+        self.num_layers = cfg.num_layers
+        self.row0 = self.pp_rank * (cfg.num_layers // self.pp)
         self.sequence_parallel = sequence_parallel
         self.zero1 = bool(zero1) and self.dp > 1
         self.cfg = cfg
@@ -436,9 +459,17 @@ class TensorParallelPlan:
         return x if self.dp == 1 else mappings.collective(
             "all_reduce", x, topology.get_data_parallel_group())
 
+    def pp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.pp == 1 else mappings.collective(
+            "all_reduce", x, topology.get_pipeline_model_parallel_group())
+
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over tp, then over dp."""
-        return self.dp_sum(self.tp_sum(x))
+        """The sum of ``x`` over tp, then over dp, then over pp."""
+        return self.pp_sum(self.dp_sum(self.tp_sum(x)))
+
+    def stacked(self, path) -> bool:
+        """A leaf of the layer stack (its first dim the layers)."""
+        return self.specs[path][:1] == ("stage",)
 
     # -- ZeRO-1 slices ------------------------------------------------------
 
@@ -529,6 +560,8 @@ class TensorParallelPlan:
         if not (sliced and self.zero_dim(path) is not None) \
                 and self.dp_rank != 0:
             return []
+        if self.pp_rank != 0 and not self.stacked(path):
+            return []
         if not is_sharded(self.specs[path]):
             return [t] if self.rank == 0 else []
         if self._qkv(path):
@@ -573,11 +606,24 @@ class TensorParallelPlan:
             return None
         spec = self.specs[path]
         if self.tp == 1 or _tp_dim(spec) is None:
-            return t.detach() if self.rank == 0 else None
-        parts = self._to_root(t.unsqueeze(0),
-                              topology.get_tensor_model_parallel_group())
-        return None if parts is None else \
-            unshard_leaf(list(parts.unbind(0)), spec, self.cfg)
+            t = t.detach() if self.rank == 0 else None
+        else:
+            parts = self._to_root(t.unsqueeze(0),
+                                  topology.get_tensor_model_parallel_group())
+            t = None if parts is None else \
+                unshard_leaf(list(parts.unbind(0)), spec, self.cfg)
+        if t is None or self.pp == 1:
+            return t
+        if not self.stacked(path):
+            return t if self.pp_rank == 0 else None
+        # the stages' rows, stage-major, then the natural order
+        from megatron_llm_torch.parallel.pipeline import (
+            unpermute_layer_stack,
+        )
+
+        rows = self._to_root(t, topology.get_pipeline_model_parallel_group())
+        return None if rows is None else unpermute_layer_stack(
+            rows, self.num_layers, self.pp, self.vpp)
 
     @staticmethod
     def _to_root(t: torch.Tensor, group, dim: int = 0):
@@ -592,16 +638,24 @@ class TensorParallelPlan:
 
     def shard_leaf(self, path, full: torch.Tensor, sliced: bool = False
                    ) -> torch.Tensor:
-        """This rank's piece of a one-device leaf (a new tensor): its tp
-        slice, and with ``sliced`` its ZeRO-1 slice of that."""
+        """This rank's piece of a one-device leaf (a new tensor): its
+        stage's rows of a layer-stack leaf, its tp slice, and with
+        ``sliced`` its ZeRO-1 slice of that."""
+        if self.pp > 1 and self.stacked(path):
+            from megatron_llm_torch.parallel.pipeline import (
+                take_rows,
+                stage_layer_rows,
+            )
+
+            full = take_rows(full, stage_layer_rows(
+                self.num_layers, self.pp, self.vpp, self.pp_rank))
         local = shard_leaf(full, self.specs[path], self.rank, self.tp,
                            self.cfg)
         return self.dp_slice(path, local).contiguous() if sliced else local
 
 
 def plan_for(params, cfg, sequence_parallel: bool, zero1: bool = False):
-    """A ``TensorParallelPlan`` at tp > 1 or dp > 1, else None."""
-    if topology.get_tensor_model_parallel_world_size() == 1 \
-            and topology.get_data_parallel_world_size() == 1:
+    """A ``TensorParallelPlan`` at tp, dp or pp above 1, else None."""
+    if topology.is_one_device():
         return None
     return TensorParallelPlan(params, cfg, sequence_parallel, zero1)

@@ -45,6 +45,12 @@ def parse(argv: Sequence[str], extra_args: Callable):
     trainer and ``args.padded_vocab_size`` set."""
     args = parse_args(list(argv), extra_args_provider=extra_args)
     refuse_unported(args, UNPORTED_TRAINING, extra_args)
+    if args.pipeline_model_parallel_size > 1:
+        # the pipeline drives decoder stacks only (the JAX engine's)
+        raise NotImplementedError(
+            f"BERT, T5 and ICT at pipeline-parallel size "
+            f"{args.pipeline_model_parallel_size}: the pipeline drives the "
+            f"GPT families' decoder stacks only, as in the JAX package")
     if args.data_parallel_size > 1:
         # their losses are not row-separable (BERT's and T5's token means
         # over the batch, ICT's in-batch negatives)

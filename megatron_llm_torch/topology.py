@@ -6,9 +6,12 @@ The JAX package lays its devices out as one mesh with axes ``('slice',
 order, tp innermost, so that a tensor-parallel group is a block of
 consecutive ranks (``rank_grid``).  ``initialize_model_parallel`` derives
 dp as world // (slice x tp x pp x cp), as the JAX package does, and
-builds one ``torch.distributed`` group for each tp block and one for each
+builds one ``torch.distributed`` group for each tp block, one for each
 (slice, pp, cp, tp) coordinate, whose ranks stride cp x tp: the dp
-group, the JAX mesh's ``dp`` axis.  The getters
+group, the JAX mesh's ``dp`` axis, and one for each (slice, dp, cp, tp)
+coordinate, whose ranks stride dp x cp x tp: the pp group, the stages
+of one pipeline in stage order (the JAX mesh's ``pp`` axis, over which
+``lax.ppermute`` rotates activations).  The getters
 answer from the process's own rank (the JAX package answers inside
 ``shard_map`` with ``axis_index``).  Before ``initialize_model_parallel``
 runs, every size is 1 and every rank 0: the single-device paths never
@@ -46,6 +49,9 @@ _SIZES: Optional[dict] = None
 _COORDS: Optional[dict] = None
 _TP_GROUP = None
 _DP_GROUP = None
+_PP_GROUP = None
+# the global ranks of this rank's pp group, in stage order
+_PP_RANKS: Optional[list] = None
 _VIRTUAL_PIPELINE_MODEL_PARALLEL_SIZE: Optional[int] = None
 
 
@@ -81,13 +87,13 @@ def initialize_model_parallel(
     world_size: Optional[int] = None,
     rank: Optional[int] = None,
 ) -> np.ndarray:
-    """Lay the ranks out and build the tp and dp groups; returns
+    """Lay the ranks out and build the tp, dp and pp groups; returns
     ``rank_grid``'s array.  ``world_size`` and ``rank`` default to the process group's
     (1 and 0 without one).  Given without a process group, only the
     sizes and ranks are set: no group is built (the rank arithmetic of
     the JAX package's mesh tests).  Every rank of a process group must
     call this, in the same order: ``new_group`` is collective."""
-    global _SIZES, _COORDS, _TP_GROUP, _DP_GROUP
+    global _SIZES, _COORDS, _TP_GROUP, _DP_GROUP, _PP_GROUP, _PP_RANKS
     global _VIRTUAL_PIPELINE_MODEL_PARALLEL_SIZE
     have_pg = dist.is_available() and dist.is_initialized()
     if world_size is None:
@@ -114,10 +120,20 @@ def initialize_model_parallel(
             group = dist.new_group([int(r) for r in row])
             if rank in row:
                 dp_group = group
+    pp = grid.shape[1]
+    pp_group, pp_ranks = None, None
+    for row in np.moveaxis(grid, 1, -1).reshape(-1, pp):
+        # each row is one (slice, dp, cp, tp) coordinate's stages, which
+        # stride dp x cp x tp
+        group = (dist.new_group([int(r) for r in row])
+                 if have_pg and world_size > 1 and pp > 1 else None)
+        if rank in row:
+            pp_group, pp_ranks = group, [int(r) for r in row]
     _SIZES = dict(zip(MESH_AXES, grid.shape))
     _COORDS = {a: int(c) for a, c in zip(MESH_AXES, coords)}
     _TP_GROUP = tp_group
     _DP_GROUP = dp_group
+    _PP_GROUP, _PP_RANKS = pp_group, pp_ranks
     _VIRTUAL_PIPELINE_MODEL_PARALLEL_SIZE = \
         virtual_pipeline_model_parallel_size
     return grid
@@ -129,9 +145,9 @@ def model_parallel_is_initialized() -> bool:
 
 def destroy_model_parallel() -> None:
     """Forget the layout (the process group itself stays up)."""
-    global _SIZES, _COORDS, _TP_GROUP, _DP_GROUP
+    global _SIZES, _COORDS, _TP_GROUP, _DP_GROUP, _PP_GROUP, _PP_RANKS
     global _VIRTUAL_PIPELINE_MODEL_PARALLEL_SIZE
-    _SIZES = _COORDS = _TP_GROUP = _DP_GROUP = None
+    _SIZES = _COORDS = _TP_GROUP = _DP_GROUP = _PP_GROUP = _PP_RANKS = None
     _VIRTUAL_PIPELINE_MODEL_PARALLEL_SIZE = None
 
 
@@ -211,11 +227,50 @@ def get_data_parallel_group():
     return _DP_GROUP
 
 
+def get_pipeline_model_parallel_group():
+    """This rank's pp group (its pipeline's stages, in stage order);
+    raises when pp is 1 or when the layout was set without a process
+    group."""
+    if _PP_GROUP is None:
+        raise RuntimeError("no pipeline-parallel group: pp is 1 or "
+                           "initialize_model_parallel ran without a "
+                           "process group")
+    return _PP_GROUP
+
+
+def is_pipeline_first_stage() -> bool:
+    return get_pipeline_model_parallel_rank() == 0
+
+
+def is_pipeline_last_stage() -> bool:
+    return (get_pipeline_model_parallel_rank()
+            == get_pipeline_model_parallel_world_size() - 1)
+
+
+def _pp_neighbour(shift: int) -> int:
+    pp = get_pipeline_model_parallel_world_size()
+    if _PP_RANKS is None:
+        return 0
+    return _PP_RANKS[(get_pipeline_model_parallel_rank() + shift) % pp]
+
+
+def get_pipeline_model_parallel_next_rank() -> int:
+    """The global rank of the next stage (stage 0's after the last)."""
+    return _pp_neighbour(1)
+
+
+def get_pipeline_model_parallel_prev_rank() -> int:
+    """The global rank of the previous stage (the last's before stage
+    0)."""
+    return _pp_neighbour(-1)
+
+
 def is_one_device() -> bool:
-    """tp and dp are both 1: the rank holds the whole tree and the whole
-    optimizer state (the save paths' single-writer case)."""
+    """tp, dp and pp are all 1: the rank holds the whole tree and the
+    whole optimizer state (the save paths' single-writer case)."""
     return (get_tensor_model_parallel_world_size() == 1
-            and get_data_parallel_world_size() == 1)
+            and get_data_parallel_world_size() == 1
+            and get_pipeline_model_parallel_world_size() == 1)
 
 
 def resolve_backend(flag: str, device_type: str) -> str:

@@ -55,9 +55,15 @@ tracer with its goodput accounting (``tracing.py``: the root ``train``
 span and the ``data_next``, ``step``, ``step_sync``,
 ``checkpoint_save`` and ``eval`` spans), a metrics writer
 (``wandb_logger.WandbTBShim``), the signal handler's save-and-exit and
-asynchronous checkpoint saves, finalized on every exit path.  A custom
-train step (the JAX package's pipelined engine) is the one keyword the
-port refuses.
+asynchronous checkpoint saves, finalized on every exit path.
+
+At pp > 1 (``topology``) the step is the pipeline's
+(``parallel/pipeline.build_pipeline_train_step``, the JAX package's
+custom ``train_step``): ``pretrain`` takes it as ``train_step``, or
+builds it itself when none is given, and then refuses an
+``eval_iterator`` as the JAX package does (the pipelined engine has no
+forward-only program); a skipped iteration takes the stream schedule's
+forward sweep.  ``build_train_step`` itself raises at pp > 1.
 """
 
 from __future__ import annotations
@@ -185,6 +191,12 @@ def build_train_step(
     element once."""
     tp = topology.get_tensor_model_parallel_world_size()
     dp = topology.get_data_parallel_world_size()
+    pp = topology.get_pipeline_model_parallel_world_size()
+    if pp > 1:
+        raise ValueError(
+            f"build_train_step runs the layer stack on one rank; at "
+            f"pipeline-parallel size {pp} use parallel/pipeline."
+            f"build_pipeline_train_step")
     if (parallel_cfg.tensor_model_parallel_size,
             parallel_cfg.data_parallel_size) != (tp, dp):
         raise ValueError(
@@ -398,7 +410,26 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-_UNPORTED = {"train_step": "a custom train step"}
+def _forward_only(model, optimizer, parallel_cfg, num_micro, loss_func):
+    """The forward-only step of a skipped iteration: ``build_train_step``'s,
+    or at pp > 1 the stream schedule's forward sweep over the global
+    batch (no dropout)."""
+    if topology.get_pipeline_model_parallel_world_size() == 1:
+        return build_train_step(model, optimizer, parallel_cfg, num_micro,
+                                loss_func, forward_only=True)
+    from megatron_llm_torch.parallel.pipeline import build_pipeline_loss_fn
+
+    loss_fn = build_pipeline_loss_fn(
+        model, parallel_cfg.pipeline_model_parallel_size, num_micro,
+        num_virtual=parallel_cfg.virtual_pipeline_model_parallel_size or 1,
+        sequence_parallel=parallel_cfg.sequence_parallel)
+
+    def step(params, batch, rng_key=None):
+        loss = loss_fn(params, batch, None, 1.0, False)[1]
+        # a mixture of experts' value is (loss, aux)
+        return loss[0] if isinstance(loss, tuple) else loss
+
+    return step
 
 
 def _world_max(x: float) -> torch.Tensor:
@@ -465,7 +496,7 @@ def pretrain(
     resilience=None,
     telemetry=None,
     preempt_exit_code: int = 0,
-    **unported,
+    train_step: Optional[Callable] = None,
 ):
     """The training loop from ``start_iteration``; returns ``(params,
     opt_state, iteration)``.
@@ -522,25 +553,32 @@ def pretrain(
       ``checkpointing.finalize_async_saves()`` runs before the next save
       and on every exit path.
 
-    At tp x dp > 1 every rank runs this loop on its pieces and its rows:
-    the loop builds the step's ``TensorParallelPlan`` (ZeRO-1 under
+    At tp x dp x pp > 1 every rank runs this loop on its pieces and its
+    rows: the loop builds the step's ``TensorParallelPlan`` (ZeRO-1 under
     ``parallel_cfg.use_distributed_optimizer``), whose state slices the
     fresh optimizer state takes, and which the saves, the snapshots, the
     params norm and the layer stats use; the samples and tokens it counts
     are the global batch's.
 
-    A custom ``train_step`` raises ``NotImplementedError``."""
-    for name, value in unported.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"pretrain() got an unexpected keyword "
-                            f"argument {name!r}")
-        if value not in (None, False, 0):
-            raise NotImplementedError(f"{_UNPORTED[name]} ({name}) is not "
-                                      f"ported yet")
+    ``train_step``: a custom step with ``build_train_step``'s signature
+    (the JAX package's pipelined engine); at pp > 1 the loop builds the
+    pipeline's when none is given.  With a custom step an
+    ``eval_iterator`` raises ``ValueError``: no forward-only program
+    exists for it."""
     refuse_at_dp(getattr(model, "cfg", None), loss_func)
     dp = topology.get_data_parallel_world_size()
-    # at tp x dp the step's grads, the params norm, the saves and the
-    # snapshots go through one plan
+    pp = topology.get_pipeline_model_parallel_world_size()
+    if pp > 1:
+        from megatron_llm_torch.parallel.pipeline import refuse_at_pp
+
+        refuse_at_pp(model, loss_func)
+    custom_step = train_step is not None or pp > 1
+    if custom_step and eval_iterator is not None:
+        raise ValueError(
+            "eval_iterator is not supported with a custom train_step "
+            "(no forward-only program exists for it)")
+    # at tp x dp x pp the step's grads, the params norm, the saves and
+    # the snapshots go through one plan
     plan = (plan_for(params, model.cfg, bool(getattr(
         model.cfg, "sequence_parallel", False)),
         parallel_cfg.use_distributed_optimizer)
@@ -567,10 +605,20 @@ def pretrain(
         opt_state = optimizer.init(params, plan)
     if scheduler is None:
         scheduler = build_scheduler(train_cfg, start_iteration)
-    train_step = build_train_step(
-        model, optimizer, parallel_cfg, num_micro, loss_func,
-        log_num_zeros_in_grad=log_num_zeros_in_grad,
-        log_layer_stats=log_layer_stats_interval > 0, plan=plan)
+    if train_step is None and pp > 1:
+        from megatron_llm_torch.parallel.pipeline import (
+            build_pipeline_train_step,
+        )
+
+        train_step = build_pipeline_train_step(
+            model, optimizer, parallel_cfg, num_micro,
+            layer_stats=log_layer_stats_interval > 0, plan=plan,
+            log_num_zeros_in_grad=log_num_zeros_in_grad)
+    elif train_step is None:
+        train_step = build_train_step(
+            model, optimizer, parallel_cfg, num_micro, loss_func,
+            log_num_zeros_in_grad=log_num_zeros_in_grad,
+            log_layer_stats=log_layer_stats_interval > 0, plan=plan)
     eval_step = (build_train_step(model, optimizer, parallel_cfg, num_micro,
                                   loss_func, forward_only=True)
                  if eval_iterator is not None else None)
@@ -593,7 +641,7 @@ def pretrain(
         nonfinite_grads})."""
         nonlocal ls_names
         if ls_names is None:
-            ls_names = health.layer_group_names(params)
+            ls_names = health.layer_group_names(params, plan)
         return health.to_record(ls_names, _layer_stats_host(ls_dev))
 
     injector = resilience.injector if resilience is not None else None
@@ -661,9 +709,9 @@ def pretrain(
                 if recompile is not None:
                     recompile.pause()
                 if skip_step is None:
-                    skip_step = eval_step or build_train_step(
+                    skip_step = eval_step or _forward_only(
                         model, optimizer, parallel_cfg, num_micro,
-                        loss_func, forward_only=True)
+                        loss_func)
                 metrics = {"lm loss": skip_step(params, batch, step_key),
                            "skipped_iter": 1}
                 if recompile is not None:

@@ -1,5 +1,6 @@
-"""Tensor- and data-parallel worlds of the port on the CPU, for the
-``test_torch_tp_*.py`` and ``test_torch_dp.py`` files: ``run_world`` starts one process a rank
+"""Tensor-, data- and pipeline-parallel worlds of the port on the CPU,
+for the ``test_torch_tp_*.py``, ``test_torch_dp.py`` and
+``test_torch_pp*.py`` files: ``run_world`` starts one process a rank
 (``subprocess``), joined by a gloo process group over a ``file://``
 store in the test's temporary directory (never a fixed port, so files
 running side by side do not meet), runs one task in every rank and
@@ -302,37 +303,54 @@ def _rows(batch, dp_rank, dp):
             for k, v in dp_rows(batch, dp_rank, dp).items()}
 
 
+def _stage_params(case, model):
+    """This rank's params from the case's JAX params: its tp slices, and
+    at pp > 1 its stage's rows (stage-major under vpp)."""
+    from megatron_llm_torch import topology
+    from megatron_llm_torch.parallel.pipeline import stage_rows
+    from megatron_llm_torch.tree import tree_map
+    from megatron_llm_torch.weights import params_from_jax
+
+    params = params_from_jax(
+        case["params"], model.cfg, dtype=model.cfg.params_torch_dtype,
+        device="cpu", tp_rank=topology.get_tensor_model_parallel_rank(),
+        tp_size=topology.get_tensor_model_parallel_world_size())
+    params = stage_rows(
+        params, topology.get_pipeline_model_parallel_rank(),
+        topology.get_pipeline_model_parallel_world_size(),
+        topology.get_virtual_pipeline_model_parallel_world_size(),
+        model.cfg.num_layers)
+    # own storage: the cases share the payload's arrays, which from_numpy
+    # would hand to the in-place optimizer
+    return tree_map(lambda t: t.clone(), params)
+
+
 def _setup(case, world):
-    """The topology at the case's tp (dp the rest of the world), its
-    model, this rank's params (from the JAX package's, or the seed's
-    init), optimizer, parallel config and plan."""
+    """The topology at the case's tp and pp (and vpp; dp the rest of the
+    world), its model, this rank's params (from the JAX package's, or the
+    seed's init), optimizer, parallel config and plan."""
     import torch
 
     from megatron_llm_torch import topology
     from megatron_llm_torch.config import ParallelConfig, TrainConfig
     from megatron_llm_torch.optimizer import MegatronOptimizer
     from megatron_llm_torch.parallel.sharding import plan_for
-    from megatron_llm_torch.tree import tree_map
-    from megatron_llm_torch.weights import params_from_jax
 
-    tp = case["tp"]
-    topology.initialize_model_parallel(tp)
+    tp, pp, vpp = case["tp"], case.get("pp", 1), case.get("vpp")
+    topology.initialize_model_parallel(tp, pp, vpp)
     sp = case.get("sp", False) and tp > 1
     model = _family_model(case["family"], sp, **case.get("over", {}))
     if "params" in case:
-        params = params_from_jax(
-            case["params"], model.cfg, dtype=model.cfg.params_torch_dtype,
-            device="cpu", tp_rank=topology.get_tensor_model_parallel_rank(),
-            tp_size=tp)
-        # own storage: the cases share the payload's arrays, which
-        # from_numpy would hand to the in-place optimizer
-        params = tree_map(lambda t: t.clone(), params)
+        params = _stage_params(case, model)
     else:
         params = model.init(case.get("seed", 0))
     tc = TrainConfig(**case["train"])
     opt = MegatronOptimizer(tc, params_dtype=model.cfg.params_torch_dtype)
     pc = ParallelConfig(tensor_model_parallel_size=tp,
-                        data_parallel_size=world // tp, sequence_parallel=sp,
+                        pipeline_model_parallel_size=pp,
+                        virtual_pipeline_model_parallel_size=vpp,
+                        data_parallel_size=world // (tp * pp),
+                        sequence_parallel=sp,
                         use_distributed_optimizer=case.get("zero1", False))
     plan = plan_for(params, model.cfg, sp, pc.use_distributed_optimizer)
     torch.manual_seed(0)
@@ -462,9 +480,10 @@ def task_ck(rank, world, payload):
 
 
 def task_runtime(rank, world, payload):
-    """The runtime's saves at the world's tp (dp the rest): a hang on one
-    rank fires the watchdogs, and rank 0's writes the rescue checkpoint
-    from its host snapshot (every collective's thread is recorded); a
+    """The runtime's saves at the world's tp (dp the rest; a case's pp
+    too): a hang on one rank fires the watchdogs, and rank 0's writes the
+    rescue checkpoint from its host snapshot (every collective's and
+    point-to-point step's thread is recorded); a
     SIGTERM to one rank makes every rank save and leave at the next
     boundary."""
     import threading
@@ -484,12 +503,18 @@ def task_runtime(rank, world, payload):
 
     threads = set()
     collective0 = mappings.collective
+    permute0 = mappings.permute_many
 
     def recorded(*a, **kw):
         threads.add(threading.current_thread().name)
         return collective0(*a, **kw)
 
+    def recorded_p2p(*a, **kw):
+        threads.add(threading.current_thread().name)
+        return permute0(*a, **kw)
+
     mappings.collective = recorded
+    mappings.permute_many = recorded_p2p
     out = {}
     for op in payload["ops"]:
         model, params, tc, opt, pc, plan = _setup(op, world)
@@ -531,12 +556,147 @@ def task_runtime(rank, world, payload):
         out[op["name"]] = dict(exit=code, threads=sorted(threads),
                                fired=None if wd is None else wd.fired)
     mappings.collective = collective0
+    mappings.permute_many = permute0
     return out
+
+
+def _full_grads(grads, cfg, plan):
+    """This rank's grads finished over its tp group (the train step's
+    ``finish_grads``) and gathered over it (collectives over tp), as
+    numpy: the stage's rows of every layer-stack leaf, whole."""
+    from megatron_llm_torch import topology
+    from megatron_llm_torch.parallel import sharding
+    from megatron_llm_torch.tree import tree_leaves_with_path, tree_map
+
+    if topology.get_tensor_model_parallel_world_size() > 1:
+        plan.finish_grads(tree_leaves_with_path(grads))
+        grads = sharding.gather_params(
+            grads, sharding.language_model_param_specs(grads), cfg)
+    return tree_map(_np, grads)
+
+
+def task_pp(rank, world, payload):
+    """Each case at its tp x pp (x vpp; dp the rest of the world), from the
+    JAX package's params cut to this rank:
+
+    * ``grad``: a pipeline engine's loss and grads (1F1B's
+      ``build_pipeline_grad_fn``, or the stream schedule's
+      ``value_and_grad``; ``key`` a dropout key, ``train_mode`` on), the
+      grads gathered over tp;
+    * ``step``: ``build_pipeline_train_step``'s steps on this rank's rows
+      of the global batches, and rank 0's gathered trees after them;
+    * ``rotate``: ``mappings.permute`` of the stage's index one stage on
+      and one stage back;
+    * ``memory``: the 1F1B engine at each of ``micro`` micro-batch
+      counts: the largest bytes its stash and its received activations
+      hold at a tick boundary, and the largest bytes of tensors saved
+      for backward alive at once over the call."""
+    import weakref
+
+    import torch
+
+    from megatron_llm_torch import topology
+    from megatron_llm_torch.parallel import mappings
+    from megatron_llm_torch.parallel.pipeline import (
+        build_pipeline_grad_fn,
+        build_pipeline_loss_fn,
+        build_pipeline_train_step,
+    )
+
+    out = {}
+    for name, case in payload["cases"].items():
+        model, params, tc, opt, pc, plan = _setup(case, world)
+        cfg = model.cfg
+        pp, vpp = pc.pipeline_model_parallel_size, \
+            pc.virtual_pipeline_model_parallel_size or 1
+        dp = pc.data_parallel_size
+        dp_rank = topology.get_data_parallel_rank()
+        who = dict(pp_rank=topology.get_pipeline_model_parallel_rank(),
+                   tp_rank=topology.get_tensor_model_parallel_rank(),
+                   dp_rank=dp_rank)
+        mappings.calls.clear()
+        if case["kind"] == "grad":
+            batch = _rows(case["batch"], dp_rank, dp)
+            M = batch["tokens"].shape[0]
+            if case["engine"] == "1f1b":
+                res = build_pipeline_grad_fn(
+                    model, pp, M, sequence_parallel=pc.sequence_parallel)(
+                    params, batch, case.get("key"), 1.0,
+                    case.get("train_mode", False))
+                loss, grads = res[0], res[1]
+                aux = res[2] if len(res) > 2 else None
+            else:
+                fn = build_pipeline_loss_fn(
+                    model, pp, M, num_virtual=vpp,
+                    sequence_parallel=pc.sequence_parallel)
+                (_, lfaux), grads = fn.value_and_grad(
+                    params, batch, case.get("key"), 1.0,
+                    case.get("train_mode", False))
+                loss, aux = lfaux if cfg.num_experts > 1 else (lfaux, None)
+            out[name] = dict(
+                who, loss=float(loss),
+                aux=None if aux is None else _np(aux),
+                grads=_full_grads(grads, cfg, plan),
+                permutes={"/".join(k): n for k, n in mappings.calls.items()
+                          if k[2] == "permute"})
+        elif case["kind"] == "rotate":
+            # lax.ppermute's rotations over the pp group
+            x = torch.full((2, 3), float(who["pp_rank"]))
+            out[name] = dict(who, fwd=_np(mappings.permute(x, 1)),
+                             bwd=_np(mappings.permute(x, -1)))
+        elif case["kind"] == "step":
+            state = opt.init(params, plan)
+            step = build_pipeline_train_step(
+                model, opt, pc, case["batches"][0]["tokens"].shape[0],
+                plan=plan, log_num_zeros_in_grad=True)
+            logs = []
+            for it, b in enumerate(case["batches"]):
+                params, state, m = step(params, state,
+                                        _rows(b, dp_rank, dp), None,
+                                        case["lrs"][it], tc.weight_decay)
+                logs.append({k: float(v) for k, v in m.items()})
+            out[name] = dict(who, logs=logs, state_bytes=_state_bytes(state),
+                             trees=_gathered(plan, params, state))
+        else:
+            res = {}
+            for M in case["micro"]:
+                batch = _rows(dict((k, v[:M]) for k, v in
+                                   case["batch"].items()), dp_rank, dp)
+                live = {"now": 0, "peak": 0}
+
+                def pack(t):
+                    n = t.numel() * t.element_size()
+                    live["now"] += n
+                    live["peak"] = max(live["peak"], live["now"])
+                    box = [t]
+
+                    def gone(n=n):
+                        live["now"] -= n
+
+                    holder = _Saved(box)
+                    weakref.finalize(holder, gone)
+                    return holder
+
+                engine = build_pipeline_grad_fn(model, pp, M)
+                with torch.autograd.graph.saved_tensors_hooks(
+                        pack, lambda h: h.box[0]):
+                    engine(params, batch, None, 1.0, False)
+                res[M] = dict(tick_bytes=max(engine.tick_bytes),
+                              saved_peak=live["peak"])
+            out[name] = dict(who, memory=res)
+    return out
+
+
+class _Saved:
+    """A tensor saved for backward, held while autograd holds this."""
+
+    def __init__(self, box):
+        self.box = box
 
 
 TASKS = {"ops": task_ops, "families": task_families,
          "finetune": task_finetune, "dp_step": task_dp_step,
-         "ck": task_ck, "runtime": task_runtime}
+         "ck": task_ck, "runtime": task_runtime, "pp": task_pp}
 
 
 def main(argv) -> int:
@@ -553,7 +713,8 @@ def main(argv) -> int:
 
     with open(inp, "rb") as f:
         payload = pickle.load(f)
-    topology.initialize_model_parallel(payload.get("tp", world))
+    topology.initialize_model_parallel(payload.get("tp", world),
+                                       payload.get("pp", 1))
     result = TASKS[task](rank, world, payload)
     with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(result, f)

@@ -96,10 +96,11 @@ def test_flags_lower_to_configs():
 
 @pytest.mark.parametrize("extra", [
     ["--profiler_port", "9012"],
-    ["--pipeline_model_parallel_size", "2"],
-    # tensor parallelism trains (test_torch_tp_finetune.py); the
-    # interleaved pipeline is still refused
-    ["--num_layers_per_virtual_pipeline_stage", "1"],
+    # tensor, data and pipeline parallelism train (test_torch_tp_*.py,
+    # test_torch_dp.py, test_torch_pp.py); context parallelism and
+    # multislice are still refused
+    ["--context_parallel_size", "2"],
+    ["--num_slices", "2"],
 ])
 def test_flags_for_unported_features_raise(extra):
     with pytest.raises(NotImplementedError):

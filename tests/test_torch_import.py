@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: every module (the ``weights_conversion/``
 and ``tools/`` subpackages, ``verify_correctness.py`` and the tensor
-parallelism's ``topology``, ``initialize`` and ``parallel/`` included)
+parallelism's ``topology``, ``initialize`` and ``parallel/``, the
+pipeline's ``parallel/pipeline.py`` among them, included)
 and the tensor-parallel worlds' helper of the tests
 (``tests/_torch_tp_world.py``) import with ``jax``, ``orbax``,
 ``tensorstore``, the JAX package and the repo's root modules
@@ -79,7 +80,7 @@ def test_every_port_module_imports_with_jax_blocked():
                 "tools.bench_harness", "tools.profile_step",
                 "tools.decode_bench", "tools.mfu_sweep", "topology",
                 "initialize", "parallel.mappings", "parallel.sharding",
-                "parallel.layers"):
+                "parallel.layers", "parallel.pipeline"):
         assert any(m.startswith(f"megatron_llm_torch.{sub}") for m in mods)
     code = ("import importlib, sys\n"
             f"for b in {BANNED!r}:\n"

@@ -309,3 +309,127 @@ def test_a_sigterm_to_one_rank_saves_on_every_rank_and_exits(runtime):
     d = checkpointing.get_checkpoint_name(signal, 3)
     assert checkpointing.validate_checkpoint_dir(d) == (True, "ok")
     assert all(res["signal"]["threads"] == ["MainThread"] for res in ranks)
+
+
+# ---------------------------------------------------------------------------
+# the pipeline's saves: pp 2 x vpp 2 x tp 2
+# ---------------------------------------------------------------------------
+
+BF16_4L = dict(BF16, num_layers=4)
+
+
+def _pp_op(name, op, **kw):
+    # dp 1: the global batch's 2 micro batches of 2 rows on every stage
+    train = dict(micro_batch_size=2, **kw.pop("train", {}))
+    return _op(name, op, 2, pp=2, vpp=2, over=BF16_4L, train=train, **kw)
+
+
+@pytest.fixture(scope="module")
+def pp_saved(tmp_path_factory):
+    """A world of 4 (tp 2 x pp 2, the interleaved schedule over 2
+    virtual stages, 4 layers) trains 2 iterations and saves iteration 2;
+    this process loads that save at pp 1 and saves it again; a second
+    world loads both saves at pp 2 x vpp 2 x tp 2."""
+    tmp = tmp_path_factory.mktemp("pp_checkpoint")
+    pp_dir, back = str(tmp / "pp"), str(tmp / "back")
+    w1 = run_world(tmp / "w1", "ck", 4, dict(tp=2, ops=[
+        _pp_op("train", "train", save_interval=2, save_dir=pp_dir,
+               train=dict(train_iters=2))]))
+    model = _tp1_model(BF16_4L)
+    tmpl = init_language_model_params(None, model.cfg, device="meta")
+    opt = MegatronOptimizer(TrainConfig(**TRAIN),
+                            params_dtype=torch.bfloat16)
+    params, state, meta = checkpointing.load_checkpoint(
+        pp_dir, iteration=2, params_template=tmpl,
+        opt_state_template=opt.init(tmpl), device="cpu")
+    checkpointing.save_checkpoint(back, 2, params, state,
+                                  consumed_samples=meta["consumed_samples"])
+    w2 = run_world(tmp / "w2", "ck", 4, dict(tp=2, ops=[
+        _pp_op("load_pp", "load", dir=pp_dir, iteration=2),
+        _pp_op("load_back", "load", dir=back, iteration=2)]))
+    return dict(w1=w1, w2=w2, pp_dir=pp_dir, back=back,
+                loaded=(params, state))
+
+
+def _trees_equal(trees, want):
+    for part, tree in zip(("model", "optim"), trees):
+        assert set(tree) == set(want[part]), part
+        for key, (value, _) in tree.items():
+            assert np.array_equal(value, want[part][key]), (part, key)
+
+
+def test_a_pp2_vpp2_tp2_save_is_the_one_layout_in_natural_order(pp_saved):
+    """The save holds a tp-1 save's keys, shapes and dtypes (the stack
+    in natural layer order), with the optimizer state, and the saving
+    world's pieces, gathered over tp and pp and un-permuted, are its
+    payload bit for bit."""
+    want = {part: _payload(_iter_dir(pp_saved["pp_dir"], 2, part))
+            for part in ("model", "optim")}
+    _trees_equal(pp_saved["w1"][0]["train"]["trees"], want)
+    for part in ("model", "optim"):
+        assert _dtypes(_iter_dir(pp_saved["pp_dir"], 2, part)) == \
+            _dtypes(_iter_dir(pp_saved["back"], 2, part))
+    assert want["model"]["['transformer']['layers']['input_norm']"
+                         "['scale']"].shape[0] == 4
+
+
+@pytest.mark.parametrize("which", ["load_pp", "load_back"])
+def test_a_pp_save_loads_at_pp1_and_back_bit_for_bit(pp_saved, which):
+    """Loaded at pp 1 in this process, the save is its payload; that
+    tree saved at pp 1 and loaded at pp 2 x vpp 2 x tp 2 (each stage
+    cutting its stage-major rows, then its tp slices) gathers back to
+    the same bits, as does the pp save loaded there directly."""
+    want = {part: _payload(_iter_dir(pp_saved["pp_dir"], 2, part))
+            for part in ("model", "optim")}
+    params, state = pp_saved["loaded"]
+    got = {"model": checkpointing._flat(params),
+           "optim": checkpointing._flat(
+               checkpointing._opt_state_to_tree(state))}
+    for part in ("model", "optim"):
+        assert set(got[part]) == set(want[part])
+        for key, value in want[part].items():
+            assert np.array_equal(got[part][key].float().numpy(), value)
+    _trees_equal(pp_saved["w2"][0][which]["trees"], want)
+
+
+@pytest.fixture(scope="module")
+def pp_runtime(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("pp_runtime")
+    rescue, signal = str(tmp / "rescue"), str(tmp / "signal")
+    ranks = run_world(tmp / "w2", "runtime", 2, dict(tp=1, ops=[
+        _op("rescue", "rescue", 1, pp=2, zero1=False, save_dir=rescue,
+            faults={1: "hang@3:6"}, watchdog_secs=2.0, over=BF16_4L,
+            train=dict(train_iters=4, micro_batch_size=2,
+                       global_batch_size=4)),
+        _op("signal", "signal", 1, pp=2, zero1=False, save_dir=signal,
+            faults={1: "sigterm@3"}, over=BF16_4L,
+            train=dict(train_iters=6, micro_batch_size=2,
+                       global_batch_size=4))]))
+    return ranks, rescue, signal
+
+
+def test_the_pipelines_rescue_and_signal_saves_stay_on_the_main_thread(
+        pp_runtime):
+    """At pp 2 a hung stage fires both watchdogs (stage 0 waits on its
+    receive): rank 0 writes the rescue checkpoint from its host snapshot
+    and no collective or point-to-point step runs off the main thread; a
+    SIGTERM to one stage makes both save at the next boundary and
+    leave."""
+    ranks, rescue, signal = pp_runtime
+    for r, res in enumerate(ranks):
+        assert res["rescue"]["fired"] is True, r
+        assert res["rescue"]["threads"] == ["MainThread"], r
+        assert res["signal"]["threads"] == ["MainThread"], r
+    assert [res["signal"]["exit"] for res in ranks] == [0, 0]
+    it, _ = checkpointing.read_tracker(rescue)
+    assert it == 2
+    assert checkpointing.read_tracker(signal) == (3, False)
+    model = _tp1_model(BF16_4L)
+    tmpl = init_language_model_params(None, model.cfg, device="meta")
+    for d, i in ((rescue, it), (signal, 3)):
+        assert checkpointing.validate_checkpoint_dir(
+            checkpointing.get_checkpoint_name(d, i)) == (True, "ok")
+        params, _, _ = checkpointing.load_checkpoint(
+            d, iteration=i, params_template=tmpl, device="cpu")
+        assert all(torch.isfinite(v.float()).all()
+                   for v in checkpointing._flat(params).values())

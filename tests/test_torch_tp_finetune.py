@@ -152,7 +152,27 @@ def test_finetune_refuses_one_device_features_at_tp(monkeypatch, flags):
     "expert_model_parallel_size", "num_slices",
     "virtual_pipeline_model_parallel_size"])
 def test_other_parallel_degrees_are_refused_at_tp(field):
+    """Context parallelism, the expert axis and multislice stay refused
+    at tp; the pipeline trains at tp (test_torch_pp.py), so at pp 2 the
+    case holds that a refused degree beside it still raises, and
+    virtual stages without a pipeline are refused as the JAX package
+    refuses them."""
     value = 2
+    if field == "virtual_pipeline_model_parallel_size":
+        ParallelConfig(tensor_model_parallel_size=2, sequence_parallel=True,
+                       pipeline_model_parallel_size=2, **{field: value})
+        with pytest.raises(ValueError, match="pipeline_model_parallel"):
+            ParallelConfig(tensor_model_parallel_size=2,
+                           sequence_parallel=True, **{field: value})
+        return
+    if field == "pipeline_model_parallel_size":
+        ParallelConfig(tensor_model_parallel_size=2, sequence_parallel=True,
+                       **{field: value})
+        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+            ParallelConfig(tensor_model_parallel_size=2,
+                           sequence_parallel=True, context_parallel_size=2,
+                           **{field: value})
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         ParallelConfig(tensor_model_parallel_size=2, sequence_parallel=True,
                        **{field: value})

@@ -150,12 +150,14 @@ def test_unported_training_options_raise():
     # attention train since they were ported (test_torch_dropout.py,
     # test_torch_recompute.py, test_torch_fused_ce.py,
     # test_torch_chunked_attention.py); tensor, sequence and data
-    # parallelism and ZeRO-1 run (test_torch_tp_*.py, test_torch_dp.py);
-    # the other parallel degrees still raise
+    # parallelism, ZeRO-1 and the pipeline run (test_torch_tp_*.py,
+    # test_torch_dp.py, test_torch_pp.py); the other parallel degrees
+    # still raise
     ParallelConfig(tensor_model_parallel_size=2, sequence_parallel=True)
     ParallelConfig(data_parallel_size=2, use_distributed_optimizer=True)
+    ParallelConfig(tensor_model_parallel_size=2,
+                   pipeline_model_parallel_size=2)
     with pytest.raises(NotImplementedError):
-        ParallelConfig(tensor_model_parallel_size=2,
-                       pipeline_model_parallel_size=2)
+        ParallelConfig(pipeline_model_parallel_size=2, num_slices=2)
     with pytest.raises(NotImplementedError):
         ParallelConfig(data_parallel_size=2, context_parallel_size=2)
